@@ -1,0 +1,477 @@
+// One Gibbs iteration core of the Poisson + MH sampler on Hopper (sm_90a):
+// the exact Mu/Sigmasq hyper-sweep, then N sequential P-column and N
+// sequential E-row Metropolis-Hastings updates with the exact Hastings ratio.
+//
+// (a) Replaces bayesnmf_tpu/ops/pallas_sweeps.py::_sweep_kernel, in its
+//     truncnormal / exact_mh / fixed-rank specialisation, with the
+//     accept-all warmup flag as data (rank_pack[c, 0, 1]).
+// (b) What bounds it: latency, and one SM per chain. Each of the 2N column
+//     updates is a chain of dependent steps (two reductions, a proposal, an
+//     accept decision, a rank-1 update), and one thread block per chain sits
+//     on one of the card's 132 SMs; a single chain uses under 1% of the card.
+//     The (K, G) operands stay in global memory (L2-resident at the slice's
+//     sizes), since data and Mhat at 96x2780 do not fit in 227 KB of shared
+//     memory.
+// (c) What a later PR does about it: batch chains (C blocks fill the SMs),
+//     keep Mhat rows in shared memory or registers, fuse the rank-1 update of
+//     column n into the first reduction of column n+1, and split one chain
+//     across a cluster of SMs with distributed shared memory.
+//
+// Layout: every operand is float32 and contiguous. State and uniforms carry
+// a leading chain axis C; data (K,G) and the hyperprior planes are shared.
+// The kernel reads the inputs and writes the outputs, which the caller
+// allocated; it copies state into the outputs first and updates Mhat and the
+// P/E/acceptance outputs in place through the sweeps.
+//
+// Work split inside the block:
+//   hyper-sweep  one thread per element of (K,N) and of (N,G);
+//   P column n   one warp per row k, lanes stride over g, xor-shuffle sums
+//                (every lane ends with the same bits, so all lanes draw the
+//                same proposal and make the same decision);
+//   E row n      one thread per column g, serial sums over k.
+// Sums accumulate in double, in a fixed order, with no atomics, so two
+// launches on the same inputs give the same bits.
+//
+// Numerics: built without --use_fast_math and with -fmad=false (ops/_build.py).
+// The special functions are the JAX package's own formulas
+// (pallas_special.py). Every expression is evaluated in the order, and with
+// the roundings, of the plain PyTorch version on the card (which divides by
+// a constant as a multiplication by its reciprocal), so the two agree to
+// rounding; a 1-ulp change in a proposal moves the log acceptance ratio by
+// ~1e-4 at G = 2780.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr float kFloor = 1e-6f;
+constexpr float kTiny = 1.2e-38f;
+// PyTorch's CUDA division by a scalar multiplies by its float reciprocal
+constexpr float kInvSqrt2Pi = 1.0f / 2.5066282746310002f;
+constexpr float kInvThree = 1.0f / 3.0f;
+constexpr float kLogSqrt2Pi = 0.9189385332046727f;
+
+struct Args {
+  const float* data;
+  const float *P, *E, *A, *Mh, *accP, *accE;
+  const float *UprP, *UprE, *UpP, *UaP, *UpE, *UaE;
+  const float *hp0p, *hp1p, *hp0e, *hp1e;
+  const float* rank_pack;
+  const float *Hup, *Hue, *Hhpp, *Hhpe;
+  int hyper;
+  float *P_o, *E_o, *Mh_o, *accP_o, *accE_o, *nan_o;
+  float *hp0p_o, *hp1p_o, *hp0e_o, *hp1e_o;
+  int K, N, G;
+};
+
+// jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
+// fminf would return the other operand), so a NaN reaches the acceptance
+// ratio and its clamp counter exactly as in the reference.
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
+}
+
+// ---- pallas_special.py formulas -------------------------------------------
+
+__device__ __forceinline__ float acklam_tail(float q) {
+  return (((((-7.784894002430293e-03f * q - 3.223964580411365e-01f) * q
+             - 2.400758277161838e00f) * q - 2.549732539343734e00f) * q
+           + 4.374664141464968e00f) * q + 2.938163982698783e00f) /
+         ((((7.784695709041462e-03f * q + 3.224671290700398e-01f) * q
+            + 2.445134137142996e00f) * q + 3.754408661907416e00f) * q + 1.0f);
+}
+
+// ps.ndtri: Acklam, p clamped to [1.2e-38, 1 - 1.2e-7]
+__device__ float ps_ndtri(float p) {
+  p = jmin(jmax(p, kTiny), (float)(1.0 - 1.2e-7));
+  if (p < 0.02425f) return acklam_tail(sqrtf(-2.0f * logf(jmax(p, kTiny))));
+  if (p > (float)(1.0 - 0.02425)) {
+    return -acklam_tail(sqrtf(-2.0f * logf(jmax(1.0f - p, kTiny))));
+  }
+  const float q = p - 0.5f;
+  const float r = q * q;
+  return (((((-3.969683028665376e01f * r + 2.209460984245205e02f) * r
+             - 2.759285104469687e02f) * r + 1.383577518672690e02f) * r
+           - 3.066479806614716e01f) * r + 2.506628277459239e00f) * q /
+         (((((-5.447609879822406e01f * r + 1.615858368580409e02f) * r
+             - 1.556989798598866e02f) * r + 6.680131188771972e01f) * r
+           - 1.328068155288572e01f) * r + 1.0f);
+}
+
+// ps.ndtr: Abramowitz-Stegun 7.1.26
+__device__ float ps_ndtr(float x) {
+  const float z = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.2316419f * z);
+  const float poly = t * (0.319381530f + t * (-0.356563782f + t * (
+      1.781477937f + t * (-1.821255978f + t * 1.330274429f))));
+  const float pdf = expf(-0.5f * z * z) * kInvSqrt2Pi;
+  const float upper = 1.0f - pdf * poly;
+  return x >= 0.0f ? upper : 1.0f - upper;
+}
+
+// ps.log_ndtr: asymptotic series below -4
+__device__ float ps_log_ndtr(float x) {
+  if (x < -4.0f) {
+    const float ix2 = 1.0f / (x * x);
+    return -0.5f * x * x - logf(-x) - kLogSqrt2Pi
+           + log1pf(-ix2 * (1.0f - 3.0f * ix2));
+  }
+  return logf(jmax(ps_ndtr(x), 1e-38f));
+}
+
+// ---- pallas_sweeps.py helpers ----------------------------------------------
+
+// _ndtri: erfinv in the centre, Acklam in the tails
+__device__ float ndtri(float p) {
+  if (p < 0.02425f || p > 0.97575f) return ps_ndtri(p);
+  return 1.4142135623730951f * erfinvf(2.0f * p - 1.0f);
+}
+
+// _truncnorm_icdf: TruncNormal[0, inf) by inverse CDF; beyond alpha = 8 the
+// Exp(1)/alpha deep-tail limit reuses the same uniform
+__device__ float truncnorm_icdf(float u, float mu, float sd) {
+  const float alpha = -mu / sd;
+  float z;
+  if (alpha > 8.0f) {
+    const float a_safe = jmax(alpha, 1.0f);
+    z = a_safe - logf(jmax(u, kTiny)) / a_safe;
+  } else {
+    const float tail = ps_ndtr(-alpha);
+    const float v = jmax(u * tail, kTiny);
+    z = jmax(-ndtri(v), alpha);
+  }
+  return jmax(mu + sd * z, 0.0f);
+}
+
+__device__ float tn_logpdf(float x, float mu, float var) {
+  const float sd = sqrtf(var);
+  const float z = (x - mu) / sd;
+  return -0.5f * z * z - logf(sd) - kLogSqrt2Pi - ps_log_ndtr(mu / sd);
+}
+
+// _hyper_sweep_side for one element. hhp: the 4 hyperprior planes at this
+// element (stride `plane`); hu: the 4 uniform planes.
+__device__ void hyper_elem(float x, float mu_old, float sq_old,
+                           const float* hhp, const float* hu, int plane,
+                           float* mu_out, float* sq_out) {
+  const float m0 = hhp[0], s0 = hhp[plane];
+  const float a0 = hhp[2 * plane], b0 = hhp[3 * plane];
+  const float z_mu = ndtri(hu[0]);
+  const float lu_mu = logf(hu[plane]);
+  const float z_sq = ndtri(hu[2 * plane]);
+  const float lu_sq = logf(hu[3 * plane]);
+
+  const float den = 1.0f / s0 + 1.0f / sq_old;
+  const float prop = (m0 / s0 + x / sq_old) / den + sqrtf(1.0f / den) * z_mu;
+  const float sd = sqrtf(sq_old);
+  const float la = ps_log_ndtr(mu_old / sd) - ps_log_ndtr(prop / sd);
+  const float mu_new = lu_mu < la ? prop : mu_old;
+
+  const float a = a0 + 0.5f;
+  const float b = b0 + 0.5f * (x - mu_new) * (x - mu_new);
+  const float c = 1.0f - 1.0f / (9.0f * a);
+  const float sqa3 = 3.0f * sqrtf(a);
+  const float t_new = c + z_sq / sqa3;
+  const float g_new = a * t_new * t_new * t_new;
+  const bool ok = g_new > 1e-30f;
+  const float g_new_s = jmax(g_new, 1e-30f);
+  const float sq_new = b / g_new_s;
+  const float g_old = b / jmax(sq_old, 1e-30f);
+  const float t_old = expf(logf(jmax(g_old / a, 1e-38f)) * kInvThree);
+  const float z_old = sqa3 * (t_old - c);
+  float la2 = -INFINITY;
+  if (ok) {
+    const float w_new = (a - 1.0f) * logf(g_new_s) - g_new_s
+                        + 0.5f * z_sq * z_sq
+                        + 2.0f * logf(jmax(t_new, 1e-30f))
+                        - ps_log_ndtr(mu_new / sqrtf(sq_new));
+    const float w_old = (a - 1.0f) * logf(g_old) - g_old
+                        + 0.5f * z_old * z_old
+                        + 2.0f * logf(jmax(t_old, 1e-30f))
+                        - ps_log_ndtr(mu_new / sqrtf(sq_old));
+    la2 = w_new - w_old;
+  }
+  *mu_out = mu_new;
+  *sq_out = lu_sq < la2 ? sq_new : sq_old;
+}
+
+// ---- the per-element terms of the column reductions ------------------------
+// Summed in double. Built with -fmad=false, each product and sum is rounded
+// on its own, as the plain PyTorch version rounds it; the two versions then
+// agree to the rounding of the final float at any G (in float32 with FMAs
+// the acceptance probability at G = 2780 differs by ~4e-4).
+
+struct Terms {
+  float mu1, den, lp;
+};
+
+// reductions for the conditional at the current value:
+// mu1 += ((M - (Mh - old*o)) / max(Mh, floor)) * o,  den += o*o / max(...)
+__device__ __forceinline__ Terms pass1_terms(float m, float h, float old,
+                                             float o) {
+  const float sig = jmax(h, kFloor);
+  return {((m - (h - old * o)) / sig) * o, o * o / sig, 0.0f};
+}
+
+// the same reductions at the proposal, plus the Poisson log-likelihood
+// change M*log1p(d/lam_o) - d
+__device__ __forceinline__ Terms pass2_terms(float m, float h, float old,
+                                             float dp, float o) {
+  const float lam_o = jmax(h, kFloor);
+  const float lam_n = jmax(h + dp * o, kFloor);
+  const float d = lam_n - lam_o;
+  return {((m - (h - old * o)) / lam_n) * o, o * o / lam_n,
+          m * log1pf(d / lam_o) - d};
+}
+
+__device__ __forceinline__ double warp_allsum(double v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// The acceptance step shared by both sweeps (pallas_sweeps.py:198-260):
+// returns the new value and writes the recorded acceptance; counts a NaN
+// ratio (clamped to 0) into *n_nan.
+__device__ float mh_decide(float old, float prop, float mu, float var,
+                           float mu1_r, float den_r, float lp_sum,
+                           float Mu_n, float Sq_n, float u_acc, bool acc_on,
+                           float* rec, float* n_nan) {
+  const float den_r2 = den_r + 1.0f / Sq_n;
+  const float mu_r = (mu1_r + Mu_n / Sq_n) / den_r2;
+  const float var_r = 1.0f / den_r2;
+  const float lprior = tn_logpdf(prop, Mu_n, Sq_n) - tn_logpdf(old, Mu_n, Sq_n);
+  const float log_ratio = lp_sum + lprior + tn_logpdf(old, mu_r, var_r)
+                          - tn_logpdf(prop, mu, var);
+  const float e = expf(log_ratio);
+  float ratio;
+  if (isnan(e)) {
+    ratio = 0.0f;
+    *n_nan += 1.0f;
+  } else {
+    ratio = jmin(e, 1.0f);
+  }
+  *rec = acc_on ? 1.0f : ratio;
+  return (acc_on || u_acc < ratio) ? prop : old;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_sweeps_kernel(Args a) {
+  extern __shared__ float smem[];  // [K] P column, then [kThreads] NaN counts
+  float* s_pcol = smem;
+  float* s_nan = smem + a.K;
+
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int K = a.K, N = a.N, G = a.G;
+  const int KN = K * N, NG = N * G, KG = K * G;
+
+  const float* M = a.data;
+  const float* A = a.A + (size_t)c * N;
+  const bool acc_on = a.rank_pack[(size_t)c * 3 * (N + 1) + 1] > 0.0f;
+  const size_t okn = (size_t)c * KN, ong = (size_t)c * NG;
+  float* P = a.P_o + okn;
+  float* E = a.E_o + ong;
+  float* Mh = a.Mh_o + (size_t)c * KG;
+  float* accP = a.accP_o + okn;
+  float* accE = a.accE_o + ong;
+  float* hp0p = a.hp0p_o + okn;
+  float* hp1p = a.hp1p_o + okn;
+  float* hp0e = a.hp0e_o + ong;
+  float* hp1e = a.hp1e_o + ong;
+  float n_nan = 0.0f;
+
+  // ---- copy state in; the hyper-sweep reads the pre-sweep P and E --------
+  for (int i = tid; i < KN; i += kThreads) {
+    P[i] = a.P[okn + i];
+    accP[i] = a.accP[okn + i];
+    if (a.hyper) {
+      hyper_elem(a.P[okn + i], a.hp0p[okn + i], a.hp1p[okn + i],
+                 a.Hhpp + i,
+                 a.Hup + (size_t)c * 4 * KN + i, KN, &hp0p[i], &hp1p[i]);
+    } else {
+      hp0p[i] = a.hp0p[okn + i];
+      hp1p[i] = a.hp1p[okn + i];
+    }
+  }
+  for (int i = tid; i < NG; i += kThreads) {
+    E[i] = a.E[ong + i];
+    accE[i] = a.accE[ong + i];
+    if (a.hyper) {
+      hyper_elem(a.E[ong + i], a.hp0e[ong + i], a.hp1e[ong + i],
+                 a.Hhpe + i,
+                 a.Hue + (size_t)c * 4 * NG + i, NG, &hp0e[i], &hp1e[i]);
+    } else {
+      hp0e[i] = a.hp0e[ong + i];
+      hp1e[i] = a.hp1e[ong + i];
+    }
+  }
+  for (int i = tid; i < KG; i += kThreads) Mh[i] = a.Mh[(size_t)c * KG + i];
+  __syncthreads();
+
+  // ---- P sweep: column n, one warp per row k, reductions over g ----------
+  const float* UprP = a.UprP + okn;
+  const float* UpP = a.UpP + okn;
+  const float* UaP = a.UaP + okn;
+  for (int n = 0; n < N; ++n) {
+    const bool active = A[n] != 0.0f;
+    const float* En = E + (size_t)n * G;
+    for (int k = warp; k < K; k += kWarps) {
+      const int kn = k * N + n;
+      const float Mu_n = hp0p[kn], Sq_n = hp1p[kn];
+      if (!active) {
+        if (lane == 0) P[kn] = truncnorm_icdf(UprP[kn], Mu_n, sqrtf(Sq_n));
+        continue;
+      }
+      const float old = P[kn];
+      const float* Mk = M + (size_t)k * G;
+      float* Hk = Mh + (size_t)k * G;
+      double mu1 = 0.0, den = 0.0;
+#pragma unroll 4
+      for (int g = lane; g < G; g += 32) {
+        const float o = En[g], h = Hk[g];
+        const Terms t = pass1_terms(Mk[g], h, old, o);
+        mu1 += t.mu1;
+        den += t.den;
+      }
+      const float den2 = (float)warp_allsum(den) + 1.0f / Sq_n;
+      const float mu = ((float)warp_allsum(mu1) + Mu_n / Sq_n) / den2;
+      const float var = 1.0f / den2;
+      const float prop = truncnorm_icdf(UpP[kn], mu, sqrtf(var));
+      const float dp = prop - old;
+      double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
+#pragma unroll 4
+      for (int g = lane; g < G; g += 32) {
+        const float o = En[g], h = Hk[g];
+        const Terms t = pass2_terms(Mk[g], h, old, dp, o);
+        lp += t.lp;
+        mu1_r += t.mu1;
+        den_r += t.den;
+      }
+      float rec, nan_here = 0.0f;
+      const float nv = mh_decide(
+          old, prop, mu, var, (float)warp_allsum(mu1_r),
+          (float)warp_allsum(den_r), (float)warp_allsum(lp), Mu_n, Sq_n,
+          UaP[kn], acc_on, &rec, &nan_here);
+      if (nv != old) {
+        const float dv = nv - old;
+        for (int g = lane; g < G; g += 32) Hk[g] += dv * En[g];
+      }
+      if (lane == 0) {
+        P[kn] = nv;
+        accP[kn] = rec;
+        n_nan += nan_here;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- E sweep: row n, one thread per column g, reductions over k --------
+  const float* UprE = a.UprE + ong;
+  const float* UpE = a.UpE + ong;
+  const float* UaE = a.UaE + ong;
+  for (int n = 0; n < N; ++n) {
+    const bool active = A[n] != 0.0f;
+    for (int k = tid; k < K; k += kThreads) s_pcol[k] = P[k * N + n];
+    __syncthreads();
+    for (int g = tid; g < G; g += kThreads) {
+      const int ng = n * G + g;
+      const float Mu_n = hp0e[ng], Sq_n = hp1e[ng];
+      if (!active) {
+        E[ng] = truncnorm_icdf(UprE[ng], Mu_n, sqrtf(Sq_n));
+        continue;
+      }
+      const float old = E[ng];
+      double mu1 = 0.0, den = 0.0;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        const size_t kg = (size_t)k * G + g;
+        const Terms t = pass1_terms(M[kg], Mh[kg], old, s_pcol[k]);
+        mu1 += t.mu1;
+        den += t.den;
+      }
+      const float den2 = (float)den + 1.0f / Sq_n;
+      const float mu = ((float)mu1 + Mu_n / Sq_n) / den2;
+      const float var = 1.0f / den2;
+      const float prop = truncnorm_icdf(UpE[ng], mu, sqrtf(var));
+      const float dp = prop - old;
+      double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        const size_t kg = (size_t)k * G + g;
+        const Terms t = pass2_terms(M[kg], Mh[kg], old, dp, s_pcol[k]);
+        lp += t.lp;
+        mu1_r += t.mu1;
+        den_r += t.den;
+      }
+      float rec;
+      const float nv = mh_decide(old, prop, mu, var, (float)mu1_r,
+                                 (float)den_r, (float)lp, Mu_n, Sq_n,
+                                 UaE[ng], acc_on, &rec, &n_nan);
+      if (nv != old) {
+        const float dv = nv - old;
+        for (int k = 0; k < K; ++k) {
+          const size_t kg = (size_t)k * G + g;
+          Mh[kg] += dv * s_pcol[k];
+        }
+      }
+      E[ng] = nv;
+      accE[ng] = rec;
+    }
+    __syncthreads();
+  }
+
+  // ---- NaN-clamp count: integer-valued, so the sum order is immaterial ---
+  s_nan[tid] = n_nan;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < kThreads; ++i) total += s_nan[i];
+    a.nan_o[c] = total;
+  }
+}
+
+}  // namespace
+
+extern "C" int fused_gibbs_sweeps_launch(
+    const float* data, const float* P, const float* E, const float* A,
+    const float* Mh, const float* accP, const float* accE,
+    const float* UprP, const float* UprE, const float* UpP, const float* UaP,
+    const float* UpE, const float* UaE,
+    const float* hp0p, const float* hp1p, const float* hp0e,
+    const float* hp1e, const float* rank_pack,
+    const float* Hup, const float* Hue, const float* Hhpp, const float* Hhpe,
+    int hyper,
+    float* P_o, float* E_o, float* Mh_o, float* accP_o, float* accE_o,
+    float* nan_o, float* hp0p_o, float* hp1p_o, float* hp0e_o,
+    float* hp1e_o, int C, int K, int N, int G, void* stream) {
+  Args a;
+  a.data = data;
+  a.P = P; a.E = E; a.A = A; a.Mh = Mh; a.accP = accP; a.accE = accE;
+  a.UprP = UprP; a.UprE = UprE; a.UpP = UpP; a.UaP = UaP;
+  a.UpE = UpE; a.UaE = UaE;
+  a.hp0p = hp0p; a.hp1p = hp1p; a.hp0e = hp0e; a.hp1e = hp1e;
+  a.rank_pack = rank_pack;
+  a.Hup = Hup; a.Hue = Hue; a.Hhpp = Hhpp; a.Hhpe = Hhpe;
+  a.hyper = hyper;
+  a.P_o = P_o; a.E_o = E_o; a.Mh_o = Mh_o; a.accP_o = accP_o;
+  a.accE_o = accE_o; a.nan_o = nan_o;
+  a.hp0p_o = hp0p_o; a.hp1p_o = hp1p_o; a.hp0e_o = hp0e_o; a.hp1e_o = hp1e_o;
+  a.K = K; a.N = N; a.G = G;
+  const size_t smem = (size_t)(K + kThreads) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_sweeps_kernel<<<C, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,273 @@
+"""The Gibbs engine: state construction, one step, the chunk runner, and the
+tempering schedule.
+
+Port of bayesnmf_tpu/models/gibbs.py for the fused path of the default model
+(Poisson likelihood, TruncNormal prior, exact MH, exact TruncNormal hypers,
+fixed rank). Each step draws one flat uniform tensor, recomputes Mhat with
+one matmul, runs the fused sweep (ops/fused_sweeps.py) and computes the
+metrics row. ``jax.lax.scan`` becomes a Python loop that writes each step
+into buffers preallocated on the device; no step waits for the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bayesnmf_tpu.config import ModelSpec
+
+from ..ops import math as m
+from ..ops.fused_sweeps import fused_gibbs_sweeps
+from . import updates as U
+
+# metrics-row layout (order matches the reference's sample_metrics columns,
+# bayesNMF_sampler.R:190-207); NA_events counts MH ratios clamped NaN -> 0
+METRIC_NAMES = (
+    "iter", "RMSE", "KL", "loglikelihood", "logposterior", "n_params", "BIC",
+    "rank", "temp", "P_mean_acceptance_rate", "E_mean_acceptance_rate",
+    "NA_events",
+)
+N_METRICS = len(METRIC_NAMES)
+
+_TINY = 1.2e-38
+
+
+def check_spec(spec: ModelSpec):
+    """Raise NotImplementedError for anything outside the ported slice."""
+    missing = []
+    if spec.likelihood != "poisson" or not spec.MH:
+        missing.append(f"likelihood={spec.likelihood!r} with MH={spec.MH}")
+    if spec.prior != "truncnormal":
+        missing.append(f"prior={spec.prior!r}")
+    if spec.learning_rank:
+        missing.append(f"rank learning ({spec.rank_method})")
+    if not spec.exact_mh:
+        missing.append("exact_mh=False")
+    if not spec.exact_truncnorm_hypers:
+        missing.append("exact_truncnorm_hypers=False")
+    if spec.stream_sweeps:
+        missing.append("stream_sweeps")
+    if not spec.fused_sweeps:
+        missing.append("the unfused sweep path (fused_sweeps=False)")
+    if missing:
+        raise NotImplementedError(
+            "bayesnmf_tpu_torch ports one chain of the default model at a "
+            "fixed rank so far; not ported: " + ", ".join(missing)
+            + " (see ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# state construction
+# ---------------------------------------------------------------------------
+
+
+def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
+               gen: torch.Generator, init_params=None,
+               init_prior_params=None) -> dict:
+    """Initial state on ``data``'s device: prior parameters from the
+    hyperpriors, P and E from the priors, iteration 1 (gibbs.py:41-92).
+    ``init_params`` / ``init_prior_params`` entries override the draws."""
+    check_spec(spec)
+    dev = data.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    prior = U.init_prior_params(spec, hp, gen, dev)
+    for name, v in (init_prior_params or {}).items():
+        prior[name] = torch.as_tensor(np.asarray(v, np.float32), **f32)
+    params = {"P": U._prior_draw_P(spec, prior, gen),
+              "E": U._prior_draw_E(spec, prior, gen),
+              "R": torch.tensor(spec.N, dtype=torch.int32, device=dev),
+              "A": torch.ones(spec.N, **f32)}
+    for name, v in (init_params or {}).items():
+        dt = np.int32 if name == "R" else np.float32
+        params[name] = torch.as_tensor(np.asarray(v, dt), device=dev)
+    return {"params": params, "prior": prior, "gen": gen, "iter": 1,
+            "acc_P": torch.ones(spec.K, spec.N, **f32),
+            "acc_E": torch.ones(spec.N, spec.G, **f32)}
+
+
+def step_constants(spec: ModelSpec, hp: dict, device) -> dict:
+    """Per-fit constant operands of the fused sweep: the hyperprior planes
+    [m, s, a, b] of each side and the (3, N+1) rank pack (all zeros at a
+    fixed rank). The reference rebuilds them every step; here a chunk builds
+    them once."""
+    K, N, G = spec.K, spec.N, spec.G
+    planes = lambda side, shape: torch.stack([  # noqa: E731
+        torch.full(shape, float(hp[f"{k}_{side}"]), dtype=torch.float32,
+                   device=device) for k in ("m", "s", "a", "b")])
+    return {"hyper_hp": (planes("p", (K, N)), planes("e", (N, G))),
+            "rank_pack": torch.zeros(3, N + 1, dtype=torch.float32,
+                                     device=device)}
+
+
+def n_uniforms(spec: ModelSpec) -> int:
+    """Length of one step's flat uniform tensor: three planes per side for
+    the sweeps (prior fallback, proposal, acceptance) and four per side for
+    the hyper-sweep (gibbs.py:175-180)."""
+    return 7 * (spec.K * spec.N + spec.N * spec.G)
+
+
+# ---------------------------------------------------------------------------
+# one Gibbs iteration
+# ---------------------------------------------------------------------------
+
+
+def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
+               accept_all, metric_consts=None, u=None, consts=None):
+    """One full Gibbs sweep; returns (new_state, sample_out).
+
+    Order (gibbs.py:100-290): hyper-sweep, P sweep, E sweep, all inside the
+    fused sweep, after a fresh Mhat = P diag(A) E. ``u`` is the flat uniform
+    tensor of length ``n_uniforms(spec)``, laid out as at gibbs.py:175-207;
+    when None it is drawn from ``state['gen']``. ``sample_out`` holds P,
+    E, A and the metrics row. ``metric_consts`` and ``consts``
+    (step_constants) are computed when not given.
+    """
+    K, N, G = spec.K, spec.N, spec.G
+    dev = data.device
+    params = dict(state["params"])
+    prior = dict(state["prior"])
+    if consts is None:
+        consts = step_constants(spec, hp, dev)
+
+    # fresh Mhat every iteration, so the sweeps' rank-1 updates cannot
+    # accumulate float32 drift over thousands of iterations
+    Mh = m.mhat(params["P"], params["A"], params["E"])
+
+    n_p, n_e = K * N, N * G
+    if u is None:
+        u = torch.rand(n_uniforms(spec), generator=state["gen"],
+                       device=dev).clamp_min_(_TINY)
+    Upr_P, Up_P, Ua_P = (u[i * n_p:(i + 1) * n_p].view(K, N)
+                         for i in range(3))
+    off = 3 * n_p
+    Upr_E, Up_E, Ua_E = (u[off + i * n_e:off + (i + 1) * n_e].view(N, G)
+                         for i in range(3))
+    off = 3 * (n_p + n_e)
+    hyper_u = (u[off:off + 4 * n_p].view(4, K, N),
+               u[off + 4 * n_p:off + 4 * (n_p + n_e)].view(4, N, G))
+
+    (params["P"], params["E"], Mh, acc_P, acc_E, _, _, na_events,
+     prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"],
+     prior["Sigmasq_e"]) = fused_gibbs_sweeps(
+        data, params["P"], params["E"], params["A"], Mh, state["acc_P"],
+        state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
+        prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"], prior["Sigmasq_e"],
+        consts["rank_pack"], prior_kind="truncnormal", exact_mh=True,
+        accept_all=accept_all, rank_method=None, hyper_u=hyper_u,
+        hyper_hp=consts["hyper_hp"])
+
+    new_iter = state["iter"] + 1
+    new_state = {"params": params, "prior": prior, "gen": state["gen"],
+                 "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
+    metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
+                           temperature, acc_P, acc_E, na_events,
+                           metric_consts)
+    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
+                       "metrics": metrics}
+
+
+def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
+                 acc_E, na_events=0.0, consts=None):
+    """Per-iteration metrics (compute_metrics_, utils.R:412-455), Poisson
+    likelihood from Mhat (gibbs.py:293-347). ``it`` and ``temperature`` are
+    host numbers; everything else stays on the device."""
+    if consts is None:
+        consts = m.metric_constants(spec.likelihood, data)
+    # one log(max(Mhat, floor)) pass feeds both the loglik and the padded
+    # KL (the floors coincide: MHAT_FLOOR == the KL pad, 1e-6)
+    lam = Mh.clamp_min(m.MHAT_FLOOR)
+    L = torch.log(lam)
+    loglik = torch.sum(data * L) - torch.sum(lam) - consts["lgamma_sum"]
+    kl = consts["mlogm_sum"] - torch.sum(data.clamp_min(1e-6) * L)
+    logpost = loglik + m.logprior_PE(params["P"], params["E"], spec.prior,
+                                     prior)
+    A = params["A"]
+    n_par = m.n_params_of(A, spec.K, spec.G)
+    sum_a = torch.sum(A)
+    accP_mean = (torch.sum(acc_P * A.unsqueeze(0))
+                 / (sum_a * spec.K).clamp_min(1.0))
+    accE_mean = (torch.sum(acc_E * A.unsqueeze(1))
+                 / (sum_a * spec.G).clamp_min(1.0))
+    row = torch.empty(N_METRICS, dtype=torch.float32, device=data.device)
+    # fill_ passes a host number to a kernel; `row[0] = x` would copy it
+    # from host memory and wait for the device
+    row[0].fill_(float(it))
+    row[1:8] = torch.stack([m.rmse(data, Mh), kl, loglik, logpost, n_par,
+                            m.bic(loglik, n_par, spec.G), sum_a])
+    row[8].fill_(float(temperature))
+    row[9:11] = torch.stack([accP_mean, accE_mean])
+    if isinstance(na_events, torch.Tensor):
+        row[11] = na_events
+    else:
+        row[11].fill_(float(na_events))
+    return row
+
+
+def snapshot_sample(spec: ModelSpec, data, state: dict, temperature) -> dict:
+    """Sample record of the current state without advancing the chain (the
+    initial sample, bayesNMF_sampler.R:240-257)."""
+    params = state["params"]
+    Mh = m.mhat(params["P"], params["A"], params["E"])
+    metrics = _metrics_row(spec, data, params, state["prior"], Mh,
+                           state["iter"], temperature, state["acc_P"],
+                           state["acc_E"])
+    return {"P": params["P"], "E": params["E"], "A": params["A"],
+            "metrics": metrics}
+
+
+# ---------------------------------------------------------------------------
+# chunk runner
+# ---------------------------------------------------------------------------
+
+
+def run_chunk(spec: ModelSpec, data, hp: dict, state: dict, temps,
+              accept_all: bool):
+    """Run ``len(temps)`` Gibbs iterations (the reference's lax.scan).
+
+    Returns (state, samples): ``samples['metrics']`` is (steps, N_METRICS)
+    and ``samples['P'/'E'/'A']`` stack the per-iteration draws, all in
+    buffers allocated once on the device.
+    """
+    steps = len(temps)
+    dev = data.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    metric_consts = m.metric_constants(spec.likelihood, data)
+    consts = step_constants(spec, hp, dev)
+    out = {"metrics": torch.empty(steps, N_METRICS, **f32),
+           "P": torch.empty(steps, spec.K, spec.N, **f32),
+           "E": torch.empty(steps, spec.N, spec.G, **f32),
+           "A": torch.empty(steps, spec.N, **f32)}
+    for i, temp in enumerate(np.asarray(temps, np.float32).tolist()):
+        state, sample = gibbs_step(spec, data, hp, state, temp, accept_all,
+                                   metric_consts, consts=consts)
+        for k, buf in out.items():
+            buf[i] = sample[k]
+    return state, out
+
+
+# ---------------------------------------------------------------------------
+# tempering schedule (get_temp_sched_, utils.R:307-332)
+# ---------------------------------------------------------------------------
+
+
+def temp_schedule(length: int, n_temp: int,
+                  rng: np.random.Generator | None = None):
+    """Log-spaced temperature ladder 0 -> 1 over ~n_temp iterations, padded
+    with 1s, including the 374-level ladder constant and the sorted random
+    subsample when the ladder exceeds ``n_temp`` (gibbs.py:410-432)."""
+    if rng is None:
+        rng = np.random.default_rng(0)
+    nX = max(int(round(n_temp / 374)), 1)
+    sched = [0.0] * nX
+    for x in range(9, 4, -1):
+        sched += [10.0 ** (-x)] * nX
+    sched += [1e-4] * int(round(8 * nX))
+    for y in range(4, 0, -1):
+        for x in np.arange(0.0, 8.95, 0.1):
+            sched += [(1.0 + x) * 10.0 ** (-y)] * nX
+    sched = np.asarray(sched, np.float64)
+    if len(sched) > n_temp:
+        sched = np.sort(rng.choice(sched, size=n_temp, replace=False))
+    pad = max(length - len(sched), 0)
+    out = np.concatenate([sched, np.ones(pad)])[:length]
+    return out.astype(np.float32)

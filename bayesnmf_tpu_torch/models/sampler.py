@@ -1,0 +1,464 @@
+"""Host side of the sampler: phases, convergence checks, MAP windows, I/O.
+
+Port of bayesnmf_tpu/models/sampler.py for one chain at a fixed rank. The
+hot loop runs on the device in chunks of MAP_every iterations
+(models/gibbs.py); this class owns everything at chunk granularity: sample
+windows, metrics history, convergence, logging, checkpointing and the
+postprocessing entry points, which read numpy arrays.
+
+The device is explicit: ``device="cuda"`` (the default) runs the CUDA
+kernel, ``device="cpu"`` the kernel's plain PyTorch version. Nothing falls
+back from one to the other.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import shutil
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from bayesnmf_tpu.config import (
+    ConvergenceControl,
+    ModelSpec,
+    RunConfig,
+    default_hyperprior_params,
+    default_MH,
+)
+from bayesnmf_tpu.utils.logging import RunLogger
+
+from . import gibbs
+from .convergence import ConvergenceTracker
+from .map_estimate import compute_map, map_quality_metrics
+
+_ROADMAP = "not ported yet (see ROADMAP.md queue 1)"
+
+
+def _resolve_output_dir(output_dir: Optional[str],
+                        overwrite: bool) -> Optional[str]:
+    """Collision-suffixing `_1,_2,...` or wipe-on-overwrite
+    (bayesNMF_sampler.R:111-121)."""
+    if output_dir is None:
+        return None
+    final = output_dir
+    tail = 0
+    while not overwrite and os.path.isdir(final):
+        tail += 1
+        final = f"{output_dir}_{tail}"
+    if overwrite and os.path.isdir(final):
+        shutil.rmtree(final)
+    os.makedirs(final, exist_ok=True)
+    return final
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on, as given. CUDA without a card is an error, not
+    a quiet run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False; pass "
+            "device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class GibbsSampler:
+    """Single-chain Bayesian NMF Gibbs sampler at a fixed rank."""
+
+    def __init__(
+        self,
+        data,
+        rank,
+        likelihood: str = "poisson",
+        prior: str = "truncnormal",
+        rank_method: str = "SBFI",
+        MH: Optional[bool] = None,
+        convergence_control: Optional[ConvergenceControl] = None,
+        prop_temp: float = 0.2,
+        post_warmup: Optional[int] = None,
+        output_dir: Optional[str] = None,
+        overwrite: bool = False,
+        hyperprior_params: Optional[dict] = None,
+        init_prior_params: Optional[dict] = None,
+        init_params: Optional[dict] = None,
+        verbosity: int = 1,
+        periodic_save: bool = True,
+        save_all_samples: bool = True,
+        record_history: str = "basic",
+        mesh=None,
+        fused_sweeps: Optional[bool] = None,
+        exact_mh: bool = True,
+        exact_truncnorm_hypers: bool = True,
+        stream_sweeps: bool = False,
+        seed: int = 0,
+        device="cuda",
+    ):
+        if record_history not in ("basic", "full"):
+            raise ValueError("record_history must be 'basic' or 'full'")
+        if record_history == "full":
+            raise NotImplementedError(f"record_history='full' is {_ROADMAP}")
+        if not isinstance(rank, (int, np.integer)):
+            raise NotImplementedError(
+                f"rank learning over a rank list (SBFI, BFI, BIC) is "
+                f"{_ROADMAP}")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh-sharded fits are {_ROADMAP}")
+        if stream_sweeps:
+            raise NotImplementedError(f"stream_sweeps is {_ROADMAP}")
+        self.device = resolve_device(device)
+        self.row_names = None
+        self.col_names = None
+        if hasattr(data, "index") and hasattr(data, "columns"):
+            self.row_names = [str(r) for r in data.index]
+            self.col_names = [str(c) for c in data.columns]
+            data = data.to_numpy()
+        # row-major: the kernel takes contiguous tensors (R data arrive
+        # column-major)
+        data = np.ascontiguousarray(data, np.float32)
+        if MH is None:
+            MH = default_MH(likelihood, prior)
+        spec = ModelSpec(
+            K=data.shape[0], N=int(rank), G=data.shape[1],
+            likelihood=likelihood, prior=prior, MH=MH, rank_method=rank_method,
+            exact_mh=exact_mh, exact_truncnorm_hypers=exact_truncnorm_hypers)
+        if spec.likelihood == "poisson" and spec.MH:
+            # the fused sweep is the port's only sweep path
+            spec = dataclasses.replace(spec,
+                                       fused_sweeps=fused_sweeps is not False)
+        gibbs.check_spec(spec)
+        self.spec = spec
+        self.cc = convergence_control or ConvergenceControl()
+        self.run_cfg = RunConfig(
+            prop_temp=prop_temp, post_warmup=post_warmup,
+            output_dir=output_dir, overwrite=overwrite, verbosity=verbosity,
+            periodic_save=periodic_save, save_all_samples=save_all_samples,
+            seed=seed)
+        self.rank = int(rank)
+        self.post_warmup = self.run_cfg.resolved_post_warmup(self.cc)
+        self.output_dir = _resolve_output_dir(output_dir, overwrite)
+        self.logger = RunLogger(self.output_dir, verbosity)
+
+        # temperatures, 1-indexed by iteration; all 1 at a fixed rank
+        # (bayesNMF_sampler.R:128-137)
+        n_iters = self.cc.maxiters + self.post_warmup
+        self.temp_sched = np.ones(n_iters + 1, np.float32)
+        self.temp_sched[0] = 0.0
+
+        self.data = torch.as_tensor(data, device=self.device)
+        self.hyperprior_params = dict(
+            default_hyperprior_params(spec, float(data.mean())))
+        if hyperprior_params:
+            self.hyperprior_params.update(hyperprior_params)
+
+        self.logger.log("Initialized sampler", 1)
+        self.logger.indent = 1
+        self.logger.log(
+            f"likelihood = {likelihood}, prior = {prior}, MH = {MH}", 1)
+        self.logger.log(f"learning_rank = False, rank = {self.rank}", 1)
+        self.logger.log(f"device = {self.device}", 1)
+        self.logger.log(f"maxiters = {self.cc.maxiters}", 1)
+        self.logger.log(f"MAP_over = {self.cc.MAP_over}", 1)
+        self.logger.log(f"MAP_every = {self.cc.MAP_every}", 1)
+        self.logger.indent = 0
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.state = gibbs.init_state(
+            spec, self.hyperprior_params, self.data, gen,
+            init_params=init_params, init_prior_params=init_prior_params)
+        self.tracker = ConvergenceTracker(self.cc)
+        self.iter = 1
+        self.time = {}
+        self.MAP: Optional[dict] = None
+        self.credible_intervals: Optional[dict] = None
+        self.MAP_metrics: list[dict] = []
+        self.reference_comparison: dict = {}
+
+        # the retained window holds device chunks; the archive holds every
+        # sample on the host
+        window_chunks = -(-self.cc.MAP_over // self.cc.MAP_every) + 1
+        self._window = collections.deque(maxlen=window_chunks)
+        self._archive = [] if save_all_samples else None
+        self._metric_rows: list[np.ndarray] = []
+
+        # record the initial sample (iteration 1), bayesNMF_sampler.R:240-257
+        snap = gibbs.snapshot_sample(spec, self.data, self.state,
+                                     float(self.temp_sched[1]))
+        self._append_chunk({k: v.unsqueeze(0) for k, v in snap.items()},
+                           start_iter=1)
+
+    # ------------------------------------------------------------------
+    # sample storage
+    # ------------------------------------------------------------------
+
+    def _append_chunk(self, samples: dict, start_iter: int):
+        self._window.append({"P": samples["P"], "E": samples["E"],
+                             "A": samples["A"], "start_iter": start_iter})
+        self._metric_rows.append(_host(samples["metrics"]))
+        if self._archive is not None:
+            self._archive.append(
+                {k: _host(samples[k]) for k in ("P", "E", "A")}
+                | {"start_iter": start_iter})
+
+    def _gather_window(self, end_iter: int, n_samples: int, device=None):
+        """Stack the last ``n_samples`` recorded samples ending at end_iter.
+        Returns numpy arrays, or tensors on ``device`` when it is given
+        (A always as numpy)."""
+        lo = end_iter - n_samples + 1
+        sources = list(self._window)
+        if not sources or lo < sources[0]["start_iter"]:
+            if self._archive is None:
+                raise ValueError(
+                    "requested window precedes the retained sample window; "
+                    "rerun with save_all_samples=True")
+            sources = self._archive
+        Ps, Es, As = [], [], []
+        for ch in sources:
+            c = ch["P"].shape[0]
+            s, e = ch["start_iter"], ch["start_iter"] + c - 1
+            if e < lo or s > end_iter:
+                continue
+            i0, i1 = max(lo - s, 0), min(end_iter - s, c - 1) + 1
+            Ps.append(ch["P"][i0:i1])
+            Es.append(ch["E"][i0:i1])
+            As.append(_host(ch["A"][i0:i1]))
+        if not Ps:
+            raise ValueError("no samples in requested window")
+        if device is None:
+            return (np.concatenate([_host(p) for p in Ps]),
+                    np.concatenate([_host(e) for e in Es]),
+                    np.concatenate(As))
+        cat = lambda xs: torch.cat(  # noqa: E731
+            [torch.as_tensor(x, device=device) for x in xs])
+        return cat(Ps), cat(Es), np.concatenate(As)
+
+    @property
+    def sample_metrics(self):
+        """Per-iteration metrics as a pandas DataFrame (sample_metrics,
+        bayesNMF_sampler.R:190-207)."""
+        import pandas as pd
+
+        rows = np.concatenate(self._metric_rows, axis=0)
+        return pd.DataFrame(rows, columns=list(gibbs.METRIC_NAMES))
+
+    # ------------------------------------------------------------------
+    # MAP
+    # ------------------------------------------------------------------
+
+    def get_MAP(self, end_iter=None, n_samples=None, final=False,
+                credible_interval=0.95):
+        """MAP estimate over a sample window (get_MAP_, utils.R:194-288);
+        updates self.MAP / self.credible_intervals."""
+        end_iter = self.iter if end_iter is None else end_iter
+        n_samples = min(n_samples or self.cc.MAP_over, end_iter)
+        if end_iter != self.iter and self._archive is None:
+            raise ValueError(
+                "end_iter requires save_all_samples=True (utils.R:210-212)")
+        P_h, E_h, A_h = self._gather_window(end_iter, n_samples,
+                                            device=self.device)
+        res = compute_map(P_h, E_h, A_h, final=final,
+                          credible_interval=credible_interval)
+        res["idx"] = np.arange(end_iter - A_h.shape[0] + 1, end_iter + 1)[
+            res["idx_mask"]]
+        res["sig_idx"] = np.arange(len(res["keep_sigs"]))
+        self.MAP = res
+        self.credible_intervals = res.get("credible_intervals")
+        return res
+
+    # ------------------------------------------------------------------
+    # the run loop
+    # ------------------------------------------------------------------
+
+    def _run_chunk(self, steps: int, accept_all: bool):
+        temps = self.temp_sched[self.iter + 1: self.iter + steps + 1]
+        self.state, samples = gibbs.run_chunk(
+            self.spec, self.data, self.hyperprior_params, self.state, temps,
+            accept_all)
+        self._append_chunk(samples, start_iter=self.iter + 1)
+        self.iter += steps
+
+    def _map_check(self, final: bool = False):
+        """MAP + convergence bookkeeping at a chunk boundary
+        (bayesNMF_sampler.R:288-329 / update_MAP_metrics_,
+        utils.R:356-397)."""
+        self.logger.log(f"iter = {self.iter}", 1)
+        self.logger.indent = 2
+        self.logger.log("Computing MAP", 1)
+        self.get_MAP(final=final)
+
+        # MAP metrics: loglik/logpost averaged over the window's sample
+        # metrics (renormalized P/E invalidate the prior), BIC recomputed
+        rows = np.concatenate(self._metric_rows, axis=0)
+        win = rows[-self.cc.MAP_over:]
+        mean_ll = float(np.nanmean(win[:, 3]))
+        mean_lp = float(np.nanmean(win[:, 4]))
+        q = map_quality_metrics(self.data, self.MAP, self.spec.G, self.spec.K)
+        row = {
+            "iter": self.iter,
+            "RMSE": q["RMSE"], "KL": q["KL"],
+            "loglikelihood": mean_ll, "logposterior": mean_lp,
+            "n_params": q["n_params"],
+            "BIC": -2.0 * mean_ll + q["n_params"] * np.log(self.spec.G),
+            "rank": q["rank"],
+            "MAP_A_counts": self.MAP["A_counts"][0][1],
+            "mean_temp": float(np.mean(self.temp_sched[
+                max(self.iter - self.cc.MAP_over + 1, 1): self.iter + 1])),
+            "P_mean_acceptance_rate": float(win[-1, 9]),
+            "E_mean_acceptance_rate": float(win[-1, 10]),
+        }
+        self.MAP_metrics.append(row)
+
+        # surface numeric-overflow fallbacks (the reference logs its
+        # NA-overflow ladder state, sample_params.R:136-162)
+        na_col = gibbs.METRIC_NAMES.index("NA_events")
+        na_events = float(np.nansum(self._metric_rows[-1][:, na_col]))
+        if na_events > 0:
+            self.logger.log(
+                f"{int(na_events)} numeric-overflow fallbacks in the last "
+                "chunk (MH ratios clamped NaN→0)", 1)
+
+        metric = row[self.cc.metric]
+        if self.cc.metric in ("loglikelihood", "logposterior"):
+            metric = -metric
+        temps_all_one = bool(np.all(self.temp_sched[
+            max(self.iter - self.cc.MAP_over, 1): self.iter + 1] == 1.0))
+        msg = self.tracker.update(metric, self.iter, temps_all_one)
+        self.logger.log("Checking convergence", 1)
+        self.logger.log(msg, 1)
+        self.logger.indent = 1
+        if self.tracker.converged and self.tracker.converged_iter == self.iter:
+            self.logger.log(
+                f"Converged at {self.iter} due to {self.tracker.why}", 1)
+        if self.run_cfg.periodic_save and self.output_dir:
+            self.logger.log("Saving object", 1)
+            self.save_object()
+            # live-updating trace plots at every check, as the reference
+            # does (utils.R:344-347, 394-396)
+            try:
+                from bayesnmf_tpu.utils import plotting
+
+                plotting.trace_plot(self, save=True)
+                plotting.trace_plot(self, MAP_means=True, save=True)
+                import matplotlib.pyplot as plt
+
+                plt.close("all")
+            except Exception as e:  # plotting must never kill a run
+                self.logger.log(f"trace plot failed: {e}", 1)
+
+    def run_gibbs_sampler(self):
+        """Warmup until convergence or maxiters, then post_warmup MH
+        inference samples (run_gibbs_sampler, bayesNMF_sampler.R:265-408)."""
+        self.logger.log("Starting Gibbs sampler", 1)
+        self.logger.indent = 1
+        t0 = time.time()
+        cc = self.cc
+
+        # ---- warmup: accept-all MH proposals, convergence checked every
+        # MAP_every iterations (bayesNMF_sampler.R:288-296)
+        while not self.tracker.converged and self.iter < cc.maxiters:
+            boundary = min(
+                ((self.iter // cc.MAP_every) + 1) * cc.MAP_every, cc.maxiters)
+            self._run_chunk(boundary - self.iter, accept_all=True)
+            if self.iter % cc.MAP_every == 0 or self.iter >= cc.maxiters:
+                self._map_check()
+
+        # ---- post-warmup MH inference phase
+        t1 = time.time()
+        self.time["warmup"] = (t1 - t0) / 60.0
+        self.logger.log(
+            f"Warmup done, sampling {self.post_warmup} with MH for "
+            "inference", 1)
+        done = 0
+        while done < self.post_warmup:
+            nxt = min(((self.iter // cc.MAP_every) + 1) * cc.MAP_every,
+                      self.iter + (self.post_warmup - done))
+            steps = nxt - self.iter
+            self._run_chunk(steps, accept_all=False)
+            done += steps
+            final = done >= self.post_warmup
+            if self.iter % cc.MAP_every == 0 or final:
+                self._map_check(final=final)
+        self.logger.log(f"Additional {self.post_warmup} MH samples done", 1)
+        self.time["MH"] = (time.time() - t1) / 60.0
+
+        self.logger.log("Sampler done", 1)
+        self.time["total"] = (time.time() - t0) / 60.0
+        self.time["per_iter"] = self.time["total"] / self.iter
+        self.time["iters_per_sec"] = self.iter / max(
+            self.time["total"] * 60.0, 1e-9)
+        self.logger.log(f"Total time: {round(self.time['total'], 2)} minutes "
+                        f"({self.time['iters_per_sec']:.1f} it/s)", 1)
+        if self.output_dir:
+            self.logger.log("Saving final object", 1)
+            self.save_object()
+        return self
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+
+    def save_object(self, path: Optional[str] = None):
+        from ..utils.checkpoint import save_sampler
+
+        path = path or (os.path.join(self.output_dir, "sampler.ckpt")
+                        if self.output_dir else "sampler.ckpt")
+        save_sampler(self, path)
+        return path
+
+    @classmethod
+    def load(cls, path: str):
+        """Resume from a checkpoint, on the device it was saved from."""
+        from ..utils.checkpoint import load_sampler
+
+        return load_sampler(cls, path)
+
+    # ------------------------------------------------------------------
+    # postprocessing entry points (the JAX package's jax-free utilities)
+    # ------------------------------------------------------------------
+
+    def assign_signatures_ensemble(self, reference_P="cosmic", idxs=None,
+                                   credible_interval=0.95):
+        from bayesnmf_tpu.utils.postprocessing import \
+            assign_signatures_ensemble
+
+        return assign_signatures_ensemble(
+            self, reference_P=reference_P, idxs=idxs,
+            credible_interval=credible_interval)
+
+    def summary(self, reference_P="cosmic"):
+        from bayesnmf_tpu.utils.postprocessing import sampler_summary
+
+        return sampler_summary(self, reference_P=reference_P)
+
+    def plot(self, **kw):
+        from bayesnmf_tpu.utils.plotting import plot_sampler
+
+        return plot_sampler(self, **kw)
+
+
+def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
+        rank_method: str = "SBFI", MH: Optional[bool] = None,
+        convergence_control: Optional[ConvergenceControl] = None,
+        output_dir: Optional[str] = "default", **kw):
+    """Fit Bayesian NMF at a fixed rank; the port of ``bayesnmf_tpu.fit``
+    (bayesNMF, bayesNMF.R:24-138) for one chain. ``output_dir`` defaults to
+    ``nmf_<likelihood>_<prior>``; None disables logging and checkpoints.
+    Keyword arguments go to GibbsSampler (``device`` among them)."""
+    if output_dir == "default":
+        output_dir = f"nmf_{likelihood}_{prior}"
+    sampler = GibbsSampler(
+        data, rank, likelihood=likelihood, prior=prior,
+        rank_method=rank_method, MH=MH,
+        convergence_control=convergence_control, output_dir=output_dir, **kw)
+    return sampler.run_gibbs_sampler()

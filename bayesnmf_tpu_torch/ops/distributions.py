@@ -1,0 +1,100 @@
+"""Samplers used when the sampler state is first drawn.
+
+Port of the init-time subset of bayesnmf_tpu/ops/distributions.py. Every
+sampler draws from an explicit ``torch.Generator`` on the generator's device;
+Philox and threefry never give the same numbers, so these match the
+reference in distribution, not draw by draw.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_TINY = 1.1754944e-38  # smallest normal float32
+
+
+def _uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniforms in [_TINY, 1), like jax.random.uniform(minval=tiny)."""
+    return torch.rand(shape, generator=gen, device=device).clamp_min_(_TINY)
+
+
+def _std_normal_lower_tail_from_u(u1, u2, alpha):
+    """Z ~ N(0,1) | Z >= alpha from two uniforms (distributions.py:24-46):
+    the tail-form inverse CDF z = -ndtri(u1 * ndtr(-alpha)) up to alpha = 8,
+    and beyond it the deep-tail limit alpha + Exp(1)/alpha from the second
+    uniform."""
+    tail = torch.special.ndtr(-alpha)
+    v = (u1 * tail).clamp_min(_TINY)
+    z_icdf = torch.maximum(-torch.special.ndtri(v), alpha)
+    a_safe = alpha.clamp_min(1.0)
+    z_tail = a_safe - torch.log(u2.clamp_min(_TINY)) / a_safe
+    return torch.where(alpha > 8.0, z_tail, z_icdf)
+
+
+def truncnorm_nonneg_from_u(u1, u2, mu, sigmasq):
+    """Normal(mu, sigmasq) truncated to [0, inf), from two uniforms."""
+    sd = torch.sqrt(sigmasq)
+    z = _std_normal_lower_tail_from_u(u1, u2, -mu / sd)
+    return (mu + sd * z).clamp_min(0.0)
+
+
+def truncnorm_nonneg(gen, mu, sigmasq):
+    """Elementwise TruncNormal[0, inf) draws (replaces truncnorm::rtruncnorm)."""
+    mu, sigmasq = torch.broadcast_tensors(mu, sigmasq)
+    u = _uniform(gen, (2,) + tuple(mu.shape), mu.device)
+    return truncnorm_nonneg_from_u(u[0], u[1], mu, sigmasq)
+
+
+def normal(gen, mu, sigmasq):
+    """Normal(mu, sigmasq) draws (sigmasq is the variance)."""
+    mu, sigmasq = torch.broadcast_tensors(mu, sigmasq)
+    z = torch.randn(mu.shape, generator=gen, device=mu.device)
+    return mu + torch.sqrt(sigmasq) * z
+
+
+def gamma(gen, shape_param, rate, unroll: int = 4):
+    """Exact Gamma(shape, rate) draws (mean = shape/rate), by Marsaglia-Tsang
+    (distributions.py:83-157): ``unroll`` rounds of candidates from one
+    uniform draw, then an exact rejection loop for the elements still
+    undecided. a < 1 is boosted: Gamma(a) = Gamma(a+1) * U^(1/a)."""
+    a, rate = torch.broadcast_tensors(shape_param, rate)
+    shape, dev = tuple(a.shape), a.device
+    boost = a < 1.0
+    a_eff = torch.where(boost, a + 1.0, a)
+    d = a_eff - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+
+    def candidate(u_z, u_a):
+        x = torch.special.ndtri(u_z)
+        one_cx = 1.0 + c * x
+        v = one_cx * one_cx * one_cx
+        ok = (v > 0.0) & (
+            torch.log(u_a)
+            < 0.5 * x * x + d - d * v + d * torch.log(v.clamp_min(_TINY)))
+        return d * v, ok
+
+    u_all = _uniform(gen, (2 * unroll + 1,) + shape, dev)
+    g = torch.full(shape, float("nan"), device=dev)
+    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for r in range(unroll):
+        gv, ok = candidate(u_all[2 * r], u_all[2 * r + 1])
+        g = torch.where(~done & ok, gv, g)
+        done = done | ok
+    # a non-finite or non-positive shape never accepts: leave it NaN instead
+    # of looping forever
+    done = done | ~torch.isfinite(d) | (a <= 0.0)
+    while not bool(done.all()):
+        uv = _uniform(gen, (2,) + shape, dev)
+        gv, ok = candidate(uv[0], uv[1])
+        g = torch.where(~done & ok, gv, g)
+        done = done | ok
+
+    g = g * torch.where(
+        boost, torch.exp(torch.log(u_all[-1]) / a.clamp_min(1e-12)),
+        torch.ones_like(g))
+    return g / rate
+
+
+def inv_gamma(gen, shape_param, rate):
+    """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma)."""
+    return 1.0 / gamma(gen, shape_param, rate).clamp_min(1e-30)

@@ -1,0 +1,360 @@
+"""One Gibbs iteration core of the Poisson + MH sampler: the exact
+Mu/Sigmasq hyper-sweep, then the N sequential P-column and N sequential
+E-row Metropolis-Hastings updates.
+
+Port of bayesnmf_tpu/ops/pallas_sweeps.py. ``fused_gibbs_sweeps`` keeps the
+JAX signature and return tuple (pallas_sweeps.py:370-446). On CUDA tensors it
+launches the hand-written kernel csrc/fused_sweeps.cu (one thread block per
+chain) or raises; on CPU tensors it runs ``fused_gibbs_sweeps_reference``,
+the same function in plain PyTorch, which consumes the same uniforms in the
+same order.
+
+Ported specialisation: truncnormal prior, exact Hastings ratio, fixed rank
+(``rank_method=None``), with or without the in-kernel hyper-sweep, and
+``accept_all`` either way. The exponential prior, ``exact_mh=False`` and the
+rank R/A branch raise NotImplementedError (ROADMAP.md queue 2 item 1).
+
+Chains: every state and uniform tensor may carry a leading chain axis C
+(the JAX package gets it from ``vmap``); ``data`` (K, G) and the
+``hyper_hp`` planes are shared by all chains, and ``accept_all`` may be a
+bool or a (C,) tensor of per-chain flags.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import special as ps
+
+_FLOOR = 1e-6
+_TINY = 1.2e-38
+_LOG_SQRT2PI = 0.9189385332046727
+
+_NOT_PORTED = ("fused_gibbs_sweeps: only the truncnormal / exact_mh / "
+               "fixed-rank specialisation is ported; see ROADMAP.md queue 2 "
+               "item 1 for the {} branch")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (the CPU path, and what the kernel is checked against)
+# ---------------------------------------------------------------------------
+
+
+def _ndtri(p):
+    """erfinv in the centre, Acklam in the tails (pallas_sweeps.py:43-55)."""
+    central = 1.4142135623730951 * torch.erfinv(2.0 * p - 1.0)
+    return torch.where((p < 0.02425) | (p > 0.97575), ps.ndtri(p), central)
+
+
+def _truncnorm_icdf(u, mu, sd):
+    """Inverse-CDF TruncNormal[0, inf) draw; beyond alpha = 8 the Exp(1)/alpha
+    deep-tail limit reuses the SAME uniform (pallas_sweeps.py:58-70)."""
+    alpha = -mu / sd
+    tail = ps.ndtr(-alpha)
+    v = (u * tail).clamp_min(_TINY)
+    z_icdf = torch.maximum(-_ndtri(v), alpha)
+    a_safe = alpha.clamp_min(1.0)
+    z_tail = a_safe - torch.log(u.clamp_min(_TINY)) / a_safe
+    z = torch.where(alpha > 8.0, z_tail, z_icdf)
+    return (mu + sd * z).clamp_min(0.0)
+
+
+def _tn_logpdf(x, mu, var):
+    sd = torch.sqrt(var)
+    z = (x - mu) / sd
+    return -0.5 * z * z - torch.log(sd) - _LOG_SQRT2PI - ps.log_ndtr(mu / sd)
+
+
+def _hyper_sweep_side(x, mu_old, sq_old, hhp, hu):
+    """Exact Metropolized-conjugate Mu/Sigmasq update for one side, elementwise
+    (pallas_sweeps.py:80-124). ``hhp``/``hu`` have the 4 planes on dim -3."""
+    m0, s0, a0, b0 = hhp.unbind(-3)
+    z_mu = _ndtri(hu[..., 0, :, :])
+    lu_mu = torch.log(hu[..., 1, :, :])
+    z_sq = _ndtri(hu[..., 2, :, :])
+    lu_sq = torch.log(hu[..., 3, :, :])
+
+    den = 1.0 / s0 + 1.0 / sq_old
+    prop = (m0 / s0 + x / sq_old) / den + torch.sqrt(1.0 / den) * z_mu
+    sd = torch.sqrt(sq_old)
+    la = ps.log_ndtr(mu_old / sd) - ps.log_ndtr(prop / sd)
+    mu_new = torch.where(lu_mu < la, prop, mu_old)
+
+    a = a0 + 0.5
+    b = b0 + 0.5 * (x - mu_new) * (x - mu_new)
+    c = 1.0 - 1.0 / (9.0 * a)
+    sqa3 = 3.0 * torch.sqrt(a)
+    t_new = c + z_sq / sqa3
+    g_new = a * t_new * t_new * t_new
+    ok = g_new > 1e-30
+    g_new_s = g_new.clamp_min(1e-30)
+    sq_new = b / g_new_s
+    g_old = b / sq_old.clamp_min(1e-30)
+    t_old = torch.exp(torch.log((g_old / a).clamp_min(1e-38)) / 3.0)
+    z_old = sqa3 * (t_old - c)
+
+    def logw(g, t, zz, sq):
+        return ((a - 1.0) * torch.log(g) - g + 0.5 * zz * zz
+                + 2.0 * torch.log(t.clamp_min(1e-30))
+                - ps.log_ndtr(mu_new / torch.sqrt(sq)))
+
+    la2 = torch.where(
+        ok, logw(g_new_s, t_new, z_sq, sq_new) - logw(g_old, t_old, z_old,
+                                                       sq_old),
+        torch.full_like(g_new, -float("inf")))
+    return mu_new, torch.where(lu_sq < la2, sq_new, sq_old)
+
+
+def _sum(x, dim):
+    """Reduction over G or K, accumulated in float64 and rounded back. The
+    reference sums in float32; the CUDA kernel sums in double too, so the
+    kernel and this version agree to rounding at any G."""
+    return x.sum(dim, keepdim=True, dtype=torch.float64).to(torch.float32)
+
+
+def _mh_column(M, Mh, old, other, Mu_n, Sq_n, u_prop, u_acc, acc_on, dim):
+    """Active-column (A_n = 1) exact-MH update, truncnormal prior
+    (pallas_sweeps.py:179-260). ``other`` is E_n (C,1,G) for the P sweep
+    (dim=2) or P_n (C,K,1) for the E sweep (dim=1)."""
+    sig = Mh.clamp_min(_FLOOR)
+    Mno = Mh - old * other
+    o2 = other * other
+    mu1 = _sum(((M - Mno) / sig) * other, dim)
+    den = _sum(o2 / sig, dim)
+    den2 = den + 1.0 / Sq_n
+    mu = (mu1 + Mu_n / Sq_n) / den2
+    var = 1.0 / den2
+    proposal = _truncnorm_icdf(u_prop, mu, torch.sqrt(var))
+
+    Mh_prop = Mh + (proposal - old) * other
+    lam_o = Mh.clamp_min(_FLOOR)
+    lam_n = Mh_prop.clamp_min(_FLOOR)
+    # log1p ratio form: log(lam_n) - log(lam_o) would amplify the rounding of
+    # the logs by ~sum(M) and destroy the acceptance ratio
+    d_lam = lam_n - lam_o
+    lp_core = M * torch.log1p(d_lam / lam_o) - d_lam
+    sig_r = Mh_prop.clamp_min(_FLOOR)
+    mu1_r = _sum(((M - Mno) / sig_r) * other, dim)
+    den_r = _sum(o2 / sig_r, dim)
+    den_r2 = den_r + 1.0 / Sq_n
+    mu_r = (mu1_r + Mu_n / Sq_n) / den_r2
+    var_r = 1.0 / den_r2
+    lprior = _tn_logpdf(proposal, Mu_n, Sq_n) - _tn_logpdf(old, Mu_n, Sq_n)
+    log_ratio = (_sum(lp_core, dim) + lprior
+                 + _tn_logpdf(old, mu_r, var_r)
+                 - _tn_logpdf(proposal, mu, var))
+    ratio_raw = torch.exp(log_ratio).clamp_max(1.0)
+    nan_mask = torch.isnan(ratio_raw)
+    n_nan = nan_mask.flatten(1).sum(1).to(torch.float32)
+    ratio = torch.where(nan_mask, 0.0, ratio_raw)
+    take = acc_on | (u_acc < ratio)
+    rec = torch.where(acc_on, torch.ones_like(ratio), ratio)
+    new_val = torch.where(take, proposal, old)
+    return new_val, Mh + (new_val - old) * other, rec, n_nan
+
+
+def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
+                                 Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
+                                 hp0_p, hp1_p, hp0_e, hp1_e, accept_flag,
+                                 hyper_u=None, hyper_hp=None):
+    """Plain PyTorch version of the kernel on chain-batched operands:
+    data (K,G), Mhat (C,K,G), P-side (C,K,N), E-side (C,N,G), A (C,N),
+    ``accept_flag`` (C,) bool, uniform planes (C,4,K,N)/(C,4,N,G) and the
+    shared hyperprior planes (4,K,N)/(4,N,G).
+
+    Returns (P, E, Mhat, acc_P, acc_E, nan_count (C,), Mu_p, Sigmasq_p, Mu_e,
+    Sigmasq_e). Inputs are not modified.
+    """
+    N = P.shape[2]
+    P, E, Mh = P.clone(), E.clone(), Mhat.clone()
+    acc_P, acc_E = acc_P.clone(), acc_E.clone()
+    if hyper_u is not None:
+        hp0_p, hp1_p = _hyper_sweep_side(P, hp0_p, hp1_p, hyper_hp[0],
+                                         hyper_u[0])
+        hp0_e, hp1_e = _hyper_sweep_side(E, hp0_e, hp1_e, hyper_hp[1],
+                                         hyper_u[1])
+    else:
+        hp0_p, hp1_p, hp0_e, hp1_e = (t.clone() for t in
+                                      (hp0_p, hp1_p, hp0_e, hp1_e))
+    acc_on = accept_flag.view(-1, 1, 1)
+    nan = torch.zeros(P.shape[0], dtype=torch.float32, device=P.device)
+
+    # Excluded columns (A_n = 0) take the prior draw; both branches are
+    # computed and selected per chain, so the function has no host sync.
+    def sweep(X, acc, Upr, Up, Ua, hp0, hp1, other_of, sl, dim):
+        nonlocal Mh, nan
+        for n in range(N):
+            s = sl(n)
+            active = (A[:, n] != 0.0).view(-1, 1, 1)
+            Mu_n, Sq_n = hp0[s], hp1[s]
+            new, Mh_new, rec, n_nan = _mh_column(
+                data, Mh, X[s], other_of(n), Mu_n, Sq_n, Up[s], Ua[s],
+                acc_on, dim)
+            prior = _truncnorm_icdf(Upr[s], Mu_n, torch.sqrt(Sq_n))
+            X[s] = torch.where(active, new, prior)
+            acc[s] = torch.where(active, rec, acc[s])
+            Mh = torch.where(active, Mh_new, Mh)
+            nan = nan + torch.where(active.view(-1), n_nan, 0.0)
+
+    sweep(P, acc_P, Upr_P, Up_P, Ua_P, hp0_p, hp1_p,
+          lambda n: E[:, n:n + 1, :],
+          lambda n: (slice(None), slice(None), slice(n, n + 1)), dim=2)
+    sweep(E, acc_E, Upr_E, Up_E, Ua_E, hp0_e, hp1_e,
+          lambda n: P[:, :, n:n + 1],
+          lambda n: (slice(None), slice(n, n + 1), slice(None)), dim=1)
+    return P, E, Mh, acc_P, acc_E, nan, hp0_p, hp1_p, hp0_e, hp1_e
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# 22 input pointers, the hyper-sweep flag, 10 output pointers, C K N G, stream
+_ARGTYPES = [_P] * 22 + [_I] + [_P] * 10 + [_I] * 4 + [_P]
+
+
+def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
+            Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e, rank_pack,
+            hyper_u, hyper_hp):
+    from ._build import load_library
+
+    lib = load_library()
+    fn = lib.fused_gibbs_sweeps_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    C, K, N = P.shape
+    G = E.shape[2]
+    outs = [torch.empty_like(t) for t in
+            (P, E, Mhat, acc_P, acc_E, hp0_p, hp1_p, hp0_e, hp1_e)]
+    nan = torch.empty(C, dtype=torch.float32, device=P.device)
+    hyper = hyper_u is not None
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+    hu_ptrs = ([ptr(t) for t in (*hyper_u, *hyper_hp)] if hyper
+               else [None] * 4)
+    with torch.cuda.device(P.device):
+        err = fn(ptr(data), *map(ptr, (P, E, A, Mhat, acc_P, acc_E)),
+                 *map(ptr, (Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E)),
+                 *map(ptr, (hp0_p, hp1_p, hp0_e, hp1_e)), ptr(rank_pack),
+                 *hu_ptrs, int(hyper),
+                 *map(ptr, outs[:5]), ptr(nan), *map(ptr, outs[5:]),
+                 C, K, N, G, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_gibbs_sweeps kernel launch failed: "
+                           f"cudaError {err}")
+    fused_gibbs_sweeps.launches += 1
+    P_o, E_o, Mh_o, aP_o, aE_o, hp0p_o, hp1p_o, hp0e_o, hp1e_o = outs
+    return P_o, E_o, Mh_o, aP_o, aE_o, nan, hp0p_o, hp1p_o, hp0e_o, hp1e_o
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check(name, t, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"fused_gibbs_sweeps: {name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"fused_gibbs_sweeps: {name} is on {t.device}, "
+                         f"expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"fused_gibbs_sweeps: {name} must be float32, got "
+                        f"{t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused_gibbs_sweeps: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_gibbs_sweeps: {name} must be contiguous")
+
+
+def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
+                       Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
+                       hp0_p, hp1_p, hp0_e, hp1_e, rank_pack,
+                       prior_kind: str, exact_mh: bool, accept_all,
+                       rank_method, hyper_u=None, hyper_hp=None):
+    """Run the Gibbs iteration core (hyper-sweep, P sweep, E sweep).
+
+    Arguments mirror bayesnmf_tpu.ops.pallas_sweeps.fused_gibbs_sweeps:
+    prior-fallback uniforms (Upr_*), proposal and acceptance uniforms (Up_*,
+    Ua_*), the (Mu, Sigmasq) prior pair per side, ``rank_pack`` (3, N+1)
+    whose [0, 0] entry is returned as R, the warmup flag ``accept_all``, and
+    the optional hyper-sweep planes ``hyper_u``/``hyper_hp``
+    ((4,K,N), (4,N,G)) of uniforms and hyperpriors [m, s, a, b].
+
+    Returns (P, E, Mhat, acc_P, acc_E, A, R_float, nan_count, Mu_p',
+    Sigmasq_p', Mu_e', Sigmasq_e'), each with the leading chain axis when
+    the inputs had one. A comes back as given (the rank is fixed); the
+    others are new tensors, and no input is modified.
+    """
+    if prior_kind != "truncnormal":
+        raise NotImplementedError(_NOT_PORTED.format(f"{prior_kind!r} prior"))
+    if not exact_mh:
+        raise NotImplementedError(_NOT_PORTED.format("exact_mh=False"))
+    if rank_method is not None:
+        raise NotImplementedError(_NOT_PORTED.format("rank R/A"))
+    if (hyper_u is None) != (hyper_hp is None):
+        raise ValueError("hyper_u and hyper_hp go together")
+
+    batched = P.dim() == 3
+    b = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
+    P, E, A, Mhat, acc_P, acc_E = map(b, (P, E, A, Mhat, acc_P, acc_E))
+    Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E = map(
+        b, (Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E))
+    hp0_p, hp1_p, hp0_e, hp1_e, rank_pack = map(
+        b, (hp0_p, hp1_p, hp0_e, hp1_e, rank_pack))
+    if hyper_u is not None:
+        hyper_u = tuple(map(b, hyper_u))
+    C, K, N = P.shape
+    G = E.shape[2]
+    dev = P.device
+    kn, ng = (C, K, N), (C, N, G)
+    _check("data", data, (K, G), dev)
+    for name, t, shape in (
+            ("P", P, kn), ("E", E, ng), ("A", A, (C, N)), ("Mhat", Mhat,
+                                                           (C, K, G)),
+            ("acc_P", acc_P, kn), ("acc_E", acc_E, ng),
+            ("Upr_P", Upr_P, kn), ("Upr_E", Upr_E, ng), ("Up_P", Up_P, kn),
+            ("Ua_P", Ua_P, kn), ("Up_E", Up_E, ng), ("Ua_E", Ua_E, ng),
+            ("hp0_p", hp0_p, kn), ("hp1_p", hp1_p, kn), ("hp0_e", hp0_e, ng),
+            ("hp1_e", hp1_e, ng), ("rank_pack", rank_pack, (C, 3, N + 1))):
+        _check(name, t, shape, dev)
+    if hyper_u is not None:
+        _check("hyper_u[0]", hyper_u[0], (C, 4, K, N), dev)
+        _check("hyper_u[1]", hyper_u[1], (C, 4, N, G), dev)
+        _check("hyper_hp[0]", hyper_hp[0], (4, K, N), dev)
+        _check("hyper_hp[1]", hyper_hp[1], (4, N, G), dev)
+
+    # the warmup flag rides in rank_pack[:, 0, 1], as in the JAX kernel
+    rank_pack = rank_pack.clone()
+    if isinstance(accept_all, torch.Tensor):
+        rank_pack[:, 0, 1] = accept_all.to(device=dev, dtype=torch.float32)
+    else:  # fill_, not item assignment, which would wait for the device
+        rank_pack[:, 0, 1].fill_(float(accept_all))
+
+    if dev.type == "cpu":
+        out = fused_gibbs_sweeps_reference(
+            data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
+            Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e, rank_pack[:, 0, 1] > 0.0,
+            hyper_u, hyper_hp)
+    elif dev.type == "cuda":
+        out = _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P,
+                      Ua_P, Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e,
+                      rank_pack, hyper_u, hyper_hp)
+    else:
+        raise ValueError(f"fused_gibbs_sweeps: no path for device {dev}")
+
+    P_o, E_o, Mh_o, aP_o, aE_o, nan, hp0p_o, hp1p_o, hp0e_o, hp1e_o = out
+    res = (P_o, E_o, Mh_o, aP_o, aE_o, A, rank_pack[:, 0, 0], nan,
+           hp0p_o, hp1p_o, hp0e_o, hp1e_o)
+    if not batched:
+        res = tuple(t[0] for t in res)
+    return res
+
+
+#: kernel launches since the count was last reset (CPU calls do not count)
+fused_gibbs_sweeps.launches = 0

@@ -1,0 +1,102 @@
+"""Model math: expected data matrix, likelihood, priors, metrics.
+
+Port of the subset of bayesnmf_tpu/ops/math.py that the fixed-rank
+Poisson + TruncNormal path uses. Conventions as in the reference: data M is
+(K, G); P is (K, N) signatures; E is (N, G) exposures; A is (N,) binary
+inclusion. Everything is float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# Clip floor applied to Mhat under the Poisson likelihood to avoid log(0)
+# (utils.R:100)
+MHAT_FLOOR = 1e-6
+_HALF_LOG_2PI = 0.9189385332046727
+
+
+def mhat(P: torch.Tensor, A: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+    """Expected data matrix ``P @ diag(A) @ E`` -> (K, G), at full float32.
+
+    The reference forces ``Precision.HIGHEST`` (math.py:23-32): the product
+    feeds log-densities and acceptance ratios, so TF32 is not acceptable.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.matmul(P * A.unsqueeze(-2), E)
+
+
+def poisson_loglik_mat(M: torch.Tensor, Mh: torch.Tensor) -> torch.Tensor:
+    """Elementwise log dPois(M | max(Mh, 1e-6)) -> (K, G) (utils.R:98-106)."""
+    lam = Mh.clamp_min(MHAT_FLOOR)
+    return M * torch.log(lam) - lam - torch.lgamma(M + 1.0)
+
+
+def truncnorm_logpdf(x, mu, sigmasq):
+    """log pdf of Normal(mu, sigmasq) truncated to [0, inf) (utils.R:134-145),
+    with the accurate library log_ndtr for the normaliser, as the reference's
+    jax.scipy.special.log_ndtr."""
+    sd = torch.sqrt(sigmasq)
+    z = (x - mu) / sd
+    log_norm = -0.5 * z * z - torch.log(sd) - _HALF_LOG_2PI
+    log_tail = torch.special.log_ndtr(mu / sd)
+    return torch.where(x >= 0, log_norm - log_tail,
+                       torch.full_like(log_norm, -math.inf))
+
+
+def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
+    """Sum of the prior log-pdfs of P and E (utils.R:131-175)."""
+    if prior != "truncnormal":
+        raise NotImplementedError(
+            f"logprior_PE: the {prior!r} prior is not ported (ROADMAP.md)")
+    lp = truncnorm_logpdf(P, prior_params["Mu_p"],
+                          prior_params["Sigmasq_p"]).sum()
+    le = truncnorm_logpdf(E, prior_params["Mu_e"],
+                          prior_params["Sigmasq_e"]).sum()
+    return lp + le
+
+
+def rmse(M: torch.Tensor, Mh: torch.Tensor) -> torch.Tensor:
+    """Root mean squared error (utils.R:437)."""
+    d = Mh - M
+    return torch.sqrt(torch.mean(d * d))
+
+
+def padded_kl(Mh: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """sum(M log(M/Mhat)) with both padded to >= 1e-6 (utils.R:467-471)."""
+    Mh = Mh.clamp_min(1e-6)
+    Mp = M.clamp_min(1e-6)
+    return torch.sum(Mp * (torch.log(Mp) - torch.log(Mh)))
+
+
+def metric_constants(likelihood: str, M: torch.Tensor) -> dict:
+    """Data-only terms of the per-iteration metrics, computed once per chunk:
+    the padded-KL entropy sum(Mp log Mp) and the Poisson log-factorial
+    sum(lgamma(M+1))."""
+    if likelihood != "poisson":
+        raise NotImplementedError(
+            f"metric_constants: the {likelihood!r} likelihood is not ported "
+            "(ROADMAP.md)")
+    Mp = M.clamp_min(1e-6)
+    return {"mlogm_sum": torch.sum(Mp * torch.log(Mp)),
+            "lgamma_sum": torch.sum(torch.lgamma(M + 1.0))}
+
+
+def bic(loglik, n_params, G: int):
+    """BIC = -2 loglik + n_params log(G) (utils.R:432)."""
+    return -2.0 * loglik + n_params * math.log(G)
+
+
+def n_params_of(A: torch.Tensor, K: int, G: int) -> torch.Tensor:
+    """Effective parameter count sum(A) * (G + K) (utils.R:424)."""
+    return torch.sum(A) * (G + K)
+
+
+def renormalize(P: torch.Tensor, E: torch.Tensor):
+    """Rescale so columns of P sum to 1, preserving P @ E (helpers.R:35-49)."""
+    s = torch.sum(P, dim=-2)
+    safe = torch.where(s > 0, s, torch.ones_like(s))
+    return P / safe.unsqueeze(-2), E * safe.unsqueeze(-1)
