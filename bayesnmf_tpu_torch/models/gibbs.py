@@ -1,12 +1,20 @@
 """The Gibbs engine: state construction, one step, the chunk runner, and the
 tempering schedule.
 
-Port of bayesnmf_tpu/models/gibbs.py for the fused path of the default model
-(Poisson likelihood, TruncNormal prior, exact MH, exact TruncNormal hypers,
-fixed rank). Each step draws one flat uniform tensor, recomputes Mhat with
-one matmul, runs the fused sweep (ops/fused_sweeps.py) and computes the
-metrics row. ``jax.lax.scan`` becomes a Python loop that writes each step
-into buffers preallocated on the device; no step waits for the device.
+Port of bayesnmf_tpu/models/gibbs.py for the default model (Poisson
+likelihood, TruncNormal prior, exact MH, exact TruncNormal hypers), on two
+paths:
+
+- fused (one chain, fixed rank): each step draws one flat uniform tensor,
+  recomputes Mhat with one matmul, runs the fused sweep
+  (ops/fused_sweeps.py) and computes the metrics row;
+- streaming (a chain ensemble, fixed rank or SBFI/BFI rank learning): every
+  state tensor carries a leading chain axis C, and each step runs the
+  hyper-update, the streamed P, E and A sweeps (models/updates.py) and the
+  streamed metrics sums; no (C, K, G) tensor exists (gibbs.py:228-264).
+
+``jax.lax.scan`` becomes a Python loop that writes each step into buffers
+preallocated on the device; no step waits for the device.
 """
 
 from __future__ import annotations
@@ -14,14 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bayesnmf_tpu.config import ModelSpec
-
+from ..config import ModelSpec
 from ..ops import math as m
+from ..ops import stream_sweeps as S
 from ..ops.fused_sweeps import fused_gibbs_sweeps
 from . import updates as U
 
 # metrics-row layout (order matches the reference's sample_metrics columns,
 # bayesNMF_sampler.R:190-207); NA_events counts MH ratios clamped NaN -> 0
+# and A-sweep posteriors clamped NaN -> 1/2
 METRIC_NAMES = (
     "iter", "RMSE", "KL", "loglikelihood", "logposterior", "n_params", "BIC",
     "rank", "temp", "P_mean_acceptance_rate", "E_mean_acceptance_rate",
@@ -33,27 +42,33 @@ _TINY = 1.2e-38
 
 
 def check_spec(spec: ModelSpec):
-    """Raise NotImplementedError for anything outside the ported slice."""
+    """Raise NotImplementedError for anything outside the ported slices:
+    the fused path at a fixed rank, and the streaming path at a fixed rank
+    or with SBFI/BFI rank learning."""
     missing = []
     if spec.likelihood != "poisson" or not spec.MH:
         missing.append(f"likelihood={spec.likelihood!r} with MH={spec.MH}")
     if spec.prior != "truncnormal":
         missing.append(f"prior={spec.prior!r}")
-    if spec.learning_rank:
-        missing.append(f"rank learning ({spec.rank_method})")
     if not spec.exact_mh:
         missing.append("exact_mh=False")
     if not spec.exact_truncnorm_hypers:
         missing.append("exact_truncnorm_hypers=False")
     if spec.stream_sweeps:
-        missing.append("stream_sweeps")
-    if not spec.fused_sweeps:
-        missing.append("the unfused sweep path (fused_sweeps=False)")
+        if spec.learning_rank and spec.rank_method not in ("SBFI", "BFI"):
+            missing.append(f"rank_method={spec.rank_method!r} on the "
+                           "streaming path")
+    elif spec.fused_sweeps:
+        if spec.learning_rank:
+            missing.append(f"rank learning ({spec.rank_method}) in the "
+                           "fused kernel")
+    else:
+        missing.append("the unfused, unstreamed sweep path")
     if missing:
         raise NotImplementedError(
-            "bayesnmf_tpu_torch ports one chain of the default model at a "
-            "fixed rank so far; not ported: " + ", ".join(missing)
-            + " (see ROADMAP.md)")
+            "bayesnmf_tpu_torch ports the fused fixed-rank path and the "
+            "streaming path of the default model so far; not ported: "
+            + ", ".join(missing) + " (see ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,26 +78,41 @@ def check_spec(spec: ModelSpec):
 
 def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
                gen: torch.Generator, init_params=None,
-               init_prior_params=None) -> dict:
+               init_prior_params=None, chains=None) -> dict:
     """Initial state on ``data``'s device: prior parameters from the
-    hyperpriors, P and E from the priors, iteration 1 (gibbs.py:41-92).
-    ``init_params`` / ``init_prior_params`` entries override the draws."""
+    hyperpriors, P and E from the priors, and with rank learning
+    R ~ Uniform{0..N}, A_n ~ Bern(p1(R)); iteration 1 (gibbs.py:41-92).
+    With ``chains`` = C every tensor has a leading chain axis of C
+    independent draws. ``init_params`` / ``init_prior_params`` entries
+    override the draws (the same value for every chain)."""
     check_spec(spec)
     dev = data.device
     f32 = dict(dtype=torch.float32, device=dev)
-    prior = U.init_prior_params(spec, hp, gen, dev)
+    lead = () if chains is None else (chains,)
+
+    def override(v, dtype):
+        t = torch.as_tensor(np.asarray(v, dtype), device=dev)
+        return t if chains is None else t.expand(lead + t.shape).clone()
+
+    prior = U.init_prior_params(spec, hp, gen, dev, chains)
     for name, v in (init_prior_params or {}).items():
-        prior[name] = torch.as_tensor(np.asarray(v, np.float32), **f32)
+        prior[name] = override(v, np.float32)
     params = {"P": U._prior_draw_P(spec, prior, gen),
-              "E": U._prior_draw_E(spec, prior, gen),
-              "R": torch.tensor(spec.N, dtype=torch.int32, device=dev),
-              "A": torch.ones(spec.N, **f32)}
+              "E": U._prior_draw_E(spec, prior, gen)}
+    if spec.learning_rank:
+        params["R"] = torch.randint(0, spec.N + 1, lead, generator=gen,
+                                    device=dev, dtype=torch.int32)
+        p1 = U.prior_prob_1(params["R"].to(torch.float32), spec.N)
+        u = torch.rand(lead + (spec.N,), generator=gen, device=dev)
+        params["A"] = (u < p1.unsqueeze(-1)).to(torch.float32)
+    else:
+        params["R"] = torch.full(lead, spec.N, dtype=torch.int32, device=dev)
+        params["A"] = torch.ones(lead + (spec.N,), **f32)
     for name, v in (init_params or {}).items():
-        dt = np.int32 if name == "R" else np.float32
-        params[name] = torch.as_tensor(np.asarray(v, dt), device=dev)
+        params[name] = override(v, np.int32 if name == "R" else np.float32)
     return {"params": params, "prior": prior, "gen": gen, "iter": 1,
-            "acc_P": torch.ones(spec.K, spec.N, **f32),
-            "acc_E": torch.ones(spec.N, spec.G, **f32)}
+            "acc_P": torch.ones(lead + (spec.K, spec.N), **f32),
+            "acc_E": torch.ones(lead + (spec.N, spec.G), **f32)}
 
 
 def step_constants(spec: ModelSpec, hp: dict, device) -> dict:
@@ -112,16 +142,21 @@ def n_uniforms(spec: ModelSpec) -> int:
 
 
 def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-               accept_all, metric_consts=None, u=None, consts=None):
+               accept_all, metric_consts=None, u=None, consts=None,
+               noise=None):
     """One full Gibbs sweep; returns (new_state, sample_out).
 
-    Order (gibbs.py:100-290): hyper-sweep, P sweep, E sweep, all inside the
-    fused sweep, after a fresh Mhat = P diag(A) E. ``u`` is the flat uniform
-    tensor of length ``n_uniforms(spec)``, laid out as at gibbs.py:175-207;
-    when None it is drawn from ``state['gen']``. ``sample_out`` holds P,
-    E, A and the metrics row. ``metric_consts`` and ``consts``
-    (step_constants) are computed when not given.
+    On the streaming path this is ``stream_step`` (``noise`` goes there).
+    On the fused path the order is (gibbs.py:100-290): hyper-sweep, P sweep,
+    E sweep, all inside the fused sweep, after a fresh Mhat = P diag(A) E.
+    ``u`` is the flat uniform tensor of length ``n_uniforms(spec)``, laid
+    out as at gibbs.py:175-207; when None it is drawn from ``state['gen']``.
+    ``sample_out`` holds P, E, A and the metrics row. ``metric_consts`` and
+    ``consts`` (step_constants) are computed when not given.
     """
+    if spec.stream_sweeps:
+        return stream_step(spec, data, hp, state, temperature, accept_all,
+                           metric_consts, noise)
     K, N, G = spec.K, spec.N, spec.G
     dev = data.device
     params = dict(state["params"])
@@ -213,6 +248,110 @@ def snapshot_sample(spec: ModelSpec, data, state: dict, temperature) -> dict:
                            state["acc_E"])
     return {"P": params["P"], "E": params["E"], "A": params["A"],
             "metrics": metrics}
+
+
+# ---------------------------------------------------------------------------
+# the streaming step (chain ensembles)
+# ---------------------------------------------------------------------------
+
+
+def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
+                      device) -> dict:
+    """All random numbers of one streaming step for ``chains`` chains: one
+    uniform draw and one normal draw, cut into views laid out as the JAX
+    step draws them from its keys (gibbs.py:121-132)."""
+    K, N, G = spec.K, spec.N, spec.G
+    nh = U.n_hyper_noise(spec)
+    shapes = {"prior": (nh,), "P_prior": (2, K, N), "P": (3, N, K),
+              "E_prior": (2, N, G), "E": (3, N, G)}
+    if spec.learning_rank:
+        shapes |= {"R": (N + 1,), "A": (N,)}
+    sizes = {k: int(np.prod(s)) for k, s in shapes.items()}
+    u = torch.rand((chains, sum(sizes.values())), generator=gen,
+                   device=device).clamp_min_(_TINY)
+    views, off = {}, 0
+    for k, s in shapes.items():
+        views[k] = u[:, off:off + sizes[k]].view((chains,) + s)
+        off += sizes[k]
+    noise = {
+        "prior": {"z": torch.randn((chains, nh), generator=gen,
+                                   device=device),
+                  "u": views["prior"]},
+        "P": {"prior_u": views["P_prior"], "u": views["P"]},
+        "E": {"prior_u": views["E_prior"], "u": views["E"]},
+    }
+    if spec.learning_rank:
+        noise["R"] = -torch.log(-torch.log(views["R"]))
+        noise["A"] = views["A"]
+    return noise
+
+
+def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
+                accept_all, metric_consts=None, noise=None):
+    """One Gibbs iteration of every chain on the streaming path
+    (gibbs.py:228-264): the exact hyper-update, the P and E sweeps, and with
+    rank learning the R draw and the A sweep, then the metrics row from the
+    streamed sums. State tensors carry the chain axis C; ``accept_all`` is a
+    (C,) bool tensor; ``noise`` (draw_stream_noise's layout) is drawn from
+    ``state['gen']`` when None. Returns (new_state, sample_out) with
+    sample_out P (C, K, N), E (C, N, G), A (C, N), metrics (C, N_METRICS).
+    """
+    params = dict(state["params"])
+    C = params["P"].shape[0]
+    if noise is None:
+        noise = draw_stream_noise(spec, C, state["gen"], data.device)
+    prior = U.sample_prior_params(spec, hp, params, state["prior"],
+                                  noise=noise["prior"])
+    params["P"], acc_P, nan_P = U.stream_sweep_P(
+        spec, data, params, prior, state["acc_P"], accept_all,
+        noise=noise["P"])
+    params["E"], acc_E, nan_E = U.stream_sweep_E(
+        spec, data, params, prior, state["acc_E"], accept_all,
+        noise=noise["E"])
+    na_events = nan_P + nan_E
+    if spec.learning_rank:
+        params["R"] = U.sample_R(spec, params["A"], temperature,
+                                 gumbel=noise["R"])
+        params["A"], nan_A = U.stream_sweep_A(
+            spec, data, params, params["R"], temperature, u=noise["A"])
+        na_events = na_events + nan_A
+    pois_red = S.chain_metrics(data, params["E"],
+                               params["P"] * params["A"].unsqueeze(1))
+    new_iter = state["iter"] + 1
+    new_state = {"params": params, "prior": prior, "gen": state["gen"],
+                 "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
+    metrics = stream_metrics_row(spec, data, params, prior, pois_red,
+                                 new_iter, temperature, acc_P, acc_E,
+                                 na_events, metric_consts)
+    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
+                       "metrics": metrics}
+
+
+def stream_metrics_row(spec, data, params, prior, pois_red, it, temperature,
+                       acc_P, acc_E, na_events, consts=None):
+    """The metrics row of every chain, (C, N_METRICS), from the four
+    streamed sums ``pois_red`` of ops/stream_sweeps.chain_metrics in place
+    of an Mhat (gibbs.py:305-312)."""
+    if consts is None:
+        consts = m.metric_constants(spec.likelihood, data)
+    K, G = spec.K, spec.G
+    m_loglam, lam_sum, mp_loglam, sq_err = pois_red
+    loglik = m_loglam - lam_sum - consts["lgamma_sum"]
+    kl = consts["mlogm_sum"] - mp_loglam
+    logpost = loglik + m.logprior_PE(params["P"], params["E"], spec.prior,
+                                     prior)
+    A = params["A"]
+    sum_a = A.sum(-1)
+    n_par = m.n_params_of(A, K, G)
+    accP_mean = ((acc_P * A.unsqueeze(1)).sum((1, 2))
+                 / (sum_a * K).clamp_min(1.0))
+    accE_mean = ((acc_E * A.unsqueeze(2)).sum((1, 2))
+                 / (sum_a * G).clamp_min(1.0))
+    full = lambda v: torch.full_like(sum_a, float(v))  # noqa: E731
+    return torch.stack([
+        full(it), torch.sqrt(sq_err / (K * G)), kl, loglik, logpost, n_par,
+        m.bic(loglik, n_par, G), sum_a, full(temperature), accP_mean,
+        accE_mean, na_events], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -36,15 +36,18 @@ def a_mode(A_hist: np.ndarray):
 
 def _masked_renorm_mean(P_hist, E_hist, mask):
     """Mask-weighted mean of the per-sample renormalised (P, E); returns the
-    means and the renormalised stacks."""
+    means and the renormalised stacks. ``E_hist`` None (a run that kept no
+    E history) gives None for E."""
     w = mask.to(torch.float32)
     w = w / w.sum().clamp_min(1.0)
     s = P_hist.sum(dim=1, keepdim=True)                   # (S, 1, N)
     safe = torch.where(s > 0, s, torch.ones_like(s))
     P_rn = P_hist / safe
+    P_map = torch.einsum("s,skn->kn", w, P_rn)
+    if E_hist is None:
+        return P_map, None, P_rn, None
     E_rn = E_hist * safe.transpose(1, 2)
-    return (torch.einsum("s,skn->kn", w, P_rn),
-            torch.einsum("s,sng->ng", w, E_rn), P_rn, E_rn)
+    return P_map, torch.einsum("s,sng->ng", w, E_rn), P_rn, E_rn
 
 
 def _masked_quantiles(X, mask: np.ndarray, lo: float):
@@ -69,18 +72,22 @@ def _masked_quantiles(X, mask: np.ndarray, lo: float):
 
 
 def compute_map(P_hist, E_hist, A_hist, final: bool,
-                credible_interval=0.95) -> dict:
+                credible_interval=0.95, want_ci: bool = True) -> dict:
     """MAP estimate (and credible intervals) from a window of samples.
 
     Steps (get_MAP_, utils.R:200-288): the mode of A; the samples matching
     it; each renormalised so the P columns sum to 1; the elementwise mean.
 
     Args:
-      P_hist: (S, K, N) tensor; E_hist: (S, N, G) tensor; A_hist: (S, N).
+      P_hist: (S, K, N) tensor; E_hist: (S, N, G) tensor, or None when the
+        E history was not kept (ChainEnsemble store_E=False): the result
+        then has no 'E' key and no E intervals (map_estimate.py:100-158);
+      A_hist: (S, N).
       final: keep only the included signatures (keep_sigs) if True.
-    Returns a dict with P, E, A, A_full, keep_sigs, idx_mask, A_counts and
-    credible_intervals {P: {lower, upper}, E: {...}}; the arrays are
-    numpy.
+      want_ci: compute the elementwise credible intervals.
+    Returns a dict with P, [E], A, A_full, keep_sigs, idx_mask, A_counts
+    and, with want_ci, credible_intervals {P: {lower, upper}, [E: ...]};
+    the arrays are numpy.
     """
     mode_row, mask, top = a_mode(np.asarray(A_hist))
     if final:
@@ -93,22 +100,26 @@ def compute_map(P_hist, E_hist, A_hist, final: bool,
 
     mask_d = torch.as_tensor(mask, device=P_hist.device)
     P_map, E_map, P_rn, E_rn = _masked_renorm_mean(P_hist, E_hist, mask_d)
-    lo = float((1.0 - credible_interval) / 2.0)
-    P_lo, P_hi = (host(t) for t in _masked_quantiles(P_rn, mask, lo))
-    E_lo, E_hi = (host(t) for t in _masked_quantiles(E_rn, mask, lo))
-    return {
+    out = {
         "P": host(P_map)[:, keep_sigs],
-        "E": host(E_map)[keep_sigs, :],
         "A": mode_row[keep_sigs],
         "A_full": mode_row,
         "keep_sigs": keep_sigs,
         "idx_mask": mask,
         "A_counts": top,
-        "credible_intervals": {
-            "P": {"lower": P_lo[:, keep_sigs], "upper": P_hi[:, keep_sigs]},
-            "E": {"lower": E_lo[keep_sigs, :], "upper": E_hi[keep_sigs, :]},
-        },
     }
+    if E_map is not None:
+        out["E"] = host(E_map)[keep_sigs, :]
+    if want_ci:
+        lo = float((1.0 - credible_interval) / 2.0)
+        P_lo, P_hi = (host(t) for t in _masked_quantiles(P_rn, mask, lo))
+        out["credible_intervals"] = {
+            "P": {"lower": P_lo[:, keep_sigs], "upper": P_hi[:, keep_sigs]}}
+        if E_rn is not None:
+            E_lo, E_hi = (host(t) for t in _masked_quantiles(E_rn, mask, lo))
+            out["credible_intervals"]["E"] = {
+                "lower": E_lo[keep_sigs, :], "upper": E_hi[keep_sigs, :]}
+    return out
 
 
 def map_quality_metrics(data: torch.Tensor, map_est: dict, G: int,

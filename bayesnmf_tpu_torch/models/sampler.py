@@ -23,14 +23,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bayesnmf_tpu.config import (
+from ..config import (
     ConvergenceControl,
     ModelSpec,
     RunConfig,
     default_hyperprior_params,
     default_MH,
 )
-from bayesnmf_tpu.utils.logging import RunLogger
+from ..utils.logging import RunLogger
 
 from . import gibbs
 from .convergence import ConvergenceTracker
@@ -346,7 +346,7 @@ class GibbsSampler:
             # live-updating trace plots at every check, as the reference
             # does (utils.R:344-347, 394-396)
             try:
-                from bayesnmf_tpu.utils import plotting
+                from ..utils import plotting
 
                 plotting.trace_plot(self, save=True)
                 plotting.trace_plot(self, MAP_means=True, save=True)
@@ -424,25 +424,24 @@ class GibbsSampler:
         return load_sampler(cls, path)
 
     # ------------------------------------------------------------------
-    # postprocessing entry points (the JAX package's jax-free utilities)
+    # postprocessing entry points (utils/postprocessing.py, utils/plotting.py)
     # ------------------------------------------------------------------
 
     def assign_signatures_ensemble(self, reference_P="cosmic", idxs=None,
                                    credible_interval=0.95):
-        from bayesnmf_tpu.utils.postprocessing import \
-            assign_signatures_ensemble
+        from ..utils.postprocessing import assign_signatures_ensemble
 
         return assign_signatures_ensemble(
             self, reference_P=reference_P, idxs=idxs,
             credible_interval=credible_interval)
 
     def summary(self, reference_P="cosmic"):
-        from bayesnmf_tpu.utils.postprocessing import sampler_summary
+        from ..utils.postprocessing import sampler_summary
 
         return sampler_summary(self, reference_P=reference_P)
 
     def plot(self, **kw):
-        from bayesnmf_tpu.utils.plotting import plot_sampler
+        from ..utils.plotting import plot_sampler
 
         return plot_sampler(self, **kw)
 

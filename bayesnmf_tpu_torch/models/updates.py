@@ -1,17 +1,37 @@
-"""Initial draws of the prior parameters and of P and E.
+"""Gibbs conditional updates of the port.
 
-Port of the truncnormal subset of bayesnmf_tpu/models/updates.py
-(init_prior_params :62-74, _prior_draw_P/_prior_draw_E :244-258). The
-per-iteration updates live in the fused sweep (ops/fused_sweeps.py).
+Port of the truncnormal subset of bayesnmf_tpu/models/updates.py:
+
+- initial draws: ``init_prior_params`` (:62-74), ``_prior_draw_P/E``
+  (:244-258);
+- the exact TruncNormal hyper-update ``sample_prior_params`` (:91-181),
+  which on the streaming path runs as host-issued tensor ops (the fused
+  kernel carries its own copy);
+- rank learning: ``prior_prob_1`` and ``sample_R`` (:770-783);
+- the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725) and
+  ``stream_sweep_A`` (:838-872), whose reductions are the kernels of
+  ops/stream_sweeps.py.
+
+On the streaming path every tensor carries a leading chain axis C and one
+call updates the whole ensemble; ``accept_all`` is a (C,) bool tensor, and
+every branch on device data is a ``torch.where``, so no call waits for the
+device. Each function takes its random numbers as optional ``noise``
+operands laid out as the JAX function draws them from its key (the tests
+feed it the JAX draws); when ``noise`` is None they come from ``gen``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from bayesnmf_tpu.config import ModelSpec
-
+from ..config import ModelSpec
 from ..ops import distributions as dist
+from ..ops import math as m
+from ..ops import stream_sweeps as S
+
+_U_MIN = 1.2e-38   # minval of the JAX package's sweep uniforms
 
 
 def _full(hp, name, shape, device):
@@ -26,12 +46,23 @@ def _require_truncnormal(spec: ModelSpec):
             f"the {spec.prior!r} prior is not ported yet (ROADMAP.md queue 1)")
 
 
+def _rand(gen, shape, device, low=_U_MIN):
+    return torch.rand(shape, generator=gen, device=device).clamp_min_(low)
+
+
+# ---------------------------------------------------------------------------
+# initial draws
+# ---------------------------------------------------------------------------
+
+
 def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
-                      device) -> dict:
+                      device, chains=None) -> dict:
     """Draw Mu/Sigmasq for P and E from their hyperpriors
-    (init_prior_params_, sample_priors.R:15-141)."""
+    (init_prior_params_, sample_priors.R:15-141); with ``chains`` = C, one
+    draw per chain on a leading axis."""
     _require_truncnormal(spec)
-    kn, ng = (spec.K, spec.N), (spec.N, spec.G)
+    lead = () if chains is None else (chains,)
+    kn, ng = lead + (spec.K, spec.N), lead + (spec.N, spec.G)
     return {
         "Mu_p": dist.normal(gen, _full(hp, "m_p", kn, device),
                             _full(hp, "s_p", kn, device)),
@@ -44,12 +75,301 @@ def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
     }
 
 
-def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator):
-    """A full (K, N) P from the prior (sample_Pn.R:12-29)."""
+def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
+                  u=None):
+    """A full P from the prior (sample_Pn.R:12-29); ``u``: the two uniform
+    planes on dim -3 (the JAX draw's (2, K, N), with the chain axis
+    first)."""
     _require_truncnormal(spec)
-    return dist.truncnorm_nonneg(gen, prior["Mu_p"], prior["Sigmasq_p"])
+    if u is None:
+        return dist.truncnorm_nonneg(gen, prior["Mu_p"], prior["Sigmasq_p"])
+    return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
+                                        prior["Mu_p"], prior["Sigmasq_p"])
 
 
-def _prior_draw_E(spec: ModelSpec, prior: dict, gen: torch.Generator):
+def _prior_draw_E(spec: ModelSpec, prior: dict, gen: torch.Generator,
+                  u=None):
     _require_truncnormal(spec)
-    return dist.truncnorm_nonneg(gen, prior["Mu_e"], prior["Sigmasq_e"])
+    if u is None:
+        return dist.truncnorm_nonneg(gen, prior["Mu_e"], prior["Sigmasq_e"])
+    return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
+                                        prior["Mu_e"], prior["Sigmasq_e"])
+
+
+# ---------------------------------------------------------------------------
+# the exact TruncNormal hyper-update (truncnormal + exact_truncnorm_hypers)
+# ---------------------------------------------------------------------------
+
+
+def _mu_step(mu_old, m0, s0, x, sq, z, lu):
+    """Metropolised conjugate-proposal step of Mu (updates.py:124-129)."""
+    den = 1.0 / s0 + 1.0 / sq
+    prop = (m0 / s0 + x / sq) / den + torch.sqrt(1.0 / den) * z
+    sd = torch.sqrt(sq)
+    la = (torch.special.log_ndtr(mu_old / sd)
+          - torch.special.log_ndtr(prop / sd))
+    return torch.where(lu < la, prop, mu_old)
+
+
+def _sq_step(sq_old, a0, b0, x, mu, z, lu):
+    """Wilson-Hilferty InvGamma proposal, Metropolised in g = b/sigma^2
+    (updates.py:131-165)."""
+    a = a0 + 0.5
+    b = b0 + 0.5 * (x - mu) ** 2
+    c = 1.0 - 1.0 / (9.0 * a)
+    sqa3 = 3.0 * torch.sqrt(a)
+    t_new = c + z / sqa3
+    g_new = a * t_new ** 3
+    ok = g_new > 1e-30
+    g_new_s = g_new.clamp_min(1e-30)
+    sq_new = b / g_new_s
+    g_old = b / sq_old.clamp_min(1e-30)
+    # g_old / a > 0, where the real cube root is the float power
+    t_old = torch.pow(g_old / a, 1.0 / 3.0)
+    z_old = sqa3 * (t_old - c)
+
+    def logw(g, t, zz, sq):
+        return ((a - 1.0) * torch.log(g) - g + 0.5 * zz * zz
+                + 2.0 * torch.log(t.clamp_min(1e-30))
+                - torch.special.log_ndtr(mu / torch.sqrt(sq)))
+
+    la = torch.where(
+        ok, logw(g_new_s, t_new, z, sq_new) - logw(g_old, t_old, z_old,
+                                                    sq_old),
+        torch.full_like(g_new, -math.inf))
+    return torch.where(lu < la, sq_new, sq_old)
+
+
+def n_hyper_noise(spec: ModelSpec) -> int:
+    """Length of one chain's normal (and uniform) draw for the hyper-update:
+    two per element of (K, N) and of (N, G)."""
+    return 2 * (spec.K * spec.N + spec.N * spec.G)
+
+
+def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
+                        gen=None, noise=None) -> dict:
+    """One exact Gibbs sweep over Mu/Sigmasq of P and E (updates.py:91-181),
+    chain-batched: P (C, K, N), E (C, N, G) and the prior dict alike.
+
+    ``noise``: {"z": normals, "u": uniforms}, each (C, n_hyper_noise(spec))
+    in the JAX layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e] (updates.py:119-173).
+    """
+    _require_truncnormal(spec)
+    if not spec.exact_truncnorm_hypers:
+        raise NotImplementedError(
+            "exact_truncnorm_hypers=False is not ported yet (ROADMAP.md "
+            "queue 1 item 12)")
+    P, E = params["P"], params["E"]
+    C = P.shape[0]
+    K, N, G = spec.K, spec.N, spec.G
+    n_p, n_e = K * N, N * G
+    n_t = n_p + n_e
+    if noise is None:
+        noise = {"z": torch.randn((C, 2 * n_t), generator=gen,
+                                  device=P.device),
+                 "u": _rand(gen, (C, 2 * n_t), P.device)}
+    z, lu = noise["z"], torch.log(noise["u"])
+
+    def parts(x):
+        return (x[:, :n_p].view(C, K, N), x[:, n_p:n_t].view(C, N, G),
+                x[:, n_t:n_t + n_p].view(C, K, N),
+                x[:, n_t + n_p:].view(C, N, G))
+
+    z_p, z_e, zg_p, zg_e = parts(z)
+    lu_p1, lu_e1, lu_p2, lu_e2 = parts(lu)
+
+    def h(name):  # float32 operands, as the JAX package broadcasts them
+        return torch.tensor(float(hp[name]), dtype=torch.float32,
+                            device=P.device)
+
+    new = dict(prior)
+    new["Mu_p"] = _mu_step(prior["Mu_p"], h("m_p"), h("s_p"), P,
+                           prior["Sigmasq_p"], z_p, lu_p1)
+    new["Mu_e"] = _mu_step(prior["Mu_e"], h("m_e"), h("s_e"), E,
+                           prior["Sigmasq_e"], z_e, lu_e1)
+    new["Sigmasq_p"] = _sq_step(prior["Sigmasq_p"], h("a_p"), h("b_p"), P,
+                                new["Mu_p"], zg_p, lu_p2)
+    new["Sigmasq_e"] = _sq_step(prior["Sigmasq_e"], h("a_e"), h("b_e"), E,
+                                new["Mu_e"], zg_e, lu_e2)
+    return new
+
+
+# ---------------------------------------------------------------------------
+# rank learning
+# ---------------------------------------------------------------------------
+
+
+def prior_prob_1(R, N, clip_val=0.4):
+    """clip(R/N, 0.4/N, 1-0.4/N) (compute_prior_prob_1,
+    sample_params.R:178-187)."""
+    return torch.clamp(R / N, clip_val / N, 1.0 - clip_val / N)
+
+
+def sample_R(spec: ModelSpec, A, temperature, gen=None, gumbel=None):
+    """The expected rank 0..N from its tempered discrete posterior
+    (sample_R, sample_params.R:217-241), by Gumbel-max. A (C, N); ``gumbel``
+    (C, N+1). Returns (C,) int32."""
+    N = spec.N
+    sumA = A.sum(-1, keepdim=True)
+    r = torch.arange(N + 1, dtype=torch.float32, device=A.device)
+    p1 = prior_prob_1(r, N)
+    loglik = sumA * torch.log(p1) + (N - sumA) * torch.log(1.0 - p1)
+    if gumbel is None:
+        gumbel = dist.gumbel_from_u(_rand(gen, loglik.shape, A.device))
+    return dist.categorical_from_gumbel(gumbel, temperature * loglik)
+
+
+def sbfi_penalty(spec: ModelSpec) -> float:
+    """The BIC-penalty delta (G+K) log(G) / 2 of one inclusion, in float32
+    (sample_params.R:118-126)."""
+    return float(torch.tensor(float(spec.G + spec.K))
+                 * torch.log(torch.tensor(float(spec.G))) / 2.0)
+
+
+def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
+                   gen=None, u=None):
+    """Sequential tempered Bernoulli updates of the inclusion vector A
+    (sample_An, sample_params.R:101-166), each column's loglik delta from
+    the ``acol_delta`` kernel; SBFI subtracts the BIC-penalty delta, BFI
+    does not. ``u``: (C, N) uniforms, column n's Bernoulli draw in u[:, n].
+    Returns (A, n_nan), n_nan (C,) counting posteriors clamped NaN -> 1/2.
+    """
+    P, E = params["P"], params["E"]
+    A = params["A"].clone()
+    C, K, N = P.shape
+    if u is None:
+        u = _rand(gen, (C, N), P.device)
+    p1 = prior_prob_1(R.to(torch.float32), N)
+    logit_p1 = torch.log(p1) - torch.log1p(-p1)
+    pen = sbfi_penalty(spec)
+    n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
+    for n in range(N):
+        A_n = A[:, n].contiguous()
+        delta = S.acol_delta(data, E, P * A.unsqueeze(1),
+                             E[:, n, :].contiguous(),
+                             P[:, :, n].contiguous(), A_n)
+        if spec.rank_method == "SBFI":
+            delta = delta - pen
+        p = torch.sigmoid(logit_p1 + temperature * delta)
+        is_nan = torch.isnan(p)
+        n_nan = n_nan + is_nan.to(torch.float32)
+        p = torch.where(is_nan, 0.5, p)
+        A[:, n] = dist.bernoulli_from_u(u[:, n], p)
+    return A, n_nan
+
+
+# ---------------------------------------------------------------------------
+# streaming P and E sweeps
+# ---------------------------------------------------------------------------
+
+
+def _mh_accept(log_ratio, u_acc, accept_all, inactive):
+    """The acceptance step shared by both sweeps (updates.py:611-628):
+    the prior-draw fallback always accepts, a NaN ratio is clamped to 0 and
+    counted, the warmup flag accepts everything. Returns (take, ratio_rec,
+    n_nan (C,))."""
+    log_ratio = torch.where(inactive, 0.0, log_ratio)
+    ratio_raw = torch.exp(log_ratio).clamp_max(1.0)
+    nan_mask = torch.isnan(ratio_raw)
+    n_nan = nan_mask.to(torch.float32).sum(-1)
+    ratio = torch.where(nan_mask, 0.0, ratio_raw)
+    acc = accept_all.view(-1, 1)
+    take = acc | (u_acc < ratio)
+    return take, torch.where(acc, 1.0, ratio), n_nan
+
+
+def _conditional(mu1, den, Mu_n, Sq_n):
+    den2 = den + 1.0 / Sq_n
+    return (mu1 + Mu_n / Sq_n) / den2, 1.0 / den2
+
+
+def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
+                   accept_all, gen=None, noise=None):
+    """Sequential exact-MH updates of the N columns of P with streamed
+    reductions (updates.py:539-636). ``noise``: {"prior_u": (C, 2, K, N),
+    "u": (C, 3, N, K)}, the JAX draws of _prior_draw_P and of the sweep's
+    uniforms. Returns (P, acc_P, n_nan (C,)); the inputs are not modified.
+    """
+    E, A = params["E"], params["A"]
+    P = params["P"].clone()
+    acc_P = acc_P.clone()
+    C, K, N = P.shape
+    if noise is None:
+        noise = {"prior_u": _rand(gen, (C, 2, K, N), P.device,
+                                  low=dist._TINY),
+                 "u": _rand(gen, (C, 3, N, K), P.device)}
+    P_prior = _prior_draw_P(spec, prior, gen, noise["prior_u"])
+    U = noise["u"]
+    n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
+    for n in range(N):
+        A_n = A[:, n:n + 1]
+        E_n = E[:, n, :].contiguous()
+        P_n = P[:, :, n].clone(memory_format=torch.contiguous_format)
+        PA = P * A.unsqueeze(1)
+        mu1, den_raw = S.pcol_stats(data, E, PA, E_n, A_n * P_n)
+        Mu_n, Sq_n = prior["Mu_p"][:, :, n], prior["Sigmasq_p"][:, :, n]
+        mu, var = _conditional(mu1, A_n * den_raw, Mu_n, Sq_n)
+        cond = dist.truncnorm_nonneg_from_u(U[:, 0, n], U[:, 1, n], mu, var)
+        prior_col = P_prior[:, :, n]
+        inactive = (E_n * E_n).sum(-1, keepdim=True) <= 0.0
+        proposal = torch.where(inactive, prior_col, cond)
+        lp_row, mu1_r, den_raw_r = S.pcol_accept(
+            data, E, PA, E_n, A_n * P_n, A_n * proposal)
+        mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, Mu_n, Sq_n)
+        log_ratio = (lp_row
+                     + m.truncnorm_logpdf_delta(proposal, P_n, Mu_n, Sq_n)
+                     + m.truncnorm_logpdf(P_n, mu_r, var_r)
+                     - m.truncnorm_logpdf(proposal, mu, var))
+        take, rec, nn = _mh_accept(log_ratio, U[:, 2, n], accept_all,
+                                   inactive)
+        n_nan = n_nan + nn
+        excluded = A_n == 0
+        P[:, :, n] = torch.where(excluded, prior_col,
+                                 torch.where(take, proposal, P_n))
+        acc_P[:, :, n] = torch.where(excluded, acc_P[:, :, n], rec)
+    return P, acc_P, n_nan
+
+
+def stream_sweep_E(spec: ModelSpec, data, params: dict, prior: dict, acc_E,
+                   accept_all, gen=None, noise=None):
+    """Streaming mirror of stream_sweep_P over the rows of E
+    (updates.py:639-725). ``noise``: {"prior_u": (C, 2, N, G),
+    "u": (C, 3, N, G)}. Returns (E, acc_E, n_nan (C,))."""
+    P, A = params["P"], params["A"]
+    E = params["E"].clone()
+    acc_E = acc_E.clone()
+    C, N, G = E.shape
+    if noise is None:
+        noise = {"prior_u": _rand(gen, (C, 2, N, G), E.device,
+                                  low=dist._TINY),
+                 "u": _rand(gen, (C, 3, N, G), E.device)}
+    E_prior = _prior_draw_E(spec, prior, gen, noise["prior_u"])
+    U = noise["u"]
+    PA = P * A.unsqueeze(1)   # P is fixed through the E sweep
+    n_nan = torch.zeros(C, dtype=torch.float32, device=E.device)
+    for n in range(N):
+        A_n = A[:, n:n + 1]
+        P_n = P[:, :, n].contiguous()
+        E_n = E[:, n, :].clone(memory_format=torch.contiguous_format)
+        mu1, den_raw = S.erow_stats(data, E, PA, A_n * E_n, P_n)
+        Mu_n, Sq_n = prior["Mu_e"][:, n, :], prior["Sigmasq_e"][:, n, :]
+        mu, var = _conditional(mu1, A_n * den_raw, Mu_n, Sq_n)
+        cond = dist.truncnorm_nonneg_from_u(U[:, 0, n], U[:, 1, n], mu, var)
+        prior_row = E_prior[:, n, :]
+        inactive = (P_n * P_n).sum(-1, keepdim=True) <= 0.0
+        proposal = torch.where(inactive, prior_row, cond)
+        lp_col, mu1_r, den_raw_r = S.erow_accept(
+            data, E, PA, A_n * E_n, P_n, A_n * proposal)
+        mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, Mu_n, Sq_n)
+        log_ratio = (lp_col
+                     + m.truncnorm_logpdf_delta(proposal, E_n, Mu_n, Sq_n)
+                     + m.truncnorm_logpdf(E_n, mu_r, var_r)
+                     - m.truncnorm_logpdf(proposal, mu, var))
+        take, rec, nn = _mh_accept(log_ratio, U[:, 2, n], accept_all,
+                                   inactive)
+        n_nan = n_nan + nn
+        excluded = A_n == 0
+        E[:, n, :] = torch.where(excluded, prior_row,
+                                 torch.where(take, proposal, E_n))
+        acc_E[:, n, :] = torch.where(excluded, acc_E[:, n, :], rec)
+    return E, acc_E, n_nan

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
 All of ``bayesnmf_tpu_torch/csrc/*.cu`` is compiled at first use into one
-shared library with a plain C interface::
+shared library with a plain C interface: one nvcc per source, all started
+together, then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu      (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 No ``--use_fast_math``: the MH acceptance ratio needs accurate logs.
 ``-fmad=false`` keeps products and sums from being contracted into FMAs, so
@@ -30,8 +32,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "bayesnmf_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                           "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -70,13 +73,37 @@ def load_library() -> ctypes.CDLL:
         lib_path = os.path.join(BUILD_DIR,
                                 f"libkernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(lib_path):
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, lib_path)
+            _compile(srcs, lib_path)
         _lib = ctypes.CDLL(lib_path)
         return _lib
+
+
+def _compile(srcs: list[str], lib_path: str):
+    """One nvcc per source, run together, then the link into ``lib_path``
+    (written under a temporary name and renamed, so a reader never sees a
+    half-written library)."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    errors = []
+    for src, proc in zip(srcs, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
+                          f"{err}")
+    tmp = f"{lib_path}.{tag}"
+    if not errors:
+        proc = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            errors.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    os.replace(tmp, lib_path)

@@ -1,9 +1,11 @@
-"""Samplers used when the sampler state is first drawn.
+"""Samplers of the Gibbs conditionals.
 
-Port of the init-time subset of bayesnmf_tpu/ops/distributions.py. Every
-sampler draws from an explicit ``torch.Generator`` on the generator's device;
-Philox and threefry never give the same numbers, so these match the
-reference in distribution, not draw by draw.
+Port of a subset of bayesnmf_tpu/ops/distributions.py. A sampler either
+draws from an explicit ``torch.Generator`` on the generator's device, or
+(the ``*_from_u`` / ``*_from_gumbel`` forms) takes its noise as operands, so
+a test can feed it the JAX package's draws. Philox and threefry never give
+the same numbers, so the keyed forms match the reference in distribution,
+not draw by draw.
 """
 
 from __future__ import annotations
@@ -18,12 +20,23 @@ def _uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device).clamp_min_(_TINY)
 
 
+def _ndtr(x):
+    """Standard normal CDF in the form of jax.scipy.special.ndtr: erfc in
+    both tails. (torch.special.ndtr computes 1 + erf, which rounds to 0 in
+    float32 below about -5.4, where the truncated-normal draws need it.)"""
+    z = x * 0.7071067811865476
+    a = z.abs()
+    y = torch.where(a < 0.7071067811865476, 1.0 + torch.erf(z),
+                    torch.where(z > 0, 2.0 - torch.erfc(a), torch.erfc(a)))
+    return 0.5 * y
+
+
 def _std_normal_lower_tail_from_u(u1, u2, alpha):
     """Z ~ N(0,1) | Z >= alpha from two uniforms (distributions.py:24-46):
     the tail-form inverse CDF z = -ndtri(u1 * ndtr(-alpha)) up to alpha = 8,
     and beyond it the deep-tail limit alpha + Exp(1)/alpha from the second
     uniform."""
-    tail = torch.special.ndtr(-alpha)
+    tail = _ndtr(-alpha)
     v = (u1 * tail).clamp_min(_TINY)
     z_icdf = torch.maximum(-torch.special.ndtri(v), alpha)
     a_safe = alpha.clamp_min(1.0)
@@ -98,3 +111,21 @@ def gamma(gen, shape_param, rate, unroll: int = 4):
 def inv_gamma(gen, shape_param, rate):
     """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma)."""
     return 1.0 / gamma(gen, shape_param, rate).clamp_min(1e-30)
+
+
+def bernoulli_from_u(u, p):
+    """Bernoulli(p) as float 0/1 from a uniform: ``u < p``, the form of
+    jax.random.bernoulli (its uniform comes from the same key)."""
+    return (u < p).to(torch.float32)
+
+
+def gumbel_from_u(u):
+    """Standard Gumbel noise from uniforms in (0, 1): -log(-log(u)), the
+    form of jax.random.gumbel."""
+    return -torch.log(-torch.log(u))
+
+
+def categorical_from_gumbel(gumbel, logits):
+    """Categorical draw over the last axis by the Gumbel-max trick, the form
+    of jax.random.categorical: argmax(logits + gumbel). Returns int32."""
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)

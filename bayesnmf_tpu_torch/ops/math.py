@@ -47,16 +47,24 @@ def truncnorm_logpdf(x, mu, sigmasq):
                        torch.full_like(log_norm, -math.inf))
 
 
+def truncnorm_logpdf_delta(x_new, x_old, mu, sigmasq):
+    """truncnorm_logpdf(x_new, ...) - truncnorm_logpdf(x_old, ...) for
+    x_new, x_old >= 0 (math.py:101-110): the normalisers cancel, leaving
+    the quadratic."""
+    zn = x_new - mu
+    zo = x_old - mu
+    return -0.5 * (zn * zn - zo * zo) / sigmasq
+
+
 def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
-    """Sum of the prior log-pdfs of P and E (utils.R:131-175)."""
+    """Sum of the prior log-pdfs of P and E (utils.R:131-175). With a
+    leading chain axis on every operand, one sum per chain."""
     if prior != "truncnormal":
         raise NotImplementedError(
             f"logprior_PE: the {prior!r} prior is not ported (ROADMAP.md)")
-    lp = truncnorm_logpdf(P, prior_params["Mu_p"],
-                          prior_params["Sigmasq_p"]).sum()
-    le = truncnorm_logpdf(E, prior_params["Mu_e"],
-                          prior_params["Sigmasq_e"]).sum()
-    return lp + le
+    lp = truncnorm_logpdf(P, prior_params["Mu_p"], prior_params["Sigmasq_p"])
+    le = truncnorm_logpdf(E, prior_params["Mu_e"], prior_params["Sigmasq_e"])
+    return lp.sum((-2, -1)) + le.sum((-2, -1))
 
 
 def rmse(M: torch.Tensor, Mh: torch.Tensor) -> torch.Tensor:
@@ -91,8 +99,9 @@ def bic(loglik, n_params, G: int):
 
 
 def n_params_of(A: torch.Tensor, K: int, G: int) -> torch.Tensor:
-    """Effective parameter count sum(A) * (G + K) (utils.R:424)."""
-    return torch.sum(A) * (G + K)
+    """Effective parameter count sum(A) * (G + K) (utils.R:424), per chain
+    when A has a chain axis."""
+    return torch.sum(A, -1) * (G + K)
 
 
 def renormalize(P: torch.Tensor, E: torch.Tensor):

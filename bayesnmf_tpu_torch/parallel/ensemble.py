@@ -1,0 +1,612 @@
+"""Multi-chain ensembles: C independent chains in one batched program.
+
+Port of bayesnmf_tpu/parallel/ensemble.py:58-1015 for the streaming path:
+C chains of the Poisson, TruncNormal, exact-MH model, at a fixed rank or
+with SBFI/BFI rank learning, on one device. Each chain keeps the reference's
+semantics on its own: accept-all warmup until its own convergence, then
+``post_warmup`` MH samples; convergence is tracked on the host from the
+per-chain metrics (models/convergence.VectorConvergenceTracker).
+
+The chains are the leading axis of every state tensor (parallel/chains.py).
+Once a chain has finished its inference window, its MAP and sample window
+are taken to the host and the device ensemble shrinks to the chains still
+running (``_maybe_compact``, an index-select on the chain axis), so
+finished chains stop costing device time.
+
+Not ported yet (each raises NotImplementedError; ROADMAP.md): ``mesh``,
+``A_masks`` (the parallel-BIC rank search), ``record_history='full'``,
+``save_all_samples=True``, ``fused_sweeps``, the unfused and unstreamed
+sweep path, ``pooled_assignment`` and ``diagnostics``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import ConvergenceControl, ModelSpec, default_hyperprior_params
+from ..config import default_MH
+from ..models import gibbs
+from ..models.convergence import VectorConvergenceTracker
+from ..models.map_estimate import compute_map
+from ..models.sampler import _resolve_output_dir, resolve_device
+from ..utils.logging import RunLogger
+from . import chains as chains_mod
+
+#: Smallest G at which ``stream_sweeps=None`` picks the streaming kernels on
+#: CUDA. Copied from the JAX package (ensemble.py:58-62), where it was
+#: measured on a TPU at C = 64 (XLA won at G = 1000, streaming at 2000); the
+#: H100 crossover against the port's other paths is not measured yet
+#: (ROADMAP.md queue 1 item 14).
+_STREAM_SWEEPS_MIN_G = 2000
+
+_ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 10)"
+
+
+def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
+                        device: torch.device) -> bool:
+    """Streaming kernels for large-G poisson+MH ensembles on CUDA."""
+    return (likelihood == "poisson" and bool(MH)
+            and prior in ("truncnormal", "exponential")
+            and mesh is None and not fused_sweeps
+            and device.type == "cuda"
+            and G >= _STREAM_SWEEPS_MIN_G)
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class _ViewTracker:
+    """Per-chain convergence facts for a _ChainView."""
+
+    def __init__(self, ens: "ChainEnsemble", chain: int):
+        self._ens = ens
+        self._c = chain
+
+    @property
+    def converged(self):
+        return bool(self._ens.tracker.converged[self._c])
+
+    @property
+    def converged_iter(self):
+        it = int(self._ens.tracker.converged_iter[self._c])
+        return it if it >= 0 else None
+
+    @property
+    def why(self):
+        return self._ens.tracker.why(self._c)
+
+
+class _ChainView:
+    """One chain of an ensemble with the GibbsSampler surface that MAP,
+    postprocessing and plotting read (spec, data, MAP, credible_intervals,
+    sample_metrics, _gather_window, reference_comparison)."""
+
+    def __init__(self, ensemble: "ChainEnsemble", chain: int):
+        self._ens = ensemble
+        self.chain = chain
+        self.spec = ensemble.spec
+        self.cc = ensemble.cc
+        self.row_names = ensemble.row_names
+        self.col_names = ensemble.col_names
+        self.temp_sched = ensemble.temp_sched
+        self.tracker = _ViewTracker(ensemble, chain)
+        self._archive = None
+
+    @property
+    def MAP_metrics(self):
+        return self._ens._MAP_metrics_per_chain[self.chain]
+
+    @property
+    def MAP(self):
+        return self._ens.MAP_per_chain[self.chain]
+
+    @MAP.setter
+    def MAP(self, value):
+        self._ens.MAP_per_chain[self.chain] = value
+
+    @property
+    def credible_intervals(self):
+        m = self.MAP
+        return m.get("credible_intervals") if m else None
+
+    def get_MAP(self, end_iter=None, n_samples=None, final=True,
+                credible_interval=0.95):
+        """This chain's MAP over a window (get_MAP, utils.R:194-212); with
+        no arguments, the finalised MAP."""
+        if end_iter is None and n_samples is None and self.MAP is not None:
+            return self.MAP
+        end = self._end_default() if end_iter is None else int(end_iter)
+        n = min(n_samples or self.cc.MAP_over, end)
+        P_h, E_h, A_h = self._gather_window(end, n, device=self._ens.device)
+        res = compute_map(P_h, E_h, A_h, final=final,
+                          credible_interval=credible_interval,
+                          want_ci=self._ens.want_ci)
+        res["idx"] = np.arange(end - A_h.shape[0] + 1, end + 1)[
+            res["idx_mask"]]
+        res["sig_idx"] = np.arange(len(res["keep_sigs"]))
+        self.MAP = res
+        return res
+
+    def _end_default(self):
+        e = int(self._ens._end_iter[self.chain])
+        return e if 0 < e <= self._ens.iter else self._ens.iter
+
+    @property
+    def iter(self):
+        return self._end_default()
+
+    @property
+    def reference_comparison(self):
+        return self._ens._reference_comparisons.setdefault(self.chain, {})
+
+    @reference_comparison.setter
+    def reference_comparison(self, value):
+        self._ens._reference_comparisons[self.chain] = value
+
+    @property
+    def data(self):
+        return self._ens.data
+
+    @property
+    def output_dir(self):
+        return self._ens.output_dir
+
+    @property
+    def time(self):
+        return self._ens.time
+
+    @property
+    def sample_metrics(self):
+        """This chain's per-iteration metrics as a DataFrame; iterations run
+        after the chain left the device are absent."""
+        import pandas as pd
+
+        rows = self._ens._metrics_all()[self.chain]
+        rows = rows[~np.isnan(rows[:, 0])]
+        return pd.DataFrame(rows, columns=list(gibbs.METRIC_NAMES))
+
+    def _gather_window(self, end_iter: int, n_samples: int, device=None):
+        """This chain's last ``n_samples`` samples ending at ``end_iter``:
+        (P, E or None, A), from its finalised host window when that covers
+        the request, else from the retained device chunks. numpy arrays, or
+        tensors on ``device`` (A always numpy)."""
+        lo = end_iter - n_samples + 1
+        c = self.chain
+        chunks = []
+        fin = self._ens._final_windows.get(c)
+        if fin is not None:
+            S = fin["A"].shape[0]
+            chunks.append({"P": fin["P"], "E": fin.get("E"), "A": fin["A"],
+                           "start_iter": fin["end_iter"] - S + 1})
+        else:
+            for ch in self._ens._window:
+                pos = np.nonzero(ch["chain_ids"] == c)[0]
+                if pos.size == 0:
+                    continue
+                s = int(pos[0])
+                chunks.append({"P": ch["P"][s], "A": ch["A"][s],
+                               "E": ch["E"][s] if "E" in ch else None,
+                               "start_iter": ch["start_iter"]})
+        Ps, Es, As = [], [], []
+        for ch in chunks:
+            n = ch["P"].shape[0]
+            s, e = ch["start_iter"], ch["start_iter"] + n - 1
+            if e < lo or s > end_iter:
+                continue
+            i0, i1 = max(lo - s, 0), min(end_iter - s, n - 1) + 1
+            Ps.append(ch["P"][i0:i1])
+            As.append(_host(ch["A"][i0:i1]))
+            if ch["E"] is not None:
+                Es.append(ch["E"][i0:i1])
+        if not Ps:
+            raise ValueError("no samples in requested window")
+        if device is None:
+            cat = lambda xs: np.concatenate([_host(x) for x in xs])  # noqa
+        else:
+            cat = lambda xs: torch.cat(  # noqa: E731
+                [torch.as_tensor(x, device=device) for x in xs])
+        return cat(Ps), (cat(Es) if Es else None), np.concatenate(As)
+
+    def assign_signatures_ensemble(self, reference_P="cosmic", idxs=None,
+                                   credible_interval=0.95):
+        from ..utils.postprocessing import assign_signatures_ensemble
+
+        return assign_signatures_ensemble(
+            self, reference_P=reference_P, idxs=idxs,
+            credible_interval=credible_interval)
+
+
+class ChainEnsemble:
+    """Run ``n_chains`` independent Gibbs chains of the same model on one
+    device. ``device="cuda"`` (the default) runs the CUDA kernels,
+    ``device="cpu"`` their plain PyTorch versions; nothing falls back from
+    one to the other."""
+
+    def __init__(
+        self,
+        data,
+        rank,
+        n_chains: int = 8,
+        likelihood: str = "poisson",
+        prior: str = "truncnormal",
+        rank_method: str = "SBFI",
+        MH: Optional[bool] = None,
+        convergence_control: Optional[ConvergenceControl] = None,
+        prop_temp: float = 0.2,
+        post_warmup: Optional[int] = None,
+        mesh=None,
+        seed: int = 0,
+        store_E: bool = True,
+        output_dir: Optional[str] = None,
+        overwrite: bool = False,
+        hyperprior_params: Optional[dict] = None,
+        init_prior_params: Optional[dict] = None,
+        init_params: Optional[dict] = None,
+        record_history: str = "basic",
+        fused_sweeps: bool = False,
+        stream_sweeps: Optional[bool] = None,
+        want_ci: bool = True,
+        compact: bool = True,
+        verbosity: int = 1,
+        periodic_save: bool = True,
+        save_all_samples: bool = False,
+        A_masks=None,
+        device="cuda",
+    ):
+        if record_history not in ("basic", "full"):
+            raise ValueError("record_history must be 'basic' or 'full'")
+        for flag, what in ((mesh is not None, "mesh-sharded ensembles"),
+                           (A_masks is not None,
+                            "A_masks (the parallel-BIC rank search)"),
+                           (record_history == "full",
+                            "record_history='full'"),
+                           (save_all_samples, "save_all_samples=True"),
+                           (fused_sweeps, "fused_sweeps on an ensemble")):
+            if flag:
+                raise NotImplementedError(f"{what} is {_ROADMAP}")
+        self.device = resolve_device(device)
+        self.row_names = None
+        self.col_names = None
+        if hasattr(data, "index") and hasattr(data, "columns"):
+            self.row_names = [str(r) for r in data.index]
+            self.col_names = [str(c) for c in data.columns]
+            data = data.to_numpy()
+        data = np.ascontiguousarray(data, np.float32)
+        if isinstance(rank, (int, np.integer)):
+            ranks = [int(rank)]
+        else:
+            ranks = sorted(int(r) for r in rank)
+        learning_rank = len(ranks) > 1
+        N = max(ranks)
+        if MH is None:
+            MH = default_MH(likelihood, prior)
+        if stream_sweeps is None:
+            stream_sweeps = _auto_stream_sweeps(
+                likelihood, prior, MH, mesh, fused_sweeps, data.shape[1],
+                self.device)
+        if not stream_sweeps:
+            raise NotImplementedError(
+                f"the unstreamed ensemble sweep path is {_ROADMAP}; pass "
+                "stream_sweeps=True")
+        self.spec = ModelSpec(
+            K=data.shape[0], N=N, G=data.shape[1], likelihood=likelihood,
+            prior=prior, MH=MH, learning_rank=learning_rank,
+            rank_method=rank_method, stream_sweeps=True)
+        gibbs.check_spec(self.spec)
+        self.cc = convergence_control or ConvergenceControl()
+        self.n_chains = n_chains
+        self.post_warmup = (post_warmup if post_warmup is not None
+                            else 2 * self.cc.MAP_over)
+        self.store_E = store_E
+        self.seed = seed
+        self.periodic_save = periodic_save
+        self.want_ci = want_ci
+        self.compact = compact
+
+        self.output_dir = _resolve_output_dir(output_dir, overwrite)
+        self.logger = RunLogger(self.output_dir, verbosity)
+        self.logger.log(
+            f"Initialized ensemble: {n_chains} chains, likelihood = "
+            f"{likelihood}, prior = {prior}, MH = {MH}, rank "
+            f"{'learned (' + rank_method + ')' if learning_rank else N}, "
+            f"device = {self.device}", 1)
+
+        n_iters = self.cc.maxiters + self.post_warmup
+        rng = np.random.default_rng(seed)
+        if learning_rank:
+            sched = gibbs.temp_schedule(
+                n_iters, int(round(prop_temp * self.cc.maxiters)), rng)
+        else:
+            sched = np.ones(n_iters, np.float32)
+        self.temp_sched = np.concatenate([[np.float32(0)], sched])
+
+        self.hp = dict(default_hyperprior_params(self.spec,
+                                                 float(data.mean())))
+        if hyperprior_params:
+            self.hp.update(hyperprior_params)
+        self._data_np = data
+        self.data = torch.as_tensor(data, device=self.device)
+        self._slots = np.arange(n_chains)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.states = chains_mod.init_chain_states(
+            self.spec, self.hp, self.data, gen, n_chains, init_params,
+            init_prior_params)
+
+        self.tracker = VectorConvergenceTracker(self.cc, n_chains)
+        self.iter = 1
+        # per-chain iteration at which the inference phase ends
+        self._end_iter = np.full(n_chains, -1, np.int64)
+        self._window: list = []        # recent device chunks + chain_ids
+        self._metric_rows: list = []   # (n_chains, steps, m), NaN off-device
+        self._final_windows: dict = {}  # chain -> host sample window
+        self._final_metrics: dict = {}  # chain -> host metric rows
+        self.MAP_per_chain: list = [None] * n_chains
+        self._MAP_metrics_per_chain: list = [[] for _ in range(n_chains)]
+        self._reference_comparisons: dict = {}
+        # chain-iterations of resident chains inside their own runs
+        self._chain_iters = 0
+        self.time = {}
+
+    # ------------------------------------------------------------------
+
+    def _accept_all_vec(self):
+        return torch.as_tensor(
+            (self.spec.MH & ~self.tracker.converged)[self._slots],
+            device=self.device)
+
+    def _run_chunk(self, steps: int):
+        temps = self.temp_sched[self.iter + 1: self.iter + steps + 1]
+        self.states, samples = chains_mod.run_chunk_chains(
+            self.spec, self.data, self.hp, self.states, temps,
+            self._accept_all_vec(), store_E=self.store_E)
+        chunk = {k: v for k, v in samples.items() if k != "metrics"}
+        chunk["start_iter"] = self.iter + 1
+        chunk["chain_ids"] = self._slots.copy()
+        self._window.append(chunk)
+        max_chunks = -(-self.cc.MAP_over // self.cc.MAP_every) + 1
+        if len(self._window) > max_chunks:
+            self._window.pop(0)
+        rows = np.full((self.n_chains, steps, gibbs.N_METRICS), np.nan,
+                       np.float32)
+        rows[self._slots] = _host(samples["metrics"])
+        self._metric_rows.append(rows)
+        end = self._end_iter[self._slots]
+        self._chain_iters += int(np.sum(np.where(
+            end > 0, np.clip(end - self.iter, 0, steps), steps)))
+        self.iter += steps
+
+    def _metrics_all(self):
+        return np.concatenate(self._metric_rows, axis=1)  # (C, iters, m)
+
+    def _metrics_tail(self, n: int):
+        return self._metrics_all()[:, -n:, :]
+
+    def _check_convergence(self):
+        win = self._metrics_tail(self.cc.MAP_over)
+        # per-chain MAP metric: the window mean of the metric, as the
+        # reference does (update_MAP_metrics_, utils.R:369-379)
+        col = {"loglikelihood": 3, "logposterior": 4, "RMSE": 1, "KL": 2}[
+            self.cc.metric]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN rows
+            vals = np.nanmean(win[:, :, col], axis=1)
+        if self.cc.metric in ("loglikelihood", "logposterior"):
+            vals = -vals
+        self._append_map_metric_rows(win)
+        temps_all_one = bool(np.all(
+            self.temp_sched[max(self.iter - self.cc.MAP_over, 1):
+                            self.iter + 1] == 1.0))
+        newly = self.tracker.update(vals, self.iter, temps_all_one)
+        self._end_iter[newly] = self.iter + self.post_warmup
+        for c in np.nonzero(newly)[0]:
+            self.logger.log(
+                f"chain {c} converged at {self.iter} due to "
+                f"{self.tracker.why(c)}", 1)
+        self.logger.log(
+            f"iter = {self.iter}: {int(self.tracker.converged.sum())}/"
+            f"{self.n_chains} chains converged", 1)
+        if self.periodic_save and self.output_dir:
+            self.save_object()
+
+    def _append_map_metric_rows(self, win):
+        """Per-chain MAP-metric rows at this check (update_MAP_metrics_,
+        utils.R:356-397): window means of the per-sample metrics; rows stop
+        once a chain's run has ended."""
+        G, K = self.spec.G, self.spec.K
+        mean_temp = float(np.mean(
+            self.temp_sched[max(self.iter - self.cc.MAP_over + 1, 1):
+                            self.iter + 1]))
+        for c in range(self.n_chains):
+            if 0 < self._end_iter[c] < self.iter:
+                continue
+            w = win[c]
+            w = w[~np.isnan(w[:, 0])]
+            if w.shape[0] == 0:
+                continue
+            mean_ll = float(w[:, 3].mean())
+            rank = float(w[-1, 7])
+            n_par = rank * (G + K)
+            self._MAP_metrics_per_chain[c].append({
+                "iter": self.iter,
+                "RMSE": float(w[:, 1].mean()),
+                "KL": float(w[:, 2].mean()),
+                "loglikelihood": mean_ll,
+                "logposterior": float(w[:, 4].mean()),
+                "n_params": n_par,
+                "BIC": -2.0 * mean_ll + n_par * np.log(G),
+                "rank": rank,
+                "mean_temp": mean_temp,
+                "P_mean_acceptance_rate": float(w[-1, 9]),
+                "E_mean_acceptance_rate": float(w[-1, 10]),
+            })
+
+    # ------------------------------------------------------------------
+    # finalisation + compaction
+    # ------------------------------------------------------------------
+
+    def _finished_mask(self):
+        return self.tracker.converged & (self._end_iter > 0) & (
+            self._end_iter <= self.iter)
+
+    def _finalize_chain(self, c: int):
+        """Take chain ``c``'s inference window (ending at its own
+        ``_end_iter``, bayesNMF.R:95-97) to the host and compute its MAP and
+        credible intervals."""
+        end = int(self._end_iter[c])
+        end = end if 0 < end <= self.iter else self.iter
+        lo = max(end - self.cc.MAP_over + 1, 2)
+        view = _ChainView(self, c)
+        P_h, E_h, A_h = view._gather_window(end, end - lo + 1,
+                                            device=self.device)
+        fin = {"end_iter": end, "P": _host(P_h), "A": A_h}
+        if E_h is not None:
+            fin["E"] = _host(E_h)
+        rows = self._metrics_all()[c]
+        j1 = rows.shape[0] - (self.iter - end)
+        self._final_metrics[c] = rows[max(j1 - self.cc.MAP_over, 0):j1]
+        res = compute_map(P_h, E_h, A_h, final=True, want_ci=self.want_ci)
+        res["idx"] = np.arange(end - A_h.shape[0] + 1, end + 1)[
+            res["idx_mask"]]
+        res["sig_idx"] = np.arange(len(res["keep_sigs"]))
+        self._final_windows[c] = fin
+        self.MAP_per_chain[c] = res
+
+    def _maybe_compact(self):
+        """Shrink the resident ensemble to the chains still running: one
+        index-select on the chain axis of every state tensor."""
+        finished = self._finished_mask()
+        keep = np.nonzero(~finished[self._slots])[0]
+        if keep.size == 0 or keep.size == self._slots.size:
+            return
+        idx = torch.as_tensor(keep, device=self.device)
+        sel = lambda t: t.index_select(0, idx)  # noqa: E731
+        st = self.states
+        self.states = {
+            "params": {k: sel(v) for k, v in st["params"].items()},
+            "prior": {k: sel(v) for k, v in st["prior"].items()},
+            "acc_P": sel(st["acc_P"]), "acc_E": sel(st["acc_E"]),
+            "iter": st["iter"], "gen": st["gen"]}
+        self._slots = self._slots[keep]
+        self.logger.log(
+            f"compacted ensemble to {self._slots.size} resident chains", 1)
+
+    def run(self):
+        """Run all chains to completion (resumable: continues from the
+        current iteration after ``ChainEnsemble.load``); returns self."""
+        t0 = time.time()
+        cc = self.cc
+        self.logger.log("Starting ensemble Gibbs sampler", 1)
+        hard_stop = cc.maxiters + self.post_warmup
+        while self.iter < hard_stop and not np.all(self._finished_mask()):
+            boundary = min(((self.iter // cc.MAP_every) + 1) * cc.MAP_every,
+                           hard_stop)
+            self._run_chunk(boundary - self.iter)
+            if self.iter % cc.MAP_every == 0 or self.iter >= hard_stop:
+                self._check_convergence()
+                for c in np.nonzero(self._finished_mask())[0]:
+                    if self.MAP_per_chain[c] is None:
+                        self._finalize_chain(c)
+                if self.compact:
+                    self._maybe_compact()
+        self.time["total"] = self.time.get("total", 0.0) + (
+            time.time() - t0) / 60.0
+        self.time["iters"] = self.iter
+        self._compute_maps()
+        self.logger.log(
+            f"Ensemble done: {self.iter} iterations, "
+            f"{self.throughput():.1f} chain-it/s", 1)
+        if self.output_dir:
+            self.save_object()
+        return self
+
+    def _compute_maps(self):
+        """Finalise every chain that still lacks a MAP (chains that never
+        converged get the global tail window)."""
+        for c in range(self.n_chains):
+            if self.MAP_per_chain[c] is None:
+                if self._end_iter[c] <= 0:
+                    self._end_iter[c] = self.iter
+                self._finalize_chain(c)
+
+    # ------------------------------------------------------------------
+    # persistence (checkpoint + bit-exact resume)
+    # ------------------------------------------------------------------
+
+    def save_object(self, path: Optional[str] = None):
+        from ..utils.checkpoint import save_ensemble
+
+        path = path or (os.path.join(self.output_dir, "ensemble.ckpt")
+                        if self.output_dir else "ensemble.ckpt")
+        save_ensemble(self, path)
+        return path
+
+    @classmethod
+    def load(cls, path: str):
+        """Resume from a checkpoint, on the device it was saved from."""
+        from ..utils.checkpoint import load_ensemble
+
+        return load_ensemble(cls, path)
+
+    # ------------------------------------------------------------------
+    # results
+    # ------------------------------------------------------------------
+
+    def chain(self, c: int) -> _ChainView:
+        """Single-chain view for MAP, postprocessing and plotting."""
+        if self.MAP_per_chain[c] is None:
+            self._compute_maps()
+        return _ChainView(self, c)
+
+    def pooled_assignment(self, reference_P="cosmic"):
+        raise NotImplementedError(f"pooled_assignment is {_ROADMAP}")
+
+    def diagnostics(self, *args, **kwargs):
+        raise NotImplementedError(f"diagnostics (R-hat, ESS) are {_ROADMAP}")
+
+    def _chain_metrics_window(self, c: int):
+        fin = self._final_metrics.get(c)
+        if fin is not None:
+            return fin
+        return self._metrics_tail(self.cc.MAP_over)[c]
+
+    def bic_table(self):
+        """Per-chain BIC over each chain's own final MAP_over window:
+        BIC = -2*mean(loglik) + n_params*log(G), sorted by BIC."""
+        import pandas as pd
+
+        rows = []
+        for c in range(self.n_chains):
+            win = self._chain_metrics_window(c)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                mean_ll = float(np.nanmean(win[:, 3]))
+            ok = ~np.isnan(win[:, 0])
+            last = np.nonzero(ok)[0][-1] if ok.any() else -1
+            rows.append({
+                "chain": c, "rank": int(win[last, 7]),
+                "BIC": -2.0 * mean_ll + float(win[last, 5])
+                * np.log(self.spec.G),
+                "loglik": mean_ll,
+            })
+        return pd.DataFrame(rows).sort_values("BIC").reset_index(drop=True)
+
+    @property
+    def learned_ranks(self):
+        return np.array([
+            int(np.asarray(m_["A_full"]).sum()) if m_ is not None else -1
+            for m_ in self.MAP_per_chain])
+
+    def throughput(self):
+        """Chain-iterations per second over the whole run, counting only
+        the iterations each resident chain ran inside its own run (a chain
+        kept on the device past its end does not count)."""
+        secs = self.time.get("total", 0.0) * 60.0
+        return self._chain_iters / max(secs, 1e-9)

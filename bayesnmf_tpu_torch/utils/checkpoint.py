@@ -1,10 +1,11 @@
-"""Checkpoint and resume of the port's sampler.
+"""Checkpoint and resume of the port's sampler and chain ensemble.
 
-Port of save_sampler/load_sampler from bayesnmf_tpu/utils/checkpoint.py. A
-checkpoint holds the state in the JAX package's layout (models/state.py),
-the generator's state, the convergence tracker, the metric history and the
-sample window, all as host numpy, so the chain continues bit-exactly from
-where it stopped.
+Port of bayesnmf_tpu/utils/checkpoint.py:23-168. A checkpoint holds the
+state (for one chain in the JAX package's layout, models/state.py), the
+generator's state, the convergence tracker, the metric history and the
+sample window, all as host numpy, so the chains continue bit-exactly from
+where they stopped. A checkpoint pickles this package's classes
+(``bayesnmf_tpu_torch.config.ModelSpec`` among them).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import pickle
 import numpy as np
 import torch
 
-from bayesnmf_tpu.utils.logging import RunLogger
+from .logging import RunLogger
 
 from ..models.convergence import ConvergenceTracker
 from ..models.state import state_from_numpy, state_to_numpy
@@ -99,4 +100,97 @@ def load_sampler(cls, path: str):
     obj.reference_comparison = {}
     obj.row_names = p["row_names"]
     obj.col_names = p["col_names"]
+    return obj
+
+
+def _chain_state_to_numpy(states: dict) -> dict:
+    n = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    return {"params": {k: n(v) for k, v in states["params"].items()},
+            "prior": {k: n(v) for k, v in states["prior"].items()},
+            "acc_P": n(states["acc_P"]), "acc_E": n(states["acc_E"]),
+            "iter": states["iter"]}
+
+
+def save_ensemble(ens, path: str):
+    """Checkpoint a ChainEnsemble (checkpoint.py:55-102): the chain-batched
+    device state and the generator's state, the trackers, the retained
+    sample window, the metric history and the finalised chains, all as host
+    numpy, so every chain continues bit-exactly."""
+    payload = {
+        "version": 1,
+        "kind": "ensemble",
+        "spec": ens.spec,
+        "cc": ens.cc,
+        "n_chains": ens.n_chains,
+        "post_warmup": ens.post_warmup,
+        "store_E": ens.store_E,
+        "seed": ens.seed,
+        "periodic_save": ens.periodic_save,
+        "want_ci": ens.want_ci,
+        "compact": ens.compact,
+        "temp_sched": ens.temp_sched,
+        "hp": dict(ens.hp),
+        "data": ens._data_np,
+        "device": str(ens.device),
+        "states": _chain_state_to_numpy(ens.states),
+        "gen_state": ens.states["gen"].get_state().numpy(),
+        "iter": ens.iter,
+        "tracker_vec": ens.tracker.to_dict(),
+        "end_iter": ens._end_iter,
+        "slots": ens._slots,
+        "window": [_host_chunk(c) for c in ens._window],
+        "metric_rows": ens._metric_rows,
+        "final_windows": ens._final_windows,
+        "final_metrics": ens._final_metrics,
+        "MAP_per_chain": ens.MAP_per_chain,
+        "MAP_metrics_per_chain": ens._MAP_metrics_per_chain,
+        "chain_iters": ens._chain_iters,
+        "time": ens.time,
+        "output_dir": ens.output_dir,
+        "row_names": ens.row_names,
+        "col_names": ens.col_names,
+    }
+    with open(path, "wb") as fh:
+        pickle.dump(payload, fh, protocol=4)
+
+
+def load_ensemble(cls, path: str):
+    """Rebuild a ChainEnsemble from ``path`` on the device it was saved
+    from. Load only checkpoints this program wrote: unpickling runs code."""
+    from ..models.convergence import VectorConvergenceTracker
+    from ..models.sampler import resolve_device
+
+    with open(path, "rb") as fh:
+        p = pickle.load(fh)
+    obj = cls.__new__(cls)
+    obj.device = dev = resolve_device(p["device"])
+    for k in ("spec", "cc", "n_chains", "post_warmup", "store_E", "seed",
+              "periodic_save", "want_ci", "compact", "temp_sched", "hp",
+              "iter", "time", "output_dir", "row_names", "col_names",
+              "MAP_per_chain"):
+        setattr(obj, k, p[k])
+    obj._data_np = p["data"]
+    obj.data = torch.as_tensor(p["data"], device=dev)
+    st = p["states"]
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    gen = torch.Generator(device=dev)
+    gen.set_state(torch.from_numpy(p["gen_state"]))
+    obj.states = {"params": {k: t(v) for k, v in st["params"].items()},
+                  "prior": {k: t(v) for k, v in st["prior"].items()},
+                  "acc_P": t(st["acc_P"]), "acc_E": t(st["acc_E"]),
+                  "iter": st["iter"], "gen": gen}
+    obj.tracker = VectorConvergenceTracker(obj.cc, obj.n_chains)
+    obj.tracker.restore(p["tracker_vec"])
+    obj._end_iter = p["end_iter"]
+    obj._slots = p["slots"]
+    obj._window = [{k: (v if k in ("start_iter", "chain_ids") else t(v))
+                    for k, v in c.items()} for c in p["window"]]
+    obj._metric_rows = p["metric_rows"]
+    obj._final_windows = p["final_windows"]
+    obj._final_metrics = p["final_metrics"]
+    obj._MAP_metrics_per_chain = p["MAP_metrics_per_chain"]
+    obj._chain_iters = p["chain_iters"]
+    obj._reference_comparisons = {}
+    # resumed runs keep logging to the original output dir (append)
+    obj.logger = RunLogger(obj.output_dir, 1, mode="a")
     return obj

@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from bayesnmf_tpu.config import ModelSpec, default_hyperprior_params
+from bayesnmf_tpu.config import ModelSpec as JModelSpec
+from bayesnmf_tpu.config import default_hyperprior_params
 from bayesnmf_tpu.models import gibbs as jgibbs
+from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models.state import state_from_numpy, state_to_numpy
 
@@ -34,12 +36,13 @@ def setup():
     Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
     Et = rng.gamma(2.0, 2.0, (N, G))
     data = rng.poisson(Pt @ Et).astype(np.float32)
-    spec = ModelSpec(K=K, N=N, G=G, likelihood="poisson",
-                     prior="truncnormal", MH=True, fused_sweeps=True)
-    hp = default_hyperprior_params(spec, float(data.mean()))
-    state = jgibbs.init_state(spec, hp, jnp.asarray(data),
+    kw = dict(K=K, N=N, G=G, likelihood="poisson", prior="truncnormal",
+              MH=True, fused_sweeps=True)
+    jspec, spec = JModelSpec(**kw), ModelSpec(**kw)
+    hp = default_hyperprior_params(jspec, float(data.mean()))
+    state = jgibbs.init_state(jspec, hp, jnp.asarray(data),
                               jax.random.PRNGKey(3))
-    return spec, hp, data, state
+    return (jspec, spec), hp, data, state
 
 
 def jax_uniforms(spec, key):
@@ -55,7 +58,7 @@ def to_np(state):
 
 
 def test_ten_steps_match_jax(setup):
-    spec, hp, data, jstate = setup
+    (jspec, spec), hp, data, jstate = setup
     jstep = jax.jit(jgibbs.gibbs_step,
                     static_argnames=("spec", "accept_all", "record"))
     tdata = torch.from_numpy(data)
@@ -65,7 +68,7 @@ def test_ten_steps_match_jax(setup):
     for step in range(10):
         accept_all = step < 5  # warmup steps, then true MH
         u = torch.from_numpy(jax_uniforms(spec, jstate["key"]))
-        jstate, jout = jstep(spec, jnp.asarray(data), hp, jstate,
+        jstate, jout = jstep(jspec, jnp.asarray(data), hp, jstate,
                              jnp.float32(1.0), accept_all)
         tstate, tout = tgibbs.gibbs_step(spec, tdata, hp, tstate, 1.0,
                                          accept_all, u=u)
@@ -110,8 +113,8 @@ def test_state_round_trip(setup):
 
 
 def test_snapshot_metrics_match_jax(setup):
-    spec, hp, data, jstate = setup
-    want = jgibbs.snapshot_sample(spec, jnp.asarray(data), jstate,
+    (jspec, spec), hp, data, jstate = setup
+    want = jgibbs.snapshot_sample(jspec, jnp.asarray(data), jstate,
                                   jnp.float32(1.0))
     got = tgibbs.snapshot_sample(spec, torch.from_numpy(data),
                                  state_from_numpy(to_np(jstate), "cpu"), 1.0)
@@ -120,7 +123,7 @@ def test_snapshot_metrics_match_jax(setup):
 
 
 def test_chunk_runner_records_every_step(setup):
-    spec, hp, data, jstate = setup
+    (_, spec), hp, data, jstate = setup
     state = state_from_numpy(to_np(jstate), "cpu", seed=4)
     state, out = tgibbs.run_chunk(spec, torch.from_numpy(data), hp, state,
                                   np.ones(6, np.float32), accept_all=False)

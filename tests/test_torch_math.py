@@ -7,10 +7,11 @@ import pytest
 import scipy.stats as st
 import torch
 
-from bayesnmf_tpu.config import ConvergenceControl
+from bayesnmf_tpu.config import ConvergenceControl as JConvergenceControl
 from bayesnmf_tpu.models import convergence as jconv
 from bayesnmf_tpu.models import map_estimate as jmap
 from bayesnmf_tpu.ops import math as jm
+from bayesnmf_tpu_torch.config import ConvergenceControl
 from bayesnmf_tpu_torch.models import convergence as tconv
 from bayesnmf_tpu_torch.models import map_estimate as tmap
 from bayesnmf_tpu_torch.ops import distributions as dist
@@ -110,10 +111,11 @@ def test_compute_map_matches_jax(final):
 
 
 def test_convergence_tracker_matches_jax():
-    cc = ConvergenceControl(MAP_over=20, MAP_every=10, miniters=30,
-                            maxiters=200, Ninarow_nochange=2,
-                            Ninarow_nobest=3)
-    a, b = tconv.ConvergenceTracker(cc), jconv.ConvergenceTracker(cc)
+    kw = dict(MAP_over=20, MAP_every=10, miniters=30, maxiters=200,
+              Ninarow_nochange=2, Ninarow_nobest=3)
+    cc = ConvergenceControl(**kw)
+    a = tconv.ConvergenceTracker(cc)
+    b = jconv.ConvergenceTracker(JConvergenceControl(**kw))
     metrics = [100.0, 90.0, 85.0, 84.99, 84.995, 84.996, 84.9961, 85.0]
     for i, v in enumerate(metrics):
         it = 10 * (i + 1)

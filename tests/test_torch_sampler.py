@@ -81,22 +81,45 @@ def test_checkpoint_resume_bit_exact(tmp_path):
 
 
 def test_imports_without_jax():
+    """The port imports neither jax nor anything of the JAX package: both
+    are blocked in sys.modules, and every module of the port imports."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['bayesnmf_tpu'] = None\n"
         "import bayesnmf_tpu_torch as bt\n"
+        "from bayesnmf_tpu_torch import config\n"
         "from bayesnmf_tpu_torch.models import sampler, gibbs, state, "
         "map_estimate, convergence, updates\n"
-        "from bayesnmf_tpu_torch.ops import fused_sweeps, special, math, "
-        "distributions, _build\n"
-        "from bayesnmf_tpu_torch.utils import checkpoint\n"
+        "from bayesnmf_tpu_torch.ops import fused_sweeps, stream_sweeps, "
+        "special, math, distributions, _build\n"
+        "from bayesnmf_tpu_torch.parallel import chains, ensemble\n"
+        "from bayesnmf_tpu_torch.utils import checkpoint, logging, "
+        "assignment, cosmic, postprocessing, plotting\n"
         "assert bt.fit is sampler.fit\n"
+        "assert bt.ChainEnsemble is ensemble.ChainEnsemble\n"
+        "assert cosmic.get_cosmic().shape == (96, 79)\n"
         "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['bayesnmf_tpu'] is None\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_no_source_of_the_port_imports_jax():
+    """No file of the port, and not chip_smoke.py, names jax or the JAX
+    package in an import."""
+    import re
+
+    pat = re.compile(r"^\s*(import jax|from jax|import bayesnmf_tpu\b(?!_)"
+                     r"|from bayesnmf_tpu(\.| ))", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "bayesnmf_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    offenders = [f for f in files if pat.search(open(f).read())]
+    assert not offenders, offenders
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

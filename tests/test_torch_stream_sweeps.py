@@ -1,0 +1,456 @@
+"""The port's streaming path against the JAX package, function by function.
+
+Both sides get the same numpy inputs. The JAX Pallas kernels run in
+interpret mode on the CPU, as tests/test_stream_sweeps.py runs them; the
+port runs each kernel's plain PyTorch version, which is what its wrapper
+takes for CPU tensors. Where a function draws random numbers, the port is
+fed the JAX function's own draws, rebuilt from the same key.
+
+Tolerances. The six stream functions: rtol 1e-5 at G = 300 and rtol 1e-4 at
+G = 25000 (two ragged G tiles at K = 16), with an absolute floor of rtol
+times the largest output, because JAX sums float32 partials tile by tile
+while the port sums in float64; the E-row log-likelihood sums over K cancel
+to values far below their terms, where only the absolute error means
+anything. The sweeps, the hyper-update and the metrics row: rtol 1e-5 and
+identical accept decisions; drawn values also get atol 1e-6, because a draw
+mu + sd*z near 0 keeps the absolute rounding of mu (~1e-7 at mu ~ 1). The
+metrics row's KL is a difference of two sums of size sum(M log M) and is
+held to 1e-5 of that instead.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesnmf_tpu.config import ConvergenceControl as JConvergenceControl
+from bayesnmf_tpu.config import ModelSpec as JModelSpec
+from bayesnmf_tpu.config import default_hyperprior_params
+from bayesnmf_tpu.models import convergence as jconv
+from bayesnmf_tpu.models import gibbs as jgibbs
+from bayesnmf_tpu.models import updates as JU
+from bayesnmf_tpu.ops import math as jm
+from bayesnmf_tpu.ops import pallas_stream_sweeps as JS
+from bayesnmf_tpu_torch.config import ConvergenceControl, ModelSpec
+from bayesnmf_tpu_torch.models import convergence as tconv
+from bayesnmf_tpu_torch.models import gibbs as tgibbs
+from bayesnmf_tpu_torch.models import updates as TU
+from bayesnmf_tpu_torch.ops import math as tm
+from bayesnmf_tpu_torch.ops import stream_sweeps as S
+
+torch.set_num_threads(1)
+
+_TINY = np.float32(1.1754944e-38)
+_U_MIN = np.float32(1.2e-38)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def close(got, want, rtol, atol=0.0, msg=""):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=rtol,
+                               atol=atol, err_msg=msg)
+
+
+# ---------------------------------------------------------------------------
+# the six stream functions
+# ---------------------------------------------------------------------------
+
+
+def stream_inputs(K, N, G, seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
+    Et = rng.gamma(2.0, 2.0, (N, G))
+    P = (Pt * rng.uniform(0.5, 1.5, (K, N))).astype(f)
+    E = (Et * rng.uniform(0.5, 1.5, (N, G))).astype(f)
+    A = np.ones(N, f)
+    A[1] = 0.0
+    n = 0
+    return dict(
+        data=rng.poisson(Pt @ Et).astype(f), E=E, PA=(P * A).astype(f),
+        en=E[n].copy(), pn=P[:, n].copy(),
+        prop_k=(P[:, n] * rng.uniform(0.5, 1.5, K)).astype(f),
+        prop_g=(E[n] * rng.uniform(0.5, 1.5, G)).astype(f),
+        an=np.float32(1.0))
+
+
+# name -> (argument names, output count)
+STREAM_FUNCS = {
+    "pcol_stats": (("data", "E", "PA", "en", "pn"), 2),
+    "pcol_accept": (("data", "E", "PA", "en", "pn", "prop_k"), 3),
+    "erow_stats": (("data", "E", "PA", "en", "pn"), 2),
+    "erow_accept": (("data", "E", "PA", "en", "pn", "prop_g"), 3),
+    "acol_delta": (("data", "E", "PA", "en", "pn", "an"), 1),
+    "chain_metrics": (("data", "E", "PA"), 4),
+}
+
+
+def call_jax(name, d):
+    out = getattr(JS, name)(*(jnp.asarray(d[k])
+                              for k in STREAM_FUNCS[name][0]))
+    return [np.asarray(o) for o in (out if isinstance(out, tuple)
+                                    else (out,))]
+
+
+def call_port(name, d):
+    out = getattr(S, name)(*(t(d[k]) for k in STREAM_FUNCS[name][0]))
+    return [o.numpy() for o in (out if isinstance(out, tuple) else (out,))]
+
+
+@pytest.mark.parametrize("G,rtol", [(300, 1e-5), (25000, 1e-4)])
+@pytest.mark.parametrize("name", list(STREAM_FUNCS))
+def test_stream_function_matches_jax(name, G, rtol):
+    d = stream_inputs(16, 3, G, seed=G)
+    got, want = call_port(name, d), call_jax(name, d)
+    assert len(got) == len(want) == STREAM_FUNCS[name][1]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == np.float32
+        close(g, w, rtol, atol=rtol * float(np.abs(w).max()),
+              msg=f"{name} output {i}")
+
+
+@pytest.mark.parametrize("name", list(STREAM_FUNCS))
+def test_chain_axis_equals_separate_jax_calls(name):
+    """C = 3 chains in one port call equal three JAX calls on one dataset."""
+    ds = [stream_inputs(16, 3, 300, seed=s) for s in (1, 2, 3)]
+    for d in ds[1:]:
+        d["data"] = ds[0]["data"]
+    args = STREAM_FUNCS[name][0]
+    batch = [t(ds[0]["data"])] + [t(np.stack([d[k] for d in ds]))
+                                  for k in args[1:]]
+    out = getattr(S, name)(*batch)
+    out = out if isinstance(out, tuple) else (out,)
+    for c, d in enumerate(ds):
+        for i, w in enumerate(call_jax(name, d)):
+            assert out[i].shape[0] == 3
+            close(out[i][c].numpy(), w, 1e-5,
+                  atol=1e-5 * float(np.abs(w).max()),
+                  msg=f"{name} chain {c} output {i}")
+
+
+def test_wrappers_check_their_operands():
+    d = stream_inputs(7, 2, 37, seed=4)
+    a = [t(d[k]) for k in ("data", "E", "PA", "en", "pn")]
+    with pytest.raises(TypeError):
+        S.pcol_stats(a[0], a[1].double(), *a[2:])
+    with pytest.raises(ValueError):
+        S.pcol_stats(a[0], a[1], a[2], a[3][:-1].contiguous(), a[4])
+    with pytest.raises(ValueError):
+        S.pcol_stats(a[0].t().contiguous().t(), *a[1:])
+    with pytest.raises(ValueError):  # a non-contiguous chain batch
+        E2 = torch.stack([a[1], a[1]], -1).movedim(-1, 0)
+        S.chain_metrics(a[0], E2, torch.stack([a[2], a[2]]))
+
+
+@pytest.mark.parametrize("name", list(STREAM_FUNCS))
+def test_cuda_tensors_never_take_the_plain_path(name, monkeypatch):
+    """For a CUDA tensor each wrapper launches its kernel or raises: the
+    plain version is not reached and a CPU call counts no launch. Checked
+    with stand-in launchers, since this machine has no card."""
+    d = stream_inputs(7, 2, 37, seed=5)
+    args = [t(d[k]) for k in STREAM_FUNCS[name][0]]
+    S.reset_launch_counts()
+    call_port(name, d)
+    assert (S._run.launches, S.acol_delta.launches,
+            S.chain_metrics.launches) == (0, 0, 0)
+
+    def fake_launch(*a):
+        raise RuntimeError("stand-in kernel")
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached for CUDA tensors")
+
+    for launch in ("_launch_run", "_launch_acol", "_launch_metrics"):
+        monkeypatch.setattr(S, launch, fake_launch)
+    for plain in ("run_reference", "acol_delta_reference",
+                  "chain_metrics_reference"):
+        monkeypatch.setattr(S, plain, no_plain)
+    monkeypatch.setattr(S, "_check", lambda *a: None)
+    fake_cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda self: fake_cuda))
+    with pytest.raises(RuntimeError, match="stand-in kernel"):
+        getattr(S, name)(*args)
+
+
+# ---------------------------------------------------------------------------
+# the sweeps, the hyper-update and R, fed the JAX draws
+# ---------------------------------------------------------------------------
+
+K, N, G, C = 16, 4, 140, 2
+
+
+@pytest.fixture(scope="module")
+def ens_setup():
+    """A JAX two-chain SBFI stream state and the same state in the port's
+    layout."""
+    from bayesnmf_tpu.parallel import chains as JCH
+
+    rng = np.random.default_rng(4)
+    P = rng.dirichlet(np.ones(K) * 0.5, 2).T * 40
+    E = rng.gamma(2.0, 2.0, (2, G))
+    data = rng.poisson(P @ E).astype(np.float32)
+    kw = dict(K=K, N=N, G=G, likelihood="poisson", prior="truncnormal",
+              MH=True, learning_rank=True, rank_method="SBFI",
+              stream_sweeps=True)
+    jspec, tspec = JModelSpec(**kw), ModelSpec(**kw)
+    hp = default_hyperprior_params(jspec, float(data.mean()))
+    js = JCH.init_chain_states(jspec, hp, jnp.asarray(data),
+                               jax.random.PRNGKey(6), C)
+    # one chain with an excluded column, one with an all-zero E row
+    js["params"]["A"] = js["params"]["A"].at[0, 1].set(0.0)
+    js["params"]["A"] = js["params"]["A"].at[1].set(1.0)
+    js["params"]["E"] = js["params"]["E"].at[1, 2].set(0.0)
+    return jspec, tspec, hp, data, js
+
+
+def port_tree(tree):
+    return {k: t(np.asarray(v)) for k, v in tree.items()}
+
+
+def p_noise(key, rows, cols):
+    """stream_sweep_P/E's draws: the prior draw's two uniform planes, then
+    the (3, N, rows-or-cols) sweep uniforms (updates.py:558-561)."""
+    k_prior, k_u = jax.random.split(key)
+    prior_u = jax.random.uniform(k_prior, (2, rows, cols), jnp.float32,
+                                 minval=_TINY, maxval=1.0)
+    return prior_u, k_u
+
+
+def stack_noise(keys, fn):
+    parts = [fn(k) for k in keys]
+    return {name: t(np.stack([np.asarray(p[name]) for p in parts]))
+            for name in parts[0]}
+
+
+@pytest.mark.parametrize("accept_all", [(True, False), (False, False)])
+def test_stream_sweep_P_matches_jax(ens_setup, accept_all):
+    jspec, tspec, hp, data, js = ens_setup
+    params, prior = js["params"], js["prior"]
+    acc = jnp.full((C, K, N), 0.5, jnp.float32)
+    keys = jax.random.split(jax.random.PRNGKey(7), C)
+    flags = jnp.asarray(accept_all)
+    want = jax.vmap(lambda p, pr, a, k, f: JU.stream_sweep_P(
+        jspec, jnp.asarray(data), p, pr, a, k, f))(params, prior, acc, keys,
+                                                   flags)
+
+    def noise(k):
+        prior_u, k_u = p_noise(k, K, N)
+        return {"prior_u": prior_u,
+                "u": jax.random.uniform(k_u, (3, N, K), jnp.float32,
+                                        minval=_U_MIN)}
+
+    got = TU.stream_sweep_P(tspec, t(data), port_tree(params),
+                            port_tree(prior), t(acc), torch.tensor(
+                                accept_all), noise=stack_noise(keys, noise))
+    P0 = np.asarray(params["P"])
+    Pw, Pg = np.asarray(want[0]), got[0].numpy()
+    np.testing.assert_array_equal(Pg != P0, Pw != P0)
+    close(Pg, Pw, 1e-5, 1e-6, msg="P")
+    close(got[1].numpy(), np.asarray(want[1]), 1e-5, msg="acc_P")
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert not np.array_equal(Pg, P0)
+
+
+def test_stream_sweep_E_matches_jax(ens_setup):
+    jspec, tspec, hp, data, js = ens_setup
+    params, prior = js["params"], js["prior"]
+    acc = jnp.full((C, N, G), 0.5, jnp.float32)
+    keys = jax.random.split(jax.random.PRNGKey(9), C)
+    flags = jnp.asarray([False, True])
+    want = jax.vmap(lambda p, pr, a, k, f: JU.stream_sweep_E(
+        jspec, jnp.asarray(data), p, pr, a, k, f))(params, prior, acc, keys,
+                                                   flags)
+
+    def noise(k):
+        prior_u, k_u = p_noise(k, N, G)
+        return {"prior_u": prior_u,
+                "u": jax.random.uniform(k_u, (3, N, G), jnp.float32,
+                                        minval=_U_MIN)}
+
+    got = TU.stream_sweep_E(tspec, t(data), port_tree(params),
+                            port_tree(prior), t(acc),
+                            torch.tensor([False, True]),
+                            noise=stack_noise(keys, noise))
+    E0 = np.asarray(params["E"])
+    Ew, Eg = np.asarray(want[0]), got[0].numpy()
+    np.testing.assert_array_equal(Eg != E0, Ew != E0)
+    close(Eg, Ew, 1e-5, 1e-6, msg="E")
+    close(got[1].numpy(), np.asarray(want[1]), 1e-5, msg="acc_E")
+
+
+@pytest.mark.parametrize("rank_method", ["SBFI", "BFI"])
+def test_sample_R_and_stream_sweep_A_match_jax(ens_setup, rank_method):
+    jspec, tspec, hp, data, js = ens_setup
+    jspec = JModelSpec(**{**jspec.__dict__, "rank_method": rank_method})
+    tspec = ModelSpec(**{**tspec.__dict__, "rank_method": rank_method})
+    params = js["params"]
+    temp = jnp.float32(0.7)
+    keys = jax.random.split(jax.random.PRNGKey(21), C)
+    k_R = jax.random.split(jax.random.PRNGKey(22), C)
+    R_want = jax.vmap(lambda a, k: JU.sample_R(jspec, a, temp, k))(
+        params["A"], k_R)
+    gumbel = t(np.stack([np.asarray(jax.random.gumbel(k, (N + 1,)))
+                         for k in k_R]))
+    R_got = TU.sample_R(tspec, t(params["A"]), 0.7, gumbel=gumbel)
+    np.testing.assert_array_equal(R_got.numpy(), np.asarray(R_want))
+
+    R = jnp.asarray([1, 3], jnp.int32)
+    want = jax.vmap(lambda p, r, k: JU.stream_sweep_A(
+        jspec, jnp.asarray(data), p, r, temp, k))(params, R, keys)
+    u = t(np.stack([[np.asarray(jax.random.uniform(kn, ()))
+                     for kn in jax.random.split(k, N)] for k in keys]))
+    got = TU.stream_sweep_A(tspec, t(data), port_tree(params), t(R), 0.7,
+                            u=u)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_sample_prior_params_matches_jax(ens_setup):
+    jspec, tspec, hp, data, js = ens_setup
+    params, prior = js["params"], js["prior"]
+    keys = jax.random.split(jax.random.PRNGKey(31), C)
+    want = jax.vmap(lambda p, pr, k: JU.sample_prior_params(
+        jspec, hp, p, pr, k))(params, prior, keys)
+    n2 = TU.n_hyper_noise(tspec)
+
+    def noise(k):
+        kz, ku = jax.random.split(k, 2)
+        return {"z": jax.random.normal(kz, (n2,), jnp.float32),
+                "u": jax.random.uniform(ku, (n2,), jnp.float32,
+                                        minval=_U_MIN)}
+
+    got = TU.sample_prior_params(tspec, hp, port_tree(params),
+                                 port_tree(prior),
+                                 noise=stack_noise(keys, noise))
+    for k in ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e"):
+        old = np.asarray(prior[k])
+        np.testing.assert_array_equal(got[k].numpy() != old,
+                                      np.asarray(want[k]) != old,
+                                      err_msg=f"{k} decisions")
+        close(got[k].numpy(), np.asarray(want[k]), 1e-5, 1e-6, msg=k)
+
+
+def test_stream_metrics_row_matches_jax(ens_setup):
+    jspec, tspec, hp, data, js = ens_setup
+    params, prior = js["params"], js["prior"]
+    rng = np.random.default_rng(3)
+    acc_P = rng.uniform(0, 1, (C, K, N)).astype(np.float32)
+    acc_E = rng.uniform(0, 1, (C, N, G)).astype(np.float32)
+    na = np.array([0.0, 2.0], np.float32)
+    consts = jm.metric_constants("poisson", jnp.asarray(data))
+
+    def one(p, pr, aP, aE, n):
+        red = JS.chain_metrics(jnp.asarray(data), p["E"],
+                               p["P"] * p["A"][None, :])
+        return jgibbs._metrics_row(jspec, jnp.asarray(data), p, pr, None,
+                                   jnp.int32(12), jnp.float32(0.3), aP, aE,
+                                   n, consts, red)
+
+    want = np.asarray(jax.vmap(one)(params, prior, jnp.asarray(acc_P),
+                                    jnp.asarray(acc_E), jnp.asarray(na)))
+    tp = port_tree(params)
+    red = S.chain_metrics(t(data), tp["E"], tp["P"] * tp["A"].unsqueeze(1))
+    got = tgibbs.stream_metrics_row(
+        tspec, t(data), tp, port_tree(prior), red, 12, 0.3, t(acc_P),
+        t(acc_E), t(na)).numpy()
+    kl = tgibbs.METRIC_NAMES.index("KL")
+    Mp = np.maximum(data, 1e-6)
+    close(np.delete(got, kl, 1), np.delete(want, kl, 1), 1e-5)
+    close(got[:, kl], want[:, kl], 0,
+          atol=1e-5 * float(np.sum(Mp * np.log(Mp))), msg="KL")
+
+
+def test_stream_step_matches_jax_gibbs_step(ens_setup):
+    """Two whole SBFI iterations of one chain: the port's stream_step fed
+    the draws of the JAX gibbs_step's keys (gibbs.py:121-132)."""
+    jspec, tspec, hp, data, js = ens_setup
+    jstate = jax.tree.map(lambda x: x[0], js)
+    tstate = {"params": {k: t(np.asarray(v))[None]
+                         for k, v in jstate["params"].items()},
+              "prior": {k: t(np.asarray(v))[None]
+                        for k, v in jstate["prior"].items()},
+              "acc_P": t(np.asarray(jstate["acc_P"]))[None],
+              "acc_E": t(np.asarray(jstate["acc_E"]))[None],
+              "iter": int(jstate["iter"]), "gen": None}
+    n2 = TU.n_hyper_noise(tspec)
+    for step, (temp, acc_all) in enumerate(((0.25, True), (1.0, False))):
+        k_pp, k_P, k_E, _, k_R, k_A = jax.random.split(jstate["key"], 6)
+        kz, ku = jax.random.split(k_pp, 2)
+        pu_P, ku_P = p_noise(k_P, K, N)
+        pu_E, ku_E = p_noise(k_E, N, G)
+        noise = {
+            "prior": {"z": jax.random.normal(kz, (n2,), jnp.float32),
+                      "u": jax.random.uniform(ku, (n2,), jnp.float32,
+                                              minval=_U_MIN)},
+            "P": {"prior_u": pu_P, "u": jax.random.uniform(
+                ku_P, (3, N, K), jnp.float32, minval=_U_MIN)},
+            "E": {"prior_u": pu_E, "u": jax.random.uniform(
+                ku_E, (3, N, G), jnp.float32, minval=_U_MIN)},
+            "R": jax.random.gumbel(k_R, (N + 1,)),
+            "A": jnp.stack([jax.random.uniform(k, ())
+                            for k in jax.random.split(k_A, N)]),
+        }
+        noise = jax.tree.map(lambda x: t(np.asarray(x))[None], noise)
+        jstate, jout = jgibbs.gibbs_step(jspec, jnp.asarray(data), hp,
+                                         jstate, jnp.float32(temp), acc_all)
+        tstate, tout = tgibbs.gibbs_step(
+            tspec, t(data), hp, tstate, temp, torch.tensor([acc_all]),
+            noise=noise)
+        for k in ("P", "E", "A"):
+            close(tout[k][0].numpy(), np.asarray(jout[k]), 1e-5, 1e-6,
+                  msg=f"{k} step {step}")
+        assert int(tstate["params"]["R"][0]) == int(jstate["params"]["R"])
+        for k in ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e"):
+            close(tstate["prior"][k][0].numpy(),
+                  np.asarray(jstate["prior"][k]), 1e-5, 1e-6, msg=k)
+        kl = tgibbs.METRIC_NAMES.index("KL")
+        close(np.delete(tout["metrics"][0].numpy(), kl),
+              np.delete(np.asarray(jout["metrics"]), kl), 1e-5,
+              msg=f"metrics step {step}")
+
+
+def test_truncnorm_logpdf_delta_matches_jax():
+    rng = np.random.default_rng(8)
+    x1, x0 = rng.gamma(2.0, 1.0, (2, 50)).astype(np.float32)
+    mu = rng.normal(0, 1, 50).astype(np.float32)
+    sq = rng.gamma(2.0, 1.0, 50).astype(np.float32)
+    close(tm.truncnorm_logpdf_delta(t(x1), t(x0), t(mu), t(sq)).numpy(),
+          np.asarray(jm.truncnorm_logpdf_delta(x1, x0, mu, sq)), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the ensemble's convergence tracker
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_vector_convergence_tracker_matches_jax(seed):
+    kw = dict(MAP_over=20, MAP_every=10, miniters=30, maxiters=160,
+              Ninarow_nochange=2, Ninarow_nobest=3, tol=1e-3)
+    n_chains = 6
+    a = tconv.VectorConvergenceTracker(ConvergenceControl(**kw), n_chains)
+    b = jconv.VectorConvergenceTracker(JConvergenceControl(**kw), n_chains)
+    rng = np.random.default_rng(seed)
+    level = rng.uniform(100, 200, n_chains)
+    for i in range(16):
+        level = level * rng.choice([1.0, 0.9995, 0.97], n_chains)
+        vals = level + rng.normal(0, 1e-3, n_chains)
+        vals[rng.uniform(size=n_chains) < 0.1] = np.nan
+        it = 10 * (i + 1)
+        temps_one = i >= 2
+        np.testing.assert_array_equal(a.update(vals, it, temps_one),
+                                      b.update(vals, it, temps_one))
+        for k, v in b.to_dict().items():
+            np.testing.assert_array_equal(a.to_dict()[k], v, err_msg=k)
+        assert [a.why(c) for c in range(n_chains)] == \
+            [b.why(c) for c in range(n_chains)]
+    assert a.converged.all()
+    c = tconv.VectorConvergenceTracker(ConvergenceControl(**kw), n_chains)
+    c.restore(a.to_dict())
+    for k, v in a.to_dict().items():
+        np.testing.assert_array_equal(c.to_dict()[k], v)
