@@ -6,10 +6,12 @@ stays the reference; this package imports torch and never jax, and nothing
 of the JAX package: it keeps its own copies of the configuration, logging
 and postprocessing modules.
 
-Ported so far (ROADMAP.md): one chain of the default model at a fixed rank
-(Poisson likelihood, TruncNormal prior, exact MH, exact TruncNormal hypers)
-through the fused sweep kernel; and ``ChainEnsemble``, C chains of the same
-model with SBFI/BFI rank learning through the streaming sweep kernels.
+Ported so far (ROADMAP.md): one chain of the Poisson sampler with the
+TruncNormal or exponential prior, MH at a fixed rank or with SBFI/BFI rank
+learning, through the fused sweep kernel; conjugate Poisson-Gibbs
+(MH=False, exponential prior) through the allocation kernel; and
+``ChainEnsemble``, C chains of the TruncNormal model with SBFI/BFI rank
+learning, through the streaming sweep kernels.
 """
 
 from .config import (  # noqa: F401

@@ -1,17 +1,21 @@
 // One Gibbs iteration core of the Poisson + MH sampler on Hopper (sm_90a):
-// the exact Mu/Sigmasq hyper-sweep, then N sequential P-column and N
-// sequential E-row Metropolis-Hastings updates with the exact Hastings ratio.
+// the exact Mu/Sigmasq hyper-sweep, N sequential P-column and N sequential
+// E-row Metropolis-Hastings updates, and with rank learning the rank draw R
+// and the N sequential inclusion updates of A.
 //
-// (a) Replaces bayesnmf_tpu/ops/pallas_sweeps.py::_sweep_kernel, in its
-//     truncnormal / exact_mh / fixed-rank specialisation, with the
-//     accept-all warmup flag as data (rank_pack[c, 0, 1]).
+// (a) Replaces bayesnmf_tpu/ops/pallas_sweeps.py::_sweep_kernel in full:
+//     the TruncNormal or the exponential prior, the exact or the
+//     reference-parity (exact_mh=False) Hastings ratio, a fixed rank or the
+//     SBFI/BFI R/A branch, with the accept-all warmup flag and the
+//     temperature as data (rank_pack[c, 0, 1] and rank_pack[c, 0, 0]).
 // (b) What bounds it: latency, and one SM per chain. Each of the 2N column
 //     updates is a chain of dependent steps (two reductions, a proposal, an
-//     accept decision, a rank-1 update), and one thread block per chain sits
-//     on one of the card's 132 SMs; a single chain uses under 1% of the card.
-//     The (K, G) operands stay in global memory (L2-resident at the slice's
-//     sizes), since data and Mhat at 96x2780 do not fit in 227 KB of shared
-//     memory.
+//     accept decision, a rank-1 update), and each of the N inclusion updates
+//     a block-wide reduction over K*G and a rank-1 rewrite of Mhat; one
+//     thread block per chain sits on one of the card's 132 SMs, so a single
+//     chain uses under 1% of the card. The (K, G) operands stay in global
+//     memory (L2-resident at these sizes), since data and Mhat at 96x2780 do
+//     not fit in 227 KB of shared memory.
 // (c) What a later PR does about it: batch chains (C blocks fill the SMs),
 //     keep Mhat rows in shared memory or registers, fuse the rank-1 update of
 //     column n into the first reduction of column n+1, and split one chain
@@ -20,15 +24,19 @@
 // Layout: every operand is float32 and contiguous. State and uniforms carry
 // a leading chain axis C; data (K,G) and the hyperprior planes are shared.
 // The kernel reads the inputs and writes the outputs, which the caller
-// allocated; it copies state into the outputs first and updates Mhat and the
-// P/E/acceptance outputs in place through the sweeps.
+// allocated; it copies state into the outputs first and updates Mhat, A and
+// the P/E/acceptance outputs in place through the sweeps. With the
+// exponential prior hp0 holds Lambda and hp1 is not read.
 //
 // Work split inside the block:
 //   hyper-sweep  one thread per element of (K,N) and of (N,G);
 //   P column n   one warp per row k, lanes stride over g, xor-shuffle sums
 //                (every lane ends with the same bits, so all lanes draw the
 //                same proposal and make the same decision);
-//   E row n      one thread per column g, serial sums over k.
+//   E row n      one thread per column g, serial sums over k;
+//   R draw       every thread evaluates the (N+1)-entry ladder;
+//   A column n   one warp per row k over g, a block-wide sum in a fixed
+//                order that every thread reads, then the rank-1 rewrite.
 // Sums accumulate in double, in a fixed order, with no atomics, so two
 // launches on the same inputs give the same bits.
 //
@@ -48,11 +56,15 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr float kFloor = 1e-6f;
+constexpr float kEps = 1e-30f;
 constexpr float kTiny = 1.2e-38f;
 // PyTorch's CUDA division by a scalar multiplies by its float reciprocal
 constexpr float kInvSqrt2Pi = 1.0f / 2.5066282746310002f;
 constexpr float kInvThree = 1.0f / 3.0f;
 constexpr float kLogSqrt2Pi = 0.9189385332046727f;
+
+enum Prior { kTruncNormal = 0, kExponential = 1 };
+enum RankMethod { kFixedRank = 0, kSBFI = 1, kBFI = 2 };
 
 struct Args {
   const float* data;
@@ -61,8 +73,9 @@ struct Args {
   const float *hp0p, *hp1p, *hp0e, *hp1e;
   const float* rank_pack;
   const float *Hup, *Hue, *Hhpp, *Hhpe;
-  int hyper;
-  float *P_o, *E_o, *Mh_o, *accP_o, *accE_o, *nan_o;
+  int hyper, prior, exact, rank;
+  float sbfi_pen;
+  float *P_o, *E_o, *Mh_o, *accP_o, *accE_o, *A_o, *R_o, *nan_o;
   float *hp0p_o, *hp1p_o, *hp0e_o, *hp1e_o;
   int K, N, G;
 };
@@ -155,6 +168,14 @@ __device__ float tn_logpdf(float x, float mu, float var) {
   return -0.5f * z * z - logf(sd) - kLogSqrt2Pi - ps_log_ndtr(mu / sd);
 }
 
+// prior_draw_of: the prior draw of an excluded column, or of the
+// exponential prior's inactive one (pallas_sweeps.py:174-177)
+__device__ __forceinline__ float prior_draw(int prior, float u, float hp0,
+                                            float hp1) {
+  if (prior == kExponential) return -logf(u) / hp0;
+  return truncnorm_icdf(u, hp0, sqrtf(hp1));
+}
+
 // _hyper_sweep_side for one element. hhp: the 4 hyperprior planes at this
 // element (stride `plane`); hu: the 4 uniform planes.
 __device__ void hyper_elem(float x, float mu_old, float sq_old,
@@ -220,14 +241,22 @@ __device__ __forceinline__ Terms pass1_terms(float m, float h, float old,
 }
 
 // the same reductions at the proposal, plus the Poisson log-likelihood
-// change M*log1p(d/lam_o) - d
+// change M*log1p(d/lam_o) - d (exact Hastings ratio); with exact = 0 only
+// lp, which then also carries the reference's normal-model terms
+// (pallas_sweeps.py:241-250)
 __device__ __forceinline__ Terms pass2_terms(float m, float h, float old,
-                                             float dp, float o) {
+                                             float dp, float o, int exact) {
+  const float hp = h + dp * o;
   const float lam_o = jmax(h, kFloor);
-  const float lam_n = jmax(h + dp * o, kFloor);
+  const float lam_n = jmax(hp, kFloor);
   const float d = lam_n - lam_o;
-  return {((m - (h - old * o)) / lam_n) * o, o * o / lam_n,
-          m * log1pf(d / lam_o) - d};
+  const float lp = m * log1pf(d / lam_o) - d;
+  if (exact) return {((m - (h - old * o)) / lam_n) * o, o * o / lam_n, lp};
+  const float vs_o = jmax(hp, 1.0f), vs_n = jmax(h, 1.0f);
+  const float r_o = m - h, r_n = m - hp;
+  return {0.0f, 0.0f,
+          lp + (-0.5f * r_o * r_o / vs_o - 0.5f * logf(vs_o))
+             - (-0.5f * r_n * r_n / vs_n - 0.5f * logf(vs_n))};
 }
 
 __device__ __forceinline__ double warp_allsum(double v) {
@@ -236,19 +265,56 @@ __device__ __forceinline__ double warp_allsum(double v) {
   return v;
 }
 
-// The acceptance step shared by both sweeps (pallas_sweeps.py:198-260):
+// Sum over the block: warp sums, then the kWarps partials in order by every
+// thread, so every thread holds the same bits.
+__device__ double block_allsum(double v, double* s_red) {
+  v = warp_allsum(v);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double t = 0.0;
+  for (int w = 0; w < kWarps; ++w) t += s_red[w];
+  __syncthreads();
+  return t;
+}
+
+// The conditional of one column entry: its mean and variance from the two
+// reductions (pallas_sweeps.py:196-203).
+__device__ __forceinline__ void conditional(int prior, float mu1, float den,
+                                            float hp0, float hp1, float* mu,
+                                            float* var) {
+  if (prior == kExponential) {
+    const float den_s = jmax(den, kEps);
+    *mu = (mu1 - hp0) / den_s;
+    *var = 1.0f / den_s;
+  } else {
+    const float den2 = den + 1.0f / hp1;
+    *mu = (mu1 + hp0 / hp1) / den2;
+    *var = 1.0f / den2;
+  }
+}
+
+// The acceptance step shared by both sweeps (pallas_sweeps.py:220-260):
 // returns the new value and writes the recorded acceptance; counts a NaN
-// ratio (clamped to 0) into *n_nan.
-__device__ float mh_decide(float old, float prop, float mu, float var,
-                           float mu1_r, float den_r, float lp_sum,
-                           float Mu_n, float Sq_n, float u_acc, bool acc_on,
-                           float* rec, float* n_nan) {
-  const float den_r2 = den_r + 1.0f / Sq_n;
-  const float mu_r = (mu1_r + Mu_n / Sq_n) / den_r2;
-  const float var_r = 1.0f / den_r2;
-  const float lprior = tn_logpdf(prop, Mu_n, Sq_n) - tn_logpdf(old, Mu_n, Sq_n);
-  const float log_ratio = lp_sum + lprior + tn_logpdf(old, mu_r, var_r)
-                          - tn_logpdf(prop, mu, var);
+// ratio (clamped to 0) into *n_nan. ``lp_sum`` is the whole log ratio when
+// exact = 0; ``inactive`` marks the exponential prior's prior-draw proposal.
+__device__ float mh_decide(int prior, int exact, bool inactive, float old,
+                           float prop, float mu, float var, float mu1_r,
+                           float den_r, float lp_sum, float hp0, float hp1,
+                           float u_acc, bool acc_on, float* rec,
+                           float* n_nan) {
+  float log_ratio = lp_sum;
+  if (exact) {
+    float mu_r, var_r, lprior;
+    conditional(prior, mu1_r, den_r, hp0, hp1, &mu_r, &var_r);
+    if (prior == kExponential) {
+      lprior = -hp0 * (prop - old);
+    } else {
+      lprior = tn_logpdf(prop, hp0, hp1) - tn_logpdf(old, hp0, hp1);
+    }
+    log_ratio = lp_sum + lprior + tn_logpdf(old, mu_r, var_r)
+                - tn_logpdf(prop, mu, var);
+    if (inactive) log_ratio = 0.0f;
+  }
   const float e = expf(log_ratio);
   float ratio;
   if (isnan(e)) {
@@ -263,25 +329,31 @@ __device__ float mh_decide(float old, float prop, float mu, float var,
 
 __global__ void __launch_bounds__(kThreads)
 fused_sweeps_kernel(Args a) {
-  extern __shared__ float smem[];  // [K] P column, then [kThreads] NaN counts
-  float* s_pcol = smem;
-  float* s_nan = smem + a.K;
+  // [kWarps] double block-sum partials, [K] P column, [kThreads] NaN counts
+  extern __shared__ double smem[];
+  double* s_red = smem;
+  float* s_pcol = reinterpret_cast<float*>(smem + kWarps);
+  float* s_nan = s_pcol + a.K;
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int K = a.K, N = a.N, G = a.G;
   const int KN = K * N, NG = N * G, KG = K * G;
+  const int prior = a.prior, exact = a.exact;
+  const bool expo = prior == kExponential;
 
   const float* M = a.data;
   const float* A = a.A + (size_t)c * N;
-  const bool acc_on = a.rank_pack[(size_t)c * 3 * (N + 1) + 1] > 0.0f;
+  const float* rp = a.rank_pack + (size_t)c * 3 * (N + 1);
+  const bool acc_on = rp[1] > 0.0f;
   const size_t okn = (size_t)c * KN, ong = (size_t)c * NG;
   float* P = a.P_o + okn;
   float* E = a.E_o + ong;
   float* Mh = a.Mh_o + (size_t)c * KG;
   float* accP = a.accP_o + okn;
   float* accE = a.accE_o + ong;
+  float* A_o = a.A_o + (size_t)c * N;
   float* hp0p = a.hp0p_o + okn;
   float* hp1p = a.hp1p_o + okn;
   float* hp0e = a.hp0e_o + ong;
@@ -314,6 +386,7 @@ fused_sweeps_kernel(Args a) {
     }
   }
   for (int i = tid; i < KG; i += kThreads) Mh[i] = a.Mh[(size_t)c * KG + i];
+  for (int i = tid; i < N; i += kThreads) A_o[i] = A[i];
   __syncthreads();
 
   // ---- P sweep: column n, one warp per row k, reductions over g ----------
@@ -325,41 +398,46 @@ fused_sweeps_kernel(Args a) {
     const float* En = E + (size_t)n * G;
     for (int k = warp; k < K; k += kWarps) {
       const int kn = k * N + n;
-      const float Mu_n = hp0p[kn], Sq_n = hp1p[kn];
+      const float hp0 = hp0p[kn], hp1 = hp1p[kn];
       if (!active) {
-        if (lane == 0) P[kn] = truncnorm_icdf(UprP[kn], Mu_n, sqrtf(Sq_n));
+        if (lane == 0) P[kn] = prior_draw(prior, UprP[kn], hp0, hp1);
         continue;
       }
       const float old = P[kn];
       const float* Mk = M + (size_t)k * G;
       float* Hk = Mh + (size_t)k * G;
       double mu1 = 0.0, den = 0.0;
+      bool nz = false;  // some E_n[g]^2 != 0: the column is not inactive
 #pragma unroll 4
       for (int g = lane; g < G; g += 32) {
         const float o = En[g], h = Hk[g];
         const Terms t = pass1_terms(Mk[g], h, old, o);
         mu1 += t.mu1;
         den += t.den;
+        nz |= o * o != 0.0f;
       }
-      const float den2 = (float)warp_allsum(den) + 1.0f / Sq_n;
-      const float mu = ((float)warp_allsum(mu1) + Mu_n / Sq_n) / den2;
-      const float var = 1.0f / den2;
-      const float prop = truncnorm_icdf(UpP[kn], mu, sqrtf(var));
+      const bool inactive = expo && !__any_sync(0xffffffffu, nz);
+      float mu, var;
+      conditional(prior, (float)warp_allsum(mu1), (float)warp_allsum(den),
+                  hp0, hp1, &mu, &var);
+      float prop = truncnorm_icdf(UpP[kn], mu, sqrtf(var));
+      if (inactive) prop = prior_draw(prior, UprP[kn], hp0, hp1);
       const float dp = prop - old;
       double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
 #pragma unroll 4
       for (int g = lane; g < G; g += 32) {
         const float o = En[g], h = Hk[g];
-        const Terms t = pass2_terms(Mk[g], h, old, dp, o);
+        const Terms t = pass2_terms(Mk[g], h, old, dp, o, exact);
         lp += t.lp;
         mu1_r += t.mu1;
         den_r += t.den;
       }
       float rec, nan_here = 0.0f;
       const float nv = mh_decide(
-          old, prop, mu, var, (float)warp_allsum(mu1_r),
-          (float)warp_allsum(den_r), (float)warp_allsum(lp), Mu_n, Sq_n,
-          UaP[kn], acc_on, &rec, &nan_here);
+          prior, exact, inactive, old, prop, mu, var,
+          (float)warp_allsum(mu1_r), (float)warp_allsum(den_r),
+          (float)warp_allsum(lp), hp0, hp1, UaP[kn], acc_on, &rec,
+          &nan_here);
       if (nv != old) {
         const float dv = nv - old;
         for (int g = lane; g < G; g += 32) Hk[g] += dv * En[g];
@@ -383,38 +461,43 @@ fused_sweeps_kernel(Args a) {
     __syncthreads();
     for (int g = tid; g < G; g += kThreads) {
       const int ng = n * G + g;
-      const float Mu_n = hp0e[ng], Sq_n = hp1e[ng];
+      const float hp0 = hp0e[ng], hp1 = hp1e[ng];
       if (!active) {
-        E[ng] = truncnorm_icdf(UprE[ng], Mu_n, sqrtf(Sq_n));
+        E[ng] = prior_draw(prior, UprE[ng], hp0, hp1);
         continue;
       }
       const float old = E[ng];
       double mu1 = 0.0, den = 0.0;
+      bool nz = false;
 #pragma unroll 4
       for (int k = 0; k < K; ++k) {
         const size_t kg = (size_t)k * G + g;
-        const Terms t = pass1_terms(M[kg], Mh[kg], old, s_pcol[k]);
+        const float o = s_pcol[k];
+        const Terms t = pass1_terms(M[kg], Mh[kg], old, o);
         mu1 += t.mu1;
         den += t.den;
+        nz |= o * o != 0.0f;
       }
-      const float den2 = (float)den + 1.0f / Sq_n;
-      const float mu = ((float)mu1 + Mu_n / Sq_n) / den2;
-      const float var = 1.0f / den2;
-      const float prop = truncnorm_icdf(UpE[ng], mu, sqrtf(var));
+      const bool inactive = expo && !nz;
+      float mu, var;
+      conditional(prior, (float)mu1, (float)den, hp0, hp1, &mu, &var);
+      float prop = truncnorm_icdf(UpE[ng], mu, sqrtf(var));
+      if (inactive) prop = prior_draw(prior, UprE[ng], hp0, hp1);
       const float dp = prop - old;
       double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
 #pragma unroll 4
       for (int k = 0; k < K; ++k) {
         const size_t kg = (size_t)k * G + g;
-        const Terms t = pass2_terms(M[kg], Mh[kg], old, dp, s_pcol[k]);
+        const Terms t = pass2_terms(M[kg], Mh[kg], old, dp, s_pcol[k],
+                                    exact);
         lp += t.lp;
         mu1_r += t.mu1;
         den_r += t.den;
       }
       float rec;
-      const float nv = mh_decide(old, prop, mu, var, (float)mu1_r,
-                                 (float)den_r, (float)lp, Mu_n, Sq_n,
-                                 UaE[ng], acc_on, &rec, &n_nan);
+      const float nv = mh_decide(prior, exact, inactive, old, prop, mu, var,
+                                 (float)mu1_r, (float)den_r, (float)lp, hp0,
+                                 hp1, UaE[ng], acc_on, &rec, &n_nan);
       if (nv != old) {
         const float dv = nv - old;
         for (int k = 0; k < K; ++k) {
@@ -426,6 +509,74 @@ fused_sweeps_kernel(Args a) {
       accE[ng] = rec;
     }
     __syncthreads();
+  }
+
+  // ---- rank draw R and the inclusion sweep over A (pallas_sweeps.py:316-364)
+  if (a.rank != kFixedRank) {
+    const float temp = rp[0];
+    const float fN = (float)N;
+    const float lo = 0.4f / fN, hi = 1.0f - 0.4f / fN;
+    float sumA = 0.0f;
+    for (int n = 0; n < N; ++n) sumA += A_o[n];
+    // Gumbel-max over the ladder r = 0..N; the index by sum-select
+    float mx = -INFINITY;
+    for (int r = 0; r <= N; ++r) {
+      const float p1r = jmin(jmax((float)r / fN, lo), hi);
+      const float s = temp * (sumA * logf(p1r) + (fN - sumA) * logf(1.0f - p1r))
+                      + rp[N + 1 + r];
+      mx = jmax(mx, s);
+    }
+    float R = 0.0f;
+    for (int r = 0; r <= N; ++r) {
+      const float p1r = jmin(jmax((float)r / fN, lo), hi);
+      const float s = temp * (sumA * logf(p1r) + (fN - sumA) * logf(1.0f - p1r))
+                      + rp[N + 1 + r];
+      R += s >= mx ? (float)r : 0.0f;
+    }
+    if (tid == 0) a.R_o[c] = R;
+    const float p1 = jmin(jmax(R / fN, lo), hi);
+    const float logit_p1 = logf(p1) - log1pf(-p1);
+
+    for (int n = 0; n < N; ++n) {
+      const float A_n = A_o[n];
+      const float* En = E + (size_t)n * G;
+      double part = 0.0;
+      for (int k = warp; k < K; k += kWarps) {
+        const float Pkn = P[k * N + n];
+        const float* Mk = M + (size_t)k * G;
+        const float* Hk = Mh + (size_t)k * G;
+        for (int g = lane; g < G; g += 32) {
+          const float con = Pkn * En[g];
+          const float off = Hk[g] - A_n * con;
+          const float lam_off = jmax(off, kFloor);
+          const float lam_on = jmax(off + con, kFloor);
+          const float d = lam_on - lam_off;
+          part += Mk[g] * log1pf(d / lam_off) - d;
+        }
+      }
+      float delta = (float)block_allsum(part, s_red);
+      if (a.rank == kSBFI) delta = delta - a.sbfi_pen;
+      const float log_odds = logit_p1 + temp * delta;
+      float p = 1.0f / (1.0f + expf(-log_odds));
+      if (isnan(p)) {
+        p = 0.5f;
+        if (tid == 0) n_nan += 1.0f;
+      }
+      const float a_new = rp[2 * (N + 1) + n] < p ? 1.0f : 0.0f;
+      for (int k = warp; k < K; k += kWarps) {
+        const float Pkn = P[k * N + n];
+        float* Hk = Mh + (size_t)k * G;
+        for (int g = lane; g < G; g += 32) {
+          const float con = Pkn * En[g];
+          const float off = Hk[g] - A_n * con;
+          Hk[g] = off + a_new * con;
+        }
+      }
+      __syncthreads();  // every thread has read A_o[n]
+      if (tid == 0) A_o[n] = a_new;
+    }
+  } else if (tid == 0) {
+    a.R_o[c] = rp[0];
   }
 
   // ---- NaN-clamp count: integer-valued, so the sum order is immaterial ---
@@ -448,10 +599,10 @@ extern "C" int fused_gibbs_sweeps_launch(
     const float* hp0p, const float* hp1p, const float* hp0e,
     const float* hp1e, const float* rank_pack,
     const float* Hup, const float* Hue, const float* Hhpp, const float* Hhpe,
-    int hyper,
+    int hyper, int prior, int exact, int rank, float sbfi_pen,
     float* P_o, float* E_o, float* Mh_o, float* accP_o, float* accE_o,
-    float* nan_o, float* hp0p_o, float* hp1p_o, float* hp0e_o,
-    float* hp1e_o, int C, int K, int N, int G, void* stream) {
+    float* A_o, float* R_o, float* nan_o, float* hp0p_o, float* hp1p_o,
+    float* hp0e_o, float* hp1e_o, int C, int K, int N, int G, void* stream) {
   Args a;
   a.data = data;
   a.P = P; a.E = E; a.A = A; a.Mh = Mh; a.accP = accP; a.accE = accE;
@@ -460,12 +611,14 @@ extern "C" int fused_gibbs_sweeps_launch(
   a.hp0p = hp0p; a.hp1p = hp1p; a.hp0e = hp0e; a.hp1e = hp1e;
   a.rank_pack = rank_pack;
   a.Hup = Hup; a.Hue = Hue; a.Hhpp = Hhpp; a.Hhpe = Hhpe;
-  a.hyper = hyper;
+  a.hyper = hyper; a.prior = prior; a.exact = exact; a.rank = rank;
+  a.sbfi_pen = sbfi_pen;
   a.P_o = P_o; a.E_o = E_o; a.Mh_o = Mh_o; a.accP_o = accP_o;
-  a.accE_o = accE_o; a.nan_o = nan_o;
+  a.accE_o = accE_o; a.A_o = A_o; a.R_o = R_o; a.nan_o = nan_o;
   a.hp0p_o = hp0p_o; a.hp1p_o = hp1p_o; a.hp0e_o = hp0e_o; a.hp1e_o = hp1e_o;
   a.K = K; a.N = N; a.G = G;
-  const size_t smem = (size_t)(K + kThreads) * sizeof(float);
+  const size_t smem = kWarps * sizeof(double)
+                      + (size_t)(K + kThreads) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fused_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,20 +1,27 @@
 """The Gibbs engine: state construction, one step, the chunk runner, and the
 tempering schedule.
 
-Port of bayesnmf_tpu/models/gibbs.py for the default model (Poisson
-likelihood, TruncNormal prior, exact MH, exact TruncNormal hypers), on two
-paths:
+Port of bayesnmf_tpu/models/gibbs.py for the Poisson likelihood with the
+TruncNormal or the exponential prior, on three paths:
 
-- fused (one chain, fixed rank): each step draws one flat uniform tensor,
+- fused (one chain, MH): each step draws one flat uniform tensor,
   recomputes Mhat with one matmul, runs the fused sweep
-  (ops/fused_sweeps.py) and computes the metrics row;
+  (ops/fused_sweeps.py; with rank learning it also draws R and sweeps A)
+  and computes the metrics row; the exponential prior's Lambda update runs
+  before the kernel (gibbs.py:139-227);
+- conjugate (one chain, MH=False, exponential prior): Lambda, then all of P
+  and all of E by conjugate gamma draws, the R draw and the Mhat-based A
+  sweep when rank learning, and the latent counts' sums through the
+  allocation kernel (ops/allocation.py; gibbs.py:159-162, 248-267);
 - streaming (a chain ensemble, fixed rank or SBFI/BFI rank learning): every
   state tensor carries a leading chain axis C, and each step runs the
   hyper-update, the streamed P, E and A sweeps (models/updates.py) and the
   streamed metrics sums; no (C, K, G) tensor exists (gibbs.py:228-264).
 
 ``jax.lax.scan`` becomes a Python loop that writes each step into buffers
-preallocated on the device; no step waits for the device.
+preallocated on the device; the chunk's temperatures go to the device once,
+and no step waits for the device except where a gamma draw's exact
+rejection loop checks that it is done (ops/distributions.gamma).
 """
 
 from __future__ import annotations
@@ -43,31 +50,29 @@ _TINY = 1.2e-38
 
 def check_spec(spec: ModelSpec):
     """Raise NotImplementedError for anything outside the ported slices:
-    the fused path at a fixed rank, and the streaming path at a fixed rank
-    or with SBFI/BFI rank learning."""
+    the fused path (one chain, MH, truncnormal or exponential prior, fixed
+    rank or SBFI/BFI), the conjugate path (one chain, MH=False, exponential
+    prior, fixed rank or SBFI/BFI) and the streaming path (truncnormal
+    prior, fixed rank or SBFI/BFI)."""
     missing = []
-    if spec.likelihood != "poisson" or not spec.MH:
-        missing.append(f"likelihood={spec.likelihood!r} with MH={spec.MH}")
-    if spec.prior != "truncnormal":
+    if spec.likelihood != "poisson":
+        missing.append(f"likelihood={spec.likelihood!r}")
+    if spec.prior not in ("truncnormal", "exponential"):
         missing.append(f"prior={spec.prior!r}")
-    if not spec.exact_mh:
-        missing.append("exact_mh=False")
-    if not spec.exact_truncnorm_hypers:
+    if spec.prior == "truncnormal" and not spec.exact_truncnorm_hypers:
         missing.append("exact_truncnorm_hypers=False")
-    if spec.stream_sweeps:
-        if spec.learning_rank and spec.rank_method not in ("SBFI", "BFI"):
-            missing.append(f"rank_method={spec.rank_method!r} on the "
-                           "streaming path")
-    elif spec.fused_sweeps:
-        if spec.learning_rank:
-            missing.append(f"rank learning ({spec.rank_method}) in the "
-                           "fused kernel")
-    else:
-        missing.append("the unfused, unstreamed sweep path")
+    if spec.learning_rank and spec.rank_method not in ("SBFI", "BFI"):
+        missing.append(f"rank_method={spec.rank_method!r}")
+    if spec.MH:
+        if spec.stream_sweeps:
+            if spec.prior != "truncnormal":
+                missing.append(f"prior={spec.prior!r} on the streaming path")
+        elif not spec.fused_sweeps:
+            missing.append("the unfused, unstreamed sweep path")
     if missing:
         raise NotImplementedError(
-            "bayesnmf_tpu_torch ports the fused fixed-rank path and the "
-            "streaming path of the default model so far; not ported: "
+            "bayesnmf_tpu_torch ports the fused, conjugate and streaming "
+            "paths of the Poisson sampler so far; not ported: "
             + ", ".join(missing) + " (see ROADMAP.md)")
 
 
@@ -80,11 +85,12 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
                gen: torch.Generator, init_params=None,
                init_prior_params=None, chains=None) -> dict:
     """Initial state on ``data``'s device: prior parameters from the
-    hyperpriors, P and E from the priors, and with rank learning
-    R ~ Uniform{0..N}, A_n ~ Bern(p1(R)); iteration 1 (gibbs.py:41-92).
-    With ``chains`` = C every tensor has a leading chain axis of C
-    independent draws. ``init_params`` / ``init_prior_params`` entries
-    override the draws (the same value for every chain)."""
+    hyperpriors, P and E from the priors, with rank learning
+    R ~ Uniform{0..N}, A_n ~ Bern(p1(R)), and on the conjugate path the
+    latent counts' sums; iteration 1 (gibbs.py:41-92). With ``chains`` = C
+    every tensor has a leading chain axis of C independent draws.
+    ``init_params`` / ``init_prior_params`` entries override the draws (the
+    same value for every chain)."""
     check_spec(spec)
     dev = data.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -110,30 +116,53 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
         params["A"] = torch.ones(lead + (spec.N,), **f32)
     for name, v in (init_params or {}).items():
         params[name] = override(v, np.int32 if name == "R" else np.float32)
-    return {"params": params, "prior": prior, "gen": gen, "iter": 1,
-            "acc_P": torch.ones(lead + (spec.K, spec.N), **f32),
-            "acc_E": torch.ones(lead + (spec.N, spec.G), **f32)}
+    if spec.needs_Z:
+        params["Zsum_g"], params["Zsum_k"] = U.sample_Z_sums(spec, data,
+                                                             params, gen)
+    state = {"params": params, "prior": prior, "gen": gen, "iter": 1}
+    if spec.MH:
+        state["acc_P"] = torch.ones(lead + (spec.K, spec.N), **f32)
+        state["acc_E"] = torch.ones(lead + (spec.N, spec.G), **f32)
+    return state
 
 
 def step_constants(spec: ModelSpec, hp: dict, device) -> dict:
-    """Per-fit constant operands of the fused sweep: the hyperprior planes
-    [m, s, a, b] of each side and the (3, N+1) rank pack (all zeros at a
-    fixed rank). The reference rebuilds them every step; here a chunk builds
-    them once."""
+    """Per-fit constant operands of the fused sweep: for the truncnormal
+    prior the hyperprior planes [m, s, a, b] of each side, for the
+    exponential prior the unused second prior planes (ones), and the
+    (3, N+1) rank pack of a fixed rank (zeros). The reference rebuilds them
+    every step; here a chunk builds them once."""
     K, N, G = spec.K, spec.N, spec.G
-    planes = lambda side, shape: torch.stack([  # noqa: E731
-        torch.full(shape, float(hp[f"{k}_{side}"]), dtype=torch.float32,
-                   device=device) for k in ("m", "s", "a", "b")])
-    return {"hyper_hp": (planes("p", (K, N)), planes("e", (N, G))),
-            "rank_pack": torch.zeros(3, N + 1, dtype=torch.float32,
-                                     device=device)}
+    f32 = dict(dtype=torch.float32, device=device)
+    consts = {"rank_pack": torch.zeros(3, N + 1, **f32)}
+    if spec.prior == "truncnormal":
+        planes = lambda side, shape: torch.stack([  # noqa: E731
+            torch.full(shape, float(hp[f"{k}_{side}"]), **f32)
+            for k in ("m", "s", "a", "b")])
+        consts["hyper_hp"] = (planes("p", (K, N)), planes("e", (N, G)))
+    else:
+        consts["ones"] = (torch.ones(K, N, **f32), torch.ones(N, G, **f32))
+    return consts
 
 
 def n_uniforms(spec: ModelSpec) -> int:
-    """Length of one step's flat uniform tensor: three planes per side for
-    the sweeps (prior fallback, proposal, acceptance) and four per side for
-    the hyper-sweep (gibbs.py:175-180)."""
-    return 7 * (spec.K * spec.N + spec.N * spec.G)
+    """Length of one fused step's flat uniform tensor (gibbs.py:175-180):
+    three planes per side for the sweeps (prior fallback, proposal,
+    acceptance), with rank learning 2(N+1) for the R draw's Gumbel noise and
+    the A draws, and for the truncnormal prior four planes per side for the
+    in-kernel hyper-sweep."""
+    n = spec.K * spec.N + spec.N * spec.G
+    return (3 * n + (2 * (spec.N + 1) if spec.learning_rank else 0)
+            + (4 * n if spec.prior == "truncnormal" else 0))
+
+
+def _temp_tensor(temperature, device) -> torch.Tensor:
+    """The temperature as a 0-d float32 tensor on ``device``; a tensor on
+    the device already is used as it is (no host copy)."""
+    if isinstance(temperature, torch.Tensor):
+        return temperature.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(temperature), dtype=torch.float32,
+                      device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -146,23 +175,34 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                noise=None):
     """One full Gibbs sweep; returns (new_state, sample_out).
 
-    On the streaming path this is ``stream_step`` (``noise`` goes there).
-    On the fused path the order is (gibbs.py:100-290): hyper-sweep, P sweep,
-    E sweep, all inside the fused sweep, after a fresh Mhat = P diag(A) E.
-    ``u`` is the flat uniform tensor of length ``n_uniforms(spec)``, laid
-    out as at gibbs.py:175-207; when None it is drawn from ``state['gen']``.
-    ``sample_out`` holds P, E, A and the metrics row. ``metric_consts`` and
-    ``consts`` (step_constants) are computed when not given.
+    On the streaming path this is ``stream_step`` and on the conjugate path
+    ``conjugate_step`` (``noise`` goes there). On the fused path the order
+    is (gibbs.py:100-290): the exponential prior's Lambda update (``noise``
+    {"prior": ...}), a fresh Mhat = P diag(A) E, then inside the fused
+    sweep the truncnormal hyper-sweep, the P sweep, the E sweep and with
+    rank learning the R draw and the A sweep. ``u`` is the flat uniform
+    tensor of length ``n_uniforms(spec)``, laid out as at gibbs.py:175-207;
+    when None it is drawn from ``state['gen']``. ``temperature`` is a
+    float or a 0-d tensor on the device. ``sample_out`` holds P, E, A and
+    the metrics row. ``metric_consts`` and ``consts`` (step_constants) are
+    computed when not given.
     """
     if spec.stream_sweeps:
         return stream_step(spec, data, hp, state, temperature, accept_all,
                            metric_consts, noise)
+    if not spec.MH:
+        return conjugate_step(spec, data, hp, state, temperature,
+                              metric_consts, noise)
     K, N, G = spec.K, spec.N, spec.G
     dev = data.device
     params = dict(state["params"])
     prior = dict(state["prior"])
     if consts is None:
         consts = step_constants(spec, hp, dev)
+    expo = spec.prior == "exponential"
+    if expo:
+        prior = U.sample_prior_params(spec, hp, params, prior, state["gen"],
+                                      noise=(noise or {}).get("prior"))
 
     # fresh Mhat every iteration, so the sweeps' rank-1 updates cannot
     # accumulate float32 drift over thousands of iterations
@@ -178,18 +218,40 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     Upr_E, Up_E, Ua_E = (u[off + i * n_e:off + (i + 1) * n_e].view(N, G)
                          for i in range(3))
     off = 3 * (n_p + n_e)
-    hyper_u = (u[off:off + 4 * n_p].view(4, K, N),
-               u[off + 4 * n_p:off + 4 * (n_p + n_e)].view(4, N, G))
+    rank_pack = consts["rank_pack"]
+    if spec.learning_rank:
+        gumbel = -torch.log(-torch.log(u[off:off + N + 1]))
+        zero = torch.zeros(1, dtype=torch.float32, device=dev)
+        u_A = torch.cat([u[off + N + 1:off + 2 * N + 1], zero])
+        row0 = torch.cat([_temp_tensor(temperature, dev).view(1),
+                          zero.expand(N)])
+        rank_pack = torch.stack([row0, gumbel, u_A])
+        off += 2 * (N + 1)
+    if expo:
+        hyper_u = hyper_hp = None
+        hp_arrays = (prior["Lambda_p"], consts["ones"][0], prior["Lambda_e"],
+                     consts["ones"][1])
+    else:
+        hyper_u = (u[off:off + 4 * n_p].view(4, K, N),
+                   u[off + 4 * n_p:off + 4 * (n_p + n_e)].view(4, N, G))
+        hyper_hp = consts["hyper_hp"]
+        hp_arrays = (prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"],
+                     prior["Sigmasq_e"])
 
-    (params["P"], params["E"], Mh, acc_P, acc_E, _, _, na_events,
-     prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"],
-     prior["Sigmasq_e"]) = fused_gibbs_sweeps(
+    (params["P"], params["E"], Mh, acc_P, acc_E, A_new, R_new, na_events,
+     hp0_p, hp1_p, hp0_e, hp1_e) = fused_gibbs_sweeps(
         data, params["P"], params["E"], params["A"], Mh, state["acc_P"],
-        state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
-        prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"], prior["Sigmasq_e"],
-        consts["rank_pack"], prior_kind="truncnormal", exact_mh=True,
-        accept_all=accept_all, rank_method=None, hyper_u=hyper_u,
-        hyper_hp=consts["hyper_hp"])
+        state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E, *hp_arrays,
+        rank_pack, prior_kind=spec.prior, exact_mh=spec.exact_mh,
+        accept_all=accept_all,
+        rank_method=spec.rank_method if spec.learning_rank else None,
+        hyper_u=hyper_u, hyper_hp=hyper_hp)
+    if not expo:
+        prior["Mu_p"], prior["Sigmasq_p"] = hp0_p, hp1_p
+        prior["Mu_e"], prior["Sigmasq_e"] = hp0_e, hp1_e
+    if spec.learning_rank:
+        params["A"] = A_new
+        params["R"] = R_new.to(torch.int32)
 
     new_iter = state["iter"] + 1
     new_state = {"params": params, "prior": prior, "gen": state["gen"],
@@ -201,11 +263,59 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                        "metrics": metrics}
 
 
+def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
+                   metric_consts=None, noise=None):
+    """One conjugate Poisson-Gibbs iteration (MH=False; gibbs.py:100-290):
+    Lambda, then P and E given the latent counts, with rank learning the R
+    draw and the Mhat-based A sweep, then the new latent counts' sums.
+    ``noise`` may hold each draw's random numbers as the JAX step draws them
+    from its keys: {"prior": {"p", "e"}, "P", "E", "R", "A", "Z"} (the
+    gamma planes, the Gumbel noise, the A uniforms, the allocation planes);
+    what it lacks comes from ``state['gen']``."""
+    gen = state["gen"]
+    noise = noise or {}
+    params = dict(state["params"])
+    prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
+                                  noise=noise.get("prior"))
+    params["P"] = U.sample_P_poisson_gibbs(spec, prior, params, gen,
+                                           u=noise.get("P"))
+    params["E"] = U.sample_E_poisson_gibbs(spec, prior, params, params["P"],
+                                           gen, u=noise.get("E"))
+    Mh = m.mhat(params["P"], params["A"], params["E"])
+    na_events = 0.0  # no MH ratios on this path
+    if spec.learning_rank:
+        params["R"] = U.sample_R(spec, params["A"], temperature, gen,
+                                 gumbel=noise.get("R"))
+        params["A"], Mh, na_events = U.sweep_A(
+            spec, data, params, params["R"], Mh, temperature, gen,
+            u=noise.get("A"))
+    params["Zsum_g"], params["Zsum_k"] = U.sample_Z_sums(
+        spec, data, params, gen, u=noise.get("Z"))
+    new_iter = state["iter"] + 1
+    new_state = {"params": params, "prior": prior, "gen": gen,
+                 "iter": new_iter}
+    metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
+                           temperature, None, None, na_events, metric_consts)
+    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
+                       "metrics": metrics}
+
+
+def _fill(row, i, v):
+    """row[i] = v without a host wait: a device tensor is copied on the
+    device, a host number is passed to a fill kernel (``row[i] = x`` would
+    copy it from host memory and wait for the device)."""
+    if isinstance(v, torch.Tensor):
+        row[i] = v
+    else:
+        row[i].fill_(float(v))
+
+
 def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
                  acc_E, na_events=0.0, consts=None):
     """Per-iteration metrics (compute_metrics_, utils.R:412-455), Poisson
-    likelihood from Mhat (gibbs.py:293-347). ``it`` and ``temperature`` are
-    host numbers; everything else stays on the device."""
+    likelihood from Mhat (gibbs.py:293-347); the acceptance rates are 1
+    without MH. ``it`` is a host number, ``temperature`` a host number or a
+    device tensor; everything else stays on the device."""
     if consts is None:
         consts = m.metric_constants(spec.likelihood, data)
     # one log(max(Mhat, floor)) pass feeds both the loglik and the padded
@@ -219,22 +329,18 @@ def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
     A = params["A"]
     n_par = m.n_params_of(A, spec.K, spec.G)
     sum_a = torch.sum(A)
-    accP_mean = (torch.sum(acc_P * A.unsqueeze(0))
-                 / (sum_a * spec.K).clamp_min(1.0))
-    accE_mean = (torch.sum(acc_E * A.unsqueeze(1))
-                 / (sum_a * spec.G).clamp_min(1.0))
     row = torch.empty(N_METRICS, dtype=torch.float32, device=data.device)
-    # fill_ passes a host number to a kernel; `row[0] = x` would copy it
-    # from host memory and wait for the device
-    row[0].fill_(float(it))
+    _fill(row, 0, it)
     row[1:8] = torch.stack([m.rmse(data, Mh), kl, loglik, logpost, n_par,
                             m.bic(loglik, n_par, spec.G), sum_a])
-    row[8].fill_(float(temperature))
-    row[9:11] = torch.stack([accP_mean, accE_mean])
-    if isinstance(na_events, torch.Tensor):
-        row[11] = na_events
+    _fill(row, 8, temperature)
+    if spec.MH:
+        row[9:11] = torch.stack([
+            torch.sum(acc_P * A.unsqueeze(0)) / (sum_a * spec.K).clamp_min(1),
+            torch.sum(acc_E * A.unsqueeze(1)) / (sum_a * spec.G).clamp_min(1)])
     else:
-        row[11].fill_(float(na_events))
+        row[9:11].fill_(1.0)
+    _fill(row, 11, na_events)
     return row
 
 
@@ -244,8 +350,8 @@ def snapshot_sample(spec: ModelSpec, data, state: dict, temperature) -> dict:
     params = state["params"]
     Mh = m.mhat(params["P"], params["A"], params["E"])
     metrics = _metrics_row(spec, data, params, state["prior"], Mh,
-                           state["iter"], temperature, state["acc_P"],
-                           state["acc_E"])
+                           state["iter"], temperature, state.get("acc_P"),
+                           state.get("acc_E"))
     return {"P": params["P"], "E": params["E"], "A": params["A"],
             "metrics": metrics}
 
@@ -372,13 +478,15 @@ def run_chunk(spec: ModelSpec, data, hp: dict, state: dict, temps,
     f32 = dict(dtype=torch.float32, device=dev)
     metric_consts = m.metric_constants(spec.likelihood, data)
     consts = step_constants(spec, hp, dev)
+    # the chunk's temperatures go to the device once; each step indexes them
+    temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
     out = {"metrics": torch.empty(steps, N_METRICS, **f32),
            "P": torch.empty(steps, spec.K, spec.N, **f32),
            "E": torch.empty(steps, spec.N, spec.G, **f32),
            "A": torch.empty(steps, spec.N, **f32)}
-    for i, temp in enumerate(np.asarray(temps, np.float32).tolist()):
-        state, sample = gibbs_step(spec, data, hp, state, temp, accept_all,
-                                   metric_consts, consts=consts)
+    for i in range(steps):
+        state, sample = gibbs_step(spec, data, hp, state, temps[i],
+                                   accept_all, metric_consts, consts=consts)
         for k, buf in out.items():
             buf[i] = sample[k]
     return state, out

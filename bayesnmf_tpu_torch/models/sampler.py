@@ -1,7 +1,10 @@
 """Host side of the sampler: phases, convergence checks, MAP windows, I/O.
 
-Port of bayesnmf_tpu/models/sampler.py for one chain at a fixed rank. The
-hot loop runs on the device in chunks of MAP_every iterations
+Port of bayesnmf_tpu/models/sampler.py for one chain: the Poisson
+likelihood with MH (truncnormal or exponential prior, through the fused
+kernel) or conjugate Gibbs (MH=False, exponential prior, through the
+allocation kernel), at a fixed rank or learning it over a rank list by
+SBFI/BFI. The hot loop runs on the device in chunks of MAP_every iterations
 (models/gibbs.py); this class owns everything at chunk granularity: sample
 windows, metrics history, convergence, logging, checkpointing and the
 postprocessing entry points, which read numpy arrays.
@@ -30,7 +33,7 @@ from ..config import (
     default_hyperprior_params,
     default_MH,
 )
-from ..utils.logging import RunLogger
+from ..utils.logging import RunLogger, format_counts_table
 
 from . import gibbs
 from .convergence import ConvergenceTracker
@@ -74,7 +77,9 @@ def _host(x):
 
 
 class GibbsSampler:
-    """Single-chain Bayesian NMF Gibbs sampler at a fixed rank."""
+    """Single-chain Bayesian NMF Gibbs sampler. ``rank`` is an int (a fixed
+    rank) or a list of ranks, which learns the rank over 0..max(rank) by
+    ``rank_method`` 'SBFI' or 'BFI' (bayesNMF_sampler.R:118-125)."""
 
     def __init__(
         self,
@@ -108,10 +113,17 @@ class GibbsSampler:
             raise ValueError("record_history must be 'basic' or 'full'")
         if record_history == "full":
             raise NotImplementedError(f"record_history='full' is {_ROADMAP}")
-        if not isinstance(rank, (int, np.integer)):
+        if isinstance(rank, (int, np.integer)):
+            ranks = [int(rank)]
+        else:
+            ranks = sorted(int(r) for r in rank)
+        learning_rank = len(ranks) > 1
+        if learning_rank and rank_method == "BIC":
             raise NotImplementedError(
-                f"rank learning over a rank list (SBFI, BFI, BIC) is "
-                f"{_ROADMAP}")
+                "rank_method='BIC' over a rank list (one fit per rank) is not "
+                "ported yet (see ROADMAP.md queue 1 item 10)")
+        if learning_rank and min(ranks) != 0:
+            ranks = list(range(0, max(ranks) + 1))  # bayesNMF_sampler.R:125
         if mesh is not None:
             raise NotImplementedError(f"mesh-sharded fits are {_ROADMAP}")
         if stream_sweeps:
@@ -129,8 +141,9 @@ class GibbsSampler:
         if MH is None:
             MH = default_MH(likelihood, prior)
         spec = ModelSpec(
-            K=data.shape[0], N=int(rank), G=data.shape[1],
-            likelihood=likelihood, prior=prior, MH=MH, rank_method=rank_method,
+            K=data.shape[0], N=max(ranks), G=data.shape[1],
+            likelihood=likelihood, prior=prior, MH=MH,
+            learning_rank=learning_rank, rank_method=rank_method,
             exact_mh=exact_mh, exact_truncnorm_hypers=exact_truncnorm_hypers)
         if spec.likelihood == "poisson" and spec.MH:
             # the fused sweep is the port's only sweep path
@@ -144,16 +157,22 @@ class GibbsSampler:
             output_dir=output_dir, overwrite=overwrite, verbosity=verbosity,
             periodic_save=periodic_save, save_all_samples=save_all_samples,
             seed=seed)
-        self.rank = int(rank)
+        self.rank = ranks if learning_rank else ranks[0]
         self.post_warmup = self.run_cfg.resolved_post_warmup(self.cc)
         self.output_dir = _resolve_output_dir(output_dir, overwrite)
         self.logger = RunLogger(self.output_dir, verbosity)
 
-        # temperatures, 1-indexed by iteration; all 1 at a fixed rank
-        # (bayesNMF_sampler.R:128-137)
-        n_iters = self.cc.maxiters + self.post_warmup
-        self.temp_sched = np.ones(n_iters + 1, np.float32)
-        self.temp_sched[0] = 0.0
+        # tempering schedule, 1-indexed by iteration; all 1 at a fixed rank
+        # (utils.R:307-332; bayesNMF_sampler.R:128-137)
+        n_iters = self.cc.maxiters + (self.post_warmup if MH else 0)
+        if learning_rank:
+            sched = gibbs.temp_schedule(
+                n_iters, int(round(prop_temp * self.cc.maxiters)),
+                np.random.default_rng(seed))
+        else:
+            sched = np.ones(n_iters, np.float32)
+        self.temp_sched = np.concatenate([[np.float32(0)], sched]).astype(
+            np.float32)
 
         self.data = torch.as_tensor(data, device=self.device)
         self.hyperprior_params = dict(
@@ -165,7 +184,9 @@ class GibbsSampler:
         self.logger.indent = 1
         self.logger.log(
             f"likelihood = {likelihood}, prior = {prior}, MH = {MH}", 1)
-        self.logger.log(f"learning_rank = False, rank = {self.rank}", 1)
+        disp = (f"{min(ranks)}:{max(ranks)}" if learning_rank
+                else str(self.rank))
+        self.logger.log(f"learning_rank = {learning_rank}, rank = {disp}", 1)
         self.logger.log(f"device = {self.device}", 1)
         self.logger.log(f"maxiters = {self.cc.maxiters}", 1)
         self.logger.log(f"MAP_over = {self.cc.MAP_over}", 1)
@@ -296,6 +317,8 @@ class GibbsSampler:
         self.logger.indent = 2
         self.logger.log("Computing MAP", 1)
         self.get_MAP(final=final)
+        if self.spec.learning_rank:
+            self.logger.log(format_counts_table(self.MAP["A_counts"]), 1)
 
         # MAP metrics: loglik/logpost averaged over the window's sample
         # metrics (renormalized P/E invalidate the prior), BIC recomputed
@@ -314,9 +337,10 @@ class GibbsSampler:
             "MAP_A_counts": self.MAP["A_counts"][0][1],
             "mean_temp": float(np.mean(self.temp_sched[
                 max(self.iter - self.cc.MAP_over + 1, 1): self.iter + 1])),
-            "P_mean_acceptance_rate": float(win[-1, 9]),
-            "E_mean_acceptance_rate": float(win[-1, 10]),
         }
+        if self.spec.MH:
+            row["P_mean_acceptance_rate"] = float(win[-1, 9])
+            row["E_mean_acceptance_rate"] = float(win[-1, 10])
         self.MAP_metrics.append(row)
 
         # surface numeric-overflow fallbacks (the reference logs its
@@ -326,7 +350,7 @@ class GibbsSampler:
         if na_events > 0:
             self.logger.log(
                 f"{int(na_events)} numeric-overflow fallbacks in the last "
-                "chunk (MH ratios clamped NaN→0)", 1)
+                "chunk (MH ratios clamped NaN→0 / inclusion odds NaN→1/2)", 1)
 
         metric = row[self.cc.metric]
         if self.cc.metric in ("loglikelihood", "logposterior"):
@@ -369,28 +393,35 @@ class GibbsSampler:
         while not self.tracker.converged and self.iter < cc.maxiters:
             boundary = min(
                 ((self.iter // cc.MAP_every) + 1) * cc.MAP_every, cc.maxiters)
-            self._run_chunk(boundary - self.iter, accept_all=True)
+            self._run_chunk(boundary - self.iter, accept_all=self.spec.MH)
             if self.iter % cc.MAP_every == 0 or self.iter >= cc.maxiters:
                 self._map_check()
 
-        # ---- post-warmup MH inference phase
-        t1 = time.time()
-        self.time["warmup"] = (t1 - t0) / 60.0
-        self.logger.log(
-            f"Warmup done, sampling {self.post_warmup} with MH for "
-            "inference", 1)
-        done = 0
-        while done < self.post_warmup:
-            nxt = min(((self.iter // cc.MAP_every) + 1) * cc.MAP_every,
-                      self.iter + (self.post_warmup - done))
-            steps = nxt - self.iter
-            self._run_chunk(steps, accept_all=False)
-            done += steps
-            final = done >= self.post_warmup
-            if self.iter % cc.MAP_every == 0 or final:
-                self._map_check(final=final)
-        self.logger.log(f"Additional {self.post_warmup} MH samples done", 1)
-        self.time["MH"] = (time.time() - t1) / 60.0
+        if self.spec.MH:
+            # ---- post-warmup MH inference phase
+            t1 = time.time()
+            self.time["warmup"] = (t1 - t0) / 60.0
+            self.logger.log(
+                f"Warmup done, sampling {self.post_warmup} with MH for "
+                "inference", 1)
+            done = 0
+            while done < self.post_warmup:
+                nxt = min(((self.iter // cc.MAP_every) + 1) * cc.MAP_every,
+                          self.iter + (self.post_warmup - done))
+                steps = nxt - self.iter
+                self._run_chunk(steps, accept_all=False)
+                done += steps
+                final = done >= self.post_warmup
+                if self.iter % cc.MAP_every == 0 or final:
+                    self._map_check(final=final)
+            self.logger.log(f"Additional {self.post_warmup} MH samples done",
+                            1)
+            self.time["MH"] = (time.time() - t1) / 60.0
+        else:
+            self.get_MAP(final=True)
+            if self.spec.learning_rank:
+                self.logger.log(format_counts_table(self.MAP["A_counts"]), 1)
+            self.logger.log("Final MAP computed", 1)
 
         self.logger.log("Sampler done", 1)
         self.time["total"] = (time.time() - t0) / 60.0
@@ -450,8 +481,10 @@ def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
         rank_method: str = "SBFI", MH: Optional[bool] = None,
         convergence_control: Optional[ConvergenceControl] = None,
         output_dir: Optional[str] = "default", **kw):
-    """Fit Bayesian NMF at a fixed rank; the port of ``bayesnmf_tpu.fit``
-    (bayesNMF, bayesNMF.R:24-138) for one chain. ``output_dir`` defaults to
+    """Fit Bayesian NMF with one chain; the port of ``bayesnmf_tpu.fit``
+    (bayesNMF, bayesNMF.R:24-138) at a fixed rank or, with a rank list,
+    learning the rank by SBFI/BFI (rank_method='BIC', one fit per rank, is
+    not ported: ROADMAP.md queue 1 item 10). ``output_dir`` defaults to
     ``nmf_<likelihood>_<prior>``; None disables logging and checkpoints.
     Keyword arguments go to GibbsSampler (``device`` among them)."""
     if output_dir == "default":

@@ -1,16 +1,22 @@
 """Gibbs conditional updates of the port.
 
-Port of the truncnormal subset of bayesnmf_tpu/models/updates.py:
+Port of the truncnormal and exponential subset of
+bayesnmf_tpu/models/updates.py:
 
-- initial draws: ``init_prior_params`` (:62-74), ``_prior_draw_P/E``
+- initial draws: ``init_prior_params`` (:62-77), ``_prior_draw_P/E``
   (:244-258);
-- the exact TruncNormal hyper-update ``sample_prior_params`` (:91-181),
+- ``sample_prior_params`` (:91-203): the exact TruncNormal hyper-update,
   which on the streaming path runs as host-issued tensor ops (the fused
-  kernel carries its own copy);
-- rank learning: ``prior_prob_1`` and ``sample_R`` (:770-783);
-- the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725) and
-  ``stream_sweep_A`` (:838-872), whose reductions are the kernels of
-  ops/stream_sweeps.py.
+  kernel carries its own copy), and the exponential prior's
+  Lambda ~ Gamma(a + 1, b + x);
+- the conjugate Poisson-Gibbs draws ``sample_P_poisson_gibbs`` /
+  ``sample_E_poisson_gibbs`` (:733-762) and ``sample_Z_sums`` (:894-905),
+  whose allocation is the kernel of ops/allocation.py;
+- rank learning: ``prior_prob_1`` and ``sample_R`` (:770-783), the
+  Mhat-based ``sweep_A`` (:786-835) of the conjugate path, and
+  ``stream_sweep_A`` (:838-872);
+- the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725),
+  whose reductions are the kernels of ops/stream_sweeps.py.
 
 On the streaming path every tensor carries a leading chain axis C and one
 call updates the whole ensemble; ``accept_all`` is a (C,) bool tensor, and
@@ -30,6 +36,7 @@ from ..config import ModelSpec
 from ..ops import distributions as dist
 from ..ops import math as m
 from ..ops import stream_sweeps as S
+from ..ops.allocation import allocate_counts
 
 _U_MIN = 1.2e-38   # minval of the JAX package's sweep uniforms
 
@@ -40,10 +47,11 @@ def _full(hp, name, shape, device):
                       device=device)
 
 
-def _require_truncnormal(spec: ModelSpec):
-    if spec.prior != "truncnormal":
+def _require_ported_prior(spec: ModelSpec):
+    if spec.prior not in ("truncnormal", "exponential"):
         raise NotImplementedError(
-            f"the {spec.prior!r} prior is not ported yet (ROADMAP.md queue 1)")
+            f"the {spec.prior!r} prior is not ported yet (ROADMAP.md queue 1 "
+            "item 12)")
 
 
 def _rand(gen, shape, device, low=_U_MIN):
@@ -57,12 +65,20 @@ def _rand(gen, shape, device, low=_U_MIN):
 
 def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
                       device, chains=None) -> dict:
-    """Draw Mu/Sigmasq for P and E from their hyperpriors
-    (init_prior_params_, sample_priors.R:15-141); with ``chains`` = C, one
-    draw per chain on a leading axis."""
-    _require_truncnormal(spec)
+    """Draw the prior parameters of P and E from their hyperpriors
+    (init_prior_params_, sample_priors.R:15-141): Mu/Sigmasq for the
+    truncnormal prior, Lambda ~ Gamma(a, b) for the exponential one; with
+    ``chains`` = C, one draw per chain on a leading axis."""
+    _require_ported_prior(spec)
     lead = () if chains is None else (chains,)
     kn, ng = lead + (spec.K, spec.N), lead + (spec.N, spec.G)
+    if spec.prior == "exponential":
+        return {
+            "Lambda_p": dist.gamma(gen, _full(hp, "a_p", kn, device),
+                                   _full(hp, "b_p", kn, device)),
+            "Lambda_e": dist.gamma(gen, _full(hp, "a_e", ng, device),
+                                   _full(hp, "b_e", ng, device)),
+        }
     return {
         "Mu_p": dist.normal(gen, _full(hp, "m_p", kn, device),
                             _full(hp, "s_p", kn, device)),
@@ -79,8 +95,10 @@ def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
                   u=None):
     """A full P from the prior (sample_Pn.R:12-29); ``u``: the two uniform
     planes on dim -3 (the JAX draw's (2, K, N), with the chain axis
-    first)."""
-    _require_truncnormal(spec)
+    first; truncnormal prior only)."""
+    _require_ported_prior(spec)
+    if spec.prior == "exponential":
+        return dist.exponential(gen, prior["Lambda_p"])
     if u is None:
         return dist.truncnorm_nonneg(gen, prior["Mu_p"], prior["Sigmasq_p"])
     return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
@@ -89,7 +107,9 @@ def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
 
 def _prior_draw_E(spec: ModelSpec, prior: dict, gen: torch.Generator,
                   u=None):
-    _require_truncnormal(spec)
+    _require_ported_prior(spec)
+    if spec.prior == "exponential":
+        return dist.exponential(gen, prior["Lambda_e"])
     if u is None:
         return dist.truncnorm_nonneg(gen, prior["Mu_e"], prior["Sigmasq_e"])
     return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
@@ -146,15 +166,36 @@ def n_hyper_noise(spec: ModelSpec) -> int:
     return 2 * (spec.K * spec.N + spec.N * spec.G)
 
 
+def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
+                   gen, noise) -> dict:
+    """Lambda | x ~ Gamma(a + 1, b + x) for both sides (sample_priors.R:
+    284-308, updates.py:196-203). ``noise``: {"p": ..., "e": ...}, the
+    gamma draws' uniform planes (9,) + shape as the JAX function draws them
+    from split(key, 4)[0] and [1]."""
+    P, E = params["P"], params["E"]
+    noise = noise or {}
+    new = dict(prior)
+    for side, x in (("p", P), ("e", E)):
+        new[f"Lambda_{side}"] = dist.gamma(
+            gen, torch.full_like(x, float(hp[f"a_{side}"])) + 1.0,
+            torch.full_like(x, float(hp[f"b_{side}"])) + x,
+            u=noise.get(side))
+    return new
+
+
 def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
                         gen=None, noise=None) -> dict:
-    """One exact Gibbs sweep over Mu/Sigmasq of P and E (updates.py:91-181),
-    chain-batched: P (C, K, N), E (C, N, G) and the prior dict alike.
+    """One Gibbs sweep over the prior parameters (updates.py:91-203).
 
+    Exponential prior: Lambda ~ Gamma(a + 1, b + x) (``_sample_lambda``).
+    Truncnormal prior: the exact sweep over Mu/Sigmasq of P and E,
+    chain-batched: P (C, K, N), E (C, N, G) and the prior dict alike;
     ``noise``: {"z": normals, "u": uniforms}, each (C, n_hyper_noise(spec))
     in the JAX layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e] (updates.py:119-173).
     """
-    _require_truncnormal(spec)
+    _require_ported_prior(spec)
+    if spec.prior == "exponential":
+        return _sample_lambda(spec, hp, params, prior, gen, noise)
     if not spec.exact_truncnorm_hypers:
         raise NotImplementedError(
             "exact_truncnorm_hypers=False is not ported yet (ROADMAP.md "
@@ -221,9 +262,49 @@ def sample_R(spec: ModelSpec, A, temperature, gen=None, gumbel=None):
 
 def sbfi_penalty(spec: ModelSpec) -> float:
     """The BIC-penalty delta (G+K) log(G) / 2 of one inclusion, in float32
-    (sample_params.R:118-126)."""
+    with log(G) rounded to float32 first (sample_params.R:118-126,
+    updates.py:801). The fused kernel takes the form computed in double
+    (ops/fused_sweeps.sbfi_penalty)."""
     return float(torch.tensor(float(spec.G + spec.K))
                  * torch.log(torch.tensor(float(spec.G))) / 2.0)
+
+
+def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
+            gen=None, u=None):
+    """Sequential tempered Bernoulli updates of the inclusion vector A on
+    one chain, from Mhat (sample_An, sample_params.R:101-166;
+    updates.py:786-835): column n's loglik(A_n=1) - loglik(A_n=0) is one
+    reduction over K*G, SBFI subtracts the BIC-penalty delta, BFI does not,
+    and Mhat is rewritten by a rank-1 term. ``u``: (N,) uniforms, column
+    n's Bernoulli draw in u[n] (the JAX draw from split(key, N)[n]).
+    Returns (A, Mhat, n_nan), n_nan counting posteriors clamped NaN -> 1/2.
+    """
+    P, E = params["P"], params["E"]
+    A = params["A"].clone()
+    N = spec.N
+    if u is None:
+        u = _rand(gen, (N,), P.device)
+    p1 = prior_prob_1(R.to(torch.float32), N)
+    logit_p1 = torch.log(p1) - torch.log1p(-p1)
+    pen = sbfi_penalty(spec)
+    n_nan = torch.zeros((), dtype=torch.float32, device=P.device)
+    for n in range(N):
+        contrib = P[:, n:n + 1] * E[n:n + 1, :]
+        Mhat_off = Mhat - A[n] * contrib
+        lam_on = (Mhat_off + contrib).clamp_min(m.MHAT_FLOOR)
+        lam_off = Mhat_off.clamp_min(m.MHAT_FLOOR)
+        d_lam = lam_on - lam_off
+        delta = torch.sum(data * torch.log1p(d_lam / lam_off) - d_lam)
+        if spec.rank_method == "SBFI":
+            delta = delta - pen
+        p = torch.sigmoid(logit_p1 + temperature * delta)
+        is_nan = torch.isnan(p)
+        n_nan = n_nan + is_nan.to(torch.float32)
+        p = torch.where(is_nan, 0.5, p)
+        a_new = dist.bernoulli_from_u(u[n], p)
+        Mhat = Mhat_off + a_new * contrib
+        A[n] = a_new
+    return A, Mhat, n_nan
 
 
 def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
@@ -256,6 +337,43 @@ def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
         p = torch.where(is_nan, 0.5, p)
         A[:, n] = dist.bernoulli_from_u(u[:, n], p)
     return A, n_nan
+
+
+# ---------------------------------------------------------------------------
+# conjugate Poisson-Gibbs: P and E given the latent counts, and the counts
+# ---------------------------------------------------------------------------
+
+
+def sample_P_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict,
+                           gen=None, u=None):
+    """All of P in one conjugate draw given the latent-count sums
+    (sample_Pn_poisson, sample_Pn.R:98-120; updates.py:733-749):
+    P ~ Gamma(1 + Zsum_g, Lambda_p + A * rowsum(E)). An excluded column has
+    Zsum 0 and draws from the prior. ``u``: the gamma draw's uniform planes
+    (9, K, N)."""
+    A, E = params["A"], params["E"]
+    rate_add = (A * E.sum(-1)).unsqueeze(-2)                  # (1, N)
+    return dist.gamma(gen, 1.0 + params["Zsum_g"],
+                      prior["Lambda_p"] + rate_add, u=u)
+
+
+def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
+                           gen=None, u=None):
+    """The mirror for E with the freshly drawn P (sample_En.R:97-119;
+    updates.py:752-762): E ~ Gamma(1 + Zsum_k, Lambda_e + A * colsum(P))."""
+    rate_add = (params["A"] * P_new.sum(-2)).unsqueeze(-1)    # (N, 1)
+    return dist.gamma(gen, 1.0 + params["Zsum_k"],
+                      prior["Lambda_e"] + rate_add, u=u)
+
+
+def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
+    """The latent counts' marginal sums (Zsum_g (K, N), Zsum_k (N, G)) of
+    Z[k, :, g] ~ Multinomial(M[k, g], p ∝ P[k, :] A E[:, g])
+    (sample_params.R:253-265; updates.py:894-905), through
+    ops/allocation.allocate_counts; ``u``: its uniform planes, else drawn
+    from ``gen``."""
+    return allocate_counts(data, params["P"], params["A"], params["E"], u=u,
+                           gen=gen)
 
 
 # ---------------------------------------------------------------------------

@@ -65,11 +65,16 @@ def normal(gen, mu, sigmasq):
     return mu + torch.sqrt(sigmasq) * z
 
 
-def gamma(gen, shape_param, rate, unroll: int = 4):
+def gamma(gen, shape_param, rate, unroll: int = 4, u=None):
     """Exact Gamma(shape, rate) draws (mean = shape/rate), by Marsaglia-Tsang
     (distributions.py:83-157): ``unroll`` rounds of candidates from one
     uniform draw, then an exact rejection loop for the elements still
-    undecided. a < 1 is boosted: Gamma(a) = Gamma(a+1) * U^(1/a)."""
+    undecided. a < 1 is boosted: Gamma(a) = Gamma(a+1) * U^(1/a).
+
+    ``u``: the pre-drawn uniforms, (2 * unroll + 1,) + shape, as the JAX
+    function draws them from its key; the rejection loop, which runs for
+    about 1e-5 of the elements, draws from ``gen``. That loop reads the
+    device to know when it is done: one host wait per call."""
     a, rate = torch.broadcast_tensors(shape_param, rate)
     shape, dev = tuple(a.shape), a.device
     boost = a < 1.0
@@ -86,7 +91,8 @@ def gamma(gen, shape_param, rate, unroll: int = 4):
             < 0.5 * x * x + d - d * v + d * torch.log(v.clamp_min(_TINY)))
         return d * v, ok
 
-    u_all = _uniform(gen, (2 * unroll + 1,) + shape, dev)
+    u_all = (_uniform(gen, (2 * unroll + 1,) + shape, dev) if u is None
+             else u)
     g = torch.full(shape, float("nan"), device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     for r in range(unroll):
@@ -111,6 +117,14 @@ def gamma(gen, shape_param, rate, unroll: int = 4):
 def inv_gamma(gen, shape_param, rate):
     """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma)."""
     return 1.0 / gamma(gen, shape_param, rate).clamp_min(1e-30)
+
+
+def exponential(gen, rate, u=None):
+    """Exponential(rate) draws (replaces stats::rexp): -log1p(-u) / rate,
+    the form of jax.random.exponential; ``u`` uniforms in [0, 1)."""
+    if u is None:
+        u = torch.rand(rate.shape, generator=gen, device=rate.device)
+    return -torch.log1p(-u) / rate
 
 
 def bernoulli_from_u(u, p):

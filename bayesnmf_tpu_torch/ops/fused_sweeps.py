@@ -1,6 +1,7 @@
 """One Gibbs iteration core of the Poisson + MH sampler: the exact
-Mu/Sigmasq hyper-sweep, then the N sequential P-column and N sequential
-E-row Metropolis-Hastings updates.
+Mu/Sigmasq hyper-sweep, the N sequential P-column and N sequential E-row
+Metropolis-Hastings updates, and with rank learning the rank draw R and the
+N sequential inclusion updates of A.
 
 Port of bayesnmf_tpu/ops/pallas_sweeps.py. ``fused_gibbs_sweeps`` keeps the
 JAX signature and return tuple (pallas_sweeps.py:370-446). On CUDA tensors it
@@ -9,10 +10,12 @@ chain) or raises; on CPU tensors it runs ``fused_gibbs_sweeps_reference``,
 the same function in plain PyTorch, which consumes the same uniforms in the
 same order.
 
-Ported specialisation: truncnormal prior, exact Hastings ratio, fixed rank
-(``rank_method=None``), with or without the in-kernel hyper-sweep, and
-``accept_all`` either way. The exponential prior, ``exact_mh=False`` and the
-rank R/A branch raise NotImplementedError (ROADMAP.md queue 2 item 1).
+Ported in full: the truncnormal or the exponential prior, the exact or the
+reference-parity (``exact_mh=False``) Hastings ratio, a fixed rank or the
+SBFI/BFI rank branch (``rank_method``), the in-kernel hyper-sweep (the
+truncnormal prior's only), and ``accept_all`` either way. The temperature
+rides in ``rank_pack[..., 0, 0]`` as data, so a step never passes it from
+the host.
 
 Chains: every state and uniform tensor may carry a leading chain axis C
 (the JAX package gets it from ``vmap``); ``data`` (K, G) and the
@@ -23,18 +26,31 @@ bool or a (C,) tensor of per-chain flags.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from . import special as ps
+from .math import const
 
 _FLOOR = 1e-6
+_EPS = 1e-30
 _TINY = 1.2e-38
 _LOG_SQRT2PI = 0.9189385332046727
 
-_NOT_PORTED = ("fused_gibbs_sweeps: only the truncnormal / exact_mh / "
-               "fixed-rank specialisation is ported; see ROADMAP.md queue 2 "
-               "item 1 for the {} branch")
+# the kernel's integer codes of the trace-time options
+PRIORS = {"truncnormal": 0, "exponential": 1}
+RANK_METHODS = {None: 0, "SBFI": 1, "BFI": 2}
+
+
+def sbfi_penalty(K: int, G: int) -> float:
+    """The SBFI inclusion penalty as the kernel takes it:
+    float32((G + K) log(G) / 2) computed in double (pallas_sweeps.py:343).
+    (The Mhat-based ``sweep_A`` rounds log(G) to float32 first.)"""
+    return float(np.float32((G + K) * math.log(G) / 2.0))
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -114,19 +130,43 @@ def _sum(x, dim):
     return x.sum(dim, keepdim=True, dtype=torch.float64).to(torch.float32)
 
 
-def _mh_column(M, Mh, old, other, Mu_n, Sq_n, u_prop, u_acc, acc_on, dim):
-    """Active-column (A_n = 1) exact-MH update, truncnormal prior
-    (pallas_sweeps.py:179-260). ``other`` is E_n (C,1,G) for the P sweep
-    (dim=2) or P_n (C,K,1) for the E sweep (dim=1)."""
+def _prior_draw(expo, u, hp0, hp1):
+    """prior_draw_of (pallas_sweeps.py:174-177): Exp(Lambda) by -log(u) /
+    Lambda, or the TruncNormal(Mu, Sigmasq) inverse-CDF draw."""
+    if expo:
+        return -torch.log(u) / hp0
+    return _truncnorm_icdf(u, hp0, torch.sqrt(hp1))
+
+
+def _conditional(expo, mu1, den, hp0, hp1):
+    """Mean and variance of a column entry's conditional from its two
+    reductions (pallas_sweeps.py:196-203); hp0/hp1 are Lambda/unused for the
+    exponential prior, Mu/Sigmasq for the truncnormal one."""
+    if expo:
+        den_s = den.clamp_min(_EPS)
+        return (mu1 - hp0) / den_s, 1.0 / den_s
+    den2 = den + 1.0 / hp1
+    return (mu1 + hp0 / hp1) / den2, 1.0 / den2
+
+
+def _mh_column(M, Mh, old, other, hp0, hp1, u_prop, u_acc, u_prior, acc_on,
+               dim, expo, exact_mh):
+    """Active-column (A_n = 1) MH update (pallas_sweeps.py:179-260).
+    ``other`` is E_n (C,1,G) for the P sweep (dim=2) or P_n (C,K,1) for the
+    E sweep (dim=1). With the exponential prior an all-zero ``other`` makes
+    the column inactive: it takes the prior draw, and with the exact ratio
+    always accepts it."""
     sig = Mh.clamp_min(_FLOOR)
     Mno = Mh - old * other
     o2 = other * other
     mu1 = _sum(((M - Mno) / sig) * other, dim)
     den = _sum(o2 / sig, dim)
-    den2 = den + 1.0 / Sq_n
-    mu = (mu1 + Mu_n / Sq_n) / den2
-    var = 1.0 / den2
+    mu, var = _conditional(expo, mu1, den, hp0, hp1)
     proposal = _truncnorm_icdf(u_prop, mu, torch.sqrt(var))
+    if expo:
+        inactive = o2.sum((1, 2), keepdim=True) <= 0.0
+        proposal = torch.where(inactive, _prior_draw(True, u_prior, hp0, hp1),
+                               proposal)
 
     Mh_prop = Mh + (proposal - old) * other
     lam_o = Mh.clamp_min(_FLOOR)
@@ -135,16 +175,31 @@ def _mh_column(M, Mh, old, other, Mu_n, Sq_n, u_prop, u_acc, acc_on, dim):
     # the logs by ~sum(M) and destroy the acceptance ratio
     d_lam = lam_n - lam_o
     lp_core = M * torch.log1p(d_lam / lam_o) - d_lam
-    sig_r = Mh_prop.clamp_min(_FLOOR)
-    mu1_r = _sum(((M - Mno) / sig_r) * other, dim)
-    den_r = _sum(o2 / sig_r, dim)
-    den_r2 = den_r + 1.0 / Sq_n
-    mu_r = (mu1_r + Mu_n / Sq_n) / den_r2
-    var_r = 1.0 / den_r2
-    lprior = _tn_logpdf(proposal, Mu_n, Sq_n) - _tn_logpdf(old, Mu_n, Sq_n)
-    log_ratio = (_sum(lp_core, dim) + lprior
-                 + _tn_logpdf(old, mu_r, var_r)
-                 - _tn_logpdf(proposal, mu, var))
+    if exact_mh:
+        sig_r = Mh_prop.clamp_min(_FLOOR)
+        mu1_r = _sum(((M - Mno) / sig_r) * other, dim)
+        den_r = _sum(o2 / sig_r, dim)
+        mu_r, var_r = _conditional(expo, mu1_r, den_r, hp0, hp1)
+        if expo:
+            lprior = -hp0 * (proposal - old)
+        else:
+            lprior = _tn_logpdf(proposal, hp0, hp1) - _tn_logpdf(old, hp0,
+                                                                 hp1)
+        log_ratio = (_sum(lp_core, dim) + lprior
+                     + _tn_logpdf(old, mu_r, var_r)
+                     - _tn_logpdf(proposal, mu, var))
+        if expo:
+            log_ratio = torch.where(inactive, 0.0, log_ratio)
+    else:
+        # the reference's ratio: normal-model likelihoods stand in for the
+        # proposal densities (sample_Pn.R:209-239)
+        vs_o = Mh_prop.clamp_min(1.0)
+        vs_n = Mh.clamp_min(1.0)
+        r_o = M - Mh
+        r_n = M - Mh_prop
+        log_ratio = _sum(
+            lp_core + (-0.5 * r_o * r_o / vs_o - 0.5 * torch.log(vs_o))
+            - (-0.5 * r_n * r_n / vs_n - 0.5 * torch.log(vs_n)), dim)
     ratio_raw = torch.exp(log_ratio).clamp_max(1.0)
     nan_mask = torch.isnan(ratio_raw)
     n_nan = nan_mask.flatten(1).sum(1).to(torch.float32)
@@ -155,19 +210,66 @@ def _mh_column(M, Mh, old, other, Mu_n, Sq_n, u_prop, u_acc, acc_on, dim):
     return new_val, Mh + (new_val - old) * other, rec, n_nan
 
 
+def _rank_branch(M, P, E, A, Mh, rank_pack, rank_method, nan):
+    """The rank draw R by Gumbel-max with the index taken by sum-select, then
+    the N sequential tempered inclusion updates of A, each from one
+    reduction over K*G and a rank-1 rewrite of Mhat (pallas_sweeps.py:
+    316-364). Returns (A, R (C,), Mhat, nan)."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    temp = rank_pack[:, 0, 0:1]                                  # (C, 1)
+    fN = const(float(N), P)
+    lo = const(0.4, P) / fN
+    hi = 1.0 - const(0.4, P) / fN
+    sumA = A.sum(-1, keepdim=True)
+    r = torch.arange(N + 1, dtype=torch.float32, device=P.device)
+    p1_r = torch.minimum(torch.maximum(r / fN, lo), hi)
+    scores = (temp * (sumA * torch.log(p1_r)
+                      + (fN - sumA) * torch.log(1.0 - p1_r))
+              + rank_pack[:, 1, :])
+    mx = scores.max(-1, keepdim=True).values
+    R = torch.where(scores >= mx, r, 0.0).sum(-1)
+    p1 = torch.minimum(torch.maximum(R / fN, lo), hi)
+    logit_p1 = torch.log(p1) - torch.log1p(-p1)
+    pen = sbfi_penalty(K, G)
+    temp = temp.view(C)
+    A = A.clone()
+    for n in range(N):
+        A_n = A[:, n].view(C, 1, 1)
+        con = P[:, :, n:n + 1] * E[:, n:n + 1, :]
+        off = Mh - A_n * con
+        lam_off = off.clamp_min(_FLOOR)
+        d = (off + con).clamp_min(_FLOOR) - lam_off
+        delta = _sum(M * torch.log1p(d / lam_off) - d, (1, 2)).view(C)
+        if rank_method == "SBFI":
+            delta = delta - pen
+        p = 1.0 / (1.0 + torch.exp(-(logit_p1 + temp * delta)))
+        is_nan = torch.isnan(p)
+        nan = nan + is_nan.to(torch.float32)
+        p = torch.where(is_nan, 0.5, p)
+        a_new = (rank_pack[:, 2, n] < p).to(torch.float32)
+        Mh = off + a_new.view(C, 1, 1) * con
+        A[:, n] = a_new
+    return A, R, Mh, nan
+
+
 def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
                                  Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
-                                 hp0_p, hp1_p, hp0_e, hp1_e, accept_flag,
-                                 hyper_u=None, hyper_hp=None):
+                                 hp0_p, hp1_p, hp0_e, hp1_e, rank_pack,
+                                 prior_kind="truncnormal", exact_mh=True,
+                                 rank_method=None, hyper_u=None,
+                                 hyper_hp=None):
     """Plain PyTorch version of the kernel on chain-batched operands:
     data (K,G), Mhat (C,K,G), P-side (C,K,N), E-side (C,N,G), A (C,N),
-    ``accept_flag`` (C,) bool, uniform planes (C,4,K,N)/(C,4,N,G) and the
-    shared hyperprior planes (4,K,N)/(4,N,G).
+    ``rank_pack`` (C,3,N+1) with [temperature, accept_all flag] in row 0,
+    uniform planes (C,4,K,N)/(C,4,N,G) and the shared hyperprior planes
+    (4,K,N)/(4,N,G).
 
-    Returns (P, E, Mhat, acc_P, acc_E, nan_count (C,), Mu_p, Sigmasq_p, Mu_e,
-    Sigmasq_e). Inputs are not modified.
+    Returns (P, E, Mhat, acc_P, acc_E, A, R (C,), nan_count (C,), hp0_p,
+    hp1_p, hp0_e, hp1_e). Inputs are not modified.
     """
     N = P.shape[2]
+    expo = prior_kind == "exponential"
     P, E, Mh = P.clone(), E.clone(), Mhat.clone()
     acc_P, acc_E = acc_P.clone(), acc_E.clone()
     if hyper_u is not None:
@@ -178,7 +280,7 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
     else:
         hp0_p, hp1_p, hp0_e, hp1_e = (t.clone() for t in
                                       (hp0_p, hp1_p, hp0_e, hp1_e))
-    acc_on = accept_flag.view(-1, 1, 1)
+    acc_on = (rank_pack[:, 0, 1] > 0.0).view(-1, 1, 1)
     nan = torch.zeros(P.shape[0], dtype=torch.float32, device=P.device)
 
     # Excluded columns (A_n = 0) take the prior draw; both branches are
@@ -188,11 +290,10 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
         for n in range(N):
             s = sl(n)
             active = (A[:, n] != 0.0).view(-1, 1, 1)
-            Mu_n, Sq_n = hp0[s], hp1[s]
             new, Mh_new, rec, n_nan = _mh_column(
-                data, Mh, X[s], other_of(n), Mu_n, Sq_n, Up[s], Ua[s],
-                acc_on, dim)
-            prior = _truncnorm_icdf(Upr[s], Mu_n, torch.sqrt(Sq_n))
+                data, Mh, X[s], other_of(n), hp0[s], hp1[s], Up[s], Ua[s],
+                Upr[s], acc_on, dim, expo, exact_mh)
+            prior = _prior_draw(expo, Upr[s], hp0[s], hp1[s])
             X[s] = torch.where(active, new, prior)
             acc[s] = torch.where(active, rec, acc[s])
             Mh = torch.where(active, Mh_new, Mh)
@@ -204,7 +305,12 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
     sweep(E, acc_E, Upr_E, Up_E, Ua_E, hp0_e, hp1_e,
           lambda n: P[:, :, n:n + 1],
           lambda n: (slice(None), slice(n, n + 1), slice(None)), dim=1)
-    return P, E, Mh, acc_P, acc_E, nan, hp0_p, hp1_p, hp0_e, hp1_e
+    if rank_method is None:
+        A, R = A.clone(), rank_pack[:, 0, 0].clone()
+    else:
+        A, R, Mh, nan = _rank_branch(data, P, E, A, Mh, rank_pack,
+                                     rank_method, nan)
+    return P, E, Mh, acc_P, acc_E, A, R, nan, hp0_p, hp1_p, hp0_e, hp1_e
 
 
 # ---------------------------------------------------------------------------
@@ -213,13 +319,15 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# 22 input pointers, the hyper-sweep flag, 10 output pointers, C K N G, stream
-_ARGTYPES = [_P] * 22 + [_I] + [_P] * 10 + [_I] * 4 + [_P]
+# 22 input pointers; hyper-sweep, prior, exact, rank codes and the SBFI
+# penalty; 12 output pointers; C K N G; the stream
+_ARGTYPES = ([_P] * 22 + [_I] * 4 + [ctypes.c_float] + [_P] * 12 + [_I] * 4
+             + [_P])
 
 
 def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
             Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e, rank_pack,
-            hyper_u, hyper_hp):
+            prior_kind, exact_mh, rank_method, hyper_u, hyper_hp):
     from ._build import load_library
 
     lib = load_library()
@@ -230,8 +338,10 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
     C, K, N = P.shape
     G = E.shape[2]
     outs = [torch.empty_like(t) for t in
-            (P, E, Mhat, acc_P, acc_E, hp0_p, hp1_p, hp0_e, hp1_e)]
+            (P, E, Mhat, acc_P, acc_E, A)]
+    R = torch.empty(C, dtype=torch.float32, device=P.device)
     nan = torch.empty(C, dtype=torch.float32, device=P.device)
+    hps = [torch.empty_like(t) for t in (hp0_p, hp1_p, hp0_e, hp1_e)]
     hyper = hyper_u is not None
     ptr = lambda t: t.data_ptr()  # noqa: E731
     hu_ptrs = ([ptr(t) for t in (*hyper_u, *hyper_hp)] if hyper
@@ -240,15 +350,15 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
         err = fn(ptr(data), *map(ptr, (P, E, A, Mhat, acc_P, acc_E)),
                  *map(ptr, (Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E)),
                  *map(ptr, (hp0_p, hp1_p, hp0_e, hp1_e)), ptr(rank_pack),
-                 *hu_ptrs, int(hyper),
-                 *map(ptr, outs[:5]), ptr(nan), *map(ptr, outs[5:]),
+                 *hu_ptrs, int(hyper), PRIORS[prior_kind], int(exact_mh),
+                 RANK_METHODS[rank_method], sbfi_penalty(K, G),
+                 *map(ptr, outs), ptr(R), ptr(nan), *map(ptr, hps),
                  C, K, N, G, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_gibbs_sweeps kernel launch failed: "
                            f"cudaError {err}")
     fused_gibbs_sweeps.launches += 1
-    P_o, E_o, Mh_o, aP_o, aE_o, hp0p_o, hp1p_o, hp0e_o, hp1e_o = outs
-    return P_o, E_o, Mh_o, aP_o, aE_o, nan, hp0p_o, hp1p_o, hp0e_o, hp1e_o
+    return (*outs, R, nan, *hps)
 
 
 # ---------------------------------------------------------------------------
@@ -277,28 +387,38 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
                        hp0_p, hp1_p, hp0_e, hp1_e, rank_pack,
                        prior_kind: str, exact_mh: bool, accept_all,
                        rank_method, hyper_u=None, hyper_hp=None):
-    """Run the Gibbs iteration core (hyper-sweep, P sweep, E sweep).
+    """Run the Gibbs iteration core (hyper-sweep, P sweep, E sweep, and with
+    ``rank_method`` 'SBFI'/'BFI' the R draw and the A sweep).
 
     Arguments mirror bayesnmf_tpu.ops.pallas_sweeps.fused_gibbs_sweeps:
     prior-fallback uniforms (Upr_*), proposal and acceptance uniforms (Up_*,
-    Ua_*), the (Mu, Sigmasq) prior pair per side, ``rank_pack`` (3, N+1)
-    whose [0, 0] entry is returned as R, the warmup flag ``accept_all``, and
-    the optional hyper-sweep planes ``hyper_u``/``hyper_hp``
-    ((4,K,N), (4,N,G)) of uniforms and hyperpriors [m, s, a, b].
+    Ua_*), the prior pair per side ((Mu, Sigmasq) for the truncnormal prior,
+    (Lambda, unused) for the exponential one), ``rank_pack`` (3, N+1): row 0
+    [temperature, ...], row 1 the Gumbel noise of the R draw, row 2 the A
+    draws' uniforms; the warmup flag ``accept_all``, and the optional
+    hyper-sweep planes ``hyper_u``/``hyper_hp`` ((4,K,N), (4,N,G)) of
+    uniforms and hyperpriors [m, s, a, b] (truncnormal prior only).
 
-    Returns (P, E, Mhat, acc_P, acc_E, A, R_float, nan_count, Mu_p',
-    Sigmasq_p', Mu_e', Sigmasq_e'), each with the leading chain axis when
-    the inputs had one. A comes back as given (the rank is fixed); the
-    others are new tensors, and no input is modified.
+    Returns (P, E, Mhat, acc_P, acc_E, A, R_float, nan_count, hp0_p',
+    hp1_p', hp0_e', hp1_e'), each with the leading chain axis when the
+    inputs had one. At a fixed rank A comes back as given and R is
+    rank_pack[0, 0]. The outputs are new tensors; no input is modified.
     """
-    if prior_kind != "truncnormal":
-        raise NotImplementedError(_NOT_PORTED.format(f"{prior_kind!r} prior"))
-    if not exact_mh:
-        raise NotImplementedError(_NOT_PORTED.format("exact_mh=False"))
-    if rank_method is not None:
-        raise NotImplementedError(_NOT_PORTED.format("rank R/A"))
+    if prior_kind not in PRIORS:
+        raise NotImplementedError(
+            f"fused_gibbs_sweeps: the {prior_kind!r} prior is not ported "
+            "(ROADMAP.md queue 1 item 12)")
+    if rank_method not in RANK_METHODS:
+        raise NotImplementedError(
+            f"fused_gibbs_sweeps: rank_method={rank_method!r} is not ported "
+            "(ROADMAP.md queue 1 item 7)")
     if (hyper_u is None) != (hyper_hp is None):
         raise ValueError("hyper_u and hyper_hp go together")
+    if hyper_u is not None and prior_kind != "truncnormal":
+        raise NotImplementedError(
+            "fused_gibbs_sweeps: the in-kernel hyper-sweep is the truncnormal "
+            "prior's; the exponential prior's Lambda update runs outside the "
+            "kernel (models/updates.sample_prior_params)")
 
     batched = P.dim() == 3
     b = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
@@ -336,21 +456,17 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
     else:  # fill_, not item assignment, which would wait for the device
         rank_pack[:, 0, 1].fill_(float(accept_all))
 
+    args = (data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
+            Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e, rank_pack)
     if dev.type == "cpu":
-        out = fused_gibbs_sweeps_reference(
-            data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
-            Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e, rank_pack[:, 0, 1] > 0.0,
-            hyper_u, hyper_hp)
+        res = fused_gibbs_sweeps_reference(
+            *args, prior_kind=prior_kind, exact_mh=exact_mh,
+            rank_method=rank_method, hyper_u=hyper_u, hyper_hp=hyper_hp)
     elif dev.type == "cuda":
-        out = _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P,
-                      Ua_P, Up_E, Ua_E, hp0_p, hp1_p, hp0_e, hp1_e,
-                      rank_pack, hyper_u, hyper_hp)
+        res = _launch(*args, prior_kind, exact_mh, rank_method, hyper_u,
+                      hyper_hp)
     else:
         raise ValueError(f"fused_gibbs_sweeps: no path for device {dev}")
-
-    P_o, E_o, Mh_o, aP_o, aE_o, nan, hp0p_o, hp1p_o, hp0e_o, hp1e_o = out
-    res = (P_o, E_o, Mh_o, aP_o, aE_o, A, rank_pack[:, 0, 0], nan,
-           hp0p_o, hp1p_o, hp0e_o, hp1e_o)
     if not batched:
         res = tuple(t[0] for t in res)
     return res

@@ -1,7 +1,7 @@
 """Model math: expected data matrix, likelihood, priors, metrics.
 
-Port of the subset of bayesnmf_tpu/ops/math.py that the fixed-rank
-Poisson + TruncNormal path uses. Conventions as in the reference: data M is
+Port of the subset of bayesnmf_tpu/ops/math.py that the Poisson paths with
+the TruncNormal or the exponential prior use. Conventions as in the reference: data M is
 (K, G); P is (K, N) signatures; E is (N, G) exposures; A is (N,) binary
 inclusion. Everything is float32.
 """
@@ -16,6 +16,14 @@ import torch
 # (utils.R:100)
 MHAT_FLOOR = 1e-6
 _HALF_LOG_2PI = 0.9189385332046727
+
+
+def const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on ``like``'s device. Dividing by it, or into it,
+    is a true division on every device, as in JAX: PyTorch multiplies by a
+    reciprocal when the divisor (on CUDA) or the dividend (everywhere) is a
+    Python number, which can round differently."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def mhat(P: torch.Tensor, A: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
@@ -56,14 +64,27 @@ def truncnorm_logpdf_delta(x_new, x_old, mu, sigmasq):
     return -0.5 * (zn * zn - zo * zo) / sigmasq
 
 
+def exponential_logpdf(x, rate):
+    """log pdf of Exponential(rate) (math.py:113-114)."""
+    return torch.where(x >= 0, torch.log(rate) - rate * x,
+                       torch.full_like(x, -math.inf))
+
+
 def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
     """Sum of the prior log-pdfs of P and E (utils.R:131-175). With a
     leading chain axis on every operand, one sum per chain."""
-    if prior != "truncnormal":
+    if prior == "truncnormal":
+        lp = truncnorm_logpdf(P, prior_params["Mu_p"],
+                              prior_params["Sigmasq_p"])
+        le = truncnorm_logpdf(E, prior_params["Mu_e"],
+                              prior_params["Sigmasq_e"])
+    elif prior == "exponential":
+        lp = exponential_logpdf(P, prior_params["Lambda_p"])
+        le = exponential_logpdf(E, prior_params["Lambda_e"])
+    else:
         raise NotImplementedError(
-            f"logprior_PE: the {prior!r} prior is not ported (ROADMAP.md)")
-    lp = truncnorm_logpdf(P, prior_params["Mu_p"], prior_params["Sigmasq_p"])
-    le = truncnorm_logpdf(E, prior_params["Mu_e"], prior_params["Sigmasq_e"])
+            f"logprior_PE: the {prior!r} prior is not ported (ROADMAP.md "
+            "queue 1 item 12)")
     return lp.sum((-2, -1)) + le.sum((-2, -1))
 
 

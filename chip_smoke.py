@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the kernels from bayesnmf_tpu_torch/csrc (one nvcc per source,
    all started together);
 3. the fused-sweep kernel against its plain PyTorch version on the card, on
-   the same inputs and uniforms, at (K,N,G) = (96,8,500), (96,8,2780),
+   the same inputs and uniforms (truncnormal prior, fixed rank), at (K,N,G) = (96,8,500), (96,8,2780),
    (7,2,37) and a 4-chain batch at (96,8,500), each with accept_all True
    and False, and two options the main path does not take (an excluded
    column A_n = 0; no hyper-sweep): every output within rtol 1e-4 /
@@ -26,6 +26,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, the metrics are finite, the kernel ran once per iteration, the MAP
    signatures match the true ones (Hungarian-matched cosine >= 0.95), and
    the final checkpoint resumes bit-exactly;
+3c. the fused kernel's branches of the third slice against its plain
+   version: SBFI and BFI rank learning at (96,20,1000) at temperatures 1e-4
+   and 1, a 4-chain batch at (7,3,37) with rank learning and mixed warmup
+   flags, the exponential prior at (96,5,100) and (96,8,500) with an
+   all-zero E row, exact_mh=False at (96,8,500): every output within
+   rtol 1e-4 / atol 1e-5, A, R and every decision equal, two launches
+   bit-identical; timed at (96,20,1000) with and without the rank branch;
+3d. the allocation kernel against its plain version at (96,5,100),
+   (96,20,10000), (96,8,2780), (7,3,37), (16,5,40) with A_3 = 0 and a zero
+   M cell, and 4 chains at (96,8,500), in both modes: with uniform planes,
+   and in Philox mode against the plain version on the planes
+   ``philox_planes`` builds for the same seed; Zsum_g and Zsum_k equal, two
+   launches bit-identical; in Philox mode also 200 draws that conserve the
+   counts, give an excluded component 0 and integers, and whose mean lies
+   within 6 SD of the multinomial mean in every cell, and seeds that repeat
+   and differ; timed at (96,5,100), (96,20,10000) and (96,8,2780);
+4. the fixed-rank slice: ``bayesnmf_tpu_torch.fit`` on a 96x500 rank-8
+   synthetic catalogue on the card, checking that the state stayed on the
+   card, the metrics are finite, the kernel ran once per iteration, the MAP
+   signatures match the true ones (Hungarian-matched cosine >= 0.95), and
+   the final checkpoint resumes bit-exactly;
 5. the ensemble slice: ``ChainEnsemble`` with SBFI over ranks 1..20, 8
    chains, on a 96x10000 rank-8 synthetic catalogue, through the streaming
    kernels: every metrics row finite, each stream kernel launched its
@@ -33,7 +54,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    resumes bit-exactly for 20 iterations; it prints the iterations, the
    chain-it/s of the run and of the chunk loop alone, each chain's learned
    rank and matched cosine, and the loop's device busy share
-   (torch.profiler).
+   (torch.profiler);
+6. rank learning: ``fit`` on a 96x1000 rank-8 catalogue over ranks 1..20
+   by SBFI: metrics finite, the fused kernel launched once per iteration
+   and no other kernel, the rank moved while tempering, the best-matched
+   MAP columns cosine >= 0.9, bit-exact resume; learned rank, fit and loop
+   it/s;
+7. BASELINE config 1 (96x100, rank 5, Poisson-Exponential) with MH and
+   conjugate (MH=False): matched cosine >= 0.9, bit-exact resume, the
+   allocation kernel launched iterations + 1 times; then the conjugate
+   chunk loop at 96x2780, rank 8 (config 4's shape): it/s, device busy
+   share and the host waits of the gamma draws (torch.profiler).
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -125,66 +156,167 @@ def sweep_inputs(K, N, G, C, seed, A=None):
     return d
 
 
+def plain_sweeps(FS, t, C, accept_all, hyper=True, **kw):
+    """The fused sweep's plain version on the card tensors ``t`` of
+    sweep_inputs, with the warmup flag in the rank pack as the wrapper puts
+    it; outputs in the wrapper's order, without the chain axis at C = 1."""
+    bt = (lambda x: x) if C > 1 else (lambda x: x.unsqueeze(0))
+    rp = bt(t["rank_pack"]).clone()
+    rp[:, 0, 1] = (accept_all.float() if hasattr(accept_all, "float")
+                   else float(accept_all))
+    extra = {}
+    if hyper:
+        extra = dict(hyper_u=(bt(t["Hu_p"]), bt(t["Hu_e"])),
+                     hyper_hp=(t["Hhp_p"], t["Hhp_e"]))
+    out = FS.fused_gibbs_sweeps_reference(
+        t["data"], *(bt(t[k]) for k in _ARGS[1:17]), rp, **kw, **extra)
+    return out if C > 1 else tuple(x[0] for x in out)
+
+
+_OUT_NAMES = ("P", "E", "Mhat", "acc_P", "acc_E", "A", "R", "nan", "hp0_p",
+              "hp1_p", "hp0_e", "hp1_e")
+
+
+def check_sweep_case(torch, FS, t, C, case, accept_all, hyper=True, **kw):
+    """One fused-sweep case on the card: two kernel launches bit-identical,
+    every output within RTOL/ATOL of the plain version, A, R and every
+    accept decision equal. Returns (max abs diff, kernel fn, plain fn)."""
+    args = [t[k] for k in _ARGS]
+    hk = {}
+    if hyper:
+        hk = dict(hyper_u=(t["Hu_p"], t["Hu_e"]),
+                  hyper_hp=(t["Hhp_p"], t["Hhp_e"]))
+    kw = dict(prior_kind="truncnormal", exact_mh=True, rank_method=None) | kw
+
+    def kernel():
+        return FS.fused_gibbs_sweeps(*args, accept_all=accept_all, **kw,
+                                     **hk)
+
+    def plain():
+        return plain_sweeps(FS, t, C, accept_all, hyper, **kw)
+
+    k1, k2 = kernel(), kernel()
+    p = plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"two launches differ at {case}")
+    errs = {}
+    for name, a, b in zip(_OUT_NAMES, k1, p):
+        errs[name] = float((a - b).abs().max()) if a.numel() else 0.0
+        check(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
+              f"{name} differs at {case} accept_all={accept_all}: max abs "
+              f"{errs[name]}")
+    for i, name in ((0, "P"), (1, "E")):
+        check(torch.equal(k1[i] != args[i + 1], p[i] != args[i + 1]),
+              f"{name} accept decisions differ at {case}")
+    check(torch.equal(k1[5], p[5]) and torch.equal(k1[6], p[6]),
+          f"A or R differ at {case}")
+    worst = max(errs.values())
+    print(f"kernel vs plain {case} accept_all={accept_all}: max abs diff "
+          f"{worst:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}"
+          "); A, R and decisions equal; two launches bit-identical",
+          flush=True)
+    return worst, kernel, plain
+
+
+def to_card(torch, d):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+            for k, v in d.items()}
+
+
 def compare_kernel(torch, FS):
     """Phase 3. Returns (max_abs_err, {shape: (kernel_ms, plain_ms)})."""
-    dev = torch.device("cuda")
     max_err = 0.0
     times = {}
     for (K, N, G, C, A, hyper) in KERNEL_CASES:
-        d = sweep_inputs(K, N, G, C, seed=K + N + G + C, A=A)
-        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-             for k, v in d.items()}
-        args = [t[k] for k in _ARGS]
-        hyper_u, hyper_hp = (t["Hu_p"], t["Hu_e"]), (t["Hhp_p"], t["Hhp_e"])
-        bt = (lambda x: x) if C > 1 else (lambda x: x.unsqueeze(0))
-        if not hyper:
-            hyper_u = hyper_hp = None
+        t = to_card(torch, sweep_inputs(K, N, G, C, seed=K + N + G + C, A=A))
         case = f"(K,N,G,C)={(K, N, G, C)}" + (f" A={A}" if A else "") + (
             "" if hyper else " no hyper-sweep")
         for accept_all in (True, False):
-            def kernel():
-                return FS.fused_gibbs_sweeps(
-                    *args, prior_kind="truncnormal", exact_mh=True,
-                    accept_all=accept_all, rank_method=None,
-                    hyper_u=hyper_u, hyper_hp=hyper_hp)
-
-            flag = torch.full((C,), accept_all, device=dev)
-
-            def plain():
-                return FS.fused_gibbs_sweeps_reference(
-                    *map(bt, args[:17]), flag,
-                    hyper_u and tuple(map(bt, hyper_u)),
-                    hyper_hp and tuple(map(bt, hyper_hp)))
-
-            k1, k2 = kernel(), kernel()
-            p = plain()
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
-                  f"two launches differ at {case}")
-            # the wrapper's 12 outputs minus A and R, in the plain order
-            k_out = [k1[i] for i in (0, 1, 2, 3, 4, 7, 8, 9, 10, 11)]
-            names = ("P", "E", "Mhat", "acc_P", "acc_E", "nan", "Mu_p",
-                     "Sigmasq_p", "Mu_e", "Sigmasq_e")
-            errs = {}
-            for name, a, b in zip(names, k_out, p):
-                b = b if C > 1 else b[0]
-                errs[name] = float((a - b).abs().max())
-                check(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
-                      f"{name} differs at {case} accept_all={accept_all}: "
-                      f"max abs {errs[name]}")
-            for i, name in ((0, "P"), (1, "E")):
-                ref = p[i] if C > 1 else p[i][0]
-                check(torch.equal(k1[i] != args[i + 1], ref != args[i + 1]),
-                      f"{name} accept decisions differ at {case}")
-            worst = max(errs.values())
+            worst, kernel, plain = check_sweep_case(torch, FS, t, C, case,
+                                                    accept_all, hyper)
             max_err = max(max_err, worst)
-            print(f"kernel vs plain {case} accept_all={accept_all}: max "
-                  f"abs diff {worst:.3e} "
-                  f"({', '.join(f'{k} {v:.1e}' for k, v in errs.items())})"
-                  "; two launches bit-identical", flush=True)
             if (K, N, G, C) in TIMED_SHAPES and hyper and not accept_all:
                 times[(K, N, G)] = (time_ms(torch, kernel, 50),
                                     time_ms(torch, plain, 5))
+    return max_err, times
+
+
+# (K, N, G, chains, options, temperatures): phase 3c, kernel 1's branches
+# ported in this slice
+BRANCH_CASES = [
+    (96, 20, 1000, 1, dict(rank_method="SBFI"), (1e-4, 1.0)),
+    (96, 20, 1000, 1, dict(rank_method="BFI"), (1e-4, 1.0)),
+    (7, 3, 37, 4, dict(rank_method="SBFI"), (1e-4, 1.0)),
+    (96, 5, 100, 1, dict(prior_kind="exponential"), (None,)),
+    (96, 8, 500, 1, dict(prior_kind="exponential"), (None,)),
+    (96, 8, 500, 1, dict(exact_mh=False), (None,)),
+]
+RANK_TIMED = (96, 20, 1000)
+
+
+def branch_inputs(K, N, G, C, seed, kw, temp):
+    """sweep_inputs with a mixed starting A and the rank pack of a
+    rank-learning step; for the exponential prior Lambda in hp0, ones in
+    hp1 and one all-zero E row (an inactive P column)."""
+    rng = np.random.default_rng(seed + 1000)
+    A = (rng.uniform(size=N) < 0.6).astype(np.float32) if "rank_method" in kw \
+        else None
+    d = sweep_inputs(K, N, G, C, seed, A=A)
+    lead = (C,) if C > 1 else ()
+    if temp is not None:
+        rp = np.zeros(lead + (3, N + 1), np.float32)
+        rp[..., 0, 0] = temp
+        rp[..., 1, :] = -np.log(-np.log(rng.uniform(1e-6, 1.0,
+                                                    lead + (N + 1,))))
+        rp[..., 2, :N] = rng.uniform(1e-6, 1.0, lead + (N,))
+        d["rank_pack"] = rp.astype(np.float32)
+    if kw.get("prior_kind") == "exponential":
+        d["hp0_p"] = rng.gamma(2.0, 0.5, d["hp0_p"].shape).astype(np.float32)
+        d["hp0_e"] = rng.gamma(2.0, 0.5, d["hp0_e"].shape).astype(np.float32)
+        d["hp1_p"] = np.ones_like(d["hp1_p"])
+        d["hp1_e"] = np.ones_like(d["hp1_e"])
+        d["E"][..., 1, :] = 0.0
+        d["Mhat"] = np.einsum("...kn,...n,...ng->...kg", d["P"], d["A"],
+                              d["E"]).astype(np.float32)
+    return d
+
+
+def compare_branches(torch, FS, card):
+    """Phase 3c. Returns (max_abs_err, {label: (kernel_ms, plain_ms)}) with
+    the times at RANK_TIMED with and without the rank branch."""
+    max_err = 0.0
+    times = {}
+    for (K, N, G, C, kw, temps) in BRANCH_CASES:
+        for temp in temps:
+            d = branch_inputs(K, N, G, C, K + N + G + C, kw, temp)
+            t = to_card(torch, d)
+            hyper = kw.get("prior_kind") != "exponential"
+            case = (f"(K,N,G,C)={(K, N, G, C)} "
+                    + " ".join(f"{k}={v}" for k, v in kw.items())
+                    + ("" if temp is None else f" temp={temp}"))
+            flags = (torch.tensor([True, False, True, False], device="cuda")
+                     if C > 1 else None)
+            for accept_all in ((flags,) if C > 1 else (True, False)):
+                worst, kernel, plain = check_sweep_case(
+                    torch, FS, t, C, case, accept_all, hyper, **kw)
+                max_err = max(max_err, worst)
+            if (K, N, G) == RANK_TIMED and kw.get("rank_method") == "SBFI" \
+                    and temp == 1.0:
+                times["rank"] = (time_ms(torch, kernel, 20),
+                                 time_ms(torch, plain, 3))
+                fixed = dict(kw, rank_method=None)
+                _, kernel0, plain0 = check_sweep_case(
+                    torch, FS, t, C, case + " (fixed rank)", False, hyper,
+                    **fixed)
+                times["fixed"] = (time_ms(torch, kernel0, 20),
+                                  time_ms(torch, plain0, 3))
+    for label, (k_ms, p_ms) in times.items():
+        b_ms, b_by = fused_bound(*RANK_TIMED, rank=label == "rank")
+        print(f"time per call at (K,N,G)={RANK_TIMED} "
+              f"{'with' if label == 'rank' else 'without'} the rank branch: "
+              f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), on {card}", flush=True)
     return max_err, times
 
 
@@ -277,7 +409,6 @@ def run_slice(torch, bt, FS, gibbs, card):
     hot = len(temps) / (time.perf_counter() - t0)
     print(f"slice: {hot:.1f} it/s in the Gibbs chunk loop alone "
           f"(500 iterations) on " + card, flush=True)
-    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -299,17 +430,47 @@ def bound(n_bytes, n_ops):
             "bytes" if t_mem >= t_ops else "operations")
 
 
-def fused_bound(K, N, G, C=1):
+def fused_bound(K, N, G, C=1, rank=False):
     """The fused sweep (csrc/fused_sweeps.cu) at one call: bytes of its 22
     inputs and 12 outputs; operations of the hyper-sweep (~60 a parameter)
     and of the 2N column updates, each two passes over K*G entries of about
-    8 and 20 operations and a rank-1 update of 2."""
+    8 and 20 operations and a rank-1 update of 2; with the rank branch N
+    inclusion updates, each a pass of 8 operations and a rewrite of 4 over
+    K*G entries."""
     kn, ng, kg = K * N, N * G, K * G
     n_in = kg + kn + ng + N + C * kg + 2 * kn + 2 * ng + 3 * kn + 3 * ng \
         + 2 * kn + 2 * ng + 3 * (N + 1) + 4 * (kn + ng) + 4 * (kn + ng)
-    n_out = 2 * kn + 2 * ng + kg + 1 + 2 * kn + 2 * ng
+    n_out = 2 * kn + 2 * ng + kg + N + 2 + 2 * kn + 2 * ng
     ops = 60 * (kn + ng) + 2 * N * kg * (8 + 20 + 2)
+    if rank:
+        ops += N * kg * (8 + 4)
     return bound(4 * C * (n_in + n_out), C * ops)
+
+
+# operations of one conditional-binomial split (csrc/allocation.cu): the
+# inversion's set-up and 7 a step; BTRS's set-up with two Stirling lgammas
+# and one round with two more, at ~36 a lgamma
+INV_SETUP, INV_STEP, BTRS_OPS = 12, 7, 206
+
+
+def alloc_bound(K, N, G, C, splits, planes):
+    """The allocation (csrc/allocation.cu) at one call: bytes of M, P, A, E
+    (and the uniform planes in planes mode) read once and of Zsum_g, Zsum_k
+    written once; operations of the splits this run's draws need, counted
+    on the plain version by ``count_splits`` (an inversion at the steps its
+    drawn value needs, a BTRS split at one round; the Philox mode's own
+    uniform generation is not counted)."""
+    n_inv, inv_steps, n_btrs = splits
+    n_in = K * G + C * (K * N + N + N * G)
+    if planes:
+        n_in += C * 17 * (n_leaves(N) - 1) * K * G
+    n_out = C * (K * N + N * G)
+    return bound(4 * (n_in + n_out),
+                 n_inv * INV_SETUP + inv_steps * INV_STEP + n_btrs * BTRS_OPS)
+
+
+def n_leaves(N):
+    return 1 << max(int(np.ceil(np.log2(max(N, 1)))), 0)
 
 
 # operations per (chain, k, g) element of each stream kernel beyond the
@@ -451,6 +612,179 @@ def compare_stream_kernels(torch, S, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the allocation kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (K, N, G, C, excluded components, zero M cells)
+ALLOC_CASES = [(96, 5, 100, 1, (), ()), (96, 20, 10000, 1, (), ()),
+               (96, 8, 2780, 1, (), ()), (7, 3, 37, 1, (), ()),
+               (16, 5, 40, 1, (3,), ((0, 0),)), (96, 8, 500, 4, (2,), ())]
+ALLOC_TIMED = [(96, 5, 100), (96, 20, 10000), (96, 8, 2780)]
+
+
+def alloc_inputs(K, N, G, C, seed, excluded=(), zero_cells=()):
+    """Operands of one allocation as the conjugate step hands them over:
+    M (K, G) shared, per-chain P, A, E, and the uniform planes."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    lead = (C,) if C > 1 else ()
+    P = rng.dirichlet(np.ones(K) * 0.5, lead + (N,)).astype(f)
+    P = np.swapaxes(P, -1, -2) * 50.0
+    E = rng.gamma(2.0, 2.0, lead + (N, G)).astype(f)
+    A = np.ones(lead + (N,), f)
+    A[..., list(excluded)] = 0.0
+    Mh = np.einsum("...kn,...n,...ng->...kg", P, A, E)
+    M = rng.poisson(Mh if C == 1 else Mh[0]).astype(f)
+    for k, g in zero_cells:
+        M[k, g] = 0.0
+    n2 = n_leaves(N)
+    u = rng.uniform(1e-7, 1.0, lead + (17, max(n2 - 1, 1), K, G)).astype(f)
+    return dict(M=M, P=P.astype(f), A=A, E=E, u=u)
+
+
+def count_splits(AL, torch, plain):
+    """Run the plain version once with its binomial wrapped, counting the
+    work this run's draws need: (inversion splits, their steps, BTRS
+    splits). The CDF only rises and the pmf is 0 past n, so an inversion
+    that drew x is settled after min(x + 1, n + 1, 40) steps."""
+    counts = [0, 0, 0]
+    binomial = AL._binomial
+
+    def counted(n, p, planes):
+        y = binomial(n, p, planes)
+        live = n > 0
+        small = n * torch.minimum(p, 1.0 - p) <= 10.0
+        x = torch.where(p > 0.5, n - y, y)
+        steps = torch.minimum(x + 1.0, n + 1.0).clamp(max=40.0)
+        inv = live & small
+        counts[0] += int(inv.sum())
+        counts[1] += int(torch.where(inv, steps, 0.0).sum(
+            dtype=torch.float64))
+        counts[2] += int((live & ~small).sum())
+        return y
+
+    AL._binomial = counted
+    try:
+        plain()
+    finally:
+        AL._binomial = binomial
+    return counts
+
+
+def compare_allocation(torch, AL, card):
+    """Phase 3d. Returns dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by) of the Philox mode at (96, 5, 100), printing every case."""
+    res = {"max_abs_err": 0.0}
+    for (K, N, G, C, excl, zeros) in ALLOC_CASES:
+        t = to_card(torch, alloc_inputs(K, N, G, C, K + N + G + C, excl,
+                                        zeros))
+        case = f"(K,N,G,C)={(K, N, G, C)}" + (
+            f" excluded={excl}" if excl else "") + (
+            f" zero cells={zeros}" if zeros else "")
+        args = (t["M"], t["P"], t["A"], t["E"])
+        seed = torch.tensor([K * G + N + C], dtype=torch.int64, device="cuda")
+        b = (lambda x: x) if C > 1 else (lambda x: x.unsqueeze(0))
+        unb = (lambda out: out) if C > 1 else (
+            lambda out: tuple(x[0] for x in out))
+        modes = {
+            "planes": (lambda: AL.allocate_counts(*args, u=t["u"]),
+                       lambda: unb(AL.allocate_counts_reference(
+                           args[0], *map(b, args[1:]), b(t["u"])))),
+            "Philox": (lambda: AL.allocate_counts(*args, seed=seed),
+                       lambda: unb(AL.allocate_counts_reference(
+                           args[0], *map(b, args[1:]),
+                           AL.philox_planes(seed, C, N, K, G))))}
+        for mode, (kernel, plain) in modes.items():
+            k1, k2 = kernel(), kernel()
+            p = plain()
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(k1, k2)),
+                  f"allocation ({mode}): two launches differ at {case}")
+            errs = []
+            for name, x, y in zip(("Zsum_g", "Zsum_k"), k1, p):
+                errs.append(float((x - y).abs().max()))
+                check(torch.equal(x, y), f"allocation ({mode}) {name} "
+                      f"differs from the plain version at {case}: max abs "
+                      f"{errs[-1]}")
+            res["max_abs_err"] = max(res["max_abs_err"], *errs)
+            zk = k1[1]
+            check(torch.equal(zk.sum(-2),
+                              t["M"].sum(0).expand_as(zk.sum(-2))),
+                  f"allocation ({mode}) does not conserve the counts at "
+                  f"{case}")
+            print(f"allocation kernel vs plain ({mode}) {case}: Zsum_g and "
+                  f"Zsum_k equal (max abs {max(errs)}); two launches "
+                  "bit-identical", flush=True)
+
+        if (K, N, G) in ALLOC_TIMED:
+            (k_prng, p_prng), (k_planes, p_planes) = (modes["Philox"],
+                                                      modes["planes"])
+            ms_prng = time_ms(torch, k_prng, 20)
+            ms_planes = time_ms(torch, k_planes, 20)
+            p_ms = time_ms(torch, p_prng, 2)
+            s_prng = count_splits(AL, torch, p_prng)
+            s_planes = count_splits(AL, torch, p_planes)
+            b_ms, b_by = alloc_bound(K, N, G, C, s_prng, False)
+            bp_ms, bp_by = alloc_bound(K, N, G, C, s_planes, True)
+            print(f"time per call allocate_counts at (K,N,G)={(K, N, G)}: "
+                  f"kernel {ms_prng:.4f} ms (Philox), {ms_planes:.4f} ms "
+                  f"(planes), plain PyTorch {p_ms:.4f} ms (Philox planes); "
+                  f"bound {b_ms:.6f} ms ({b_by}) for {s_prng[0]} inversion "
+                  f"splits of {s_prng[1]} steps and {s_prng[2]} BTRS "
+                  f"splits; planes mode bound {bp_ms:.6f} ms ({bp_by}) for "
+                  f"{s_planes[0]} inversions of {s_planes[1]} steps and "
+                  f"{s_planes[2]} BTRS; on {card}", flush=True)
+            if (K, N, G) == ALLOC_TIMED[0]:
+                res |= dict(ms=ms_prng, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+
+    # Philox mode: conservation, exclusion, integers, the multinomial mean,
+    # seeds
+    d = alloc_inputs(16, 5, 40, 1, 0, (3,), ((0, 0),))
+    d["M"] = np.random.default_rng(1).poisson(30.0, (16, 40)).astype(
+        np.float32)
+    d["M"][0, 0] = 0.0
+    t = to_card(torch, d)
+    args = (t["M"], t["P"], t["A"], t["E"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    S = 200
+    zks = []
+    for _ in range(S):
+        zg, zk = AL.allocate_counts(*args, gen=gen)
+        check(torch.equal(zk.sum(0), t["M"].sum(0))
+              and torch.equal(zg.sum(1), t["M"].sum(1)),
+              "allocation (Philox) does not conserve the counts")
+        check(float(zg[:, 3].abs().sum()) == 0.0
+              and float(zk[3].abs().sum()) == 0.0,
+              "allocation (Philox) gave counts to an excluded component")
+        check(torch.equal(zk, zk.round()) and torch.equal(zg, zg.round()),
+              "allocation (Philox) counts are not integers")
+        zks.append(zk.cpu().numpy())
+    zks = np.stack(zks)
+    M, P, A, E = d["M"], d["P"], d["A"], d["E"]
+    W = P[:, :, None] * A[None, :, None] * E[None, :, :]
+    probs = W / np.maximum(W.sum(1, keepdims=True), 1e-30)
+    expect = (M[:, None, :] * probs).sum(0)
+    sd = np.sqrt(np.maximum((M[:, None, :] * probs * (1 - probs)).sum(0),
+                            1e-9) / S)
+    dev_sd = float((np.abs(zks.mean(0) - expect) / sd).max())
+    check(dev_sd < 6.0, f"allocation (Philox) mean {dev_sd:.2f} of a cell's "
+          "SD off the multinomial mean")
+    s1 = torch.tensor([12345], dtype=torch.int64, device="cuda")
+    s2 = torch.tensor([12346], dtype=torch.int64, device="cuda")
+    a1, a2, b1 = (AL.allocate_counts(*args, seed=s)[1] for s in (s1, s1, s2))
+    check(torch.equal(a1, a2), "allocation (Philox): one seed, other bits")
+    check(not torch.equal(a1, b1), "allocation (Philox): two seeds, one draw")
+    print(f"allocation kernel (Philox) at (16,5,40) with A_3 = 0 and a zero "
+          f"cell: {S} draws conserve the counts, give the excluded component "
+          f"0 and integers; mean within {dev_sd:.2f} of each cell's SD of the "
+          "multinomial mean; one seed gives the same bits, another seed other bits",
+          flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the ensemble slice
 # ---------------------------------------------------------------------------
 
@@ -587,6 +921,198 @@ def run_ensemble(torch, bt, S, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: rank learning, the exponential prior, conjugate Gibbs
+# ---------------------------------------------------------------------------
+
+
+def synthetic(K, G, rank, seed=0):
+    """The synthetic recipe of phase 4: P ~ Dirichlet(0.3), E ~ Gamma(2, 500),
+    M ~ Poisson."""
+    rng = np.random.default_rng(seed)
+    P_true = rng.dirichlet(np.ones(K) * 0.3, rank).T
+    E_true = rng.gamma(2.0, 500.0, (rank, G))
+    return rng.poisson(P_true @ E_true).astype(np.float32), P_true
+
+
+def resume_check(torch, bt, gibbs, s, label):
+    """The final checkpoint resumes bit-exactly for 20 iterations."""
+    resumed = bt.GibbsSampler.load(os.path.join(s.output_dir,
+                                                "sampler.ckpt"))
+    ends = [gibbs.run_chunk(x.spec, x.data, x.hyperprior_params, x.state,
+                            np.ones(20, np.float32), False)[0]
+            for x in (s, resumed)]
+    check(all(torch.equal(ends[0][g][k], ends[1][g][k])
+              for g in ("params", "prior") for k in ends[0][g]),
+          f"{label}: a resumed checkpoint drew other samples")
+    print(f"{label}: resumed from the final checkpoint, 20 more iterations "
+          "equal the original chain's bit for bit", flush=True)
+
+
+def loop_rate(torch, gibbs, s, n):
+    """Iterations per second of the chunk loop alone, from the fit's final
+    state (after 20 of warm-up)."""
+    temps = np.ones(n, np.float32)
+    state = gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, s.state,
+                            temps[:20], False)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, state, temps, False)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0), state
+
+
+def reset_counts(FS, S, AL):
+    FS.fused_gibbs_sweeps.launches = 0
+    S.reset_launch_counts()
+    AL.allocate_counts.launches = 0
+
+
+def other_launches(S, AL):
+    return (S._run.launches + S.acol_delta.launches
+            + S.chain_metrics.launches + AL.allocate_counts.launches)
+
+
+RANK_K, RANK_G, RANK_TRUE, RANK_MAX = 96, 1000, 8, 20
+RANK_CC = dict(MAP_over=500, MAP_every=100, miniters=1000, maxiters=2000,
+               Ninarow_nochange=3, Ninarow_nobest=5)
+
+
+def run_rank_learning(torch, bt, FS, S, AL, gibbs, card):
+    """Phase 6: SBFI over ranks 1..20 on a 96x1000 rank-8 catalogue."""
+    M, P_true = synthetic(RANK_K, RANK_G, RANK_TRUE)
+    cc = bt.ConvergenceControl(**RANK_CC)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(FS, S, AL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = bt.fit(M, range(1, RANK_MAX + 1), rank_method="SBFI",
+                   device="cuda", output_dir=os.path.join(tmp, "sbfi"),
+                   convergence_control=cc, prop_temp=0.3, post_warmup=300,
+                   seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = FS.fused_gibbs_sweeps.launches
+        others = other_launches(S, AL)
+        steps = s.iter - 1
+        resume_check(torch, bt, gibbs, s, "rank learning")
+    rows = np.concatenate(s._metric_rows)
+    check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
+          "rank learning: metrics are not finite")
+    check(launches == steps, f"rank learning: fused kernel launches "
+          f"{launches} != iterations run {steps}")
+    check(others == 0, f"rank learning: {others} other kernel launches")
+    rank_col = rows[:, gibbs.METRIC_NAMES.index("rank")]
+    tempering = s.temp_sched[1:s.iter + 1] < 1.0
+    check(len(np.unique(rank_col[tempering])) > 1,
+          "rank learning: the rank never moved while tempering")
+    learned = int(np.asarray(s.MAP["A_full"]).sum())
+    cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
+    check(cos.min() >= 0.9, f"rank learning: matched cosine too low: {cos}")
+    loop, _ = loop_rate(torch, gibbs, s, 300)
+    print(f"rank learning: fit(96x1000, ranks 1..20, SBFI) ran {steps} "
+          f"iterations, converged at {s.tracker.converged_iter} "
+          f"({s.tracker.why}); learned rank {learned} (true "
+          f"{RANK_TRUE}); rank during tempering {int(rank_col[0])}.."
+          f"{int(rank_col[tempering][-1])} over "
+          f"{len(np.unique(rank_col[tempering]))} values; fused kernel "
+          f"launches {launches} (= iterations), other kernels {others}; "
+          f"the {len(cos)} best-matched MAP columns cosine min "
+          f"{cos.min():.4f} mean {cos.mean():.4f}", flush=True)
+    print(f"rank learning: {steps / wall:.1f} it/s for the whole fit "
+          f"({wall:.2f} s), {loop:.1f} it/s in the chunk loop alone (300 "
+          f"iterations) on {card}", flush=True)
+    return launches
+
+
+CONFIG1_CC = dict(MAP_over=500, MAP_every=100, miniters=500, maxiters=1500,
+                  Ninarow_nochange=3, Ninarow_nobest=5)
+
+
+def run_exponential(torch, bt, FS, S, AL, gibbs, card):
+    """Phase 7: BASELINE config 1 (96x100, rank 5, Poisson-Exponential) with
+    MH (the fused kernel) and conjugate (the allocation kernel), then the
+    conjugate chunk loop at config 4's shape. Returns the allocation
+    launches of the conjugate fit."""
+    M, P_true = synthetic(96, 100, 5, seed=1)
+    cc = bt.ConvergenceControl(**CONFIG1_CC)
+    alloc_launches = None
+    for MH in (True, False):
+        label = f"exponential {'MH' if MH else 'conjugate'}"
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts(FS, S, AL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = bt.fit(M, 5, prior="exponential", MH=MH, device="cuda",
+                       output_dir=os.path.join(tmp, "fit"),
+                       convergence_control=cc, post_warmup=500, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fused, alloc = (FS.fused_gibbs_sweeps.launches,
+                            AL.allocate_counts.launches)
+            steps = s.iter - 1
+            resume_check(torch, bt, gibbs, s, label)
+        rows = np.concatenate(s._metric_rows)
+        check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
+              f"{label}: metrics are not finite")
+        if MH:
+            check(fused == steps and alloc == 0, f"{label}: launches fused "
+                  f"{fused}, allocation {alloc} for {steps} iterations")
+        else:
+            check(alloc == steps + 1 and fused == 0, f"{label}: launches "
+                  f"allocation {alloc}, fused {fused} for {steps} iterations "
+                  "(+1 at init)")
+            alloc_launches = alloc
+        cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
+        check(cos.min() >= 0.9, f"{label}: matched cosine too low: {cos}")
+        loop, _ = loop_rate(torch, gibbs, s, 500)
+        print(f"{label}: fit(96x100, rank 5) ran {steps} iterations "
+              f"({s.tracker.why}); launches fused {fused}, allocation "
+              f"{alloc}; MAP matched cosine min {cos.min():.4f} mean "
+              f"{cos.mean():.4f}; {steps / wall:.1f} it/s for the whole fit "
+              f"({wall:.2f} s), {loop:.1f} it/s in the chunk loop alone on "
+              f"{card}", flush=True)
+
+    # config 4's shape: the conjugate chunk loop at 96x2780, rank 8
+    M4, _ = synthetic(96, 2780, 8, seed=2)
+    s = bt.GibbsSampler(M4, 8, prior="exponential", MH=False, device="cuda",
+                        convergence_control=bt.ConvergenceControl(
+                            maxiters=600, miniters=0), seed=0)
+    rate, state = loop_rate(torch, gibbs, s, 500)
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, state,
+                        np.ones(n_prof, np.float32), False)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) for e in ka)
+    alloc_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ka
+                   if "alloc_kernel" in e.key or "reduce_zg" in e.key)
+    waits = [e for e in ka if e.key == "aten::_local_scalar_dense"]
+    n_waits = sum(e.count for e in waits)
+    wait_us = sum(e.cpu_time_total for e in waits)
+    print(f"conjugate loop at 96x2780, rank 8: {rate:.1f} it/s (500 "
+          f"iterations) on {card}", flush=True)
+    if dev_us > 0:
+        print(f"conjugate loop: profiled {n_prof} iterations: device busy "
+              f"{dev_us / 1e3:.2f} ms of {prof_s * 1e3:.1f} ms wall (share "
+              f"{dev_us / 1e6 / prof_s:.3f}); allocation kernel "
+              f"{alloc_us / 1e3:.2f} ms; {n_waits} host waits "
+              f"(aten::_local_scalar_dense, {n_waits / n_prof:.1f} per "
+              f"iteration, {wait_us / 1e3:.2f} ms of host time) on {card}",
+              flush=True)
+    else:
+        print("conjugate loop: torch.profiler recorded no device time; busy "
+              "share not measured", flush=True)
+    return alloc_launches
+
+
 def main() -> int:
     import torch
 
@@ -599,6 +1125,7 @@ def main() -> int:
     import bayesnmf_tpu_torch as bt
     from bayesnmf_tpu_torch.models import gibbs
     from bayesnmf_tpu_torch.ops import _build
+    from bayesnmf_tpu_torch.ops import allocation as AL
     from bayesnmf_tpu_torch.ops import fused_sweeps as FS
     from bayesnmf_tpu_torch.ops import stream_sweeps as S
 
@@ -628,22 +1155,36 @@ def main() -> int:
     # phase 3b: the streaming kernels against their plain versions
     stream = compare_stream_kernels(torch, S, card)
 
+    # phase 3c: the fused kernel's rank branch, exponential prior and
+    # reference-parity ratio against the plain version
+    branch_err, branch_times = compare_branches(torch, FS, card)
+
+    # phase 3d: the allocation kernel against its plain version
+    alloc = compare_allocation(torch, AL, card)
+
     # phase 4: the fixed-rank slice
-    launches = run_slice(torch, bt, FS, gibbs, card)
+    run_slice(torch, bt, FS, gibbs, card)
 
     # phase 5: the ensemble slice
     ens_launches = run_ensemble(torch, bt, S, card)
 
+    # phase 6: rank learning through the fused kernel
+    rank_launches = run_rank_learning(torch, bt, FS, S, AL, gibbs, card)
+
+    # phase 7: the exponential prior with MH and conjugate Gibbs
+    alloc_launches = run_exponential(torch, bt, FS, S, AL, gibbs, card)
+
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
           "the port imported the JAX package")
-    k_ms, p_ms = times[(96, 8, 500)]
-    b_ms, b_by = fused_bound(96, 8, 500)
+    # the fused kernel at the rank-learning path's shape, rank branch on
+    k_ms, p_ms = branch_times["rank"]
+    b_ms, b_by = fused_bound(*RANK_TIMED, rank=True)
     kernels = [{
         "name": "fused_gibbs_sweeps", "route": "cuda",
         "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
         "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": rank_launches, "max_abs_err": max(max_err, branch_err),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
     src = "bayesnmf_tpu_torch/csrc/stream_sweeps.cu"
@@ -667,6 +1208,14 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "allocate_counts_fused", "route": "cuda",
+        "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+        "launches": alloc_launches, "max_abs_err": alloc["max_abs_err"],
+        "ms": alloc["ms"], "plain_ms": alloc["plain_ms"],
+        "bound_ms": alloc["bound_ms"], "bound_by": alloc["bound_by"],
+        "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,14 @@ def test_elementwise_math_matches_jax(arrays):
                         {k: t(v) for k, v in prior.items()}),
          jm.logprior_PE(P, E, "truncnormal", prior)),
     ]
+    lam = {"Lambda_p": prior["Sigmasq_p"], "Lambda_e": prior["Sigmasq_e"]}
+    pairs += [
+        (tm.exponential_logpdf(t(P), t(lam["Lambda_p"])),
+         jm.exponential_logpdf(P, lam["Lambda_p"])),
+        (tm.logprior_PE(t(P), t(E), "exponential",
+                        {k: t(v) for k, v in lam.items()}),
+         jm.logprior_PE(P, E, "exponential", lam)),
+    ]
     pairs += list(zip(tm.renormalize(t(P), t(E)), jm.renormalize(P, E)))
     tc = tm.metric_constants("poisson", t(M))
     jc = jm.metric_constants("poisson", jnp.asarray(M))
@@ -78,7 +86,7 @@ def test_elementwise_math_matches_jax(arrays):
 def test_unported_families_raise(arrays):
     P, E, _, M, _ = arrays
     with pytest.raises(NotImplementedError):
-        tm.logprior_PE(t(P), t(E), "exponential", {})
+        tm.logprior_PE(t(P), t(E), "gamma", {})
     with pytest.raises(NotImplementedError):
         tm.metric_constants("normal", t(M))
 
@@ -108,6 +116,22 @@ def test_compute_map_matches_jax(final):
     jq = jmap.map_quality_metrics(jnp.asarray(M), want, G, K)
     for k in tq:
         np.testing.assert_allclose(tq[k], jq[k], rtol=1e-5)
+
+
+@pytest.mark.parametrize("prior,MH", [("truncnormal", True),
+                                      ("exponential", True),
+                                      ("exponential", False),
+                                      ("gamma", False)])
+def test_hyperprior_defaults_match_jax(prior, MH):
+    """The port's own copy of the hyperprior defaults (setup.R:123-181)
+    gives the JAX package's values, which test_reference_parity.py pins."""
+    from bayesnmf_tpu.config import ModelSpec as JModelSpec
+    from bayesnmf_tpu.config import default_hyperprior_params as jdefaults
+    from bayesnmf_tpu_torch.config import ModelSpec, default_hyperprior_params
+
+    kw = dict(K=96, N=8, G=100, likelihood="poisson", prior=prior, MH=MH)
+    assert (default_hyperprior_params(ModelSpec(**kw), 25.0)
+            == jdefaults(JModelSpec(**kw), 25.0))
 
 
 def test_convergence_tracker_matches_jax():
@@ -167,6 +191,30 @@ def test_truncnorm_nonneg_distribution(mu, sigmasq):
     else:
         ref = st.truncnorm(-mu / sd, np.inf, loc=mu, scale=sd)
         assert st.kstest(x, ref.cdf).pvalue > 1e-3
+
+
+def test_exponential_distribution():
+    rate = 2.5
+    x = dist.exponential(_gen(5), torch.full((20000,), rate)).numpy()
+    assert (x >= 0).all()
+    assert st.kstest(x, st.expon(scale=1 / rate).cdf).pvalue > 1e-3
+
+
+def test_gamma_takes_the_jax_planes():
+    """With the JAX draw's uniform planes, the gamma sampler returns the
+    JAX values (the exact rejection fallback aside)."""
+    import jax
+
+    from bayesnmf_tpu.ops import distributions as jdist
+
+    key = jax.random.PRNGKey(3)
+    a = np.linspace(0.3, 40.0, 200).astype(np.float32).reshape(10, 20)
+    rate = np.full((10, 20), 1.7, np.float32)
+    want = np.asarray(jdist.gamma(key, a, rate))
+    u = np.asarray(jax.random.uniform(key, (9, 10, 20), jnp.float32,
+                                      minval=jnp.float32(1.1754944e-38)))
+    got = dist.gamma(_gen(0), t(a), t(rate), u=t(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
 def test_normal_distribution():

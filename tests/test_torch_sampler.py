@@ -1,6 +1,7 @@
 """The port's sampler end to end on the CPU: recovery on the reference's
-example data, checkpoint resume, the jax-free import, and the guards around
-what is not ported yet."""
+example data (fixed rank with MH, rank learning by SBFI, the exponential
+prior with MH, conjugate Poisson-Gibbs), checkpoint resume, the jax-free
+import, and the guards around what is not ported yet."""
 
 import os
 import subprocess
@@ -55,6 +56,85 @@ def test_slice_recovers_example_signatures():
     assert len(res["assignments"]) == 4
 
 
+@pytest.fixture(scope="module")
+def example():
+    d = load_example_data()
+    return np.asarray(d["M"], np.float32), np.asarray(d["P"], np.float32)
+
+
+def test_sbfi_learns_the_example_rank(example):
+    """tests/test_reference_parity.py::test_rank_learning_recovers_4 through
+    the port's fit: ranks 1..7 by SBFI learn 4, matched cosine min > 0.9."""
+    M, P_true = example
+    cc = bt.ConvergenceControl(MAP_over=100, MAP_every=50, miniters=100,
+                               maxiters=1500, Ninarow_nochange=3,
+                               Ninarow_nobest=6)
+    s = bt.fit(M, range(1, 8), rank_method="SBFI", convergence_control=cc,
+               prop_temp=0.3, post_warmup=200, seed=0, device="cpu",
+               output_dir=None)
+    assert s.rank == list(range(0, 8)) and s.spec.N == 7
+    assert int(np.asarray(s.MAP["A_full"]).sum()) == 4
+    cos = matched_cosines(s.MAP["P"], P_true)
+    assert cos.min() > 0.9, cos
+    ranks = s.sample_metrics["rank"].to_numpy()
+    assert len(np.unique(ranks)) > 1  # the rank moved while tempering
+    assert np.isfinite(s.sample_metrics.to_numpy()).all()
+
+
+@pytest.mark.parametrize("MH,seed", [(True, 1), (False, 1)])
+def test_exponential_prior_recovers_example_signatures(example, MH, seed):
+    """The bar of test_reference_parity.py::test_fixed_rank_recovery_gibbs
+    (min > 0.85) for the exponential prior, with MH through the fused
+    kernel and conjugate (MH=False) through the allocation kernel."""
+    M, P_true = example
+    cc = bt.ConvergenceControl(MAP_over=100, MAP_every=50, miniters=100,
+                               maxiters=500, Ninarow_nochange=3,
+                               Ninarow_nobest=5)
+    s = bt.fit(M, 4, prior="exponential", MH=MH, convergence_control=cc,
+               post_warmup=100, seed=seed, device="cpu", output_dir=None)
+    cos = matched_cosines(s.MAP["P"], P_true)
+    assert cos.min() > 0.85, cos
+    df = s.sample_metrics
+    assert np.isfinite(df.to_numpy()).all()
+    if not MH:  # no post-warmup MH phase, acceptance recorded as 1
+        assert s.iter <= cc.maxiters
+        assert (df["P_mean_acceptance_rate"] == 1.0).all()
+        Zg = s.state["params"]["Zsum_g"].numpy()
+        np.testing.assert_array_equal(Zg.sum(1), M.sum(1))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rank=range(1, 4), rank_method="BFI"),
+    dict(rank=3, prior="exponential", MH=False),
+    dict(rank=[1, 3], prior="exponential", MH=False, rank_method="SBFI"),
+])
+def test_new_paths_resume_bit_exact(tmp_path, kw):
+    """An interrupted run resumed from its checkpoint ends where the
+    uninterrupted one does: rank learning in the fused kernel, and the
+    conjugate path at a fixed and a learned rank (the generator state, the
+    latent counts' sums and Lambda are carried)."""
+    M = sim_data(seed=11)
+    cc = bt.ConvergenceControl(MAP_over=20, MAP_every=10, miniters=20,
+                               maxiters=60, Ninarow_nochange=2,
+                               Ninarow_nobest=3)
+    base = dict(convergence_control=cc, post_warmup=20, seed=4,
+                device="cpu") | kw
+    s1 = GibbsSampler(M, **base)
+    s1.run_gibbs_sampler()
+    s2 = GibbsSampler(M, output_dir=str(tmp_path / "run"), **base)
+    s2._run_chunk(9, accept_all=s2.spec.MH)
+    s3 = GibbsSampler.load(s2.save_object())
+    s3.run_gibbs_sampler()
+    assert s3.iter == s1.iter
+    for group in ("params", "prior"):
+        assert sorted(s3.state[group]) == sorted(s1.state[group])
+        for k, v in s1.state[group].items():
+            np.testing.assert_array_equal(s3.state[group][k].numpy(),
+                                          v.numpy(), err_msg=k)
+    np.testing.assert_array_equal(s3.sample_metrics.to_numpy(),
+                                  s1.sample_metrics.to_numpy())
+
+
 def test_checkpoint_resume_bit_exact(tmp_path):
     M = sim_data(seed=7)
     cc = bt.ConvergenceControl(MAP_over=20, MAP_every=10, miniters=20,
@@ -92,7 +172,7 @@ def test_imports_without_jax():
         "from bayesnmf_tpu_torch.models import sampler, gibbs, state, "
         "map_estimate, convergence, updates\n"
         "from bayesnmf_tpu_torch.ops import fused_sweeps, stream_sweeps, "
-        "special, math, distributions, _build\n"
+        "allocation, special, math, distributions, _build\n"
         "from bayesnmf_tpu_torch.parallel import chains, ensemble\n"
         "from bayesnmf_tpu_torch.utils import checkpoint, logging, "
         "assignment, cosmic, postprocessing, plotting\n"
@@ -129,11 +209,11 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(rank=[1, 2, 3]),
+    dict(rank=[1, 2, 3], rank_method="BIC"),
     dict(mesh=object()),
-    dict(prior="exponential"),
+    dict(prior="gamma"),
     dict(likelihood="normal"),
-    dict(exact_mh=False),
+    dict(likelihood="normal", prior="exponential"),
     dict(exact_truncnorm_hypers=False),
     dict(stream_sweeps=True),
     dict(fused_sweeps=False),
