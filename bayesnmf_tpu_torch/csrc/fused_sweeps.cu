@@ -8,37 +8,56 @@
 //     reference-parity (exact_mh=False) Hastings ratio, a fixed rank or the
 //     SBFI/BFI R/A branch, with the accept-all warmup flag and the
 //     temperature as data (rank_pack[c, 0, 1] and rank_pack[c, 0, 0]).
-// (b) What bounds it: latency, and one SM per chain. Each of the 2N column
-//     updates is a chain of dependent steps (two reductions, a proposal, an
-//     accept decision, a rank-1 update), and each of the N inclusion updates
-//     a block-wide reduction over K*G and a rank-1 rewrite of Mhat; one
-//     thread block per chain sits on one of the card's 132 SMs, so a single
-//     chain uses under 1% of the card. The (K, G) operands stay in global
-//     memory (L2-resident at these sizes), since data and Mhat at 96x2780 do
-//     not fit in 227 KB of shared memory.
-// (c) What a later PR does about it: batch chains (C blocks fill the SMs),
-//     keep Mhat rows in shared memory or registers, fuse the rank-1 update of
-//     column n into the first reduction of column n+1, and split one chain
-//     across a cluster of SMs with distributed shared memory.
+// (b) What bounds it: latency. The 2N column updates and the N inclusion
+//     updates are a chain of 3N dependent steps, each two reductions (or
+//     one), a proposal, a decision and a rank-1 update over K*G entries; the
+//     work of a step is small (K*G*~40 operations), so what counts is how
+//     many threads share it and how far its operands are.
+// (c) What the design does about it: one thread-block cluster per chain, the
+//     G axis split across its S blocks (S = 1..16 by G, ops/fused_sweeps.py::
+//     cluster_config), each block's slices of data and Mhat resident in
+//     shared memory (2 x K x G/S floats), loaded once, Mhat written back once
+//     at the end -- the analogue of the TPU kernel keeping every (K, G)
+//     operand in VMEM. Where the slices do not fit the SM's 227 KB the same
+//     code reads them in global memory (row stride G instead of G/S).
+//     P, the P-side prior pair, A and the block's slice of E live in shared
+//     memory too; every block holds the same bits of P and A.
+//
+// Work split inside a block of 512 threads:
+//   hyper-sweep  (K,N): every block computes all of it for its own copy
+//                (block 0 writes it out); (N,G): a block does its slice;
+//   P column n   one warp per row k, lanes stride over the block's g, double
+//                sums, xor-shuffle; lanes 0..S-1 push the row's partials into
+//                every block's shared memory (distributed shared memory);
+//                after a cluster barrier every block adds the S partials in
+//                rank order, draws the same proposal, and after the second
+//                reduction takes the same decision; each block applies the
+//                rank-1 update to its own Mhat slice. Two cluster barriers
+//                per column;
+//   E row n      no step crosses blocks: a block updates its own g. The K
+//                rows are split over up to 8 threads per g (by warp, so that
+//                lanes stay on consecutive g), whose partials meet in shared
+//                memory in a fixed order;
+//   R draw       every thread evaluates the (N+1)-entry ladder;
+//   A column n   one warp per row k over the block's g, a block-wide sum in a
+//                fixed order, pushed to every block; after one cluster
+//                barrier every thread adds the S partials in rank order; the
+//                rank-1 rewrite is local.
+// Sums accumulate in double, in a fixed order, with no atomics, so two
+// launches on the same inputs give the same bits.
+//
+// What is left: the P-side hyper-sweep and each column's proposal and
+// decision are computed by every block (K values on K threads, the rest of
+// the block idle); a cluster barrier costs about as much as a column's
+// arithmetic at the 32 columns of G a block owns; chains in a batch run as
+// separate clusters, of which the card keeps only a few resident at 16
+// blocks each.
 //
 // Layout: every operand is float32 and contiguous. State and uniforms carry
 // a leading chain axis C; data (K,G) and the hyperprior planes are shared.
 // The kernel reads the inputs and writes the outputs, which the caller
-// allocated; it copies state into the outputs first and updates Mhat, A and
-// the P/E/acceptance outputs in place through the sweeps. With the
-// exponential prior hp0 holds Lambda and hp1 is not read.
-//
-// Work split inside the block:
-//   hyper-sweep  one thread per element of (K,N) and of (N,G);
-//   P column n   one warp per row k, lanes stride over g, xor-shuffle sums
-//                (every lane ends with the same bits, so all lanes draw the
-//                same proposal and make the same decision);
-//   E row n      one thread per column g, serial sums over k;
-//   R draw       every thread evaluates the (N+1)-entry ladder;
-//   A column n   one warp per row k over g, a block-wide sum in a fixed
-//                order that every thread reads, then the rank-1 rewrite.
-// Sums accumulate in double, in a fixed order, with no atomics, so two
-// launches on the same inputs give the same bits.
+// allocated. With the exponential prior hp0 holds Lambda and hp1 is not
+// read.
 //
 // Numerics: built without --use_fast_math and with -fmad=false (ops/_build.py).
 // The special functions are the JAX package's own formulas
@@ -48,8 +67,11 @@
 // rounding; a 1-ulp change in a proposal moves the log acceptance ratio by
 // ~1e-4 at G = 2780.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,6 +100,9 @@ struct Args {
   float *P_o, *E_o, *Mh_o, *accP_o, *accE_o, *A_o, *R_o, *nan_o;
   float *hp0p_o, *hp1p_o, *hp0e_o, *hp1e_o;
   int K, N, G;
+  // what sits in shared memory: bit 0 the data and Mhat slices, bit 1 the E
+  // slice
+  int resident;
 };
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
@@ -327,67 +352,143 @@ __device__ float mh_decide(int prior, int exact, bool inactive, float old,
   return (acc_on || u_acc < ratio) ? prop : old;
 }
 
+// Threads per g of an E-row update: the largest power of two up to 8 that
+// keeps tpg * roundup32(Gq) within the block.
+__host__ __device__ inline int threads_per_g(int Gq) {
+  const int g32 = (Gq + 31) / 32 * 32;
+  int tpg = 8;
+  while (tpg > 1 && tpg * g32 > kThreads) tpg >>= 1;
+  return tpg;
+}
+
+// Shared memory of a block beside the two slices, in bytes: as doubles the
+// pushed partials of a P column's two reductions (S x K x 2, S x K x 3), of
+// an A column (2 x S), the block-sum scratch (kWarps) and the E row's
+// partials (kThreads x 3); as floats P and its prior pair (3 x K x N), the E
+// slice (N x Gq, when resident), a column's mu, var, proposal and new value
+// (4 x K), an E row's proposal step, value step and flag (3 x kThreads), A
+// (N), the NaN counts (kThreads + S) and the inactive flags (S).
+__host__ __device__ inline size_t fixed_smem_bytes(int K, int N, int Gq,
+                                                  int S, bool e_resident) {
+  const size_t doubles = (size_t)S * K * 5 + 2 * S + kWarps + kThreads * 3;
+  const size_t floats = (size_t)3 * K * N + (e_resident ? (size_t)N * Gq : 0)
+                        + 4 * K + 3 * kThreads + N + kThreads + 2 * S;
+  return doubles * sizeof(double) + floats * sizeof(float);
+}
+
 __global__ void __launch_bounds__(kThreads)
 fused_sweeps_kernel(Args a) {
-  // [kWarps] double block-sum partials, [K] P column, [kThreads] NaN counts
   extern __shared__ double smem[];
-  double* s_red = smem;
-  float* s_pcol = reinterpret_cast<float*>(smem + kWarps);
-  float* s_nan = s_pcol + a.K;
-
-  const int c = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int c = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int K = a.K, N = a.N, G = a.G;
   const int KN = K * N, NG = N * G, KG = K * G;
   const int prior = a.prior, exact = a.exact;
   const bool expo = prior == kExponential;
+  // this block's columns [gb, gb + Gs) of the chain's G
+  const int Gq = (G + S - 1) / S;
+  const int gb = rank * Gq < G ? rank * Gq : G;
+  const int Gs = G - gb < Gq ? G - gb : Gq;
 
-  const float* M = a.data;
+  double* xb1 = smem;                          // [S][K][2]
+  double* xb2 = xb1 + (size_t)S * K * 2;       // [S][K][3]
+  double* xa = xb2 + (size_t)S * K * 3;        // [2][S]
+  double* s_red = xa + 2 * S;                  // [kWarps]
+  double* s_ep = s_red + kWarps;               // [kThreads][3]
+  float* sP = reinterpret_cast<float*>(s_ep + kThreads * 3);  // [K][N]
+  float* sHp0 = sP + KN;
+  float* sHp1 = sHp0 + KN;
+  float* sE = sHp1 + KN;                       // [N][Gq] when resident
+  const bool e_resident = (a.resident & 2) != 0;
+  float* s_mu = sE + (e_resident ? (size_t)N * Gq : 0);  // [K] each
+  float* s_var = s_mu + K;
+  float* s_prp = s_var + K;
+  float* s_new = s_prp + K;
+  float* s_dp = s_new + K;                     // [kThreads] each
+  float* s_dv = s_dp + kThreads;
+  float* s_do = s_dv + kThreads;
+  float* sA = s_do + kThreads;                 // [N]
+  float* s_nan = sA + N;                       // [kThreads]
+  float* x_nan = s_nan + kThreads;             // [S], summed by block 0
+  int* x_flag = reinterpret_cast<int*>(x_nan + S);  // [S]
+  float* slices = reinterpret_cast<float*>(x_flag + S);
+
   const float* A = a.A + (size_t)c * N;
   const float* rp = a.rank_pack + (size_t)c * 3 * (N + 1);
   const bool acc_on = rp[1] > 0.0f;
   const size_t okn = (size_t)c * KN, ong = (size_t)c * NG;
-  float* P = a.P_o + okn;
-  float* E = a.E_o + ong;
-  float* Mh = a.Mh_o + (size_t)c * KG;
+  float* P_o = a.P_o + okn;
   float* accP = a.accP_o + okn;
+  float* E_o = a.E_o + ong;
   float* accE = a.accE_o + ong;
-  float* A_o = a.A_o + (size_t)c * N;
-  float* hp0p = a.hp0p_o + okn;
-  float* hp1p = a.hp1p_o + okn;
   float* hp0e = a.hp0e_o + ong;
   float* hp1e = a.hp1e_o + ong;
   float n_nan = 0.0f;
 
+  // the E, data and Mhat slices: in shared memory (row stride Gq), or in
+  // global memory (row stride G) where they do not fit
+  float* Ep = e_resident ? sE : E_o + gb;
+  const int lde = e_resident ? Gq : G;
+  const float* Mp;
+  float* Hp;
+  int ld;
+  if (a.resident & 1) {
+    ld = Gq;
+    float* sM = slices;
+    float* sH = slices + (size_t)K * Gq;
+    for (int i = tid; i < K * Gs; i += kThreads) {
+      const int k = i / Gs, gl = i % Gs;
+      sM[k * ld + gl] = a.data[(size_t)k * G + gb + gl];
+      sH[k * ld + gl] = a.Mh[(size_t)c * KG + (size_t)k * G + gb + gl];
+    }
+    Mp = sM;
+    Hp = sH;
+  } else {
+    ld = G;
+    Mp = a.data + gb;
+    Hp = a.Mh_o + (size_t)c * KG + gb;
+    for (int i = tid; i < K * Gs; i += kThreads) {
+      const int k = i / Gs, gl = i % Gs;
+      Hp[(size_t)k * ld + gl] = a.Mh[(size_t)c * KG + (size_t)k * G + gb + gl];
+    }
+  }
+
   // ---- copy state in; the hyper-sweep reads the pre-sweep P and E --------
   for (int i = tid; i < KN; i += kThreads) {
-    P[i] = a.P[okn + i];
-    accP[i] = a.accP[okn + i];
+    sP[i] = a.P[okn + i];
     if (a.hyper) {
-      hyper_elem(a.P[okn + i], a.hp0p[okn + i], a.hp1p[okn + i],
-                 a.Hhpp + i,
-                 a.Hup + (size_t)c * 4 * KN + i, KN, &hp0p[i], &hp1p[i]);
+      hyper_elem(a.P[okn + i], a.hp0p[okn + i], a.hp1p[okn + i], a.Hhpp + i,
+                 a.Hup + (size_t)c * 4 * KN + i, KN, &sHp0[i], &sHp1[i]);
     } else {
-      hp0p[i] = a.hp0p[okn + i];
-      hp1p[i] = a.hp1p[okn + i];
+      sHp0[i] = a.hp0p[okn + i];
+      sHp1[i] = a.hp1p[okn + i];
+    }
+    if (rank == 0) {
+      accP[i] = a.accP[okn + i];
+      a.hp0p_o[okn + i] = sHp0[i];
+      a.hp1p_o[okn + i] = sHp1[i];
     }
   }
-  for (int i = tid; i < NG; i += kThreads) {
-    E[i] = a.E[ong + i];
-    accE[i] = a.accE[ong + i];
+  for (int i = tid; i < N * Gs; i += kThreads) {
+    const int n = i / Gs, gl = i % Gs;
+    const int ng = n * G + gb + gl;
+    Ep[(size_t)n * lde + gl] = a.E[ong + ng];
+    accE[ng] = a.accE[ong + ng];
     if (a.hyper) {
-      hyper_elem(a.E[ong + i], a.hp0e[ong + i], a.hp1e[ong + i],
-                 a.Hhpe + i,
-                 a.Hue + (size_t)c * 4 * NG + i, NG, &hp0e[i], &hp1e[i]);
+      hyper_elem(a.E[ong + ng], a.hp0e[ong + ng], a.hp1e[ong + ng],
+                 a.Hhpe + ng, a.Hue + (size_t)c * 4 * NG + ng, NG, &hp0e[ng],
+                 &hp1e[ng]);
     } else {
-      hp0e[i] = a.hp0e[ong + i];
-      hp1e[i] = a.hp1e[ong + i];
+      hp0e[ng] = a.hp0e[ong + ng];
+      hp1e[ng] = a.hp1e[ong + ng];
     }
   }
-  for (int i = tid; i < KG; i += kThreads) Mh[i] = a.Mh[(size_t)c * KG + i];
-  for (int i = tid; i < N; i += kThreads) A_o[i] = A[i];
-  __syncthreads();
+  for (int i = tid; i < N; i += kThreads) sA[i] = A[i];
+  // every block of the cluster runs before any pushes into its shared memory
+  cluster.sync();
 
   // ---- P sweep: column n, one warp per row k, reductions over g ----------
   const float* UprP = a.UprP + okn;
@@ -395,121 +496,227 @@ fused_sweeps_kernel(Args a) {
   const float* UaP = a.UaP + okn;
   for (int n = 0; n < N; ++n) {
     const bool active = A[n] != 0.0f;
-    const float* En = E + (size_t)n * G;
-    for (int k = warp; k < K; k += kWarps) {
-      const int kn = k * N + n;
-      const float hp0 = hp0p[kn], hp1 = hp1p[kn];
-      if (!active) {
-        if (lane == 0) P[kn] = prior_draw(prior, UprP[kn], hp0, hp1);
-        continue;
+    const float* En = Ep + (size_t)n * lde;
+    if (!active) {
+      for (int k = tid; k < K; k += kThreads) {
+        const int kn = k * N + n;
+        const float v = prior_draw(prior, UprP[kn], sHp0[kn], sHp1[kn]);
+        sP[kn] = v;
+        if (rank == 0) P_o[kn] = v;
       }
-      const float old = P[kn];
-      const float* Mk = M + (size_t)k * G;
-      float* Hk = Mh + (size_t)k * G;
+      __syncthreads();
+      continue;
+    }
+    bool nz = false;  // some E_n[g]^2 != 0: the column is not inactive
+    for (int k = warp; k < K; k += kWarps) {
+      const float old = sP[k * N + n];
+      const float* Mk = Mp + (size_t)k * ld;
+      const float* Hk = Hp + (size_t)k * ld;
       double mu1 = 0.0, den = 0.0;
-      bool nz = false;  // some E_n[g]^2 != 0: the column is not inactive
 #pragma unroll 4
-      for (int g = lane; g < G; g += 32) {
-        const float o = En[g], h = Hk[g];
-        const Terms t = pass1_terms(Mk[g], h, old, o);
+      for (int gl = lane; gl < Gs; gl += 32) {
+        const float o = En[gl];
+        const Terms t = pass1_terms(Mk[gl], Hk[gl], old, o);
         mu1 += t.mu1;
         den += t.den;
         nz |= o * o != 0.0f;
       }
-      const bool inactive = expo && !__any_sync(0xffffffffu, nz);
+      mu1 = warp_allsum(mu1);
+      den = warp_allsum(den);
+      if (lane < S) {
+        double* x = cluster.map_shared_rank(xb1, lane)
+                    + ((size_t)rank * K + k) * 2;
+        x[0] = mu1;
+        x[1] = den;
+      }
+    }
+    if (expo) {
+      const int any = __syncthreads_or(nz);
+      if (tid < S) cluster.map_shared_rank(x_flag, tid)[rank] = any;
+    }
+    cluster.sync();
+    bool inactive = false;
+    if (expo) {
+      inactive = true;
+      for (int r = 0; r < S; ++r) inactive &= x_flag[r] == 0;
+    }
+    for (int k = tid; k < K; k += kThreads) {
+      const int kn = k * N + n;
+      double mu1 = 0.0, den = 0.0;
+      for (int r = 0; r < S; ++r) {
+        mu1 += xb1[((size_t)r * K + k) * 2];
+        den += xb1[((size_t)r * K + k) * 2 + 1];
+      }
+      const float hp0 = sHp0[kn], hp1 = sHp1[kn];
       float mu, var;
-      conditional(prior, (float)warp_allsum(mu1), (float)warp_allsum(den),
-                  hp0, hp1, &mu, &var);
+      conditional(prior, (float)mu1, (float)den, hp0, hp1, &mu, &var);
       float prop = truncnorm_icdf(UpP[kn], mu, sqrtf(var));
       if (inactive) prop = prior_draw(prior, UprP[kn], hp0, hp1);
-      const float dp = prop - old;
+      s_mu[k] = mu;
+      s_var[k] = var;
+      s_prp[k] = prop;
+    }
+    __syncthreads();
+    for (int k = warp; k < K; k += kWarps) {
+      const float old = sP[k * N + n];
+      const float dp = s_prp[k] - old;
+      const float* Mk = Mp + (size_t)k * ld;
+      const float* Hk = Hp + (size_t)k * ld;
       double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
 #pragma unroll 4
-      for (int g = lane; g < G; g += 32) {
-        const float o = En[g], h = Hk[g];
-        const Terms t = pass2_terms(Mk[g], h, old, dp, o, exact);
+      for (int gl = lane; gl < Gs; gl += 32) {
+        const Terms t = pass2_terms(Mk[gl], Hk[gl], old, dp, En[gl], exact);
         lp += t.lp;
         mu1_r += t.mu1;
         den_r += t.den;
       }
-      float rec, nan_here = 0.0f;
-      const float nv = mh_decide(
-          prior, exact, inactive, old, prop, mu, var,
-          (float)warp_allsum(mu1_r), (float)warp_allsum(den_r),
-          (float)warp_allsum(lp), hp0, hp1, UaP[kn], acc_on, &rec,
-          &nan_here);
-      if (nv != old) {
-        const float dv = nv - old;
-        for (int g = lane; g < G; g += 32) Hk[g] += dv * En[g];
+      lp = warp_allsum(lp);
+      mu1_r = warp_allsum(mu1_r);
+      den_r = warp_allsum(den_r);
+      if (lane < S) {
+        double* x = cluster.map_shared_rank(xb2, lane)
+                    + ((size_t)rank * K + k) * 3;
+        x[0] = lp;
+        x[1] = mu1_r;
+        x[2] = den_r;
       }
-      if (lane == 0) {
-        P[kn] = nv;
+    }
+    cluster.sync();
+    for (int k = tid; k < K; k += kThreads) {
+      const int kn = k * N + n;
+      double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
+      for (int r = 0; r < S; ++r) {
+        const double* x = xb2 + ((size_t)r * K + k) * 3;
+        lp += x[0];
+        mu1_r += x[1];
+        den_r += x[2];
+      }
+      float rec, nan_here = 0.0f;
+      const float nv = mh_decide(prior, exact, inactive, sP[kn], s_prp[k],
+                                 s_mu[k], s_var[k], (float)mu1_r,
+                                 (float)den_r, (float)lp, sHp0[kn], sHp1[kn],
+                                 UaP[kn], acc_on, &rec, &nan_here);
+      s_new[k] = nv;
+      if (rank == 0) {
+        P_o[kn] = nv;
         accP[kn] = rec;
         n_nan += nan_here;
       }
     }
     __syncthreads();
-  }
-
-  // ---- E sweep: row n, one thread per column g, reductions over k --------
-  const float* UprE = a.UprE + ong;
-  const float* UpE = a.UpE + ong;
-  const float* UaE = a.UaE + ong;
-  for (int n = 0; n < N; ++n) {
-    const bool active = A[n] != 0.0f;
-    for (int k = tid; k < K; k += kThreads) s_pcol[k] = P[k * N + n];
-    __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      const int ng = n * G + g;
-      const float hp0 = hp0e[ng], hp1 = hp1e[ng];
-      if (!active) {
-        E[ng] = prior_draw(prior, UprE[ng], hp0, hp1);
-        continue;
-      }
-      const float old = E[ng];
-      double mu1 = 0.0, den = 0.0;
-      bool nz = false;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const size_t kg = (size_t)k * G + g;
-        const float o = s_pcol[k];
-        const Terms t = pass1_terms(M[kg], Mh[kg], old, o);
-        mu1 += t.mu1;
-        den += t.den;
-        nz |= o * o != 0.0f;
-      }
-      const bool inactive = expo && !nz;
-      float mu, var;
-      conditional(prior, (float)mu1, (float)den, hp0, hp1, &mu, &var);
-      float prop = truncnorm_icdf(UpE[ng], mu, sqrtf(var));
-      if (inactive) prop = prior_draw(prior, UprE[ng], hp0, hp1);
-      const float dp = prop - old;
-      double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const size_t kg = (size_t)k * G + g;
-        const Terms t = pass2_terms(M[kg], Mh[kg], old, dp, s_pcol[k],
-                                    exact);
-        lp += t.lp;
-        mu1_r += t.mu1;
-        den_r += t.den;
-      }
-      float rec;
-      const float nv = mh_decide(prior, exact, inactive, old, prop, mu, var,
-                                 (float)mu1_r, (float)den_r, (float)lp, hp0,
-                                 hp1, UaE[ng], acc_on, &rec, &n_nan);
+    for (int k = warp; k < K; k += kWarps) {
+      const float old = sP[k * N + n], nv = s_new[k];
       if (nv != old) {
         const float dv = nv - old;
-        for (int k = 0; k < K; ++k) {
-          const size_t kg = (size_t)k * G + g;
-          Mh[kg] += dv * s_pcol[k];
-        }
+        float* Hk = Hp + (size_t)k * ld;
+        for (int gl = lane; gl < Gs; gl += 32) Hk[gl] += dv * En[gl];
       }
-      E[ng] = nv;
-      accE[ng] = rec;
+      __syncwarp();
+      if (lane == 0) sP[k * N + n] = nv;
     }
     __syncthreads();
   }
+
+  // ---- E sweep: row n, the block's own g; tpg threads share a g's K rows --
+  const float* UprE = a.UprE + ong;
+  const float* UpE = a.UpE + ong;
+  const float* UaE = a.UaE + ong;
+  const int tpg = threads_per_g(Gq);
+  const int GB = kThreads / tpg;       // g per round of the block
+  const int gi = tid % GB, q = tid / GB;
+  for (int n = 0; n < N; ++n) {
+    const bool active = A[n] != 0.0f;
+    float* En = Ep + (size_t)n * lde;
+    for (int g0 = 0; g0 < Gs; g0 += GB) {
+      const int gl = g0 + gi;
+      const bool live = gl < Gs;
+      const int ng = n * G + gb + gl;
+      if (!active) {
+        if (live && q == 0) {
+          const float v = prior_draw(prior, UprE[ng], hp0e[ng], hp1e[ng]);
+          En[gl] = v;
+          E_o[ng] = v;
+        }
+        continue;
+      }
+      const float old = live ? En[gl] : 0.0f;
+      double* part = s_ep + (size_t)(q * GB + gi) * 3;
+      double mu1 = 0.0, den = 0.0;
+      bool nz = false;
+      for (int k = q; k < K; k += tpg) {
+        const float o = sP[k * N + n];
+        nz |= o * o != 0.0f;
+        if (live) {
+          const Terms t = pass1_terms(Mp[(size_t)k * ld + gl],
+                                      Hp[(size_t)k * ld + gl], old, o);
+          mu1 += t.mu1;
+          den += t.den;
+        }
+      }
+      part[0] = mu1;
+      part[1] = den;
+      const bool inactive = expo && !__syncthreads_or(nz);
+      if (!expo) __syncthreads();
+      float hp0 = 0.0f, hp1 = 0.0f, mu = 0.0f, var = 0.0f, prop = 0.0f;
+      if (live && q == 0) {
+        mu1 = den = 0.0;
+        for (int j = 0; j < tpg; ++j) {
+          mu1 += s_ep[(size_t)(j * GB + gi) * 3];
+          den += s_ep[(size_t)(j * GB + gi) * 3 + 1];
+        }
+        hp0 = hp0e[ng];
+        hp1 = hp1e[ng];
+        conditional(prior, (float)mu1, (float)den, hp0, hp1, &mu, &var);
+        prop = truncnorm_icdf(UpE[ng], mu, sqrtf(var));
+        if (inactive) prop = prior_draw(prior, UprE[ng], hp0, hp1);
+        s_dp[gi] = prop - old;
+      }
+      __syncthreads();
+      const float dp = s_dp[gi];
+      double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
+      if (live) {
+        for (int k = q; k < K; k += tpg) {
+          const Terms t = pass2_terms(Mp[(size_t)k * ld + gl],
+                                      Hp[(size_t)k * ld + gl], old, dp,
+                                      sP[k * N + n], exact);
+          lp += t.lp;
+          mu1_r += t.mu1;
+          den_r += t.den;
+        }
+      }
+      part[0] = lp;
+      part[1] = mu1_r;
+      part[2] = den_r;
+      __syncthreads();
+      if (live && q == 0) {
+        lp = mu1_r = den_r = 0.0;
+        for (int j = 0; j < tpg; ++j) {
+          const double* x = s_ep + (size_t)(j * GB + gi) * 3;
+          lp += x[0];
+          mu1_r += x[1];
+          den_r += x[2];
+        }
+        float rec;
+        const float nv = mh_decide(prior, exact, inactive, old, prop, mu, var,
+                                   (float)mu1_r, (float)den_r, (float)lp, hp0,
+                                   hp1, UaE[ng], acc_on, &rec, &n_nan);
+        En[gl] = nv;
+        E_o[ng] = nv;
+        accE[ng] = rec;
+        s_do[gi] = nv != old ? 1.0f : 0.0f;
+        s_dv[gi] = nv - old;
+      }
+      __syncthreads();
+      if (live && s_do[gi] != 0.0f) {
+        const float dv = s_dv[gi];
+        for (int k = q; k < K; k += tpg) {
+          Hp[(size_t)k * ld + gl] += dv * sP[k * N + n];
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
 
   // ---- rank draw R and the inclusion sweep over A (pallas_sweeps.py:316-364)
   if (a.rank != kFixedRank) {
@@ -517,7 +724,7 @@ fused_sweeps_kernel(Args a) {
     const float fN = (float)N;
     const float lo = 0.4f / fN, hi = 1.0f - 0.4f / fN;
     float sumA = 0.0f;
-    for (int n = 0; n < N; ++n) sumA += A_o[n];
+    for (int n = 0; n < N; ++n) sumA += sA[n];
     // Gumbel-max over the ladder r = 0..N; the index by sum-select
     float mx = -INFINITY;
     for (int r = 0; r <= N; ++r) {
@@ -533,50 +740,69 @@ fused_sweeps_kernel(Args a) {
                       + rp[N + 1 + r];
       R += s >= mx ? (float)r : 0.0f;
     }
-    if (tid == 0) a.R_o[c] = R;
+    if (rank == 0 && tid == 0) a.R_o[c] = R;
     const float p1 = jmin(jmax(R / fN, lo), hi);
     const float logit_p1 = logf(p1) - log1pf(-p1);
 
     for (int n = 0; n < N; ++n) {
-      const float A_n = A_o[n];
-      const float* En = E + (size_t)n * G;
+      const float A_n = sA[n];
+      const float* En = Ep + (size_t)n * lde;
       double part = 0.0;
       for (int k = warp; k < K; k += kWarps) {
-        const float Pkn = P[k * N + n];
-        const float* Mk = M + (size_t)k * G;
-        const float* Hk = Mh + (size_t)k * G;
-        for (int g = lane; g < G; g += 32) {
-          const float con = Pkn * En[g];
-          const float off = Hk[g] - A_n * con;
+        const float Pkn = sP[k * N + n];
+        const float* Mk = Mp + (size_t)k * ld;
+        const float* Hk = Hp + (size_t)k * ld;
+        for (int gl = lane; gl < Gs; gl += 32) {
+          const float con = Pkn * En[gl];
+          const float off = Hk[gl] - A_n * con;
           const float lam_off = jmax(off, kFloor);
           const float lam_on = jmax(off + con, kFloor);
           const float d = lam_on - lam_off;
-          part += Mk[g] * log1pf(d / lam_off) - d;
+          part += Mk[gl] * log1pf(d / lam_off) - d;
         }
       }
-      float delta = (float)block_allsum(part, s_red);
+      part = block_allsum(part, s_red);
+      double* mine = xa + (n & 1) * S;
+      if (tid < S) cluster.map_shared_rank(mine, tid)[rank] = part;
+      cluster.sync();
+      double total = 0.0;
+      for (int r = 0; r < S; ++r) total += mine[r];
+      float delta = (float)total;
       if (a.rank == kSBFI) delta = delta - a.sbfi_pen;
       const float log_odds = logit_p1 + temp * delta;
       float p = 1.0f / (1.0f + expf(-log_odds));
       if (isnan(p)) {
         p = 0.5f;
-        if (tid == 0) n_nan += 1.0f;
+        if (rank == 0 && tid == 0) n_nan += 1.0f;
       }
       const float a_new = rp[2 * (N + 1) + n] < p ? 1.0f : 0.0f;
       for (int k = warp; k < K; k += kWarps) {
-        const float Pkn = P[k * N + n];
-        float* Hk = Mh + (size_t)k * G;
-        for (int g = lane; g < G; g += 32) {
-          const float con = Pkn * En[g];
-          const float off = Hk[g] - A_n * con;
-          Hk[g] = off + a_new * con;
+        const float Pkn = sP[k * N + n];
+        float* Hk = Hp + (size_t)k * ld;
+        for (int gl = lane; gl < Gs; gl += 32) {
+          const float con = Pkn * En[gl];
+          const float off = Hk[gl] - A_n * con;
+          Hk[gl] = off + a_new * con;
         }
       }
-      __syncthreads();  // every thread has read A_o[n]
-      if (tid == 0) A_o[n] = a_new;
+      __syncthreads();  // every thread has read sA[n]
+      if (tid == 0) sA[n] = a_new;
     }
-  } else if (tid == 0) {
+    __syncthreads();
+  } else if (rank == 0 && tid == 0) {
     a.R_o[c] = rp[0];
+  }
+  if (rank == 0) {
+    for (int i = tid; i < N; i += kThreads) a.A_o[(size_t)c * N + i] = sA[i];
+  }
+
+  // ---- Mhat back out, once ------------------------------------------------
+  if (a.resident & 1) {
+    float* out = a.Mh_o + (size_t)c * KG + gb;
+    for (int i = tid; i < K * Gs; i += kThreads) {
+      const int k = i / Gs, gl = i % Gs;
+      out[(size_t)k * G + gl] = Hp[k * ld + gl];
+    }
   }
 
   // ---- NaN-clamp count: integer-valued, so the sum order is immaterial ---
@@ -585,12 +811,21 @@ fused_sweeps_kernel(Args a) {
   if (tid == 0) {
     float total = 0.0f;
     for (int i = 0; i < kThreads; ++i) total += s_nan[i];
+    cluster.map_shared_rank(x_nan, 0)[rank] = total;
+  }
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    float total = 0.0f;
+    for (int r = 0; r < S; ++r) total += x_nan[r];
     a.nan_o[c] = total;
   }
 }
 
 }  // namespace
 
+// One cluster of `cluster` blocks per chain; `resident`: bit 0, the data and
+// Mhat slices go to shared memory, bit 1, the E slice does (the caller
+// checked that they fit).
 extern "C" int fused_gibbs_sweeps_launch(
     const float* data, const float* P, const float* E, const float* A,
     const float* Mh, const float* accP, const float* accE,
@@ -602,7 +837,8 @@ extern "C" int fused_gibbs_sweeps_launch(
     int hyper, int prior, int exact, int rank, float sbfi_pen,
     float* P_o, float* E_o, float* Mh_o, float* accP_o, float* accE_o,
     float* A_o, float* R_o, float* nan_o, float* hp0p_o, float* hp1p_o,
-    float* hp0e_o, float* hp1e_o, int C, int K, int N, int G, void* stream) {
+    float* hp0e_o, float* hp1e_o, int C, int K, int N, int G, int cluster,
+    int resident, void* stream) {
   Args a;
   a.data = data;
   a.P = P; a.E = E; a.A = A; a.Mh = Mh; a.accP = accP; a.accE = accE;
@@ -617,14 +853,35 @@ extern "C" int fused_gibbs_sweeps_launch(
   a.accE_o = accE_o; a.A_o = A_o; a.R_o = R_o; a.nan_o = nan_o;
   a.hp0p_o = hp0p_o; a.hp1p_o = hp1p_o; a.hp0e_o = hp0e_o; a.hp1e_o = hp1e_o;
   a.K = K; a.N = N; a.G = G;
-  const size_t smem = kWarps * sizeof(double)
-                      + (size_t)(K + kThreads) * sizeof(float);
+  a.resident = resident;
+  if (cluster < 1 || cluster > 16) return (int)cudaErrorInvalidValue;
+  const int Gq = (G + cluster - 1) / cluster;
+  const size_t smem = fixed_smem_bytes(K, N, Gq, cluster, (resident & 2) != 0)
+                      + (resident & 1 ? (size_t)2 * K * Gq * sizeof(float) : 0);
+  cudaError_t e;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = cudaFuncSetAttribute(fused_sweeps_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_sweeps_kernel<<<C, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(fused_sweeps_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, fused_sweeps_kernel, a);
 }

@@ -1,51 +1,79 @@
-// Streaming reductions of the large-G MH sweeps on Hopper (sm_90a): the
-// P-column and E-row conditional and acceptance sums, the inclusion-odds
-// delta of one A column, and the four sums of the metrics row. No (C, K, G)
-// tensor exists: every kernel recomputes its Mhat tile from P*A and an E
-// tile and emits only reductions.
+// The large-G MH sweeps on Hopper (sm_90a) without a (C, K, G) tensor: whole
+// P-column and E-row updates (sums, conditional, draw, Hastings ratio,
+// decision and write-back in kernels, a sweep's launches enqueued by one C
+// call), the same tile code in a sums-only form for the four reduction
+// functions, the inclusion-odds delta of one A column, and the four sums of
+// the metrics row. Every kernel rebuilds its Mhat tile from P*A and an E
+// tile.
 //
 // (a) Replaces bayesnmf_tpu/ops/pallas_stream_sweeps.py: `_run` (its four
 //     bodies _pcol_stats_kernel, _pcol_accept_kernel, _erow_stats_kernel,
-//     _erow_accept_kernel), `acol_delta` (_acol_delta_kernel) and
-//     `chain_metrics` (_chain_metrics_kernel), with a leading chain axis C
-//     on every per-chain operand.
-// (b) What bounds it: operations. Per (c, k, g) element a kernel does 2N
-//     flops to rebuild Mhat, a division or two and (accept, A, metrics) a
-//     log1p or log; it reads data (shared by the chains) and the E tile
-//     once. At (K,N,G,C) = (96,20,10000,8) that is ~0.6 GFLOP against
-//     ~10 MB of reads per call: far above the card's float32 ridge, so the
-//     float32 pipes and the special-function unit bound it, not HBM.
-// (c) What a later PR does about it: fuse a column's two passes and its
-//     host logic into one kernel per column (the launch rate, not the card,
-//     bounds the loop at small C), keep the Mhat tile in registers across
-//     the stats and accept passes, and use tensor cores for the Mhat rebuild
-//     only if the precision budget allows (TF32 does not: ROADMAP).
+//     _erow_accept_kernel) together with the host logic around them in
+//     models/updates.py::stream_sweep_P/E of the JAX package, `acol_delta`
+//     (_acol_delta_kernel) and `chain_metrics` (_chain_metrics_kernel), with
+//     a leading chain axis C on every per-chain operand.
+// (b) What bounds it: operations. Per (c, k, g) element a column update
+//     rebuilds Mhat twice (2N flops each, as separate multiplies and adds),
+//     and does three divisions and a log1p; it reads data (shared by the
+//     chains) and the E tile once per pass. At (K,N,G,C) = (96,20,10000,8)
+//     that is ~1.2 GFLOP against ~10 MB of reads per column: far above the
+//     card's float32 ridge, so the float32 pipes and the special-function
+//     unit bound it, not HBM.
+// (c) Work split of a column update.
+//     The register tile (dot_ordered): one operand of the Mhat product sits
+//     in a thread's registers, the other is read from shared memory as
+//     float4 broadcasts, and four products are built at once as independent
+//     chains, so a thread issues an add every cycle where one chain would
+//     wait four.
+//     E row (erow_kernel): no sum crosses g, so one thread owns one g and
+//     holds E[c, :, g] in registers; both passes, the conditional, the draw,
+//     the ratio and the decision run in that thread: one launch per row, a
+//     grid of (G / 128, C) blocks. The second pass rebuilds Mhat: keeping
+//     the K values of a column in shared memory cost more in resident warps
+//     than the rebuild costs in operations (0.101 against 0.087 ms a row at
+//     (96,20,10000,8)).
+//     P column: the sums run over all G of a chain. A tile kernel
+//     (pcol_tile_kernel) on a grid of (G / 64, C) blocks gives a thread one
+//     row k (its P*A row in registers) and a group of such rows every
+//     `groups`-th g of the tile; a row's sums stay in its thread, the groups
+//     are added in order, and the tile's partials go to a scratch buffer in
+//     double. A finishing kernel (pcol_finish_kernel), one block per chain,
+//     adds the tiles in a fixed order and makes the proposal (after the
+//     first pass) or takes the decision and writes the column back (after the
+//     second): four launches per column with no host work between them.
+//     One thread-block cluster per chain with the partials exchanged through
+//     distributed shared memory, one launch per column, was built and timed
+//     first: a chain cannot have more than 16 blocks, of which the card keeps
+//     7 clusters resident at 640 threads a block, so 8 chains ran in two
+//     waves (or on half the SMs at 8 blocks): 0.22-0.25 ms a column at
+//     (96,20,10000,8) against 0.14 ms for the tiles.
+//     What is left: the tile kernels run at a tenth of the float32 peak
+//     (staging and compute of a tile do not overlap; 2 blocks an SM);
+//     tensor cores for the Mhat rebuild are ruled out by the precision the
+//     acceptance ratio needs (TF32 does not do: ROADMAP); the A column and
+//     the metrics row still use the older tile (`stage`, `mhat`: two
+//     shared-memory loads per multiply-add) and `reduce_tiles`.
 //
-// Translation of the TPU design. The Pallas kernels carry their sums from
-// one G tile to the next in VMEM over a sequential grid (_acc_guard). Hopper
-// blocks run in no order, so the grid is (G tiles, C): each block writes
-// its tile's partial sums to a scratch buffer that the wrapper allocates,
-// and a second small kernel (reduce_tiles) adds the tiles in a fixed order.
-// There are no atomics: two launches give the same bits.
-//
-// Work split inside a block. PA (K x N) and the E tile (N x Gt) are staged
-// in shared memory. P-column, A-column and metrics kernels: one warp per row
-// k, lanes stride over the tile's g, xor-shuffle sums in double. E-row
-// kernels: one thread per g, a loop over k, the (C, G) outputs written
-// directly. Every Mhat entry is an explicit loop over n in a fixed order in
-// float32 (no tensor cores: TF32 would lose the precision the acceptance
-// ratio needs).
+// There are no atomics on floating-point sums: two launches give the same
+// bits. The NaN-clamp count is an integer and is added atomically.
 //
 // Numerics: built with -fmad=false and without --use_fast_math
 // (ops/_build.py). Each per-element term is evaluated in the order, and with
 // the roundings, of the plain PyTorch version (ops/stream_sweeps.py), and
 // the sums accumulate in double and are rounded to float32 once, as the
-// plain version sums; the two then agree to a few ulps at any G.
+// plain version sums; the two then agree to a few ulps at any G. The
+// epilogue's special functions reproduce the ones the plain version calls on
+// the card: erff/erfcf/logf/expf/log1pf are the CUDA library's, which ATen
+// calls too; at_ndtri writes out ATen's jiterated Cephes ndtri, which is
+// compiled with FMA contraction, hence the explicit fmaf in it, and equals
+// it bit for bit; at_log_ndtr follows ATen's log_ndtr (through erfcx) and
+// differs from it by an ulp or two at 1.8% of the arguments below -1, which
+// moves the Hastings ratio within its tolerance and no checked decision.
 //
 // Layout: float32, contiguous. data (K, G) is shared by the chains; E
-// (C, N, G); PA (C, K, N); en (C, G); pn (C, K); prop (C, K) for a P column
-// or (C, G) for an E row; an (C,). Outputs: P column (n_out, C, K), E row
-// (n_out, C, G), A column (C,), metrics (4, C).
+// (C, N, G); PA and P (C, K, N); en (C, G); pn (C, K); prop (C, K) for a P
+// column or (C, G) for an E row; an (C,). Sums-only outputs: P column
+// (n_out, C, K), E row (n_out, C, G); A column (C,), metrics (4, C).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +87,9 @@ constexpr float kFloor = 1e-6f;
 // jnp.maximum: NaN in either operand gives NaN (fmaxf would drop it)
 __device__ __forceinline__ float jmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
 }
 
 __device__ __forceinline__ double warp_allsum(double v) {
@@ -90,115 +121,656 @@ __device__ __forceinline__ float mhat(const float* sPA, const float* sE,
   return mh;
 }
 
-// ---- P column: reductions over g, one warp per row k ----------------------
-// stats:  mu1 = sum (data - (Mh - pn*en)) / max(Mh, floor) * en,
-//         den = sum 1/max(Mh, floor) * en^2
-// accept: lp = sum data*log1p(d/lam) - d, mu1_r, den_r at lam_new
-// Partial sums per tile go to scratch[((c*T + t)*n_out + j)*K + k].
-template <bool kAccept>
-__global__ void __launch_bounds__(kThreads)
-pcol_kernel(const float* __restrict__ data, const float* __restrict__ E,
-            const float* __restrict__ PA, const float* __restrict__ en,
-            const float* __restrict__ pn, const float* __restrict__ prop,
-            double* __restrict__ scratch, int K, int N, int G, int Gt) {
-  extern __shared__ float smem[];
-  float* sPA = smem;
-  float* sE = smem + K * N;
-  const int t = blockIdx.x, c = blockIdx.y, T = gridDim.x;
-  const int g0 = t * Gt;
-  stage(PA, E, sPA, sE, c, K, N, G, Gt, g0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_out = kAccept ? 3 : 2;
-  const float* en_c = en + (size_t)c * G;
-  double* out = scratch + ((size_t)c * T + t) * n_out * K;
-  for (int k = warp; k < K; k += kWarps) {
-    const float pk = pn[(size_t)c * K + k];
-    const float qk = kAccept ? prop[(size_t)c * K + k] : 0.0f;
-    const float* mk = data + (size_t)k * G;
-    double s0 = 0.0, s1 = 0.0, s2 = 0.0;
-    for (int gl = lane; gl < Gt; gl += 32) {
-      const int g = g0 + gl;
-      if (g >= G) break;
-      const float e = en_c[g], m = mk[g];
-      const float mh = mhat(sPA, sE, k, gl, N, Gt);
-      if (!kAccept) {
-        const float inv = 1.0f / jmax(mh, kFloor);
-        const float resid = m - (mh - pk * e);
-        s0 += (double)((resid * inv) * e);
-        s1 += (double)(inv * (e * e));
-      } else {
-        const float mh_no = mh - pk * e;
-        const float lam = jmax(mh, kFloor);
-        const float lam_new = jmax(mh_no + qk * e, kFloor);
-        const float d = lam_new - lam;
-        const float invr = 1.0f / lam_new;
-        const float resid = m - mh_no;
-        s0 += (double)(m * log1pf(d / lam) - d);
-        s1 += (double)((resid * invr) * e);
-        s2 += (double)(invr * (e * e));
-      }
+// ---- the special functions of a column update's epilogue -------------------
+
+// ATen's polevl of the jiterated ndtri: Horner with contracted FMAs
+template <int L>
+__device__ __forceinline__ float polevl(float x, const float (&A)[L]) {
+  float r = 0.0f;
+#pragma unroll
+  for (int i = 0; i < L; ++i) r = __fmaf_rn(r, x, A[i]);
+  return r;
+}
+
+// torch.special.ndtri on the card (ATen's Cephes ndtri, float)
+__device__ float at_ndtri(float y0) {
+  if (y0 == 0.0f) return -INFINITY;
+  if (y0 == 1.0f) return INFINITY;
+  if (y0 < 0.0f || y0 > 1.0f) return NAN;
+  constexpr float kExpM2 = 0.13533528323661269189f;
+  bool code = true;
+  float y = y0;
+  if (y > 1.0f - kExpM2) {
+    y = 1.0f - y;
+    code = false;
+  }
+  if (y > kExpM2) {
+    const float P0[5] = {-5.99633501014107895267E1f, 9.80010754185999661536E1f,
+                         -5.66762857469070293439E1f, 1.39312609387279679503E1f,
+                         -1.23916583867381258016E0f};
+    const float Q0[9] = {1.00000000000000000000E0f, 1.95448858338141759834E0f,
+                         4.67627912898881538453E0f, 8.63602421390890590575E1f,
+                         -2.25462687854119370527E2f, 2.00260212380060660359E2f,
+                         -8.20372256168333339912E1f, 1.59056225126211695515E1f,
+                         -1.18331621121330003142E0f};
+    constexpr float s2pi = 2.50662827463100050242E0f;
+    y = y - 0.5f;
+    const float y2 = y * y;
+    const float x = __fmaf_rn(y, y2 * polevl(y2, P0) / polevl(y2, Q0), y);
+    return x * s2pi;
+  }
+  float x = sqrtf(-2.0f * logf(y));
+  const float x0 = x - logf(x) / x;
+  const float z = 1.0f / x;
+  float x1;
+  if (x < 8.0f) {
+    const float P1[9] = {4.05544892305962419923E0f, 3.15251094599893866154E1f,
+                         5.71628192246421288162E1f, 4.40805073893200834700E1f,
+                         1.46849561928858024014E1f, 2.18663306850790267539E0f,
+                         -1.40256079171354495875E-1f,
+                         -3.50424626827848203418E-2f,
+                         -8.57456785154685413611E-4f};
+    const float Q1[9] = {1.00000000000000000000E0f, 1.57799883256466749731E1f,
+                         4.53907635128879210584E1f, 4.13172038254672030440E1f,
+                         1.50425385692907503408E1f, 2.50464946208309415979E0f,
+                         -1.42182922854787788574E-1f,
+                         -3.80806407691578277194E-2f,
+                         -9.33259480895457427372E-4f};
+    x1 = z * polevl(z, P1) / polevl(z, Q1);
+  } else {
+    const float P2[9] = {3.23774891776946035970E0f, 6.91522889068984211695E0f,
+                         3.93881025292474443415E0f, 1.33303460815807542389E0f,
+                         2.01485389549179081538E-1f,
+                         1.23716634817820021358E-2f,
+                         3.01581553508235416007E-4f,
+                         2.65806974686737550832E-6f,
+                         6.23974539184983293730E-9f};
+    const float Q2[9] = {1.00000000000000000000E0f, 6.02427039364742014255E0f,
+                         3.67983563856160859403E0f, 1.37702099489081330271E0f,
+                         2.16236993594496635890E-1f,
+                         1.34204006088543189037E-2f,
+                         3.28014464682127739104E-4f,
+                         2.89247864745380683936E-6f,
+                         6.79019408009981274425E-9f};
+    x1 = z * polevl(z, P2) / polevl(z, Q2);
+  }
+  x = x0 - x1;
+  return code ? -x : x;
+}
+
+// ATen's erfcx_y100 at y100 = 400 / (4 + x), 0 <= x <= 50, float: it picks
+// one of 100 Chebyshev fits by (int)y100 and evaluates it in double at
+// t = 2 y100 - (2i + 1), itself rounded to float; the fits are good to double
+// precision, so the double library erfcx at the x that this rounded t stands
+// for, rounded to float, gives the same float.
+__device__ float at_erfcx_y100(float y100) {
+  const int i = (int)y100;
+  if (i >= 100) return 1.0f;
+  const float t = 2.0f * y100 - (float)(2 * i + 1);
+  const double y = ((double)t + (double)(2 * i + 1)) * 0.5;
+  return (float)erfcx(400.0 / y - 4.0);
+}
+
+// torch.special.log_ndtr on the card: ATen's jiterated form, below -1
+// log(erfcx(-t) / 2) - t*t with t = x / sqrt(2), the difference contracted
+// to an FMA as its compiler does (without it 25% of the arguments below -1
+// differ from PyTorch's, with it 1.8%, by an ulp or two, though erfcx and
+// the log agree with PyTorch's alone). Beyond erfcx's 50: its continued
+// fraction.
+__device__ float at_log_ndtr(float x) {
+  constexpr float c = 0.707106781186547524400844362104849039f;
+  const float t = x * c;
+  if (!(x < -1.0f)) return log1pf(-erfcf(t) / 2.0f);
+  const float mt = -t;
+  float ex;
+  if (mt > 50.0f) {
+    constexpr float ispi = 0.56418958354775628694807945156f;
+    if (mt > 5e7f) {
+      ex = ispi / mt;
+    } else {
+      const float x2 = mt * mt;
+      ex = ispi * __fmaf_rn(x2, __fmaf_rn(mt, mt, 4.5f), 2.0f) /
+           (mt * __fmaf_rn(x2, __fmaf_rn(mt, mt, 5.0f), 3.75f));
     }
-    s0 = warp_allsum(s0);
-    s1 = warp_allsum(s1);
-    if (kAccept) s2 = warp_allsum(s2);
-    if (lane == 0) {
-      out[k] = s0;
-      out[K + k] = s1;
-      if (kAccept) out[2 * K + k] = s2;
+  } else {
+    ex = at_erfcx_y100(400.0f / (4.0f + mt));
+  }
+  return __fmaf_rn(-t, t, logf(ex / 2.0f));
+}
+
+// ops/distributions.py::_ndtr: erfc in both tails, each op rounded alone
+__device__ float port_ndtr(float x) {
+  const float z = x * 0.7071067811865476f;
+  const float a = fabsf(z);
+  float y;
+  if (a < 0.7071067811865476f) {
+    y = 1.0f + erff(z);
+  } else {
+    y = z > 0.0f ? 2.0f - erfcf(a) : erfcf(a);
+  }
+  return 0.5f * y;
+}
+
+constexpr float kTiny = 1.1754944e-38f;
+constexpr float kHalfLog2Pi = 0.9189385332046727f;
+
+// ops/distributions.py::truncnorm_nonneg_from_u
+__device__ float tn_draw(float u1, float u2, float mu, float var) {
+  const float sd = sqrtf(var);
+  const float alpha = -mu / sd;
+  const float tail = port_ndtr(-alpha);
+  const float v = jmax(u1 * tail, kTiny);
+  const float z_icdf = jmax(-at_ndtri(v), alpha);
+  const float a_safe = jmax(alpha, 1.0f);
+  const float z_tail = a_safe - logf(jmax(u2, kTiny)) / a_safe;
+  const float z = alpha > 8.0f ? z_tail : z_icdf;
+  return jmax(mu + sd * z, 0.0f);
+}
+
+// ops/math.py::truncnorm_logpdf
+__device__ float tn_logpdf(float x, float mu, float var) {
+  const float sd = sqrtf(var);
+  const float z = (x - mu) / sd;
+  const float log_norm = (-0.5f * z) * z - logf(sd) - kHalfLog2Pi;
+  const float log_tail = at_log_ndtr(mu / sd);
+  return x >= 0.0f ? log_norm - log_tail : -INFINITY;
+}
+
+// What one entry of a column brings to its update: the current value, its
+// prior pair and prior draw, the three uniforms, A_n, and the two flags.
+struct Entry {
+  float old, mu0, sq0, prior_draw, u1, u2, u3, a_n;
+  bool inactive, accept_all;
+};
+
+// models/updates.py::_conditional on the sums of the first pass, and the
+// proposal: the conditional draw, or the prior draw of an inactive column
+__device__ void propose(const Entry& in, float mu1, float den_raw, float* mu,
+                        float* var, float* proposal) {
+  const float den2 = in.a_n * den_raw + 1.0f / in.sq0;
+  *mu = (mu1 + in.mu0 / in.sq0) / den2;
+  *var = 1.0f / den2;
+  const float cond = tn_draw(in.u1, in.u2, *mu, *var);
+  *proposal = in.inactive ? in.prior_draw : cond;
+}
+
+// The Hastings ratio from the sums of the second pass and _mh_accept, then
+// the excluded-column rule. Returns the entry's new value; *rec is what the
+// acceptance record takes (the old record for an excluded column), *nan
+// whether the ratio was a NaN (clamped to 0 and counted).
+__device__ float decide(const Entry& in, float mu, float var, float proposal,
+                        float lp, float mu1_r, float den_raw_r, float rec_old,
+                        float* rec, bool* nan) {
+  const float den2 = in.a_n * den_raw_r + 1.0f / in.sq0;
+  const float mu_r = (mu1_r + in.mu0 / in.sq0) / den2;
+  const float var_r = 1.0f / den2;
+  const float zn = proposal - in.mu0, zo = in.old - in.mu0;
+  const float delta = (-0.5f * (zn * zn - zo * zo)) / in.sq0;
+  float log_ratio = lp + delta + tn_logpdf(in.old, mu_r, var_r)
+                    - tn_logpdf(proposal, mu, var);
+  if (in.inactive) log_ratio = 0.0f;
+  const float ratio_raw = jmin(expf(log_ratio), 1.0f);
+  *nan = isnan(ratio_raw);
+  const float ratio = *nan ? 0.0f : ratio_raw;
+  const bool take = in.accept_all || in.u3 < ratio;
+  const bool excluded = in.a_n == 0.0f;
+  *rec = excluded ? rec_old : (in.accept_all ? 1.0f : ratio);
+  return excluded ? in.prior_draw : (take ? proposal : in.old);
+}
+
+// ---- the register tile -----------------------------------------------------
+// mh[u] = sum_n x[n] * y[u][n] for kUnroll rows y[u] at once, n in order,
+// float32, each product and sum rounded alone: x in registers, each row 16-byte
+// aligned in shared memory, both zero from N to NP (a padded term adds
+// 0 * 0). The kUnroll sums are independent chains of
+// dependent adds, interleaved so that one thread keeps the pipe busy.
+constexpr int kUnroll = 4;
+
+template <int NP>
+__device__ __forceinline__ void dot_ordered(const float (&x)[NP],
+                                            const float* const (&y)[kUnroll],
+                                            float (&mh)[kUnroll]) {
+#pragma unroll
+  for (int j = 0; j < NP / 4; ++j) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float4 v = reinterpret_cast<const float4*>(y[u])[j];
+      mh[u] = j == 0 ? x[0] * v.x : mh[u] + x[4 * j] * v.x;
+      mh[u] = mh[u] + x[4 * j + 1] * v.y;
+      mh[u] = mh[u] + x[4 * j + 2] * v.z;
+      mh[u] = mh[u] + x[4 * j + 3] * v.w;
     }
   }
 }
 
-// ---- E row: reductions over k, one thread per g ----------------------------
-// stats:  mu1 = sum_k (data - (Mh - pn*en)) / max(Mh, floor) * pn,
-//         den = sum_k 1/max(Mh, floor) * pn^2   (en = A_n * E_n)
-// accept: lp, mu1_r, den_r at lam_new = max(Mh_no + pn*prop, floor)
-// Writes out[(j*C + c)*G + g] directly.
-template <bool kAccept>
-__global__ void erow_kernel(const float* __restrict__ data,
-                            const float* __restrict__ E,
-                            const float* __restrict__ PA,
-                            const float* __restrict__ en,
-                            const float* __restrict__ pn,
-                            const float* __restrict__ prop,
-                            float* __restrict__ out, int C, int K, int N,
-                            int G, int Gt) {
-  extern __shared__ float smem[];
-  float* sPA = smem;
-  float* sE = smem + K * N;
-  const int t = blockIdx.x, c = blockIdx.y;
-  const int g0 = t * Gt;
-  stage(PA, E, sPA, sE, c, K, N, G, Gt, g0);
-  const int gl = threadIdx.x, g = g0 + gl;
-  if (g >= G) return;
-  const float e = en[(size_t)c * G + g];
-  const float q = kAccept ? prop[(size_t)c * G + g] : 0.0f;
-  const float* pn_c = pn + (size_t)c * K;
-  double s0 = 0.0, s1 = 0.0, s2 = 0.0;
-  for (int k = 0; k < K; ++k) {
-    const float p = pn_c[k], m = data[(size_t)k * G + g];
-    const float mh = mhat(sPA, sE, k, gl, N, Gt);
-    if (!kAccept) {
-      const float inv = 1.0f / jmax(mh, kFloor);
-      const float resid = m - (mh - p * e);
-      s0 += (double)((resid * inv) * p);
-      s1 += (double)(inv * (p * p));
+// The per-element terms of the two passes, summed in double.
+// stats (P column: other = en, own = pn*en; E row: other = pn):
+//   mu1 += (data - (Mh - own)) / max(Mh, floor) * other
+//   den += 1 / max(Mh, floor) * other^2
+// accept, at lam_new = max(Mh - own + own_new, floor):
+//   lp += data * log1p(d / lam) - d, and mu1_r, den_r at lam_new
+__device__ __forceinline__ void stats_terms(float m, float mh, float own,
+                                            float other, double* s0,
+                                            double* s1) {
+  const float inv = 1.0f / jmax(mh, kFloor);
+  const float resid = m - (mh - own);
+  *s0 += (double)((resid * inv) * other);
+  *s1 += (double)(inv * (other * other));
+}
+
+__device__ __forceinline__ void accept_terms(float m, float mh, float own,
+                                             float own_new, float other,
+                                             double* s0, double* s1,
+                                             double* s2) {
+  const float mh_no = mh - own;
+  const float lam = jmax(mh, kFloor);
+  const float lam_new = jmax(mh_no + own_new, kFloor);
+  const float d = lam_new - lam;
+  const float invr = 1.0f / lam_new;
+  const float resid = m - mh_no;
+  *s0 += (double)(m * log1pf(d / lam) - d);
+  *s1 += (double)((resid * invr) * other);
+  *s2 += (double)(invr * (other * other));
+}
+
+enum Mode { kStats = 0, kAccept = 1, kUpdate = 2 };
+
+// ---- E row: one thread per g ------------------------------------------------
+constexpr int kRowThreads = 128;
+
+struct ErowArgs {
+  const float* data;
+  float* E;          // read; row n written by an update
+  const float* PA;
+  // sums only: en (C, G) = A_n*E_n, pn (C, K) raw, prop (C, G) = A_n*proposal
+  const float *en, *pn, *prop;
+  float* out;        // sums only: (n_out, C, G)
+  // update: P (C, K, N), A (C, N), the acceptance record (C, N, G), the
+  // prior pair and prior draw (C, N, G), uniforms (C, 3, N, G), the warmup
+  // flags (C,) as floats, the NaN-clamp counts (C,)
+  const float *P, *A;
+  float* acc;
+  const float *mu0, *sq0, *prior_draw, *U, *accept_all;
+  int* nan;
+  int n;
+  int C, K, N, G;
+};
+
+__host__ __device__ inline int pad_rows(int K) {
+  return (K + kUnroll - 1) / kUnroll * kUnroll;
+}
+
+// Stage PA[c] as pad_rows(K) rows of NP floats, zero from N on and past K.
+template <int NP>
+__device__ void stage_pa(const float* PA, float* sPA, int c, int K, int N) {
+  const float* pa = PA + (size_t)c * K * N;
+  for (int i = threadIdx.x; i < pad_rows(K) * NP; i += blockDim.x) {
+    const int k = i / NP, n = i % NP;
+    sPA[i] = (k < K && n < N) ? pa[k * N + n] : 0.0f;
+  }
+}
+
+// E[c, :, g] in registers, zero from N on and for a thread past G.
+template <int NP>
+__device__ __forceinline__ void load_column(const float* e_c, int N, int G,
+                                            int g, bool live,
+                                            float (&e)[NP]) {
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    e[n] = (live && n < N) ? e_c[(size_t)n * G + g] : 0.0f;
+  }
+}
+
+template <int NP, int MODE>
+__global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
+  extern __shared__ float4 smem4[];
+  const int K = a.K, N = a.N, G = a.G;
+  float* sPA = reinterpret_cast<float*>(smem4);   // pad_rows(K) x NP
+  float* sP = sPA + pad_rows(K) * NP;             // K: the raw P column
+  const int c = blockIdx.y, tid = threadIdx.x;
+  const int g = blockIdx.x * kRowThreads + tid;
+  const bool live = g < G;
+
+  stage_pa<NP>(a.PA, sPA, c, K, N);
+  bool nz = false;  // some P_n[k]^2 != 0: the row is not inactive
+  for (int k = tid; k < K; k += kRowThreads) {
+    const float p = MODE == kUpdate ? a.P[((size_t)c * K + k) * N + a.n]
+                                    : a.pn[(size_t)c * K + k];
+    sP[k] = p;
+    nz |= p * p != 0.0f;
+  }
+  const bool inactive = !__syncthreads_or(nz);
+
+  const float* e_c = a.E + (size_t)c * N * G;
+  float e[NP];
+  load_column<NP>(e_c, N, G, g, live, e);
+  const size_t cg_at = (size_t)c * G + g;
+  const size_t row_at = ((size_t)c * N + a.n) * G + g;  // update only
+  Entry in;
+  float es = 0.0f;  // A_n * E_n[g]
+  if (live) {
+    if (MODE == kUpdate) {
+      in.a_n = a.A[(size_t)c * N + a.n];
+      in.old = e_c[(size_t)a.n * G + g];
+      es = in.a_n * in.old;
     } else {
-      const float mh_no = mh - p * e;
-      const float lam = jmax(mh, kFloor);
-      const float lam_new = jmax(mh_no + p * q, kFloor);
-      const float d = lam_new - lam;
-      const float invr = 1.0f / lam_new;
-      const float resid = m - mh_no;
-      s0 += (double)(m * log1pf(d / lam) - d);
-      s1 += (double)((resid * invr) * p);
-      s2 += (double)(invr * (p * p));
+      es = a.en[cg_at];
     }
   }
-  const size_t CG = (size_t)C * G, at = (size_t)c * G + g;
-  out[at] = (float)s0;
-  out[CG + at] = (float)s1;
-  if (kAccept) out[2 * CG + at] = (float)s2;
+
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0;
+  if (live && MODE != kAccept) {
+    for (int k0 = 0; k0 < K; k0 += kUnroll) {
+      float mh[kUnroll];
+      const float* rows[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) rows[u] = sPA + (k0 + u) * NP;
+      dot_ordered<NP>(e, rows, mh);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u;
+        if (k < K) {
+          const float p = sP[k];
+          stats_terms(a.data[(size_t)k * G + g], mh[u], p * es, p, &s0, &s1);
+        }
+      }
+    }
+  }
+  const size_t CG = (size_t)a.C * G;
+  if (MODE == kStats) {
+    if (live) {
+      a.out[cg_at] = (float)s0;
+      a.out[CG + cg_at] = (float)s1;
+    }
+    return;
+  }
+
+  float mu = 0.0f, var = 0.0f, proposal = 0.0f, q = 0.0f;
+  if (live) {
+    if (MODE == kUpdate) {
+      in.mu0 = a.mu0[row_at];
+      in.sq0 = a.sq0[row_at];
+      in.prior_draw = a.prior_draw[row_at];
+      const float* u = a.U + ((size_t)c * 3 * N + a.n) * G + g;
+      in.u1 = u[0];
+      in.u2 = u[(size_t)N * G];
+      in.u3 = u[(size_t)2 * N * G];
+      in.inactive = inactive;
+      in.accept_all = a.accept_all[c] != 0.0f;
+      propose(in, (float)s0, (float)s1, &mu, &var, &proposal);
+      q = in.a_n * proposal;
+    } else {
+      q = a.prop[cg_at];
+    }
+    s0 = s1 = 0.0;
+    // the Mhat column is rebuilt: keeping its K values in shared memory
+    // costs more in resident warps than the rebuild does in operations
+    for (int k0 = 0; k0 < K; k0 += kUnroll) {
+      float mh[kUnroll];
+      const float* rows[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) rows[u] = sPA + (k0 + u) * NP;
+      dot_ordered<NP>(e, rows, mh);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u;
+        if (k < K) {
+          const float p = sP[k];
+          accept_terms(a.data[(size_t)k * G + g], mh[u], p * es, p * q, p,
+                       &s0, &s1, &s2);
+        }
+      }
+    }
+  }
+  if (MODE == kAccept) {
+    if (live) {
+      a.out[cg_at] = (float)s0;
+      a.out[CG + cg_at] = (float)s1;
+      a.out[2 * CG + cg_at] = (float)s2;
+    }
+    return;
+  }
+  bool nan = false;
+  if (live) {
+    float rec;
+    a.E[row_at] = decide(in, mu, var, proposal, (float)s0, (float)s1,
+                         (float)s2, a.acc[row_at], &rec, &nan);
+    a.acc[row_at] = rec;
+  }
+  const int n_nan = __syncthreads_count(nan);
+  if (tid == 0 && n_nan) atomicAdd(a.nan + c, n_nan);
+}
+
+// ---- P column: tiles of G, then an ordered sum and the epilogue --------------
+// The sums of a row k run over all G of a chain. A tile kernel on a grid of
+// (G tiles, C) writes each tile's partial sums in double; a finishing kernel
+// with one block per chain adds the tiles in a fixed order and does what
+// follows the sums: it writes them out (the sums-only functions), or makes
+// the proposal (after the first pass), or takes the decision and writes the
+// column back (after the second).
+//
+// Inside a tile block a thread owns one row k, its P*A row in registers, and
+// a group of such rows owns every `groups`-th g of the tile; the E tile,
+// transposed, is read from shared memory as float4 broadcasts and the data
+// tile is staged with a padded stride. The sums of a row stay in its
+// thread's registers; the groups are added in order.
+constexpr int kColThreads = 384;
+constexpr int kColTile = 64;      // G width of a tile
+constexpr int kFinishThreads = 1024;
+constexpr int kFinishLoads = 8;   // tile partials a lane has in flight
+
+struct PcolArgs {
+  const float* data;
+  const float* E;
+  float* PA;         // read; column n written by an update
+  // sums only: en (C, G) raw, pn (C, K) = A_n*P_n, prop (C, K) = A_n*proposal
+  const float *en, *pn, *prop;
+  float* out;        // sums only: (n_out, C, K)
+  // update: P and the acceptance record (C, K, N), A (C, N), the prior pair
+  // and prior draw (C, K, N), uniforms (C, 3, N, K), warmup flags, counts
+  float* P;
+  const float* A;
+  float* acc;
+  const float *mu0, *sq0, *prior_draw, *U, *accept_all;
+  int* nan;
+  // the tiles' partial sums (C, K, 3, tiles) and, between an update's two
+  // passes, the scaled proposal, mu, var and the proposal (C, 4, K)
+  double* scratch;
+  float* work;
+  int n;
+  int C, K, N, G;
+};
+
+__host__ __device__ inline int col_rows(int K) {
+  const int r = (K + 31) / 32 * 32;
+  return r < kColThreads ? r : kColThreads;
+}
+
+// Shared memory of a tile block, in floats: the E tile transposed
+// (kColTile x NP), the group partials as doubles (groups x K x 3), the data
+// tile (K x (kColTile + 1)), en (kColTile), pn and the scaled proposal (K
+// each).
+__host__ __device__ inline size_t col_smem_floats(int K, int NP) {
+  const int groups = kColThreads / col_rows(K);
+  return (size_t)kColTile * NP + 2 * (size_t)groups * K * 3
+         + (size_t)K * (kColTile + 1) + kColTile + (size_t)2 * K;
+}
+
+template <int NP, int MODE, bool kSecond>
+__global__ void __launch_bounds__(kColThreads) pcol_tile_kernel(PcolArgs a) {
+  extern __shared__ float4 smem4[];
+  const int K = a.K, N = a.N, G = a.G;
+  constexpr int Gt = kColTile, ld = kColTile + 1;
+  constexpr int n_out = kSecond ? 3 : 2;
+  const int rows = col_rows(K), groups = kColThreads / rows;
+  float* sE = reinterpret_cast<float*>(smem4);
+  double* part = reinterpret_cast<double*>(sE + Gt * NP);
+  float* sData = reinterpret_cast<float*>(part + (size_t)groups * K * 3);
+  float* sEn = sData + (size_t)K * ld;
+  float* sPn = sEn + Gt;
+  float* sQ = sPn + K;
+  const int t = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  const int grp = tid / rows, kk = tid % rows;
+  const int g0 = t * Gt;
+  const int gcount = G - g0 < Gt ? G - g0 : Gt;
+
+  const float a_n = MODE == kUpdate ? a.A[(size_t)c * N + a.n] : 0.0f;
+  const float* en_c = MODE == kUpdate ? a.E + ((size_t)c * N + a.n) * G
+                                      : a.en + (size_t)c * G;
+  const float* e_c = a.E + (size_t)c * N * G;
+  const float* pa_c = a.PA + (size_t)c * K * N;
+  for (int i = tid; i < Gt * NP; i += kColThreads) {
+    const int n = i / Gt, gl = i % Gt, g = g0 + gl;
+    sE[gl * NP + n] = (n < N && g < G) ? e_c[(size_t)n * G + g] : 0.0f;
+  }
+  for (int i = tid; i < K * Gt; i += kColThreads) {
+    const int k = i / Gt, gl = i % Gt, g = g0 + gl;
+    sData[k * ld + gl] = g < G ? a.data[(size_t)k * G + g] : 0.0f;
+  }
+  for (int gl = tid; gl < Gt; gl += kColThreads) {
+    sEn[gl] = g0 + gl < G ? en_c[g0 + gl] : 0.0f;
+  }
+  for (int k = tid; k < K; k += kColThreads) {
+    if (MODE == kUpdate) {
+      sPn[k] = a_n * a.P[((size_t)c * K + k) * N + a.n];
+      if (kSecond) sQ[k] = a.work[(size_t)c * 4 * K + k];
+    } else {
+      sPn[k] = a.pn[(size_t)c * K + k];
+      if (kSecond) sQ[k] = a.prop[(size_t)c * K + k];
+    }
+  }
+  __syncthreads();
+
+  if (grp < groups) {
+    for (int k = kk; k < K; k += rows) {
+      float pa[NP];
+#pragma unroll
+      for (int n = 0; n < NP; ++n) pa[n] = n < N ? pa_c[k * N + n] : 0.0f;
+      const float pk = sPn[k];
+      const float qk = kSecond ? sQ[k] : 0.0f;
+      const float* dk = sData + k * ld;
+      double s0 = 0.0, s1 = 0.0, s2 = 0.0;
+      for (int gl0 = grp; gl0 < gcount; gl0 += kUnroll * groups) {
+        float mh[kUnroll];
+        const float* cols[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gl = gl0 + u * groups;
+          cols[u] = sE + (gl < gcount ? gl : gl0) * NP;
+        }
+        dot_ordered<NP>(pa, cols, mh);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gl = gl0 + u * groups;
+          if (gl < gcount) {
+            const float e = sEn[gl];
+            if (kSecond) {
+              accept_terms(dk[gl], mh[u], pk * e, qk * e, e, &s0, &s1, &s2);
+            } else {
+              stats_terms(dk[gl], mh[u], pk * e, e, &s0, &s1);
+            }
+          }
+        }
+      }
+      double* p = part + ((size_t)grp * K + k) * 3;
+      p[0] = s0;
+      p[1] = s1;
+      p[2] = s2;
+    }
+  }
+  __syncthreads();
+  // scratch[c][k * 3 + j][t]: the finishing kernel reads along t
+  double* out = a.scratch + (size_t)c * K * 3 * gridDim.x + t;
+  for (int i = tid; i < K * n_out; i += kColThreads) {
+    const int k = i / n_out, j = i % n_out;
+    double v = 0.0;
+    for (int gr = 0; gr < groups; ++gr) {
+      v += part[((size_t)gr * K + k) * 3 + j];
+    }
+    out[(size_t)(k * 3 + j) * gridDim.x] = v;
+  }
+}
+
+// What the finishing kernel does with the sums.
+enum Finish { kWriteSums = 0, kPropose = 1, kDecide = 2 };
+
+// One block per chain: the tiles' partials added in a fixed order (a warp
+// per sum, lanes striding over the tiles, then an xor butterfly), then the
+// epilogue. n_out = 2 after a first pass, 3 after a second.
+template <int FINISH>
+__global__ void __launch_bounds__(kFinishThreads)
+pcol_finish_kernel(PcolArgs a, int tiles, int n_out) {
+  extern __shared__ double tot[];  // K x 3
+  const int K = a.K, N = a.N, G = a.G;
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const double* sc = a.scratch + (size_t)c * K * 3 * tiles;
+  for (int i = warp; i < K * n_out; i += kFinishThreads / 32) {
+    const int k = i / n_out, j = i % n_out;
+    const double* row = sc + (size_t)(k * 3 + j) * tiles;
+    double v = 0.0;
+    for (int t0 = 0; t0 < tiles; t0 += 32 * kFinishLoads) {
+      double x[kFinishLoads];  // the loads first, then the adds in order
+#pragma unroll
+      for (int u = 0; u < kFinishLoads; ++u) {
+        const int t = t0 + 32 * u + lane;
+        x[u] = t < tiles ? row[t] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < kFinishLoads; ++u) v += x[u];
+    }
+    v = warp_allsum(v);
+    if (lane == 0) tot[k * 3 + j] = v;
+  }
+  if (FINISH == kWriteSums) {
+    __syncthreads();
+    for (int i = tid; i < K * n_out; i += kFinishThreads) {
+      const int k = i / n_out, j = i % n_out;
+      a.out[((size_t)j * a.C + c) * K + k] = (float)tot[k * 3 + j];
+    }
+    return;
+  }
+  // the column is inactive when its E row is all zero
+  const float* en_c = a.E + ((size_t)c * N + a.n) * G;
+  bool nz = false;
+#pragma unroll 4
+  for (int g = tid; g < G; g += kFinishThreads) {
+    const float v = en_c[g];
+    nz |= v * v != 0.0f;
+  }
+  const bool inactive = !__syncthreads_or(nz);
+  const float a_n = a.A[(size_t)c * N + a.n];
+  const bool accept_all = a.accept_all[c] != 0.0f;
+  float* work = a.work + (size_t)c * 4 * K;
+  int n_nan = 0;
+  for (int k = tid; k < K; k += kFinishThreads) {
+    const size_t at = ((size_t)c * K + k) * N + a.n;
+    const float* u = a.U + ((size_t)c * 3 * N + a.n) * K + k;
+    Entry in = {a.P[at], a.mu0[at], a.sq0[at], a.prior_draw[at], u[0],
+                u[(size_t)N * K], u[(size_t)2 * N * K], a_n, inactive,
+                accept_all};
+    if (FINISH == kPropose) {
+      float mu, var, proposal;
+      propose(in, (float)tot[3 * k], (float)tot[3 * k + 1], &mu, &var,
+              &proposal);
+      work[k] = a_n * proposal;
+      work[K + k] = mu;
+      work[2 * K + k] = var;
+      work[3 * K + k] = proposal;
+    } else {
+      float rec;
+      bool nan;
+      const float nv = decide(in, work[K + k], work[2 * K + k],
+                              work[3 * K + k], (float)tot[3 * k],
+                              (float)tot[3 * k + 1], (float)tot[3 * k + 2],
+                              a.acc[at], &rec, &nan);
+      a.P[at] = nv;
+      a.PA[at] = nv * a_n;
+      a.acc[at] = rec;
+      n_nan += nan;
+    }
+  }
+  if (n_nan) atomicAdd(a.nan + c, n_nan);
 }
 
 // Block-wide sum of one double per thread, in a fixed order: warp shuffles,
@@ -333,57 +905,165 @@ cudaError_t reduce(const double* scratch, float* out, int C, int T, int W,
 
 int n_tiles(int G, int Gt) { return (G + Gt - 1) / Gt; }
 
+// ---- launching ---------------------------------------------------------------
+
+// The widths the register tile is built for: N rounded up to a multiple of
+// 4 up to 24, then 32 and 64.
+constexpr int kMaxN = 64;
+
+template <int NP, int MODE>
+cudaError_t launch_erow(const ErowArgs& a, cudaStream_t s) {
+  const size_t smem = ((size_t)pad_rows(a.K) * NP + a.K) * sizeof(float);
+  cudaError_t e = allow_smem(erow_kernel<NP, MODE>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(n_tiles(a.G, kRowThreads), a.C);
+  erow_kernel<NP, MODE><<<grid, kRowThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// One pass over the tiles and its finishing kernel.
+template <int NP, int MODE, bool kSecond>
+cudaError_t launch_pcol_pass(const PcolArgs& a, cudaStream_t s) {
+  const size_t smem = col_smem_floats(a.K, NP) * sizeof(float);
+  cudaError_t e = allow_smem(pcol_tile_kernel<NP, MODE, kSecond>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = n_tiles(a.G, kColTile);
+  pcol_tile_kernel<NP, MODE, kSecond><<<dim3(tiles, a.C), kColThreads, smem,
+                                        s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  constexpr int FINISH = MODE != kUpdate ? kWriteSums
+                         : kSecond       ? kDecide
+                                         : kPropose;
+  const size_t fsmem = (size_t)a.K * 3 * sizeof(double);
+  if ((e = allow_smem(pcol_finish_kernel<FINISH>, fsmem)) != cudaSuccess) {
+    return e;
+  }
+  pcol_finish_kernel<FINISH><<<a.C, kFinishThreads, fsmem, s>>>(
+      a, tiles, kSecond ? 3 : 2);
+  return cudaGetLastError();
+}
+
+template <int NP, int MODE>
+cudaError_t launch_pcol(const PcolArgs& a, cudaStream_t s) {
+  if (MODE == kStats) return launch_pcol_pass<NP, kStats, false>(a, s);
+  if (MODE == kAccept) return launch_pcol_pass<NP, kAccept, true>(a, s);
+  const cudaError_t e = launch_pcol_pass<NP, kUpdate, false>(a, s);
+  if (e != cudaSuccess) return e;
+  return launch_pcol_pass<NP, kUpdate, true>(a, s);
+}
+
+// Pick the register tile's width for N and call launch_<which><NP, MODE>.
+#define DISPATCH_NP(N, CALL)                                              \
+  ((N) <= 4 ? CALL(4) : (N) <= 8 ? CALL(8) : (N) <= 12 ? CALL(12)         \
+   : (N) <= 16 ? CALL(16) : (N) <= 20 ? CALL(20) : (N) <= 24 ? CALL(24)   \
+   : (N) <= 32 ? CALL(32) : (N) <= kMaxN ? CALL(64) : cudaErrorInvalidValue)
+
+__global__ void special_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, int n, int which) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = x[i];
+  out[i] = which == 0 ? at_ndtri(v) : which == 1 ? at_log_ndtr(v)
+           : port_ndtr(v);
+}
+
 }  // namespace
 
-// P column. prop == nullptr: pcol_stats (2 outputs); else pcol_accept (3).
-// scratch: C * n_tiles * n_out * K doubles; out: n_out * C * K floats.
+// The four sums-only bodies. prop == nullptr: stats (2 outputs); else accept
+// (3). P column: out (n_out, C, K), scratch C * n_tiles(G, 64) * K * 3
+// doubles; E row: out (n_out, C, G).
 extern "C" int stream_pcol_launch(const float* data, const float* E,
                                   const float* PA, const float* en,
                                   const float* pn, const float* prop,
                                   double* scratch, float* out, int C, int K,
-                                  int N, int G, int Gt, void* stream) {
+                                  int N, int G, void* stream) {
+  PcolArgs a = {};
+  a.data = data; a.E = E; a.PA = const_cast<float*>(PA);
+  a.en = en; a.pn = pn; a.prop = prop; a.scratch = scratch; a.out = out;
+  a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(K, N, Gt);
-  const int T = n_tiles(G, Gt);
-  const dim3 grid(T, C);
-  cudaError_t e;
-  int n_out;
-  if (prop == nullptr) {
-    n_out = 2;
-    if ((e = allow_smem(pcol_kernel<false>, smem)) != cudaSuccess) return e;
-    pcol_kernel<false><<<grid, kThreads, smem, s>>>(data, E, PA, en, pn,
-                                                    prop, scratch, K, N, G,
-                                                    Gt);
-  } else {
-    n_out = 3;
-    if ((e = allow_smem(pcol_kernel<true>, smem)) != cudaSuccess) return e;
-    pcol_kernel<true><<<grid, kThreads, smem, s>>>(data, E, PA, en, pn, prop,
-                                                   scratch, K, N, G, Gt);
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return reduce(scratch, out, C, T, n_out * K, K, s);
+#define CALL_STATS(NP) launch_pcol<NP, kStats>(a, s)
+#define CALL_ACCEPT(NP) launch_pcol<NP, kAccept>(a, s)
+  return (int)(prop == nullptr ? DISPATCH_NP(N, CALL_STATS)
+                               : DISPATCH_NP(N, CALL_ACCEPT));
+#undef CALL_STATS
+#undef CALL_ACCEPT
 }
 
-// E row. prop == nullptr: erow_stats (2 outputs); else erow_accept (3).
-// Gt threads per block; out: n_out * C * G floats.
 extern "C" int stream_erow_launch(const float* data, const float* E,
                                   const float* PA, const float* en,
                                   const float* pn, const float* prop,
                                   float* out, int C, int K, int N, int G,
-                                  int Gt, void* stream) {
+                                  void* stream) {
+  ErowArgs a = {};
+  a.data = data; a.E = const_cast<float*>(E); a.PA = PA;
+  a.en = en; a.pn = pn; a.prop = prop; a.out = out;
+  a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(K, N, Gt);
-  const dim3 grid(n_tiles(G, Gt), C);
-  cudaError_t e;
-  if (prop == nullptr) {
-    if ((e = allow_smem(erow_kernel<false>, smem)) != cudaSuccess) return e;
-    erow_kernel<false><<<grid, Gt, smem, s>>>(data, E, PA, en, pn, prop, out,
-                                              C, K, N, G, Gt);
-  } else {
-    if ((e = allow_smem(erow_kernel<true>, smem)) != cudaSuccess) return e;
-    erow_kernel<true><<<grid, Gt, smem, s>>>(data, E, PA, en, pn, prop, out,
-                                             C, K, N, G, Gt);
+#define CALL_STATS(NP) launch_erow<NP, kStats>(a, s)
+#define CALL_ACCEPT(NP) launch_erow<NP, kAccept>(a, s)
+  return (int)(prop == nullptr ? DISPATCH_NP(N, CALL_STATS)
+                               : DISPATCH_NP(N, CALL_ACCEPT));
+#undef CALL_STATS
+#undef CALL_ACCEPT
+}
+
+// Columns n0 .. n1-1 of P, enqueued in order, each a pass over the tiles,
+// the proposal, a second pass and the decision: P, PA (= P*A on entry), the
+// acceptance record and the NaN-clamp counts are updated in place. scratch:
+// C * n_tiles(G, 64) * K * 3 doubles; work: C * 4 * K floats.
+extern "C" int stream_pcol_update_launch(
+    const float* data, const float* E, float* P, float* PA, const float* A,
+    float* acc, const float* mu0, const float* sq0, const float* prior_draw,
+    const float* U, const float* accept_all, int* nan, double* scratch,
+    float* work, int C, int K, int N, int G, int n0, int n1, void* stream) {
+  PcolArgs a = {};
+  a.scratch = scratch; a.work = work;
+  a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
+  a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
+  a.accept_all = accept_all; a.nan = nan;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_UPDATE(NP) launch_pcol<NP, kUpdate>(a, s)
+  for (int n = n0; n < n1; ++n) {
+    a.n = n;
+    const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
+    if (e != cudaSuccess) return (int)e;
   }
+#undef CALL_UPDATE
+  return 0;
+}
+
+// Rows n0 .. n1-1 of E, one launch each, enqueued in order: E, the
+// acceptance record and the NaN-clamp counts are updated in place.
+extern "C" int stream_erow_update_launch(
+    const float* data, float* E, const float* P, const float* PA,
+    const float* A, float* acc, const float* mu0, const float* sq0,
+    const float* prior_draw, const float* U, const float* accept_all,
+    int* nan, int C, int K, int N, int G, int n0, int n1, void* stream) {
+  ErowArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
+  a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
+  a.accept_all = accept_all; a.nan = nan;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_UPDATE(NP) launch_erow<NP, kUpdate>(a, s)
+  for (int n = n0; n < n1; ++n) {
+    a.n = n;
+    const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
+    if (e != cudaSuccess) return (int)e;
+  }
+#undef CALL_UPDATE
+  return 0;
+}
+
+// The epilogue's special functions on n floats, for checking them against
+// the PyTorch calls they reproduce: which = 0 torch.special.ndtri, 1
+// torch.special.log_ndtr, 2 ops/distributions.py::_ndtr.
+extern "C" int stream_special_launch(const float* x, float* out, int n,
+                                     int which, void* stream) {
+  special_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      x, out, n, which);
   return (int)cudaGetLastError();
 }
 

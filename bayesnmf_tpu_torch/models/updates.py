@@ -16,7 +16,7 @@ bayesnmf_tpu/models/updates.py:
   Mhat-based ``sweep_A`` (:786-835) of the conjugate path, and
   ``stream_sweep_A`` (:838-872);
 - the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725),
-  whose reductions are the kernels of ops/stream_sweeps.py.
+  whose column updates are the kernels of ops/stream_sweeps.py.
 
 On the streaming path every tensor carries a leading chain axis C and one
 call updates the whole ensemble; ``accept_all`` is a (C,) bool tensor, and
@@ -381,34 +381,15 @@ def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
 # ---------------------------------------------------------------------------
 
 
-def _mh_accept(log_ratio, u_acc, accept_all, inactive):
-    """The acceptance step shared by both sweeps (updates.py:611-628):
-    the prior-draw fallback always accepts, a NaN ratio is clamped to 0 and
-    counted, the warmup flag accepts everything. Returns (take, ratio_rec,
-    n_nan (C,))."""
-    log_ratio = torch.where(inactive, 0.0, log_ratio)
-    ratio_raw = torch.exp(log_ratio).clamp_max(1.0)
-    nan_mask = torch.isnan(ratio_raw)
-    n_nan = nan_mask.to(torch.float32).sum(-1)
-    ratio = torch.where(nan_mask, 0.0, ratio_raw)
-    acc = accept_all.view(-1, 1)
-    take = acc | (u_acc < ratio)
-    return take, torch.where(acc, 1.0, ratio), n_nan
-
-
-def _conditional(mu1, den, Mu_n, Sq_n):
-    den2 = den + 1.0 / Sq_n
-    return (mu1 + Mu_n / Sq_n) / den2, 1.0 / den2
-
-
 def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
                    accept_all, gen=None, noise=None):
     """Sequential exact-MH updates of the N columns of P with streamed
-    reductions (updates.py:539-636). ``noise``: {"prior_u": (C, 2, K, N),
+    reductions (updates.py:539-636), each column one call of
+    ops/stream_sweeps.stream_pcol_update's kernel; on the card nothing runs
+    between the column launches. ``noise``: {"prior_u": (C, 2, K, N),
     "u": (C, 3, N, K)}, the JAX draws of _prior_draw_P and of the sweep's
     uniforms. Returns (P, acc_P, n_nan (C,)); the inputs are not modified.
     """
-    E, A = params["E"], params["A"]
     P = params["P"].clone()
     acc_P = acc_P.clone()
     C, K, N = P.shape
@@ -417,34 +398,10 @@ def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
                                   low=dist._TINY),
                  "u": _rand(gen, (C, 3, N, K), P.device)}
     P_prior = _prior_draw_P(spec, prior, gen, noise["prior_u"])
-    U = noise["u"]
     n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
-    for n in range(N):
-        A_n = A[:, n:n + 1]
-        E_n = E[:, n, :].contiguous()
-        P_n = P[:, :, n].clone(memory_format=torch.contiguous_format)
-        PA = P * A.unsqueeze(1)
-        mu1, den_raw = S.pcol_stats(data, E, PA, E_n, A_n * P_n)
-        Mu_n, Sq_n = prior["Mu_p"][:, :, n], prior["Sigmasq_p"][:, :, n]
-        mu, var = _conditional(mu1, A_n * den_raw, Mu_n, Sq_n)
-        cond = dist.truncnorm_nonneg_from_u(U[:, 0, n], U[:, 1, n], mu, var)
-        prior_col = P_prior[:, :, n]
-        inactive = (E_n * E_n).sum(-1, keepdim=True) <= 0.0
-        proposal = torch.where(inactive, prior_col, cond)
-        lp_row, mu1_r, den_raw_r = S.pcol_accept(
-            data, E, PA, E_n, A_n * P_n, A_n * proposal)
-        mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, Mu_n, Sq_n)
-        log_ratio = (lp_row
-                     + m.truncnorm_logpdf_delta(proposal, P_n, Mu_n, Sq_n)
-                     + m.truncnorm_logpdf(P_n, mu_r, var_r)
-                     - m.truncnorm_logpdf(proposal, mu, var))
-        take, rec, nn = _mh_accept(log_ratio, U[:, 2, n], accept_all,
-                                   inactive)
-        n_nan = n_nan + nn
-        excluded = A_n == 0
-        P[:, :, n] = torch.where(excluded, prior_col,
-                                 torch.where(take, proposal, P_n))
-        acc_P[:, :, n] = torch.where(excluded, acc_P[:, :, n], rec)
+    S.stream_pcol_update(data, params["E"], P, params["A"], acc_P,
+                         prior["Mu_p"], prior["Sigmasq_p"], P_prior,
+                         noise["u"].contiguous(), accept_all, n_nan)
     return P, acc_P, n_nan
 
 
@@ -453,7 +410,6 @@ def stream_sweep_E(spec: ModelSpec, data, params: dict, prior: dict, acc_E,
     """Streaming mirror of stream_sweep_P over the rows of E
     (updates.py:639-725). ``noise``: {"prior_u": (C, 2, N, G),
     "u": (C, 3, N, G)}. Returns (E, acc_E, n_nan (C,))."""
-    P, A = params["P"], params["A"]
     E = params["E"].clone()
     acc_E = acc_E.clone()
     C, N, G = E.shape
@@ -462,32 +418,8 @@ def stream_sweep_E(spec: ModelSpec, data, params: dict, prior: dict, acc_E,
                                   low=dist._TINY),
                  "u": _rand(gen, (C, 3, N, G), E.device)}
     E_prior = _prior_draw_E(spec, prior, gen, noise["prior_u"])
-    U = noise["u"]
-    PA = P * A.unsqueeze(1)   # P is fixed through the E sweep
     n_nan = torch.zeros(C, dtype=torch.float32, device=E.device)
-    for n in range(N):
-        A_n = A[:, n:n + 1]
-        P_n = P[:, :, n].contiguous()
-        E_n = E[:, n, :].clone(memory_format=torch.contiguous_format)
-        mu1, den_raw = S.erow_stats(data, E, PA, A_n * E_n, P_n)
-        Mu_n, Sq_n = prior["Mu_e"][:, n, :], prior["Sigmasq_e"][:, n, :]
-        mu, var = _conditional(mu1, A_n * den_raw, Mu_n, Sq_n)
-        cond = dist.truncnorm_nonneg_from_u(U[:, 0, n], U[:, 1, n], mu, var)
-        prior_row = E_prior[:, n, :]
-        inactive = (P_n * P_n).sum(-1, keepdim=True) <= 0.0
-        proposal = torch.where(inactive, prior_row, cond)
-        lp_col, mu1_r, den_raw_r = S.erow_accept(
-            data, E, PA, A_n * E_n, P_n, A_n * proposal)
-        mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, Mu_n, Sq_n)
-        log_ratio = (lp_col
-                     + m.truncnorm_logpdf_delta(proposal, E_n, Mu_n, Sq_n)
-                     + m.truncnorm_logpdf(E_n, mu_r, var_r)
-                     - m.truncnorm_logpdf(proposal, mu, var))
-        take, rec, nn = _mh_accept(log_ratio, U[:, 2, n], accept_all,
-                                   inactive)
-        n_nan = n_nan + nn
-        excluded = A_n == 0
-        E[:, n, :] = torch.where(excluded, prior_row,
-                                 torch.where(take, proposal, E_n))
-        acc_E[:, n, :] = torch.where(excluded, acc_E[:, n, :], rec)
+    S.stream_erow_update(data, E, params["P"], params["A"], acc_E,
+                         prior["Mu_e"], prior["Sigmasq_e"], E_prior,
+                         noise["u"].contiguous(), accept_all, n_nan)
     return E, acc_E, n_nan

@@ -5,8 +5,9 @@ N sequential inclusion updates of A.
 
 Port of bayesnmf_tpu/ops/pallas_sweeps.py. ``fused_gibbs_sweeps`` keeps the
 JAX signature and return tuple (pallas_sweeps.py:370-446). On CUDA tensors it
-launches the hand-written kernel csrc/fused_sweeps.cu (one thread block per
-chain) or raises; on CPU tensors it runs ``fused_gibbs_sweeps_reference``,
+launches the hand-written kernel csrc/fused_sweeps.cu (one thread-block
+cluster per chain, ``cluster_config``) or raises; on CPU tensors it runs
+``fused_gibbs_sweeps_reference``,
 the same function in plain PyTorch, which consumes the same uniforms in the
 same order.
 
@@ -51,6 +52,55 @@ def sbfi_penalty(K: int, G: int) -> float:
     return float(np.float32((G + K) * math.log(G) / 2.0))
 
 
+# the kernel's block: threads, warps, and what a block can opt in to on an
+# H100
+_THREADS = 512
+_WARPS = _THREADS // 32
+_SMEM_MAX_BYTES = 227 * 1024
+# columns of G a block should own before a chain is split further (a warp's
+# lanes stride over them), and the blocks the card keeps resident as clusters
+# of 16 (7 of them at this kernel's shared memory)
+_G_PER_BLOCK = 32
+_RESIDENT_BLOCKS = 112
+
+
+def _fixed_smem_bytes(K: int, N: int, S: int) -> int:
+    """Shared memory of a block beside its slices (fixed_smem_bytes in
+    csrc/fused_sweeps.cu): the pushed partials, the E-row partials and the
+    block-sum scratch as doubles; P and its prior pair, the per-row and
+    per-column vectors, A, the NaN counts and the flags as floats."""
+    doubles = S * K * 5 + 2 * S + _WARPS + _THREADS * 3
+    floats = 3 * K * N + 4 * K + 3 * _THREADS + N + _THREADS + 2 * S
+    return 8 * doubles + 4 * floats
+
+
+def cluster_config(K: int, N: int, G: int, C: int = 1):
+    """(blocks per chain, E slice resident, data and Mhat slices resident)
+    of the kernel for C chains of a (K, N, G) problem. A chain is one
+    thread-block cluster whose blocks split G: the smallest of 1, 2, 4, 8,
+    16 blocks that leaves a block at most 32 columns (16 beyond G = 512),
+    halved while the C chains' blocks together exceed what the card keeps
+    resident. With Gq = ceil(G / S), a block's slice of E (N * Gq floats)
+    and then its slices of data and Mhat (2 * K * Gq floats) stay in shared
+    memory when they fit beside the rest in the 227 KB a block can have:
+    the latter up to about K * Gq = 17000 at N = 8 (96 x 2780 fits on 16
+    blocks, 96 x 4000 does not); what does not fit the kernel reads in
+    global memory."""
+    S = 1
+    while S < 16 and -(-G // S) > _G_PER_BLOCK:
+        S *= 2
+    while S > 1 and C * S > _RESIDENT_BLOCKS:
+        S //= 2
+    Gq = -(-G // S)
+    need = _fixed_smem_bytes(K, N, S)
+    if need > _SMEM_MAX_BYTES:
+        raise ValueError(
+            f"fused_gibbs_sweeps: K = {K}, N = {N} need {need} bytes of "
+            "shared memory a block, more than the SM has")
+    e_resident = need + 4 * N * Gq <= _SMEM_MAX_BYTES
+    if e_resident:
+        need += 4 * N * Gq
+    return S, e_resident, e_resident and need + 8 * K * Gq <= _SMEM_MAX_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -320,8 +370,9 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # 22 input pointers; hyper-sweep, prior, exact, rank codes and the SBFI
-# penalty; 12 output pointers; C K N G; the stream
-_ARGTYPES = ([_P] * 22 + [_I] * 4 + [ctypes.c_float] + [_P] * 12 + [_I] * 4
+# penalty; 12 output pointers; C K N G, the cluster size and whether the
+# slices are resident; the stream
+_ARGTYPES = ([_P] * 22 + [_I] * 4 + [ctypes.c_float] + [_P] * 12 + [_I] * 6
              + [_P])
 
 
@@ -337,6 +388,7 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
         fn.restype = ctypes.c_int
     C, K, N = P.shape
     G = E.shape[2]
+    cluster, e_resident, resident = cluster_config(K, N, G, C)
     outs = [torch.empty_like(t) for t in
             (P, E, Mhat, acc_P, acc_E, A)]
     R = torch.empty(C, dtype=torch.float32, device=P.device)
@@ -353,7 +405,8 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
                  *hu_ptrs, int(hyper), PRIORS[prior_kind], int(exact_mh),
                  RANK_METHODS[rank_method], sbfi_penalty(K, G),
                  *map(ptr, outs), ptr(R), ptr(nan), *map(ptr, hps),
-                 C, K, N, G, torch.cuda.current_stream().cuda_stream)
+                 C, K, N, G, cluster, int(resident) + 2 * int(e_resident),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_gibbs_sweeps kernel launch failed: "
                            f"cudaError {err}")

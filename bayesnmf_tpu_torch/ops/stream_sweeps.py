@@ -7,7 +7,13 @@ the Mhat tile from ``PA = P * A`` and an E tile and returns only reductions:
   (``_run`` with col=True);
 - ``erow_stats`` / ``erow_accept``: one E row's sums over K (col=False);
 - ``acol_delta``: loglik(A_n = 1) - loglik(A_n = 0) for one column;
-- ``chain_metrics``: the four data-dependent sums of the metrics row.
+- ``chain_metrics``: the four data-dependent sums of the metrics row;
+- ``stream_pcol_update`` / ``stream_erow_update``: whole column updates of
+  the exact-MH sweeps (the sums, the conditional, the draw, the Hastings
+  ratio, the decision and the write-back of the JAX package's
+  models/updates.py::stream_sweep_P/E, :539-725) in kernels: one launch per
+  E row; two passes over the G tiles per P column, each followed by a small
+  finishing kernel; the launches of a sweep enqueued by one C call.
 
 The signatures and the pre-scaling contract are the JAX package's
 (pallas_stream_sweeps.py:357-359): P-column functions take ``pn = A_n*P_n``
@@ -22,9 +28,19 @@ version below, which evaluates every per-element term in the kernel's order
 and sums in float64, tile by tile, as the kernel does.
 
 Tolerance between kernel and plain version on the card: rtol 1e-6 and
-atol 1e-6 (``KERNEL_RTOL``/``KERNEL_ATOL``): each per-element term rounds
-the same way in both, and the float64 sums differ only in their order, so
-the float32 results differ by at most an ulp or two.
+atol 1e-6 (``KERNEL_RTOL``/``KERNEL_ATOL``) for the sums: each per-element
+term rounds the same way in both, and the float64 sums differ only in their
+order, so the float32 results differ by at most an ulp or two. A column
+update must take the same decisions as its plain version. Its values are
+held to rtol 1e-5 and atol 1e-6 (``UPDATE_RTOL``/``UPDATE_ATOL``): an ulp
+in a sum moves the conditional's mean by an ulp, and a draw mu + sd*z near
+0 keeps the absolute rounding of mu. Its recorded acceptances (the Hastings
+ratio) are held to rtol 1e-4 (``RATIO_RTOL``): the kernel's log_ndtr differs
+from PyTorch's by an ulp or two at some arguments below -1, and where the
+log-likelihood part of the log ratio is ~1e3 one ulp of the sum is 6e-5.
+
+Limits of the kernels: N <= 64 (the register tile), and K small enough for
+the tiles to fit an SM's shared memory (K <= ~1000 at N <= 24).
 """
 
 from __future__ import annotations
@@ -33,6 +49,9 @@ import ctypes
 
 import torch
 
+from . import distributions as dist
+from . import math as m
+
 _FLOOR = 1e-6
 # a plain-version tile: bounds the (C, K, tile) temporaries on the CPU
 _PLAIN_TILE = 4096
@@ -40,9 +59,19 @@ _PLAIN_TILE = 4096
 # staged in shared memory
 _KERNEL_TILE = 256
 _SMEM_BYTES = 48 * 1024
+# what a block can opt in to on an H100
+_SMEM_MAX_BYTES = 227 * 1024
+# threads of a P-column tile block
+_COL_THREADS = 384
+# G width of a P-column tile
+_COL_TILE = 64
+_MAX_N = 64
 
 KERNEL_RTOL = 1e-6
 KERNEL_ATOL = 1e-6
+UPDATE_RTOL = 1e-5
+UPDATE_ATOL = 1e-6
+RATIO_RTOL = 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +188,87 @@ def chain_metrics_reference(data, E, PA):
     return tuple(a.to(torch.float32) for a in acc)
 
 
+def _mh_accept(log_ratio, u_acc, accept_all, inactive):
+    """The acceptance step shared by both sweeps (updates.py:611-628 of the
+    JAX package): the prior-draw fallback always accepts, a NaN ratio is
+    clamped to 0 and counted, the warmup flag accepts everything. Returns
+    (take, ratio_rec, n_nan (C,))."""
+    log_ratio = torch.where(inactive, 0.0, log_ratio)
+    ratio_raw = torch.exp(log_ratio).clamp_max(1.0)
+    nan_mask = torch.isnan(ratio_raw)
+    n_nan = nan_mask.to(torch.float32).sum(-1)
+    ratio = torch.where(nan_mask, 0.0, ratio_raw)
+    acc = accept_all.view(-1, 1)
+    take = acc | (u_acc < ratio)
+    return take, torch.where(acc, 1.0, ratio), n_nan
+
+
+def _conditional(mu1, den, Mu_n, Sq_n):
+    den2 = den + 1.0 / Sq_n
+    return (mu1 + Mu_n / Sq_n) / den2, 1.0 / den2
+
+
+def _column_update(sums, old, A_n, other_sq, Mu_n, Sq_n, prior_n, u, rec_old,
+                   accept_all):
+    """One column's update from its two sets of sums: ``sums(prop_scaled)``
+    returns the stats (prop None) or the accept sums. ``old``, the prior
+    pair, the prior draw and ``rec_old`` are (C, L); ``u`` (C, 3, L); A_n
+    (C, 1); ``other_sq`` (C, 1) the other factor's sum of squares, whose
+    vanishing makes the column inactive. Returns (new, rec, n_nan (C,))."""
+    mu1, den_raw = sums(None)
+    mu, var = _conditional(mu1, A_n * den_raw, Mu_n, Sq_n)
+    cond = dist.truncnorm_nonneg_from_u(u[:, 0], u[:, 1], mu, var)
+    inactive = other_sq <= 0.0
+    proposal = torch.where(inactive, prior_n, cond)
+    lp, mu1_r, den_raw_r = sums(A_n * proposal)
+    mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, Mu_n, Sq_n)
+    log_ratio = (lp
+                 + m.truncnorm_logpdf_delta(proposal, old, Mu_n, Sq_n)
+                 + m.truncnorm_logpdf(old, mu_r, var_r)
+                 - m.truncnorm_logpdf(proposal, mu, var))
+    take, rec, nn = _mh_accept(log_ratio, u[:, 2], accept_all, inactive)
+    excluded = A_n == 0
+    new = torch.where(excluded, prior_n, torch.where(take, proposal, old))
+    return new, torch.where(excluded, rec_old, rec), nn
+
+
+def pcol_update_reference(data, E, P, A, acc_P, Mu_p, Sigmasq_p, P_prior, U,
+                          accept_all, n_nan, n: int):
+    """Plain version of one P-column update (column ``n``), in place on P,
+    acc_P and n_nan: the host sequence of the JAX package's stream_sweep_P
+    body on chain-batched operands."""
+    A_n = A[:, n:n + 1]
+    E_n = E[:, n, :].contiguous()
+    P_n = P[:, :, n].clone(memory_format=torch.contiguous_format)
+    PA = P * A.unsqueeze(1)
+    new, rec, nn = _column_update(
+        lambda q: run_reference(data, E, PA, E_n, A_n * P_n, q, True),
+        P_n, A_n, (E_n * E_n).sum(-1, keepdim=True), Mu_p[:, :, n],
+        Sigmasq_p[:, :, n], P_prior[:, :, n], U[:, :, n], acc_P[:, :, n],
+        accept_all)
+    P[:, :, n] = new
+    acc_P[:, :, n] = rec
+    n_nan += nn
+
+
+def erow_update_reference(data, E, P, A, acc_E, Mu_e, Sigmasq_e, E_prior, U,
+                          accept_all, n_nan, n: int):
+    """Plain version of one E-row update (row ``n``), in place on E, acc_E
+    and n_nan: the host sequence of the JAX package's stream_sweep_E body."""
+    A_n = A[:, n:n + 1]
+    P_n = P[:, :, n].contiguous()
+    E_n = E[:, n, :].clone(memory_format=torch.contiguous_format)
+    PA = P * A.unsqueeze(1)
+    new, rec, nn = _column_update(
+        lambda q: run_reference(data, E, PA, A_n * E_n, P_n, q, False),
+        E_n, A_n, (P_n * P_n).sum(-1, keepdim=True), Mu_e[:, n, :],
+        Sigmasq_e[:, n, :], E_prior[:, n, :], U[:, :, n], acc_E[:, n, :],
+        accept_all)
+    E[:, n, :] = new
+    acc_E[:, n, :] = rec
+    n_nan += nn
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -166,20 +276,58 @@ def chain_metrics_reference(data, E, PA):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "stream_pcol_launch": [_P] * 8 + [_I] * 5 + [_P],
-    "stream_erow_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "stream_pcol_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "stream_erow_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "stream_pcol_update_launch": [_P] * 14 + [_I] * 6 + [_P],
+    "stream_erow_update_launch": [_P] * 12 + [_I] * 6 + [_P],
+    "stream_special_launch": [_P] * 2 + [_I] * 2 + [_P],
     "stream_acol_launch": [_P] * 8 + [_I] * 5 + [_P],
     "stream_metrics_launch": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 
 def kernel_tile(K: int, N: int) -> int:
-    """G width of a kernel's tile: 256, halved until PA and the E tile fit
-    the 48 KB of shared memory a block gets without opting in."""
+    """G width of an A-column or metrics tile: 256, halved until PA and the
+    E tile fit the 48 KB of shared memory a block gets without opting in."""
     gt = _KERNEL_TILE
     while gt > 32 and (K * N + N * gt) * 4 > _SMEM_BYTES:
         gt //= 2
     return gt
+
+
+def tile_width(N: int) -> int:
+    """Width of the register tile a column kernel is built with for N
+    components: N rounded up to a multiple of 4 up to 24, then 32 and 64."""
+    if N > _MAX_N:
+        raise ValueError(f"stream_sweeps: the column kernels hold a column "
+                         f"of N components in registers, N <= {_MAX_N}; got "
+                         f"N = {N}")
+    return -(-N // 4) * 4 if N <= 24 else 32 if N <= 32 else 64
+
+
+def _col_scratch(C: int, K: int, N: int, G: int, device):
+    """The P-column tile kernel's partial sums, (C, K, 3, tiles) doubles
+    that the finishing kernel adds in order. Raises when a tile block's
+    shared memory (col_smem_floats in csrc/stream_sweeps.cu: the E tile,
+    the group partials as doubles, the data tile with a padded stride, the
+    per-row vectors) does not fit the SM."""
+    rows = min(-(-K // 32) * 32, _COL_THREADS)
+    groups = _COL_THREADS // rows
+    gt = _COL_TILE
+    need = 4 * (gt * tile_width(N) + 2 * groups * K * 3 + K * (gt + 1) + gt
+                + 2 * K)
+    if need > _SMEM_MAX_BYTES:
+        raise ValueError(f"stream_sweeps: K = {K} rows do not fit a "
+                         "P-column block's shared memory")
+    return torch.empty(C * _n_tiles(G, gt) * K * 3, dtype=torch.float64,
+                       device=device)
+
+
+def _check_row_fits(K: int, N: int):
+    need = 4 * ((K + 3) * tile_width(N) + K)
+    if need > _SMEM_MAX_BYTES:
+        raise ValueError(f"stream_sweeps: K = {K} rows do not fit an E-row "
+                         "block's shared memory")
 
 
 def _fn(name):
@@ -208,20 +356,39 @@ def _n_tiles(G, gt):
 def _launch_run(data, E, PA, en, pn, prop, col):
     C, K, N = PA.shape
     G = E.shape[2]
-    gt = kernel_tile(K, N)
     n_out = 2 if prop is None else 3
     dev = PA.device
     if col:
-        scratch = torch.empty(C * _n_tiles(G, gt) * n_out * K,
-                              dtype=torch.float64, device=dev)
         out = torch.empty(n_out, C, K, dtype=torch.float32, device=dev)
-        _call("stream_pcol_launch", data, E, PA, en, pn, prop, scratch, out,
-              C, K, N, G, gt)
+        _call("stream_pcol_launch", data, E, PA, en, pn, prop,
+              _col_scratch(C, K, N, G, dev), out, C, K, N, G)
     else:
+        _check_row_fits(K, N)
         out = torch.empty(n_out, C, G, dtype=torch.float32, device=dev)
         _call("stream_erow_launch", data, E, PA, en, pn, prop, out, C, K, N,
-              G, gt)
+              G)
     return tuple(out)
+
+
+def _launch_update(col, data, E, P, A, acc, Mu, Sq, prior_draw, U,
+                   accept_all, n_nan, n0, n1):
+    """Enqueue the launches of columns n0..n1-1 with one C call; P (or E),
+    the acceptance record and n_nan change in place."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    PA = P * A.unsqueeze(1)
+    flags = accept_all.to(torch.float32)
+    nan = torch.zeros(C, dtype=torch.int32, device=P.device)
+    if col:
+        work = torch.empty(C * 4 * K, dtype=torch.float32, device=P.device)
+        _call("stream_pcol_update_launch", data, E, P, PA, A, acc, Mu, Sq,
+              prior_draw, U, flags, nan, _col_scratch(C, K, N, G, P.device),
+              work, C, K, N, G, n0, n1)
+    else:
+        _check_row_fits(K, N)
+        _call("stream_erow_update_launch", data, E, P, PA, A, acc, Mu, Sq,
+              prior_draw, U, flags, nan, C, K, N, G, n0, n1)
+    n_nan += nan
 
 
 def _launch_acol(data, E, PA, en, pn, an):
@@ -361,6 +528,77 @@ def chain_metrics(data, E, PA):
 
 
 chain_metrics.launches = 0
+
+
+def _update(fn, col, data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
+            n_nan, n0, n1):
+    C, K, N = P.shape
+    G = E.shape[2]
+    dev = P.device
+    side = (C, K, N) if col else (C, N, G)
+    _check(fn, "data", data, (K, G), dev)
+    for name, t, shape in (
+            ("E", E, (C, N, G)), ("P", P, (C, K, N)), ("A", A, (C, N)),
+            ("acc", acc, side), ("Mu", Mu, side), ("Sigmasq", Sq, side),
+            ("prior_draw", prior_draw, side),
+            ("U", U, (C, 3, N, K if col else G)), ("n_nan", n_nan, (C,))):
+        _check(fn, name, t, shape, dev)
+    if accept_all.dtype != torch.bool or tuple(accept_all.shape) != (C,) \
+            or accept_all.device != dev:
+        raise ValueError(f"{fn}: accept_all must be a (C,) bool tensor on "
+                         f"{dev}")
+    n1 = N if n1 is None else n1
+    if not 0 <= n0 <= n1 <= N:
+        raise ValueError(f"{fn}: columns {n0}..{n1} out of 0..{N}")
+    if dev.type == "cpu":
+        plain = pcol_update_reference if col else erow_update_reference
+        for n in range(n0, n1):
+            plain(data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
+                  n_nan, n)
+    elif dev.type == "cuda":
+        _launch_update(col, data, E, P, A, acc, Mu, Sq, prior_draw, U,
+                       accept_all, n_nan, n0, n1)
+        _run.launches += (2 if col else 1) * (n1 - n0)
+    else:
+        raise ValueError(f"{fn}: no path for device {dev}")
+
+
+def stream_pcol_update(data, E, P, A, acc_P, Mu_p, Sigmasq_p, P_prior, U,
+                       accept_all, n_nan, n0: int = 0, n1=None):
+    """Exact-MH updates of columns n0..n1-1 of P (all N by default), in
+    order and in place on P (C, K, N), acc_P (C, K, N) and n_nan (C,), which
+    gains the count of NaN ratios clamped to 0. Mu_p, Sigmasq_p: the prior
+    pair; P_prior: the prior draw an inactive or excluded column takes; U
+    (C, 3, N, K): the proposal's two uniforms and the acceptance uniform of
+    every column; accept_all (C,) bool. On the card: two passes over the G
+    tiles per column (counted in ``_run.launches``), each with its finishing
+    kernel, all enqueued by one C call."""
+    _update("stream_pcol_update", True, data, E, P, A, acc_P, Mu_p,
+            Sigmasq_p, P_prior, U, accept_all, n_nan, n0, n1)
+
+
+def stream_erow_update(data, E, P, A, acc_E, Mu_e, Sigmasq_e, E_prior, U,
+                       accept_all, n_nan, n0: int = 0, n1=None):
+    """The mirror for rows n0..n1-1 of E, in place on E (C, N, G), acc_E
+    and n_nan; the prior operands are (C, N, G) and U (C, 3, N, G). On the
+    card: one launch per row (counted in ``_run.launches``)."""
+    _update("stream_erow_update", False, data, E, P, A, acc_E, Mu_e,
+            Sigmasq_e, E_prior, U, accept_all, n_nan, n0, n1)
+
+
+def special_functions(x, which: str):
+    """The kernels' own ``ndtri``, ``log_ndtr`` or ``ndtr`` on a float32
+    CUDA tensor, for holding them against torch.special.ndtri,
+    torch.special.log_ndtr and ops/distributions._ndtr, whose bits a column
+    update's draw and ratio depend on."""
+    _check("special_functions", "x", x, x.shape, x.device)
+    if x.device.type != "cuda":
+        raise ValueError("special_functions: the kernels' functions exist "
+                         "on the card only")
+    out = torch.empty_like(x)
+    _call("stream_special_launch", x, out, x.numel(),
+          ("ndtri", "log_ndtr", "ndtr").index(which))
+    return out
 
 
 def reset_launch_counts():

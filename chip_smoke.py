@@ -8,19 +8,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card (nvidia-smi name and power limit), torch's CUDA and nvcc;
 2. build the kernels from bayesnmf_tpu_torch/csrc (one nvcc per source,
    all started together);
-3. the fused-sweep kernel against its plain PyTorch version on the card, on
-   the same inputs and uniforms (truncnormal prior, fixed rank), at (K,N,G) = (96,8,500), (96,8,2780),
-   (7,2,37) and a 4-chain batch at (96,8,500), each with accept_all True
-   and False, and two options the main path does not take (an excluded
-   column A_n = 0; no hyper-sweep): every output within rtol 1e-4 /
-   atol 1e-5, the same accept/reject decisions, and bit-identical outputs
-   on two launches;
+3. the fused-sweep kernel (one thread-block cluster per chain) against its
+   plain PyTorch version on the card, on the same inputs and uniforms
+   (truncnormal prior, fixed rank), at (K,N,G) = (96,8,500), (96,8,2780),
+   (7,2,37), a 4-chain batch at (96,8,500), (96,8,1003) (G not divisible by
+   the cluster) and (96,8,4000) (slices too large for shared memory), each
+   with accept_all True and False, and two options the main path does not
+   take (an excluded column A_n = 0; no hyper-sweep): every output within
+   rtol 1e-4 / atol 1e-5, the same accept/reject decisions, and
+   bit-identical outputs on two launches; the cluster size and where the
+   slices sit are printed per case;
 3b. each streaming kernel (the four bodies of ``_run``, ``acol_delta``,
    ``chain_metrics``) against its plain PyTorch version at (K,N,G,C) =
    (96,20,10000,8), (96,20,25000,2), (7,3,37,2) and (16,3,300,2) with an
    excluded column: max abs and rel diff per output within the tolerance
    stated in ops/stream_sweeps.py, bit-identical on two launches, and each
-   timed with CUDA events at (96,20,10000,8) beside its plain version;
+   timed at (96,20,10000,8), on the device (torch.profiler) and per call
+   through its wrapper (CUDA events), beside its plain version; the
+   kernels' ndtri, log_ndtr and ndtr against the PyTorch calls on 4M
+   arguments each; and the column updates ``stream_pcol_update`` and
+   ``stream_erow_update`` against the host sequence, column by column from
+   the same state, at those shapes, with an excluded column, inactive
+   columns, warmup flags mixed across chains and conditionals deep in the
+   truncated tail: values and recorded acceptances within the tolerances
+   of ops/stream_sweeps.py, NaN counts equal, no decision different, two
+   launches bit-identical, one call for a sweep equal to its columns one by
+   one; timed per column at (96,20,10000,8);
 4. the fixed-rank slice: ``bayesnmf_tpu_torch.fit`` on a 96x500 rank-8
    synthetic catalogue on the card, checking that the state stayed on the
    card, the metrics are finite, the kernel ran once per iteration, the MAP
@@ -90,8 +103,11 @@ RTOL, ATOL = 1e-4, 1e-5
 KERNEL_CASES = [(96, 8, 500, 1, None, True), (96, 8, 2780, 1, None, True),
                 (7, 2, 37, 1, None, True), (96, 8, 500, 4, None, True),
                 (16, 3, 24, 1, (1.0, 0.0, 1.0), True),
-                (7, 2, 37, 1, None, False)]
-TIMED_SHAPES = [(96, 8, 500, 1), (96, 8, 2780, 1)]
+                (7, 2, 37, 1, None, False),
+                # G not divisible by the cluster; slices too large for
+                # shared memory
+                (96, 8, 1003, 1, None, True), (96, 8, 4000, 1, None, True)]
+TIMED_SHAPES = [(96, 8, 500, 1), (96, 8, 2780, 1), (96, 8, 4000, 1)]
 _ARGS = ("data", "P", "E", "A", "Mhat", "acc_P", "acc_E", "Upr_P", "Upr_E",
          "Up_P", "Ua_P", "Up_E", "Ua_E", "hp0_p", "hp1_p", "hp0_e", "hp1_e",
          "rank_pack")
@@ -212,7 +228,13 @@ def check_sweep_case(torch, FS, t, C, case, accept_all, hyper=True, **kw):
     check(torch.equal(k1[5], p[5]) and torch.equal(k1[6], p[6]),
           f"A or R differ at {case}")
     worst = max(errs.values())
-    print(f"kernel vs plain {case} accept_all={accept_all}: max abs diff "
+    K, N = t["P"].shape[-2:]
+    cluster, e_res, res = FS.cluster_config(K, N, t["E"].shape[-1], C)
+    where = ("data, Mhat and E slices in shared memory" if res else
+             "E slice in shared memory, data and Mhat in global memory"
+             if e_res else "slices in global memory")
+    print(f"kernel vs plain {case} accept_all={accept_all}: cluster of "
+          f"{cluster}, {where}; max abs diff "
           f"{worst:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}"
           "); A, R and decisions equal; two launches bit-identical",
           flush=True)
@@ -225,7 +247,8 @@ def to_card(torch, d):
 
 
 def compare_kernel(torch, FS):
-    """Phase 3. Returns (max_abs_err, {shape: (kernel_ms, plain_ms)})."""
+    """Phase 3. Returns (max_abs_err, {shape: (kernel ms on the device, ms
+    per call through the wrapper, plain_ms)})."""
     max_err = 0.0
     times = {}
     for (K, N, G, C, A, hyper) in KERNEL_CASES:
@@ -237,7 +260,7 @@ def compare_kernel(torch, FS):
                                                     accept_all, hyper)
             max_err = max(max_err, worst)
             if (K, N, G, C) in TIMED_SHAPES and hyper and not accept_all:
-                times[(K, N, G)] = (time_ms(torch, kernel, 50),
+                times[(K, N, G)] = (*kernel_ms(torch, kernel, 50),
                                     time_ms(torch, plain, 5))
     return max_err, times
 
@@ -283,8 +306,9 @@ def branch_inputs(K, N, G, C, seed, kw, temp):
 
 
 def compare_branches(torch, FS, card):
-    """Phase 3c. Returns (max_abs_err, {label: (kernel_ms, plain_ms)}) with
-    the times at RANK_TIMED with and without the rank branch."""
+    """Phase 3c. Returns (max_abs_err, {label: (kernel ms on the device, ms
+    per call through the wrapper, plain_ms)}) with the times at RANK_TIMED
+    with and without the rank branch."""
     max_err = 0.0
     times = {}
     for (K, N, G, C, kw, temps) in BRANCH_CASES:
@@ -303,21 +327,53 @@ def compare_branches(torch, FS, card):
                 max_err = max(max_err, worst)
             if (K, N, G) == RANK_TIMED and kw.get("rank_method") == "SBFI" \
                     and temp == 1.0:
-                times["rank"] = (time_ms(torch, kernel, 20),
+                times["rank"] = (*kernel_ms(torch, kernel, 20),
                                  time_ms(torch, plain, 3))
                 fixed = dict(kw, rank_method=None)
                 _, kernel0, plain0 = check_sweep_case(
                     torch, FS, t, C, case + " (fixed rank)", False, hyper,
                     **fixed)
-                times["fixed"] = (time_ms(torch, kernel0, 20),
+                times["fixed"] = (*kernel_ms(torch, kernel0, 20),
                                   time_ms(torch, plain0, 3))
-    for label, (k_ms, p_ms) in times.items():
+    for label, (k_ms, w_ms, p_ms) in times.items():
         b_ms, b_by = fused_bound(*RANK_TIMED, rank=label == "rank")
         print(f"time per call at (K,N,G)={RANK_TIMED} "
               f"{'with' if label == 'rank' else 'without'} the rank branch: "
-              f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms, bound "
+              f"kernel {k_ms:.4f} ms on the device ({w_ms:.4f} ms per call "
+              f"through the wrapper), plain PyTorch {p_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), on {card}", flush=True)
     return max_err, times
+
+
+def device_ms(torch, fn, reps):
+    """Device time of one call of ``fn``: the kernels' own durations in a
+    profiled window of ``reps`` calls (torch.profiler), over ``reps``. Where
+    a call's kernels are shorter than the host takes to issue them, CUDA
+    events around the calls time the host; this times the card. None when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages())
+    return dev_us / 1e3 / reps if dev_us > 0 else None
+
+
+def kernel_ms(torch, fn, reps):
+    """(ms on the device, ms per call through the wrapper): the first is
+    the kernel's time; it falls back to the second where the profiler
+    records nothing."""
+    wrapped = time_ms(torch, fn, reps)
+    dev = device_ms(torch, fn, min(reps, 20))
+    return (wrapped if dev is None else dev), wrapped
 
 
 def time_ms(torch, fn, reps):
@@ -599,16 +655,245 @@ def compare_stream_kernels(torch, S, card):
             r = res.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
             if (K, N, G, C) == STREAM_TIMED:
-                r["ms"] = time_ms(torch, kernel, 50)
+                r["ms"], wrapped = kernel_ms(torch, kernel, 50)
                 r["plain_ms"] = time_ms(
                     torch, lambda name=name, args=args: stream_plain(
                         S, name, args), 3)
                 r["bound_ms"], r["bound_by"] = stream_bound(name, K, N, G, C)
                 print(f"time per call {name} at (K,N,G,C)={STREAM_TIMED}: "
-                      f"kernel {r['ms']:.4f} ms, plain PyTorch "
+                      f"kernel {r['ms']:.4f} ms on the device "
+                      f"({wrapped:.4f} ms per call through the wrapper), "
+                      f"plain PyTorch "
                       f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}), on {card}", flush=True)
     return res
+
+
+# (K, N, G, chains, A, options): phase 3b, the column updates. "inactive"
+# zeroes one E row and one P column of the last chain (a prior-draw
+# proposal that always accepts); "tails" scales rows and columns of the
+# data towards 0 so that the conditionals sit deep in the truncated tail.
+UPDATE_CASES = [(96, 20, 10000, 8, None, ()), (96, 20, 25000, 2, None, ()),
+                (7, 3, 37, 2, None, ()),
+                (16, 3, 300, 2, (1.0, 0.0, 1.0), ("inactive",)),
+                (96, 8, 2000, 2, None, ("tails",))]
+# operations of a column update's epilogue per entry (two conditionals, the
+# draw with ndtr and ndtri, three log-densities with log_ndtr, exp), at ~20
+# a special function
+UPDATE_EPILOGUE_OPS = 150
+
+
+def update_bound(col, K, N, G, C):
+    """One column update (csrc/stream_sweeps.cu): data, E and P*A read once,
+    the column's eight per-entry operands read and its two outputs written
+    once; operations: one Mhat rebuild and both passes' terms per (c, k, g),
+    and the epilogue per entry."""
+    entries = C * (K if col else G)
+    n_in = K * G + C * (N * G + K * N) + C * (G + K) + 8 * entries
+    n_out = 2 * entries
+    ops = (C * K * G * (2 * N - 1 + STREAM_OPS["pcol_stats"]
+                        + STREAM_OPS["pcol_accept"])
+           + entries * UPDATE_EPILOGUE_OPS)
+    return bound(4 * (n_in + n_out), ops)
+
+
+def update_inputs(K, N, G, C, seed, A=None, opts=()):
+    """A sweep's operands as stream_sweep_P/E hand them over, made with
+    numpy from ``seed``: the state, the prior pairs, the prior draws, the
+    uniforms and mixed warmup flags."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
+    Et = rng.gamma(2.0, 2.0, (N, G))
+    data = rng.poisson(Pt @ Et).astype(f)
+    if "tails" in opts:
+        data *= rng.choice([0.0, 0.3, 0.6, 1.0], (K, 1)).astype(f)
+        data *= rng.choice([0.0, 0.3, 0.6, 1.0], (1, G)).astype(f)
+    P = (Pt * rng.uniform(0.5, 1.5, (C, K, N))).astype(f)
+    E = (Et * rng.uniform(0.5, 1.5, (C, N, G))).astype(f)
+    if "inactive" in opts:
+        E[-1, N - 1] = 0.0
+        P[-1, :, 0] = 0.0
+    a = np.ones(N, f) if A is None else np.asarray(A, f)
+    u = lambda *sh: rng.uniform(1e-6, 1.0, sh).astype(f)  # noqa: E731
+    return dict(
+        data=data, P=P, E=E, A=np.tile(a, (C, 1)),
+        acc_P=np.full((C, K, N), 0.5, f), acc_E=np.full((C, N, G), 0.5, f),
+        Mu_p=rng.normal(0.0, 1.0, (C, K, N)).astype(f),
+        Sq_p=rng.gamma(2.0, 2.0, (C, K, N)).astype(f),
+        Mu_e=rng.normal(0.0, 1.0, (C, N, G)).astype(f),
+        Sq_e=rng.gamma(2.0, 2.0, (C, N, G)).astype(f),
+        P_prior=rng.gamma(2.0, 1.0, (C, K, N)).astype(f),
+        E_prior=rng.gamma(2.0, 1.0, (C, N, G)).astype(f),
+        U_p=u(C, 3, N, K), U_e=u(C, 3, N, G),
+        accept_all=(np.arange(C) % 2 == 1))
+
+
+def tail_counts(torch, S, t, col, n):
+    """How many entries of column n's conditional have their truncation
+    point alpha = -mu / sd in (5.4, 8] and beyond 8."""
+    A_n = t["A"][:, n:n + 1]
+    PA = t["P"] * t["A"].unsqueeze(1)
+    P_n, E_n = t["P"][:, :, n].contiguous(), t["E"][:, n, :].contiguous()
+    if col:
+        mu1, den = S.run_reference(t["data"], t["E"], PA, E_n, A_n * P_n,
+                                   None, True)
+        Mu, Sq = t["Mu_p"][:, :, n], t["Sq_p"][:, :, n]
+    else:
+        mu1, den = S.run_reference(t["data"], t["E"], PA, A_n * E_n, P_n,
+                                   None, False)
+        Mu, Sq = t["Mu_e"][:, n, :], t["Sq_e"][:, n, :]
+    mu, var = S._conditional(mu1, A_n * den, Mu, Sq)
+    alpha = -mu / torch.sqrt(var)
+    return (int(((alpha > 5.4) & (alpha <= 8.0)).sum()),
+            int((alpha > 8.0).sum()))
+
+
+def compare_stream_updates(torch, S, card):
+    """Phase 3b, the column updates: ``stream_pcol_update`` and
+    ``stream_erow_update`` against the host sequence on the card, column by
+    column from the same state. Returns {name: dict(max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)} at the timed shape."""
+    res = {}
+    for (K, N, G, C, A, opts) in UPDATE_CASES:
+        t = to_card(torch, update_inputs(K, N, G, C, K + N + G + C, A, opts))
+        case = f"(K,N,G,C)={(K, N, G, C)}" + (f" A={A}" if A else "") + (
+            " " + " ".join(opts) if opts else "")
+        sides = {
+            "pcol_update": (True, S.stream_pcol_update,
+                            S.pcol_update_reference, "P", "acc_P", "Mu_p",
+                            "Sq_p", "P_prior", "U_p"),
+            "erow_update": (False, S.stream_erow_update,
+                            S.erow_update_reference, "E", "acc_E", "Mu_e",
+                            "Sq_e", "E_prior", "U_e")}
+        for name, (col, kernel, plain, xk, acck, muk, sqk, prk, uk) in \
+                sides.items():
+            state = {"P": t["P"].clone(), "E": t["E"].clone()}
+            acc0 = t[acck].clone()
+
+            def operands(st, acc, nan):
+                return (t["data"], st["E"], st["P"], t["A"], acc, t[muk],
+                        t[sqk], t[prk], t[uk], t["accept_all"], nan)
+
+            def fresh():
+                return ({"P": state["P"].clone(), "E": state["E"].clone()},
+                        acc.clone(),
+                        torch.zeros(C, dtype=torch.float32, device="cuda"))
+
+            acc = acc0
+            worst, flips, n_equal = 0.0, 0, 0
+            tails = [0, 0]
+            nan_k = nan_p = 0.0
+            for n in range(N):
+                if "tails" in opts:
+                    tc = tail_counts(torch, S, {**t, **state}, col, n)
+                    tails = [tails[0] + tc[0], tails[1] + tc[1]]
+                sk, ak, nk = fresh()
+                kernel(*operands(sk, ak, nk), n, n + 1)
+                s2, a2, n2 = fresh()
+                kernel(*operands(s2, a2, n2), n, n + 1)
+                sp, ap, npn = fresh()
+                plain(*operands(sp, ap, npn), n)
+                torch.cuda.synchronize()
+                check(torch.equal(sk[xk], s2[xk]) and torch.equal(ak, a2)
+                      and torch.equal(nk, n2),
+                      f"{name}: two launches differ at {case} column {n}")
+                check(bool(torch.isfinite(sk[xk]).all()),
+                      f"{name}: not finite at {case} column {n}")
+                flips += int(((sk[xk] != state[xk])
+                              != (sp[xk] != state[xk])).sum())
+                for what, a_, b_, rtol in (
+                        ("values", sk[xk], sp[xk], S.UPDATE_RTOL),
+                        ("recorded acceptance", ak, ap, S.RATIO_RTOL)):
+                    worst = max(worst, float((a_ - b_).abs().max()))
+                    check(torch.allclose(a_, b_, rtol=rtol,
+                                         atol=S.UPDATE_ATOL),
+                          f"{name} {what} differ at {case} column {n}: max "
+                          f"abs {float((a_ - b_).abs().max())}")
+                check(torch.equal(nk, npn),
+                      f"{name}: NaN counts differ at {case} column {n}")
+                n_equal += int(torch.equal(sk[xk], sp[xk])
+                               and torch.equal(ak, ap))
+                nan_k += float(nk.sum())
+                nan_p += float(npn.sum())
+                state, acc = sk, ak
+            check(flips == 0, f"{name}: {flips} decisions differ at {case}")
+            # the whole sweep in one call gives the chained columns' bits
+            state0 = {"P": t["P"].clone(), "E": t["E"].clone()}
+            acc_all = acc0.clone()
+            nan_all = torch.zeros(C, dtype=torch.float32, device="cuda")
+            kernel(*operands(state0, acc_all, nan_all))
+            torch.cuda.synchronize()
+            check(torch.equal(state0[xk], state[xk])
+                  and torch.equal(acc_all, acc),
+                  f"{name}: one call for the sweep differs from its columns "
+                  f"one by one at {case}")
+            print(f"stream {name} vs host sequence {case}: {N} columns, max "
+                  f"abs diff {worst:.3e}, 0 decisions differ, "
+                  f"{n_equal}/{N} columns bit-identical, NaN counts equal "
+                  f"({nan_k:.0f}); two launches bit-identical; one call for "
+                  "the sweep equals the columns one by one"
+                  + (f"; conditionals with 5.4 < alpha <= 8: {tails[0]}, "
+                     f"alpha > 8: {tails[1]}" if "tails" in opts else ""),
+                  flush=True)
+            if "tails" in opts:
+                check(tails[0] > 0 and tails[1] > 0,
+                      f"{name}: the deep-tail case has no deep tail: {tails}")
+            r = res.setdefault(name, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], worst)
+            if (K, N, G, C) == STREAM_TIMED:
+                def sweep():
+                    st, ac, nn = fresh()
+                    kernel(*operands(st, ac, nn))
+
+                def clones():
+                    fresh()
+
+                def plain_col():
+                    st, ac, nn = fresh()
+                    plain(*operands(st, ac, nn), 0)
+
+                r["ms"] = (time_ms(torch, sweep, 20)
+                           - time_ms(torch, clones, 20)) / N
+                r["plain_ms"] = time_ms(torch, plain_col, 3)
+                r["bound_ms"], r["bound_by"] = update_bound(col, K, N, G, C)
+                print(f"time per column {name} at (K,N,G,C)={STREAM_TIMED}: "
+                      f"kernel {r['ms']:.4f} ms (a sweep of {N} launches "
+                      f"over {N}), host sequence {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), on "
+                      f"{card}", flush=True)
+    return res
+
+
+def compare_special(torch, S):
+    """The kernels' ndtri, log_ndtr and ndtr against the PyTorch calls of
+    the host sequence, on 4M arguments each that cover every branch.
+    Returns (arguments at which ndtri or ndtr differ, which a proposal's
+    bits depend on; arguments at which log_ndtr differs, which only moves
+    the Hastings ratio within its tolerance)."""
+    from bayesnmf_tpu_torch.ops import distributions as dist
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n = 1 << 21
+    u = torch.rand(n, generator=gen, device="cuda")
+    tiny = torch.exp(-torch.rand(n, generator=gen, device="cuda") * 87.0)
+    x = torch.cat([torch.randn(n, generator=gen, device="cuda") * 4.0,
+                   -torch.rand(n, generator=gen, device="cuda") * 120.0])
+    bad_by = {}
+    for which, arg, ref in (("ndtri", torch.cat([u, tiny]),
+                             torch.special.ndtri),
+                            ("log_ndtr", x, torch.special.log_ndtr),
+                            ("ndtr", x, dist._ndtr)):
+        got, want = S.special_functions(arg.contiguous(), which), ref(arg)
+        torch.cuda.synchronize()
+        bad = int(((got != want) & ~(got.isnan() & want.isnan())).sum())
+        ulps = (got.view(torch.int32) - want.view(torch.int32)).abs()
+        print(f"special function {which}: {bad} of {arg.numel()} arguments "
+              f"differ from the PyTorch call (max {int(ulps.max())} ulp)",
+              flush=True)
+        bad_by[which] = bad
+    return max(bad_by["ndtri"], bad_by["ndtr"]), bad_by["log_ndtr"]
 
 
 # ---------------------------------------------------------------------------
@@ -819,7 +1104,8 @@ def run_ensemble(torch, bt, S, card):
                     "acol_delta": S.acol_delta.launches,
                     "chain_metrics": S.chain_metrics.launches}
         steps = ens.iter - 1  # iteration 1 is the initial draw
-        per_iter = {"_run": 4 * N, "acol_delta": N, "chain_metrics": 1}
+        # a P column is two passes over the G tiles, an E row one launch
+        per_iter = {"_run": 3 * N, "acol_delta": N, "chain_metrics": 1}
         for k, n in per_iter.items():
             check(launches[k] == n * steps,
                   f"{k} launches {launches[k]} != {n} x {steps} iterations")
@@ -906,8 +1192,8 @@ def run_ensemble(torch, bt, S, card):
     stream_us = {
         k: sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages() if k in e.key)
-        for k in ("pcol_kernel", "erow_kernel", "acol_kernel",
-                  "metrics_kernel", "reduce_tiles")}
+        for k in ("pcol_tile_kernel", "pcol_finish_kernel", "erow_kernel",
+                  "acol_kernel", "metrics_kernel", "reduce_tiles")}
     if dev_us > 0:
         print(f"ensemble: profiled {n_prof} iterations: device busy "
               f"{dev_us / 1e3:.1f} ms of {prof_s * 1e3:.1f} ms wall "
@@ -1147,13 +1433,17 @@ def main() -> int:
 
     # phase 3: the fused kernel against its plain version
     max_err, times = compare_kernel(torch, FS)
-    for shape, (k_ms, p_ms) in times.items():
-        print(f"time per call at (K,N,G)={shape}: kernel {k_ms:.4f} ms, "
+    for shape, (k_ms, w_ms, p_ms) in times.items():
+        print(f"time per call at (K,N,G)={shape}: kernel {k_ms:.4f} ms on "
+              f"the device ({w_ms:.4f} ms per call through the wrapper), "
               f"plain PyTorch {p_ms:.4f} ms, bound "
               f"{fused_bound(*shape)[0]:.4f} ms, on {card}", flush=True)
 
     # phase 3b: the streaming kernels against their plain versions
     stream = compare_stream_kernels(torch, S, card)
+    check(compare_special(torch, S)[0] == 0,
+          "the kernels' ndtri or ndtr differ from the PyTorch calls")
+    updates = compare_stream_updates(torch, S, card)
 
     # phase 3c: the fused kernel's rank branch, exponential prior and
     # reference-parity ratio against the plain version
@@ -1178,7 +1468,7 @@ def main() -> int:
     check("bayesnmf_tpu" not in sys.modules,
           "the port imported the JAX package")
     # the fused kernel at the rank-learning path's shape, rank branch on
-    k_ms, p_ms = branch_times["rank"]
+    k_ms, _, p_ms = branch_times["rank"]
     b_ms, b_by = fused_bound(*RANK_TIMED, rank=True)
     kernels = [{
         "name": "fused_gibbs_sweeps", "route": "cuda",
@@ -1189,17 +1479,19 @@ def main() -> int:
         "library_ms": None}]
     src = "bayesnmf_tpu_torch/csrc/stream_sweeps.cu"
     pss = "bayesnmf_tpu/ops/pallas_stream_sweeps.py"
-    # _run serves four bodies; its entry is the mean of their calls
+    # _run's kernels reach the main path through the column updates; its
+    # entry is the mean of a P-column and an E-row update (the four
+    # sums-only bodies are timed in the lines above)
     bodies = ("pcol_stats", "pcol_accept", "erow_stats", "erow_accept")
-    mean = lambda key: float(np.mean([stream[b][key] for b in bodies]))  # noqa
-    bound_run = [stream_bound(b, *STREAM_TIMED) for b in bodies]
+    mean = lambda key: float(np.mean([u[key] for u in updates.values()]))  # noqa
     kernels.append({
         "name": "_run", "route": "cuda", "source": src,
         "replaces": f"{pss}:330", "launches": ens_launches["_run"],
-        "max_abs_err": max(stream[b]["max_abs_err"] for b in bodies),
+        "max_abs_err": max([stream[b]["max_abs_err"] for b in bodies]
+                           + [u["max_abs_err"] for u in updates.values()]),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": float(np.mean([b[0] for b in bound_run])),
-        "bound_by": bound_run[0][1], "library_ms": None})
+        "bound_ms": mean("bound_ms"),
+        "bound_by": updates["pcol_update"]["bound_by"], "library_ms": None})
     for name, line in (("acol_delta", 220), ("chain_metrics", 272)):
         r = stream[name]
         kernels.append({

@@ -319,3 +319,46 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
         FS.fused_gibbs_sweeps(*args, prior_kind="truncnormal", exact_mh=True,
                               accept_all=True, rank_method=None)
     assert calls == ["kernel"]
+
+
+# (K, N, G, C) -> (blocks per chain, E slice resident, data/Mhat slices
+# resident)
+CLUSTER_CASES = [
+    ((7, 2, 37, 1), (2, True, True)),       # at most 32 columns a block
+    ((96, 5, 100, 1), (4, True, True)),
+    ((96, 8, 500, 1), (16, True, True)),
+    ((96, 8, 1003, 1), (16, True, True)),   # G not divisible by the cluster
+    ((96, 8, 2780, 1), (16, True, True)),
+    ((96, 8, 4000, 1), (16, True, False)),  # slices past shared memory
+    ((96, 20, 10000, 1), (16, True, False)),
+    ((96, 20, 100000, 1), (16, False, False)),  # not even the E slice fits
+    ((96, 8, 500, 4), (16, True, True)),    # a batch the card keeps resident
+    ((96, 8, 500, 8), (8, True, True)),     # larger batches: smaller clusters
+    ((96, 8, 500, 64), (1, True, False)),
+]
+
+
+@pytest.mark.parametrize("shape,want", CLUSTER_CASES)
+def test_cluster_config_picks_size_and_residency(shape, want):
+    """The pure-Python helper that sizes the kernel's cluster and decides
+    what stays in shared memory."""
+    assert FS.cluster_config(*shape) == want
+    K, N, G, C = shape
+    S, e_res, res = want
+    Gq = -(-G // S)
+    need = FS._fixed_smem_bytes(K, N, S)
+    if e_res:
+        need += 4 * N * Gq
+    if res:
+        need += 8 * K * Gq
+    assert need <= FS._SMEM_MAX_BYTES
+    if not res:  # the next thing did not fit
+        extra = 8 * K * Gq if e_res else 4 * N * Gq
+        assert need + extra > FS._SMEM_MAX_BYTES
+    assert S == 16 or Gq <= 32 or C * 2 * S > FS._RESIDENT_BLOCKS
+    assert S == 1 or C * S <= FS._RESIDENT_BLOCKS
+
+
+def test_cluster_config_refuses_what_no_block_can_hold():
+    with pytest.raises(ValueError):
+        FS.cluster_config(4000, 20, 100)

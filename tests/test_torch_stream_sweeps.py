@@ -454,3 +454,209 @@ def test_vector_convergence_tracker_matches_jax(seed):
     c.restore(a.to_dict())
     for k, v in a.to_dict().items():
         np.testing.assert_array_equal(c.to_dict()[k], v)
+
+
+# ---------------------------------------------------------------------------
+# the column-update entry points: on CPU tensors the plain host sequence
+# ---------------------------------------------------------------------------
+
+
+def update_setup(G_u, seed):
+    """A two-chain stream state at K = 16, N = 3 with an excluded column on
+    chain 0 and data rows and columns scaled towards 0, which puts part of
+    the conditionals deep in the truncated tail (alpha = -mu/sd beyond 5.4
+    and beyond 8, where the draw switches its form)."""
+    from bayesnmf_tpu.parallel import chains as JCH
+
+    K_u, N_u = 16, 3
+    rng = np.random.default_rng(seed)
+    P = rng.dirichlet(np.ones(K_u) * 0.5, 2).T * 40
+    E = rng.gamma(2.0, 2.0, (2, G_u))
+    data = rng.poisson(P @ E).astype(np.float32)
+    data *= rng.choice([0.0, 0.3, 1.0], (K_u, 1)).astype(np.float32)
+    data *= rng.choice([0.0, 0.3, 1.0], (1, G_u)).astype(np.float32)
+    kw = dict(K=K_u, N=N_u, G=G_u, likelihood="poisson",
+              prior="truncnormal", MH=True, learning_rank=True,
+              rank_method="SBFI", stream_sweeps=True)
+    jspec, tspec = JModelSpec(**kw), ModelSpec(**kw)
+    hp = default_hyperprior_params(jspec, float(data.mean()))
+    js = JCH.init_chain_states(jspec, hp, jnp.asarray(data),
+                               jax.random.PRNGKey(seed), C)
+    js["params"]["A"] = js["params"]["A"].at[0, 1].set(0.0)
+    js["params"]["A"] = js["params"]["A"].at[1].set(1.0)
+    return jspec, tspec, data, js
+
+
+def deep_tail_counts(tspec, data, params, prior, col):
+    """Entries of column 0's conditional with 5.4 < alpha <= 8 and with
+    alpha > 8."""
+    P, E, A = (t(np.asarray(params[k])) for k in "PEA")
+    PA = P * A.unsqueeze(1)
+    A_n = A[:, 0:1]
+    P_n, E_n = P[:, :, 0].contiguous(), E[:, 0, :].contiguous()
+    if col:
+        mu1, den = S.run_reference(t(data), E, PA, E_n, A_n * P_n, None,
+                                   True)
+        Mu, Sq = prior["Mu_p"][:, :, 0], prior["Sigmasq_p"][:, :, 0]
+    else:
+        mu1, den = S.run_reference(t(data), E, PA, A_n * E_n, P_n, None,
+                                   False)
+        Mu, Sq = prior["Mu_e"][:, 0, :], prior["Sigmasq_e"][:, 0, :]
+    mu, var = S._conditional(mu1, A_n * den, t(np.asarray(Mu)),
+                             t(np.asarray(Sq)))
+    alpha = (-mu / torch.sqrt(var)).numpy()
+    return int(((alpha > 5.4) & (alpha <= 8)).sum()), int((alpha > 8).sum())
+
+
+@pytest.mark.parametrize("G_u,rtol", [(300, 1e-5), (25000, 1e-4)])
+@pytest.mark.parametrize("side", ["P", "E"])
+def test_column_update_entry_points_match_jax(side, G_u, rtol):
+    """stream_pcol_update / stream_erow_update on CPU tensors run the plain
+    host sequence: the JAX stream_sweep_P/E fed the same draws, with an
+    excluded column, per-chain warmup flags and deep-tail conditionals."""
+    jspec, tspec, data, js = update_setup(G_u, seed=G_u + (side == "E"))
+    params, prior = js["params"], js["prior"]
+    K_u, N_u = tspec.K, tspec.N
+    col = side == "P"
+    lo, hi = deep_tail_counts(tspec, data, params, prior, col)
+    assert lo + hi > 0, "the case has no deep-tail conditional"
+    shape = (C, K_u, N_u) if col else (C, N_u, G_u)
+    acc = jnp.full(shape, 0.5, jnp.float32)
+    keys = jax.random.split(jax.random.PRNGKey(11), C)
+    flags = jnp.asarray([True, False])
+    jfn = JU.stream_sweep_P if col else JU.stream_sweep_E
+    want = jax.vmap(lambda p, pr, a, k, f: jfn(
+        jspec, jnp.asarray(data), p, pr, a, k, f))(params, prior, acc, keys,
+                                                   flags)
+    rows, cols = (K_u, N_u) if col else (N_u, G_u)
+
+    def noise(k):
+        prior_u, k_u = p_noise(k, rows, cols)
+        return {"prior_u": prior_u,
+                "u": jax.random.uniform(k_u, (3, N_u, K_u if col else G_u),
+                                        jnp.float32, minval=_U_MIN)}
+
+    nz = stack_noise(keys, noise)
+    tp, tpr = port_tree(params), port_tree(prior)
+    X = tp[side].clone()
+    acc_t = t(np.asarray(acc)).clone()
+    n_nan = torch.zeros(C)
+    if col:
+        prior_draw = TU._prior_draw_P(tspec, tpr, None, nz["prior_u"])
+        S.stream_pcol_update(t(data), tp["E"], X, tp["A"], acc_t, tpr["Mu_p"],
+                             tpr["Sigmasq_p"], prior_draw, nz["u"],
+                             torch.tensor([True, False]), n_nan)
+    else:
+        prior_draw = TU._prior_draw_E(tspec, tpr, None, nz["prior_u"])
+        S.stream_erow_update(t(data), X, tp["P"], tp["A"], acc_t, tpr["Mu_e"],
+                             tpr["Sigmasq_e"], prior_draw, nz["u"],
+                             torch.tensor([True, False]), n_nan)
+    X0, Xw = np.asarray(params[side]), np.asarray(want[0])
+    np.testing.assert_array_equal(X.numpy() != X0, Xw != X0)
+    close(X.numpy(), Xw, rtol, 1e-6, msg=side)
+    # the recorded ratio exp(log_ratio): with data scaled towards 0 the
+    # terms of the log ratio reach ~1e2 at G = 300 and ~1e3 at G = 25000,
+    # so its float32 rounding alone (JAX sums the parts in float32 tile by
+    # tile, the port in float64) is a few times the values' tolerance; a
+    # ratio below the smallest normal float32 is 0 in XLA and a denormal
+    # in PyTorch
+    close(acc_t.numpy(), np.asarray(want[1]), 10 * rtol, 1e-37,
+          msg=f"acc_{side}")
+    np.testing.assert_array_equal(n_nan.numpy(), np.asarray(want[2]))
+    # the excluded column took its prior draw and kept its record
+    ex = (0, slice(None), 1) if col else (0, 1, slice(None))
+    np.testing.assert_array_equal(X[ex].numpy(), prior_draw[ex].numpy())
+    assert (acc_t[ex] == 0.5).all()
+    # the sweeps of models/updates.py are the same calls
+    sweep = TU.stream_sweep_P if col else TU.stream_sweep_E
+    got = sweep(tspec, t(data), tp, tpr, t(np.asarray(acc)),
+                torch.tensor([True, False]), noise=nz)
+    assert torch.equal(got[0], X) and torch.equal(got[1], acc_t)
+    assert torch.equal(got[2], n_nan)
+
+
+@pytest.mark.parametrize("side", ["P", "E"])
+def test_column_update_ranges_compose(side):
+    """Columns 0..n and n..N in two calls equal one call, in place; a CPU
+    call counts no launch."""
+    jspec, tspec, data, js = update_setup(60, seed=3)
+    tp, tpr = port_tree(js["params"]), port_tree(js["prior"])
+    col = side == "P"
+    K_u, N_u, G_u = tspec.K, tspec.N, tspec.G
+    rng = np.random.default_rng(5)
+    L = K_u if col else G_u
+    U = t(rng.uniform(1e-6, 1.0, (C, 3, N_u, L)).astype(np.float32))
+    shape = (C, K_u, N_u) if col else (C, N_u, G_u)
+    prior_draw = t(rng.gamma(2.0, 1.0, shape).astype(np.float32))
+    flags = torch.tensor([False, True])
+    fn = S.stream_pcol_update if col else S.stream_erow_update
+    mu, sq = ((tpr["Mu_p"], tpr["Sigmasq_p"]) if col
+              else (tpr["Mu_e"], tpr["Sigmasq_e"]))
+
+    def run(ranges):
+        st = {"P": tp["P"].clone(), "E": tp["E"].clone()}
+        acc = torch.full(shape, 0.5)
+        nn = torch.zeros(C)
+        for n0, n1 in ranges:
+            fn(t(data), st["E"], st["P"], tp["A"], acc, mu, sq, prior_draw,
+               U, flags, nn, n0, n1)
+        return st[side], acc, nn
+
+    S.reset_launch_counts()
+    one = run([(0, None)])
+    two = run([(0, 1), (1, N_u)])
+    assert S._run.launches == 0
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    assert not torch.equal(one[0], tp[side])
+    with pytest.raises(ValueError):
+        run([(2, 1)])
+    with pytest.raises(ValueError):
+        fn(t(data), tp["E"], tp["P"], tp["A"], torch.full(shape, 0.5), mu,
+           sq, prior_draw, U, flags.float(), torch.zeros(C))
+
+
+@pytest.mark.parametrize("side", ["P", "E"])
+def test_column_updates_never_take_the_plain_path_on_cuda(side, monkeypatch):
+    """For CUDA tensors a column update enqueues its kernels or raises; the
+    host sequence is not reached. Checked with a stand-in launcher."""
+    jspec, tspec, data, js = update_setup(40, seed=6)
+    tp, tpr = port_tree(js["params"]), port_tree(js["prior"])
+    col = side == "P"
+    shape = tuple(tp[side].shape)
+    L = tspec.K if col else tspec.G
+    args = (t(data), tp["E"], tp["P"], tp["A"], torch.full(shape, 0.5),
+            tpr[f"Mu_{side.lower()}"], tpr[f"Sigmasq_{side.lower()}"],
+            torch.ones(shape), torch.full((C, 3, tspec.N, L), 0.5),
+            torch.tensor([False, True]), torch.zeros(C))
+
+    def fake_launch(*a):
+        raise RuntimeError("stand-in kernel")
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached for CUDA tensors")
+
+    monkeypatch.setattr(S, "_launch_update", fake_launch)
+    monkeypatch.setattr(S, "pcol_update_reference", no_plain)
+    monkeypatch.setattr(S, "erow_update_reference", no_plain)
+    monkeypatch.setattr(S, "_check", lambda *a: None)
+    fake_cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda self: fake_cuda))
+    fn = S.stream_pcol_update if col else S.stream_erow_update
+    with pytest.raises(RuntimeError, match="stand-in kernel"):
+        fn(*args)
+
+
+def test_column_kernel_limits():
+    """The register tile's width by N, and shapes the kernels refuse."""
+    assert [S.tile_width(n) for n in (1, 4, 5, 20, 24, 25, 32, 33, 64)] == \
+        [4, 4, 8, 20, 24, 32, 32, 64, 64]
+    with pytest.raises(ValueError):
+        S.tile_width(65)
+    with pytest.raises(ValueError):
+        S._col_scratch(2, 5000, 20, 100, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        S._check_row_fits(5000, 20)
+    assert S._col_scratch(2, 96, 20, 130, torch.device("cpu")).numel() == \
+        2 * 3 * 96 * 3
