@@ -6,28 +6,46 @@
 // (a) Replaces bayesnmf_tpu/ops/pallas_allocation.py::allocate_counts_fused
 //     (_alloc_kernel, _binomial_tile, _lgamma_pos): bottom-up node weights
 //     over n2 = next_pow2(N) leaves, the total > 0 cell guard, top-down
-//     Binomial(count, w_left / w) splits by 40-step CDF inversion when
-//     n p <= 10 and by BTRS rejection above (the mode when every round
-//     rejects). Two sources of uniforms: pre-drawn planes (C, 17, n2-1, K, G)
-//     with 8 BTRS rounds, as the JAX kernel's interpret mode takes them; or
-//     an in-kernel Philox4x32-10 stream keyed by a device int64 seed, with
-//     its counter (cell, node, block of four, chain), and 8 + 4 rounds, as
-//     the TPU core PRNG mode runs.
-// (b) What bounds it: operations, and the latency of the splits. Each cell
-//     runs N-1 dependent binomial draws (40 inversion steps, or BTRS with
-//     two Stirling lgammas a round) on one thread; the bytes (M, E, the
-//     outputs) are a few per cell. The tree (2 n2 weights and counts) sits
-//     in the thread's local memory.
-// (c) What a later PR does about it: keep the tree in registers for a
-//     fixed N, split the inversion and BTRS regimes across warps so they do
-//     not diverge, and skip the inversion's steps past the count.
+//     Binomial(count, w_left / w) splits by CDF inversion when n p <= 10 and
+//     by BTRS rejection above (the mode when every round rejects). Two
+//     sources of uniforms: pre-drawn planes (C, 17, n2-1, K, G) with 8 BTRS
+//     rounds, as the JAX kernel's interpret mode takes them; or an in-kernel
+//     Philox4x32-10 stream keyed by a device int64 seed, with its counter
+//     (cell, node, block of four, chain), and 8 + 4 rounds, as the TPU core
+//     PRNG mode runs.
+// (b) What bounds it: the latency of the splits. Each cell runs N-1
+//     dependent binomial draws (a few inversion steps, or BTRS with two
+//     Stirling lgammas a round); the bytes (M, E, the outputs) are a few per
+//     cell, the operations a few hundred.
+// (c) The design against that latency. One thread per cell: a grid of
+//     (G / 32, K / 8, C) blocks of 32 x 8 threads (lane = g, warp = row k),
+//     ~K G C / 256 blocks, so even 96 x 100 fills a third of the SMs and
+//     96 x 2780 several waves. The tree sits in registers: the kernel is
+//     built for each n2 of 1..16 with its loops unrolled, so every slot
+//     index is a constant, and one array serves as weights and counts (slot
+//     h holds node h's weight until its parent is split, then its count);
+//     n2 = 32 and 64 keep the array in local memory, which costs less than
+//     the resident warps its 64 registers would take. Registers are capped
+//     so that 3 blocks (4 with the tree in local memory) fit an SM. The
+//     inversion stops at the first step whose CDF reaches u, or once x
+//     reaches the count: the pmf
+//     is never negative, so the CDF never falls and no later step adds, and
+//     past the count the pmf is 0 (the counts are integers); the 40-step
+//     cap stays. A split of a few steps then costs about what BTRS's set-up
+//     costs, so a warp whose lanes take both regimes waits little. The
+//     draw's code (binomial) is one function called from every unrolled
+//     node rather than copied into each.
+//     What is left: the splits of a cell stay one dependent chain of IEEE
+//     divisions, logs and exps on one thread, and lanes whose draws take
+//     different numbers of steps or regimes wait for each other; the kernel
+//     runs at ~60x its bound at (96,20,10000) and ~90x at (96,8,2780).
 //
-// Grid: (G tiles of 32 columns, C chains); a block of 8 warps, lane = g
-// within the tile, warp = a stride of rows k. Zsum_k[n, g] sums the block's
-// rows in double and the 8 warps' partials in order; Zsum_g[k, n] sums the
-// tile's 32 columns in double (xor shuffle), writes one partial per tile,
-// and a second kernel adds the tiles in order. No atomics: two launches on
-// the same inputs give the same bits, and the integer counts are summed
+// Sums: Zsum_g[k, n] adds a tile's 32 columns in double (xor shuffle) into
+// one partial per (tile, k); Zsum_k[n, g] adds a block's 8 rows in order
+// into one double partial per (k-block, g); a second kernel (reduce_zg) adds
+// the tiles' partials of Zsum_g (a warp each) and the k-blocks' partials of
+// Zsum_k (a thread each), each in a fixed order. No atomics: two launches
+// on the same inputs give the same bits, and the integer counts are summed
 // exactly (the JAX kernel's float32 tile sums round past 2^24).
 //
 // Numerics: built without --use_fast_math and with -fmad=false; every
@@ -40,10 +58,30 @@
 
 namespace {
 
-constexpr int kTileG = 32;
-constexpr int kWarps = 8;
-constexpr int kThreads = kTileG * kWarps;
+// Occupancy: rows k per block (its warps), the largest tree kept in
+// registers, and the blocks an SM must hold, which caps the registers a
+// thread may take, for a tree in registers and for one in local memory.
+// bench_torch_variants.py times the choices: at (96,20,10000) the 150
+// registers of a 32-leaf tree left one block (8 warps) an SM, 1.21 ms;
+// in local memory at 4 blocks an SM, 0.62 ms.
+#ifndef ALLOC_ROWS
+#define ALLOC_ROWS 8
+#endif
+#ifndef ALLOC_REG_N2
+#define ALLOC_REG_N2 16
+#endif
+#ifndef ALLOC_MIN_BLOCKS
+#define ALLOC_MIN_BLOCKS 3
+#endif
+#ifndef ALLOC_MIN_BLOCKS_LOCAL
+#define ALLOC_MIN_BLOCKS_LOCAL 4
+#endif
+constexpr int kTileG = 32;   // lanes of a block: columns g
+constexpr int kRows = ALLOC_ROWS;
+constexpr int kThreads = kTileG * kRows;
 constexpr int kMaxN2 = 64;
+constexpr int kRegN2 = ALLOC_REG_N2;  // the largest tree kept in registers
+constexpr int kReduceLoads = 8;  // partials a lane has in flight
 constexpr int kPlanes = 17;      // 1 + 2 * 8 BTRS rounds (planes mode)
 constexpr int kPlaneRounds = 8;
 constexpr int kPhiloxRounds = 12;  // 8 + 4 fresh rounds (Philox mode)
@@ -125,54 +163,61 @@ __device__ float lgamma_pos(float x) {
   return (z - 0.5f) * logf(z) - z + kHalfLog2Pi + series - shift;
 }
 
-__device__ float binomial(float n, float p, Uniforms& U, int rounds) {
+// CDF inversion of Binomial(n, pp): the reference's 40 steps, stopped at
+// the first step that adds nothing (cdf never falls, so none after it
+// would) or once x reaches n (the pmf is 0 from there; min(x, n) = n).
+__device__ float inversion(float n, float pp, float u) {
+  const float ratio = pp / jmax(1.0f - pp, F(1e-12));
+  float pmf = expf(n * log1pf(-pp));
+  float cdf = pmf, x = 0.0f;
+  for (int j = 0; j < kInvSteps; ++j) {
+    if (!(u > cdf)) break;
+    x = x + 1.0f;
+    if (x >= n) break;
+    pmf = pmf * (n - (float)j) / ((float)j + 1.0f) * ratio;
+    cdf = cdf + pmf;
+  }
+  return jmin(x, n);
+}
+
+// BTRS (Hörmann 1993), the mode when every round rejects
+__device__ float btrs(float n, float pp, Uniforms& U, int rounds) {
+  const float spq = sqrtf(n * pp * (1.0f - pp));
+  const float b = F(1.15) + F(2.53) * spq;
+  const float a = F(-0.0873) + F(0.0248) * b + F(0.01) * pp;
+  const float c = n * pp + 0.5f;
+  const float vr = F(0.92) - F(4.2) / b;
+  const float alpha = (F(2.83) + F(5.1) / b) * spq;
+  const float lpq = logf(pp / jmax(1.0f - pp, F(1e-12)));
+  const float m = floorf((n + 1.0f) * pp);
+  const float h = lgamma_pos(m + 1.0f) + lgamma_pos(n - m + 1.0f);
+  for (int r = 0; r < rounds; ++r) {
+    const float uu = U.get(1 + 2 * r) - 0.5f;
+    const float vv = U.get(2 + 2 * r);
+    const float us = 0.5f - fabsf(uu);
+    const float k = floorf((2.0f * a / jmax(us, F(1e-8)) + b) * uu + c);
+    if (!(k >= 0.0f && k <= n)) continue;
+    bool ok = us >= F(0.07) && vv <= vr;
+    if (!ok) {
+      const float v2 = logf(jmax(vv, kTiny) * alpha
+                            / (a / jmax(us * us, F(1e-12)) + b));
+      const float t = h - lgamma_pos(k + 1.0f) - lgamma_pos(n - k + 1.0f)
+                      + (k - m) * lpq;
+      ok = v2 <= t;
+    }
+    if (ok) return k;
+  }
+  return m;
+}
+
+// Binomial(n, p) for 0 < p < 1, n > 0; the regime is decided before the
+// draw. Not inlined: the unrolled tree calls it from every node.
+__device__ __noinline__ float binomial(float n, float p, Uniforms U,
+                                       int rounds) {
   const bool flip = p > 0.5f;
   const float pp = flip ? 1.0f - p : p;
-  float y;
-  if (n * pp <= 10.0f) {
-    // CDF inversion, 40 steps
-    const float u = U.get(0);
-    const float ratio = pp / jmax(1.0f - pp, F(1e-12));
-    float pmf = expf(n * log1pf(-pp));
-    float cdf = pmf, x = 0.0f;
-    for (int j = 0; j < kInvSteps; ++j) {
-      x = x + (u > cdf ? 1.0f : 0.0f);
-      pmf = pmf * (n - (float)j) / ((float)j + 1.0f) * ratio;
-      cdf = cdf + pmf;
-    }
-    y = jmin(x, n);
-  } else {
-    // BTRS (Hörmann 1993)
-    const float spq = sqrtf(n * pp * (1.0f - pp));
-    const float b = F(1.15) + F(2.53) * spq;
-    const float a = F(-0.0873) + F(0.0248) * b + F(0.01) * pp;
-    const float c = n * pp + 0.5f;
-    const float vr = F(0.92) - F(4.2) / b;
-    const float alpha = (F(2.83) + F(5.1) / b) * spq;
-    const float lpq = logf(pp / jmax(1.0f - pp, F(1e-12)));
-    const float m = floorf((n + 1.0f) * pp);
-    const float h = lgamma_pos(m + 1.0f) + lgamma_pos(n - m + 1.0f);
-    y = m;  // every round rejected: the mode
-    for (int r = 0; r < rounds; ++r) {
-      const float uu = U.get(1 + 2 * r) - 0.5f;
-      const float vv = U.get(2 + 2 * r);
-      const float us = 0.5f - fabsf(uu);
-      const float k = floorf((2.0f * a / jmax(us, F(1e-8)) + b) * uu + c);
-      if (!(k >= 0.0f && k <= n)) continue;
-      bool ok = us >= F(0.07) && vv <= vr;
-      if (!ok) {
-        const float v2 = logf(jmax(vv, kTiny) * alpha
-                              / (a / jmax(us * us, F(1e-12)) + b));
-        const float t = h - lgamma_pos(k + 1.0f) - lgamma_pos(n - k + 1.0f)
-                        + (k - m) * lpq;
-        ok = v2 <= t;
-      }
-      if (ok) {
-        y = k;
-        break;
-      }
-    }
-  }
+  const float y = n * pp <= 10.0f ? inversion(n, pp, U.get(0))
+                                  : btrs(n, pp, U, rounds);
   return flip ? n - y : y;
 }
 
@@ -187,21 +232,42 @@ struct Args {
   const float *M, *P, *A, *E, *u;
   const long long* seed;
   float *zg, *zk;
-  double* scratch;
-  int K, N, G, n2, n_nodes, tiles;
+  // partials: Zsum_g (C, tiles, K, N), then Zsum_k (C, kblocks, N, G)
+  double *part_g, *part_k;
+  int C, K, N, G, n_nodes, tiles, kblocks;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// One cell (k, g) per thread, the tree of N2 leaves in v[1 .. 2 N2): unrolled
+// for N2 <= kRegN2, so that v sits in registers; larger trees in local
+// memory (L1), which leaves the registers for more resident warps.
+template <int N2>
+__global__ void __launch_bounds__(kThreads, N2 <= kRegN2
+                                                ? ALLOC_MIN_BLOCKS
+                                                : ALLOC_MIN_BLOCKS_LOCAL)
 alloc_kernel(Args a) {
-  __shared__ double s_zk[kWarps][kTileG];
-  const int tile = blockIdx.x, c = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int K = a.K, N = a.N, G = a.G, n2 = a.n2;
-  const int g = tile * kTileG + lane;
-  const bool gin = g < G;
-  const float* P = a.P + (size_t)c * K * N;
+  constexpr int kUnrollTree = N2 <= kRegN2 ? N2 : 1;
+  constexpr int kChunk = N2 < kRows ? N2 : kRows;  // Zsum_k columns a pass
+  __shared__ float s_cnt[kRows][kChunk][kTileG];
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  const int tile = blockIdx.x, kb = blockIdx.y, c = blockIdx.z;
+  const int K = a.K, N = a.N, G = a.G;
+  const int g = tile * kTileG + lane, k = kb * kRows + row;
+  const bool live = g < G && k < K;
+  const float* P = a.P + ((size_t)c * K + k) * N;
   const float* A = a.A + (size_t)c * N;
   const float* E = a.E + (size_t)c * N * G;
+
+  // bottom-up weights; a cell outside the grid has weight 0 and count 0
+  float v[2 * N2];
+#pragma unroll
+  for (int n = 0; n < N2; ++n) {
+    v[N2 + n] = live && n < N ? P[n] * A[n] * E[(size_t)n * G + g] : 0.0f;
+  }
+#pragma unroll (kUnrollTree)
+  for (int h = N2 - 1; h >= 1; --h) v[h] = v[2 * h] + v[2 * h + 1];
+  v[1] = live && v[1] > 0.0f ? a.M[(size_t)k * G + g] : 0.0f;
+
+  // top-down splits; node counts the splits made, as the planes' node axis
   const bool prng = a.u == nullptr;
   uint32_t k0 = 0, k1 = 0;
   if (prng) {
@@ -209,95 +275,121 @@ alloc_kernel(Args a) {
     k0 = (uint32_t)s;
     k1 = (uint32_t)(s >> 32);
   }
-
-  float w[2 * kMaxN2], cnt[2 * kMaxN2];
-  double zk[kMaxN2];
-  for (int n = 0; n < N; ++n) zk[n] = 0.0;
-
-  for (int k = warp; k < K; k += kWarps) {
-    if (gin) {
-      for (int n = 0; n < n2; ++n) {
-        w[n2 + n] = n < N ? P[k * N + n] * A[n] * E[(size_t)n * G + g] : 0.0f;
-      }
-      for (int h = n2 - 1; h >= 1; --h) w[h] = w[2 * h] + w[2 * h + 1];
-      cnt[1] = w[1] > 0.0f ? a.M[(size_t)k * G + g] : 0.0f;
-      int node = 0;
-      for (int h = 1; h < n2; ++h) {
-        if (padding(h, n2, N)) continue;
-        const float ch = cnt[h];
-        if (padding(2 * h + 1, n2, N)) {
-          cnt[2 * h] = ch;
-          continue;
-        }
-        const float wl = w[2 * h];
-        const float q = jmin(jmax(wl / jmax(wl + w[2 * h + 1], F(1e-30)),
-                                  0.0f), 1.0f);
-        float left;
-        if (q <= 0.0f || cnt[h] <= 0.0f) {
-          left = 0.0f;
-        } else if (q >= 1.0f) {
-          left = ch;
-        } else {
-          Uniforms U;
-          if (prng) {
-            U = Uniforms{nullptr, 0, k0, k1,
-                         (uint32_t)((size_t)k * G + g), (uint32_t)node,
-                         (uint32_t)c, -1, U4{{0u, 0u, 0u, 0u}}};
-          } else {
-            const size_t plane = (size_t)a.n_nodes * K * G;
-            U = Uniforms{a.u + (size_t)c * kPlanes * plane
-                             + ((size_t)node * K + k) * G + g,
-                         plane, 0u, 0u, 0u, 0u, 0u, -1,
-                         U4{{0u, 0u, 0u, 0u}}};
-          }
-          left = jmin(binomial(ch, q, U, prng ? kPhiloxRounds : kPlaneRounds),
-                      ch);
-        }
-        cnt[2 * h] = left;
-        cnt[2 * h + 1] = ch - left;
-        ++node;
-      }
+  int node = 0;
+#pragma unroll (kUnrollTree)
+  for (int h = 1; h < N2; ++h) {
+    if (padding(h, N2, N)) continue;
+    const float ch = v[h];
+    if (padding(2 * h + 1, N2, N)) {
+      v[2 * h] = ch;
+      continue;
     }
-    // Zsum_g partial of this tile: row k's counts summed over its columns
-    for (int n = 0; n < N; ++n) {
-      double v = gin ? (double)cnt[n2 + n] : 0.0;
-#pragma unroll
-      for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-      if (lane == 0) {
-        a.scratch[(((size_t)c * a.tiles + tile) * K + k) * N + n] = v;
+    const float wl = v[2 * h];
+    const float q = jmin(jmax(wl / jmax(wl + v[2 * h + 1], F(1e-30)), 0.0f),
+                         1.0f);
+    float left;
+    if (q <= 0.0f || ch <= 0.0f) {
+      left = 0.0f;
+    } else if (q >= 1.0f) {
+      left = ch;
+    } else {
+      Uniforms U;
+      if (prng) {
+        U = Uniforms{nullptr, 0, k0, k1, (uint32_t)((size_t)k * G + g),
+                     (uint32_t)node, (uint32_t)c, -1, U4{{0u, 0u, 0u, 0u}}};
+      } else {
+        const size_t plane = (size_t)a.n_nodes * K * G;
+        U = Uniforms{a.u + (size_t)c * kPlanes * plane
+                         + ((size_t)node * K + k) * G + g,
+                     plane, 0u, 0u, 0u, 0u, 0u, -1, U4{{0u, 0u, 0u, 0u}}};
       }
-      if (gin) zk[n] += (double)cnt[n2 + n];
+      left = jmin(binomial(ch, q, U, prng ? kPhiloxRounds : kPlaneRounds),
+                  ch);
     }
+    v[2 * h] = left;
+    v[2 * h + 1] = ch - left;
+    ++node;
   }
 
-  // Zsum_k: the 8 warps' partials of each column, added in order
-  for (int n = 0; n < N; ++n) {
-    s_zk[warp][lane] = zk[n];
+  // Zsum_g partial of this tile: row k's counts summed over its columns
+  double* pg = a.part_g + (((size_t)c * a.tiles + tile) * K + k) * N;
+#pragma unroll
+  for (int n = 0; n < N2; ++n) {
+    if (n < N) {
+      double s = (double)v[N2 + n];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+      if (lane == 0 && k < K) pg[n] = s;
+    }
+  }
+  // Zsum_k partial of this k-block: the 8 rows of each column added in
+  // order, kChunk columns a pass through shared memory
+  double* pk = a.part_k + ((size_t)c * a.kblocks + kb) * N * G;
+#pragma unroll
+  for (int n0 = 0; n0 < N2; n0 += kChunk) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) s_cnt[row][j][lane] = v[N2 + n0 + j];
     __syncthreads();
-    if (warp == 0 && gin) {
-      double t = 0.0;
-      for (int i = 0; i < kWarps; ++i) t += s_zk[i][lane];
-      a.zk[((size_t)c * N + n) * G + g] = (float)t;
+    if (row < kChunk && n0 + row < N && g < G) {
+      double s = 0.0;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s += (double)s_cnt[r][row][lane];
+      pk[(size_t)(n0 + row) * G + g] = s;
     }
     __syncthreads();
   }
 }
 
-// Zsum_g: the tiles' partials of each (k, n), added in order
-__global__ void reduce_zg(const double* scratch, float* zg, int tiles,
-                          int KN) {
-  const int c = blockIdx.x;
-  for (int i = threadIdx.x; i < KN; i += blockDim.x) {
-    double t = 0.0;
-    for (int j = 0; j < tiles; ++j) {
-      t += scratch[((size_t)c * tiles + j) * KN + i];
+// Zsum_g: a warp per (c, k, n), the tiles' partials in a fixed order (lanes
+// strided with loads in flight, then an xor butterfly); Zsum_k: a thread per
+// (c, n, g), the k-blocks' partials in order. Blocks below zg_blocks do the
+// first, kRows outputs each.
+__global__ void __launch_bounds__(kThreads)
+reduce_zg(Args a, int zg_blocks) {
+  const int K = a.K, N = a.N, G = a.G;
+  if ((int)blockIdx.x < zg_blocks) {
+    const size_t i = (size_t)blockIdx.x * kRows + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    const size_t KN = (size_t)K * N;
+    if (i >= (size_t)a.C * KN) return;
+    const size_t c = i / KN, kn = i % KN;
+    const double* p = a.part_g + c * a.tiles * KN + kn;
+    double s = 0.0;
+    for (int t0 = 0; t0 < a.tiles; t0 += 32 * kReduceLoads) {
+      double x[kReduceLoads];
+#pragma unroll
+      for (int u = 0; u < kReduceLoads; ++u) {
+        const int t = t0 + 32 * u + lane;
+        x[u] = t < a.tiles ? p[(size_t)t * KN] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < kReduceLoads; ++u) s += x[u];
     }
-    zg[(size_t)c * KN + i] = (float)t;
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) a.zg[i] = (float)s;
+    return;
   }
+  const size_t i = (size_t)(blockIdx.x - zg_blocks) * kThreads + threadIdx.x;
+  const size_t NG = (size_t)N * G;
+  if (i >= (size_t)a.C * NG) return;
+  const size_t c = i / NG, ng = i % NG;
+  const double* p = a.part_k + c * a.kblocks * NG + ng;
+  double s = 0.0;
+  for (int b = 0; b < a.kblocks; ++b) s += p[(size_t)b * NG];
+  a.zk[i] = (float)s;
+}
+
+template <int N2>
+cudaError_t launch_alloc(const Args& a, cudaStream_t s) {
+  alloc_kernel<N2><<<dim3(a.tiles, a.kblocks, a.C), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// scratch: C * (tiles * K * N + kblocks * N * G) doubles, tiles =
+// ceil(G / 32), kblocks = ceil(K / 8).
 extern "C" int allocate_counts_launch(
     const float* M, const float* P, const float* A, const float* E,
     const float* u, const long long* seed, float* zg, float* zk,
@@ -305,17 +397,29 @@ extern "C" int allocate_counts_launch(
   if (N < 1 || N > kMaxN2) return (int)cudaErrorInvalidValue;
   Args a;
   a.M = M; a.P = P; a.A = A; a.E = E; a.u = u; a.seed = seed;
-  a.zg = zg; a.zk = zk; a.scratch = scratch;
-  a.K = K; a.N = N; a.G = G;
+  a.zg = zg; a.zk = zk;
+  a.C = C; a.K = K; a.N = N; a.G = G;
   int n2 = 1;
   while (n2 < N) n2 <<= 1;
-  a.n2 = n2;
   a.n_nodes = n2 > 1 ? n2 - 1 : 1;
   a.tiles = (G + kTileG - 1) / kTileG;
+  a.kblocks = (K + kRows - 1) / kRows;
+  a.part_g = scratch;
+  a.part_k = scratch + (size_t)C * a.tiles * K * N;
   cudaStream_t s = (cudaStream_t)stream;
-  alloc_kernel<<<dim3(a.tiles, C), kThreads, 0, s>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  switch (n2) {
+    case 1: e = launch_alloc<1>(a, s); break;
+    case 2: e = launch_alloc<2>(a, s); break;
+    case 4: e = launch_alloc<4>(a, s); break;
+    case 8: e = launch_alloc<8>(a, s); break;
+    case 16: e = launch_alloc<16>(a, s); break;
+    case 32: e = launch_alloc<32>(a, s); break;
+    default: e = launch_alloc<64>(a, s); break;
+  }
   if (e != cudaSuccess) return (int)e;
-  reduce_zg<<<C, 256, 0, s>>>(scratch, zg, a.tiles, K * N);
+  const int zg_blocks = (int)(((size_t)C * K * N + kRows - 1) / kRows);
+  const int zk_blocks = (int)(((size_t)C * N * G + kThreads - 1) / kThreads);
+  reduce_zg<<<zg_blocks + zk_blocks, kThreads, 0, s>>>(a, zg_blocks);
   return (int)cudaGetLastError();
 }

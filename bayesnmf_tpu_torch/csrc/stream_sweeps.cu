@@ -1,23 +1,25 @@
 // The large-G MH sweeps on Hopper (sm_90a) without a (C, K, G) tensor: whole
-// P-column and E-row updates (sums, conditional, draw, Hastings ratio,
-// decision and write-back in kernels, a sweep's launches enqueued by one C
-// call), the same tile code in a sums-only form for the four reduction
-// functions, the inclusion-odds delta of one A column, and the four sums of
-// the metrics row. Every kernel rebuilds its Mhat tile from P*A and an E
+// P-column, E-row and A-column (inclusion) updates in kernels (sums,
+// conditional or inclusion odds, draw, decision and write-back; a sweep's
+// launches enqueued by one C call), the same tile code in a sums-only form for
+// the four reduction functions and the inclusion-odds delta, and the four sums
+// of the metrics row. Every kernel rebuilds its Mhat tile from P*A and an E
 // tile.
 //
 // (a) Replaces bayesnmf_tpu/ops/pallas_stream_sweeps.py: `_run` (its four
 //     bodies _pcol_stats_kernel, _pcol_accept_kernel, _erow_stats_kernel,
 //     _erow_accept_kernel) together with the host logic around them in
 //     models/updates.py::stream_sweep_P/E of the JAX package, `acol_delta`
-//     (_acol_delta_kernel) and `chain_metrics` (_chain_metrics_kernel), with
-//     a leading chain axis C on every per-chain operand.
+//     (_acol_delta_kernel) together with the host logic of
+//     models/updates.py::stream_sweep_A, and `chain_metrics`
+//     (_chain_metrics_kernel), with a leading chain axis C on every
+//     per-chain operand.
 // (b) What bounds it: operations. Per (c, k, g) element a column update
-//     rebuilds Mhat twice (2N flops each, as separate multiplies and adds),
-//     and does three divisions and a log1p; it reads data (shared by the
+//     rebuilds Mhat (2N flops, as separate multiplies and adds) once or twice
+//     and adds a few divisions and a log1p; it reads data (shared by the
 //     chains) and the E tile once per pass. At (K,N,G,C) = (96,20,10000,8)
-//     that is ~1.2 GFLOP against ~10 MB of reads per column: far above the
-//     card's float32 ridge, so the float32 pipes and the special-function
+//     that is ~0.3-1.2 GFLOP against ~10 MB of reads per column: far above
+//     the card's float32 ridge, so the float32 pipes and the special-function
 //     unit bound it, not HBM.
 // (c) Work split of a column update.
 //     The register tile (dot_ordered): one operand of the Mhat product sits
@@ -47,12 +49,26 @@
 //     7 clusters resident at 640 threads a block, so 8 chains ran in two
 //     waves (or on half the SMs at 8 blocks): 0.22-0.25 ms a column at
 //     (96,20,10000,8) against 0.14 ms for the tiles.
+//     A column: one sum over all K and G of a chain. The same tile as a P
+//     column (acol_tile_kernel), its P*A row formed in registers from P and
+//     the device A, so the column before it is already in; the tile's rows
+//     are added in a fixed order into one double partial. The decision
+//     (the ordered sum of the tiles, the float32 delta, the SBFI penalty, the
+//     tempered log-odds, the sigmoid, the NaN fallback, the Bernoulli draw
+//     and the write of A[c, n]) is the last step of the column, taken by a
+//     finishing kernel with one warp per chain (acol_finish_kernel). Built
+//     with STREAM_ACOL_ONE_LAUNCH=1, the last tile block of a chain to
+//     finish takes it instead (a counter and a fence; the same order of
+//     addition, so the same bits): slower, 0.060 against 0.057 ms a column
+//     at (96,20,10000,8) (bench_torch_variants.py), since that block's
+//     serial tail then ends every column while a second launch overlaps the
+//     grid's tail.
 //     What is left: the tile kernels run at a tenth of the float32 peak
 //     (staging and compute of a tile do not overlap; 2 blocks an SM);
 //     tensor cores for the Mhat rebuild are ruled out by the precision the
-//     acceptance ratio needs (TF32 does not do: ROADMAP); the A column and
-//     the metrics row still use the older tile (`stage`, `mhat`: two
-//     shared-memory loads per multiply-add) and `reduce_tiles`.
+//     acceptance ratio needs (TF32 does not do: ROADMAP); the metrics row
+//     still uses the older tile (`stage`, `mhat`: two shared-memory loads per
+//     multiply-add) and `reduce_tiles`.
 //
 // There are no atomics on floating-point sums: two launches give the same
 // bits. The NaN-clamp count is an integer and is added atomically.
@@ -66,14 +82,16 @@
 // the card: erff/erfcf/logf/expf/log1pf are the CUDA library's, which ATen
 // calls too; at_ndtri writes out ATen's jiterated Cephes ndtri, which is
 // compiled with FMA contraction, hence the explicit fmaf in it, and equals
-// it bit for bit; at_log_ndtr follows ATen's log_ndtr (through erfcx) and
-// differs from it by an ulp or two at 1.8% of the arguments below -1, which
-// moves the Hastings ratio within its tolerance and no checked decision.
+// it bit for bit; at_sigmoid is ATen's float sigmoid, 1 / (1 + exp(-x)) in
+// float, which no FMA can contract; at_log_ndtr follows ATen's log_ndtr
+// (through erfcx) and differs from it by an ulp or two at 1.8% of the
+// arguments below -1, which moves the Hastings ratio within its tolerance
+// and no checked decision.
 //
 // Layout: float32, contiguous. data (K, G) is shared by the chains; E
-// (C, N, G); PA and P (C, K, N); en (C, G); pn (C, K); prop (C, K) for a P
-// column or (C, G) for an E row; an (C,). Sums-only outputs: P column
-// (n_out, C, K), E row (n_out, C, G); A column (C,), metrics (4, C).
+// (C, N, G); PA and P (C, K, N); A (C, N); en (C, G); pn (C, K); prop (C, K)
+// for a P column or (C, G) for an E row; an (C,). Sums-only outputs: P
+// column (n_out, C, K), E row (n_out, C, G); A column (C,), metrics (4, C).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -249,6 +267,12 @@ __device__ float port_ndtr(float x) {
     y = z > 0.0f ? 2.0f - erfcf(a) : erfcf(a);
   }
   return 0.5f * y;
+}
+
+// torch.sigmoid on the card for float (ATen's sigmoid_kernel_cuda, not
+// jiterated for real types): one / (one + exp(-a)) in float
+__device__ float at_sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
 }
 
 constexpr float kTiny = 1.1754944e-38f;
@@ -694,9 +718,29 @@ __global__ void __launch_bounds__(kColThreads) pcol_tile_kernel(PcolArgs a) {
 // What the finishing kernel does with the sums.
 enum Finish { kWriteSums = 0, kPropose = 1, kDecide = 2 };
 
+// A warp's sum of row[0..n) in a fixed order: the lanes stride along the row
+// with kFinishLoads loads in flight (L2 loads: the row was written by other
+// blocks), each lane adds its own in order, then an xor butterfly. Every
+// lane returns the sum.
+__device__ __forceinline__ double warp_ordered_sum(const double* row, int n,
+                                                   int lane) {
+  double v = 0.0;
+  for (int t0 = 0; t0 < n; t0 += 32 * kFinishLoads) {
+    double x[kFinishLoads];  // the loads first, then the adds in order
+#pragma unroll
+    for (int u = 0; u < kFinishLoads; ++u) {
+      const int t = t0 + 32 * u + lane;
+      x[u] = t < n ? __ldcg(row + t) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kFinishLoads; ++u) v += x[u];
+  }
+  return warp_allsum(v);
+}
+
 // One block per chain: the tiles' partials added in a fixed order (a warp
-// per sum, lanes striding over the tiles, then an xor butterfly), then the
-// epilogue. n_out = 2 after a first pass, 3 after a second.
+// per sum), then the epilogue. n_out = 2 after a first pass, 3 after a
+// second.
 template <int FINISH>
 __global__ void __launch_bounds__(kFinishThreads)
 pcol_finish_kernel(PcolArgs a, int tiles, int n_out) {
@@ -707,19 +751,8 @@ pcol_finish_kernel(PcolArgs a, int tiles, int n_out) {
   const double* sc = a.scratch + (size_t)c * K * 3 * tiles;
   for (int i = warp; i < K * n_out; i += kFinishThreads / 32) {
     const int k = i / n_out, j = i % n_out;
-    const double* row = sc + (size_t)(k * 3 + j) * tiles;
-    double v = 0.0;
-    for (int t0 = 0; t0 < tiles; t0 += 32 * kFinishLoads) {
-      double x[kFinishLoads];  // the loads first, then the adds in order
-#pragma unroll
-      for (int u = 0; u < kFinishLoads; ++u) {
-        const int t = t0 + 32 * u + lane;
-        x[u] = t < tiles ? row[t] : 0.0;
-      }
-#pragma unroll
-      for (int u = 0; u < kFinishLoads; ++u) v += x[u];
-    }
-    v = warp_allsum(v);
+    const double v = warp_ordered_sum(sc + (size_t)(k * 3 + j) * tiles,
+                                      tiles, lane);
     if (lane == 0) tot[k * 3 + j] = v;
   }
   if (FINISH == kWriteSums) {
@@ -788,43 +821,189 @@ __device__ double block_sum(double v, double* sred) {
   return s;
 }
 
-// ---- A column: sum over k and g of data*log1p(d/lam_off) - d --------------
-// with contrib = pn*en, Mh_off = Mh - an*contrib, lam_off = max(Mh_off,
-// floor), lam_on = max(Mh_off + contrib, floor), d = lam_on - lam_off.
-// Partial per tile to scratch[c*T + t].
-__global__ void __launch_bounds__(kThreads)
-acol_kernel(const float* __restrict__ data, const float* __restrict__ E,
-            const float* __restrict__ PA, const float* __restrict__ en,
-            const float* __restrict__ pn, const float* __restrict__ an,
-            double* __restrict__ scratch, int K, int N, int G, int Gt) {
-  extern __shared__ float smem[];
-  __shared__ double sred[kWarps];
-  float* sPA = smem;
-  float* sE = smem + K * N;
-  const int t = blockIdx.x, c = blockIdx.y, T = gridDim.x;
+// ---- A column: tiles of G, then an ordered sum and the decision -------------
+// delta = sum over k and g of data*log1p(d/lam_off) - d with contrib =
+// pn*en, Mh_off = Mh - an*contrib, lam_off = max(Mh_off, floor), lam_on =
+// max(Mh_off + contrib, floor), d = lam_on - lam_off: loglik(A_n = 1) -
+// loglik(A_n = 0). The tile kernel is the P column's (a thread owns a row
+// k, its P*A row in registers, a group of rows every `groups`-th g of a
+// 64-wide tile) with one sum instead of three; the block adds its rows'
+// partials in a fixed order into one double per tile.
+#ifndef STREAM_ACOL_ONE_LAUNCH
+#define STREAM_ACOL_ONE_LAUNCH 0
+#endif
+
+struct AcolArgs {
+  const float* data;
+  const float* E;
+  // sums only: PA (C, K, N), en (C, G) raw, pn (C, K) raw, an (C,); out (C,)
+  const float *PA, *en, *pn, *an;
+  float* out;
+  // update: P (C, K, N); A (C, N), column n written; logit (C,) the prior
+  // log-odds; temp (1,) the temperature; u (C, N) the Bernoulli uniforms;
+  // n_nan (C,) the NaN-fallback counts, as floats; delta (C, N) the
+  // column's float32 delta, written
+  const float* P;
+  float* A;
+  const float *logit, *temp, *u;
+  float *n_nan, *delta;
+  float penalty;  // subtracted from delta when sbfi
+  int sbfi;
+  double* scratch;   // (C, tiles) partials, then C counters
+  unsigned* count;   // tiles of a chain done (STREAM_ACOL_ONE_LAUNCH)
+  int n;
+  int C, K, N, G;
+};
+
+// Shared memory of an A-column tile block, in floats: the E tile transposed
+// (kColTile x NP), the row partials as doubles (groups x K), the data tile
+// (K x (kColTile + 1)), en (kColTile), pn (K), A[c, :] (NP).
+__host__ __device__ inline size_t acol_smem_floats(int K, int NP) {
+  const int groups = kColThreads / col_rows(K);
+  return (size_t)kColTile * NP + 2 * (size_t)groups * K
+         + (size_t)K * (kColTile + 1) + kColTile + K + NP;
+}
+
+__device__ __forceinline__ void acol_term(float m, float mh, float contrib,
+                                          float an, double* s) {
+  const float mh_off = mh - an * contrib;
+  const float lam_off = jmax(mh_off, kFloor);
+  const float lam_on = jmax(mh_off + contrib, kFloor);
+  const float d = lam_on - lam_off;
+  *s += (double)(m * log1pf(d / lam_off) - d);
+}
+
+// What follows the ordered sum of chain c's tiles: the sum (sums only), or
+// models/updates.py::stream_sweep_A's step for column n: round once, the
+// SBFI penalty, the tempered log-odds, the sigmoid, NaN -> 1/2 counted, the
+// draw u < p.
+template <bool kUpdate>
+__device__ void acol_decide(const AcolArgs& a, int c, double sum) {
+  const float d = (float)sum;
+  if (!kUpdate) {
+    a.out[c] = d;
+    return;
+  }
+  const size_t at = (size_t)c * a.N + a.n;
+  a.delta[at] = d;
+  const float x = a.sbfi ? d - a.penalty : d;
+  float p = at_sigmoid(a.logit[c] + a.temp[0] * x);
+  if (isnan(p)) {
+    a.n_nan[c] = a.n_nan[c] + 1.0f;
+    p = 0.5f;
+  }
+  a.A[at] = a.u[at] < p ? 1.0f : 0.0f;
+}
+
+template <int NP, bool kUpdate>
+__global__ void __launch_bounds__(kColThreads) acol_tile_kernel(AcolArgs a) {
+  extern __shared__ float4 smem4[];
+  const int K = a.K, N = a.N, G = a.G;
+  constexpr int Gt = kColTile, ld = kColTile + 1;
+  const int rows = col_rows(K), groups = kColThreads / rows;
+  float* sE = reinterpret_cast<float*>(smem4);
+  double* part = reinterpret_cast<double*>(sE + Gt * NP);
+  float* sData = reinterpret_cast<float*>(part + (size_t)groups * K);
+  float* sEn = sData + (size_t)K * ld;
+  float* sPn = sEn + Gt;
+  float* sA = sPn + K;
+  const int t = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  const int grp = tid / rows, kk = tid % rows;
   const int g0 = t * Gt;
-  stage(PA, E, sPA, sE, c, K, N, G, Gt, g0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float a = an[c];
-  const float* en_c = en + (size_t)c * G;
-  double s = 0.0;
-  for (int k = warp; k < K; k += kWarps) {
-    const float pk = pn[(size_t)c * K + k];
-    const float* mk = data + (size_t)k * G;
-    for (int gl = lane; gl < Gt; gl += 32) {
-      const int g = g0 + gl;
-      if (g >= G) break;
-      const float mh = mhat(sPA, sE, k, gl, N, Gt);
-      const float contrib = pk * en_c[g];
-      const float mh_off = mh - a * contrib;
-      const float lam_off = jmax(mh_off, kFloor);
-      const float lam_on = jmax(mh_off + contrib, kFloor);
-      const float d = lam_on - lam_off;
-      s += (double)(mk[g] * log1pf(d / lam_off) - d);
+  const int gcount = G - g0 < Gt ? G - g0 : Gt;
+
+  const float* e_c = a.E + (size_t)c * N * G;
+  const float* en_c = kUpdate ? e_c + (size_t)a.n * G : a.en + (size_t)c * G;
+  const float* x_c = (kUpdate ? a.P : a.PA) + (size_t)c * K * N;
+  for (int i = tid; i < Gt * NP; i += kColThreads) {
+    const int n = i / Gt, gl = i % Gt, g = g0 + gl;
+    sE[gl * NP + n] = (n < N && g < G) ? e_c[(size_t)n * G + g] : 0.0f;
+  }
+  for (int i = tid; i < K * Gt; i += kColThreads) {
+    const int k = i / Gt, gl = i % Gt, g = g0 + gl;
+    sData[k * ld + gl] = g < G ? a.data[(size_t)k * G + g] : 0.0f;
+  }
+  for (int gl = tid; gl < Gt; gl += kColThreads) {
+    sEn[gl] = g0 + gl < G ? en_c[g0 + gl] : 0.0f;
+  }
+  for (int k = tid; k < K; k += kColThreads) {
+    sPn[k] = kUpdate ? x_c[(size_t)k * N + a.n] : a.pn[(size_t)c * K + k];
+  }
+  for (int n = tid; n < NP; n += kColThreads) {
+    sA[n] = kUpdate && n < N ? a.A[(size_t)c * N + n] : 0.0f;
+  }
+  __syncthreads();
+
+  const float an = kUpdate ? sA[a.n] : a.an[c];
+  if (grp < groups) {
+    for (int k = kk; k < K; k += rows) {
+      // the P*A row: P * A as the plain version's P * A.unsqueeze(1)
+      float pa[NP];
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        pa[n] = n < N ? (kUpdate ? x_c[k * N + n] * sA[n] : x_c[k * N + n])
+                      : 0.0f;
+      }
+      const float pk = sPn[k];
+      const float* dk = sData + k * ld;
+      double s = 0.0;
+      for (int gl0 = grp; gl0 < gcount; gl0 += kUnroll * groups) {
+        float mh[kUnroll];
+        const float* cols[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gl = gl0 + u * groups;
+          cols[u] = sE + (gl < gcount ? gl : gl0) * NP;
+        }
+        dot_ordered<NP>(pa, cols, mh);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gl = gl0 + u * groups;
+          if (gl < gcount) acol_term(dk[gl], mh[u], pk * sEn[gl], an, &s);
+        }
+      }
+      part[(size_t)grp * K + k] = s;
     }
   }
-  s = block_sum(s, sred);
-  if (threadIdx.x == 0) scratch[(size_t)c * T + t] = s;
+  __syncthreads();
+  // the tile's partial: warp 0 along the rows' partials in order
+  const int T = gridDim.x;
+  double* sc = a.scratch + (size_t)c * T;
+  if (tid < 32) {
+    const int total = groups * K;
+    double v = 0.0;
+    for (int i = tid; i < total; i += 32) v += part[i];
+    v = warp_allsum(v);
+    if (tid == 0) sc[t] = v;
+  }
+#if STREAM_ACOL_ONE_LAUNCH
+  // the last tile block of the chain to finish takes the decision
+  __shared__ bool last;
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(a.count + c, 1u) == (unsigned)(T - 1);
+  }
+  __syncthreads();
+  if (last && tid < 32) {
+    __threadfence();
+    const double sum = warp_ordered_sum(sc, T, tid);
+    if (tid == 0) {
+      acol_decide<kUpdate>(a, c, sum);
+      a.count[c] = 0u;
+    }
+  }
+#endif
+}
+
+// One warp per chain: the tiles' partials added in a fixed order, then the
+// decision.
+template <bool kUpdate>
+__global__ void __launch_bounds__(32) acol_finish_kernel(AcolArgs a,
+                                                         int tiles) {
+  const int c = blockIdx.x;
+  const double sum = warp_ordered_sum(a.scratch + (size_t)c * tiles, tiles,
+                                      threadIdx.x);
+  if (threadIdx.x == 0) acol_decide<kUpdate>(a, c, sum);
 }
 
 // ---- the metrics row's four sums -------------------------------------------
@@ -952,6 +1131,22 @@ cudaError_t launch_pcol(const PcolArgs& a, cudaStream_t s) {
   return launch_pcol_pass<NP, kUpdate, true>(a, s);
 }
 
+// One A column: the tile kernel, then the finishing kernel (or, with
+// STREAM_ACOL_ONE_LAUNCH, the tile kernel alone).
+template <int NP, bool kUpdate>
+cudaError_t launch_acol(const AcolArgs& a, cudaStream_t s) {
+  const size_t smem = acol_smem_floats(a.K, NP) * sizeof(float);
+  cudaError_t e = allow_smem(acol_tile_kernel<NP, kUpdate>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = n_tiles(a.G, kColTile);
+  acol_tile_kernel<NP, kUpdate><<<dim3(tiles, a.C), kColThreads, smem, s>>>(
+      a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (STREAM_ACOL_ONE_LAUNCH) return cudaSuccess;
+  acol_finish_kernel<kUpdate><<<a.C, 32, 0, s>>>(a, tiles);
+  return cudaGetLastError();
+}
+
 // Pick the register tile's width for N and call launch_<which><NP, MODE>.
 #define DISPATCH_NP(N, CALL)                                              \
   ((N) <= 4 ? CALL(4) : (N) <= 8 ? CALL(8) : (N) <= 12 ? CALL(12)         \
@@ -964,7 +1159,7 @@ __global__ void special_kernel(const float* __restrict__ x,
   if (i >= n) return;
   const float v = x[i];
   out[i] = which == 0 ? at_ndtri(v) : which == 1 ? at_log_ndtr(v)
-           : port_ndtr(v);
+           : which == 2 ? port_ndtr(v) : at_sigmoid(v);
 }
 
 }  // namespace
@@ -1059,7 +1254,7 @@ extern "C" int stream_erow_update_launch(
 
 // The epilogue's special functions on n floats, for checking them against
 // the PyTorch calls they reproduce: which = 0 torch.special.ndtri, 1
-// torch.special.log_ndtr, 2 ops/distributions.py::_ndtr.
+// torch.special.log_ndtr, 2 ops/distributions.py::_ndtr, 3 torch.sigmoid.
 extern "C" int stream_special_launch(const float* x, float* out, int n,
                                      int which, void* stream) {
   special_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
@@ -1067,21 +1262,61 @@ extern "C" int stream_special_launch(const float* x, float* out, int n,
   return (int)cudaGetLastError();
 }
 
-// A column: scratch C * n_tiles doubles; out C floats.
+// The A column's delta, sums only: scratch C * (n_tiles(G, 64) + 1)
+// doubles; out C floats.
 extern "C" int stream_acol_launch(const float* data, const float* E,
                                   const float* PA, const float* en,
                                   const float* pn, const float* an,
                                   double* scratch, float* out, int C, int K,
-                                  int N, int G, int Gt, void* stream) {
+                                  int N, int G, void* stream) {
+  AcolArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.en = en; a.pn = pn; a.an = an;
+  a.out = out; a.scratch = scratch;
+  a.count = reinterpret_cast<unsigned*>(scratch + (size_t)C * n_tiles(G,
+                                                                 kColTile));
+  a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(K, N, Gt);
-  const int T = n_tiles(G, Gt);
-  cudaError_t e;
-  if ((e = allow_smem(acol_kernel, smem)) != cudaSuccess) return e;
-  acol_kernel<<<dim3(T, C), kThreads, smem, s>>>(data, E, PA, en, pn, an,
-                                                 scratch, K, N, G, Gt);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return reduce(scratch, out, C, T, 1, 1, s);
+  cudaError_t e = cudaSuccess;
+  if (STREAM_ACOL_ONE_LAUNCH) {
+    e = cudaMemsetAsync(a.count, 0, (size_t)C * sizeof(unsigned), s);
+    if (e != cudaSuccess) return (int)e;
+  }
+#define CALL_SUMS(NP) launch_acol<NP, false>(a, s)
+  e = DISPATCH_NP(N, CALL_SUMS);
+#undef CALL_SUMS
+  return (int)e;
+}
+
+// Columns n0 .. n1-1 of A, enqueued in order, each a pass over the tiles
+// and the decision: A, n_nan and delta are updated in place. logit (C,),
+// temp (1,), u (C, N); penalty subtracted from every delta when sbfi.
+// scratch: C * (n_tiles(G, 64) + 1) doubles.
+extern "C" int stream_acol_update_launch(
+    const float* data, const float* E, const float* P, float* A,
+    const float* logit, const float* temp, const float* u, float* n_nan,
+    float* delta, float penalty, int sbfi, double* scratch, int C, int K,
+    int N, int G, int n0, int n1, void* stream) {
+  AcolArgs a = {};
+  a.data = data; a.E = E; a.P = P; a.A = A; a.logit = logit; a.temp = temp;
+  a.u = u; a.n_nan = n_nan; a.delta = delta;
+  a.penalty = penalty; a.sbfi = sbfi; a.scratch = scratch;
+  a.count = reinterpret_cast<unsigned*>(scratch + (size_t)C * n_tiles(G,
+                                                                 kColTile));
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (STREAM_ACOL_ONE_LAUNCH) {
+    const cudaError_t e =
+        cudaMemsetAsync(a.count, 0, (size_t)C * sizeof(unsigned), s);
+    if (e != cudaSuccess) return (int)e;
+  }
+#define CALL_UPDATE(NP) launch_acol<NP, true>(a, s)
+  for (int n = n0; n < n1; ++n) {
+    a.n = n;
+    const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
+    if (e != cudaSuccess) return (int)e;
+  }
+#undef CALL_UPDATE
+  return 0;
 }
 
 // Metrics: scratch C * n_tiles * 4 doubles; out 4 * C floats.

@@ -310,10 +310,12 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
 def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
                    gen=None, u=None):
     """Sequential tempered Bernoulli updates of the inclusion vector A
-    (sample_An, sample_params.R:101-166), each column's loglik delta from
-    the ``acol_delta`` kernel; SBFI subtracts the BIC-penalty delta, BFI
-    does not. ``u``: (C, N) uniforms, column n's Bernoulli draw in u[:, n].
-    Returns (A, n_nan), n_nan (C,) counting posteriors clamped NaN -> 1/2.
+    (sample_An, sample_params.R:101-166), the whole sweep one call of
+    ops/stream_sweeps.stream_acol_update, whose kernels take each column's
+    loglik delta, the SBFI penalty (BFI: none), the tempered sigmoid, the
+    NaN fallback and the draw in turn. ``u``: (C, N) uniforms, column n's
+    Bernoulli draw in u[:, n]. Returns (A, n_nan), n_nan (C,) counting
+    posteriors clamped NaN -> 1/2.
     """
     P, E = params["P"], params["E"]
     A = params["A"].clone()
@@ -322,20 +324,10 @@ def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
         u = _rand(gen, (C, N), P.device)
     p1 = prior_prob_1(R.to(torch.float32), N)
     logit_p1 = torch.log(p1) - torch.log1p(-p1)
-    pen = sbfi_penalty(spec)
+    pen = sbfi_penalty(spec) if spec.rank_method == "SBFI" else None
     n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
-    for n in range(N):
-        A_n = A[:, n].contiguous()
-        delta = S.acol_delta(data, E, P * A.unsqueeze(1),
-                             E[:, n, :].contiguous(),
-                             P[:, :, n].contiguous(), A_n)
-        if spec.rank_method == "SBFI":
-            delta = delta - pen
-        p = torch.sigmoid(logit_p1 + temperature * delta)
-        is_nan = torch.isnan(p)
-        n_nan = n_nan + is_nan.to(torch.float32)
-        p = torch.where(is_nan, 0.5, p)
-        A[:, n] = dist.bernoulli_from_u(u[:, n], p)
+    S.stream_acol_update(data, E, P, A, logit_p1, temperature,
+                         u.contiguous(), n_nan, pen)
     return A, n_nan
 
 

@@ -20,7 +20,9 @@ get exactly zero counts; a cell whose weights are all zero allocates zero.
   draws for a seed, so that mode too is held against the plain version.
 - ``allocate_counts`` is the wrapper. CPU tensors run the plain version,
   with planes drawn from the caller's generator when none are given. CUDA
-  tensors launch csrc/allocation.cu or raise: with planes it consumes them
+  tensors launch csrc/allocation.cu (one thread per cell, the tree in
+  registers, an inversion that stops once its value is settled) or raise:
+  with planes it consumes them
   (how the kernel is held against the plain version); without, it draws
   its uniforms in-kernel from a Philox4x32-10 stream seeded by a device
   int64 the wrapper draws from the caller's generator (8 + 4 BTRS rounds),
@@ -257,6 +259,7 @@ _I = ctypes.c_int
 # M P A E u seed, Zsum_g Zsum_k scratch, C K N G, stream
 _ARGTYPES = [_P] * 6 + [_P] * 3 + [_I] * 4 + [_P]
 TILE_G = 32          # columns g per block (csrc/allocation.cu kTileG)
+ROWS = 8             # rows k per block (kRows)
 
 
 def _launch(M, P, A, E, u, seed):
@@ -272,9 +275,11 @@ def _launch(M, P, A, E, u, seed):
     f32 = dict(dtype=torch.float32, device=P.device)
     zg = torch.empty(C, K, N, **f32)
     zk = torch.empty(C, N, G, **f32)
-    tiles = -(-G // TILE_G)
-    scratch = torch.empty(C, tiles, K, N, dtype=torch.float64,
-                          device=P.device)
+    # the partials: Zsum_g per G tile (C, tiles, K, N), then Zsum_k per
+    # block of rows (C, kblocks, N, G)
+    tiles, kblocks = -(-G // TILE_G), -(-K // ROWS)
+    scratch = torch.empty(C * (tiles * K * N + kblocks * N * G),
+                          dtype=torch.float64, device=P.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(P.device):
         err = fn(ptr(M), ptr(P), ptr(A), ptr(E), ptr(u), ptr(seed),

@@ -13,7 +13,12 @@ the Mhat tile from ``PA = P * A`` and an E tile and returns only reductions:
   ratio, the decision and the write-back of the JAX package's
   models/updates.py::stream_sweep_P/E, :539-725) in kernels: one launch per
   E row; two passes over the G tiles per P column, each followed by a small
-  finishing kernel; the launches of a sweep enqueued by one C call.
+  finishing kernel; the launches of a sweep enqueued by one C call;
+- ``stream_acol_update``: whole inclusion-column updates (the delta, the
+  SBFI penalty, the tempered sigmoid, the NaN fallback, the Bernoulli draw
+  and the write of A[:, n] of models/updates.py::stream_sweep_A, :838-872)
+  in kernels: a pass over the G tiles and a finishing kernel per column,
+  the launches of a sweep enqueued by one C call.
 
 The signatures and the pre-scaling contract are the JAX package's
 (pallas_stream_sweeps.py:357-359): P-column functions take ``pn = A_n*P_n``
@@ -31,13 +36,15 @@ Tolerance between kernel and plain version on the card: rtol 1e-6 and
 atol 1e-6 (``KERNEL_RTOL``/``KERNEL_ATOL``) for the sums: each per-element
 term rounds the same way in both, and the float64 sums differ only in their
 order, so the float32 results differ by at most an ulp or two. A column
-update must take the same decisions as its plain version. Its values are
-held to rtol 1e-5 and atol 1e-6 (``UPDATE_RTOL``/``UPDATE_ATOL``): an ulp
-in a sum moves the conditional's mean by an ulp, and a draw mu + sd*z near
-0 keeps the absolute rounding of mu. Its recorded acceptances (the Hastings
-ratio) are held to rtol 1e-4 (``RATIO_RTOL``): the kernel's log_ndtr differs
-from PyTorch's by an ulp or two at some arguments below -1, and where the
-log-likelihood part of the log ratio is ~1e3 one ulp of the sum is 6e-5.
+update must take the same decisions as its plain version: for an A column
+the same A and NaN counts, with its delta within the sums' tolerance. A P
+column's or E row's values are held to rtol 1e-5 and atol 1e-6
+(``UPDATE_RTOL``/``UPDATE_ATOL``): an ulp in a sum moves the conditional's
+mean by an ulp, and a draw mu + sd*z near 0 keeps the absolute rounding of
+mu. Its recorded acceptances (the Hastings ratio) are held to rtol 1e-4
+(``RATIO_RTOL``): the kernel's log_ndtr differs from PyTorch's by an ulp or
+two at some arguments below -1, and where the log-likelihood part of the log
+ratio is ~1e3 one ulp of the sum is 6e-5.
 
 Limits of the kernels: N <= 64 (the register tile), and K small enough for
 the tiles to fit an SM's shared memory (K <= ~1000 at N <= 24).
@@ -55,15 +62,14 @@ from . import math as m
 _FLOOR = 1e-6
 # a plain-version tile: bounds the (C, K, tile) temporaries on the CPU
 _PLAIN_TILE = 4096
-# a kernel tile: threads of an E-row block, and the G width of the E tile
-# staged in shared memory
+# G width of a metrics tile, whose E tile is staged in shared memory
 _KERNEL_TILE = 256
 _SMEM_BYTES = 48 * 1024
 # what a block can opt in to on an H100
 _SMEM_MAX_BYTES = 227 * 1024
-# threads of a P-column tile block
+# threads of a P- or A-column tile block
 _COL_THREADS = 384
-# G width of a P-column tile
+# G width of a P- or A-column tile
 _COL_TILE = 64
 _MAX_N = 64
 
@@ -171,6 +177,26 @@ def acol_delta_reference(data, E, PA, en, pn, an):
         acc = acc + _sum64(data[:, g0:g1] * torch.log1p(d / lam_off) - d,
                            (-2, -1))
     return acc.to(torch.float32)
+
+
+def acol_update_reference(data, E, P, A, logit_p1, temperature, u, n_nan,
+                          penalty, n: int):
+    """Plain version of one A-column update (column ``n``), in place on A
+    (C, N) and n_nan (C,): the host sequence of the JAX package's
+    stream_sweep_A body on chain-batched operands. ``logit_p1`` (C,) the
+    prior log-odds, ``temperature`` a number or a one-element tensor,
+    ``u`` (C, N), ``penalty`` the SBFI penalty or None (BFI). Returns the
+    column's delta (C,) before the penalty."""
+    delta = acol_delta_reference(data, E, P * A.unsqueeze(1),
+                                 E[:, n, :].contiguous(),
+                                 P[:, :, n].contiguous(), A[:, n].contiguous())
+    x = delta if penalty is None else delta - penalty
+    p = torch.sigmoid(logit_p1 + temperature * x)
+    is_nan = torch.isnan(p)
+    n_nan += is_nan.to(torch.float32)
+    p = torch.where(is_nan, 0.5, p)
+    A[:, n] = dist.bernoulli_from_u(u[:, n], p)
+    return delta
 
 
 def chain_metrics_reference(data, E, PA):
@@ -281,14 +307,16 @@ _SIGNATURES = {
     "stream_pcol_update_launch": [_P] * 14 + [_I] * 6 + [_P],
     "stream_erow_update_launch": [_P] * 12 + [_I] * 6 + [_P],
     "stream_special_launch": [_P] * 2 + [_I] * 2 + [_P],
-    "stream_acol_launch": [_P] * 8 + [_I] * 5 + [_P],
+    "stream_acol_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "stream_acol_update_launch": [_P] * 9 + [ctypes.c_float, _I, _P]
+    + [_I] * 6 + [_P],
     "stream_metrics_launch": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 
 def kernel_tile(K: int, N: int) -> int:
-    """G width of an A-column or metrics tile: 256, halved until PA and the
-    E tile fit the 48 KB of shared memory a block gets without opting in."""
+    """G width of a metrics tile: 256, halved until PA and the E tile fit
+    the 48 KB of shared memory a block gets without opting in."""
     gt = _KERNEL_TILE
     while gt > 32 and (K * N + N * gt) * 4 > _SMEM_BYTES:
         gt //= 2
@@ -305,21 +333,34 @@ def tile_width(N: int) -> int:
     return -(-N // 4) * 4 if N <= 24 else 32 if N <= 32 else 64
 
 
+def _check_col_fits(K: int, N: int, sums: int, vectors: int, what: str):
+    """Raise when a P- or A-column tile block's shared memory
+    (col_smem_floats / acol_smem_floats in csrc/stream_sweeps.cu: the E
+    tile, the groups' ``sums`` partials a row as doubles, the data tile with
+    a padded stride, ``vectors`` floats of per-row and per-column vectors)
+    does not fit the SM."""
+    groups = _COL_THREADS // min(-(-K // 32) * 32, _COL_THREADS)
+    gt = _COL_TILE
+    need = 4 * (gt * tile_width(N) + 2 * groups * K * sums + K * (gt + 1)
+                + gt + vectors)
+    if need > _SMEM_MAX_BYTES:
+        raise ValueError(f"stream_sweeps: K = {K} rows do not fit {what} "
+                         "block's shared memory")
+
+
 def _col_scratch(C: int, K: int, N: int, G: int, device):
     """The P-column tile kernel's partial sums, (C, K, 3, tiles) doubles
-    that the finishing kernel adds in order. Raises when a tile block's
-    shared memory (col_smem_floats in csrc/stream_sweeps.cu: the E tile,
-    the group partials as doubles, the data tile with a padded stride, the
-    per-row vectors) does not fit the SM."""
-    rows = min(-(-K // 32) * 32, _COL_THREADS)
-    groups = _COL_THREADS // rows
-    gt = _COL_TILE
-    need = 4 * (gt * tile_width(N) + 2 * groups * K * 3 + K * (gt + 1) + gt
-                + 2 * K)
-    if need > _SMEM_MAX_BYTES:
-        raise ValueError(f"stream_sweeps: K = {K} rows do not fit a "
-                         "P-column block's shared memory")
-    return torch.empty(C * _n_tiles(G, gt) * K * 3, dtype=torch.float64,
+    that the finishing kernel adds in order."""
+    _check_col_fits(K, N, 3, 2 * K, "a P-column")
+    return torch.empty(C * _n_tiles(G, _COL_TILE) * K * 3,
+                       dtype=torch.float64, device=device)
+
+
+def _acol_scratch(C: int, K: int, N: int, G: int, device):
+    """The A-column tile kernel's partials, one double per (chain, tile),
+    and C counters after them."""
+    _check_col_fits(K, N, 1, K + tile_width(N), "an A-column")
+    return torch.empty(C * (_n_tiles(G, _COL_TILE) + 1), dtype=torch.float64,
                        device=device)
 
 
@@ -394,13 +435,29 @@ def _launch_update(col, data, E, P, A, acc, Mu, Sq, prior_draw, U,
 def _launch_acol(data, E, PA, en, pn, an):
     C, K, N = PA.shape
     G = E.shape[2]
-    gt = kernel_tile(K, N)
-    scratch = torch.empty(C * _n_tiles(G, gt), dtype=torch.float64,
-                          device=PA.device)
     out = torch.empty(C, dtype=torch.float32, device=PA.device)
-    _call("stream_acol_launch", data, E, PA, en, pn, an, scratch, out, C, K,
-          N, G, gt)
+    _call("stream_acol_launch", data, E, PA, en, pn, an,
+          _acol_scratch(C, K, N, G, PA.device), out, C, K, N, G)
     return out
+
+
+def _launch_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,
+                        penalty, n0, n1):
+    """Enqueue the launches of A columns n0..n1-1 with one C call; A and
+    n_nan change in place. Returns the deltas (C, N)."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    if isinstance(temperature, torch.Tensor):
+        temp = temperature.to(device=P.device, dtype=torch.float32).reshape(1)
+    else:
+        temp = torch.full((1,), float(temperature), dtype=torch.float32,
+                          device=P.device)
+    delta = torch.empty(C, N, dtype=torch.float32, device=P.device)
+    _call("stream_acol_update_launch", data, E, P, A, logit_p1, temp, u,
+          n_nan, delta, 0.0 if penalty is None else float(penalty),
+          int(penalty is not None),
+          _acol_scratch(C, K, N, G, P.device), C, K, N, G, n0, n1)
+    return delta
 
 
 def _launch_metrics(data, E, PA):
@@ -586,21 +643,68 @@ def stream_erow_update(data, E, P, A, acc_E, Mu_e, Sigmasq_e, E_prior, U,
             Sigmasq_e, E_prior, U, accept_all, n_nan, n0, n1)
 
 
+def stream_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,
+                       penalty=None, n0: int = 0, n1=None):
+    """Tempered Bernoulli updates of inclusion columns n0..n1-1 (all N by
+    default), in order and in place on A (C, N) and n_nan (C,), which gains
+    the count of NaN inclusion probabilities taken as 1/2: column n's delta
+    loglik(A_n = 1) - loglik(A_n = 0) at the current A, less ``penalty``
+    (SBFI; None for BFI), gives p = sigmoid(logit_p1 + temperature * delta)
+    and A[:, n] = u[:, n] < p. P (C, K, N), E (C, N, G), logit_p1 (C,) the
+    prior log-odds, ``temperature`` a number or a one-element tensor,
+    u (C, N). Returns the deltas (C, N) before the penalty, of columns
+    n0..n1-1 (the other columns' entries are undefined). On the card: a pass
+    over the G tiles and a finishing kernel per column (counted one launch
+    per column in ``stream_acol_update.launches``), all enqueued by one C
+    call."""
+    fn = "stream_acol_update"
+    C, K, N = P.shape
+    G = E.shape[2]
+    dev = P.device
+    _check(fn, "data", data, (K, G), dev)
+    for name, t, shape in (("E", E, (C, N, G)), ("P", P, (C, K, N)),
+                           ("A", A, (C, N)), ("logit_p1", logit_p1, (C,)),
+                           ("u", u, (C, N)), ("n_nan", n_nan, (C,))):
+        _check(fn, name, t, shape, dev)
+    n1 = N if n1 is None else n1
+    if not 0 <= n0 <= n1 <= N:
+        raise ValueError(f"{fn}: columns {n0}..{n1} out of 0..{N}")
+    if isinstance(temperature, torch.Tensor) and temperature.numel() != 1:
+        raise ValueError(f"{fn}: temperature has {temperature.numel()} "
+                         "values, expected 1")
+    if dev.type == "cpu":
+        delta = torch.empty(C, N, dtype=torch.float32)
+        for n in range(n0, n1):
+            delta[:, n] = acol_update_reference(
+                data, E, P, A, logit_p1, temperature, u, n_nan, penalty, n)
+    elif dev.type == "cuda":
+        delta = _launch_acol_update(data, E, P, A, logit_p1, temperature, u,
+                                    n_nan, penalty, n0, n1)
+        stream_acol_update.launches += n1 - n0
+    else:
+        raise ValueError(f"{fn}: no path for device {dev}")
+    return delta
+
+
+stream_acol_update.launches = 0
+
+
 def special_functions(x, which: str):
-    """The kernels' own ``ndtri``, ``log_ndtr`` or ``ndtr`` on a float32
-    CUDA tensor, for holding them against torch.special.ndtri,
-    torch.special.log_ndtr and ops/distributions._ndtr, whose bits a column
-    update's draw and ratio depend on."""
+    """The kernels' own ``ndtri``, ``log_ndtr``, ``ndtr`` or ``sigmoid`` on
+    a float32 CUDA tensor, for holding them against torch.special.ndtri,
+    torch.special.log_ndtr, ops/distributions._ndtr and torch.sigmoid,
+    whose bits a column update's draw, ratio and decision depend on."""
     _check("special_functions", "x", x, x.shape, x.device)
     if x.device.type != "cuda":
         raise ValueError("special_functions: the kernels' functions exist "
                          "on the card only")
     out = torch.empty_like(x)
     _call("stream_special_launch", x, out, x.numel(),
-          ("ndtri", "log_ndtr", "ndtr").index(which))
+          ("ndtri", "log_ndtr", "ndtr", "sigmoid").index(which))
     return out
 
 
 def reset_launch_counts():
     """Set every stream kernel's launch count to 0."""
     _run.launches = acol_delta.launches = chain_metrics.launches = 0
+    stream_acol_update.launches = 0

@@ -17,6 +17,7 @@ import torch
 from bayesnmf_tpu.ops.pallas_allocation import _pick_tile
 from bayesnmf_tpu.ops.pallas_allocation import allocate_counts_fused
 from bayesnmf_tpu_torch.ops import allocation as AL
+from bayesnmf_tpu_torch.ops.math import const
 
 torch.set_num_threads(1)
 
@@ -108,6 +109,62 @@ def test_all_zero_weight_cell_allocates_nothing():
     assert float(zk[:, 2].sum()) == 0.0
     np.testing.assert_array_equal(zg.numpy().sum(1),
                                   M.sum(1) - M[:, 2])
+
+
+def _stopping_inversion(n, pp, u):
+    """A float32 mirror of csrc/allocation.cu's inversion: the reference's
+    recurrence, with x frozen from the first step that adds nothing, or once
+    x reaches n (the kernel leaves its loop there)."""
+    ratio = pp / (1.0 - pp).clamp_min(1e-12)
+    pmf = torch.exp(n * torch.log1p(-pp))
+    cdf = pmf
+    x = torch.zeros_like(n)
+    live = torch.ones(n.shape, dtype=torch.bool)
+    for j in range(AL._INV_STEPS):
+        live = live & (u > cdf)
+        x = x + live.to(torch.float32)
+        live = live & (x < n)
+        pmf = pmf * (n - j) / const(j + 1.0, n) * ratio
+        cdf = cdf + pmf
+    return torch.minimum(x, n)
+
+
+def test_stopping_inversion_equals_the_40_steps():
+    """The kernel's inversion stops early; it returns what the reference's
+    40 steps (ops/allocation.py::_binomial) return, on counts 0..60, every
+    p' with n p' <= 10 on a grid, both flips, and uniforms near 0, near 1
+    and exactly at (and one ulp around) the CDF values: the pmf is never
+    negative, so the CDF never falls, and past n it is 0."""
+    n = torch.arange(61, dtype=torch.float32).view(-1, 1)
+    frac = torch.linspace(0.0, 1.0, 41)[1:].view(1, -1)
+    pp = torch.minimum(10.0 / n.clamp_min(1.0), torch.tensor(0.5)) * frac
+    n, pp = torch.broadcast_tensors(n, pp)
+    n, pp = n.reshape(-1, 1), pp.reshape(-1, 1)
+    # the CDF at x = 0..5, by the reference's recurrence
+    ratio = pp / (1.0 - pp).clamp_min(1e-12)
+    pmf = torch.exp(n * torch.log1p(-pp))
+    cdfs = [pmf]
+    for j in range(5):
+        pmf = pmf * (n - j) / const(j + 1.0, n) * ratio
+        cdfs.append(cdfs[-1] + pmf)
+    at = torch.cat(cdfs, 1).clamp(1.2e-38, 1.0)
+    fixed = torch.tensor([1.2e-38, 1e-30, 1e-7, 1e-3, 0.3, 0.5, 0.7, 0.999,
+                          1.0 - 2.0 ** -23, 1.0 - 2.0 ** -24])
+    u = torch.cat([fixed.expand(n.shape[0], -1), at,
+                   torch.nextafter(at, torch.tensor(0.0)),
+                   torch.nextafter(at, torch.tensor(1.0))], 1)
+    n, pp = n.expand_as(u), pp.expand_as(u)
+    rest = torch.full_like(u, 0.5)   # BTRS planes, unused by inversions
+    for p in (pp, 1.0 - pp):
+        flip = p > 0.5
+        q = torch.where(flip, 1.0 - p, p)
+        # 1 - (1 - p') may round above n p' = 10: those cells run BTRS
+        small = n * q <= 10.0
+        assert float(small.float().mean()) > 0.95
+        want = AL._binomial(n, p, [u, rest, rest])
+        y = _stopping_inversion(n, q, u)
+        got = torch.where(flip, n - y, y)
+        assert torch.equal(got[small], want[small])
 
 
 def _assert_multinomial_mean(M, P, A, E, zks):

@@ -508,12 +508,74 @@ def deep_tail_counts(tspec, data, params, prior, col):
     return int(((alpha > 5.4) & (alpha <= 8)).sum()), int((alpha > 8).sum())
 
 
+def acol_operands(tspec, R):
+    """stream_sweep_A's prior log-odds for the ranks R and its penalty."""
+    p1 = TU.prior_prob_1(t(np.asarray(R)).to(torch.float32), tspec.N)
+    logit = torch.log(p1) - torch.log1p(-p1)
+    pen = TU.sbfi_penalty(tspec) if tspec.rank_method == "SBFI" else None
+    return logit, pen
+
+
+def a_uniforms(keys, N_u):
+    """stream_sweep_A's Bernoulli uniforms: column n's from split(key, N)[n]
+    (updates.py:846, :866), (C, N)."""
+    return t(np.stack([[np.asarray(jax.random.uniform(kn, ()))
+                        for kn in jax.random.split(k, N_u)] for k in keys]))
+
+
+def check_acol_entry_point(G_u, rtol):
+    """stream_acol_update on CPU tensors, column by column, against the JAX
+    stream_sweep_A on the same uniforms (SBFI and BFI): each column's delta
+    against the JAX acol_delta at the same state, and the final A and NaN
+    counts against the JAX sweep's."""
+    jspec0, tspec0, data, js = update_setup(G_u, seed=G_u + 2)
+    params = js["params"]
+    N_u = tspec0.N
+    R = np.array([1, 2], np.int32)
+    temp = 0.01
+    keys = jax.random.split(jax.random.PRNGKey(13), C)
+    u = a_uniforms(keys, N_u)
+    tp = port_tree(params)
+    for method in ("SBFI", "BFI"):
+        jspec = JModelSpec(**{**jspec0.__dict__, "rank_method": method})
+        tspec = ModelSpec(**{**tspec0.__dict__, "rank_method": method})
+        want = jax.vmap(lambda p, r, k: JU.stream_sweep_A(
+            jspec, jnp.asarray(data), p, r, jnp.float32(temp), k))(
+                params, jnp.asarray(R), keys)
+        logit, pen = acol_operands(tspec, R)
+        A = tp["A"].clone()
+        n_nan = torch.zeros(C)
+        for n in range(N_u):
+            A_before = A.numpy().copy()
+            delta = S.stream_acol_update(t(data), tp["E"], tp["P"], A, logit,
+                                         temp, u, n_nan, pen, n, n + 1)
+            P, E = np.asarray(params["P"]), np.asarray(params["E"])
+            jd = np.asarray(jax.vmap(lambda E_, PA, en, pn, an: JS.acol_delta(
+                jnp.asarray(data), E_, PA, en, pn, an))(
+                    E, P * A_before[:, None, :], E[:, n], P[:, :, n],
+                    A_before[:, n]))
+            close(delta[:, n].numpy(), jd, rtol,
+                  atol=rtol * float(np.abs(jd).max()),
+                  msg=f"{method} delta column {n}")
+        np.testing.assert_array_equal(A.numpy(), np.asarray(want[0]),
+                                      err_msg=method)
+        np.testing.assert_array_equal(n_nan.numpy(), np.asarray(want[1]))
+        assert not np.array_equal(A.numpy(), np.asarray(params["A"]))
+        # stream_sweep_A of models/updates.py is the same call
+        got = TU.stream_sweep_A(tspec, t(data), tp, t(R), temp, u=u)
+        assert torch.equal(got[0], A) and torch.equal(got[1], n_nan)
+
+
 @pytest.mark.parametrize("G_u,rtol", [(300, 1e-5), (25000, 1e-4)])
-@pytest.mark.parametrize("side", ["P", "E"])
+@pytest.mark.parametrize("side", ["P", "E", "A"])
 def test_column_update_entry_points_match_jax(side, G_u, rtol):
-    """stream_pcol_update / stream_erow_update on CPU tensors run the plain
-    host sequence: the JAX stream_sweep_P/E fed the same draws, with an
-    excluded column, per-chain warmup flags and deep-tail conditionals."""
+    """stream_pcol_update / stream_erow_update / stream_acol_update on CPU
+    tensors run the plain host sequence: the JAX stream_sweep_P/E/A fed the
+    same draws; for P and E with an excluded column, per-chain warmup flags
+    and deep-tail conditionals."""
+    if side == "A":
+        check_acol_entry_point(G_u, rtol)
+        return
     jspec, tspec, data, js = update_setup(G_u, seed=G_u + (side == "E"))
     params, prior = js["params"], js["prior"]
     K_u, N_u = tspec.K, tspec.N
@@ -575,12 +637,48 @@ def test_column_update_entry_points_match_jax(side, G_u, rtol):
     assert torch.equal(got[2], n_nan)
 
 
-@pytest.mark.parametrize("side", ["P", "E"])
+def check_acol_ranges_compose(tspec, data, tp):
+    rng = np.random.default_rng(5)
+    N_u = tspec.N
+    u = t(rng.uniform(1e-6, 1.0, (C, N_u)).astype(np.float32))
+    logit = t(rng.normal(0.0, 1.0, C).astype(np.float32))
+
+    def run(ranges):
+        A = tp["A"].clone()
+        nn = torch.zeros(C)
+        deltas = []
+        for n0, n1 in ranges:
+            d = S.stream_acol_update(t(data), tp["E"], tp["P"], A, logit, 0.05,
+                                     u, nn, 3.0, n0, n1)
+            deltas.append(d[:, n0:n1])
+        return A, nn, torch.cat(deltas, 1)
+
+    S.reset_launch_counts()
+    one = run([(0, None)])
+    two = run([(0, 1), (1, N_u)])
+    assert S.stream_acol_update.launches == 0
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    assert not torch.equal(one[0], tp["A"])
+    with pytest.raises(ValueError):
+        run([(2, 1)])
+    with pytest.raises(ValueError):   # a temperature per chain
+        S.stream_acol_update(t(data), tp["E"], tp["P"], tp["A"].clone(),
+                             logit, torch.ones(C), u, torch.zeros(C))
+    with pytest.raises(TypeError):    # integer NaN counts
+        S.stream_acol_update(t(data), tp["E"], tp["P"], tp["A"].clone(),
+                             logit, 1.0, u, torch.zeros(C, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("side", ["P", "E", "A"])
 def test_column_update_ranges_compose(side):
     """Columns 0..n and n..N in two calls equal one call, in place; a CPU
     call counts no launch."""
     jspec, tspec, data, js = update_setup(60, seed=3)
     tp, tpr = port_tree(js["params"]), port_tree(js["prior"])
+    if side == "A":
+        check_acol_ranges_compose(tspec, data, tp)
+        return
     col = side == "P"
     K_u, N_u, G_u = tspec.K, tspec.N, tspec.G
     rng = np.random.default_rng(5)
@@ -616,19 +714,23 @@ def test_column_update_ranges_compose(side):
            sq, prior_draw, U, flags.float(), torch.zeros(C))
 
 
-@pytest.mark.parametrize("side", ["P", "E"])
+@pytest.mark.parametrize("side", ["P", "E", "A"])
 def test_column_updates_never_take_the_plain_path_on_cuda(side, monkeypatch):
     """For CUDA tensors a column update enqueues its kernels or raises; the
     host sequence is not reached. Checked with a stand-in launcher."""
     jspec, tspec, data, js = update_setup(40, seed=6)
     tp, tpr = port_tree(js["params"]), port_tree(js["prior"])
-    col = side == "P"
-    shape = tuple(tp[side].shape)
-    L = tspec.K if col else tspec.G
-    args = (t(data), tp["E"], tp["P"], tp["A"], torch.full(shape, 0.5),
-            tpr[f"Mu_{side.lower()}"], tpr[f"Sigmasq_{side.lower()}"],
-            torch.ones(shape), torch.full((C, 3, tspec.N, L), 0.5),
-            torch.tensor([False, True]), torch.zeros(C))
+    if side == "A":
+        args = (t(data), tp["E"], tp["P"], tp["A"].clone(), torch.zeros(C),
+                0.5, torch.full((C, tspec.N), 0.5), torch.zeros(C))
+    else:
+        col = side == "P"
+        shape = tuple(tp[side].shape)
+        L = tspec.K if col else tspec.G
+        args = (t(data), tp["E"], tp["P"], tp["A"], torch.full(shape, 0.5),
+                tpr[f"Mu_{side.lower()}"], tpr[f"Sigmasq_{side.lower()}"],
+                torch.ones(shape), torch.full((C, 3, tspec.N, L), 0.5),
+                torch.tensor([False, True]), torch.zeros(C))
 
     def fake_launch(*a):
         raise RuntimeError("stand-in kernel")
@@ -637,19 +739,50 @@ def test_column_updates_never_take_the_plain_path_on_cuda(side, monkeypatch):
         raise AssertionError("plain version reached for CUDA tensors")
 
     monkeypatch.setattr(S, "_launch_update", fake_launch)
+    monkeypatch.setattr(S, "_launch_acol_update", fake_launch)
     monkeypatch.setattr(S, "pcol_update_reference", no_plain)
     monkeypatch.setattr(S, "erow_update_reference", no_plain)
+    monkeypatch.setattr(S, "acol_update_reference", no_plain)
     monkeypatch.setattr(S, "_check", lambda *a: None)
     fake_cuda = torch.device("cuda", 0)
     monkeypatch.setattr(torch.Tensor, "device", property(
         lambda self: fake_cuda))
-    fn = S.stream_pcol_update if col else S.stream_erow_update
+    fn = {"P": S.stream_pcol_update, "E": S.stream_erow_update,
+          "A": S.stream_acol_update}[side]
     with pytest.raises(RuntimeError, match="stand-in kernel"):
         fn(*args)
 
 
+def test_acol_update_nan_delta_takes_one_half():
+    """A chain whose P holds an inf has a NaN delta in every column: each
+    inclusion is drawn at p = 1/2 and counted, as the JAX stream_sweep_A
+    does; the other chain is untouched by it."""
+    jspec, tspec, data, js = update_setup(60, seed=3)
+    params = dict(js["params"])
+    params["P"] = params["P"].at[1, 0, 1].set(jnp.inf)
+    N_u = tspec.N
+    R = np.array([2, 1], np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(17), C)
+    want = jax.vmap(lambda p, r, k: JU.stream_sweep_A(
+        jspec, jnp.asarray(data), p, r, jnp.float32(1.0), k))(
+            params, jnp.asarray(R), keys)
+    u = a_uniforms(keys, N_u)
+    tp = port_tree(params)
+    logit, pen = acol_operands(tspec, R)
+    A = tp["A"].clone()
+    n_nan = torch.zeros(C)
+    delta = S.stream_acol_update(t(data), tp["E"], tp["P"], A, logit, 1.0,
+                                 u, n_nan, pen)
+    assert torch.isnan(delta[1]).all() and torch.isfinite(delta[0]).all()
+    assert n_nan.tolist() == [0.0, float(N_u)]
+    assert torch.equal(A[1], (u[1] < 0.5).to(torch.float32))
+    np.testing.assert_array_equal(A.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(n_nan.numpy(), np.asarray(want[1]))
+
+
 def test_column_kernel_limits():
-    """The register tile's width by N, and shapes the kernels refuse."""
+    """The register tile's width by N, shapes the kernels refuse, and their
+    scratch sizes."""
     assert [S.tile_width(n) for n in (1, 4, 5, 20, 24, 25, 32, 33, 64)] == \
         [4, 4, 8, 20, 24, 32, 32, 64, 64]
     with pytest.raises(ValueError):
@@ -660,3 +793,8 @@ def test_column_kernel_limits():
         S._check_row_fits(5000, 20)
     assert S._col_scratch(2, 96, 20, 130, torch.device("cpu")).numel() == \
         2 * 3 * 96 * 3
+    with pytest.raises(ValueError):
+        S._acol_scratch(2, 5000, 20, 100, torch.device("cpu"))
+    # one partial per (chain, tile) and a counter per chain
+    assert S._acol_scratch(2, 96, 20, 130, torch.device("cpu")).numel() == \
+        2 * 3 + 2
