@@ -31,14 +31,18 @@
 //     reaches the count: the pmf
 //     is never negative, so the CDF never falls and no later step adds, and
 //     past the count the pmf is 0 (the counts are integers); the 40-step
-//     cap stays. A split of a few steps then costs about what BTRS's set-up
-//     costs, so a warp whose lanes take both regimes waits little. The
-//     draw's code (binomial) is one function called from every unrolled
-//     node rather than copied into each.
+//     cap stays. The draw's code (binomial) is one function called from
+//     every unrolled node rather than copied into each.
+//     The regime is picked per lane: a warp whose lanes take both runs both
+//     branches, but the kernel is bound by latency more than by instruction
+//     throughput. On an H100, cells whose regimes alternate along every
+//     warp took 1.25x the time of the same cells with the regimes kept
+//     apart (chip_smoke.py, phase 3d), and at (96,20,10000) 18% of
+//     warp-splits mix: keeping the regimes apart could save ~5%.
 //     What is left: the splits of a cell stay one dependent chain of IEEE
 //     divisions, logs and exps on one thread, and lanes whose draws take
-//     different numbers of steps or regimes wait for each other; the kernel
-//     runs at ~60x its bound at (96,20,10000) and ~90x at (96,8,2780).
+//     different numbers of steps wait for each other; the kernel runs at
+//     ~60x its bound at (96,20,10000) and ~85x at (96,8,2780).
 //
 // Sums: Zsum_g[k, n] adds a tile's 32 columns in double (xor shuffle) into
 // one partial per (tile, k); Zsum_k[n, g] adds a block's 8 rows in order
@@ -58,29 +62,18 @@
 
 namespace {
 
-// Occupancy: rows k per block (its warps), the largest tree kept in
-// registers, and the blocks an SM must hold, which caps the registers a
-// thread may take, for a tree in registers and for one in local memory.
-// bench_torch_variants.py times the choices: at (96,20,10000) the 150
-// registers of a 32-leaf tree left one block (8 warps) an SM, 1.21 ms;
-// in local memory at 4 blocks an SM, 0.62 ms.
-#ifndef ALLOC_ROWS
-#define ALLOC_ROWS 8
-#endif
-#ifndef ALLOC_REG_N2
-#define ALLOC_REG_N2 16
-#endif
-#ifndef ALLOC_MIN_BLOCKS
-#define ALLOC_MIN_BLOCKS 3
-#endif
-#ifndef ALLOC_MIN_BLOCKS_LOCAL
-#define ALLOC_MIN_BLOCKS_LOCAL 4
-#endif
+// Occupancy: the largest tree kept in registers, and the blocks an SM must
+// hold, which caps the registers a thread may take, for a tree in registers
+// and for one in local memory. At (96,20,10000) the 150 registers of a
+// 32-leaf tree in registers left one block (8 warps) an SM, 1.21 ms; in
+// local memory at 4 blocks an SM, 0.62 ms.
 constexpr int kTileG = 32;   // lanes of a block: columns g
-constexpr int kRows = ALLOC_ROWS;
+constexpr int kRows = 8;     // warps of a block: rows k (ops/allocation.py)
 constexpr int kThreads = kTileG * kRows;
 constexpr int kMaxN2 = 64;
-constexpr int kRegN2 = ALLOC_REG_N2;  // the largest tree kept in registers
+constexpr int kRegN2 = 16;         // the largest tree kept in registers
+constexpr int kMinBlocks = 3;      // blocks an SM, the tree in registers
+constexpr int kMinBlocksLocal = 4; // blocks an SM, the tree in local memory
 constexpr int kReduceLoads = 8;  // partials a lane has in flight
 constexpr int kPlanes = 17;      // 1 + 2 * 8 BTRS rounds (planes mode)
 constexpr int kPlaneRounds = 8;
@@ -241,9 +234,8 @@ struct Args {
 // for N2 <= kRegN2, so that v sits in registers; larger trees in local
 // memory (L1), which leaves the registers for more resident warps.
 template <int N2>
-__global__ void __launch_bounds__(kThreads, N2 <= kRegN2
-                                                ? ALLOC_MIN_BLOCKS
-                                                : ALLOC_MIN_BLOCKS_LOCAL)
+__global__ void __launch_bounds__(kThreads,
+                                  N2 <= kRegN2 ? kMinBlocks : kMinBlocksLocal)
 alloc_kernel(Args a) {
   constexpr int kUnrollTree = N2 <= kRegN2 ? N2 : 1;
   constexpr int kChunk = N2 < kRows ? N2 : kRows;  // Zsum_k columns a pass

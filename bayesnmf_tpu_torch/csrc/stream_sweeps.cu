@@ -56,13 +56,11 @@
 //     (the ordered sum of the tiles, the float32 delta, the SBFI penalty, the
 //     tempered log-odds, the sigmoid, the NaN fallback, the Bernoulli draw
 //     and the write of A[c, n]) is the last step of the column, taken by a
-//     finishing kernel with one warp per chain (acol_finish_kernel). Built
-//     with STREAM_ACOL_ONE_LAUNCH=1, the last tile block of a chain to
-//     finish takes it instead (a counter and a fence; the same order of
-//     addition, so the same bits): slower, 0.060 against 0.057 ms a column
-//     at (96,20,10000,8) (bench_torch_variants.py), since that block's
-//     serial tail then ends every column while a second launch overlaps the
-//     grid's tail.
+//     finishing kernel with one warp per chain (acol_finish_kernel). The
+//     last tile block of a chain to finish taking it instead (a counter and
+//     a fence, one launch a column) measured slower, 0.060 against 0.057 ms
+//     a column at (96,20,10000,8): that block's serial tail then ends every
+//     column, while a second launch overlaps the grid's tail.
 //     What is left: the tile kernels run at a tenth of the float32 peak
 //     (staging and compute of a tile do not overlap; 2 blocks an SM);
 //     tensor cores for the Mhat rebuild are ruled out by the precision the
@@ -829,10 +827,6 @@ __device__ double block_sum(double v, double* sred) {
 // k, its P*A row in registers, a group of rows every `groups`-th g of a
 // 64-wide tile) with one sum instead of three; the block adds its rows'
 // partials in a fixed order into one double per tile.
-#ifndef STREAM_ACOL_ONE_LAUNCH
-#define STREAM_ACOL_ONE_LAUNCH 0
-#endif
-
 struct AcolArgs {
   const float* data;
   const float* E;
@@ -849,8 +843,7 @@ struct AcolArgs {
   float *n_nan, *delta;
   float penalty;  // subtracted from delta when sbfi
   int sbfi;
-  double* scratch;   // (C, tiles) partials, then C counters
-  unsigned* count;   // tiles of a chain done (STREAM_ACOL_ONE_LAUNCH)
+  double* scratch;   // (C, tiles) partials
   int n;
   int C, K, N, G;
 };
@@ -976,23 +969,6 @@ __global__ void __launch_bounds__(kColThreads) acol_tile_kernel(AcolArgs a) {
     v = warp_allsum(v);
     if (tid == 0) sc[t] = v;
   }
-#if STREAM_ACOL_ONE_LAUNCH
-  // the last tile block of the chain to finish takes the decision
-  __shared__ bool last;
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(a.count + c, 1u) == (unsigned)(T - 1);
-  }
-  __syncthreads();
-  if (last && tid < 32) {
-    __threadfence();
-    const double sum = warp_ordered_sum(sc, T, tid);
-    if (tid == 0) {
-      acol_decide<kUpdate>(a, c, sum);
-      a.count[c] = 0u;
-    }
-  }
-#endif
 }
 
 // One warp per chain: the tiles' partials added in a fixed order, then the
@@ -1131,8 +1107,7 @@ cudaError_t launch_pcol(const PcolArgs& a, cudaStream_t s) {
   return launch_pcol_pass<NP, kUpdate, true>(a, s);
 }
 
-// One A column: the tile kernel, then the finishing kernel (or, with
-// STREAM_ACOL_ONE_LAUNCH, the tile kernel alone).
+// One A column: the tile kernel, then the finishing kernel.
 template <int NP, bool kUpdate>
 cudaError_t launch_acol(const AcolArgs& a, cudaStream_t s) {
   const size_t smem = acol_smem_floats(a.K, NP) * sizeof(float);
@@ -1142,7 +1117,6 @@ cudaError_t launch_acol(const AcolArgs& a, cudaStream_t s) {
   acol_tile_kernel<NP, kUpdate><<<dim3(tiles, a.C), kColThreads, smem, s>>>(
       a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (STREAM_ACOL_ONE_LAUNCH) return cudaSuccess;
   acol_finish_kernel<kUpdate><<<a.C, 32, 0, s>>>(a, tiles);
   return cudaGetLastError();
 }
@@ -1262,8 +1236,8 @@ extern "C" int stream_special_launch(const float* x, float* out, int n,
   return (int)cudaGetLastError();
 }
 
-// The A column's delta, sums only: scratch C * (n_tiles(G, 64) + 1)
-// doubles; out C floats.
+// The A column's delta, sums only: scratch C * n_tiles(G, 64) doubles; out
+// C floats.
 extern "C" int stream_acol_launch(const float* data, const float* E,
                                   const float* PA, const float* en,
                                   const float* pn, const float* an,
@@ -1272,17 +1246,10 @@ extern "C" int stream_acol_launch(const float* data, const float* E,
   AcolArgs a = {};
   a.data = data; a.E = E; a.PA = PA; a.en = en; a.pn = pn; a.an = an;
   a.out = out; a.scratch = scratch;
-  a.count = reinterpret_cast<unsigned*>(scratch + (size_t)C * n_tiles(G,
-                                                                 kColTile));
   a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
-  if (STREAM_ACOL_ONE_LAUNCH) {
-    e = cudaMemsetAsync(a.count, 0, (size_t)C * sizeof(unsigned), s);
-    if (e != cudaSuccess) return (int)e;
-  }
 #define CALL_SUMS(NP) launch_acol<NP, false>(a, s)
-  e = DISPATCH_NP(N, CALL_SUMS);
+  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
 #undef CALL_SUMS
   return (int)e;
 }
@@ -1290,7 +1257,7 @@ extern "C" int stream_acol_launch(const float* data, const float* E,
 // Columns n0 .. n1-1 of A, enqueued in order, each a pass over the tiles
 // and the decision: A, n_nan and delta are updated in place. logit (C,),
 // temp (1,), u (C, N); penalty subtracted from every delta when sbfi.
-// scratch: C * (n_tiles(G, 64) + 1) doubles.
+// scratch: C * n_tiles(G, 64) doubles.
 extern "C" int stream_acol_update_launch(
     const float* data, const float* E, const float* P, float* A,
     const float* logit, const float* temp, const float* u, float* n_nan,
@@ -1300,15 +1267,8 @@ extern "C" int stream_acol_update_launch(
   a.data = data; a.E = E; a.P = P; a.A = A; a.logit = logit; a.temp = temp;
   a.u = u; a.n_nan = n_nan; a.delta = delta;
   a.penalty = penalty; a.sbfi = sbfi; a.scratch = scratch;
-  a.count = reinterpret_cast<unsigned*>(scratch + (size_t)C * n_tiles(G,
-                                                                 kColTile));
   a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (STREAM_ACOL_ONE_LAUNCH) {
-    const cudaError_t e =
-        cudaMemsetAsync(a.count, 0, (size_t)C * sizeof(unsigned), s);
-    if (e != cudaSuccess) return (int)e;
-  }
 #define CALL_UPDATE(NP) launch_acol<NP, true>(a, s)
   for (int n = n0; n < n1; ++n) {
     a.n = n;

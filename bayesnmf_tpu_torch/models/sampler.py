@@ -150,6 +150,12 @@ class GibbsSampler:
             spec = dataclasses.replace(spec,
                                        fused_sweeps=fused_sweeps is not False)
         gibbs.check_spec(spec)
+        if spec.needs_Z and not (np.all(data >= 0.0)
+                                 and np.array_equal(data, np.round(data))):
+            # the allocation's inversion stops once x reaches the count,
+            # which returns the reference's draw for integer counts only
+            raise ValueError("the conjugate Poisson-Gibbs sampler (MH=False) "
+                             "takes non-negative integer counts")
         self.spec = spec
         self.cc = convergence_control or ConvergenceControl()
         self.run_cfg = RunConfig(

@@ -318,8 +318,11 @@ def allocate_counts(M, P, A, E, u=None, seed=None, gen=None):
     marginal sums (Zsum_g (K, N), Zsum_k (N, G)); the same contract as
     bayesnmf_tpu.ops.pallas_allocation.allocate_counts_fused.
 
-    M (K, G) is shared; P (K, N), A (N,) and E (N, G) may carry a leading
-    chain axis C, and the results then do too. Randomness: the uniform
+    M (K, G) is shared and holds non-negative integer counts (the kernel's
+    inversion stops once x reaches the count, which returns the plain
+    version's draw for integers only; ``GibbsSampler`` checks the data);
+    P (K, N), A (N,) and E (N, G) may carry a leading chain axis C, and the
+    results then do too. Randomness: the uniform
     planes ``u`` (C, 17, n2-1, K, G) when given; otherwise on the CPU
     planes drawn from ``gen``, and on CUDA the kernel's Philox stream keyed
     by ``seed`` (a device int64 tensor of shape (1,)), drawn from ``gen``

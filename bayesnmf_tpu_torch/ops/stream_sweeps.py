@@ -357,10 +357,9 @@ def _col_scratch(C: int, K: int, N: int, G: int, device):
 
 
 def _acol_scratch(C: int, K: int, N: int, G: int, device):
-    """The A-column tile kernel's partials, one double per (chain, tile),
-    and C counters after them."""
+    """The A-column tile kernel's partials, one double per (chain, tile)."""
     _check_col_fits(K, N, 1, K + tile_width(N), "an A-column")
-    return torch.empty(C * (_n_tiles(G, _COL_TILE) + 1), dtype=torch.float64,
+    return torch.empty(C * _n_tiles(G, _COL_TILE), dtype=torch.float64,
                        device=device)
 
 

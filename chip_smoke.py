@@ -60,7 +60,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts, give an excluded component 0 and integers, and whose mean lies
    within 6 SD of the multinomial mean in every cell, and seeds that repeat
    and differ; timed at (96,5,100), (96,20,10000) and (96,8,2780), on the
-   device (torch.profiler) and per call through the wrapper;
+   device (torch.profiler) and per call through the wrapper; and at
+   (96,20,10000) what warps whose lanes take both regimes of a split cost
+   (equal weights, counts alike or alternating along a warp);
 4. the fixed-rank slice: ``bayesnmf_tpu_torch.fit`` on a 96x500 rank-8
    synthetic catalogue on the card, checking that the state stayed on the
    card, the metrics are finite, the kernel ran once per iteration, the MAP
@@ -524,7 +526,7 @@ def alloc_bound(K, N, G, C, splits, planes):
     on the plain version by ``count_splits`` (an inversion at the steps its
     drawn value needs, a BTRS split at one round; the Philox mode's own
     uniform generation is not counted)."""
-    n_inv, inv_steps, n_btrs = splits
+    n_inv, inv_steps, n_btrs = splits[:3]
     n_in = K * G + C * (K * N + N + N * G)
     if planes:
         n_in += C * 17 * (n_leaves(N) - 1) * K * G
@@ -1086,13 +1088,65 @@ def alloc_inputs(K, N, G, C, seed, excluded=(), zero_cells=()):
     return dict(M=M, P=P.astype(f), A=A, E=E, u=u)
 
 
+DIVERGENCE_SHAPE = (96, 20, 10000)
+
+
+def alloc_divergence(torch, AL, card, warp_splits):
+    """What a warp whose lanes take both regimes of a split costs. Every
+    weight equal (q = 1/2 at a full node), half the cells a count of 6
+    (every split by inversion) and half 4000 (every split by BTRS), Philox
+    mode: in one layout a warp's 32 cells (a row of a 32-column tile) share
+    their count, in the other the counts alternate along the lanes, so every
+    warp-split takes both regimes; the same cells and work, arranged
+    differently. Prints the device ms of each layout and of each count
+    alone, and scales the cost of a mixed warp-split to the
+    ``warp_splits`` = (warp-splits, mixed ones) of the timed data."""
+    K, N, G = DIVERGENCE_SHAPE
+    f32 = dict(dtype=torch.float32, device="cuda")
+    P, A, E = (torch.ones(K, N, **f32), torch.ones(N, **f32),
+               torch.ones(N, G, **f32))
+    seed = torch.tensor([K * G + N], dtype=torch.int64, device="cuda")
+    small, large = 6.0, 4000.0
+    row = torch.arange(K, device="cuda").view(K, 1) % 2 == 0
+    col = torch.arange(G, device="cuda").view(1, G) % 2 == 0
+    layouts = {f"every count {small:g}": torch.full((K, G), small, **f32),
+               f"every count {large:g}": torch.full((K, G), large, **f32),
+               "counts alike along a warp": torch.where(
+                   row, small, large).expand(K, G).contiguous(),
+               "counts alternating along a warp": torch.where(
+                   col, small, large).expand(K, G).contiguous()}
+    ms = {}
+    for label, M in layouts.items():
+        ms[label] = device_ms(
+            torch, lambda M=M: AL.allocate_counts(M, P, A, E, seed=seed), 20)
+    alike, mixed = ms["counts alike along a warp"], ms[
+        "counts alternating along a warp"]
+    n_warp_splits = K * -(-G // 32) * (N - 1)
+    per_split = (mixed - alike) / n_warp_splits
+    print(f"allocation divergence at (K,N,G)={DIVERGENCE_SHAPE} (Philox, "
+          "equal weights): " + "; ".join(
+              f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; a warp-split taking both regimes costs {per_split * 1e6:.4f}"
+          f" ns more ({n_warp_splits} in the alternating layout); the timed "
+          f"data's {warp_splits[1]} of {warp_splits[0]} mixed warp-splits "
+          f"so cost ~{per_split * warp_splits[1]:.4f} ms, the most a split "
+          f"of the regimes could save; on {card}", flush=True)
+
+
 def count_splits(AL, torch, plain):
     """Run the plain version once with its binomial wrapped, counting the
     work this run's draws need: (inversion splits, their steps, BTRS
-    splits). The CDF only rises and the pmf is 0 past n, so an inversion
-    that drew x is settled after min(x + 1, n + 1, 40) steps."""
-    counts = [0, 0, 0]
+    splits), then (warp-splits, those whose lanes take both regimes), a
+    warp-split being one node of the 32 cells of a kernel warp (a row k of
+    a 32-column tile) with a draw in at least one lane. The CDF only rises
+    and the pmf is 0 past n, so an inversion that drew x is settled after
+    min(x + 1, n + 1, 40) steps."""
+    counts = [0, 0, 0, 0, 0]
     binomial = AL._binomial
+
+    def by_warp(mask):
+        mask = torch.nn.functional.pad(mask, (0, -mask.shape[-1] % 32))
+        return mask.view(*mask.shape[:-1], -1, 32).any(-1)
 
     def counted(n, p, planes):
         y = binomial(n, p, planes)
@@ -1105,6 +1159,8 @@ def count_splits(AL, torch, plain):
         counts[1] += int(torch.where(inv, steps, 0.0).sum(
             dtype=torch.float64))
         counts[2] += int((live & ~small).sum())
+        counts[3] += int(by_warp(live).sum())
+        counts[4] += int((by_warp(inv) & by_warp(live & ~small)).sum())
         return y
 
     AL._binomial = counted
@@ -1177,12 +1233,15 @@ def compare_allocation(torch, AL, card):
                   f"PyTorch {p_ms:.4f} ms (Philox planes); "
                   f"bound {b_ms:.6f} ms ({b_by}) for {s_prng[0]} inversion "
                   f"splits of {s_prng[1]} steps and {s_prng[2]} BTRS "
-                  f"splits; planes mode bound {bp_ms:.6f} ms ({bp_by}) for "
+                  f"splits, both regimes in {s_prng[4]} of {s_prng[3]} "
+                  f"warp-splits; planes mode bound {bp_ms:.6f} ms ({bp_by}) for "
                   f"{s_planes[0]} inversions of {s_planes[1]} steps and "
                   f"{s_planes[2]} BTRS; on {card}", flush=True)
             if (K, N, G) == ALLOC_TIMED[0]:
                 res |= dict(ms=ms_prng, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by)
+            if (K, N, G) == DIVERGENCE_SHAPE:
+                alloc_divergence(torch, AL, card, s_prng[3:])
 
     # Philox mode: conservation, exclusion, integers, the multinomial mean,
     # seeds

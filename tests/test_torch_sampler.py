@@ -103,6 +103,28 @@ def test_exponential_prior_recovers_example_signatures(example, MH, seed):
         np.testing.assert_array_equal(Zg.sum(1), M.sum(1))
 
 
+@pytest.mark.parametrize("change,MH,ok", [
+    (0.5, False, False), (-1.0, False, False), (0.5, True, True),
+    (0.0, False, True)])
+def test_conjugate_path_takes_integer_counts(change, MH, ok):
+    """The conjugate path refuses data that are not non-negative integer
+    counts (the allocation kernel's stopping inversion matches the
+    reference only on integers); the MH path takes any data."""
+    M = sim_data(seed=3)
+    if change < 0:
+        M[0, 0] = change
+    else:
+        M = M + np.float32(change)
+    make = lambda: GibbsSampler(M, 3, prior="exponential", MH=MH,  # noqa
+                                seed=0, device="cpu", output_dir=None,
+                                verbosity=0)
+    if ok:
+        make()
+    else:
+        with pytest.raises(ValueError, match="integer counts"):
+            make()
+
+
 @pytest.mark.parametrize("kw", [
     dict(rank=range(1, 4), rank_method="BFI"),
     dict(rank=3, prior="exponential", MH=False),

@@ -795,6 +795,6 @@ def test_column_kernel_limits():
         2 * 3 * 96 * 3
     with pytest.raises(ValueError):
         S._acol_scratch(2, 5000, 20, 100, torch.device("cpu"))
-    # one partial per (chain, tile) and a counter per chain
+    # one partial per (chain, tile)
     assert S._acol_scratch(2, 96, 20, 130, torch.device("cpu")).numel() == \
-        2 * 3 + 2
+        2 * 3
