@@ -1,10 +1,10 @@
 // The large-G MH sweeps on Hopper (sm_90a) without a (C, K, G) tensor: whole
 // P-column, E-row and A-column (inclusion) updates in kernels (sums,
 // conditional or inclusion odds, draw, decision and write-back; a sweep's
-// launches enqueued by one C call), the same tile code in a sums-only form for
-// the four reduction functions and the inclusion-odds delta, and the four sums
-// of the metrics row. Every kernel rebuilds its Mhat tile from P*A and an E
-// tile.
+// launches enqueued by one C call), the metrics row of every chain in two
+// launches, and the same tile code in a sums-only form for the four
+// reduction functions, the inclusion-odds delta and the metrics row's four
+// data sums. Every kernel rebuilds its Mhat tile from P*A and an E tile.
 //
 // (a) Replaces bayesnmf_tpu/ops/pallas_stream_sweeps.py: `_run` (its four
 //     bodies _pcol_stats_kernel, _pcol_accept_kernel, _erow_stats_kernel,
@@ -12,8 +12,9 @@
 //     models/updates.py::stream_sweep_P/E of the JAX package, `acol_delta`
 //     (_acol_delta_kernel) together with the host logic of
 //     models/updates.py::stream_sweep_A, and `chain_metrics`
-//     (_chain_metrics_kernel), with a leading chain axis C on every
-//     per-chain operand.
+//     (_chain_metrics_kernel) together with the host arithmetic of
+//     models/gibbs.py::_metrics_row on its sums (`pois_red`) and the prior
+//     term it adds, with a leading chain axis C on every per-chain operand.
 // (b) What bounds it: operations. Per (c, k, g) element a column update
 //     rebuilds Mhat (2N flops, as separate multiplies and adds) once or twice
 //     and adds a few divisions and a log1p; it reads data (shared by the
@@ -61,12 +62,18 @@
 //     a fence, one launch a column) measured slower, 0.060 against 0.057 ms
 //     a column at (96,20,10000,8): that block's serial tail then ends every
 //     column, while a second launch overlaps the grid's tail.
+//     The metrics row: the A column's tile with the four data sums
+//     (metrics_tile_kernel), the block's threads then taking the tile's
+//     (n, g) entries of E for the prior term and acc_E * A_n; a finishing
+//     kernel, one block per chain, adds the tiles in a fixed order, sums
+//     the P side over (K, N) and writes the 12 floats of the row, so the
+//     host builds no P*A and runs no arithmetic on the state. Unlike a
+//     column, it reads E's prior pair and acceptance record (four C*N*G
+//     planes) once, so at (96,20,10000,8) its bound is bytes (~29 MB).
 //     What is left: the tile kernels run at a tenth of the float32 peak
 //     (staging and compute of a tile do not overlap; 2 blocks an SM);
 //     tensor cores for the Mhat rebuild are ruled out by the precision the
-//     acceptance ratio needs (TF32 does not do: ROADMAP); the metrics row
-//     still uses the older tile (`stage`, `mhat`: two shared-memory loads per
-//     multiply-add) and `reduce_tiles`.
+//     acceptance ratio needs (TF32 does not do: ROADMAP).
 //
 // There are no atomics on floating-point sums: two launches give the same
 // bits. The NaN-clamp count is an integer and is added atomically.
@@ -81,23 +88,22 @@
 // calls too; at_ndtri writes out ATen's jiterated Cephes ndtri, which is
 // compiled with FMA contraction, hence the explicit fmaf in it, and equals
 // it bit for bit; at_sigmoid is ATen's float sigmoid, 1 / (1 + exp(-x)) in
-// float, which no FMA can contract; at_log_ndtr follows ATen's log_ndtr
-// (through erfcx) and differs from it by an ulp or two at 1.8% of the
-// arguments below -1, which moves the Hastings ratio within its tolerance
-// and no checked decision.
+// float, which no FMA can contract; at_log_ndtr is ATen's jiterated
+// log_ndtr, whose erfcx is the CUDA library's erfcxf, with the FMA its
+// compiler contracts: equal to torch.special.log_ndtr at all 4,194,304
+// arguments that chip_smoke.py checks (on an H100, torch 2.11).
 //
 // Layout: float32, contiguous. data (K, G) is shared by the chains; E
 // (C, N, G); PA and P (C, K, N); A (C, N); en (C, G); pn (C, K); prop (C, K)
 // for a P column or (C, G) for an E row; an (C,). Sums-only outputs: P
 // column (n_out, C, K), E row (n_out, C, G); A column (C,), metrics (4, C).
+// The metrics row: (C, 12) with a row stride (a slice of a chunk buffer).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kFloor = 1e-6f;
 
 // jnp.maximum: NaN in either operand gives NaN (fmaxf would drop it)
@@ -112,29 +118,6 @@ __device__ __forceinline__ double warp_allsum(double v) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
   return v;
-}
-
-// Stage PA[c] (K x N) and the E tile E[c, :, g0:g0+Gt] (N x Gt, zero past
-// G) in shared memory.
-__device__ void stage(const float* PA, const float* E, float* sPA, float* sE,
-                      int c, int K, int N, int G, int Gt, int g0) {
-  const float* pa = PA + (size_t)c * K * N;
-  for (int i = threadIdx.x; i < K * N; i += blockDim.x) sPA[i] = pa[i];
-  const float* e = E + (size_t)c * N * G;
-  for (int i = threadIdx.x; i < N * Gt; i += blockDim.x) {
-    const int n = i / Gt, g = g0 + i % Gt;
-    sE[i] = g < G ? e[(size_t)n * G + g] : 0.0f;
-  }
-  __syncthreads();
-}
-
-// Mhat[k, g0 + gl] = sum_n PA[k, n] * E[n, g0 + gl], n in order, float32
-__device__ __forceinline__ float mhat(const float* sPA, const float* sE,
-                                      int k, int gl, int N, int Gt) {
-  const float* pa = sPA + k * N;
-  float mh = pa[0] * sE[gl];
-  for (int n = 1; n < N; ++n) mh = mh + pa[n] * sE[n * Gt + gl];
-  return mh;
 }
 
 // ---- the special functions of a column update's epilogue -------------------
@@ -214,44 +197,18 @@ __device__ float at_ndtri(float y0) {
   return code ? -x : x;
 }
 
-// ATen's erfcx_y100 at y100 = 400 / (4 + x), 0 <= x <= 50, float: it picks
-// one of 100 Chebyshev fits by (int)y100 and evaluates it in double at
-// t = 2 y100 - (2i + 1), itself rounded to float; the fits are good to double
-// precision, so the double library erfcx at the x that this rounded t stands
-// for, rounded to float, gives the same float.
-__device__ float at_erfcx_y100(float y100) {
-  const int i = (int)y100;
-  if (i >= 100) return 1.0f;
-  const float t = 2.0f * y100 - (float)(2 * i + 1);
-  const double y = ((double)t + (double)(2 * i + 1)) * 0.5;
-  return (float)erfcx(400.0 / y - 4.0);
-}
-
-// torch.special.log_ndtr on the card: ATen's jiterated form, below -1
-// log(erfcx(-t) / 2) - t*t with t = x / sqrt(2), the difference contracted
-// to an FMA as its compiler does (without it 25% of the arguments below -1
-// differ from PyTorch's, with it 1.8%, by an ulp or two, though erfcx and
-// the log agree with PyTorch's alone). Beyond erfcx's 50: its continued
-// fraction.
-__device__ float at_log_ndtr(float x) {
+// torch.special.log_ndtr on the card. ATen jiterates log_ndtr by itself,
+// so its erfcx of a float is the CUDA library's erfcxf (not ATen's
+// Chebyshev erfcx, which torch.special.erfcx runs), and NVRTC contracts the
+// difference below -1 to an FMA. Both branches are evaluated and one is
+// selected, so that a thread's log_ndtr chains of several entries can
+// interleave (prior_sums).
+__device__ __forceinline__ float at_log_ndtr(float x) {
   constexpr float c = 0.707106781186547524400844362104849039f;
   const float t = x * c;
-  if (!(x < -1.0f)) return log1pf(-erfcf(t) / 2.0f);
-  const float mt = -t;
-  float ex;
-  if (mt > 50.0f) {
-    constexpr float ispi = 0.56418958354775628694807945156f;
-    if (mt > 5e7f) {
-      ex = ispi / mt;
-    } else {
-      const float x2 = mt * mt;
-      ex = ispi * __fmaf_rn(x2, __fmaf_rn(mt, mt, 4.5f), 2.0f) /
-           (mt * __fmaf_rn(x2, __fmaf_rn(mt, mt, 5.0f), 3.75f));
-    }
-  } else {
-    ex = at_erfcx_y100(400.0f / (4.0f + mt));
-  }
-  return __fmaf_rn(-t, t, logf(ex / 2.0f));
+  const float below = __fmaf_rn(-t, t, logf(erfcxf(-t) / 2.0f));
+  const float above = log1pf(-erfcf(t) / 2.0f);
+  return x < -1.0f ? below : above;
 }
 
 // ops/distributions.py::_ndtr: erfc in both tails, each op rounded alone
@@ -290,7 +247,7 @@ __device__ float tn_draw(float u1, float u2, float mu, float var) {
 }
 
 // ops/math.py::truncnorm_logpdf
-__device__ float tn_logpdf(float x, float mu, float var) {
+__device__ __forceinline__ float tn_logpdf(float x, float mu, float var) {
   const float sd = sqrtf(var);
   const float z = (x - mu) / sd;
   const float log_norm = (-0.5f * z) * z - logf(sd) - kHalfLog2Pi;
@@ -804,21 +761,6 @@ pcol_finish_kernel(PcolArgs a, int tiles, int n_out) {
   if (n_nan) atomicAdd(a.nan + c, n_nan);
 }
 
-// Block-wide sum of one double per thread, in a fixed order: warp shuffles,
-// then warp 0 adds the warps' partials in order. Valid in thread 0.
-__device__ double block_sum(double v, double* sred) {
-  v = warp_allsum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) sred[warp] = v;
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) s += sred[w];
-  }
-  return s;
-}
-
 // ---- A column: tiles of G, then an ordered sum and the decision -------------
 // delta = sum over k and g of data*log1p(d/lam_off) - d with contrib =
 // pn*en, Mh_off = Mh - an*contrib, lam_off = max(Mh_off, floor), lam_on =
@@ -982,65 +924,277 @@ __global__ void __launch_bounds__(32) acol_finish_kernel(AcolArgs a,
   if (threadIdx.x == 0) acol_decide<kUpdate>(a, c, sum);
 }
 
-// ---- the metrics row's four sums -------------------------------------------
-// sum data*log(lam), sum lam, sum max(data, 1e-6)*log(lam), sum (Mh-data)^2
-// with lam = max(Mh, floor). Partials to scratch[(c*T + t)*4 + j].
-__global__ void __launch_bounds__(kThreads)
-metrics_kernel(const float* __restrict__ data, const float* __restrict__ E,
-               const float* __restrict__ PA, double* __restrict__ scratch,
-               int K, int N, int G, int Gt) {
-  extern __shared__ float smem[];
-  __shared__ double sred[kWarps];
-  float* sPA = smem;
-  float* sE = smem + K * N;
-  const int t = blockIdx.x, c = blockIdx.y, T = gridDim.x;
-  const int g0 = t * Gt;
-  stage(PA, E, sPA, sE, c, K, N, G, Gt, g0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
-  for (int k = warp; k < K; k += kWarps) {
-    const float* mk = data + (size_t)k * G;
-    for (int gl = lane; gl < Gt; gl += 32) {
-      const int g = g0 + gl;
-      if (g >= G) break;
-      const float m = mk[g];
-      const float mh = mhat(sPA, sE, k, gl, N, Gt);
-      const float lam = jmax(mh, kFloor);
-      const float L = logf(lam);
-      const float d = mh - m;
-      s0 += (double)(m * L);
-      s1 += (double)lam;
-      s2 += (double)(jmax(m, 1e-6f) * L);
-      s3 += (double)(d * d);
+// ---- the metrics row: tiles of G, then one block per chain ------------------
+// models/gibbs.py::METRIC_NAMES' row of every chain from the state: the four
+// data sums of a streamed Mhat (sum M log lam, sum lam, sum max(M, 1e-6) log
+// lam, sum (Mhat - M)^2, lam = max(Mhat, floor)), the truncated-normal prior
+// log-density of E and P and the A-weighted acceptance sums, then
+// loglik, KL, RMSE, logpost, n_params, BIC and the acceptance means. The
+// tile kernel is the A column's (a thread owns a row k, its P*A row in
+// registers, a group of rows every `groups`-th g of a 64-wide tile) with
+// the four data sums; the block's threads then take the tile's (n, g)
+// entries of E for the prior term and acc_E * A_n. Each tile writes one
+// double per sum. The finishing kernel, one block per chain, adds the tiles
+// in a fixed order, sums the P side over (K, N) and writes the row. The
+// sums-only form (chain_metrics) runs the same tile on a P*A operand and
+// writes the four data sums.
+constexpr int kDataSums = 4;
+constexpr int kRowSums = 6;       // the data sums, E's prior, sum acc_E * A
+constexpr int kMetricsFinish = 1024;
+
+struct MetricsArgs {
+  const float* data;
+  const float* E;
+  // sums only: PA (C, K, N); out (4, C)
+  const float* PA;
+  float* out;
+  // the row: P (C, K, N), A (C, N); E's prior pair and acceptance record
+  // (C, N, G), P's (C, K, N); the chunk constants sum lgamma(M + 1) and
+  // sum Mp log Mp (0-d); na (C,) the NaN events; temp (1,) the temperature,
+  // or null and temp_val; it the iteration; log_g log(G) rounded to float;
+  // row (C, row_stride), 12 floats a chain written
+  const float *P, *A, *mu_e, *sq_e, *acc_e, *mu_p, *sq_p, *acc_p;
+  const float *lgamma_sum, *mlogm_sum, *na, *temp;
+  float* row;
+  float it, temp_val, log_g;
+  int row_stride;
+  double* scratch;   // (C, sums, tiles) partials
+  int C, K, N, G;
+};
+
+// Shared memory of a metrics tile block, in floats: the E tile transposed
+// (kColTile x NP), the row partials as doubles (groups x K x 4), the data
+// tile (K x (kColTile + 1)), A[c, :] (NP).
+__host__ __device__ inline size_t metrics_smem_floats(int K, int NP) {
+  const int groups = kColThreads / col_rows(K);
+  return (size_t)kColTile * NP + 2 * (size_t)groups * K * kDataSums
+         + (size_t)K * (kColTile + 1) + NP;
+}
+
+__device__ __forceinline__ void data_terms(float m, float mh, double* s) {
+  const float lam = jmax(mh, kFloor);
+  const float L = logf(lam);
+  const float d = mh - m;
+  s[0] += (double)(m * L);
+  s[1] += (double)lam;
+  s[2] += (double)(jmax(m, 1e-6f) * L);
+  s[3] += (double)(d * d);
+}
+
+// The prior term (tn_logpdf) and acc * w of entries first, first + step,
+// ... below count, added in that order into *lp and *ac; entry(j, &off, &w)
+// gives entry j's offset in x, mu, sq and acc and its weight A_n. The loads
+// of kPriorUnroll entries are issued before their terms, which then run as
+// independent chains (a padded entry's term is computed and not added).
+constexpr int kPriorUnroll = 4;
+
+template <typename Entry>
+__device__ __forceinline__ void prior_sums(const float* x, const float* mu,
+                                           const float* sq, const float* acc,
+                                           Entry entry, int first, int step,
+                                           int count, double* lp,
+                                           double* ac) {
+  for (int j0 = first; j0 < count; j0 += kPriorUnroll * step) {
+    float xv[kPriorUnroll], mv[kPriorUnroll], sv[kPriorUnroll];
+    float av[kPriorUnroll], wv[kPriorUnroll];
+#pragma unroll
+    for (int u = 0; u < kPriorUnroll; ++u) {
+      const int j = j0 + u * step;
+      size_t off = 0;
+      float w = 0.0f;
+      const bool live = j < count;
+      if (live) entry(j, &off, &w);
+      xv[u] = live ? x[off] : 0.0f;
+      mv[u] = live ? mu[off] : 0.0f;
+      sv[u] = live ? sq[off] : 1.0f;
+      av[u] = live ? acc[off] : 0.0f;
+      wv[u] = w;
+    }
+    float term[kPriorUnroll];
+#pragma unroll
+    for (int u = 0; u < kPriorUnroll; ++u) {
+      term[u] = tn_logpdf(xv[u], mv[u], sv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kPriorUnroll; ++u) {
+      if (j0 + u * step < count) {
+        *lp += (double)term[u];
+        *ac += (double)(av[u] * wv[u]);
+      }
     }
   }
-  double* out = scratch + ((size_t)c * T + t) * 4;
-  s0 = block_sum(s0, sred);
-  if (threadIdx.x == 0) out[0] = s0;
-  s1 = block_sum(s1, sred);
-  if (threadIdx.x == 0) out[1] = s1;
-  s2 = block_sum(s2, sred);
-  if (threadIdx.x == 0) out[2] = s2;
-  s3 = block_sum(s3, sred);
-  if (threadIdx.x == 0) out[3] = s3;
 }
 
-// ---- second pass: add the tiles in order, round once -----------------------
-// scratch[(c*T + t)*W + w] -> out[((w / inner)*C + c)*inner + w % inner]
-__global__ void reduce_tiles(const double* __restrict__ scratch,
-                             float* __restrict__ out, int C, int T, int W,
-                             int inner) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C * W) return;
-  const int c = i / W, w = i % W;
-  const double* s = scratch + (size_t)c * T * W + w;
-  double acc = 0.0;
-  for (int t = 0; t < T; ++t) acc += s[(size_t)t * W];
-  out[((size_t)(w / inner) * C + c) * inner + w % inner] = (float)acc;
+template <int NP, bool kRow>
+__global__ void __launch_bounds__(kColThreads)
+metrics_tile_kernel(MetricsArgs a) {
+  extern __shared__ float4 smem4[];
+  __shared__ double sred[2][kColThreads / 32];
+  const int K = a.K, N = a.N, G = a.G;
+  constexpr int Gt = kColTile, ld = kColTile + 1;
+  constexpr int sums = kRow ? kRowSums : kDataSums;
+  const int rows = col_rows(K), groups = kColThreads / rows;
+  float* sE = reinterpret_cast<float*>(smem4);
+  double* part = reinterpret_cast<double*>(sE + Gt * NP);
+  float* sData = reinterpret_cast<float*>(part + (size_t)groups * K
+                                                     * kDataSums);
+  float* sA = sData + (size_t)K * ld;
+  const int t = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  const int grp = tid / rows, kk = tid % rows;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g0 = t * Gt;
+  const int gcount = G - g0 < Gt ? G - g0 : Gt;
+
+  const float* e_c = a.E + (size_t)c * N * G;
+  const float* x_c = (kRow ? a.P : a.PA) + (size_t)c * K * N;
+  for (int i = tid; i < Gt * NP; i += kColThreads) {
+    const int n = i / Gt, gl = i % Gt, g = g0 + gl;
+    sE[gl * NP + n] = (n < N && g < G) ? e_c[(size_t)n * G + g] : 0.0f;
+  }
+  for (int i = tid; i < K * Gt; i += kColThreads) {
+    const int k = i / Gt, gl = i % Gt, g = g0 + gl;
+    sData[k * ld + gl] = g < G ? a.data[(size_t)k * G + g] : 0.0f;
+  }
+  for (int n = tid; n < NP; n += kColThreads) {
+    sA[n] = kRow && n < N ? a.A[(size_t)c * N + n] : 0.0f;
+  }
+  __syncthreads();
+
+  if (grp < groups) {
+    for (int k = kk; k < K; k += rows) {
+      // the P*A row: P * A as the plain version's P * A.unsqueeze(1)
+      float pa[NP];
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        pa[n] = n < N ? (kRow ? x_c[k * N + n] * sA[n] : x_c[k * N + n])
+                      : 0.0f;
+      }
+      const float* dk = sData + k * ld;
+      double s[kDataSums] = {0.0, 0.0, 0.0, 0.0};
+      for (int gl0 = grp; gl0 < gcount; gl0 += kUnroll * groups) {
+        float mh[kUnroll];
+        const float* cols[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gl = gl0 + u * groups;
+          cols[u] = sE + (gl < gcount ? gl : gl0) * NP;
+        }
+        dot_ordered<NP>(pa, cols, mh);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gl = gl0 + u * groups;
+          if (gl < gcount) data_terms(dk[gl], mh[u], s);
+        }
+      }
+      double* p = part + ((size_t)grp * K + k) * kDataSums;
+#pragma unroll
+      for (int j = 0; j < kDataSums; ++j) p[j] = s[j];
+    }
+  }
+  if (kRow) {
+    // the tile's entries of E, thread tid taking tid, tid + kColThreads, ...
+    // in order: the prior term (ops/math.py::truncnorm_logpdf) and acc_E * A
+    double lp = 0.0, ac = 0.0;
+    const size_t tile_at = (size_t)c * N * G + g0;
+    prior_sums(a.E, a.mu_e, a.sq_e, a.acc_e,
+               [&](int j, size_t* off, float* w) {
+                 const int n = j / gcount;
+                 *off = tile_at + (size_t)n * G + j % gcount;
+                 *w = sA[n];
+               },
+               tid, kColThreads, N * gcount, &lp, &ac);
+    lp = warp_allsum(lp);
+    ac = warp_allsum(ac);
+    if (lane == 0) {
+      sred[0][warp] = lp;
+      sred[1][warp] = ac;
+    }
+  }
+  __syncthreads();
+  // the tile's partials: warp j < 4 adds the rows' partials of data sum j,
+  // lane-strided in order, then a butterfly; warps 4 and 5 the E side's
+  // warp partials
+  const int T = gridDim.x;
+  double* sc = a.scratch + (size_t)c * sums * T + t;
+  if (warp < kDataSums) {
+    const int total = groups * K;
+    double v = 0.0;
+    for (int i = lane; i < total; i += 32) v += part[(size_t)i * kDataSums
+                                                     + warp];
+    v = warp_allsum(v);
+    if (lane == 0) sc[(size_t)warp * T] = v;
+  } else if (kRow && warp < kRowSums) {
+    double v = lane < kColThreads / 32 ? sred[warp - kDataSums][lane] : 0.0;
+    v = warp_allsum(v);
+    if (lane == 0) sc[(size_t)warp * T] = v;
+  }
 }
 
-size_t smem_bytes(int K, int N, int Gt) {
-  return (size_t)(K * N + N * Gt) * sizeof(float);
+// One block per chain: each sum's tiles added in a fixed order (a warp per
+// sum), then the four sums (sums only), or the P side and the row.
+template <bool kRow>
+__global__ void __launch_bounds__(kMetricsFinish)
+metrics_finish_kernel(MetricsArgs a, int tiles) {
+  __shared__ double tot[kRowSums];
+  __shared__ double sred[2][kMetricsFinish / 32];
+  constexpr int sums = kRow ? kRowSums : kDataSums;
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (warp < sums) {
+    const double v = warp_ordered_sum(
+        a.scratch + ((size_t)c * sums + warp) * tiles, tiles, lane);
+    if (lane == 0) tot[warp] = v;
+  }
+  if (!kRow) {
+    __syncthreads();
+    if (tid < kDataSums) a.out[(size_t)tid * a.C + c] = (float)tot[tid];
+    return;
+  }
+  // the P side over (K, N): the prior term and acc_P * A, each thread its
+  // entries in order, then the warps' partials in order
+  const int K = a.K, N = a.N, G = a.G;
+  const float* A_c = a.A + (size_t)c * N;
+  const size_t base = (size_t)c * K * N;
+  double lp = 0.0, ac = 0.0;
+  prior_sums(a.P, a.mu_p, a.sq_p, a.acc_p,
+             [&](int j, size_t* off, float* w) {
+               *off = base + j;
+               *w = A_c[j % N];
+             },
+             tid, kMetricsFinish, K * N, &lp, &ac);
+  lp = warp_allsum(lp);
+  ac = warp_allsum(ac);
+  if (lane == 0) {
+    sred[0][warp] = lp;
+    sred[1][warp] = ac;
+  }
+  __syncthreads();
+  if (tid != 0) return;
+  double lp_p = 0.0, ac_p = 0.0;
+  for (int w = 0; w < kMetricsFinish / 32; ++w) {
+    lp_p += sred[0][w];
+    ac_p += sred[1][w];
+  }
+  float sum_a = 0.0f;
+  for (int n = 0; n < N; ++n) sum_a = sum_a + A_c[n];
+  // the row, each operation rounded as the plain version's
+  const float m_loglam = (float)tot[0], lam_sum = (float)tot[1];
+  const float mp_loglam = (float)tot[2], sq_err = (float)tot[3];
+  const float loglik = (m_loglam - lam_sum) - a.lgamma_sum[0];
+  const float n_par = sum_a * (float)(G + K);
+  float* row = a.row + (size_t)c * a.row_stride;
+  row[0] = a.it;
+  row[1] = sqrtf(sq_err / (float)(K * G));
+  row[2] = a.mlogm_sum[0] - mp_loglam;
+  row[3] = loglik;
+  row[4] = loglik + ((float)lp_p + (float)tot[4]);
+  row[5] = n_par;
+  row[6] = -2.0f * loglik + n_par * a.log_g;
+  row[7] = sum_a;
+  row[8] = a.temp != nullptr ? a.temp[0] : a.temp_val;
+  row[9] = (float)ac_p / jmax(sum_a * (float)K, 1.0f);
+  row[10] = (float)tot[5] / jmax(sum_a * (float)G, 1.0f);
+  row[11] = a.na[c];
 }
 
 template <typename Kernel>
@@ -1048,14 +1202,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-cudaError_t reduce(const double* scratch, float* out, int C, int T, int W,
-                   int inner, cudaStream_t s) {
-  const int n = C * W, threads = 256;
-  reduce_tiles<<<(n + threads - 1) / threads, threads, 0, s>>>(
-      scratch, out, C, T, W, inner);
-  return cudaGetLastError();
 }
 
 int n_tiles(int G, int Gt) { return (G + Gt - 1) / Gt; }
@@ -1118,6 +1264,20 @@ cudaError_t launch_acol(const AcolArgs& a, cudaStream_t s) {
       a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   acol_finish_kernel<kUpdate><<<a.C, 32, 0, s>>>(a, tiles);
+  return cudaGetLastError();
+}
+
+// The metrics tile kernel, then the finishing kernel.
+template <int NP, bool kRow>
+cudaError_t launch_metrics(const MetricsArgs& a, cudaStream_t s) {
+  const size_t smem = metrics_smem_floats(a.K, NP) * sizeof(float);
+  cudaError_t e = allow_smem(metrics_tile_kernel<NP, kRow>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = n_tiles(a.G, kColTile);
+  metrics_tile_kernel<NP, kRow><<<dim3(tiles, a.C), kColThreads, smem, s>>>(
+      a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  metrics_finish_kernel<kRow><<<a.C, kMetricsFinish, 0, s>>>(a, tiles);
   return cudaGetLastError();
 }
 
@@ -1279,18 +1439,45 @@ extern "C" int stream_acol_update_launch(
   return 0;
 }
 
-// Metrics: scratch C * n_tiles * 4 doubles; out 4 * C floats.
+// The four sums of the metrics row, sums only: scratch C * 4 *
+// n_tiles(G, 64) doubles; out (4, C) floats.
 extern "C" int stream_metrics_launch(const float* data, const float* E,
                                      const float* PA, double* scratch,
                                      float* out, int C, int K, int N, int G,
-                                     int Gt, void* stream) {
+                                     void* stream) {
+  MetricsArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.out = out; a.scratch = scratch;
+  a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(K, N, Gt);
-  const int T = n_tiles(G, Gt);
-  cudaError_t e;
-  if ((e = allow_smem(metrics_kernel, smem)) != cudaSuccess) return e;
-  metrics_kernel<<<dim3(T, C), kThreads, smem, s>>>(data, E, PA, scratch, K,
-                                                    N, G, Gt);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return reduce(scratch, out, C, T, 4, 1, s);
+#define CALL_SUMS(NP) launch_metrics<NP, false>(a, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
+#undef CALL_SUMS
+  return (int)e;
+}
+
+// The metrics row of every chain, written to row + c * row_stride (12
+// floats): scratch C * 6 * n_tiles(G, 64) doubles; temp null for a
+// temperature passed as temp_val.
+extern "C" int stream_metrics_row_launch(
+    const float* data, const float* E, const float* P, const float* A,
+    const float* mu_e, const float* sq_e, const float* acc_e,
+    const float* mu_p, const float* sq_p, const float* acc_p,
+    const float* lgamma_sum, const float* mlogm_sum, const float* na,
+    const float* temp, float* row, double* scratch, float it,
+    float temp_val, float log_g, int row_stride, int C, int K, int N, int G,
+    void* stream) {
+  MetricsArgs a = {};
+  a.data = data; a.E = E; a.P = P; a.A = A;
+  a.mu_e = mu_e; a.sq_e = sq_e; a.acc_e = acc_e;
+  a.mu_p = mu_p; a.sq_p = sq_p; a.acc_p = acc_p;
+  a.lgamma_sum = lgamma_sum; a.mlogm_sum = mlogm_sum; a.na = na;
+  a.temp = temp; a.row = row; a.scratch = scratch;
+  a.it = it; a.temp_val = temp_val; a.log_g = log_g;
+  a.row_stride = row_stride;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_ROW(NP) launch_metrics<NP, true>(a, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_ROW);
+#undef CALL_ROW
+  return (int)e;
 }

@@ -16,7 +16,8 @@ TruncNormal or the exponential prior, on three paths:
 - streaming (a chain ensemble, fixed rank or SBFI/BFI rank learning): every
   state tensor carries a leading chain axis C, and each step runs the
   hyper-update, the streamed P, E and A sweeps (models/updates.py) and the
-  streamed metrics sums; no (C, K, G) tensor exists (gibbs.py:228-264).
+  metrics row (one kernel pair); no (C, K, G) tensor exists
+  (gibbs.py:228-264).
 
 ``jax.lax.scan`` becomes a Python loop that writes each step into buffers
 preallocated on the device; the chunk's temperatures go to the device once,
@@ -393,19 +394,24 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
 
 
 def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-                accept_all, metric_consts=None, noise=None):
+                accept_all, metric_consts=None, noise=None, metrics_out=None):
     """One Gibbs iteration of every chain on the streaming path
     (gibbs.py:228-264): the exact hyper-update, the P and E sweeps, and with
     rank learning the R draw and the A sweep, then the metrics row from the
-    streamed sums. State tensors carry the chain axis C; ``accept_all`` is a
-    (C,) bool tensor; ``noise`` (draw_stream_noise's layout) is drawn from
-    ``state['gen']`` when None. Returns (new_state, sample_out) with
-    sample_out P (C, K, N), E (C, N, G), A (C, N), metrics (C, N_METRICS).
+    state by one call of ops/stream_sweeps.stream_metrics_row (no Mhat, no
+    P*A and no host arithmetic on the state). State tensors carry the chain
+    axis C; ``accept_all`` is a (C,) bool tensor; ``noise``
+    (draw_stream_noise's layout) is drawn from ``state['gen']`` when None;
+    ``metrics_out``, a (C, N_METRICS) slice of a chunk buffer, takes the
+    rows when given. Returns (new_state, sample_out) with sample_out P
+    (C, K, N), E (C, N, G), A (C, N), metrics (C, N_METRICS).
     """
     params = dict(state["params"])
     C = params["P"].shape[0]
     if noise is None:
         noise = draw_stream_noise(spec, C, state["gen"], data.device)
+    if metric_consts is None:
+        metric_consts = m.metric_constants(spec.likelihood, data)
     prior = U.sample_prior_params(spec, hp, params, state["prior"],
                                   noise=noise["prior"])
     params["P"], acc_P, nan_P = U.stream_sweep_P(
@@ -421,43 +427,16 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         params["A"], nan_A = U.stream_sweep_A(
             spec, data, params, params["R"], temperature, u=noise["A"])
         na_events = na_events + nan_A
-    pois_red = S.chain_metrics(data, params["E"],
-                               params["P"] * params["A"].unsqueeze(1))
     new_iter = state["iter"] + 1
     new_state = {"params": params, "prior": prior, "gen": state["gen"],
                  "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
-    metrics = stream_metrics_row(spec, data, params, prior, pois_red,
-                                 new_iter, temperature, acc_P, acc_E,
-                                 na_events, metric_consts)
+    metrics = S.stream_metrics_row(
+        data, params["P"], params["E"], params["A"], acc_P, acc_E,
+        prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"], prior["Sigmasq_e"],
+        metric_consts["lgamma_sum"], metric_consts["mlogm_sum"], na_events,
+        new_iter, temperature, out=metrics_out)
     return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
                        "metrics": metrics}
-
-
-def stream_metrics_row(spec, data, params, prior, pois_red, it, temperature,
-                       acc_P, acc_E, na_events, consts=None):
-    """The metrics row of every chain, (C, N_METRICS), from the four
-    streamed sums ``pois_red`` of ops/stream_sweeps.chain_metrics in place
-    of an Mhat (gibbs.py:305-312)."""
-    if consts is None:
-        consts = m.metric_constants(spec.likelihood, data)
-    K, G = spec.K, spec.G
-    m_loglam, lam_sum, mp_loglam, sq_err = pois_red
-    loglik = m_loglam - lam_sum - consts["lgamma_sum"]
-    kl = consts["mlogm_sum"] - mp_loglam
-    logpost = loglik + m.logprior_PE(params["P"], params["E"], spec.prior,
-                                     prior)
-    A = params["A"]
-    sum_a = A.sum(-1)
-    n_par = m.n_params_of(A, K, G)
-    accP_mean = ((acc_P * A.unsqueeze(1)).sum((1, 2))
-                 / (sum_a * K).clamp_min(1.0))
-    accE_mean = ((acc_E * A.unsqueeze(2)).sum((1, 2))
-                 / (sum_a * G).clamp_min(1.0))
-    full = lambda v: torch.full_like(sum_a, float(v))  # noqa: E731
-    return torch.stack([
-        full(it), torch.sqrt(sq_err / (K * G)), kl, loglik, logpost, n_par,
-        m.bic(loglik, n_par, G), sum_a, full(temperature), accP_mean,
-        accE_mean, na_events], dim=-1)
 
 
 # ---------------------------------------------------------------------------

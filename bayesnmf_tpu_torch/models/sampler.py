@@ -121,7 +121,7 @@ class GibbsSampler:
         if learning_rank and rank_method == "BIC":
             raise NotImplementedError(
                 "rank_method='BIC' over a rank list (one fit per rank) is not "
-                "ported yet (see ROADMAP.md queue 1 item 10)")
+                "ported yet (see ROADMAP.md queue 1 item 5)")
         if learning_rank and min(ranks) != 0:
             ranks = list(range(0, max(ranks) + 1))  # bayesNMF_sampler.R:125
         if mesh is not None:
@@ -490,7 +490,7 @@ def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
     """Fit Bayesian NMF with one chain; the port of ``bayesnmf_tpu.fit``
     (bayesNMF, bayesNMF.R:24-138) at a fixed rank or, with a rank list,
     learning the rank by SBFI/BFI (rank_method='BIC', one fit per rank, is
-    not ported: ROADMAP.md queue 1 item 10). ``output_dir`` defaults to
+    not ported: ROADMAP.md queue 1 item 5). ``output_dir`` defaults to
     ``nmf_<likelihood>_<prior>``; None disables logging and checkpoints.
     Keyword arguments go to GibbsSampler (``device`` among them)."""
     if output_dir == "default":

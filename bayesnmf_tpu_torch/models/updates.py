@@ -51,7 +51,7 @@ def _require_ported_prior(spec: ModelSpec):
     if spec.prior not in ("truncnormal", "exponential"):
         raise NotImplementedError(
             f"the {spec.prior!r} prior is not ported yet (ROADMAP.md queue 1 "
-            "item 12)")
+            "item 8)")
 
 
 def _rand(gen, shape, device, low=_U_MIN):

@@ -460,11 +460,11 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
     if prior_kind not in PRIORS:
         raise NotImplementedError(
             f"fused_gibbs_sweeps: the {prior_kind!r} prior is not ported "
-            "(ROADMAP.md queue 1 item 12)")
+            "(ROADMAP.md queue 1 item 8)")
     if rank_method not in RANK_METHODS:
         raise NotImplementedError(
             f"fused_gibbs_sweeps: rank_method={rank_method!r} is not ported "
-            "(ROADMAP.md queue 1 item 7)")
+            "(ROADMAP.md queue 1 item 5)")
     if (hyper_u is None) != (hyper_hp is None):
         raise ValueError("hyper_u and hyper_hp go together")
     if hyper_u is not None and prior_kind != "truncnormal":

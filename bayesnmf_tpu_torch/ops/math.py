@@ -84,7 +84,7 @@ def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
     else:
         raise NotImplementedError(
             f"logprior_PE: the {prior!r} prior is not ported (ROADMAP.md "
-            "queue 1 item 12)")
+            "queue 1 item 8)")
     return lp.sum((-2, -1)) + le.sum((-2, -1))
 
 

@@ -8,6 +8,11 @@ the Mhat tile from ``PA = P * A`` and an E tile and returns only reductions:
 - ``erow_stats`` / ``erow_accept``: one E row's sums over K (col=False);
 - ``acol_delta``: loglik(A_n = 1) - loglik(A_n = 0) for one column;
 - ``chain_metrics``: the four data-dependent sums of the metrics row;
+- ``stream_metrics_row``: the whole metrics row of every chain from the
+  state (chain_metrics' sums, the truncated-normal prior term, the
+  acceptance means and the host arithmetic of the JAX package's
+  models/gibbs.py::_metrics_row, :293-347) in two launches: a pass over the
+  G tiles and a finishing kernel per chain;
 - ``stream_pcol_update`` / ``stream_erow_update``: whole column updates of
   the exact-MH sweeps (the sums, the conditional, the draw, the Hastings
   ratio, the decision and the write-back of the JAX package's
@@ -42,9 +47,13 @@ column's or E row's values are held to rtol 1e-5 and atol 1e-6
 (``UPDATE_RTOL``/``UPDATE_ATOL``): an ulp in a sum moves the conditional's
 mean by an ulp, and a draw mu + sd*z near 0 keeps the absolute rounding of
 mu. Its recorded acceptances (the Hastings ratio) are held to rtol 1e-4
-(``RATIO_RTOL``): the kernel's log_ndtr differs from PyTorch's by an ulp or
-two at some arguments below -1, and where the log-likelihood part of the log
-ratio is ~1e3 one ulp of the sum is 6e-5.
+(``RATIO_RTOL``): the kernel's log_ndtr, ndtri, ndtr and sigmoid equal
+PyTorch's at all 4,194,304 arguments checked on the card, but a float64 sum
+added in another order can still round to the neighbouring float32, and
+where the log-likelihood part of the log ratio is ~1e3 one ulp of the sum
+is 6e-5 (every checked column update was bit-identical on the card). The
+metrics row holds it, n_params, sum A and the temperature exactly and every
+other entry to the sums' tolerance.
 
 Limits of the kernels: N <= 64 (the register tile), and K small enough for
 the tiles to fit an SM's shared memory (K <= ~1000 at N <= 24).
@@ -53,18 +62,18 @@ the tiles to fit an SM's shared memory (K <= ~1000 at N <= 24).
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from . import distributions as dist
 from . import math as m
 
 _FLOOR = 1e-6
-# a plain-version tile: bounds the (C, K, tile) temporaries on the CPU
+# a plain-version tile: bounds the (C, K, tile) temporaries on the CPU; a
+# multiple of the kernels' G tile
 _PLAIN_TILE = 4096
-# G width of a metrics tile, whose E tile is staged in shared memory
-_KERNEL_TILE = 256
-_SMEM_BYTES = 48 * 1024
 # what a block can opt in to on an H100
 _SMEM_MAX_BYTES = 227 * 1024
 # threads of a P- or A-column tile block
@@ -199,19 +208,79 @@ def acol_update_reference(data, E, P, A, logit_p1, temperature, u, n_nan,
     return delta
 
 
+def _data_terms(data, E, PA, g0, g1):
+    """The four data terms of the metrics row over G columns g0..g1-1,
+    (C, K, g1 - g0) each: M log lam, lam, max(M, 1e-6) log lam and
+    (Mhat - M)^2, lam = max(Mhat, 1e-6)."""
+    Mh = _mhat_tile(PA, E[:, :, g0:g1])
+    d_t = data[:, g0:g1]
+    lam = Mh.clamp_min(_FLOOR)
+    L = torch.log(lam)
+    d = Mh - d_t
+    return d_t * L, lam, d_t.clamp_min(1e-6) * L, d * d
+
+
+def _tile_sums(x):
+    """Float64 sums of x (C, R, W) over R and each 64-wide G tile of W, as
+    the kernels' tile blocks sum: (C, ceil(W / 64))."""
+    C, R, W = x.shape
+    pad = -W % _COL_TILE
+    if pad:
+        x = torch.cat([x, x.new_zeros(C, R, pad)], -1)
+    return x.view(C, R, -1, _COL_TILE).sum((1, 3), dtype=torch.float64)
+
+
 def chain_metrics_reference(data, E, PA):
     """Plain version of ``chain_metrics``: four (C,) sums."""
-    acc = None
-    for g0, g1 in _tiles(E.shape[2]):
-        Mh = _mhat_tile(PA, E[:, :, g0:g1])
-        d_t = data[:, g0:g1]
-        lam = Mh.clamp_min(_FLOOR)
-        L = torch.log(lam)
-        d = Mh - d_t
-        sums = [_sum64(x, (-2, -1)) for x in
-                (d_t * L, lam, d_t.clamp_min(1e-6) * L, d * d)]
-        acc = sums if acc is None else [a + s for a, s in zip(acc, sums)]
-    return tuple(a.to(torch.float32) for a in acc)
+    parts = [torch.stack([_tile_sums(x) for x in
+                          _data_terms(data, E, PA, g0, g1)], 1)
+             for g0, g1 in _tiles(E.shape[2])]
+    return tuple(torch.cat(parts, -1).sum(-1).to(torch.float32).unbind(1))
+
+
+def stream_metrics_row_reference(data, P, E, A, acc_P, acc_E, Mu_p,
+                                 Sigmasq_p, Mu_e, Sigmasq_e, lgamma_sum,
+                                 mlogm_sum, na_events, it, temperature):
+    """Plain version of ``stream_metrics_row``: the (C, 12) metrics rows.
+    Every per-element term is the kernels' in their order; the sums run in
+    float64 over each 64-wide G tile, then over the tiles, and are rounded to
+    float32 once; the row's arithmetic rounds each operation as the
+    finishing kernel does, dividing by 0-d tensors where a Python number
+    would be taken as a reciprocal on the card."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    PA = P * A.unsqueeze(1)
+    parts = []
+    for g0, g1 in _tiles(G):
+        terms = _data_terms(data, E, PA, g0, g1) + (
+            m.truncnorm_logpdf(E[:, :, g0:g1], Mu_e[:, :, g0:g1],
+                               Sigmasq_e[:, :, g0:g1]),
+            acc_E[:, :, g0:g1] * A.unsqueeze(-1))
+        parts.append(torch.stack([_tile_sums(x) for x in terms], 1))
+    (m_loglam, lam_sum, mp_loglam, sq_err, lp_e,
+     acc_e) = torch.cat(parts, -1).sum(-1).to(torch.float32).unbind(1)
+    lp_p = _sum64(m.truncnorm_logpdf(P, Mu_p, Sigmasq_p), (1, 2))
+    acc_p = _sum64(acc_P * A.unsqueeze(1), (1, 2))
+    lp_p, acc_p = lp_p.to(torch.float32), acc_p.to(torch.float32)
+    loglik = (m_loglam - lam_sum) - lgamma_sum
+    sum_a = A.sum(-1)
+    n_par = sum_a * (G + K)
+    if isinstance(temperature, torch.Tensor):
+        temp = temperature.reshape(1).expand(C)
+    else:
+        temp = torch.full_like(sum_a, float(temperature))
+    return torch.stack([
+        torch.full_like(sum_a, float(it)),
+        torch.sqrt(sq_err / m.const(float(K * G), sq_err)),
+        mlogm_sum - mp_loglam, loglik, loglik + (lp_p + lp_e), n_par,
+        -2.0 * loglik + n_par * _log_g(G), sum_a, temp,
+        acc_p / torch.clamp_min(sum_a * K, 1.0),
+        acc_e / torch.clamp_min(sum_a * G, 1.0), na_events], -1)
+
+
+def _log_g(G: int) -> float:
+    """log(G) as the row multiplies by it: rounded to float32."""
+    return float(np.float32(math.log(G)))
 
 
 def _mh_accept(log_ratio, u_acc, accept_all, inactive):
@@ -310,17 +379,10 @@ _SIGNATURES = {
     "stream_acol_launch": [_P] * 8 + [_I] * 4 + [_P],
     "stream_acol_update_launch": [_P] * 9 + [ctypes.c_float, _I, _P]
     + [_I] * 6 + [_P],
-    "stream_metrics_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "stream_metrics_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "stream_metrics_row_launch": [_P] * 16 + [ctypes.c_float] * 3
+    + [_I] * 5 + [_P],
 }
-
-
-def kernel_tile(K: int, N: int) -> int:
-    """G width of a metrics tile: 256, halved until PA and the E tile fit
-    the 48 KB of shared memory a block gets without opting in."""
-    gt = _KERNEL_TILE
-    while gt > 32 and (K * N + N * gt) * 4 > _SMEM_BYTES:
-        gt //= 2
-    return gt
 
 
 def tile_width(N: int) -> int:
@@ -361,6 +423,14 @@ def _acol_scratch(C: int, K: int, N: int, G: int, device):
     _check_col_fits(K, N, 1, K + tile_width(N), "an A-column")
     return torch.empty(C * _n_tiles(G, _COL_TILE), dtype=torch.float64,
                        device=device)
+
+
+def _metrics_scratch(C: int, K: int, N: int, G: int, sums: int, device):
+    """The metrics tile kernel's partials, ``sums`` doubles per (chain,
+    tile)."""
+    _check_col_fits(K, N, 4, tile_width(N), "a metrics")
+    return torch.empty(C * sums * _n_tiles(G, _COL_TILE),
+                       dtype=torch.float64, device=device)
 
 
 def _check_row_fits(K: int, N: int):
@@ -462,12 +532,31 @@ def _launch_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,
 def _launch_metrics(data, E, PA):
     C, K, N = PA.shape
     G = E.shape[2]
-    gt = kernel_tile(K, N)
-    scratch = torch.empty(C * _n_tiles(G, gt) * 4, dtype=torch.float64,
-                          device=PA.device)
     out = torch.empty(4, C, dtype=torch.float32, device=PA.device)
-    _call("stream_metrics_launch", data, E, PA, scratch, out, C, K, N, G, gt)
+    _call("stream_metrics_launch", data, E, PA,
+          _metrics_scratch(C, K, N, G, 4, PA.device), out, C, K, N, G)
     return tuple(out)
+
+
+def _launch_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
+                        Sigmasq_e, lgamma_sum, mlogm_sum, na_events, it,
+                        temperature, out):
+    """Enqueue the metrics tile kernel and the finishing kernel; the rows go
+    to ``out`` (C, 12), a row every out.stride(0) floats, or to a new
+    tensor. Returns the rows."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    if out is None:
+        out = torch.empty(C, ROW_LEN, dtype=torch.float32, device=P.device)
+    if isinstance(temperature, torch.Tensor):
+        temp, temp_val = temperature.reshape(1), 0.0
+    else:
+        temp, temp_val = None, float(temperature)
+    _call("stream_metrics_row_launch", data, E, P, A, Mu_e, Sigmasq_e, acc_E,
+          Mu_p, Sigmasq_p, acc_P, lgamma_sum, mlogm_sum, na_events, temp,
+          out, _metrics_scratch(C, K, N, G, 6, P.device), float(it),
+          temp_val, _log_g(G), out.stride(0), C, K, N, G)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +576,16 @@ def _check(fn, name, t, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check_out(fn, out, shape, device):
+    """An output that may be a slice: float32 on ``device``, of ``shape``,
+    each row contiguous."""
+    if not isinstance(out, torch.Tensor) or out.dtype != torch.float32 \
+            or out.device != device or tuple(out.shape) != tuple(shape) \
+            or out.stride(-1) != 1:
+        raise ValueError(f"{fn}: out must be a float32 tensor of shape "
+                         f"{tuple(shape)} on {device} with contiguous rows")
 
 
 def _batch(fn, data, E, PA, vectors):
@@ -584,6 +683,61 @@ def chain_metrics(data, E, PA):
 
 
 chain_metrics.launches = 0
+
+#: the metrics row's length, models/gibbs.py::METRIC_NAMES
+ROW_LEN = 12
+
+
+def stream_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
+                       Sigmasq_e, lgamma_sum, mlogm_sum, na_events, it,
+                       temperature, out=None):
+    """The metrics row of every chain, (C, 12) in models/gibbs.py's
+    METRIC_NAMES order, from the state itself: P (C, K, N), E (C, N, G),
+    A (C, N), the acceptance records acc_P (C, K, N) and acc_E (C, N, G),
+    the truncated-normal prior pairs Mu_p/Sigmasq_p (C, K, N) and
+    Mu_e/Sigmasq_e (C, N, G), the chunk constants ``lgamma_sum`` =
+    sum lgamma(M + 1) and ``mlogm_sum`` = sum Mp log Mp (0-d tensors), the
+    NaN events ``na_events`` (C,), the iteration ``it`` (a number) and the
+    temperature (a number or a one-element tensor). The rows go to ``out``
+    when given, a (C, 12) float32 tensor whose rows may be strided (a slice
+    of a chunk buffer), else to a new tensor; returns them. On the card: a
+    pass over the (G/64, C) tiles and a finishing kernel per chain (counted
+    one launch per call in ``stream_metrics_row.launches``)."""
+    fn = "stream_metrics_row"
+    C, K, N = P.shape
+    G = E.shape[2]
+    dev = P.device
+    _check(fn, "data", data, (K, G), dev)
+    for name, t, shape in (
+            ("E", E, (C, N, G)), ("P", P, (C, K, N)), ("A", A, (C, N)),
+            ("acc_P", acc_P, (C, K, N)), ("acc_E", acc_E, (C, N, G)),
+            ("Mu_p", Mu_p, (C, K, N)), ("Sigmasq_p", Sigmasq_p, (C, K, N)),
+            ("Mu_e", Mu_e, (C, N, G)), ("Sigmasq_e", Sigmasq_e, (C, N, G)),
+            ("lgamma_sum", lgamma_sum, ()), ("mlogm_sum", mlogm_sum, ()),
+            ("na_events", na_events, (C,))):
+        _check(fn, name, t, shape, dev)
+    if isinstance(temperature, torch.Tensor):
+        _check(fn, "temperature", temperature, tuple(temperature.shape), dev)
+        if temperature.numel() != 1:
+            raise ValueError(f"{fn}: temperature has {temperature.numel()} "
+                             "values, expected 1")
+    if out is not None:
+        _check_out(fn, out, (C, ROW_LEN), dev)
+    if dev.type == "cpu":
+        row = stream_metrics_row_reference(
+            data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e,
+            lgamma_sum, mlogm_sum, na_events, it, temperature)
+        return row if out is None else out.copy_(row)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no path for device {dev}")
+    out = _launch_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p,
+                              Mu_e, Sigmasq_e, lgamma_sum, mlogm_sum,
+                              na_events, it, temperature, out)
+    stream_metrics_row.launches += 1
+    return out
+
+
+stream_metrics_row.launches = 0
 
 
 def _update(fn, col, data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
@@ -706,4 +860,4 @@ def special_functions(x, which: str):
 def reset_launch_counts():
     """Set every stream kernel's launch count to 0."""
     _run.launches = acol_delta.launches = chain_metrics.launches = 0
-    stream_acol_update.launches = 0
+    stream_acol_update.launches = stream_metrics_row.launches = 0

@@ -45,8 +45,11 @@ def run_chunk_chains(spec: ModelSpec, data, hp: dict, states: dict, temps,
     if store_E:
         out["E"] = torch.empty(C, steps, spec.N, spec.G, **f32)
     for i, temp in enumerate(np.asarray(temps, np.float32).tolist()):
+        # the metrics row is written into its slot of the buffer directly
         states, sample = gibbs.stream_step(spec, data, hp, states, temp,
-                                           accept_all, consts)
+                                           accept_all, consts,
+                                           metrics_out=out["metrics"][:, i])
         for k, buf in out.items():
-            buf[:, i] = sample[k]
+            if k != "metrics":
+                buf[:, i] = sample[k]
     return states, out

@@ -42,10 +42,10 @@ from . import chains as chains_mod
 #: CUDA. Copied from the JAX package (ensemble.py:58-62), where it was
 #: measured on a TPU at C = 64 (XLA won at G = 1000, streaming at 2000); the
 #: H100 crossover against the port's other paths is not measured yet
-#: (ROADMAP.md queue 1 item 14).
+#: (ROADMAP.md queue 1 item 1).
 _STREAM_SWEEPS_MIN_G = 2000
 
-_ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 10)"
+_ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 6)"
 
 
 def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,

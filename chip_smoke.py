@@ -25,8 +25,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    stated in ops/stream_sweeps.py, bit-identical on two launches, and each
    timed at (96,20,10000,8), on the device (torch.profiler) and per call
    through its wrapper (CUDA events), beside its plain version; the
-   kernels' ndtri, log_ndtr, ndtr and sigmoid against the PyTorch calls on
-   4M arguments each; the column updates ``stream_pcol_update`` and
+   metrics row ``stream_metrics_row`` (two launches) against its plain
+   version at those shapes, with excluded columns and a chain with none,
+   and with prior means deep in log_ndtr's tail: it, n_params, sum A and
+   the temperature equal, every other entry within the sums' tolerance,
+   two launches bit-identical, timed at (96,20,10000,8) beside PR 5's
+   composition of the row (P * A, ``chain_metrics``, the host
+   arithmetic); the kernels' ndtri, log_ndtr, ndtr and sigmoid against the
+   PyTorch calls on 4M arguments each, all four equal; the column updates ``stream_pcol_update`` and
    ``stream_erow_update`` against the host sequence, column by column from
    the same state, at those shapes, with an excluded column, inactive
    columns, warmup flags mixed across chains and conditionals deep in the
@@ -72,12 +78,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    chains, on a 96x10000 rank-8 synthetic catalogue, through the streaming
    kernels: every metrics row finite, each stream kernel launched its
    launches per iteration times the iterations run (3N for the P and E
-   sweeps' kernels, N A columns through ``stream_acol_update``, one metrics
-   launch), the final checkpoint
+   sweeps' kernels, N A columns through ``stream_acol_update``, one
+   metrics-row call and no ``chain_metrics`` launch), the final checkpoint
    resumes bit-exactly for 20 iterations; it prints the iterations, the
    chain-it/s of the run and of the chunk loop alone, each chain's learned
-   rank and matched cosine, and the loop's device busy share
-   (torch.profiler);
+   rank and matched cosine, and the loop's device busy share and device
+   events per iteration (torch.profiler);
 6. rank learning: ``fit`` on a 96x1000 rank-8 catalogue over ranks 1..20
    by SBFI: metrics finite, the fused kernel launched once per iteration
    and no other kernel, the rank moved while tempering, the best-matched
@@ -563,6 +569,25 @@ def stream_bound(name, K, N, G, C):
     return bound(4 * (n_in + n_out), ops)
 
 
+# operations per entry of the metrics row's prior term (sqrt, two
+# divisions, log, log_ndtr at ~20, the quadratic) and acceptance product
+ROW_PRIOR_OPS = 35
+
+
+def metrics_row_bound(K, N, G, C):
+    """The metrics row (csrc/stream_sweeps.cu: the metrics tile and
+    finishing kernels) at one call: data, E, P, A, both sides' prior pairs
+    and acceptance records, the NaN events and the two chunk constants read
+    once, the rows written once; operations: the Mhat rebuild and the four
+    data terms per (c, k, g) (STREAM_OPS["chain_metrics"]), and the prior
+    term and the acceptance product per entry of E and P."""
+    n_in = K * G + C * (4 * N * G + 4 * K * N + N + 1) + 2
+    n_out = 12 * C
+    ops = (C * K * G * (2 * N - 1 + STREAM_OPS["chain_metrics"])
+           + C * (N * G + K * N) * ROW_PRIOR_OPS)
+    return bound(4 * (n_in + n_out), ops)
+
+
 # ---------------------------------------------------------------------------
 # phase 3b: the streaming kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -676,6 +701,146 @@ def compare_stream_kernels(torch, S, card):
                       f"plain PyTorch "
                       f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}), on {card}", flush=True)
+    return res
+
+
+# (K, N, G, chains, A, option): phase 3b, the metrics row. "excluded"
+# leaves chain 0 without column 1 and the last chain without any column
+# (sum A = 0: the acceptance means' clamp_min(1)) and passes the
+# temperature as a device tensor; "tails" puts the prior means at mu/sd in
+# -1..-50 and below -50 (log_ndtr's erfcx fit and its continued fraction).
+ROW_CASES = [(K, N, G, C, A, None) for (K, N, G, C, A) in STREAM_CASES] + [
+    (16, 3, 300, 3, None, "excluded"), (96, 8, 2000, 2, None, "tails")]
+# the row's entries that are counts or copies, held exactly: it, n_params,
+# the rank sum A, the temperature
+ROW_EXACT = (0, 5, 7, 8)
+
+
+def row_inputs(torch, S, K, N, G, C, seed, A=None, option=None):
+    """The metrics row's operands on the card, made with numpy from
+    ``seed``: a state as the stream step hands it over."""
+    from bayesnmf_tpu_torch.ops import math as m
+
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
+    Et = rng.gamma(2.0, 2.0, (N, G))
+    a = np.ones((C, N), f) if A is None else np.tile(np.asarray(A, f),
+                                                     (C, 1))
+    if option == "excluded":
+        a[0, 1] = 0.0
+        a[-1] = 0.0
+    d = {"data": rng.poisson(Pt @ Et).astype(f),
+         "P": (Pt * rng.uniform(0.5, 1.5, (C, K, N))).astype(f),
+         "E": (Et * rng.uniform(0.5, 1.5, (C, N, G))).astype(f), "A": a,
+         "acc_P": rng.uniform(0, 1, (C, K, N)).astype(f),
+         "acc_E": rng.uniform(0, 1, (C, N, G)).astype(f),
+         "Sigmasq_p": rng.gamma(2.0, 0.5, (C, K, N)).astype(f),
+         "Sigmasq_e": rng.gamma(2.0, 2.0, (C, N, G)).astype(f),
+         "na": rng.integers(0, 4, C).astype(f)}
+    for side, shape in (("p", (C, K, N)), ("e", (C, N, G))):
+        if option == "tails":
+            z = np.where(rng.uniform(size=shape) < 0.5,
+                         -rng.uniform(0, 120, shape),
+                         -rng.uniform(1, 50, shape))
+            d[f"Mu_{side}"] = (z * np.sqrt(d[f"Sigmasq_{side}"])).astype(f)
+        else:
+            d[f"Mu_{side}"] = rng.normal(0.5, 1.0, shape).astype(f)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+         for k, v in d.items()}
+    t.update(m.metric_constants("poisson", t["data"]))
+    t["it"] = 41
+    t["temp"] = (torch.tensor(0.5, device="cuda") if option == "excluded"
+                 else 0.03125)
+    return t
+
+
+ROW_ARGS = ("data", "P", "E", "A", "acc_P", "acc_E", "Mu_p", "Sigmasq_p",
+            "Mu_e", "Sigmasq_e", "lgamma_sum", "mlogm_sum", "na", "it",
+            "temp")
+
+
+def pr5_row(torch, S, t):
+    """The metrics row as PR 5 composed it: P * A on the host, the
+    sums-only chain_metrics, and the host arithmetic of PR 5's
+    models/gibbs.py::stream_metrics_row, in plain tensor ops (its float32
+    sums and multiplications by reciprocals included)."""
+    from bayesnmf_tpu_torch.ops import math as m
+
+    P, E, A = t["P"], t["E"], t["A"]
+    K, G = t["data"].shape
+    m_loglam, lam_sum, mp_loglam, sq_err = S.chain_metrics(
+        t["data"], E, P * A.unsqueeze(1))
+    loglik = m_loglam - lam_sum - t["lgamma_sum"]
+    prior = {k: t[k] for k in ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e")}
+    logpost = loglik + m.logprior_PE(P, E, "truncnormal", prior)
+    sum_a = A.sum(-1)
+    n_par = m.n_params_of(A, K, G)
+    acc_p = ((t["acc_P"] * A.unsqueeze(1)).sum((1, 2))
+             / (sum_a * K).clamp_min(1.0))
+    acc_e = ((t["acc_E"] * A.unsqueeze(2)).sum((1, 2))
+             / (sum_a * G).clamp_min(1.0))
+    full = lambda v: torch.full_like(sum_a, float(v))  # noqa: E731
+    return torch.stack([
+        full(t["it"]), torch.sqrt(sq_err / (K * G)),
+        t["mlogm_sum"] - mp_loglam, loglik, logpost, n_par,
+        m.bic(loglik, n_par, G), sum_a, full(t["temp"]), acc_p, acc_e,
+        t["na"]], dim=-1)
+
+
+def compare_metrics_rows(torch, S, card):
+    """Phase 3b, the metrics row: the row kernels against their plain
+    version at every ROW_CASES case; it, n_params, sum A and the
+    temperature exact, every other entry within the sums' tolerance, two
+    launches bit-identical; timed at (96,20,10000,8) beside PR 5's
+    composition. Returns dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, pr5_ms)."""
+    res = {"max_abs_err": 0.0}
+    for (K, N, G, C, A, opt) in ROW_CASES:
+        t = row_inputs(torch, S, K, N, G, C, seed=K + N + G + C, A=A,
+                       option=opt)
+        args = [t[k] for k in ROW_ARGS]
+        case = (f"(K,N,G,C)={(K, N, G, C)}" + (f" A={A}" if A else "")
+                + (f" {opt}" if opt else ""))
+
+        def kernel(args=args):
+            return S.stream_metrics_row(*args)
+
+        k1, k2 = kernel(), kernel()
+        p = S.stream_metrics_row_reference(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, k2), f"metrics row: two launches differ at "
+              f"{case}")
+        check(bool(torch.isfinite(k1).all()),
+              f"metrics row not finite at {case}")
+        exact = list(ROW_EXACT)
+        check(torch.equal(k1[:, exact], p[:, exact]),
+              f"metrics row: it, n_params, sum A or the temperature differ "
+              f"at {case}: {k1[:, exact].tolist()} {p[:, exact].tolist()}")
+        diff = (k1 - p).abs()
+        ab = float(diff.max())
+        rel = float((diff / p.abs().clamp_min(1e-30)).max())
+        check(torch.allclose(k1, p, rtol=S.KERNEL_RTOL, atol=S.KERNEL_ATOL),
+              f"metrics row differs at {case}: max abs {ab} rel {rel}")
+        res["max_abs_err"] = max(res["max_abs_err"], ab)
+        print(f"metrics row vs plain {case}: max abs {ab:.2e} rel "
+              f"{rel:.2e}; it, n_params, sum A, temperature equal; two "
+              "launches bit-identical", flush=True)
+        if (K, N, G, C) == STREAM_TIMED and A is None and opt is None:
+            res["ms"], wrapped = kernel_ms(torch, kernel, 50)
+            res["plain_ms"] = time_ms(
+                torch, lambda: S.stream_metrics_row_reference(*args), 3)
+            res["pr5_ms"], pr5_wrapped = kernel_ms(
+                torch, lambda: pr5_row(torch, S, t), 50)
+            res["bound_ms"], res["bound_by"] = metrics_row_bound(K, N, G, C)
+            print(f"time per call metrics row at (K,N,G,C)={STREAM_TIMED}: "
+                  f"kernels {res['ms']:.4f} ms on the device "
+                  f"({wrapped:.4f} ms per call through the wrapper), PR 5's "
+                  f"composition (P * A, chain_metrics, the host row) "
+                  f"{res['pr5_ms']:.4f} ms on the device ({pr5_wrapped:.4f} "
+                  f"ms per call), plain PyTorch {res['plain_ms']:.4f} ms, "
+                  f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), on "
+                  f"{card}", flush=True)
     return res
 
 
@@ -1019,11 +1184,11 @@ def compare_acol_updates(torch, S, U, card):
 
 def compare_special(torch, S):
     """The kernels' ndtri, log_ndtr, ndtr and sigmoid against the PyTorch
-    calls of the host sequences, on 4M arguments each that cover every
-    branch. Returns (arguments at which ndtri, ndtr or sigmoid differ, which
-    a proposal's or an inclusion's bits depend on; arguments at which
-    log_ndtr differs, which only moves the Hastings ratio within its
-    tolerance)."""
+    calls of the host sequences and the metrics row, on 4M arguments each
+    that cover every branch. Returns (arguments at which ndtri, ndtr or
+    sigmoid differ, which a proposal's or an inclusion's bits depend on;
+    arguments at which log_ndtr differs, which the Hastings ratio and the
+    row's prior term depend on)."""
     from bayesnmf_tpu_torch.ops import distributions as dist
 
     gen = torch.Generator(device="cuda")
@@ -1323,12 +1488,14 @@ def run_ensemble(torch, bt, S, card):
         launches = {"_run": S._run.launches,
                     "stream_acol_update": S.stream_acol_update.launches,
                     "acol_delta": S.acol_delta.launches,
+                    "stream_metrics_row": S.stream_metrics_row.launches,
                     "chain_metrics": S.chain_metrics.launches}
         steps = ens.iter - 1  # iteration 1 is the initial draw
         # a P column is two passes over the G tiles, an E row one launch;
-        # an A column one update (the sums-only acol_delta is off the path)
+        # an A column one update; the metrics row one call (the sums-only
+        # acol_delta and chain_metrics are off the path)
         per_iter = {"_run": 3 * N, "stream_acol_update": N, "acol_delta": 0,
-                    "chain_metrics": 1}
+                    "stream_metrics_row": 1, "chain_metrics": 0}
         for k, n in per_iter.items():
             check(launches[k] == n * steps,
                   f"{k} launches {launches[k]} != {n} x {steps} iterations")
@@ -1416,15 +1583,16 @@ def run_ensemble(torch, bt, S, card):
         k: sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages() if k in e.key)
         for k in ("pcol_tile_kernel", "pcol_finish_kernel", "erow_kernel",
-                  "acol_tile_kernel", "acol_finish_kernel", "metrics_kernel",
-                  "reduce_tiles")}
+                  "acol_tile_kernel", "acol_finish_kernel",
+                  "metrics_tile_kernel", "metrics_finish_kernel")}
     if dev_us > 0:
         print(f"ensemble: profiled {n_prof} iterations: device busy "
               f"{dev_us / 1e3:.1f} ms of {prof_s * 1e3:.1f} ms wall "
               f"(share {dev_us / 1e6 / prof_s:.3f}); stream kernels "
               + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
                           stream_us.items())
-              + f"; {n_kernels} device events; on {card}", flush=True)
+              + f"; {n_kernels} device events ({n_kernels / n_prof:.1f} per "
+              f"iteration); on {card}", flush=True)
     else:
         print("ensemble: torch.profiler recorded no device time; busy "
               "share not measured", flush=True)
@@ -1481,7 +1649,7 @@ def reset_counts(FS, S, AL):
 def other_launches(S, AL):
     return (S._run.launches + S.acol_delta.launches
             + S.stream_acol_update.launches + S.chain_metrics.launches
-            + AL.allocate_counts.launches)
+            + S.stream_metrics_row.launches + AL.allocate_counts.launches)
 
 
 RANK_K, RANK_G, RANK_TRUE, RANK_MAX = 96, 1000, 8, 20
@@ -1667,8 +1835,10 @@ def main() -> int:
 
     # phase 3b: the streaming kernels against their plain versions
     stream = compare_stream_kernels(torch, S, card)
-    check(compare_special(torch, S)[0] == 0,
-          "the kernels' ndtri, ndtr or sigmoid differ from the PyTorch calls")
+    row = compare_metrics_rows(torch, S, card)
+    check(compare_special(torch, S) == (0, 0),
+          "the kernels' ndtri, log_ndtr, ndtr or sigmoid differ from the "
+          "PyTorch calls")
     updates = compare_stream_updates(torch, S, card)
     acol = compare_acol_updates(torch, S, U, card)
 
@@ -1730,13 +1900,17 @@ def main() -> int:
         "ms": acol["ms"], "plain_ms": acol["plain_ms"],
         "bound_ms": acol["bound_ms"], "bound_by": acol["bound_by"],
         "library_ms": None})
-    r = stream["chain_metrics"]
+    # chain_metrics reaches the main path as the metrics row: its entry is
+    # the row's (the sums-only form is timed in the lines above)
     kernels.append({
         "name": "chain_metrics", "route": "cuda", "source": src,
-        "replaces": f"{pss}:272", "launches": ens_launches["chain_metrics"],
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None})
+        "replaces": f"{pss}:272",
+        "launches": ens_launches["stream_metrics_row"],
+        "max_abs_err": max(stream["chain_metrics"]["max_abs_err"],
+                           row["max_abs_err"]),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None})
     kernels.append({
         "name": "allocate_counts_fused", "route": "cuda",
         "source": "bayesnmf_tpu_torch/csrc/allocation.cu",

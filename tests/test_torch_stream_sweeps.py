@@ -15,7 +15,8 @@ anything. The sweeps, the hyper-update and the metrics row: rtol 1e-5 and
 identical accept decisions; drawn values also get atol 1e-6, because a draw
 mu + sd*z near 0 keeps the absolute rounding of mu (~1e-7 at mu ~ 1). The
 metrics row's KL is a difference of two sums of size sum(M log M) and is
-held to 1e-5 of that instead.
+held to 1e-5 of that instead; so are loglik, logposterior and BIC in the
+row's extra cases, whose counts make loglik a few per cent of its sums.
 """
 
 import jax
@@ -335,6 +336,50 @@ def test_sample_prior_params_matches_jax(ens_setup):
         close(got[k].numpy(), np.asarray(want[k]), 1e-5, 1e-6, msg=k)
 
 
+ROW_ARGS = ("P", "E", "A", "acc_P", "acc_E", "Mu_p", "Sigmasq_p", "Mu_e",
+            "Sigmasq_e")
+
+
+def jax_rows(jspec, data, params, prior, acc_P, acc_E, na, it, temp):
+    """The JAX package's metrics rows of a chain batch: _metrics_row with
+    ``pois_red`` from chain_metrics on P * A, as its stream step does."""
+    consts = jm.metric_constants("poisson", jnp.asarray(data))
+
+    def one(p, pr, aP, aE, n):
+        red = JS.chain_metrics(jnp.asarray(data), p["E"],
+                               p["P"] * p["A"][None, :])
+        return jgibbs._metrics_row(jspec, jnp.asarray(data), p, pr, None,
+                                   jnp.int32(it), jnp.float32(temp), aP, aE,
+                                   n, consts, red)
+
+    return np.asarray(jax.vmap(one)(params, prior, jnp.asarray(acc_P),
+                                    jnp.asarray(acc_E), jnp.asarray(na)))
+
+
+def port_rows(data, params, prior, acc_P, acc_E, na, it, temp, **kw):
+    """The port's rows through stream_metrics_row: raw P and A, no P * A."""
+    torch.set_num_threads(1)
+    d = {**{k: t(np.asarray(v)) for k, v in params.items()},
+         **{k: t(np.asarray(v)) for k, v in prior.items()},
+         "acc_P": t(acc_P), "acc_E": t(acc_E)}
+    consts = tm.metric_constants("poisson", t(data))
+    return S.stream_metrics_row(
+        t(data), *(d[k] for k in ROW_ARGS), consts["lgamma_sum"],
+        consts["mlogm_sum"], t(na), it, temp, **kw)
+
+
+def close_rows(got, want, data, diffs=("KL",)):
+    """rtol 1e-5 for every entry but those named in ``diffs``: differences
+    of sums of size sum(M log M) (KL; loglik and what is built on it), held
+    to 1e-5 of that, since JAX sums them tile by tile in float32."""
+    cols = [tgibbs.METRIC_NAMES.index(k) for k in diffs]
+    Mp = np.maximum(data, 1e-6)
+    close(np.delete(got, cols, 1), np.delete(want, cols, 1), 1e-5)
+    for k, i in zip(diffs, cols):
+        close(got[:, i], want[:, i], 0,
+              atol=1e-5 * float(np.sum(Mp * np.log(Mp))), msg=k)
+
+
 def test_stream_metrics_row_matches_jax(ens_setup):
     jspec, tspec, hp, data, js = ens_setup
     params, prior = js["params"], js["prior"]
@@ -342,27 +387,175 @@ def test_stream_metrics_row_matches_jax(ens_setup):
     acc_P = rng.uniform(0, 1, (C, K, N)).astype(np.float32)
     acc_E = rng.uniform(0, 1, (C, N, G)).astype(np.float32)
     na = np.array([0.0, 2.0], np.float32)
-    consts = jm.metric_constants("poisson", jnp.asarray(data))
+    want = jax_rows(jspec, data, params, prior, acc_P, acc_E, na, 12, 0.3)
+    got = port_rows(data, params, prior, acc_P, acc_E, na, 12, 0.3).numpy()
+    close_rows(got, want, data)
 
-    def one(p, pr, aP, aE, n):
-        red = JS.chain_metrics(jnp.asarray(data), p["E"],
-                               p["P"] * p["A"][None, :])
-        return jgibbs._metrics_row(jspec, jnp.asarray(data), p, pr, None,
-                                   jnp.int32(12), jnp.float32(0.3), aP, aE,
-                                   n, consts, red)
 
-    want = np.asarray(jax.vmap(one)(params, prior, jnp.asarray(acc_P),
-                                    jnp.asarray(acc_E), jnp.asarray(na)))
-    tp = port_tree(params)
-    red = S.chain_metrics(t(data), tp["E"], tp["P"] * tp["A"].unsqueeze(1))
-    got = tgibbs.stream_metrics_row(
-        tspec, t(data), tp, port_tree(prior), red, 12, 0.3, t(acc_P),
-        t(acc_E), t(na)).numpy()
-    kl = tgibbs.METRIC_NAMES.index("KL")
-    Mp = np.maximum(data, 1e-6)
-    close(np.delete(got, kl, 1), np.delete(want, kl, 1), 1e-5)
-    close(got[:, kl], want[:, kl], 0,
-          atol=1e-5 * float(np.sum(Mp * np.log(Mp))), msg="KL")
+def row_case(case, seed=0):
+    """A three-chain state at K = 16, N = 3 for the metrics row. "excluded":
+    chain 0 without column 1, chain 2 without any column (sum A = 0, the
+    acceptance means' clamp_min(1)); "tails": prior means of E and P at
+    mu/sd from -1 to -50 and below -50 (log_ndtr's erfcx branch and its
+    continued fraction); "ragged": G = 100, a tile cut short."""
+    Kr, Nr, Cr = 16, 3, 3
+    Gr = 100 if case == "ragged" else 300
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    Pt = rng.dirichlet(np.ones(Kr) * 0.5, Nr).T * 40.0
+    Et = rng.gamma(2.0, 2.0, (Nr, Gr))
+    data = rng.poisson(Pt @ Et).astype(f)
+    A = np.ones((Cr, Nr), f)
+    if case == "excluded":
+        A[0, 1] = 0.0
+        A[2] = 0.0
+    params = {"P": (Pt * rng.uniform(0.5, 1.5, (Cr, Kr, Nr))).astype(f),
+              "E": (Et * rng.uniform(0.5, 1.5, (Cr, Nr, Gr))).astype(f),
+              "A": A}
+    prior = {"Sigmasq_p": rng.gamma(2.0, 0.5, (Cr, Kr, Nr)).astype(f),
+             "Sigmasq_e": rng.gamma(2.0, 2.0, (Cr, Nr, Gr)).astype(f)}
+    if case == "tails":
+        # mu/sd uniform in -120..0 for half the entries, in -1..-50 for the
+        # rest
+        for side, shape in (("p", (Cr, Kr, Nr)), ("e", (Cr, Nr, Gr))):
+            z = np.where(rng.uniform(size=shape) < 0.5,
+                         -rng.uniform(0, 120, shape),
+                         -rng.uniform(1, 50, shape))
+            prior[f"Mu_{side}"] = (z * np.sqrt(prior[f"Sigmasq_{side}"])
+                                   ).astype(f)
+    else:
+        prior["Mu_p"] = rng.normal(0.0, 1.0, (Cr, Kr, Nr)).astype(f)
+        prior["Mu_e"] = rng.normal(2.0, 2.0, (Cr, Nr, Gr)).astype(f)
+    acc_P = rng.uniform(0, 1, (Cr, Kr, Nr)).astype(f)
+    acc_E = rng.uniform(0, 1, (Cr, Nr, Gr)).astype(f)
+    na = np.array([0.0, 3.0, 1.0], f)
+    kw = dict(K=Kr, N=Nr, G=Gr, likelihood="poisson", prior="truncnormal",
+              MH=True, learning_rank=True, rank_method="SBFI",
+              stream_sweeps=True)
+    return JModelSpec(**kw), data, params, prior, acc_P, acc_E, na
+
+
+@pytest.mark.parametrize("case", ["excluded", "tails", "ragged"])
+def test_stream_metrics_row_cases_match_jax(case):
+    """The row against the JAX _metrics_row with pois_red from
+    chain_metrics: excluded columns and a chain with none, prior means deep
+    in the tail, G not a multiple of the 64-wide tile."""
+    torch.set_num_threads(1)
+    jspec, data, params, prior, acc_P, acc_E, na = row_case(case)
+    want = jax_rows(jspec, data, params, prior, acc_P, acc_E, na, 7, 1.0)
+    got = port_rows(data, params, prior, acc_P, acc_E, na, 7, 1.0).numpy()
+    # at these counts loglik is ~4% of the sums it is the difference of
+    close_rows(got, want, data,
+               ("KL", "loglikelihood", "logposterior", "BIC"))
+    names = tgibbs.METRIC_NAMES
+    assert np.isfinite(got).all()
+    if case == "excluded":
+        assert got[2, names.index("rank")] == 0.0
+        assert got[2, names.index("n_params")] == 0.0
+        for k in ("P_mean_acceptance_rate", "E_mean_acceptance_rate"):
+            assert got[2, names.index(k)] == 0.0
+
+
+def test_stream_metrics_row_writes_a_strided_slot():
+    """With ``out`` a slice of a chunk buffer the rows land in that slot
+    (the returned tensor is the slice) and nothing else moves; a tensor
+    temperature gives the same row as the number."""
+    torch.set_num_threads(1)
+    jspec, data, params, prior, acc_P, acc_E, na = row_case("excluded")
+    row = port_rows(data, params, prior, acc_P, acc_E, na, 5, 0.25)
+    buf = torch.full((3, 4, tgibbs.N_METRICS), -7.0)
+    got = port_rows(data, params, prior, acc_P, acc_E, na, 5,
+                    torch.tensor(0.25), out=buf[:, 2])
+    assert got.data_ptr() == buf[:, 2].data_ptr()
+    assert torch.equal(buf[:, 2], row)
+    assert (buf[:, [0, 1, 3]] == -7.0).all()
+    assert S.ROW_LEN == tgibbs.N_METRICS
+
+
+def test_stream_metrics_row_checks_its_operands():
+    """Shapes, dtypes and devices of every operand, the temperature's size
+    and the output slot."""
+    torch.set_num_threads(1)
+    jspec, data, params, prior, acc_P, acc_E, na = row_case("ragged")
+    base = dict(data=data, params=params, prior=prior, acc_P=acc_P,
+                acc_E=acc_E, na=na, it=3, temp=1.0)
+    with pytest.raises(ValueError):  # acc_E cut short
+        port_rows(**{**base, "acc_E": acc_E[:, :, :-1]})
+    with pytest.raises(TypeError):   # a float64 prior operand
+        port_rows(**{**base, "prior": {**prior, "Mu_e": prior["Mu_e"]
+                                       .astype(np.float64)}})
+    with pytest.raises(ValueError):  # A without its chain axis
+        port_rows(**{**base, "params": {**params, "A": params["A"][0]}})
+    with pytest.raises(ValueError):  # na_events of the wrong length
+        port_rows(**{**base, "na": na[:2]})
+    with pytest.raises(ValueError):
+        port_rows(**{**base, "temp": torch.ones(2)})
+    with pytest.raises(ValueError):  # an output slot with strided columns
+        port_rows(**base, out=torch.empty(12, 3).t())
+    with pytest.raises(ValueError):  # on another device
+        port_rows(**base, out=torch.empty(3, 12, device="meta"))
+
+
+def test_stream_metrics_row_never_takes_the_plain_path_on_cuda(monkeypatch):
+    """For CUDA tensors the row enqueues its kernels or raises; the plain
+    version is not reached and a CPU call counts no launch. Checked with a
+    stand-in launcher."""
+    torch.set_num_threads(1)
+    jspec, data, params, prior, acc_P, acc_E, na = row_case("excluded")
+    S.reset_launch_counts()
+    port_rows(data, params, prior, acc_P, acc_E, na, 3, 1.0)
+    assert S.stream_metrics_row.launches == 0
+
+    def fake_launch(*a):
+        raise RuntimeError("stand-in kernel")
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached for CUDA tensors")
+
+    monkeypatch.setattr(S, "_launch_metrics_row", fake_launch)
+    monkeypatch.setattr(S, "stream_metrics_row_reference", no_plain)
+    monkeypatch.setattr(S, "_check", lambda *a: None)
+    fake_cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda self: fake_cuda))
+    with pytest.raises(RuntimeError, match="stand-in kernel"):
+        port_rows(data, params, prior, acc_P, acc_E, na, 3, 1.0)
+
+
+def test_stream_step_makes_one_metrics_row_call(ens_setup, monkeypatch):
+    """stream_step computes the metrics row by one call of
+    stream_metrics_row on the state itself (P and A as they are, no P * A)
+    and never calls chain_metrics."""
+    torch.set_num_threads(1)
+    jspec, tspec, hp, data, js = ens_setup
+    state = {"params": port_tree(js["params"]),
+             "prior": port_tree(js["prior"]),
+             "acc_P": t(np.asarray(js["acc_P"])),
+             "acc_E": t(np.asarray(js["acc_E"])), "iter": 4,
+             "gen": torch.Generator().manual_seed(0)}
+    calls = []
+    row = S.stream_metrics_row
+
+    def spy(*a, **k):
+        calls.append(a)
+        return row(*a, **k)
+
+    def no_sums(*a, **k):
+        raise AssertionError("chain_metrics called on the stream path")
+
+    monkeypatch.setattr(S, "stream_metrics_row", spy)
+    monkeypatch.setattr(S, "chain_metrics", no_sums)
+    buf = torch.empty(C, 3, tgibbs.N_METRICS)
+    new, out = tgibbs.stream_step(tspec, t(data), hp, state, 0.5,
+                                  torch.tensor([False, True]),
+                                  metrics_out=buf[:, 1])
+    assert len(calls) == 1
+    P, E, A = calls[0][1:4]
+    assert P is new["params"]["P"] and A is new["params"]["A"]
+    assert E is new["params"]["E"]
+    assert out["metrics"].data_ptr() == buf[:, 1].data_ptr()
+    assert (out["metrics"][:, 0] == 5.0).all()
+    assert torch.isfinite(buf[:, 1]).all()
 
 
 def test_stream_step_matches_jax_gibbs_step(ens_setup):
