@@ -1,17 +1,19 @@
 """bayesnmf_tpu_torch: the PyTorch/CUDA port of bayesnmf_tpu.
 
-Bayesian NMF (M ~ Poisson(P diag(A) E)) by MH-within-Gibbs sampling, with
-the kernels hand-written for NVIDIA Hopper. The JAX package ``bayesnmf_tpu``
+Bayesian NMF (M ~ Poisson or Normal around P diag(A) E) by Gibbs and
+MH-within-Gibbs sampling, with the kernels hand-written for NVIDIA Hopper. The JAX package ``bayesnmf_tpu``
 stays the reference; this package imports torch and never jax, and nothing
 of the JAX package: it keeps its own copies of the configuration, logging
 and postprocessing modules.
 
 Ported so far (ROADMAP.md): one chain of the Poisson sampler with the
 TruncNormal or exponential prior, MH at a fixed rank or with SBFI/BFI rank
-learning, through the fused sweep kernel; conjugate Poisson-Gibbs
-(MH=False, exponential prior) through the allocation kernel; and
-``ChainEnsemble``, C chains of the TruncNormal model with SBFI/BFI rank
-learning, through the streaming sweep kernels.
+learning, through the fused sweep kernel (or, with ``fused_sweeps=False``,
+the eager sweeps); one chain of the Normal likelihood with either prior
+through the eager sweeps, which run as tensor ops as the JAX package runs
+them in XLA; conjugate Poisson-Gibbs (MH=False, exponential prior) through
+the allocation kernel; and ``ChainEnsemble``, C chains of the TruncNormal
+model with SBFI/BFI rank learning, through the streaming sweep kernels.
 """
 
 from .config import (  # noqa: F401

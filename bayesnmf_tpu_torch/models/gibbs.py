@@ -1,14 +1,23 @@
 """The Gibbs engine: state construction, one step, the chunk runner, and the
 tempering schedule.
 
-Port of bayesnmf_tpu/models/gibbs.py for the Poisson likelihood with the
-TruncNormal or the exponential prior, on three paths:
+Port of bayesnmf_tpu/models/gibbs.py for the Poisson and Normal
+likelihoods with the TruncNormal or the exponential prior, on four paths:
 
-- fused (one chain, MH): each step draws one flat uniform tensor,
-  recomputes Mhat with one matmul, runs the fused sweep
-  (ops/fused_sweeps.py; with rank learning it also draws R and sweeps A)
-  and computes the metrics row; the exponential prior's Lambda update runs
-  before the kernel (gibbs.py:139-227);
+- fused (one chain, Poisson MH, the default there): each step draws one
+  flat uniform tensor, recomputes Mhat with one matmul, runs the fused
+  sweep (ops/fused_sweeps.py; with rank learning it also draws R and
+  sweeps A) and computes the metrics row; the exponential prior's Lambda
+  update and the reference's conjugate Mu/Sigmasq update
+  (``exact_truncnorm_hypers=False``) run before the kernel
+  (gibbs.py:139-227);
+- eager (one chain: the Normal likelihood, and Poisson MH with
+  ``fused_sweeps=False``): the prior update, a fresh Mhat, the sequential
+  P and E sweeps issued column by column as tensor ops
+  (models/updates.sweep_P/sweep_E), with rank learning the R draw and the
+  Mhat-based A sweep, and with the Normal likelihood sigmasq from the
+  final Mhat (gibbs.py:241-269); no kernel runs, as none does on the JAX
+  package's XLA path;
 - conjugate (one chain, MH=False, exponential prior): Lambda, then all of P
   and all of E by conjugate gamma draws, the R draw and the Mhat-based A
   sweep when rank learning, and the latent counts' sums through the
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import ModelSpec
+from ..ops import distributions as dist
 from ..ops import math as m
 from ..ops import stream_sweeps as S
 from ..ops.fused_sweeps import fused_gibbs_sweeps
@@ -51,30 +61,21 @@ _TINY = 1.2e-38
 
 def check_spec(spec: ModelSpec):
     """Raise NotImplementedError for anything outside the ported slices:
-    the fused path (one chain, MH, truncnormal or exponential prior, fixed
-    rank or SBFI/BFI), the conjugate path (one chain, MH=False, exponential
-    prior, fixed rank or SBFI/BFI) and the streaming path (truncnormal
-    prior, fixed rank or SBFI/BFI)."""
+    the gamma prior, a rank method other than SBFI/BFI while learning the
+    rank (BIC over a rank list) and the exponential prior on the streaming
+    path. Everything else of the Poisson and Normal likelihoods runs on the
+    fused, eager, conjugate or streaming path."""
     missing = []
-    if spec.likelihood != "poisson":
-        missing.append(f"likelihood={spec.likelihood!r}")
     if spec.prior not in ("truncnormal", "exponential"):
         missing.append(f"prior={spec.prior!r}")
-    if spec.prior == "truncnormal" and not spec.exact_truncnorm_hypers:
-        missing.append("exact_truncnorm_hypers=False")
     if spec.learning_rank and spec.rank_method not in ("SBFI", "BFI"):
         missing.append(f"rank_method={spec.rank_method!r}")
-    if spec.MH:
-        if spec.stream_sweeps:
-            if spec.prior != "truncnormal":
-                missing.append(f"prior={spec.prior!r} on the streaming path")
-        elif not spec.fused_sweeps:
-            missing.append("the unfused, unstreamed sweep path")
+    if spec.stream_sweeps and spec.prior != "truncnormal":
+        missing.append(f"prior={spec.prior!r} on the streaming path")
     if missing:
         raise NotImplementedError(
-            "bayesnmf_tpu_torch ports the fused, conjugate and streaming "
-            "paths of the Poisson sampler so far; not ported: "
-            + ", ".join(missing) + " (see ROADMAP.md)")
+            "bayesnmf_tpu_torch does not port yet: " + ", ".join(missing)
+            + " (see ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -87,11 +88,13 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
                init_prior_params=None, chains=None) -> dict:
     """Initial state on ``data``'s device: prior parameters from the
     hyperpriors, P and E from the priors, with rank learning
-    R ~ Uniform{0..N}, A_n ~ Bern(p1(R)), and on the conjugate path the
-    latent counts' sums; iteration 1 (gibbs.py:41-92). With ``chains`` = C
+    R ~ Uniform{0..N}, A_n ~ Bern(p1(R)), on the conjugate path the
+    latent counts' sums, and with the Normal likelihood sigmasq from its
+    conditional; iteration 1 (gibbs.py:41-92). With ``chains`` = C
     every tensor has a leading chain axis of C independent draws.
     ``init_params`` / ``init_prior_params`` entries override the draws (the
-    same value for every chain)."""
+    same value for every chain); ``init_prior_params`` "alpha" and "beta"
+    set the sigmasq prior, broadcast to length G."""
     check_spec(spec)
     dev = data.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -103,6 +106,9 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
 
     prior = U.init_prior_params(spec, hp, gen, dev, chains)
     for name, v in (init_prior_params or {}).items():
+        if name in ("alpha", "beta"):
+            name = "Alpha_sig" if name == "alpha" else "Beta_sig"
+            v = np.broadcast_to(np.asarray(v, np.float32), (spec.G,))
         prior[name] = override(v, np.float32)
     params = {"P": U._prior_draw_P(spec, prior, gen),
               "E": U._prior_draw_E(spec, prior, gen)}
@@ -120,6 +126,10 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
     if spec.needs_Z:
         params["Zsum_g"], params["Zsum_k"] = U.sample_Z_sums(spec, data,
                                                              params, gen)
+    if spec.needs_sigmasq and "sigmasq" not in params:
+        params["sigmasq"] = U.sample_sigmasq(
+            spec, data, prior, m.mhat(params["P"], params["A"], params["E"]),
+            gen)
     state = {"params": params, "prior": prior, "gen": gen, "iter": 1}
     if spec.MH:
         state["acc_P"] = torch.ones(lead + (spec.K, spec.N), **f32)
@@ -127,21 +137,28 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
     return state
 
 
+def hyper_in_kernel(spec: ModelSpec) -> bool:
+    """Whether the fused kernel runs the prior update: the exact truncnormal
+    hyper-sweep does (gibbs.py:139-144); the exponential prior's Lambda
+    update and the reference's conjugate update run before the kernel."""
+    return spec.prior == "truncnormal" and spec.exact_truncnorm_hypers
+
+
 def step_constants(spec: ModelSpec, hp: dict, device) -> dict:
-    """Per-fit constant operands of the fused sweep: for the truncnormal
-    prior the hyperprior planes [m, s, a, b] of each side, for the
+    """Per-fit constant operands of the fused sweep: for the in-kernel
+    hyper-sweep the hyperprior planes [m, s, a, b] of each side, for the
     exponential prior the unused second prior planes (ones), and the
     (3, N+1) rank pack of a fixed rank (zeros). The reference rebuilds them
     every step; here a chunk builds them once."""
     K, N, G = spec.K, spec.N, spec.G
     f32 = dict(dtype=torch.float32, device=device)
     consts = {"rank_pack": torch.zeros(3, N + 1, **f32)}
-    if spec.prior == "truncnormal":
+    if hyper_in_kernel(spec):
         planes = lambda side, shape: torch.stack([  # noqa: E731
             torch.full(shape, float(hp[f"{k}_{side}"]), **f32)
             for k in ("m", "s", "a", "b")])
         consts["hyper_hp"] = (planes("p", (K, N)), planes("e", (N, G)))
-    else:
+    if spec.prior == "exponential":
         consts["ones"] = (torch.ones(K, N, **f32), torch.ones(N, G, **f32))
     return consts
 
@@ -150,11 +167,10 @@ def n_uniforms(spec: ModelSpec) -> int:
     """Length of one fused step's flat uniform tensor (gibbs.py:175-180):
     three planes per side for the sweeps (prior fallback, proposal,
     acceptance), with rank learning 2(N+1) for the R draw's Gumbel noise and
-    the A draws, and for the truncnormal prior four planes per side for the
-    in-kernel hyper-sweep."""
+    the A draws, and for the in-kernel hyper-sweep four planes per side."""
     n = spec.K * spec.N + spec.N * spec.G
     return (3 * n + (2 * (spec.N + 1) if spec.learning_rank else 0)
-            + (4 * n if spec.prior == "truncnormal" else 0))
+            + (4 * n if hyper_in_kernel(spec) else 0))
 
 
 def _temp_tensor(temperature, device) -> torch.Tensor:
@@ -176,13 +192,15 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                noise=None):
     """One full Gibbs sweep; returns (new_state, sample_out).
 
-    On the streaming path this is ``stream_step`` and on the conjugate path
-    ``conjugate_step`` (``noise`` goes there). On the fused path the order
-    is (gibbs.py:100-290): the exponential prior's Lambda update (``noise``
-    {"prior": ...}), a fresh Mhat = P diag(A) E, then inside the fused
-    sweep the truncnormal hyper-sweep, the P sweep, the E sweep and with
-    rank learning the R draw and the A sweep. ``u`` is the flat uniform
-    tensor of length ``n_uniforms(spec)``, laid out as at gibbs.py:175-207;
+    On the streaming path this is ``stream_step``, on the conjugate path
+    ``conjugate_step`` and on the eager path ``eager_step`` (``noise`` goes
+    there). On the fused path the order is (gibbs.py:100-290): the
+    exponential prior's Lambda update or the conjugate Mu/Sigmasq update
+    (``noise`` {"prior": ...}), a fresh Mhat = P diag(A) E, then inside the
+    fused sweep the exact truncnormal hyper-sweep, the P sweep, the E sweep
+    and with rank learning the R draw and the A sweep. ``u`` is the flat
+    uniform tensor of length ``n_uniforms(spec)``, laid out as at
+    gibbs.py:175-207;
     when None it is drawn from ``state['gen']``. ``temperature`` is a
     float or a 0-d tensor on the device. ``sample_out`` holds P, E, A and
     the metrics row. ``metric_consts`` and ``consts`` (step_constants) are
@@ -191,17 +209,20 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     if spec.stream_sweeps:
         return stream_step(spec, data, hp, state, temperature, accept_all,
                            metric_consts, noise)
-    if not spec.MH:
+    if spec.likelihood == "poisson" and not spec.MH:
         return conjugate_step(spec, data, hp, state, temperature,
                               metric_consts, noise)
+    if not spec.fused_sweeps:
+        return eager_step(spec, data, hp, state, temperature, accept_all,
+                          metric_consts, noise)
     K, N, G = spec.K, spec.N, spec.G
     dev = data.device
     params = dict(state["params"])
     prior = dict(state["prior"])
     if consts is None:
         consts = step_constants(spec, hp, dev)
-    expo = spec.prior == "exponential"
-    if expo:
+    in_kernel = hyper_in_kernel(spec)
+    if not in_kernel:
         prior = U.sample_prior_params(spec, hp, params, prior, state["gen"],
                                       noise=(noise or {}).get("prior"))
 
@@ -228,14 +249,15 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                           zero.expand(N)])
         rank_pack = torch.stack([row0, gumbel, u_A])
         off += 2 * (N + 1)
-    if expo:
-        hyper_u = hyper_hp = None
-        hp_arrays = (prior["Lambda_p"], consts["ones"][0], prior["Lambda_e"],
-                     consts["ones"][1])
-    else:
+    hyper_u = hyper_hp = None
+    if in_kernel:
         hyper_u = (u[off:off + 4 * n_p].view(4, K, N),
                    u[off + 4 * n_p:off + 4 * (n_p + n_e)].view(4, N, G))
         hyper_hp = consts["hyper_hp"]
+    if spec.prior == "exponential":
+        hp_arrays = (prior["Lambda_p"], consts["ones"][0], prior["Lambda_e"],
+                     consts["ones"][1])
+    else:
         hp_arrays = (prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"],
                      prior["Sigmasq_e"])
 
@@ -247,7 +269,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         accept_all=accept_all,
         rank_method=spec.rank_method if spec.learning_rank else None,
         hyper_u=hyper_u, hyper_hp=hyper_hp)
-    if not expo:
+    if in_kernel:
         prior["Mu_p"], prior["Sigmasq_p"] = hp0_p, hp1_p
         prior["Mu_e"], prior["Sigmasq_e"] = hp0_e, hp1_e
     if spec.learning_rank:
@@ -257,6 +279,96 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     new_iter = state["iter"] + 1
     new_state = {"params": params, "prior": prior, "gen": state["gen"],
                  "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
+    metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
+                           temperature, acc_P, acc_E, na_events,
+                           metric_consts)
+    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
+                       "metrics": metrics}
+
+
+def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device) -> dict:
+    """All random numbers of one eager step: one uniform draw and one
+    normal draw, cut into views laid out as the JAX step draws them from its
+    keys (gibbs.py:121-132, updates.py:91-203, :266-531, :776-886): the
+    prior update's ({"p", "e"}: gamma planes for the exponential prior;
+    {"z", "u"} for the exact truncnormal hyper-sweep; {"mu_p", "mu_e",
+    "sq_p", "sq_e"} for the conjugate one), each sweep's {"prior_u", "u"},
+    with rank learning the R draw's Gumbel noise and the A draws' uniforms,
+    and with the Normal likelihood sigmasq's gamma planes."""
+    K, N, G = spec.K, spec.N, spec.G
+    kn, ng = (K, N), (N, G)
+    tn = (2,) if spec.prior == "truncnormal" else ()
+    uni = {("P", "prior_u"): tn + kn, ("P", "u"): (3, N, K),
+           ("E", "prior_u"): tn + ng, ("E", "u"): (3, N, G)}
+    nrm = {}
+    if spec.prior == "exponential":
+        uni |= {("prior", "p"): (9,) + kn, ("prior", "e"): (9,) + ng}
+    elif spec.exact_truncnorm_hypers:
+        uni[("prior", "u")] = nrm[("prior", "z")] = (U.n_hyper_noise(spec),)
+    else:
+        uni |= {("prior", "sq_p"): (9,) + kn, ("prior", "sq_e"): (9,) + ng}
+        nrm |= {("prior", "mu_p"): kn, ("prior", "mu_e"): ng}
+    if spec.learning_rank:
+        uni |= {("R",): (N + 1,), ("A",): (N,)}
+    if spec.needs_sigmasq:
+        uni[("sigmasq",)] = (9, G)
+    noise = {}
+    for shapes, normal in ((uni, False), (nrm, True)):
+        sizes = [int(np.prod(s)) for s in shapes.values()]
+        flat = (torch.randn(sum(sizes), generator=gen, device=device)
+                if normal else
+                torch.rand(sum(sizes), generator=gen,
+                           device=device).clamp_min_(_TINY))
+        for (path, shape), part in zip(shapes.items(),
+                                       torch.split(flat, sizes)):
+            d = noise
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = part.view(shape)
+    if spec.learning_rank:
+        noise["R"] = dist.gumbel_from_u(noise["R"])
+    return noise
+
+
+def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
+               accept_all: bool, metric_consts=None, noise=None):
+    """One Gibbs iteration on the eager path (gibbs.py:100-290): the prior
+    update, a fresh Mhat, the P sweep and the E sweep (Normal conjugate
+    draws, or Poisson MH with ``accept_all`` during warmup), with rank
+    learning the R draw and the A sweep, with the Normal likelihood sigmasq
+    from the final Mhat, then the metrics row. ``noise`` (draw_eager_noise's
+    layout) is drawn from ``state['gen']`` when None; a part it lacks comes
+    from the generator too. Nothing waits for the device except the gamma
+    draws' rejection loops (ops/distributions.gamma)."""
+    gen = state["gen"]
+    if noise is None:
+        noise = draw_eager_noise(spec, gen, data.device)
+    params = dict(state["params"])
+    prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
+                                  noise=noise.get("prior"))
+    Mh = m.mhat(params["P"], params["A"], params["E"])
+    params["P"], Mh, acc_P, nan_P = U.sweep_P(
+        spec, data, params, prior, Mh, state.get("acc_P"), accept_all, gen,
+        noise.get("P"))
+    params["E"], Mh, acc_E, nan_E = U.sweep_E(
+        spec, data, params, prior, Mh, state.get("acc_E"), accept_all, gen,
+        noise.get("E"))
+    na_events = nan_P + nan_E
+    if spec.learning_rank:
+        params["R"] = U.sample_R(spec, params["A"], temperature, gen,
+                                 gumbel=noise.get("R"))
+        params["A"], Mh, nan_A = U.sweep_A(
+            spec, data, params, params["R"], Mh, temperature, gen,
+            u=noise.get("A"))
+        na_events = na_events + nan_A
+    if spec.needs_sigmasq:
+        params["sigmasq"] = U.sample_sigmasq(spec, data, prior, Mh, gen,
+                                             u=noise.get("sigmasq"))
+    new_iter = state["iter"] + 1
+    new_state = {"params": params, "prior": prior, "gen": gen,
+                 "iter": new_iter}
+    if spec.MH:
+        new_state |= {"acc_P": acc_P, "acc_E": acc_E}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
                            metric_consts)
@@ -313,17 +425,21 @@ def _fill(row, i, v):
 
 def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
                  acc_E, na_events=0.0, consts=None):
-    """Per-iteration metrics (compute_metrics_, utils.R:412-455), Poisson
-    likelihood from Mhat (gibbs.py:293-347); the acceptance rates are 1
-    without MH. ``it`` is a host number, ``temperature`` a host number or a
-    device tensor; everything else stays on the device."""
+    """Per-iteration metrics (compute_metrics_, utils.R:412-455) from Mhat
+    (gibbs.py:293-347): the Poisson or Normal loglik (the latter with the
+    state's sigmasq), the padded KL; the acceptance rates are 1 without
+    MH. ``it`` is a host number, ``temperature`` a host number or a device
+    tensor; everything else stays on the device."""
     if consts is None:
         consts = m.metric_constants(spec.likelihood, data)
     # one log(max(Mhat, floor)) pass feeds both the loglik and the padded
     # KL (the floors coincide: MHAT_FLOOR == the KL pad, 1e-6)
     lam = Mh.clamp_min(m.MHAT_FLOOR)
     L = torch.log(lam)
-    loglik = torch.sum(data * L) - torch.sum(lam) - consts["lgamma_sum"]
+    if spec.likelihood == "poisson":
+        loglik = torch.sum(data * L) - torch.sum(lam) - consts["lgamma_sum"]
+    else:
+        loglik = torch.sum(m.normal_loglik_mat(data, Mh, params["sigmasq"]))
     kl = consts["mlogm_sum"] - torch.sum(data.clamp_min(1e-6) * L)
     logpost = loglik + m.logprior_PE(params["P"], params["E"], spec.prior,
                                      prior)
@@ -368,7 +484,8 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
     uniform draw and one normal draw, cut into views laid out as the JAX
     step draws them from its keys (gibbs.py:121-132)."""
     K, N, G = spec.K, spec.N, spec.G
-    nh = U.n_hyper_noise(spec)
+    # the reference's conjugate hyper-update draws its own
+    nh = U.n_hyper_noise(spec) if spec.exact_truncnorm_hypers else 0
     shapes = {"prior": (nh,), "P_prior": (2, K, N), "P": (3, N, K),
               "E_prior": (2, N, G), "E": (3, N, G)}
     if spec.learning_rank:
@@ -381,12 +498,13 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
         views[k] = u[:, off:off + sizes[k]].view((chains,) + s)
         off += sizes[k]
     noise = {
-        "prior": {"z": torch.randn((chains, nh), generator=gen,
-                                   device=device),
-                  "u": views["prior"]},
         "P": {"prior_u": views["P_prior"], "u": views["P"]},
         "E": {"prior_u": views["E_prior"], "u": views["E"]},
     }
+    if spec.exact_truncnorm_hypers:
+        noise["prior"] = {"z": torch.randn((chains, nh), generator=gen,
+                                           device=device),
+                          "u": views["prior"]}
     if spec.learning_rank:
         noise["R"] = -torch.log(-torch.log(views["R"]))
         noise["A"] = views["A"]
@@ -396,7 +514,7 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
 def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                 accept_all, metric_consts=None, noise=None, metrics_out=None):
     """One Gibbs iteration of every chain on the streaming path
-    (gibbs.py:228-264): the exact hyper-update, the P and E sweeps, and with
+    (gibbs.py:228-264): the hyper-update, the P and E sweeps, and with
     rank learning the R draw and the A sweep, then the metrics row from the
     state by one call of ops/stream_sweeps.stream_metrics_row (no Mhat, no
     P*A and no host arithmetic on the state). State tensors carry the chain
@@ -413,7 +531,7 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     if metric_consts is None:
         metric_consts = m.metric_constants(spec.likelihood, data)
     prior = U.sample_prior_params(spec, hp, params, state["prior"],
-                                  noise=noise["prior"])
+                                  state["gen"], noise=noise.get("prior"))
     params["P"], acc_P, nan_P = U.stream_sweep_P(
         spec, data, params, prior, state["acc_P"], accept_all,
         noise=noise["P"])
@@ -456,7 +574,7 @@ def run_chunk(spec: ModelSpec, data, hp: dict, state: dict, temps,
     dev = data.device
     f32 = dict(dtype=torch.float32, device=dev)
     metric_consts = m.metric_constants(spec.likelihood, data)
-    consts = step_constants(spec, hp, dev)
+    consts = step_constants(spec, hp, dev) if spec.fused_sweeps else None
     # the chunk's temperatures go to the device once; each step indexes them
     temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
     out = {"metrics": torch.empty(steps, N_METRICS, **f32),

@@ -2,16 +2,20 @@
 
 Port of bayesnmf_tpu/models/sampler.py for one chain: the Poisson
 likelihood with MH (truncnormal or exponential prior, through the fused
-kernel) or conjugate Gibbs (MH=False, exponential prior, through the
-allocation kernel), at a fixed rank or learning it over a rank list by
-SBFI/BFI. The hot loop runs on the device in chunks of MAP_every iterations
-(models/gibbs.py); this class owns everything at chunk granularity: sample
+kernel, or with ``fused_sweeps=False`` the eager sweeps) or conjugate Gibbs
+(MH=False, exponential prior, through the allocation kernel), and the
+Normal likelihood (truncnormal or exponential prior, the eager sweeps), at
+a fixed rank or learning it over a rank list by SBFI/BFI. The hot loop
+runs on the device in chunks of MAP_every iterations (models/gibbs.py);
+this class owns everything at chunk granularity: sample
 windows, metrics history, convergence, logging, checkpointing and the
 postprocessing entry points, which read numpy arrays.
 
 The device is explicit: ``device="cuda"`` (the default) runs the CUDA
 kernel, ``device="cpu"`` the kernel's plain PyTorch version. Nothing falls
-back from one to the other.
+back from one to the other; the eager sweeps run only where the caller
+asks for them (``fused_sweeps=False``) or for the Normal likelihood, which
+no kernel covers.
 """
 
 from __future__ import annotations
@@ -145,10 +149,11 @@ class GibbsSampler:
             likelihood=likelihood, prior=prior, MH=MH,
             learning_rank=learning_rank, rank_method=rank_method,
             exact_mh=exact_mh, exact_truncnorm_hypers=exact_truncnorm_hypers)
-        if spec.likelihood == "poisson" and spec.MH:
-            # the fused sweep is the port's only sweep path
-            spec = dataclasses.replace(spec,
-                                       fused_sweeps=fused_sweeps is not False)
+        if fused_sweeps is None:
+            # the fused kernel for Poisson MH; the Normal likelihood and
+            # fused_sweeps=False take the eager sweeps
+            fused_sweeps = spec.likelihood == "poisson" and spec.MH
+        spec = dataclasses.replace(spec, fused_sweeps=fused_sweeps)
         gibbs.check_spec(spec)
         if spec.needs_Z and not (np.all(data >= 0.0)
                                  and np.array_equal(data, np.round(data))):
@@ -185,6 +190,13 @@ class GibbsSampler:
             default_hyperprior_params(spec, float(data.mean())))
         if hyperprior_params:
             self.hyperprior_params.update(hyperprior_params)
+        if spec.likelihood == "normal":
+            # the InvGamma(alpha, beta) prior of sigmasq, default 3/3,
+            # settable through either dict (bayesNMF_sampler.R:222-230)
+            ipp = dict(init_prior_params or {})
+            for k in ("alpha", "beta"):
+                self.hyperprior_params.setdefault(k, ipp.pop(k, 3.0))
+            init_prior_params = ipp
 
         self.logger.log("Initialized sampler", 1)
         self.logger.indent = 1
@@ -278,6 +290,47 @@ class GibbsSampler:
 
         rows = np.concatenate(self._metric_rows, axis=0)
         return pd.DataFrame(rows, columns=list(gibbs.METRIC_NAMES))
+
+    # ------------------------------------------------------------------
+    # model math on the current state or given parameters (the reference's
+    # public get_Mhat / get_loglik / get_logpost; sampler.py:354-384)
+    # ------------------------------------------------------------------
+
+    def _param(self, name, value):
+        if value is None:
+            return self.state["params"][name]
+        return torch.as_tensor(np.asarray(_host(value), np.float32),
+                               device=self.device)
+
+    def get_Mhat(self, P=None, A=None, E=None):
+        """P diag(A) E of the current state, or of the given P, A, E."""
+        from ..ops import math as m
+
+        return m.mhat(self._param("P", P), self._param("A", A),
+                      self._param("E", E))
+
+    def get_loglik(self, P=None, A=None, E=None, sigmasq=None,
+                   likelihood=None, return_matrix=False):
+        """The log-likelihood of the data (get_loglik_, utils.R:62-112), as
+        a 0-d tensor or with ``return_matrix`` the (K, G) matrix; the
+        Normal likelihood takes the state's sigmasq unless one is given."""
+        from ..ops import math as m
+
+        lik = likelihood or self.spec.likelihood
+        sq = (self._param("sigmasq", sigmasq)
+              if sigmasq is not None or "sigmasq" in self.state["params"]
+              else None)
+        mat = m.loglik_mat(self.data, self.get_Mhat(P, A, E), lik, sq)
+        return mat if return_matrix else torch.sum(mat)
+
+    def get_logpost(self, P=None, A=None, E=None, sigmasq=None):
+        """The log-likelihood plus the prior log-density of P and E under
+        the state's prior parameters (get_logpost_, utils.R:131-175)."""
+        from ..ops import math as m
+
+        return self.get_loglik(P, A, E, sigmasq) + m.logprior_PE(
+            self._param("P", P), self._param("E", E), self.spec.prior,
+            self.state["prior"])
 
     # ------------------------------------------------------------------
     # MAP

@@ -1,9 +1,11 @@
 """Carry sampler state between the JAX package and the port.
 
-The JAX state is a dict ``{params: {P, E, A, R[, Zsum_g, Zsum_k]}, prior:
-{Mu_p, Sigmasq_p, Mu_e, Sigmasq_e} or {Lambda_p, Lambda_e}[, acc_P, acc_E],
-iter, key}`` of device arrays (the latent-count sums on the conjugate path,
-the acceptance records with MH); read each with ``np.asarray``. The port's
+The JAX state is a dict ``{params: {P, E, A, R[, Zsum_g, Zsum_k][,
+sigmasq]}, prior: {Mu_p, Sigmasq_p, Mu_e, Sigmasq_e} or {Lambda_p,
+Lambda_e}[, Alpha_sig, Beta_sig][, acc_P, acc_E], iter, key}`` of device
+arrays (the latent-count sums on the conjugate path, sigmasq and its prior
+with the Normal likelihood, the acceptance records with MH); read each with
+``np.asarray``. The port's
 state has the same keys, with tensors on one device, ``iter`` as a Python
 int, and a ``torch.Generator`` under ``gen`` in place of the threefry key
 (the two generators never give the same numbers, so the key is not carried
@@ -15,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-PARAM_KEYS = ("P", "E", "A", "R", "Zsum_g", "Zsum_k")
+PARAM_KEYS = ("P", "E", "A", "R", "Zsum_g", "Zsum_k", "sigmasq")
 PRIOR_KEYS = ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e", "Lambda_p",
-              "Lambda_e")
+              "Lambda_e", "Alpha_sig", "Beta_sig")
 ACC_KEYS = ("acc_P", "acc_E")
 
 

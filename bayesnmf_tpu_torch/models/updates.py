@@ -3,18 +3,24 @@
 Port of the truncnormal and exponential subset of
 bayesnmf_tpu/models/updates.py:
 
-- initial draws: ``init_prior_params`` (:62-77), ``_prior_draw_P/E``
-  (:244-258);
+- initial draws: ``init_prior_params`` (:62-88, with the Normal
+  likelihood's fixed sigmasq prior), ``_prior_draw_P/E`` (:244-258);
 - ``sample_prior_params`` (:91-203): the exact TruncNormal hyper-update,
-  which on the streaming path runs as host-issued tensor ops (the fused
-  kernel carries its own copy), and the exponential prior's
+  which on the streaming and eager paths runs as host-issued tensor ops
+  (the fused kernel carries its own copy), the reference's conjugate
+  update (``exact_truncnorm_hypers=False``), and the exponential prior's
   Lambda ~ Gamma(a + 1, b + x);
+- the eager sequential sweeps ``sweep_P``/``sweep_E`` (:266-531) of one
+  chain: the Normal likelihood's conjugate column draws and Poisson MH
+  with the exact or the reference Hastings ratio, issued column by column
+  as tensor ops (no kernel: the JAX package runs them in XLA), and
+  ``sample_sigmasq`` (:880-886);
 - the conjugate Poisson-Gibbs draws ``sample_P_poisson_gibbs`` /
   ``sample_E_poisson_gibbs`` (:733-762) and ``sample_Z_sums`` (:894-905),
   whose allocation is the kernel of ops/allocation.py;
 - rank learning: ``prior_prob_1`` and ``sample_R`` (:770-783), the
-  Mhat-based ``sweep_A`` (:786-835) of the conjugate path, and
-  ``stream_sweep_A`` (:838-872);
+  Mhat-based ``sweep_A`` (:786-835) of the conjugate and eager paths, for
+  either likelihood, and ``stream_sweep_A`` (:838-872);
 - the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725),
   whose column updates are the kernels of ops/stream_sweeps.py.
 
@@ -39,6 +45,7 @@ from ..ops import stream_sweeps as S
 from ..ops.allocation import allocate_counts
 
 _U_MIN = 1.2e-38   # minval of the JAX package's sweep uniforms
+_EPS = 1e-30       # floor of an exponential conditional's precision
 
 
 def _full(hp, name, shape, device):
@@ -68,37 +75,47 @@ def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
     """Draw the prior parameters of P and E from their hyperpriors
     (init_prior_params_, sample_priors.R:15-141): Mu/Sigmasq for the
     truncnormal prior, Lambda ~ Gamma(a, b) for the exponential one; with
-    ``chains`` = C, one draw per chain on a leading axis."""
+    the Normal likelihood also the fixed InvGamma(alpha, beta) prior of
+    sigmasq, length G, default 3/3 (bayesNMF_sampler.R:222-230), never
+    resampled; with ``chains`` = C, one draw per chain on a leading axis."""
     _require_ported_prior(spec)
     lead = () if chains is None else (chains,)
     kn, ng = lead + (spec.K, spec.N), lead + (spec.N, spec.G)
     if spec.prior == "exponential":
-        return {
+        prior = {
             "Lambda_p": dist.gamma(gen, _full(hp, "a_p", kn, device),
                                    _full(hp, "b_p", kn, device)),
             "Lambda_e": dist.gamma(gen, _full(hp, "a_e", ng, device),
                                    _full(hp, "b_e", ng, device)),
         }
-    return {
-        "Mu_p": dist.normal(gen, _full(hp, "m_p", kn, device),
-                            _full(hp, "s_p", kn, device)),
-        "Sigmasq_p": dist.inv_gamma(gen, _full(hp, "a_p", kn, device),
-                                    _full(hp, "b_p", kn, device)),
-        "Mu_e": dist.normal(gen, _full(hp, "m_e", ng, device),
-                            _full(hp, "s_e", ng, device)),
-        "Sigmasq_e": dist.inv_gamma(gen, _full(hp, "a_e", ng, device),
-                                    _full(hp, "b_e", ng, device)),
-    }
+    else:
+        prior = {
+            "Mu_p": dist.normal(gen, _full(hp, "m_p", kn, device),
+                                _full(hp, "s_p", kn, device)),
+            "Sigmasq_p": dist.inv_gamma(gen, _full(hp, "a_p", kn, device),
+                                        _full(hp, "b_p", kn, device)),
+            "Mu_e": dist.normal(gen, _full(hp, "m_e", ng, device),
+                                _full(hp, "s_e", ng, device)),
+            "Sigmasq_e": dist.inv_gamma(gen, _full(hp, "a_e", ng, device),
+                                        _full(hp, "b_e", ng, device)),
+        }
+    if spec.likelihood == "normal":
+        for name, key in (("Alpha_sig", "alpha"), ("Beta_sig", "beta")):
+            prior[name] = torch.full(lead + (spec.G,),
+                                     float(hp.get(key, 3.0)),
+                                     dtype=torch.float32, device=device)
+    return prior
 
 
 def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
                   u=None):
-    """A full P from the prior (sample_Pn.R:12-29); ``u``: the two uniform
-    planes on dim -3 (the JAX draw's (2, K, N), with the chain axis
-    first; truncnormal prior only)."""
+    """A full P from the prior (sample_Pn.R:12-29); ``u``: for the
+    truncnormal prior the two uniform planes on dim -3 (the JAX draw's
+    (2, K, N), with the chain axis first), for the exponential prior the
+    one plane of jax.random.exponential's uniforms."""
     _require_ported_prior(spec)
     if spec.prior == "exponential":
-        return dist.exponential(gen, prior["Lambda_p"])
+        return dist.exponential(gen, prior["Lambda_p"], u=u)
     if u is None:
         return dist.truncnorm_nonneg(gen, prior["Mu_p"], prior["Sigmasq_p"])
     return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
@@ -109,7 +126,7 @@ def _prior_draw_E(spec: ModelSpec, prior: dict, gen: torch.Generator,
                   u=None):
     _require_ported_prior(spec)
     if spec.prior == "exponential":
-        return dist.exponential(gen, prior["Lambda_e"])
+        return dist.exponential(gen, prior["Lambda_e"], u=u)
     if u is None:
         return dist.truncnorm_nonneg(gen, prior["Mu_e"], prior["Sigmasq_e"])
     return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
@@ -183,45 +200,73 @@ def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     return new
 
 
+def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
+                                noise, h) -> dict:
+    """The reference's Mu/Sigmasq update, plain conjugates that drop the
+    truncation normaliser (sample_priors.R:214-270, with sd = sqrt(var) and
+    the B_e rate corrected; updates.py:182-195). ``noise``: {"mu_p",
+    "mu_e"}: the standard normals, shaped as P and E; {"sq_p", "sq_e"}: the
+    inverse-gamma draws' uniform planes (9,) + shape, as the JAX function
+    draws them from split(key, 4)."""
+    noise = noise or {}
+    new = dict(prior)
+    for side, x in (("p", params["P"]), ("e", params["E"])):
+        sq = prior[f"Sigmasq_{side}"]
+        s0 = h(f"s_{side}")
+        num = h(f"m_{side}") / s0 + x / sq
+        den = 1.0 / s0 + 1.0 / sq
+        mu = dist.normal(gen, num / den, 1.0 / den,
+                         z=noise.get(f"mu_{side}"))
+        d = x - mu
+        new[f"Mu_{side}"] = mu
+        new[f"Sigmasq_{side}"] = dist.inv_gamma(
+            gen, h(f"a_{side}") + 0.5, h(f"b_{side}") + 0.5 * d * d,
+            u=noise.get(f"sq_{side}"))
+    return new
+
+
 def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
                         gen=None, noise=None) -> dict:
     """One Gibbs sweep over the prior parameters (updates.py:91-203).
 
     Exponential prior: Lambda ~ Gamma(a + 1, b + x) (``_sample_lambda``).
-    Truncnormal prior: the exact sweep over Mu/Sigmasq of P and E,
-    chain-batched: P (C, K, N), E (C, N, G) and the prior dict alike;
-    ``noise``: {"z": normals, "u": uniforms}, each (C, n_hyper_noise(spec))
-    in the JAX layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e] (updates.py:119-173).
+    Truncnormal prior with ``exact_truncnorm_hypers``: the exact sweep over
+    Mu/Sigmasq of P and E, for one chain or chain-batched (P (C, K, N),
+    E (C, N, G) and the prior dict alike); ``noise``: {"z": normals,
+    "u": uniforms}, each (n_hyper_noise(spec),) per chain, in the JAX
+    layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e] (updates.py:119-173).
+    Without it: the reference's conjugate update
+    (``_sample_truncnorm_conjugate``).
     """
     _require_ported_prior(spec)
     if spec.prior == "exponential":
         return _sample_lambda(spec, hp, params, prior, gen, noise)
-    if not spec.exact_truncnorm_hypers:
-        raise NotImplementedError(
-            "exact_truncnorm_hypers=False is not ported yet (ROADMAP.md "
-            "queue 1 item 12)")
     P, E = params["P"], params["E"]
-    C = P.shape[0]
-    K, N, G = spec.K, spec.N, spec.G
-    n_p, n_e = K * N, N * G
-    n_t = n_p + n_e
-    if noise is None:
-        noise = {"z": torch.randn((C, 2 * n_t), generator=gen,
-                                  device=P.device),
-                 "u": _rand(gen, (C, 2 * n_t), P.device)}
-    z, lu = noise["z"], torch.log(noise["u"])
-
-    def parts(x):
-        return (x[:, :n_p].view(C, K, N), x[:, n_p:n_t].view(C, N, G),
-                x[:, n_t:n_t + n_p].view(C, K, N),
-                x[:, n_t + n_p:].view(C, N, G))
-
-    z_p, z_e, zg_p, zg_e = parts(z)
-    lu_p1, lu_e1, lu_p2, lu_e2 = parts(lu)
 
     def h(name):  # float32 operands, as the JAX package broadcasts them
         return torch.tensor(float(hp[name]), dtype=torch.float32,
                             device=P.device)
+
+    if not spec.exact_truncnorm_hypers:
+        return _sample_truncnorm_conjugate(hp, params, prior, gen, noise, h)
+    lead = P.shape[:-2]
+    K, N, G = spec.K, spec.N, spec.G
+    n_p, n_e = K * N, N * G
+    n_t = n_p + n_e
+    if noise is None:
+        noise = {"z": torch.randn(lead + (2 * n_t,), generator=gen,
+                                  device=P.device),
+                 "u": _rand(gen, lead + (2 * n_t,), P.device)}
+    z, lu = noise["z"], torch.log(noise["u"])
+
+    def parts(x):
+        return (x[..., :n_p].view(lead + (K, N)),
+                x[..., n_p:n_t].view(lead + (N, G)),
+                x[..., n_t:n_t + n_p].view(lead + (K, N)),
+                x[..., n_t + n_p:].view(lead + (N, G)))
+
+    z_p, z_e, zg_p, zg_e = parts(z)
+    lu_p1, lu_e1, lu_p2, lu_e2 = parts(lu)
 
     new = dict(prior)
     new["Mu_p"] = _mu_step(prior["Mu_p"], h("m_p"), h("s_p"), P,
@@ -233,6 +278,170 @@ def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     new["Sigmasq_e"] = _sq_step(prior["Sigmasq_e"], h("a_e"), h("b_e"), E,
                                 new["Mu_e"], zg_e, lu_e2)
     return new
+
+
+# ---------------------------------------------------------------------------
+# the eager sequential sweeps (Normal likelihood, Poisson MH unfused)
+# ---------------------------------------------------------------------------
+
+
+def _conditional(spec: ModelSpec, mu1, den, lam, mu0, inv_sq):
+    """Mean and variance of a column's full conditional (or MH proposal)
+    from its sums (get_mu_sigmasq_Pn_normal, sample_Pn.R:132-187): the
+    exponential prior shifts the mean by -Lambda with the precision floored
+    at 1e-30, the truncnormal prior adds its own precision and mean."""
+    if spec.prior == "exponential":
+        den_s = den.clamp_min(_EPS)
+        return (mu1 - lam) / den_s, 1.0 / den_s
+    den2 = den + inv_sq
+    return (mu1 + mu0) / den2, 1.0 / den2
+
+
+def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
+           Mhat, acc, accept_all: bool, gen, noise):
+    """sweep_P (``side`` "P", the N columns of P, each a K-vector whose
+    sums run over G) or sweep_E (side "E", the rows of E, G-vectors summed
+    over K); see sweep_P."""
+    K, N, G = spec.K, spec.N, spec.G
+    A = params["A"]
+    mh = spec.likelihood == "poisson" and spec.MH
+    if side == "P":
+        X, other, dim, L = params["P"].clone(), params["E"], 1, K
+        sfx, outer = "p", (lambda x, o: torch.outer(x, o))
+    else:
+        X, other, dim, L = params["E"].clone(), params["P"], 0, G
+        sfx, outer = "e", (lambda x, o: torch.outer(o, x))
+    # the other factor is fixed through the sweep: the broadcast shape of
+    # its n-th vector against (K, G), its squares and the all-zero test
+    bc = (lambda v: v.unsqueeze(0)) if side == "P" else (
+        lambda v: v.unsqueeze(1))
+    o_all = other if side == "P" else other.t()          # (N, G) or (N, K)
+    o_sq = o_all * o_all
+    inactive = o_sq.sum(1) <= 0.0                        # (N,)
+    if noise is None:
+        tn = spec.prior == "truncnormal"
+        noise = {"prior_u": (_rand(gen, (2,) + X.shape, X.device,
+                                   low=dist._TINY) if tn else None),
+                 "u": _rand(gen, (3, N, L), X.device)}
+    draw = _prior_draw_P if side == "P" else _prior_draw_E
+    X_prior = draw(spec, prior, gen, noise["prior_u"])
+    U = noise["u"]
+    # the prior's terms of every column at once (elementwise, so each equals
+    # the column's own)
+    if spec.prior == "exponential":
+        lam_all = prior[f"Lambda_{sfx}"]
+        mu_all = sq_all = mu0_all = inv_sq_all = None
+    else:
+        lam_all = None
+        mu_all, sq_all = prior[f"Mu_{sfx}"], prior[f"Sigmasq_{sfx}"]
+        mu0_all, inv_sq_all = mu_all / sq_all, 1.0 / sq_all
+    if mh:
+        acc = acc.clone()
+    else:
+        inv_sig = 1.0 / params["sigmasq"].unsqueeze(0)   # (1, G)
+    n_nan = torch.zeros((), dtype=torch.float32, device=X.device)
+    for n in range(N):
+        A_n, x_n, o_n = A[n], X.select(dim, n), o_all[n]
+        x_prior, u = X_prior.select(dim, n), U[:, n]
+        lam, mu0, inv_sq = (None if t is None else t.select(dim, n)
+                            for t in (lam_all, mu0_all, inv_sq_all))
+        o_b, o2_b = bc(o_n), bc(o_sq[n])
+        if mh:  # the proposal's variance is max(Mhat, floor)
+            lam_old = Mhat.clamp_min(m.MHAT_FLOOR)
+            inv_sig = 1.0 / lam_old
+        resid = data - (Mhat - A_n * outer(x_n, o_n))
+        mu1 = torch.sum(resid * inv_sig * o_b, dim)
+        den = A_n * torch.sum(inv_sig * o2_b, dim)
+        mu, var = _conditional(spec, mu1, den, lam, mu0, inv_sq)
+        cond = dist.truncnorm_nonneg_from_u(u[0], u[1], mu, var)
+        # prior fallback: an all-zero vector of the other factor
+        # (sample_Pn.R:12-13, 56)
+        proposal = torch.where(inactive[n], x_prior, cond)
+        if mh:
+            Mhat_prop = Mhat + A_n * outer(proposal - x_n, o_n)
+            lam_new = Mhat_prop.clamp_min(m.MHAT_FLOOR)
+            d_lam = lam_new - lam_old
+            lp_core = data * torch.log1p(d_lam / lam_old) - d_lam
+            if spec.exact_mh:
+                # the reverse move's conditional shares Mhat_no_n; only its
+                # proposal variance max(Mhat_prop, floor) differs
+                inv_sig_r = 1.0 / lam_new
+                mu1_r = torch.sum(resid * inv_sig_r * o_b, dim)
+                den_r = A_n * torch.sum(inv_sig_r * o2_b, dim)
+                mu_r, var_r = _conditional(spec, mu1_r, den_r, lam, mu0,
+                                           inv_sq)
+                if spec.prior == "exponential":
+                    lprior = -lam * (proposal - x_n)
+                else:
+                    lprior = m.truncnorm_logpdf_delta(
+                        proposal, x_n, mu_all.select(dim, n),
+                        sq_all.select(dim, n))
+                log_ratio = (torch.sum(lp_core, dim) + lprior
+                             + m.truncnorm_logpdf(x_n, mu_r, var_r)
+                             - m.truncnorm_logpdf(proposal, mu, var))
+                # the prior-draw fallback: target and proposal coincide
+                log_ratio = torch.where(inactive[n], 0.0, log_ratio)
+            else:
+                # the reference's ratio: normal-model likelihoods with
+                # variances pmax(Mhat_prop, 1) / pmax(Mhat, 1) stand in
+                # for the proposal densities (sample_Pn.R:209-239)
+                vs_old = Mhat_prop.clamp_min(1.0)
+                vs_new = Mhat.clamp_min(1.0)
+                r_old = data - Mhat
+                r_new = data - Mhat_prop
+                log_ratio = torch.sum(
+                    lp_core
+                    + (-0.5 * r_old * r_old / vs_old - 0.5 * torch.log(vs_old))
+                    - (-0.5 * r_new * r_new / vs_new
+                       - 0.5 * torch.log(vs_new)), dim)
+            ratio = torch.exp(log_ratio).clamp_max(1.0)
+            nan = torch.isnan(ratio)
+            n_nan = n_nan + nan.sum(dtype=torch.float32)
+            ratio = torch.where(nan, 0.0, ratio)
+            if accept_all:
+                x_mh, rec = proposal, torch.ones_like(ratio)
+            else:
+                x_mh, rec = torch.where(u[2] < ratio, proposal, x_n), ratio
+            acc_n = acc.select(dim, n)
+            acc_n.copy_(torch.where(A_n == 0, acc_n, rec))
+        else:
+            x_mh = proposal
+        new = torch.where(A_n == 0, x_prior, x_mh)
+        Mhat = Mhat + A_n * outer(new - x_n, o_n)
+        x_n.copy_(new)
+    return X, Mhat, (acc if mh else None), n_nan
+
+
+def sweep_P(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_P,
+            accept_all: bool, gen=None, noise=None):
+    """Sample the N columns of P in turn from their full conditionals, one
+    chain, as host-issued tensor ops (sample_Pn / sample_Pn_normal /
+    MH_Pn_poisson, sample_Pn.R:11-248; updates.py:266-412), with Mhat
+    carried by rank-1 updates. The Normal likelihood draws each column from
+    its truncated-normal conditional with variance sigmasq; Poisson MH
+    proposes from the conditional with variance max(Mhat, 1e-6) and accepts
+    row by row by the exact Hastings ratio (``spec.exact_mh``) or the
+    reference's; ``accept_all`` (warmup) takes every proposal. A column
+    with A_n = 0 or an all-zero E row draws from the prior; a NaN ratio
+    is clamped to 0 and counted. Nothing reads the device.
+
+    ``noise``: {"prior_u": the prior draw's uniforms ((2, K, N) for the
+    truncnormal prior, (K, N) for the exponential one), "u": (3, N, K)},
+    laid out as the JAX function draws them from split(key) (the tests
+    feed it those draws); else drawn from ``gen``. Returns (P, Mhat, acc_P,
+    n_nan): acc_P None without MH; the inputs are not modified."""
+    return _sweep(spec, "P", data, params, prior, Mhat, acc_P, accept_all,
+                  gen, noise)
+
+
+def sweep_E(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_E,
+            accept_all: bool, gen=None, noise=None):
+    """sweep_P's mirror over the N rows of E (sample_En.R;
+    updates.py:420-531): the sums run over K and the prior fallback is an
+    all-zero P column. ``noise``: {"prior_u": (2, N, G) or (N, G),
+    "u": (3, N, G)}. Returns (E, Mhat, acc_E, n_nan)."""
+    return _sweep(spec, "E", data, params, prior, Mhat, acc_E, accept_all,
+                  gen, noise)
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +483,9 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
     """Sequential tempered Bernoulli updates of the inclusion vector A on
     one chain, from Mhat (sample_An, sample_params.R:101-166;
     updates.py:786-835): column n's loglik(A_n=1) - loglik(A_n=0) is one
-    reduction over K*G, SBFI subtracts the BIC-penalty delta, BFI does not,
-    and Mhat is rewritten by a rank-1 term. ``u``: (N,) uniforms, column
+    reduction over K*G (Poisson, or Normal with the state's sigmasq), SBFI
+    subtracts the BIC-penalty delta, BFI does not, and Mhat is rewritten by
+    a rank-1 term. ``u``: (N,) uniforms, column
     n's Bernoulli draw in u[n] (the JAX draw from split(key, N)[n]).
     Returns (A, Mhat, n_nan), n_nan counting posteriors clamped NaN -> 1/2.
     """
@@ -288,13 +498,20 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
     logit_p1 = torch.log(p1) - torch.log1p(-p1)
     pen = sbfi_penalty(spec)
     n_nan = torch.zeros((), dtype=torch.float32, device=P.device)
+    if spec.likelihood == "normal":
+        two_sig = 2.0 * params["sigmasq"].unsqueeze(0)
     for n in range(N):
         contrib = P[:, n:n + 1] * E[n:n + 1, :]
         Mhat_off = Mhat - A[n] * contrib
-        lam_on = (Mhat_off + contrib).clamp_min(m.MHAT_FLOOR)
-        lam_off = Mhat_off.clamp_min(m.MHAT_FLOOR)
-        d_lam = lam_on - lam_off
-        delta = torch.sum(data * torch.log1p(d_lam / lam_off) - d_lam)
+        if spec.likelihood == "poisson":
+            lam_on = (Mhat_off + contrib).clamp_min(m.MHAT_FLOOR)
+            lam_off = Mhat_off.clamp_min(m.MHAT_FLOOR)
+            d_lam = lam_on - lam_off
+            delta = torch.sum(data * torch.log1p(d_lam / lam_off) - d_lam)
+        else:
+            r_on = data - (Mhat_off + contrib)
+            r_off = data - Mhat_off
+            delta = torch.sum((r_off * r_off - r_on * r_on) / two_sig)
         if spec.rank_method == "SBFI":
             delta = delta - pen
         p = torch.sigmoid(logit_p1 + temperature * delta)
@@ -329,6 +546,22 @@ def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
     S.stream_acol_update(data, E, P, A, logit_p1, temperature,
                          u.contiguous(), n_nan, pen)
     return A, n_nan
+
+
+# ---------------------------------------------------------------------------
+# sigmasq (Normal likelihood)
+# ---------------------------------------------------------------------------
+
+
+def sample_sigmasq(spec: ModelSpec, data, prior: dict, Mhat, gen=None,
+                   u=None):
+    """sigmasq_g ~ InvGamma(Alpha + K/2, Beta + sum_k resid^2 / 2)
+    (sample_params.R:275-286; updates.py:880-886); ``u``: the gamma draw's
+    uniform planes (9, G)."""
+    resid = data - Mhat
+    rss = torch.sum(resid * resid, -2)
+    return dist.inv_gamma(gen, prior["Alpha_sig"] + spec.K / 2.0,
+                          prior["Beta_sig"] + 0.5 * rss, u=u)
 
 
 # ---------------------------------------------------------------------------

@@ -58,10 +58,12 @@ def truncnorm_nonneg(gen, mu, sigmasq):
     return truncnorm_nonneg_from_u(u[0], u[1], mu, sigmasq)
 
 
-def normal(gen, mu, sigmasq):
-    """Normal(mu, sigmasq) draws (sigmasq is the variance)."""
+def normal(gen, mu, sigmasq, z=None):
+    """Normal(mu, sigmasq) draws (sigmasq is the variance); ``z``: the
+    standard normals, else drawn from ``gen``."""
     mu, sigmasq = torch.broadcast_tensors(mu, sigmasq)
-    z = torch.randn(mu.shape, generator=gen, device=mu.device)
+    if z is None:
+        z = torch.randn(mu.shape, generator=gen, device=mu.device)
     return mu + torch.sqrt(sigmasq) * z
 
 
@@ -114,9 +116,10 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None):
     return g / rate
 
 
-def inv_gamma(gen, shape_param, rate):
-    """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma)."""
-    return 1.0 / gamma(gen, shape_param, rate).clamp_min(1e-30)
+def inv_gamma(gen, shape_param, rate, u=None):
+    """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma);
+    ``u``: the gamma draw's uniform planes, as ``gamma`` takes them."""
+    return 1.0 / gamma(gen, shape_param, rate, u=u).clamp_min(1e-30)
 
 
 def exponential(gen, rate, u=None):

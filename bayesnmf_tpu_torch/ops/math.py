@@ -1,9 +1,10 @@
 """Model math: expected data matrix, likelihood, priors, metrics.
 
-Port of the subset of bayesnmf_tpu/ops/math.py that the Poisson paths with
-the TruncNormal or the exponential prior use. Conventions as in the reference: data M is
-(K, G); P is (K, N) signatures; E is (N, G) exposures; A is (N,) binary
-inclusion. Everything is float32.
+Port of the subset of bayesnmf_tpu/ops/math.py that the Poisson and Normal
+likelihoods with the TruncNormal or the exponential prior use. Conventions
+as in the reference: data M is (K, G); P is (K, N) signatures; E is (N, G)
+exposures; A is (N,) binary inclusion; sigmasq is (G,), the Normal
+likelihood's per-sample noise variance. Everything is float32.
 """
 
 from __future__ import annotations
@@ -41,6 +42,27 @@ def poisson_loglik_mat(M: torch.Tensor, Mh: torch.Tensor) -> torch.Tensor:
     """Elementwise log dPois(M | max(Mh, 1e-6)) -> (K, G) (utils.R:98-106)."""
     lam = Mh.clamp_min(MHAT_FLOOR)
     return M * torch.log(lam) - lam - torch.lgamma(M + 1.0)
+
+
+def normal_loglik_mat(M: torch.Tensor, Mh: torch.Tensor,
+                      sigmasq: torch.Tensor) -> torch.Tensor:
+    """Elementwise log dNorm(M | Mh, sigmasq) -> (K, G) (math.py:54-65);
+    ``sigmasq`` is (G,), broadcast over the rows (utils.R:79-86), or a full
+    (K, G) matrix."""
+    if sigmasq.dim() == 1:
+        sigmasq = sigmasq.unsqueeze(0)
+    resid = M - Mh
+    return (-0.5 * resid * resid / sigmasq - 0.5 * torch.log(sigmasq)
+            - _HALF_LOG_2PI)
+
+
+def loglik_mat(M: torch.Tensor, Mh: torch.Tensor, likelihood: str,
+               sigmasq=None) -> torch.Tensor:
+    """The elementwise log-likelihood of either family (get_loglik_,
+    utils.R:62-112; math.py:68-77)."""
+    if likelihood == "poisson":
+        return poisson_loglik_mat(M, Mh)
+    return normal_loglik_mat(M, Mh, sigmasq)
 
 
 def truncnorm_logpdf(x, mu, sigmasq):
@@ -102,16 +124,14 @@ def padded_kl(Mh: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 
 
 def metric_constants(likelihood: str, M: torch.Tensor) -> dict:
-    """Data-only terms of the per-iteration metrics, computed once per chunk:
-    the padded-KL entropy sum(Mp log Mp) and the Poisson log-factorial
-    sum(lgamma(M+1))."""
-    if likelihood != "poisson":
-        raise NotImplementedError(
-            f"metric_constants: the {likelihood!r} likelihood is not ported "
-            "(ROADMAP.md)")
+    """Data-only terms of the per-iteration metrics, computed once per chunk
+    (math.py:157-172): the padded-KL entropy sum(Mp log Mp), and for the
+    Poisson likelihood the log-factorial sum(lgamma(M+1))."""
     Mp = M.clamp_min(1e-6)
-    return {"mlogm_sum": torch.sum(Mp * torch.log(Mp)),
-            "lgamma_sum": torch.sum(torch.lgamma(M + 1.0))}
+    consts = {"mlogm_sum": torch.sum(Mp * torch.log(Mp))}
+    if likelihood == "poisson":
+        consts["lgamma_sum"] = torch.sum(torch.lgamma(M + 1.0))
+    return consts
 
 
 def bic(loglik, n_params, G: int):

@@ -93,7 +93,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    conjugate (MH=False): matched cosine >= 0.9, bit-exact resume, the
    allocation kernel launched iterations + 1 times; then the conjugate
    chunk loop at 96x2780, rank 8 (config 4's shape): it/s, device busy
-   share and the host waits of the gamma draws (torch.profiler).
+   share and the host waits of the gamma draws (torch.profiler);
+8. the eager sweeps (no kernel) and the Normal likelihood: (a) one step of
+   each new path (Normal-TruncNormal and Normal-Exponential at a fixed
+   rank and learning it, Poisson MH on the eager sweeps with the exact and
+   the reference ratio and SBFI, exact_truncnorm_hypers=False on the fused
+   and the eager path) at 96x500, rank 8, on the card against the CPU on
+   the same draws: A, R and the MH decisions equal, the rest within
+   rtol 1e-3 / atol 1e-4; (b) fits at 96x500, rank 8 (config 2's shape,
+   phase 4's recipe): Normal-TruncNormal, Normal-Exponential and
+   Poisson-TruncNormal with fused_sweeps=False, MAP matched cosine >= 0.9,
+   no kernel launched, fit and loop it/s, and the fused path's loop on the
+   same data beside them (its kernel launched once per iteration); (c)
+   Normal-TruncNormal SBFI over ranks 1..20 at 96x1000 (config 3's shape),
+   maxiters 1000: learned rank and cosines; (d) the Normal fit's final
+   checkpoint resumes bit-exactly; (e) torch.profiler over 10 iterations
+   of the Normal and the eager Poisson loops: busy share, device events
+   and host waits per iteration.
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -1792,6 +1808,253 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
     return alloc_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the eager sweeps and the Normal likelihood
+# ---------------------------------------------------------------------------
+
+# the new paths of phase 8 (a): models/gibbs.eager_step, and the fused step
+# with the reference's conjugate Mu/Sigmasq update before the kernel
+EAGER_CASES = {
+    "normal_truncnormal": dict(likelihood="normal", prior="truncnormal",
+                               MH=False),
+    "normal_truncnormal_sbfi": dict(likelihood="normal", prior="truncnormal",
+                                    MH=False, learning_rank=True,
+                                    rank_method="SBFI"),
+    "normal_exponential": dict(likelihood="normal", prior="exponential",
+                               MH=False),
+    "normal_exponential_bfi": dict(likelihood="normal", prior="exponential",
+                                   MH=False, learning_rank=True,
+                                   rank_method="BFI"),
+    "eager_exact": dict(likelihood="poisson", prior="truncnormal"),
+    "eager_sbfi": dict(likelihood="poisson", prior="truncnormal",
+                       learning_rank=True, rank_method="SBFI"),
+    "eager_exponential_reference_ratio": dict(
+        likelihood="poisson", prior="exponential", exact_mh=False),
+    "fused_conjugate_hypers": dict(likelihood="poisson", prior="truncnormal",
+                                   fused_sweeps=True,
+                                   exact_truncnorm_hypers=False),
+    "eager_conjugate_hypers": dict(likelihood="poisson", prior="truncnormal",
+                                   exact_truncnorm_hypers=False),
+}
+EAGER_K, EAGER_G, EAGER_RANK = 96, 500, 8
+EAGER_RTOL, EAGER_ATOL = 1e-3, 1e-4
+EAGER_WARMUP = 30
+EAGER_CC = dict(MAP_over=500, MAP_every=100, miniters=500, maxiters=1500,
+                Ninarow_nochange=3, Ninarow_nobest=5)
+EAGER_SBFI_G, EAGER_SBFI_CC = 1000, dict(MAP_over=500, MAP_every=100,
+                                         miniters=500, maxiters=1000,
+                                         Ninarow_nochange=3,
+                                         Ninarow_nobest=5)
+
+
+def eager_step_case(torch, bt, gibbs, M, case, kw):
+    """Phase 8 (a): one step of ``case`` from one state (after
+    EAGER_WARMUP steps on the CPU) on the card and on the CPU with the same
+    random numbers: A, R and every MH decision
+    equal, every other value within rtol 1e-3 / atol 1e-4 (the KL within
+    1e-5 of the size of its two sums). Returns the largest |card - CPU|
+    over P and E."""
+    from bayesnmf_tpu_torch.models import state as ST
+
+    spec = bt.ModelSpec(K=EAGER_K, N=EAGER_RANK, G=EAGER_G, **kw)
+    hp = dict(bt.default_hyperprior_params(spec, float(M.mean())))
+    data = {d: torch.as_tensor(M, device=d) for d in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(3)
+    state = gibbs.init_state(spec, hp, data["cpu"], gen)
+    # from a state after a short warmup on the CPU, as a fit compares its
+    # MH decisions: from the initial draw the Hastings ratios sum terms of
+    # ~1e4 whose float32 rounding (~1e-3) can put a ratio on the other side
+    # of its uniform on one device, which is no fault of either
+    state, _ = gibbs.run_chunk(spec, data["cpu"], hp, state,
+                               np.ones(EAGER_WARMUP, np.float32), spec.MH)
+    if spec.MH:  # a record that the MH step must overwrite
+        state["acc_P"].fill_(0.5)
+        state["acc_E"].fill_(0.5)
+    u = None
+    if spec.fused_sweeps:
+        u = torch.rand(gibbs.n_uniforms(spec), generator=gen).clamp_min_(
+            1.2e-38)
+        noise = {"prior": gibbs.draw_eager_noise(spec, gen, "cpu")["prior"]}
+    else:
+        noise = gibbs.draw_eager_noise(spec, gen, "cpu")
+    on = lambda x, d: ({k: on(v, d) for k, v in x.items()}  # noqa: E731
+                       if isinstance(x, dict) else x.to(d))
+    temp = 1e-3 if spec.learning_rank else 1.0
+    out = {}
+    for d in ("cpu", "cuda"):
+        st = ST.state_from_numpy(ST.state_to_numpy(state), d)
+        new, sample = gibbs.gibbs_step(
+            spec, data[d], hp, st, temp, False,
+            u=None if u is None else u.to(d), noise=on(noise, d))
+        out[d] = (ST.state_to_numpy(new), sample["metrics"].cpu().numpy())
+    (got, gm), (want, wm) = out["cuda"], out["cpu"]
+    for k in ("A", "R"):
+        check(np.array_equal(got["params"][k], want["params"][k]),
+              f"eager step {case}: {k} differs on the card")
+    old = ST.state_to_numpy(state)["params"]
+    err = 0.0
+    for k in ("P", "E"):
+        check(np.array_equal(got["params"][k] != old[k],
+                             want["params"][k] != old[k]),
+              f"eager step {case}: a decision on {k} differs on the card")
+        err = max(err, float(np.max(np.abs(got["params"][k]
+                                           - want["params"][k]))))
+    pairs = [(f"params.{k}", got["params"][k], want["params"][k])
+             for k in ("P", "E", "sigmasq") if k in want["params"]]
+    pairs += [(f"prior.{k}", got["prior"][k], v)
+              for k, v in want["prior"].items()]
+    pairs += [(k, got[k], want[k]) for k in ("acc_P", "acc_E") if k in want]
+    kl = gibbs.METRIC_NAMES.index("KL")
+    pairs.append(("metrics", np.delete(gm, kl), np.delete(wm, kl)))
+    for name, a, b in pairs:
+        check(np.allclose(a, b, rtol=EAGER_RTOL, atol=EAGER_ATOL),
+              f"eager step {case}: {name} differs on the card by "
+              f"{float(np.max(np.abs(a - b)))}")
+    # KL = sum(Mp log Mp) - sum(Mp log max(Mhat, 1e-6)): each float32 sum
+    # of K*G terms, added in another order on the card, rounds to ~1e-5 of
+    # its size, and the second is ~|KL| where excluded columns leave Mhat
+    # at the floor
+    Mp = np.maximum(M, 1e-6)
+    kl_atol = 1e-5 * (float(np.sum(Mp * np.log(Mp))) + abs(float(wm[kl])))
+    check(abs(gm[kl] - wm[kl]) <= kl_atol,
+          f"eager step {case}: KL {gm[kl]} on the card, {wm[kl]} on the CPU")
+    return err
+
+
+def profile_loop(torch, gibbs, s, state, n):
+    """torch.profiler over ``n`` iterations of the chunk loop from
+    ``state``: (device busy us, wall s, device events, host waits
+    (aten::_local_scalar_dense), their host us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, state,
+                        np.ones(n, np.float32), False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) for e in ka)
+    events = sum(e.count for e in ka
+                 if getattr(e, "device_type", None) is not None
+                 and "CUDA" in str(e.device_type))
+    waits = [e for e in ka if e.key == "aten::_local_scalar_dense"]
+    return (dev_us, wall, events, sum(e.count for e in waits),
+            sum(e.cpu_time_total for e in waits))
+
+
+def run_eager(torch, bt, FS, S, AL, gibbs, card):
+    """Phase 8: the eager sweeps and the Normal likelihood on the card."""
+    M, P_true = synthetic(EAGER_K, EAGER_G, EAGER_RANK, seed=3)
+
+    # (a) one step of each new path, card against CPU
+    t0 = time.perf_counter()
+    errs = {case: eager_step_case(torch, bt, gibbs, M, case, kw)
+            for case, kw in EAGER_CASES.items()}
+    print(f"eager (a): one step of each of {len(errs)} paths at "
+          f"({EAGER_K},{EAGER_RANK},{EAGER_G}) on the card equals the CPU "
+          f"step on the same draws (A, R, decisions equal; the rest within "
+          f"rtol {EAGER_RTOL} / atol {EAGER_ATOL}); max |P, E diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (b) full-width fits; (d) bit-exact resume of the Normal fit
+    fits = {}
+    for label, kw in (("normal_truncnormal", dict(likelihood="normal")),
+                      ("normal_exponential", dict(likelihood="normal",
+                                                  prior="exponential")),
+                      ("poisson_eager", dict(fused_sweeps=False))):
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts(FS, S, AL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = bt.fit(M, EAGER_RANK, device="cuda",
+                       output_dir=os.path.join(tmp, "fit"),
+                       convergence_control=bt.ConvergenceControl(**EAGER_CC),
+                       post_warmup=500, seed=0, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = FS.fused_gibbs_sweeps.launches + other_launches(S, AL)
+            steps = s.iter - 1
+            if label == "normal_truncnormal":
+                resume_check(torch, bt, gibbs, s, f"eager (d) {label}")
+        check(launches == 0, f"eager (b) {label}: {launches} kernel "
+              "launches on the eager path")
+        rows = np.concatenate(s._metric_rows)
+        check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
+              f"eager (b) {label}: metrics are not finite")
+        cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
+        check(cos.min() >= 0.9, f"eager (b) {label}: matched cosine too "
+              f"low: {cos}")
+        loop, state = loop_rate(torch, gibbs, s, 200)
+        check(FS.fused_gibbs_sweeps.launches == 0,
+              f"eager (b) {label}: the loop launched the fused kernel")
+        fits[label] = (s, state)
+        print(f"eager (b) {label}: fit({EAGER_K}x{EAGER_G}, rank "
+              f"{EAGER_RANK}) ran {steps} "
+              f"iterations ({s.tracker.why}); kernel launches 0; MAP "
+              f"matched cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
+              f"{steps / wall:.1f} it/s for the whole fit ({wall:.2f} s), "
+              f"{loop:.1f} it/s in the chunk loop alone (200 iterations) on "
+              f"{card}", flush=True)
+    # the fused path's loop on the same data in the same call
+    reset_counts(FS, S, AL)
+    fused = bt.GibbsSampler(M, EAGER_RANK, device="cuda", seed=0,
+                            verbosity=0)
+    check(fused.spec.fused_sweeps, "a default Poisson-MH fit is not fused")
+    loop, _ = loop_rate(torch, gibbs, fused, 500)
+    check(FS.fused_gibbs_sweeps.launches == 520,
+          f"fused loop: {FS.fused_gibbs_sweeps.launches} launches for 520 "
+          "iterations")
+    print(f"eager (b): the fused path's chunk loop on the same data "
+          f"{loop:.1f} it/s (500 iterations, {FS.fused_gibbs_sweeps.launches}"
+          f" fused launches in 520) on {card}", flush=True)
+
+    # (c) Normal-TruncNormal SBFI over ranks 1..20 at 96x1000
+    M3, P3 = synthetic(96, EAGER_SBFI_G, EAGER_RANK, seed=4)
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = bt.fit(M3, range(1, RANK_MAX + 1), likelihood="normal",
+               device="cuda", output_dir=None, prop_temp=0.3, seed=0,
+               convergence_control=bt.ConvergenceControl(**EAGER_SBFI_CC))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FS.fused_gibbs_sweeps.launches + other_launches(S, AL)
+    check(launches == 0, f"eager (c): {launches} kernel launches")
+    rows = np.concatenate(s._metric_rows)
+    check(np.isfinite(rows).all(), "eager (c): metrics are not finite")
+    learned = int(np.asarray(s.MAP["A_full"]).sum())
+    cos = matched_cosines(np.asarray(s.MAP["P"]), P3)
+    print(f"eager (c): fit(96x{EAGER_SBFI_G}, ranks 1..{RANK_MAX}, SBFI, "
+          f"Normal-TruncNormal) "
+          f"ran {s.iter - 1} iterations ({s.tracker.why}); learned rank "
+          f"{learned} (true {EAGER_RANK}); the {len(cos)} best-matched MAP "
+          f"columns cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
+          f"{(s.iter - 1) / wall:.1f} it/s for the whole fit ({wall:.2f} s) "
+          f"on {card}", flush=True)
+
+    # (e) where the Normal and the eager Poisson loops spend their time
+    for label in ("normal_truncnormal", "poisson_eager"):
+        s, state = fits[label]
+        n_prof = 10
+        dev_us, wall, events, n_waits, wait_us = profile_loop(
+            torch, gibbs, s, state, n_prof)
+        if dev_us > 0:
+            print(f"eager (e) {label}: profiled {n_prof} iterations: device "
+                  f"busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.1f} ms wall "
+                  f"(share {dev_us / 1e6 / wall:.3f}); {events} device "
+                  f"events ({events / n_prof:.1f} per iteration); {n_waits} "
+                  f"host waits ({n_waits / n_prof:.1f} per iteration, "
+                  f"{wait_us / 1e3:.2f} ms of host time) on {card}",
+                  flush=True)
+        else:
+            print(f"eager (e) {label}: torch.profiler recorded no device "
+                  "time; busy share not measured", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1860,6 +2123,9 @@ def main() -> int:
 
     # phase 7: the exponential prior with MH and conjugate Gibbs
     alloc_launches = run_exponential(torch, bt, FS, S, AL, gibbs, card)
+
+    # phase 8: the eager sweeps and the Normal likelihood
+    run_eager(torch, bt, FS, S, AL, gibbs, card)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,

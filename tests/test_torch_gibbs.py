@@ -289,10 +289,8 @@ def test_ten_steps_of_each_path_match_jax(case):
 @pytest.mark.parametrize("kw", [dict(prior="gamma", MH=False,
                                      fused_sweeps=False),
                                 dict(learning_rank=True, rank_method="BIC"),
-                                dict(likelihood="normal", MH=False,
-                                     fused_sweeps=False),
-                                dict(exact_truncnorm_hypers=False),
-                                dict(fused_sweeps=False)])
+                                dict(prior="exponential", fused_sweeps=False,
+                                     stream_sweeps=True)])
 def test_unported_specs_raise(kw):
     spec = ModelSpec(**(dict(K=K, N=N, G=G, likelihood="poisson",
                              prior="truncnormal", MH=True,
