@@ -7,13 +7,17 @@ of the JAX package: it keeps its own copies of the configuration, logging
 and postprocessing modules.
 
 Ported so far (ROADMAP.md): one chain of the Poisson sampler with the
-TruncNormal or exponential prior, MH at a fixed rank or with SBFI/BFI rank
-learning, through the fused sweep kernel (or, with ``fused_sweeps=False``,
-the eager sweeps); one chain of the Normal likelihood with either prior
-through the eager sweeps, which run as tensor ops as the JAX package runs
-them in XLA; conjugate Poisson-Gibbs (MH=False, exponential prior) through
-the allocation kernel; and ``ChainEnsemble``, C chains of the TruncNormal
-model with SBFI/BFI rank learning, through the streaming sweep kernels.
+TruncNormal or exponential prior, MH at a fixed rank or with SBFI/BFI/BIC
+rank learning, through the fused sweep kernel (or, with
+``fused_sweeps=False``, the eager sweeps); one chain of the Normal
+likelihood with either prior through the eager sweeps, which run as tensor
+ops as the JAX package runs them in XLA; conjugate Poisson-Gibbs (MH=False,
+exponential prior) through the allocation kernel; ``ChainEnsemble``, C
+chains of any of these models at once (through the fused kernel, the eager
+sweeps, the allocation kernel, or at large G the streaming sweep kernels),
+with fixed per-chain inclusion masks and cross-chain diagnostics; and
+``fit(rank_method='BIC')`` over a rank list, as one masked ensemble or one
+sampler per rank.
 """
 
 from .config import (  # noqa: F401

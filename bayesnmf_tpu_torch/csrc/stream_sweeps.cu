@@ -15,6 +15,13 @@
 //     (_chain_metrics_kernel) together with the host arithmetic of
 //     models/gibbs.py::_metrics_row on its sums (`pois_red`) and the prior
 //     term it adds, with a leading chain axis C on every per-chain operand.
+//     The prior is a runtime argument (`expo`) of the P-column, E-row and
+//     metrics-row kernels: the truncated normal takes (Mu, Sigmasq) a
+//     entry, the exponential its Lambda in Mu's place (the conditional
+//     (mu1 - Lambda) / max(den, 1e-30), the ratio's prior part
+//     -Lambda (proposal - old), the log-prior log(Lambda) - Lambda x), as
+//     the JAX package's stream sweeps compute them around `_run`'s sums
+//     (models/updates.py:573-600, :660-690).
 // (b) What bounds it: operations. Per (c, k, g) element a column update
 //     rebuilds Mhat (2N flops, as separate multiplies and adds) once or twice
 //     and adds a few divisions and a log1p; it reads data (shared by the
@@ -255,20 +262,45 @@ __device__ __forceinline__ float tn_logpdf(float x, float mu, float var) {
   return x >= 0.0f ? log_norm - log_tail : -INFINITY;
 }
 
+// ops/math.py::exponential_logpdf
+__device__ __forceinline__ float exp_logpdf(float x, float rate) {
+  return x >= 0.0f ? logf(rate) - rate * x : -INFINITY;
+}
+
+constexpr float kEps = 1e-30f;  // floor of an exponential conditional's
+                                // precision
+
 // What one entry of a column brings to its update: the current value, its
-// prior pair and prior draw, the three uniforms, A_n, and the two flags.
+// prior pair (mu0, sq0 = Mu, Sigmasq; or mu0 = Lambda of the exponential
+// prior) and prior draw, the three uniforms, A_n, and the three flags.
 struct Entry {
   float old, mu0, sq0, prior_draw, u1, u2, u3, a_n;
-  bool inactive, accept_all;
+  bool inactive, accept_all, expo;
 };
 
-// models/updates.py::_conditional on the sums of the first pass, and the
-// proposal: the conditional draw, or the prior draw of an inactive column
+// ops/stream_sweeps.py::_conditional: mean and variance of the column's
+// conditional at the sums (mu1, a_n * den_raw). The exponential prior moves
+// the mean by -Lambda with the precision floored at 1e-30; the truncated
+// normal adds its own precision and mean.
+__device__ __forceinline__ void conditional(const Entry& in, float mu1,
+                                            float den_raw, float* mu,
+                                            float* var) {
+  if (in.expo) {
+    const float den_s = jmax(in.a_n * den_raw, kEps);
+    *mu = (mu1 - in.mu0) / den_s;
+    *var = 1.0f / den_s;
+  } else {
+    const float den2 = in.a_n * den_raw + 1.0f / in.sq0;
+    *mu = (mu1 + in.mu0 / in.sq0) / den2;
+    *var = 1.0f / den2;
+  }
+}
+
+// The conditional at the sums of the first pass, and the proposal: the
+// conditional draw, or the prior draw of an inactive column
 __device__ void propose(const Entry& in, float mu1, float den_raw, float* mu,
                         float* var, float* proposal) {
-  const float den2 = in.a_n * den_raw + 1.0f / in.sq0;
-  *mu = (mu1 + in.mu0 / in.sq0) / den2;
-  *var = 1.0f / den2;
+  conditional(in, mu1, den_raw, mu, var);
   const float cond = tn_draw(in.u1, in.u2, *mu, *var);
   *proposal = in.inactive ? in.prior_draw : cond;
 }
@@ -280,11 +312,15 @@ __device__ void propose(const Entry& in, float mu1, float den_raw, float* mu,
 __device__ float decide(const Entry& in, float mu, float var, float proposal,
                         float lp, float mu1_r, float den_raw_r, float rec_old,
                         float* rec, bool* nan) {
-  const float den2 = in.a_n * den_raw_r + 1.0f / in.sq0;
-  const float mu_r = (mu1_r + in.mu0 / in.sq0) / den2;
-  const float var_r = 1.0f / den2;
-  const float zn = proposal - in.mu0, zo = in.old - in.mu0;
-  const float delta = (-0.5f * (zn * zn - zo * zo)) / in.sq0;
+  float mu_r, var_r;
+  conditional(in, mu1_r, den_raw_r, &mu_r, &var_r);
+  float delta;  // the prior's part of the log ratio
+  if (in.expo) {
+    delta = -in.mu0 * (proposal - in.old);
+  } else {
+    const float zn = proposal - in.mu0, zo = in.old - in.mu0;
+    delta = (-0.5f * (zn * zn - zo * zo)) / in.sq0;
+  }
   float log_ratio = lp + delta + tn_logpdf(in.old, mu_r, var_r)
                     - tn_logpdf(proposal, mu, var);
   if (in.inactive) log_ratio = 0.0f;
@@ -366,12 +402,13 @@ struct ErowArgs {
   float* out;        // sums only: (n_out, C, G)
   // update: P (C, K, N), A (C, N), the acceptance record (C, N, G), the
   // prior pair and prior draw (C, N, G), uniforms (C, 3, N, G), the warmup
-  // flags (C,) as floats, the NaN-clamp counts (C,)
+  // flags (C,) as floats, the NaN-clamp counts (C,); expo: the prior is the
+  // exponential one, Lambda in mu0 (sq0 is not read)
   const float *P, *A;
   float* acc;
   const float *mu0, *sq0, *prior_draw, *U, *accept_all;
   int* nan;
-  int n;
+  int n, expo;
   int C, K, N, G;
 };
 
@@ -476,6 +513,7 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
       in.u3 = u[(size_t)2 * N * G];
       in.inactive = inactive;
       in.accept_all = a.accept_all[c] != 0.0f;
+      in.expo = a.expo != 0;
       propose(in, (float)s0, (float)s1, &mu, &var, &proposal);
       q = in.a_n * proposal;
     } else {
@@ -546,7 +584,8 @@ struct PcolArgs {
   const float *en, *pn, *prop;
   float* out;        // sums only: (n_out, C, K)
   // update: P and the acceptance record (C, K, N), A (C, N), the prior pair
-  // and prior draw (C, K, N), uniforms (C, 3, N, K), warmup flags, counts
+  // and prior draw (C, K, N), uniforms (C, 3, N, K), warmup flags, counts;
+  // expo as in ErowArgs
   float* P;
   const float* A;
   float* acc;
@@ -556,7 +595,7 @@ struct PcolArgs {
   // passes, the scaled proposal, mu, var and the proposal (C, 4, K)
   double* scratch;
   float* work;
-  int n;
+  int n, expo;
   int C, K, N, G;
 };
 
@@ -736,7 +775,7 @@ pcol_finish_kernel(PcolArgs a, int tiles, int n_out) {
     const float* u = a.U + ((size_t)c * 3 * N + a.n) * K + k;
     Entry in = {a.P[at], a.mu0[at], a.sq0[at], a.prior_draw[at], u[0],
                 u[(size_t)N * K], u[(size_t)2 * N * K], a_n, inactive,
-                accept_all};
+                accept_all, a.expo != 0};
     if (FINISH == kPropose) {
       float mu, var, proposal;
       propose(in, (float)tot[3 * k], (float)tot[3 * k + 1], &mu, &var,
@@ -952,12 +991,13 @@ struct MetricsArgs {
   // (C, N, G), P's (C, K, N); the chunk constants sum lgamma(M + 1) and
   // sum Mp log Mp (0-d); na (C,) the NaN events; temp (1,) the temperature,
   // or null and temp_val; it the iteration; log_g log(G) rounded to float;
-  // row (C, row_stride), 12 floats a chain written
+  // row (C, row_stride), 12 floats a chain written; expo: the prior is the
+  // exponential one, Lambda in mu_e and mu_p (sq_e and sq_p are not read)
   const float *P, *A, *mu_e, *sq_e, *acc_e, *mu_p, *sq_p, *acc_p;
   const float *lgamma_sum, *mlogm_sum, *na, *temp;
   float* row;
   float it, temp_val, log_g;
-  int row_stride;
+  int row_stride, expo;
   double* scratch;   // (C, sums, tiles) partials
   int C, K, N, G;
 };
@@ -981,18 +1021,19 @@ __device__ __forceinline__ void data_terms(float m, float mh, double* s) {
   s[3] += (double)(d * d);
 }
 
-// The prior term (tn_logpdf) and acc * w of entries first, first + step,
-// ... below count, added in that order into *lp and *ac; entry(j, &off, &w)
-// gives entry j's offset in x, mu, sq and acc and its weight A_n. The loads
-// of kPriorUnroll entries are issued before their terms, which then run as
-// independent chains (a padded entry's term is computed and not added).
+// The prior term (tn_logpdf, or exp_logpdf with ``expo``, mu then holding
+// Lambda) and acc * w of entries first, first + step, ... below count, added
+// in that order into *lp and *ac; entry(j, &off, &w) gives entry j's offset
+// in x, mu, sq and acc and its weight A_n. The loads of kPriorUnroll entries
+// are issued before their terms, which then run as independent chains (a
+// padded entry's term is computed and not added).
 constexpr int kPriorUnroll = 4;
 
 template <typename Entry>
 __device__ __forceinline__ void prior_sums(const float* x, const float* mu,
                                            const float* sq, const float* acc,
-                                           Entry entry, int first, int step,
-                                           int count, double* lp,
+                                           bool expo, Entry entry, int first,
+                                           int step, int count, double* lp,
                                            double* ac) {
   for (int j0 = first; j0 < count; j0 += kPriorUnroll * step) {
     float xv[kPriorUnroll], mv[kPriorUnroll], sv[kPriorUnroll];
@@ -1006,14 +1047,15 @@ __device__ __forceinline__ void prior_sums(const float* x, const float* mu,
       if (live) entry(j, &off, &w);
       xv[u] = live ? x[off] : 0.0f;
       mv[u] = live ? mu[off] : 0.0f;
-      sv[u] = live ? sq[off] : 1.0f;
+      sv[u] = live && !expo ? sq[off] : 1.0f;
       av[u] = live ? acc[off] : 0.0f;
       wv[u] = w;
     }
     float term[kPriorUnroll];
 #pragma unroll
     for (int u = 0; u < kPriorUnroll; ++u) {
-      term[u] = tn_logpdf(xv[u], mv[u], sv[u]);
+      term[u] = expo ? exp_logpdf(xv[u], mv[u])
+                     : tn_logpdf(xv[u], mv[u], sv[u]);
     }
 #pragma unroll
     for (int u = 0; u < kPriorUnroll; ++u) {
@@ -1093,10 +1135,11 @@ metrics_tile_kernel(MetricsArgs a) {
   }
   if (kRow) {
     // the tile's entries of E, thread tid taking tid, tid + kColThreads, ...
-    // in order: the prior term (ops/math.py::truncnorm_logpdf) and acc_E * A
+    // in order: the prior term (ops/math.py::truncnorm_logpdf, or
+    // exponential_logpdf) and acc_E * A
     double lp = 0.0, ac = 0.0;
     const size_t tile_at = (size_t)c * N * G + g0;
-    prior_sums(a.E, a.mu_e, a.sq_e, a.acc_e,
+    prior_sums(a.E, a.mu_e, a.sq_e, a.acc_e, a.expo != 0,
                [&](int j, size_t* off, float* w) {
                  const int n = j / gcount;
                  *off = tile_at + (size_t)n * G + j % gcount;
@@ -1156,7 +1199,7 @@ metrics_finish_kernel(MetricsArgs a, int tiles) {
   const float* A_c = a.A + (size_t)c * N;
   const size_t base = (size_t)c * K * N;
   double lp = 0.0, ac = 0.0;
-  prior_sums(a.P, a.mu_p, a.sq_p, a.acc_p,
+  prior_sums(a.P, a.mu_p, a.sq_p, a.acc_p, a.expo != 0,
              [&](int j, size_t* off, float* w) {
                *off = base + j;
                *w = A_c[j % N];
@@ -1345,9 +1388,10 @@ extern "C" int stream_pcol_update_launch(
     const float* data, const float* E, float* P, float* PA, const float* A,
     float* acc, const float* mu0, const float* sq0, const float* prior_draw,
     const float* U, const float* accept_all, int* nan, double* scratch,
-    float* work, int C, int K, int N, int G, int n0, int n1, void* stream) {
+    float* work, int C, int K, int N, int G, int n0, int n1, int expo,
+    void* stream) {
   PcolArgs a = {};
-  a.scratch = scratch; a.work = work;
+  a.scratch = scratch; a.work = work; a.expo = expo;
   a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
   a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
   a.accept_all = accept_all; a.nan = nan;
@@ -1369,8 +1413,10 @@ extern "C" int stream_erow_update_launch(
     const float* data, float* E, const float* P, const float* PA,
     const float* A, float* acc, const float* mu0, const float* sq0,
     const float* prior_draw, const float* U, const float* accept_all,
-    int* nan, int C, int K, int N, int G, int n0, int n1, void* stream) {
+    int* nan, int C, int K, int N, int G, int n0, int n1, int expo,
+    void* stream) {
   ErowArgs a = {};
+  a.expo = expo;
   a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
   a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
   a.accept_all = accept_all; a.nan = nan;
@@ -1465,8 +1511,9 @@ extern "C" int stream_metrics_row_launch(
     const float* lgamma_sum, const float* mlogm_sum, const float* na,
     const float* temp, float* row, double* scratch, float it,
     float temp_val, float log_g, int row_stride, int C, int K, int N, int G,
-    void* stream) {
+    int expo, void* stream) {
   MetricsArgs a = {};
+  a.expo = expo;
   a.data = data; a.E = E; a.P = P; a.A = A;
   a.mu_e = mu_e; a.sq_e = sq_e; a.acc_e = acc_e;
   a.mu_p = mu_p; a.sq_p = sq_p; a.acc_p = acc_p;

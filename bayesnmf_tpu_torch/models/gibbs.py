@@ -2,36 +2,41 @@
 tempering schedule.
 
 Port of bayesnmf_tpu/models/gibbs.py for the Poisson and Normal
-likelihoods with the TruncNormal or the exponential prior, on four paths:
+likelihoods with the TruncNormal or the exponential prior, on four paths,
+each for one chain or for C chains at once (every state tensor with a
+leading chain axis; the JAX package vmaps one chain's step, and one chain
+here is a batch of one):
 
-- fused (one chain, Poisson MH, the default there): each step draws one
-  flat uniform tensor, recomputes Mhat with one matmul, runs the fused
-  sweep (ops/fused_sweeps.py; with rank learning it also draws R and
-  sweeps A) and computes the metrics row; the exponential prior's Lambda
-  update and the reference's conjugate Mu/Sigmasq update
-  (``exact_truncnorm_hypers=False``) run before the kernel
-  (gibbs.py:139-227);
-- eager (one chain: the Normal likelihood, and Poisson MH with
+- fused (Poisson MH, the default there): each step draws one uniform
+  tensor (a row per chain), recomputes Mhat with one batched matmul, runs
+  the fused sweep (ops/fused_sweeps.py, one thread-block cluster per chain;
+  with rank learning it also draws R and sweeps A) and computes the
+  metrics rows; the exponential prior's Lambda update and the reference's
+  conjugate Mu/Sigmasq update (``exact_truncnorm_hypers=False``) run
+  before the kernel (gibbs.py:139-227);
+- eager (the Normal likelihood, and Poisson MH with
   ``fused_sweeps=False``): the prior update, a fresh Mhat, the sequential
-  P and E sweeps issued column by column as tensor ops
+  P and E sweeps issued column by column as tensor ops over all chains
   (models/updates.sweep_P/sweep_E), with rank learning the R draw and the
   Mhat-based A sweep, and with the Normal likelihood sigmasq from the
   final Mhat (gibbs.py:241-269); no kernel runs, as none does on the JAX
   package's XLA path;
-- conjugate (one chain, MH=False, exponential prior): Lambda, then all of P
-  and all of E by conjugate gamma draws, the R draw and the Mhat-based A
-  sweep when rank learning, and the latent counts' sums through the
-  allocation kernel (ops/allocation.py; gibbs.py:159-162, 248-267);
-- streaming (a chain ensemble, fixed rank or SBFI/BFI rank learning): every
-  state tensor carries a leading chain axis C, and each step runs the
-  hyper-update, the streamed P, E and A sweeps (models/updates.py) and the
-  metrics row (one kernel pair); no (C, K, G) tensor exists
-  (gibbs.py:228-264).
+- conjugate (MH=False, exponential prior): Lambda, then all of P and all
+  of E by conjugate gamma draws, the R draw and the Mhat-based A sweep
+  when rank learning, and the latent counts' sums through the allocation
+  kernel (ops/allocation.py, one grid over the chains; gibbs.py:159-162,
+  248-267);
+- streaming (large G, either prior): each step runs the prior update, the
+  streamed P, E and A sweeps (models/updates.py) and the metrics row (one
+  kernel pair); no (C, K, G) tensor exists (gibbs.py:228-264).
 
-``jax.lax.scan`` becomes a Python loop that writes each step into buffers
-preallocated on the device; the chunk's temperatures go to the device once,
-and no step waits for the device except where a gamma draw's exact
-rejection loop checks that it is done (ops/distributions.gamma).
+Each step's random numbers are one chain-major draw (chain c's its own
+row, in the one-chain layout of the JAX step's keys). ``jax.lax.scan``
+becomes a Python loop that writes each step into buffers preallocated on
+the device; the chunk's temperatures go to the device once, and no step
+waits for the device except where a gamma draw's exact rejection loop
+checks that it is done (ops/distributions.gamma), once a draw for all
+chains.
 """
 
 from __future__ import annotations
@@ -60,22 +65,24 @@ _TINY = 1.2e-38
 
 
 def check_spec(spec: ModelSpec):
-    """Raise NotImplementedError for anything outside the ported slices:
-    the gamma prior, a rank method other than SBFI/BFI while learning the
-    rank (BIC over a rank list) and the exponential prior on the streaming
-    path. Everything else of the Poisson and Normal likelihoods runs on the
-    fused, eager, conjugate or streaming path."""
-    missing = []
+    """Raise NotImplementedError for the one family not ported yet, the
+    gamma prior. Everything else of the Poisson and Normal likelihoods runs
+    on the fused, eager, conjugate or streaming path, at a fixed rank or
+    learning it over a rank list by SBFI, BFI or BIC (the JAX step runs the
+    last without the SBFI penalty, updates.py:819, :859)."""
     if spec.prior not in ("truncnormal", "exponential"):
-        missing.append(f"prior={spec.prior!r}")
-    if spec.learning_rank and spec.rank_method not in ("SBFI", "BFI"):
-        missing.append(f"rank_method={spec.rank_method!r}")
-    if spec.stream_sweeps and spec.prior != "truncnormal":
-        missing.append(f"prior={spec.prior!r} on the streaming path")
-    if missing:
         raise NotImplementedError(
-            "bayesnmf_tpu_torch does not port yet: " + ", ".join(missing)
-            + " (see ROADMAP.md)")
+            f"bayesnmf_tpu_torch does not port yet: prior={spec.prior!r} "
+            "(see ROADMAP.md)")
+
+
+def kernel_rank_method(spec: ModelSpec):
+    """The rank branch the fused kernel runs: None at a fixed rank, "SBFI"
+    with the inclusion penalty, "BFI" without it (BFI, and BIC over a rank
+    list)."""
+    if not spec.learning_rank:
+        return None
+    return "SBFI" if spec.rank_method == "SBFI" else "BFI"
 
 
 # ---------------------------------------------------------------------------
@@ -144,22 +151,25 @@ def hyper_in_kernel(spec: ModelSpec) -> bool:
     return spec.prior == "truncnormal" and spec.exact_truncnorm_hypers
 
 
-def step_constants(spec: ModelSpec, hp: dict, device) -> dict:
-    """Per-fit constant operands of the fused sweep: for the in-kernel
-    hyper-sweep the hyperprior planes [m, s, a, b] of each side, for the
-    exponential prior the unused second prior planes (ones), and the
-    (3, N+1) rank pack of a fixed rank (zeros). The reference rebuilds them
-    every step; here a chunk builds them once."""
+def step_constants(spec: ModelSpec, hp: dict, device, chains: int = 1) -> dict:
+    """Per-fit constant operands of the fused sweep for ``chains`` chains:
+    for the in-kernel hyper-sweep the hyperprior planes [m, s, a, b] of
+    each side (shared by the chains), for the exponential prior the unused
+    second prior planes (ones), and the (3, N+1) rank pack of a fixed rank
+    (zeros). The reference rebuilds them every step; here a chunk builds
+    them once."""
     K, N, G = spec.K, spec.N, spec.G
+    C = chains
     f32 = dict(dtype=torch.float32, device=device)
-    consts = {"rank_pack": torch.zeros(3, N + 1, **f32)}
+    consts = {"rank_pack": torch.zeros(C, 3, N + 1, **f32)}
     if hyper_in_kernel(spec):
         planes = lambda side, shape: torch.stack([  # noqa: E731
             torch.full(shape, float(hp[f"{k}_{side}"]), **f32)
             for k in ("m", "s", "a", "b")])
         consts["hyper_hp"] = (planes("p", (K, N)), planes("e", (N, G)))
     if spec.prior == "exponential":
-        consts["ones"] = (torch.ones(K, N, **f32), torch.ones(N, G, **f32))
+        consts["ones"] = (torch.ones(C, K, N, **f32),
+                          torch.ones(C, N, G, **f32))
     return consts
 
 
@@ -187,40 +197,64 @@ def _temp_tensor(temperature, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _one_chain(step, spec, data, hp, state, temperature, accept_all,
+               metric_consts, noise, **kw):
+    """Run ``step`` on one chain's state (no chain axis) as a batch of one:
+    the state, the noise and the uniforms gain a leading axis of 1 (views),
+    and the results lose it. ``consts`` (step_constants) are a batch's
+    already."""
+    if kw.get("u") is not None:
+        kw["u"] = U.lift(kw["u"])
+    new_state, out = step(spec, data, hp, U.lift(state), temperature,
+                          accept_all, metric_consts, noise=U.lift(noise),
+                          **kw)
+    return U.drop(new_state), U.drop(out)
+
+
 def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                accept_all, metric_consts=None, u=None, consts=None,
-               noise=None):
+               noise=None, metrics_out=None):
     """One full Gibbs sweep; returns (new_state, sample_out).
 
-    On the streaming path this is ``stream_step``, on the conjugate path
-    ``conjugate_step`` and on the eager path ``eager_step`` (``noise`` goes
-    there). On the fused path the order is (gibbs.py:100-290): the
-    exponential prior's Lambda update or the conjugate Mu/Sigmasq update
-    (``noise`` {"prior": ...}), a fresh Mhat = P diag(A) E, then inside the
-    fused sweep the exact truncnormal hyper-sweep, the P sweep, the E sweep
-    and with rank learning the R draw and the A sweep. ``u`` is the flat
-    uniform tensor of length ``n_uniforms(spec)``, laid out as at
-    gibbs.py:175-207;
-    when None it is drawn from ``state['gen']``. ``temperature`` is a
-    float or a 0-d tensor on the device. ``sample_out`` holds P, E, A and
-    the metrics row. ``metric_consts`` and ``consts`` (step_constants) are
-    computed when not given.
+    Every step takes one chain's state or C chains' with a leading chain
+    axis on every tensor (the JAX package vmaps one chain's step; a batch of
+    one runs the same code). On the streaming path this is ``stream_step``,
+    on the conjugate path ``conjugate_step`` and on the eager path
+    ``eager_step`` (``noise`` goes there). On the fused path the order is
+    (gibbs.py:100-290): the exponential prior's Lambda update or the
+    conjugate Mu/Sigmasq update (``noise`` {"prior": ...}), a fresh
+    Mhat = P diag(A) E (one batched product), then inside the fused sweep
+    the exact truncnormal hyper-sweep, the P sweep, the E sweep and with
+    rank learning the R draw and the A sweep. ``u`` is the flat uniform
+    tensor of length ``n_uniforms(spec)`` per chain ((C, n) with a chain
+    axis, each chain's row laid out as at gibbs.py:175-207); when None it
+    is drawn from ``state['gen']``. ``temperature`` is a float or a 0-d
+    tensor on the device; ``accept_all`` a bool or a (C,) bool tensor.
+    ``sample_out`` holds P, E, A and the metrics row, which goes to
+    ``metrics_out`` ((C, N_METRICS), a slice of a chunk buffer) when given.
+    ``metric_consts`` and ``consts`` (step_constants of C chains, of 1 for
+    one chain) are computed when not given.
     """
     if spec.stream_sweeps:
         return stream_step(spec, data, hp, state, temperature, accept_all,
-                           metric_consts, noise)
+                           metric_consts, noise, metrics_out)
     if spec.likelihood == "poisson" and not spec.MH:
         return conjugate_step(spec, data, hp, state, temperature,
-                              metric_consts, noise)
+                              metric_consts, noise, metrics_out)
     if not spec.fused_sweeps:
         return eager_step(spec, data, hp, state, temperature, accept_all,
-                          metric_consts, noise)
+                          metric_consts, noise, metrics_out)
+    if state["params"]["P"].dim() == 2:
+        return _one_chain(gibbs_step, spec, data, hp, state, temperature,
+                          accept_all, metric_consts, noise, u=u,
+                          consts=consts)
     K, N, G = spec.K, spec.N, spec.G
     dev = data.device
     params = dict(state["params"])
     prior = dict(state["prior"])
+    C = params["P"].shape[0]
     if consts is None:
-        consts = step_constants(spec, hp, dev)
+        consts = step_constants(spec, hp, dev, C)
     in_kernel = hyper_in_kernel(spec)
     if not in_kernel:
         prior = U.sample_prior_params(spec, hp, params, prior, state["gen"],
@@ -232,27 +266,30 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
 
     n_p, n_e = K * N, N * G
     if u is None:
-        u = torch.rand(n_uniforms(spec), generator=state["gen"],
+        u = torch.rand((C, n_uniforms(spec)), generator=state["gen"],
                        device=dev).clamp_min_(_TINY)
-    Upr_P, Up_P, Ua_P = (u[i * n_p:(i + 1) * n_p].view(K, N)
-                         for i in range(3))
-    off = 3 * n_p
-    Upr_E, Up_E, Ua_E = (u[off + i * n_e:off + (i + 1) * n_e].view(N, G)
-                         for i in range(3))
+
+    def cut(off, shape):
+        # a view for one chain; the kernel takes each plane contiguous, so
+        # C > 1 chains' planes are gathered out of their rows
+        n = int(np.prod(shape))
+        return u[:, off:off + n].reshape((C,) + shape).contiguous()
+
+    Upr_P, Up_P, Ua_P = (cut(i * n_p, (K, N)) for i in range(3))
+    Upr_E, Up_E, Ua_E = (cut(3 * n_p + i * n_e, (N, G)) for i in range(3))
     off = 3 * (n_p + n_e)
     rank_pack = consts["rank_pack"]
     if spec.learning_rank:
-        gumbel = -torch.log(-torch.log(u[off:off + N + 1]))
-        zero = torch.zeros(1, dtype=torch.float32, device=dev)
-        u_A = torch.cat([u[off + N + 1:off + 2 * N + 1], zero])
-        row0 = torch.cat([_temp_tensor(temperature, dev).view(1),
-                          zero.expand(N)])
-        rank_pack = torch.stack([row0, gumbel, u_A])
+        gumbel = -torch.log(-torch.log(u[:, off:off + N + 1]))
+        zero = torch.zeros(C, 1, dtype=torch.float32, device=dev)
+        u_A = torch.cat([u[:, off + N + 1:off + 2 * N + 1], zero], 1)
+        row0 = torch.cat([_temp_tensor(temperature, dev).view(1, 1)
+                          .expand(C, 1), zero.expand(C, N)], 1)
+        rank_pack = torch.stack([row0, gumbel, u_A], 1)
         off += 2 * (N + 1)
     hyper_u = hyper_hp = None
     if in_kernel:
-        hyper_u = (u[off:off + 4 * n_p].view(4, K, N),
-                   u[off + 4 * n_p:off + 4 * (n_p + n_e)].view(4, N, G))
+        hyper_u = (cut(off, (4, K, N)), cut(off + 4 * n_p, (4, N, G)))
         hyper_hp = consts["hyper_hp"]
     if spec.prior == "exponential":
         hp_arrays = (prior["Lambda_p"], consts["ones"][0], prior["Lambda_e"],
@@ -266,8 +303,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         data, params["P"], params["E"], params["A"], Mh, state["acc_P"],
         state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E, *hp_arrays,
         rank_pack, prior_kind=spec.prior, exact_mh=spec.exact_mh,
-        accept_all=accept_all,
-        rank_method=spec.rank_method if spec.learning_rank else None,
+        accept_all=accept_all, rank_method=kernel_rank_method(spec),
         hyper_u=hyper_u, hyper_hp=hyper_hp)
     if in_kernel:
         prior["Mu_p"], prior["Sigmasq_p"] = hp0_p, hp1_p
@@ -281,12 +317,13 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                  "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
-                           metric_consts)
+                           metric_consts, metrics_out)
     return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
                        "metrics": metrics}
 
 
-def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device) -> dict:
+def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
+                     chains=None) -> dict:
     """All random numbers of one eager step: one uniform draw and one
     normal draw, cut into views laid out as the JAX step draws them from its
     keys (gibbs.py:121-132, updates.py:91-203, :266-531, :776-886): the
@@ -294,7 +331,9 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device) -> dict:
     {"z", "u"} for the exact truncnormal hyper-sweep; {"mu_p", "mu_e",
     "sq_p", "sq_e"} for the conjugate one), each sweep's {"prior_u", "u"},
     with rank learning the R draw's Gumbel noise and the A draws' uniforms,
-    and with the Normal likelihood sigmasq's gamma planes."""
+    and with the Normal likelihood sigmasq's gamma planes. With ``chains``
+    = C each draw is chain-major, (C, total), and every view has a leading
+    chain axis: chain c's noise is row c, in the one-chain layout."""
     K, N, G = spec.K, spec.N, spec.G
     kn, ng = (K, N), (N, G)
     tn = (2,) if spec.prior == "truncnormal" else ()
@@ -312,38 +351,44 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device) -> dict:
         uni |= {("R",): (N + 1,), ("A",): (N,)}
     if spec.needs_sigmasq:
         uni[("sigmasq",)] = (9, G)
+    C = 1 if chains is None else chains
     noise = {}
     for shapes, normal in ((uni, False), (nrm, True)):
         sizes = [int(np.prod(s)) for s in shapes.values()]
-        flat = (torch.randn(sum(sizes), generator=gen, device=device)
+        flat = (torch.randn((C, sum(sizes)), generator=gen, device=device)
                 if normal else
-                torch.rand(sum(sizes), generator=gen,
+                torch.rand((C, sum(sizes)), generator=gen,
                            device=device).clamp_min_(_TINY))
         for (path, shape), part in zip(shapes.items(),
-                                       torch.split(flat, sizes)):
+                                       torch.split(flat, sizes, 1)):
             d = noise
             for k in path[:-1]:
                 d = d.setdefault(k, {})
-            d[path[-1]] = part.view(shape)
+            d[path[-1]] = part.view((C,) + shape)
     if spec.learning_rank:
         noise["R"] = dist.gumbel_from_u(noise["R"])
-    return noise
+    return noise if chains is not None else U.drop(noise)
 
 
 def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-               accept_all: bool, metric_consts=None, noise=None):
+               accept_all, metric_consts=None, noise=None, metrics_out=None):
     """One Gibbs iteration on the eager path (gibbs.py:100-290): the prior
     update, a fresh Mhat, the P sweep and the E sweep (Normal conjugate
     draws, or Poisson MH with ``accept_all`` during warmup), with rank
     learning the R draw and the A sweep, with the Normal likelihood sigmasq
-    from the final Mhat, then the metrics row. ``noise`` (draw_eager_noise's
-    layout) is drawn from ``state['gen']`` when None; a part it lacks comes
-    from the generator too. Nothing waits for the device except the gamma
-    draws' rejection loops (ops/distributions.gamma)."""
+    from the final Mhat, then the metrics row; for one chain or C chains at
+    once (see gibbs_step). ``noise`` (draw_eager_noise's layout) is drawn
+    from ``state['gen']`` when None; a part it lacks comes from the
+    generator too. Nothing waits for the device except the gamma draws'
+    rejection loops (ops/distributions.gamma), one wait a draw for all C."""
+    if state["params"]["P"].dim() == 2:
+        return _one_chain(eager_step, spec, data, hp, state, temperature,
+                          accept_all, metric_consts, noise)
     gen = state["gen"]
-    if noise is None:
-        noise = draw_eager_noise(spec, gen, data.device)
     params = dict(state["params"])
+    C = params["P"].shape[0]
+    if noise is None:
+        noise = draw_eager_noise(spec, gen, data.device, C)
     prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
                                   noise=noise.get("prior"))
     Mh = m.mhat(params["P"], params["A"], params["E"])
@@ -371,20 +416,27 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         new_state |= {"acc_P": acc_P, "acc_E": acc_E}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
-                           metric_consts)
+                           metric_consts, metrics_out)
     return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
                        "metrics": metrics}
 
 
 def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-                   metric_consts=None, noise=None):
+                   metric_consts=None, noise=None, metrics_out=None):
     """One conjugate Poisson-Gibbs iteration (MH=False; gibbs.py:100-290):
     Lambda, then P and E given the latent counts, with rank learning the R
-    draw and the Mhat-based A sweep, then the new latent counts' sums.
-    ``noise`` may hold each draw's random numbers as the JAX step draws them
-    from its keys: {"prior": {"p", "e"}, "P", "E", "R", "A", "Z"} (the
-    gamma planes, the Gumbel noise, the A uniforms, the allocation planes);
-    what it lacks comes from ``state['gen']``."""
+    draw and the Mhat-based A sweep, then the new latent counts' sums
+    through the allocation kernel (its grid has the chain axis); for one
+    chain or C chains at once. ``noise`` may hold each draw's random numbers
+    as the JAX step draws them from its keys: {"prior": {"p", "e"}, "P",
+    "E", "R", "A", "Z"} (the gamma planes, the Gumbel noise, the A
+    uniforms, the allocation planes), chain-major with a chain axis; what it
+    lacks comes from ``state['gen']``."""
+    if state["params"]["P"].dim() == 2:
+        return _one_chain(
+            lambda sp, d, h, st, t, _a, mc, noise: conjugate_step(
+                sp, d, h, st, t, mc, noise),
+            spec, data, hp, state, temperature, None, metric_consts, noise)
     gen = state["gen"]
     noise = noise or {}
     params = dict(state["params"])
@@ -408,63 +460,78 @@ def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     new_state = {"params": params, "prior": prior, "gen": gen,
                  "iter": new_iter}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
-                           temperature, None, None, na_events, metric_consts)
+                           temperature, None, None, na_events, metric_consts,
+                           metrics_out)
     return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
                        "metrics": metrics}
 
 
-def _fill(row, i, v):
-    """row[i] = v without a host wait: a device tensor is copied on the
-    device, a host number is passed to a fill kernel (``row[i] = x`` would
+def _fill(col, v):
+    """col[:] = v without a host wait: a device tensor is copied on the
+    device, a host number is passed to a fill kernel (``col[:] = x`` would
     copy it from host memory and wait for the device)."""
     if isinstance(v, torch.Tensor):
-        row[i] = v
+        col.copy_(v.expand_as(col))
     else:
-        row[i].fill_(float(v))
+        col.fill_(float(v))
 
 
 def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
-                 acc_E, na_events=0.0, consts=None):
+                 acc_E, na_events=0.0, consts=None, out=None):
     """Per-iteration metrics (compute_metrics_, utils.R:412-455) from Mhat
-    (gibbs.py:293-347): the Poisson or Normal loglik (the latter with the
-    state's sigmasq), the padded KL; the acceptance rates are 1 without
-    MH. ``it`` is a host number, ``temperature`` a host number or a device
-    tensor; everything else stays on the device."""
+    (gibbs.py:293-347) for C chains at once, every sum taken per chain:
+    the Poisson or Normal loglik (the latter with the state's sigmasq), the
+    padded KL; the acceptance rates are 1 without MH. ``it`` is a host
+    number, ``temperature`` a host number or a device tensor, ``na_events``
+    a number or a (C,) tensor; everything else stays on the device. The
+    (C, N_METRICS) rows go to ``out`` when given."""
     if consts is None:
         consts = m.metric_constants(spec.likelihood, data)
+    s2 = (-2, -1)
     # one log(max(Mhat, floor)) pass feeds both the loglik and the padded
     # KL (the floors coincide: MHAT_FLOOR == the KL pad, 1e-6)
     lam = Mh.clamp_min(m.MHAT_FLOOR)
     L = torch.log(lam)
     if spec.likelihood == "poisson":
-        loglik = torch.sum(data * L) - torch.sum(lam) - consts["lgamma_sum"]
+        loglik = (torch.sum(data * L, s2) - torch.sum(lam, s2)
+                  - consts["lgamma_sum"])
     else:
-        loglik = torch.sum(m.normal_loglik_mat(data, Mh, params["sigmasq"]))
-    kl = consts["mlogm_sum"] - torch.sum(data.clamp_min(1e-6) * L)
+        loglik = torch.sum(m.normal_loglik_mat(
+            data, Mh, params["sigmasq"].unsqueeze(-2)), s2)
+    kl = consts["mlogm_sum"] - torch.sum(data.clamp_min(1e-6) * L, s2)
     logpost = loglik + m.logprior_PE(params["P"], params["E"], spec.prior,
                                      prior)
     A = params["A"]
+    C = A.shape[0]
     n_par = m.n_params_of(A, spec.K, spec.G)
-    sum_a = torch.sum(A)
-    row = torch.empty(N_METRICS, dtype=torch.float32, device=data.device)
-    _fill(row, 0, it)
-    row[1:8] = torch.stack([m.rmse(data, Mh), kl, loglik, logpost, n_par,
-                            m.bic(loglik, n_par, spec.G), sum_a])
-    _fill(row, 8, temperature)
+    sum_a = torch.sum(A, -1)
+    d = Mh - data
+    rmse = torch.sqrt(torch.mean(d * d, s2))
+    row = (torch.empty(C, N_METRICS, dtype=torch.float32, device=data.device)
+           if out is None else out)
+    _fill(row[:, 0], it)
+    row[:, 1:8] = torch.stack([rmse, kl, loglik, logpost, n_par,
+                               m.bic(loglik, n_par, spec.G), sum_a], -1)
+    _fill(row[:, 8], temperature)
     if spec.MH:
-        row[9:11] = torch.stack([
-            torch.sum(acc_P * A.unsqueeze(0)) / (sum_a * spec.K).clamp_min(1),
-            torch.sum(acc_E * A.unsqueeze(1)) / (sum_a * spec.G).clamp_min(1)])
+        row[:, 9:11] = torch.stack([
+            torch.sum(acc_P * A.unsqueeze(-2), s2)
+            / (sum_a * spec.K).clamp_min(1),
+            torch.sum(acc_E * A.unsqueeze(-1), s2)
+            / (sum_a * spec.G).clamp_min(1)], -1)
     else:
-        row[9:11].fill_(1.0)
-    _fill(row, 11, na_events)
+        row[:, 9:11].fill_(1.0)
+    _fill(row[:, 11], na_events)
     return row
 
 
 def snapshot_sample(spec: ModelSpec, data, state: dict, temperature) -> dict:
     """Sample record of the current state without advancing the chain (the
-    initial sample, bayesNMF_sampler.R:240-257)."""
+    initial sample, bayesNMF_sampler.R:240-257), for one chain or C."""
     params = state["params"]
+    if params["P"].dim() == 2:
+        return U.drop(snapshot_sample(spec, data, U.lift(state),
+                                      temperature))
     Mh = m.mhat(params["P"], params["A"], params["E"])
     metrics = _metrics_row(spec, data, params, state["prior"], Mh,
                            state["iter"], temperature, state.get("acc_P"),
@@ -481,13 +548,21 @@ def snapshot_sample(spec: ModelSpec, data, state: dict, temperature) -> dict:
 def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
                       device) -> dict:
     """All random numbers of one streaming step for ``chains`` chains: one
-    uniform draw and one normal draw, cut into views laid out as the JAX
-    step draws them from its keys (gibbs.py:121-132)."""
+    chain-major uniform draw and one normal draw, cut into views laid out
+    as the JAX step draws them from its keys (gibbs.py:121-132): the
+    exponential prior's gamma planes or the exact hyper-sweep's noise, each
+    sweep's prior-draw uniforms and column uniforms, and with rank learning
+    the Gumbel noise and the A uniforms."""
     K, N, G = spec.K, spec.N, spec.G
+    expo = spec.prior == "exponential"
     # the reference's conjugate hyper-update draws its own
-    nh = U.n_hyper_noise(spec) if spec.exact_truncnorm_hypers else 0
-    shapes = {"prior": (nh,), "P_prior": (2, K, N), "P": (3, N, K),
-              "E_prior": (2, N, G), "E": (3, N, G)}
+    nh = (U.n_hyper_noise(spec) if spec.exact_truncnorm_hypers and not expo
+          else 0)
+    tn = () if expo else (2,)
+    shapes = {"prior": (nh,), "P_prior": tn + (K, N), "P": (3, N, K),
+              "E_prior": tn + (N, G), "E": (3, N, G)}
+    if expo:
+        shapes |= {"Lambda_p": (9, K, N), "Lambda_e": (9, N, G)}
     if spec.learning_rank:
         shapes |= {"R": (N + 1,), "A": (N,)}
     sizes = {k: int(np.prod(s)) for k, s in shapes.items()}
@@ -501,7 +576,9 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
         "P": {"prior_u": views["P_prior"], "u": views["P"]},
         "E": {"prior_u": views["E_prior"], "u": views["E"]},
     }
-    if spec.exact_truncnorm_hypers:
+    if expo:
+        noise["prior"] = {"p": views["Lambda_p"], "e": views["Lambda_e"]}
+    elif spec.exact_truncnorm_hypers:
         noise["prior"] = {"z": torch.randn((chains, nh), generator=gen,
                                            device=device),
                           "u": views["prior"]}
@@ -514,11 +591,13 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
 def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                 accept_all, metric_consts=None, noise=None, metrics_out=None):
     """One Gibbs iteration of every chain on the streaming path
-    (gibbs.py:228-264): the hyper-update, the P and E sweeps, and with
-    rank learning the R draw and the A sweep, then the metrics row from the
-    state by one call of ops/stream_sweeps.stream_metrics_row (no Mhat, no
-    P*A and no host arithmetic on the state). State tensors carry the chain
-    axis C; ``accept_all`` is a (C,) bool tensor; ``noise``
+    (gibbs.py:228-264): the prior update (Mu/Sigmasq, or the exponential
+    prior's Lambda on the (C, K, N) and (C, N, G) planes), the P and E
+    sweeps, and with rank learning the R draw and the A sweep, then the
+    metrics row from the state by one call of
+    ops/stream_sweeps.stream_metrics_row (no Mhat, no P*A and no host
+    arithmetic on the state). State tensors carry the chain axis C;
+    ``accept_all`` is a (C,) bool tensor; ``noise``
     (draw_stream_noise's layout) is drawn from ``state['gen']`` when None;
     ``metrics_out``, a (C, N_METRICS) slice of a chunk buffer, takes the
     rows when given. Returns (new_state, sample_out) with sample_out P
@@ -548,11 +627,11 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     new_iter = state["iter"] + 1
     new_state = {"params": params, "prior": prior, "gen": state["gen"],
                  "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
+    hp_p, hp_e = (U._stream_prior(spec, prior, side) for side in "pe")
     metrics = S.stream_metrics_row(
-        data, params["P"], params["E"], params["A"], acc_P, acc_E,
-        prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"], prior["Sigmasq_e"],
-        metric_consts["lgamma_sum"], metric_consts["mlogm_sum"], na_events,
-        new_iter, temperature, out=metrics_out)
+        data, params["P"], params["E"], params["A"], acc_P, acc_E, *hp_p,
+        *hp_e, metric_consts["lgamma_sum"], metric_consts["mlogm_sum"],
+        na_events, new_iter, temperature, out=metrics_out, prior=spec.prior)
     return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
                        "metrics": metrics}
 

@@ -5,7 +5,12 @@ likelihood with MH (truncnormal or exponential prior, through the fused
 kernel, or with ``fused_sweeps=False`` the eager sweeps) or conjugate Gibbs
 (MH=False, exponential prior, through the allocation kernel), and the
 Normal likelihood (truncnormal or exponential prior, the eager sweeps), at
-a fixed rank or learning it over a rank list by SBFI/BFI. The hot loop
+a fixed rank or learning it over a rank list by SBFI/BFI/BIC (the last
+without the SBFI penalty, as the JAX step runs it). ``fit`` with
+``rank_method='BIC'`` over a rank list fits one model per rank and keeps
+the one of least BIC: by default all at once, one chain per rank in a
+``ChainEnsemble`` with a fixed inclusion mask per chain, else one sampler
+per rank in turn. The hot loop
 runs on the device in chunks of MAP_every iterations (models/gibbs.py);
 this class owns everything at chunk granularity: sample
 windows, metrics history, convergence, logging, checkpointing and the
@@ -80,10 +85,23 @@ def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def check_counts(spec: ModelSpec, data: np.ndarray):
+    """Raise ValueError when the conjugate path (MH=False) gets data that
+    are not non-negative integer counts: the allocation's inversion stops
+    once x reaches the count, which returns the reference's draw for
+    integer counts only."""
+    if spec.needs_Z and not (np.all(data >= 0.0)
+                             and np.array_equal(data, np.round(data))):
+        raise ValueError("the conjugate Poisson-Gibbs sampler (MH=False) "
+                         "takes non-negative integer counts")
+
+
 class GibbsSampler:
     """Single-chain Bayesian NMF Gibbs sampler. ``rank`` is an int (a fixed
     rank) or a list of ranks, which learns the rank over 0..max(rank) by
-    ``rank_method`` 'SBFI' or 'BFI' (bayesNMF_sampler.R:118-125)."""
+    ``rank_method`` 'SBFI', 'BFI' or 'BIC' (bayesNMF_sampler.R:118-125;
+    'BIC' here runs the inclusion sweep without the SBFI penalty, as the
+    JAX sampler does; ``fit`` runs 'BIC' one rank at a time)."""
 
     def __init__(
         self,
@@ -122,10 +140,6 @@ class GibbsSampler:
         else:
             ranks = sorted(int(r) for r in rank)
         learning_rank = len(ranks) > 1
-        if learning_rank and rank_method == "BIC":
-            raise NotImplementedError(
-                "rank_method='BIC' over a rank list (one fit per rank) is not "
-                "ported yet (see ROADMAP.md queue 1 item 5)")
         if learning_rank and min(ranks) != 0:
             ranks = list(range(0, max(ranks) + 1))  # bayesNMF_sampler.R:125
         if mesh is not None:
@@ -155,12 +169,7 @@ class GibbsSampler:
             fused_sweeps = spec.likelihood == "poisson" and spec.MH
         spec = dataclasses.replace(spec, fused_sweeps=fused_sweeps)
         gibbs.check_spec(spec)
-        if spec.needs_Z and not (np.all(data >= 0.0)
-                                 and np.array_equal(data, np.round(data))):
-            # the allocation's inversion stops once x reaches the count,
-            # which returns the reference's draw for integer counts only
-            raise ValueError("the conjugate Poisson-Gibbs sampler (MH=False) "
-                             "takes non-negative integer counts")
+        check_counts(spec, data)
         self.spec = spec
         self.cc = convergence_control or ConvergenceControl()
         self.run_cfg = RunConfig(
@@ -539,15 +548,92 @@ class GibbsSampler:
 def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
         rank_method: str = "SBFI", MH: Optional[bool] = None,
         convergence_control: Optional[ConvergenceControl] = None,
-        output_dir: Optional[str] = "default", **kw):
-    """Fit Bayesian NMF with one chain; the port of ``bayesnmf_tpu.fit``
-    (bayesNMF, bayesNMF.R:24-138) at a fixed rank or, with a rank list,
-    learning the rank by SBFI/BFI (rank_method='BIC', one fit per rank, is
-    not ported: ROADMAP.md queue 1 item 5). ``output_dir`` defaults to
-    ``nmf_<likelihood>_<prior>``; None disables logging and checkpoints.
-    Keyword arguments go to GibbsSampler (``device`` among them)."""
+        output_dir: Optional[str] = "default", parallel_bic: bool = True,
+        **kw):
+    """Fit Bayesian NMF; the port of ``bayesnmf_tpu.fit`` (bayesNMF,
+    bayesNMF.R:24-138). With a scalar rank, or a rank list and rank_method
+    SBFI/BFI, this runs one sampler and returns it. With a rank list and
+    rank_method='BIC' it fits one model per candidate rank and returns
+    {results, best_rank, sampler} for the least final BIC
+    (bayesNMF.R:66-126; sampler.py:612-711 of the JAX package):
+
+    - ``parallel_bic=True`` (the default) runs every rank at once as one
+      ``ChainEnsemble`` of the max-rank model, chain c's inclusion vector
+      fixed to the first ranks[c] columns (``A_masks``), so its excluded
+      columns draw from the prior as a dedicated rank-k fit's would; the
+      dict adds the ``ensemble``, and ``sampler`` is the winning chain's
+      view. A keyword ``ChainEnsemble`` does not take (``exact_mh``,
+      ``exact_truncnorm_hypers``, ``save_all_samples``, ...) sends the
+      search to the serial loop with a warning;
+    - ``parallel_bic=False`` runs one ``GibbsSampler`` per rank in turn,
+      each logging to ``output_dir/rank_<k>``, and saves the winner's
+      checkpoint at ``output_dir/sampler.ckpt``.
+
+    ``output_dir`` defaults to ``nmf_<likelihood>_<prior>``; None disables
+    logging and checkpoints. Other keyword arguments go to GibbsSampler or
+    ChainEnsemble (``device`` among them)."""
     if output_dir == "default":
         output_dir = f"nmf_{likelihood}_{prior}"
+    learning = (not isinstance(rank, (int, np.integer))
+                and len(list(rank)) > 1)
+    if learning and rank_method == "BIC" and parallel_bic:
+        import inspect
+        import warnings
+
+        from ..parallel.ensemble import ChainEnsemble
+
+        supported = set(inspect.signature(ChainEnsemble.__init__).parameters)
+        unsupported = sorted(k for k in kw if k not in supported)
+        if unsupported:
+            warnings.warn(
+                "fit(rank_method='BIC'): kwargs not supported by the "
+                f"parallel-BIC ensemble ({', '.join(unsupported)}); falling "
+                "back to the serial per-rank loop (one fit per rank, "
+                "substantially slower). Drop them or pass parallel_bic=False "
+                "to silence this.", stacklevel=2)
+        else:
+            ranks = sorted(int(r) for r in rank)
+            N = max(ranks)
+            masks = np.zeros((len(ranks), N), np.float32)
+            for c, k in enumerate(ranks):
+                masks[c, :k] = 1.0
+            ens = ChainEnsemble(
+                data, N, n_chains=len(ranks), likelihood=likelihood,
+                prior=prior, MH=MH, convergence_control=convergence_control,
+                output_dir=output_dir, A_masks=masks, **kw)
+            ens.run()
+            table = ens.bic_table()
+            results = [{"rank": int(r["rank"]), "chain": int(r["chain"]),
+                        "dir": ens.output_dir, "BIC": float(r["BIC"]),
+                        "time": ens.time["total"]}
+                       for _, r in table.iterrows()]
+            best_chain = int(table.iloc[0]["chain"])
+            return {"results": results,
+                    "best_rank": int(table.iloc[0]["rank"]),
+                    "sampler": ens.chain(best_chain), "ensemble": ens}
+    if learning and rank_method == "BIC":
+        results = []
+        best = None
+        for k in sorted(int(r) for r in rank):
+            od_k = (os.path.join(output_dir, f"rank_{k}") if output_dir
+                    else None)
+            s = GibbsSampler(
+                data, k, likelihood=likelihood, prior=prior,
+                rank_method=rank_method, MH=MH,
+                convergence_control=convergence_control, output_dir=od_k,
+                **kw)
+            s.run_gibbs_sampler()
+            bic_k = s.MAP_metrics[-1]["BIC"]
+            results.append({"rank": k, "dir": od_k, "BIC": bic_k,
+                            "time": s.time["total"]})
+            if best is None or bic_k < best[0]:
+                best = (bic_k, k, s)
+        results.sort(key=lambda r: r["BIC"])
+        if output_dir:
+            # the winning sampler saved at the parent level (bayesNMF.R:125)
+            best[2].save_object(os.path.join(output_dir, "sampler.ckpt"))
+        return {"results": results, "best_rank": best[1], "sampler": best[2]}
+
     sampler = GibbsSampler(
         data, rank, likelihood=likelihood, prior=prior,
         rank_method=rank_method, MH=MH,

@@ -10,8 +10,8 @@ bayesnmf_tpu/models/updates.py:
   (the fused kernel carries its own copy), the reference's conjugate
   update (``exact_truncnorm_hypers=False``), and the exponential prior's
   Lambda ~ Gamma(a + 1, b + x);
-- the eager sequential sweeps ``sweep_P``/``sweep_E`` (:266-531) of one
-  chain: the Normal likelihood's conjugate column draws and Poisson MH
+- the eager sequential sweeps ``sweep_P``/``sweep_E`` (:266-531): the
+  Normal likelihood's conjugate column draws and Poisson MH
   with the exact or the reference Hastings ratio, issued column by column
   as tensor ops (no kernel: the JAX package runs them in XLA), and
   ``sample_sigmasq`` (:880-886);
@@ -21,15 +21,19 @@ bayesnmf_tpu/models/updates.py:
 - rank learning: ``prior_prob_1`` and ``sample_R`` (:770-783), the
   Mhat-based ``sweep_A`` (:786-835) of the conjugate and eager paths, for
   either likelihood, and ``stream_sweep_A`` (:838-872);
-- the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725),
-  whose column updates are the kernels of ops/stream_sweeps.py.
+- the streaming sweeps ``stream_sweep_P``/``stream_sweep_E`` (:539-725)
+  with either prior, whose column updates are the kernels of
+  ops/stream_sweeps.py.
 
-On the streaming path every tensor carries a leading chain axis C and one
-call updates the whole ensemble; ``accept_all`` is a (C,) bool tensor, and
-every branch on device data is a ``torch.where``, so no call waits for the
-device. Each function takes its random numbers as optional ``noise``
-operands laid out as the JAX function draws them from its key (the tests
-feed it the JAX draws); when ``noise`` is None they come from ``gen``.
+Every function takes C chains at once, each per-chain tensor with a
+leading chain axis (the streaming ones only so); those the single-chain
+sampler calls take one chain's tensors too, as a batch of one (``lift``,
+``drop``). ``accept_all`` is a bool or a (C,) bool tensor, and every
+branch on device data is a ``torch.where``, so no call waits for the
+device but the gamma draws' rejection check. Each function takes its
+random numbers as optional ``noise`` operands laid out as the JAX function
+draws them from its key (the tests feed it the JAX draws); when ``noise``
+is None they come from ``gen``.
 """
 
 from __future__ import annotations
@@ -63,6 +67,27 @@ def _require_ported_prior(spec: ModelSpec):
 
 def _rand(gen, shape, device, low=_U_MIN):
     return torch.rand(shape, generator=gen, device=device).clamp_min_(low)
+
+
+def lift(x):
+    """One chain's operands as a batch of one: every tensor of ``x`` (a
+    tensor, or tuples and nested dicts of them) gains a leading chain axis
+    of 1 (a view); anything else is returned as it is."""
+    if isinstance(x, tuple):
+        return tuple(lift(v) for v in x)
+    if isinstance(x, dict):
+        return {k: lift(v) for k, v in x.items()}
+    return x.unsqueeze(0) if isinstance(x, torch.Tensor) else x
+
+
+def drop(x):
+    """The inverse of ``lift`` on results: chain 0 of every tensor of ``x``
+    (a tensor, or tuples and nested dicts of them)."""
+    if isinstance(x, tuple):
+        return tuple(drop(v) for v in x)
+    if isinstance(x, dict):
+        return {k: drop(v) for k, v in x.items()}
+    return x[0] if isinstance(x, torch.Tensor) else x
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +213,8 @@ def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     """Lambda | x ~ Gamma(a + 1, b + x) for both sides (sample_priors.R:
     284-308, updates.py:196-203). ``noise``: {"p": ..., "e": ...}, the
     gamma draws' uniform planes (9,) + shape as the JAX function draws them
-    from split(key, 4)[0] and [1]."""
+    from split(key, 4)[0] and [1], with a leading chain axis (C, 9) + shape
+    when P and E carry one."""
     P, E = params["P"], params["E"]
     noise = noise or {}
     new = dict(prior)
@@ -196,7 +222,7 @@ def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
         new[f"Lambda_{side}"] = dist.gamma(
             gen, torch.full_like(x, float(hp[f"a_{side}"])) + 1.0,
             torch.full_like(x, float(hp[f"b_{side}"])) + x,
-            u=noise.get(side))
+            u=noise.get(side), chain_axis=x.dim() == 3)
     return new
 
 
@@ -207,7 +233,8 @@ def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
     the B_e rate corrected; updates.py:182-195). ``noise``: {"mu_p",
     "mu_e"}: the standard normals, shaped as P and E; {"sq_p", "sq_e"}: the
     inverse-gamma draws' uniform planes (9,) + shape, as the JAX function
-    draws them from split(key, 4)."""
+    draws them from split(key, 4); with a chain axis on P and E, every
+    operand has one ((C, 9) + shape for the planes)."""
     noise = noise or {}
     new = dict(prior)
     for side, x in (("p", params["P"]), ("e", params["E"])):
@@ -221,7 +248,7 @@ def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
         new[f"Mu_{side}"] = mu
         new[f"Sigmasq_{side}"] = dist.inv_gamma(
             gen, h(f"a_{side}") + 0.5, h(f"b_{side}") + 0.5 * d * d,
-            u=noise.get(f"sq_{side}"))
+            u=noise.get(f"sq_{side}"), chain_axis=x.dim() == 3)
     return new
 
 
@@ -298,31 +325,38 @@ def _conditional(spec: ModelSpec, mu1, den, lam, mu0, inv_sq):
 
 
 def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
-           Mhat, acc, accept_all: bool, gen, noise):
+           Mhat, acc, accept_all, gen, noise):
     """sweep_P (``side`` "P", the N columns of P, each a K-vector whose
     sums run over G) or sweep_E (side "E", the rows of E, G-vectors summed
-    over K); see sweep_P."""
-    K, N, G = spec.K, spec.N, spec.G
-    A = params["A"]
+    over K) of C chains at once; see sweep_P."""
+    if params["P"].dim() == 2:  # one chain: a batch of one
+        return drop(_sweep(spec, side, data, lift(params), lift(prior),
+                           lift(Mhat), lift(acc), accept_all, gen,
+                           lift(noise)))
+    N = spec.N
+    A = params["A"]                                      # (C, N)
+    C = A.shape[0]
     mh = spec.likelihood == "poisson" and spec.MH
+    # the other factor is fixed through the sweep: its n-th vector in the
+    # shape that broadcasts against (C, K, G), its squares and the all-zero
+    # test; ``red`` the axis of (C, K, G) a column's sums run over
     if side == "P":
-        X, other, dim, L = params["P"].clone(), params["E"], 1, K
-        sfx, outer = "p", (lambda x, o: torch.outer(x, o))
+        X, o_all, xdim, red, sfx = params["P"].clone(), params["E"], 2, -1, "p"
+        outer = lambda x, o: x.unsqueeze(-1) * o.unsqueeze(-2)  # noqa: E731
+        bc = lambda v: v.unsqueeze(-2)                          # noqa: E731
     else:
-        X, other, dim, L = params["E"].clone(), params["P"], 0, G
-        sfx, outer = "e", (lambda x, o: torch.outer(o, x))
-    # the other factor is fixed through the sweep: the broadcast shape of
-    # its n-th vector against (K, G), its squares and the all-zero test
-    bc = (lambda v: v.unsqueeze(0)) if side == "P" else (
-        lambda v: v.unsqueeze(1))
-    o_all = other if side == "P" else other.t()          # (N, G) or (N, K)
+        X, xdim, red, sfx = params["E"].clone(), 1, -2, "e"
+        o_all = params["P"].transpose(-1, -2)            # (C, N, K)
+        outer = lambda x, o: o.unsqueeze(-1) * x.unsqueeze(-2)  # noqa: E731
+        bc = lambda v: v.unsqueeze(-1)                          # noqa: E731
     o_sq = o_all * o_all
-    inactive = o_sq.sum(1) <= 0.0                        # (N,)
+    inactive = o_sq.sum(-1) <= 0.0                       # (C, N)
+    L = X.shape[3 - xdim]
     if noise is None:
         tn = spec.prior == "truncnormal"
-        noise = {"prior_u": (_rand(gen, (2,) + X.shape, X.device,
+        noise = {"prior_u": (_rand(gen, (C, 2) + X.shape[1:], X.device,
                                    low=dist._TINY) if tn else None),
-                 "u": _rand(gen, (3, N, L), X.device)}
+                 "u": _rand(gen, (C, 3, N, L), X.device)}
     draw = _prior_draw_P if side == "P" else _prior_draw_E
     X_prior = draw(spec, prior, gen, noise["prior_u"])
     U = noise["u"]
@@ -338,27 +372,32 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
     if mh:
         acc = acc.clone()
     else:
-        inv_sig = 1.0 / params["sigmasq"].unsqueeze(0)   # (1, G)
-    n_nan = torch.zeros((), dtype=torch.float32, device=X.device)
+        inv_sig = 1.0 / params["sigmasq"].unsqueeze(-2)  # (C, 1, G)
+    flags = (accept_all.view(C, 1) if isinstance(accept_all, torch.Tensor)
+             else None)
+    n_nan = torch.zeros(C, dtype=torch.float32, device=X.device)
     for n in range(N):
-        A_n, x_n, o_n = A[n], X.select(dim, n), o_all[n]
-        x_prior, u = X_prior.select(dim, n), U[:, n]
-        lam, mu0, inv_sq = (None if t is None else t.select(dim, n)
+        A2 = A[:, n:n + 1]                               # (C, 1)
+        A3 = A2.unsqueeze(-1)                            # (C, 1, 1)
+        x_n, o_n = X.select(xdim, n), o_all[:, n]
+        x_prior, u = X_prior.select(xdim, n), U[:, :, n]
+        lam, mu0, inv_sq = (None if t is None else t.select(xdim, n)
                             for t in (lam_all, mu0_all, inv_sq_all))
-        o_b, o2_b = bc(o_n), bc(o_sq[n])
+        inactive_n = inactive[:, n:n + 1]
+        o_b, o2_b = bc(o_n), bc(o_sq[:, n])
         if mh:  # the proposal's variance is max(Mhat, floor)
             lam_old = Mhat.clamp_min(m.MHAT_FLOOR)
             inv_sig = 1.0 / lam_old
-        resid = data - (Mhat - A_n * outer(x_n, o_n))
-        mu1 = torch.sum(resid * inv_sig * o_b, dim)
-        den = A_n * torch.sum(inv_sig * o2_b, dim)
+        resid = data - (Mhat - A3 * outer(x_n, o_n))
+        mu1 = torch.sum(resid * inv_sig * o_b, red)
+        den = A2 * torch.sum(inv_sig * o2_b, red)
         mu, var = _conditional(spec, mu1, den, lam, mu0, inv_sq)
-        cond = dist.truncnorm_nonneg_from_u(u[0], u[1], mu, var)
+        cond = dist.truncnorm_nonneg_from_u(u[:, 0], u[:, 1], mu, var)
         # prior fallback: an all-zero vector of the other factor
         # (sample_Pn.R:12-13, 56)
-        proposal = torch.where(inactive[n], x_prior, cond)
+        proposal = torch.where(inactive_n, x_prior, cond)
         if mh:
-            Mhat_prop = Mhat + A_n * outer(proposal - x_n, o_n)
+            Mhat_prop = Mhat + A3 * outer(proposal - x_n, o_n)
             lam_new = Mhat_prop.clamp_min(m.MHAT_FLOOR)
             d_lam = lam_new - lam_old
             lp_core = data * torch.log1p(d_lam / lam_old) - d_lam
@@ -366,21 +405,21 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
                 # the reverse move's conditional shares Mhat_no_n; only its
                 # proposal variance max(Mhat_prop, floor) differs
                 inv_sig_r = 1.0 / lam_new
-                mu1_r = torch.sum(resid * inv_sig_r * o_b, dim)
-                den_r = A_n * torch.sum(inv_sig_r * o2_b, dim)
+                mu1_r = torch.sum(resid * inv_sig_r * o_b, red)
+                den_r = A2 * torch.sum(inv_sig_r * o2_b, red)
                 mu_r, var_r = _conditional(spec, mu1_r, den_r, lam, mu0,
                                            inv_sq)
                 if spec.prior == "exponential":
                     lprior = -lam * (proposal - x_n)
                 else:
                     lprior = m.truncnorm_logpdf_delta(
-                        proposal, x_n, mu_all.select(dim, n),
-                        sq_all.select(dim, n))
-                log_ratio = (torch.sum(lp_core, dim) + lprior
+                        proposal, x_n, mu_all.select(xdim, n),
+                        sq_all.select(xdim, n))
+                log_ratio = (torch.sum(lp_core, red) + lprior
                              + m.truncnorm_logpdf(x_n, mu_r, var_r)
                              - m.truncnorm_logpdf(proposal, mu, var))
                 # the prior-draw fallback: target and proposal coincide
-                log_ratio = torch.where(inactive[n], 0.0, log_ratio)
+                log_ratio = torch.where(inactive_n, 0.0, log_ratio)
             else:
                 # the reference's ratio: normal-model likelihoods with
                 # variances pmax(Mhat_prop, 1) / pmax(Mhat, 1) stand in
@@ -393,29 +432,32 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
                     lp_core
                     + (-0.5 * r_old * r_old / vs_old - 0.5 * torch.log(vs_old))
                     - (-0.5 * r_new * r_new / vs_new
-                       - 0.5 * torch.log(vs_new)), dim)
+                       - 0.5 * torch.log(vs_new)), red)
             ratio = torch.exp(log_ratio).clamp_max(1.0)
             nan = torch.isnan(ratio)
-            n_nan = n_nan + nan.sum(dtype=torch.float32)
+            n_nan = n_nan + nan.sum(-1, dtype=torch.float32)
             ratio = torch.where(nan, 0.0, ratio)
-            if accept_all:
+            if flags is not None:
+                x_mh = torch.where(flags | (u[:, 2] < ratio), proposal, x_n)
+                rec = torch.where(flags, 1.0, ratio)
+            elif accept_all:
                 x_mh, rec = proposal, torch.ones_like(ratio)
             else:
-                x_mh, rec = torch.where(u[2] < ratio, proposal, x_n), ratio
-            acc_n = acc.select(dim, n)
-            acc_n.copy_(torch.where(A_n == 0, acc_n, rec))
+                x_mh, rec = torch.where(u[:, 2] < ratio, proposal, x_n), ratio
+            acc_n = acc.select(xdim, n)
+            acc_n.copy_(torch.where(A2 == 0, acc_n, rec))
         else:
             x_mh = proposal
-        new = torch.where(A_n == 0, x_prior, x_mh)
-        Mhat = Mhat + A_n * outer(new - x_n, o_n)
+        new = torch.where(A2 == 0, x_prior, x_mh)
+        Mhat = Mhat + A3 * outer(new - x_n, o_n)
         x_n.copy_(new)
     return X, Mhat, (acc if mh else None), n_nan
 
 
 def sweep_P(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_P,
-            accept_all: bool, gen=None, noise=None):
-    """Sample the N columns of P in turn from their full conditionals, one
-    chain, as host-issued tensor ops (sample_Pn / sample_Pn_normal /
+            accept_all, gen=None, noise=None):
+    """Sample the N columns of P in turn from their full conditionals, as
+    host-issued tensor ops (sample_Pn / sample_Pn_normal /
     MH_Pn_poisson, sample_Pn.R:11-248; updates.py:266-412), with Mhat
     carried by rank-1 updates. The Normal likelihood draws each column from
     its truncated-normal conditional with variance sigmasq; Poisson MH
@@ -425,17 +467,22 @@ def sweep_P(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_P,
     with A_n = 0 or an all-zero E row draws from the prior; a NaN ratio
     is clamped to 0 and counted. Nothing reads the device.
 
-    ``noise``: {"prior_u": the prior draw's uniforms ((2, K, N) for the
-    truncnormal prior, (K, N) for the exponential one), "u": (3, N, K)},
-    laid out as the JAX function draws them from split(key) (the tests
-    feed it those draws); else drawn from ``gen``. Returns (P, Mhat, acc_P,
-    n_nan): acc_P None without MH; the inputs are not modified."""
+    One chain (P (K, N), Mhat (K, G), ...) or C chains at once, every
+    per-chain operand with a leading chain axis (P (C, K, N), A (C, N),
+    Mhat (C, K, G), sigmasq (C, G), the noise's parts); ``accept_all`` a
+    bool or a (C,) bool tensor. ``noise``: {"prior_u": the prior draw's
+    uniforms ((2, K, N) for the truncnormal prior, (K, N) for the
+    exponential one), "u": (3, N, K)}, laid out as the JAX function draws
+    them from split(key) (the tests feed it those draws), each chain's its
+    own slice of a chain-major batch; else drawn from ``gen``. Returns (P,
+    Mhat, acc_P, n_nan (C,)): acc_P None without MH; the inputs are not
+    modified."""
     return _sweep(spec, "P", data, params, prior, Mhat, acc_P, accept_all,
                   gen, noise)
 
 
 def sweep_E(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_E,
-            accept_all: bool, gen=None, noise=None):
+            accept_all, gen=None, noise=None):
     """sweep_P's mirror over the N rows of E (sample_En.R;
     updates.py:420-531): the sums run over K and the prior fallback is an
     all-zero P column. ``noise``: {"prior_u": (2, N, G) or (N, G),
@@ -480,47 +527,54 @@ def sbfi_penalty(spec: ModelSpec) -> float:
 
 def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
             gen=None, u=None):
-    """Sequential tempered Bernoulli updates of the inclusion vector A on
-    one chain, from Mhat (sample_An, sample_params.R:101-166;
-    updates.py:786-835): column n's loglik(A_n=1) - loglik(A_n=0) is one
-    reduction over K*G (Poisson, or Normal with the state's sigmasq), SBFI
-    subtracts the BIC-penalty delta, BFI does not, and Mhat is rewritten by
-    a rank-1 term. ``u``: (N,) uniforms, column
-    n's Bernoulli draw in u[n] (the JAX draw from split(key, N)[n]).
-    Returns (A, Mhat, n_nan), n_nan counting posteriors clamped NaN -> 1/2.
+    """Sequential tempered Bernoulli updates of the inclusion vector A from
+    Mhat (sample_An, sample_params.R:101-166; updates.py:786-835): column
+    n's loglik(A_n=1) - loglik(A_n=0) is one reduction over K*G (Poisson,
+    or Normal with the state's sigmasq), SBFI subtracts the BIC-penalty
+    delta, BFI and BIC (a rank list under rank_method='BIC', updates.py:819)
+    do not, and Mhat is rewritten by a rank-1 term. One chain (A (N,), R a
+    scalar, Mhat (K, G)) or C chains with a leading chain axis. ``u``: (N,)
+    or (C, N) uniforms, column n's Bernoulli draw in u[..., n] (the JAX
+    draw from split(key, N)[n]). Returns (A, Mhat, n_nan), n_nan counting
+    posteriors clamped NaN -> 1/2.
     """
+    if params["P"].dim() == 2:  # one chain: a batch of one
+        return drop(sweep_A(spec, data, lift(params), lift(R), lift(Mhat),
+                            temperature, gen, lift(u)))
     P, E = params["P"], params["E"]
     A = params["A"].clone()
-    N = spec.N
+    C, N = A.shape
     if u is None:
-        u = _rand(gen, (N,), P.device)
+        u = _rand(gen, (C, N), P.device)
     p1 = prior_prob_1(R.to(torch.float32), N)
     logit_p1 = torch.log(p1) - torch.log1p(-p1)
     pen = sbfi_penalty(spec)
-    n_nan = torch.zeros((), dtype=torch.float32, device=P.device)
+    n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
     if spec.likelihood == "normal":
-        two_sig = 2.0 * params["sigmasq"].unsqueeze(0)
+        two_sig = 2.0 * params["sigmasq"].unsqueeze(-2)
     for n in range(N):
-        contrib = P[:, n:n + 1] * E[n:n + 1, :]
-        Mhat_off = Mhat - A[n] * contrib
+        contrib = P[:, :, n:n + 1] * E[:, n:n + 1, :]
+        Mhat_off = Mhat - A[:, n].view(C, 1, 1) * contrib
         if spec.likelihood == "poisson":
             lam_on = (Mhat_off + contrib).clamp_min(m.MHAT_FLOOR)
             lam_off = Mhat_off.clamp_min(m.MHAT_FLOOR)
             d_lam = lam_on - lam_off
-            delta = torch.sum(data * torch.log1p(d_lam / lam_off) - d_lam)
+            delta = torch.sum(data * torch.log1p(d_lam / lam_off) - d_lam,
+                              (-2, -1))
         else:
             r_on = data - (Mhat_off + contrib)
             r_off = data - Mhat_off
-            delta = torch.sum((r_off * r_off - r_on * r_on) / two_sig)
+            delta = torch.sum((r_off * r_off - r_on * r_on) / two_sig,
+                              (-2, -1))
         if spec.rank_method == "SBFI":
             delta = delta - pen
         p = torch.sigmoid(logit_p1 + temperature * delta)
         is_nan = torch.isnan(p)
         n_nan = n_nan + is_nan.to(torch.float32)
         p = torch.where(is_nan, 0.5, p)
-        a_new = dist.bernoulli_from_u(u[n], p)
-        Mhat = Mhat_off + a_new * contrib
-        A[n] = a_new
+        a_new = dist.bernoulli_from_u(u[:, n], p)
+        Mhat = Mhat_off + a_new.view(C, 1, 1) * contrib
+        A[:, n] = a_new
     return A, Mhat, n_nan
 
 
@@ -529,7 +583,8 @@ def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
     """Sequential tempered Bernoulli updates of the inclusion vector A
     (sample_An, sample_params.R:101-166), the whole sweep one call of
     ops/stream_sweeps.stream_acol_update, whose kernels take each column's
-    loglik delta, the SBFI penalty (BFI: none), the tempered sigmoid, the
+    loglik delta, the SBFI penalty (BFI and BIC: none), the tempered
+    sigmoid, the
     NaN fallback and the draw in turn. ``u``: (C, N) uniforms, column n's
     Bernoulli draw in u[:, n]. Returns (A, n_nan), n_nan (C,) counting
     posteriors clamped NaN -> 1/2.
@@ -556,12 +611,14 @@ def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
 def sample_sigmasq(spec: ModelSpec, data, prior: dict, Mhat, gen=None,
                    u=None):
     """sigmasq_g ~ InvGamma(Alpha + K/2, Beta + sum_k resid^2 / 2)
-    (sample_params.R:275-286; updates.py:880-886); ``u``: the gamma draw's
-    uniform planes (9, G)."""
+    (sample_params.R:275-286; updates.py:880-886), for one chain or, with
+    a leading chain axis on Mhat and the prior, for C; ``u``: the gamma
+    draw's uniform planes (9, G), or (C, 9, G)."""
     resid = data - Mhat
     rss = torch.sum(resid * resid, -2)
     return dist.inv_gamma(gen, prior["Alpha_sig"] + spec.K / 2.0,
-                          prior["Beta_sig"] + 0.5 * rss, u=u)
+                          prior["Beta_sig"] + 0.5 * rss, u=u,
+                          chain_axis=Mhat.dim() == 3)
 
 
 # ---------------------------------------------------------------------------
@@ -574,12 +631,14 @@ def sample_P_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict,
     """All of P in one conjugate draw given the latent-count sums
     (sample_Pn_poisson, sample_Pn.R:98-120; updates.py:733-749):
     P ~ Gamma(1 + Zsum_g, Lambda_p + A * rowsum(E)). An excluded column has
-    Zsum 0 and draws from the prior. ``u``: the gamma draw's uniform planes
-    (9, K, N)."""
+    Zsum 0 and draws from the prior. Every operand may carry a leading
+    chain axis C. ``u``: the gamma draw's uniform planes (9, K, N), or
+    (C, 9, K, N)."""
     A, E = params["A"], params["E"]
     rate_add = (A * E.sum(-1)).unsqueeze(-2)                  # (1, N)
     return dist.gamma(gen, 1.0 + params["Zsum_g"],
-                      prior["Lambda_p"] + rate_add, u=u)
+                      prior["Lambda_p"] + rate_add, u=u,
+                      chain_axis=E.dim() == 3)
 
 
 def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
@@ -588,15 +647,17 @@ def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
     updates.py:752-762): E ~ Gamma(1 + Zsum_k, Lambda_e + A * colsum(P))."""
     rate_add = (params["A"] * P_new.sum(-2)).unsqueeze(-1)    # (N, 1)
     return dist.gamma(gen, 1.0 + params["Zsum_k"],
-                      prior["Lambda_e"] + rate_add, u=u)
+                      prior["Lambda_e"] + rate_add, u=u,
+                      chain_axis=P_new.dim() == 3)
 
 
 def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
     """The latent counts' marginal sums (Zsum_g (K, N), Zsum_k (N, G)) of
     Z[k, :, g] ~ Multinomial(M[k, g], p ∝ P[k, :] A E[:, g])
     (sample_params.R:253-265; updates.py:894-905), through
-    ops/allocation.allocate_counts; ``u``: its uniform planes, else drawn
-    from ``gen``."""
+    ops/allocation.allocate_counts, for one chain or C (the kernel's grid
+    has the chain axis); ``u``: its uniform planes, else drawn from
+    ``gen``."""
     return allocate_counts(data, params["P"], params["A"], params["E"], u=u,
                            gen=gen)
 
@@ -606,45 +667,68 @@ def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
 # ---------------------------------------------------------------------------
 
 
+def _stream_prior(spec: ModelSpec, prior: dict, side: str):
+    """The prior operands of a streamed sweep: (Mu, Sigmasq), or the
+    exponential prior's (Lambda, None)."""
+    if spec.prior == "exponential":
+        return prior[f"Lambda_{side}"], None
+    return prior[f"Mu_{side}"], prior[f"Sigmasq_{side}"]
+
+
+def _stream_noise(spec: ModelSpec, gen, shape, L: int, device) -> dict:
+    """A streamed sweep's draws when none are given: the prior draw's
+    uniforms ((C, 2) + shape[1:] for the truncnormal prior, ``shape`` for
+    the exponential one) and (C, 3, N, L) for the column updates."""
+    C = shape[0]
+    if spec.prior == "exponential":
+        prior_u = torch.rand(shape, generator=gen, device=device)
+    else:
+        prior_u = _rand(gen, (C, 2) + tuple(shape[1:]), device,
+                        low=dist._TINY)
+    return {"prior_u": prior_u,
+            "u": _rand(gen, (C, 3, spec.N, L), device)}
+
+
 def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
                    accept_all, gen=None, noise=None):
     """Sequential exact-MH updates of the N columns of P with streamed
     reductions (updates.py:539-636), each column one call of
-    ops/stream_sweeps.stream_pcol_update's kernel; on the card nothing runs
-    between the column launches. ``noise``: {"prior_u": (C, 2, K, N),
-    "u": (C, 3, N, K)}, the JAX draws of _prior_draw_P and of the sweep's
+    ops/stream_sweeps.stream_pcol_update's kernel, with the truncnormal or
+    the exponential prior (Lambda in the place of the prior pair); on the
+    card nothing runs between the column launches. ``noise``: {"prior_u":
+    (C, 2, K, N), or (C, K, N) for the exponential prior, "u":
+    (C, 3, N, K)}, the JAX draws of _prior_draw_P and of the sweep's
     uniforms. Returns (P, acc_P, n_nan (C,)); the inputs are not modified.
     """
     P = params["P"].clone()
     acc_P = acc_P.clone()
     C, K, N = P.shape
     if noise is None:
-        noise = {"prior_u": _rand(gen, (C, 2, K, N), P.device,
-                                  low=dist._TINY),
-                 "u": _rand(gen, (C, 3, N, K), P.device)}
+        noise = _stream_noise(spec, gen, P.shape, K, P.device)
     P_prior = _prior_draw_P(spec, prior, gen, noise["prior_u"])
     n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
     S.stream_pcol_update(data, params["E"], P, params["A"], acc_P,
-                         prior["Mu_p"], prior["Sigmasq_p"], P_prior,
-                         noise["u"].contiguous(), accept_all, n_nan)
+                         *_stream_prior(spec, prior, "p"), P_prior,
+                         noise["u"].contiguous(), accept_all, n_nan,
+                         prior=spec.prior)
     return P, acc_P, n_nan
 
 
 def stream_sweep_E(spec: ModelSpec, data, params: dict, prior: dict, acc_E,
                    accept_all, gen=None, noise=None):
     """Streaming mirror of stream_sweep_P over the rows of E
-    (updates.py:639-725). ``noise``: {"prior_u": (C, 2, N, G),
-    "u": (C, 3, N, G)}. Returns (E, acc_E, n_nan (C,))."""
+    (updates.py:639-725). ``noise``: {"prior_u": (C, 2, N, G), or (C, N, G)
+    for the exponential prior, "u": (C, 3, N, G)}. Returns (E, acc_E,
+    n_nan (C,))."""
     E = params["E"].clone()
     acc_E = acc_E.clone()
     C, N, G = E.shape
     if noise is None:
-        noise = {"prior_u": _rand(gen, (C, 2, N, G), E.device,
-                                  low=dist._TINY),
-                 "u": _rand(gen, (C, 3, N, G), E.device)}
+        noise = _stream_noise(spec, gen, E.shape, G, E.device)
     E_prior = _prior_draw_E(spec, prior, gen, noise["prior_u"])
     n_nan = torch.zeros(C, dtype=torch.float32, device=E.device)
     S.stream_erow_update(data, E, params["P"], params["A"], acc_E,
-                         prior["Mu_e"], prior["Sigmasq_e"], E_prior,
-                         noise["u"].contiguous(), accept_all, n_nan)
+                         *_stream_prior(spec, prior, "e"), E_prior,
+                         noise["u"].contiguous(), accept_all, n_nan,
+                         prior=spec.prior)
     return E, acc_E, n_nan

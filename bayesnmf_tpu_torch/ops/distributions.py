@@ -67,16 +67,20 @@ def normal(gen, mu, sigmasq, z=None):
     return mu + torch.sqrt(sigmasq) * z
 
 
-def gamma(gen, shape_param, rate, unroll: int = 4, u=None):
+def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
+          chain_axis: bool = False):
     """Exact Gamma(shape, rate) draws (mean = shape/rate), by Marsaglia-Tsang
     (distributions.py:83-157): ``unroll`` rounds of candidates from one
     uniform draw, then an exact rejection loop for the elements still
     undecided. a < 1 is boosted: Gamma(a) = Gamma(a+1) * U^(1/a).
 
     ``u``: the pre-drawn uniforms, (2 * unroll + 1,) + shape, as the JAX
-    function draws them from its key; the rejection loop, which runs for
-    about 1e-5 of the elements, draws from ``gen``. That loop reads the
-    device to know when it is done: one host wait per call."""
+    function draws them from its key; with ``chain_axis`` the operands carry
+    a leading chain axis C and ``u`` is chain-major, (C, 2 * unroll + 1) +
+    shape[1:], each chain's planes its own slice (a draw from ``gen`` takes
+    that layout too). The rejection loop, which runs for about 1e-5 of the
+    elements, draws from ``gen``. That loop reads the device to know when
+    it is done: one host wait per call, whatever C is."""
     a, rate = torch.broadcast_tensors(shape_param, rate)
     shape, dev = tuple(a.shape), a.device
     boost = a < 1.0
@@ -93,8 +97,11 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None):
             < 0.5 * x * x + d - d * v + d * torch.log(v.clamp_min(_TINY)))
         return d * v, ok
 
-    u_all = (_uniform(gen, (2 * unroll + 1,) + shape, dev) if u is None
-             else u)
+    n_u = 2 * unroll + 1
+    if u is None:
+        u = _uniform(gen, (shape[0], n_u) + shape[1:] if chain_axis
+                     else (n_u,) + shape, dev)
+    u_all = u.movedim(1, 0) if chain_axis else u
     g = torch.full(shape, float("nan"), device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     for r in range(unroll):
@@ -116,10 +123,12 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None):
     return g / rate
 
 
-def inv_gamma(gen, shape_param, rate, u=None):
+def inv_gamma(gen, shape_param, rate, u=None, chain_axis: bool = False):
     """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma);
-    ``u``: the gamma draw's uniform planes, as ``gamma`` takes them."""
-    return 1.0 / gamma(gen, shape_param, rate, u=u).clamp_min(1e-30)
+    ``u`` and ``chain_axis``: the gamma draw's uniform planes, as ``gamma``
+    takes them."""
+    return 1.0 / gamma(gen, shape_param, rate, u=u,
+                       chain_axis=chain_axis).clamp_min(1e-30)
 
 
 def exponential(gen, rate, u=None):

@@ -463,8 +463,9 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
             "(ROADMAP.md queue 1 item 8)")
     if rank_method not in RANK_METHODS:
         raise NotImplementedError(
-            f"fused_gibbs_sweeps: rank_method={rank_method!r} is not ported "
-            "(ROADMAP.md queue 1 item 5)")
+            f"fused_gibbs_sweeps: rank_method={rank_method!r} is not a "
+            "kernel option (the Gibbs step runs BIC over a rank list as BFI, "
+            "models/gibbs.kernel_rank_method)")
     if (hyper_u is None) != (hyper_hp is None):
         raise ValueError("hyper_u and hyper_hp go together")
     if hyper_u is not None and prior_kind != "truncnormal":

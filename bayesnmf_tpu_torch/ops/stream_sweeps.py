@@ -9,14 +9,16 @@ the Mhat tile from ``PA = P * A`` and an E tile and returns only reductions:
 - ``acol_delta``: loglik(A_n = 1) - loglik(A_n = 0) for one column;
 - ``chain_metrics``: the four data-dependent sums of the metrics row;
 - ``stream_metrics_row``: the whole metrics row of every chain from the
-  state (chain_metrics' sums, the truncated-normal prior term, the
+  state (chain_metrics' sums, the truncated-normal or exponential prior
+  term, the
   acceptance means and the host arithmetic of the JAX package's
   models/gibbs.py::_metrics_row, :293-347) in two launches: a pass over the
   G tiles and a finishing kernel per chain;
 - ``stream_pcol_update`` / ``stream_erow_update``: whole column updates of
   the exact-MH sweeps (the sums, the conditional, the draw, the Hastings
   ratio, the decision and the write-back of the JAX package's
-  models/updates.py::stream_sweep_P/E, :539-725) in kernels: one launch per
+  models/updates.py::stream_sweep_P/E, :539-725, with the truncnormal or
+  the exponential prior, a runtime argument) in kernels: one launch per
   E row; two passes over the G tiles per P column, each followed by a small
   finishing kernel; the launches of a sweep enqueued by one C call;
 - ``stream_acol_update``: whole inclusion-column updates (the delta, the
@@ -238,9 +240,19 @@ def chain_metrics_reference(data, E, PA):
     return tuple(torch.cat(parts, -1).sum(-1).to(torch.float32).unbind(1))
 
 
+def _logprior(x, hp0, hp1, expo):
+    """The prior log-density of every entry (ops/math.py): the exponential
+    one with hp0 = Lambda, or the truncated normal with hp0, hp1 = Mu,
+    Sigmasq."""
+    if expo:
+        return m.exponential_logpdf(x, hp0)
+    return m.truncnorm_logpdf(x, hp0, hp1)
+
+
 def stream_metrics_row_reference(data, P, E, A, acc_P, acc_E, Mu_p,
                                  Sigmasq_p, Mu_e, Sigmasq_e, lgamma_sum,
-                                 mlogm_sum, na_events, it, temperature):
+                                 mlogm_sum, na_events, it, temperature,
+                                 expo: bool = False):
     """Plain version of ``stream_metrics_row``: the (C, 12) metrics rows.
     Every per-element term is the kernels' in their order; the sums run in
     float64 over each 64-wide G tile, then over the tiles, and are rounded to
@@ -253,13 +265,13 @@ def stream_metrics_row_reference(data, P, E, A, acc_P, acc_E, Mu_p,
     parts = []
     for g0, g1 in _tiles(G):
         terms = _data_terms(data, E, PA, g0, g1) + (
-            m.truncnorm_logpdf(E[:, :, g0:g1], Mu_e[:, :, g0:g1],
-                               Sigmasq_e[:, :, g0:g1]),
+            _logprior(E[:, :, g0:g1], Mu_e[:, :, g0:g1],
+                      None if expo else Sigmasq_e[:, :, g0:g1], expo),
             acc_E[:, :, g0:g1] * A.unsqueeze(-1))
         parts.append(torch.stack([_tile_sums(x) for x in terms], 1))
     (m_loglam, lam_sum, mp_loglam, sq_err, lp_e,
      acc_e) = torch.cat(parts, -1).sum(-1).to(torch.float32).unbind(1)
-    lp_p = _sum64(m.truncnorm_logpdf(P, Mu_p, Sigmasq_p), (1, 2))
+    lp_p = _sum64(_logprior(P, Mu_p, Sigmasq_p, expo), (1, 2))
     acc_p = _sum64(acc_P * A.unsqueeze(1), (1, 2))
     lp_p, acc_p = lp_p.to(torch.float32), acc_p.to(torch.float32)
     loglik = (m_loglam - lam_sum) - lgamma_sum
@@ -298,28 +310,41 @@ def _mh_accept(log_ratio, u_acc, accept_all, inactive):
     return take, torch.where(acc, 1.0, ratio), n_nan
 
 
-def _conditional(mu1, den, Mu_n, Sq_n):
-    den2 = den + 1.0 / Sq_n
-    return (mu1 + Mu_n / Sq_n) / den2, 1.0 / den2
+_EPS = 1e-30       # floor of an exponential conditional's precision
+PRIORS = {"truncnormal": 0, "exponential": 1}
 
 
-def _column_update(sums, old, A_n, other_sq, Mu_n, Sq_n, prior_n, u, rec_old,
-                   accept_all):
+def _conditional(mu1, den, hp0, hp1, expo=False):
+    """A column's conditional mean and variance from its sums: the
+    exponential prior (hp0 = Lambda) shifts the mean by -Lambda with the
+    precision floored at 1e-30, the truncnormal prior (hp0, hp1 = Mu,
+    Sigmasq) adds its own precision and mean (updates.py:573-600 and
+    :660-690 of the JAX package)."""
+    if expo:
+        den_s = den.clamp_min(_EPS)
+        return (mu1 - hp0) / den_s, 1.0 / den_s
+    den2 = den + 1.0 / hp1
+    return (mu1 + hp0 / hp1) / den2, 1.0 / den2
+
+
+def _column_update(sums, old, A_n, other_sq, hp0, hp1, prior_n, u, rec_old,
+                   accept_all, expo):
     """One column's update from its two sets of sums: ``sums(prop_scaled)``
     returns the stats (prop None) or the accept sums. ``old``, the prior
-    pair, the prior draw and ``rec_old`` are (C, L); ``u`` (C, 3, L); A_n
-    (C, 1); ``other_sq`` (C, 1) the other factor's sum of squares, whose
-    vanishing makes the column inactive. Returns (new, rec, n_nan (C,))."""
+    pair (hp1 None for the exponential prior), the prior draw and
+    ``rec_old`` are (C, L); ``u`` (C, 3, L); A_n (C, 1); ``other_sq``
+    (C, 1) the other factor's sum of squares, whose vanishing makes the
+    column inactive. Returns (new, rec, n_nan (C,))."""
     mu1, den_raw = sums(None)
-    mu, var = _conditional(mu1, A_n * den_raw, Mu_n, Sq_n)
+    mu, var = _conditional(mu1, A_n * den_raw, hp0, hp1, expo)
     cond = dist.truncnorm_nonneg_from_u(u[:, 0], u[:, 1], mu, var)
     inactive = other_sq <= 0.0
     proposal = torch.where(inactive, prior_n, cond)
     lp, mu1_r, den_raw_r = sums(A_n * proposal)
-    mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, Mu_n, Sq_n)
-    log_ratio = (lp
-                 + m.truncnorm_logpdf_delta(proposal, old, Mu_n, Sq_n)
-                 + m.truncnorm_logpdf(old, mu_r, var_r)
+    mu_r, var_r = _conditional(mu1_r, A_n * den_raw_r, hp0, hp1, expo)
+    lprior = (-hp0 * (proposal - old) if expo
+              else m.truncnorm_logpdf_delta(proposal, old, hp0, hp1))
+    log_ratio = (lp + lprior + m.truncnorm_logpdf(old, mu_r, var_r)
                  - m.truncnorm_logpdf(proposal, mu, var))
     take, rec, nn = _mh_accept(log_ratio, u[:, 2], accept_all, inactive)
     excluded = A_n == 0
@@ -327,27 +352,28 @@ def _column_update(sums, old, A_n, other_sq, Mu_n, Sq_n, prior_n, u, rec_old,
     return new, torch.where(excluded, rec_old, rec), nn
 
 
-def pcol_update_reference(data, E, P, A, acc_P, Mu_p, Sigmasq_p, P_prior, U,
-                          accept_all, n_nan, n: int):
+def pcol_update_reference(data, E, P, A, acc_P, hp0_p, hp1_p, P_prior, U,
+                          accept_all, n_nan, n: int, expo: bool = False):
     """Plain version of one P-column update (column ``n``), in place on P,
     acc_P and n_nan: the host sequence of the JAX package's stream_sweep_P
-    body on chain-batched operands."""
+    body on chain-batched operands; the prior pair (Mu_p, Sigmasq_p), or
+    with ``expo`` (Lambda_p, None)."""
     A_n = A[:, n:n + 1]
     E_n = E[:, n, :].contiguous()
     P_n = P[:, :, n].clone(memory_format=torch.contiguous_format)
     PA = P * A.unsqueeze(1)
     new, rec, nn = _column_update(
         lambda q: run_reference(data, E, PA, E_n, A_n * P_n, q, True),
-        P_n, A_n, (E_n * E_n).sum(-1, keepdim=True), Mu_p[:, :, n],
-        Sigmasq_p[:, :, n], P_prior[:, :, n], U[:, :, n], acc_P[:, :, n],
-        accept_all)
+        P_n, A_n, (E_n * E_n).sum(-1, keepdim=True), hp0_p[:, :, n],
+        None if expo else hp1_p[:, :, n], P_prior[:, :, n], U[:, :, n],
+        acc_P[:, :, n], accept_all, expo)
     P[:, :, n] = new
     acc_P[:, :, n] = rec
     n_nan += nn
 
 
-def erow_update_reference(data, E, P, A, acc_E, Mu_e, Sigmasq_e, E_prior, U,
-                          accept_all, n_nan, n: int):
+def erow_update_reference(data, E, P, A, acc_E, hp0_e, hp1_e, E_prior, U,
+                          accept_all, n_nan, n: int, expo: bool = False):
     """Plain version of one E-row update (row ``n``), in place on E, acc_E
     and n_nan: the host sequence of the JAX package's stream_sweep_E body."""
     A_n = A[:, n:n + 1]
@@ -356,9 +382,9 @@ def erow_update_reference(data, E, P, A, acc_E, Mu_e, Sigmasq_e, E_prior, U,
     PA = P * A.unsqueeze(1)
     new, rec, nn = _column_update(
         lambda q: run_reference(data, E, PA, A_n * E_n, P_n, q, False),
-        E_n, A_n, (P_n * P_n).sum(-1, keepdim=True), Mu_e[:, n, :],
-        Sigmasq_e[:, n, :], E_prior[:, n, :], U[:, :, n], acc_E[:, n, :],
-        accept_all)
+        E_n, A_n, (P_n * P_n).sum(-1, keepdim=True), hp0_e[:, n, :],
+        None if expo else hp1_e[:, n, :], E_prior[:, n, :], U[:, :, n],
+        acc_E[:, n, :], accept_all, expo)
     E[:, n, :] = new
     acc_E[:, n, :] = rec
     n_nan += nn
@@ -373,15 +399,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "stream_pcol_launch": [_P] * 8 + [_I] * 4 + [_P],
     "stream_erow_launch": [_P] * 7 + [_I] * 4 + [_P],
-    "stream_pcol_update_launch": [_P] * 14 + [_I] * 6 + [_P],
-    "stream_erow_update_launch": [_P] * 12 + [_I] * 6 + [_P],
+    "stream_pcol_update_launch": [_P] * 14 + [_I] * 7 + [_P],
+    "stream_erow_update_launch": [_P] * 12 + [_I] * 7 + [_P],
     "stream_special_launch": [_P] * 2 + [_I] * 2 + [_P],
     "stream_acol_launch": [_P] * 8 + [_I] * 4 + [_P],
     "stream_acol_update_launch": [_P] * 9 + [ctypes.c_float, _I, _P]
     + [_I] * 6 + [_P],
     "stream_metrics_launch": [_P] * 5 + [_I] * 4 + [_P],
     "stream_metrics_row_launch": [_P] * 16 + [ctypes.c_float] * 3
-    + [_I] * 5 + [_P],
+    + [_I] * 6 + [_P],
 }
 
 
@@ -480,10 +506,11 @@ def _launch_run(data, E, PA, en, pn, prop, col):
     return tuple(out)
 
 
-def _launch_update(col, data, E, P, A, acc, Mu, Sq, prior_draw, U,
-                   accept_all, n_nan, n0, n1):
+def _launch_update(col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
+                   accept_all, n_nan, n0, n1, expo):
     """Enqueue the launches of columns n0..n1-1 with one C call; P (or E),
-    the acceptance record and n_nan change in place."""
+    the acceptance record and n_nan change in place. The exponential prior
+    reads hp0 (Lambda) only."""
     C, K, N = P.shape
     G = E.shape[2]
     PA = P * A.unsqueeze(1)
@@ -491,13 +518,15 @@ def _launch_update(col, data, E, P, A, acc, Mu, Sq, prior_draw, U,
     nan = torch.zeros(C, dtype=torch.int32, device=P.device)
     if col:
         work = torch.empty(C * 4 * K, dtype=torch.float32, device=P.device)
-        _call("stream_pcol_update_launch", data, E, P, PA, A, acc, Mu, Sq,
-              prior_draw, U, flags, nan, _col_scratch(C, K, N, G, P.device),
-              work, C, K, N, G, n0, n1)
+        _call("stream_pcol_update_launch", data, E, P, PA, A, acc, hp0,
+              hp0 if hp1 is None else hp1, prior_draw, U, flags, nan,
+              _col_scratch(C, K, N, G, P.device), work, C, K, N, G, n0, n1,
+              int(expo))
     else:
         _check_row_fits(K, N)
-        _call("stream_erow_update_launch", data, E, P, PA, A, acc, Mu, Sq,
-              prior_draw, U, flags, nan, C, K, N, G, n0, n1)
+        _call("stream_erow_update_launch", data, E, P, PA, A, acc, hp0,
+              hp0 if hp1 is None else hp1, prior_draw, U, flags, nan, C, K,
+              N, G, n0, n1, int(expo))
     n_nan += nan
 
 
@@ -540,10 +569,11 @@ def _launch_metrics(data, E, PA):
 
 def _launch_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
                         Sigmasq_e, lgamma_sum, mlogm_sum, na_events, it,
-                        temperature, out):
+                        temperature, out, expo):
     """Enqueue the metrics tile kernel and the finishing kernel; the rows go
     to ``out`` (C, 12), a row every out.stride(0) floats, or to a new
-    tensor. Returns the rows."""
+    tensor. Returns the rows. The exponential prior reads Mu_p and Mu_e
+    (its Lambdas) only."""
     C, K, N = P.shape
     G = E.shape[2]
     if out is None:
@@ -552,10 +582,12 @@ def _launch_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
         temp, temp_val = temperature.reshape(1), 0.0
     else:
         temp, temp_val = None, float(temperature)
-    _call("stream_metrics_row_launch", data, E, P, A, Mu_e, Sigmasq_e, acc_E,
-          Mu_p, Sigmasq_p, acc_P, lgamma_sum, mlogm_sum, na_events, temp,
-          out, _metrics_scratch(C, K, N, G, 6, P.device), float(it),
-          temp_val, _log_g(G), out.stride(0), C, K, N, G)
+    _call("stream_metrics_row_launch", data, E, P, A, Mu_e,
+          Mu_e if expo else Sigmasq_e, acc_E, Mu_p,
+          Mu_p if expo else Sigmasq_p, acc_P, lgamma_sum, mlogm_sum,
+          na_events, temp, out, _metrics_scratch(C, K, N, G, 6, P.device),
+          float(it), temp_val, _log_g(G), out.stride(0), C, K, N, G,
+          int(expo))
     return out
 
 
@@ -690,20 +722,25 @@ ROW_LEN = 12
 
 def stream_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
                        Sigmasq_e, lgamma_sum, mlogm_sum, na_events, it,
-                       temperature, out=None):
+                       temperature, out=None, prior: str = "truncnormal"):
     """The metrics row of every chain, (C, 12) in models/gibbs.py's
     METRIC_NAMES order, from the state itself: P (C, K, N), E (C, N, G),
     A (C, N), the acceptance records acc_P (C, K, N) and acc_E (C, N, G),
-    the truncated-normal prior pairs Mu_p/Sigmasq_p (C, K, N) and
-    Mu_e/Sigmasq_e (C, N, G), the chunk constants ``lgamma_sum`` =
-    sum lgamma(M + 1) and ``mlogm_sum`` = sum Mp log Mp (0-d tensors), the
-    NaN events ``na_events`` (C,), the iteration ``it`` (a number) and the
-    temperature (a number or a one-element tensor). The rows go to ``out``
-    when given, a (C, 12) float32 tensor whose rows may be strided (a slice
-    of a chunk buffer), else to a new tensor; returns them. On the card: a
-    pass over the (G/64, C) tiles and a finishing kernel per chain (counted
-    one launch per call in ``stream_metrics_row.launches``)."""
+    the prior's parameters: for the truncated normal the pairs Mu_p/Sigmasq_p
+    (C, K, N) and Mu_e/Sigmasq_e (C, N, G), for ``prior="exponential"``
+    Lambda_p and Lambda_e in the places of Mu_p and Mu_e (Sigmasq_p and
+    Sigmasq_e None); the chunk constants ``lgamma_sum`` = sum lgamma(M + 1)
+    and ``mlogm_sum`` = sum Mp log Mp (0-d tensors), the NaN events
+    ``na_events`` (C,), the iteration ``it`` (a number) and the temperature
+    (a number or a one-element tensor). The log-posterior adds the prior's
+    log-density of every entry of P and E (ops/math.py::logprior_PE). The
+    rows go to ``out`` when given, a (C, 12) float32 tensor whose rows may
+    be strided (a slice of a chunk buffer), else to a new tensor; returns
+    them. On the card: a pass over the (G/64, C) tiles and a finishing
+    kernel per chain (counted one launch per call in
+    ``stream_metrics_row.launches``)."""
     fn = "stream_metrics_row"
+    expo = _prior_code(fn, prior, Sigmasq_p, Sigmasq_e)
     C, K, N = P.shape
     G = E.shape[2]
     dev = P.device
@@ -715,7 +752,8 @@ def stream_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
             ("Mu_e", Mu_e, (C, N, G)), ("Sigmasq_e", Sigmasq_e, (C, N, G)),
             ("lgamma_sum", lgamma_sum, ()), ("mlogm_sum", mlogm_sum, ()),
             ("na_events", na_events, (C,))):
-        _check(fn, name, t, shape, dev)
+        if t is not None:
+            _check(fn, name, t, shape, dev)
     if isinstance(temperature, torch.Tensor):
         _check(fn, "temperature", temperature, tuple(temperature.shape), dev)
         if temperature.numel() != 1:
@@ -726,13 +764,13 @@ def stream_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
     if dev.type == "cpu":
         row = stream_metrics_row_reference(
             data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e,
-            lgamma_sum, mlogm_sum, na_events, it, temperature)
+            lgamma_sum, mlogm_sum, na_events, it, temperature, expo)
         return row if out is None else out.copy_(row)
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no path for device {dev}")
     out = _launch_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p,
                               Mu_e, Sigmasq_e, lgamma_sum, mlogm_sum,
-                              na_events, it, temperature, out)
+                              na_events, it, temperature, out, expo)
     stream_metrics_row.launches += 1
     return out
 
@@ -740,8 +778,22 @@ def stream_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
 stream_metrics_row.launches = 0
 
 
-def _update(fn, col, data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
-            n_nan, n0, n1):
+def _prior_code(fn, prior, *second):
+    """Whether ``prior`` is the exponential one, whose second prior operands
+    (``second``) are None; the truncated normal needs them."""
+    if prior not in PRIORS:
+        raise NotImplementedError(f"{fn}: the {prior!r} prior is not ported "
+                                  "(ROADMAP.md queue 1 item 8)")
+    expo = prior == "exponential"
+    if any((t is None) != expo for t in second):
+        raise ValueError(f"{fn}: the {prior} prior takes "
+                         + ("Lambda alone" if expo else "Mu and Sigmasq"))
+    return expo
+
+
+def _update(fn, col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
+            accept_all, n_nan, n0, n1, prior):
+    expo = _prior_code(fn, prior, hp1)
     C, K, N = P.shape
     G = E.shape[2]
     dev = P.device
@@ -749,10 +801,11 @@ def _update(fn, col, data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
     _check(fn, "data", data, (K, G), dev)
     for name, t, shape in (
             ("E", E, (C, N, G)), ("P", P, (C, K, N)), ("A", A, (C, N)),
-            ("acc", acc, side), ("Mu", Mu, side), ("Sigmasq", Sq, side),
+            ("acc", acc, side), ("hp0", hp0, side), ("hp1", hp1, side),
             ("prior_draw", prior_draw, side),
             ("U", U, (C, 3, N, K if col else G)), ("n_nan", n_nan, (C,))):
-        _check(fn, name, t, shape, dev)
+        if t is not None:
+            _check(fn, name, t, shape, dev)
     if accept_all.dtype != torch.bool or tuple(accept_all.shape) != (C,) \
             or accept_all.device != dev:
         raise ValueError(f"{fn}: accept_all must be a (C,) bool tensor on "
@@ -763,37 +816,44 @@ def _update(fn, col, data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
     if dev.type == "cpu":
         plain = pcol_update_reference if col else erow_update_reference
         for n in range(n0, n1):
-            plain(data, E, P, A, acc, Mu, Sq, prior_draw, U, accept_all,
-                  n_nan, n)
+            plain(data, E, P, A, acc, hp0, hp1, prior_draw, U, accept_all,
+                  n_nan, n, expo)
     elif dev.type == "cuda":
-        _launch_update(col, data, E, P, A, acc, Mu, Sq, prior_draw, U,
-                       accept_all, n_nan, n0, n1)
+        _launch_update(col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
+                       accept_all, n_nan, n0, n1, expo)
         _run.launches += (2 if col else 1) * (n1 - n0)
     else:
         raise ValueError(f"{fn}: no path for device {dev}")
 
 
 def stream_pcol_update(data, E, P, A, acc_P, Mu_p, Sigmasq_p, P_prior, U,
-                       accept_all, n_nan, n0: int = 0, n1=None):
+                       accept_all, n_nan, n0: int = 0, n1=None,
+                       prior: str = "truncnormal"):
     """Exact-MH updates of columns n0..n1-1 of P (all N by default), in
     order and in place on P (C, K, N), acc_P (C, K, N) and n_nan (C,), which
     gains the count of NaN ratios clamped to 0. Mu_p, Sigmasq_p: the prior
-    pair; P_prior: the prior draw an inactive or excluded column takes; U
-    (C, 3, N, K): the proposal's two uniforms and the acceptance uniform of
-    every column; accept_all (C,) bool. On the card: two passes over the G
-    tiles per column (counted in ``_run.launches``), each with its finishing
-    kernel, all enqueued by one C call."""
+    pair, or with ``prior="exponential"`` Lambda_p and None (the
+    conditional's mean moves by -Lambda, its precision is floored at 1e-30,
+    and the prior's part of the ratio is -Lambda (proposal - old)); P_prior:
+    the prior draw an inactive or excluded column takes; U (C, 3, N, K): the
+    proposal's two uniforms and the acceptance uniform of every column;
+    accept_all (C,) bool. On the card: two passes over the G tiles per
+    column (counted in ``_run.launches``), each with its finishing kernel,
+    all enqueued by one C call; the prior is an argument of the same
+    kernels."""
     _update("stream_pcol_update", True, data, E, P, A, acc_P, Mu_p,
-            Sigmasq_p, P_prior, U, accept_all, n_nan, n0, n1)
+            Sigmasq_p, P_prior, U, accept_all, n_nan, n0, n1, prior)
 
 
 def stream_erow_update(data, E, P, A, acc_E, Mu_e, Sigmasq_e, E_prior, U,
-                       accept_all, n_nan, n0: int = 0, n1=None):
+                       accept_all, n_nan, n0: int = 0, n1=None,
+                       prior: str = "truncnormal"):
     """The mirror for rows n0..n1-1 of E, in place on E (C, N, G), acc_E
-    and n_nan; the prior operands are (C, N, G) and U (C, 3, N, G). On the
-    card: one launch per row (counted in ``_run.launches``)."""
+    and n_nan; the prior operands are (C, N, G) (Lambda_e and None for the
+    exponential prior) and U (C, 3, N, G). On the card: one launch per row
+    (counted in ``_run.launches``)."""
     _update("stream_erow_update", False, data, E, P, A, acc_E, Mu_e,
-            Sigmasq_e, E_prior, U, accept_all, n_nan, n0, n1)
+            Sigmasq_e, E_prior, U, accept_all, n_nan, n0, n1, prior)
 
 
 def stream_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,

@@ -1,11 +1,15 @@
 """Multi-chain ensembles: C independent chains in one batched program.
 
-Port of bayesnmf_tpu/parallel/ensemble.py:58-1015 for the streaming path:
-C chains of the Poisson, TruncNormal, exact-MH model, at a fixed rank or
-with SBFI/BFI rank learning, on one device. Each chain keeps the reference's
-semantics on its own: accept-all warmup until its own convergence, then
-``post_warmup`` MH samples; convergence is tracked on the host from the
-per-chain metrics (models/convergence.VectorConvergenceTracker).
+Port of bayesnmf_tpu/parallel/ensemble.py:58-1015: C chains of any model
+the single-chain sampler runs (Poisson with MH through the fused kernel,
+the eager sweeps or the streaming kernels; conjugate Poisson-Gibbs through
+the allocation kernel; the Normal likelihood on the eager sweeps), at a
+fixed rank, learning it by SBFI/BFI/BIC, or with a fixed inclusion mask per
+chain (``A_masks``, the parallel-BIC rank search of ``fit``), on one device.
+Each chain keeps the reference's semantics on its own: accept-all warmup
+until its own convergence, then ``post_warmup`` MH samples (none without
+MH); convergence is tracked on the host from the per-chain metrics
+(models/convergence.VectorConvergenceTracker).
 
 The chains are the leading axis of every state tensor (parallel/chains.py).
 Once a chain has finished its inference window, its MAP and sample window
@@ -13,10 +17,8 @@ are taken to the host and the device ensemble shrinks to the chains still
 running (``_maybe_compact``, an index-select on the chain axis), so
 finished chains stop costing device time.
 
-Not ported yet (each raises NotImplementedError; ROADMAP.md): ``mesh``,
-``A_masks`` (the parallel-BIC rank search), ``record_history='full'``,
-``save_all_samples=True``, ``fused_sweeps``, the unfused and unstreamed
-sweep path, ``pooled_assignment`` and ``diagnostics``.
+Not ported yet (each raises NotImplementedError; ROADMAP.md queue 1 item
+6): ``mesh``, ``record_history='full'`` and ``save_all_samples=True``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from ..config import default_MH
 from ..models import gibbs
 from ..models.convergence import VectorConvergenceTracker
 from ..models.map_estimate import compute_map
-from ..models.sampler import _resolve_output_dir, resolve_device
+from ..models.sampler import _resolve_output_dir, check_counts
+from ..models.sampler import resolve_device
 from ..utils.logging import RunLogger
 from . import chains as chains_mod
 
@@ -50,7 +53,8 @@ _ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 6)"
 
 def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
                         device: torch.device) -> bool:
-    """Streaming kernels for large-G poisson+MH ensembles on CUDA."""
+    """Streaming kernels for large-G poisson+MH ensembles on CUDA; every
+    other ensemble runs the fused kernel or the eager sweeps."""
     return (likelihood == "poisson" and bool(MH)
             and prior in ("truncnormal", "exponential")
             and mesh is None and not fused_sweeps
@@ -60,6 +64,15 @@ def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
 
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _select(tree, idx):
+    """index_select on the chain axis of every tensor of a state (nested
+    dicts); anything else (the generator, the iteration) as it is."""
+    if isinstance(tree, dict):
+        return {k: _select(v, idx) for k, v in tree.items()}
+    return tree.index_select(0, idx) if isinstance(tree, torch.Tensor) \
+        else tree
 
 
 class _ViewTracker:
@@ -227,7 +240,11 @@ class ChainEnsemble:
     """Run ``n_chains`` independent Gibbs chains of the same model on one
     device. ``device="cuda"`` (the default) runs the CUDA kernels,
     ``device="cpu"`` their plain PyTorch versions; nothing falls back from
-    one to the other."""
+    one to the other. The path: ``stream_sweeps`` (None: the streaming
+    kernels for Poisson MH on CUDA at G >= 2000), else ``fused_sweeps``
+    (None: the fused kernel for Poisson MH, as the single-chain sampler
+    resolves it; False: the chain-batched eager sweeps); conjugate Gibbs
+    for MH=False, the eager sweeps for the Normal likelihood."""
 
     def __init__(
         self,
@@ -250,7 +267,7 @@ class ChainEnsemble:
         init_prior_params: Optional[dict] = None,
         init_params: Optional[dict] = None,
         record_history: str = "basic",
-        fused_sweeps: bool = False,
+        fused_sweeps: Optional[bool] = None,
         stream_sweeps: Optional[bool] = None,
         want_ci: bool = True,
         compact: bool = True,
@@ -263,12 +280,9 @@ class ChainEnsemble:
         if record_history not in ("basic", "full"):
             raise ValueError("record_history must be 'basic' or 'full'")
         for flag, what in ((mesh is not None, "mesh-sharded ensembles"),
-                           (A_masks is not None,
-                            "A_masks (the parallel-BIC rank search)"),
                            (record_history == "full",
                             "record_history='full'"),
-                           (save_all_samples, "save_all_samples=True"),
-                           (fused_sweeps, "fused_sweeps on an ensemble")):
+                           (save_all_samples, "save_all_samples=True")):
             if flag:
                 raise NotImplementedError(f"{what} is {_ROADMAP}")
         self.device = resolve_device(device)
@@ -291,19 +305,38 @@ class ChainEnsemble:
             stream_sweeps = _auto_stream_sweeps(
                 likelihood, prior, MH, mesh, fused_sweeps, data.shape[1],
                 self.device)
-        if not stream_sweeps:
-            raise NotImplementedError(
-                f"the unstreamed ensemble sweep path is {_ROADMAP}; pass "
-                "stream_sweeps=True")
+        if fused_sweeps is None:
+            # the fused kernel for Poisson MH when not streaming, as the
+            # single-chain sampler resolves it (models/sampler.py); the JAX
+            # package's default (the XLA path) was measured on a TPU
+            fused_sweeps = (likelihood == "poisson" and bool(MH)
+                            and not stream_sweeps)
         self.spec = ModelSpec(
             K=data.shape[0], N=N, G=data.shape[1], likelihood=likelihood,
             prior=prior, MH=MH, learning_rank=learning_rank,
-            rank_method=rank_method, stream_sweeps=True)
+            rank_method=rank_method, fused_sweeps=bool(fused_sweeps),
+            stream_sweeps=bool(stream_sweeps))
         gibbs.check_spec(self.spec)
+        check_counts(self.spec, data)
+        # per-chain FIXED inclusion masks (n_chains, N): chain c samples a
+        # rank-sum(A_masks[c]) model whose excluded columns draw from the
+        # prior (the reference's A_n = 0 dispatch, sample_Pn.R:12-13), the
+        # engine of fit(rank_method='BIC') (JAX ensemble.py:468-486)
+        self.A_masks = None
+        if A_masks is not None:
+            if learning_rank:
+                raise ValueError(
+                    "A_masks fixes per-chain ranks; incompatible with a "
+                    "learned rank (pass a scalar rank = max candidate rank)")
+            self.A_masks = np.asarray(A_masks, np.float32)
+            if self.A_masks.shape != (n_chains, N):
+                raise ValueError(
+                    f"A_masks must have shape ({n_chains}, {N}), got "
+                    f"{self.A_masks.shape}")
         self.cc = convergence_control or ConvergenceControl()
         self.n_chains = n_chains
         self.post_warmup = (post_warmup if post_warmup is not None
-                            else 2 * self.cc.MAP_over)
+                            else 2 * self.cc.MAP_over) if MH else 0
         self.store_E = store_E
         self.seed = seed
         self.periodic_save = periodic_save
@@ -312,11 +345,15 @@ class ChainEnsemble:
 
         self.output_dir = _resolve_output_dir(output_dir, overwrite)
         self.logger = RunLogger(self.output_dir, verbosity)
+        path = ("stream" if self.spec.stream_sweeps else "fused"
+                if self.spec.fused_sweeps else "conjugate"
+                if self.spec.needs_Z else "eager")
         self.logger.log(
             f"Initialized ensemble: {n_chains} chains, likelihood = "
             f"{likelihood}, prior = {prior}, MH = {MH}, rank "
-            f"{'learned (' + rank_method + ')' if learning_rank else N}, "
-            f"device = {self.device}", 1)
+            f"{'learned (' + rank_method + ')' if learning_rank else N}"
+            f"{', per-chain masks' if A_masks is not None else ''}, "
+            f"path = {path}, device = {self.device}", 1)
 
         n_iters = self.cc.maxiters + self.post_warmup
         rng = np.random.default_rng(seed)
@@ -331,6 +368,13 @@ class ChainEnsemble:
                                                  float(data.mean())))
         if hyperprior_params:
             self.hp.update(hyperprior_params)
+        if self.spec.likelihood == "normal":
+            # the InvGamma(alpha, beta) prior of sigmasq, default 3/3,
+            # settable through either dict (JAX ensemble.py:518-522)
+            ipp = dict(init_prior_params or {})
+            for k in ("alpha", "beta"):
+                self.hp.setdefault(k, ipp.pop(k, 3.0))
+            init_prior_params = ipp
         self._data_np = data
         self.data = torch.as_tensor(data, device=self.device)
         self._slots = np.arange(n_chains)
@@ -339,6 +383,12 @@ class ChainEnsemble:
         self.states = chains_mod.init_chain_states(
             self.spec, self.hp, self.data, gen, n_chains, init_params,
             init_prior_params)
+        if self.A_masks is not None:
+            # A never updates at a fixed rank: setting it once pins each
+            # chain's rank for the run (JAX ensemble.py:588-599)
+            masks = torch.as_tensor(self.A_masks, device=self.device)
+            self.states["params"]["A"] = masks
+            self.states["params"]["R"] = masks.sum(1).to(torch.int32)
 
         self.tracker = VectorConvergenceTracker(self.cc, n_chains)
         self.iter = 1
@@ -444,9 +494,9 @@ class ChainEnsemble:
                 "BIC": -2.0 * mean_ll + n_par * np.log(G),
                 "rank": rank,
                 "mean_temp": mean_temp,
-                "P_mean_acceptance_rate": float(w[-1, 9]),
-                "E_mean_acceptance_rate": float(w[-1, 10]),
-            })
+            } | ({"P_mean_acceptance_rate": float(w[-1, 9]),
+                  "E_mean_acceptance_rate": float(w[-1, 10])}
+                 if self.spec.MH else {}))
 
     # ------------------------------------------------------------------
     # finalisation + compaction
@@ -486,14 +536,10 @@ class ChainEnsemble:
         keep = np.nonzero(~finished[self._slots])[0]
         if keep.size == 0 or keep.size == self._slots.size:
             return
-        idx = torch.as_tensor(keep, device=self.device)
-        sel = lambda t: t.index_select(0, idx)  # noqa: E731
-        st = self.states
-        self.states = {
-            "params": {k: sel(v) for k, v in st["params"].items()},
-            "prior": {k: sel(v) for k, v in st["prior"].items()},
-            "acc_P": sel(st["acc_P"]), "acc_E": sel(st["acc_E"]),
-            "iter": st["iter"], "gen": st["gen"]}
+        # every tensor of the state: P, E, A, R, the latent counts' sums,
+        # sigmasq, the prior's parameters and the acceptance records
+        self.states = _select(self.states,
+                              torch.as_tensor(keep, device=self.device))
         self._slots = self._slots[keep]
         self.logger.log(
             f"compacted ensemble to {self._slots.size} resident chains", 1)
@@ -565,11 +611,81 @@ class ChainEnsemble:
             self._compute_maps()
         return _ChainView(self, c)
 
-    def pooled_assignment(self, reference_P="cosmic"):
-        raise NotImplementedError(f"pooled_assignment is {_ROADMAP}")
+    def assign_signatures(self, reference_P="cosmic", credible_interval=0.95):
+        """Per-chain posterior-ensemble reference assignment
+        (assign_signatures_ensemble_, postprocessing.R:175-341, run per
+        chain). Returns {chain: {'assignments', 'votes'}}."""
+        from ..utils.postprocessing import assign_signatures_ensemble
 
-    def diagnostics(self, *args, **kwargs):
-        raise NotImplementedError(f"diagnostics (R-hat, ESS) are {_ROADMAP}")
+        return {
+            c: assign_signatures_ensemble(
+                self.chain(c), reference_P=reference_P,
+                credible_interval=credible_interval)
+            for c in range(self.n_chains)
+        }
+
+    def summary(self, reference_P="cosmic"):
+        """Pooled cross-chain summary: one row per (chain, signature) with
+        the per-chain reference assignment and cosine (summarize_samplers,
+        postprocessing.R:114-152, over chains instead of samplers)."""
+        import pandas as pd
+
+        from ..utils.postprocessing import sampler_summary
+
+        if not self.store_E:
+            raise ValueError(
+                "summary() needs exposure medians; rerun with store_E=True "
+                "(assign_signatures() works without E)")
+        frames = []
+        for c in range(self.n_chains):
+            df = sampler_summary(self.chain(c), reference_P).copy()
+            df.insert(0, "Chain", c)
+            frames.append(df)
+        return pd.concat(frames, ignore_index=True)
+
+    def pooled_assignment(self, reference_P="cosmic"):
+        """Majority assignment across chains: for each reference signature,
+        the fraction of chains whose MAP includes a signature assigned to
+        it (the cross-chain analogue of the reference's within-chain vote
+        pooling)."""
+        import pandas as pd
+
+        rows = []
+        for c, res in self.assign_signatures(reference_P).items():
+            for _, r in res["assignments"].iterrows():
+                rows.append({"Chain": c, "sig_ref": r.sig_ref,
+                             "MAP_cosine": r.MAP_cosine})
+        agg = pd.DataFrame(rows).groupby("sig_ref").agg(
+            n_chains=("Chain", "nunique"),
+            mean_cosine=("MAP_cosine", "mean"),
+        ).reset_index()
+        agg["prop_chains"] = agg["n_chains"] / self.n_chains
+        return agg.sort_values("prop_chains", ascending=False).reset_index(
+            drop=True)
+
+    def diagnostics(self, metrics=("logposterior", "loglikelihood", "RMSE",
+                                   "rank"), n_draws: Optional[int] = None):
+        """Cross-chain convergence report: rank-normalised split-R-hat and
+        bulk/tail ESS per metric (parallel/diagnostics.py), over each
+        chain's own retained inference window (``n_draws`` = MAP_over by
+        default). A large R-hat on ``rank`` flags chains that learned
+        different ranks."""
+        from .diagnostics import ensemble_diagnostics
+
+        if n_draws is None:
+            n_draws = self.cc.MAP_over
+        return ensemble_diagnostics(self, metrics=metrics, n_draws=n_draws)
+
+    def metrics_stack(self, n_draws: int):
+        """(C, n_draws, m) stack of per-chain metric windows, each chain's
+        own inference window when finalised (NaN-padded if shorter)."""
+        out = np.full((self.n_chains, n_draws, gibbs.N_METRICS), np.nan,
+                      np.float32)
+        for c in range(self.n_chains):
+            w = self._chain_metrics_window(c)[-n_draws:]
+            if w.shape[0]:
+                out[c, -w.shape[0]:] = w
+        return out
 
     def _chain_metrics_window(self, c: int):
         fin = self._final_metrics.get(c)

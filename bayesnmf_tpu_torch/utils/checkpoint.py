@@ -104,18 +104,22 @@ def load_sampler(cls, path: str):
 
 
 def _chain_state_to_numpy(states: dict) -> dict:
+    """The chain-batched state without its generator, as host numpy: every
+    tensor (the acceptance records only with MH), and the iteration."""
     n = lambda x: x.detach().cpu().numpy()  # noqa: E731
-    return {"params": {k: n(v) for k, v in states["params"].items()},
-            "prior": {k: n(v) for k, v in states["prior"].items()},
-            "acc_P": n(states["acc_P"]), "acc_E": n(states["acc_E"]),
-            "iter": states["iter"]}
+    out = {"params": {k: n(v) for k, v in states["params"].items()},
+           "prior": {k: n(v) for k, v in states["prior"].items()},
+           "iter": states["iter"]}
+    return out | {k: n(states[k]) for k in ("acc_P", "acc_E") if k in states}
 
 
 def save_ensemble(ens, path: str):
     """Checkpoint a ChainEnsemble (checkpoint.py:55-102): the chain-batched
     device state and the generator's state, the trackers, the retained
-    sample window, the metric history and the finalised chains, all as host
-    numpy, so every chain continues bit-exactly."""
+    sample window, the metric history, the finalised chains and the
+    per-chain inclusion masks, all as host numpy; the spec names the path
+    (fused, eager, conjugate or streaming). Every chain continues
+    bit-exactly."""
     payload = {
         "version": 1,
         "kind": "ensemble",
@@ -149,6 +153,7 @@ def save_ensemble(ens, path: str):
         "output_dir": ens.output_dir,
         "row_names": ens.row_names,
         "col_names": ens.col_names,
+        "A_masks": ens.A_masks,
     }
     with open(path, "wb") as fh:
         pickle.dump(payload, fh, protocol=4)
@@ -167,7 +172,7 @@ def load_ensemble(cls, path: str):
     for k in ("spec", "cc", "n_chains", "post_warmup", "store_E", "seed",
               "periodic_save", "want_ci", "compact", "temp_sched", "hp",
               "iter", "time", "output_dir", "row_names", "col_names",
-              "MAP_per_chain"):
+              "MAP_per_chain", "A_masks"):
         setattr(obj, k, p[k])
     obj._data_np = p["data"]
     obj.data = torch.as_tensor(p["data"], device=dev)
@@ -177,8 +182,8 @@ def load_ensemble(cls, path: str):
     gen.set_state(torch.from_numpy(p["gen_state"]))
     obj.states = {"params": {k: t(v) for k, v in st["params"].items()},
                   "prior": {k: t(v) for k, v in st["prior"].items()},
-                  "acc_P": t(st["acc_P"]), "acc_E": t(st["acc_E"]),
                   "iter": st["iter"], "gen": gen}
+    obj.states |= {k: t(st[k]) for k in ("acc_P", "acc_E") if k in st}
     obj.tracker = VectorConvergenceTracker(obj.cc, obj.n_chains)
     obj.tracker.restore(p["tracker_vec"])
     obj._end_iter = p["end_iter"]

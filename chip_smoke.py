@@ -109,7 +109,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    maxiters 1000: learned rank and cosines; (d) the Normal fit's final
    checkpoint resumes bit-exactly; (e) torch.profiler over 10 iterations
    of the Normal and the eager Poisson loops: busy share, device events
-   and host waits per iteration.
+   and host waits per iteration;
+9. the ensemble slice: (a) the fused kernel at (96,8,500) with 8 and 64
+   chains and at (96,20,1000) with 20 chains masked to ranks 1..20, the
+   warmup flag alternating over the chains, against its plain version as
+   in phase 3, with ``cluster_config``, the kernel's time and its bound;
+   (b) the exponential prior in the stream kernels (the P-column and E-row
+   updates at (96,20,10000,8), with an excluded and inactive columns and
+   deep in the truncated tail; the metrics row at (96,20,10000,8) and with
+   a chain without columns) against their plain versions at the
+   truncnormal cases' limits, timed; (c) the allocation on a conjugate
+   ensemble's step at (96,8,2780) with 8 chains, both modes equal to the
+   plain version; (d) whole runs: ``fit(rank_method="BIC")`` over ranks
+   1..20 at 96x1000 (one fused launch per iteration, best rank and BIC
+   table), the Poisson-Exponential SBFI ensemble at 96x10k with 8 chains
+   through the stream kernels (3N + N + 1 launches per iteration), a
+   conjugate ensemble at 96x2780 with 8 chains (one allocation launch per
+   iteration, plus one), a Normal-TruncNormal ensemble at 96x500 (no
+   kernel), each with chain-it/s over run() and in the chunk loop, busy
+   share, device events per iteration, diagnostics() and the best chain's
+   matched cosine >= 0.9; Poisson MH at 96x500 with 8 and 64 chains on the
+   fused kernel and on the eager sweeps; (e) the masked ensemble's final
+   checkpoint resumes bit-exactly.
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -590,17 +611,25 @@ def stream_bound(name, K, N, G, C):
 ROW_PRIOR_OPS = 35
 
 
-def metrics_row_bound(K, N, G, C):
+# the exponential prior's term per entry (log, product, difference,
+# comparison) and the acceptance product
+ROW_EXP_PRIOR_OPS = 6
+
+
+def metrics_row_bound(K, N, G, C, expo=False):
     """The metrics row (csrc/stream_sweeps.cu: the metrics tile and
     finishing kernels) at one call: data, E, P, A, both sides' prior pairs
-    and acceptance records, the NaN events and the two chunk constants read
-    once, the rows written once; operations: the Mhat rebuild and the four
-    data terms per (c, k, g) (STREAM_OPS["chain_metrics"]), and the prior
-    term and the acceptance product per entry of E and P."""
-    n_in = K * G + C * (4 * N * G + 4 * K * N + N + 1) + 2
+    (one Lambda a side for the exponential prior) and acceptance records,
+    the NaN events and the two chunk constants read once, the rows written
+    once; operations: the Mhat rebuild and the four data terms per
+    (c, k, g) (STREAM_OPS["chain_metrics"]), and the prior term and the
+    acceptance product per entry of E and P."""
+    planes = 3 if expo else 4
+    n_in = K * G + C * (planes * (N * G + K * N) + N + 1) + 2
     n_out = 12 * C
     ops = (C * K * G * (2 * N - 1 + STREAM_OPS["chain_metrics"])
-           + C * (N * G + K * N) * ROW_PRIOR_OPS)
+           + C * (N * G + K * N) * (ROW_EXP_PRIOR_OPS if expo
+                                    else ROW_PRIOR_OPS))
     return bound(4 * (n_in + n_out), ops)
 
 
@@ -804,26 +833,32 @@ def pr5_row(torch, S, t):
         t["na"]], dim=-1)
 
 
-def compare_metrics_rows(torch, S, card):
+def compare_metrics_rows(torch, S, card, prior="truncnormal", cases=None):
     """Phase 3b, the metrics row: the row kernels against their plain
     version at every ROW_CASES case; it, n_params, sum A and the
     temperature exact, every other entry within the sums' tolerance, two
     launches bit-identical; timed at (96,20,10000,8) beside PR 5's
-    composition. Returns dict(max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, pr5_ms)."""
+    composition. With ``prior="exponential"`` (phase 9) the same kernels
+    with the Lambdas (the Sigmasq planes of row_inputs) in the places of
+    Mu and no PR 5 composition. Returns dict(max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, pr5_ms)."""
     res = {"max_abs_err": 0.0}
-    for (K, N, G, C, A, opt) in ROW_CASES:
+    expo = prior == "exponential"
+    for (K, N, G, C, A, opt) in (ROW_CASES if cases is None else cases):
         t = row_inputs(torch, S, K, N, G, C, seed=K + N + G + C, A=A,
                        option=opt)
+        if expo:
+            t["Mu_p"], t["Mu_e"] = t["Sigmasq_p"], t["Sigmasq_e"]
+            t["Sigmasq_p"] = t["Sigmasq_e"] = None
         args = [t[k] for k in ROW_ARGS]
         case = (f"(K,N,G,C)={(K, N, G, C)}" + (f" A={A}" if A else "")
-                + (f" {opt}" if opt else ""))
+                + (f" {opt}" if opt else "") + (f" {prior}" if expo else ""))
 
         def kernel(args=args):
-            return S.stream_metrics_row(*args)
+            return S.stream_metrics_row(*args, prior=prior)
 
         k1, k2 = kernel(), kernel()
-        p = S.stream_metrics_row_reference(*args)
+        p = S.stream_metrics_row_reference(*args, expo)
         torch.cuda.synchronize()
         check(torch.equal(k1, k2), f"metrics row: two launches differ at "
               f"{case}")
@@ -845,18 +880,23 @@ def compare_metrics_rows(torch, S, card):
         if (K, N, G, C) == STREAM_TIMED and A is None and opt is None:
             res["ms"], wrapped = kernel_ms(torch, kernel, 50)
             res["plain_ms"] = time_ms(
-                torch, lambda: S.stream_metrics_row_reference(*args), 3)
-            res["pr5_ms"], pr5_wrapped = kernel_ms(
-                torch, lambda: pr5_row(torch, S, t), 50)
-            res["bound_ms"], res["bound_by"] = metrics_row_bound(K, N, G, C)
-            print(f"time per call metrics row at (K,N,G,C)={STREAM_TIMED}: "
-                  f"kernels {res['ms']:.4f} ms on the device "
-                  f"({wrapped:.4f} ms per call through the wrapper), PR 5's "
-                  f"composition (P * A, chain_metrics, the host row) "
-                  f"{res['pr5_ms']:.4f} ms on the device ({pr5_wrapped:.4f} "
-                  f"ms per call), plain PyTorch {res['plain_ms']:.4f} ms, "
-                  f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), on "
-                  f"{card}", flush=True)
+                torch, lambda: S.stream_metrics_row_reference(*args, expo),
+                3)
+            res["bound_ms"], res["bound_by"] = metrics_row_bound(K, N, G, C,
+                                                                 expo)
+            pr5 = ""
+            if not expo:
+                res["pr5_ms"], pr5_wrapped = kernel_ms(
+                    torch, lambda: pr5_row(torch, S, t), 50)
+                pr5 = (f", PR 5's composition (P * A, chain_metrics, the "
+                       f"host row) {res['pr5_ms']:.4f} ms on the device "
+                       f"({pr5_wrapped:.4f} ms per call)")
+            print(f"time per call metrics row ({prior}) at (K,N,G,C)="
+                  f"{STREAM_TIMED}: kernels {res['ms']:.4f} ms on the device "
+                  f"({wrapped:.4f} ms per call through the wrapper){pr5}, "
+                  f"plain PyTorch {res['plain_ms']:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}), on {card}",
+                  flush=True)
     return res
 
 
@@ -918,7 +958,7 @@ def update_inputs(K, N, G, C, seed, A=None, opts=()):
         P[-1, :, 0] = 0.0
     a = np.ones(N, f) if A is None else np.asarray(A, f)
     u = lambda *sh: rng.uniform(1e-6, 1.0, sh).astype(f)  # noqa: E731
-    return dict(
+    d = dict(
         data=data, P=P, E=E, A=np.tile(a, (C, 1)),
         acc_P=np.full((C, K, N), 0.5, f), acc_E=np.full((C, N, G), 0.5, f),
         Mu_p=rng.normal(0.0, 1.0, (C, K, N)).astype(f),
@@ -929,9 +969,13 @@ def update_inputs(K, N, G, C, seed, A=None, opts=()):
         E_prior=rng.gamma(2.0, 1.0, (C, N, G)).astype(f),
         U_p=u(C, 3, N, K), U_e=u(C, 3, N, G),
         accept_all=(np.arange(C) % 2 == 1))
+    # the exponential prior's Lambdas (phase 9)
+    d["Lam_p"] = rng.gamma(2.0, 0.5, (C, K, N)).astype(f)
+    d["Lam_e"] = rng.gamma(2.0, 0.5, (C, N, G)).astype(f)
+    return d
 
 
-def tail_counts(torch, S, t, col, n):
+def tail_counts(torch, S, t, col, n, expo=False):
     """How many entries of column n's conditional have their truncation
     point alpha = -mu / sd in (5.4, 8] and beyond 8."""
     A_n = t["A"][:, n:n + 1]
@@ -940,27 +984,37 @@ def tail_counts(torch, S, t, col, n):
     if col:
         mu1, den = S.run_reference(t["data"], t["E"], PA, E_n, A_n * P_n,
                                    None, True)
-        Mu, Sq = t["Mu_p"][:, :, n], t["Sq_p"][:, :, n]
+        Mu, Sq = ((t["Lam_p"][:, :, n], None) if expo
+                  else (t["Mu_p"][:, :, n], t["Sq_p"][:, :, n]))
     else:
         mu1, den = S.run_reference(t["data"], t["E"], PA, A_n * E_n, P_n,
                                    None, False)
-        Mu, Sq = t["Mu_e"][:, n, :], t["Sq_e"][:, n, :]
-    mu, var = S._conditional(mu1, A_n * den, Mu, Sq)
+        Mu, Sq = ((t["Lam_e"][:, n, :], None) if expo
+                  else (t["Mu_e"][:, n, :], t["Sq_e"][:, n, :]))
+    mu, var = S._conditional(mu1, A_n * den, Mu, Sq, expo)
     alpha = -mu / torch.sqrt(var)
     return (int(((alpha > 5.4) & (alpha <= 8.0)).sum()),
             int((alpha > 8.0).sum()))
 
 
-def compare_stream_updates(torch, S, card):
+def compare_stream_updates(torch, S, card, prior="truncnormal",
+                           cases=None):
     """Phase 3b, the column updates: ``stream_pcol_update`` and
     ``stream_erow_update`` against the host sequence on the card, column by
-    column from the same state. Returns {name: dict(max_abs_err, ms,
-    plain_ms, bound_ms, bound_by)} at the timed shape."""
+    column from the same state; with ``prior="exponential"`` (phase 9) the
+    same kernels with the Lambdas in the place of the prior pair. Returns
+    {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)} at the timed
+    shape."""
     res = {}
-    for (K, N, G, C, A, opts) in UPDATE_CASES:
+    expo = prior == "exponential"
+    for (K, N, G, C, A, opts) in (UPDATE_CASES if cases is None else cases):
         t = to_card(torch, update_inputs(K, N, G, C, K + N + G + C, A, opts))
+        if expo:
+            t["Sq_p"] = t["Sq_e"] = None
+            t["Mu_p"], t["Mu_e"] = t["Lam_p"], t["Lam_e"]
         case = f"(K,N,G,C)={(K, N, G, C)}" + (f" A={A}" if A else "") + (
-            " " + " ".join(opts) if opts else "")
+            " " + " ".join(opts) if opts else "") + (f" {prior}" if expo
+                                                    else "")
         sides = {
             "pcol_update": (True, S.stream_pcol_update,
                             S.pcol_update_reference, "P", "acc_P", "Mu_p",
@@ -988,14 +1042,14 @@ def compare_stream_updates(torch, S, card):
             nan_k = nan_p = 0.0
             for n in range(N):
                 if "tails" in opts:
-                    tc = tail_counts(torch, S, {**t, **state}, col, n)
+                    tc = tail_counts(torch, S, {**t, **state}, col, n, expo)
                     tails = [tails[0] + tc[0], tails[1] + tc[1]]
                 sk, ak, nk = fresh()
-                kernel(*operands(sk, ak, nk), n, n + 1)
+                kernel(*operands(sk, ak, nk), n, n + 1, prior=prior)
                 s2, a2, n2 = fresh()
-                kernel(*operands(s2, a2, n2), n, n + 1)
+                kernel(*operands(s2, a2, n2), n, n + 1, prior=prior)
                 sp, ap, npn = fresh()
-                plain(*operands(sp, ap, npn), n)
+                plain(*operands(sp, ap, npn), n, expo)
                 torch.cuda.synchronize()
                 check(torch.equal(sk[xk], s2[xk]) and torch.equal(ak, a2)
                       and torch.equal(nk, n2),
@@ -1024,7 +1078,7 @@ def compare_stream_updates(torch, S, card):
             state0 = {"P": t["P"].clone(), "E": t["E"].clone()}
             acc_all = acc0.clone()
             nan_all = torch.zeros(C, dtype=torch.float32, device="cuda")
-            kernel(*operands(state0, acc_all, nan_all))
+            kernel(*operands(state0, acc_all, nan_all), prior=prior)
             torch.cuda.synchronize()
             check(torch.equal(state0[xk], state[xk])
                   and torch.equal(acc_all, acc),
@@ -1046,20 +1100,21 @@ def compare_stream_updates(torch, S, card):
             if (K, N, G, C) == STREAM_TIMED:
                 def sweep():
                     st, ac, nn = fresh()
-                    kernel(*operands(st, ac, nn))
+                    kernel(*operands(st, ac, nn), prior=prior)
 
                 def clones():
                     fresh()
 
                 def plain_col():
                     st, ac, nn = fresh()
-                    plain(*operands(st, ac, nn), 0)
+                    plain(*operands(st, ac, nn), 0, expo)
 
                 r["ms"] = (time_ms(torch, sweep, 20)
                            - time_ms(torch, clones, 20)) / N
                 r["plain_ms"] = time_ms(torch, plain_col, 3)
                 r["bound_ms"], r["bound_by"] = update_bound(col, K, N, G, C)
-                print(f"time per column {name} at (K,N,G,C)={STREAM_TIMED}: "
+                print(f"time per column {name} ({prior}) at (K,N,G,C)="
+                      f"{STREAM_TIMED}: "
                       f"kernel {r['ms']:.4f} ms (a sweep of {N} launches "
                       f"over {N}), host sequence {r['plain_ms']:.4f} ms, "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), on "
@@ -2055,6 +2110,369 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
                   "time; busy share not measured", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the ensemble slice
+# ---------------------------------------------------------------------------
+
+# (K, N, G, chains, per-chain masks of ranks 1..C): phase 9 (a), the fused
+# kernel on a chain axis beyond the four chains phase 3 checks
+ENS_KERNEL_CASES = [(96, 8, 500, 8, False), (96, 8, 500, 64, False),
+                    (96, 20, 1000, 20, True)]
+# phase 9 (b): the exponential prior in the stream kernels, at the timed
+# shape, with an excluded column (and inactive columns), and deep in the
+# truncated tail; the metrics row at the timed shape and with excluded
+# columns and a chain with none
+EXP_UPDATE_CASES = [(96, 20, 10000, 8, None, ()),
+                    (16, 3, 300, 2, (1.0, 0.0, 1.0), ("inactive",)),
+                    (96, 8, 2000, 2, None, ("tails",))]
+EXP_ROW_CASES = [(96, 20, 10000, 8, None, None),
+                 (16, 3, 300, 3, None, "excluded")]
+# phase 9 (c): the allocation on the conjugate step of an ensemble
+ENS_ALLOC = (96, 8, 2780, 8)
+# phase 9 (d): whole runs
+BIC_G, BIC_CC, BIC_POST = 1000, dict(MAP_over=300, MAP_every=100,
+                                     miniters=600, maxiters=1200,
+                                     Ninarow_nochange=3,
+                                     Ninarow_nobest=5), 300
+EXP_ENS_CC, EXP_ENS_POST = dict(MAP_over=200, MAP_every=100, miniters=400,
+                                maxiters=800, Ninarow_nochange=3,
+                                Ninarow_nobest=5), 200
+CONJ_ENS_CC = dict(MAP_over=300, MAP_every=100, miniters=400, maxiters=800,
+                   Ninarow_nochange=3, Ninarow_nobest=5)
+NORMAL_ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=300,
+                     maxiters=600, Ninarow_nochange=3, Ninarow_nobest=5)
+LOOP_CHAINS = (8, 64)
+
+
+def rank_masks(C, N):
+    """(C, N) inclusion masks of ranks 1..C: chain c keeps its first c + 1
+    columns."""
+    return (np.arange(N)[None, :] <= np.arange(C)[:, None]).astype(
+        np.float32)
+
+
+def compare_ensemble_kernel(torch, FS, card):
+    """Phase 9 (a): the fused kernel at ENS_KERNEL_CASES against its plain
+    version (rtol 1e-4 / atol 1e-5, A, R and every decision equal, two
+    launches bit-identical), the warmup flag alternating over the chains;
+    prints cluster_config and the kernel's time beside its bound. Returns
+    {(K, N, G, C): dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    res = {}
+    for (K, N, G, C, masks) in ENS_KERNEL_CASES:
+        d = sweep_inputs(K, N, G, C, seed=K + N + G + C)
+        if masks:
+            d["A"] = rank_masks(C, N)
+            d["Mhat"] = np.einsum("ckn,cn,cng->ckg", d["P"], d["A"],
+                                  d["E"]).astype(np.float32)
+        t = to_card(torch, d)
+        flags = torch.arange(C, device="cuda") % 2 == 0
+        case = (f"ensemble (K,N,G,C)={(K, N, G, C)}"
+                + (" masks of ranks 1..C" if masks else ""))
+        worst, kernel, plain = check_sweep_case(torch, FS, t, C, case, flags)
+        k_ms, w_ms = kernel_ms(torch, kernel, 20)
+        p_ms = time_ms(torch, plain, 2)
+        b_ms, b_by = fused_bound(K, N, G, C)
+        res[(K, N, G, C)] = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                                 bound_ms=b_ms, bound_by=b_by)
+        cfg = FS.cluster_config(K, N, G, C)
+        print(f"ensemble kernel {case}: cluster_config {cfg}; kernel "
+              f"{k_ms:.4f} ms on the device ({w_ms:.4f}"
+              f" ms per call through the wrapper, {k_ms / C:.4f} ms a "
+              f"chain), plain PyTorch {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), on {card}", flush=True)
+    return res
+
+
+def compare_ensemble_allocation(torch, bt, AL, card):
+    """Phase 9 (c): the allocation on the operands of a conjugate ensemble
+    step at ENS_ALLOC (P, A, E of 8 chains after 5 steps, the shared M):
+    equal to its plain version in both modes, two launches bit-identical,
+    the counts conserved. Returns dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)."""
+    K, N, G, C = ENS_ALLOC
+    M, _ = synthetic(K, G, N, seed=2)
+    ens = bt.ChainEnsemble(M, N, n_chains=C, prior="exponential", MH=False,
+                           device="cuda", seed=0, verbosity=0)
+    ens._run_chunk(5)
+    st = ens.states["params"]
+    args = (ens.data, st["P"], st["A"], st["E"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    u = AL.draw_planes(gen, C, N, K, G, "cuda")
+    seed = torch.tensor([K * G + N + C], dtype=torch.int64, device="cuda")
+    modes = {
+        "planes": (lambda: AL.allocate_counts(*args, u=u),
+                   lambda: AL.allocate_counts_reference(*args, u)),
+        "Philox": (lambda: AL.allocate_counts(*args, seed=seed),
+                   lambda: AL.allocate_counts_reference(
+                       *args, AL.philox_planes(seed, C, N, K, G)))}
+    res = {"max_abs_err": 0.0}
+    for mode, (kernel, plain) in modes.items():
+        k1, k2 = kernel(), kernel()
+        p = plain()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(k1, k2)),
+              f"ensemble allocation ({mode}): two launches differ")
+        for name, x, y in zip(("Zsum_g", "Zsum_k"), k1, p):
+            err = float((x - y).abs().max())
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            check(torch.equal(x, y), f"ensemble allocation ({mode}) {name} "
+                  f"differs from the plain version: max abs {err}")
+        check(torch.equal(k1[1].sum(-2), ens.data.sum(0).expand(C, G)),
+              f"ensemble allocation ({mode}) does not conserve the counts")
+    ms, wrapped = kernel_ms(torch, modes["Philox"][0], 20)
+    res["ms"] = ms
+    res["plain_ms"] = time_ms(torch, modes["Philox"][1], 2)
+    splits = count_splits(AL, torch, modes["Philox"][1])
+    res["bound_ms"], res["bound_by"] = alloc_bound(K, N, G, C, splits, False)
+    print(f"ensemble allocation at (K,N,G,C)={ENS_ALLOC} on a conjugate "
+          f"step: Zsum_g and Zsum_k equal to the plain version in both "
+          f"modes, two launches bit-identical, counts conserved; "
+          f"{ms:.4f} ms on the device (Philox; {wrapped:.4f} ms per call "
+          f"through the wrapper), plain PyTorch {res['plain_ms']:.4f} ms, "
+          f"bound {res['bound_ms']:.6f} ms ({res['bound_by']}) for "
+          f"{splits[0]} inversion splits of {splits[1]} steps and "
+          f"{splits[2]} BTRS splits, on {card}", flush=True)
+    return res
+
+
+def launch_counts(FS, S, AL):
+    return {"fused": FS.fused_gibbs_sweeps.launches, "_run": S._run.launches,
+            "stream_acol_update": S.stream_acol_update.launches,
+            "stream_metrics_row": S.stream_metrics_row.launches,
+            "acol_delta": S.acol_delta.launches,
+            "chain_metrics": S.chain_metrics.launches,
+            "allocation": AL.allocate_counts.launches}
+
+
+def profile_chains(torch, CH, ens, states, acc, n):
+    """torch.profiler over ``n`` iterations of the ensemble's chunk loop
+    from ``states``: (device busy us, wall s, device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        CH.run_chunk_chains(ens.spec, ens.data, ens.hp, states,
+                            np.ones(n, np.float32), acc, store_E=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) for e in ka)
+    events = sum(e.count for e in ka
+                 if getattr(e, "device_type", None) is not None
+                 and "CUDA" in str(e.device_type))
+    return dev_us, wall, events
+
+
+def fresh_chains(torch, CH, ens, C, seed=1):
+    """C new chains of the ensemble's model (its masks on them)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    states = CH.init_chain_states(ens.spec, ens.hp, ens.data, gen, C)
+    if ens.A_masks is not None:
+        masks = torch.as_tensor(ens.A_masks[:C], device="cuda")
+        states["params"]["A"] = masks
+        states["params"]["R"] = masks.sum(1).to(torch.int32)
+    return states
+
+
+def chunk_loop(torch, CH, ens, C, n, label, card, profile=True):
+    """The chunk loop alone on C fresh chains (5 iterations of warm-up,
+    then ``n`` timed), and a profiled window of 10: returns chain-it/s and
+    prints the busy share and device events per iteration."""
+    states = fresh_chains(torch, CH, ens, C)
+    acc = torch.zeros(C, dtype=torch.bool, device="cuda")
+    states, _ = CH.run_chunk_chains(ens.spec, ens.data, ens.hp, states,
+                                    np.ones(5, np.float32), acc,
+                                    store_E=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, _ = CH.run_chunk_chains(ens.spec, ens.data, ens.hp, states,
+                                    np.ones(n, np.float32), acc,
+                                    store_E=False)
+    torch.cuda.synchronize()
+    rate = C * n / (time.perf_counter() - t0)
+    line = (f"{label}: chunk loop alone {rate:.1f} chain-it/s "
+            f"({rate / C:.2f} it/s, C = {C}, {n} iterations)")
+    if profile:
+        n_prof = 10
+        dev_us, wall, events = profile_chains(torch, CH, ens, states, acc,
+                                              n_prof)
+        line += (f"; profiled {n_prof} iterations: device busy "
+                 f"{dev_us / 1e3:.2f} ms of {wall * 1e3:.1f} ms wall (share "
+                 f"{dev_us / 1e6 / wall:.3f}), {events / n_prof:.1f} device "
+                 "events per iteration" if dev_us > 0 else
+                 "; torch.profiler recorded no device time, busy share not "
+                 "measured")
+    print(f"{line} on {card}", flush=True)
+    return rate
+
+
+def report_run(torch, CH, ens, label, wall, launches, per_iter, P_true,
+               card, best=None):
+    """The checks and lines every phase 9 run prints: finite metrics, each
+    kernel's launches per iteration, chain-it/s over run(), diagnostics(),
+    the best chain's (least BIC, or ``best``) matched cosine >= 0.9."""
+    steps = ens.iter - 1
+    rows = ens._metrics_all()
+    rows = rows[~np.isnan(rows[..., 0])]
+    check(rows.shape[0] > 0 and np.isfinite(rows).all(),
+          f"{label}: metrics are not finite")
+    for k, v in launches.items():
+        n, extra = per_iter.get(k, (0, 0))
+        check(v == n * steps + extra, f"{label}: {k} launches {v} != "
+              f"{n} x {steps} iterations + {extra}")
+    table = ens.bic_table()
+    c = int(table.iloc[0]["chain"]) if best is None else best
+    cos = matched_cosines(np.asarray(ens.chain(c).MAP["P"]), P_true)
+    check(cos.min() >= 0.9, f"{label}: chain {c}'s matched cosine too low: "
+          f"{cos}")
+    diag = ens.diagnostics()
+    counted = ", ".join(f"{k} {v} (= {per_iter[k][0]} x {steps}"
+                        + (f" + {per_iter[k][1]}" if per_iter[k][1] else "")
+                        + ")" for k, v in launches.items() if k in per_iter)
+    print(f"{label}: {steps} iterations, {ens.throughput():.1f} chain-it/s "
+          f"over run() ({wall:.2f} s, MAP checks included); launches "
+          + (counted + ", other kernels 0" if counted else "none")
+          + f"; learned ranks {ens.learned_ranks.tolist()}; "
+          f"best chain {c} (rank {int(table.iloc[0]['rank'])}) matched "
+          f"cosine min {cos.min():.4f} mean {cos.mean():.4f}; on {card}",
+          flush=True)
+    print(f"{label}: diagnostics() " + "; ".join(
+        f"{r.metric} rhat {r.rhat:.4f} ess_bulk {r.ess_bulk:.1f} ess_tail "
+        f"{r.ess_tail:.1f}" + (" (constant)" if r.constant else "")
+        for r in diag.itertuples()), flush=True)
+    return table
+
+
+def run_ensembles(torch, bt, FS, S, AL, card):
+    """Phase 9 (d), (e): whole ensemble runs on every path, and the masked
+    ensemble's bit-exact resume. Returns the launches of each run."""
+    from bayesnmf_tpu_torch.parallel import chains as CH
+
+    out = {}
+    # fit(rank_method="BIC") over ranks 1..20: one masked ensemble of 20
+    # chains through the fused kernel
+    M, P_true = synthetic(RANK_K, BIC_G, RANK_TRUE)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(FS, S, AL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bt.fit(M, range(1, RANK_MAX + 1), rank_method="BIC",
+                     device="cuda", output_dir=os.path.join(tmp, "bic"),
+                     convergence_control=bt.ConvergenceControl(**BIC_CC),
+                     post_warmup=BIC_POST, seed=0, periodic_save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(FS, S, AL)
+        ens = res["ensemble"]
+        check(ens.spec.fused_sweeps and ens.A_masks is not None,
+              "BIC: the parallel route did not run the masked fused path")
+        report_run(torch, CH, ens, "ensemble BIC", wall, launches,
+                   {"fused": (1, 0)}, P_true, card, best=res["sampler"].chain)
+        print("ensemble BIC: best_rank " + str(res["best_rank"])
+              + " (true " + str(RANK_TRUE) + "); BIC table " + "; ".join(
+                  f"rank {r['rank']} {r['BIC']:.1f}" for r in res["results"]),
+              flush=True)
+        out["bic"] = launches
+        # (e) the masked ensemble's final checkpoint resumes bit-exactly
+        resumed = bt.ChainEnsemble.load(os.path.join(ens.output_dir,
+                                                     "ensemble.ckpt"))
+        check(np.array_equal(resumed.A_masks, ens.A_masks),
+              "BIC: the checkpoint lost the masks")
+        ends = []
+        for x in (ens, resumed):
+            acc = torch.zeros(x.states["params"]["P"].shape[0],
+                              dtype=torch.bool, device="cuda")
+            ends.append(CH.run_chunk_chains(x.spec, x.data, x.hp, x.states,
+                                            np.ones(20, np.float32), acc,
+                                            store_E=False)[0])
+        check(all(torch.equal(ends[0][g][k], ends[1][g][k])
+                  for g in ("params", "prior") for k in ends[0][g]),
+              "a resumed masked ensemble drew other samples")
+        print("ensemble BIC: resumed from the final checkpoint, 20 more "
+              "iterations equal the original chains' bit for bit", flush=True)
+    chunk_loop(torch, CH, ens, RANK_MAX, 30, "ensemble BIC", card)
+
+    # Poisson-Exponential SBFI at the north-star shape through the stream
+    # kernels
+    M, P_true = synthetic(ENS_K, ENS_G, ENS_TRUE_RANK)
+    N = ENS_MAX_RANK
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = bt.ChainEnsemble(
+        M, range(1, N + 1), n_chains=ENS_CHAINS, prior="exponential",
+        convergence_control=bt.ConvergenceControl(**EXP_ENS_CC),
+        post_warmup=EXP_ENS_POST, seed=0, store_E=False, periodic_save=False,
+        device="cuda")
+    check(ens.spec.stream_sweeps, "the 96x10k ensemble is not streamed")
+    ens.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(FS, S, AL)
+    report_run(torch, CH, ens, "ensemble exponential stream", wall, launches,
+               {"_run": (3 * N, 0), "stream_acol_update": (N, 0),
+                "stream_metrics_row": (1, 0)}, P_true, card)
+    out["exponential"] = launches
+    chunk_loop(torch, CH, ens, ENS_CHAINS, 20, "ensemble exponential stream",
+               card)
+
+    # conjugate Poisson-Exponential at config 4's shape
+    M, P_true = synthetic(96, 2780, 8, seed=2)
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = bt.ChainEnsemble(
+        M, 8, n_chains=8, prior="exponential", MH=False,
+        convergence_control=bt.ConvergenceControl(**CONJ_ENS_CC), seed=0,
+        periodic_save=False, device="cuda")
+    ens.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(FS, S, AL)
+    report_run(torch, CH, ens, "ensemble conjugate", wall, launches,
+               {"allocation": (1, 1)}, P_true, card)
+    out["conjugate"] = launches
+    chunk_loop(torch, CH, ens, 8, 50, "ensemble conjugate", card)
+
+    # Normal-TruncNormal at config 2's shape: no kernel
+    M, P_true = synthetic(96, 500, 8, seed=3)
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = bt.ChainEnsemble(
+        M, 8, n_chains=8, likelihood="normal",
+        convergence_control=bt.ConvergenceControl(**NORMAL_ENS_CC), seed=0,
+        periodic_save=False, device="cuda")
+    ens.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report_run(torch, CH, ens, "ensemble Normal", wall,
+               launch_counts(FS, S, AL), {}, P_true, card)
+    chunk_loop(torch, CH, ens, 8, 20, "ensemble Normal", card)
+
+    # Poisson MH at config 2's shape: the fused kernel against the
+    # chain-batched eager sweeps, the number behind fused_sweeps=None
+    M, _ = synthetic(96, 500, 8, seed=3)
+    for C in LOOP_CHAINS:
+        for fused in (True, False):
+            ens = bt.ChainEnsemble(M, 8, n_chains=C, fused_sweeps=fused,
+                                   seed=0, device="cuda", verbosity=0)
+            reset_counts(FS, S, AL)
+            chunk_loop(torch, CH, ens, C, 30 if fused else 10,
+                       f"ensemble Poisson MH 96x500 fused_sweeps={fused}",
+                       card, profile=C == LOOP_CHAINS[0])
+            n_fused = FS.fused_gibbs_sweeps.launches
+            want = 5 + 30 + (10 if C == LOOP_CHAINS[0] else 0)
+            check(n_fused == (want if fused else 0),
+                  f"Poisson MH fused_sweeps={fused}: {n_fused} fused "
+                  "launches")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2127,6 +2545,17 @@ def main() -> int:
     # phase 8: the eager sweeps and the Normal likelihood
     run_eager(torch, bt, FS, S, AL, gibbs, card)
 
+    # phase 9: the ensemble slice
+    t9 = time.perf_counter()
+    ens_kernel = compare_ensemble_kernel(torch, FS, card)
+    exp_updates = compare_stream_updates(torch, S, card, "exponential",
+                                         EXP_UPDATE_CASES)
+    exp_row = compare_metrics_rows(torch, S, card, "exponential",
+                                   EXP_ROW_CASES)
+    ens_alloc = compare_ensemble_allocation(torch, bt, AL, card)
+    p9_launches = run_ensembles(torch, bt, FS, S, AL, card)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
           "the port imported the JAX package")
@@ -2185,6 +2614,46 @@ def main() -> int:
         "ms": alloc["ms"], "plain_ms": alloc["plain_ms"],
         "bound_ms": alloc["bound_ms"], "bound_by": alloc["bound_by"],
         "library_ms": None})
+    # phase 9's cases: the fused kernel over 20 masked chains (the BIC
+    # ensemble's launches), the exponential prior in the stream kernels (the
+    # 96x10k exponential ensemble's), the allocation on a conjugate
+    # ensemble's step (that ensemble's launches)
+    bic = ens_kernel[ENS_KERNEL_CASES[-1][:4]]
+    kernels.append({
+        "name": "fused_gibbs_sweeps (ensemble of 20 masked chains)",
+        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
+        "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
+        "launches": p9_launches["bic"]["fused"],
+        "max_abs_err": max(v["max_abs_err"] for v in ens_kernel.values()),
+        "ms": bic["ms"], "plain_ms": bic["plain_ms"],
+        "bound_ms": bic["bound_ms"], "bound_by": bic["bound_by"],
+        "library_ms": None})
+    emean = lambda key: float(np.mean(  # noqa: E731
+        [u[key] for u in exp_updates.values()]))
+    kernels.append({
+        "name": "_run (exponential prior)", "route": "cuda", "source": src,
+        "replaces": f"{pss}:330",
+        "launches": p9_launches["exponential"]["_run"],
+        "max_abs_err": max(u["max_abs_err"] for u in exp_updates.values()),
+        "ms": emean("ms"), "plain_ms": emean("plain_ms"),
+        "bound_ms": emean("bound_ms"),
+        "bound_by": exp_updates["pcol_update"]["bound_by"],
+        "library_ms": None})
+    kernels.append({
+        "name": "chain_metrics (exponential prior)", "route": "cuda",
+        "source": src, "replaces": f"{pss}:272",
+        "launches": p9_launches["exponential"]["stream_metrics_row"],
+        "max_abs_err": exp_row["max_abs_err"], "ms": exp_row["ms"],
+        "plain_ms": exp_row["plain_ms"], "bound_ms": exp_row["bound_ms"],
+        "bound_by": exp_row["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "allocate_counts_fused (conjugate ensemble of 8 chains)",
+        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+        "launches": p9_launches["conjugate"]["allocation"],
+        "max_abs_err": ens_alloc["max_abs_err"], "ms": ens_alloc["ms"],
+        "plain_ms": ens_alloc["plain_ms"], "bound_ms": ens_alloc["bound_ms"],
+        "bound_by": ens_alloc["bound_by"], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

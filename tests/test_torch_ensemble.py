@@ -143,26 +143,11 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()),
-    dict(A_masks=np.ones((2, 3))),
     dict(record_history="full"),
     dict(save_all_samples=True),
-    dict(fused_sweeps=True),
-    dict(stream_sweeps=False),
-    dict(stream_sweeps=None),          # on the CPU the policy picks no stream
-    dict(rank=[1, 2, 3], rank_method="BIC"),
-    dict(prior="exponential"),
+    dict(prior="gamma", MH=False, stream_sweeps=False),
 ])
 def test_outside_the_slice_raises(kw):
     args = dict(rank=3, n_chains=2, stream_sweeps=True, device="cpu") | kw
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ChainEnsemble(sim_data(), **args)
-
-
-@pytest.mark.parametrize("method", ["pooled_assignment", "diagnostics"])
-def test_unported_results_raise(method):
-    cc = bt.ConvergenceControl(MAP_over=4, MAP_every=4, miniters=4,
-                               maxiters=8)
-    ens = ChainEnsemble(sim_data(), 2, n_chains=2, convergence_control=cc,
-                        post_warmup=4, stream_sweeps=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(ens, method)()

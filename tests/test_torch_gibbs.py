@@ -287,10 +287,7 @@ def test_ten_steps_of_each_path_match_jax(case):
 
 
 @pytest.mark.parametrize("kw", [dict(prior="gamma", MH=False,
-                                     fused_sweeps=False),
-                                dict(learning_rank=True, rank_method="BIC"),
-                                dict(prior="exponential", fused_sweeps=False,
-                                     stream_sweeps=True)])
+                                     fused_sweeps=False)])
 def test_unported_specs_raise(kw):
     spec = ModelSpec(**(dict(K=K, N=N, G=G, likelihood="poisson",
                              prior="truncnormal", MH=True,

@@ -325,7 +325,6 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(rank=[1, 2, 3], rank_method="BIC"),
     dict(mesh=object()),
     dict(prior="gamma"),
     dict(stream_sweeps=True),
