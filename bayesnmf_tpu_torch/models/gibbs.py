@@ -1,8 +1,8 @@
 """The Gibbs engine: state construction, one step, the chunk runner, and the
 tempering schedule.
 
-Port of bayesnmf_tpu/models/gibbs.py for the Poisson and Normal
-likelihoods with the TruncNormal or the exponential prior, on four paths,
+Port of bayesnmf_tpu/models/gibbs.py for the six model families of the
+Poisson and Normal likelihoods, on four paths,
 each for one chain or for C chains at once (every state tensor with a
 leading chain axis; the JAX package vmaps one chain's step, and one chain
 here is a batch of one):
@@ -21,19 +21,23 @@ here is a batch of one):
   Mhat-based A sweep, and with the Normal likelihood sigmasq from the
   final Mhat (gibbs.py:241-269); no kernel runs, as none does on the JAX
   package's XLA path;
-- conjugate (MH=False, exponential prior): Lambda, then all of P and all
-  of E by conjugate gamma draws, the R draw and the Mhat-based A sweep
-  when rank learning, and the latent counts' sums through the allocation
-  kernel (ops/allocation.py, one grid over the chains; gibbs.py:159-162,
-  248-267);
+- conjugate (MH=False, the exponential or the gamma prior): the prior
+  update (Lambda; or Beta, then Alpha by one slice transition), then all
+  of P and all of E by conjugate gamma draws, the R draw and the
+  Mhat-based A sweep when rank learning, and the latent counts' sums
+  through the allocation kernel (ops/allocation.py, one grid over the
+  chains; gibbs.py:159-162, 248-267);
 - streaming (large G, either prior): each step runs the prior update, the
   streamed P, E and A sweeps (models/updates.py) and the metrics row (one
   kernel pair); no (C, K, G) tensor exists (gibbs.py:228-264).
 
 Each step's random numbers are one chain-major draw (chain c's its own
 row, in the one-chain layout of the JAX step's keys). ``jax.lax.scan``
-becomes a Python loop that writes each step into buffers preallocated on
-the device; the chunk's temperatures go to the device once, and no step
+becomes a Python loop that writes each step into buffers allocated once a
+chunk on the device (P, E, A and the metrics rows; with ``record='full'``
+also the prior parameters, sigmasq and the acceptance records, as the
+reference's record_sample keeps them, bayesNMF_sampler.R:651-672); the
+chunk's temperatures go to the device once, and no step
 waits for the device except where a gamma draw's exact rejection loop
 checks that it is done (ops/distributions.gamma), once a draw for all
 chains.
@@ -64,22 +68,11 @@ N_METRICS = len(METRIC_NAMES)
 _TINY = 1.2e-38
 
 
-def check_spec(spec: ModelSpec):
-    """Raise NotImplementedError for the one family not ported yet, the
-    gamma prior. Everything else of the Poisson and Normal likelihoods runs
-    on the fused, eager, conjugate or streaming path, at a fixed rank or
-    learning it over a rank list by SBFI, BFI or BIC (the JAX step runs the
-    last without the SBFI penalty, updates.py:819, :859)."""
-    if spec.prior not in ("truncnormal", "exponential"):
-        raise NotImplementedError(
-            f"bayesnmf_tpu_torch does not port yet: prior={spec.prior!r} "
-            "(see ROADMAP.md)")
-
-
 def kernel_rank_method(spec: ModelSpec):
     """The rank branch the fused kernel runs: None at a fixed rank, "SBFI"
     with the inclusion penalty, "BFI" without it (BFI, and BIC over a rank
-    list)."""
+    list; the JAX step runs the last without the SBFI penalty,
+    updates.py:819, :859)."""
     if not spec.learning_rank:
         return None
     return "SBFI" if spec.rank_method == "SBFI" else "BFI"
@@ -102,7 +95,6 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
     ``init_params`` / ``init_prior_params`` entries override the draws (the
     same value for every chain); ``init_prior_params`` "alpha" and "beta"
     set the sigmasq prior, broadcast to length G."""
-    check_spec(spec)
     dev = data.device
     f32 = dict(dtype=torch.float32, device=dev)
     lead = () if chains is None else (chains,)
@@ -211,9 +203,26 @@ def _one_chain(step, spec, data, hp, state, temperature, accept_all,
     return U.drop(new_state), U.drop(out)
 
 
+def _sample_out(spec: ModelSpec, state: dict, metrics, record: str) -> dict:
+    """A step's record of ``state``: P, E, A and the metrics row; with
+    ``record='full'`` also the prior parameters (a dict under "prior"),
+    sigmasq with the Normal likelihood and the acceptance records acc_P,
+    acc_E with MH (gibbs.py:280-289)."""
+    params = state["params"]
+    out = {"P": params["P"], "E": params["E"], "A": params["A"],
+           "metrics": metrics}
+    if record == "full":
+        out["prior"] = state["prior"]
+        if spec.needs_sigmasq:
+            out["sigmasq"] = params["sigmasq"]
+        if spec.MH:
+            out["acc_P"], out["acc_E"] = state["acc_P"], state["acc_E"]
+    return out
+
+
 def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                accept_all, metric_consts=None, u=None, consts=None,
-               noise=None, metrics_out=None):
+               noise=None, metrics_out=None, record: str = "basic"):
     """One full Gibbs sweep; returns (new_state, sample_out).
 
     Every step takes one chain's state or C chains' with a leading chain
@@ -231,23 +240,24 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     is drawn from ``state['gen']``. ``temperature`` is a float or a 0-d
     tensor on the device; ``accept_all`` a bool or a (C,) bool tensor.
     ``sample_out`` holds P, E, A and the metrics row, which goes to
-    ``metrics_out`` ((C, N_METRICS), a slice of a chunk buffer) when given.
+    ``metrics_out`` ((C, N_METRICS), a slice of a chunk buffer) when given;
+    ``record='full'`` adds what ``_sample_out`` lists.
     ``metric_consts`` and ``consts`` (step_constants of C chains, of 1 for
     one chain) are computed when not given.
     """
     if spec.stream_sweeps:
         return stream_step(spec, data, hp, state, temperature, accept_all,
-                           metric_consts, noise, metrics_out)
+                           metric_consts, noise, metrics_out, record)
     if spec.likelihood == "poisson" and not spec.MH:
         return conjugate_step(spec, data, hp, state, temperature,
-                              metric_consts, noise, metrics_out)
+                              metric_consts, noise, metrics_out, record)
     if not spec.fused_sweeps:
         return eager_step(spec, data, hp, state, temperature, accept_all,
-                          metric_consts, noise, metrics_out)
+                          metric_consts, noise, metrics_out, record)
     if state["params"]["P"].dim() == 2:
         return _one_chain(gibbs_step, spec, data, hp, state, temperature,
                           accept_all, metric_consts, noise, u=u,
-                          consts=consts)
+                          consts=consts, record=record)
     K, N, G = spec.K, spec.N, spec.G
     dev = data.device
     params = dict(state["params"])
@@ -318,8 +328,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
                            metric_consts, metrics_out)
-    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
-                       "metrics": metrics}
+    return new_state, _sample_out(spec, new_state, metrics, record)
 
 
 def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
@@ -371,7 +380,8 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
 
 
 def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-               accept_all, metric_consts=None, noise=None, metrics_out=None):
+               accept_all, metric_consts=None, noise=None, metrics_out=None,
+               record: str = "basic"):
     """One Gibbs iteration on the eager path (gibbs.py:100-290): the prior
     update, a fresh Mhat, the P sweep and the E sweep (Normal conjugate
     draws, or Poisson MH with ``accept_all`` during warmup), with rank
@@ -383,7 +393,7 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     rejection loops (ops/distributions.gamma), one wait a draw for all C."""
     if state["params"]["P"].dim() == 2:
         return _one_chain(eager_step, spec, data, hp, state, temperature,
-                          accept_all, metric_consts, noise)
+                          accept_all, metric_consts, noise, record=record)
     gen = state["gen"]
     params = dict(state["params"])
     C = params["P"].shape[0]
@@ -417,25 +427,27 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
                            metric_consts, metrics_out)
-    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
-                       "metrics": metrics}
+    return new_state, _sample_out(spec, new_state, metrics, record)
 
 
 def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-                   metric_consts=None, noise=None, metrics_out=None):
+                   metric_consts=None, noise=None, metrics_out=None,
+                   record: str = "basic"):
     """One conjugate Poisson-Gibbs iteration (MH=False; gibbs.py:100-290):
-    Lambda, then P and E given the latent counts, with rank learning the R
-    draw and the Mhat-based A sweep, then the new latent counts' sums
-    through the allocation kernel (its grid has the chain axis); for one
-    chain or C chains at once. ``noise`` may hold each draw's random numbers
-    as the JAX step draws them from its keys: {"prior": {"p", "e"}, "P",
-    "E", "R", "A", "Z"} (the gamma planes, the Gumbel noise, the A
-    uniforms, the allocation planes), chain-major with a chain axis; what it
-    lacks comes from ``state['gen']``."""
+    the prior update (the exponential prior's Lambda, or the gamma prior's
+    Beta and Alpha), then P and E given the latent counts, with rank
+    learning the R draw and the Mhat-based A sweep, then the new latent
+    counts' sums through the allocation kernel (its grid has the chain
+    axis); for one chain or C chains at once. ``noise`` may hold each
+    draw's random numbers as the JAX step draws them from its keys:
+    {"prior", "P", "E", "R", "A", "Z"} (the prior update's, in the layout
+    ``updates.sample_prior_params`` takes; the gamma planes of P and E, the
+    Gumbel noise, the A uniforms, the allocation planes), chain-major with
+    a chain axis; what it lacks comes from ``state['gen']``."""
     if state["params"]["P"].dim() == 2:
         return _one_chain(
             lambda sp, d, h, st, t, _a, mc, noise: conjugate_step(
-                sp, d, h, st, t, mc, noise),
+                sp, d, h, st, t, mc, noise, record=record),
             spec, data, hp, state, temperature, None, metric_consts, noise)
     gen = state["gen"]
     noise = noise or {}
@@ -462,8 +474,7 @@ def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, None, None, na_events, metric_consts,
                            metrics_out)
-    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
-                       "metrics": metrics}
+    return new_state, _sample_out(spec, new_state, metrics, record)
 
 
 def _fill(col, v):
@@ -525,19 +536,20 @@ def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
     return row
 
 
-def snapshot_sample(spec: ModelSpec, data, state: dict, temperature) -> dict:
+def snapshot_sample(spec: ModelSpec, data, state: dict, temperature,
+                    record: str = "basic") -> dict:
     """Sample record of the current state without advancing the chain (the
-    initial sample, bayesNMF_sampler.R:240-257), for one chain or C."""
+    initial sample, bayesNMF_sampler.R:240-257; gibbs.py:362-375), for one
+    chain or C."""
     params = state["params"]
     if params["P"].dim() == 2:
         return U.drop(snapshot_sample(spec, data, U.lift(state),
-                                      temperature))
+                                      temperature, record))
     Mh = m.mhat(params["P"], params["A"], params["E"])
     metrics = _metrics_row(spec, data, params, state["prior"], Mh,
                            state["iter"], temperature, state.get("acc_P"),
                            state.get("acc_E"))
-    return {"P": params["P"], "E": params["E"], "A": params["A"],
-            "metrics": metrics}
+    return _sample_out(spec, state, metrics, record)
 
 
 # ---------------------------------------------------------------------------
@@ -589,7 +601,8 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
 
 
 def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
-                accept_all, metric_consts=None, noise=None, metrics_out=None):
+                accept_all, metric_consts=None, noise=None, metrics_out=None,
+                record: str = "basic"):
     """One Gibbs iteration of every chain on the streaming path
     (gibbs.py:228-264): the prior update (Mu/Sigmasq, or the exponential
     prior's Lambda on the (C, K, N) and (C, N, G) planes), the P and E
@@ -601,7 +614,9 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     (draw_stream_noise's layout) is drawn from ``state['gen']`` when None;
     ``metrics_out``, a (C, N_METRICS) slice of a chunk buffer, takes the
     rows when given. Returns (new_state, sample_out) with sample_out P
-    (C, K, N), E (C, N, G), A (C, N), metrics (C, N_METRICS).
+    (C, K, N), E (C, N, G), A (C, N), metrics (C, N_METRICS), and with
+    ``record='full'`` the prior parameters and acc_P (C, K, N), acc_E
+    (C, N, G).
     """
     params = dict(state["params"])
     C = params["P"].shape[0]
@@ -632,8 +647,7 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         data, params["P"], params["E"], params["A"], acc_P, acc_E, *hp_p,
         *hp_e, metric_consts["lgamma_sum"], metric_consts["mlogm_sum"],
         na_events, new_iter, temperature, out=metrics_out, prior=spec.prior)
-    return new_state, {"P": params["P"], "E": params["E"], "A": params["A"],
-                       "metrics": metrics}
+    return new_state, _sample_out(spec, new_state, metrics, record)
 
 
 # ---------------------------------------------------------------------------
@@ -641,30 +655,49 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
 # ---------------------------------------------------------------------------
 
 
+def record_buffers(sample: dict, steps: int, axis: int) -> dict:
+    """Empty device buffers for ``steps`` records shaped like ``sample`` (a
+    step's sample_out, nested dicts of tensors), the step axis inserted at
+    ``axis`` (0 for one chain, 1 after the chain axis)."""
+    if isinstance(sample, dict):
+        return {k: record_buffers(v, steps, axis) for k, v in sample.items()}
+    shape = sample.shape[:axis] + (steps,) + sample.shape[axis:]
+    return torch.empty(shape, dtype=sample.dtype, device=sample.device)
+
+
+def write_record(bufs: dict, sample: dict, i: int, axis: int):
+    """Copy every tensor of ``sample`` into slot ``i`` of its buffer."""
+    for k, buf in bufs.items():
+        if isinstance(buf, dict):
+            write_record(buf, sample[k], i, axis)
+        else:
+            buf.select(axis, i).copy_(sample[k])
+
+
 def run_chunk(spec: ModelSpec, data, hp: dict, state: dict, temps,
-              accept_all: bool):
+              accept_all: bool, record: str = "basic"):
     """Run ``len(temps)`` Gibbs iterations (the reference's lax.scan).
 
     Returns (state, samples): ``samples['metrics']`` is (steps, N_METRICS)
-    and ``samples['P'/'E'/'A']`` stack the per-iteration draws, all in
-    buffers allocated once on the device.
+    and ``samples['P'/'E'/'A']`` stack the per-iteration draws, with
+    ``record='full'`` also the prior parameters (a dict under "prior"),
+    sigmasq and acc_P/acc_E (gibbs.py:280-289), all in buffers allocated
+    once a chunk on the device.
     """
     steps = len(temps)
     dev = data.device
-    f32 = dict(dtype=torch.float32, device=dev)
     metric_consts = m.metric_constants(spec.likelihood, data)
     consts = step_constants(spec, hp, dev) if spec.fused_sweeps else None
     # the chunk's temperatures go to the device once; each step indexes them
     temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
-    out = {"metrics": torch.empty(steps, N_METRICS, **f32),
-           "P": torch.empty(steps, spec.K, spec.N, **f32),
-           "E": torch.empty(steps, spec.N, spec.G, **f32),
-           "A": torch.empty(steps, spec.N, **f32)}
+    out = None
     for i in range(steps):
         state, sample = gibbs_step(spec, data, hp, state, temps[i],
-                                   accept_all, metric_consts, consts=consts)
-        for k, buf in out.items():
-            buf[i] = sample[k]
+                                   accept_all, metric_consts, consts=consts,
+                                   record=record)
+        if out is None:
+            out = record_buffers(sample, steps, 0)
+        write_record(out, sample, i, 0)
     return state, out
 
 

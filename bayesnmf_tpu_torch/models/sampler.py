@@ -3,8 +3,9 @@
 Port of bayesnmf_tpu/models/sampler.py for one chain: the Poisson
 likelihood with MH (truncnormal or exponential prior, through the fused
 kernel, or with ``fused_sweeps=False`` the eager sweeps) or conjugate Gibbs
-(MH=False, exponential prior, through the allocation kernel), and the
-Normal likelihood (truncnormal or exponential prior, the eager sweeps), at
+(MH=False, exponential or gamma prior, through the allocation kernel), and
+the Normal likelihood (truncnormal or exponential prior, the eager sweeps),
+at
 a fixed rank or learning it over a rank list by SBFI/BFI/BIC (the last
 without the SBFI penalty, as the JAX step runs it). ``fit`` with
 ``rank_method='BIC'`` over a rank list fits one model per rank and keeps
@@ -13,7 +14,9 @@ the one of least BIC: by default all at once, one chain per rank in a
 per rank in turn. The hot loop
 runs on the device in chunks of MAP_every iterations (models/gibbs.py);
 this class owns everything at chunk granularity: sample
-windows, metrics history, convergence, logging, checkpointing and the
+windows (with ``record_history='full'`` also the prior parameters, sigmasq
+and the acceptance records, ``samples`` and ``posterior_summary``),
+metrics history, convergence, logging, checkpointing and the
 postprocessing entry points, which read numpy arrays.
 
 The device is explicit: ``device="cuda"`` (the default) runs the CUDA
@@ -47,6 +50,7 @@ from ..utils.logging import RunLogger, format_counts_table
 from . import gibbs
 from .convergence import ConvergenceTracker
 from .map_estimate import compute_map, map_quality_metrics
+from .updates import lift
 
 _ROADMAP = "not ported yet (see ROADMAP.md queue 1)"
 
@@ -83,6 +87,42 @@ def resolve_device(device) -> torch.device:
 
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def host_tree(tree):
+    """Every tensor of ``tree`` (nested dicts) as host numpy; anything else
+    (a chunk's start iteration, its chain ids) as it is."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    return _host(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def stack_history(chunks: list) -> dict:
+    """The recorded histories of ``chunks`` (one chain's, each {name:
+    (steps, ...)} with the prior parameters under "prior") stacked along
+    the step axis as numpy, the prior parameters under their own names
+    (the reference's ``samples$Lambda_p``, bayesNMF_sampler.R:651-672)."""
+    out: dict = {}
+    for ch in chunks:
+        for k, v in ch.items():
+            if k in ("start_iter", "chain_ids", "metrics"):
+                continue
+            for name, x in (v.items() if isinstance(v, dict) else [(k, v)]):
+                out.setdefault(name, []).append(_host(x))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def summarize_history(hist: dict, name: str, q) -> dict:
+    """Posterior mean and quantiles of one recorded history (``hist`` as
+    ``samples`` gives it); KeyError naming what was recorded otherwise."""
+    if name not in hist:
+        raise KeyError(
+            f"{name!r} not recorded; run with record_history='full' "
+            f"(available: {sorted(k for k in hist if k != 'start_iter')})")
+    x = np.asarray(hist[name])
+    return {"mean": x.mean(axis=0),
+            "quantiles": {qi: np.quantile(x, qi, axis=0) for qi in q},
+            "n_samples": x.shape[0]}
 
 
 def check_counts(spec: ModelSpec, data: np.ndarray):
@@ -133,8 +173,10 @@ class GibbsSampler:
     ):
         if record_history not in ("basic", "full"):
             raise ValueError("record_history must be 'basic' or 'full'")
-        if record_history == "full":
-            raise NotImplementedError(f"record_history='full' is {_ROADMAP}")
+        # "full" records the prior parameters, sigmasq and the MH acceptance
+        # records every iteration, like the reference's record_sample
+        # (bayesNMF_sampler.R:651-672); "basic" P, E, A and the metrics
+        self.record = record_history
         if isinstance(rank, (int, np.integer)):
             ranks = [int(rank)]
         else:
@@ -168,7 +210,6 @@ class GibbsSampler:
             # fused_sweeps=False take the eager sweeps
             fused_sweeps = spec.likelihood == "poisson" and spec.MH
         spec = dataclasses.replace(spec, fused_sweeps=fused_sweeps)
-        gibbs.check_spec(spec)
         check_counts(spec, data)
         self.spec = spec
         self.cc = convergence_control or ConvergenceControl()
@@ -242,22 +283,23 @@ class GibbsSampler:
 
         # record the initial sample (iteration 1), bayesNMF_sampler.R:240-257
         snap = gibbs.snapshot_sample(spec, self.data, self.state,
-                                     float(self.temp_sched[1]))
-        self._append_chunk({k: v.unsqueeze(0) for k, v in snap.items()},
-                           start_iter=1)
+                                     float(self.temp_sched[1]), self.record)
+        self._append_chunk(lift(snap), start_iter=1)
 
     # ------------------------------------------------------------------
     # sample storage
     # ------------------------------------------------------------------
 
     def _append_chunk(self, samples: dict, start_iter: int):
-        self._window.append({"P": samples["P"], "E": samples["E"],
-                             "A": samples["A"], "start_iter": start_iter})
+        """Keep a chunk's records (every name but the metrics) in the
+        device window and, with save_all_samples, a host copy in the
+        archive (sampler.py:245-268)."""
+        chunk = {k: v for k, v in samples.items() if k != "metrics"}
+        chunk["start_iter"] = start_iter
+        self._window.append(chunk)
         self._metric_rows.append(_host(samples["metrics"]))
         if self._archive is not None:
-            self._archive.append(
-                {k: _host(samples[k]) for k in ("P", "E", "A")}
-                | {"start_iter": start_iter})
+            self._archive.append(host_tree(chunk))
 
     def _gather_window(self, end_iter: int, n_samples: int, device=None):
         """Stack the last ``n_samples`` recorded samples ending at end_iter.
@@ -299,6 +341,27 @@ class GibbsSampler:
 
         rows = np.concatenate(self._metric_rows, axis=0)
         return pd.DataFrame(rows, columns=list(gibbs.METRIC_NAMES))
+
+    @property
+    def samples(self):
+        """The recorded histories, stacked: of the whole run with
+        save_all_samples, else of the retained window (sampler.py:304-330).
+        P, E, A always; with ``record_history='full'`` also the prior
+        parameters under their names (``samples['Lambda_p']``,
+        ``samples['Alpha_e']``, ...), ``samples['sigmasq']`` and the MH
+        acceptance records ``samples['acc_P']``/``['acc_E']``, as the
+        reference's ``sampler$samples`` (bayesNMF_sampler.R:651-672);
+        ``start_iter`` the iteration of the first."""
+        src = (self._archive if self._archive is not None
+               else list(self._window))
+        return stack_history(src) | {"start_iter": src[0]["start_iter"]}
+
+    def posterior_summary(self, name: str, q=(0.025, 0.5, 0.975)):
+        """Posterior mean and quantiles of a recorded history (e.g.
+        'sigmasq', 'Lambda_p', 'acc_P'; sampler.py:332-352) over the
+        samples ``samples`` holds; the prior parameters, sigmasq and the
+        acceptance records need ``record_history='full'``."""
+        return summarize_history(self.samples, name, q)
 
     # ------------------------------------------------------------------
     # model math on the current state or given parameters (the reference's
@@ -373,7 +436,7 @@ class GibbsSampler:
         temps = self.temp_sched[self.iter + 1: self.iter + steps + 1]
         self.state, samples = gibbs.run_chunk(
             self.spec, self.data, self.hyperprior_params, self.state, temps,
-            accept_all)
+            accept_all, self.record)
         self._append_chunk(samples, start_iter=self.iter + 1)
         self.iter += steps
 
@@ -562,9 +625,12 @@ def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
       fixed to the first ranks[c] columns (``A_masks``), so its excluded
       columns draw from the prior as a dedicated rank-k fit's would; the
       dict adds the ``ensemble``, and ``sampler`` is the winning chain's
-      view. A keyword ``ChainEnsemble`` does not take (``exact_mh``,
-      ``exact_truncnorm_hypers``, ``save_all_samples``, ...) sends the
-      search to the serial loop with a warning;
+      view, with the single sampler's surface (``samples``, ``summary``,
+      ``save_object``, ``get_Mhat``, ``get_loglik``, ``get_logpost``,
+      ...). ``save_all_samples`` and ``record_history`` go to the
+      ensemble; a keyword it does not take (``exact_mh``,
+      ``exact_truncnorm_hypers``, ...) sends the search to the serial loop
+      with a warning;
     - ``parallel_bic=False`` runs one ``GibbsSampler`` per rank in turn,
       each logging to ``output_dir/rank_<k>``, and saves the winner's
       checkpoint at ``output_dir/sampler.ckpt``.

@@ -1,8 +1,9 @@
 """Carry sampler state between the JAX package and the port.
 
 The JAX state is a dict ``{params: {P, E, A, R[, Zsum_g, Zsum_k][,
-sigmasq]}, prior: {Mu_p, Sigmasq_p, Mu_e, Sigmasq_e} or {Lambda_p,
-Lambda_e}[, Alpha_sig, Beta_sig][, acc_P, acc_E], iter, key}`` of device
+sigmasq]}, prior: {Mu_p, Sigmasq_p, Mu_e, Sigmasq_e}, {Lambda_p,
+Lambda_e} or {Alpha_p, Beta_p, Alpha_e, Beta_e}[, Alpha_sig,
+Beta_sig][, acc_P, acc_E], iter, key}`` of device
 arrays (the latent-count sums on the conjugate path, sigmasq and its prior
 with the Normal likelihood, the acceptance records with MH); read each with
 ``np.asarray``. The port's
@@ -19,7 +20,8 @@ import torch
 
 PARAM_KEYS = ("P", "E", "A", "R", "Zsum_g", "Zsum_k", "sigmasq")
 PRIOR_KEYS = ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e", "Lambda_p",
-              "Lambda_e", "Alpha_sig", "Beta_sig")
+              "Lambda_e", "Alpha_p", "Beta_p", "Alpha_e", "Beta_e",
+              "Alpha_sig", "Beta_sig")
 ACC_KEYS = ("acc_P", "acc_E")
 
 

@@ -1,15 +1,15 @@
 """Gibbs conditional updates of the port.
 
-Port of the truncnormal and exponential subset of
-bayesnmf_tpu/models/updates.py:
+Port of bayesnmf_tpu/models/updates.py:
 
 - initial draws: ``init_prior_params`` (:62-88, with the Normal
   likelihood's fixed sigmasq prior), ``_prior_draw_P/E`` (:244-258);
-- ``sample_prior_params`` (:91-203): the exact TruncNormal hyper-update,
+- ``sample_prior_params`` (:91-235): the exact TruncNormal hyper-update,
   which on the streaming and eager paths runs as host-issued tensor ops
   (the fused kernel carries its own copy), the reference's conjugate
-  update (``exact_truncnorm_hypers=False``), and the exponential prior's
-  Lambda ~ Gamma(a + 1, b + x);
+  update (``exact_truncnorm_hypers=False``), the exponential prior's
+  Lambda ~ Gamma(a + 1, b + x), and the gamma prior's Beta ~ Gamma(a +
+  Alpha, b + x) then Alpha by one slice transition of both sides at once;
 - the eager sequential sweeps ``sweep_P``/``sweep_E`` (:266-531): the
   Normal likelihood's conjugate column draws and Poisson MH
   with the exact or the reference Hastings ratio, issued column by column
@@ -58,13 +58,6 @@ def _full(hp, name, shape, device):
                       device=device)
 
 
-def _require_ported_prior(spec: ModelSpec):
-    if spec.prior not in ("truncnormal", "exponential"):
-        raise NotImplementedError(
-            f"the {spec.prior!r} prior is not ported yet (ROADMAP.md queue 1 "
-            "item 8)")
-
-
 def _rand(gen, shape, device, low=_U_MIN):
     return torch.rand(shape, generator=gen, device=device).clamp_min_(low)
 
@@ -99,14 +92,21 @@ def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
                       device, chains=None) -> dict:
     """Draw the prior parameters of P and E from their hyperpriors
     (init_prior_params_, sample_priors.R:15-141): Mu/Sigmasq for the
-    truncnormal prior, Lambda ~ Gamma(a, b) for the exponential one; with
+    truncnormal prior, Lambda ~ Gamma(a, b) for the exponential one,
+    Beta ~ Gamma(a, b) and Alpha ~ Gamma(c, d) for the gamma one; with
     the Normal likelihood also the fixed InvGamma(alpha, beta) prior of
     sigmasq, length G, default 3/3 (bayesNMF_sampler.R:222-230), never
     resampled; with ``chains`` = C, one draw per chain on a leading axis."""
-    _require_ported_prior(spec)
     lead = () if chains is None else (chains,)
     kn, ng = lead + (spec.K, spec.N), lead + (spec.N, spec.G)
-    if spec.prior == "exponential":
+    if spec.prior == "gamma":
+        prior = {}
+        for side, shape in (("p", kn), ("e", ng)):
+            for name, (a, b) in (("Beta", "ab"), ("Alpha", "cd")):
+                prior[f"{name}_{side}"] = dist.gamma(
+                    gen, _full(hp, f"{a}_{side}", shape, device),
+                    _full(hp, f"{b}_{side}", shape, device))
+    elif spec.prior == "exponential":
         prior = {
             "Lambda_p": dist.gamma(gen, _full(hp, "a_p", kn, device),
                                    _full(hp, "b_p", kn, device)),
@@ -137,8 +137,11 @@ def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
     """A full P from the prior (sample_Pn.R:12-29); ``u``: for the
     truncnormal prior the two uniform planes on dim -3 (the JAX draw's
     (2, K, N), with the chain axis first), for the exponential prior the
-    one plane of jax.random.exponential's uniforms."""
-    _require_ported_prior(spec)
+    one plane of jax.random.exponential's uniforms, for the gamma prior the
+    gamma draw's planes (9, K, N), or (C, 9, K, N)."""
+    if spec.prior == "gamma":
+        return dist.gamma(gen, prior["Alpha_p"], prior["Beta_p"], u=u,
+                          chain_axis=prior["Alpha_p"].dim() == 3)
     if spec.prior == "exponential":
         return dist.exponential(gen, prior["Lambda_p"], u=u)
     if u is None:
@@ -149,7 +152,9 @@ def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
 
 def _prior_draw_E(spec: ModelSpec, prior: dict, gen: torch.Generator,
                   u=None):
-    _require_ported_prior(spec)
+    if spec.prior == "gamma":
+        return dist.gamma(gen, prior["Alpha_e"], prior["Beta_e"], u=u,
+                          chain_axis=prior["Alpha_e"].dim() == 3)
     if spec.prior == "exponential":
         return dist.exponential(gen, prior["Lambda_e"], u=u)
     if u is None:
@@ -226,6 +231,69 @@ def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     return new
 
 
+def n_slice_targets(spec: ModelSpec) -> int:
+    """Targets of the gamma prior's slice pass, per chain: Alpha_p's K*N
+    then Alpha_e's N*G."""
+    return spec.K * spec.N + spec.N * spec.G
+
+
+def _sample_gamma_prior(spec: ModelSpec, hp: dict, params: dict,
+                        prior: dict, gen, noise) -> dict:
+    """The gamma prior's update (sample_priors.R:323-397; updates.py:
+    204-235): Beta | Alpha, x ~ Gamma(a + Alpha, b + x) for both sides,
+    then Alpha | Beta, x by one slice transition on
+    gamma_shape_cond_logpdf. The two Alpha sides are independent given the
+    Betas, so one slice pass runs over both, flattened and concatenated
+    per chain (Alpha_p's K*N targets, then Alpha_e's N*G): each op of the
+    slice sampler is one launch for both sides, and the result is the JAX
+    package's, which updates Beta_p, Alpha_p, Beta_e, Alpha_e in turn.
+    ``noise``: {"p", "e"}: the Beta draws' gamma planes (9,) + shape as
+    the JAX function draws them from split(key, 4)[0] and [2]; "slice":
+    {"e", "u_l"} (n_slice_targets,) and {"u_s"} (16, n_slice_targets),
+    each side's part its slice of the last axis, as the JAX slice sampler
+    draws them from split(key, 4)[1] and [3]; with a leading chain axis on
+    P and E, every operand has one ((C, 9) + shape, (C, T), (C, 16, T))."""
+    P, E = params["P"], params["E"]
+    noise = noise or {}
+    lead = P.shape[:-2]
+    chained = P.dim() == 3
+    new = dict(prior)
+    for side, x in (("p", P), ("e", E)):
+        new[f"Beta_{side}"] = dist.gamma(
+            gen, torch.full_like(x, float(hp[f"a_{side}"]))
+            + prior[f"Alpha_{side}"],
+            torch.full_like(x, float(hp[f"b_{side}"])) + x,
+            u=noise.get(side), chain_axis=chained)
+
+    def flat_pair(p, e):
+        return torch.cat([p.reshape(lead + (-1,)), e.reshape(lead + (-1,))],
+                         -1)
+
+    n_p = spec.K * spec.N
+    n_t = n_slice_targets(spec)
+    dev = P.device
+
+    def hyper(name):  # the hyperprior constant of both sides, (T,)
+        return torch.cat([
+            torch.full((n_p,), float(hp[f"{name}_p"]), device=dev),
+            torch.full((n_t - n_p,), float(hp[f"{name}_e"]), device=dev)])
+
+    sl = noise.get("slice")
+    if sl is None:
+        u = torch.rand(lead + (18, n_t), generator=gen, device=dev)
+        sl = {"e": -torch.log1p(-u.select(-2, 0)), "u_l": u.select(-2, 1),
+              "u_s": u.narrow(-2, 2, 16)}
+    alpha = dist.slice_sample_logconcave(
+        flat_pair(prior["Alpha_p"], prior["Alpha_e"]), dist._gamma_shape_cond,
+        (hyper("c") - 1.0, hyper("d"),
+         torch.log(flat_pair(new["Beta_p"], new["Beta_e"]).clamp_min(_EPS)),
+         torch.log(flat_pair(P, E).clamp_min(_EPS))),
+        sl["e"], sl["u_l"], sl["u_s"], chain_axis=chained)
+    new["Alpha_p"] = alpha[..., :n_p].unflatten(-1, P.shape[-2:])
+    new["Alpha_e"] = alpha[..., n_p:].unflatten(-1, E.shape[-2:])
+    return new
+
+
 def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
                                 noise, h) -> dict:
     """The reference's Mu/Sigmasq update, plain conjugates that drop the
@@ -263,11 +331,12 @@ def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     "u": uniforms}, each (n_hyper_noise(spec),) per chain, in the JAX
     layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e] (updates.py:119-173).
     Without it: the reference's conjugate update
-    (``_sample_truncnorm_conjugate``).
+    (``_sample_truncnorm_conjugate``). Gamma prior: ``_sample_gamma_prior``.
     """
-    _require_ported_prior(spec)
     if spec.prior == "exponential":
         return _sample_lambda(spec, hp, params, prior, gen, noise)
+    if spec.prior == "gamma":
+        return _sample_gamma_prior(spec, hp, params, prior, gen, noise)
     P, E = params["P"], params["E"]
 
     def h(name):  # float32 operands, as the JAX package broadcasts them
@@ -626,28 +695,38 @@ def sample_sigmasq(spec: ModelSpec, data, prior: dict, Mhat, gen=None,
 # ---------------------------------------------------------------------------
 
 
+def _conjugate_prior(spec: ModelSpec, prior: dict, side: str):
+    """The prior's (shape, rate) of one side's conjugate gamma draw: (1,
+    Lambda) for the exponential prior, (Alpha, Beta) for the gamma one."""
+    if spec.prior == "gamma":
+        return prior[f"Alpha_{side}"], prior[f"Beta_{side}"]
+    return 1.0, prior[f"Lambda_{side}"]
+
+
 def sample_P_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict,
                            gen=None, u=None):
     """All of P in one conjugate draw given the latent-count sums
     (sample_Pn_poisson, sample_Pn.R:98-120; updates.py:733-749):
-    P ~ Gamma(1 + Zsum_g, Lambda_p + A * rowsum(E)). An excluded column has
-    Zsum 0 and draws from the prior. Every operand may carry a leading
-    chain axis C. ``u``: the gamma draw's uniform planes (9, K, N), or
-    (C, 9, K, N)."""
+    P ~ Gamma(1 + Zsum_g, Lambda_p + A * rowsum(E)) under the exponential
+    prior, Gamma(Alpha_p + Zsum_g, Beta_p + A * rowsum(E)) under the gamma
+    prior. An excluded column has Zsum 0 and draws from the prior. Every
+    operand may carry a leading chain axis C. ``u``: the gamma draw's
+    uniform planes (9, K, N), or (C, 9, K, N)."""
     A, E = params["A"], params["E"]
     rate_add = (A * E.sum(-1)).unsqueeze(-2)                  # (1, N)
-    return dist.gamma(gen, 1.0 + params["Zsum_g"],
-                      prior["Lambda_p"] + rate_add, u=u,
+    shape, rate = _conjugate_prior(spec, prior, "p")
+    return dist.gamma(gen, shape + params["Zsum_g"], rate + rate_add, u=u,
                       chain_axis=E.dim() == 3)
 
 
 def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
                            gen=None, u=None):
     """The mirror for E with the freshly drawn P (sample_En.R:97-119;
-    updates.py:752-762): E ~ Gamma(1 + Zsum_k, Lambda_e + A * colsum(P))."""
+    updates.py:752-762): E ~ Gamma(1 + Zsum_k, Lambda_e + A * colsum(P)),
+    or Gamma(Alpha_e + Zsum_k, Beta_e + A * colsum(P))."""
     rate_add = (params["A"] * P_new.sum(-2)).unsqueeze(-1)    # (N, 1)
-    return dist.gamma(gen, 1.0 + params["Zsum_k"],
-                      prior["Lambda_e"] + rate_add, u=u,
+    shape, rate = _conjugate_prior(spec, prior, "e")
+    return dist.gamma(gen, shape + params["Zsum_k"], rate + rate_add, u=u,
                       chain_axis=P_new.dim() == 3)
 
 

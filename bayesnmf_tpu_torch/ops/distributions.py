@@ -139,6 +139,66 @@ def exponential(gen, rate, u=None):
     return -torch.log1p(-u) / rate
 
 
+def _gamma_shape_cond(x, cm1, d, log_beta, log_param):
+    """gamma_shape_cond_logpdf with c - 1 given (``cm1``), so a caller that
+    evaluates it many times on the same operands computes it once."""
+    return (cm1 * torch.log(x) - d * x + x * log_beta
+            + (x - 1.0) * log_param - torch.lgamma(x))
+
+
+def gamma_shape_cond_logpdf(x, c, d, log_beta, log_param):
+    """Unnormalised log-density of the gamma prior's shape conditional
+    (logpdf_prop of sample_Alpha_Pkn, sample_priors.R:357-363;
+    distributions.py:290-304): (c-1) log x - d x + x log(beta)
+    + (x-1) log(p) - lgamma(x), p the current P (or E) entry, beta its
+    rate."""
+    return _gamma_shape_cond(x, c - 1.0, d, log_beta, log_param)
+
+
+def slice_sample_logconcave(x0, logpdf_fn, params: tuple, e, u_l, u_s,
+                            lower: float = 1e-3, upper: float = 1e4,
+                            width: float = 1.0, chain_axis: bool = False):
+    """One elementwise slice-sampling transition of independent 1-D
+    densities ``logpdf_fn(x, *params)`` on (lower, upper), with stepping
+    out and shrinkage (distributions.py:189-263; replaces armspp::arms,
+    sample_priors.R:356-397).
+
+    The noise comes as operands, laid out as the JAX function draws it from
+    split(key, 4): ``e`` the Exp(1) draw of the slice level and ``u_l`` the
+    bracket's uniform, each shaped as x0, and ``u_s`` the shrink steps'
+    uniforms, (n_shrink,) + x0.shape; with ``chain_axis`` x0 carries a
+    leading chain axis C and ``u_s`` is chain-major, (C, n_shrink) +
+    x0.shape[1:]. The 8 stepping-out and len(u_s) shrink rounds are a
+    fixed sequence of tensor ops that never read the device; a lane that
+    accepts no proposal keeps x0 (the identity transition)."""
+    def logf(x):
+        return logpdf_fn(x.clamp(lower, upper), *params)
+
+    log_y = logf(x0) - e
+    L = (x0 - width * u_l).clamp_min(lower)
+    R = (L + width).clamp_max(upper)
+    w = width
+    for _ in range(8):  # stepping out, the bracket doubling each round
+        grow_L = logf(L) > log_y
+        grow_R = logf(R) > log_y
+        L = torch.where(grow_L, (L - w).clamp_min(lower), L)
+        R = torch.where(grow_R, (R + w).clamp_max(upper), R)
+        w = w * 2.0
+    u_s = u_s.movedim(1, 0) if chain_axis else u_s
+    x = x0
+    accepted = torch.zeros_like(x0, dtype=torch.bool)
+    for u in u_s:  # shrinkage towards x0
+        prop = L + u * (R - L)
+        ok = logf(prop) > log_y
+        x = torch.where(ok & ~accepted, prop, x)
+        accepted = accepted | ok
+        shrink = ~accepted
+        below = prop < x0
+        L = torch.where(shrink & below, prop, L)
+        R = torch.where(shrink & ~below, prop, R)
+    return torch.where(accepted, x.clamp(lower, upper), x0)
+
+
 def bernoulli_from_u(u, p):
     """Bernoulli(p) as float 0/1 from a uniform: ``u < p``, the form of
     jax.random.bernoulli (its uniform comes from the same key)."""

@@ -459,8 +459,9 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
     """
     if prior_kind not in PRIORS:
         raise NotImplementedError(
-            f"fused_gibbs_sweeps: the {prior_kind!r} prior is not ported "
-            "(ROADMAP.md queue 1 item 8)")
+            f"fused_gibbs_sweeps: no MH kernel takes the {prior_kind!r} "
+            "prior (the gamma prior is Gibbs only, MH=False; "
+            "config.ModelSpec)")
     if rank_method not in RANK_METHODS:
         raise NotImplementedError(
             f"fused_gibbs_sweeps: rank_method={rank_method!r} is not a "

@@ -1,7 +1,7 @@
 """Model math: expected data matrix, likelihood, priors, metrics.
 
-Port of the subset of bayesnmf_tpu/ops/math.py that the Poisson and Normal
-likelihoods with the TruncNormal or the exponential prior use. Conventions
+Port of bayesnmf_tpu/ops/math.py for both likelihoods and the three priors
+(TruncNormal, exponential, gamma). Conventions
 as in the reference: data M is (K, G); P is (K, N) signatures; E is (N, G)
 exposures; A is (N,) binary inclusion; sigmasq is (G,), the Normal
 likelihood's per-sample noise variance. Everything is float32.
@@ -92,9 +92,16 @@ def exponential_logpdf(x, rate):
                        torch.full_like(x, -math.inf))
 
 
+def gamma_logpdf(x, shape, rate):
+    """log pdf of Gamma(shape, rate) (math.py:117-126)."""
+    return (shape * torch.log(rate) - torch.lgamma(shape)
+            + (shape - 1.0) * torch.log(x) - rate * x)
+
+
 def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
-    """Sum of the prior log-pdfs of P and E (utils.R:131-175). With a
-    leading chain axis on every operand, one sum per chain."""
+    """Sum of the prior log-pdfs of P and E (utils.R:131-175; math.py:
+    129-140). With a leading chain axis on every operand, one sum per
+    chain."""
     if prior == "truncnormal":
         lp = truncnorm_logpdf(P, prior_params["Mu_p"],
                               prior_params["Sigmasq_p"])
@@ -103,10 +110,9 @@ def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
     elif prior == "exponential":
         lp = exponential_logpdf(P, prior_params["Lambda_p"])
         le = exponential_logpdf(E, prior_params["Lambda_e"])
-    else:
-        raise NotImplementedError(
-            f"logprior_PE: the {prior!r} prior is not ported (ROADMAP.md "
-            "queue 1 item 8)")
+    else:  # gamma
+        lp = gamma_logpdf(P, prior_params["Alpha_p"], prior_params["Beta_p"])
+        le = gamma_logpdf(E, prior_params["Alpha_e"], prior_params["Beta_e"])
     return lp.sum((-2, -1)) + le.sum((-2, -1))
 
 
@@ -150,3 +156,11 @@ def renormalize(P: torch.Tensor, E: torch.Tensor):
     s = torch.sum(P, dim=-2)
     safe = torch.where(s > 0, s, torch.ones_like(s))
     return P / safe.unsqueeze(-2), E * safe.unsqueeze(-1)
+
+
+def logsumexp2(a, b):
+    """log(exp(a) + exp(b)), stable (sumLog, sample_params.R:199-206;
+    math.py:192-197)."""
+    hi = torch.maximum(a, b)
+    lo = torch.minimum(a, b)
+    return hi + torch.log1p(torch.exp(lo - hi))

@@ -782,8 +782,9 @@ def _prior_code(fn, prior, *second):
     """Whether ``prior`` is the exponential one, whose second prior operands
     (``second``) are None; the truncated normal needs them."""
     if prior not in PRIORS:
-        raise NotImplementedError(f"{fn}: the {prior!r} prior is not ported "
-                                  "(ROADMAP.md queue 1 item 8)")
+        raise NotImplementedError(
+            f"{fn}: no MH kernel takes the {prior!r} prior (the gamma "
+            "prior is Gibbs only, MH=False; config.ModelSpec)")
     expo = prior == "exponential"
     if any((t is None) != expo for t in second):
         raise ValueError(f"{fn}: the {prior} prior takes "

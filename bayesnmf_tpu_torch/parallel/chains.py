@@ -28,35 +28,36 @@ def init_chain_states(spec: ModelSpec, hp: dict, data, gen: torch.Generator,
 
 
 def run_chunk_chains(spec: ModelSpec, data, hp: dict, states: dict, temps,
-                     accept_all, store_E: bool = True):
+                     accept_all, store_E: bool = True, record: str = "basic"):
     """Run ``len(temps)`` iterations of every chain on the spec's path.
 
     ``accept_all`` is a (C,) bool tensor on the device: chains leave the
     accept-all warmup at different iterations. Returns (states, samples)
     with samples['metrics'] (C, steps, N_METRICS) and the per-iteration
     P (C, steps, K, N), A (C, steps, N) and, with ``store_E``, E
-    (C, steps, N, G), in buffers allocated once on the device; each step
-    writes its metrics rows into its slot of the buffer.
+    (C, steps, N, G); with ``record='full'`` also the prior parameters (a
+    dict under "prior"), sigmasq and acc_P/acc_E, each (C, steps, ...). The
+    buffers are allocated once a chunk on the device; each step writes its
+    metrics rows into its slot of the buffer.
     """
     steps = len(temps)
     C = states["params"]["P"].shape[0]
     dev = data.device
-    f32 = dict(dtype=torch.float32, device=dev)
     consts = m.metric_constants(spec.likelihood, data)
     step_consts = (gibbs.step_constants(spec, hp, dev, C)
                    if spec.fused_sweeps else None)
-    out = {"metrics": torch.empty(C, steps, gibbs.N_METRICS, **f32),
-           "P": torch.empty(C, steps, spec.K, spec.N, **f32),
-           "A": torch.empty(C, steps, spec.N, **f32)}
-    if store_E:
-        out["E"] = torch.empty(C, steps, spec.N, spec.G, **f32)
+    metrics = torch.empty(C, steps, gibbs.N_METRICS, dtype=torch.float32,
+                          device=dev)
+    out = None
     # the chunk's temperatures go to the device once; each step indexes them
     temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
     for i in range(steps):
         states, sample = gibbs.gibbs_step(
             spec, data, hp, states, temps[i], accept_all, consts,
-            consts=step_consts, metrics_out=out["metrics"][:, i])
-        for k, buf in out.items():
-            if k != "metrics":
-                buf[:, i] = sample[k]
-    return states, out
+            consts=step_consts, metrics_out=metrics[:, i], record=record)
+        sample = {k: v for k, v in sample.items()
+                  if k != "metrics" and (store_E or k != "E")}
+        if out is None:
+            out = gibbs.record_buffers(sample, steps, 1)
+        gibbs.write_record(out, sample, i, 1)
+    return states, out | {"metrics": metrics}

@@ -2,8 +2,9 @@
 
 Port of bayesnmf_tpu/parallel/ensemble.py:58-1015: C chains of any model
 the single-chain sampler runs (Poisson with MH through the fused kernel,
-the eager sweeps or the streaming kernels; conjugate Poisson-Gibbs through
-the allocation kernel; the Normal likelihood on the eager sweeps), at a
+the eager sweeps or the streaming kernels; conjugate Poisson-Gibbs with the
+exponential or the gamma prior through the allocation kernel; the Normal
+likelihood on the eager sweeps), at a
 fixed rank, learning it by SBFI/BFI/BIC, or with a fixed inclusion mask per
 chain (``A_masks``, the parallel-BIC rank search of ``fit``), on one device.
 Each chain keeps the reference's semantics on its own: accept-all warmup
@@ -15,10 +16,15 @@ The chains are the leading axis of every state tensor (parallel/chains.py).
 Once a chain has finished its inference window, its MAP and sample window
 are taken to the host and the device ensemble shrinks to the chains still
 running (``_maybe_compact``, an index-select on the chain axis), so
-finished chains stop costing device time.
+finished chains stop costing device time. ``record_history='full'``
+records the prior parameters, sigmasq and the acceptance records of every
+chain and iteration beside P, E and A; ``save_all_samples=True`` keeps a
+host copy of every chunk (the archive), which a chain's view reads for
+windows older than the retained ones and for the label-switching plot.
+Each chain's view (``chain(c)``) has the single-chain sampler's surface.
 
-Not ported yet (each raises NotImplementedError; ROADMAP.md queue 1 item
-6): ``mesh``, ``record_history='full'`` and ``save_all_samples=True``.
+Not ported yet (raises NotImplementedError; ROADMAP.md queue 1 item 9):
+``mesh``.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from ..models import gibbs
 from ..models.convergence import VectorConvergenceTracker
 from ..models.map_estimate import compute_map
 from ..models.sampler import _resolve_output_dir, check_counts
-from ..models.sampler import resolve_device
+from ..models.sampler import host_tree, resolve_device, stack_history
+from ..models.sampler import summarize_history
 from ..utils.logging import RunLogger
 from . import chains as chains_mod
 
@@ -48,7 +55,7 @@ from . import chains as chains_mod
 #: (ROADMAP.md queue 1 item 1).
 _STREAM_SWEEPS_MIN_G = 2000
 
-_ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 6)"
+_ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 9)"
 
 
 def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
@@ -64,6 +71,29 @@ def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
 
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _chain_part(chunk: dict, c: int):
+    """Chain ``c``'s records of a chunk (tensors or numpy, the prior
+    parameters in a nested dict), each (steps, ...), with the chunk's
+    start_iter; None when the chunk ran without chain ``c``."""
+    pos = np.nonzero(chunk["chain_ids"] == c)[0]
+    if pos.size == 0:
+        return None
+    s = int(pos[0])
+
+    def pick(v):
+        return {k: pick(x) for k, x in v.items()} if isinstance(v, dict) \
+            else v[s]
+
+    return {k: (v if k == "start_iter" else pick(v))
+            for k, v in chunk.items() if k != "chain_ids"}
+
+
+def _steps(tree: dict, i0: int, i1: int) -> dict:
+    """Steps i0:i1 of every record of a chain's chunk."""
+    return {k: (_steps(v, i0, i1) if isinstance(v, dict) else v[i0:i1])
+            for k, v in tree.items() if k != "start_iter"}
 
 
 def _select(tree, idx):
@@ -97,9 +127,13 @@ class _ViewTracker:
 
 
 class _ChainView:
-    """One chain of an ensemble with the GibbsSampler surface that MAP,
-    postprocessing and plotting read (spec, data, MAP, credible_intervals,
-    sample_metrics, _gather_window, reference_comparison)."""
+    """One chain of an ensemble with the single-chain sampler's surface
+    (JAX ensemble.py:110-397): what MAP, postprocessing and plotting read
+    (spec, data, MAP, credible_intervals, sample_metrics, _gather_window,
+    _archive, reference_comparison), ``samples``, ``posterior_summary``,
+    ``summary``, ``save_object`` and the model math ``get_Mhat``,
+    ``get_loglik`` and ``get_logpost``, as the reference returns the
+    winner's whole sampler (bayesNMF.R:117-126)."""
 
     def __init__(self, ensemble: "ChainEnsemble", chain: int):
         self._ens = ensemble
@@ -110,7 +144,20 @@ class _ChainView:
         self.col_names = ensemble.col_names
         self.temp_sched = ensemble.temp_sched
         self.tracker = _ViewTracker(ensemble, chain)
-        self._archive = None
+
+    @property
+    def _archive(self):
+        """This chain's part of every archived chunk (save_all_samples),
+        in the single-chain archive's layout; None without an archive."""
+        if self._ens._archive is None:
+            return None
+        return [p for p in (_chain_part(ch, self.chain)
+                            for ch in self._ens._archive) if p is not None]
+
+    def _window_parts(self):
+        """This chain's part of each retained device chunk."""
+        return [p for p in (_chain_part(ch, self.chain)
+                            for ch in self._ens._window) if p is not None]
 
     @property
     def MAP_metrics(self):
@@ -185,28 +232,47 @@ class _ChainView:
         rows = rows[~np.isnan(rows[:, 0])]
         return pd.DataFrame(rows, columns=list(gibbs.METRIC_NAMES))
 
+    @property
+    def samples(self):
+        """This chain's retained sample window as {name: (S, ...)} numpy:
+        its finalised window once it has one, else the retained chunks. P,
+        E (with store_E) and A; with ``record_history='full'`` also the
+        prior parameters under their names, sigmasq and acc_P/acc_E
+        (bayesNMF_sampler.R:651-672; JAX ensemble.py:228-252)."""
+        fin = self._ens._final_windows.get(self.chain)
+        if fin is not None:
+            return {k: v for k, v in fin.items() if k != "end_iter"}
+        parts = self._window_parts()
+        if not parts:
+            raise ValueError("no retained samples for this chain")
+        return stack_history(parts)
+
+    def posterior_summary(self, name: str, q=(0.025, 0.5, 0.975)):
+        """Posterior mean and quantiles of one of ``samples``' histories
+        (models/sampler.GibbsSampler.posterior_summary)."""
+        return summarize_history(self.samples, name, q)
+
     def _gather_window(self, end_iter: int, n_samples: int, device=None):
         """This chain's last ``n_samples`` samples ending at ``end_iter``:
         (P, E or None, A), from its finalised host window when that covers
-        the request, else from the retained device chunks. numpy arrays, or
+        the request (or there is no archive), else from the retained device
+        chunks, and from the archive (save_all_samples) for a window that
+        starts before them (JAX ensemble.py:342-397). numpy arrays, or
         tensors on ``device`` (A always numpy)."""
         lo = end_iter - n_samples + 1
-        c = self.chain
-        chunks = []
-        fin = self._ens._final_windows.get(c)
+        chunks = None
+        fin = self._ens._final_windows.get(self.chain)
         if fin is not None:
             S = fin["A"].shape[0]
-            chunks.append({"P": fin["P"], "E": fin.get("E"), "A": fin["A"],
-                           "start_iter": fin["end_iter"] - S + 1})
-        else:
-            for ch in self._ens._window:
-                pos = np.nonzero(ch["chain_ids"] == c)[0]
-                if pos.size == 0:
-                    continue
-                s = int(pos[0])
-                chunks.append({"P": ch["P"][s], "A": ch["A"][s],
-                               "E": ch["E"][s] if "E" in ch else None,
-                               "start_iter": ch["start_iter"]})
+            start = fin["end_iter"] - S + 1
+            if (lo >= start and end_iter <= fin["end_iter"]) \
+                    or self._ens._archive is None:
+                chunks = [fin | {"start_iter": start}]
+        if chunks is None:
+            chunks = self._window_parts()
+            if (not chunks or lo < chunks[0]["start_iter"]) \
+                    and self._ens._archive is not None:
+                chunks = self._archive
         Ps, Es, As = [], [], []
         for ch in chunks:
             n = ch["P"].shape[0]
@@ -216,7 +282,7 @@ class _ChainView:
             i0, i1 = max(lo - s, 0), min(end_iter - s, n - 1) + 1
             Ps.append(ch["P"][i0:i1])
             As.append(_host(ch["A"][i0:i1]))
-            if ch["E"] is not None:
+            if ch.get("E") is not None:
                 Es.append(ch["E"][i0:i1])
         if not Ps:
             raise ValueError("no samples in requested window")
@@ -234,6 +300,88 @@ class _ChainView:
         return assign_signatures_ensemble(
             self, reference_P=reference_P, idxs=idxs,
             credible_interval=credible_interval)
+
+    def summary(self, reference_P="cosmic"):
+        from ..utils.postprocessing import sampler_summary
+
+        return sampler_summary(self, reference_P=reference_P)
+
+    def save_object(self, path: Optional[str] = None):
+        """Checkpoint the whole ensemble (a chain has no state of its own)."""
+        return self._ens.save_object(path)
+
+    # -- model math (the single sampler's get_Mhat / get_loglik /
+    #    get_logpost, bayesNMF_sampler.R:8-541) -------------------------
+
+    def _live_slot(self):
+        pos = np.nonzero(self._ens._slots == self.chain)[0]
+        return int(pos[0]) if pos.size else None
+
+    def _current(self, group: str = "params") -> dict:
+        """This chain's latest values of ``group`` ("params" or "prior") as
+        numpy: the device state while the chain is resident, else the last
+        draw of its finalised window (the prior parameters are there only
+        under ``record_history='full'``)."""
+        s = self._live_slot()
+        if s is not None:
+            return {k: _host(v[s])
+                    for k, v in self._ens.states[group].items()}
+        fin = self._ens._final_windows.get(self.chain)
+        if fin is None:
+            raise ValueError(
+                f"chain {self.chain} has no live state or finalised window")
+        if group == "params":
+            return {k: fin[k][-1] for k in ("P", "A", "E", "sigmasq")
+                    if k in fin}
+        names = list(self._ens.states[group])
+        if all(k in fin for k in names):
+            return {k: fin[k][-1] for k in names}
+        raise ValueError(
+            "the prior parameters of a compacted chain are recorded only "
+            "under record_history='full'")
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(_host(x), np.float32),
+                               device=self._ens.device)
+
+    def get_Mhat(self, P=None, A=None, E=None):
+        """P diag(A) E of this chain's latest state, or of the given P, A,
+        E."""
+        from ..ops import math as m
+
+        p = self._current()
+        if E is None and "E" not in p:
+            raise ValueError(
+                "exposures not retained for this chain: rerun with "
+                "store_E=True or pass E explicitly")
+        return m.mhat(*(self._tensor(x if x is not None else p[k])
+                        for k, x in (("P", P), ("A", A), ("E", E))))
+
+    def get_loglik(self, P=None, A=None, E=None, sigmasq=None,
+                   likelihood=None, return_matrix=False):
+        """The log-likelihood of the data (get_loglik_, utils.R:62-112) at
+        this chain's latest state or the given parameters."""
+        from ..ops import math as m
+
+        Mh = self.get_Mhat(P, A, E)
+        if sigmasq is None and self.spec.needs_sigmasq:
+            sigmasq = self._current().get("sigmasq")
+        mat = m.loglik_mat(self.data, Mh, likelihood or self.spec.likelihood,
+                           None if sigmasq is None else self._tensor(sigmasq))
+        return mat if return_matrix else torch.sum(mat)
+
+    def get_logpost(self, P=None, A=None, E=None, sigmasq=None):
+        """The log-likelihood plus the prior log-density of P and E under
+        this chain's latest prior parameters (get_logpost_,
+        utils.R:131-175)."""
+        from ..ops import math as m
+
+        p = self._current()
+        prior = {k: self._tensor(v) for k, v in self._current("prior").items()}
+        return self.get_loglik(P, A, E, sigmasq) + m.logprior_PE(
+            self._tensor(P if P is not None else p["P"]),
+            self._tensor(E if E is not None else p["E"]),
+            self.spec.prior, prior)
 
 
 class ChainEnsemble:
@@ -279,12 +427,9 @@ class ChainEnsemble:
     ):
         if record_history not in ("basic", "full"):
             raise ValueError("record_history must be 'basic' or 'full'")
-        for flag, what in ((mesh is not None, "mesh-sharded ensembles"),
-                           (record_history == "full",
-                            "record_history='full'"),
-                           (save_all_samples, "save_all_samples=True")):
-            if flag:
-                raise NotImplementedError(f"{what} is {_ROADMAP}")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh-sharded ensembles are {_ROADMAP}")
+        self.record = record_history
         self.device = resolve_device(device)
         self.row_names = None
         self.col_names = None
@@ -316,7 +461,6 @@ class ChainEnsemble:
             prior=prior, MH=MH, learning_rank=learning_rank,
             rank_method=rank_method, fused_sweeps=bool(fused_sweeps),
             stream_sweeps=bool(stream_sweeps))
-        gibbs.check_spec(self.spec)
         check_counts(self.spec, data)
         # per-chain FIXED inclusion masks (n_chains, N): chain c samples a
         # rank-sum(A_masks[c]) model whose excluded columns draw from the
@@ -398,6 +542,10 @@ class ChainEnsemble:
         self._metric_rows: list = []   # (n_chains, steps, m), NaN off-device
         self._final_windows: dict = {}  # chain -> host sample window
         self._final_metrics: dict = {}  # chain -> host metric rows
+        # every chunk's host copy with its chain ids (save_all_samples): a
+        # chain's whole history for the label-switching plot and windows
+        # older than the retained chunks (JAX ensemble.py:545-551)
+        self._archive: Optional[list] = [] if save_all_samples else None
         self.MAP_per_chain: list = [None] * n_chains
         self._MAP_metrics_per_chain: list = [[] for _ in range(n_chains)]
         self._reference_comparisons: dict = {}
@@ -416,11 +564,13 @@ class ChainEnsemble:
         temps = self.temp_sched[self.iter + 1: self.iter + steps + 1]
         self.states, samples = chains_mod.run_chunk_chains(
             self.spec, self.data, self.hp, self.states, temps,
-            self._accept_all_vec(), store_E=self.store_E)
+            self._accept_all_vec(), store_E=self.store_E, record=self.record)
         chunk = {k: v for k, v in samples.items() if k != "metrics"}
         chunk["start_iter"] = self.iter + 1
         chunk["chain_ids"] = self._slots.copy()
         self._window.append(chunk)
+        if self._archive is not None:
+            self._archive.append(host_tree(chunk))
         max_chunks = -(-self.cc.MAP_over // self.cc.MAP_every) + 1
         if len(self._window) > max_chunks:
             self._window.pop(0)
@@ -508,17 +658,29 @@ class ChainEnsemble:
 
     def _finalize_chain(self, c: int):
         """Take chain ``c``'s inference window (ending at its own
-        ``_end_iter``, bayesNMF.R:95-97) to the host and compute its MAP and
-        credible intervals."""
+        ``_end_iter``, bayesNMF.R:95-97) to the host, every recorded name
+        (under ``record_history='full'`` the prior parameters, sigmasq and
+        the acceptance records too, so the chain's view still answers
+        ``samples`` and ``_current('prior')`` once it has left the device;
+        JAX ensemble.py:718-776), and compute its MAP and credible
+        intervals."""
         end = int(self._end_iter[c])
         end = end if 0 < end <= self.iter else self.iter
         lo = max(end - self.cc.MAP_over + 1, 2)
-        view = _ChainView(self, c)
-        P_h, E_h, A_h = view._gather_window(end, end - lo + 1,
-                                            device=self.device)
-        fin = {"end_iter": end, "P": _host(P_h), "A": A_h}
-        if E_h is not None:
-            fin["E"] = _host(E_h)
+        parts = []
+        for ch in _ChainView(self, c)._window_parts():
+            n = ch["A"].shape[0]
+            s, e = ch["start_iter"], ch["start_iter"] + n - 1
+            if e >= lo and s <= end:
+                parts.append(_steps(ch, max(lo - s, 0),
+                                    min(end - s, n - 1) + 1))
+        if not parts:
+            raise ValueError("no samples in requested window")
+        fin = stack_history(parts) | {"end_iter": end}
+        A_h = fin["A"]
+        P_h = torch.as_tensor(fin["P"], device=self.device)
+        E_h = (torch.as_tensor(fin["E"], device=self.device) if "E" in fin
+               else None)
         rows = self._metrics_all()[c]
         j1 = rows.shape[0] - (self.iter - end)
         self._final_metrics[c] = rows[max(j1 - self.cc.MAP_over, 0):j1]

@@ -2,9 +2,10 @@
 
 Port of bayesnmf_tpu/utils/checkpoint.py:23-168. A checkpoint holds the
 state (for one chain in the JAX package's layout, models/state.py), the
-generator's state, the convergence tracker, the metric history and the
-sample window, all as host numpy, so the chains continue bit-exactly from
-where they stopped. A checkpoint pickles this package's classes
+generator's state, the convergence tracker, the metric history, the
+recording flag, the sample window and the archive (save_all_samples), all
+as host numpy, so the chains continue bit-exactly from where they
+stopped. A checkpoint pickles this package's classes
 (``bayesnmf_tpu_torch.config.ModelSpec`` among them).
 """
 
@@ -19,12 +20,19 @@ import torch
 from .logging import RunLogger
 
 from ..models.convergence import ConvergenceTracker
+from ..models.sampler import host_tree
 from ..models.state import state_from_numpy, state_to_numpy
 
 
-def _host_chunk(chunk: dict) -> dict:
-    return {k: (v if k == "start_iter" else
-                (v.cpu().numpy() if isinstance(v, torch.Tensor) else v))
+def _device_chunk(chunk: dict, device) -> dict:
+    """A saved window chunk back on ``device``: every array (the prior
+    parameters' nested dict too) but its start iteration and chain ids."""
+    def to(v):
+        if isinstance(v, dict):
+            return {k: to(x) for k, x in v.items()}
+        return torch.as_tensor(np.asarray(v), device=device)
+
+    return {k: (v if k in ("start_iter", "chain_ids") else to(v))
             for k, v in chunk.items()}
 
 
@@ -47,7 +55,8 @@ def save_sampler(sampler, path: str):
         "time": sampler.time,
         "MAP_metrics": sampler.MAP_metrics,
         "metric_rows": sampler._metric_rows,
-        "window": [_host_chunk(c) for c in sampler._window],
+        "record": sampler.record,
+        "window": [host_tree(c) for c in sampler._window],
         "archive": sampler._archive,
         "MAP": sampler.MAP,
         "output_dir": sampler.output_dir,
@@ -85,10 +94,9 @@ def load_sampler(cls, path: str):
     obj.MAP_metrics = p["MAP_metrics"]
     obj._metric_rows = p["metric_rows"]
     window_chunks = -(-obj.cc.MAP_over // obj.cc.MAP_every) + 1
+    obj.record = p.get("record", "basic")
     obj._window = collections.deque(
-        ({k: (v if k == "start_iter" else
-              torch.as_tensor(np.asarray(v), device=obj.device))
-          for k, v in c.items()} for c in p["window"]),
+        (_device_chunk(c, obj.device) for c in p["window"]),
         maxlen=window_chunks)
     obj._archive = p["archive"]
     obj.MAP = p["MAP"]
@@ -116,8 +124,9 @@ def _chain_state_to_numpy(states: dict) -> dict:
 def save_ensemble(ens, path: str):
     """Checkpoint a ChainEnsemble (checkpoint.py:55-102): the chain-batched
     device state and the generator's state, the trackers, the retained
-    sample window, the metric history, the finalised chains and the
-    per-chain inclusion masks, all as host numpy; the spec names the path
+    sample window, the archive, the recording flag, the metric history, the
+    finalised chains and the per-chain inclusion masks, all as host numpy
+    (checkpoint.py:55-102); the spec names the path
     (fused, eager, conjugate or streaming). Every chain continues
     bit-exactly."""
     payload = {
@@ -142,7 +151,9 @@ def save_ensemble(ens, path: str):
         "tracker_vec": ens.tracker.to_dict(),
         "end_iter": ens._end_iter,
         "slots": ens._slots,
-        "window": [_host_chunk(c) for c in ens._window],
+        "record": ens.record,
+        "window": [host_tree(c) for c in ens._window],
+        "archive": ens._archive,
         "metric_rows": ens._metric_rows,
         "final_windows": ens._final_windows,
         "final_metrics": ens._final_metrics,
@@ -174,6 +185,8 @@ def load_ensemble(cls, path: str):
               "iter", "time", "output_dir", "row_names", "col_names",
               "MAP_per_chain", "A_masks"):
         setattr(obj, k, p[k])
+    obj.record = p.get("record", "basic")
+    obj._archive = p.get("archive")
     obj._data_np = p["data"]
     obj.data = torch.as_tensor(p["data"], device=dev)
     st = p["states"]
@@ -188,8 +201,7 @@ def load_ensemble(cls, path: str):
     obj.tracker.restore(p["tracker_vec"])
     obj._end_iter = p["end_iter"]
     obj._slots = p["slots"]
-    obj._window = [{k: (v if k in ("start_iter", "chain_ids") else t(v))
-                    for k, v in c.items()} for c in p["window"]]
+    obj._window = [_device_chunk(c, dev) for c in p["window"]]
     obj._metric_rows = p["metric_rows"]
     obj._final_windows = p["final_windows"]
     obj._final_metrics = p["final_metrics"]

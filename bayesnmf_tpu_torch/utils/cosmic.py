@@ -1,5 +1,5 @@
-"""COSMIC v3.3.1 SBS reference signatures (get_cosmic, get_cosmic_colors;
-helpers.R:166-206).
+"""COSMIC v3.3.1 SBS reference signatures (get_cosmic, download_cosmic,
+get_cosmic_colors; helpers.R:166-206).
 
 The CSV is the public COSMIC v3.3.1 GRCh37 SBS matrix (96 trinucleotide
 mutation types x 79 signatures), carried under bayesnmf_tpu_torch/data/.
@@ -18,6 +18,12 @@ COSMIC_CSV = os.path.join(os.path.dirname(os.path.dirname(
 def get_cosmic() -> pd.DataFrame:
     """The COSMIC v3.3.1 SBS GRCh37 signature matrix (96 x 79)."""
     return pd.read_csv(COSMIC_CSV, index_col=0)
+
+
+def download_cosmic() -> pd.DataFrame:
+    """The same matrix fetched from sanger.ac.uk (needs network access;
+    cosmic.py:28-32)."""
+    return pd.read_csv(COSMIC_URL, sep="\t").set_index("Type")
 
 
 def get_cosmic_colors() -> dict:

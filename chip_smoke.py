@@ -130,7 +130,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    share, device events per iteration, diagnostics() and the best chain's
    matched cosine >= 0.9; Poisson MH at 96x500 with 8 and 64 chains on the
    fused kernel and on the eager sweeps; (e) the masked ensemble's final
-   checkpoint resumes bit-exactly.
+   checkpoint resumes bit-exactly;
+10. the Poisson-Gamma family and the recording surface: (a) the allocation
+   kernel on Poisson-Gamma states (30 steps on the card) at (96,8,2780)
+   with 1 and 8 chains, both modes, against its plain version (equal, two
+   launches bit-identical), timed, with its bound; (b) one Poisson-Gamma
+   step at 96x500, rank 8, at a fixed rank and with SBFI, on the card
+   against the CPU on the same draws: A, R and the slice decisions equal,
+   Alpha and Beta within rtol 1e-4, P and E within rtol 1e-3 / atol 1e-4;
+   (c) fits: the reference's example data at rank 4 (matched cosine
+   > 0.9), 96x2780 rank 8 (cosine >= 0.9, the allocation launched
+   iterations + 1 times, fit and loop it/s, busy share, device events and
+   host waits per iteration), SBFI over ranks 1..20 at 96x1000 (the
+   learned rank), an 8-chain ensemble at 96x2780 (chain-it/s,
+   diagnostics()), ``fit(rank_method="BIC", save_all_samples=True)`` over
+   ranks 1..20 at 96x1000 (best rank, the winner's finite get_logpost());
+   (d) record_history='full' with save_all_samples on the 96x10k SBFI
+   stream ensemble of 8 chains for 200 iterations beside 'basic' (launches
+   per iteration unchanged, acceptance entries in [0, 1], peak device
+   memory, chain-it/s), and on config 2's fused fit beside phase 4's
+   it/s, whose final checkpoint resumes bit-exactly with its archive.
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -518,6 +537,7 @@ def run_slice(torch, bt, FS, gibbs, card):
     hot = len(temps) / (time.perf_counter() - t0)
     print(f"slice: {hot:.1f} it/s in the Gibbs chunk loop alone "
           f"(500 iterations) on " + card, flush=True)
+    return steps / wall
 
 
 # ---------------------------------------------------------------------------
@@ -2183,17 +2203,20 @@ def compare_ensemble_kernel(torch, FS, card):
     return res
 
 
-def compare_ensemble_allocation(torch, bt, AL, card):
+def compare_ensemble_allocation(torch, bt, AL, card, shape=ENS_ALLOC,
+                                prior="exponential", steps=5,
+                                label="ensemble allocation"):
     """Phase 9 (c): the allocation on the operands of a conjugate ensemble
-    step at ENS_ALLOC (P, A, E of 8 chains after 5 steps, the shared M):
-    equal to its plain version in both modes, two launches bit-identical,
-    the counts conserved. Returns dict(max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)."""
-    K, N, G, C = ENS_ALLOC
+    step at ``shape`` (P, A, E of C chains after ``steps`` steps of the
+    ``prior``'s conjugate path on the card, the shared M): equal to its
+    plain version in both modes, two launches bit-identical, the counts
+    conserved (phase 10 (a) runs it on Poisson-Gamma states). Returns
+    dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    K, N, G, C = shape
     M, _ = synthetic(K, G, N, seed=2)
-    ens = bt.ChainEnsemble(M, N, n_chains=C, prior="exponential", MH=False,
+    ens = bt.ChainEnsemble(M, N, n_chains=C, prior=prior, MH=False,
                            device="cuda", seed=0, verbosity=0)
-    ens._run_chunk(5)
+    ens._run_chunk(steps)
     st = ens.states["params"]
     args = (ens.data, st["P"], st["A"], st["E"])
     gen = torch.Generator(device="cuda")
@@ -2212,21 +2235,22 @@ def compare_ensemble_allocation(torch, bt, AL, card):
         p = plain()
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip(k1, k2)),
-              f"ensemble allocation ({mode}): two launches differ")
+              f"{label} ({mode}): two launches differ")
         for name, x, y in zip(("Zsum_g", "Zsum_k"), k1, p):
             err = float((x - y).abs().max())
             res["max_abs_err"] = max(res["max_abs_err"], err)
-            check(torch.equal(x, y), f"ensemble allocation ({mode}) {name} "
+            check(torch.equal(x, y), f"{label} ({mode}) {name} "
                   f"differs from the plain version: max abs {err}")
         check(torch.equal(k1[1].sum(-2), ens.data.sum(0).expand(C, G)),
-              f"ensemble allocation ({mode}) does not conserve the counts")
+              f"{label} ({mode}) does not conserve the counts")
     ms, wrapped = kernel_ms(torch, modes["Philox"][0], 20)
     res["ms"] = ms
     res["plain_ms"] = time_ms(torch, modes["Philox"][1], 2)
     splits = count_splits(AL, torch, modes["Philox"][1])
     res["bound_ms"], res["bound_by"] = alloc_bound(K, N, G, C, splits, False)
-    print(f"ensemble allocation at (K,N,G,C)={ENS_ALLOC} on a conjugate "
-          f"step: Zsum_g and Zsum_k equal to the plain version in both "
+    print(f"{label} at (K,N,G,C)={shape} on a {prior} conjugate state "
+          f"after {steps} steps: Zsum_g and Zsum_k equal to the plain "
+          f"version in both "
           f"modes, two launches bit-identical, counts conserved; "
           f"{ms:.4f} ms on the device (Philox; {wrapped:.4f} ms per call "
           f"through the wrapper), plain PyTorch {res['plain_ms']:.4f} ms, "
@@ -2473,6 +2497,380 @@ def run_ensembles(torch, bt, FS, S, AL, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the Poisson-Gamma family and the recording surface
+# ---------------------------------------------------------------------------
+
+# (a) the allocation on Poisson-Gamma states of 1 and 8 chains
+GAMMA_ALLOC = (96, 8, 2780)
+GAMMA_ALLOC_CHAINS = (1, 8)
+GAMMA_WARMUP = 30
+# (b) one step on the card against the CPU
+GAMMA_K, GAMMA_G, GAMMA_RANK = 96, 500, 8
+GAMMA_HYPER_RTOL = 1e-4
+# (c) fits
+GAMMA_EXAMPLE_CC = dict(MAP_over=300, MAP_every=100, miniters=600,
+                        maxiters=900)
+GAMMA_FIT_G = 2780
+GAMMA_FIT_CC = dict(MAP_over=200, MAP_every=100, miniters=300, maxiters=500,
+                    Ninarow_nochange=3, Ninarow_nobest=5)
+GAMMA_SBFI_G = 1000
+GAMMA_SBFI_CC = dict(MAP_over=200, MAP_every=100, miniters=300,
+                     maxiters=500, Ninarow_nochange=3, Ninarow_nobest=5)
+GAMMA_ENS_CHAINS = 8
+GAMMA_ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=200, maxiters=300,
+                    Ninarow_nochange=3, Ninarow_nobest=5)
+GAMMA_BIC_CC = dict(MAP_over=100, MAP_every=100, miniters=200, maxiters=300,
+                    Ninarow_nochange=3, Ninarow_nobest=5)
+# (d) recording: the stream ensemble at the north-star shape, 200
+# iterations (100 of warmup, 100 of MH)
+REC_CC = dict(MAP_over=100, MAP_every=100, miniters=0, maxiters=100)
+REC_POST = 100
+
+
+# aten ops that make a view or an alias and launch nothing
+VIEW_OPS = {"view", "_unsafe_view", "select", "slice", "unsqueeze", "squeeze",
+            "expand", "permute", "transpose", "t", "reshape", "unflatten",
+            "alias", "as_strided", "detach", "narrow", "split",
+            "split_with_sizes", "unbind", "lift_fresh"}
+
+
+def count_ops(torch, fn):
+    """The tensor ops ``fn()`` issues, counted at PyTorch's dispatcher
+    (views and aliases left out): (ops, host reads)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = reads = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if name not in VIEW_OPS:
+                Count.n += 1
+            Count.reads += name == "_local_scalar_dense"
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n, Count.reads
+
+
+def gamma_step_case(torch, bt, gibbs, AL, M, kw):
+    """Phase 10 (b): one Poisson-Gamma step (the Beta draws, one slice pass
+    over both Alphas, P and E given the latent counts, with SBFI the R draw
+    and the A sweep, then the allocation) on the card and on the CPU from
+    one state (after GAMMA_WARMUP steps on the card) with the same random
+    numbers: A, R and the slice decisions (which Alpha lanes moved)
+    equal, Alpha and Beta within rtol 1e-4, P and E within rtol 1e-3 /
+    atol 1e-4. Returns the largest |card - CPU| over P and E."""
+    from bayesnmf_tpu_torch.models import state as ST
+
+    spec = bt.ModelSpec(K=GAMMA_K, N=GAMMA_RANK, G=GAMMA_G,
+                        likelihood="poisson", prior="gamma", MH=False, **kw)
+    K, N, G = spec.K, spec.N, spec.G
+    hp = dict(bt.default_hyperprior_params(spec, float(M.mean())))
+    data = {d: torch.as_tensor(M, device=d) for d in ("cpu", "cuda")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    state = gibbs.init_state(spec, hp, data["cuda"], gen)
+    state, _ = gibbs.run_chunk(spec, data["cuda"], hp, state,
+                               np.ones(GAMMA_WARMUP, np.float32), False)
+    cg = torch.Generator().manual_seed(4)
+    r = lambda *s: torch.rand(s, generator=cg).clamp_min_(1.2e-38)  # noqa
+    n_t = K * N + N * G
+    noise = {"prior": {"p": r(9, K, N), "e": r(9, N, G),
+                       "slice": {"e": -torch.log(r(n_t)), "u_l": r(n_t),
+                                 "u_s": r(16, n_t)}},
+             "P": r(9, K, N), "E": r(9, N, G),
+             "Z": AL.draw_planes(cg, 1, N, K, G, "cpu")[0]}
+    if spec.learning_rank:
+        noise |= {"R": -torch.log(-torch.log(r(N + 1))), "A": r(N)}
+    on = lambda x, d: ({k: on(v, d) for k, v in x.items()}  # noqa: E731
+                       if isinstance(x, dict) else x.to(d))
+    temp = 1e-3 if spec.learning_rank else 1.0
+    out = {}
+    for d in ("cpu", "cuda"):
+        st = ST.state_from_numpy(ST.state_to_numpy(state), d)
+        new, _ = gibbs.gibbs_step(spec, data[d], hp, st, temp, False,
+                                  noise=on(noise, d))
+        out[d] = ST.state_to_numpy(new)
+    got, want = out["cuda"], out["cpu"]
+    old = ST.state_to_numpy(state)
+    label = f"gamma step {'SBFI' if spec.learning_rank else 'fixed rank'}"
+    for k in ("A", "R"):
+        check(np.array_equal(got["params"][k], want["params"][k]),
+              f"{label}: {k} differs on the card")
+    for k in ("Alpha_p", "Alpha_e"):
+        moved = got["prior"][k] != old["prior"][k]
+        check(np.array_equal(moved, want["prior"][k] != old["prior"][k]),
+              f"{label}: a slice decision on {k} differs on the card")
+    for k in ("Alpha_p", "Alpha_e", "Beta_p", "Beta_e"):
+        check(np.allclose(got["prior"][k], want["prior"][k],
+                          rtol=GAMMA_HYPER_RTOL, atol=0),
+              f"{label}: {k} differs on the card by "
+              f"{float(np.max(np.abs(got['prior'][k] - want['prior'][k])))}")
+    err = 0.0
+    for k in ("P", "E"):
+        a, b = got["params"][k], want["params"][k]
+        check(np.allclose(a, b, rtol=EAGER_RTOL, atol=EAGER_ATOL),
+              f"{label}: {k} differs on the card by "
+              f"{float(np.max(np.abs(a - b)))}")
+        err = max(err, float(np.max(np.abs(a - b))))
+    moved = sum(int((got["prior"][k] != old["prior"][k]).sum())
+                for k in ("Alpha_p", "Alpha_e"))
+    below = int((got["prior"]["Alpha_e"] < 1.0).sum())
+    print(f"{label} at ({K},{N},{G}): on the card equal to the CPU step on "
+          f"the same draws (A, R and the slice decisions of {n_t} lanes "
+          f"equal, {moved} moved; Alpha, Beta within rtol "
+          f"{GAMMA_HYPER_RTOL}; P, E within rtol {EAGER_RTOL} / atol "
+          f"{EAGER_ATOL}, max |diff| {err:.3g}); {below} Alpha_e entries "
+          "below 1", flush=True)
+    return err
+
+
+def run_gamma(torch, bt, FS, S, AL, gibbs, card):
+    """Phase 10 (a)-(c): the allocation on Poisson-Gamma states, one step
+    on the card against the CPU, and the Poisson-Gamma fits. Returns
+    (the 8-chain allocation's comparison, the 8-chain ensemble's
+    allocation launches)."""
+    from bayesnmf_tpu_torch.parallel import chains as CH
+    from bayesnmf_tpu_torch.utils.rds import load_example_data
+
+    # (a) the allocation kernel on Poisson-Gamma states
+    alloc = {C: compare_ensemble_allocation(
+        torch, bt, AL, card, GAMMA_ALLOC + (C,), "gamma", GAMMA_WARMUP,
+        "gamma allocation") for C in GAMMA_ALLOC_CHAINS}
+
+    # (b) one step on the card against the CPU, fixed rank and SBFI
+    M, _ = synthetic(GAMMA_K, GAMMA_G, GAMMA_RANK, seed=3)
+    for kw in ({}, dict(learning_rank=True, rank_method="SBFI")):
+        gamma_step_case(torch, bt, gibbs, AL, M, kw)
+
+    # (c) fits: the reference's example data at rank 4
+    d = load_example_data()
+    Mx, Px = np.asarray(d["M"], np.float32), np.asarray(d["P"], np.float32)
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = bt.fit(Mx, 4, prior="gamma", device="cuda", output_dir=None,
+               convergence_control=bt.ConvergenceControl(**GAMMA_EXAMPLE_CC),
+               seed=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cos = matched_cosines(np.asarray(s.MAP["P"]), Px)
+    check(cos.min() > 0.9, f"gamma example data: matched cosine {cos}")
+    check(AL.allocate_counts.launches == s.iter and
+          FS.fused_gibbs_sweeps.launches == 0,
+          f"gamma example data: allocation launches "
+          f"{AL.allocate_counts.launches} for {s.iter - 1} iterations + 1")
+    print(f"gamma example data: fit(96x64, rank 4, seed 1) ran "
+          f"{s.iter - 1} iterations ({s.tracker.why}); matched cosine min "
+          f"{cos.min():.4f} mean {cos.mean():.4f}; {(s.iter - 1) / wall:.1f}"
+          f" it/s for the whole fit on {card}", flush=True)
+
+    # Poisson-Gamma at config 4's shape, as phase 7's conjugate run
+    M, P_true = synthetic(96, GAMMA_FIT_G, 8, seed=2)
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = bt.fit(M, 8, prior="gamma", device="cuda", output_dir=None,
+               convergence_control=bt.ConvergenceControl(**GAMMA_FIT_CC),
+               seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = s.iter - 1
+    alloc_n = AL.allocate_counts.launches
+    check(alloc_n == steps + 1 and other_launches(S, AL) == alloc_n
+          and FS.fused_gibbs_sweeps.launches == 0,
+          f"gamma fit: allocation launches {alloc_n} for {steps} "
+          "iterations + 1, or another kernel ran")
+    rows = np.concatenate(s._metric_rows)
+    check(np.isfinite(rows).all(), "gamma fit: metrics are not finite")
+    cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
+    check(cos.min() >= 0.9, f"gamma fit: matched cosine too low: {cos}")
+    loop, state = loop_rate(torch, gibbs, s, 100)
+    n_prof = 20
+    dev_us, pwall, events, n_waits, wait_us = profile_loop(
+        torch, gibbs, s, state, n_prof)
+    # the ops one step issues, and those of its prior update
+    consts = gibbs.m.metric_constants("poisson", s.data)
+    hp = s.hyperprior_params
+    step_ops, step_reads = count_ops(torch, lambda: gibbs.gibbs_step(
+        s.spec, s.data, hp, state, 1.0, False, consts))
+    prior_ops, _ = count_ops(torch, lambda: gibbs.U.sample_prior_params(
+        s.spec, hp, state["params"], state["prior"], state["gen"]))
+    print(f"gamma fit(96x{GAMMA_FIT_G}, rank 8) ran {steps} iterations "
+          f"({s.tracker.why}); allocation launches {alloc_n} (= iterations "
+          f"+ 1), no other kernel; matched cosine min {cos.min():.4f} mean "
+          f"{cos.mean():.4f}; {steps / wall:.1f} it/s for the whole fit "
+          f"({wall:.2f} s), {loop:.1f} it/s in the chunk loop alone (100 "
+          f"iterations) on {card}", flush=True)
+    print(f"gamma loop: profiled {n_prof} iterations: " + (
+        f"device busy {dev_us / 1e3:.2f} ms of {pwall * 1e3:.1f} ms wall "
+        f"(share {dev_us / 1e6 / pwall:.3f}), " if dev_us > 0 else
+        "torch.profiler recorded no device time (busy share not "
+        "measured), ") + f"{events / n_prof:.1f} device events and "
+        f"{n_waits / n_prof:.1f} host waits per iteration "
+        f"({wait_us / 1e3:.2f} ms of host time); one step issues "
+        f"{step_ops} tensor ops ({step_reads} host reads), its prior "
+        f"update {prior_ops} (dispatch count) on {card}", flush=True)
+
+    # SBFI over ranks 1..20 at config 3's shape
+    M, _ = synthetic(96, GAMMA_SBFI_G, 8, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = bt.fit(M, range(1, RANK_MAX + 1), prior="gamma", device="cuda",
+               output_dir=None, prop_temp=0.3, seed=0,
+               convergence_control=bt.ConvergenceControl(**GAMMA_SBFI_CC))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(np.isfinite(np.concatenate(s._metric_rows)).all(),
+          "gamma SBFI: metrics are not finite")
+    print(f"gamma SBFI: fit(96x{GAMMA_SBFI_G}, ranks 1..{RANK_MAX}) ran "
+          f"{s.iter - 1} iterations ({s.tracker.why}); learned rank "
+          f"{int(np.asarray(s.MAP['A_full']).sum())} (true 8); "
+          f"{(s.iter - 1) / wall:.1f} it/s for the whole fit on {card}",
+          flush=True)
+
+    # an 8-chain Poisson-Gamma ensemble at config 4's shape
+    M, P_true = synthetic(96, GAMMA_FIT_G, 8, seed=2)
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = bt.ChainEnsemble(
+        M, 8, n_chains=GAMMA_ENS_CHAINS, prior="gamma", MH=False,
+        convergence_control=bt.ConvergenceControl(**GAMMA_ENS_CC), seed=0,
+        periodic_save=False, device="cuda")
+    ens.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(FS, S, AL)
+    report_run(torch, CH, ens, "ensemble gamma", wall, launches,
+               {"allocation": (1, 1)}, P_true, card)
+    ens_alloc_launches = launches["allocation"]
+    chunk_loop(torch, CH, ens, GAMMA_ENS_CHAINS, 20, "ensemble gamma", card)
+
+    # fit(rank_method="BIC") with save_all_samples: one masked ensemble
+    M, _ = synthetic(96, GAMMA_SBFI_G, 8, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bt.fit(M, range(1, RANK_MAX + 1), rank_method="BIC",
+                 prior="gamma", device="cuda", output_dir=None, seed=0,
+                 save_all_samples=True,
+                 convergence_control=bt.ConvergenceControl(**GAMMA_BIC_CC))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    win = res["sampler"]
+    check(res["ensemble"]._archive is not None,
+          "gamma BIC: save_all_samples did not reach the ensemble")
+    lp = float(win.get_logpost())
+    check(np.isfinite(lp), f"gamma BIC: the winner's get_logpost() is {lp}")
+    check(win.samples["P"].shape[0] > 0, "gamma BIC: the winner's samples")
+    print(f"gamma BIC: fit(96x{GAMMA_SBFI_G}, ranks 1..{RANK_MAX}, BIC, "
+          f"save_all_samples=True) ran {res['ensemble'].iter - 1} "
+          f"iterations as one ensemble in {wall:.2f} s; best_rank "
+          f"{res['best_rank']} (true 8); the winner's get_logpost() {lp:.1f}"
+          f" on {card}", flush=True)
+    return alloc[GAMMA_ALLOC_CHAINS[-1]], ens_alloc_launches
+
+
+def recorded_stream_run(torch, bt, FS, S, AL, M, record):
+    """One 96x10k SBFI stream ensemble run with ``record`` and
+    save_all_samples: (ensemble, seconds, launches, peak device bytes)."""
+    reset_counts(FS, S, AL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ens = bt.ChainEnsemble(
+        M, range(1, ENS_MAX_RANK + 1), n_chains=ENS_CHAINS,
+        convergence_control=bt.ConvergenceControl(**REC_CC),
+        post_warmup=REC_POST, seed=0, stream_sweeps=True,
+        save_all_samples=True, record_history=record, periodic_save=False,
+        device="cuda", verbosity=0)
+    ens.run()
+    torch.cuda.synchronize()
+    return (ens, time.perf_counter() - t0, launch_counts(FS, S, AL),
+            torch.cuda.max_memory_allocated())
+
+
+def run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate):
+    """Phase 10 (d): record_history='full' on the 96x10k SBFI stream
+    ensemble beside 'basic' (launches per iteration unchanged, acceptance
+    entries in [0, 1], peak device memory, chain-it/s), and on config 2's
+    fused fit beside phase 4's rate; that fit's final checkpoint resumes
+    bit-exactly, archive included."""
+    M, _ = synthetic(ENS_K, ENS_G, ENS_TRUE_RANK)
+    N = ENS_MAX_RANK
+    runs = {r: recorded_stream_run(torch, bt, FS, S, AL, M, r)
+            for r in ("basic", "full")}
+    for rec, (ens, wall, launches, peak) in runs.items():
+        steps = ens.iter - 1
+        for k, n in (("_run", 3 * N), ("stream_acol_update", N),
+                     ("stream_metrics_row", 1)):
+            check(launches[k] == n * steps, f"recording {rec}: {k} "
+                  f"launches {launches[k]} != {n} x {steps} iterations")
+        check(launches["fused"] == launches["allocation"] == 0,
+              f"recording {rec}: another kernel ran")
+        if rec == "full":
+            for ch in ens._archive:
+                for k in ("acc_P", "acc_E"):
+                    check(np.all((ch[k] >= 0) & (ch[k] <= 1)),
+                          f"recording: an {k} entry outside [0, 1]")
+            h = ens.chain(0).samples
+            check({"Mu_p", "Sigmasq_e", "acc_P", "acc_E"} <= set(h),
+                  "recording: a chain's samples lack the full record")
+        print(f"recording {rec}: {ENS_K}x{ENS_G} SBFI stream ensemble, "
+              f"{ENS_CHAINS} chains, save_all_samples=True: {steps} "
+              f"iterations in {wall:.2f} s, {ens.throughput():.1f} "
+              f"chain-it/s over run(); launches _run {launches['_run']}, "
+              f"stream_acol_update {launches['stream_acol_update']}, "
+              f"stream_metrics_row {launches['stream_metrics_row']} (= 3N, "
+              f"N, 1 per iteration); peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB; archive {len(ens._archive)} chunks "
+              f"on the host on {card}", flush=True)
+    del runs
+
+    # config 2's fused fit with the full record, beside phase 4's rate
+    rng = np.random.default_rng(0)
+    P_true = rng.dirichlet(np.ones(96) * 0.3, 8).T
+    M = rng.poisson(P_true @ rng.gamma(2.0, 500.0, (8, 500))).astype(
+        np.float32)
+    cc = bt.ConvergenceControl(MAP_over=500, MAP_every=100, miniters=500,
+                               maxiters=2000, Ninarow_nochange=3,
+                               Ninarow_nobest=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(FS, S, AL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = bt.fit(M, 8, device="cuda", output_dir=os.path.join(tmp, "fit"),
+                   convergence_control=cc, post_warmup=500, seed=0,
+                   record_history="full")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = s.iter - 1
+        check(FS.fused_gibbs_sweeps.launches == steps,
+              "recorded fused fit: launches")
+        h = s.samples
+        check(h["acc_P"].shape == (s.iter, 96, 8) and
+              np.all((h["acc_E"] >= 0) & (h["acc_E"] <= 1)),
+              "recorded fused fit: the acceptance records")
+        resumed = bt.GibbsSampler.load(os.path.join(s.output_dir,
+                                                    "sampler.ckpt"))
+        check(len(resumed._archive) == len(s._archive) and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(resumed._archive,
+                                                       s._archive)
+            for k in ("P", "E", "A", "acc_P", "acc_E")) and all(
+            np.array_equal(a["prior"][k], b["prior"][k])
+            for a, b in zip(resumed._archive, s._archive)
+            for k in b["prior"]), "recorded fused fit: the resumed archive")
+        resume_check(torch, bt, gibbs, s, "recorded fused fit")
+    print(f"recorded fused fit(96x500, rank 8, record_history='full') ran "
+          f"{steps} iterations: {steps / wall:.1f} it/s for the whole fit "
+          f"({wall:.2f} s) against phase 4's {slice_rate:.1f} (basic) in "
+          f"this call; archive {len(s._archive)} chunks, resumed with it "
+          f"on {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2531,7 +2929,7 @@ def main() -> int:
     alloc = compare_allocation(torch, AL, card)
 
     # phase 4: the fixed-rank slice
-    run_slice(torch, bt, FS, gibbs, card)
+    slice_rate = run_slice(torch, bt, FS, gibbs, card)
 
     # phase 5: the ensemble slice
     ens_launches = run_ensemble(torch, bt, S, card)
@@ -2555,6 +2953,13 @@ def main() -> int:
     ens_alloc = compare_ensemble_allocation(torch, bt, AL, card)
     p9_launches = run_ensembles(torch, bt, FS, S, AL, card)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+
+    # phase 10: the Poisson-Gamma family and the recording surface
+    t10 = time.perf_counter()
+    gamma_alloc, gamma_launches = run_gamma(torch, bt, FS, S, AL, gibbs,
+                                            card)
+    run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
@@ -2654,6 +3059,17 @@ def main() -> int:
         "max_abs_err": ens_alloc["max_abs_err"], "ms": ens_alloc["ms"],
         "plain_ms": ens_alloc["plain_ms"], "bound_ms": ens_alloc["bound_ms"],
         "bound_by": ens_alloc["bound_by"], "library_ms": None})
+    # phase 10: the allocation on the Poisson-Gamma states of 8 chains (the
+    # 8-chain Poisson-Gamma ensemble's launches)
+    kernels.append({
+        "name": "allocate_counts_fused (Poisson-Gamma, 8 chains)",
+        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+        "launches": gamma_launches,
+        "max_abs_err": gamma_alloc["max_abs_err"], "ms": gamma_alloc["ms"],
+        "plain_ms": gamma_alloc["plain_ms"],
+        "bound_ms": gamma_alloc["bound_ms"],
+        "bound_by": gamma_alloc["bound_by"], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Each path's batched step (the fused kernel's plain version, the eager
 Poisson MH sweeps, Normal-TruncNormal, Normal-Exponential and conjugate
-Poisson-Gibbs), at a fixed rank and with SBFI, runs C = 3 chains at once
+Poisson-Gibbs with the exponential and the gamma prior), at a fixed rank
+and with SBFI, runs C = 3 chains at once
 fed each chain's JAX draws (the draws the JAX step takes from that chain's
 key), and each chain is held to the JAX ``gibbs_step`` of that chain for
 ten steps over a rising temperature, with the warmup flag mixed across the
@@ -57,6 +58,8 @@ PATHS = {
                                MH=False),
     "conjugate": dict(likelihood="poisson", prior="exponential", MH=False,
                       fused_allocation=True),
+    "conjugate_gamma": dict(likelihood="poisson", prior="gamma", MH=False,
+                            fused_allocation=True),
 }
 RANKS = {"fixed": {}, "sbfi": dict(learning_rank=True, rank_method="SBFI")}
 
@@ -243,6 +246,10 @@ def port_noise(spec, gen):
     noise = {"prior": {"p": r(9, K, N), "e": r(9, N, G)},
              "P": r(9, K, N), "E": r(9, N, G),
              "Z": r(AL.N_PLANES, AL.n_nodes(N), K, G)}
+    if spec.prior == "gamma":
+        n_t = tU.n_slice_targets(spec)
+        noise["prior"]["slice"] = {"e": -torch.log(r(n_t)), "u_l": r(n_t),
+                                   "u_s": r(16, n_t)}
     if spec.learning_rank:
         noise |= {"R": -torch.log(-torch.log(r(N + 1))), "A": r(N)}
     return None, noise

@@ -143,9 +143,6 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()),
-    dict(record_history="full"),
-    dict(save_all_samples=True),
-    dict(prior="gamma", MH=False, stream_sweeps=False),
 ])
 def test_outside_the_slice_raises(kw):
     args = dict(rank=3, n_chains=2, stream_sweeps=True, device="cpu") | kw

@@ -1,13 +1,14 @@
-"""Geweke joint-distribution tests of the port's eager sweeps and Normal
-likelihood (the design of tests/test_geweke.py, whose docstring explains
-it): the successive-conditional chain, one Gibbs step of the port then a
-fresh draw of the data from the likelihood, keeps the joint of (params,
-data), so the chains' mean statistics of (P, E) must match exact prior
-draws within 6 standard errors. Per-step parity with the JAX package
+"""Geweke joint-distribution tests of the port's eager sweeps, Normal
+likelihood and gamma prior (the design of tests/test_geweke.py, whose
+docstring explains it): the successive-conditional chain, one Gibbs step
+of the port then a fresh draw of the data from the likelihood, keeps the
+joint of (params, data), so the chains' mean statistics of (P, E) must
+match exact prior draws within 6 standard errors. Per-step parity with the JAX package
 (tests/test_torch_eager.py) cannot show this: one flipped decision parts
 two chains for good.
 
-Marked slow, as the JAX tests are; each case runs ~30-60 s on one CPU core.
+Marked slow, as the JAX tests are; each case runs ~30-60 s on one CPU core
+(the gamma prior's ~3 min).
 """
 
 import numpy as np
@@ -31,8 +32,11 @@ def fixed_hp(spec):
     if spec.prior == "truncnormal":
         hp = {"m_p": 1.0, "s_p": 0.5, "a_p": 4.0, "b_p": 3.0,
               "m_e": 1.0, "s_e": 0.5, "a_e": 4.0, "b_e": 3.0}
-    else:
+    elif spec.prior == "exponential":
         hp = {"a_p": 5.0, "b_p": 5.0, "a_e": 5.0, "b_e": 5.0}
+    else:
+        hp = {"a_p": 6.0, "b_p": 3.0, "c_p": 6.0, "d_p": 3.0,
+              "a_e": 6.0, "b_e": 3.0, "c_e": 6.0, "d_e": 3.0}
     if spec.likelihood == "normal":
         hp |= {"alpha": 4.0, "beta": 3.0}
     return hp
@@ -106,4 +110,56 @@ def test_geweke_joint_eager(kw):
     z = (succ.mean(0) - marg.mean(0)) / se
     assert np.all(np.abs(z) < 6.0), (
         f"Geweke mismatch for {kw}: z={z}, succ={succ.mean(0)}, "
+        f"marg={marg.mean(0)}")
+
+
+def redraw_counts(gen, params):
+    """The data layer of the Z-augmented conjugate path, for C chains at
+    once (tests/test_geweke.py::redraw_data): Z ~ Poisson(P_kn A_n E_ng),
+    M = sum_n Z, and the latent counts' sums from the same Z."""
+    lam = (params["P"] * params["A"].unsqueeze(-2)).unsqueeze(-1) \
+        * params["E"].unsqueeze(-3)                       # (C, K, N, G)
+    Z = torch.poisson(lam.clamp_min(1e-12), generator=gen)
+    return Z.sum(-2), Z.sum(-1), Z.sum(-3)
+
+
+@pytest.mark.slow
+def test_geweke_joint_conjugate_gamma():
+    """The conjugate Poisson-Gamma step (Beta, Alpha by the slice sampler,
+    P and E given the latent counts, the allocation kernel's plain version)
+    leaves the joint invariant (tests/test_geweke.py:138): C chains run as
+    one chain-batched state, |z| < 6 for every statistic."""
+    spec = ModelSpec(K=K, N=N, G=G, likelihood="poisson", prior="gamma",
+                     MH=False)
+    hp = fixed_hp(spec)
+    gen = torch.Generator().manual_seed(0)
+    state = gibbs.init_state(spec, hp, torch.zeros(K, G), gen, chains=C)
+    params = state["params"]
+    data, params["Zsum_g"], params["Zsum_k"] = redraw_counts(gen, params)
+    stats = []
+    for _ in range(T):
+        # each chain's data differ, so the chains step one at a time on a
+        # batch of one
+        out = []
+        for c in range(C):
+            st = {"params": {k: v[c] for k, v in state["params"].items()},
+                  "prior": {k: v[c] for k, v in state["prior"].items()},
+                  "gen": gen, "iter": state["iter"]}
+            out.append(gibbs.gibbs_step(spec, data[c], hp, st, 1.0,
+                                        False)[0])
+        state = {"params": {k: torch.stack([o["params"][k] for o in out])
+                            for k in out[0]["params"]},
+                 "prior": {k: torch.stack([o["prior"][k] for o in out])
+                           for k in out[0]["prior"]},
+                 "gen": gen, "iter": out[0]["iter"]}
+        params = state["params"]
+        data, params["Zsum_g"], params["Zsum_k"] = redraw_counts(gen, params)
+        stats.append(stats_of(params["P"], params["E"]))
+    succ = torch.stack(stats[T // 5:]).mean(0).numpy()
+    marg = run_marginal(spec, hp)
+    se = np.sqrt(succ.var(0, ddof=1) / len(succ)
+                 + marg.var(0, ddof=1) / len(marg))
+    z = (succ.mean(0) - marg.mean(0)) / se
+    assert np.all(np.abs(z) < 6.0), (
+        f"Geweke mismatch for the gamma prior: z={z}, succ={succ.mean(0)}, "
         f"marg={marg.mean(0)}")

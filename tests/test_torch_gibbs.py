@@ -150,6 +150,28 @@ def _gamma_planes(key, shape):
                                        minval=_JTINY))
 
 
+def jax_slice_noise(key, shape):
+    """The noise the JAX slice sampler draws from ``key``
+    (distributions.py:225-253): the Exp(1) level, the bracket's uniform and
+    the 16 shrink uniforms."""
+    k_h, k_l, _, k_u = jax.random.split(key, 4)
+    return {"e": np.array(jax.random.exponential(k_h, shape, jnp.float32)),
+            "u_l": np.array(jax.random.uniform(k_l, shape, jnp.float32)),
+            "u_s": np.stack([np.array(jax.random.uniform(k, shape,
+                                                         jnp.float32))
+                             for k in jax.random.split(k_u, 16)])}
+
+
+def side_by_side(p, e):
+    """Two sides' slice noise as the port's one pass takes it: each flattened
+    and concatenated, P's targets first (the 16 shrink planes along the
+    targets' axis)."""
+    return {"e": np.concatenate([p["e"].ravel(), e["e"].ravel()]),
+            "u_l": np.concatenate([p["u_l"].ravel(), e["u_l"].ravel()]),
+            "u_s": np.concatenate([p["u_s"].reshape(16, -1),
+                                   e["u_s"].reshape(16, -1)], 1)}
+
+
 def jax_step_noise(jspec, key):
     """(flat uniforms of the fused step or None, noise dict of the other
     draws) as the JAX gibbs_step draws them from ``key``."""
@@ -162,6 +184,13 @@ def jax_step_noise(jspec, key):
         kp = jax.random.split(k_pp, 4)
         noise["prior"] = {"p": _gamma_planes(kp[0], (K, N)),
                           "e": _gamma_planes(kp[1], (N, G))}
+    elif jspec.prior == "gamma":  # updates.py:204-235
+        kp = jax.random.split(k_pp, 4)
+        noise["prior"] = {
+            "p": _gamma_planes(kp[0], (K, N)),
+            "e": _gamma_planes(kp[2], (N, G)),
+            "slice": side_by_side(jax_slice_noise(kp[1], (K, N)),
+                                  jax_slice_noise(kp[3], (N, G)))}
     if jspec.MH:
         u = np.array(jax.random.uniform(
             k_P, (tgibbs.n_uniforms(jspec),), jnp.float32,
@@ -200,6 +229,15 @@ STEP_CASES = {
     "conjugate_sbfi": dict(prior="exponential", MH=False,
                            fused_allocation=True, learning_rank=True,
                            rank_method="SBFI"),
+    "conjugate_gamma": dict(prior="gamma", MH=False, fused_allocation=True),
+    "conjugate_gamma_sbfi": dict(prior="gamma", MH=False,
+                                 fused_allocation=True, learning_rank=True,
+                                 rank_method="SBFI"),
+    # Alpha ~ Gamma(0.5, 1) starts below 1, where the P and E draws take
+    # the gamma draw's a < 1 boost
+    "conjugate_gamma_small_alpha": dict(
+        prior="gamma", MH=False, fused_allocation=True,
+        hp={"c_p": 0.5, "d_p": 1.0, "c_e": 0.5, "d_e": 1.0}),
 }
 TEMPS = (0.0, 1e-4, 1e-3, 1e-2, 0.1, 0.3, 0.6, 1.0, 1.0, 1.0)
 
@@ -208,7 +246,9 @@ TEMPS = (0.0, 1e-4, 1e-3, 1e-2, 0.1, 0.3, 0.6, 1.0, 1.0, 1.0)
 def test_ten_steps_of_each_path_match_jax(case):
     """Rank learning (SBFI, BFI) in the fused kernel, the exponential prior
     with the exact and the reference ratio, and conjugate Poisson-Gibbs with
-    the allocation kernel, at a fixed rank and learning it: ten steps over a
+    the allocation kernel under the exponential and the gamma prior (the
+    latter also with Alpha below 1), at a fixed rank and learning it: ten
+    steps over a
     rising temperature, warmup then MH. A and R must be equal; P, E and
     the prior parameters within rtol 1e-3 (P and E, whose values are
     0.05-50, with an absolute 1e-4: a TruncNormal draw near 0 is mu + sd z
@@ -227,10 +267,13 @@ def test_ten_steps_of_each_path_match_jax(case):
     Et = rng.gamma(2.0, 2.0, (N, G))
     data = rng.poisson(Pt @ Et).astype(np.float32)
     kw = dict(K=K, N=N, G=G, likelihood="poisson") | STEP_CASES[case]
+    hp_over = kw.pop("hp", {})
     jspec, spec = JModelSpec(**kw), ModelSpec(**kw)
-    hp = default_hyperprior_params(jspec, float(data.mean()))
+    hp = default_hyperprior_params(jspec, float(data.mean())) | hp_over
     jstate = jgibbs.init_state(jspec, hp, jnp.asarray(data),
                                jax.random.PRNGKey(7))
+    if hp_over:
+        assert float(np.min(jstate["prior"]["Alpha_p"])) < 1.0
     jstep = jax.jit(jgibbs.gibbs_step,
                     static_argnames=("spec", "accept_all", "record"))
     tdata = torch.from_numpy(data)
@@ -286,11 +329,24 @@ def test_ten_steps_of_each_path_match_jax(case):
         assert len(ranks) > 1, "the rank never moved"
 
 
-@pytest.mark.parametrize("kw", [dict(prior="gamma", MH=False,
-                                     fused_sweeps=False)])
-def test_unported_specs_raise(kw):
-    spec = ModelSpec(**(dict(K=K, N=N, G=G, likelihood="poisson",
-                             prior="truncnormal", MH=True,
-                             fused_sweeps=True) | kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgibbs.check_spec(spec)
+def test_record_full_adds_the_reference_names(setup):
+    """With record='full' a step's sample_out and the chunk's buffers add
+    the prior parameters, and with MH the acceptance records
+    (gibbs.py:280-289); the basic record holds P, E, A and the metrics."""
+    (_, spec), hp, data, jstate = setup
+    state = state_from_numpy(to_np(jstate), "cpu", seed=4)
+    tdata = torch.from_numpy(data)
+    _, basic = tgibbs.gibbs_step(spec, tdata, hp, state, 1.0, False)
+    assert sorted(basic) == ["A", "E", "P", "metrics"]
+    new, full = tgibbs.gibbs_step(spec, tdata, hp, state, 1.0, False,
+                                  record="full")
+    assert sorted(full) == ["A", "E", "P", "acc_E", "acc_P", "metrics",
+                            "prior"]
+    for k, v in new["prior"].items():
+        assert torch.equal(full["prior"][k], v)
+    _, out = tgibbs.run_chunk(spec, tdata, hp, state, np.ones(3, np.float32),
+                              accept_all=False, record="full")
+    assert out["prior"]["Mu_e"].shape == (3, N, G)
+    assert out["acc_P"].shape == (3, K, N)
+    snap = tgibbs.snapshot_sample(spec, tdata, state, 1.0, "full")
+    assert torch.equal(snap["acc_E"], state["acc_E"])

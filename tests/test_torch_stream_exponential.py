@@ -149,7 +149,7 @@ def test_exponential_prior_needs_lambda_alone(setup):
                              prior="exponential")
     with pytest.raises(ValueError, match="Mu and Sigmasq"):
         S.stream_pcol_update(*args, None, *rest)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Gibbs only"):
         S.stream_pcol_update(*args, None, *rest, prior="gamma")
 
 
