@@ -19,7 +19,11 @@ each chain's view with the single sampler's surface; ``fit(rank_method=
 'BIC')`` over a rank list, as one masked ensemble or one sampler per rank;
 ``record_history='full'``, ``save_all_samples``, ``samples`` and
 ``posterior_summary`` on both; the postprocessing and the reference's
-example data. Distributed runs (``mesh``) are not ported yet.
+example data; distributed runs on ``torch.distributed`` (``mesh`` and
+``multihost``: ``GibbsSampler(mesh=...)`` splits G over the mesh's g
+axis, ``ChainEnsemble(mesh=...)`` the chains over its chain axis too, and
+``load(path, mesh=..., device=...)`` moves a checkpoint between a mesh,
+one process and another device).
 """
 
 from .config import (  # noqa: F401
@@ -38,7 +42,7 @@ __all__ = [
     "default_hyperprior_params", "default_MH", "new_convergence_control",
     "fit", "bayesNMF", "GibbsSampler", "ChainEnsemble", "get_cosmic",
     "download_cosmic", "get_cosmic_colors", "hungarian_assignment",
-    "pairwise_sim", "summarize_samplers",
+    "pairwise_sim", "summarize_samplers", "mesh", "multihost",
 ]
 
 
@@ -68,6 +72,10 @@ def __getattr__(name):
         return (assignment.hungarian_assignment
                 if name == "hungarian_assignment"
                 else assignment.pairwise_cosine)
+    if name in ("mesh", "multihost"):
+        import importlib
+
+        return importlib.import_module(f".parallel.{name}", __name__)
     if name == "summarize_samplers":
         from .utils.postprocessing import summarize_samplers
 

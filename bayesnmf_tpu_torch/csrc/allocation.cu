@@ -228,6 +228,9 @@ struct Args {
   // partials: Zsum_g (C, tiles, K, N), then Zsum_k (C, kblocks, N, G)
   double *part_g, *part_k;
   int C, K, N, G, n_nodes, tiles, kblocks;
+  // a G shard's place in the whole matrix: its first column and chain, and
+  // the whole G (the Philox counter counts cells and chains of the whole)
+  int g0, G_total, c0;
 };
 
 // One cell (k, g) per thread, the tree of N2 leaves in v[1 .. 2 N2): unrolled
@@ -287,8 +290,10 @@ alloc_kernel(Args a) {
     } else {
       Uniforms U;
       if (prng) {
-        U = Uniforms{nullptr, 0, k0, k1, (uint32_t)((size_t)k * G + g),
-                     (uint32_t)node, (uint32_t)c, -1, U4{{0u, 0u, 0u, 0u}}};
+        U = Uniforms{nullptr, 0, k0, k1,
+                     (uint32_t)((size_t)k * a.G_total + a.g0 + g),
+                     (uint32_t)node, (uint32_t)(a.c0 + c), -1,
+                     U4{{0u, 0u, 0u, 0u}}};
       } else {
         const size_t plane = (size_t)a.n_nodes * K * G;
         U = Uniforms{a.u + (size_t)c * kPlanes * plane
@@ -381,16 +386,21 @@ cudaError_t launch_alloc(const Args& a, cudaStream_t s) {
 }  // namespace
 
 // scratch: C * (tiles * K * N + kblocks * N * G) doubles, tiles =
-// ceil(G / 32), kblocks = ceil(K / 8).
+// ceil(G / 32), kblocks = ceil(K / 8). On a G shard, M, E and the planes
+// hold columns [g0, g0 + G) of G_total and chains [c0, c0 + C); an unsharded
+// call passes g0 = c0 = 0, G_total = G.
 extern "C" int allocate_counts_launch(
     const float* M, const float* P, const float* A, const float* E,
     const float* u, const long long* seed, float* zg, float* zk,
-    double* scratch, int C, int K, int N, int G, void* stream) {
-  if (N < 1 || N > kMaxN2) return (int)cudaErrorInvalidValue;
+    double* scratch, int C, int K, int N, int G, int g0, int G_total, int c0,
+    void* stream) {
+  if (N < 1 || N > kMaxN2 || g0 < 0 || c0 < 0 || g0 + G > G_total)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.M = M; a.P = P; a.A = A; a.E = E; a.u = u; a.seed = seed;
   a.zg = zg; a.zk = zk;
   a.C = C; a.K = K; a.N = N; a.G = G;
+  a.g0 = g0; a.G_total = G_total; a.c0 = c0;
   int n2 = 1;
   while (n2 < N) n2 <<= 1;
   a.n_nodes = n2 > 1 ? n2 - 1 : 1;

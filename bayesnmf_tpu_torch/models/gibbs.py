@@ -41,6 +41,13 @@ chunk's temperatures go to the device once, and no step
 waits for the device except where a gamma draw's exact rejection loop
 checks that it is done (ops/distributions.gamma), once a draw for all
 chains.
+
+On a mesh (parallel/mesh.py) the eager and conjugate steps run on this
+rank's chains and columns of G: ``state['gen']`` is a ShardGen, which draws
+at the one-process shape and keeps the block, the sweeps' sums over G are
+all-reduced over the g group (models/updates.py), and each step's metrics
+rows take one stacked all-reduce. The fused and streaming kernels do not
+partition over G and refuse a mesh, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ..ops import distributions as dist
 from ..ops import math as m
 from ..ops import stream_sweeps as S
 from ..ops.fused_sweeps import fused_gibbs_sweeps
+from ..parallel import mesh as Mesh
 from . import updates as U
 
 # metrics-row layout (order matches the reference's sample_metrics columns,
@@ -66,6 +74,15 @@ METRIC_NAMES = (
 N_METRICS = len(METRIC_NAMES)
 
 _TINY = 1.2e-38
+
+
+#: the JAX package's refusals of its per-chip kernels on a mesh
+#: (sampler.py:176-180, ensemble.py:448-457)
+FUSED_MESH_ERROR = ("fused_sweeps is a single-chip VMEM-resident kernel; use "
+                    "the XLA sweep path with mesh sharding")
+STREAM_MESH_ERROR = ("stream_sweeps kernels do not partition over a "
+                     "G-sharded mesh; use the XLA sweep path for "
+                     "mesh-sharded ensembles")
 
 
 def kernel_rank_method(spec: ModelSpec):
@@ -254,6 +271,8 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     if not spec.fused_sweeps:
         return eager_step(spec, data, hp, state, temperature, accept_all,
                           metric_consts, noise, metrics_out, record)
+    if Mesh.mesh_of(state["gen"]) is not None:
+        raise ValueError(FUSED_MESH_ERROR)
     if state["params"]["P"].dim() == 2:
         return _one_chain(gibbs_step, spec, data, hp, state, temperature,
                           accept_all, metric_consts, noise, u=u,
@@ -342,8 +361,12 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
     with rank learning the R draw's Gumbel noise and the A draws' uniforms,
     and with the Normal likelihood sigmasq's gamma planes. With ``chains``
     = C each draw is chain-major, (C, total), and every view has a leading
-    chain axis: chain c's noise is row c, in the one-chain layout."""
-    K, N, G = spec.K, spec.N, spec.G
+    chain axis: chain c's noise is row c, in the one-chain layout. On a
+    mesh (``gen`` a ShardGen) both draws are made at the one-process
+    layout (all chains, all of G) and each view is this rank's block:
+    its chains, and of the parts with a G axis its columns."""
+    K, N = spec.K, spec.N
+    G = getattr(gen, "G_local", spec.G)
     kn, ng = (K, N), (N, G)
     tn = (2,) if spec.prior == "truncnormal" else ()
     uni = {("P", "prior_u"): tn + kn, ("P", "u"): (3, N, K),
@@ -352,7 +375,7 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
     if spec.prior == "exponential":
         uni |= {("prior", "p"): (9,) + kn, ("prior", "e"): (9,) + ng}
     elif spec.exact_truncnorm_hypers:
-        uni[("prior", "u")] = nrm[("prior", "z")] = (U.n_hyper_noise(spec),)
+        uni[("prior", "u")] = nrm[("prior", "z")] = (2 * (K * N + N * G),)
     else:
         uni |= {("prior", "sq_p"): (9,) + kn, ("prior", "sq_e"): (9,) + ng}
         nrm |= {("prior", "mu_p"): kn, ("prior", "mu_e"): ng}
@@ -361,13 +384,23 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
     if spec.needs_sigmasq:
         uni[("sigmasq",)] = (9, G)
     C = 1 if chains is None else chains
+
+    def segments(path, shape):
+        # the part's layout in the flat draw: (rows, cols, cols are G)
+        if path == ("prior", "u") or path == ("prior", "z"):
+            return [(1, K * N, False), (N, G, True)] * 2
+        if path[0] in ("E", "sigmasq") or path[-1] in ("e", "sq_e", "mu_e"):
+            return [(int(np.prod(shape[:-1])), G, True)]
+        return [(1, int(np.prod(shape)), False)]
+
     noise = {}
     for shapes, normal in ((uni, False), (nrm, True)):
         sizes = [int(np.prod(s)) for s in shapes.values()]
-        flat = (torch.randn((C, sum(sizes)), generator=gen, device=device)
-                if normal else
-                torch.rand((C, sum(sizes)), generator=gen,
-                           device=device).clamp_min_(_TINY))
+        parts = [seg for path, shape in shapes.items()
+                 for seg in segments(path, shape)]
+        flat = U._flat(gen, (C,), parts, device, normal)
+        if not normal:
+            flat.clamp_min_(_TINY)
         for (path, shape), part in zip(shapes.items(),
                                        torch.split(flat, sizes, 1)):
             d = noise
@@ -408,7 +441,11 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     params["E"], Mh, acc_E, nan_E = U.sweep_E(
         spec, data, params, prior, Mh, state.get("acc_E"), accept_all, gen,
         noise.get("E"))
-    na_events = nan_P + nan_E
+    mesh = Mesh.mesh_of(gen)
+    # on a mesh the E side's count is of this rank's columns: the metrics
+    # row adds the g group's
+    na_events, na_local = ((nan_P + nan_E, None) if mesh is None
+                           else (nan_P, nan_E))
     if spec.learning_rank:
         params["R"] = U.sample_R(spec, params["A"], temperature, gen,
                                  gumbel=noise.get("R"))
@@ -426,7 +463,7 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         new_state |= {"acc_P": acc_P, "acc_E": acc_E}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
-                           metric_consts, metrics_out)
+                           metric_consts, metrics_out, mesh, na_local)
     return new_state, _sample_out(spec, new_state, metrics, record)
 
 
@@ -473,7 +510,7 @@ def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                  "iter": new_iter}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, None, None, na_events, metric_consts,
-                           metrics_out)
+                           metrics_out, Mesh.mesh_of(gen))
     return new_state, _sample_out(spec, new_state, metrics, record)
 
 
@@ -488,36 +525,55 @@ def _fill(col, v):
 
 
 def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
-                 acc_E, na_events=0.0, consts=None, out=None):
+                 acc_E, na_events=0.0, consts=None, out=None, mesh=None,
+                 na_local=None):
     """Per-iteration metrics (compute_metrics_, utils.R:412-455) from Mhat
     (gibbs.py:293-347) for C chains at once, every sum taken per chain:
     the Poisson or Normal loglik (the latter with the state's sigmasq), the
     padded KL; the acceptance rates are 1 without MH. ``it`` is a host
     number, ``temperature`` a host number or a device tensor, ``na_events``
     a number or a (C,) tensor; everything else stays on the device. The
-    (C, N_METRICS) rows go to ``out`` when given."""
+    (C, N_METRICS) rows go to ``out`` when given. On a mesh the data, Mhat
+    and E are this rank's columns of G and ``na_local`` a count over them:
+    with a split G every sum over G is a partial, and all of them go out
+    stacked in one all-reduce over the g group."""
     if consts is None:
-        consts = m.metric_constants(spec.likelihood, data)
+        consts = m.metric_constants(spec.likelihood, data, mesh)
     s2 = (-2, -1)
     # one log(max(Mhat, floor)) pass feeds both the loglik and the padded
     # KL (the floors coincide: MHAT_FLOOR == the KL pad, 1e-6)
     lam = Mh.clamp_min(m.MHAT_FLOOR)
     L = torch.log(lam)
     if spec.likelihood == "poisson":
-        loglik = (torch.sum(data * L, s2) - torch.sum(lam, s2)
-                  - consts["lgamma_sum"])
+        ll_sum = torch.sum(data * L, s2) - torch.sum(lam, s2)
     else:
-        loglik = torch.sum(m.normal_loglik_mat(
+        ll_sum = torch.sum(m.normal_loglik_mat(
             data, Mh, params["sigmasq"].unsqueeze(-2)), s2)
-    kl = consts["mlogm_sum"] - torch.sum(data.clamp_min(1e-6) * L, s2)
-    logpost = loglik + m.logprior_PE(params["P"], params["E"], spec.prior,
-                                     prior)
+    kl_sum = torch.sum(data.clamp_min(1e-6) * L, s2)
+    lp, le = m.logprior_parts(params["P"], params["E"], spec.prior, prior)
     A = params["A"]
     C = A.shape[0]
+    d = Mh - data
+    acc_e = torch.sum(acc_E * A.unsqueeze(-1), s2) if spec.MH else None
+    if mesh is not None and mesh.n_g > 1:
+        zero = torch.zeros(C, dtype=torch.float32, device=data.device)
+        ll_sum, kl_sum, le, ssq, acc_e, na_g = Mesh.g_all_reduce(
+            torch.stack([ll_sum, kl_sum, le, torch.sum(d * d, s2),
+                         zero if acc_e is None else acc_e,
+                         zero if na_local is None else na_local], -1),
+            mesh).unbind(-1)
+        rmse = torch.sqrt(ssq / float(spec.K * spec.G))
+        na_events = na_events + na_g
+    else:
+        rmse = torch.sqrt(torch.mean(d * d, s2))
+        if na_local is not None:
+            na_events = na_events + na_local
+    loglik = (ll_sum - consts["lgamma_sum"] if spec.likelihood == "poisson"
+              else ll_sum)
+    kl = consts["mlogm_sum"] - kl_sum
+    logpost = loglik + (lp + le)
     n_par = m.n_params_of(A, spec.K, spec.G)
     sum_a = torch.sum(A, -1)
-    d = Mh - data
-    rmse = torch.sqrt(torch.mean(d * d, s2))
     row = (torch.empty(C, N_METRICS, dtype=torch.float32, device=data.device)
            if out is None else out)
     _fill(row[:, 0], it)
@@ -528,8 +584,7 @@ def _metrics_row(spec, data, params, prior, Mh, it, temperature, acc_P,
         row[:, 9:11] = torch.stack([
             torch.sum(acc_P * A.unsqueeze(-2), s2)
             / (sum_a * spec.K).clamp_min(1),
-            torch.sum(acc_E * A.unsqueeze(-1), s2)
-            / (sum_a * spec.G).clamp_min(1)], -1)
+            acc_e / (sum_a * spec.G).clamp_min(1)], -1)
     else:
         row[:, 9:11].fill_(1.0)
     _fill(row[:, 11], na_events)
@@ -548,7 +603,8 @@ def snapshot_sample(spec: ModelSpec, data, state: dict, temperature,
     Mh = m.mhat(params["P"], params["A"], params["E"])
     metrics = _metrics_row(spec, data, params, state["prior"], Mh,
                            state["iter"], temperature, state.get("acc_P"),
-                           state.get("acc_E"))
+                           state.get("acc_E"),
+                           mesh=Mesh.mesh_of(state["gen"]))
     return _sample_out(spec, state, metrics, record)
 
 
@@ -618,6 +674,8 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     ``record='full'`` the prior parameters and acc_P (C, K, N), acc_E
     (C, N, G).
     """
+    if Mesh.mesh_of(state["gen"]) is not None:
+        raise ValueError(STREAM_MESH_ERROR)
     params = dict(state["params"])
     C = params["P"].shape[0]
     if noise is None:
@@ -682,11 +740,13 @@ def run_chunk(spec: ModelSpec, data, hp: dict, state: dict, temps,
     and ``samples['P'/'E'/'A']`` stack the per-iteration draws, with
     ``record='full'`` also the prior parameters (a dict under "prior"),
     sigmasq and acc_P/acc_E (gibbs.py:280-289), all in buffers allocated
-    once a chunk on the device.
+    once a chunk on the device. On a mesh the state and the records are
+    this rank's block (parallel/mesh.sample_out_layout).
     """
     steps = len(temps)
     dev = data.device
-    metric_consts = m.metric_constants(spec.likelihood, data)
+    metric_consts = m.metric_constants(spec.likelihood, data,
+                                       Mesh.mesh_of(state["gen"]))
     consts = step_constants(spec, hp, dev) if spec.fused_sweeps else None
     # the chunk's temperatures go to the device once; each step indexes them
     temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)

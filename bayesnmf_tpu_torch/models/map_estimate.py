@@ -5,6 +5,8 @@ elementwise credible intervals.
 Port of bayesnmf_tpu/models/map_estimate.py (get_MAP_, utils.R:194-288).
 The averaging and quantiles run on the samples' device; the results are
 handed back as numpy arrays, which is what postprocessing and plotting read.
+The MAP and the credible intervals are elementwise over G; on a mesh the
+samplers compute them on the gathered window, alike on every rank.
 """
 
 from __future__ import annotations
@@ -123,16 +125,26 @@ def compute_map(P_hist, E_hist, A_hist, final: bool,
 
 
 def map_quality_metrics(data: torch.Tensor, map_est: dict, G: int,
-                        K: int) -> dict:
+                        K: int, mesh=None) -> dict:
     """RMSE/KL/n_params/rank of a MAP estimate (compute_metrics_ with the
-    final A recoded to ones, utils.R:419-423): Mhat = P @ E."""
+    final A recoded to ones, utils.R:419-423): Mhat = P @ E. On a mesh
+    ``data`` is this rank's columns of G (the MAP's E is whole): the
+    squared residuals and the KL terms are summed over them and
+    all-reduced over the g group."""
     P = torch.as_tensor(map_est["P"], device=data.device)
     E = torch.as_tensor(map_est["E"], device=data.device)
-    Mh = m.mhat(P, torch.ones(P.shape[1], device=data.device), E)
     rank = float(np.sum(np.asarray(map_est["A_full"])))
-    return {
-        "RMSE": float(m.rmse(data, Mh)),
-        "KL": float(m.padded_kl(Mh, data)),
-        "n_params": rank * (G + K),
-        "rank": rank,
-    }
+    out = {"n_params": rank * (G + K), "rank": rank}
+    if mesh is not None and mesh.n_g > 1:
+        from ..parallel.mesh import G_AXIS, g_all_reduce, local
+
+        Mh = m.mhat(P, torch.ones(P.shape[1], device=data.device),
+                    local(E, (None, G_AXIS), mesh, G))
+        d = Mh - data
+        sums = g_all_reduce(torch.stack([
+            torch.sum(d * d), m.padded_kl(Mh, data)]), mesh)
+        return out | {"RMSE": float(torch.sqrt(sums[0] / float(K * G))),
+                      "KL": float(sums[1])}
+    Mh = m.mhat(P, torch.ones(P.shape[1], device=data.device), E)
+    return {"RMSE": float(m.rmse(data, Mh)),
+            "KL": float(m.padded_kl(Mh, data))} | out

@@ -24,6 +24,15 @@ kernel, ``device="cpu"`` the kernel's plain PyTorch version. Nothing falls
 back from one to the other; the eager sweeps run only where the caller
 asks for them (``fused_sweeps=False``) or for the Normal likelihood, which
 no kernel covers.
+
+``mesh`` (parallel/mesh.py, one process per rank) splits one chain's G
+axis over the mesh's g axis: each rank holds its columns of the data, E,
+Mhat and the G-sized prior parameters and runs the eager or conjugate
+step on them (the fused kernel is refused, as the JAX package refuses
+it), with the chain of the one-process run of the same seed. At each
+chunk boundary the chunk's records are gathered, so the sample window,
+MAP, ``samples`` and the metrics are whole and alike on every rank; only
+the mesh's root rank writes the log, the plots and the checkpoints.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from ..config import (
     default_hyperprior_params,
     default_MH,
 )
+from ..parallel import mesh as Mesh
 from ..utils.logging import RunLogger, format_counts_table
 
 from . import gibbs
@@ -55,10 +65,15 @@ from .updates import lift
 _ROADMAP = "not ported yet (see ROADMAP.md queue 1)"
 
 
-def _resolve_output_dir(output_dir: Optional[str],
-                        overwrite: bool) -> Optional[str]:
+def _resolve_output_dir(output_dir: Optional[str], overwrite: bool,
+                        mesh=None) -> Optional[str]:
     """Collision-suffixing `_1,_2,...` or wipe-on-overwrite
-    (bayesNMF_sampler.R:111-121)."""
+    (bayesNMF_sampler.R:111-121); on a mesh resolved by the root rank and
+    broadcast, so that every rank names the same directory."""
+    if mesh is not None:
+        out = (_resolve_output_dir(output_dir, overwrite) if mesh.is_root
+               else None)
+        return Mesh.broadcast_object(out, mesh)
     if output_dir is None:
         return None
     final = output_dir
@@ -72,9 +87,15 @@ def _resolve_output_dir(output_dir: Optional[str],
     return final
 
 
-def resolve_device(device) -> torch.device:
-    """The device to run on, as given. CUDA without a card is an error, not
+def resolve_device(device, mesh=None) -> torch.device:
+    """The device to run on, as given; on a mesh the rank's own device,
+    which must be of the type given. CUDA without a card is an error, not
     a quiet run on the CPU."""
+    if mesh is not None:
+        if torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device={device!r} but the mesh's ranks are "
+                             f"on {mesh.device.type}")
+        return mesh.device
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -184,11 +205,12 @@ class GibbsSampler:
         learning_rank = len(ranks) > 1
         if learning_rank and min(ranks) != 0:
             ranks = list(range(0, max(ranks) + 1))  # bayesNMF_sampler.R:125
-        if mesh is not None:
-            raise NotImplementedError(f"mesh-sharded fits are {_ROADMAP}")
         if stream_sweeps:
             raise NotImplementedError(f"stream_sweeps is {_ROADMAP}")
-        self.device = resolve_device(device)
+        if mesh is not None and fused_sweeps:
+            raise ValueError(gibbs.FUSED_MESH_ERROR)
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self.row_names = None
         self.col_names = None
         if hasattr(data, "index") and hasattr(data, "columns"):
@@ -206,9 +228,10 @@ class GibbsSampler:
             learning_rank=learning_rank, rank_method=rank_method,
             exact_mh=exact_mh, exact_truncnorm_hypers=exact_truncnorm_hypers)
         if fused_sweeps is None:
-            # the fused kernel for Poisson MH; the Normal likelihood and
-            # fused_sweeps=False take the eager sweeps
-            fused_sweeps = spec.likelihood == "poisson" and spec.MH
+            # the fused kernel for Poisson MH off a mesh; the Normal
+            # likelihood, fused_sweeps=False and a mesh take the eager sweeps
+            fused_sweeps = (spec.likelihood == "poisson" and spec.MH
+                            and mesh is None)
         spec = dataclasses.replace(spec, fused_sweeps=fused_sweeps)
         check_counts(spec, data)
         self.spec = spec
@@ -220,8 +243,8 @@ class GibbsSampler:
             seed=seed)
         self.rank = ranks if learning_rank else ranks[0]
         self.post_warmup = self.run_cfg.resolved_post_warmup(self.cc)
-        self.output_dir = _resolve_output_dir(output_dir, overwrite)
-        self.logger = RunLogger(self.output_dir, verbosity)
+        self.output_dir = _resolve_output_dir(output_dir, overwrite, mesh)
+        self.logger = RunLogger(self.output_dir, verbosity, mesh=mesh)
 
         # tempering schedule, 1-indexed by iteration; all 1 at a fixed rank
         # (utils.R:307-332; bayesNMF_sampler.R:128-137)
@@ -235,7 +258,11 @@ class GibbsSampler:
         self.temp_sched = np.concatenate([[np.float32(0)], sched]).astype(
             np.float32)
 
-        self.data = torch.as_tensor(data, device=self.device)
+        self._data_np = data
+        full = torch.as_tensor(data, device=self.device)
+        self.data = (full if mesh is None
+                     else Mesh.local(full, (None, Mesh.G_AXIS), mesh,
+                                     spec.G))
         self.hyperprior_params = dict(
             default_hyperprior_params(spec, float(data.mean())))
         if hyperprior_params:
@@ -256,6 +283,9 @@ class GibbsSampler:
                 else str(self.rank))
         self.logger.log(f"learning_rank = {learning_rank}, rank = {disp}", 1)
         self.logger.log(f"device = {self.device}", 1)
+        if mesh is not None:
+            self.logger.log(f"mesh = {mesh.n_chain}x{mesh.n_g} (chain x g), "
+                            "G split over the g axis", 1)
         self.logger.log(f"maxiters = {self.cc.maxiters}", 1)
         self.logger.log(f"MAP_over = {self.cc.MAP_over}", 1)
         self.logger.log(f"MAP_every = {self.cc.MAP_every}", 1)
@@ -263,9 +293,18 @@ class GibbsSampler:
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        # on a mesh every rank builds the one-process initial state and
+        # keeps its block
         self.state = gibbs.init_state(
-            spec, self.hyperprior_params, self.data, gen,
+            spec, self.hyperprior_params, full, gen,
             init_params=init_params, init_prior_params=init_prior_params)
+        del full
+        if mesh is not None:
+            self.state = Mesh.local(self.state,
+                                    Mesh.state_layout(spec, chains=False),
+                                    mesh, spec.G)
+            self.state["gen"] = Mesh.ShardGen(gen, mesh, 1, spec.G,
+                                              split_chains=False)
         self.tracker = ConvergenceTracker(self.cc)
         self.iter = 1
         self.time = {}
@@ -293,8 +332,13 @@ class GibbsSampler:
     def _append_chunk(self, samples: dict, start_iter: int):
         """Keep a chunk's records (every name but the metrics) in the
         device window and, with save_all_samples, a host copy in the
-        archive (sampler.py:245-268)."""
+        archive (sampler.py:245-268); on a mesh gathered whole first (the
+        metrics rows are alike on every rank already)."""
         chunk = {k: v for k, v in samples.items() if k != "metrics"}
+        if self.mesh is not None:
+            chunk = Mesh.gather(chunk, Mesh.sample_out_layout(
+                self.spec, chains=False, record=self.record), self.mesh,
+                self.spec.G)
         chunk["start_iter"] = start_iter
         self._window.append(chunk)
         self._metric_rows.append(_host(samples["metrics"]))
@@ -371,15 +415,34 @@ class GibbsSampler:
     def _param(self, name, value):
         if value is None:
             return self.state["params"][name]
-        return torch.as_tensor(np.asarray(_host(value), np.float32),
-                               device=self.device)
+        t = torch.as_tensor(np.asarray(_host(value), np.float32),
+                            device=self.device)
+        if self.mesh is not None and name in ("E", "sigmasq"):
+            t = self._local(t)
+        return t
 
-    def get_Mhat(self, P=None, A=None, E=None):
-        """P diag(A) E of the current state, or of the given P, A, E."""
+    def _local(self, x):
+        """This rank's columns of a whole (.., G) tensor."""
+        return Mesh.local(x, (None,) * (x.dim() - 1) + (Mesh.G_AXIS,),
+                          self.mesh, self.spec.G)
+
+    def _whole(self, x):
+        """The whole (.., G) tensor from every rank's columns."""
+        if self.mesh is None:
+            return x
+        return Mesh.gather(x, (None,) * (x.dim() - 1) + (Mesh.G_AXIS,),
+                           self.mesh, self.spec.G)
+
+    def _mhat_local(self, P, A, E):
         from ..ops import math as m
 
         return m.mhat(self._param("P", P), self._param("A", A),
                       self._param("E", E))
+
+    def get_Mhat(self, P=None, A=None, E=None):
+        """P diag(A) E of the current state, or of the given P, A, E (the
+        whole matrix on every rank of a mesh)."""
+        return self._whole(self._mhat_local(P, A, E))
 
     def get_loglik(self, P=None, A=None, E=None, sigmasq=None,
                    likelihood=None, return_matrix=False):
@@ -392,8 +455,10 @@ class GibbsSampler:
         sq = (self._param("sigmasq", sigmasq)
               if sigmasq is not None or "sigmasq" in self.state["params"]
               else None)
-        mat = m.loglik_mat(self.data, self.get_Mhat(P, A, E), lik, sq)
-        return mat if return_matrix else torch.sum(mat)
+        mat = m.loglik_mat(self.data, self._mhat_local(P, A, E), lik, sq)
+        if return_matrix:
+            return self._whole(mat)
+        return Mesh.g_all_reduce(torch.sum(mat), self.mesh)
 
     def get_logpost(self, P=None, A=None, E=None, sigmasq=None):
         """The log-likelihood plus the prior log-density of P and E under
@@ -402,7 +467,7 @@ class GibbsSampler:
 
         return self.get_loglik(P, A, E, sigmasq) + m.logprior_PE(
             self._param("P", P), self._param("E", E), self.spec.prior,
-            self.state["prior"])
+            self.state["prior"], self.mesh)
 
     # ------------------------------------------------------------------
     # MAP
@@ -457,7 +522,8 @@ class GibbsSampler:
         win = rows[-self.cc.MAP_over:]
         mean_ll = float(np.nanmean(win[:, 3]))
         mean_lp = float(np.nanmean(win[:, 4]))
-        q = map_quality_metrics(self.data, self.MAP, self.spec.G, self.spec.K)
+        q = map_quality_metrics(self.data, self.MAP, self.spec.G, self.spec.K,
+                                self.mesh)
         row = {
             "iter": self.iter,
             "RMSE": q["RMSE"], "KL": q["KL"],
@@ -489,6 +555,9 @@ class GibbsSampler:
         temps_all_one = bool(np.all(self.temp_sched[
             max(self.iter - self.cc.MAP_over, 1): self.iter + 1] == 1.0))
         msg = self.tracker.update(metric, self.iter, temps_all_one)
+        # every rank decides from the same all-reduced rows
+        Mesh.check_same(self.tracker.converged, self.mesh,
+                        "the convergence decision")
         self.logger.log("Checking convergence", 1)
         self.logger.log(msg, 1)
         self.logger.indent = 1
@@ -499,7 +568,9 @@ class GibbsSampler:
             self.logger.log("Saving object", 1)
             self.save_object()
             # live-updating trace plots at every check, as the reference
-            # does (utils.R:344-347, 394-396)
+            # does (utils.R:344-347, 394-396); the mesh's root draws them
+            if self.mesh is not None and not self.mesh.is_root:
+                return
             try:
                 from ..utils import plotting
 
@@ -579,11 +650,16 @@ class GibbsSampler:
         return path
 
     @classmethod
-    def load(cls, path: str):
-        """Resume from a checkpoint, on the device it was saved from."""
+    def load(cls, path: str, mesh=None, device=None):
+        """Resume from a checkpoint: on the device it was saved from, or on
+        ``device``, or split over ``mesh`` (a checkpoint does not record a
+        mesh: one written on a mesh loads in one process and the other way
+        round, and the chain continues). On a device of another type than
+        the saved one the state carries over exactly but the generator
+        restarts (utils/checkpoint.py)."""
         from ..utils.checkpoint import load_sampler
 
-        return load_sampler(cls, path)
+        return load_sampler(cls, path, mesh=mesh, device=device)
 
     # ------------------------------------------------------------------
     # postprocessing entry points (utils/postprocessing.py, utils/plotting.py)
@@ -637,7 +713,9 @@ def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
 
     ``output_dir`` defaults to ``nmf_<likelihood>_<prior>``; None disables
     logging and checkpoints. Other keyword arguments go to GibbsSampler or
-    ChainEnsemble (``device`` among them)."""
+    ChainEnsemble (``device`` and ``mesh`` among them: on a mesh the BIC
+    ensemble splits its chains over the chain axis, as the JAX ``fit``
+    passes ``mesh`` to its ensemble)."""
     if output_dir == "default":
         output_dir = f"nmf_{likelihood}_{prior}"
     learning = (not isinstance(rank, (int, np.integer))

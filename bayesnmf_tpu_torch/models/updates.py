@@ -34,6 +34,12 @@ device but the gamma draws' rejection check. Each function takes its
 random numbers as optional ``noise`` operands laid out as the JAX function
 draws them from its key (the tests feed it the JAX draws); when ``noise``
 is None they come from ``gen``.
+
+On a mesh (parallel/mesh.py) ``gen`` is a ShardGen: the tensors with a G
+axis are this rank's columns, every draw is made at the one-process shape
+and cut to the block, and each sum over G (the P sweep's, the A sweep's
+deltas, the P draw's rate, Zsum_g) is a local sum all-reduced over the g
+group, so that the P side comes out alike on every rank of the group.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..ops import distributions as dist
 from ..ops import math as m
 from ..ops import stream_sweeps as S
 from ..ops.allocation import allocate_counts
+from ..parallel import mesh as Mesh
 
 _U_MIN = 1.2e-38   # minval of the JAX package's sweep uniforms
 _EPS = 1e-30       # floor of an exponential conditional's precision
@@ -58,8 +65,20 @@ def _full(hp, name, shape, device):
                       device=device)
 
 
-def _rand(gen, shape, device, low=_U_MIN):
-    return torch.rand(shape, generator=gen, device=device).clamp_min_(low)
+def _rand(gen, shape, device, low=_U_MIN, g=False):
+    """Uniforms of ``shape`` (leading axis the chains; with ``g`` the last
+    G) floored at ``low``."""
+    return dist.draw(gen, shape, device, 0, g).clamp_min_(low)
+
+
+def _flat(gen, lead, parts, device, normal=False):
+    """A draw ``lead + (T,)`` whose last axis concatenates ``parts``, each
+    (rows, cols, g): a rows x cols block, its cols this rank's columns of G
+    when ``g`` on a mesh (ShardGen.draw_flat)."""
+    if isinstance(gen, torch.Generator) or gen is None:
+        T = sum(r * c for r, c, _ in parts)
+        return dist.draw(gen, tuple(lead) + (T,), device, normal=normal)
+    return gen.draw_flat(tuple(lead), parts, normal)
 
 
 def lift(x):
@@ -227,7 +246,7 @@ def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
         new[f"Lambda_{side}"] = dist.gamma(
             gen, torch.full_like(x, float(hp[f"a_{side}"])) + 1.0,
             torch.full_like(x, float(hp[f"b_{side}"])) + x,
-            u=noise.get(side), chain_axis=x.dim() == 3)
+            u=noise.get(side), chain_axis=x.dim() == 3, g=side == "e")
     return new
 
 
@@ -263,14 +282,14 @@ def _sample_gamma_prior(spec: ModelSpec, hp: dict, params: dict,
             gen, torch.full_like(x, float(hp[f"a_{side}"]))
             + prior[f"Alpha_{side}"],
             torch.full_like(x, float(hp[f"b_{side}"])) + x,
-            u=noise.get(side), chain_axis=chained)
+            u=noise.get(side), chain_axis=chained, g=side == "e")
 
     def flat_pair(p, e):
         return torch.cat([p.reshape(lead + (-1,)), e.reshape(lead + (-1,))],
                          -1)
 
     n_p = spec.K * spec.N
-    n_t = n_slice_targets(spec)
+    n_t = n_p + E.shape[-2] * E.shape[-1]   # this rank's E block on a mesh
     dev = P.device
 
     def hyper(name):  # the hyperprior constant of both sides, (T,)
@@ -280,7 +299,8 @@ def _sample_gamma_prior(spec: ModelSpec, hp: dict, params: dict,
 
     sl = noise.get("slice")
     if sl is None:
-        u = torch.rand(lead + (18, n_t), generator=gen, device=dev)
+        u = _flat(gen, lead + (18,), [(1, n_p, False),
+                                      (spec.N, E.shape[-1], True)], dev)
         sl = {"e": -torch.log1p(-u.select(-2, 0)), "u_l": u.select(-2, 1),
               "u_s": u.narrow(-2, 2, 16)}
     alpha = dist.slice_sample_logconcave(
@@ -311,12 +331,14 @@ def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
         num = h(f"m_{side}") / s0 + x / sq
         den = 1.0 / s0 + 1.0 / sq
         mu = dist.normal(gen, num / den, 1.0 / den,
-                         z=noise.get(f"mu_{side}"))
+                         z=noise.get(f"mu_{side}"),
+                         chain_axis=x.dim() == 3, g=side == "e")
         d = x - mu
         new[f"Mu_{side}"] = mu
         new[f"Sigmasq_{side}"] = dist.inv_gamma(
             gen, h(f"a_{side}") + 0.5, h(f"b_{side}") + 0.5 * d * d,
-            u=noise.get(f"sq_{side}"), chain_axis=x.dim() == 3)
+            u=noise.get(f"sq_{side}"), chain_axis=x.dim() == 3,
+            g=side == "e")
     return new
 
 
@@ -346,13 +368,13 @@ def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     if not spec.exact_truncnorm_hypers:
         return _sample_truncnorm_conjugate(hp, params, prior, gen, noise, h)
     lead = P.shape[:-2]
-    K, N, G = spec.K, spec.N, spec.G
+    K, N, G = spec.K, spec.N, E.shape[-1]   # G: this rank's block on a mesh
     n_p, n_e = K * N, N * G
     n_t = n_p + n_e
     if noise is None:
-        noise = {"z": torch.randn(lead + (2 * n_t,), generator=gen,
-                                  device=P.device),
-                 "u": _rand(gen, lead + (2 * n_t,), P.device)}
+        parts = [(1, n_p, False), (N, G, True)] * 2
+        noise = {"z": _flat(gen, lead, parts, P.device, normal=True),
+                 "u": _flat(gen, lead, parts, P.device).clamp_min_(_U_MIN)}
     z, lu = noise["z"], torch.log(noise["u"])
 
     def parts(x):
@@ -406,6 +428,19 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
     A = params["A"]                                      # (C, N)
     C = A.shape[0]
     mh = spec.likelihood == "poisson" and spec.MH
+    # on a mesh the P side's sums run over G: each is all-reduced over the
+    # g group (the E side's run over K, on this rank's own columns)
+    mesh = Mesh.mesh_of(gen) if side == "P" else None
+
+    def red_sums(*xs):
+        """Each of ``xs`` summed over ``red``; on a mesh's P side the
+        partial sums go out stacked in one all-reduce."""
+        sums = [torch.sum(x, red) for x in xs]
+        if mesh is None or mesh.n_g == 1:
+            return sums
+        return Mesh.g_all_reduce(torch.stack(torch.broadcast_tensors(
+            *sums)), mesh).unbind()
+
     # the other factor is fixed through the sweep: its n-th vector in the
     # shape that broadcasts against (C, K, G), its squares and the all-zero
     # test; ``red`` the axis of (C, K, G) a column's sums run over
@@ -419,13 +454,15 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
         outer = lambda x, o: o.unsqueeze(-1) * x.unsqueeze(-2)  # noqa: E731
         bc = lambda v: v.unsqueeze(-1)                          # noqa: E731
     o_sq = o_all * o_all
-    inactive = o_sq.sum(-1) <= 0.0                       # (C, N)
+    inactive = red_sums(o_sq)[0] <= 0.0 if side == "P" else (
+        o_sq.sum(-1) <= 0.0)                             # (C, N)
     L = X.shape[3 - xdim]
     if noise is None:
         tn = spec.prior == "truncnormal"
+        g = side == "E"
         noise = {"prior_u": (_rand(gen, (C, 2) + X.shape[1:], X.device,
-                                   low=dist._TINY) if tn else None),
-                 "u": _rand(gen, (C, 3, N, L), X.device)}
+                                   low=dist._TINY, g=g) if tn else None),
+                 "u": _rand(gen, (C, 3, N, L), X.device, g=g)}
     draw = _prior_draw_P if side == "P" else _prior_draw_E
     X_prior = draw(spec, prior, gen, noise["prior_u"])
     U = noise["u"]
@@ -458,8 +495,8 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
             lam_old = Mhat.clamp_min(m.MHAT_FLOOR)
             inv_sig = 1.0 / lam_old
         resid = data - (Mhat - A3 * outer(x_n, o_n))
-        mu1 = torch.sum(resid * inv_sig * o_b, red)
-        den = A2 * torch.sum(inv_sig * o2_b, red)
+        mu1, den = red_sums(resid * inv_sig * o_b, inv_sig * o2_b)
+        den = A2 * den
         mu, var = _conditional(spec, mu1, den, lam, mu0, inv_sq)
         cond = dist.truncnorm_nonneg_from_u(u[:, 0], u[:, 1], mu, var)
         # prior fallback: an all-zero vector of the other factor
@@ -474,8 +511,9 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
                 # the reverse move's conditional shares Mhat_no_n; only its
                 # proposal variance max(Mhat_prop, floor) differs
                 inv_sig_r = 1.0 / lam_new
-                mu1_r = torch.sum(resid * inv_sig_r * o_b, red)
-                den_r = A2 * torch.sum(inv_sig_r * o2_b, red)
+                lp_sum, mu1_r, den_r = red_sums(
+                    lp_core, resid * inv_sig_r * o_b, inv_sig_r * o2_b)
+                den_r = A2 * den_r
                 mu_r, var_r = _conditional(spec, mu1_r, den_r, lam, mu0,
                                            inv_sq)
                 if spec.prior == "exponential":
@@ -484,7 +522,7 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
                     lprior = m.truncnorm_logpdf_delta(
                         proposal, x_n, mu_all.select(xdim, n),
                         sq_all.select(xdim, n))
-                log_ratio = (torch.sum(lp_core, red) + lprior
+                log_ratio = (lp_sum + lprior
                              + m.truncnorm_logpdf(x_n, mu_r, var_r)
                              - m.truncnorm_logpdf(proposal, mu, var))
                 # the prior-draw fallback: target and proposal coincide
@@ -497,11 +535,11 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
                 vs_new = Mhat.clamp_min(1.0)
                 r_old = data - Mhat
                 r_new = data - Mhat_prop
-                log_ratio = torch.sum(
+                log_ratio = red_sums(
                     lp_core
                     + (-0.5 * r_old * r_old / vs_old - 0.5 * torch.log(vs_old))
                     - (-0.5 * r_new * r_new / vs_new
-                       - 0.5 * torch.log(vs_new)), red)
+                       - 0.5 * torch.log(vs_new)))[0]
             ratio = torch.exp(log_ratio).clamp_max(1.0)
             nan = torch.isnan(ratio)
             n_nan = n_nan + nan.sum(-1, dtype=torch.float32)
@@ -618,6 +656,7 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
     p1 = prior_prob_1(R.to(torch.float32), N)
     logit_p1 = torch.log(p1) - torch.log1p(-p1)
     pen = sbfi_penalty(spec)
+    mesh = Mesh.mesh_of(gen)
     n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
     if spec.likelihood == "normal":
         two_sig = 2.0 * params["sigmasq"].unsqueeze(-2)
@@ -635,6 +674,8 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
             r_off = data - Mhat_off
             delta = torch.sum((r_off * r_off - r_on * r_on) / two_sig,
                               (-2, -1))
+        # on a mesh a sum over this rank's columns: add the g group's
+        delta = Mesh.g_all_reduce(delta, mesh)
         if spec.rank_method == "SBFI":
             delta = delta - pen
         p = torch.sigmoid(logit_p1 + temperature * delta)
@@ -687,7 +728,7 @@ def sample_sigmasq(spec: ModelSpec, data, prior: dict, Mhat, gen=None,
     rss = torch.sum(resid * resid, -2)
     return dist.inv_gamma(gen, prior["Alpha_sig"] + spec.K / 2.0,
                           prior["Beta_sig"] + 0.5 * rss, u=u,
-                          chain_axis=Mhat.dim() == 3)
+                          chain_axis=Mhat.dim() == 3, g=True)
 
 
 # ---------------------------------------------------------------------------
@@ -713,7 +754,7 @@ def sample_P_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict,
     operand may carry a leading chain axis C. ``u``: the gamma draw's
     uniform planes (9, K, N), or (C, 9, K, N)."""
     A, E = params["A"], params["E"]
-    rate_add = (A * E.sum(-1)).unsqueeze(-2)                  # (1, N)
+    rate_add = (A * Mesh.gsum(E, -1, Mesh.mesh_of(gen))).unsqueeze(-2)
     shape, rate = _conjugate_prior(spec, prior, "p")
     return dist.gamma(gen, shape + params["Zsum_g"], rate + rate_add, u=u,
                       chain_axis=E.dim() == 3)
@@ -727,7 +768,7 @@ def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
     rate_add = (params["A"] * P_new.sum(-2)).unsqueeze(-1)    # (N, 1)
     shape, rate = _conjugate_prior(spec, prior, "e")
     return dist.gamma(gen, shape + params["Zsum_k"], rate + rate_add, u=u,
-                      chain_axis=P_new.dim() == 3)
+                      chain_axis=P_new.dim() == 3, g=True)
 
 
 def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
@@ -736,9 +777,17 @@ def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
     (sample_params.R:253-265; updates.py:894-905), through
     ops/allocation.allocate_counts, for one chain or C (the kernel's grid
     has the chain axis); ``u``: its uniform planes, else drawn from
-    ``gen``."""
-    return allocate_counts(data, params["P"], params["A"], params["E"], u=u,
-                           gen=gen)
+    ``gen``. On a mesh the kernel runs on this rank's columns and chains,
+    counting them in the whole matrix, and Zsum_g adds the g group's
+    parts."""
+    mesh = Mesh.mesh_of(gen)
+    if mesh is None:
+        return allocate_counts(data, params["P"], params["A"], params["E"],
+                               u=u, gen=gen)
+    zg, zk = allocate_counts(data, params["P"], params["A"], params["E"],
+                             u=u, gen=gen, g0=gen.g0, G_total=gen.G,
+                             c0=gen.c0)
+    return Mesh.g_all_reduce(zg, mesh), zk
 
 
 # ---------------------------------------------------------------------------

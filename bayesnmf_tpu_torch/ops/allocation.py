@@ -60,12 +60,16 @@ def n_nodes(N: int) -> int:
     return max(n_leaves(N) - 1, 1)
 
 
-def draw_planes(gen: torch.Generator, C: int, N: int, K: int, G: int,
+def draw_planes(gen, C: int, N: int, K: int, G: int,
                 device) -> torch.Tensor:
     """Uniform planes (C, 17, n2-1, K, G) in [1.2e-38, 1), the layout of
-    the JAX kernel's interpret-mode operand."""
-    return torch.rand((C, N_PLANES, n_nodes(N), K, G), generator=gen,
-                      device=device).clamp_min_(_TINY)
+    the JAX kernel's interpret-mode operand; on a mesh (``gen`` a
+    parallel.mesh.ShardGen) this rank's chains and columns of the
+    one-process planes."""
+    from .distributions import draw
+
+    return draw(gen, (C, N_PLANES, n_nodes(N), K, G), device, 0,
+                True).clamp_min_(_TINY)
 
 
 _MASK32 = 0xFFFFFFFF
@@ -97,22 +101,26 @@ def philox4x32_10(ctr, k0, k1):
 
 
 def philox_planes(seed: torch.Tensor, C: int, N: int, K: int, G: int,
-                  rounds: int = PHILOX_ROUNDS) -> torch.Tensor:
+                  rounds: int = PHILOX_ROUNDS, g0: int = 0,
+                  G_total: int | None = None, c0: int = 0) -> torch.Tensor:
     """The uniforms the kernel's Philox mode draws for ``seed`` (an int64
     tensor of shape (1,)), as planes (C, 1 + 2 rounds, n2-1, K, G) for the
     plain version: uniform i of a node's draw is word i % 4 of the Philox
-    block with counter (cell k*G + g, node, i // 4, chain) under the key
-    (low, high) 32 bits of the seed, mapped from its low 24 bits to
-    (j + 0.5) / 2^24."""
+    block with counter (cell k*G_total + g0 + g, node, i // 4, c0 + c)
+    under the key (low, high) 32 bits of the seed, mapped from its low 24
+    bits to (j + 0.5) / 2^24. ``g0``, ``G_total`` and ``c0`` place a G
+    shard's columns and chains in the whole matrix (defaults: the whole)."""
     dev = seed.device
     i64 = dict(dtype=torch.int64, device=dev)
     nn = n_nodes(N)
     k0 = seed.reshape(()) & _MASK32
     k1 = (seed.reshape(()) >> 32) & _MASK32
     shape = (C, nn, K, G)
-    cell = torch.arange(K * G, **i64).view(1, 1, K, G).expand(shape)
+    G_total = G if G_total is None else G_total
+    cell = (torch.arange(K, **i64).view(1, 1, K, 1) * G_total + g0
+            + torch.arange(G, **i64).view(1, 1, 1, G)).expand(shape)
     node = torch.arange(nn, **i64).view(1, nn, 1, 1).expand(shape)
-    chain = torch.arange(C, **i64).view(C, 1, 1, 1).expand(shape)
+    chain = (c0 + torch.arange(C, **i64)).view(C, 1, 1, 1).expand(shape)
     n_u = 1 + 2 * rounds
     out = torch.empty((C, n_u, nn, K, G), dtype=torch.float32, device=dev)
     scale, half = const(2.0 ** -24, out), const(2.0 ** -25, out)
@@ -256,13 +264,13 @@ def allocate_counts_reference(M, P, A, E, u):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# M P A E u seed, Zsum_g Zsum_k scratch, C K N G, stream
-_ARGTYPES = [_P] * 6 + [_P] * 3 + [_I] * 4 + [_P]
+# M P A E u seed, Zsum_g Zsum_k scratch, C K N G, g0 G_total c0, stream
+_ARGTYPES = [_P] * 6 + [_P] * 3 + [_I] * 4 + [_I] * 3 + [_P]
 TILE_G = 32          # columns g per block (csrc/allocation.cu kTileG)
 ROWS = 8             # rows k per block (kRows)
 
 
-def _launch(M, P, A, E, u, seed):
+def _launch(M, P, A, E, u, seed, g0, G_total, c0):
     from ._build import load_library
 
     lib = load_library()
@@ -283,8 +291,8 @@ def _launch(M, P, A, E, u, seed):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(P.device):
         err = fn(ptr(M), ptr(P), ptr(A), ptr(E), ptr(u), ptr(seed),
-                 ptr(zg), ptr(zk), ptr(scratch), C, K, N, G,
-                 torch.cuda.current_stream().cuda_stream)
+                 ptr(zg), ptr(zk), ptr(scratch), C, K, N, G, g0, G_total,
+                 c0, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"allocate_counts kernel launch failed: "
                            f"cudaError {err}")
@@ -313,7 +321,8 @@ def _check(name, t, shape, device, dtype=torch.float32):
         raise ValueError(f"allocate_counts: {name} must be contiguous")
 
 
-def allocate_counts(M, P, A, E, u=None, seed=None, gen=None):
+def allocate_counts(M, P, A, E, u=None, seed=None, gen=None, g0: int = 0,
+                    G_total: int | None = None, c0: int = 0):
     """Draw the multinomial latent counts of every cell and return their
     marginal sums (Zsum_g (K, N), Zsum_k (N, G)); the same contract as
     bayesnmf_tpu.ops.pallas_allocation.allocate_counts_fused.
@@ -327,6 +336,13 @@ def allocate_counts(M, P, A, E, u=None, seed=None, gen=None):
     planes drawn from ``gen``, and on CUDA the kernel's Philox stream keyed
     by ``seed`` (a device int64 tensor of shape (1,)), drawn from ``gen``
     when None.
+
+    On a G shard (parallel/mesh.py) M, E and the planes are a rank's
+    columns and chains of the whole: ``g0`` is its first column, ``G_total``
+    the whole G and ``c0`` its first chain, so the Philox stream counts
+    cells and chains of the whole matrix (the defaults leave every
+    unsharded call as it was); ``gen`` a ShardGen draws the planes at the
+    whole shape and keeps the block. Zsum_g is then this shard's part.
     """
     batched = P.dim() == 3
     b = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
@@ -353,10 +369,12 @@ def allocate_counts(M, P, A, E, u=None, seed=None, gen=None):
     elif dev.type == "cuda":
         if u is None:
             if seed is None:
-                seed = torch.randint(0, 2 ** 63 - 1, (1,), generator=gen,
+                base = getattr(gen, "gen", gen)  # one seed for every rank
+                seed = torch.randint(0, 2 ** 63 - 1, (1,), generator=base,
                                      device=dev, dtype=torch.int64)
             _check("seed", seed, (1,), dev, torch.int64)
-        zg, zk = _launch(M, P, A, E, u, None if u is not None else seed)
+        zg, zk = _launch(M, P, A, E, u, None if u is not None else seed,
+                         g0, G if G_total is None else G_total, c0)
     else:
         raise ValueError(f"allocate_counts: no path for device {dev}")
     if not batched:

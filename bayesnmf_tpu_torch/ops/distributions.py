@@ -15,9 +15,29 @@ import torch
 _TINY = 1.1754944e-38  # smallest normal float32
 
 
-def _uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
+def draw(gen, shape, device, c_dim=None, g: bool = False,
+         normal: bool = False) -> torch.Tensor:
+    """``torch.rand`` (``normal``: ``torch.randn``) of ``shape`` from
+    ``gen``. On a mesh ``gen`` is a parallel.mesh.ShardGen, which draws at
+    the one-process shape and keeps this rank's block: dim ``c_dim`` is
+    then the chain axis, and with ``g`` the last dim is G."""
+    if isinstance(gen, torch.Generator) or gen is None:
+        f = torch.randn if normal else torch.rand
+        return f(shape, generator=gen, device=device)
+    return gen.draw(shape, c_dim, g, normal)
+
+
+def all_done(gen, done: torch.Tensor) -> bool:
+    """``bool(done.all())``; on a mesh over every rank that shares the
+    generator, so that all of them draw the same rounds."""
+    if isinstance(gen, torch.Generator) or gen is None:
+        return bool(done.all())
+    return gen.all_true(done)
+
+
+def _uniform(gen, shape, device, c_dim=None, g: bool = False):
     """Uniforms in [_TINY, 1), like jax.random.uniform(minval=tiny)."""
-    return torch.rand(shape, generator=gen, device=device).clamp_min_(_TINY)
+    return draw(gen, shape, device, c_dim, g).clamp_min_(_TINY)
 
 
 def _ndtr(x):
@@ -58,17 +78,20 @@ def truncnorm_nonneg(gen, mu, sigmasq):
     return truncnorm_nonneg_from_u(u[0], u[1], mu, sigmasq)
 
 
-def normal(gen, mu, sigmasq, z=None):
+def normal(gen, mu, sigmasq, z=None, chain_axis: bool = False,
+           g: bool = False):
     """Normal(mu, sigmasq) draws (sigmasq is the variance); ``z``: the
-    standard normals, else drawn from ``gen``."""
+    standard normals, else drawn from ``gen`` (on a mesh ``chain_axis``:
+    the operands' leading axis is the chain axis, ``g``: their last G)."""
     mu, sigmasq = torch.broadcast_tensors(mu, sigmasq)
     if z is None:
-        z = torch.randn(mu.shape, generator=gen, device=mu.device)
+        z = draw(gen, mu.shape, mu.device, 0 if chain_axis else None, g,
+                 normal=True)
     return mu + torch.sqrt(sigmasq) * z
 
 
 def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
-          chain_axis: bool = False):
+          chain_axis: bool = False, g: bool = False):
     """Exact Gamma(shape, rate) draws (mean = shape/rate), by Marsaglia-Tsang
     (distributions.py:83-157): ``unroll`` rounds of candidates from one
     uniform draw, then an exact rejection loop for the elements still
@@ -80,7 +103,10 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
     shape[1:], each chain's planes its own slice (a draw from ``gen`` takes
     that layout too). The rejection loop, which runs for about 1e-5 of the
     elements, draws from ``gen``. That loop reads the device to know when
-    it is done: one host wait per call, whatever C is."""
+    it is done: one host wait per call, whatever C is. On a mesh (``gen`` a
+    parallel.mesh.ShardGen; ``g``: the operands' last axis is G) every
+    round is drawn at the one-process shape and the loop runs until every
+    rank is done, so all ranks draw the same rounds."""
     a, rate = torch.broadcast_tensors(shape_param, rate)
     shape, dev = tuple(a.shape), a.device
     boost = a < 1.0
@@ -100,7 +126,7 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
     n_u = 2 * unroll + 1
     if u is None:
         u = _uniform(gen, (shape[0], n_u) + shape[1:] if chain_axis
-                     else (n_u,) + shape, dev)
+                     else (n_u,) + shape, dev, 0 if chain_axis else None, g)
     u_all = u.movedim(1, 0) if chain_axis else u
     g = torch.full(shape, float("nan"), device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -111,8 +137,8 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
     # a non-finite or non-positive shape never accepts: leave it NaN instead
     # of looping forever
     done = done | ~torch.isfinite(d) | (a <= 0.0)
-    while not bool(done.all()):
-        uv = _uniform(gen, (2,) + shape, dev)
+    while not all_done(gen, done):
+        uv = _uniform(gen, (2,) + shape, dev, 1 if chain_axis else None, g)
         gv, ok = candidate(uv[0], uv[1])
         g = torch.where(~done & ok, gv, g)
         done = done | ok
@@ -123,19 +149,19 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
     return g / rate
 
 
-def inv_gamma(gen, shape_param, rate, u=None, chain_axis: bool = False):
+def inv_gamma(gen, shape_param, rate, u=None, chain_axis: bool = False,
+              g: bool = False):
     """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma);
-    ``u`` and ``chain_axis``: the gamma draw's uniform planes, as ``gamma``
-    takes them."""
-    return 1.0 / gamma(gen, shape_param, rate, u=u,
-                       chain_axis=chain_axis).clamp_min(1e-30)
+    ``u``, ``chain_axis`` and ``g``: as ``gamma`` takes them."""
+    return 1.0 / gamma(gen, shape_param, rate, u=u, chain_axis=chain_axis,
+                       g=g).clamp_min(1e-30)
 
 
 def exponential(gen, rate, u=None):
     """Exponential(rate) draws (replaces stats::rexp): -log1p(-u) / rate,
     the form of jax.random.exponential; ``u`` uniforms in [0, 1)."""
     if u is None:
-        u = torch.rand(rate.shape, generator=gen, device=rate.device)
+        u = draw(gen, rate.shape, rate.device)
     return -torch.log1p(-u) / rate
 
 

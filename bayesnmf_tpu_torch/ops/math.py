@@ -98,10 +98,9 @@ def gamma_logpdf(x, shape, rate):
             + (shape - 1.0) * torch.log(x) - rate * x)
 
 
-def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
-    """Sum of the prior log-pdfs of P and E (utils.R:131-175; math.py:
-    129-140). With a leading chain axis on every operand, one sum per
-    chain."""
+def logprior_parts(P, E, prior: str, prior_params: dict):
+    """The prior log-pdfs of P and of E, each summed (per chain with a
+    leading chain axis): (P's, E's)."""
     if prior == "truncnormal":
         lp = truncnorm_logpdf(P, prior_params["Mu_p"],
                               prior_params["Sigmasq_p"])
@@ -113,7 +112,21 @@ def logprior_PE(P, E, prior: str, prior_params: dict) -> torch.Tensor:
     else:  # gamma
         lp = gamma_logpdf(P, prior_params["Alpha_p"], prior_params["Beta_p"])
         le = gamma_logpdf(E, prior_params["Alpha_e"], prior_params["Beta_e"])
-    return lp.sum((-2, -1)) + le.sum((-2, -1))
+    return lp.sum((-2, -1)), le.sum((-2, -1))
+
+
+def logprior_PE(P, E, prior: str, prior_params: dict,
+                mesh=None) -> torch.Tensor:
+    """Sum of the prior log-pdfs of P and E (utils.R:131-175; math.py:
+    129-140). With a leading chain axis on every operand, one sum per
+    chain. On a mesh (parallel/mesh.py) E and its prior parameters are
+    this rank's block of G, and E's sum is all-reduced over the g group."""
+    lp, le = logprior_parts(P, E, prior, prior_params)
+    if mesh is not None:
+        from ..parallel.mesh import g_all_reduce
+
+        le = g_all_reduce(le, mesh)
+    return lp + le
 
 
 def rmse(M: torch.Tensor, Mh: torch.Tensor) -> torch.Tensor:
@@ -129,14 +142,21 @@ def padded_kl(Mh: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return torch.sum(Mp * (torch.log(Mp) - torch.log(Mh)))
 
 
-def metric_constants(likelihood: str, M: torch.Tensor) -> dict:
+def metric_constants(likelihood: str, M: torch.Tensor, mesh=None) -> dict:
     """Data-only terms of the per-iteration metrics, computed once per chunk
     (math.py:157-172): the padded-KL entropy sum(Mp log Mp), and for the
-    Poisson likelihood the log-factorial sum(lgamma(M+1))."""
+    Poisson likelihood the log-factorial sum(lgamma(M+1)). On a mesh ``M``
+    is this rank's block of G, and the sums are all-reduced over the g
+    group (one all-reduce)."""
     Mp = M.clamp_min(1e-6)
     consts = {"mlogm_sum": torch.sum(Mp * torch.log(Mp))}
     if likelihood == "poisson":
         consts["lgamma_sum"] = torch.sum(torch.lgamma(M + 1.0))
+    if mesh is not None and mesh.n_g > 1:
+        from ..parallel.mesh import g_all_reduce
+
+        both = g_all_reduce(torch.stack(list(consts.values())), mesh)
+        consts = dict(zip(consts, both.unbind()))
     return consts
 
 

@@ -6,7 +6,8 @@ one chain's step, every call here updates all chains at once: the step of
 the spec's path (models/gibbs.py ``stream_step``, the fused ``gibbs_step``,
 ``eager_step`` or ``conjugate_step``) with a leading chain axis C. The
 chains share one ``torch.Generator``; each step's noise is one chain-major
-draw, chain c's its own slice.
+draw, chain c's its own slice. ``make_sharded_chain_runner`` runs them on
+a (chain, g) mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from ..config import ModelSpec
 from ..models import gibbs
 from ..ops import math as m
+from . import mesh as M
 
 
 def init_chain_states(spec: ModelSpec, hp: dict, data, gen: torch.Generator,
@@ -43,7 +45,8 @@ def run_chunk_chains(spec: ModelSpec, data, hp: dict, states: dict, temps,
     steps = len(temps)
     C = states["params"]["P"].shape[0]
     dev = data.device
-    consts = m.metric_constants(spec.likelihood, data)
+    consts = m.metric_constants(spec.likelihood, data,
+                                M.mesh_of(states["gen"]))
     step_consts = (gibbs.step_constants(spec, hp, dev, C)
                    if spec.fused_sweeps else None)
     metrics = torch.empty(C, steps, gibbs.N_METRICS, dtype=torch.float32,
@@ -61,3 +64,47 @@ def run_chunk_chains(spec: ModelSpec, data, hp: dict, states: dict, temps,
             out = gibbs.record_buffers(sample, steps, 1)
         gibbs.write_record(out, sample, i, 1)
     return states, out | {"metrics": metrics}
+
+
+def make_sharded_chain_runner(spec: ModelSpec, mesh, n_chains: int,
+                              record: str = "basic", store_E: bool = True):
+    """A chunk runner whose chains and G columns are split over ``mesh``
+    (the counterpart of the JAX package's chains.py:63-93). Returns
+    (init_fn, run_fn):
+
+      init_fn(hp, data, seed) -> this rank's block of the initial states of
+        ``n_chains`` chains (``data`` the full (K, G) matrix; every rank
+        builds the one-process states and keeps its block) with the
+        generator shared by the ranks;
+      run_fn(data, hp, states, temps, accept_all) -> (states, samples),
+        ``data`` this rank's columns (multihost.shard_data), ``accept_all``
+        the (n_chains,) flags of every chain; the records are this rank's
+        block (mesh.sample_out_layout).
+
+    Only the eager and conjugate paths partition over G: the spec must not
+    select the fused or streaming kernels."""
+    from ..models.gibbs import FUSED_MESH_ERROR, STREAM_MESH_ERROR
+
+    if spec.fused_sweeps:
+        raise ValueError(FUSED_MESH_ERROR)
+    if spec.stream_sweeps:
+        raise ValueError(STREAM_MESH_ERROR)
+    layout = M.state_layout(spec, chains=True)
+
+    def init_fn(hp, data, seed: int = 0):
+        full = torch.as_tensor(np.asarray(data, np.float32),
+                               device=mesh.device)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        states = init_chain_states(spec, hp, full, gen, n_chains)
+        out = M.local(states, layout, mesh, spec.G)
+        out["gen"] = M.ShardGen(gen, mesh, n_chains, spec.G)
+        return out
+
+    def run_fn(data, hp, states, temps, accept_all):
+        gen = states["gen"]
+        acc = torch.as_tensor(accept_all, device=mesh.device)[gen.c0:gen.c1]
+        return run_chunk_chains(spec, data, hp, states, temps, acc,
+                                store_E=store_E, record=record)
+
+    return init_fn, run_fn

@@ -23,8 +23,15 @@ host copy of every chunk (the archive), which a chain's view reads for
 windows older than the retained ones and for the label-switching plot.
 Each chain's view (``chain(c)``) has the single-chain sampler's surface.
 
-Not ported yet (raises NotImplementedError; ROADMAP.md queue 1 item 9):
-``mesh``.
+``mesh`` (parallel/mesh.py, one process per rank) splits the chain axis
+over the mesh's chain axis and G over its g axis; the eager and conjugate
+steps run on each rank's block (the fused and streaming kernels are
+refused, as the JAX package refuses them) and give the chains of the
+one-process ensemble of the same seed. At each chunk boundary the chunk's
+records and metrics rows of every chain are gathered, so the trackers,
+windows, MAPs, ``bic_table`` and ``diagnostics`` are whole and alike on
+every rank; compaction keeps a multiple of the chain axis (padded with
+finished chains), gathering the state and splitting it anew.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..models.sampler import host_tree, resolve_device, stack_history
 from ..models.sampler import summarize_history
 from ..utils.logging import RunLogger
 from . import chains as chains_mod
+from . import mesh as Mesh
 
 #: Smallest G at which ``stream_sweeps=None`` picks the streaming kernels on
 #: CUDA. Copied from the JAX package (ensemble.py:58-62), where it was
@@ -54,9 +62,6 @@ from . import chains as chains_mod
 #: H100 crossover against the port's other paths is not measured yet
 #: (ROADMAP.md queue 1 item 1).
 _STREAM_SWEEPS_MIN_G = 2000
-
-_ROADMAP = "not ported yet (see ROADMAP.md queue 1 item 9)"
-
 
 def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
                         device: torch.device) -> bool:
@@ -212,7 +217,8 @@ class _ChainView:
 
     @property
     def data(self):
-        return self._ens.data
+        """The whole data matrix on the ensemble's device."""
+        return self._ens.full_data
 
     @property
     def output_dir(self):
@@ -325,7 +331,7 @@ class _ChainView:
         s = self._live_slot()
         if s is not None:
             return {k: _host(v[s])
-                    for k, v in self._ens.states[group].items()}
+                    for k, v in self._ens.whole_states()[group].items()}
         fin = self._ens._final_windows.get(self.chain)
         if fin is None:
             raise ValueError(
@@ -428,9 +434,14 @@ class ChainEnsemble:
         if record_history not in ("basic", "full"):
             raise ValueError("record_history must be 'basic' or 'full'")
         if mesh is not None:
-            raise NotImplementedError(f"mesh-sharded ensembles are {_ROADMAP}")
+            if fused_sweeps:
+                raise ValueError(gibbs.FUSED_MESH_ERROR)
+            if stream_sweeps:
+                raise ValueError(gibbs.STREAM_MESH_ERROR)
+            Mesh.chain_block(n_chains, mesh)  # a multiple of the chain axis
+        self.mesh = mesh
         self.record = record_history
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
         self.row_names = None
         self.col_names = None
         if hasattr(data, "index") and hasattr(data, "columns"):
@@ -451,11 +462,12 @@ class ChainEnsemble:
                 likelihood, prior, MH, mesh, fused_sweeps, data.shape[1],
                 self.device)
         if fused_sweeps is None:
-            # the fused kernel for Poisson MH when not streaming, as the
-            # single-chain sampler resolves it (models/sampler.py); the JAX
-            # package's default (the XLA path) was measured on a TPU
+            # the fused kernel for Poisson MH when not streaming and off a
+            # mesh, as the single-chain sampler resolves it
+            # (models/sampler.py); the JAX package's default (the XLA path)
+            # was measured on a TPU
             fused_sweeps = (likelihood == "poisson" and bool(MH)
-                            and not stream_sweeps)
+                            and not stream_sweeps and mesh is None)
         self.spec = ModelSpec(
             K=data.shape[0], N=N, G=data.shape[1], likelihood=likelihood,
             prior=prior, MH=MH, learning_rank=learning_rank,
@@ -487,8 +499,8 @@ class ChainEnsemble:
         self.want_ci = want_ci
         self.compact = compact
 
-        self.output_dir = _resolve_output_dir(output_dir, overwrite)
-        self.logger = RunLogger(self.output_dir, verbosity)
+        self.output_dir = _resolve_output_dir(output_dir, overwrite, mesh)
+        self.logger = RunLogger(self.output_dir, verbosity, mesh=mesh)
         path = ("stream" if self.spec.stream_sweeps else "fused"
                 if self.spec.fused_sweeps else "conjugate"
                 if self.spec.needs_Z else "eager")
@@ -497,7 +509,9 @@ class ChainEnsemble:
             f"{likelihood}, prior = {prior}, MH = {MH}, rank "
             f"{'learned (' + rank_method + ')' if learning_rank else N}"
             f"{', per-chain masks' if A_masks is not None else ''}, "
-            f"path = {path}, device = {self.device}", 1)
+            f"path = {path}, device = {self.device}"
+            + (f", mesh = {mesh.n_chain}x{mesh.n_g} (chain x g)"
+               if mesh is not None else ""), 1)
 
         n_iters = self.cc.maxiters + self.post_warmup
         rng = np.random.default_rng(seed)
@@ -520,10 +534,13 @@ class ChainEnsemble:
                 self.hp.setdefault(k, ipp.pop(k, 3.0))
             init_prior_params = ipp
         self._data_np = data
+        self._full_data = None
         self.data = torch.as_tensor(data, device=self.device)
         self._slots = np.arange(n_chains)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        # on a mesh every rank builds the one-process initial states and
+        # keeps its block
         self.states = chains_mod.init_chain_states(
             self.spec, self.hp, self.data, gen, n_chains, init_params,
             init_prior_params)
@@ -533,6 +550,13 @@ class ChainEnsemble:
             masks = torch.as_tensor(self.A_masks, device=self.device)
             self.states["params"]["A"] = masks
             self.states["params"]["R"] = masks.sum(1).to(torch.int32)
+        if mesh is not None:
+            self.data = Mesh.local(self.data, (None, Mesh.G_AXIS), mesh,
+                                   self.spec.G)
+            self.states = Mesh.local(self.states, self._state_layout(),
+                                     mesh, self.spec.G)
+            self.states["gen"] = Mesh.ShardGen(gen, mesh, n_chains,
+                                               self.spec.G)
 
         self.tracker = VectorConvergenceTracker(self.cc, n_chains)
         self.iter = 1
@@ -555,16 +579,45 @@ class ChainEnsemble:
 
     # ------------------------------------------------------------------
 
+    def _state_layout(self):
+        return Mesh.state_layout(self.spec, chains=True)
+
+    @property
+    def full_data(self):
+        """The whole data matrix on this rank's device (the ensemble's
+        ``data`` is its columns on a mesh)."""
+        if self.mesh is None:
+            return self.data
+        if self._full_data is None:
+            self._full_data = torch.as_tensor(self._data_np,
+                                              device=self.device)
+        return self._full_data
+
+    def whole_states(self) -> dict:
+        """The resident chains' whole state (gathered on a mesh; every rank
+        takes part)."""
+        if self.mesh is None:
+            return self.states
+        return Mesh.gather(self.states, self._state_layout(), self.mesh,
+                           self.spec.G)
+
     def _accept_all_vec(self):
-        return torch.as_tensor(
-            (self.spec.MH & ~self.tracker.converged)[self._slots],
-            device=self.device)
+        acc = (self.spec.MH & ~self.tracker.converged)[self._slots]
+        if self.mesh is not None:
+            gen = self.states["gen"]
+            acc = acc[gen.c0:gen.c1]
+        return torch.as_tensor(acc, device=self.device)
 
     def _run_chunk(self, steps: int):
         temps = self.temp_sched[self.iter + 1: self.iter + steps + 1]
         self.states, samples = chains_mod.run_chunk_chains(
             self.spec, self.data, self.hp, self.states, temps,
             self._accept_all_vec(), store_E=self.store_E, record=self.record)
+        if self.mesh is not None:
+            # every chain's records and metrics rows, whole, on every rank
+            samples = Mesh.gather(samples, Mesh.sample_out_layout(
+                self.spec, chains=True, record=self.record,
+                store_E=self.store_E), self.mesh, self.spec.G)
         chunk = {k: v for k, v in samples.items() if k != "metrics"}
         chunk["start_iter"] = self.iter + 1
         chunk["chain_ids"] = self._slots.copy()
@@ -605,6 +658,9 @@ class ChainEnsemble:
             self.temp_sched[max(self.iter - self.cc.MAP_over, 1):
                             self.iter + 1] == 1.0))
         newly = self.tracker.update(vals, self.iter, temps_all_one)
+        # every rank decides from the same gathered rows
+        Mesh.check_same(self.tracker.converged, self.mesh,
+                        "the chains' convergence decisions")
         self._end_iter[newly] = self.iter + self.post_warmup
         for c in np.nonzero(newly)[0]:
             self.logger.log(
@@ -698,10 +754,29 @@ class ChainEnsemble:
         keep = np.nonzero(~finished[self._slots])[0]
         if keep.size == 0 or keep.size == self._slots.size:
             return
+        if self.mesh is not None:
+            # the chain axis stays split: keep a multiple of it, padded
+            # with finished chains (JAX ensemble.py:791-816)
+            n = self.mesh.n_chain
+            size = n * -(-keep.size // n)
+            if size >= self._slots.size:
+                return
+            pad = np.nonzero(finished[self._slots])[0][:size - keep.size]
+            keep = np.sort(np.concatenate([keep, pad]))
         # every tensor of the state: P, E, A, R, the latent counts' sums,
-        # sigmasq, the prior's parameters and the acceptance records
-        self.states = _select(self.states,
-                              torch.as_tensor(keep, device=self.device))
+        # sigmasq, the prior's parameters and the acceptance records; on a
+        # mesh gathered, selected and split anew, so chains move between
+        # ranks exactly
+        idx = torch.as_tensor(keep, device=self.device)
+        if self.mesh is None:
+            self.states = _select(self.states, idx)
+        else:
+            gen = self.states["gen"]
+            whole = _select(self.whole_states(), idx)
+            self.states = Mesh.local(whole, self._state_layout(), self.mesh,
+                                     self.spec.G)
+            gen.set_chains(keep.size)
+            self.states["gen"] = gen
         self._slots = self._slots[keep]
         self.logger.log(
             f"compacted ensemble to {self._slots.size} resident chains", 1)
@@ -757,11 +832,12 @@ class ChainEnsemble:
         return path
 
     @classmethod
-    def load(cls, path: str):
-        """Resume from a checkpoint, on the device it was saved from."""
+    def load(cls, path: str, mesh=None, device=None):
+        """Resume from a checkpoint: on the device it was saved from, on
+        ``device``, or split over ``mesh`` (as GibbsSampler.load)."""
         from ..utils.checkpoint import load_ensemble
 
-        return load_ensemble(cls, path)
+        return load_ensemble(cls, path, mesh=mesh, device=device)
 
     # ------------------------------------------------------------------
     # results

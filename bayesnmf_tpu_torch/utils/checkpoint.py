@@ -7,6 +7,18 @@ recording flag, the sample window and the archive (save_all_samples), all
 as host numpy, so the chains continue bit-exactly from where they
 stopped. A checkpoint pickles this package's classes
 (``bayesnmf_tpu_torch.config.ModelSpec`` among them).
+
+A checkpoint does not record a mesh (parallel/mesh.py): on a mesh every
+rank takes part in gathering the state and the root rank writes the
+one-process format; ``load_*(path, mesh=...)`` has every rank read the
+file and keep its block, with the generator's state, which is alike on
+every rank. A checkpoint loaded on a device of another type than the one
+it was saved from (``device=``) carries the state, records and trackers
+over exactly, but the generator restarts, seeded from (seed, iteration),
+and the log says so: torch's CPU generator (MT19937) and CUDA generator
+(Philox) cannot take each other's state, so a bit-exact resume holds on
+the saved device type only. A CUDA checkpoint loaded on another card
+keeps its stream.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from .logging import RunLogger
 from ..models.convergence import ConvergenceTracker
 from ..models.sampler import host_tree
 from ..models.state import state_from_numpy, state_to_numpy
+from ..parallel import mesh as Mesh
 
 
 def _device_chunk(chunk: dict, device) -> dict:
@@ -36,7 +49,48 @@ def _device_chunk(chunk: dict, device) -> dict:
             for k, v in chunk.items()}
 
 
+def restart_seed(seed: int, it: int) -> int:
+    """The seed of a generator restarted at iteration ``it`` of a run
+    seeded ``seed`` (a resume on another device type)."""
+    return (int(seed) * 1_000_003 + int(it)) % (2 ** 63)
+
+
+def _generator(gen_state, saved: str, device: torch.device, seed: int,
+               it: int, logger: RunLogger) -> torch.Generator:
+    """The run's generator on ``device``: the saved state on the saved
+    device type, else a generator seeded from (seed, iteration)."""
+    gen = torch.Generator(device=device)
+    if torch.device(saved).type == device.type:
+        gen.set_state(torch.from_numpy(np.asarray(gen_state)))
+        return gen
+    gen.manual_seed(restart_seed(seed, it))
+    logger.log(f"resumed on {device} from a checkpoint saved on {saved}: "
+               f"the state carries over exactly; the generator restarts "
+               f"at iteration {it} with seed {restart_seed(seed, it)} "
+               "(a bit-exact resume holds on the saved device type only)",
+               0)
+    return gen
+
+
+def _target_device(saved: str, device, mesh) -> torch.device:
+    from ..models.sampler import resolve_device
+
+    if mesh is not None:
+        return resolve_device(device or mesh.device.type, mesh)
+    return resolve_device(device or saved)
+
+
 def save_sampler(sampler, path: str):
+    """Checkpoint a GibbsSampler; on a mesh every rank calls it (the state
+    is gathered) and the root rank writes."""
+    mesh = getattr(sampler, "mesh", None)
+    state = sampler.state
+    if mesh is not None:
+        state = Mesh.gather(state, Mesh.state_layout(sampler.spec,
+                                                     chains=False),
+                            mesh, sampler.spec.G)
+        if not mesh.is_root:
+            return
     payload = {
         "version": 1,
         "spec": sampler.spec,
@@ -46,9 +100,9 @@ def save_sampler(sampler, path: str):
         "post_warmup": sampler.post_warmup,
         "temp_sched": sampler.temp_sched,
         "hyperprior_params": dict(sampler.hyperprior_params),
-        "data": sampler.data.cpu().numpy(),
+        "data": sampler._data_np,
         "device": str(sampler.device),
-        "state": state_to_numpy(sampler.state),
+        "state": state_to_numpy(state),
         "gen_state": sampler.state["gen"].get_state().numpy(),
         "iter": sampler.iter,
         "tracker": sampler.tracker.to_dict(),
@@ -67,16 +121,15 @@ def save_sampler(sampler, path: str):
         pickle.dump(payload, fh, protocol=4)
 
 
-def load_sampler(cls, path: str):
-    """Rebuild a sampler from ``path`` on the device it was saved from (the
-    generator state belongs to that device). Load only checkpoints this
-    program wrote: unpickling runs code."""
-    from ..models.sampler import resolve_device
-
+def load_sampler(cls, path: str, mesh=None, device=None):
+    """Rebuild a sampler from ``path`` on the device it was saved from, on
+    ``device``, or split over ``mesh`` (see the module's docstring). Load
+    only checkpoints this program wrote: unpickling runs code."""
     with open(path, "rb") as fh:
         p = pickle.load(fh)
     obj = cls.__new__(cls)
-    obj.device = resolve_device(p["device"])
+    obj.device = _target_device(p["device"], device, mesh)
+    obj.mesh = mesh
     obj.spec = p["spec"]
     obj.cc = p["cc"]
     obj.run_cfg = p["run_cfg"]
@@ -84,9 +137,22 @@ def load_sampler(cls, path: str):
     obj.post_warmup = p["post_warmup"]
     obj.temp_sched = p["temp_sched"]
     obj.hyperprior_params = p["hyperprior_params"]
+    obj._data_np = p["data"]
     obj.data = torch.as_tensor(p["data"], device=obj.device)
     obj.state = state_from_numpy(p["state"], obj.device)
-    obj.state["gen"].set_state(torch.from_numpy(p["gen_state"]))
+    obj.output_dir = p["output_dir"]
+    # resumed runs keep logging to the original output dir (append)
+    obj.logger = RunLogger(obj.output_dir, obj.run_cfg.verbosity, mode="a",
+                           mesh=mesh)
+    gen = _generator(p["gen_state"], p["device"], obj.device,
+                     obj.run_cfg.seed, p["iter"], obj.logger)
+    if mesh is not None:
+        G = obj.spec.G
+        obj.data = Mesh.local(obj.data, (None, Mesh.G_AXIS), mesh, G)
+        obj.state = Mesh.local(obj.state, Mesh.state_layout(
+            obj.spec, chains=False), mesh, G)
+        gen = Mesh.ShardGen(gen, mesh, 1, G, split_chains=False)
+    obj.state["gen"] = gen
     obj.iter = p["iter"]
     obj.tracker = ConvergenceTracker(obj.cc)
     obj.tracker.restore(p["tracker"])
@@ -102,9 +168,6 @@ def load_sampler(cls, path: str):
     obj.MAP = p["MAP"]
     obj.credible_intervals = (
         obj.MAP.get("credible_intervals") if obj.MAP else None)
-    obj.output_dir = p["output_dir"]
-    # resumed runs keep logging to the original output dir (append)
-    obj.logger = RunLogger(obj.output_dir, obj.run_cfg.verbosity, mode="a")
     obj.reference_comparison = {}
     obj.row_names = p["row_names"]
     obj.col_names = p["col_names"]
@@ -128,7 +191,15 @@ def save_ensemble(ens, path: str):
     finalised chains and the per-chain inclusion masks, all as host numpy
     (checkpoint.py:55-102); the spec names the path
     (fused, eager, conjugate or streaming). Every chain continues
-    bit-exactly."""
+    bit-exactly. On a mesh every rank calls it (the state is gathered) and
+    the root rank writes."""
+    mesh = getattr(ens, "mesh", None)
+    states = ens.states
+    if mesh is not None:
+        states = Mesh.gather(states, Mesh.state_layout(ens.spec, chains=True),
+                             mesh, ens.spec.G)
+        if not mesh.is_root:
+            return
     payload = {
         "version": 1,
         "kind": "ensemble",
@@ -145,7 +216,7 @@ def save_ensemble(ens, path: str):
         "hp": dict(ens.hp),
         "data": ens._data_np,
         "device": str(ens.device),
-        "states": _chain_state_to_numpy(ens.states),
+        "states": _chain_state_to_numpy(states),
         "gen_state": ens.states["gen"].get_state().numpy(),
         "iter": ens.iter,
         "tracker_vec": ens.tracker.to_dict(),
@@ -170,16 +241,18 @@ def save_ensemble(ens, path: str):
         pickle.dump(payload, fh, protocol=4)
 
 
-def load_ensemble(cls, path: str):
+def load_ensemble(cls, path: str, mesh=None, device=None):
     """Rebuild a ChainEnsemble from ``path`` on the device it was saved
-    from. Load only checkpoints this program wrote: unpickling runs code."""
+    from, on ``device``, or split over ``mesh`` (see the module's
+    docstring). Load only checkpoints this program wrote: unpickling runs
+    code."""
     from ..models.convergence import VectorConvergenceTracker
-    from ..models.sampler import resolve_device
 
     with open(path, "rb") as fh:
         p = pickle.load(fh)
     obj = cls.__new__(cls)
-    obj.device = dev = resolve_device(p["device"])
+    obj.device = dev = _target_device(p["device"], device, mesh)
+    obj.mesh = mesh
     for k in ("spec", "cc", "n_chains", "post_warmup", "store_E", "seed",
               "periodic_save", "want_ci", "compact", "temp_sched", "hp",
               "iter", "time", "output_dir", "row_names", "col_names",
@@ -188,15 +261,25 @@ def load_ensemble(cls, path: str):
     obj.record = p.get("record", "basic")
     obj._archive = p.get("archive")
     obj._data_np = p["data"]
+    obj._full_data = None
     obj.data = torch.as_tensor(p["data"], device=dev)
     st = p["states"]
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    gen = torch.Generator(device=dev)
-    gen.set_state(torch.from_numpy(p["gen_state"]))
+    # resumed runs keep logging to the original output dir (append)
+    obj.logger = RunLogger(obj.output_dir, 1, mode="a", mesh=mesh)
+    gen = _generator(p["gen_state"], p["device"], dev, obj.seed, p["iter"],
+                     obj.logger)
     obj.states = {"params": {k: t(v) for k, v in st["params"].items()},
                   "prior": {k: t(v) for k, v in st["prior"].items()},
-                  "iter": st["iter"], "gen": gen}
+                  "iter": st["iter"]}
     obj.states |= {k: t(st[k]) for k in ("acc_P", "acc_E") if k in st}
+    if mesh is not None:
+        G = obj.spec.G
+        obj.data = Mesh.local(obj.data, (None, Mesh.G_AXIS), mesh, G)
+        obj.states = Mesh.local(obj.states, Mesh.state_layout(
+            obj.spec, chains=True), mesh, G)
+        gen = Mesh.ShardGen(gen, mesh, len(p["slots"]), G)
+    obj.states["gen"] = gen
     obj.tracker = VectorConvergenceTracker(obj.cc, obj.n_chains)
     obj.tracker.restore(p["tracker_vec"])
     obj._end_iter = p["end_iter"]
@@ -208,6 +291,4 @@ def load_ensemble(cls, path: str):
     obj._MAP_metrics_per_chain = p["MAP_metrics_per_chain"]
     obj._chain_iters = p["chain_iters"]
     obj._reference_comparisons = {}
-    # resumed runs keep logging to the original output dir (append)
-    obj.logger = RunLogger(obj.output_dir, 1, mode="a")
     return obj

@@ -15,12 +15,15 @@ from typing import Optional
 
 class RunLogger:
     def __init__(self, output_dir: Optional[str], verbosity: int = 1,
-                 mode: str = "w"):
+                 mode: str = "w", mesh=None):
         """``mode='a'`` appends, so a run resumed from a checkpoint keeps
-        writing to the original log.txt."""
+        writing to the original log.txt. On a mesh (parallel/mesh.py) only
+        the root rank writes; the other ranks are silent."""
         self.verbosity = verbosity
         self.indent = 0
         self._fh: Optional[io.TextIOBase] = None
+        if mesh is not None and not mesh.is_root:
+            output_dir = None
         if output_dir is not None:
             os.makedirs(output_dir, exist_ok=True)
             self._fh = open(os.path.join(output_dir, "log.txt"), mode)

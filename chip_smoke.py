@@ -149,7 +149,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    stream ensemble of 8 chains for 200 iterations beside 'basic' (launches
    per iteration unchanged, acceptance entries in [0, 1], peak device
    memory, chain-it/s), and on config 2's fused fit beside phase 4's
-   it/s, whose final checkpoint resumes bit-exactly with its archive.
+   it/s, whose final checkpoint resumes bit-exactly with its archive;
+11. distributed runs (``mesh``): (a) the allocation kernel on each G shard
+   (96,8,1390) of the 96x2780 matrix: in planes mode equal to its plain
+   version on that slice of the whole planes, in Philox mode the shards'
+   Zsum_k side by side equal to the one-process kernel's bit for bit and
+   their Zsum_g adding to its Zsum_g exactly, and equal to the plain
+   version on ``philox_planes`` with the shard's offsets; timed, with its
+   bound; (b) a world-1 NCCL mesh (``global_mesh(1, 1)``): a conjugate
+   Poisson-Exponential fit at 96x2780, rank 8, 50 iterations, bit-identical
+   to the run without a mesh; (c) two processes on the one card over gloo
+   (``python3 chip_smoke.py --mesh-worker ...``, each under a hard time
+   limit, a failure of either failing the script): 1x2 G-split conjugate
+   Poisson-Exponential and Poisson-Gamma at 96x2780, rank 8, 20 steps, and
+   a 1x2 eager Poisson-TruncNormal MH at 96x500, rank 8, 10 steps, against
+   the one-process card run of the same seed (loglik and log-posterior
+   within rtol 1e-4 every step; P bit-identical on the two ranks; the
+   differing latent counts and MH decisions printed: a count or decision
+   whose draw falls within the float rounding of the split moves a
+   chain's later draws); a 2x1 chain-split conjugate ensemble of 8 chains
+   at 96x2780, one chunk of 10, bit-identical to the one-process ensemble;
+   (d) a checkpoint saved on the 1x2 mesh loads in one process and
+   continues as the mesh did, and a card checkpoint loads with
+   device="cpu" (the state equal, the generator restarted); (e) the
+   conjugate loop's it/s at 96x2780 in one process and on the 1x2 mesh of
+   the one card, with the all-reduces per iteration: the cost of gloo's
+   host copies on one card, not a scaling figure.
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -2871,7 +2896,504 @@ def run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate):
           f"on {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: distributed runs
+# ---------------------------------------------------------------------------
+
+MESH_K, MESH_N, MESH_G = 96, 8, 2780     # config 4's shape
+MESH_EAGER_G, MESH_STEPS, MESH_EAGER_STEPS = 500, 20, 10
+MESH_CHAINS, MESH_CHUNK = 8, 10
+MESH_WORKER_TIMEOUT = 240
+MESH_SEEDS = {"exponential": 11, "gamma": 12, "eager": 13, "ensemble": 14,
+              "resume": 15}
+
+
+def mesh_data(G, seed=0):
+    return synthetic(MESH_K, G, MESH_N, seed)[0]
+
+
+def mesh_sampler(bt, case, mesh=None, device="cuda"):
+    """The sampler of a phase 11 case, on ``mesh`` or in one process."""
+    if case == "eager":
+        return bt.GibbsSampler(mesh_data(MESH_EAGER_G), MESH_N, MH=True,
+                               prior="truncnormal", fused_sweeps=False,
+                               seed=MESH_SEEDS[case], mesh=mesh,
+                               device=device)
+    G = MESH_EAGER_G if case == "resume" else MESH_G
+    prior = "gamma" if case == "gamma" else "exponential"
+    return bt.GibbsSampler(mesh_data(G), MESH_N, MH=False, prior=prior,
+                           seed=MESH_SEEDS[case], mesh=mesh, device=device)
+
+
+def mesh_ensemble(bt, mesh=None):
+    return bt.ChainEnsemble(mesh_data(MESH_G), MESH_N, n_chains=MESH_CHAINS,
+                            MH=False, prior="exponential",
+                            seed=MESH_SEEDS["ensemble"], mesh=mesh,
+                            device="cuda")
+
+
+def mesh_steps(torch, gibbs, s, n):
+    """``n`` steps from the sampler's state, past warmup: (records,
+    seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.state, rec = gibbs.run_chunk(s.spec, s.data, s.hyperprior_params,
+                                   s.state, np.ones(n, np.float32), False)
+    torch.cuda.synchronize()
+    return rec, time.perf_counter() - t0
+
+
+def mesh_worker(args) -> int:
+    """One rank of phase 11 (c)-(e): ``--mesh-worker rank world port
+    n_chain n_g out_dir``. Writes its results to out_dir/rank<r>.npz."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, n_chain, n_g = (int(a) for a in args[:5])
+    out_dir = args[5]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import bayesnmf_tpu_torch as bt
+    from bayesnmf_tpu_torch.models import gibbs
+    from bayesnmf_tpu_torch.ops import _build
+    from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.parallel import mesh as M
+    from bayesnmf_tpu_torch.parallel import multihost as MH
+
+    _build.load_library()   # built by the parent: loaded, not rebuilt
+    MH.initialize(f"127.0.0.1:{port}", world, rank)
+    check(dist.get_backend() == "gloo",
+          "two ranks on one card must run over gloo")
+    mesh = M.make_mesh(n_chain, n_g, device="cuda")
+    n_reduce = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        n_reduce[0] += 1
+        return all_reduce(*a, **k)
+
+    dist.all_reduce = counted
+    out = {}
+    if (n_chain, n_g) == (1, 2):
+        for case in ("exponential", "gamma", "eager"):
+            n = MESH_EAGER_STEPS if case == "eager" else MESH_STEPS
+            if case != "eager":
+                mesh_steps(torch, gibbs, mesh_sampler(bt, case, mesh), 2)
+            # the timed run: n steps in one chunk
+            s = mesh_sampler(bt, case, mesh)
+            AL.allocate_counts.launches = 0
+            n_reduce[0] = 0
+            rec, secs = mesh_steps(torch, gibbs, s, n)
+            out[f"{case}/launches"] = AL.allocate_counts.launches
+            out[f"{case}/all_reduces"] = n_reduce[0]
+            out[f"{case}/seconds"] = secs
+            out[f"{case}/metrics"] = rec["metrics"].cpu().numpy()
+            out[f"{case}/P_local"] = rec["P"].cpu().numpy()
+            # the same run step by step: each step's whole state and the
+            # generator's state before it (alike on every rank)
+            s = mesh_sampler(bt, case, mesh)
+            for i in range(n + 1):
+                save_whole_state(out, f"{case}/step{i}/", s.state, mesh,
+                                 s.spec, chains=False)
+                if i < n:
+                    s.state, _ = gibbs.run_chunk(
+                        s.spec, s.data, s.hyperprior_params, s.state,
+                        np.ones(1, np.float32), False)
+        # (d) save on the mesh, then continue as the parent will
+        s = mesh_sampler(bt, "resume", mesh)
+        s._run_chunk(10, False)
+        s.save_object(os.path.join(out_dir, "mesh.ckpt"))
+        s._run_chunk(5, False)
+        out["resume/metrics"] = s.sample_metrics.to_numpy()
+    else:
+        from bayesnmf_tpu_torch.parallel import chains as CH
+
+        e = mesh_ensemble(bt, mesh)
+        AL.allocate_counts.launches = 0
+        e._run_chunk(MESH_CHUNK)
+        out["ensemble/launches"] = AL.allocate_counts.launches
+        out["ensemble/metrics"] = e._metrics_all()
+        # the same chunk step by step, each step's whole states saved
+        e = mesh_ensemble(bt, mesh)
+        for i in range(MESH_CHUNK + 1):
+            save_whole_state(out, f"ensemble/step{i}/", e.states, mesh,
+                             e.spec, chains=True)
+            if i < MESH_CHUNK:
+                e.states, _ = CH.run_chunk_chains(
+                    e.spec, e.data, e.hp, e.states, np.ones(1, np.float32),
+                    e._accept_all_vec())
+    out["imports_jax"] = ("jax" in sys.modules
+                          or "bayesnmf_tpu" in sys.modules)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def save_whole_state(out, prefix, state, mesh, spec, chains):
+    """A mesh state gathered whole into ``out`` under ``prefix`` (params/,
+    prior/, acc_P, acc_E), with its generator's state and iteration (alike
+    on every rank)."""
+    from bayesnmf_tpu_torch.parallel import mesh as M
+
+    layout = M.state_layout(spec, chains=chains)
+    whole = M.gather({k: state[k] for k in layout}, layout, mesh, spec.G)
+    for grp, v in whole.items():
+        if isinstance(v, dict):
+            for k, x in v.items():
+                out[f"{prefix}{grp}/{k}"] = x.cpu().numpy()
+        else:
+            out[prefix + grp] = v.cpu().numpy()
+    out[prefix + "gen"] = state["gen"].get_state().numpy()
+    out[prefix + "iter"] = state["iter"]
+
+
+def spawn_mesh(n_chain, n_g, out_dir):
+    """Run phase 11's worker on n_chain x n_g processes; every rank's npz.
+    A rank that fails or outlives MESH_WORKER_TIMEOUT fails the script,
+    with every rank's output printed."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    world = n_chain * n_g
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--mesh-worker", str(r), str(world),
+         str(port), str(n_chain), str(n_g), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(here)) for r in range(world)]
+    logs, failed = [], False
+    for r, p in enumerate(procs):
+        try:
+            log, _ = p.communicate(timeout=MESH_WORKER_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log, _ = p.communicate()
+            log += f"\n(killed after {MESH_WORKER_TIMEOUT} s)"
+        failed |= p.returncode != 0
+        logs.append(f"--- mesh rank {r} (rc {p.returncode}) ---\n{log}")
+    if failed:
+        print("\n".join(logs), flush=True)
+    check(not failed, f"a {n_chain}x{n_g} mesh worker failed")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+             for r in range(world)]
+    check(not any(bool(r["imports_jax"]) for r in ranks),
+          "a mesh worker imported jax or the JAX package")
+    return ranks
+
+
+def compare_shard_allocation(torch, AL, card):
+    """Phase 11 (a): the allocation kernel on the two G shards of the
+    96x2780 matrix. Returns the kernel row's numbers."""
+    K, N, G, C = MESH_K, MESH_N, MESH_G, 1
+    t = to_card(torch, alloc_inputs(K, N, G, C, 1101))
+    # a batch of one chain, as the conjugate step hands it over
+    M, P, A, E = t["M"], t["P"][None], t["A"][None], t["E"][None]
+    halves = ((0, G // 2), (G // 2, G))
+
+    def shard(g0, g1):
+        return (M[:, g0:g1].contiguous(), P, A, E[..., g0:g1].contiguous())
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    u = AL.draw_planes(gen, C, N, K, G, "cuda")
+    err = 0.0
+    for g0, g1 in halves:
+        args = shard(g0, g1)
+        uu = u[..., g0:g1].contiguous()
+        got = AL.allocate_counts(*args, u=uu, g0=g0, G_total=G)
+        want = AL.allocate_counts_reference(*args, uu)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"allocation shard [{g0}, {g1}) differs from its plain "
+              "version on the slice of the planes")
+    seed = torch.tensor([20261017], dtype=torch.int64, device="cuda")
+    zg, zk = AL.allocate_counts(M, P, A, E, seed=seed)
+    parts = []
+    for g0, g1 in halves:
+        args = shard(g0, g1)
+        pg, pk = AL.allocate_counts(*args, seed=seed, g0=g0, G_total=G)
+        plain = AL.allocate_counts_reference(*args, AL.philox_planes(
+            seed, C, N, K, g1 - g0, g0=g0, G_total=G))
+        err = max(err, max(float((a - b).abs().max())
+                           for a, b in zip((pg, pk), plain)))
+        check(err == 0.0, f"allocation shard [{g0}, {g1}) in Philox mode "
+              "differs from its plain version")
+        parts.append((pg, pk))
+    check(torch.equal(torch.cat([p[1] for p in parts], -1), zk),
+          "the shards' Zsum_k side by side differ from the whole kernel's")
+    check(torch.equal(parts[0][0] + parts[1][0], zg),
+          "the shards' Zsum_g do not add to the whole kernel's")
+    args = shard(0, G // 2)
+
+    def kernel():
+        return AL.allocate_counts(*args, seed=seed, g0=0, G_total=G)
+
+    planes = AL.philox_planes(seed, C, N, K, G // 2, g0=0, G_total=G)
+
+    def plain():
+        return AL.allocate_counts_reference(*args, planes)
+
+    ms, wrapped = kernel_ms(torch, kernel, 50)
+    plain_ms = time_ms(torch, plain, 3)
+    splits = count_splits(AL, torch, plain)
+    b_ms, b_by = alloc_bound(K, N, G // 2, C, splits, planes=False)
+    print(f"phase 11 allocation on a G shard (K,N,G)=({K},{N},{G // 2}) of "
+          f"{G}: planes and Philox modes equal to the plain version, the two "
+          "shards equal to the whole kernel (Zsum_k side by side, Zsum_g "
+          f"added); kernel {ms:.4f} ms on the device ({wrapped:.4f} ms per "
+          f"call through the wrapper), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}), on {card}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def world_one_mesh(torch, bt, card):
+    """Phase 11 (b): a conjugate fit on a world-1 NCCL mesh, bit-identical
+    to the fit without a mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from bayesnmf_tpu_torch.parallel import multihost as MH
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    MH.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", "a world-1 mesh on the card "
+              "should pick NCCL")
+        cc = bt.ConvergenceControl(MAP_over=25, MAP_every=25, miniters=50,
+                                   maxiters=50)
+        kw = dict(MH=False, prior="exponential", seed=21, device="cuda",
+                  convergence_control=cc)
+        data = mesh_data(MESH_G)
+        t0 = time.perf_counter()
+        b = bt.GibbsSampler(data, MESH_N, **kw).run_gibbs_sampler()
+        t1 = time.perf_counter()
+        a = bt.GibbsSampler(data, MESH_N, mesh=MH.global_mesh(1, 1),
+                            **kw).run_gibbs_sampler()
+        t2 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    check(np.array_equal(a.sample_metrics.to_numpy(),
+                         b.sample_metrics.to_numpy()),
+          "the world-1 mesh fit's metrics differ from the fit without one")
+    check(all(torch.equal(a.state["params"][k], b.state["params"][k])
+              for k in b.state["params"]),
+          "the world-1 mesh fit's state differs from the fit without one")
+    print(f"phase 11 world-1 NCCL mesh: conjugate Poisson-Exponential fit "
+          f"at {MESH_K}x{MESH_G}, rank {MESH_N}, {a.iter} iterations, "
+          f"bit-identical to the fit without a mesh ({t2 - t1:.2f} s "
+          f"against {t1 - t0:.2f} s, which ran first), on {card}",
+          flush=True)
+
+
+def mesh_state(torch, saved, case, i):
+    """Step ``i``'s whole state of a mesh worker's run, on the card, with
+    its generator's state."""
+    from bayesnmf_tpu_torch.models.state import state_from_numpy
+
+    pre = f"{case}/step{i}/"
+    d = {"params": {}, "prior": {}, "iter": saved[pre + "iter"]}
+    for key, v in saved.items():
+        parts = key[len(pre):].split("/")
+        if not key.startswith(pre):
+            continue
+        if len(parts) == 2:
+            d[parts[0]][parts[1]] = v
+        elif parts[0] in ("acc_P", "acc_E"):
+            d[parts[0]] = v
+    st = state_from_numpy(d, "cuda")
+    st["gen"].set_state(torch.from_numpy(saved[pre + "gen"]))
+    return st
+
+
+def sum_rel(a, b, data):
+    """Max |a - b| of loglik or log-posterior values over the scale of the
+    sums they cancel: max(|b|, sum(M log M)), M floored at 1e-6 (as
+    tests/test_torch_multiproc.py and tests/test_torch_chains.py hold the
+    KL and the loglik)."""
+    M = np.maximum(np.asarray(data, np.float64), 1e-6)
+    scale = float(np.sum(M * np.log(M)))
+    return float(np.max(np.abs(np.asarray(a, np.float64) - b)
+                        / np.maximum(np.abs(b), scale)))
+
+
+def rel(a, b):
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def run_mesh(torch, bt, AL, gibbs, card):
+    """Phase 11. Returns (the shard allocation's kernel row numbers, the
+    allocation's launches on the 1x2 Poisson-Exponential run)."""
+    shard = compare_shard_allocation(torch, AL, card)
+    world_one_mesh(torch, bt, card)
+    out_dir = tempfile.mkdtemp(prefix="bayesnmf_mesh_")
+    t0 = time.perf_counter()
+    g_ranks = spawn_mesh(1, 2, out_dir)
+    c_ranks = spawn_mesh(2, 1, out_dir)
+    print(f"phase 11 workers: 1x2 and 2x1 meshes on the one card over gloo, "
+          f"{time.perf_counter() - t0:.1f} s with start-up", flush=True)
+    r0 = g_ranks[0]
+    ll, lp = gibbs.METRIC_NAMES.index("loglikelihood"), \
+        gibbs.METRIC_NAMES.index("logposterior")
+    rates = {}
+    for case in ("exponential", "gamma", "eager"):
+        n = MESH_EAGER_STEPS if case == "eager" else MESH_STEPS
+        for r in g_ranks:
+            check(np.array_equal(r[f"{case}/P_local"], r0[f"{case}/P_local"]),
+                  f"{case}: P differs between the ranks of the g group")
+        # free running: the one-process run of the same seed
+        s = mesh_sampler(bt, case)
+        if case != "eager":
+            mesh_steps(torch, gibbs, mesh_sampler(bt, case), 2)
+        rec, secs = mesh_steps(torch, gibbs, s, n)
+        met = rec["metrics"].cpu().numpy()
+        got = r0[f"{case}/metrics"]
+        free = max(rel(got[:, ll], met[:, ll]), rel(got[:, lp], met[:, lp]))
+        check(free <= 1e-3, f"{case}: the free-running 1x2 chain's loglik "
+              f"moved {free:.2e} from the one-process chain's")
+        # resynced: each one-process step from the mesh's state and
+        # generator state before it, against the mesh's next state
+        worst, moved_n, moved_tot, diff_n, diff_tot = 0.0, 0, 0, 0, 0
+        first_diff = None
+        for i in range(n):
+            st = mesh_state(torch, r0, case, i)
+            nxt, one = gibbs.run_chunk(s.spec, s.data, s.hyperprior_params,
+                                       st, np.ones(1, np.float32), False)
+            m1 = one["metrics"][0].cpu().numpy()
+            worst = max(worst, sum_rel(got[i, [ll, lp]], m1[[ll, lp]],
+                                       s.data.cpu().numpy()))
+            want = {k: v.cpu().numpy() for k, v in nxt["params"].items()}
+            if case == "eager":
+                for k in ("P", "E"):
+                    before = r0[f"{case}/step{i}/params/{k}"]
+                    after = r0[f"{case}/step{i + 1}/params/{k}"]
+                    moved_n += int(np.sum((after != before)
+                                          != (want[k] != before)))
+                    moved_tot += before.size
+            else:
+                d = sum(int(np.sum(r0[f"{case}/step{i + 1}/params/{k}"]
+                                   != want[k])) for k in ("Zsum_g", "Zsum_k"))
+                diff_n += d
+                diff_tot += want["Zsum_g"].size + want["Zsum_k"].size
+                if d and first_diff is None:
+                    first_diff = i + 1
+        check(worst <= 1e-5, f"{case}: a one-process step from the mesh's "
+              f"state moved the loglik/logpost {worst:.2e} of the sums' "
+              "scale from the mesh's")
+        line = (f"phase 11 1x2 {case} ({n} steps): resynced steps (each "
+                "one-process step from the mesh's state and generator) "
+                f"loglik/logpost max diff {worst:.2e} of the sums' scale "
+                "(max(|value|, sum M log M))")
+        if case == "eager":
+            check(moved_n <= 1e-3 * moved_tot, f"{case}: {moved_n} of "
+                  f"{moved_tot} MH decisions differ")
+            line += f", MH decisions differing {moved_n} of {moved_tot}"
+        else:
+            check(diff_n <= 1e-3 * diff_tot, f"{case}: {diff_n} of "
+                  f"{diff_tot} latent-count sums differ")
+            line += (f", latent-count sums differing {diff_n} of {diff_tot}"
+                     f" (first at step {first_diff})")
+            check(int(r0[f"{case}/launches"]) == n,
+                  f"{case}: the allocation kernel ran "
+                  f"{int(r0[f'{case}/launches'])} times on rank 0, not {n}")
+            rates[case] = (n / secs, n / float(r0[f"{case}/seconds"]),
+                           int(r0[f"{case}/all_reduces"]) / n)
+        E_free = rel(r0[f"{case}/step{n}/params/E"],
+                     s.state["params"]["E"].cpu().numpy())
+        print(line + f"; free running against the one-process chain: "
+              f"loglik/logpost max rel diff {free:.2e}, E {E_free:.2e} after "
+              f"{n} steps; on {card}", flush=True)
+
+    # 2x1: the chains split, G whole
+    from bayesnmf_tpu_torch.parallel import chains as CH
+
+    c0 = c_ranks[0]
+    e = mesh_ensemble(bt)
+    e._run_chunk(MESH_CHUNK)
+    got, want = c0["ensemble/metrics"], e._metrics_all()
+    for r in c_ranks:
+        check(np.array_equal(r["ensemble/metrics"], got),
+              "the 2x1 ensemble's ranks hold different metrics rows")
+        check(int(r["ensemble/launches"]) == MESH_CHUNK,
+              "a 2x1 ensemble's rank did not launch the allocation once a "
+              "step")
+    free = max(rel(got[..., ll], want[..., ll]),
+               rel(got[..., lp], want[..., lp]))
+    check(free <= 1e-3, f"the free-running 2x1 ensemble's loglik moved "
+          f"{free:.2e} from the one-process ensemble's")
+    worst, diff_n, diff_tot = 0.0, 0, 0
+    for i in range(MESH_CHUNK):
+        st = mesh_state(torch, c0, "ensemble", i)
+        acc = torch.zeros(MESH_CHAINS, dtype=torch.bool, device="cuda")
+        nxt, one = CH.run_chunk_chains(e.spec, e.data, e.hp, st,
+                                       np.ones(1, np.float32), acc)
+        m1 = one["metrics"][:, 0].cpu().numpy()
+        worst = max(worst, sum_rel(got[:, i][:, [ll, lp]], m1[:, [ll, lp]],
+                                   e._data_np))
+        for k in ("Zsum_g", "Zsum_k"):
+            w = nxt["params"][k].cpu().numpy()
+            diff_n += int(np.sum(
+                c0[f"ensemble/step{i + 1}/params/{k}"] != w))
+            diff_tot += w.size
+    check(worst <= 1e-5, f"a one-process ensemble step from the 2x1 mesh's "
+          f"state moved the loglik/logpost {worst:.2e} of the sums' scale")
+    check(diff_n <= 1e-3 * diff_tot, f"2x1: {diff_n} of {diff_tot} "
+          "latent-count sums differ")
+    print(f"phase 11 2x1 conjugate ensemble, {MESH_CHAINS} chains at "
+          f"{MESH_K}x{MESH_G}, {MESH_CHUNK} steps: resynced steps loglik/"
+          f"logpost max diff {worst:.2e} of the sums' scale, latent-count "
+          f"sums differing "
+          f"{diff_n} of {diff_tot}; free running max rel diff {free:.2e} "
+          f"(4 chains a rank: the card's batched products and sums round "
+          f"as for 4 chains, not 8), on {card}", flush=True)
+
+    # (d) the mesh checkpoint in one process, and on the CPU
+    path = os.path.join(out_dir, "mesh.ckpt")
+    one = bt.GibbsSampler.load(path)
+    one._run_chunk(5, False)
+    got = r0["resume/metrics"]
+    d = rel(got[-5:, ll], one.sample_metrics.to_numpy()[-5:, ll])
+    # free running for 5 steps: a count flipped by the sum order parts the
+    # two continuations (see the resynced steps above), so the bound is the
+    # free-running one
+    check(d <= 1e-3, f"the mesh checkpoint continued in one process moved "
+          f"{d:.2e} from the mesh's own continuation")
+    from bayesnmf_tpu_torch.utils.checkpoint import restart_seed
+
+    card_s = bt.GibbsSampler.load(path)
+    cpu_s = bt.GibbsSampler.load(path, device="cpu")
+    check(all(np.array_equal(cpu_s.state["params"][k].numpy(),
+                             v.cpu().numpy())
+              for k, v in card_s.state["params"].items()),
+          "the card checkpoint's state changed on the CPU")
+    restarted = torch.Generator().manual_seed(
+        restart_seed(MESH_SEEDS["resume"], cpu_s.iter))
+    check(torch.equal(cpu_s.state["gen"].get_state(),
+                      restarted.get_state()),
+          "the card checkpoint's generator was not restarted on the CPU")
+    cpu_s._run_chunk(2, False)
+    check(np.isfinite(cpu_s.sample_metrics.to_numpy()[:, ll]).all(),
+          "the card checkpoint did not continue on the CPU")
+    print(f"phase 11 checkpoints: saved on the 1x2 mesh, continued in one "
+          f"process (loglik max rel diff {d:.2e} from the mesh's own "
+          "continuation); loaded with device='cpu', state equal, generator "
+          f"restarted, 2 steps finite, on {card}", flush=True)
+
+    for case, (one_rate, mesh_rate, n_ar) in rates.items():
+        print(f"phase 11 loop at {MESH_K}x{MESH_G} conjugate {case}: one "
+              f"process {one_rate:.1f} it/s, 1x2 mesh of two processes on "
+              f"the one card over gloo {mesh_rate:.1f} it/s, {n_ar:.1f} "
+              "all-reduces per iteration (the cost of gloo's host copies "
+              f"on one card, not scaling), on {card}", flush=True)
+    return shard, int(sum(int(r["exponential/launches"]) for r in g_ranks))
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -2960,6 +3482,11 @@ def main() -> int:
                                             card)
     run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # phase 11: distributed runs
+    t11 = time.perf_counter()
+    mesh_alloc, mesh_launches = run_mesh(torch, bt, AL, gibbs, card)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
@@ -3070,6 +3597,17 @@ def main() -> int:
         "plain_ms": gamma_alloc["plain_ms"],
         "bound_ms": gamma_alloc["bound_ms"],
         "bound_by": gamma_alloc["bound_by"], "library_ms": None})
+    # phase 11: the allocation on each rank's G shard of a 1x2 mesh (the
+    # 1x2 Poisson-Exponential run's launches, both ranks)
+    kernels.append({
+        "name": "allocate_counts_fused (G shard (96,8,1390) of a 1x2 mesh)",
+        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+        "launches": mesh_launches,
+        "max_abs_err": mesh_alloc["max_abs_err"], "ms": mesh_alloc["ms"],
+        "plain_ms": mesh_alloc["plain_ms"],
+        "bound_ms": mesh_alloc["bound_ms"],
+        "bound_by": mesh_alloc["bound_by"], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -142,9 +142,14 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
+    dict(mesh="a one-process mesh"),
 ])
 def test_outside_the_slice_raises(kw):
+    """The streaming kernels on a mesh are refused with the JAX package's
+    ValueError: they do not partition over G."""
+    from bayesnmf_tpu_torch.parallel.mesh import make_mesh
+
     args = dict(rank=3, n_chains=2, stream_sweeps=True, device="cpu") | kw
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    args["mesh"] = make_mesh(device="cpu")
+    with pytest.raises(ValueError, match="stream_sweeps"):
         ChainEnsemble(sim_data(), **args)

@@ -279,7 +279,9 @@ def test_checkpoint_resume_bit_exact(tmp_path):
 
 def test_imports_without_jax():
     """The port imports neither jax nor anything of the JAX package: both
-    are blocked in sys.modules, and every module of the port imports."""
+    are blocked in sys.modules, and every module of the port imports,
+    the mesh layer too (its multi-process workers check the same in
+    tests/test_torch_multiproc.py)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -290,7 +292,10 @@ def test_imports_without_jax():
         "map_estimate, convergence, updates\n"
         "from bayesnmf_tpu_torch.ops import fused_sweeps, stream_sweeps, "
         "allocation, special, math, distributions, _build\n"
-        "from bayesnmf_tpu_torch.parallel import chains, ensemble\n"
+        "from bayesnmf_tpu_torch.parallel import chains, ensemble, mesh, "
+        "multihost\n"
+        "assert multihost.initialize() is False\n"
+        "assert mesh.make_mesh(device='cpu').size == 1\n"
         "from bayesnmf_tpu_torch.utils import checkpoint, logging, "
         "assignment, cosmic, postprocessing, plotting\n"
         "assert bt.fit is sampler.fit\n"
@@ -326,10 +331,20 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
+    dict(mesh="a one-process mesh", fused_sweeps=True),
     dict(stream_sweeps=True),
 ])
 def test_outside_the_slice_raises(kw):
+    """What the single sampler refuses: the fused kernel on a mesh, as the
+    JAX package refuses it (ValueError), and the streaming kernels, which
+    it runs in ensembles only (NotImplementedError)."""
+    from bayesnmf_tpu_torch.parallel.mesh import make_mesh
+
     args = dict(rank=3, device="cpu") | kw
+    if "mesh" in kw:
+        args["mesh"] = make_mesh(device="cpu")
+        with pytest.raises(ValueError, match="fused_sweeps"):
+            GibbsSampler(sim_data(), **args)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GibbsSampler(sim_data(), **args)
