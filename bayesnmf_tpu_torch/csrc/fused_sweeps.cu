@@ -153,6 +153,21 @@ __device__ float ps_ndtr(float x) {
   return x >= 0.0f ? upper : 1.0f - upper;
 }
 
+// ops/distributions.py::_ndtr: erfc in both tails, each op rounded alone;
+// the truncated-normal proposal's tail mass (ps_ndtr(-alpha) cancels to 0
+// from alpha ~ 5.5)
+__device__ float port_ndtr(float x) {
+  const float z = x * 0.7071067811865476f;
+  const float a = fabsf(z);
+  float y;
+  if (a < 0.7071067811865476f) {
+    y = 1.0f + erff(z);
+  } else {
+    y = z > 0.0f ? 2.0f - erfcf(a) : erfcf(a);
+  }
+  return 0.5f * y;
+}
+
 // ps.log_ndtr: asymptotic series below -4
 __device__ float ps_log_ndtr(float x) {
   if (x < -4.0f) {
@@ -172,7 +187,8 @@ __device__ float ndtri(float p) {
 }
 
 // _truncnorm_icdf: TruncNormal[0, inf) by inverse CDF; beyond alpha = 8 the
-// Exp(1)/alpha deep-tail limit reuses the same uniform
+// Exp(1)/alpha deep-tail limit reuses the same uniform; the tail mass is
+// erfc's (port_ndtr)
 __device__ float truncnorm_icdf(float u, float mu, float sd) {
   const float alpha = -mu / sd;
   float z;
@@ -180,7 +196,7 @@ __device__ float truncnorm_icdf(float u, float mu, float sd) {
     const float a_safe = jmax(alpha, 1.0f);
     z = a_safe - logf(jmax(u, kTiny)) / a_safe;
   } else {
-    const float tail = ps_ndtr(-alpha);
+    const float tail = port_ndtr(-alpha);
     const float v = jmax(u * tail, kTiny);
     z = jmax(-ndtri(v), alpha);
   }

@@ -162,7 +162,14 @@ class GibbsSampler:
     rank) or a list of ranks, which learns the rank over 0..max(rank) by
     ``rank_method`` 'SBFI', 'BFI' or 'BIC' (bayesNMF_sampler.R:118-125;
     'BIC' here runs the inclusion sweep without the SBFI penalty, as the
-    JAX sampler does; ``fit`` runs 'BIC' one rank at a time)."""
+    JAX sampler does; ``fit`` runs 'BIC' one rank at a time).
+
+    ``fused_allocation`` is the JAX sampler's switch between its Pallas
+    allocation kernel and its XLA allocation; None resolves as there off a
+    TPU (False). It selects nothing here: the conjugate path has one
+    allocation, the kernel of ops/allocation.py on the card and its plain
+    version on the CPU. True with MH or with the Normal likelihood raises
+    the JAX package's error (config.ModelSpec)."""
 
     def __init__(
         self,
@@ -186,6 +193,7 @@ class GibbsSampler:
         record_history: str = "basic",
         mesh=None,
         fused_sweeps: Optional[bool] = None,
+        fused_allocation: Optional[bool] = None,
         exact_mh: bool = True,
         exact_truncnorm_hypers: bool = True,
         stream_sweeps: bool = False,
@@ -222,11 +230,15 @@ class GibbsSampler:
         data = np.ascontiguousarray(data, np.float32)
         if MH is None:
             MH = default_MH(likelihood, prior)
+        # the JAX sampler's auto value off a TPU; it selects nothing here
+        # (see the class docstring) but is validated as there
+        fused_allocation = bool(fused_allocation)
         spec = ModelSpec(
             K=data.shape[0], N=max(ranks), G=data.shape[1],
             likelihood=likelihood, prior=prior, MH=MH,
             learning_rank=learning_rank, rank_method=rank_method,
-            exact_mh=exact_mh, exact_truncnorm_hypers=exact_truncnorm_hypers)
+            exact_mh=exact_mh, exact_truncnorm_hypers=exact_truncnorm_hypers,
+            fused_allocation=fused_allocation)
         if fused_sweeps is None:
             # the fused kernel for Poisson MH off a mesh; the Normal
             # likelihood, fused_sweeps=False and a mesh take the eager sweeps

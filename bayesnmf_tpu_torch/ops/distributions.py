@@ -128,25 +128,30 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
         u = _uniform(gen, (shape[0], n_u) + shape[1:] if chain_axis
                      else (n_u,) + shape, dev, 0 if chain_axis else None, g)
     u_all = u.movedim(1, 0) if chain_axis else u
-    g = torch.full(shape, float("nan"), device=dev)
+    x = torch.full(shape, float("nan"), device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     for r in range(unroll):
-        gv, ok = candidate(u_all[2 * r], u_all[2 * r + 1])
-        g = torch.where(~done & ok, gv, g)
+        xv, ok = candidate(u_all[2 * r], u_all[2 * r + 1])
+        x = torch.where(~done & ok, xv, x)
         done = done | ok
     # a non-finite or non-positive shape never accepts: leave it NaN instead
     # of looping forever
     done = done | ~torch.isfinite(d) | (a <= 0.0)
     while not all_done(gen, done):
+        gamma.rounds += 1
         uv = _uniform(gen, (2,) + shape, dev, 1 if chain_axis else None, g)
-        gv, ok = candidate(uv[0], uv[1])
-        g = torch.where(~done & ok, gv, g)
+        xv, ok = candidate(uv[0], uv[1])
+        x = torch.where(~done & ok, xv, x)
         done = done | ok
 
-    g = g * torch.where(
+    x = x * torch.where(
         boost, torch.exp(torch.log(u_all[-1]) / a.clamp_min(1e-12)),
-        torch.ones_like(g))
-    return g / rate
+        torch.ones_like(x))
+    return x / rate
+
+
+#: rounds of the exact rejection loop run since the count was last reset
+gamma.rounds = 0
 
 
 def inv_gamma(gen, shape_param, rate, u=None, chain_axis: bool = False,

@@ -4,12 +4,22 @@ Metropolis-Hastings updates, and with rank learning the rank draw R and the
 N sequential inclusion updates of A.
 
 Port of bayesnmf_tpu/ops/pallas_sweeps.py. ``fused_gibbs_sweeps`` keeps the
-JAX signature and return tuple (pallas_sweeps.py:370-446). On CUDA tensors it
+JAX signature and return tuple (pallas_sweeps.py:370-446), and so does its
+fixed-rank form ``fused_pe_sweeps``. On CUDA tensors it
 launches the hand-written kernel csrc/fused_sweeps.cu (one thread-block
 cluster per chain, ``cluster_config``) or raises; on CPU tensors it runs
 ``fused_gibbs_sweeps_reference``,
 the same function in plain PyTorch, which consumes the same uniforms in the
 same order.
+
+One deliberate departure from the reference: the truncated-normal proposal
+scales its uniform by the tail mass Phi(-alpha) computed with erfc
+(``distributions._ndtr``, as the eager sweeps and the stream kernels do).
+The reference takes it as ``pallas_special.ndtr(-alpha)``, i.e. 1 - (1 -
+q), which cancels to 0 from alpha ~ 5.5 and is 2e-3 off at 4; its proposal
+then collapses to a constant mu + 13 sd there, leaves the density that the
+Hastings ratio assumes, and the fused Poisson-Exponential MH chain fails
+its Geweke gate (tests/test_torch_geweke.py; the JAX kernel does too).
 
 Ported in full: the truncnormal or the exponential prior, the exact or the
 reference-parity (``exact_mh=False``) Hastings ratio, a fixed rank or the
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from . import special as ps
+from .distributions import _ndtr
 from .math import const
 
 _FLOOR = 1e-6
@@ -116,9 +127,11 @@ def _ndtri(p):
 
 def _truncnorm_icdf(u, mu, sd):
     """Inverse-CDF TruncNormal[0, inf) draw; beyond alpha = 8 the Exp(1)/alpha
-    deep-tail limit reuses the SAME uniform (pallas_sweeps.py:58-70)."""
+    deep-tail limit reuses the SAME uniform (pallas_sweeps.py:58-70). The
+    tail mass is erfc's, not the reference's cancelling ndtr (see the module
+    docstring)."""
     alpha = -mu / sd
-    tail = ps.ndtr(-alpha)
+    tail = _ndtr(-alpha)
     v = (u * tail).clamp_min(_TINY)
     z_icdf = torch.maximum(-_ndtri(v), alpha)
     a_safe = alpha.clamp_min(1.0)
@@ -529,3 +542,28 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
 
 #: kernel launches since the count was last reset (CPU calls do not count)
 fused_gibbs_sweeps.launches = 0
+
+
+def fused_pe_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
+                    Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
+                    hp0_p, hp1_p, hp0_e, hp1_e,
+                    prior_kind: str, exact_mh: bool, accept_all):
+    """The fixed-rank form (pallas_sweeps.py:449-462): the P and E MH
+    sweeps only, through ``fused_gibbs_sweeps`` with a zero ``rank_pack``,
+    ``rank_method=None`` and no hyper-sweep, so the prior pair stays as
+    given. Arguments as there, with or without a leading chain axis.
+    Returns (P, E, Mhat, acc_P, acc_E). On CPU tensors this is the plain
+    version; on CUDA tensors the kernel, or an error."""
+    N = P.shape[-1]
+    rank_pack = P.new_zeros(P.shape[:-2] + (3, N + 1))
+    before = fused_gibbs_sweeps.launches
+    out = fused_gibbs_sweeps(
+        data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P, Up_E,
+        Ua_E, hp0_p, hp1_p, hp0_e, hp1_e, rank_pack, prior_kind=prior_kind,
+        exact_mh=exact_mh, accept_all=accept_all, rank_method=None)
+    fused_pe_sweeps.launches += fused_gibbs_sweeps.launches - before
+    return out[:5]
+
+
+#: kernel launches through this form since the count was last reset
+fused_pe_sweeps.launches = 0

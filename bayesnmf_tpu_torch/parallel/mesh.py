@@ -81,12 +81,25 @@ class Mesh:
                 f"({self.ci}, {self.gi}), {self.device})")
 
 
-def _device_of(rank: int, device) -> torch.device:
-    """The device of a rank: the CPU when asked, else its card
-    ``cuda:{local rank % cards}``; no card is an error, not a quiet run on
-    the CPU."""
+#: the card multihost.initialize(local_device_ids=...) bound this process
+#: to, else None
+_bound_card: Optional[int] = None
+
+
+def local_card(rank: int) -> int:
+    """This process's card: the one ``multihost.initialize`` bound it to,
+    else ``local rank % cards``."""
     import os
 
+    if _bound_card is not None:
+        return _bound_card
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return local % torch.cuda.device_count()
+
+
+def _device_of(rank: int, device) -> torch.device:
+    """The device of a rank: the CPU when asked, else its card
+    (``local_card``); no card is an error, not a quiet run on the CPU."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return dev
@@ -97,8 +110,7 @@ def _device_of(rank: int, device) -> torch.device:
                            "visible to this process")
     if dev.index is not None:
         return dev
-    local = int(os.environ.get("LOCAL_RANK", rank))
-    return torch.device("cuda", local % torch.cuda.device_count())
+    return torch.device("cuda", local_card(rank))
 
 
 def make_mesh(n_chain: Optional[int] = None, n_g: Optional[int] = None,

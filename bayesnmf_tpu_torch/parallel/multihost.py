@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import mesh as _mesh
 from .mesh import Mesh, g_block, make_mesh
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=5)
@@ -46,7 +47,8 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                backend: Optional[str] = None,
-               timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> bool:
+               timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+               local_device_ids=None) -> bool:
     """Join the default process group. Idempotent: True once joined.
 
     With ``coordinator_address`` ("host:port"), ``num_processes`` and
@@ -56,9 +58,24 @@ def initialize(coordinator_address: Optional[str] = None,
     (a single-process run, as the JAX package's off-cluster call).
     ``backend`` None picks NCCL when every process of the host has a card
     of its own and gloo otherwise, and says which on stderr. Every
-    collective waits at most ``timeout``."""
+    collective waits at most ``timeout``.
+
+    ``local_device_ids`` (an id or a sequence of ids of this host's cards,
+    as the JAX function takes them): the first is this process's card
+    (``torch.cuda.set_device``), which its meshes and collectives then use
+    in place of ``LOCAL_RANK % cards``; an id outside
+    ``range(torch.cuda.device_count())`` raises ValueError. None keeps the
+    ``LOCAL_RANK`` choice."""
     if dist.is_initialized():
         return True
+    if local_device_ids is not None:
+        ids = ([int(local_device_ids)] if np.ndim(local_device_ids) == 0
+               else [int(i) for i in local_device_ids])
+        n_cards = torch.cuda.device_count()
+        bad = [i for i in ids if not 0 <= i < n_cards]
+        if not ids or bad:
+            raise ValueError(f"local_device_ids {ids}: this host has "
+                             f"{n_cards} card(s), ids in range({n_cards})")
     if coordinator_address is None:
         env = os.environ
         if not all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
@@ -78,6 +95,9 @@ def initialize(coordinator_address: Optional[str] = None,
                   f"({world} processes, "
                   f"{torch.cuda.device_count()} card(s) on this host)",
                   file=sys.stderr, flush=True)
+    if local_device_ids is not None:
+        torch.cuda.set_device(ids[0])
+        _mesh._bound_card = ids[0]
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, timeout=timeout)
     return True
@@ -86,9 +106,8 @@ def initialize(coordinator_address: Optional[str] = None,
 def _host_ids() -> np.ndarray:
     """Every rank's host, as a hash of its host name, by one all_reduce."""
     world = dist.get_world_size()
-    dev = (torch.device("cuda", int(os.environ.get(
-        "LOCAL_RANK", dist.get_rank())) % torch.cuda.device_count())
-        if dist.get_backend() == "nccl" else torch.device("cpu"))
+    dev = (torch.device("cuda", _mesh.local_card(dist.get_rank()))
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
     t = torch.zeros(world, dtype=torch.float64, device=dev)
     t[dist.get_rank()] = float(zlib.crc32(socket.gethostname().encode()))
     dist.all_reduce(t)

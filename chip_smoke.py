@@ -362,6 +362,65 @@ def compare_kernel(torch, FS):
     return max_err, times
 
 
+# (K, N, G, chains): phase 3, the fixed-rank form fused_pe_sweeps
+PE_CASES = [(96, 8, 500, 1), (7, 3, 37, 4)]
+
+
+def compare_pe_sweeps(torch, FS, card):
+    """Phase 3: ``fused_pe_sweeps`` (the kernel at a fixed rank: a zero rank
+    pack, no rank branch, no hyper-sweep) against its plain version on the
+    card, with accept_all True and False: the five outputs within
+    RTOL/ATOL, every decision equal, two launches bit-identical; timed at
+    (96,8,500). Returns its kernel row's numbers."""
+    err, row = 0.0, {}
+    for (K, N, G, C) in PE_CASES:
+        t = to_card(torch, sweep_inputs(K, N, G, C, seed=K + N + G + C + 1))
+        args = [t[k] for k in _ARGS[:17]]
+        b = (lambda x: x) if C > 1 else (lambda x: x.unsqueeze(0))
+        for accept_all in (True, False):
+            def kernel():
+                return FS.fused_pe_sweeps(*args, prior_kind="truncnormal",
+                                          exact_mh=True,
+                                          accept_all=accept_all)
+
+            def plain():
+                rp = torch.zeros((C, 3, N + 1), device="cuda")
+                rp[:, 0, 1] = float(accept_all)
+                out = FS.fused_gibbs_sweeps_reference(
+                    t["data"], *map(b, args[1:]), rp,
+                    prior_kind="truncnormal", exact_mh=True)[:5]
+                return out if C > 1 else tuple(x[0] for x in out)
+
+            k1, k2 = kernel(), kernel()
+            p = plain()
+            torch.cuda.synchronize()
+            case = f"fused_pe_sweeps (K,N,G,C)={(K, N, G, C)} " \
+                f"accept_all={accept_all}"
+            check(len(k1) == 5 and all(torch.equal(x, y)
+                                       for x, y in zip(k1, k2)),
+                  f"{case}: two launches differ")
+            for name, x, y in zip(_OUT_NAMES, k1, p):
+                err = max(err, float((x - y).abs().max()))
+                check(torch.allclose(x, y, rtol=RTOL, atol=ATOL),
+                      f"{case}: {name} differs from the plain version")
+            for i, name in ((0, "P"), (1, "E")):
+                check(torch.equal(k1[i] != args[i + 1], p[i] != args[i + 1]),
+                      f"{case}: {name} accept decisions differ")
+            print(f"kernel vs plain {case}: max abs diff {err:.3e}, "
+                  "decisions equal, two launches bit-identical", flush=True)
+        if (K, N, G, C) == PE_CASES[0] and not accept_all:
+            ms, wrapped = kernel_ms(torch, kernel, 50)
+            plain_ms = time_ms(torch, plain, 5)
+            b_ms, b_by = pe_bound(K, N, G)
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            print(f"time per call of fused_pe_sweeps at (K,N,G)={(K, N, G)}: "
+                  f"kernel {ms:.4f} ms on the device ({wrapped:.4f} ms per "
+                  f"call through the wrapper), plain PyTorch {plain_ms:.4f} "
+                  f"ms, bound {b_ms:.5f} ms ({b_by}), on {card}", flush=True)
+    return dict(row, max_abs_err=err)
+
+
 # (K, N, G, chains, options, temperatures): phase 3c, kernel 1's branches
 # ported in this slice
 BRANCH_CASES = [
@@ -599,6 +658,16 @@ def fused_bound(K, N, G, C=1, rank=False):
     if rank:
         ops += N * kg * (8 + 4)
     return bound(4 * C * (n_in + n_out), C * ops)
+
+
+def pe_bound(K, N, G, C=1):
+    """``fused_pe_sweeps`` at one call: bytes of its 17 inputs and 5
+    outputs, operations of the 2N column updates (as in fused_bound)."""
+    kn, ng, kg = K * N, N * G, K * G
+    n_in = kg + kn + ng + N + C * kg + 2 * kn + 2 * ng + 3 * kn + 3 * ng \
+        + 2 * kn + 2 * ng
+    n_out = 2 * kn + 2 * ng + kg
+    return bound(4 * C * (n_in + n_out), C * 2 * N * kg * (8 + 20 + 2))
 
 
 # operations of one conditional-binomial split (csrc/allocation.cu): the
@@ -1758,6 +1827,7 @@ def loop_rate(torch, gibbs, s, n):
 
 def reset_counts(FS, S, AL):
     FS.fused_gibbs_sweeps.launches = 0
+    FS.fused_pe_sweeps.launches = 0
     S.reset_launch_counts()
     AL.allocate_counts.launches = 0
 
@@ -2905,7 +2975,10 @@ MESH_EAGER_G, MESH_STEPS, MESH_EAGER_STEPS = 500, 20, 10
 MESH_CHAINS, MESH_CHUNK = 8, 10
 MESH_WORKER_TIMEOUT = 240
 MESH_SEEDS = {"exponential": 11, "gamma": 12, "eager": 13, "ensemble": 14,
-              "resume": 15}
+              "resume": 15, "reject": 16}
+# the conjugate Poisson-Exponential loop that runs through the gamma draws'
+# rejection loop on the 1x2 mesh
+MESH_LOOP_STEPS = 200
 
 
 def mesh_data(G, seed=0):
@@ -2932,6 +3005,35 @@ def mesh_ensemble(bt, mesh=None):
                             device="cuda")
 
 
+def reject_operands(torch, side, device="cuda"):
+    """A gamma draw of 2 chains on one side of config 4's shape (P (2, 96,
+    8), E (2, 8, 2780)) and its pre-drawn uniforms, chain-major, whose four
+    unrolled rounds reject in the last quarter of the last axis (on the E
+    side columns of the second rank's block of a 1x2 mesh): those entries
+    go to the exact rejection loop."""
+    C = 2
+    shape = (C, MESH_K, MESH_N) if side == "P" else (C, MESH_N, MESH_G)
+    rng = np.random.default_rng(MESH_SEEDS["reject"])
+    f = np.float32
+    a = rng.uniform(0.5, 3.5, shape).astype(f)
+    b = rng.uniform(0.5, 1.5, shape).astype(f)
+    u = rng.uniform(1e-6, 1.0, (C, 9) + shape[1:]).astype(f)
+    u[:, 0:8:2, ..., shape[-1] - max(1, shape[-1] // 4):] = 1.2e-38
+    return tuple(torch.from_numpy(x).to(device) for x in (a, b, u))
+
+
+def reject_draw(torch, D, gen, side, g0=0, g1=None):
+    """The gamma draw of ``reject_operands`` from ``gen`` (a generator, or a
+    mesh's ShardGen with this rank's columns [g0, g1) of the E side): the
+    draw and the rejection rounds it ran."""
+    a, b, u = reject_operands(torch, side)
+    if side == "E" and g1 is not None:
+        a, b, u = (x[..., g0:g1].contiguous() for x in (a, b, u))
+    D.gamma.rounds = 0
+    x = D.gamma(gen, a, b, u=u, chain_axis=True, g=side == "E")
+    return x, D.gamma.rounds
+
+
 def mesh_steps(torch, gibbs, s, n):
     """``n`` steps from the sampler's state, past warmup: (records,
     seconds)."""
@@ -2956,6 +3058,7 @@ def mesh_worker(args) -> int:
     from bayesnmf_tpu_torch.models import gibbs
     from bayesnmf_tpu_torch.ops import _build
     from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import distributions as D
     from bayesnmf_tpu_torch.parallel import mesh as M
     from bayesnmf_tpu_torch.parallel import multihost as MH
 
@@ -2998,6 +3101,24 @@ def mesh_worker(args) -> int:
                     s.state, _ = gibbs.run_chunk(
                         s.spec, s.data, s.hyperprior_params, s.state,
                         np.ones(1, np.float32), False)
+        # gamma draws that take the rejection loop through the mesh's
+        # generator, this rank's block; then the conjugate loop long enough
+        # to take it on its own
+        g0, g1 = M.g_block(MESH_G, mesh)
+        for side in ("P", "E"):
+            gen = M.ShardGen(torch.Generator(device="cuda").manual_seed(
+                MESH_SEEDS["reject"]), mesh, 2, MESH_G)
+            x, rounds = reject_draw(torch, D, gen, side, g0, g1)
+            out[f"reject/{side}"] = x.cpu().numpy()
+            out[f"reject/{side}/rounds"] = rounds
+        s = mesh_sampler(bt, "exponential", mesh)
+        AL.allocate_counts.launches = 0
+        D.gamma.rounds = 0
+        rec, secs = mesh_steps(torch, gibbs, s, MESH_LOOP_STEPS)
+        out["loop/rounds"] = D.gamma.rounds
+        out["loop/launches"] = AL.allocate_counts.launches
+        out["loop/seconds"] = secs
+        out["loop/metrics"] = rec["metrics"].cpu().numpy()
         # (d) save on the mesh, then continue as the parent will
         s = mesh_sampler(bt, "resume", mesh)
         s._run_chunk(10, False)
@@ -3154,6 +3275,8 @@ def world_one_mesh(torch, bt, card):
     import socket
 
     import torch.distributed as dist
+    from bayesnmf_tpu_torch.ops import distributions as D
+    from bayesnmf_tpu_torch.parallel import mesh as M
     from bayesnmf_tpu_torch.parallel import multihost as MH
 
     with socket.socket() as sk:
@@ -3174,6 +3297,21 @@ def world_one_mesh(torch, bt, card):
         a = bt.GibbsSampler(data, MESH_N, mesh=MH.global_mesh(1, 1),
                             **kw).run_gibbs_sampler()
         t2 = time.perf_counter()
+        # a gamma draw through the mesh's generator that takes the
+        # rejection loop, against the one-process draw
+        rounds = {}
+        for side in ("P", "E"):
+            sg = M.ShardGen(torch.Generator(device="cuda").manual_seed(
+                MESH_SEEDS["reject"]), MH.global_mesh(1, 1), 2, MESH_G)
+            got, rounds[side] = reject_draw(torch, D, sg, side)
+            want, one = reject_draw(torch, D, torch.Generator(
+                device="cuda").manual_seed(MESH_SEEDS["reject"]), side)
+            check(rounds[side] > 0 and rounds[side] == one,
+                  f"world-1 mesh: the {side} draw ran {rounds[side]} "
+                  f"rejection rounds, one process {one}")
+            check(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+                  f"world-1 mesh: the {side} draw through the rejection loop "
+                  "differs from the one-process draw")
     finally:
         dist.destroy_process_group()
     check(np.array_equal(a.sample_metrics.to_numpy(),
@@ -3185,8 +3323,11 @@ def world_one_mesh(torch, bt, card):
     print(f"phase 11 world-1 NCCL mesh: conjugate Poisson-Exponential fit "
           f"at {MESH_K}x{MESH_G}, rank {MESH_N}, {a.iter} iterations, "
           f"bit-identical to the fit without a mesh ({t2 - t1:.2f} s "
-          f"against {t1 - t0:.2f} s, which ran first), on {card}",
-          flush=True)
+          f"against {t1 - t0:.2f} s, which ran first); gamma draws whose "
+          f"unrolled rounds reject in a quarter of the entries: P (2,"
+          f"{MESH_K},{MESH_N}) {rounds['P']} and E (2,{MESH_N},{MESH_G}) "
+          f"{rounds['E']} rejection rounds through the mesh's generator, "
+          f"equal to the one-process draws, on {card}", flush=True)
 
 
 def mesh_state(torch, saved, case, i):
@@ -3307,6 +3448,43 @@ def run_mesh(torch, bt, AL, gibbs, card):
               f"loglik/logpost max rel diff {free:.2e}, E {E_free:.2e} after "
               f"{n} steps; on {card}", flush=True)
 
+    # the gamma draws through the rejection loop: each rank's block the
+    # one-process draw's, as many rounds on each rank
+    from bayesnmf_tpu_torch.ops import distributions as D
+    from bayesnmf_tpu_torch.parallel import mesh as M
+
+    rounds = {}
+    for side in ("P", "E"):
+        want, one = reject_draw(torch, D, torch.Generator(
+            device="cuda").manual_seed(MESH_SEEDS["reject"]), side)
+        want = want.cpu().numpy()
+        for gi, r in enumerate(g_ranks):
+            g0, g1 = M.split(MESH_G, 2, gi)
+            block = want[..., g0:g1] if side == "E" else want
+            check(np.array_equal(r[f"reject/{side}"], block),
+                  f"1x2 rank {gi}: the {side} gamma draw through the "
+                  "rejection loop differs from the one-process draw's block")
+            check(int(r[f"reject/{side}/rounds"]) == one > 0,
+                  f"1x2 rank {gi}: {int(r[f'reject/{side}/rounds'])} "
+                  f"rejection rounds in the {side} draw, one process {one}")
+        rounds[side] = one
+    loop = [int(r["loop/rounds"]) for r in g_ranks]
+    check(loop[0] == loop[1], f"1x2 conjugate loop: the ranks ran {loop} "
+          "rejection rounds")
+    check(all(np.isfinite(r["loop/metrics"]).all() for r in g_ranks),
+          "1x2 conjugate loop: metrics not finite")
+    check(all(int(r["loop/launches"]) == MESH_LOOP_STEPS for r in g_ranks),
+          "1x2 conjugate loop: the allocation did not run once a step")
+    print(f"phase 11 1x2 gamma rejection loop: draws whose unrolled rounds "
+          f"reject in a quarter of the entries (E: the second rank's "
+          f"columns), P {rounds['P']} and E {rounds['E']} rounds on each "
+          "rank, each rank's block equal to the one-process draw's; the "
+          f"conjugate Poisson-Exponential loop at {MESH_K}x{MESH_G}, "
+          f"{MESH_LOOP_STEPS} steps: {loop[0]} and {loop[1]} rejection "
+          f"rounds on ranks 0 and 1, "
+          f"{MESH_LOOP_STEPS / float(g_ranks[0]['loop/seconds']):.1f} it/s, "
+          f"metrics finite, on {card}", flush=True)
+
     # 2x1: the chains split, G whole
     from bayesnmf_tpu_torch.parallel import chains as CH
 
@@ -3391,17 +3569,293 @@ def run_mesh(torch, bt, AL, gibbs, card):
     return shard, int(sum(int(r["exponential/launches"]) for r in g_ranks))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Geweke gates on the card
+# ---------------------------------------------------------------------------
+
+# the gates of tests/test_torch_geweke.py that run a kernel, with the
+# kernels on the card: name -> the launch counters that count one launch
+# per step of each chain (the allocation also one per chain's initial
+# state; the stream sweeps 3N column launches a step)
+GEWEKE_GATES = {
+    "fused-truncnormal": ("fused",),
+    "bfi-fused": ("fused",),
+    "exponential-mh-fused": ("fused",),
+    "fused_pe_sweeps": ("fused", "fused_pe"),
+    "stream": ("_run", "stream_metrics_row"),
+    "conjugate-exponential": ("allocation",),
+    "conjugate-gamma": ("allocation",),
+    "reference-ratio-fused": ("fused",),
+    "reference-hypers-fused": ("fused",),
+}
+# the production-scale gate (tests/test_geweke.py:261-288): the fused step
+# at config 2's shape, fewer chains and steps, |z| < 8
+GEWEKE_PROD = dict(gate="fused-truncnormal", shape=(96, 8, 500), chains=16,
+                   steps=100, marginal=1024, bound=8.0)
+GEWEKE_CHUNK = 8        # chains a worker task runs
+GEWEKE_WORKERS = 8
+GEWEKE_TIMEOUT = 600
+# host-paced gates that run fewer chains than the CPU tests' C = 64, at the
+# same bound, to hold the phase to ~3 min: the conjugate steps' gamma draws
+# and slice sampler and the stream step's 3N column launches take 11-27 ms
+# a chain-step (NVIDIA H100 80GB HBM3, 700 W)
+GEWEKE_CHAINS = {"conjugate-gamma": 32, "conjugate-exponential": 32,
+                 "stream": 32}
+# host cost of a chain-step relative to the fused truncnormal one (chip
+# run, 64 chains x 250 steps of each), for spreading the tasks
+GEWEKE_COST = {"conjugate-gamma": 14.0, "conjugate-exponential": 7.0,
+               "stream": 8.0, "exponential-mh-fused": 4.5, "bfi-fused": 3.5,
+               "reference-hypers-fused": 9.5, "fused_pe_sweeps": 0.5}
+
+
+def geweke_counters(FS, S, AL):
+    return {"fused": FS.fused_gibbs_sweeps.launches,
+            "fused_pe": FS.fused_pe_sweeps.launches,
+            "_run": S._run.launches,
+            "stream_acol_update": S.stream_acol_update.launches,
+            "stream_metrics_row": S.stream_metrics_row.launches,
+            "acol_delta": S.acol_delta.launches,
+            "chain_metrics": S.chain_metrics.launches,
+            "allocation": AL.allocate_counts.launches}
+
+
+def count_plain_calls(FS, S, AL):
+    """Wrap every plain version a gate's kernels stand in for with a call
+    counter; returns the counts (a dict the wrappers fill)."""
+    calls = {}
+    for mod, names in ((FS, ("fused_gibbs_sweeps_reference",)),
+                       (AL, ("allocate_counts_reference",)),
+                       (S, ("run_reference", "acol_delta_reference",
+                            "acol_update_reference", "chain_metrics_reference",
+                            "stream_metrics_row_reference",
+                            "pcol_update_reference",
+                            "erow_update_reference"))):
+        for name in names:
+            calls[name] = 0
+
+            def wrapped(*a, _f=getattr(mod, name), _n=name, **k):
+                calls[_n] += 1
+                return _f(*a, **k)
+
+            setattr(mod, name, wrapped)
+    return calls
+
+
+def geweke_tasks():
+    """(gate, first chain, end chain, steps, production) tasks of at most
+    GEWEKE_CHUNK chains."""
+    import test_torch_geweke as TG
+
+    tasks = []
+    for gate in GEWEKE_GATES:
+        n = GEWEKE_CHAINS.get(gate, TG.C)
+        for c0 in range(0, n, GEWEKE_CHUNK):
+            tasks.append((gate, c0, min(c0 + GEWEKE_CHUNK, n), TG.T, False))
+    for c0 in range(0, GEWEKE_PROD["chains"], GEWEKE_CHUNK):
+        tasks.append((GEWEKE_PROD["gate"], c0, min(
+            c0 + GEWEKE_CHUNK, GEWEKE_PROD["chains"]), GEWEKE_PROD["steps"],
+            True))
+    return tasks
+
+
+def geweke_spec(TG, gate, production):
+    return (TG.gate_spec(gate, *GEWEKE_PROD["shape"]) if production
+            else TG.gate_spec(gate))
+
+
+def geweke_worker(args) -> int:
+    """One worker of phase 12: ``--geweke-worker out_dir device i0,i1,...``
+    runs those tasks of ``geweke_tasks()`` and writes each task's chain
+    means, launch counts, plain-version calls and seconds to
+    out_dir/geweke<first task>.json."""
+    import torch
+
+    out_dir, device = args[0], args[1]
+    ids = [int(i) for i in args[2].split(",")]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [here, os.path.join(here, "tests")]
+    import test_torch_geweke as TG
+    from bayesnmf_tpu_torch.ops import _build
+    from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import fused_sweeps as FS
+    from bayesnmf_tpu_torch.ops import stream_sweeps as S
+
+    if device == "cuda":
+        _build.load_library()   # built by the parent: loaded, not rebuilt
+    calls = count_plain_calls(FS, S, AL)
+    tasks = geweke_tasks()
+    res = []
+    for i in ids:
+        gate, c0, c1, steps, prod = tasks[i]
+        reset_counts(FS, S, AL)
+        for k in calls:
+            calls[k] = 0
+        t0 = time.perf_counter()
+        means = TG.run_successive(gate, geweke_spec(TG, gate, prod),
+                                  device=device, n_steps=steps,
+                                  chains=range(c0, c1))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res.append({"task": i, "means": means.tolist(),
+                    "launches": geweke_counters(FS, S, AL),
+                    "plain": dict(calls),
+                    "seconds": time.perf_counter() - t0})
+    res.append({"imports_jax": "jax" in sys.modules
+                or "bayesnmf_tpu" in sys.modules})
+    with open(os.path.join(out_dir, f"geweke{ids[0]}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def spread(tasks, n):
+    """The task ids split over n workers, longest first onto the least
+    loaded."""
+    cost = [(c1 - c0) * steps * GEWEKE_COST.get(gate, 1.0)
+            * (2.0 if prod else 1.0)
+            for gate, c0, c1, steps, prod in tasks]
+    load, parts = [0.0] * n, [[] for _ in range(n)]
+    for i in sorted(range(len(tasks)), key=lambda i: -cost[i]):
+        w = load.index(min(load))
+        parts[w].append(i)
+        load[w] += cost[i]
+    return [p for p in parts if p]
+
+
+def run_geweke(torch, card, device="cuda"):
+    """Phase 12: the Geweke gates of tests/test_torch_geweke.py with the
+    kernels on the card, C = 64 chains (GEWEKE_CHAINS for the slowest
+    host-paced ones) x T = 250 steps each against 4096 prior draws, |z| < 6 (the reference kernels' gates max |z| > 6 with the
+    JAX signs), and the production-scale fused gate at (96,8,500), 16
+    chains x 100 steps against 1024 draws, |z| < 8. The chains run as
+    tasks of GEWEKE_CHUNK over GEWEKE_WORKERS processes (each step is
+    paced by the host), every task's kernels counted: each gate launched
+    its kernels once a step of each chain (the stream columns 3N times)
+    and never reached a plain version. Every gate's z vector and time is
+    printed; any failure fails the phase after all are printed. Returns
+    {gate: launches}."""
+    import test_torch_geweke as TG
+
+    tasks = geweke_tasks()
+    out_dir = tempfile.mkdtemp(prefix="bayesnmf_geweke_")
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--geweke-worker", out_dir, device,
+         ",".join(map(str, part))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(here))
+        for part in spread(tasks, GEWEKE_WORKERS)]
+    # the prior draws meanwhile, in this process
+    margs = {}
+    for gate in GEWEKE_GATES:
+        margs[gate] = TG.run_marginal(TG.gate_spec(gate), device=device)
+    prod_spec = geweke_spec(TG, GEWEKE_PROD["gate"], True)
+    margs["production"] = TG.run_marginal(prod_spec,
+                                          n=GEWEKE_PROD["marginal"],
+                                          device=device)
+    logs, failed = [], False
+    for w, p in enumerate(procs):
+        try:
+            log, _ = p.communicate(timeout=GEWEKE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log, _ = p.communicate()
+            log += f"\n(killed after {GEWEKE_TIMEOUT} s)"
+        failed |= p.returncode != 0
+        logs.append(f"--- Geweke worker {w} (rc {p.returncode}) ---\n{log}")
+    if failed:
+        print("\n".join(logs), flush=True)
+    check(not failed, "a Geweke worker failed")
+    wall = time.perf_counter() - t0
+    done = {}
+    for name in os.listdir(out_dir):
+        with open(os.path.join(out_dir, name)) as f:
+            res = json.load(f)
+        check(not res[-1]["imports_jax"],
+              "a Geweke worker imported jax or the JAX package")
+        for r in res[:-1]:
+            done[r["task"]] = r
+    check(sorted(done) == list(range(len(tasks))), "Geweke tasks missing")
+    errors, launches = [], {}
+    K, N = TG.K, TG.N
+    for label in list(GEWEKE_GATES) + ["production"]:
+        prod = label == "production"
+        gate = GEWEKE_PROD["gate"] if prod else label
+        ids = [i for i, t in enumerate(tasks) if t[0] == gate and t[4] == prod]
+        ids.sort(key=lambda i: tasks[i][1])
+        succ = np.concatenate([np.asarray(done[i]["means"]) for i in ids])
+        steps = tasks[ids[0]][3]
+        z = TG.geweke_z(succ, margs[label])
+        secs = sum(done[i]["seconds"] for i in ids)
+        count = {k: sum(done[i]["launches"][k] for i in ids)
+                 for k in done[ids[0]]["launches"]}
+        plain = {k: sum(done[i]["plain"][k] for i in ids)
+                 for k in done[ids[0]]["plain"]}
+        n_chain = len(succ)
+        want = {k: n_chain * steps for k in
+                GEWEKE_GATES[gate]}
+        if "allocation" in want:
+            want["allocation"] += n_chain
+        if "_run" in want:
+            want["_run"] *= 3 * N
+        others = {k: v for k, v in count.items() if k not in want and v}
+        launched = {k: count[k] for k in want}
+        launches[label] = launched
+        bound = GEWEKE_PROD["bound"] if prod else TG.Z_BOUND
+        if gate in TG.FAILING and not prod:
+            ok = (np.abs(z).max() > bound
+                  and np.sign(z[0]) == TG.FAILING[gate])
+            verdict = (f"max |z| {np.abs(z).max():.2f}, z[0] of sign "
+                       f"{int(np.sign(z[0])):+d}: "
+                       + (f"fails the gate (> {bound:g}, the JAX sign) as "
+                          "the reference kernel should" if ok else
+                          f"expected max |z| > {bound:g} with sign "
+                          f"{TG.FAILING[gate]:+d}: FAILED"))
+        else:
+            ok = bool(np.all(np.abs(z) < bound))
+            verdict = (f"max |z| {np.abs(z).max():.2f} "
+                       + (f"< {bound:g}" if ok else f">= {bound:g}: FAILED"))
+        shape = GEWEKE_PROD["shape"] if prod else (TG.K, TG.N, TG.G)
+        print(f"phase 12 Geweke {label}"
+              + (f" ({gate})" if prod else "")
+              + f" at (K,N,G)={shape}: {n_chain} chains x {steps} steps "
+              f"against {len(margs[label])} prior draws: z = "
+              f"{np.array2string(z, precision=2, separator=', ')}; "
+              f"{verdict}; launches {launched}; {secs:.1f} s of worker "
+              f"time, on {card}", flush=True)
+        if not ok:
+            errors.append(f"{label}: z = {z}")
+        if device == "cuda":
+            if launched != want:
+                errors.append(f"{label}: launches {launched}, expected "
+                              f"{want}")
+            if others:
+                errors.append(f"{label}: other kernels launched {others}")
+        if any(plain.values()):
+            errors.append(f"{label}: plain versions called "
+                          f"{ {k: v for k, v in plain.items() if v} }")
+    print(f"phase 12 Geweke workers: {len(tasks)} tasks on "
+          f"{len(procs)} processes, {wall:.1f} s with start-up, on {card}",
+          flush=True)
+    check(not errors, "phase 12: " + "; ".join(errors))
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--geweke-worker"]:
+        return geweke_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    # the package sits beside this script
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the package sits beside this script, the Geweke harness in its tests
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [here, os.path.join(here, "tests")]
     import bayesnmf_tpu_torch as bt
     from bayesnmf_tpu_torch.models import gibbs
     from bayesnmf_tpu_torch.ops import _build
@@ -3426,8 +3880,10 @@ def main() -> int:
           f"{len(_build.sources())} source(s), one nvcc each, in parallel",
           flush=True)
 
-    # phase 3: the fused kernel against its plain version
+    # phase 3: the fused kernel against its plain version, and its
+    # fixed-rank form
     max_err, times = compare_kernel(torch, FS)
+    pe = compare_pe_sweeps(torch, FS, card)
     for shape, (k_ms, w_ms, p_ms) in times.items():
         print(f"time per call at (K,N,G)={shape}: kernel {k_ms:.4f} ms on "
               f"the device ({w_ms:.4f} ms per call through the wrapper), "
@@ -3487,6 +3943,11 @@ def main() -> int:
     t11 = time.perf_counter()
     mesh_alloc, mesh_launches = run_mesh(torch, bt, AL, gibbs, card)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+
+    # phase 12: the Geweke gates with the kernels on the card
+    t12 = time.perf_counter()
+    geweke = run_geweke(torch, card)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
@@ -3608,6 +4069,16 @@ def main() -> int:
         "plain_ms": mesh_alloc["plain_ms"],
         "bound_ms": mesh_alloc["bound_ms"],
         "bound_by": mesh_alloc["bound_by"], "library_ms": None})
+    # the fixed-rank form over kernel 1 (phase 3's case at (96,8,500); its
+    # launches are phase 12's fused_pe_sweeps gate's)
+    kernels.append({
+        "name": "fused_pe_sweeps", "route": "cuda",
+        "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
+        "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:449",
+        "launches": geweke["fused_pe_sweeps"]["fused_pe"],
+        "max_abs_err": pe["max_abs_err"], "ms": pe["ms"],
+        "plain_ms": pe["plain_ms"], "bound_ms": pe["bound_ms"],
+        "bound_by": pe["bound_by"], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,18 @@ from bayesnmf_tpu_torch.models import updates as tU
 from bayesnmf_tpu_torch.models.state import state_from_numpy, state_to_numpy
 from bayesnmf_tpu_torch.ops import allocation as AL
 from test_torch_eager import jax_step_noise as eager_noise
+from test_torch_fused_sweeps import jax_erfc_tail
 from test_torch_gibbs import jax_step_noise as conjugate_noise
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def erfc_tail():
+    """The JAX fused kernel with the port's erfc tail mass in its proposal
+    (tests/test_torch_fused_sweeps.py::jax_erfc_tail)."""
+    with jax_erfc_tail():
+        yield
 
 K, N, G, C = 16, 3, 24, 3
 RTOL, ATOL = 1e-3, 1e-4

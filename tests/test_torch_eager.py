@@ -31,8 +31,18 @@ from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models import updates as tU
 from bayesnmf_tpu_torch.models.state import state_from_numpy, state_to_numpy
 from bayesnmf_tpu_torch.ops import math as tm
+from test_torch_fused_sweeps import jax_erfc_tail
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def erfc_tail():
+    """The JAX fused kernel (the fused_conjugate_hypers case) with the
+    port's erfc tail mass in its proposal
+    (tests/test_torch_fused_sweeps.py::jax_erfc_tail)."""
+    with jax_erfc_tail():
+        yield
 
 K, N, G = 16, 3, 24
 RTOL, ATOL = 1e-3, 1e-4

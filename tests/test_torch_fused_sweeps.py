@@ -6,21 +6,59 @@ the port runs its plain PyTorch version, which is what the wrapper takes for
 CPU tensors. Tolerance: rtol 1e-4, atol 1e-5 on every output, because the
 float32 sums over G and K are taken in another order; the accept/reject
 decisions, the inclusion vector A and the rank R must agree exactly.
-Covered: the truncnormal and the exponential prior, the exact and the
+The JAX kernel runs with the port's one departure
+(``jax_erfc_tail``): its truncated-normal proposal's tail mass from an
+erfc, not the reference's cancelling ``pallas_special.ndtr``. Covered: the truncnormal and the exponential prior, the exact and the
 reference-parity (exact_mh=False) ratio, and the SBFI/BFI rank branch at
-several temperatures, one chain and a chain batch.
+several temperatures, one chain and a chain batch; the fixed-rank form
+``fused_pe_sweeps`` against its JAX counterpart.
 """
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
+import scipy.stats
 import torch
 
+import jax
 import jax.numpy as jnp
+import jax.scipy.special
 
+from bayesnmf_tpu.ops import pallas_special
+from bayesnmf_tpu.ops import pallas_sweeps as JPS
 from bayesnmf_tpu.ops.pallas_sweeps import fused_gibbs_sweeps as jax_sweeps
+from bayesnmf_tpu.ops.pallas_sweeps import fused_pe_sweeps as jax_pe_sweeps
 from bayesnmf_tpu_torch.ops import fused_sweeps as FS
 
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def jax_erfc_tail():
+    """The JAX kernel with the port's one departure from it
+    (ops/fused_sweeps.py's docstring): the truncated-normal proposal's tail
+    mass Phi(-alpha) from jax.scipy's erfc-based ndtr, the form of the
+    port's ``distributions._ndtr``, in place of ``pallas_special.ndtr``,
+    whose 1 - (1 - q) cancels to 0 from alpha ~ 5.5. Only pallas_sweeps'
+    view of the special functions changes (it calls ``ndtr`` in
+    ``_truncnorm_icdf`` alone); JAX's compiled caches are cleared on entry
+    and exit, so no trace of either form reaches another test."""
+    jax.clear_caches()
+    JPS.ps = types.SimpleNamespace(**{**vars(pallas_special),
+                                      "ndtr": jax.scipy.special.ndtr})
+    try:
+        yield
+    finally:
+        JPS.ps = pallas_special
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def erfc_tail():
+    with jax_erfc_tail():
+        yield
 
 RTOL, ATOL = 1e-4, 1e-5
 OUT_NAMES = ("P", "E", "Mhat", "acc_P", "acc_E", "A", "R", "nan", "Mu_p",
@@ -126,6 +164,27 @@ def test_one_call_matches_jax(shape, accept_all):
     assert_match(got, want, d)
     # the sweeps moved the state: not a trivial copy-through
     assert not np.array_equal(got[0], d["P"])
+
+
+@pytest.mark.parametrize("alpha", [4.0, 5.0, 6.0, 7.0])
+def test_proposal_follows_the_truncated_normal_in_its_tail(alpha):
+    """The fused proposal at alpha = -mu/sd in (4, 8], where the reference's
+    tail mass cancels (pallas_special.ndtr(-alpha): 2e-3 off at 4, 0 from
+    ~5.5, so its draws collapse onto mu + 13 sd): the port's tail mass is
+    within 1e-5 of scipy's, and 200,000 draws have the TruncNormal[0, inf)
+    mean within 5 standard errors and its variance within 2%."""
+    a = torch.tensor([alpha])
+    want_tail = scipy.stats.norm.sf(alpha)
+    assert abs(float(FS._ndtr(-a)) / want_tail - 1.0) < 1e-5
+    ref_tail = float(pallas_special.ndtr(jnp.float32(-alpha)))
+    assert abs(ref_tail / want_tail - 1.0) > 1e-3
+    n = 200_000
+    u = torch.rand(n, generator=torch.Generator().manual_seed(int(alpha)))
+    x = FS._truncnorm_icdf(u.clamp_min(1.2e-38), torch.full((n,), -alpha),
+                           torch.ones(n)).double().numpy()
+    d = scipy.stats.truncnorm(alpha, np.inf, loc=-alpha, scale=1.0)
+    assert abs(x.mean() - d.mean()) < 5.0 * np.sqrt(d.var() / n)
+    assert abs(x.var() / d.var() - 1.0) < 0.02
 
 
 def test_excluded_column_draws_from_prior():
@@ -319,6 +378,97 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
         FS.fused_gibbs_sweeps(*args, prior_kind="truncnormal", exact_mh=True,
                               accept_all=True, rank_method=None)
     assert calls == ["kernel"]
+
+
+def run_pe(d, accept_all, prior_kind, exact_mh, conv, fn):
+    return fn(*(conv(d[k]) for k in _ARGS[:17]), prior_kind=prior_kind,
+              exact_mh=exact_mh, accept_all=accept_all)
+
+
+def assert_pe_match(got, want, d):
+    assert len(got) == len(want) == 5
+    for name, g, w in zip(OUT_NAMES[:5], got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
+    for i, k in ((0, "P"), (1, "E")):
+        np.testing.assert_array_equal(got[i] != d[k], want[i] != d[k],
+                                      err_msg=f"{k} decisions")
+
+
+@pytest.mark.parametrize("accept_all", [True, False])
+@pytest.mark.parametrize("shape,prior_kind,exact_mh,zero_row", [
+    ((16, 3, 24), "truncnormal", True, None),
+    ((7, 2, 37), "truncnormal", True, None),
+    ((16, 3, 24), "exponential", True, 1),
+    ((7, 2, 37), "truncnormal", False, None),
+])
+def test_fused_pe_sweeps_matches_jax(shape, prior_kind, exact_mh, zero_row,
+                                     accept_all):
+    """The fixed-rank form (pallas_sweeps.py:449-462) against the JAX
+    function in interpret mode on the same inputs: the five outputs within
+    the file's tolerance, every decision equal, the prior pair untouched."""
+    d = make_inputs(*shape, seed=sum(shape) + 7, prior=prior_kind,
+                    zero_E_row=zero_row)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    got = [o.numpy() for o in run_pe(d, accept_all, prior_kind, exact_mh, t,
+                                     FS.fused_pe_sweeps)]
+    want = [np.asarray(o) for o in run_pe(d, accept_all, prior_kind,
+                                          exact_mh, jnp.asarray,
+                                          jax_pe_sweeps)]
+    assert_pe_match(got, want, d)
+    assert not np.array_equal(got[0], d["P"])
+
+
+def test_fused_pe_sweeps_chain_batch_and_cpu_count():
+    """A chain batch equals its chains' unbatched JAX calls; on CPU tensors
+    the plain version runs and no launch is counted."""
+    ds = [make_inputs(7, 2, 37, seed=s) for s in (21, 22)]
+    batch = {k: np.stack([d[k] for d in ds]) for k in _ARGS[:17]}
+    batch["data"] = ds[0]["data"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    before = FS.fused_pe_sweeps.launches, FS.fused_gibbs_sweeps.launches
+    got = run_pe(batch, False, "truncnormal", True, t, FS.fused_pe_sweeps)
+    assert (FS.fused_pe_sweeps.launches,
+            FS.fused_gibbs_sweeps.launches) == before
+    for c, d in enumerate(ds):
+        d = d | {"data": ds[0]["data"]}
+        want = run_pe(d, False, "truncnormal", True, jnp.asarray,
+                      jax_pe_sweeps)
+        assert_pe_match([o[c].numpy() for o in got],
+                        [np.asarray(o) for o in want], d)
+
+
+def test_fused_pe_sweeps_on_cuda_tensors_launches_the_kernel(monkeypatch):
+    """On CUDA tensors the fixed-rank form goes to the kernel (a zero rank
+    pack, no rank branch, no hyper-sweep) and counts the launch; the plain
+    version is not reached. Checked with a stand-in launcher."""
+    d = make_inputs(7, 2, 37, seed=2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    seen = {}
+
+    def fake_launch(*a):
+        seen["rank_pack"] = a[17].clone()
+        seen["options"] = a[18:]
+        FS.fused_gibbs_sweeps.launches += 1
+        return tuple(x.clone() for x in a[1:7]) + (torch.zeros(1),) * 6
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached for CUDA tensors")
+
+    monkeypatch.setattr(FS, "_launch", fake_launch)
+    monkeypatch.setattr(FS, "fused_gibbs_sweeps_reference", no_plain)
+    monkeypatch.setattr(FS, "_check", lambda *a: None)
+    monkeypatch.setattr(FS.fused_pe_sweeps, "launches", 0)
+    monkeypatch.setattr(FS.fused_gibbs_sweeps, "launches", 0)
+    fake_cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda self: fake_cuda))
+    out = run_pe(d, True, "exponential", False, t, FS.fused_pe_sweeps)
+    assert len(out) == 5
+    assert FS.fused_pe_sweeps.launches == FS.fused_gibbs_sweeps.launches == 1
+    rp = seen["rank_pack"]
+    assert rp.shape == (1, 3, 3) and float(rp.abs().sum()) == 1.0
+    assert float(rp[0, 0, 1]) == 1.0   # only the accept_all flag is set
+    assert seen["options"] == ("exponential", False, None, None, None)
 
 
 # (K, N, G, C) -> (blocks per chain, E slice resident, data/Mhat slices

@@ -26,8 +26,17 @@ from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models.state import state_from_numpy, state_to_numpy
 from bayesnmf_tpu_torch.ops import allocation as AL
+from test_torch_fused_sweeps import jax_erfc_tail
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def erfc_tail():
+    """The JAX fused kernel with the port's erfc tail mass in its proposal
+    (tests/test_torch_fused_sweeps.py::jax_erfc_tail)."""
+    with jax_erfc_tail():
+        yield
 
 K, N, G = 16, 3, 24
 RTOL = 1e-3

@@ -17,6 +17,7 @@ from bayesnmf_tpu.config import ModelSpec as JModelSpec
 from bayesnmf_tpu.parallel import mesh as JM
 from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.ops import allocation as AL
+from bayesnmf_tpu_torch.ops import distributions as D
 from bayesnmf_tpu_torch.parallel import mesh as M
 from bayesnmf_tpu_torch.parallel import multihost as MH
 from bayesnmf_tpu_torch.utils import checkpoint as CK
@@ -132,6 +133,82 @@ def test_shard_generator_keeps_the_block_of_the_one_process_draw(gi):
         2, 18, N, G)[..., g0:g1].reshape(2, 18, -1)], -1)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(sg.get_state(), ref.get_state())
+
+
+def rejecting_planes(C, shape, seed=3):
+    """Pre-drawn gamma uniforms, chain-major (C, 9) + shape, whose four
+    unrolled rounds all reject: the candidates' normal quantiles at the
+    smallest uniform put 1 + c x below 0, so every element goes to the
+    exact rejection loop."""
+    u = torch.rand((C, 9) + tuple(shape),
+                   generator=torch.Generator().manual_seed(seed))
+    u[:, 0:8:2] = D._TINY
+    return u
+
+
+@pytest.mark.parametrize("side", ["P", "E", "sigmasq"])
+def test_gamma_rejection_loop_on_a_mesh_equals_one_process(side):
+    """A gamma draw whose unrolled rounds all reject runs its rejection loop
+    through the mesh's generator (ShardGen, world-1 CPU mesh) and returns
+    the one-process draw: the loop's flag is the operands' G axis (E side:
+    last axis G; sigmasq: inv_gamma over G; P side: none), not the draw."""
+    C, K, N, G = 2, 5, 3, 7
+    shape = {"P": (C, K, N), "E": (C, N, G), "sigmasq": (C, G)}[side]
+    g = side != "P"
+    rng = torch.Generator().manual_seed(11)
+    a = 0.5 + 3.0 * torch.rand(shape, generator=rng)
+    b = 0.5 + torch.rand(shape, generator=rng)
+    u = rejecting_planes(C, shape[1:])
+    draw = D.inv_gamma if side == "sigmasq" else D.gamma
+    sg = M.ShardGen(torch.Generator().manual_seed(5),
+                    M.make_mesh(device="cpu"), C, G)
+    got = draw(sg, a, b, u=u, chain_axis=True, g=g)
+    ref = torch.Generator().manual_seed(5)
+    D.gamma.rounds = 0
+    want = draw(ref, a, b, u=u, chain_axis=True, g=g)
+    assert D.gamma.rounds > 0
+    assert torch.isfinite(want).all() and (want > 0).all()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # the loop drew the same rounds: the generators are still in step
+    np.testing.assert_array_equal(sg.get_state(), ref.get_state())
+
+
+def test_initialize_binds_the_card_of_local_device_ids(monkeypatch):
+    """``local_device_ids``: None changes nothing; an id outside the host's
+    cards raises before any process group exists (on the CPU every id
+    does); a valid id binds this process's card, which the mesh then
+    uses in place of LOCAL_RANK % cards."""
+    monkeypatch.setattr(M, "_bound_card", None)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    assert MH.initialize(local_device_ids=None) is False
+    assert M._bound_card is None
+    assert M.make_mesh(device="cpu").device == torch.device("cpu")
+    for ids in ([0], 0, [-1], []):
+        with pytest.raises(ValueError, match="local_device_ids"):
+            MH.initialize("127.0.0.1:1", 1, 0, local_device_ids=ids)
+    assert not torch.distributed.is_initialized()
+    assert M._bound_card is None
+    # a host of two cards: id 2 is out of range, id 1 binds
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    bound = []
+    monkeypatch.setattr(torch.cuda, "set_device", bound.append)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert M.local_card(0) == 0
+    with pytest.raises(ValueError, match="local_device_ids"):
+        MH.initialize("127.0.0.1:1", 1, 0, local_device_ids=[1, 2])
+    from test_torch_multiproc import free_port
+
+    port = free_port()
+    try:
+        assert MH.initialize(f"127.0.0.1:{port}", 1, 0, backend="gloo",
+                             local_device_ids=[1, 0])
+        assert bound == [1] and M._bound_card == 1
+        assert M.local_card(0) == 1
+        assert M._device_of(0, "cuda") == torch.device("cuda", 1)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_initialize_is_a_no_op_off_cluster(monkeypatch):

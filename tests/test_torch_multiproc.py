@@ -251,6 +251,45 @@ def global_mesh_case(out):
     out["global/local_chains"] = np.int64(samples["metrics"].shape[0])
 
 
+def gamma_operands(side, C=2):
+    """One-process operands of a gamma draw of C chains (P side (C, K, N),
+    E side (C, N, G)) and its chain-major uniform planes, whose four
+    unrolled rounds reject in the last quarter of the entries (on the E
+    side the columns of the second rank's block): those go to the exact
+    rejection loop, the others are done after the unrolled rounds."""
+    shape = (C, K, N) if side == "P" else (C, N, G)
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(rng.uniform(0.5, 3.5, shape).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(1e-6, 1.0, (C, 9) + shape[1:])
+                         .astype(np.float32))
+    last = shape[-1] - max(1, shape[-1] // 4)
+    u[:, 0:8:2, ..., last:] = 1.2e-38
+    return a, b, u
+
+
+def gamma_case(mesh, out):
+    """(e): gamma draws that take the rejection loop through the mesh's
+    generator: this rank's block, or the error the draw raised, and the
+    loop's rounds."""
+    from bayesnmf_tpu_torch.ops import distributions as D
+    from bayesnmf_tpu_torch.parallel import mesh as M
+
+    g0, g1 = M.g_block(G, mesh)
+    for side in ("P", "E"):
+        a, b, u = gamma_operands(side)
+        if side == "E":
+            a, b, u = (x[..., g0:g1].contiguous() for x in (a, b, u))
+        sg = M.ShardGen(torch.Generator().manual_seed(SEED), mesh, 2, G)
+        D.gamma.rounds = 0
+        try:
+            x = D.gamma(sg, a, b, u=u, chain_axis=True, g=side == "E")
+            out[f"gamma/{side}"] = x.numpy()
+        except RuntimeError as e:
+            out[f"gamma/{side}/error"] = np.str_(repr(e))
+        out[f"gamma/{side}/rounds"] = np.int64(D.gamma.rounds)
+
+
 def refuses_odd_chains(mesh) -> bool:
     """An ensemble whose chain count does not split over the chain axis
     raises ValueError."""
@@ -277,6 +316,7 @@ def worker(rank, world, port, n_chain, n_g, tmp):
         for case in PATHS:
             path_case(mesh, case, out)
         fit_case(mesh, tmp, out)
+        gamma_case(mesh, out)
     else:
         mesh = M.make_mesh(n_chain, n_g, device="cpu")
         ensemble_case(mesh, tmp, out)
@@ -424,6 +464,30 @@ def test_g_sharded_chain_equals_one_process(mesh_1x2, case):
             np.testing.assert_array_equal(decisions(got[k]),
                                           decisions(ref[k]), err_msg=k)
     assert not ranks[0]["imports_jax"] and not ranks[1]["imports_jax"]
+
+
+@pytest.mark.parametrize("side", ["P", "E"])
+def test_gamma_rejection_loop_on_a_g_split_mesh(mesh_1x2, side):
+    """(e) A gamma draw whose unrolled rounds reject in part of the entries
+    (on the E side only in the second rank's columns) runs the exact
+    rejection loop through the mesh's generator on both ranks, as many
+    rounds on each, and each rank's block equals the one-process draw's
+    block."""
+    from bayesnmf_tpu_torch.ops import distributions as D
+
+    ranks, _ = mesh_1x2
+    for r in ranks:
+        assert f"gamma/{side}/error" not in r, str(r[f"gamma/{side}/error"])
+    a, b, u = gamma_operands(side)
+    D.gamma.rounds = 0
+    want = D.gamma(torch.Generator().manual_seed(SEED), a, b, u=u,
+                   chain_axis=True).numpy()
+    assert D.gamma.rounds > 0 and np.isfinite(want).all()
+    cols = [(0, G // 2), (G // 2, G)]
+    for r, (g0, g1) in zip(ranks, cols):
+        block = want[..., g0:g1] if side == "E" else want
+        np.testing.assert_array_equal(r[f"gamma/{side}"], block)
+        assert int(r[f"gamma/{side}/rounds"]) == D.gamma.rounds
 
 
 def test_g_sharded_fit_against_the_jax_mesh_fit(mesh_1x2):

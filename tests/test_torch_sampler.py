@@ -214,6 +214,77 @@ def test_conjugate_path_takes_integer_counts(change, MH, ok):
             make()
 
 
+def small_cc():
+    return bt.ConvergenceControl(MAP_over=20, MAP_every=10, miniters=20,
+                                 maxiters=40, Ninarow_nochange=2,
+                                 Ninarow_nobest=3)
+
+
+@pytest.mark.parametrize("value", [False, None, True])
+def test_fused_allocation_is_taken_and_selects_nothing(value):
+    """GibbsSampler takes the JAX sampler's ``fused_allocation``
+    (sampler.py:99, :134-144): None resolves to False as off a TPU, the
+    value is validated into the spec, and the conjugate fit is the fit
+    without the argument (the port has one allocation)."""
+    M = sim_data(seed=3)
+    kw = dict(prior="exponential", MH=False, seed=2, device="cpu",
+              output_dir=None, verbosity=0, convergence_control=small_cc())
+    a = GibbsSampler(M, 2, fused_allocation=value, **kw)
+    assert a.spec.fused_allocation is bool(value)
+    a.run_gibbs_sampler()
+    b = GibbsSampler(M, 2, **kw).run_gibbs_sampler()
+    np.testing.assert_array_equal(a.sample_metrics.to_numpy(),
+                                  b.sample_metrics.to_numpy())
+    for k, v in b.state["params"].items():
+        np.testing.assert_array_equal(a.state["params"][k].numpy(),
+                                      v.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prior="exponential", MH=True),
+    dict(prior="truncnormal", MH=True),
+    dict(likelihood="normal", prior="truncnormal"),
+])
+def test_fused_allocation_outside_conjugate_gibbs_raises_as_jax(kw):
+    """fused_allocation=True with MH or the Normal likelihood raises the
+    JAX sampler's ModelError, with its message."""
+    from bayesnmf_tpu.config import ModelError as JModelError
+    from bayesnmf_tpu.models.sampler import GibbsSampler as JGibbsSampler
+
+    from bayesnmf_tpu_torch.config import ModelError
+
+    M = sim_data(seed=3)
+    with pytest.raises(JModelError) as want:
+        JGibbsSampler(M, 2, fused_allocation=True, output_dir=None,
+                      verbosity=0, **kw)
+    with pytest.raises(ModelError) as got:
+        GibbsSampler(M, 2, fused_allocation=True, device="cpu",
+                     output_dir=None, verbosity=0, **kw)
+    assert str(got.value) == str(want.value)
+    assert "fused_allocation" in str(got.value)
+
+
+def test_fit_forwards_fused_allocation():
+    """``fit`` hands fused_allocation to the sampler, as the JAX fit does
+    through its keywords; under rank_method='BIC' the ensemble does not
+    take it, so the search runs rank by rank with the JAX package's
+    warning (tests/test_ensemble_surface.py:142)."""
+    from bayesnmf_tpu_torch.config import ModelError
+
+    M = sim_data(seed=3)
+    kw = dict(prior="exponential", device="cpu", output_dir=None,
+              verbosity=0, convergence_control=small_cc())
+    s = bt.fit(M, 2, MH=False, fused_allocation=True, **kw)
+    assert s.spec.fused_allocation is True and s.iter > 1
+    with pytest.raises(ModelError, match="fused_allocation"):
+        bt.fit(M, 2, MH=True, fused_allocation=True, **kw)
+    with pytest.warns(UserWarning, match="fused_allocation.*serial per-rank"):
+        res = bt.fit(M, [1, 2], rank_method="BIC", MH=False,
+                     fused_allocation=False, **kw)
+    assert res["best_rank"] in (1, 2)
+    assert res["sampler"].spec.fused_allocation is False
+
+
 @pytest.mark.parametrize("kw", [
     dict(rank=range(1, 4), rank_method="BFI"),
     dict(rank=3, prior="exponential", MH=False),
