@@ -174,7 +174,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    device="cpu" (the state equal, the generator restarted); (e) the
    conjugate loop's it/s at 96x2780 in one process and on the 1x2 mesh of
    the one card, with the all-reduces per iteration: the cost of gloo's
-   host copies on one card, not a scaling figure.
+   host copies on one card, not a scaling figure;
+12. the Geweke gates of tests/test_torch_geweke.py with the kernels on the
+   card (``run_geweke``);
+13. the benchmark (bench_torch.py, ``run_bench``) at short windows: both
+   cells and configs 1..5 (config 5's full 256 x 96x100k shape for 2
+   iterations), each result through JSON and back, ``correct`` true (its
+   launch counts and no plain version among its checks), every metric
+   measured.
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -194,6 +201,13 @@ import tempfile
 import time
 
 import numpy as np
+
+from bayesnmf_tpu_torch.utils.measure import (
+    acol_update_bound, alloc_bound, card_line, count_ops, device_ms,
+    fused_bound, kernel_ms, launch_counters, loop_rates, matched_cosines,
+    metrics_row_bound, n_leaves, pe_bound, plain_calls, profile_loop,
+    profile_run, reset_counts, stream_bound, synthetic, time_ms,
+    update_bound)
 
 RTOL, ATOL = 1e-4, 1e-5
 # (K, N, G, chains, A, hyper-sweep)
@@ -217,14 +231,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -501,64 +507,9 @@ def compare_branches(torch, FS, card):
     return max_err, times
 
 
-def device_ms(torch, fn, reps):
-    """Device time of one call of ``fn``: the kernels' own durations in a
-    profiled window of ``reps`` calls (torch.profiler), over ``reps``. Where
-    a call's kernels are shorter than the host takes to issue them, CUDA
-    events around the calls time the host; this times the card. None when
-    the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages())
-    return dev_us / 1e3 / reps if dev_us > 0 else None
-
-
-def kernel_ms(torch, fn, reps):
-    """(ms on the device, ms per call through the wrapper): the first is
-    the kernel's time; it falls back to the second where the profiler
-    records nothing."""
-    wrapped = time_ms(torch, fn, reps)
-    dev = device_ms(torch, fn, min(reps, 20))
-    return (wrapped if dev is None else dev), wrapped
-
-
-def time_ms(torch, fn, reps):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
-
-
-def matched_cosines(P_est, P_true):
-    from scipy.optimize import linear_sum_assignment
-
-    a = P_est / np.linalg.norm(P_est, axis=0, keepdims=True)
-    b = P_true / np.linalg.norm(P_true, axis=0, keepdims=True)
-    sim = a.T @ b
-    rows, cols = linear_sum_assignment(-sim)
-    return sim[rows, cols]
 
 
 def run_slice(torch, bt, FS, gibbs, card):
@@ -622,129 +573,6 @@ def run_slice(torch, bt, FS, gibbs, card):
     print(f"slice: {hot:.1f} it/s in the Gibbs chunk loop alone "
           f"(500 iterations) on " + card, flush=True)
     return steps / wall
-
-
-# ---------------------------------------------------------------------------
-# bounds: the least time the card could take for a call's work
-# ---------------------------------------------------------------------------
-
-# NVIDIA H100 SXM peaks at 700 W (data sheet): HBM bandwidth and float32
-# outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
-
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): each input read once and each output written
-    once over the memory rate, against the operations over the float32
-    peak."""
-    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
-    return (max(t_mem, t_ops) * 1e3,
-            "bytes" if t_mem >= t_ops else "operations")
-
-
-def fused_bound(K, N, G, C=1, rank=False):
-    """The fused sweep (csrc/fused_sweeps.cu) at one call: bytes of its 22
-    inputs and 12 outputs; operations of the hyper-sweep (~60 a parameter)
-    and of the 2N column updates, each two passes over K*G entries of about
-    8 and 20 operations and a rank-1 update of 2; with the rank branch N
-    inclusion updates, each a pass of 8 operations and a rewrite of 4 over
-    K*G entries."""
-    kn, ng, kg = K * N, N * G, K * G
-    n_in = kg + kn + ng + N + C * kg + 2 * kn + 2 * ng + 3 * kn + 3 * ng \
-        + 2 * kn + 2 * ng + 3 * (N + 1) + 4 * (kn + ng) + 4 * (kn + ng)
-    n_out = 2 * kn + 2 * ng + kg + N + 2 + 2 * kn + 2 * ng
-    ops = 60 * (kn + ng) + 2 * N * kg * (8 + 20 + 2)
-    if rank:
-        ops += N * kg * (8 + 4)
-    return bound(4 * C * (n_in + n_out), C * ops)
-
-
-def pe_bound(K, N, G, C=1):
-    """``fused_pe_sweeps`` at one call: bytes of its 17 inputs and 5
-    outputs, operations of the 2N column updates (as in fused_bound)."""
-    kn, ng, kg = K * N, N * G, K * G
-    n_in = kg + kn + ng + N + C * kg + 2 * kn + 2 * ng + 3 * kn + 3 * ng \
-        + 2 * kn + 2 * ng
-    n_out = 2 * kn + 2 * ng + kg
-    return bound(4 * C * (n_in + n_out), C * 2 * N * kg * (8 + 20 + 2))
-
-
-# operations of one conditional-binomial split (csrc/allocation.cu): the
-# inversion's set-up and 7 a step; BTRS's set-up with two Stirling lgammas
-# and one round with two more, at ~36 a lgamma
-INV_SETUP, INV_STEP, BTRS_OPS = 12, 7, 206
-
-
-def alloc_bound(K, N, G, C, splits, planes):
-    """The allocation (csrc/allocation.cu) at one call: bytes of M, P, A, E
-    (and the uniform planes in planes mode) read once and of Zsum_g, Zsum_k
-    written once; operations of the splits this run's draws need, counted
-    on the plain version by ``count_splits`` (an inversion at the steps its
-    drawn value needs, a BTRS split at one round; the Philox mode's own
-    uniform generation is not counted)."""
-    n_inv, inv_steps, n_btrs = splits[:3]
-    n_in = K * G + C * (K * N + N + N * G)
-    if planes:
-        n_in += C * 17 * (n_leaves(N) - 1) * K * G
-    n_out = C * (K * N + N * G)
-    return bound(4 * (n_in + n_out),
-                 n_inv * INV_SETUP + inv_steps * INV_STEP + n_btrs * BTRS_OPS)
-
-
-def n_leaves(N):
-    return 1 << max(int(np.ceil(np.log2(max(N, 1)))), 0)
-
-
-# operations per (chain, k, g) element of each stream kernel beyond the
-# Mhat rebuild (2N - 1): the formulas in csrc/stream_sweeps.cu, counting a
-# division, log, log1p, max or accumulation as one
-STREAM_OPS = {"pcol_stats": 11, "pcol_accept": 20, "erow_stats": 11,
-              "erow_accept": 20, "acol_delta": 12, "chain_metrics": 12}
-
-
-def stream_bound(name, K, N, G, C):
-    n_in = K * G + C * (N * G + K * N)                    # data, E, PA
-    if name != "chain_metrics":
-        n_in += C * (G + K)                               # en, pn
-    n_out = {"pcol_stats": 2 * K, "pcol_accept": 3 * K,
-             "erow_stats": 2 * G, "erow_accept": 3 * G,
-             "acol_delta": 1, "chain_metrics": 4}[name] * C
-    if name == "pcol_accept":
-        n_in += C * K
-    elif name == "erow_accept":
-        n_in += C * G
-    elif name == "acol_delta":
-        n_in += C
-    ops = C * K * G * (2 * N - 1 + STREAM_OPS[name])
-    return bound(4 * (n_in + n_out), ops)
-
-
-# operations per entry of the metrics row's prior term (sqrt, two
-# divisions, log, log_ndtr at ~20, the quadratic) and acceptance product
-ROW_PRIOR_OPS = 35
-
-
-# the exponential prior's term per entry (log, product, difference,
-# comparison) and the acceptance product
-ROW_EXP_PRIOR_OPS = 6
-
-
-def metrics_row_bound(K, N, G, C, expo=False):
-    """The metrics row (csrc/stream_sweeps.cu: the metrics tile and
-    finishing kernels) at one call: data, E, P, A, both sides' prior pairs
-    (one Lambda a side for the exponential prior) and acceptance records,
-    the NaN events and the two chunk constants read once, the rows written
-    once; operations: the Mhat rebuild and the four data terms per
-    (c, k, g) (STREAM_OPS["chain_metrics"]), and the prior term and the
-    acceptance product per entry of E and P."""
-    planes = 3 if expo else 4
-    n_in = K * G + C * (planes * (N * G + K * N) + N + 1) + 2
-    n_out = 12 * C
-    ops = (C * K * G * (2 * N - 1 + STREAM_OPS["chain_metrics"])
-           + C * (N * G + K * N) * (ROW_EXP_PRIOR_OPS if expo
-                                    else ROW_PRIOR_OPS))
-    return bound(4 * (n_in + n_out), ops)
 
 
 # ---------------------------------------------------------------------------
@@ -1022,35 +850,6 @@ UPDATE_CASES = [(96, 20, 10000, 8, None, ()), (96, 20, 25000, 2, None, ()),
                 (7, 3, 37, 2, None, ()),
                 (16, 3, 300, 2, (1.0, 0.0, 1.0), ("inactive",)),
                 (96, 8, 2000, 2, None, ("tails",))]
-# operations of a column update's epilogue per entry (two conditionals, the
-# draw with ndtr and ndtri, three log-densities with log_ndtr, exp), at ~20
-# a special function
-UPDATE_EPILOGUE_OPS = 150
-
-
-def update_bound(col, K, N, G, C):
-    """One column update (csrc/stream_sweeps.cu): data, E and P*A read once,
-    the column's eight per-entry operands read and its two outputs written
-    once; operations: one Mhat rebuild and both passes' terms per (c, k, g),
-    and the epilogue per entry."""
-    entries = C * (K if col else G)
-    n_in = K * G + C * (N * G + K * N) + C * (G + K) + 8 * entries
-    n_out = 2 * entries
-    ops = (C * K * G * (2 * N - 1 + STREAM_OPS["pcol_stats"]
-                        + STREAM_OPS["pcol_accept"])
-           + entries * UPDATE_EPILOGUE_OPS)
-    return bound(4 * (n_in + n_out), ops)
-
-
-def acol_update_bound(K, N, G, C):
-    """One A-column update (csrc/stream_sweeps.cu): data, E, P and A read
-    once, the prior log-odds, the uniform and the temperature, A[:, n], the
-    delta and the NaN count written once; operations: the Mhat rebuild and
-    the term per (c, k, g), and ~30 for the decision per chain."""
-    n_in = K * G + C * (N * G + K * N + N) + 2 * C + 1
-    n_out = 3 * C
-    ops = C * K * G * (2 * N - 1 + STREAM_OPS["acol_delta"]) + 30 * C
-    return bound(4 * (n_in + n_out), ops)
 
 
 def update_inputs(K, N, G, C, seed, A=None, opts=()):
@@ -1789,15 +1588,6 @@ def run_ensemble(torch, bt, S, card):
 # ---------------------------------------------------------------------------
 
 
-def synthetic(K, G, rank, seed=0):
-    """The synthetic recipe of phase 4: P ~ Dirichlet(0.3), E ~ Gamma(2, 500),
-    M ~ Poisson."""
-    rng = np.random.default_rng(seed)
-    P_true = rng.dirichlet(np.ones(K) * 0.3, rank).T
-    E_true = rng.gamma(2.0, 500.0, (rank, G))
-    return rng.poisson(P_true @ E_true).astype(np.float32), P_true
-
-
 def resume_check(torch, bt, gibbs, s, label):
     """The final checkpoint resumes bit-exactly for 20 iterations."""
     resumed = bt.GibbsSampler.load(os.path.join(s.output_dir,
@@ -1810,32 +1600,6 @@ def resume_check(torch, bt, gibbs, s, label):
           f"{label}: a resumed checkpoint drew other samples")
     print(f"{label}: resumed from the final checkpoint, 20 more iterations "
           "equal the original chain's bit for bit", flush=True)
-
-
-def loop_rate(torch, gibbs, s, n):
-    """Iterations per second of the chunk loop alone, from the fit's final
-    state (after 20 of warm-up)."""
-    temps = np.ones(n, np.float32)
-    state = gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, s.state,
-                            temps[:20], False)[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, state, temps, False)
-    torch.cuda.synchronize()
-    return n / (time.perf_counter() - t0), state
-
-
-def reset_counts(FS, S, AL):
-    FS.fused_gibbs_sweeps.launches = 0
-    FS.fused_pe_sweeps.launches = 0
-    S.reset_launch_counts()
-    AL.allocate_counts.launches = 0
-
-
-def other_launches(S, AL):
-    return (S._run.launches + S.acol_delta.launches
-            + S.stream_acol_update.launches + S.chain_metrics.launches
-            + S.stream_metrics_row.launches + AL.allocate_counts.launches)
 
 
 RANK_K, RANK_G, RANK_TRUE, RANK_MAX = 96, 1000, 8, 20
@@ -1858,7 +1622,7 @@ def run_rank_learning(torch, bt, FS, S, AL, gibbs, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = FS.fused_gibbs_sweeps.launches
-        others = other_launches(S, AL)
+        others = sum(launch_counters(FS, S, AL).values()) - launches
         steps = s.iter - 1
         resume_check(torch, bt, gibbs, s, "rank learning")
     rows = np.concatenate(s._metric_rows)
@@ -1874,7 +1638,7 @@ def run_rank_learning(torch, bt, FS, S, AL, gibbs, card):
     learned = int(np.asarray(s.MAP["A_full"]).sum())
     cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
     check(cos.min() >= 0.9, f"rank learning: matched cosine too low: {cos}")
-    loop, _ = loop_rate(torch, gibbs, s, 300)
+    (loop,), _, _ = loop_rates(torch, gibbs, s, 300)
     print(f"rank learning: fit(96x1000, ranks 1..20, SBFI) ran {steps} "
           f"iterations, converged at {s.tracker.converged_iter} "
           f"({s.tracker.why}); learned rank {learned} (true "
@@ -1930,7 +1694,7 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
             alloc_launches = alloc
         cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
         check(cos.min() >= 0.9, f"{label}: matched cosine too low: {cos}")
-        loop, _ = loop_rate(torch, gibbs, s, 500)
+        (loop,), _, _ = loop_rates(torch, gibbs, s, 500)
         print(f"{label}: fit(96x100, rank 5) ran {steps} iterations "
               f"({s.tracker.why}); launches fused {fused}, allocation "
               f"{alloc}; MAP matched cosine min {cos.min():.4f} mean "
@@ -1943,7 +1707,7 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
     s = bt.GibbsSampler(M4, 8, prior="exponential", MH=False, device="cuda",
                         convergence_control=bt.ConvergenceControl(
                             maxiters=600, miniters=0), seed=0)
-    rate, state = loop_rate(torch, gibbs, s, 500)
+    (rate,), state, _ = loop_rates(torch, gibbs, s, 500)
     from torch.profiler import ProfilerActivity, profile
 
     n_prof = 50
@@ -2091,30 +1855,6 @@ def eager_step_case(torch, bt, gibbs, M, case, kw):
     return err
 
 
-def profile_loop(torch, gibbs, s, state, n):
-    """torch.profiler over ``n`` iterations of the chunk loop from
-    ``state``: (device busy us, wall s, device events, host waits
-    (aten::_local_scalar_dense), their host us)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gibbs.run_chunk(s.spec, s.data, s.hyperprior_params, state,
-                        np.ones(n, np.float32), False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)) for e in ka)
-    events = sum(e.count for e in ka
-                 if getattr(e, "device_type", None) is not None
-                 and "CUDA" in str(e.device_type))
-    waits = [e for e in ka if e.key == "aten::_local_scalar_dense"]
-    return (dev_us, wall, events, sum(e.count for e in waits),
-            sum(e.cpu_time_total for e in waits))
-
-
 def run_eager(torch, bt, FS, S, AL, gibbs, card):
     """Phase 8: the eager sweeps and the Normal likelihood on the card."""
     M, P_true = synthetic(EAGER_K, EAGER_G, EAGER_RANK, seed=3)
@@ -2146,7 +1886,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
                        post_warmup=500, seed=0, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = FS.fused_gibbs_sweeps.launches + other_launches(S, AL)
+            launches = sum(launch_counters(FS, S, AL).values())
             steps = s.iter - 1
             if label == "normal_truncnormal":
                 resume_check(torch, bt, gibbs, s, f"eager (d) {label}")
@@ -2158,7 +1898,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
         cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
         check(cos.min() >= 0.9, f"eager (b) {label}: matched cosine too "
               f"low: {cos}")
-        loop, state = loop_rate(torch, gibbs, s, 200)
+        (loop,), state, _ = loop_rates(torch, gibbs, s, 200)
         check(FS.fused_gibbs_sweeps.launches == 0,
               f"eager (b) {label}: the loop launched the fused kernel")
         fits[label] = (s, state)
@@ -2174,7 +1914,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
     fused = bt.GibbsSampler(M, EAGER_RANK, device="cuda", seed=0,
                             verbosity=0)
     check(fused.spec.fused_sweeps, "a default Poisson-MH fit is not fused")
-    loop, _ = loop_rate(torch, gibbs, fused, 500)
+    (loop,), _, _ = loop_rates(torch, gibbs, fused, 500)
     check(FS.fused_gibbs_sweeps.launches == 520,
           f"fused loop: {FS.fused_gibbs_sweeps.launches} launches for 520 "
           "iterations")
@@ -2192,7 +1932,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
                convergence_control=bt.ConvergenceControl(**EAGER_SBFI_CC))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = FS.fused_gibbs_sweeps.launches + other_launches(S, AL)
+    launches = sum(launch_counters(FS, S, AL).values())
     check(launches == 0, f"eager (c): {launches} kernel launches")
     rows = np.concatenate(s._metric_rows)
     check(np.isfinite(rows).all(), "eager (c): metrics are not finite")
@@ -2355,34 +2095,12 @@ def compare_ensemble_allocation(torch, bt, AL, card, shape=ENS_ALLOC,
     return res
 
 
-def launch_counts(FS, S, AL):
-    return {"fused": FS.fused_gibbs_sweeps.launches, "_run": S._run.launches,
-            "stream_acol_update": S.stream_acol_update.launches,
-            "stream_metrics_row": S.stream_metrics_row.launches,
-            "acol_delta": S.acol_delta.launches,
-            "chain_metrics": S.chain_metrics.launches,
-            "allocation": AL.allocate_counts.launches}
-
-
 def profile_chains(torch, CH, ens, states, acc, n):
     """torch.profiler over ``n`` iterations of the ensemble's chunk loop
     from ``states``: (device busy us, wall s, device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        CH.run_chunk_chains(ens.spec, ens.data, ens.hp, states,
-                            np.ones(n, np.float32), acc, store_E=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)) for e in ka)
-    events = sum(e.count for e in ka
-                 if getattr(e, "device_type", None) is not None
-                 and "CUDA" in str(e.device_type))
-    return dev_us, wall, events
+    return profile_run(torch, lambda: CH.run_chunk_chains(
+        ens.spec, ens.data, ens.hp, states, np.ones(n, np.float32), acc,
+        store_E=False))[:3]
 
 
 def fresh_chains(torch, CH, ens, C, seed=1):
@@ -2485,7 +2203,7 @@ def run_ensembles(torch, bt, FS, S, AL, card):
                      post_warmup=BIC_POST, seed=0, periodic_save=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = launch_counts(FS, S, AL)
+        launches = launch_counters(FS, S, AL)
         ens = res["ensemble"]
         check(ens.spec.fused_sweeps and ens.A_masks is not None,
               "BIC: the parallel route did not run the masked fused path")
@@ -2531,7 +2249,7 @@ def run_ensembles(torch, bt, FS, S, AL, card):
     ens.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts(FS, S, AL)
+    launches = launch_counters(FS, S, AL)
     report_run(torch, CH, ens, "ensemble exponential stream", wall, launches,
                {"_run": (3 * N, 0), "stream_acol_update": (N, 0),
                 "stream_metrics_row": (1, 0)}, P_true, card)
@@ -2551,7 +2269,7 @@ def run_ensembles(torch, bt, FS, S, AL, card):
     ens.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts(FS, S, AL)
+    launches = launch_counters(FS, S, AL)
     report_run(torch, CH, ens, "ensemble conjugate", wall, launches,
                {"allocation": (1, 1)}, P_true, card)
     out["conjugate"] = launches
@@ -2570,7 +2288,7 @@ def run_ensembles(torch, bt, FS, S, AL, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     report_run(torch, CH, ens, "ensemble Normal", wall,
-               launch_counts(FS, S, AL), {}, P_true, card)
+               launch_counters(FS, S, AL), {}, P_true, card)
     chunk_loop(torch, CH, ens, 8, 20, "ensemble Normal", card)
 
     # Poisson MH at config 2's shape: the fused kernel against the
@@ -2621,33 +2339,6 @@ GAMMA_BIC_CC = dict(MAP_over=100, MAP_every=100, miniters=200, maxiters=300,
 # iterations (100 of warmup, 100 of MH)
 REC_CC = dict(MAP_over=100, MAP_every=100, miniters=0, maxiters=100)
 REC_POST = 100
-
-
-# aten ops that make a view or an alias and launch nothing
-VIEW_OPS = {"view", "_unsafe_view", "select", "slice", "unsqueeze", "squeeze",
-            "expand", "permute", "transpose", "t", "reshape", "unflatten",
-            "alias", "as_strided", "detach", "narrow", "split",
-            "split_with_sizes", "unbind", "lift_fresh"}
-
-
-def count_ops(torch, fn):
-    """The tensor ops ``fn()`` issues, counted at PyTorch's dispatcher
-    (views and aliases left out): (ops, host reads)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = reads = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = func.__name__.split(".")[0]
-            if name not in VIEW_OPS:
-                Count.n += 1
-            Count.reads += name == "_local_scalar_dense"
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return Count.n, Count.reads
 
 
 def gamma_step_case(torch, bt, gibbs, AL, M, kw):
@@ -2775,7 +2466,8 @@ def run_gamma(torch, bt, FS, S, AL, gibbs, card):
     wall = time.perf_counter() - t0
     steps = s.iter - 1
     alloc_n = AL.allocate_counts.launches
-    check(alloc_n == steps + 1 and other_launches(S, AL) == alloc_n
+    check(alloc_n == steps + 1
+          and sum(launch_counters(FS, S, AL).values()) == alloc_n
           and FS.fused_gibbs_sweeps.launches == 0,
           f"gamma fit: allocation launches {alloc_n} for {steps} "
           "iterations + 1, or another kernel ran")
@@ -2783,7 +2475,7 @@ def run_gamma(torch, bt, FS, S, AL, gibbs, card):
     check(np.isfinite(rows).all(), "gamma fit: metrics are not finite")
     cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
     check(cos.min() >= 0.9, f"gamma fit: matched cosine too low: {cos}")
-    loop, state = loop_rate(torch, gibbs, s, 100)
+    (loop,), state, _ = loop_rates(torch, gibbs, s, 100)
     n_prof = 20
     dev_us, pwall, events, n_waits, wait_us = profile_loop(
         torch, gibbs, s, state, n_prof)
@@ -2839,7 +2531,7 @@ def run_gamma(torch, bt, FS, S, AL, gibbs, card):
     ens.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts(FS, S, AL)
+    launches = launch_counters(FS, S, AL)
     report_run(torch, CH, ens, "ensemble gamma", wall, launches,
                {"allocation": (1, 1)}, P_true, card)
     ens_alloc_launches = launches["allocation"]
@@ -2884,7 +2576,7 @@ def recorded_stream_run(torch, bt, FS, S, AL, M, record):
         device="cuda", verbosity=0)
     ens.run()
     torch.cuda.synchronize()
-    return (ens, time.perf_counter() - t0, launch_counts(FS, S, AL),
+    return (ens, time.perf_counter() - t0, launch_counters(FS, S, AL),
             torch.cuda.max_memory_allocated())
 
 
@@ -3608,39 +3300,6 @@ GEWEKE_COST = {"conjugate-gamma": 14.0, "conjugate-exponential": 7.0,
                "reference-hypers-fused": 9.5, "fused_pe_sweeps": 0.5}
 
 
-def geweke_counters(FS, S, AL):
-    return {"fused": FS.fused_gibbs_sweeps.launches,
-            "fused_pe": FS.fused_pe_sweeps.launches,
-            "_run": S._run.launches,
-            "stream_acol_update": S.stream_acol_update.launches,
-            "stream_metrics_row": S.stream_metrics_row.launches,
-            "acol_delta": S.acol_delta.launches,
-            "chain_metrics": S.chain_metrics.launches,
-            "allocation": AL.allocate_counts.launches}
-
-
-def count_plain_calls(FS, S, AL):
-    """Wrap every plain version a gate's kernels stand in for with a call
-    counter; returns the counts (a dict the wrappers fill)."""
-    calls = {}
-    for mod, names in ((FS, ("fused_gibbs_sweeps_reference",)),
-                       (AL, ("allocate_counts_reference",)),
-                       (S, ("run_reference", "acol_delta_reference",
-                            "acol_update_reference", "chain_metrics_reference",
-                            "stream_metrics_row_reference",
-                            "pcol_update_reference",
-                            "erow_update_reference"))):
-        for name in names:
-            calls[name] = 0
-
-            def wrapped(*a, _f=getattr(mod, name), _n=name, **k):
-                calls[_n] += 1
-                return _f(*a, **k)
-
-            setattr(mod, name, wrapped)
-    return calls
-
-
 def geweke_tasks():
     """(gate, first chain, end chain, steps, production) tasks of at most
     GEWEKE_CHUNK chains."""
@@ -3682,24 +3341,24 @@ def geweke_worker(args) -> int:
 
     if device == "cuda":
         _build.load_library()   # built by the parent: loaded, not rebuilt
-    calls = count_plain_calls(FS, S, AL)
     tasks = geweke_tasks()
     res = []
-    for i in ids:
-        gate, c0, c1, steps, prod = tasks[i]
-        reset_counts(FS, S, AL)
-        for k in calls:
-            calls[k] = 0
-        t0 = time.perf_counter()
-        means = TG.run_successive(gate, geweke_spec(TG, gate, prod),
-                                  device=device, n_steps=steps,
-                                  chains=range(c0, c1))
-        if device == "cuda":
-            torch.cuda.synchronize()
-        res.append({"task": i, "means": means.tolist(),
-                    "launches": geweke_counters(FS, S, AL),
-                    "plain": dict(calls),
-                    "seconds": time.perf_counter() - t0})
+    with plain_calls(FS, S, AL) as calls:
+        for i in ids:
+            gate, c0, c1, steps, prod = tasks[i]
+            reset_counts(FS, S, AL)
+            for k in calls:
+                calls[k] = 0
+            t0 = time.perf_counter()
+            means = TG.run_successive(gate, geweke_spec(TG, gate, prod),
+                                      device=device, n_steps=steps,
+                                      chains=range(c0, c1))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res.append({"task": i, "means": means.tolist(),
+                        "launches": launch_counters(FS, S, AL),
+                        "plain": dict(calls),
+                        "seconds": time.perf_counter() - t0})
     res.append({"imports_jax": "jax" in sys.modules
                 or "bayesnmf_tpu" in sys.modules})
     with open(os.path.join(out_dir, f"geweke{ids[0]}.json"), "w") as f:
@@ -3842,6 +3501,57 @@ def run_geweke(torch, card, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the benchmark at short windows
+# ---------------------------------------------------------------------------
+
+BENCH_CELLS = {
+    "bl2_fit_96x500_k8": dict(maxiters=300, post_warmup=100, MAP_over=100,
+                              MAP_every=100, fits=1, warmups=1,
+                              loop_iters=100,
+                              loop_reps=1, prof_iters=10, kernel_reps=50,
+                              layer_reps=2, trace=True),
+    "ns_ens_8x96x10k_sbfi": dict(maxiters=200, post_warmup=100, MAP_over=100,
+                                 MAP_every=100, runs=1, warmups=1,
+                                 loop_iters=5,
+                                 loop_reps=1, prof_iters=3, kernel_reps=5,
+                                 trace=True),
+}
+BENCH_CONFIGS = {
+    1: dict(iters=200, reps=1, baseline_iters=1),
+    2: dict(iters=200, reps=1, baseline_iters=1),
+    3: dict(iters=100, reps=1, baseline_iters=1),
+    4: dict(maxiters=600, miniters=300, post_warmup=200),
+    5: dict(iters=5, full_iters=2),
+}
+
+
+def run_bench(card):
+    """Phase 13: bench_torch.py's cells and configs on the card at short
+    windows; each result must survive JSON, be ``correct`` (finite metrics,
+    the launch counts of its path, no plain version, recovery where the
+    truth is known) and measure every metric."""
+    import bench_torch as BT
+
+    for name, (fn, units) in BT.CELLS.items():
+        res = json.loads(json.dumps(fn("cuda", seed=0, **BENCH_CELLS[name])))
+        check(res["correct"], f"bench cell {name}: checks {res['checks']}")
+        missing = [k for k in units if res["metrics"].get(k) is None]
+        check(not missing, f"bench cell {name}: not measured {missing}")
+        check(len(res["breakdown"]["top_device_ops"]) > 0,
+              f"bench cell {name}: the trace holds no device operation")
+        print(f"bench cell {name}: "
+              + ", ".join(f"{k} {res['metrics'][k]['value']:.4g} {u}"
+                          for k, (u, _) in units.items())
+              + f"; iterations {res['iterations']}; on {card}", flush=True)
+        print(f"bench cell {name}: idle gaps "
+              + json.dumps(res["breakdown"]["idle_gaps"]), flush=True)
+    for n, fn in BT.CONFIGS.items():
+        row = json.loads(json.dumps(fn("cuda", **BENCH_CONFIGS[n])))
+        check(row["correct"], f"bench config {n}: {row}")
+        print(f"bench config {n}: " + json.dumps(row), flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2:])
@@ -3948,6 +3658,11 @@ def main() -> int:
     t12 = time.perf_counter()
     geweke = run_geweke(torch, card)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+
+    # phase 13: the benchmark at short windows
+    t13 = time.perf_counter()
+    run_bench(card)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
