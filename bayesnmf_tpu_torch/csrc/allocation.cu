@@ -10,9 +10,10 @@
 //     by BTRS rejection above (the mode when every round rejects). Two
 //     sources of uniforms: pre-drawn planes (C, 17, n2-1, K, G) with 8 BTRS
 //     rounds, as the JAX kernel's interpret mode takes them; or an in-kernel
-//     Philox4x32-10 stream keyed by a device int64 seed, with its counter
-//     (cell, node, block of four, chain), and 8 + 4 rounds, as the TPU core
-//     PRNG mode runs.
+//     Philox4x32-10 stream (csrc/philox.cuh) keyed by (seed, iteration,
+//     site) (ops/rng.py ChainStreams.subkey), with its counter (cell, node,
+//     block of four, chain uid), and 8 + 4 rounds, as the TPU core PRNG mode
+//     runs.
 // (b) What bounds it: the latency of the splits. Each cell runs N-1
 //     dependent binomial draws (a few inversion steps, or BTRS with two
 //     Stirling lgammas a round); the bytes (M, E, the outputs) are a few per
@@ -60,6 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 // Occupancy: the largest tree kept in registers, and the blocks an SM must
@@ -93,30 +96,10 @@ __device__ __forceinline__ float jmin(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
 }
 
-// ---- Philox4x32-10 (Salmon et al., SC'11) ----------------------------------
-
-struct U4 {
-  uint32_t x[4];
-};
-
-__device__ __forceinline__ U4 philox4x32_10(U4 ctr, uint32_t k0,
-                                            uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t lo0 = 0xD2511F53u * ctr.x[0];
-    const uint32_t hi0 = __umulhi(0xD2511F53u, ctr.x[0]);
-    const uint32_t lo1 = 0xCD9E8D57u * ctr.x[2];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, ctr.x[2]);
-    ctr = U4{{hi1 ^ ctr.x[1] ^ k0, lo1, hi0 ^ ctr.x[3] ^ k1, lo0}};
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return ctr;
-}
-
 // The uniforms of one node's draw: planes[i * stride] in planes mode, else
 // the i-th uniform of the node's Philox stream, four per counter block.
-// 24 random bits in (0, 1), as the TPU kernel's fresh_uniform.
+// 24 random bits in [tiny, 1) (philox_uniform), as the TPU kernel's
+// fresh_uniform.
 struct Uniforms {
   const float* plane;
   size_t stride;
@@ -130,8 +113,7 @@ struct Uniforms {
       blk = i >> 2;
       bits = philox4x32_10(U4{{cell, node, (uint32_t)blk, chain}}, k0, k1);
     }
-    return (float)(bits.x[i & 3] & 0xFFFFFFu) * F(5.9604644775390625e-8)
-           + F(2.98023223876953125e-8);
+    return philox_uniform(bits.x[i & 3]);
   }
 };
 
@@ -223,14 +205,15 @@ __device__ __forceinline__ bool padding(int h, int n2, int N) {
 
 struct Args {
   const float *M, *P, *A, *E, *u;
-  const long long* seed;
+  const long long* uids;   // the chains' uids (Philox mode)
+  uint32_t k0, k1;         // the Philox key (Philox mode)
   float *zg, *zk;
   // partials: Zsum_g (C, tiles, K, N), then Zsum_k (C, kblocks, N, G)
   double *part_g, *part_k;
   int C, K, N, G, n_nodes, tiles, kblocks;
-  // a G shard's place in the whole matrix: its first column and chain, and
-  // the whole G (the Philox counter counts cells and chains of the whole)
-  int g0, G_total, c0;
+  // a G shard's place in the whole matrix: its first column and the whole
+  // G (the Philox counter counts the cells of the whole)
+  int g0, G_total;
 };
 
 // One cell (k, g) per thread, the tree of N2 leaves in v[1 .. 2 N2): unrolled
@@ -264,12 +247,7 @@ alloc_kernel(Args a) {
 
   // top-down splits; node counts the splits made, as the planes' node axis
   const bool prng = a.u == nullptr;
-  uint32_t k0 = 0, k1 = 0;
-  if (prng) {
-    const unsigned long long s = (unsigned long long)a.seed[0];
-    k0 = (uint32_t)s;
-    k1 = (uint32_t)(s >> 32);
-  }
+  const uint32_t chain = prng ? (uint32_t)a.uids[c] : 0u;
   int node = 0;
 #pragma unroll (kUnrollTree)
   for (int h = 1; h < N2; ++h) {
@@ -290,9 +268,9 @@ alloc_kernel(Args a) {
     } else {
       Uniforms U;
       if (prng) {
-        U = Uniforms{nullptr, 0, k0, k1,
+        U = Uniforms{nullptr, 0, a.k0, a.k1,
                      (uint32_t)((size_t)k * a.G_total + a.g0 + g),
-                     (uint32_t)node, (uint32_t)(a.c0 + c), -1,
+                     (uint32_t)node, chain, -1,
                      U4{{0u, 0u, 0u, 0u}}};
       } else {
         const size_t plane = (size_t)a.n_nodes * K * G;
@@ -387,20 +365,22 @@ cudaError_t launch_alloc(const Args& a, cudaStream_t s) {
 
 // scratch: C * (tiles * K * N + kblocks * N * G) doubles, tiles =
 // ceil(G / 32), kblocks = ceil(K / 8). On a G shard, M, E and the planes
-// hold columns [g0, g0 + G) of G_total and chains [c0, c0 + C); an unsharded
-// call passes g0 = c0 = 0, G_total = G.
+// hold columns [g0, g0 + G) of G_total; an unsharded call passes g0 = 0,
+// G_total = G. Philox mode (u == nullptr): uids (C,) int64, the key (k0, k1).
 extern "C" int allocate_counts_launch(
     const float* M, const float* P, const float* A, const float* E,
-    const float* u, const long long* seed, float* zg, float* zk,
-    double* scratch, int C, int K, int N, int G, int g0, int G_total, int c0,
-    void* stream) {
-  if (N < 1 || N > kMaxN2 || g0 < 0 || c0 < 0 || g0 + G > G_total)
+    const float* u, const long long* uids, uint32_t k0, uint32_t k1,
+    float* zg, float* zk, double* scratch, int C, int K, int N, int G,
+    int g0, int G_total, void* stream) {
+  if (N < 1 || N > kMaxN2 || g0 < 0 || g0 + G > G_total ||
+      (u == nullptr && uids == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.M = M; a.P = P; a.A = A; a.E = E; a.u = u; a.seed = seed;
+  a.M = M; a.P = P; a.A = A; a.E = E; a.u = u; a.uids = uids;
+  a.k0 = k0; a.k1 = k1;
   a.zg = zg; a.zk = zk;
   a.C = C; a.K = K; a.N = N; a.G = G;
-  a.g0 = g0; a.G_total = G_total; a.c0 = c0;
+  a.g0 = g0; a.G_total = G_total;
   int n2 = 1;
   while (n2 < N) n2 <<= 1;
   a.n_nodes = n2 > 1 ? n2 - 1 : 1;

@@ -31,8 +31,12 @@ here is a batch of one):
   streamed P, E and A sweeps (models/updates.py) and the metrics row (one
   kernel pair); no (C, K, G) tensor exists (gibbs.py:228-264).
 
-Each step's random numbers are one chain-major draw (chain c's its own
-row, in the one-chain layout of the JAX step's keys). ``jax.lax.scan``
+Each step's random numbers come from the chains' counter-based streams
+(``state['gen']``, an ops/rng.ChainStreams at the state's iteration): every
+draw is chain-major, chain c's its own row in the one-chain layout of the
+JAX step's keys, and a function of the seed, the chain's uid, the
+iteration, the draw site and the element alone, so a chain draws the same
+numbers whichever chains share its batch. ``jax.lax.scan``
 becomes a Python loop that writes each step into buffers allocated once a
 chunk on the device (P, E, A and the metrics rows; with ``record='full'``
 also the prior parameters, sigmasq and the acceptance records, as the
@@ -43,10 +47,10 @@ checks that it is done (ops/distributions.gamma), once a draw for all
 chains.
 
 On a mesh (parallel/mesh.py) the eager and conjugate steps run on this
-rank's chains and columns of G: ``state['gen']`` is a ShardGen, which draws
-at the one-process shape and keeps the block, the sweeps' sums over G are
-all-reduced over the g group (models/updates.py), and each step's metrics
-rows take one stacked all-reduce. The fused and streaming kernels do not
+rank's chains and columns of G: ``state['gen']`` is the rank's block of the
+streams, which draws only its elements of each one-process draw, the
+sweeps' sums over G are all-reduced over the g group (models/updates.py),
+and each step's metrics rows take one stacked all-reduce. The fused and streaming kernels do not
 partition over G and refuse a mesh, as the JAX package's do.
 """
 
@@ -100,15 +104,17 @@ def kernel_rank_method(spec: ModelSpec):
 # ---------------------------------------------------------------------------
 
 
-def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
-               gen: torch.Generator, init_params=None,
-               init_prior_params=None, chains=None) -> dict:
+def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor, gen,
+               init_params=None, init_prior_params=None,
+               chains=None) -> dict:
     """Initial state on ``data``'s device: prior parameters from the
     hyperpriors, P and E from the priors, with rank learning
     R ~ Uniform{0..N}, A_n ~ Bern(p1(R)), on the conjugate path the
     latent counts' sums, and with the Normal likelihood sigmasq from its
-    conditional; iteration 1 (gibbs.py:41-92). With ``chains`` = C
-    every tensor has a leading chain axis of C independent draws.
+    conditional; iteration 1 (gibbs.py:41-92). ``gen``: the chains' streams
+    (ops/rng.ChainStreams; one uid without ``chains``), which draw these
+    at iteration 0; the state carries them at iteration 1. With ``chains``
+    = C every tensor has a leading chain axis of C independent draws.
     ``init_params`` / ``init_prior_params`` entries override the draws (the
     same value for every chain); ``init_prior_params`` "alpha" and "beta"
     set the sigmasq prior, broadcast to length G."""
@@ -120,6 +126,8 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
         t = torch.as_tensor(np.asarray(v, dtype), device=dev)
         return t if chains is None else t.expand(lead + t.shape).clone()
 
+    state_gen = gen.at(1)
+    gen = gen.at(0)
     prior = U.init_prior_params(spec, hp, gen, dev, chains)
     for name, v in (init_prior_params or {}).items():
         if name in ("alpha", "beta"):
@@ -129,10 +137,13 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
     params = {"P": U._prior_draw_P(spec, prior, gen),
               "E": U._prior_draw_E(spec, prior, gen)}
     if spec.learning_rank:
-        params["R"] = torch.randint(0, spec.N + 1, lead, generator=gen,
-                                    device=dev, dtype=torch.int32)
+        c_dim = None if chains is None else 0
+        # R ~ Uniform{0..N} as floor(u (N + 1)), u in [tiny, 1)
+        u = gen.uniform("R", lead + (1,), c_dim)[..., 0]
+        params["R"] = torch.floor(u * (spec.N + 1)).clamp_max_(spec.N).to(
+            torch.int32)
         p1 = U.prior_prob_1(params["R"].to(torch.float32), spec.N)
-        u = torch.rand(lead + (spec.N,), generator=gen, device=dev)
+        u = gen.uniform("A", lead + (spec.N,), c_dim)
         params["A"] = (u < p1.unsqueeze(-1)).to(torch.float32)
     else:
         params["R"] = torch.full(lead, spec.N, dtype=torch.int32, device=dev)
@@ -146,7 +157,7 @@ def init_state(spec: ModelSpec, hp: dict, data: torch.Tensor,
         params["sigmasq"] = U.sample_sigmasq(
             spec, data, prior, m.mhat(params["P"], params["A"], params["E"]),
             gen)
-    state = {"params": params, "prior": prior, "gen": gen, "iter": 1}
+    state = {"params": params, "prior": prior, "gen": state_gen, "iter": 1}
     if spec.MH:
         state["acc_P"] = torch.ones(lead + (spec.K, spec.N), **f32)
         state["acc_E"] = torch.ones(lead + (spec.N, spec.G), **f32)
@@ -206,6 +217,41 @@ def _temp_tensor(temperature, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def streams_of(state: dict):
+    """The state's streams at its iteration (None where the state carries
+    none: a caller that feeds every draw as noise)."""
+    return _advance(state.get("gen"), state["iter"])
+
+
+def _advance(gen, it: int):
+    """``gen`` at iteration ``it`` (None stays None)."""
+    return None if gen is None else gen.at(it)
+
+
+def draw_launches(spec: ModelSpec, init: bool = False) -> int:
+    """Launches of the draw kernel (ops/rng.philox_fill) a step of ``spec``'s
+    path makes when it draws its own noise (``init``: the initial state's),
+    besides one a round of a gamma draw's exact rejection loop
+    (ops/distributions.gamma.rounds)."""
+    truncnormal = spec.prior == "truncnormal"
+    if init:
+        # the prior parameters (two a side), P and E, R and A, sigmasq
+        return (2 if spec.prior == "exponential" else 4) + 2 \
+            + 2 * spec.learning_rank + spec.needs_sigmasq
+    if spec.stream_sweeps:
+        exact = truncnormal and spec.exact_truncnorm_hypers
+        return 1 + exact + 4 * (truncnormal and not exact)
+    if spec.likelihood == "poisson" and not spec.MH:
+        # the prior update (Lambda, or Beta and the slice pass), P, E, R, A
+        return (2 if spec.prior == "exponential" else 3) + 2 \
+            + 2 * spec.learning_rank
+    if not spec.fused_sweeps:
+        return 1 + truncnormal
+    if hyper_in_kernel(spec):
+        return 1
+    return 1 + (2 if spec.prior == "exponential" else 4)
+
+
 def _one_chain(step, spec, data, hp, state, temperature, accept_all,
                metric_consts, noise, **kw):
     """Run ``step`` on one chain's state (no chain axis) as a batch of one:
@@ -254,8 +300,9 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     rank learning the R draw and the A sweep. ``u`` is the flat uniform
     tensor of length ``n_uniforms(spec)`` per chain ((C, n) with a chain
     axis, each chain's row laid out as at gibbs.py:175-207); when None it
-    is drawn from ``state['gen']``. ``temperature`` is a float or a 0-d
-    tensor on the device; ``accept_all`` a bool or a (C,) bool tensor.
+    is drawn from ``state['gen']`` at site "fused". ``temperature`` is a
+    float or a 0-d tensor on the device; ``accept_all`` a bool or a (C,)
+    bool tensor.
     ``sample_out`` holds P, E, A and the metrics row, which goes to
     ``metrics_out`` ((C, N_METRICS), a slice of a chunk buffer) when given;
     ``record='full'`` adds what ``_sample_out`` lists.
@@ -279,6 +326,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
                           consts=consts, record=record)
     K, N, G = spec.K, spec.N, spec.G
     dev = data.device
+    gen = streams_of(state)
     params = dict(state["params"])
     prior = dict(state["prior"])
     C = params["P"].shape[0]
@@ -286,7 +334,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         consts = step_constants(spec, hp, dev, C)
     in_kernel = hyper_in_kernel(spec)
     if not in_kernel:
-        prior = U.sample_prior_params(spec, hp, params, prior, state["gen"],
+        prior = U.sample_prior_params(spec, hp, params, prior, gen,
                                       noise=(noise or {}).get("prior"))
 
     # fresh Mhat every iteration, so the sweeps' rank-1 updates cannot
@@ -295,8 +343,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
 
     n_p, n_e = K * N, N * G
     if u is None:
-        u = torch.rand((C, n_uniforms(spec)), generator=state["gen"],
-                       device=dev).clamp_min_(_TINY)
+        u = gen.uniform("fused", (C, n_uniforms(spec))).clamp_min_(_TINY)
 
     def cut(off, shape):
         # a view for one chain; the kernel takes each plane contiguous, so
@@ -342,19 +389,20 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         params["R"] = R_new.to(torch.int32)
 
     new_iter = state["iter"] + 1
-    new_state = {"params": params, "prior": prior, "gen": state["gen"],
-                 "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
+    new_state = {"params": params, "prior": prior,
+                 "gen": _advance(gen, new_iter), "iter": new_iter,
+                 "acc_P": acc_P, "acc_E": acc_E}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, acc_P, acc_E, na_events,
                            metric_consts, metrics_out)
     return new_state, _sample_out(spec, new_state, metrics, record)
 
 
-def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
-                     chains=None) -> dict:
-    """All random numbers of one eager step: one uniform draw and one
-    normal draw, cut into views laid out as the JAX step draws them from its
-    keys (gibbs.py:121-132, updates.py:91-203, :266-531, :776-886): the
+def draw_eager_noise(spec: ModelSpec, gen, device, chains=None) -> dict:
+    """All random numbers of one eager step: one uniform draw (site
+    eager_u) and one normal draw (eager_z) from the streams ``gen``, cut
+    into views laid out as the JAX step draws them from its keys
+    (gibbs.py:121-132, updates.py:91-203, :266-531, :776-886): the
     prior update's ({"p", "e"}: gamma planes for the exponential prior;
     {"z", "u"} for the exact truncnormal hyper-sweep; {"mu_p", "mu_e",
     "sq_p", "sq_e"} for the conjugate one), each sweep's {"prior_u", "u"},
@@ -362,11 +410,11 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
     and with the Normal likelihood sigmasq's gamma planes. With ``chains``
     = C each draw is chain-major, (C, total), and every view has a leading
     chain axis: chain c's noise is row c, in the one-chain layout. On a
-    mesh (``gen`` a ShardGen) both draws are made at the one-process
-    layout (all chains, all of G) and each view is this rank's block:
-    its chains, and of the parts with a G axis its columns."""
+    mesh (``gen`` a rank's block) each view is this rank's block of the
+    one-process layout's (all chains, all of G): its chains, and of the
+    parts with a G axis its columns."""
     K, N = spec.K, spec.N
-    G = getattr(gen, "G_local", spec.G)
+    G = gen.G_local or spec.G
     kn, ng = (K, N), (N, G)
     tn = (2,) if spec.prior == "truncnormal" else ()
     uni = {("P", "prior_u"): tn + kn, ("P", "u"): (3, N, K),
@@ -395,10 +443,13 @@ def draw_eager_noise(spec: ModelSpec, gen: torch.Generator, device,
 
     noise = {}
     for shapes, normal in ((uni, False), (nrm, True)):
+        if not shapes:
+            continue
         sizes = [int(np.prod(s)) for s in shapes.values()]
         parts = [seg for path, shape in shapes.items()
                  for seg in segments(path, shape)]
-        flat = U._flat(gen, (C,), parts, device, normal)
+        flat = gen.flat("eager_z" if normal else "eager_u", (C,), parts,
+                        normal)
         if not normal:
             flat.clamp_min_(_TINY)
         for (path, shape), part in zip(shapes.items(),
@@ -422,12 +473,12 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     from the final Mhat, then the metrics row; for one chain or C chains at
     once (see gibbs_step). ``noise`` (draw_eager_noise's layout) is drawn
     from ``state['gen']`` when None; a part it lacks comes from the
-    generator too. Nothing waits for the device except the gamma draws'
+    streams too. Nothing waits for the device except the gamma draws'
     rejection loops (ops/distributions.gamma), one wait a draw for all C."""
     if state["params"]["P"].dim() == 2:
         return _one_chain(eager_step, spec, data, hp, state, temperature,
                           accept_all, metric_consts, noise, record=record)
-    gen = state["gen"]
+    gen = streams_of(state)
     params = dict(state["params"])
     C = params["P"].shape[0]
     if noise is None:
@@ -457,8 +508,8 @@ def eager_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         params["sigmasq"] = U.sample_sigmasq(spec, data, prior, Mh, gen,
                                              u=noise.get("sigmasq"))
     new_iter = state["iter"] + 1
-    new_state = {"params": params, "prior": prior, "gen": gen,
-                 "iter": new_iter}
+    new_state = {"params": params, "prior": prior,
+                 "gen": _advance(gen, new_iter), "iter": new_iter}
     if spec.MH:
         new_state |= {"acc_P": acc_P, "acc_E": acc_E}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
@@ -486,7 +537,7 @@ def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
             lambda sp, d, h, st, t, _a, mc, noise: conjugate_step(
                 sp, d, h, st, t, mc, noise, record=record),
             spec, data, hp, state, temperature, None, metric_consts, noise)
-    gen = state["gen"]
+    gen = streams_of(state)
     noise = noise or {}
     params = dict(state["params"])
     prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
@@ -506,8 +557,8 @@ def conjugate_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     params["Zsum_g"], params["Zsum_k"] = U.sample_Z_sums(
         spec, data, params, gen, u=noise.get("Z"))
     new_iter = state["iter"] + 1
-    new_state = {"params": params, "prior": prior, "gen": gen,
-                 "iter": new_iter}
+    new_state = {"params": params, "prior": prior,
+                 "gen": _advance(gen, new_iter), "iter": new_iter}
     metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
                            temperature, None, None, na_events, metric_consts,
                            metrics_out, Mesh.mesh_of(gen))
@@ -613,11 +664,11 @@ def snapshot_sample(spec: ModelSpec, data, state: dict, temperature,
 # ---------------------------------------------------------------------------
 
 
-def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
-                      device) -> dict:
+def draw_stream_noise(spec: ModelSpec, chains: int, gen, device) -> dict:
     """All random numbers of one streaming step for ``chains`` chains: one
-    chain-major uniform draw and one normal draw, cut into views laid out
-    as the JAX step draws them from its keys (gibbs.py:121-132): the
+    chain-major uniform draw (site stream_u) and, for the exact hyper-sweep,
+    one normal draw (stream_z) from the streams ``gen``, cut into views laid
+    out as the JAX step draws them from its keys (gibbs.py:121-132): the
     exponential prior's gamma planes or the exact hyper-sweep's noise, each
     sweep's prior-draw uniforms and column uniforms, and with rank learning
     the Gumbel noise and the A uniforms."""
@@ -634,8 +685,8 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
     if spec.learning_rank:
         shapes |= {"R": (N + 1,), "A": (N,)}
     sizes = {k: int(np.prod(s)) for k, s in shapes.items()}
-    u = torch.rand((chains, sum(sizes.values())), generator=gen,
-                   device=device).clamp_min_(_TINY)
+    u = gen.uniform("stream_u", (chains, sum(sizes.values()))).clamp_min_(
+        _TINY)
     views, off = {}, 0
     for k, s in shapes.items():
         views[k] = u[:, off:off + sizes[k]].view((chains,) + s)
@@ -647,8 +698,7 @@ def draw_stream_noise(spec: ModelSpec, chains: int, gen: torch.Generator,
     if expo:
         noise["prior"] = {"p": views["Lambda_p"], "e": views["Lambda_e"]}
     elif spec.exact_truncnorm_hypers:
-        noise["prior"] = {"z": torch.randn((chains, nh), generator=gen,
-                                           device=device),
+        noise["prior"] = {"z": gen.normal("stream_z", (chains, nh)),
                           "u": views["prior"]}
     if spec.learning_rank:
         noise["R"] = -torch.log(-torch.log(views["R"]))
@@ -676,14 +726,15 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     """
     if Mesh.mesh_of(state["gen"]) is not None:
         raise ValueError(STREAM_MESH_ERROR)
+    gen = streams_of(state)
     params = dict(state["params"])
     C = params["P"].shape[0]
     if noise is None:
-        noise = draw_stream_noise(spec, C, state["gen"], data.device)
+        noise = draw_stream_noise(spec, C, gen, data.device)
     if metric_consts is None:
         metric_consts = m.metric_constants(spec.likelihood, data)
-    prior = U.sample_prior_params(spec, hp, params, state["prior"],
-                                  state["gen"], noise=noise.get("prior"))
+    prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
+                                  noise=noise.get("prior"))
     params["P"], acc_P, nan_P = U.stream_sweep_P(
         spec, data, params, prior, state["acc_P"], accept_all,
         noise=noise["P"])
@@ -698,8 +749,9 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
             spec, data, params, params["R"], temperature, u=noise["A"])
         na_events = na_events + nan_A
     new_iter = state["iter"] + 1
-    new_state = {"params": params, "prior": prior, "gen": state["gen"],
-                 "iter": new_iter, "acc_P": acc_P, "acc_E": acc_E}
+    new_state = {"params": params, "prior": prior,
+                 "gen": _advance(gen, new_iter), "iter": new_iter,
+                 "acc_P": acc_P, "acc_E": acc_E}
     hp_p, hp_e = (U._stream_prior(spec, prior, side) for side in "pe")
     metrics = S.stream_metrics_row(
         data, params["P"], params["E"], params["A"], acc_P, acc_E, *hp_p,

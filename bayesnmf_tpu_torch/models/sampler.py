@@ -61,6 +61,7 @@ from . import gibbs
 from .convergence import ConvergenceTracker
 from .map_estimate import compute_map, map_quality_metrics
 from .updates import lift
+from ..ops.rng import ChainStreams
 
 _ROADMAP = "not ported yet (see ROADMAP.md queue 1)"
 
@@ -303,20 +304,19 @@ class GibbsSampler:
         self.logger.log(f"MAP_every = {self.cc.MAP_every}", 1)
         self.logger.indent = 0
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        # on a mesh every rank builds the one-process initial state and
-        # keeps its block
+        # the chain's stream has uid 0; on a mesh every rank builds the
+        # one-process initial state and keeps its block
         self.state = gibbs.init_state(
-            spec, self.hyperprior_params, full, gen,
+            spec, self.hyperprior_params, full,
+            ChainStreams(seed, [0], device=self.device),
             init_params=init_params, init_prior_params=init_prior_params)
         del full
         if mesh is not None:
+            gen = self.state["gen"]
             self.state = Mesh.local(self.state,
                                     Mesh.state_layout(spec, chains=False),
                                     mesh, spec.G)
-            self.state["gen"] = Mesh.ShardGen(gen, mesh, 1, spec.G,
-                                              split_chains=False)
+            self.state["gen"] = gen.block(mesh, spec.G, split_chains=False)
         self.tracker = ConvergenceTracker(self.cc)
         self.iter = 1
         self.time = {}
@@ -666,9 +666,8 @@ class GibbsSampler:
         """Resume from a checkpoint: on the device it was saved from, or on
         ``device``, or split over ``mesh`` (a checkpoint does not record a
         mesh: one written on a mesh loads in one process and the other way
-        round, and the chain continues). On a device of another type than
-        the saved one the state carries over exactly but the generator
-        restarts (utils/checkpoint.py)."""
+        round, and the chain continues). The chain's stream continues on
+        either device type (utils/checkpoint.py)."""
         from ..utils.checkpoint import load_sampler
 
         return load_sampler(cls, path, mesh=mesh, device=device)

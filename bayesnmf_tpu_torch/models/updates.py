@@ -33,13 +33,15 @@ branch on device data is a ``torch.where``, so no call waits for the
 device but the gamma draws' rejection check. Each function takes its
 random numbers as optional ``noise`` operands laid out as the JAX function
 draws them from its key (the tests feed it the JAX draws); when ``noise``
-is None they come from ``gen``.
+is None they come from ``gen``, the chains' random streams
+(ops/rng.ChainStreams), each draw at its own site.
 
-On a mesh (parallel/mesh.py) ``gen`` is a ShardGen: the tensors with a G
-axis are this rank's columns, every draw is made at the one-process shape
-and cut to the block, and each sum over G (the P sweep's, the A sweep's
-deltas, the P draw's rate, Zsum_g) is a local sum all-reduced over the g
-group, so that the P side comes out alike on every rank of the group.
+On a mesh (parallel/mesh.py) ``gen`` is a rank's block of the streams: the
+tensors with a G axis are this rank's columns, every draw gives each of
+its elements the value of the one-process draw, and each sum over G (the
+P sweep's, the A sweep's deltas, the P draw's rate, Zsum_g) is a local sum
+all-reduced over the g group, so that the P side comes out alike on every
+rank of the group.
 """
 
 from __future__ import annotations
@@ -65,20 +67,19 @@ def _full(hp, name, shape, device):
                       device=device)
 
 
-def _rand(gen, shape, device, low=_U_MIN, g=False):
-    """Uniforms of ``shape`` (leading axis the chains; with ``g`` the last
-    G) floored at ``low``."""
-    return dist.draw(gen, shape, device, 0, g).clamp_min_(low)
+def _rand(gen, site, shape, g=False, c_dim=0):
+    """Uniforms of ``shape`` at ``site`` (dim ``c_dim`` the chains, None
+    for one chain without the axis; with ``g`` the last dim G), in
+    [1.2e-38, 1)."""
+    return gen.uniform(site, shape, c_dim, g).clamp_min_(_U_MIN)
 
 
-def _flat(gen, lead, parts, device, normal=False):
-    """A draw ``lead + (T,)`` whose last axis concatenates ``parts``, each
-    (rows, cols, g): a rows x cols block, its cols this rank's columns of G
-    when ``g`` on a mesh (ShardGen.draw_flat)."""
-    if isinstance(gen, torch.Generator) or gen is None:
-        T = sum(r * c for r, c, _ in parts)
-        return dist.draw(gen, tuple(lead) + (T,), device, normal=normal)
-    return gen.draw_flat(tuple(lead), parts, normal)
+def _flat(gen, site, lead, parts, chained, normal=False):
+    """``gen.flat`` of ``lead + (T,)``: with ``chained`` lead[0] is the
+    chain axis, else the draw is one chain's (as a batch of one)."""
+    if chained:
+        return gen.flat(site, lead, parts, normal)
+    return gen.flat(site, (1,) + tuple(lead), parts, normal)[0]
 
 
 def lift(x):
@@ -107,8 +108,8 @@ def drop(x):
 # ---------------------------------------------------------------------------
 
 
-def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
-                      device, chains=None) -> dict:
+def init_prior_params(spec: ModelSpec, hp: dict, gen, device,
+                      chains=None) -> dict:
     """Draw the prior parameters of P and E from their hyperpriors
     (init_prior_params_, sample_priors.R:15-141): Mu/Sigmasq for the
     truncnormal prior, Lambda ~ Gamma(a, b) for the exponential one,
@@ -118,30 +119,38 @@ def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
     resampled; with ``chains`` = C, one draw per chain on a leading axis."""
     lead = () if chains is None else (chains,)
     kn, ng = lead + (spec.K, spec.N), lead + (spec.N, spec.G)
+    kw = dict(chain_axis=chains is not None)
     if spec.prior == "gamma":
         prior = {}
         for side, shape in (("p", kn), ("e", ng)):
             for name, (a, b) in (("Beta", "ab"), ("Alpha", "cd")):
                 prior[f"{name}_{side}"] = dist.gamma(
                     gen, _full(hp, f"{a}_{side}", shape, device),
-                    _full(hp, f"{b}_{side}", shape, device))
+                    _full(hp, f"{b}_{side}", shape, device),
+                    site=f"{name.lower()}_{side}", g=side == "e", **kw)
     elif spec.prior == "exponential":
         prior = {
             "Lambda_p": dist.gamma(gen, _full(hp, "a_p", kn, device),
-                                   _full(hp, "b_p", kn, device)),
+                                   _full(hp, "b_p", kn, device),
+                                   site="lambda_p", **kw),
             "Lambda_e": dist.gamma(gen, _full(hp, "a_e", ng, device),
-                                   _full(hp, "b_e", ng, device)),
+                                   _full(hp, "b_e", ng, device),
+                                   site="lambda_e", g=True, **kw),
         }
     else:
         prior = {
             "Mu_p": dist.normal(gen, _full(hp, "m_p", kn, device),
-                                _full(hp, "s_p", kn, device)),
+                                _full(hp, "s_p", kn, device),
+                                site="mu_p", **kw),
             "Sigmasq_p": dist.inv_gamma(gen, _full(hp, "a_p", kn, device),
-                                        _full(hp, "b_p", kn, device)),
+                                        _full(hp, "b_p", kn, device),
+                                        site="sq_p", **kw),
             "Mu_e": dist.normal(gen, _full(hp, "m_e", ng, device),
-                                _full(hp, "s_e", ng, device)),
+                                _full(hp, "s_e", ng, device),
+                                site="mu_e", g=True, **kw),
             "Sigmasq_e": dist.inv_gamma(gen, _full(hp, "a_e", ng, device),
-                                        _full(hp, "b_e", ng, device)),
+                                        _full(hp, "b_e", ng, device),
+                                        site="sq_e", g=True, **kw),
         }
     if spec.likelihood == "normal":
         for name, key in (("Alpha_sig", "alpha"), ("Beta_sig", "beta")):
@@ -151,35 +160,39 @@ def init_prior_params(spec: ModelSpec, hp: dict, gen: torch.Generator,
     return prior
 
 
-def _prior_draw_P(spec: ModelSpec, prior: dict, gen: torch.Generator,
-                  u=None):
+def _prior_draw(spec: ModelSpec, prior: dict, gen, u, side: str):
+    """A full P (``side`` "p") or E ("e") from the prior; drawn at site
+    prior_P / prior_E when ``u`` is None."""
+    site = "prior_" + side.upper()
+    first = {"gamma": "Alpha_", "exponential": "Lambda_"}.get(spec.prior,
+                                                              "Mu_")
+    kw = dict(chain_axis=prior[first + side].dim() == 3, g=side == "e")
+    if spec.prior == "gamma":
+        return dist.gamma(gen, prior[f"Alpha_{side}"], prior[f"Beta_{side}"],
+                          u=u, site=site, **kw)
+    if spec.prior == "exponential":
+        return dist.exponential(gen, prior[f"Lambda_{side}"], u=u, site=site,
+                                **kw)
+    mu, sq = prior[f"Mu_{side}"], prior[f"Sigmasq_{side}"]
+    if u is None:
+        return dist.truncnorm_nonneg(gen, mu, sq, site, **kw)
+    return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
+                                        mu, sq)
+
+
+def _prior_draw_P(spec: ModelSpec, prior: dict, gen, u=None):
     """A full P from the prior (sample_Pn.R:12-29); ``u``: for the
     truncnormal prior the two uniform planes on dim -3 (the JAX draw's
     (2, K, N), with the chain axis first), for the exponential prior the
     one plane of jax.random.exponential's uniforms, for the gamma prior the
-    gamma draw's planes (9, K, N), or (C, 9, K, N)."""
-    if spec.prior == "gamma":
-        return dist.gamma(gen, prior["Alpha_p"], prior["Beta_p"], u=u,
-                          chain_axis=prior["Alpha_p"].dim() == 3)
-    if spec.prior == "exponential":
-        return dist.exponential(gen, prior["Lambda_p"], u=u)
-    if u is None:
-        return dist.truncnorm_nonneg(gen, prior["Mu_p"], prior["Sigmasq_p"])
-    return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
-                                        prior["Mu_p"], prior["Sigmasq_p"])
+    gamma draw's planes (9, K, N), or (C, 9, K, N); drawn from ``gen`` at
+    site prior_P when None."""
+    return _prior_draw(spec, prior, gen, u, "p")
 
 
-def _prior_draw_E(spec: ModelSpec, prior: dict, gen: torch.Generator,
-                  u=None):
-    if spec.prior == "gamma":
-        return dist.gamma(gen, prior["Alpha_e"], prior["Beta_e"], u=u,
-                          chain_axis=prior["Alpha_e"].dim() == 3)
-    if spec.prior == "exponential":
-        return dist.exponential(gen, prior["Lambda_e"], u=u)
-    if u is None:
-        return dist.truncnorm_nonneg(gen, prior["Mu_e"], prior["Sigmasq_e"])
-    return dist.truncnorm_nonneg_from_u(u.select(-3, 0), u.select(-3, 1),
-                                        prior["Mu_e"], prior["Sigmasq_e"])
+def _prior_draw_E(spec: ModelSpec, prior: dict, gen, u=None):
+    """_prior_draw_P's mirror for E (site prior_E)."""
+    return _prior_draw(spec, prior, gen, u, "e")
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +259,8 @@ def _sample_lambda(spec: ModelSpec, hp: dict, params: dict, prior: dict,
         new[f"Lambda_{side}"] = dist.gamma(
             gen, torch.full_like(x, float(hp[f"a_{side}"])) + 1.0,
             torch.full_like(x, float(hp[f"b_{side}"])) + x,
-            u=noise.get(side), chain_axis=x.dim() == 3, g=side == "e")
+            u=noise.get(side), chain_axis=x.dim() == 3, g=side == "e",
+            site=f"lambda_{side}")
     return new
 
 
@@ -282,7 +296,8 @@ def _sample_gamma_prior(spec: ModelSpec, hp: dict, params: dict,
             gen, torch.full_like(x, float(hp[f"a_{side}"]))
             + prior[f"Alpha_{side}"],
             torch.full_like(x, float(hp[f"b_{side}"])) + x,
-            u=noise.get(side), chain_axis=chained, g=side == "e")
+            u=noise.get(side), chain_axis=chained, g=side == "e",
+            site=f"beta_{side}")
 
     def flat_pair(p, e):
         return torch.cat([p.reshape(lead + (-1,)), e.reshape(lead + (-1,))],
@@ -299,8 +314,8 @@ def _sample_gamma_prior(spec: ModelSpec, hp: dict, params: dict,
 
     sl = noise.get("slice")
     if sl is None:
-        u = _flat(gen, lead + (18,), [(1, n_p, False),
-                                      (spec.N, E.shape[-1], True)], dev)
+        u = _flat(gen, "slice", lead + (18,),
+                  [(1, n_p, False), (spec.N, E.shape[-1], True)], chained)
         sl = {"e": -torch.log1p(-u.select(-2, 0)), "u_l": u.select(-2, 1),
               "u_s": u.narrow(-2, 2, 16)}
     alpha = dist.slice_sample_logconcave(
@@ -332,13 +347,14 @@ def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
         den = 1.0 / s0 + 1.0 / sq
         mu = dist.normal(gen, num / den, 1.0 / den,
                          z=noise.get(f"mu_{side}"),
-                         chain_axis=x.dim() == 3, g=side == "e")
+                         chain_axis=x.dim() == 3, g=side == "e",
+                         site=f"mu_{side}")
         d = x - mu
         new[f"Mu_{side}"] = mu
         new[f"Sigmasq_{side}"] = dist.inv_gamma(
             gen, h(f"a_{side}") + 0.5, h(f"b_{side}") + 0.5 * d * d,
             u=noise.get(f"sq_{side}"), chain_axis=x.dim() == 3,
-            g=side == "e")
+            g=side == "e", site=f"sq_{side}")
     return new
 
 
@@ -373,8 +389,10 @@ def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
     n_t = n_p + n_e
     if noise is None:
         parts = [(1, n_p, False), (N, G, True)] * 2
-        noise = {"z": _flat(gen, lead, parts, P.device, normal=True),
-                 "u": _flat(gen, lead, parts, P.device).clamp_min_(_U_MIN)}
+        chained = P.dim() == 3
+        noise = {"z": _flat(gen, "hyper_z", lead, parts, chained, True),
+                 "u": _flat(gen, "hyper_u", lead, parts, chained).clamp_min_(
+                     _U_MIN)}
     z, lu = noise["z"], torch.log(noise["u"])
 
     def parts(x):
@@ -460,9 +478,10 @@ def _sweep(spec: ModelSpec, side: str, data, params: dict, prior: dict,
     if noise is None:
         tn = spec.prior == "truncnormal"
         g = side == "E"
-        noise = {"prior_u": (_rand(gen, (C, 2) + X.shape[1:], X.device,
-                                   low=dist._TINY, g=g) if tn else None),
-                 "u": _rand(gen, (C, 3, N, L), X.device, g=g)}
+        noise = {"prior_u": (gen.uniform("prior_" + side, (C, 2)
+                                         + X.shape[1:], 0, g) if tn
+                             else None),
+                 "u": _rand(gen, "sweep_" + side, (C, 3, N, L), g=g)}
     draw = _prior_draw_P if side == "P" else _prior_draw_E
     X_prior = draw(spec, prior, gen, noise["prior_u"])
     U = noise["u"]
@@ -619,7 +638,8 @@ def sample_R(spec: ModelSpec, A, temperature, gen=None, gumbel=None):
     p1 = prior_prob_1(r, N)
     loglik = sumA * torch.log(p1) + (N - sumA) * torch.log(1.0 - p1)
     if gumbel is None:
-        gumbel = dist.gumbel_from_u(_rand(gen, loglik.shape, A.device))
+        gumbel = dist.gumbel_from_u(_rand(
+            gen, "R", loglik.shape, c_dim=0 if A.dim() == 2 else None))
     return dist.categorical_from_gumbel(gumbel, temperature * loglik)
 
 
@@ -652,7 +672,7 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature,
     A = params["A"].clone()
     C, N = A.shape
     if u is None:
-        u = _rand(gen, (C, N), P.device)
+        u = _rand(gen, "A", (C, N))
     p1 = prior_prob_1(R.to(torch.float32), N)
     logit_p1 = torch.log(p1) - torch.log1p(-p1)
     pen = sbfi_penalty(spec)
@@ -703,7 +723,7 @@ def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature,
     A = params["A"].clone()
     C, K, N = P.shape
     if u is None:
-        u = _rand(gen, (C, N), P.device)
+        u = _rand(gen, "A", (C, N))
     p1 = prior_prob_1(R.to(torch.float32), N)
     logit_p1 = torch.log(p1) - torch.log1p(-p1)
     pen = sbfi_penalty(spec) if spec.rank_method == "SBFI" else None
@@ -728,7 +748,7 @@ def sample_sigmasq(spec: ModelSpec, data, prior: dict, Mhat, gen=None,
     rss = torch.sum(resid * resid, -2)
     return dist.inv_gamma(gen, prior["Alpha_sig"] + spec.K / 2.0,
                           prior["Beta_sig"] + 0.5 * rss, u=u,
-                          chain_axis=Mhat.dim() == 3, g=True)
+                          chain_axis=Mhat.dim() == 3, g=True, site="sigmasq")
 
 
 # ---------------------------------------------------------------------------
@@ -757,7 +777,7 @@ def sample_P_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict,
     rate_add = (A * Mesh.gsum(E, -1, Mesh.mesh_of(gen))).unsqueeze(-2)
     shape, rate = _conjugate_prior(spec, prior, "p")
     return dist.gamma(gen, shape + params["Zsum_g"], rate + rate_add, u=u,
-                      chain_axis=E.dim() == 3)
+                      chain_axis=E.dim() == 3, site="gamma_P")
 
 
 def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
@@ -768,7 +788,7 @@ def sample_E_poisson_gibbs(spec: ModelSpec, prior: dict, params: dict, P_new,
     rate_add = (params["A"] * P_new.sum(-2)).unsqueeze(-1)    # (N, 1)
     shape, rate = _conjugate_prior(spec, prior, "e")
     return dist.gamma(gen, shape + params["Zsum_k"], rate + rate_add, u=u,
-                      chain_axis=P_new.dim() == 3, g=True)
+                      chain_axis=P_new.dim() == 3, g=True, site="gamma_E")
 
 
 def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
@@ -776,17 +796,18 @@ def sample_Z_sums(spec: ModelSpec, data, params: dict, gen=None, u=None):
     Z[k, :, g] ~ Multinomial(M[k, g], p ∝ P[k, :] A E[:, g])
     (sample_params.R:253-265; updates.py:894-905), through
     ops/allocation.allocate_counts, for one chain or C (the kernel's grid
-    has the chain axis); ``u``: its uniform planes, else drawn from
-    ``gen``. On a mesh the kernel runs on this rank's columns and chains,
-    counting them in the whole matrix, and Zsum_g adds the g group's
-    parts."""
+    has the chain axis); ``u``: its uniform planes, else the Philox stream
+    of the streams' ``subkey("alloc")`` and the chains' uids. On a mesh the
+    kernel runs on this rank's columns and chains, counting them in the
+    whole matrix, and Zsum_g adds the g group's parts."""
     mesh = Mesh.mesh_of(gen)
+    kw = {} if u is not None else dict(key=gen.subkey("alloc"),
+                                       uids=gen.uids)
     if mesh is None:
         return allocate_counts(data, params["P"], params["A"], params["E"],
-                               u=u, gen=gen)
+                               u=u, **kw)
     zg, zk = allocate_counts(data, params["P"], params["A"], params["E"],
-                             u=u, gen=gen, g0=gen.g0, G_total=gen.G,
-                             c0=gen.c0)
+                             u=u, g0=gen.g0, G_total=gen.G, **kw)
     return Mesh.g_all_reduce(zg, mesh), zk
 
 
@@ -803,18 +824,20 @@ def _stream_prior(spec: ModelSpec, prior: dict, side: str):
     return prior[f"Mu_{side}"], prior[f"Sigmasq_{side}"]
 
 
-def _stream_noise(spec: ModelSpec, gen, shape, L: int, device) -> dict:
+def _stream_noise(spec: ModelSpec, gen, shape, L: int, side: str) -> dict:
     """A streamed sweep's draws when none are given: the prior draw's
     uniforms ((C, 2) + shape[1:] for the truncnormal prior, ``shape`` for
-    the exponential one) and (C, 3, N, L) for the column updates."""
+    the exponential one) and (C, 3, N, L) for the column updates of
+    ``side`` ("P" or "E")."""
     C = shape[0]
+    g = side == "E"
     if spec.prior == "exponential":
-        prior_u = torch.rand(shape, generator=gen, device=device)
+        prior_u = gen.uniform("prior_" + side, shape, 0, g)
     else:
-        prior_u = _rand(gen, (C, 2) + tuple(shape[1:]), device,
-                        low=dist._TINY)
+        prior_u = gen.uniform("prior_" + side, (C, 2) + tuple(shape[1:]), 0,
+                              g)
     return {"prior_u": prior_u,
-            "u": _rand(gen, (C, 3, spec.N, L), device)}
+            "u": _rand(gen, "sweep_" + side, (C, 3, spec.N, L), g=g)}
 
 
 def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
@@ -832,7 +855,7 @@ def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
     acc_P = acc_P.clone()
     C, K, N = P.shape
     if noise is None:
-        noise = _stream_noise(spec, gen, P.shape, K, P.device)
+        noise = _stream_noise(spec, gen, P.shape, K, "P")
     P_prior = _prior_draw_P(spec, prior, gen, noise["prior_u"])
     n_nan = torch.zeros(C, dtype=torch.float32, device=P.device)
     S.stream_pcol_update(data, params["E"], P, params["A"], acc_P,
@@ -852,7 +875,7 @@ def stream_sweep_E(spec: ModelSpec, data, params: dict, prior: dict, acc_E,
     acc_E = acc_E.clone()
     C, N, G = E.shape
     if noise is None:
-        noise = _stream_noise(spec, gen, E.shape, G, E.device)
+        noise = _stream_noise(spec, gen, E.shape, G, "E")
     E_prior = _prior_draw_E(spec, prior, gen, noise["prior_u"])
     n_nan = torch.zeros(C, dtype=torch.float32, device=E.device)
     S.stream_erow_update(data, E, params["P"], params["A"], acc_E,

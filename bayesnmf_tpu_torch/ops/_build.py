@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-All of ``bayesnmf_tpu_torch/csrc/*.cu`` is compiled at first use into one
-shared library with a plain C interface: one nvcc per source, all started
-together, then one link::
+All of ``bayesnmf_tpu_torch/csrc/*.cu`` (with the headers they share,
+``csrc/*.cuh``) is compiled at first use into one shared library with a
+plain C interface: one nvcc per source, all started together, then one
+link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
          -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu      (each source)
@@ -65,7 +66,8 @@ def load_library() -> ctypes.CDLL:
             return _lib
         srcs = sources()
         h = hashlib.sha256()
-        for s in srcs:
+        # the headers the sources include (csrc/*.cuh) are hashed with them
+        for s in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
             with open(s, "rb") as fh:
                 h.update(os.path.basename(s).encode() + b"\0" + fh.read())
         h.update(" ".join(NVCC_FLAGS).encode())

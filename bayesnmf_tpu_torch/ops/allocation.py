@@ -17,16 +17,16 @@ get exactly zero counts; a cell whose weights are all zero allocates zero.
   (u, v) pair for each BTRS round per node. The JAX kernel draws 17 (8
   rounds) in interpret mode (pallas_allocation.py:282-288);
   ``philox_planes`` builds the 25 (12 rounds) the kernel's Philox mode
-  draws for a seed, so that mode too is held against the plain version.
-- ``allocate_counts`` is the wrapper. CPU tensors run the plain version,
-  with planes drawn from the caller's generator when none are given. CUDA
-  tensors launch csrc/allocation.cu (one thread per cell, the tree in
-  registers, an inversion that stops once its value is settled) or raise:
-  with planes it consumes them
-  (how the kernel is held against the plain version); without, it draws
-  its uniforms in-kernel from a Philox4x32-10 stream seeded by a device
-  int64 the wrapper draws from the caller's generator (8 + 4 BTRS rounds),
-  so a step reads nothing back to the host.
+  draws for a key and the chains' uids, so that mode too is held against
+  the plain version.
+- ``allocate_counts`` is the wrapper. Given planes, both devices consume
+  them (how the kernel is held against the plain version). Without, the
+  draw is the Philox stream of ``key`` (ops/rng.ChainStreams.subkey of
+  (seed, iteration, site)) and the chains' ``uids`` (8 + 4 BTRS rounds):
+  CPU tensors run the plain version on ``philox_planes``; CUDA tensors
+  launch csrc/allocation.cu (one thread per cell, the tree in registers,
+  an inversion that stops once its value is settled), which draws the same
+  uniforms in-kernel, so a step reads nothing back to the host; or raise.
 
 Counts are integers: both versions sum them exactly (float64 on the CPU,
 double partials added in a fixed order on the card), where the JAX kernel
@@ -41,6 +41,7 @@ import math
 import torch
 
 from .math import const
+from .rng import philox4x32_10, uniform_of
 
 N_PLANES = 17        # 1 inversion plane + (u, v) for each of 8 BTRS rounds
 PHILOX_ROUNDS = 12   # BTRS rounds of the kernel's Philox mode (8 + 4)
@@ -60,76 +61,32 @@ def n_nodes(N: int) -> int:
     return max(n_leaves(N) - 1, 1)
 
 
-def draw_planes(gen, C: int, N: int, K: int, G: int,
-                device) -> torch.Tensor:
-    """Uniform planes (C, 17, n2-1, K, G) in [1.2e-38, 1), the layout of
-    the JAX kernel's interpret-mode operand; on a mesh (``gen`` a
-    parallel.mesh.ShardGen) this rank's chains and columns of the
-    one-process planes."""
-    from .distributions import draw
-
-    return draw(gen, (C, N_PLANES, n_nodes(N), K, G), device, 0,
-                True).clamp_min_(_TINY)
-
-
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo(m: int, x: torch.Tensor):
-    """(hi, lo) 32-bit words of m * x for m < 2^32 and int64 x in
-    [0, 2^32), in two 48-bit partial products so nothing overflows int64."""
-    p_lo = x * (m & 0xFFFF)
-    p_hi = x * (m >> 16)
-    mid = ((p_hi & 0xFFFF) << 16) + p_lo
-    return (p_hi >> 16) + (mid >> 32), mid & _MASK32
-
-
-def philox4x32_10(ctr, k0, k1):
-    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors holding 32-bit
-    words: the counter's four words and the key's two, broadcast together.
-    The same rounds as csrc/allocation.cu's philox4x32_10."""
-    x0, x1, x2, x3 = ctr
-    for _ in range(10):
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], x0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], x2)
-        x0, x1, x2, x3 = hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W[0]) & _MASK32
-        k1 = (k1 + _PHILOX_W[1]) & _MASK32
-    return x0, x1, x2, x3
-
-
-def philox_planes(seed: torch.Tensor, C: int, N: int, K: int, G: int,
+def philox_planes(key, uids: torch.Tensor, N: int, K: int, G: int,
                   rounds: int = PHILOX_ROUNDS, g0: int = 0,
-                  G_total: int | None = None, c0: int = 0) -> torch.Tensor:
-    """The uniforms the kernel's Philox mode draws for ``seed`` (an int64
-    tensor of shape (1,)), as planes (C, 1 + 2 rounds, n2-1, K, G) for the
-    plain version: uniform i of a node's draw is word i % 4 of the Philox
-    block with counter (cell k*G_total + g0 + g, node, i // 4, c0 + c)
-    under the key (low, high) 32 bits of the seed, mapped from its low 24
-    bits to (j + 0.5) / 2^24. ``g0``, ``G_total`` and ``c0`` place a G
-    shard's columns and chains in the whole matrix (defaults: the whole)."""
-    dev = seed.device
+                  G_total: int | None = None) -> torch.Tensor:
+    """The uniforms the kernel's Philox mode draws under ``key`` (two 32-bit
+    ints, ops/rng.ChainStreams.subkey) for the chains ``uids`` ((C,)
+    int64), as planes (C, 1 + 2 rounds, n2-1, K, G) for the plain version:
+    uniform i of a node's draw is word i % 4 of the Philox block with
+    counter (cell k*G_total + g0 + g, node, i // 4, uids[c]), mapped by
+    rng.uniform_of. ``g0`` and ``G_total`` place a G shard's columns in the
+    whole matrix (defaults: the whole)."""
+    dev = uids.device
     i64 = dict(dtype=torch.int64, device=dev)
+    C = uids.numel()
     nn = n_nodes(N)
-    k0 = seed.reshape(()) & _MASK32
-    k1 = (seed.reshape(()) >> 32) & _MASK32
     shape = (C, nn, K, G)
     G_total = G if G_total is None else G_total
     cell = (torch.arange(K, **i64).view(1, 1, K, 1) * G_total + g0
-            + torch.arange(G, **i64).view(1, 1, 1, G)).expand(shape)
-    node = torch.arange(nn, **i64).view(1, nn, 1, 1).expand(shape)
-    chain = (c0 + torch.arange(C, **i64)).view(C, 1, 1, 1).expand(shape)
+            + torch.arange(G, **i64).view(1, 1, 1, G))
+    node = torch.arange(nn, **i64).view(1, nn, 1, 1)
+    chain = uids.view(C, 1, 1, 1)
     n_u = 1 + 2 * rounds
     out = torch.empty((C, n_u, nn, K, G), dtype=torch.float32, device=dev)
-    scale, half = const(2.0 ** -24, out), const(2.0 ** -25, out)
     for blk in range((n_u + 3) // 4):
-        words = philox4x32_10(
-            (cell, node, torch.full(shape, blk, **i64), chain), k0, k1)
+        words = philox4x32_10((cell, node, blk, chain), *key)
         for w in range(min(4, n_u - 4 * blk)):
-            out[:, 4 * blk + w] = (
-                (words[w] & 0xFFFFFF).to(torch.float32) * scale + half)
+            out[:, 4 * blk + w] = uniform_of(words[w].expand(shape))
     return out
 
 
@@ -264,13 +221,14 @@ def allocate_counts_reference(M, P, A, E, u):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# M P A E u seed, Zsum_g Zsum_k scratch, C K N G, g0 G_total c0, stream
-_ARGTYPES = [_P] * 6 + [_P] * 3 + [_I] * 4 + [_I] * 3 + [_P]
+_U32 = ctypes.c_uint32
+# M P A E u uids k0 k1, Zsum_g Zsum_k scratch, C K N G, g0 G_total, stream
+_ARGTYPES = [_P] * 6 + [_U32] * 2 + [_P] * 3 + [_I] * 4 + [_I] * 2 + [_P]
 TILE_G = 32          # columns g per block (csrc/allocation.cu kTileG)
 ROWS = 8             # rows k per block (kRows)
 
 
-def _launch(M, P, A, E, u, seed, g0, G_total, c0):
+def _launch(M, P, A, E, u, uids, key, g0, G_total):
     from ._build import load_library
 
     lib = load_library()
@@ -289,10 +247,11 @@ def _launch(M, P, A, E, u, seed, g0, G_total, c0):
     scratch = torch.empty(C * (tiles * K * N + kblocks * N * G),
                           dtype=torch.float64, device=P.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    k0, k1 = key if key is not None else (0, 0)
     with torch.cuda.device(P.device):
-        err = fn(ptr(M), ptr(P), ptr(A), ptr(E), ptr(u), ptr(seed),
+        err = fn(ptr(M), ptr(P), ptr(A), ptr(E), ptr(u), ptr(uids), k0, k1,
                  ptr(zg), ptr(zk), ptr(scratch), C, K, N, G, g0, G_total,
-                 c0, torch.cuda.current_stream().cuda_stream)
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"allocate_counts kernel launch failed: "
                            f"cudaError {err}")
@@ -321,8 +280,8 @@ def _check(name, t, shape, device, dtype=torch.float32):
         raise ValueError(f"allocate_counts: {name} must be contiguous")
 
 
-def allocate_counts(M, P, A, E, u=None, seed=None, gen=None, g0: int = 0,
-                    G_total: int | None = None, c0: int = 0):
+def allocate_counts(M, P, A, E, u=None, key=None, uids=None, g0: int = 0,
+                    G_total: int | None = None):
     """Draw the multinomial latent counts of every cell and return their
     marginal sums (Zsum_g (K, N), Zsum_k (N, G)); the same contract as
     bayesnmf_tpu.ops.pallas_allocation.allocate_counts_fused.
@@ -331,18 +290,16 @@ def allocate_counts(M, P, A, E, u=None, seed=None, gen=None, g0: int = 0,
     inversion stops once x reaches the count, which returns the plain
     version's draw for integers only; ``GibbsSampler`` checks the data);
     P (K, N), A (N,) and E (N, G) may carry a leading chain axis C, and the
-    results then do too. Randomness: the uniform
-    planes ``u`` (C, 17, n2-1, K, G) when given; otherwise on the CPU
-    planes drawn from ``gen``, and on CUDA the kernel's Philox stream keyed
-    by ``seed`` (a device int64 tensor of shape (1,)), drawn from ``gen``
-    when None.
+    results then do too. Randomness: the uniform planes ``u``
+    (C, 17, n2-1, K, G) when given; otherwise the Philox stream of ``key``
+    (two 32-bit ints) and the chains' ``uids`` ((C,) int64 on the device),
+    on the CPU through ``philox_planes``, on CUDA in the kernel.
 
     On a G shard (parallel/mesh.py) M, E and the planes are a rank's
-    columns and chains of the whole: ``g0`` is its first column, ``G_total``
-    the whole G and ``c0`` its first chain, so the Philox stream counts
-    cells and chains of the whole matrix (the defaults leave every
-    unsharded call as it was); ``gen`` a ShardGen draws the planes at the
-    whole shape and keeps the block. Zsum_g is then this shard's part.
+    columns of the whole: ``g0`` is its first column and ``G_total`` the
+    whole G, so the Philox stream counts cells of the whole matrix (the
+    defaults leave every unsharded call as it was); ``uids`` name the
+    rank's chains. Zsum_g is then this shard's part.
     """
     batched = P.dim() == 3
     b = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
@@ -359,22 +316,22 @@ def allocate_counts(M, P, A, E, u=None, seed=None, gen=None, g0: int = 0,
     _check("P", P, (C, K, N), dev)
     _check("A", A, (C, N), dev)
     _check("E", E, (C, N, G), dev)
+    G_total = G if G_total is None else G_total
     if u is not None:
         _check("u", u, (C, N_PLANES, n_nodes(N), K, G), dev)
+    else:
+        if key is None or uids is None:
+            raise ValueError("allocate_counts: give the uniform planes u, or "
+                             "the Philox key and the chains' uids")
+        _check("uids", uids, (C,), dev, torch.int64)
 
     if dev.type == "cpu":
         if u is None:
-            u = draw_planes(gen, C, N, K, G, dev)
+            u = philox_planes(key, uids, N, K, G, g0=g0, G_total=G_total)
         zg, zk = allocate_counts_reference(M, P, A, E, u)
     elif dev.type == "cuda":
-        if u is None:
-            if seed is None:
-                base = getattr(gen, "gen", gen)  # one seed for every rank
-                seed = torch.randint(0, 2 ** 63 - 1, (1,), generator=base,
-                                     device=dev, dtype=torch.int64)
-            _check("seed", seed, (1,), dev, torch.int64)
-        zg, zk = _launch(M, P, A, E, u, None if u is not None else seed,
-                         g0, G if G_total is None else G_total, c0)
+        zg, zk = _launch(M, P, A, E, u, None if u is not None else uids,
+                         None if u is not None else key, g0, G_total)
     else:
         raise ValueError(f"allocate_counts: no path for device {dev}")
     if not batched:

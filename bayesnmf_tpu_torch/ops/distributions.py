@@ -1,11 +1,12 @@
 """Samplers of the Gibbs conditionals.
 
 Port of a subset of bayesnmf_tpu/ops/distributions.py. A sampler either
-draws from an explicit ``torch.Generator`` on the generator's device, or
-(the ``*_from_u`` / ``*_from_gumbel`` forms) takes its noise as operands, so
-a test can feed it the JAX package's draws. Philox and threefry never give
-the same numbers, so the keyed forms match the reference in distribution,
-not draw by draw.
+draws from the chains' random streams (``gen``, an ops/rng.ChainStreams)
+at a named draw site, or (the ``*_from_u`` / ``*_from_gumbel`` forms, and
+the ``u`` / ``z`` operands) takes its noise as operands, so a test can
+feed it the JAX package's draws. Philox and threefry never give the same
+numbers, so the keyed forms match the reference in distribution, not draw
+by draw.
 """
 
 from __future__ import annotations
@@ -15,29 +16,12 @@ import torch
 _TINY = 1.1754944e-38  # smallest normal float32
 
 
-def draw(gen, shape, device, c_dim=None, g: bool = False,
-         normal: bool = False) -> torch.Tensor:
-    """``torch.rand`` (``normal``: ``torch.randn``) of ``shape`` from
-    ``gen``. On a mesh ``gen`` is a parallel.mesh.ShardGen, which draws at
-    the one-process shape and keeps this rank's block: dim ``c_dim`` is
-    then the chain axis, and with ``g`` the last dim is G."""
-    if isinstance(gen, torch.Generator) or gen is None:
-        f = torch.randn if normal else torch.rand
-        return f(shape, generator=gen, device=device)
-    return gen.draw(shape, c_dim, g, normal)
-
-
-def all_done(gen, done: torch.Tensor) -> bool:
-    """``bool(done.all())``; on a mesh over every rank that shares the
-    generator, so that all of them draw the same rounds."""
-    if isinstance(gen, torch.Generator) or gen is None:
-        return bool(done.all())
-    return gen.all_true(done)
-
-
-def _uniform(gen, shape, device, c_dim=None, g: bool = False):
-    """Uniforms in [_TINY, 1), like jax.random.uniform(minval=tiny)."""
-    return draw(gen, shape, device, c_dim, g).clamp_min_(_TINY)
+def _uniform(gen, site: str, shape, chain_axis: bool = False,
+             g: bool = False, rnd: int = 0):
+    """Uniforms in [_TINY, 1) of ``shape`` from the streams ``gen`` at
+    ``site``: with ``chain_axis`` the leading dim is the chain axis, else
+    the streams hold one chain; ``g``: the last dim is G."""
+    return gen.uniform(site, shape, 0 if chain_axis else None, g, rnd)
 
 
 def _ndtr(x):
@@ -71,27 +55,34 @@ def truncnorm_nonneg_from_u(u1, u2, mu, sigmasq):
     return (mu + sd * z).clamp_min(0.0)
 
 
-def truncnorm_nonneg(gen, mu, sigmasq):
-    """Elementwise TruncNormal[0, inf) draws (replaces truncnorm::rtruncnorm)."""
+def truncnorm_nonneg(gen, mu, sigmasq, site: str, chain_axis: bool = False,
+                     g: bool = False):
+    """Elementwise TruncNormal[0, inf) draws (replaces truncnorm::rtruncnorm)
+    from two uniform planes at ``site``: (2,) + shape, or with
+    ``chain_axis`` (C, 2) + shape[1:]."""
     mu, sigmasq = torch.broadcast_tensors(mu, sigmasq)
-    u = _uniform(gen, (2,) + tuple(mu.shape), mu.device)
-    return truncnorm_nonneg_from_u(u[0], u[1], mu, sigmasq)
+    shape = tuple(mu.shape)
+    if chain_axis:
+        u = _uniform(gen, site, (shape[0], 2) + shape[1:], True, g)
+        u0, u1 = u[:, 0], u[:, 1]
+    else:
+        u0, u1 = _uniform(gen, site, (2,) + shape, False, g)
+    return truncnorm_nonneg_from_u(u0, u1, mu, sigmasq)
 
 
 def normal(gen, mu, sigmasq, z=None, chain_axis: bool = False,
-           g: bool = False):
+           g: bool = False, site: str | None = None):
     """Normal(mu, sigmasq) draws (sigmasq is the variance); ``z``: the
-    standard normals, else drawn from ``gen`` (on a mesh ``chain_axis``:
+    standard normals, else drawn from ``gen`` at ``site`` (``chain_axis``:
     the operands' leading axis is the chain axis, ``g``: their last G)."""
     mu, sigmasq = torch.broadcast_tensors(mu, sigmasq)
     if z is None:
-        z = draw(gen, mu.shape, mu.device, 0 if chain_axis else None, g,
-                 normal=True)
+        z = gen.normal(site, mu.shape, 0 if chain_axis else None, g)
     return mu + torch.sqrt(sigmasq) * z
 
 
 def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
-          chain_axis: bool = False, g: bool = False):
+          chain_axis: bool = False, g: bool = False, site: str | None = None):
     """Exact Gamma(shape, rate) draws (mean = shape/rate), by Marsaglia-Tsang
     (distributions.py:83-157): ``unroll`` rounds of candidates from one
     uniform draw, then an exact rejection loop for the elements still
@@ -101,12 +92,13 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
     function draws them from its key; with ``chain_axis`` the operands carry
     a leading chain axis C and ``u`` is chain-major, (C, 2 * unroll + 1) +
     shape[1:], each chain's planes its own slice (a draw from ``gen`` takes
-    that layout too). The rejection loop, which runs for about 1e-5 of the
-    elements, draws from ``gen``. That loop reads the device to know when
-    it is done: one host wait per call, whatever C is. On a mesh (``gen`` a
-    parallel.mesh.ShardGen; ``g``: the operands' last axis is G) every
-    round is drawn at the one-process shape and the loop runs until every
-    rank is done, so all ranks draw the same rounds."""
+    that layout too), from ``gen`` at ``site`` when not given. The exact
+    rejection loop, which runs for about 1e-5 of the elements, draws its
+    round r at (``site``, r), so the rounds one chain or element needs
+    never shift another draw. That loop reads the device to know when it
+    is done: one host wait per call, whatever C is. On a mesh (``g``: the
+    operands' last axis is G) a rank draws its own elements' rounds and
+    stops when they are done."""
     a, rate = torch.broadcast_tensors(shape_param, rate)
     shape, dev = tuple(a.shape), a.device
     boost = a < 1.0
@@ -125,8 +117,8 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
 
     n_u = 2 * unroll + 1
     if u is None:
-        u = _uniform(gen, (shape[0], n_u) + shape[1:] if chain_axis
-                     else (n_u,) + shape, dev, 0 if chain_axis else None, g)
+        u = _uniform(gen, site, (shape[0], n_u) + shape[1:] if chain_axis
+                     else (n_u,) + shape, chain_axis, g)
     u_all = u.movedim(1, 0) if chain_axis else u
     x = torch.full(shape, float("nan"), device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -137,9 +129,13 @@ def gamma(gen, shape_param, rate, unroll: int = 4, u=None,
     # a non-finite or non-positive shape never accepts: leave it NaN instead
     # of looping forever
     done = done | ~torch.isfinite(d) | (a <= 0.0)
-    while not all_done(gen, done):
+    rnd = 0
+    while not bool(done.all()):
+        rnd += 1
         gamma.rounds += 1
-        uv = _uniform(gen, (2,) + shape, dev, 1 if chain_axis else None, g)
+        uv = _uniform(gen, site, (shape[0], 2) + shape[1:] if chain_axis
+                      else (2,) + shape, chain_axis, g, rnd)
+        uv = uv.movedim(1, 0) if chain_axis else uv
         xv, ok = candidate(uv[0], uv[1])
         x = torch.where(~done & ok, xv, x)
         done = done | ok
@@ -155,18 +151,20 @@ gamma.rounds = 0
 
 
 def inv_gamma(gen, shape_param, rate, u=None, chain_axis: bool = False,
-              g: bool = False):
+              g: bool = False, site: str | None = None):
     """InvGamma(shape, rate) draws via 1/Gamma (replaces invgamma::rinvgamma);
-    ``u``, ``chain_axis`` and ``g``: as ``gamma`` takes them."""
+    ``u``, ``chain_axis``, ``g`` and ``site``: as ``gamma`` takes them."""
     return 1.0 / gamma(gen, shape_param, rate, u=u, chain_axis=chain_axis,
-                       g=g).clamp_min(1e-30)
+                       g=g, site=site).clamp_min(1e-30)
 
 
-def exponential(gen, rate, u=None):
+def exponential(gen, rate, u=None, site: str | None = None,
+                chain_axis: bool = False, g: bool = False):
     """Exponential(rate) draws (replaces stats::rexp): -log1p(-u) / rate,
-    the form of jax.random.exponential; ``u`` uniforms in [0, 1)."""
+    the form of jax.random.exponential; ``u`` uniforms in [0, 1), else
+    drawn from ``gen`` at ``site``."""
     if u is None:
-        u = draw(gen, rate.shape, rate.device)
+        u = _uniform(gen, site, rate.shape, chain_axis, g)
     return -torch.log1p(-u) / rate
 
 

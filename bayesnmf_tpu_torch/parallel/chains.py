@@ -4,10 +4,12 @@ dimension of every state tensor.
 Port of bayesnmf_tpu/parallel/chains.py:19-60. Where the JAX package vmaps
 one chain's step, every call here updates all chains at once: the step of
 the spec's path (models/gibbs.py ``stream_step``, the fused ``gibbs_step``,
-``eager_step`` or ``conjugate_step``) with a leading chain axis C. The
-chains share one ``torch.Generator``; each step's noise is one chain-major
-draw, chain c's its own slice. ``make_sharded_chain_runner`` runs them on
-a (chain, g) mesh (parallel/mesh.py).
+``eager_step`` or ``conjugate_step``) with a leading chain axis C. Each
+chain draws from its own counter-based stream (ops/rng.ChainStreams, keyed
+by the run's seed and the chain's uid, as the JAX package's per-chain
+keys); each step's noise is one chain-major draw, chain c's its own slice.
+``make_sharded_chain_runner`` runs them on a (chain, g) mesh
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ import torch
 from ..config import ModelSpec
 from ..models import gibbs
 from ..ops import math as m
+from ..ops.rng import ChainStreams
 from . import mesh as M
 
 
-def init_chain_states(spec: ModelSpec, hp: dict, data, gen: torch.Generator,
-                      n_chains: int, init_params=None,
-                      init_prior_params=None) -> dict:
-    """Independent initial states of ``n_chains`` chains."""
+def init_chain_states(spec: ModelSpec, hp: dict, data, gen, n_chains: int,
+                      init_params=None, init_prior_params=None) -> dict:
+    """Independent initial states of ``n_chains`` chains; ``gen`` their
+    streams (ops/rng.ChainStreams of ``n_chains`` uids)."""
     return gibbs.init_state(spec, hp, data, gen, init_params,
                             init_prior_params, chains=n_chains)
 
@@ -74,8 +77,8 @@ def make_sharded_chain_runner(spec: ModelSpec, mesh, n_chains: int,
 
       init_fn(hp, data, seed) -> this rank's block of the initial states of
         ``n_chains`` chains (``data`` the full (K, G) matrix; every rank
-        builds the one-process states and keeps its block) with the
-        generator shared by the ranks;
+        builds the one-process states and keeps its block) with its block
+        of the chains' streams;
       run_fn(data, hp, states, temps, accept_all) -> (states, samples),
         ``data`` this rank's columns (multihost.shard_data), ``accept_all``
         the (n_chains,) flags of every chain; the records are this rank's
@@ -94,11 +97,10 @@ def make_sharded_chain_runner(spec: ModelSpec, mesh, n_chains: int,
     def init_fn(hp, data, seed: int = 0):
         full = torch.as_tensor(np.asarray(data, np.float32),
                                device=mesh.device)
-        gen = torch.Generator(device=mesh.device)
-        gen.manual_seed(seed)
+        gen = ChainStreams(seed, np.arange(n_chains), device=mesh.device)
         states = init_chain_states(spec, hp, full, gen, n_chains)
         out = M.local(states, layout, mesh, spec.G)
-        out["gen"] = M.ShardGen(gen, mesh, n_chains, spec.G)
+        out["gen"] = states["gen"].block(mesh, spec.G)
         return out
 
     def run_fn(data, hp, states, temps, accept_all):

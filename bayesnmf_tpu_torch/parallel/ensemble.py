@@ -52,6 +52,7 @@ from ..models.map_estimate import compute_map
 from ..models.sampler import _resolve_output_dir, check_counts
 from ..models.sampler import host_tree, resolve_device, stack_history
 from ..models.sampler import summarize_history
+from ..ops.rng import ChainStreams
 from ..utils.logging import RunLogger
 from . import chains as chains_mod
 from . import mesh as Mesh
@@ -103,7 +104,7 @@ def _steps(tree: dict, i0: int, i1: int) -> dict:
 
 def _select(tree, idx):
     """index_select on the chain axis of every tensor of a state (nested
-    dicts); anything else (the generator, the iteration) as it is."""
+    dicts); anything else (the streams, the iteration) as it is."""
     if isinstance(tree, dict):
         return {k: _select(v, idx) for k, v in tree.items()}
     return tree.index_select(0, idx) if isinstance(tree, torch.Tensor) \
@@ -536,9 +537,10 @@ class ChainEnsemble:
         self._data_np = data
         self._full_data = None
         self.data = torch.as_tensor(data, device=self.device)
+        # chain c's stream has uid c (``_slots`` keeps the uids of the
+        # resident chains through compaction)
         self._slots = np.arange(n_chains)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        gen = ChainStreams(seed, self._slots, device=self.device)
         # on a mesh every rank builds the one-process initial states and
         # keeps its block
         self.states = chains_mod.init_chain_states(
@@ -555,8 +557,7 @@ class ChainEnsemble:
                                    self.spec.G)
             self.states = Mesh.local(self.states, self._state_layout(),
                                      mesh, self.spec.G)
-            self.states["gen"] = Mesh.ShardGen(gen, mesh, n_chains,
-                                               self.spec.G)
+            self.states["gen"] = self.states["gen"].block(mesh, self.spec.G)
 
         self.tracker = VectorConvergenceTracker(self.cc, n_chains)
         self.iter = 1
@@ -764,19 +765,21 @@ class ChainEnsemble:
             pad = np.nonzero(finished[self._slots])[0][:size - keep.size]
             keep = np.sort(np.concatenate([keep, pad]))
         # every tensor of the state: P, E, A, R, the latent counts' sums,
-        # sigmasq, the prior's parameters and the acceptance records; on a
-        # mesh gathered, selected and split anew, so chains move between
-        # ranks exactly
+        # sigmasq, the prior's parameters and the acceptance records, and
+        # the chains' streams (their uids); on a mesh gathered, selected
+        # and split anew, so chains move between ranks exactly
         idx = torch.as_tensor(keep, device=self.device)
         if self.mesh is None:
+            gen = self.states["gen"].select(keep)
             self.states = _select(self.states, idx)
         else:
-            gen = self.states["gen"]
+            gen = ChainStreams(self.seed, self._slots[keep],
+                               self.states["iter"], self.device).block(
+                                   self.mesh, self.spec.G)
             whole = _select(self.whole_states(), idx)
             self.states = Mesh.local(whole, self._state_layout(), self.mesh,
                                      self.spec.G)
-            gen.set_chains(keep.size)
-            self.states["gen"] = gen
+        self.states["gen"] = gen
         self._slots = self._slots[keep]
         self.logger.log(
             f"compacted ensemble to {self._slots.size} resident chains", 1)

@@ -9,10 +9,12 @@ insert the psums, each sum over G here is a local sum and one
 local, and the P side is computed alike on every rank of a g group from
 the all-reduced sums.
 
-A mesh run is a layout, not a different sampler: every rank seeds one
-generator alike and makes every draw at its one-process shape, keeping its
-block (``ShardGen``), so a run on a mesh gives the chains of the
-one-process run with the same seed, up to the order of float sums.
+A mesh run is a layout, not a different sampler: every number a chain
+draws is a function of the seed, the chain's uid, the iteration, the draw
+site and the element's index in the one-process layout (ops/rng.py), and a
+rank draws only its block of each draw (``ChainStreams.block``), so a run
+on a mesh gives the chains of the one-process run with the same seed, up
+to the order of float sums.
 
 Only ``all_reduce`` and ``broadcast`` are used on device tensors: they are
 what gloo runs on CUDA tensors, and gloo is what two ranks on one card
@@ -318,16 +320,6 @@ def gsum(x: torch.Tensor, dim, mesh: Optional[Mesh]) -> torch.Tensor:
     return g_all_reduce(torch.sum(x, dim), mesh)
 
 
-def all_true(flag: torch.Tensor, mesh: Optional[Mesh]) -> bool:
-    """``bool(flag.all())`` over every rank of the mesh: the ranks that
-    share a generator take the same branch."""
-    if mesh is None or mesh.size == 1:
-        return bool(flag.all())
-    t = (~flag).any().to(torch.float32).reshape(1)
-    dist.all_reduce(t, group=mesh.group)
-    return float(t.item()) == 0.0
-
-
 def broadcast_object(obj, mesh: Optional[Mesh]):
     """The root rank's ``obj`` on every rank of the mesh."""
     if mesh is None or mesh.size == 1:
@@ -350,106 +342,6 @@ def check_same(value, mesh: Optional[Mesh], what: str):
                            f"{mesh.root}'s ({value!r} != {ref!r})")
 
 
-# ---------------------------------------------------------------------------
-# the shared generator
-# ---------------------------------------------------------------------------
-
-
-class ShardGen:
-    """The generator of a mesh run: one ``torch.Generator`` seeded alike on
-    every rank, which makes every draw at its one-process shape (all
-    ``C`` chains, all ``G`` columns) and keeps this rank's block, so that
-    every rank's generator stays in step with the one-process run's. The
-    samplers of ops/distributions.py and models/updates.py take it in the
-    place of a ``torch.Generator`` and draw through ``draw`` and
-    ``draw_flat``; ``torch.rand(generator=...)`` refuses it, so a draw that
-    does not go through them fails instead of drifting. ``split_chains``
-    False (one chain replicated over the chain axis, the single sampler)
-    keeps every chain."""
-
-    def __init__(self, gen: torch.Generator, mesh: Mesh, C: int, G: int,
-                 split_chains: bool = True):
-        self.gen = gen
-        self.mesh = mesh
-        self.device = gen.device
-        self.G = G
-        self.g0, self.g1 = g_block(G, mesh)
-        self.split_chains = split_chains
-        self.set_chains(C)
-        self._index = {}
-
-    def set_chains(self, C: int):
-        """The resident chain count (it changes when an ensemble compacts)."""
-        self.C = C
-        self.c0, self.c1 = (chain_block(C, self.mesh) if self.split_chains
-                            else (0, C))
-
-    @property
-    def G_local(self) -> int:
-        return self.g1 - self.g0
-
-    def all_true(self, flag: torch.Tensor) -> bool:
-        """``bool(flag.all())`` over every rank that shares the generator."""
-        return all_true(flag, self.mesh)
-
-    def get_state(self):
-        return self.gen.get_state()
-
-    def set_state(self, s):
-        self.gen.set_state(s)
-
-    def _full(self, shape, normal):
-        f = torch.randn if normal else torch.rand
-        return f(tuple(shape), generator=self.gen, device=self.device)
-
-    def draw(self, shape, c_dim: Optional[int], g: bool = False,
-             normal: bool = False) -> torch.Tensor:
-        """This rank's block of a uniform (or normal) draw whose local shape
-        is ``shape``: dim ``c_dim`` is the chain axis, and with ``g`` the
-        last dim is G. Every draw of a step has a chain axis (one chain is
-        a batch of one): a draw without one is refused, not made at a local
-        shape that would put this rank's generator out of step."""
-        if c_dim is None:
-            raise ValueError("a draw on a mesh needs its chain axis")
-        full = list(shape)
-        full[c_dim] = self.C
-        if g:
-            full[-1] = self.G
-        x = self._full(full, normal).narrow(c_dim, self.c0, self.c1 - self.c0)
-        if g:
-            x = x.narrow(-1, self.g0, self.g1 - self.g0)
-        return x.contiguous()
-
-    def draw_flat(self, lead, parts, normal: bool = False) -> torch.Tensor:
-        """A draw of shape ``lead + (T,)`` (``lead[0]`` the chain axis)
-        whose last axis is the concatenation of ``parts``: each (rows, cols,
-        g), a row-major rows x cols block, its cols this rank's columns of
-        G when ``g``. Returns this rank's ``lead + (T_local,)`` block."""
-        key = tuple(parts)
-        idx = self._index.get(key)
-        off = 0
-        pieces = []
-        for rows, cols, g in parts:
-            width = self.G if g else cols
-            if idx is None:
-                if g:
-                    r = torch.arange(rows, dtype=torch.int64) * width
-                    c = torch.arange(self.g0, self.g1, dtype=torch.int64)
-                    pieces.append(off + (r.unsqueeze(1)
-                                         + c.unsqueeze(0)).reshape(-1))
-                else:
-                    pieces.append(off + torch.arange(rows * cols,
-                                                     dtype=torch.int64))
-            off += rows * width
-        if idx is None:
-            idx = (torch.cat(pieces) if pieces
-                   else torch.zeros(0, dtype=torch.int64)).to(self.device)
-            self._index[key] = idx
-        x = self._full((self.C,) + tuple(lead[1:]) + (off,), normal)
-        x = x.narrow(0, self.c0, self.c1 - self.c0)
-        return x.index_select(-1, idx)
-
-
 def mesh_of(gen) -> Optional[Mesh]:
-    """The mesh of a generator: a ShardGen's, else None."""
+    """The mesh of a chain's streams (a rank's block of them), else None."""
     return getattr(gen, "mesh", None)

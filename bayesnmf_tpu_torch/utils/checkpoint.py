@@ -2,7 +2,8 @@
 
 Port of bayesnmf_tpu/utils/checkpoint.py:23-168. A checkpoint holds the
 state (for one chain in the JAX package's layout, models/state.py), the
-generator's state, the convergence tracker, the metric history, the
+chains' streams (ops/rng.ChainStreams.state: the seed, the iteration and
+the chains' uids), the convergence tracker, the metric history, the
 recording flag, the sample window and the archive (save_all_samples), all
 as host numpy, so the chains continue bit-exactly from where they
 stopped. A checkpoint pickles this package's classes
@@ -11,14 +12,13 @@ stopped. A checkpoint pickles this package's classes
 A checkpoint does not record a mesh (parallel/mesh.py): on a mesh every
 rank takes part in gathering the state and the root rank writes the
 one-process format; ``load_*(path, mesh=...)`` has every rank read the
-file and keep its block, with the generator's state, which is alike on
-every rank. A checkpoint loaded on a device of another type than the one
-it was saved from (``device=``) carries the state, records and trackers
-over exactly, but the generator restarts, seeded from (seed, iteration),
-and the log says so: torch's CPU generator (MT19937) and CUDA generator
-(Philox) cannot take each other's state, so a bit-exact resume holds on
-the saved device type only. A CUDA checkpoint loaded on another card
-keeps its stream.
+file and keep its block, streams included. The streams are the same
+function of (seed, uid, iteration, site, element) on the CPU and on a
+card, so a checkpoint resumes the same draws on either device type
+(``device=``). A checkpoint written before the streams, which holds a
+``torch.Generator`` state (``gen_state``) instead, loads with the state,
+records and trackers exact and the streams restarted from
+``restart_seed(seed, iteration)``, and the log says so.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from .logging import RunLogger
 from ..models.convergence import ConvergenceTracker
 from ..models.sampler import host_tree
 from ..models.state import state_from_numpy, state_to_numpy
+from ..ops.rng import ChainStreams
 from ..parallel import mesh as Mesh
 
 
@@ -50,26 +51,24 @@ def _device_chunk(chunk: dict, device) -> dict:
 
 
 def restart_seed(seed: int, it: int) -> int:
-    """The seed of a generator restarted at iteration ``it`` of a run
-    seeded ``seed`` (a resume on another device type)."""
+    """The seed of the streams restarted at iteration ``it`` of a run
+    seeded ``seed`` (a checkpoint written before the streams)."""
     return (int(seed) * 1_000_003 + int(it)) % (2 ** 63)
 
 
-def _generator(gen_state, saved: str, device: torch.device, seed: int,
-               it: int, logger: RunLogger) -> torch.Generator:
-    """The run's generator on ``device``: the saved state on the saved
-    device type, else a generator seeded from (seed, iteration)."""
-    gen = torch.Generator(device=device)
-    if torch.device(saved).type == device.type:
-        gen.set_state(torch.from_numpy(np.asarray(gen_state)))
-        return gen
-    gen.manual_seed(restart_seed(seed, it))
-    logger.log(f"resumed on {device} from a checkpoint saved on {saved}: "
-               f"the state carries over exactly; the generator restarts "
-               f"at iteration {it} with seed {restart_seed(seed, it)} "
-               "(a bit-exact resume holds on the saved device type only)",
-               0)
-    return gen
+def _streams(p: dict, device: torch.device, seed: int, uids,
+             logger: RunLogger) -> ChainStreams:
+    """The run's streams on ``device``: the saved ones; from a checkpoint
+    written before the streams (``gen_state``), streams of ``uids``
+    restarted from (seed, iteration)."""
+    if "streams" in p:
+        return ChainStreams.from_state(p["streams"], device)
+    it = p["iter"]
+    logger.log(f"resumed on {device} from a checkpoint that holds a "
+               f"generator state, not the chains' streams: the state "
+               f"carries over exactly; the streams restart at iteration "
+               f"{it} with seed {restart_seed(seed, it)}", 0)
+    return ChainStreams(restart_seed(seed, it), uids, it, device)
 
 
 def _target_device(saved: str, device, mesh) -> torch.device:
@@ -103,7 +102,7 @@ def save_sampler(sampler, path: str):
         "data": sampler._data_np,
         "device": str(sampler.device),
         "state": state_to_numpy(state),
-        "gen_state": sampler.state["gen"].get_state().numpy(),
+        "streams": sampler.state["gen"].state(),
         "iter": sampler.iter,
         "tracker": sampler.tracker.to_dict(),
         "time": sampler.time,
@@ -144,14 +143,13 @@ def load_sampler(cls, path: str, mesh=None, device=None):
     # resumed runs keep logging to the original output dir (append)
     obj.logger = RunLogger(obj.output_dir, obj.run_cfg.verbosity, mode="a",
                            mesh=mesh)
-    gen = _generator(p["gen_state"], p["device"], obj.device,
-                     obj.run_cfg.seed, p["iter"], obj.logger)
+    gen = _streams(p, obj.device, obj.run_cfg.seed, [0], obj.logger)
     if mesh is not None:
         G = obj.spec.G
         obj.data = Mesh.local(obj.data, (None, Mesh.G_AXIS), mesh, G)
         obj.state = Mesh.local(obj.state, Mesh.state_layout(
             obj.spec, chains=False), mesh, G)
-        gen = Mesh.ShardGen(gen, mesh, 1, G, split_chains=False)
+        gen = gen.block(mesh, G, split_chains=False)
     obj.state["gen"] = gen
     obj.iter = p["iter"]
     obj.tracker = ConvergenceTracker(obj.cc)
@@ -175,7 +173,7 @@ def load_sampler(cls, path: str, mesh=None, device=None):
 
 
 def _chain_state_to_numpy(states: dict) -> dict:
-    """The chain-batched state without its generator, as host numpy: every
+    """The chain-batched state without its streams, as host numpy: every
     tensor (the acceptance records only with MH), and the iteration."""
     n = lambda x: x.detach().cpu().numpy()  # noqa: E731
     out = {"params": {k: n(v) for k, v in states["params"].items()},
@@ -186,7 +184,7 @@ def _chain_state_to_numpy(states: dict) -> dict:
 
 def save_ensemble(ens, path: str):
     """Checkpoint a ChainEnsemble (checkpoint.py:55-102): the chain-batched
-    device state and the generator's state, the trackers, the retained
+    device state and the chains' streams, the trackers, the retained
     sample window, the archive, the recording flag, the metric history, the
     finalised chains and the per-chain inclusion masks, all as host numpy
     (checkpoint.py:55-102); the spec names the path
@@ -217,7 +215,7 @@ def save_ensemble(ens, path: str):
         "data": ens._data_np,
         "device": str(ens.device),
         "states": _chain_state_to_numpy(states),
-        "gen_state": ens.states["gen"].get_state().numpy(),
+        "streams": ens.states["gen"].state(),
         "iter": ens.iter,
         "tracker_vec": ens.tracker.to_dict(),
         "end_iter": ens._end_iter,
@@ -267,8 +265,7 @@ def load_ensemble(cls, path: str, mesh=None, device=None):
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     # resumed runs keep logging to the original output dir (append)
     obj.logger = RunLogger(obj.output_dir, 1, mode="a", mesh=mesh)
-    gen = _generator(p["gen_state"], p["device"], dev, obj.seed, p["iter"],
-                     obj.logger)
+    gen = _streams(p, dev, obj.seed, p["slots"], obj.logger)
     obj.states = {"params": {k: t(v) for k, v in st["params"].items()},
                   "prior": {k: t(v) for k, v in st["prior"].items()},
                   "iter": st["iter"]}
@@ -278,7 +275,7 @@ def load_ensemble(cls, path: str, mesh=None, device=None):
         obj.data = Mesh.local(obj.data, (None, Mesh.G_AXIS), mesh, G)
         obj.states = Mesh.local(obj.states, Mesh.state_layout(
             obj.spec, chains=True), mesh, G)
-        gen = Mesh.ShardGen(gen, mesh, len(p["slots"]), G)
+        gen = gen.block(mesh, G)
     obj.states["gen"] = gen
     obj.tracker = VectorConvergenceTracker(obj.cc, obj.n_chains)
     obj.tracker.restore(p["tracker_vec"])

@@ -339,14 +339,23 @@ def count_ops(torch, fn):
 
 
 def reset_counts(FS, S, AL):
+    """Every kernel wrapper's launch count to 0, and the gamma draws'
+    rejection rounds (each round one launch of the draw kernel)."""
+    from ..ops import distributions, rng
+
     FS.fused_gibbs_sweeps.launches = 0
     FS.fused_pe_sweeps.launches = 0
     S.reset_launch_counts()
     AL.allocate_counts.launches = 0
+    rng.philox_fill.launches = 0
+    distributions.gamma.rounds = 0
 
 
 def launch_counters(FS, S, AL):
-    """Every kernel wrapper's launch count, by name."""
+    """Every kernel wrapper's launch count, by name ("rng": the chains'
+    draw kernel, csrc/rng.cu)."""
+    from ..ops import rng
+
     return {"fused": FS.fused_gibbs_sweeps.launches,
             "fused_pe": FS.fused_pe_sweeps.launches,
             "_run": S._run.launches,
@@ -354,7 +363,28 @@ def launch_counters(FS, S, AL):
             "stream_metrics_row": S.stream_metrics_row.launches,
             "acol_delta": S.acol_delta.launches,
             "chain_metrics": S.chain_metrics.launches,
-            "allocation": AL.allocate_counts.launches}
+            "allocation": AL.allocate_counts.launches,
+            "rng": rng.philox_fill.launches}
+
+
+def draw_launches(gibbs, spec, steps: int, init: bool = False) -> int:
+    """The draw kernel's launches over ``steps`` iterations of ``spec``'s
+    path (with ``init``, the initial state's draws too), and one for each
+    rejection round the gamma draws ran since the counts were reset:
+    the exact count a window started by ``reset_counts`` must show."""
+    from ..ops import distributions
+
+    return (steps * gibbs.draw_launches(spec)
+            + (gibbs.draw_launches(spec, init=True) if init else 0)
+            + distributions.gamma.rounds)
+
+
+def rng_bound(n_out: int, n_index: int = 0):
+    """The draw kernel (csrc/rng.cu) at one call: the ``n_out`` float32
+    draws written once and the int64 index map (``n_index`` entries) read
+    once; operations ~25 integer operations an element (the Philox block's
+    10 rounds over its four words) against the float32 rate."""
+    return bound(4 * n_out + 8 * n_index, 25 * n_out)
 
 
 @contextlib.contextmanager
@@ -363,8 +393,11 @@ def plain_calls(FS, S, AL):
     while the block runs: yields the counts (a dict the wrappers fill) and
     puts the plain versions back on exit."""
     calls, saved = {}, []
+    from ..ops import rng
+
     for mod, names in ((FS, ("fused_gibbs_sweeps_reference",)),
                        (AL, ("allocate_counts_reference",)),
+                       (rng, ("philox_fill_reference",)),
                        (S, ("run_reference", "acol_delta_reference",
                             "acol_update_reference", "chain_metrics_reference",
                             "stream_metrics_row_reference",

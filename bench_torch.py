@@ -66,8 +66,10 @@ from bayesnmf_tpu_torch.models import gibbs
 from bayesnmf_tpu_torch.models import updates as U
 from bayesnmf_tpu_torch.ops import _build
 from bayesnmf_tpu_torch.ops import allocation as AL
+from bayesnmf_tpu_torch.ops import distributions as D
 from bayesnmf_tpu_torch.ops import fused_sweeps as FS
 from bayesnmf_tpu_torch.ops import stream_sweeps as S
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from bayesnmf_tpu_torch.parallel import chains as CH
 from bayesnmf_tpu_torch.utils import measure as MS
 from bayesnmf_tpu_torch.utils.cosmic import get_cosmic
@@ -280,26 +282,34 @@ def call_ms(fn, reps, device):
 
 @contextlib.contextmanager
 def counted(device):
-    """Each kernel wrapper's launches and the plain versions' calls over the
-    block: yields a dict that gets ``launches``, ``plain`` and ``on_card``
-    on exit. On the CPU the plain versions are the path and nothing is
-    launched."""
+    """Each kernel wrapper's launches, the gamma draws' rejection rounds and
+    the plain versions' calls over the block: yields a dict that gets
+    ``launches``, ``rounds``, ``plain`` and ``on_card`` on exit. On the CPU
+    the plain versions are the path and nothing is launched."""
     out = {"on_card": on_card(device)}
     MS.reset_counts(FS, S, AL)
     with MS.plain_calls(FS, S, AL) as calls:
         yield out
         sync(device)
     out["launches"] = MS.launch_counters(FS, S, AL)
+    out["rounds"] = D.gamma.rounds
     out["plain"] = sum(calls.values())
 
 
-def launches_ok(cnt, per_iter, steps) -> bool:
-    """Every counter at its launches per iteration times ``steps``, every
+def launches_ok(cnt, per_iter, steps, spec, init=False) -> bool:
+    """Every counter at its launches per iteration times ``steps``, the
+    draw kernel's (csrc/rng.cu) at ``spec``'s path's draws a step times
+    ``steps`` and one a rejection round (with ``init``: the initial
+    state's draws too, and its allocation on the conjugate path), every
     other counter 0, and no plain version called; True on the CPU, where
     nothing is launched."""
     if not cnt["on_card"]:
         return True
     want = {k: per_iter.get(k, 0) * steps for k in cnt["launches"]}
+    want["rng"] = (steps * gibbs.draw_launches(spec) + cnt["rounds"]
+                   + (gibbs.draw_launches(spec, init=True) if init else 0))
+    if init and spec.needs_Z:
+        want["allocation"] += 1
     return cnt["launches"] == want and cnt["plain"] == 0
 
 
@@ -396,7 +406,8 @@ def config1(device="cuda", iters=BENCH_ITERS, reps=3, baseline_iters=5,
     ok, low = recovery(window_mean_P(samples), P_true, 0.9)
     base = baseline_numpy_gibbs(data, 5, iters=baseline_iters)
     correct = (ok and finite(samples["metrics"])
-               and launches_ok(cnt, {"allocation": 1}, iters * reps + warmup))
+               and launches_ok(cnt, {"allocation": 1}, iters * reps + warmup,
+                               s.spec))
     return config_row(
         f"gibbs_iters_per_sec_{K}x{G}_K5_poisson_exp_gibbs", rates,
         "iterations/sec/chip", device, base, work=[iters] * reps,
@@ -414,7 +425,8 @@ def config2(device="cuda", iters=BENCH_ITERS, reps=3,
     ok, low = recovery(window_mean_P(samples), P_true, 0.9)
     base = baseline_numpy_mh(data, 8, iters=baseline_iters)
     correct = (ok and s.spec.fused_sweeps and finite(samples["metrics"])
-               and launches_ok(cnt, {"fused": 1}, iters * reps + warmup))
+               and launches_ok(cnt, {"fused": 1}, iters * reps + warmup,
+                               s.spec))
     return config_row(
         f"gibbs_iters_per_sec_{K}x{G}_K8_poisson_truncnormal_MH", rates,
         "iterations/sec/chip", device, base, work=[iters] * reps,
@@ -435,7 +447,8 @@ def config3(device="cuda", iters=BENCH_ITERS, reps=3, baseline_iters=5,
         rates, cnt, samples = loop_rates(device, s, iters, reps, warmup)
         A = samples["A"].cpu().numpy()
         ok = (s.spec.fused_sweeps and finite(samples["metrics"])
-              and launches_ok(cnt, {"fused": 1}, iters * reps + warmup)
+              and launches_ok(cnt, {"fused": 1}, iters * reps + warmup,
+                              s.spec)
               and bool(np.isin(A, (0.0, 1.0)).all()))
         rows[isinstance(rank, list)] = (rates, cnt, ok, int(A[-1].sum()))
     rates, cnt, ok, learned = rows[True]
@@ -493,7 +506,8 @@ def config4(device="cuda", G=2780, maxiters=1200, miniters=600,
     cos = res["assignments"]["MAP_cosine"].to_numpy(float)
     ok, low = recovery(s.MAP["P"], P_true, 0.95)
     correct = (ok and finite(s.sample_metrics.to_numpy(float))
-               and launches_ok(cnt, {"fused": 1}, s.iter - 1))
+               and launches_ok(cnt, {"fused": 1}, s.iter - 1, s.spec,
+                               init=True))
     return config_row(
         f"pcawg_scale_96x{G}_end_to_end", [fit_s + assign_s], "seconds",
         device, cold_fit_seconds=round(cold_s, 2),
@@ -531,7 +545,8 @@ def _chain_run(device, data, rank, n_chains, iters, stream, **ens_kw):
     with counted(device) as cnt:
         dt, (states, samples) = MS.host_seconds(
             torch, lambda: chunk(ens.states))
-    ok = finite(samples["metrics"]) and launches_ok(cnt, per_iter, iters)
+    ok = finite(samples["metrics"]) and launches_ok(cnt, per_iter, iters,
+                                                    spec)
     return n_chains * iters / dt, path, bool(ok), cnt
 
 
@@ -626,15 +641,13 @@ def bench_bic(device="cuda", ranks=range(1, 9), K=96, G=500, maxiters=800,
 def bench_compaction(device="cuda", n_chains=32, K=96, G=500, maxiters=3000,
                      miniters=200, MAP_over=100, MAP_every=50,
                      post_warmup=200):
-    """A staggered-convergence ensemble with live-chain compaction on and
-    off: the ratio of their wall seconds per chain-iteration, each run's
-    chain-iterations those its chains ran inside their own runs
-    (``ChainEnsemble.throughput``'s count). The chains share one generator,
-    so the draws after a compaction differ between the two runs and so do
-    the iterations each chain runs: unlike bench.py's, the two runs do not
-    do the same work, and the ratio divides each run's seconds by its work.
-    Each run is checked on its own (finite metrics, every chain finished
-    with a MAP)."""
+    """Wall-clock of a staggered-convergence ensemble with live-chain
+    compaction on and off (bench.py's mode): the ratio of the two runs'
+    seconds. Each chain draws from its own stream, which compaction leaves
+    as it was, so both runs do the same statistical work: ``correct``
+    demands equal chain-iterations inside the chains' own runs
+    (``ChainEnsemble.throughput``'s count), the same per-chain end
+    iterations, finite metrics and a MAP for every chain."""
     data, _, _ = _sim_data(seed=0, K=K, N=8, G=G)
     # tight tolerance and a noisy no-best gate: the chains converge at
     # different checks
@@ -654,19 +667,18 @@ def bench_compaction(device="cuda", n_chains=32, K=96, G=500, maxiters=3000,
     t_c, ens_c = run(True)
     run(False)
     t_n, ens_n = run(False)
-    ok = all(ensemble_finite(e) and all(m is not None
-                                        for m in e.MAP_per_chain)
-             for e in (ens_c, ens_n))
     work_c, work_n = ens_c._chain_iters, ens_n._chain_iters
+    ok = (all(ensemble_finite(e) and all(m is not None
+                                         for m in e.MAP_per_chain)
+              for e in (ens_c, ens_n))
+          and work_c == work_n
+          and np.array_equal(ens_c._end_iter, ens_n._end_iter))
     return config_row(
-        f"ensemble_compaction_{n_chains}chains_{K}x{G}",
-        [(t_n / work_n) / (t_c / work_c)],
-        "x wall seconds per chain-iteration, compaction off over on",
-        device, compact_seconds=round(t_c, 2),
-        no_compact_seconds=round(t_n, 2),
-        wall_clock_x=round(t_n / t_c, 3), compact_chain_iters=int(work_c),
-        no_compact_chain_iters=int(work_n), iters=int(ens_c.iter),
-        no_compact_iters=int(ens_n.iter),
+        f"ensemble_compaction_{n_chains}chains_{K}x{G}", [t_n / t_c],
+        "x wall-clock speedup, compaction off over on", device,
+        compact_seconds=round(t_c, 2), no_compact_seconds=round(t_n, 2),
+        compact_chain_iters=int(work_c), no_compact_chain_iters=int(work_n),
+        iters=int(ens_c.iter), no_compact_iters=int(ens_n.iter),
         final_resident=int(ens_c._slots.size), correct=bool(ok))
 
 
@@ -836,7 +848,8 @@ def cell_bl2_fit_96x500_k8(device="cuda", seed=0, G=500, rank=8,
         checks.append(bool(
             ok and s.spec.fused_sweeps
             and finite(s.sample_metrics.to_numpy(float))
-            and launches_ok(cnt, {"fused": 1}, s.iter - 1)))
+            and launches_ok(cnt, {"fused": 1}, s.iter - 1, s.spec,
+                            init=True)))
         last[:] = [s]   # only the newest fit stays alive
         return wall, phases, (int(s.iter), low)
 
@@ -892,6 +905,104 @@ def cell_bl2_fit_96x500_k8(device="cuda", seed=0, G=500, rank=8,
             "warmup_iterations_per_sec": [iters[0] / w for w in warm],
             "matched_cosine_min": cos_min, "fused_bound_by": bound_by,
             "checks": checks, "correct": all(checks), "breakdown": brk,
+            "device": device_info(device)}
+
+
+CJ_METRICS = {
+    "iterations_per_sec": ("iterations/s", "end_to_end"),
+    "loop_iterations_per_sec": ("iterations/s", "layer"),
+    "allocation_kernel_ms": ("ms", "layer"),
+    "map_check_ms": ("ms", "layer"),
+    "checkpoint_ms": ("ms", "layer"),
+    "device_busy_share": ("fraction", "layer"),
+    "device_events_per_iter": ("events/iteration", "layer"),
+}
+
+
+def cell_cj_fit_96x2780_k8_expo(device="cuda", seed=0, G=2780, rank=8,
+                                maxiters=800, post_warmup=200, MAP_over=200,
+                                MAP_every=100, fits=3, warmups=3,
+                                loop_iters=200, loop_reps=3, loop_warmup=50,
+                                prof_iters=20, kernel_reps=100, layer_reps=5,
+                                trace=False) -> dict:
+    """Conjugate Poisson-Exponential Gibbs (BASELINE config 4's shape and
+    config 1's model), fit end to end: ``fit(M, 8, prior="exponential",
+    MH=False)`` on a 96x2780 catalogue of true rank 8 made from ``seed``
+    (the allocation kernel, csrc/allocation.cu, and the chains' draw
+    kernel, csrc/rng.cu); ``warmups`` fits with chain seed ``seed``, then
+    ``fits`` timed ones with chain seeds seed..seed+fits-1, each stopping
+    at maxiters (the conjugate path runs no post-warmup MH phase, so
+    ``post_warmup`` adds nothing), with the default periodic checkpoint.
+    The end-to-end rate and each fit's wall split by layer as in the bl2
+    cell. ``correct``: every fit's matched min cosine of MAP P >= 0.9,
+    metrics finite, the allocation launched once an iteration and once at
+    init, the draw kernel's count exact, nothing else launched, no plain
+    version called."""
+    M, P_true = MS.synthetic(96, G, rank, seed)
+    cc = fixed_work(maxiters, MAP_over, MAP_every)
+    checks, last = [], []
+
+    def one_fit(i):
+        with tempfile.TemporaryDirectory() as tmp, \
+                counted(device) as cnt, phase_clock(FIT_PHASES) as phases:
+            wall, s = MS.host_seconds(torch, lambda: bt.fit(
+                M, rank, prior="exponential", MH=False, device=device,
+                output_dir=os.path.join(tmp, "fit"), convergence_control=cc,
+                post_warmup=post_warmup, seed=seed + max(i - warmups, 0)))
+        ok, low = recovery(s.MAP["P"], P_true, 0.9)
+        checks.append(bool(
+            ok and s.spec.needs_Z and finite(s.sample_metrics.to_numpy(float))
+            and launches_ok(cnt, {"allocation": 1}, s.iter - 1, s.spec,
+                            init=True)))
+        last[:] = [s]   # only the newest fit stays alive
+        return wall, phases, (int(s.iter), low)
+
+    runs, warm = timed_runs(fits, warmups, one_fit)
+    iters = [n for _, _, (n, _) in runs]
+    rates = [n / wall for n, (wall, _, _) in zip(iters, runs)]
+    cos_min = [low for _, _, (_, low) in runs]
+    s = last[0]
+
+    loop, _, _ = loop_rates(device, s, loop_iters, loop_reps, loop_warmup)
+    with captured(U, "allocate_counts") as calls:
+        gibbs.gibbs_step(s.spec, s.data, s.hyperprior_params, s.state, 1.0,
+                         False)
+    a, k = calls[0]
+    kern = call_ms(lambda: AL.allocate_counts(*a, **k), kernel_reps, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sampler.ckpt")
+        map_ms = layer_ms(s.get_MAP, device, layer_reps)
+        ckpt_ms = layer_ms(lambda: s.save_object(ckpt), device, layer_reps)
+        busy = busy_metrics(device, lambda: gibbs.run_chunk(
+            s.spec, s.data, s.hyperprior_params, s.state,
+            np.ones(prof_iters, np.float32), False), prof_iters)
+        brk = None
+        if trace:
+            st = [s.state]
+
+            def chunk():
+                st[0] = gibbs.run_chunk(
+                    s.spec, s.data, s.hyperprior_params, st[0],
+                    np.ones(MAP_every, np.float32), False)[0]
+
+            brk = traced(device, [
+                (label, fn) for _ in range(3) for label, fn in (
+                    ("bench/loop", chunk), ("bench/MAP", s.get_MAP),
+                    ("bench/checkpoint", lambda: s.save_object(ckpt)))])
+
+    metrics = {
+        "iterations_per_sec": summary(rates, iters),
+        "loop_iterations_per_sec": summary(loop, [loop_iters] * loop_reps),
+        "allocation_kernel_ms": summary([kern]),
+        "map_check_ms": summary(map_ms),
+        "checkpoint_ms": summary(ckpt_ms),
+    } | busy
+    return {"cell": "cj_fit_96x2780_k8_expo", "seed": seed,
+            "metrics": metrics, "iterations": iters,
+            "fit_seconds_by_phase": [ph for _, ph, _ in runs],
+            "warmup_iterations_per_sec": [iters[0] / w for w in warm],
+            "matched_cosine_min": cos_min, "checks": checks,
+            "correct": all(checks), "breakdown": brk,
             "device": device_info(device)}
 
 
@@ -958,7 +1069,8 @@ def cell_ns_ens_8x96x10k_sbfi(device="cuda", seed=0, G=10000, true_rank=8,
         ok, low = recovery(ens.chain(best).MAP["P"], P_true, 0.9)
         checks.append(bool(
             ok and ens.spec.stream_sweeps and ensemble_finite(ens)
-            and launches_ok(cnt, per_iter, ens.iter - 1)))
+            and launches_ok(cnt, per_iter, ens.iter - 1, ens.spec,
+                            init=True)))
         last[:] = [(ens, best)]
         return wall, phases, (ens._chain_iters, ens.throughput(),
                               int(ens.iter), ens.learned_ranks.tolist(), low)
@@ -971,9 +1083,9 @@ def cell_ns_ens_8x96x10k_sbfi(device="cuda", seed=0, G=10000, true_rank=8,
     # the layers: the chunk loop on fresh chains, then each kernel at the
     # state it reached
     spec, data, hp = ens.spec, ens.data, ens.hp
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed + 1)
-    states = CH.init_chain_states(spec, hp, data, gen, chains)
+    states = CH.init_chain_states(
+        spec, hp, data, ChainStreams(seed + 1, np.arange(chains),
+                                     device=device), chains)
     acc = torch.zeros(chains, dtype=torch.bool, device=device)
 
     def chunk(n):
@@ -1004,6 +1116,7 @@ def cell_ns_ens_8x96x10k_sbfi(device="cuda", seed=0, G=10000, true_rank=8,
         per = 1 if n == "stream_metrics_row" else N  # a sweep is N columns
         kern[n] = call_ms(lambda a=a, k=k, n=n: getattr(S, n)(*a, **k),
                           kernel_reps, device) / per
+    gen = gibbs.streams_of(states)
     noise = gibbs.draw_stream_noise(spec, chains, gen, data.device)
     prior_ms = call_ms(lambda: (
         U.sample_prior_params(spec, hp, states["params"], states["prior"],
@@ -1053,6 +1166,7 @@ def cell_ns_ens_8x96x10k_sbfi(device="cuda", seed=0, G=10000, true_rank=8,
 # name -> (function, {metric: (unit, end_to_end or layer)})
 CELLS = {
     "bl2_fit_96x500_k8": (cell_bl2_fit_96x500_k8, BL2_METRICS),
+    "cj_fit_96x2780_k8_expo": (cell_cj_fit_96x2780_k8_expo, CJ_METRICS),
     "ns_ens_8x96x10k_sbfi": (cell_ns_ens_8x96x10k_sbfi, NS_METRICS),
 }
 

@@ -61,7 +61,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (96,20,10000), (96,8,2780), (7,3,37), (16,5,40) with A_3 = 0 and a zero
    M cell, and 4 chains at (96,8,500), in both modes: with uniform planes,
    and in Philox mode against the plain version on the planes
-   ``philox_planes`` builds for the same seed; Zsum_g and Zsum_k equal, two
+   ``philox_planes`` builds for the same key; Zsum_g and Zsum_k equal, two
    launches bit-identical; in Philox mode also 200 draws that conserve the
    counts, give an excluded component 0 and integers, and whose mean lies
    within 6 SD of the multinomial mean in every cell, and seeds that repeat
@@ -155,7 +155,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    version on that slice of the whole planes, in Philox mode the shards'
    Zsum_k side by side equal to the one-process kernel's bit for bit and
    their Zsum_g adding to its Zsum_g exactly, and equal to the plain
-   version on ``philox_planes`` with the shard's offsets; timed, with its
+   version on ``philox_planes`` with the shard's offset; timed, with its
    bound; (b) a world-1 NCCL mesh (``global_mesh(1, 1)``): a conjugate
    Poisson-Exponential fit at 96x2780, rank 8, 50 iterations, bit-identical
    to the run without a mesh; (c) two processes on the one card over gloo
@@ -171,17 +171,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 96x2780, one chunk of 10, bit-identical to the one-process ensemble;
    (d) a checkpoint saved on the 1x2 mesh loads in one process and
    continues as the mesh did, and a card checkpoint loads with
-   device="cpu" (the state equal, the generator restarted); (e) the
+   device="cpu" (the state and the streams equal); (e) the
    conjugate loop's it/s at 96x2780 in one process and on the 1x2 mesh of
    the one card, with the all-reduces per iteration: the cost of gloo's
    host copies on one card, not a scaling figure;
 12. the Geweke gates of tests/test_torch_geweke.py with the kernels on the
    card (``run_geweke``);
-13. the benchmark (bench_torch.py, ``run_bench``) at short windows: both
-   cells and configs 1..5 (config 5's full 256 x 96x100k shape for 2
+13. the benchmark (bench_torch.py, ``run_bench``) at short windows: the
+   three cells and configs 1..5 (config 5's full 256 x 96x100k shape for 2
    iterations), each result through JSON and back, ``correct`` true (its
    launch counts and no plain version among its checks), every metric
-   measured.
+   measured;
+14. the chains' counter-based streams (``run_rng``): (a) the draw kernel
+   (csrc/rng.cu) against its plain version on the card and on the CPU at
+   the north-star ensemble's stream-step draws (8 chains at 96x10k, SBFI
+   over ranks 1..20) and at a mesh rank's G block (an index map):
+   uniforms bit for bit, normals within NORMAL_ATOL, each timed beside its
+   bound, its plain version and torch.rand / torch.randn of the shape;
+   (b) tests/test_torch_ensemble.py's compaction test on the card for the
+   fused and stream ensembles (the same end iterations and MAP windows,
+   MAP columns' cosines > 0.98, every chain draw equal); (c) a conjugate
+   sampler saved on the card resumes on the CPU with its streams (the next
+   draws equal; the allocation's Philox planes drawn on the CPU equal the
+   card's, the card kernel equal to its plain version on them); (d) phase
+   11's 1x2 mesh: each rank's draws the one-process
+   draw's block, each rank computing only its block's elements.
+
+Every phase that drives a path also counts the draw kernel's launches
+exactly: the path's draws a step (models/gibbs.draw_launches) times the
+iterations, the initial state's draws where the window holds them, and one
+a rejection round of the gamma draws.
 
 The launch counts are set to 0 just before each phase drives its path and
 read just after, so launches made to compare a kernel with its plain version
@@ -193,6 +212,7 @@ result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -202,12 +222,13 @@ import time
 
 import numpy as np
 
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from bayesnmf_tpu_torch.utils.measure import (
     acol_update_bound, alloc_bound, card_line, count_ops, device_ms,
-    fused_bound, kernel_ms, launch_counters, loop_rates, matched_cosines,
-    metrics_row_bound, n_leaves, pe_bound, plain_calls, profile_loop,
-    profile_run, reset_counts, stream_bound, synthetic, time_ms,
-    update_bound)
+    draw_launches, fused_bound, kernel_ms, launch_counters, loop_rates,
+    matched_cosines, metrics_row_bound, n_leaves, pe_bound, plain_calls,
+    profile_loop, profile_run, reset_counts, rng_bound, stream_bound,
+    synthetic, time_ms, update_bound)
 
 RTOL, ATOL = 1e-4, 1e-5
 # (K, N, G, chains, A, hyper-sweep)
@@ -226,6 +247,34 @@ _ARGS = ("data", "P", "E", "A", "Mhat", "acc_P", "acc_E", "Upr_P", "Upr_E",
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def check_draws(label, launches, gibbs, spec, steps, init=True):
+    """The draw kernel's launches (csrc/rng.cu) over a window started by
+    ``reset_counts``: exactly ``spec``'s path's draws a step times
+    ``steps`` (with ``init`` the initial state's draws too) and one a
+    rejection round of its gamma draws. Returns the count."""
+    want = draw_launches(gibbs, spec, steps, init)
+    check(launches["rng"] == want, f"{label}: draw kernel launches "
+          f"{launches['rng']} != {want} ({gibbs.draw_launches(spec)} x "
+          f"{steps} iterations" + (" + the initial draws" if init else "")
+          + " + the rejection rounds)")
+    return want
+
+
+def ported(launches) -> int:
+    """The launches of the ported TPU kernels (every counter but the
+    chains' draw kernel)."""
+    return sum(v for k, v in launches.items() if k != "rng")
+
+
+def uniform_planes(torch, AL, C, N, K, G, seed):
+    """Uniform planes (C, 17, n2-1, K, G) in [1.2e-38, 1) on the card, for
+    the allocation's planes mode."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.rand((C, AL.N_PLANES, AL.n_nodes(N), K, G), generator=gen,
+                      device="cuda").clamp_min_(1.2e-38)
 
 
 def check(cond, msg):
@@ -521,17 +570,23 @@ def run_slice(torch, bt, FS, gibbs, card):
     cc = bt.ConvergenceControl(MAP_over=500, MAP_every=100, miniters=500,
                                maxiters=2000, Ninarow_nochange=3,
                                Ninarow_nobest=5)
+    from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import stream_sweeps as S
+
     with tempfile.TemporaryDirectory() as tmp:
-        FS.fused_gibbs_sweeps.launches = 0
+        reset_counts(FS, S, AL)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = bt.fit(M, N, device="cuda", output_dir=os.path.join(tmp, "fit"),
                    convergence_control=cc, post_warmup=500, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = FS.fused_gibbs_sweeps.launches
+        counts = launch_counters(FS, S, AL)
+        launches = counts["fused"]
         steps = s.iter - 1  # iteration 1 is the initial draw
-        # the final checkpoint resumes bit-exactly (generator state included)
+        draws = check_draws("slice", counts, gibbs, s.spec, steps)
+        check(ported(counts) == launches, "slice: another kernel ran")
+        # the final checkpoint resumes bit-exactly (streams included)
         resumed = bt.GibbsSampler.load(
             os.path.join(s.output_dir, "sampler.ckpt"))
         ends = [gibbs.run_chunk(x.spec, x.data, x.hyperprior_params,
@@ -554,7 +609,8 @@ def run_slice(torch, bt, FS, gibbs, card):
     check(cos.min() >= 0.95, f"MAP cosine to the true P too low: {cos}")
     print(f"slice: fit(96x500, rank 8) ran {steps} iterations, converged "
           f"at {s.tracker.converged_iter} ({s.tracker.why}); kernel "
-          f"launches {launches}; MAP matched cosine min {cos.min():.4f} "
+          f"launches {launches}, draw kernel {draws}; MAP matched cosine "
+          f"min {cos.min():.4f} "
           f"mean {cos.mean():.4f}", flush=True)
     print(f"slice: {steps / wall:.1f} it/s for the whole fit ({wall:.2f} s, "
           "MAP checks and checkpoints included) on " + card,
@@ -1254,7 +1310,8 @@ def alloc_divergence(torch, AL, card, warp_splits):
     f32 = dict(dtype=torch.float32, device="cuda")
     P, A, E = (torch.ones(K, N, **f32), torch.ones(N, **f32),
                torch.ones(N, G, **f32))
-    seed = torch.tensor([K * G + N], dtype=torch.int64, device="cuda")
+    key = (K * G + N, 0)
+    uids = torch.zeros(1, dtype=torch.int64, device="cuda")
     small, large = 6.0, 4000.0
     row = torch.arange(K, device="cuda").view(K, 1) % 2 == 0
     col = torch.arange(G, device="cuda").view(1, G) % 2 == 0
@@ -1267,7 +1324,8 @@ def alloc_divergence(torch, AL, card, warp_splits):
     ms = {}
     for label, M in layouts.items():
         ms[label] = device_ms(
-            torch, lambda M=M: AL.allocate_counts(M, P, A, E, seed=seed), 20)
+            torch, lambda M=M: AL.allocate_counts(M, P, A, E, key=key,
+                                                  uids=uids), 20)
     alike, mixed = ms["counts alike along a warp"], ms[
         "counts alternating along a warp"]
     n_warp_splits = K * -(-G // 32) * (N - 1)
@@ -1331,7 +1389,8 @@ def compare_allocation(torch, AL, card):
             f" excluded={excl}" if excl else "") + (
             f" zero cells={zeros}" if zeros else "")
         args = (t["M"], t["P"], t["A"], t["E"])
-        seed = torch.tensor([K * G + N + C], dtype=torch.int64, device="cuda")
+        key = (K * G + N + C, 0)
+        uids = torch.arange(C, dtype=torch.int64, device="cuda")
         b = (lambda x: x) if C > 1 else (lambda x: x.unsqueeze(0))
         unb = (lambda out: out) if C > 1 else (
             lambda out: tuple(x[0] for x in out))
@@ -1339,10 +1398,10 @@ def compare_allocation(torch, AL, card):
             "planes": (lambda: AL.allocate_counts(*args, u=t["u"]),
                        lambda: unb(AL.allocate_counts_reference(
                            args[0], *map(b, args[1:]), b(t["u"])))),
-            "Philox": (lambda: AL.allocate_counts(*args, seed=seed),
+            "Philox": (lambda: AL.allocate_counts(*args, key=key, uids=uids),
                        lambda: unb(AL.allocate_counts_reference(
                            args[0], *map(b, args[1:]),
-                           AL.philox_planes(seed, C, N, K, G))))}
+                           AL.philox_planes(key, uids, N, K, G))))}
         for mode, (kernel, plain) in modes.items():
             k1, k2 = kernel(), kernel()
             p = plain()
@@ -1400,12 +1459,12 @@ def compare_allocation(torch, AL, card):
     d["M"][0, 0] = 0.0
     t = to_card(torch, d)
     args = (t["M"], t["P"], t["A"], t["E"])
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    uids = torch.zeros(1, dtype=torch.int64, device="cuda")
     S = 200
     zks = []
-    for _ in range(S):
-        zg, zk = AL.allocate_counts(*args, gen=gen)
+    for it in range(S):
+        zg, zk = AL.allocate_counts(*args, uids=uids, key=ChainStreams(
+            0, [0], it).subkey("alloc"))
         check(torch.equal(zk.sum(0), t["M"].sum(0))
               and torch.equal(zg.sum(1), t["M"].sum(1)),
               "allocation (Philox) does not conserve the counts")
@@ -1425,15 +1484,15 @@ def compare_allocation(torch, AL, card):
     dev_sd = float((np.abs(zks.mean(0) - expect) / sd).max())
     check(dev_sd < 6.0, f"allocation (Philox) mean {dev_sd:.2f} of a cell's "
           "SD off the multinomial mean")
-    s1 = torch.tensor([12345], dtype=torch.int64, device="cuda")
-    s2 = torch.tensor([12346], dtype=torch.int64, device="cuda")
-    a1, a2, b1 = (AL.allocate_counts(*args, seed=s)[1] for s in (s1, s1, s2))
+    a1, a2, b1 = (AL.allocate_counts(*args, key=(k, 0), uids=uids)[1]
+                  for k in (12345, 12345, 12346))
     check(torch.equal(a1, a2), "allocation (Philox): one seed, other bits")
     check(not torch.equal(a1, b1), "allocation (Philox): two seeds, one draw")
     print(f"allocation kernel (Philox) at (16,5,40) with A_3 = 0 and a zero "
           f"cell: {S} draws conserve the counts, give the excluded component "
           f"0 and integers; mean within {dev_sd:.2f} of each cell's SD of the "
-          "multinomial mean; one seed gives the same bits, another seed other bits",
+          "multinomial mean; one key gives the same bits, another key other "
+          "bits",
           flush=True)
     return res
 
@@ -1449,6 +1508,9 @@ ENS_POST_WARMUP = 200
 
 
 def run_ensemble(torch, bt, S, card):
+    from bayesnmf_tpu_torch.models import gibbs
+    from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import fused_sweeps as FS
     from bayesnmf_tpu_torch.parallel import chains as CH
 
     rng = np.random.default_rng(0)
@@ -1458,7 +1520,7 @@ def run_ensemble(torch, bt, S, card):
     cc = bt.ConvergenceControl(**ENS_CC)
     N = ENS_MAX_RANK
     with tempfile.TemporaryDirectory() as tmp:
-        S.reset_launch_counts()
+        reset_counts(FS, S, AL)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ens = bt.ChainEnsemble(
@@ -1475,6 +1537,11 @@ def run_ensemble(torch, bt, S, card):
                     "stream_metrics_row": S.stream_metrics_row.launches,
                     "chain_metrics": S.chain_metrics.launches}
         steps = ens.iter - 1  # iteration 1 is the initial draw
+        counts = launch_counters(FS, S, AL)
+        launches["rng"] = check_draws("ensemble", counts, gibbs, ens.spec,
+                                      steps)
+        check(counts["fused"] == counts["allocation"] == 0,
+              "ensemble: another kernel ran")
         # a P column is two passes over the G tiles, an E row one launch;
         # an A column one update; the metrics row one call (the sums-only
         # acol_delta and chain_metrics are off the path)
@@ -1485,9 +1552,12 @@ def run_ensemble(torch, bt, S, card):
                   f"{k} launches {launches[k]} != {n} x {steps} iterations")
         print(f"ensemble: {steps} iterations; launches "
               + ", ".join(f"{k} {v} (= {per_iter[k]} x {steps})"
-                          for k, v in launches.items()), flush=True)
+                          for k, v in launches.items() if k in per_iter)
+              + f", draw kernel {launches['rng']} ("
+              f"{gibbs.draw_launches(ens.spec)} x {steps} + the initial "
+              "draws + the rejection rounds)", flush=True)
 
-        # the final checkpoint resumes bit-exactly (generator state
+        # the final checkpoint resumes bit-exactly (streams
         # included): 20 more iterations from the loaded copy and from the
         # run's own state
         resumed = bt.ChainEnsemble.load(
@@ -1522,10 +1592,9 @@ def run_ensemble(torch, bt, S, card):
 
     # the chunk loop alone: 8 fresh chains, 3 x 20 iterations after 5 of
     # warm-up
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    states = CH.init_chain_states(ens.spec, ens.hp, ens.data, gen,
-                                  ENS_CHAINS)
+    states = CH.init_chain_states(
+        ens.spec, ens.hp, ens.data,
+        ChainStreams(1, np.arange(ENS_CHAINS), device="cuda"), ENS_CHAINS)
     acc = torch.zeros(ENS_CHAINS, dtype=torch.bool, device="cuda")
     states, _ = CH.run_chunk_chains(ens.spec, ens.data, ens.hp, states,
                                     np.ones(5, np.float32), acc,
@@ -1621,9 +1690,11 @@ def run_rank_learning(torch, bt, FS, S, AL, gibbs, card):
                    seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = FS.fused_gibbs_sweeps.launches
-        others = sum(launch_counters(FS, S, AL).values()) - launches
+        counts = launch_counters(FS, S, AL)
+        launches = counts["fused"]
+        others = ported(counts) - launches
         steps = s.iter - 1
+        draws = check_draws("rank learning", counts, gibbs, s.spec, steps)
         resume_check(torch, bt, gibbs, s, "rank learning")
     rows = np.concatenate(s._metric_rows)
     check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
@@ -1645,7 +1716,8 @@ def run_rank_learning(torch, bt, FS, S, AL, gibbs, card):
           f"{RANK_TRUE}); rank during tempering {int(rank_col[0])}.."
           f"{int(rank_col[tempering][-1])} over "
           f"{len(np.unique(rank_col[tempering]))} values; fused kernel "
-          f"launches {launches} (= iterations), other kernels {others}; "
+          f"launches {launches} (= iterations), draw kernel {draws}, other "
+          f"kernels {others}; "
           f"the {len(cos)} best-matched MAP columns cosine min "
           f"{cos.min():.4f} mean {cos.mean():.4f}", flush=True)
     print(f"rank learning: {steps / wall:.1f} it/s for the whole fit "
@@ -1677,9 +1749,12 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
                        convergence_control=cc, post_warmup=500, seed=0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            fused, alloc = (FS.fused_gibbs_sweeps.launches,
-                            AL.allocate_counts.launches)
+            counts = launch_counters(FS, S, AL)
+            fused, alloc = counts["fused"], counts["allocation"]
             steps = s.iter - 1
+            draws = check_draws(label, counts, gibbs, s.spec, steps)
+            check(ported(counts) == fused + alloc,
+                  f"{label}: another kernel ran")
             resume_check(torch, bt, gibbs, s, label)
         rows = np.concatenate(s._metric_rows)
         check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
@@ -1697,7 +1772,8 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
         (loop,), _, _ = loop_rates(torch, gibbs, s, 500)
         print(f"{label}: fit(96x100, rank 5) ran {steps} iterations "
               f"({s.tracker.why}); launches fused {fused}, allocation "
-              f"{alloc}; MAP matched cosine min {cos.min():.4f} mean "
+              f"{alloc}, draw kernel {draws}; MAP matched cosine min "
+              f"{cos.min():.4f} mean "
               f"{cos.mean():.4f}; {steps / wall:.1f} it/s for the whole fit "
               f"({wall:.2f} s), {loop:.1f} it/s in the chunk loop alone on "
               f"{card}", flush=True)
@@ -1793,8 +1869,7 @@ def eager_step_case(torch, bt, gibbs, M, case, kw):
     spec = bt.ModelSpec(K=EAGER_K, N=EAGER_RANK, G=EAGER_G, **kw)
     hp = dict(bt.default_hyperprior_params(spec, float(M.mean())))
     data = {d: torch.as_tensor(M, device=d) for d in ("cpu", "cuda")}
-    gen = torch.Generator().manual_seed(3)
-    state = gibbs.init_state(spec, hp, data["cpu"], gen)
+    state = gibbs.init_state(spec, hp, data["cpu"], ChainStreams(3, [0]))
     # from a state after a short warmup on the CPU, as a fit compares its
     # MH decisions: from the initial draw the Hastings ratios sum terms of
     # ~1e4 whose float32 rounding (~1e-3) can put a ratio on the other side
@@ -1805,9 +1880,9 @@ def eager_step_case(torch, bt, gibbs, M, case, kw):
         state["acc_P"].fill_(0.5)
         state["acc_E"].fill_(0.5)
     u = None
+    gen = gibbs.streams_of(state)
     if spec.fused_sweeps:
-        u = torch.rand(gibbs.n_uniforms(spec), generator=gen).clamp_min_(
-            1.2e-38)
+        u = gen.uniform("fused", (gibbs.n_uniforms(spec),), None)
         noise = {"prior": gibbs.draw_eager_noise(spec, gen, "cpu")["prior"]}
     else:
         noise = gibbs.draw_eager_noise(spec, gen, "cpu")
@@ -1886,8 +1961,11 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
                        post_warmup=500, seed=0, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = sum(launch_counters(FS, S, AL).values())
+            counts = launch_counters(FS, S, AL)
+            launches = ported(counts)
             steps = s.iter - 1
+            draws = check_draws(f"eager (b) {label}", counts, gibbs, s.spec,
+                                steps)
             if label == "normal_truncnormal":
                 resume_check(torch, bt, gibbs, s, f"eager (d) {label}")
         check(launches == 0, f"eager (b) {label}: {launches} kernel "
@@ -1904,7 +1982,8 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
         fits[label] = (s, state)
         print(f"eager (b) {label}: fit({EAGER_K}x{EAGER_G}, rank "
               f"{EAGER_RANK}) ran {steps} "
-              f"iterations ({s.tracker.why}); kernel launches 0; MAP "
+              f"iterations ({s.tracker.why}); kernel launches 0 but the "
+              f"draw kernel's {draws}; MAP "
               f"matched cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
               f"{steps / wall:.1f} it/s for the whole fit ({wall:.2f} s), "
               f"{loop:.1f} it/s in the chunk loop alone (200 iterations) on "
@@ -1918,6 +1997,8 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
     check(FS.fused_gibbs_sweeps.launches == 520,
           f"fused loop: {FS.fused_gibbs_sweeps.launches} launches for 520 "
           "iterations")
+    check_draws("fused loop", launch_counters(FS, S, AL), gibbs, fused.spec,
+                520)
     print(f"eager (b): the fused path's chunk loop on the same data "
           f"{loop:.1f} it/s (500 iterations, {FS.fused_gibbs_sweeps.launches}"
           f" fused launches in 520) on {card}", flush=True)
@@ -1932,8 +2013,10 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
                convergence_control=bt.ConvergenceControl(**EAGER_SBFI_CC))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sum(launch_counters(FS, S, AL).values())
+    counts = launch_counters(FS, S, AL)
+    launches = ported(counts)
     check(launches == 0, f"eager (c): {launches} kernel launches")
+    check_draws("eager (c)", counts, gibbs, s.spec, s.iter - 1)
     rows = np.concatenate(s._metric_rows)
     check(np.isfinite(rows).all(), "eager (c): metrics are not finite")
     learned = int(np.asarray(s.MAP["A_full"]).sum())
@@ -2054,16 +2137,18 @@ def compare_ensemble_allocation(torch, bt, AL, card, shape=ENS_ALLOC,
     ens._run_chunk(steps)
     st = ens.states["params"]
     args = (ens.data, st["P"], st["A"], st["E"])
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    u = AL.draw_planes(gen, C, N, K, G, "cuda")
-    seed = torch.tensor([K * G + N + C], dtype=torch.int64, device="cuda")
+    u = uniform_planes(torch, AL, C, N, K, G, 5)
+    # the Philox mode keyed as the ensemble's next step keys it
+    from bayesnmf_tpu_torch.models.gibbs import streams_of
+
+    gen = streams_of(ens.states)
+    key, uids = gen.subkey("alloc"), gen.uids
     modes = {
         "planes": (lambda: AL.allocate_counts(*args, u=u),
                    lambda: AL.allocate_counts_reference(*args, u)),
-        "Philox": (lambda: AL.allocate_counts(*args, seed=seed),
+        "Philox": (lambda: AL.allocate_counts(*args, key=key, uids=uids),
                    lambda: AL.allocate_counts_reference(
-                       *args, AL.philox_planes(seed, C, N, K, G)))}
+                       *args, AL.philox_planes(key, uids, N, K, G)))}
     res = {"max_abs_err": 0.0}
     for mode, (kernel, plain) in modes.items():
         k1, k2 = kernel(), kernel()
@@ -2105,9 +2190,9 @@ def profile_chains(torch, CH, ens, states, acc, n):
 
 def fresh_chains(torch, CH, ens, C, seed=1):
     """C new chains of the ensemble's model (its masks on them)."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    states = CH.init_chain_states(ens.spec, ens.hp, ens.data, gen, C)
+    states = CH.init_chain_states(
+        ens.spec, ens.hp, ens.data,
+        ChainStreams(seed, np.arange(C), device="cuda"), C)
     if ens.A_masks is not None:
         masks = torch.as_tensor(ens.A_masks[:C], device="cuda")
         states["params"]["A"] = masks
@@ -2150,9 +2235,16 @@ def chunk_loop(torch, CH, ens, C, n, label, card, profile=True):
 def report_run(torch, CH, ens, label, wall, launches, per_iter, P_true,
                card, best=None):
     """The checks and lines every phase 9 run prints: finite metrics, each
-    kernel's launches per iteration, chain-it/s over run(), diagnostics(),
-    the best chain's (least BIC, or ``best``) matched cosine >= 0.9."""
+    kernel's launches per iteration (the draw kernel's: the path's draws a
+    step, the initial draws and the rejection rounds), chain-it/s over
+    run(), diagnostics(), the best chain's (least BIC, or ``best``) matched
+    cosine >= 0.9."""
+    from bayesnmf_tpu_torch.models import gibbs
+
     steps = ens.iter - 1
+    per_iter = dict(per_iter)
+    per_iter["rng"] = (gibbs.draw_launches(ens.spec),
+                       draw_launches(gibbs, ens.spec, 0, init=True))
     rows = ens._metrics_all()
     rows = rows[~np.isnan(rows[..., 0])]
     check(rows.shape[0] > 0 and np.isfinite(rows).all(),
@@ -2303,10 +2395,15 @@ def run_ensembles(torch, bt, FS, S, AL, card):
                        f"ensemble Poisson MH 96x500 fused_sweeps={fused}",
                        card, profile=C == LOOP_CHAINS[0])
             n_fused = FS.fused_gibbs_sweeps.launches
-            want = 5 + 30 + (10 if C == LOOP_CHAINS[0] else 0)
+            want = 5 + (30 if fused else 10) + (
+                10 if C == LOOP_CHAINS[0] else 0)
             check(n_fused == (want if fused else 0),
                   f"Poisson MH fused_sweeps={fused}: {n_fused} fused "
                   "launches")
+            from bayesnmf_tpu_torch.models import gibbs
+
+            check_draws(f"Poisson MH fused_sweeps={fused}",
+                        launch_counters(FS, S, AL), gibbs, ens.spec, want)
     return out
 
 
@@ -2356,9 +2453,8 @@ def gamma_step_case(torch, bt, gibbs, AL, M, kw):
     K, N, G = spec.K, spec.N, spec.G
     hp = dict(bt.default_hyperprior_params(spec, float(M.mean())))
     data = {d: torch.as_tensor(M, device=d) for d in ("cpu", "cuda")}
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
-    state = gibbs.init_state(spec, hp, data["cuda"], gen)
+    state = gibbs.init_state(spec, hp, data["cuda"],
+                             ChainStreams(3, [0], device="cuda"))
     state, _ = gibbs.run_chunk(spec, data["cuda"], hp, state,
                                np.ones(GAMMA_WARMUP, np.float32), False)
     cg = torch.Generator().manual_seed(4)
@@ -2368,7 +2464,7 @@ def gamma_step_case(torch, bt, gibbs, AL, M, kw):
                        "slice": {"e": -torch.log(r(n_t)), "u_l": r(n_t),
                                  "u_s": r(16, n_t)}},
              "P": r(9, K, N), "E": r(9, N, G),
-             "Z": AL.draw_planes(cg, 1, N, K, G, "cpu")[0]}
+             "Z": r(AL.N_PLANES, AL.n_nodes(N), K, G)}
     if spec.learning_rank:
         noise |= {"R": -torch.log(-torch.log(r(N + 1))), "A": r(N)}
     on = lambda x, d: ({k: on(v, d) for k, v in x.items()}  # noqa: E731
@@ -2445,10 +2541,12 @@ def run_gamma(torch, bt, FS, S, AL, gibbs, card):
     wall = time.perf_counter() - t0
     cos = matched_cosines(np.asarray(s.MAP["P"]), Px)
     check(cos.min() > 0.9, f"gamma example data: matched cosine {cos}")
-    check(AL.allocate_counts.launches == s.iter and
-          FS.fused_gibbs_sweeps.launches == 0,
+    counts = launch_counters(FS, S, AL)
+    check(counts["allocation"] == s.iter
+          and ported(counts) == counts["allocation"],
           f"gamma example data: allocation launches "
           f"{AL.allocate_counts.launches} for {s.iter - 1} iterations + 1")
+    check_draws("gamma example data", counts, gibbs, s.spec, s.iter - 1)
     print(f"gamma example data: fit(96x64, rank 4, seed 1) ran "
           f"{s.iter - 1} iterations ({s.tracker.why}); matched cosine min "
           f"{cos.min():.4f} mean {cos.mean():.4f}; {(s.iter - 1) / wall:.1f}"
@@ -2465,12 +2563,12 @@ def run_gamma(torch, bt, FS, S, AL, gibbs, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = s.iter - 1
-    alloc_n = AL.allocate_counts.launches
-    check(alloc_n == steps + 1
-          and sum(launch_counters(FS, S, AL).values()) == alloc_n
-          and FS.fused_gibbs_sweeps.launches == 0,
+    counts = launch_counters(FS, S, AL)
+    alloc_n = counts["allocation"]
+    check(alloc_n == steps + 1 and ported(counts) == alloc_n,
           f"gamma fit: allocation launches {alloc_n} for {steps} "
           "iterations + 1, or another kernel ran")
+    draws = check_draws("gamma fit", counts, gibbs, s.spec, steps)
     rows = np.concatenate(s._metric_rows)
     check(np.isfinite(rows).all(), "gamma fit: metrics are not finite")
     cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
@@ -2485,10 +2583,12 @@ def run_gamma(torch, bt, FS, S, AL, gibbs, card):
     step_ops, step_reads = count_ops(torch, lambda: gibbs.gibbs_step(
         s.spec, s.data, hp, state, 1.0, False, consts))
     prior_ops, _ = count_ops(torch, lambda: gibbs.U.sample_prior_params(
-        s.spec, hp, state["params"], state["prior"], state["gen"]))
+        s.spec, hp, state["params"], state["prior"],
+        gibbs.streams_of(state)))
     print(f"gamma fit(96x{GAMMA_FIT_G}, rank 8) ran {steps} iterations "
           f"({s.tracker.why}); allocation launches {alloc_n} (= iterations "
-          f"+ 1), no other kernel; matched cosine min {cos.min():.4f} mean "
+          f"+ 1), draw kernel {draws}, no other kernel; matched cosine min "
+          f"{cos.min():.4f} mean "
           f"{cos.mean():.4f}; {steps / wall:.1f} it/s for the whole fit "
           f"({wall:.2f} s), {loop:.1f} it/s in the chunk loop alone (100 "
           f"iterations) on {card}", flush=True)
@@ -2576,7 +2676,12 @@ def recorded_stream_run(torch, bt, FS, S, AL, M, record):
         device="cuda", verbosity=0)
     ens.run()
     torch.cuda.synchronize()
-    return (ens, time.perf_counter() - t0, launch_counters(FS, S, AL),
+    from bayesnmf_tpu_torch.models import gibbs
+
+    launches = launch_counters(FS, S, AL)
+    launches["rng_want"] = draw_launches(gibbs, ens.spec, ens.iter - 1,
+                                         init=True)
+    return (ens, time.perf_counter() - t0, launches,
             torch.cuda.max_memory_allocated())
 
 
@@ -2598,6 +2703,9 @@ def run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate):
                   f"launches {launches[k]} != {n} x {steps} iterations")
         check(launches["fused"] == launches["allocation"] == 0,
               f"recording {rec}: another kernel ran")
+        check(launches["rng"] == launches["rng_want"],
+              f"recording {rec}: draw kernel launches {launches['rng']} != "
+              f"{launches['rng_want']}")
         if rec == "full":
             for ch in ens._archive:
                 for k in ("acc_P", "acc_E"):
@@ -2637,6 +2745,8 @@ def run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate):
         steps = s.iter - 1
         check(FS.fused_gibbs_sweeps.launches == steps,
               "recorded fused fit: launches")
+        check_draws("recorded fused fit", launch_counters(FS, S, AL), gibbs,
+                    s.spec, steps)
         h = s.samples
         check(h["acc_P"].shape == (s.iter, 96, 8) and
               np.all((h["acc_E"] >= 0) & (h["acc_E"] <= 1)),
@@ -2667,7 +2777,7 @@ MESH_EAGER_G, MESH_STEPS, MESH_EAGER_STEPS = 500, 20, 10
 MESH_CHAINS, MESH_CHUNK = 8, 10
 MESH_WORKER_TIMEOUT = 240
 MESH_SEEDS = {"exponential": 11, "gamma": 12, "eager": 13, "ensemble": 14,
-              "resume": 15, "reject": 16}
+              "resume": 15, "reject": 16, "draws": 17}
 # the conjugate Poisson-Exponential loop that runs through the gamma draws'
 # rejection loop on the 1x2 mesh
 MESH_LOOP_STEPS = 200
@@ -2714,16 +2824,44 @@ def reject_operands(torch, side, device="cuda"):
     return tuple(torch.from_numpy(x).to(device) for x in (a, b, u))
 
 
+def reject_streams(mesh=None):
+    """The streams of ``reject_operands``' two chains (a rank's block of
+    them on ``mesh``)."""
+    whole = ChainStreams(MESH_SEEDS["reject"], np.arange(2), device="cuda")
+    return whole if mesh is None else whole.block(mesh, MESH_G)
+
+
 def reject_draw(torch, D, gen, side, g0=0, g1=None):
-    """The gamma draw of ``reject_operands`` from ``gen`` (a generator, or a
-    mesh's ShardGen with this rank's columns [g0, g1) of the E side): the
+    """The gamma draw of ``reject_operands`` from the streams ``gen`` (a
+    rank's block of them, with its columns [g0, g1) of the E side): the
     draw and the rejection rounds it ran."""
     a, b, u = reject_operands(torch, side)
     if side == "E" and g1 is not None:
         a, b, u = (x[..., g0:g1].contiguous() for x in (a, b, u))
     D.gamma.rounds = 0
-    x = D.gamma(gen, a, b, u=u, chain_axis=True, g=side == "E")
+    x = D.gamma(gen, a, b, u=u, chain_axis=True, g=side == "E",
+                site="gamma_" + side)
     return x, D.gamma.rounds
+
+
+def fake_mesh(n_chain, n_g, ci=0, gi=0):
+    """A rank's place in a mesh without its processes: what the blocks of
+    the streams need."""
+    import types
+
+    return types.SimpleNamespace(n_chain=n_chain, n_g=n_g, ci=ci, gi=gi,
+                                 size=n_chain * n_g)
+
+
+def mesh_draws(torch, gen, C, G):
+    """Phase 14 (d): a uniform draw with a G axis, a normal one without and
+    a flat draw of parts, at config 4's K and N, from ``gen`` (``C`` chains
+    and ``G`` columns: a rank's block, or the whole)."""
+    K, N = MESH_K, MESH_N
+    return {"g": gen.uniform("sweep_E", (C, 3, N, G), g=True),
+            "normal": gen.normal("hyper_z", (C, 2, K, N)),
+            "flat": gen.flat("slice", (C, 18), [(1, K * N, False),
+                                                (N, G, True)])}
 
 
 def mesh_steps(torch, gibbs, s, n):
@@ -2751,6 +2889,7 @@ def mesh_worker(args) -> int:
     from bayesnmf_tpu_torch.ops import _build
     from bayesnmf_tpu_torch.ops import allocation as AL
     from bayesnmf_tpu_torch.ops import distributions as D
+    from bayesnmf_tpu_torch.ops import rng as R
     from bayesnmf_tpu_torch.parallel import mesh as M
     from bayesnmf_tpu_torch.parallel import multihost as MH
 
@@ -2776,15 +2915,19 @@ def mesh_worker(args) -> int:
             # the timed run: n steps in one chunk
             s = mesh_sampler(bt, case, mesh)
             AL.allocate_counts.launches = 0
+            R.philox_fill.launches = 0
+            D.gamma.rounds = 0
             n_reduce[0] = 0
             rec, secs = mesh_steps(torch, gibbs, s, n)
             out[f"{case}/launches"] = AL.allocate_counts.launches
+            out[f"{case}/draws"] = R.philox_fill.launches
+            out[f"{case}/draws_want"] = draw_launches(gibbs, s.spec, n)
             out[f"{case}/all_reduces"] = n_reduce[0]
             out[f"{case}/seconds"] = secs
             out[f"{case}/metrics"] = rec["metrics"].cpu().numpy()
             out[f"{case}/P_local"] = rec["P"].cpu().numpy()
             # the same run step by step: each step's whole state and the
-            # generator's state before it (alike on every rank)
+            # streams before it (alike on every rank)
             s = mesh_sampler(bt, case, mesh)
             for i in range(n + 1):
                 save_whole_state(out, f"{case}/step{i}/", s.state, mesh,
@@ -2794,21 +2937,43 @@ def mesh_worker(args) -> int:
                         s.spec, s.data, s.hyperprior_params, s.state,
                         np.ones(1, np.float32), False)
         # gamma draws that take the rejection loop through the mesh's
-        # generator, this rank's block; then the conjugate loop long enough
+        # streams, this rank's block; then the conjugate loop long enough
         # to take it on its own
         g0, g1 = M.g_block(MESH_G, mesh)
         for side in ("P", "E"):
-            gen = M.ShardGen(torch.Generator(device="cuda").manual_seed(
-                MESH_SEEDS["reject"]), mesh, 2, MESH_G)
-            x, rounds = reject_draw(torch, D, gen, side, g0, g1)
+            x, rounds = reject_draw(torch, D, reject_streams(mesh), side, g0,
+                                    g1)
             out[f"reject/{side}"] = x.cpu().numpy()
             out[f"reject/{side}/rounds"] = rounds
         s = mesh_sampler(bt, "exponential", mesh)
         AL.allocate_counts.launches = 0
+        R.philox_fill.launches = 0
         D.gamma.rounds = 0
         rec, secs = mesh_steps(torch, gibbs, s, MESH_LOOP_STEPS)
         out["loop/rounds"] = D.gamma.rounds
+        out["loop/draws"] = R.philox_fill.launches
+        out["loop/draws_want"] = draw_launches(gibbs, s.spec,
+                                               MESH_LOOP_STEPS)
         out["loop/launches"] = AL.allocate_counts.launches
+        # phase 14 (d): this rank's block of three draws, and the elements
+        # its draws computed
+        blk = ChainStreams(MESH_SEEDS["draws"], np.arange(MESH_CHAINS), 5,
+                           device="cuda").block(mesh, MESH_G)
+        fill, elements = R.philox_fill, [0]
+
+        @functools.wraps(fill)
+        def counted_fill(uids, key, word1, it, n, index=None, normal=False):
+            elements[0] += uids.numel() * n
+            return fill(uids, key, word1, it, n, index, normal)
+
+        R.philox_fill = counted_fill
+        try:
+            draws = mesh_draws(torch, blk, MESH_CHAINS, g1 - g0)
+        finally:
+            R.philox_fill = fill
+        for k, v in draws.items():
+            out[f"draws/{k}"] = v.cpu().numpy()
+        out["draws/elements"] = elements[0]
         out["loop/seconds"] = secs
         out["loop/metrics"] = rec["metrics"].cpu().numpy()
         # (d) save on the mesh, then continue as the parent will
@@ -2844,8 +3009,8 @@ def mesh_worker(args) -> int:
 
 def save_whole_state(out, prefix, state, mesh, spec, chains):
     """A mesh state gathered whole into ``out`` under ``prefix`` (params/,
-    prior/, acc_P, acc_E), with its generator's state and iteration (alike
-    on every rank)."""
+    prior/, acc_P, acc_E), with its streams' record (seed, uids) and
+    iteration (alike on every rank)."""
     from bayesnmf_tpu_torch.parallel import mesh as M
 
     layout = M.state_layout(spec, chains=chains)
@@ -2856,7 +3021,9 @@ def save_whole_state(out, prefix, state, mesh, spec, chains):
                 out[f"{prefix}{grp}/{k}"] = x.cpu().numpy()
         else:
             out[prefix + grp] = v.cpu().numpy()
-    out[prefix + "gen"] = state["gen"].get_state().numpy()
+    rec = state["gen"].state()
+    out[prefix + "seed"] = rec["seed"]
+    out[prefix + "uids"] = rec["uids"]
     out[prefix + "iter"] = state["iter"]
 
 
@@ -2909,8 +3076,7 @@ def compare_shard_allocation(torch, AL, card):
     def shard(g0, g1):
         return (M[:, g0:g1].contiguous(), P, A, E[..., g0:g1].contiguous())
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    u = AL.draw_planes(gen, C, N, K, G, "cuda")
+    u = uniform_planes(torch, AL, C, N, K, G, 5)
     err = 0.0
     for g0, g1 in halves:
         args = shard(g0, g1)
@@ -2920,14 +3086,16 @@ def compare_shard_allocation(torch, AL, card):
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"allocation shard [{g0}, {g1}) differs from its plain "
               "version on the slice of the planes")
-    seed = torch.tensor([20261017], dtype=torch.int64, device="cuda")
-    zg, zk = AL.allocate_counts(M, P, A, E, seed=seed)
+    key = ChainStreams(20261017, [0], 3).subkey("alloc")
+    uids = torch.zeros(1, dtype=torch.int64, device="cuda")
+    zg, zk = AL.allocate_counts(M, P, A, E, key=key, uids=uids)
     parts = []
     for g0, g1 in halves:
         args = shard(g0, g1)
-        pg, pk = AL.allocate_counts(*args, seed=seed, g0=g0, G_total=G)
+        pg, pk = AL.allocate_counts(*args, key=key, uids=uids, g0=g0,
+                                    G_total=G)
         plain = AL.allocate_counts_reference(*args, AL.philox_planes(
-            seed, C, N, K, g1 - g0, g0=g0, G_total=G))
+            key, uids, N, K, g1 - g0, g0=g0, G_total=G))
         err = max(err, max(float((a - b).abs().max())
                            for a, b in zip((pg, pk), plain)))
         check(err == 0.0, f"allocation shard [{g0}, {g1}) in Philox mode "
@@ -2940,9 +3108,10 @@ def compare_shard_allocation(torch, AL, card):
     args = shard(0, G // 2)
 
     def kernel():
-        return AL.allocate_counts(*args, seed=seed, g0=0, G_total=G)
+        return AL.allocate_counts(*args, key=key, uids=uids, g0=0,
+                                  G_total=G)
 
-    planes = AL.philox_planes(seed, C, N, K, G // 2, g0=0, G_total=G)
+    planes = AL.philox_planes(key, uids, N, K, G // 2, g0=0, G_total=G)
 
     def plain():
         return AL.allocate_counts_reference(*args, planes)
@@ -2968,7 +3137,6 @@ def world_one_mesh(torch, bt, card):
 
     import torch.distributed as dist
     from bayesnmf_tpu_torch.ops import distributions as D
-    from bayesnmf_tpu_torch.parallel import mesh as M
     from bayesnmf_tpu_torch.parallel import multihost as MH
 
     with socket.socket() as sk:
@@ -2989,15 +3157,13 @@ def world_one_mesh(torch, bt, card):
         a = bt.GibbsSampler(data, MESH_N, mesh=MH.global_mesh(1, 1),
                             **kw).run_gibbs_sampler()
         t2 = time.perf_counter()
-        # a gamma draw through the mesh's generator that takes the
-        # rejection loop, against the one-process draw
+        # a gamma draw through the mesh's block of the streams that takes
+        # the rejection loop, against the one-process draw
         rounds = {}
         for side in ("P", "E"):
-            sg = M.ShardGen(torch.Generator(device="cuda").manual_seed(
-                MESH_SEEDS["reject"]), MH.global_mesh(1, 1), 2, MESH_G)
-            got, rounds[side] = reject_draw(torch, D, sg, side)
-            want, one = reject_draw(torch, D, torch.Generator(
-                device="cuda").manual_seed(MESH_SEEDS["reject"]), side)
+            got, rounds[side] = reject_draw(
+                torch, D, reject_streams(MH.global_mesh(1, 1)), side)
+            want, one = reject_draw(torch, D, reject_streams(), side)
             check(rounds[side] > 0 and rounds[side] == one,
                   f"world-1 mesh: the {side} draw ran {rounds[side]} "
                   f"rejection rounds, one process {one}")
@@ -3018,13 +3184,13 @@ def world_one_mesh(torch, bt, card):
           f"against {t1 - t0:.2f} s, which ran first); gamma draws whose "
           f"unrolled rounds reject in a quarter of the entries: P (2,"
           f"{MESH_K},{MESH_N}) {rounds['P']} and E (2,{MESH_N},{MESH_G}) "
-          f"{rounds['E']} rejection rounds through the mesh's generator, "
+          f"{rounds['E']} rejection rounds through the mesh's streams, "
           f"equal to the one-process draws, on {card}", flush=True)
 
 
 def mesh_state(torch, saved, case, i):
     """Step ``i``'s whole state of a mesh worker's run, on the card, with
-    its generator's state."""
+    its streams."""
     from bayesnmf_tpu_torch.models.state import state_from_numpy
 
     pre = f"{case}/step{i}/"
@@ -3038,7 +3204,8 @@ def mesh_state(torch, saved, case, i):
         elif parts[0] in ("acc_P", "acc_E"):
             d[parts[0]] = v
     st = state_from_numpy(d, "cuda")
-    st["gen"].set_state(torch.from_numpy(saved[pre + "gen"]))
+    st["gen"] = ChainStreams(int(saved[pre + "seed"]), saved[pre + "uids"],
+                             int(d["iter"]), device="cuda")
     return st
 
 
@@ -3088,7 +3255,7 @@ def run_mesh(torch, bt, AL, gibbs, card):
         check(free <= 1e-3, f"{case}: the free-running 1x2 chain's loglik "
               f"moved {free:.2e} from the one-process chain's")
         # resynced: each one-process step from the mesh's state and
-        # generator state before it, against the mesh's next state
+        # streams before it, against the mesh's next state
         worst, moved_n, moved_tot, diff_n, diff_tot = 0.0, 0, 0, 0, 0
         first_diff = None
         for i in range(n):
@@ -3117,7 +3284,7 @@ def run_mesh(torch, bt, AL, gibbs, card):
               f"state moved the loglik/logpost {worst:.2e} of the sums' "
               "scale from the mesh's")
         line = (f"phase 11 1x2 {case} ({n} steps): resynced steps (each "
-                "one-process step from the mesh's state and generator) "
+                "one-process step from the mesh's state and streams) "
                 f"loglik/logpost max diff {worst:.2e} of the sums' scale "
                 "(max(|value|, sum M log M))")
         if case == "eager":
@@ -3132,6 +3299,11 @@ def run_mesh(torch, bt, AL, gibbs, card):
             check(int(r0[f"{case}/launches"]) == n,
                   f"{case}: the allocation kernel ran "
                   f"{int(r0[f'{case}/launches'])} times on rank 0, not {n}")
+        for gi, r in enumerate(g_ranks):
+            check(int(r[f"{case}/draws"]) == int(r[f"{case}/draws_want"]),
+                  f"{case}: rank {gi} launched the draw kernel "
+                  f"{int(r[f'{case}/draws'])} times, not "
+                  f"{int(r[f'{case}/draws_want'])}")
             rates[case] = (n / secs, n / float(r0[f"{case}/seconds"]),
                            int(r0[f"{case}/all_reduces"]) / n)
         E_free = rel(r0[f"{case}/step{n}/params/E"],
@@ -3141,36 +3313,44 @@ def run_mesh(torch, bt, AL, gibbs, card):
               f"{n} steps; on {card}", flush=True)
 
     # the gamma draws through the rejection loop: each rank's block the
-    # one-process draw's, as many rounds on each rank
+    # one-process draw's, each rank running the rounds its own block needs
+    # (the done flag is a local test: no rank waits for another's rounds)
     from bayesnmf_tpu_torch.ops import distributions as D
     from bayesnmf_tpu_torch.parallel import mesh as M
 
     rounds = {}
     for side in ("P", "E"):
-        want, one = reject_draw(torch, D, torch.Generator(
-            device="cuda").manual_seed(MESH_SEEDS["reject"]), side)
+        want, one = reject_draw(torch, D, reject_streams(), side)
         want = want.cpu().numpy()
+        rounds[side] = [one]
         for gi, r in enumerate(g_ranks):
             g0, g1 = M.split(MESH_G, 2, gi)
             block = want[..., g0:g1] if side == "E" else want
             check(np.array_equal(r[f"reject/{side}"], block),
                   f"1x2 rank {gi}: the {side} gamma draw through the "
                   "rejection loop differs from the one-process draw's block")
-            check(int(r[f"reject/{side}/rounds"]) == one > 0,
+            _, own = reject_draw(torch, D, reject_streams(
+                fake_mesh(1, 2, gi=gi)), side, g0, g1)
+            check(int(r[f"reject/{side}/rounds"]) == own,
                   f"1x2 rank {gi}: {int(r[f'reject/{side}/rounds'])} "
-                  f"rejection rounds in the {side} draw, one process {one}")
-        rounds[side] = one
+                  f"rejection rounds in the {side} draw, its block alone "
+                  f"{own}")
+            rounds[side].append(own)
+        check(max(rounds[side]) > 0, f"the {side} draw never rejected")
     loop = [int(r["loop/rounds"]) for r in g_ranks]
-    check(loop[0] == loop[1], f"1x2 conjugate loop: the ranks ran {loop} "
-          "rejection rounds")
+    for gi, r in enumerate(g_ranks):
+        check(int(r["loop/draws"]) == int(r["loop/draws_want"]),
+              f"1x2 conjugate loop: rank {gi} launched the draw kernel "
+              f"{int(r['loop/draws'])} times, not {int(r['loop/draws_want'])}")
     check(all(np.isfinite(r["loop/metrics"]).all() for r in g_ranks),
           "1x2 conjugate loop: metrics not finite")
     check(all(int(r["loop/launches"]) == MESH_LOOP_STEPS for r in g_ranks),
           "1x2 conjugate loop: the allocation did not run once a step")
     print(f"phase 11 1x2 gamma rejection loop: draws whose unrolled rounds "
           f"reject in a quarter of the entries (E: the second rank's "
-          f"columns), P {rounds['P']} and E {rounds['E']} rounds on each "
-          "rank, each rank's block equal to the one-process draw's; the "
+          f"columns), rounds (one process, rank 0, rank 1) P {rounds['P']} "
+          f"and E {rounds['E']}, each rank's block equal to the one-process "
+          "draw's; the "
           f"conjugate Poisson-Exponential loop at {MESH_K}x{MESH_G}, "
           f"{MESH_LOOP_STEPS} steps: {loop[0]} and {loop[1]} rejection "
           f"rounds on ranks 0 and 1, "
@@ -3231,26 +3411,22 @@ def run_mesh(torch, bt, AL, gibbs, card):
     # free-running one
     check(d <= 1e-3, f"the mesh checkpoint continued in one process moved "
           f"{d:.2e} from the mesh's own continuation")
-    from bayesnmf_tpu_torch.utils.checkpoint import restart_seed
-
     card_s = bt.GibbsSampler.load(path)
     cpu_s = bt.GibbsSampler.load(path, device="cpu")
     check(all(np.array_equal(cpu_s.state["params"][k].numpy(),
                              v.cpu().numpy())
               for k, v in card_s.state["params"].items()),
           "the card checkpoint's state changed on the CPU")
-    restarted = torch.Generator().manual_seed(
-        restart_seed(MESH_SEEDS["resume"], cpu_s.iter))
-    check(torch.equal(cpu_s.state["gen"].get_state(),
-                      restarted.get_state()),
-          "the card checkpoint's generator was not restarted on the CPU")
+    check(repr(cpu_s.state["gen"].state()) == repr(
+        card_s.state["gen"].state()), "the card checkpoint's streams "
+          "changed on the CPU")
     cpu_s._run_chunk(2, False)
     check(np.isfinite(cpu_s.sample_metrics.to_numpy()[:, ll]).all(),
           "the card checkpoint did not continue on the CPU")
     print(f"phase 11 checkpoints: saved on the 1x2 mesh, continued in one "
           f"process (loglik max rel diff {d:.2e} from the mesh's own "
-          "continuation); loaded with device='cpu', state equal, generator "
-          f"restarted, 2 steps finite, on {card}", flush=True)
+          "continuation); loaded with device='cpu', state and streams "
+          f"equal, 2 steps finite, on {card}", flush=True)
 
     for case, (one_rate, mesh_rate, n_ar) in rates.items():
         print(f"phase 11 loop at {MESH_K}x{MESH_G} conjugate {case}: one "
@@ -3258,7 +3434,8 @@ def run_mesh(torch, bt, AL, gibbs, card):
               f"the one card over gloo {mesh_rate:.1f} it/s, {n_ar:.1f} "
               "all-reduces per iteration (the cost of gloo's host copies "
               f"on one card, not scaling), on {card}", flush=True)
-    return shard, int(sum(int(r["exponential/launches"]) for r in g_ranks))
+    return (shard, int(sum(int(r["exponential/launches"]) for r in g_ranks)),
+            g_ranks)
 
 
 # ---------------------------------------------------------------------------
@@ -3336,6 +3513,7 @@ def geweke_worker(args) -> int:
     import test_torch_geweke as TG
     from bayesnmf_tpu_torch.ops import _build
     from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import distributions as D
     from bayesnmf_tpu_torch.ops import fused_sweeps as FS
     from bayesnmf_tpu_torch.ops import stream_sweeps as S
 
@@ -3357,6 +3535,7 @@ def geweke_worker(args) -> int:
                 torch.cuda.synchronize()
             res.append({"task": i, "means": means.tolist(),
                         "launches": launch_counters(FS, S, AL),
+                        "rounds": D.gamma.rounds,
                         "plain": dict(calls),
                         "seconds": time.perf_counter() - t0})
     res.append({"imports_jax": "jax" in sys.modules
@@ -3388,11 +3567,13 @@ def run_geweke(torch, card, device="cuda"):
     chains x 100 steps against 1024 draws, |z| < 8. The chains run as
     tasks of GEWEKE_CHUNK over GEWEKE_WORKERS processes (each step is
     paced by the host), every task's kernels counted: each gate launched
-    its kernels once a step of each chain (the stream columns 3N times)
-    and never reached a plain version. Every gate's z vector and time is
+    its kernels once a step of each chain (the stream columns 3N times),
+    the draw kernel its path's draws a step and at each chain's initial
+    state and once a rejection round, and never reached a plain version. Every gate's z vector and time is
     printed; any failure fails the phase after all are printed. Returns
     {gate: launches}."""
     import test_torch_geweke as TG
+    from bayesnmf_tpu_torch.models import gibbs
 
     tasks = geweke_tasks()
     out_dir = tempfile.mkdtemp(prefix="bayesnmf_geweke_")
@@ -3458,6 +3639,10 @@ def run_geweke(torch, card, device="cuda"):
             want["allocation"] += n_chain
         if "_run" in want:
             want["_run"] *= 3 * N
+        spec = geweke_spec(TG, gate, prod)
+        want["rng"] = (n_chain * (steps * gibbs.draw_launches(spec)
+                                  + gibbs.draw_launches(spec, init=True))
+                       + sum(done[i]["rounds"] for i in ids))
         others = {k: v for k, v in count.items() if k not in want and v}
         launched = {k: count[k] for k in want}
         launches[label] = launched
@@ -3511,6 +3696,10 @@ BENCH_CELLS = {
                               loop_iters=100,
                               loop_reps=1, prof_iters=10, kernel_reps=50,
                               layer_reps=2, trace=True),
+    "cj_fit_96x2780_k8_expo": dict(fits=1, warmups=1,
+                                   loop_iters=50, loop_reps=1,
+                                   loop_warmup=10, prof_iters=5,
+                                   kernel_reps=20, layer_reps=2, trace=True),
     "ns_ens_8x96x10k_sbfi": dict(maxiters=200, post_warmup=100, MAP_over=100,
                                  MAP_every=100, runs=1, warmups=1,
                                  loop_iters=5,
@@ -3550,6 +3739,268 @@ def run_bench(card):
         row = json.loads(json.dumps(fn("cuda", **BENCH_CONFIGS[n])))
         check(row["correct"], f"bench config {n}: {row}")
         print(f"bench config {n}: " + json.dumps(row), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the chains' counter-based streams
+# ---------------------------------------------------------------------------
+
+# the normals' bound: Box-Muller in double on both sides, rounded to float;
+# the card's and the CPU's log and cos may differ by an ulp of a double,
+# which moves a float at most one ulp (2.4e-7 at |z| < 4, 4.8e-7 below 8)
+NORMAL_ATOL = 1e-6
+RNG_CHAINS, RNG_SEED = ENS_CHAINS, 41
+# the compaction test of tests/test_torch_ensemble.py, on the card
+COMPACT_CC = dict(MAP_over=40, MAP_every=20, miniters=60, maxiters=400,
+                  Ninarow_nochange=2, Ninarow_nobest=4, tol=1e-5)
+COMPACT_PATHS = {"fused": dict(fused_sweeps=True),
+                 "stream": dict(stream_sweeps=True)}
+
+
+def captured_fills(torch, R, fn):
+    """The arguments of every launch of the draw kernel ``fn()`` makes."""
+    calls, fill = [], R.philox_fill
+
+    # the spy carries the wrapper's launch count, which the launcher reaches
+    # through the module's name while it is replaced
+    @functools.wraps(fill)
+    def spy(uids, key, word1, it, n, index=None, normal=False):
+        calls.append((uids, key, word1, it, n, index, normal))
+        return fill(uids, key, word1, it, n, index, normal)
+
+    R.philox_fill = spy
+    try:
+        fn()
+    finally:
+        R.philox_fill = fill
+    return calls
+
+
+def compare_draws(torch, R, calls, label, card):
+    """Each captured draw on the card against its plain version on the
+    card and on the CPU: uniforms bit for bit, normals within NORMAL_ATOL.
+    Returns {label of the call: (n, C, normal, max abs err)}."""
+    out = {}
+    for uids, key, word1, it, n, index, normal in calls:
+        k = R.philox_fill(uids, key, word1, it, n, index, normal)
+        plain = R.philox_fill_reference(uids, key, word1, it, n, index,
+                                        normal)
+        cpu = R.philox_fill_reference(
+            uids.cpu(), key, word1, it, n,
+            None if index is None else index.cpu(), normal)
+        k2 = R.philox_fill(uids, key, word1, it, n, index, normal)
+        torch.cuda.synchronize()
+        check(torch.equal(k, k2), f"{label}: two draws differ")
+        err = max(float((k - plain).abs().max()),
+                  float((k.cpu() - cpu).abs().max()))
+        if normal:
+            check(err <= NORMAL_ATOL, f"{label}: normals differ from the "
+                  f"plain version by {err}")
+        else:
+            check(torch.equal(k, plain) and torch.equal(k.cpu(), cpu),
+                  f"{label}: uniforms differ from the plain version "
+                  f"(max abs {err})")
+        name = f"{label} site {word1 & 255} {'normal' if normal else 'uniform'}"
+        out[name] = (n, uids.numel(), normal, err, index)
+    return out
+
+
+def compaction_on_the_card(torch, bt, R, path, card):
+    """Phase 14 (b): tests/test_torch_ensemble.py's compaction test on the
+    card: compact on and off, the same end and convergence iterations and
+    MAP windows, per-column cosines of the MAP P > 0.98, every draw of
+    every chain equal bit for bit."""
+    rng = np.random.default_rng(0)
+    P = rng.dirichlet(np.ones(16) * 0.5, 3).T * 30.0
+    M = rng.poisson(P @ rng.gamma(2.0, 2.0, (3, 24))).astype(np.float32)
+    runs = []
+    for compact in (True, False):
+        rec, fill = {}, R.philox_fill
+
+        @functools.wraps(fill)
+        def spy(uids, key, word1, it, n, index=None, normal=False):
+            out = fill(uids, key, word1, it, n, index, normal)
+            for c, uid in enumerate(uids.tolist()):
+                rec[(word1, normal, it, uid)] = out[c].clone()
+            return out
+
+        R.philox_fill = spy
+        try:
+            e = bt.ChainEnsemble(
+                M, 3, n_chains=6, compact=compact, likelihood="poisson",
+                prior="truncnormal", MH=True, post_warmup=40, seed=3,
+                convergence_control=bt.ConvergenceControl(**COMPACT_CC),
+                output_dir=None, verbosity=0, device="cuda",
+                **COMPACT_PATHS[path]).run()
+        finally:
+            R.philox_fill = fill
+        runs.append((e, rec))
+    (e1, r1), (e2, r2) = runs
+    label = f"phase 14 compaction ({path})"
+    check(e1._slots.size < 6, f"{label}: the ensemble never compacted")
+    check(np.array_equal(e1._end_iter, e2._end_iter)
+          and np.array_equal(e1.tracker.converged_iter,
+                             e2.tracker.converged_iter),
+          f"{label}: end iterations {e1._end_iter} and {e2._end_iter}")
+    worst, same = 1.0, True
+    for c in range(6):
+        m1, m2 = e1.MAP_per_chain[c], e2.MAP_per_chain[c]
+        check(np.array_equal(m1["idx"], m2["idx"]),
+              f"{label}: chain {c}'s MAP window differs")
+        P1, P2 = np.asarray(m1["P"]), np.asarray(m2["P"])
+        check(P1.shape == P2.shape, f"{label}: chain {c}'s MAP rank differs")
+        same &= bool(np.array_equal(P1, P2))
+        for j in range(P1.shape[1]):
+            cos = (P1[:, j] @ P2[:, j]) / (np.linalg.norm(P1[:, j])
+                                           * np.linalg.norm(P2[:, j]) + 1e-12)
+            worst = min(worst, float(cos))
+    check(worst > 0.98, f"{label}: a MAP column's cosine {worst}")
+    check(set(r1) <= set(r2) and len(r1) < len(r2),
+          f"{label}: the compacted run drew what the other did not")
+    bad = sum(not torch.equal(v, r2[k]) for k, v in r1.items())
+    check(bad == 0, f"{label}: {bad} of {len(r1)} chain draws differ")
+    print(f"{label}: 6 chains at 16x24, compacted to {e1._slots.size}; end "
+          f"iterations {e1._end_iter.tolist()} in both runs, MAP windows "
+          f"equal, MAP P columns' cosine min {worst:.6f} (bit-identical: "
+          f"{same}); {len(r1)} chain draws of the compacted run equal the "
+          f"other's bit for bit; on {card}", flush=True)
+
+
+def run_rng(torch, bt, gibbs, card, mesh_ranks):
+    """Phase 14: the chains' streams. (a) The draw kernel (csrc/rng.cu)
+    against its plain version on the card and on the CPU at the draws of
+    the north-star ensemble's stream step (8 chains at 96x10k, SBFI over
+    ranks 1..20) and at a mesh rank's G block (an index map): uniforms
+    bit for bit, normals within NORMAL_ATOL; each timed beside its bound,
+    its plain version and torch.rand / torch.randn of the same shape.
+    (b) The compaction test on the card for the fused and stream
+    ensembles. (c) A checkpoint saved on the card resumes on the CPU with
+    the same streams: the next draws equal bit for bit, and the conjugate
+    step's allocation planes drawn on the CPU equal the card's. (d) The 1x2 mesh of phase 11: each rank's draws are
+    the one-process draw's block and computed only its block's elements.
+    Returns the kernels line's numbers."""
+    from bayesnmf_tpu_torch.models import updates as U
+    from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import rng as R
+    from bayesnmf_tpu_torch.parallel import mesh as M
+
+    t14 = time.perf_counter()
+    # (a) the stream step's draws and a mesh block's
+    spec = bt.ModelSpec(K=ENS_K, N=ENS_MAX_RANK, G=ENS_G, stream_sweeps=True,
+                        learning_rank=True, rank_method="SBFI")
+    gen = ChainStreams(RNG_SEED, np.arange(RNG_CHAINS), 7, device="cuda")
+    step = captured_fills(torch, R, lambda: gibbs.draw_stream_noise(
+        spec, RNG_CHAINS, gen, "cuda"))
+    check(len(step) == gibbs.draw_launches(spec),
+          f"the stream step made {len(step)} draws, not "
+          f"{gibbs.draw_launches(spec)}")
+    blk = gen.block(fake_mesh(1, 2, gi=1), ENS_G)
+    block = captured_fills(torch, R, lambda: blk.uniform(
+        "sweep_E", (RNG_CHAINS, 3, ENS_MAX_RANK, blk.G_local), g=True))
+    res = compare_draws(torch, R, step, "stream step", card)
+    res |= compare_draws(torch, R, block, "G block [5000, 10000)", card)
+    rows = {}
+    for (name, (n, C, normal, err, index)), call in zip(res.items(),
+                                                          step + block):
+        kern, wrapped = kernel_ms(torch, lambda c=call: R.philox_fill(*c), 50)
+        plain = time_ms(torch, lambda c=call: R.philox_fill_reference(*c), 5)
+        lib_fn = torch.randn if normal else torch.rand
+        lib = time_ms(torch, lambda: lib_fn((C, n), device="cuda"), 50)
+        b_ms, b_by = rng_bound(C * n, 0 if index is None else n)
+        rows[name] = dict(n=C * n, err=err, ms=kern, plain_ms=plain,
+                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        print(f"phase 14 draw kernel {name}: ({C}, {n}) float32, "
+              f"{'an index map, ' if index is not None else ''}max abs "
+              f"{err:.3g} against the plain version (card and CPU); kernel "
+              f"{kern:.4f} ms on the device ({wrapped:.4f} ms per call "
+              f"through the wrapper), plain PyTorch {plain:.4f} ms, "
+              f"torch.{lib_fn.__name__} of the shape {lib:.4f} ms (another "
+              f"function, for scale), bound {b_ms:.6f} ms ({b_by}); on "
+              f"{card}", flush=True)
+    # (b) compaction on the card
+    for path in COMPACT_PATHS:
+        compaction_on_the_card(torch, bt, R, path, card)
+    # (c) a card checkpoint resumed on the CPU
+    Mx, _ = synthetic(96, 500, 8, seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        s = bt.GibbsSampler(Mx, 8, prior="exponential", MH=False, seed=9,
+                            device="cuda", output_dir=os.path.join(tmp, "r"),
+                            verbosity=0)
+        s._run_chunk(10, False)
+        path = s.save_object()
+        r = bt.GibbsSampler.load(path, device="cpu")
+    check(repr(r.state["gen"].state()) == repr(s.state["gen"].state()),
+          "phase 14 (c): the streams changed on the CPU")
+    a, b = (gibbs.streams_of(x.state) for x in (s, r))
+    nxt = [(x.uniform("gamma_P", (9, 96, 8), None),
+            x.uniform("gamma_E", (9, 8, 500), None, g=True),
+            x.normal("mu_e", (8, 500), None)) for x in (a, b)]
+    check(all(torch.equal(p.cpu(), q) for p, q in zip(nxt[0][:2],
+                                                      nxt[1][:2]))
+          and float((nxt[0][2].cpu() - nxt[1][2]).abs().max())
+          <= NORMAL_ATOL, "phase 14 (c): the CPU's next draws differ from "
+          "the card's")
+    # the conjugate step's allocation: the CPU draws the planes the card
+    # kernel draws in-kernel (the same uniforms), so the kernel equals its
+    # plain version fed the CPU's planes; the plain version run on the CPU
+    # may still split a count otherwise where a log or exp rounds another
+    # way on the two devices
+    K, N, G = s.spec.K, s.spec.N, s.spec.G
+    planes = AL.philox_planes(b.subkey("alloc"), b.uids, N, K, G)
+    check(torch.equal(planes, AL.philox_planes(
+        a.subkey("alloc"), a.uids, N, K, G).cpu()),
+          "phase 14 (c): the allocation's planes differ on the CPU")
+    p = s.state["params"]
+    zc = U.sample_Z_sums(s.spec, s.data, p, a)
+    zr = AL.allocate_counts_reference(s.data, p["P"][None], p["A"][None],
+                                      p["E"][None], planes.to("cuda"))
+    check(all(torch.equal(x, y[0]) for x, y in zip(zc, zr)),
+          "phase 14 (c): the allocation kernel differs from its plain "
+          "version on the CPU's planes")
+    zp = U.sample_Z_sums(r.spec, r.data,
+                         {k: v.cpu() for k, v in p.items()}, b)
+    n_diff = sum(int((x.cpu() != y).sum()) for x, y in zip(zc, zp))
+    n_all = sum(x.numel() for x in zc)
+    print(f"phase 14 (c): a conjugate sampler saved on the card at iteration "
+          f"{s.iter} resumes on the CPU with its streams: the next uniforms "
+          "equal bit for bit, the normals within "
+          f"{NORMAL_ATOL:g}; the allocation's Philox planes drawn on the CPU "
+          "equal the card's, and the card kernel equals its plain version "
+          f"on them; the CPU's own plain run differs in {n_diff} of {n_all} "
+          f"latent-count sums (float rounding of a split); on {card}",
+          flush=True)
+    # (d) the 1x2 mesh's draws
+    whole = ChainStreams(MESH_SEEDS["draws"], np.arange(MESH_CHAINS), 5,
+                         device="cuda")
+    want = {k: v.cpu().numpy() for k, v in mesh_draws(
+        torch, whole, MESH_CHAINS, MESH_G).items()}
+    K, N = MESH_K, MESH_N
+    for gi, rk in enumerate(mesh_ranks):
+        g0, g1 = M.split(MESH_G, 2, gi)
+        flat = want["flat"]
+        blocks = {"g": want["g"][..., g0:g1], "normal": want["normal"],
+                  "flat": np.concatenate(
+                      [flat[..., :K * N], flat[..., K * N:].reshape(
+                          MESH_CHAINS, 18, N, MESH_G)[..., g0:g1].reshape(
+                              MESH_CHAINS, 18, -1)], -1)}
+        for k, v in blocks.items():
+            err = float(np.max(np.abs(rk[f"draws/{k}"] - v)))
+            check(err <= (NORMAL_ATOL if k == "normal" else 0.0),
+                  f"phase 14 (d): rank {gi}'s {k} draw differs from the "
+                  f"one-process block by {err}")
+        size = sum(v.size for v in blocks.values())
+        check(int(rk["draws/elements"]) == size,
+              f"phase 14 (d): rank {gi} drew {int(rk['draws/elements'])} "
+              f"elements for a block of {size}")
+    print(f"phase 14 (d): the 1x2 mesh's ranks drew their blocks of a G "
+          f"draw, a normal draw and a flat draw of parts ({MESH_CHAINS} "
+          f"chains at {MESH_K}x{MESH_G}): each equal to the one-process "
+          "draw's block, each rank computing only its block's "
+          f"{[int(r['draws/elements']) for r in mesh_ranks]} elements; "
+          f"phase 14 {time.perf_counter() - t14:.1f} s; on {card}",
+          flush=True)
+    main_row = rows[next(iter(rows))]   # the stream step's uniform draw
+    return main_row | {"max_abs_err": max(r["err"] for r in rows.values())}
 
 
 def main() -> int:
@@ -3651,7 +4102,8 @@ def main() -> int:
 
     # phase 11: distributed runs
     t11 = time.perf_counter()
-    mesh_alloc, mesh_launches = run_mesh(torch, bt, AL, gibbs, card)
+    mesh_alloc, mesh_launches, mesh_ranks = run_mesh(torch, bt, AL, gibbs,
+                                                     card)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     # phase 12: the Geweke gates with the kernels on the card
@@ -3663,6 +4115,9 @@ def main() -> int:
     t13 = time.perf_counter()
     run_bench(card)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
+    # phase 14: the chains' counter-based streams
+    rng_row = run_rng(torch, bt, gibbs, card, mesh_ranks)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
@@ -3794,6 +4249,17 @@ def main() -> int:
         "max_abs_err": pe["max_abs_err"], "ms": pe["ms"],
         "plain_ms": pe["plain_ms"], "bound_ms": pe["bound_ms"],
         "bound_by": pe["bound_by"], "library_ms": None})
+    # the chains' draw kernel at the north-star ensemble's stream step (its
+    # launches phase 5's run's)
+    kernels.append({
+        "name": "rng", "route": "cuda",
+        "source": "bayesnmf_tpu_torch/csrc/rng.cu",
+        "replaces": "bayesnmf_tpu/parallel/chains.py:19 (per-chain threefry "
+                    "keys; XLA's draws, no pallas_call)",
+        "launches": ens_launches["rng"], "max_abs_err": rng_row["max_abs_err"],
+        "ms": rng_row["ms"], "plain_ms": rng_row["plain_ms"],
+        "bound_ms": rng_row["bound_ms"], "bound_by": rng_row["bound_by"],
+        "library_ms": rng_row["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

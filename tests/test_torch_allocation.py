@@ -18,6 +18,7 @@ from bayesnmf_tpu.ops.pallas_allocation import _pick_tile
 from bayesnmf_tpu.ops.pallas_allocation import allocate_counts_fused
 from bayesnmf_tpu_torch.ops import allocation as AL
 from bayesnmf_tpu_torch.ops.math import const
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 
 torch.set_num_threads(1)
 
@@ -86,11 +87,17 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def philox(seed, it=0):
+    """The Philox mode's operands of one chain (uid 0): the key of the
+    streams of ``seed`` at iteration ``it`` and the uid."""
+    return dict(key=ChainStreams(seed, [0], it).subkey("alloc"),
+                uids=torch.zeros(1, dtype=torch.int64))
+
+
 def test_conservation_exclusion_and_integers():
     M, P, A, E = setup(16, 5, 40, seed=0, excluded=(3,), zero_cells=((0, 0),))
-    gen = torch.Generator().manual_seed(1)
     zg, zk = (x.numpy() for x in AL.allocate_counts(*_t(M, P, A, E),
-                                                    gen=gen))
+                                                    **philox(1)))
     np.testing.assert_array_equal(zk.sum(0), M.sum(0))
     np.testing.assert_array_equal(zg.sum(1), M.sum(1))
     assert zg[:, 3].sum() == 0 and zk[3].sum() == 0
@@ -104,8 +111,7 @@ def test_all_zero_weight_cell_allocates_nothing():
     whatever M holds there (the total > 0 guard)."""
     M, P, A, E = setup(6, 3, 10, seed=4)
     E[:, 2] = 0.0
-    gen = torch.Generator().manual_seed(2)
-    zg, zk = AL.allocate_counts(*_t(M, P, A, E), gen=gen)
+    zg, zk = AL.allocate_counts(*_t(M, P, A, E), **philox(2))
     assert float(zk[:, 2].sum()) == 0.0
     np.testing.assert_array_equal(zg.numpy().sum(1),
                                   M.sum(1) - M[:, 2])
@@ -185,9 +191,9 @@ def test_multinomial_mean():
     each cell against its own SD (tests/test_allocation.py:85-120 takes the
     largest SD of all cells)."""
     M, P, A, E = setup(16, 5, 40, seed=0, excluded=(3,))
-    gen = torch.Generator().manual_seed(5)
-    zks = np.stack([AL.allocate_counts(*_t(M, P, A, E), gen=gen)[1].numpy()
-                    for _ in range(200)])
+    zks = np.stack([AL.allocate_counts(*_t(M, P, A, E),
+                                       **philox(5, it))[1].numpy()
+                    for it in range(200)])
     _assert_multinomial_mean(M, P, A, E, zks)
 
 
@@ -213,20 +219,21 @@ def test_philox_known_answers(ctr, key, want):
 
 
 def test_philox_planes_layout():
-    """Plane i of node j at cell (k, g) of chain c is word i % 4 of the
-    block with counter (k*G + g, j, i // 4, c) under the seed's two 32-bit
-    halves, its low 24 bits mapped to (bits + 0.5) / 2^24."""
+    """Plane i of node j at cell (k, g) of the chain of uid c is word i % 4
+    of the block with counter (k*G + g, j, i // 4, c) under the key's two
+    32-bit words, its low 24 bits j mapped to max(j / 2^24, tiny)."""
     C, N, K, G = 2, 5, 3, 4
-    seed = (0x1234ABCD << 32) | 0x0F0E0D0C
-    u = AL.philox_planes(torch.tensor([seed], dtype=torch.int64), C, N, K, G)
+    key = (0x0F0E0D0C, 0x1234ABCD)
+    uids = torch.tensor([7, 2], dtype=torch.int64)
+    u = AL.philox_planes(key, uids, N, K, G)
     assert u.shape == (C, 1 + 2 * AL.PHILOX_ROUNDS, AL.n_nodes(N), K, G)
     i64 = lambda x: torch.tensor(x, dtype=torch.int64)  # noqa: E731
     for c, i, j, k, g in [(0, 0, 0, 0, 0), (1, 5, 3, 2, 1), (0, 24, 6, 1, 3),
                           (1, 12, 0, 2, 3)]:
         words = AL.philox4x32_10(
-            [i64(k * G + g), i64(j), i64(i // 4), i64(c)],
-            i64(seed & 0xFFFFFFFF), i64(seed >> 32))
-        want = ((int(words[i % 4]) & 0xFFFFFF) + 0.5) / 2.0 ** 24
+            [i64(k * G + g), i64(j), i64(i // 4), i64(int(uids[c]))],
+            i64(key[0]), i64(key[1]))
+        want = max((int(words[i % 4]) & 0xFFFFFF) / 2.0 ** 24, 1.1754944e-38)
         assert float(u[c, i, j, k, g]) == np.float32(want)
     assert float(u.min()) > 0.0 and float(u.max()) < 1.0
 
@@ -239,8 +246,8 @@ def test_philox_mode_multinomial_mean():
     Mt, Pt, At, Et = _t(M, P[None], A[None], E[None])
     zks = []
     for s in range(200):
-        u = AL.philox_planes(torch.tensor([s * 7919 + 1], dtype=torch.int64),
-                             1, 5, 16, 40)
+        u = AL.philox_planes((s * 7919 + 1, 0),
+                             torch.zeros(1, dtype=torch.int64), 5, 16, 40)
         zg, zk = (x[0].numpy() for x in AL.allocate_counts_reference(
             Mt, Pt, At, Et, u))
         np.testing.assert_array_equal(zk.sum(0), M.sum(0))
@@ -276,12 +283,16 @@ def test_chain_batch_matches_unbatched_calls():
 def test_wrapper_rejects_bad_operands():
     M, P, A, E = _t(*setup(6, 3, 10, seed=1))
     with pytest.raises(TypeError):
-        AL.allocate_counts(M.double(), P, A, E, gen=torch.Generator())
+        AL.allocate_counts(M.double(), P, A, E, **philox(0))
     with pytest.raises(ValueError):
-        AL.allocate_counts(M[:, :-1].contiguous(), P, A, E,
-                           gen=torch.Generator())
+        AL.allocate_counts(M[:, :-1].contiguous(), P, A, E, **philox(0))
     with pytest.raises(ValueError):
         AL.allocate_counts(M, P, A, E, u=torch.rand(1, 17, 3, 6, 10))
+    with pytest.raises(ValueError, match="key"):
+        AL.allocate_counts(M, P, A, E)
+    with pytest.raises(TypeError):
+        AL.allocate_counts(M, P, A, E, key=(0, 0),
+                           uids=torch.zeros(1, dtype=torch.int32))
 
 
 def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
@@ -305,5 +316,5 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "device", property(
         lambda self: fake_cuda))
     with pytest.raises(RuntimeError, match="stand-in kernel"):
-        AL.allocate_counts(M, P, A, E, seed=torch.zeros(1, dtype=torch.int64))
+        AL.allocate_counts(M, P, A, E, **philox(0))
     assert calls == ["kernel"]

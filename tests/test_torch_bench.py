@@ -191,6 +191,11 @@ CELL_TINY = {
                               MAP_over=10, MAP_every=10, fits=1, warmups=1,
                               loop_iters=5, loop_reps=2, loop_warmup=5,
                               prof_iters=2, kernel_reps=2, layer_reps=2),
+    "cj_fit_96x2780_k8_expo": dict(G=100, rank=3, maxiters=60,
+                                   post_warmup=10, MAP_over=10, MAP_every=10,
+                                   fits=1, warmups=1, loop_iters=5,
+                                   loop_reps=2, loop_warmup=5, prof_iters=2,
+                                   kernel_reps=2, layer_reps=2),
     "ns_ens_8x96x10k_sbfi": dict(G=300, true_rank=3, max_rank=4, chains=2,
                                  maxiters=30, post_warmup=10, MAP_over=10,
                                  MAP_every=10, runs=1, warmups=1,
@@ -265,3 +270,17 @@ def test_phase_clock_counts_each_call_once_and_restores(monkeypatch):
         Sub().inner()
     assert secs == {"a": 1.0, "b": 4.0}
     assert Sub.outer is outer and "inner" not in vars(Sub)
+
+
+def test_compaction_mode_compares_equal_work_on_the_cpu():
+    """--compact (bench.py's mode): both runs do the same chain-iterations,
+    each chain ending at the same iteration, and the value is the
+    wall-clock ratio."""
+    row = B.bench_compaction("cpu", n_chains=3, K=16, G=16, maxiters=100,
+                             miniters=20, MAP_over=10, MAP_every=10,
+                             post_warmup=10)
+    assert row["correct"]
+    assert row["compact_chain_iters"] == row["no_compact_chain_iters"]
+    assert row["reps"]["value"] == pytest.approx(
+        row["no_compact_seconds"] / row["compact_seconds"], rel=0.02)
+    json.dumps(row)

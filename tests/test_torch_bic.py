@@ -94,7 +94,7 @@ def test_excluded_columns_draw_from_the_prior(path):
             z.mul_(torch.as_tensor(MASKS).unsqueeze(dim))
             state["params"][k] = z
     gen = torch.Generator().manual_seed(9)
-    u, noise = port_noise(spec, gen)
+    u, noise = port_noise(spec, gen, tgibbs.streams_of(state))
     outs = []
     for M in (M1, M2):
         st = dict(state)

@@ -33,6 +33,7 @@ from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models import updates as tU
 from bayesnmf_tpu_torch.models.state import state_from_numpy, state_to_numpy
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from bayesnmf_tpu_torch.ops import allocation as AL
 from test_torch_eager import jax_step_noise as eager_noise
 from test_torch_fused_sweeps import jax_erfc_tail
@@ -238,10 +239,12 @@ def pick_tree(tree, pick):
     return pick(tree) if isinstance(tree, torch.Tensor) else tree
 
 
-def port_noise(spec, gen):
-    """(u, noise) for C chains from the port's generator, chain-major."""
+def port_noise(spec, gen, streams=None):
+    """(u, noise) for C chains, chain-major: the stream and eager steps'
+    from the chains' ``streams`` (ops/rng.ChainStreams), the rest from the
+    torch generator ``gen``."""
     if spec.stream_sweeps:
-        return None, tgibbs.draw_stream_noise(spec, C, gen, "cpu")
+        return None, tgibbs.draw_stream_noise(spec, C, streams, "cpu")
     if spec.fused_sweeps:
         u = torch.rand((C, tgibbs.n_uniforms(spec)), generator=gen)
         noise = {}
@@ -250,7 +253,7 @@ def port_noise(spec, gen):
                               "e": torch.rand((C, 9, N, G), generator=gen)}
         return u.clamp_min(1e-30), noise
     if not spec.needs_Z:
-        return None, tgibbs.draw_eager_noise(spec, gen, "cpu", C)
+        return None, tgibbs.draw_eager_noise(spec, streams, "cpu", C)
     r = lambda *s: torch.rand((C,) + s, generator=gen).clamp_min(1e-30)  # noqa
     noise = {"prior": {"p": r(9, K, N), "e": r(9, N, G)},
              "P": r(9, K, N), "E": r(9, N, G),
@@ -269,21 +272,23 @@ def test_chain_axis_equals_one_chain_calls(path):
     """Three chains in one call against three one-chain calls of the same
     step on the same state and draws (the stream step takes a batch of one
     for a chain): every output within rtol 1e-6, decisions equal; the
-    generator is not touched but by the gamma draws' rare rejection
-    rounds."""
+    streams are not drawn from but by the gamma draws' rare rejection
+    rounds, which each one-chain call draws from its chain's own stream."""
     data = torch.from_numpy(sim_data(1))
     spec = ModelSpec(**(dict(K=K, N=N, G=G) | AXIS_CASES[path]))
     hp = default_hyperprior_params(spec, float(data.mean()))
     gen = torch.Generator().manual_seed(3)
-    state = tgibbs.init_state(spec, hp, data, gen, chains=C)
+    state = tgibbs.init_state(spec, hp, data, ChainStreams(3, np.arange(C)),
+                              chains=C)
     flags = torch.tensor([True, False, False])
     for step in range(2):
-        u, noise = port_noise(spec, gen)
+        u, noise = port_noise(spec, gen, tgibbs.streams_of(state))
         one = []
         for c in range(C):
             pick = (lambda x: x[c:c + 1]) if spec.stream_sweeps else (
                 lambda x: x[c])
             st = pick_tree(state, pick)
+            st["gen"] = state["gen"].select([c])
             one.append(tgibbs.gibbs_step(
                 spec, data, hp, st, 0.5, flags[c:c + 1] if spec.stream_sweeps
                 else bool(flags[c]), u=None if u is None else u[c],

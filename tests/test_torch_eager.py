@@ -30,6 +30,7 @@ from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models import updates as tU
 from bayesnmf_tpu_torch.models.state import state_from_numpy, state_to_numpy
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from bayesnmf_tpu_torch.ops import math as tm
 from test_torch_fused_sweeps import jax_erfc_tail
 
@@ -449,14 +450,13 @@ def test_ten_steps_of_each_new_path_match_jax(case):
 
 def test_eager_noise_layout():
     """draw_eager_noise gives every draw of an eager step, shaped as the
-    JAX step draws it, and the step draws nothing else from the generator
+    JAX step draws it, and the step draws nothing else from the streams
     but the gamma draws' rare rejection rounds."""
     for kw in STEP_CASES.values():
         if kw.get("fused_sweeps"):
             continue
         jspec, spec = specs(**kw)
-        gen = torch.Generator().manual_seed(0)
-        got = tgibbs.draw_eager_noise(spec, gen, "cpu")
+        got = tgibbs.draw_eager_noise(spec, ChainStreams(0, [0]), "cpu")
         want = jax_step_noise(jspec, jax.random.PRNGKey(0))[1]
         assert shapes(got) == shapes(want), kw
 
@@ -473,8 +473,8 @@ def test_stream_step_with_conjugate_hypers_runs():
     spec = ModelSpec(K=K, N=N, G=G, stream_sweeps=True,
                      exact_truncnorm_hypers=False)
     hp = default_hyperprior_params(spec, float(data.mean()))
-    gen = torch.Generator().manual_seed(1)
-    state = tgibbs.init_state(spec, hp, data, gen, chains=2)
+    state = tgibbs.init_state(spec, hp, data, ChainStreams(1, [0, 1]),
+                              chains=2)
     for _ in range(2):
         state, out = tgibbs.stream_step(spec, data, hp, state, 1.0,
                                         torch.zeros(2, dtype=torch.bool))

@@ -96,6 +96,86 @@ def test_short_sbfi_run_compacts_and_counts_live_chains():
     assert again["P"].shape[0] == 16
 
 
+def _compaction_sim(K=16, N=3, G=24, seed=0, scale=30.0):
+    """tests/test_ensemble_surface.py::_sim."""
+    rng = np.random.default_rng(seed)
+    P = rng.dirichlet(np.ones(K) * 0.5, N).T * scale
+    E = rng.gamma(2.0, 2.0, (N, G))
+    return rng.poisson(P @ E).astype(np.float32)
+
+
+def _recorded_run(monkeypatch, **kw):
+    """A run with every draw recorded per chain: {(counter word 1,
+    iteration, uid): that chain's row} of the streams' draws, and the
+    allocation's Philox planes under {("alloc", key, uid): planes}."""
+    from bayesnmf_tpu_torch.ops import allocation as AL
+    from bayesnmf_tpu_torch.ops import rng as R
+
+    rec = {}
+    fill, planes = R.philox_fill, AL.philox_planes
+
+    def spy_fill(uids, key, word1, it, n, index=None, normal=False):
+        out = fill(uids, key, word1, it, n, index, normal)
+        for c, uid in enumerate(uids.tolist()):
+            rec[(word1 + (normal << 30), it, uid)] = out[c].clone()
+        return out
+
+    def spy_planes(key, uids, *a, **k):
+        out = planes(key, uids, *a, **k)
+        for c, uid in enumerate(uids.tolist()):
+            rec[("alloc", key, uid)] = out[c].clone()
+        return out
+
+    monkeypatch.setattr(R, "philox_fill", spy_fill)
+    monkeypatch.setattr(AL, "philox_planes", spy_planes)
+    ens = ChainEnsemble(_compaction_sim(), 3, n_chains=6, **kw).run()
+    monkeypatch.undo()
+    return ens, rec
+
+
+COMPACTION_PATHS = {
+    "fused": dict(prior="truncnormal", MH=True, fused_sweeps=True),
+    "conjugate": dict(prior="exponential", MH=False),
+    "stream": dict(prior="truncnormal", MH=True, stream_sweeps=True),
+}
+
+
+@pytest.mark.parametrize("path", sorted(COMPACTION_PATHS))
+def test_compaction_preserves_per_chain_inference(path, monkeypatch):
+    """The port's counterpart of tests/test_ensemble_surface.py::
+    test_compaction_preserves_per_chain_inference, on the fused (its plain
+    version here), conjugate and streaming paths: with compact on and off
+    the same convergence iterations and MAP windows, per-column cosines of
+    the MAP P above 0.98, and every draw of every resident chain at every
+    iteration equal bit for bit (the draws of the compacted run are a
+    subset of the other's: a finished chain stops drawing)."""
+    cc = bt.ConvergenceControl(MAP_over=40, MAP_every=20, miniters=60,
+                               maxiters=400, Ninarow_nochange=2,
+                               Ninarow_nobest=4, tol=1e-5)
+    kw = dict(likelihood="poisson", convergence_control=cc, post_warmup=40,
+              seed=3, output_dir=None, verbosity=0, device="cpu",
+              **COMPACTION_PATHS[path])
+    e1, r1 = _recorded_run(monkeypatch, compact=True, **kw)
+    e2, r2 = _recorded_run(monkeypatch, compact=False, **kw)
+    assert e1._slots.size < 6, "staggering never compacted; weaken CC"
+    np.testing.assert_array_equal(e1._end_iter, e2._end_iter)
+    np.testing.assert_array_equal(e1.tracker.converged_iter,
+                                  e2.tracker.converged_iter)
+    for c in range(6):
+        m1, m2 = e1.MAP_per_chain[c], e2.MAP_per_chain[c]
+        np.testing.assert_array_equal(m1["idx"], m2["idx"])
+        P1 = np.asarray(m1["P"])
+        P2 = np.asarray(m2["P"])
+        assert P1.shape == P2.shape
+        for j in range(P1.shape[1]):
+            cos = (P1[:, j] @ P2[:, j]) / (
+                np.linalg.norm(P1[:, j]) * np.linalg.norm(P2[:, j]) + 1e-12)
+            assert cos > 0.98, (c, j, cos)
+    assert set(r1) <= set(r2) and len(r1) < len(r2)
+    for k, v in r1.items():
+        assert torch.equal(v, r2[k]), k
+
+
 def test_checkpoint_resume_bit_exact(tmp_path):
     M = sim_data(seed=2)
     cc = bt.ConvergenceControl(MAP_over=20, MAP_every=10, miniters=40,

@@ -26,6 +26,7 @@ from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.models import gibbs
 from bayesnmf_tpu_torch.ops import fused_sweeps as FS
 from bayesnmf_tpu_torch.ops import math as m
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 
 torch.set_num_threads(1)
 
@@ -133,22 +134,25 @@ def pe_sweeps_step(spec, data, hp, state, temperature, accept_all):
     their initial draw: the P and E MH sweeps alone, on a fresh Mhat and
     fresh uniforms. The chain keeps p(P, E, data | Mu, Sigmasq), so its
     means over chains whose prior parameters were drawn from the
-    hyperpriors match the full model's marginal."""
+    hyperpriors match the full model's marginal. The uniforms are one draw
+    of the chain's streams at site "fused"."""
     params, prior = dict(state["params"]), state["prior"]
-    dev, gen = data.device, state["gen"]
-
-    def u(*shape):
-        return torch.rand((1,) + shape, generator=gen,
-                          device=dev).clamp_min_(1.2e-38)
-
+    gen = gibbs.streams_of(state)
     kn, ng = (spec.K, spec.N), (spec.N, spec.G)
+    shapes = [kn, ng, kn, kn, ng, ng]
+    sizes = [int(np.prod(x)) for x in shapes]
+    planes = gen.uniform("fused", (1, sum(sizes))).split(sizes, 1)
+    Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E = (
+        x.reshape((1,) + sh) for x, sh in zip(planes, shapes))
     Mh = m.mhat(params["P"], params["A"], params["E"])
     params["P"], params["E"], _, acc_P, acc_E = FS.fused_pe_sweeps(
         data, params["P"], params["E"], params["A"], Mh, state["acc_P"],
-        state["acc_E"], u(*kn), u(*ng), u(*kn), u(*kn), u(*ng), u(*ng),
+        state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E,
         prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"], prior["Sigmasq_e"],
         prior_kind="truncnormal", exact_mh=True, accept_all=accept_all)
-    return dict(state, params=params, acc_P=acc_P, acc_E=acc_E), None
+    it = state["iter"] + 1
+    return dict(state, params=params, acc_P=acc_P, acc_E=acc_E, iter=it,
+                gen=gen.at(it)), None
 
 
 def run_successive(name, spec=None, device="cpu", n_chains=C, n_steps=T,
@@ -157,9 +161,9 @@ def run_successive(name, spec=None, device="cpu", n_chains=C, n_steps=T,
     successive-conditional transitions, the first fifth dropped: (chains,
     n_stats). Each chain starts from an exact joint draw and steps as a
     batch of one, since each has its own data and no step takes data on a
-    chain axis; chain c draws from its own generator, seeded from (seed,
-    c), so ``chains`` (default range(n_chains)) may split one gate's chains
-    over several callers."""
+    chain axis; chain c draws from the stream of uid c under ``seed``, and
+    its data from a generator seeded from (seed, c), so ``chains`` (default
+    range(n_chains)) may split one gate's chains over several callers."""
     spec = gate_spec(name) if spec is None else spec
     hp = fixed_hp(spec)
     step = pe_sweeps_step if name == "fused_pe_sweeps" else gibbs.gibbs_step
@@ -168,7 +172,9 @@ def run_successive(name, spec=None, device="cpu", n_chains=C, n_steps=T,
     out = []
     for c in (range(n_chains) if chains is None else chains):
         gen = torch.Generator(device=device).manual_seed(seed * 1000003 + c)
-        state = gibbs.init_state(spec, hp, zeros, gen, chains=1)
+        state = gibbs.init_state(spec, hp, zeros,
+                                 ChainStreams(seed, [c], device=device),
+                                 chains=1)
         data, state["params"] = redraw_data(spec, gen, state["params"])
         stats = []
         for _ in range(n_steps):
@@ -182,9 +188,9 @@ def run_successive(name, spec=None, device="cpu", n_chains=C, n_steps=T,
 def run_marginal(spec, n=N_MARGINAL, seed=1, device="cpu"):
     """Exact prior draws of the statistics (init_state of n chains):
     (n, n_stats)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
     st = gibbs.init_state(spec, fixed_hp(spec),
-                          torch.zeros(spec.K, spec.G, device=device), gen,
+                          torch.zeros(spec.K, spec.G, device=device),
+                          ChainStreams(seed, np.arange(n), device=device),
                           chains=n)
     return stats_of(st["params"], spec.learning_rank).cpu().numpy()
 

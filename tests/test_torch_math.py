@@ -16,6 +16,7 @@ from bayesnmf_tpu_torch.models import convergence as tconv
 from bayesnmf_tpu_torch.models import map_estimate as tmap
 from bayesnmf_tpu_torch.ops import distributions as dist
 from bayesnmf_tpu_torch.ops import math as tm
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 
 torch.set_num_threads(1)
 
@@ -167,20 +168,21 @@ def test_convergence_tracker_matches_jax():
 
 
 def _gen(seed):
-    g = torch.Generator()
-    g.manual_seed(seed)
-    return g
+    """The streams of one chain (uid 0) under ``seed``."""
+    return ChainStreams(seed, [0])
 
 
 @pytest.mark.parametrize("shape_param", [0.4, 2.0, 9.5])
 def test_gamma_and_inv_gamma_distributions(shape_param):
     n, rate = 20000, 3.0
     a = torch.full((n,), shape_param)
-    x = dist.gamma(_gen(1), a, torch.full((n,), rate)).numpy()
+    x = dist.gamma(_gen(1), a, torch.full((n,), rate),
+                   site="gamma_P").numpy()
     assert np.isfinite(x).all() and (x > 0).all()
     assert st.kstest(x, st.gamma(shape_param, scale=1 / rate).cdf).pvalue \
         > 1e-3
-    y = dist.inv_gamma(_gen(2), a, torch.full((n,), rate)).numpy()
+    y = dist.inv_gamma(_gen(2), a, torch.full((n,), rate),
+                       site="sq_p").numpy()
     assert st.kstest(y, st.invgamma(shape_param, scale=rate).cdf).pvalue \
         > 1e-3
 
@@ -190,7 +192,7 @@ def test_gamma_and_inv_gamma_distributions(shape_param):
 def test_truncnorm_nonneg_distribution(mu, sigmasq):
     n = 20000
     x = dist.truncnorm_nonneg(_gen(3), torch.full((n,), mu),
-                              torch.full((n,), sigmasq)).numpy()
+                              torch.full((n,), sigmasq), "prior_P").numpy()
     assert (x >= 0).all()
     sd = np.sqrt(sigmasq)
     if -mu / sd > 8.0:
@@ -205,7 +207,8 @@ def test_truncnorm_nonneg_distribution(mu, sigmasq):
 
 def test_exponential_distribution():
     rate = 2.5
-    x = dist.exponential(_gen(5), torch.full((20000,), rate)).numpy()
+    x = dist.exponential(_gen(5), torch.full((20000,), rate),
+                         site="prior_P").numpy()
     assert (x >= 0).all()
     assert st.kstest(x, st.expon(scale=1 / rate).cdf).pvalue > 1e-3
 
@@ -223,11 +226,11 @@ def test_gamma_takes_the_jax_planes():
     want = np.asarray(jdist.gamma(key, a, rate))
     u = np.asarray(jax.random.uniform(key, (9, 10, 20), jnp.float32,
                                       minval=jnp.float32(1.1754944e-38)))
-    got = dist.gamma(_gen(0), t(a), t(rate), u=t(u)).numpy()
+    got = dist.gamma(_gen(0), t(a), t(rate), u=t(u), site="gamma_P").numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
 def test_normal_distribution():
     x = dist.normal(_gen(4), torch.full((20000,), 2.0),
-                    torch.full((20000,), 9.0)).numpy()
+                    torch.full((20000,), 9.0), site="mu_p").numpy()
     assert st.kstest(x, st.norm(2.0, 3.0).cdf).pvalue > 1e-3

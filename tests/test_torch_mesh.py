@@ -1,7 +1,7 @@
 """The port's mesh layer in one process: the layout tables against the JAX
-package's shardings, the blocks, the shared generator, the bootstrap off
-a cluster, the refusals, the allocation on a G shard, a world-1 mesh and a
-resume on another device type. The runs across processes are in
+package's shardings, the blocks, a rank's block of the streams, the
+bootstrap off a cluster, the refusals, the allocation on a G shard, a
+world-1 mesh and a resume on another device type. The runs across processes are in
 tests/test_torch_multiproc.py."""
 
 import pickle
@@ -18,6 +18,7 @@ from bayesnmf_tpu.parallel import mesh as JM
 from bayesnmf_tpu_torch.config import ModelSpec
 from bayesnmf_tpu_torch.ops import allocation as AL
 from bayesnmf_tpu_torch.ops import distributions as D
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from bayesnmf_tpu_torch.parallel import mesh as M
 from bayesnmf_tpu_torch.parallel import multihost as MH
 from bayesnmf_tpu_torch.utils import checkpoint as CK
@@ -113,26 +114,31 @@ def test_local_and_blocks_of_a_state():
 
 @pytest.mark.parametrize("gi", [0, 1, 2])
 def test_shard_generator_keeps_the_block_of_the_one_process_draw(gi):
-    """ShardGen draws at the one-process shape and keeps this rank's block:
-    plain and flat draws, uniform and normal, equal the one-process draw's
-    slice, and the generators stay in step."""
+    """A rank's block of the streams (ChainStreams.block) draws only its
+    chains and columns, each element the one-process draw's: plain and flat
+    draws, uniform and normal, equal the one-process draw's slice, and the
+    block draws no more elements than it keeps."""
     C, N, K, G = 4, 3, 5, 11
     mesh = fake_mesh(2, 3, ci=1, gi=gi)
     g0, g1 = M.g_block(G, mesh)
-    ref = torch.Generator().manual_seed(7)
-    sg = M.ShardGen(torch.Generator().manual_seed(7), mesh, C, G)
-    full = torch.rand((C, 9, N, G), generator=ref)
-    np.testing.assert_array_equal(sg.draw((2, 9, N, g1 - g0), 0, True),
-                                  full[2:, :, :, g0:g1])
-    full = torch.randn((2, C, N, K), generator=ref)
-    np.testing.assert_array_equal(sg.draw((2, 2, N, K), 1, False, True),
+    whole = ChainStreams(7, np.arange(10, 10 + C), it=3)
+    sg = whole.block(mesh, G)
+    assert sg.uids.tolist() == [12, 13] and (sg.c0, sg.c1) == (2, 4)
+    full = whole.uniform("sweep_E", (C, 9, N, G), g=True)
+    got = sg.uniform("sweep_E", (2, 9, N, g1 - g0), g=True)
+    assert got.shape == (2, 9, N, g1 - g0)
+    np.testing.assert_array_equal(got, full[2:, :, :, g0:g1])
+    full = whole.normal("mu_p", (2, C, N, K), c_dim=1)
+    np.testing.assert_array_equal(sg.normal("mu_p", (2, 2, N, K), c_dim=1),
                                   full[:, 2:])
-    full = torch.rand((C, 18, K * N + N * G), generator=ref)
-    got = sg.draw_flat((2, 18), [(1, K * N, False), (N, g1 - g0, True)])
+    full = whole.flat("slice", (C, 18), [(1, K * N, False), (N, G, True)])
+    got = sg.flat("slice", (2, 18), [(1, K * N, False), (N, g1 - g0, True)])
     want = torch.cat([full[2:, :, :K * N], full[2:, :, K * N:].reshape(
         2, 18, N, G)[..., g0:g1].reshape(2, 18, -1)], -1)
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(sg.get_state(), ref.get_state())
+    assert got.numel() == 2 * 18 * (K * N + N * (g1 - g0))
+    # the block writes the whole streams' record
+    assert sg.state()["uids"].tolist() == whole.state()["uids"].tolist()
 
 
 def rejecting_planes(C, shape, seed=3):
@@ -149,10 +155,12 @@ def rejecting_planes(C, shape, seed=3):
 @pytest.mark.parametrize("side", ["P", "E", "sigmasq"])
 def test_gamma_rejection_loop_on_a_mesh_equals_one_process(side):
     """A gamma draw whose unrolled rounds all reject runs its rejection loop
-    through the mesh's generator (ShardGen, world-1 CPU mesh) and returns
-    the one-process draw: the loop's flag is the operands' G axis (E side:
-    last axis G; sigmasq: inv_gamma over G; P side: none), not the draw."""
-    C, K, N, G = 2, 5, 3, 7
+    on each rank's block alone (the done flag is a local test, no
+    collective) and returns the one-process draw's block: the loop's round
+    r draws each element's own (site, r) uniforms, so the rounds a rank
+    needs do not depend on the others'. E side and sigmasq: blocks of G
+    (inv_gamma over G); P side: blocks of the chains."""
+    C, K, N, G = 4, 5, 3, 7
     shape = {"P": (C, K, N), "E": (C, N, G), "sigmasq": (C, G)}[side]
     g = side != "P"
     rng = torch.Generator().manual_seed(11)
@@ -160,17 +168,21 @@ def test_gamma_rejection_loop_on_a_mesh_equals_one_process(side):
     b = 0.5 + torch.rand(shape, generator=rng)
     u = rejecting_planes(C, shape[1:])
     draw = D.inv_gamma if side == "sigmasq" else D.gamma
-    sg = M.ShardGen(torch.Generator().manual_seed(5),
-                    M.make_mesh(device="cpu"), C, G)
-    got = draw(sg, a, b, u=u, chain_axis=True, g=g)
-    ref = torch.Generator().manual_seed(5)
+    whole = ChainStreams(5, np.arange(C), it=2)
     D.gamma.rounds = 0
-    want = draw(ref, a, b, u=u, chain_axis=True, g=g)
+    want = draw(whole, a, b, u=u, chain_axis=True, g=g, site="lambda_e")
     assert D.gamma.rounds > 0
     assert torch.isfinite(want).all() and (want > 0).all()
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-    # the loop drew the same rounds: the generators are still in step
-    np.testing.assert_array_equal(sg.get_state(), ref.get_state())
+    meshes = ([fake_mesh(1, 2, gi=i) for i in range(2)] if g
+              else [fake_mesh(2, 1, ci=i) for i in range(2)])
+    for mesh in meshes:
+        sg = whole.block(mesh, G)
+        cs = slice(sg.c0, sg.c1)
+        gs = slice(sg.g0, sg.g1) if g else slice(None)
+        got = draw(sg, a[cs][..., gs], b[cs][..., gs],
+                   u=u[cs][..., gs].contiguous(), chain_axis=True, g=g,
+                   site="lambda_e")
+        np.testing.assert_array_equal(got.numpy(), want[cs][..., gs].numpy())
 
 
 def test_initialize_binds_the_card_of_local_device_ids(monkeypatch):
@@ -288,12 +300,15 @@ def test_allocation_on_a_shard_equals_the_slice(G0, C0):
     P = torch.as_tensor(rng.gamma(1.0, 1.0, (C, K, N)).astype(np.float32))
     A = torch.ones(C, N)
     E = torch.as_tensor(rng.gamma(1.0, 1.0, (C, N, G)).astype(np.float32))
-    seed = torch.tensor([12345], dtype=torch.int64)
+    key = (12345, 0)
+    uids = torch.arange(C, dtype=torch.int64)
     cs, gs = slice(C0, C0 + Cl), slice(G0, G0 + Gl)
     np.testing.assert_array_equal(
-        AL.philox_planes(seed, Cl, N, K, Gl, g0=G0, G_total=G, c0=C0),
-        AL.philox_planes(seed, C, N, K, G)[cs, ..., gs])
-    u = AL.draw_planes(torch.Generator().manual_seed(1), C, N, K, G, "cpu")
+        AL.philox_planes(key, uids[cs], N, K, Gl, g0=G0, G_total=G),
+        AL.philox_planes(key, uids, N, K, G)[cs, ..., gs])
+    u = torch.rand((C, AL.N_PLANES, AL.n_nodes(N), K, G),
+                   generator=torch.Generator().manual_seed(1)).clamp_min(
+                       1.2e-38)
     zg, zk = AL.allocate_counts(Mx, P, A, E, u=u)
     rest = [c for c in range(G) if not G0 <= c < G0 + Gl]
 
@@ -301,7 +316,7 @@ def test_allocation_on_a_shard_equals_the_slice(G0, C0):
         return AL.allocate_counts(
             Mx[:, cols].contiguous(), P[cs].contiguous(),
             A[cs].contiguous(), E[cs][..., cols].contiguous(),
-            u=u[cs][..., cols].contiguous(), g0=G0, G_total=G, c0=C0)
+            u=u[cs][..., cols].contiguous(), g0=G0, G_total=G)
 
     pg, pk = shard(gs)
     np.testing.assert_array_equal(pk, zk[cs, :, gs])
@@ -317,12 +332,13 @@ def test_allocation_philox_shard_through_the_plain_version():
     P = torch.as_tensor(rng.gamma(1.0, 1.0, (C, K, N)).astype(np.float32))
     A = torch.ones(C, N)
     E = torch.as_tensor(rng.gamma(1.0, 1.0, (C, N, G)).astype(np.float32))
-    seed = torch.tensor([99], dtype=torch.int64)
+    key = (99, 0)
+    uids = torch.tensor([4, 9], dtype=torch.int64)
     zg, zk = AL.allocate_counts_reference(
-        Mx, P, A, E, AL.philox_planes(seed, C, N, K, G))
+        Mx, P, A, E, AL.philox_planes(key, uids, N, K, G))
     parts = []
     for g0, g1 in ((0, 10), (10, 20)):
-        u = AL.philox_planes(seed, 1, N, K, g1 - g0, g0=g0, G_total=G, c0=1)
+        u = AL.philox_planes(key, uids[1:], N, K, g1 - g0, g0=g0, G_total=G)
         pg, pk = AL.allocate_counts_reference(
             Mx[:, g0:g1], P[1:], A[1:], E[1:, :, g0:g1], u)
         np.testing.assert_array_equal(pk[0], zk[1, :, g0:g1])
@@ -341,8 +357,11 @@ def rewrite_device(path, device):
 
 def test_load_onto_another_device_type_restarts_the_generator(tmp_path):
     """A checkpoint whose recorded device is a card loads with
-    device='cpu': the state, records and tracker carry over exactly; the
-    generator restarts seeded from (seed, iteration), and the log says so."""
+    device='cpu': the state, records and tracker carry over exactly, and
+    the chain's stream continues: the resumed chain draws what the saved
+    one draws next, bit for bit. A checkpoint written before the streams
+    (a generator's state) loads through the restart path: the streams
+    restart seeded from (seed, iteration), and the log says so."""
     cc = bt.ConvergenceControl(MAP_over=10, MAP_every=5, miniters=10,
                                maxiters=20)
     s = bt.GibbsSampler(sim(), 3, prior="exponential", MH=False, seed=3,
@@ -350,32 +369,45 @@ def test_load_onto_another_device_type_restarts_the_generator(tmp_path):
                         output_dir=str(tmp_path / "run"))
     s._run_chunk(5, False)
     path = s.save_object()
-    rewrite_device(path, "cuda:0")
+    p = rewrite_device(path, "cuda:0")
+    assert (p["streams"]["seed"], p["streams"]["iter"]) == (3, s.iter)
+    assert p["streams"]["uids"].tolist() == [0]
     r = bt.GibbsSampler.load(path, device="cpu")
     for k, v in s.state["params"].items():
         np.testing.assert_array_equal(r.state["params"][k].numpy(),
                                       v.numpy())
     np.testing.assert_array_equal(r.sample_metrics.to_numpy(),
                                   s.sample_metrics.to_numpy())
-    want = torch.Generator().manual_seed(CK.restart_seed(3, s.iter))
-    np.testing.assert_array_equal(r.state["gen"].get_state(),
-                                  want.get_state())
-    assert "generator restarts" in (tmp_path / "run" / "log.txt").read_text()
+    assert r.state["gen"].state()["iter"] == s.iter == r.state["iter"]
+    for x in (s, r):
+        x._run_chunk(5, False)
+    for k, v in s.state["params"].items():
+        np.testing.assert_array_equal(r.state["params"][k].numpy(),
+                                      v.numpy())
+    np.testing.assert_array_equal(r.sample_metrics.to_numpy(),
+                                  s.sample_metrics.to_numpy())
+    # a checkpoint written before the streams restarts them
+    del p["streams"]
+    p["gen_state"] = torch.Generator().get_state().numpy()
+    with open(path, "wb") as fh:
+        pickle.dump(p, fh)
+    r = bt.GibbsSampler.load(path, device="cpu")
+    it = p["iter"]
+    assert r.state["gen"].state()["seed"] == CK.restart_seed(3, it)
+    assert r.state["gen"].iter == it
+    assert "streams restart" in (tmp_path / "run" / "log.txt").read_text()
     r._run_chunk(5, False)
     assert np.isfinite(r.sample_metrics.to_numpy()[:, 3]).all()
-    # the same device type keeps the stream: a bit-exact resume
-    rewrite_device(path, "cpu")
-    r = bt.GibbsSampler.load(path)
-    np.testing.assert_array_equal(r.state["gen"].get_state(),
-                                  s.state["gen"].get_state())
 
 
 def test_ensemble_load_onto_another_device_type(tmp_path):
-    e = bt.ChainEnsemble(sim(), 3, n_chains=2, prior="exponential", MH=False,
-                         seed=2, device="cpu",
-                         convergence_control=bt.ConvergenceControl(
-                             MAP_over=10, MAP_every=5, miniters=10,
-                             maxiters=20))
+    """An ensemble checkpoint recorded on a card resumes with device='cpu'
+    and continues every chain's stream: the resumed run equals the saved
+    run continued, bit for bit."""
+    kw = dict(prior="exponential", MH=False, seed=2, device="cpu",
+              convergence_control=bt.ConvergenceControl(
+                  MAP_over=10, MAP_every=5, miniters=10, maxiters=20))
+    e = bt.ChainEnsemble(sim(), 3, n_chains=2, **kw)
     e._run_chunk(5)
     path = e.save_object(str(tmp_path / "ens.ckpt"))
     rewrite_device(path, "cuda")
@@ -383,11 +415,14 @@ def test_ensemble_load_onto_another_device_type(tmp_path):
     for k, v in e.states["params"].items():
         np.testing.assert_array_equal(r.states["params"][k].numpy(),
                                       v.numpy())
-    want = torch.Generator().manual_seed(CK.restart_seed(2, e.iter))
-    np.testing.assert_array_equal(r.states["gen"].get_state(),
-                                  want.get_state())
-    r.run()
+    assert r.states["gen"].state()["uids"].tolist() == [0, 1]
+    assert r.states["gen"].iter == e.iter
+    for x in (e, r):
+        x.run()
     assert r.MAP_per_chain[0] is not None
+    for c in range(2):
+        np.testing.assert_array_equal(r.MAP_per_chain[c]["P"],
+                                      e.MAP_per_chain[c]["P"])
 
 
 def test_jax_mesh_partition_specs_are_tuples(jmesh):

@@ -1,9 +1,9 @@
 """Mesh runs of the port across processes (gloo on the CPU) against the
 one-process port with the same seed.
 
-A mesh is a layout, not a different sampler: every rank draws at the
-one-process shape and keeps its block (parallel/mesh.ShardGen), so a run on
-an n_chain x n_g mesh gives the one-process chain(s): A, R and every MH
+A mesh is a layout, not a different sampler: every rank draws its block of
+each one-process draw from the chains' streams (ops/rng.ChainStreams.block),
+so a run on an n_chain x n_g mesh gives the one-process chain(s): A, R and every MH
 decision equal, P, E, the prior parameters and sigmasq within rtol 1e-5 /
 atol 1e-6, the latent counts' sums exactly equal, the metrics rows within
 rtol 1e-5 (the loglik, log-posterior, BIC and KL, sums of K x G terms
@@ -269,10 +269,11 @@ def gamma_operands(side, C=2):
 
 
 def gamma_case(mesh, out):
-    """(e): gamma draws that take the rejection loop through the mesh's
-    generator: this rank's block, or the error the draw raised, and the
-    loop's rounds."""
+    """(e): gamma draws that take the rejection loop on this rank's block of
+    the streams: the block, or the error the draw raised, and the loop's
+    rounds."""
     from bayesnmf_tpu_torch.ops import distributions as D
+    from bayesnmf_tpu_torch.ops.rng import ChainStreams
     from bayesnmf_tpu_torch.parallel import mesh as M
 
     g0, g1 = M.g_block(G, mesh)
@@ -280,10 +281,11 @@ def gamma_case(mesh, out):
         a, b, u = gamma_operands(side)
         if side == "E":
             a, b, u = (x[..., g0:g1].contiguous() for x in (a, b, u))
-        sg = M.ShardGen(torch.Generator().manual_seed(SEED), mesh, 2, G)
+        sg = ChainStreams(SEED, np.arange(2)).block(mesh, G)
         D.gamma.rounds = 0
         try:
-            x = D.gamma(sg, a, b, u=u, chain_axis=True, g=side == "E")
+            x = D.gamma(sg, a, b, u=u, chain_axis=True, g=side == "E",
+                        site="gamma_E")
             out[f"gamma/{side}"] = x.numpy()
         except RuntimeError as e:
             out[f"gamma/{side}/error"] = np.str_(repr(e))
@@ -470,24 +472,28 @@ def test_g_sharded_chain_equals_one_process(mesh_1x2, case):
 def test_gamma_rejection_loop_on_a_g_split_mesh(mesh_1x2, side):
     """(e) A gamma draw whose unrolled rounds reject in part of the entries
     (on the E side only in the second rank's columns) runs the exact
-    rejection loop through the mesh's generator on both ranks, as many
-    rounds on each, and each rank's block equals the one-process draw's
-    block."""
+    rejection loop on each rank's own block of the streams, with no
+    collective: each rank runs the rounds its block needs (on the E side
+    the first rank none), and each rank's block equals the one-process
+    draw's block."""
     from bayesnmf_tpu_torch.ops import distributions as D
+    from bayesnmf_tpu_torch.ops.rng import ChainStreams
 
     ranks, _ = mesh_1x2
     for r in ranks:
         assert f"gamma/{side}/error" not in r, str(r[f"gamma/{side}/error"])
     a, b, u = gamma_operands(side)
     D.gamma.rounds = 0
-    want = D.gamma(torch.Generator().manual_seed(SEED), a, b, u=u,
-                   chain_axis=True).numpy()
-    assert D.gamma.rounds > 0 and np.isfinite(want).all()
+    want = D.gamma(ChainStreams(SEED, np.arange(2)), a, b, u=u,
+                   chain_axis=True, g=side == "E", site="gamma_E").numpy()
+    rounds = D.gamma.rounds
+    assert rounds > 0 and np.isfinite(want).all()
     cols = [(0, G // 2), (G // 2, G)]
     for r, (g0, g1) in zip(ranks, cols):
         block = want[..., g0:g1] if side == "E" else want
         np.testing.assert_array_equal(r[f"gamma/{side}"], block)
-        assert int(r[f"gamma/{side}/rounds"]) == D.gamma.rounds
+        own = rounds if side == "P" or g1 == G else 0
+        assert int(r[f"gamma/{side}/rounds"]) == own
 
 
 def test_g_sharded_fit_against_the_jax_mesh_fit(mesh_1x2):

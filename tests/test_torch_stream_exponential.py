@@ -32,6 +32,7 @@ from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models import updates as TU
 from bayesnmf_tpu_torch.ops import math as tm
 from bayesnmf_tpu_torch.ops import stream_sweeps as S
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from test_torch_eager import jax_prior_noise
 
 torch.set_num_threads(1)
@@ -247,7 +248,8 @@ def test_stream_noise_layout_with_the_exponential_prior(setup):
     update's gamma planes and one plane of prior-draw uniforms a side, each
     chain's its own row of one draw."""
     _, tspec, _, _, _ = setup
-    noise = tgibbs.draw_stream_noise(tspec, C, torch.Generator(), "cpu")
+    noise = tgibbs.draw_stream_noise(tspec, C, ChainStreams(0, np.arange(C)),
+                                     "cpu")
     assert noise["prior"]["p"].shape == (C, 9, K, N)
     assert noise["prior"]["e"].shape == (C, 9, N, G)
     assert noise["P"]["prior_u"].shape == (C, K, N)

@@ -39,6 +39,7 @@ from bayesnmf_tpu_torch.models import gibbs as tgibbs
 from bayesnmf_tpu_torch.models import updates as TU
 from bayesnmf_tpu_torch.ops import math as tm
 from bayesnmf_tpu_torch.ops import stream_sweeps as S
+from bayesnmf_tpu_torch.ops.rng import ChainStreams
 
 torch.set_num_threads(1)
 
@@ -532,7 +533,7 @@ def test_stream_step_makes_one_metrics_row_call(ens_setup, monkeypatch):
              "prior": port_tree(js["prior"]),
              "acc_P": t(np.asarray(js["acc_P"])),
              "acc_E": t(np.asarray(js["acc_E"])), "iter": 4,
-             "gen": torch.Generator().manual_seed(0)}
+             "gen": ChainStreams(0, np.arange(js["params"]["P"].shape[0]))}
     calls = []
     row = S.stream_metrics_row
 
