@@ -25,8 +25,9 @@
 //     built for each n2 of 1..16 with its loops unrolled, so every slot
 //     index is a constant, and one array serves as weights and counts (slot
 //     h holds node h's weight until its parent is split, then its count);
-//     n2 = 32 and 64 keep the array in local memory, which costs less than
-//     the resident warps its 64 registers would take. Registers are capped
+//     n2 = 32, 64 and 128 (ranks up to 128, ops.MAX_N) keep the array in
+//     local memory, which costs less than the resident warps its 64
+//     registers would take. Registers are capped
 //     so that 3 blocks (4 with the tree in local memory) fit an SM. The
 //     inversion stops at the first step whose CDF reaches u, or once x
 //     reaches the count: the pmf
@@ -73,7 +74,7 @@ namespace {
 constexpr int kTileG = 32;   // lanes of a block: columns g
 constexpr int kRows = 8;     // warps of a block: rows k (ops/allocation.py)
 constexpr int kThreads = kTileG * kRows;
-constexpr int kMaxN2 = 64;
+constexpr int kMaxN2 = 128;
 constexpr int kRegN2 = 16;         // the largest tree kept in registers
 constexpr int kMinBlocks = 3;      // blocks an SM, the tree in registers
 constexpr int kMinBlocksLocal = 4; // blocks an SM, the tree in local memory
@@ -397,7 +398,8 @@ extern "C" int allocate_counts_launch(
     case 8: e = launch_alloc<8>(a, s); break;
     case 16: e = launch_alloc<16>(a, s); break;
     case 32: e = launch_alloc<32>(a, s); break;
-    default: e = launch_alloc<64>(a, s); break;
+    case 64: e = launch_alloc<64>(a, s); break;
+    default: e = launch_alloc<128>(a, s); break;
   }
   if (e != cudaSuccess) return (int)e;
   const int zg_blocks = (int)(((size_t)C * K * N + kRows - 1) / kRows);

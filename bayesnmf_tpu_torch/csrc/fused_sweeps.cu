@@ -22,6 +22,15 @@
 //     code reads them in global memory (row stride G instead of G/S).
 //     P, the P-side prior pair, A and the block's slice of E live in shared
 //     memory too; every block holds the same bits of P and A.
+//     Large K (288 rows at N >= 8 on one block, the SBS-1536 catalogue at
+//     any N): where P, its prior pair and the pushed per-row partials (3 K N
+//     floats and S K 5 doubles) do not fit beside the rest even on one
+//     block, the same code keeps them in a per-chain global scratch (bit 2
+//     of `resident`): each block its own copy of P and the pair, and the
+//     partials one slot per block, written with st.global.cg (to L2) and
+//     fenced before the cluster barrier, read by every block after it with
+//     ld.global.cg, in the same rank order as the distributed form, so the
+//     two forms add the same doubles in the same order.
 //
 // Work split inside a block of 512 threads:
 //   hyper-sweep  (K,N): every block computes all of it for its own copy
@@ -101,8 +110,12 @@ struct Args {
   float *hp0p_o, *hp1p_o, *hp0e_o, *hp1e_o;
   int K, N, G;
   // what sits in shared memory: bit 0 the data and Mhat slices, bit 1 the E
-  // slice
+  // slice; bit 2 set: P, its prior pair and the pushed partials sit in the
+  // global scratch instead (xg: the partials (C, S, K, 5) doubles; pg: P and
+  // the pair (C, S, 3, K, N) floats)
   int resident;
+  double* xg;
+  float* pg;
 };
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
@@ -384,14 +397,43 @@ __host__ __device__ inline int threads_per_g(int Gq) {
 // slice (N x Gq, when resident), a column's mu, var, proposal and new value
 // (4 x K), an E row's proposal step, value step and flag (3 x kThreads), A
 // (N), the NaN counts (kThreads + S) and the inactive flags (S).
+// With `fixed_in_smem` false, P with its prior pair and the pushed
+// partials sit in the global scratch and take no shared memory.
 __host__ __device__ inline size_t fixed_smem_bytes(int K, int N, int Gq,
-                                                  int S, bool e_resident) {
-  const size_t doubles = (size_t)S * K * 5 + 2 * S + kWarps + kThreads * 3;
-  const size_t floats = (size_t)3 * K * N + (e_resident ? (size_t)N * Gq : 0)
+                                                  int S, bool e_resident,
+                                                  bool fixed_in_smem) {
+  const size_t doubles = (fixed_in_smem ? (size_t)S * K * 5 : 0) + 2 * S
+                         + kWarps + kThreads * 3;
+  const size_t floats = (fixed_in_smem ? (size_t)3 * K * N : 0)
+                        + (e_resident ? (size_t)N * Gq : 0)
                         + 4 * K + 3 * kThreads + N + kThreads + 2 * S;
   return doubles * sizeof(double) + floats * sizeof(float);
 }
 
+// A pushed partial: into every block's shared memory (lanes 0..S-1 of the
+// row's warp), or into this block's slot of the global scratch (lane 0),
+// through L2. xb: this block's array (shared) or the chain's (global).
+__device__ __forceinline__ void push_partials(
+    cg::cluster_group& cluster, double* xb, bool global, int S,
+    int lane, size_t at, const double* v, int nv) {
+  if (global) {
+    if (lane == 0) {
+      for (int j = 0; j < nv; ++j) __stcg(xb + at + j, v[j]);
+    }
+  } else if (lane < S) {
+    double* x = cluster.map_shared_rank(xb, lane) + at;
+    for (int j = 0; j < nv; ++j) x[j] = v[j];
+  }
+}
+
+// A partial another block pushed: shared memory, or L2 past this SM's L1
+__device__ __forceinline__ double pulled(const double* x, bool global) {
+  return global ? __ldcg(x) : *x;
+}
+
+// kXGlobal: P, its prior pair and the pushed partials in the global
+// scratch (bit 2 of a.resident), else in shared memory
+template <bool kXGlobal>
 __global__ void __launch_bounds__(kThreads)
 fused_sweeps_kernel(Args a) {
   extern __shared__ double smem[];
@@ -409,15 +451,34 @@ fused_sweeps_kernel(Args a) {
   const int gb = rank * Gq < G ? rank * Gq : G;
   const int Gs = G - gb < Gq ? G - gb : Gq;
 
-  double* xb1 = smem;                          // [S][K][2]
-  double* xb2 = xb1 + (size_t)S * K * 2;       // [S][K][3]
-  double* xa = xb2 + (size_t)S * K * 3;        // [2][S]
+  // P, its prior pair and the pushed partials: in shared memory, or in
+  // the global scratch (each block its copy of P; one partials array a
+  // chain, each block writing its own rank's rows)
+  constexpr bool xglobal = kXGlobal;
+  double* xb1;                                 // [S][K][2]
+  double* xb2;                                 // [S][K][3]
+  double* sd = smem;
+  if (xglobal) {
+    xb1 = a.xg + (size_t)c * S * K * 5;
+  } else {
+    xb1 = sd;
+    sd += (size_t)S * K * 5;
+  }
+  xb2 = xb1 + (size_t)S * K * 2;
+  double* xa = sd;                             // [2][S]
   double* s_red = xa + 2 * S;                  // [kWarps]
   double* s_ep = s_red + kWarps;               // [kThreads][3]
-  float* sP = reinterpret_cast<float*>(s_ep + kThreads * 3);  // [K][N]
+  float* sf = reinterpret_cast<float*>(s_ep + kThreads * 3);
+  float* sP;                                   // [K][N]
+  if (xglobal) {
+    sP = a.pg + ((size_t)c * S + rank) * 3 * KN;
+  } else {
+    sP = sf;
+    sf += 3 * (size_t)KN;
+  }
   float* sHp0 = sP + KN;
   float* sHp1 = sHp0 + KN;
-  float* sE = sHp1 + KN;                       // [N][Gq] when resident
+  float* sE = sf;                              // [N][Gq] when resident
   const bool e_resident = (a.resident & 2) != 0;
   float* s_mu = sE + (e_resident ? (size_t)N * Gq : 0);  // [K] each
   float* s_var = s_mu + K;
@@ -537,19 +598,15 @@ fused_sweeps_kernel(Args a) {
         den += t.den;
         nz |= o * o != 0.0f;
       }
-      mu1 = warp_allsum(mu1);
-      den = warp_allsum(den);
-      if (lane < S) {
-        double* x = cluster.map_shared_rank(xb1, lane)
-                    + ((size_t)rank * K + k) * 2;
-        x[0] = mu1;
-        x[1] = den;
-      }
+      const double v[2] = {warp_allsum(mu1), warp_allsum(den)};
+      push_partials(cluster, xb1, xglobal, S, lane,
+                    ((size_t)rank * K + k) * 2, v, 2);
     }
     if (expo) {
       const int any = __syncthreads_or(nz);
       if (tid < S) cluster.map_shared_rank(x_flag, tid)[rank] = any;
     }
+    if (xglobal) __threadfence();
     cluster.sync();
     bool inactive = false;
     if (expo) {
@@ -560,8 +617,8 @@ fused_sweeps_kernel(Args a) {
       const int kn = k * N + n;
       double mu1 = 0.0, den = 0.0;
       for (int r = 0; r < S; ++r) {
-        mu1 += xb1[((size_t)r * K + k) * 2];
-        den += xb1[((size_t)r * K + k) * 2 + 1];
+        mu1 += pulled(xb1 + ((size_t)r * K + k) * 2, xglobal);
+        den += pulled(xb1 + ((size_t)r * K + k) * 2 + 1, xglobal);
       }
       const float hp0 = sHp0[kn], hp1 = sHp1[kn];
       float mu, var;
@@ -586,26 +643,21 @@ fused_sweeps_kernel(Args a) {
         mu1_r += t.mu1;
         den_r += t.den;
       }
-      lp = warp_allsum(lp);
-      mu1_r = warp_allsum(mu1_r);
-      den_r = warp_allsum(den_r);
-      if (lane < S) {
-        double* x = cluster.map_shared_rank(xb2, lane)
-                    + ((size_t)rank * K + k) * 3;
-        x[0] = lp;
-        x[1] = mu1_r;
-        x[2] = den_r;
-      }
+      const double v[3] = {warp_allsum(lp), warp_allsum(mu1_r),
+                           warp_allsum(den_r)};
+      push_partials(cluster, xb2, xglobal, S, lane,
+                    ((size_t)rank * K + k) * 3, v, 3);
     }
+    if (xglobal) __threadfence();
     cluster.sync();
     for (int k = tid; k < K; k += kThreads) {
       const int kn = k * N + n;
       double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
       for (int r = 0; r < S; ++r) {
         const double* x = xb2 + ((size_t)r * K + k) * 3;
-        lp += x[0];
-        mu1_r += x[1];
-        den_r += x[2];
+        lp += pulled(x, xglobal);
+        mu1_r += pulled(x + 1, xglobal);
+        den_r += pulled(x + 2, xglobal);
       }
       float rec, nan_here = 0.0f;
       const float nv = mh_decide(prior, exact, inactive, sP[kn], s_prp[k],
@@ -841,7 +893,9 @@ fused_sweeps_kernel(Args a) {
 
 // One cluster of `cluster` blocks per chain; `resident`: bit 0, the data and
 // Mhat slices go to shared memory, bit 1, the E slice does (the caller
-// checked that they fit).
+// checked that they fit); bit 2, P, its prior pair and the pushed partials
+// go to `scratch` (C * cluster * K * 5 doubles, then C * cluster * 3 * K * N
+// floats), else to shared memory.
 extern "C" int fused_gibbs_sweeps_launch(
     const float* data, const float* P, const float* E, const float* A,
     const float* Mh, const float* accP, const float* accE,
@@ -854,7 +908,7 @@ extern "C" int fused_gibbs_sweeps_launch(
     float* P_o, float* E_o, float* Mh_o, float* accP_o, float* accE_o,
     float* A_o, float* R_o, float* nan_o, float* hp0p_o, float* hp1p_o,
     float* hp0e_o, float* hp1e_o, int C, int K, int N, int G, int cluster,
-    int resident, void* stream) {
+    int resident, void* scratch, void* stream) {
   Args a;
   a.data = data;
   a.P = P; a.E = E; a.A = A; a.Mh = Mh; a.accP = accP; a.accE = accE;
@@ -870,19 +924,28 @@ extern "C" int fused_gibbs_sweeps_launch(
   a.hp0p_o = hp0p_o; a.hp1p_o = hp1p_o; a.hp0e_o = hp0e_o; a.hp1e_o = hp1e_o;
   a.K = K; a.N = N; a.G = G;
   a.resident = resident;
-  if (cluster < 1 || cluster > 16) return (int)cudaErrorInvalidValue;
+  const bool xglobal = (resident & 4) != 0;
+  if (cluster < 1 || cluster > 16 || (xglobal && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.xg = static_cast<double*>(scratch);
+  a.pg = xglobal ? reinterpret_cast<float*>(a.xg + (size_t)C * cluster * K * 5)
+                 : nullptr;
   const int Gq = (G + cluster - 1) / cluster;
-  const size_t smem = fixed_smem_bytes(K, N, Gq, cluster, (resident & 2) != 0)
+  const size_t smem = fixed_smem_bytes(K, N, Gq, cluster, (resident & 2) != 0,
+                                       !xglobal)
                       + (resident & 1 ? (size_t)2 * K * Gq * sizeof(float) : 0);
+  void (*kernel)(Args) = xglobal ? fused_sweeps_kernel<true>
+                                 : fused_sweeps_kernel<false>;
   cudaError_t e;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fused_sweeps_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (cluster > 8) {
-    e = cudaFuncSetAttribute(fused_sweeps_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
     if (e != cudaSuccess) return (int)e;
@@ -899,5 +962,5 @@ extern "C" int fused_gibbs_sweeps_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, fused_sweeps_kernel, a);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
 }

@@ -77,6 +77,13 @@
 //     host builds no P*A and runs no arithmetic on the state. Unlike a
 //     column, it reads E's prior pair and acceptance record (four C*N*G
 //     planes) once, so at (96,20,10000,8) its bound is bytes (~29 MB).
+//     Large K and N (the envelope, ops/__init__.py: K <= 1536, N <= 128):
+//     the register tile is built for N up to 128 (NP = 128); the column
+//     tiles' G width is 64, or 32 or 16 where a K x (width + 1) data tile
+//     would not fit (col_tile; K = 1536 takes 16); an E-row block stages
+//     P*A whole, or where it would not fit in chunks of rows, each chunk
+//     staged before both passes use it, the rows still added in order
+//     (erow_rows). These forms are first drafts: right, not yet fast.
 //     What is left: the tile kernels run at a tenth of the float32 peak
 //     (staging and compute of a tile do not overlap; 2 blocks an SM);
 //     tensor cores for the Mhat rebuild are ruled out by the precision the
@@ -112,6 +119,8 @@
 namespace {
 
 constexpr float kFloor = 1e-6f;
+// what a block can opt in to on an H100
+constexpr size_t kSmemMax = 227 * 1024;
 
 // jnp.maximum: NaN in either operand gives NaN (fmaxf would drop it)
 __device__ __forceinline__ float jmax(float a, float b) {
@@ -410,20 +419,33 @@ struct ErowArgs {
   int* nan;
   int n, expo;
   int C, K, N, G;
+  int rows;          // rows of PA staged at once (erow_rows)
 };
 
 __host__ __device__ inline int pad_rows(int K) {
   return (K + kUnroll - 1) / kUnroll * kUnroll;
 }
 
-// Stage PA[c] as pad_rows(K) rows of NP floats, zero from N on and past K.
+// Stage rows k0 .. k0 + rows of PA[c] as rows of NP floats, zero from N on
+// and past K.
 template <int NP>
-__device__ void stage_pa(const float* PA, float* sPA, int c, int K, int N) {
+__device__ void stage_pa(const float* PA, float* sPA, int c, int K, int N,
+                         int k0, int rows) {
   const float* pa = PA + (size_t)c * K * N;
-  for (int i = threadIdx.x; i < pad_rows(K) * NP; i += blockDim.x) {
-    const int k = i / NP, n = i % NP;
-    sPA[i] = (k < K && n < N) ? pa[k * N + n] : 0.0f;
+  for (int i = threadIdx.x; i < rows * NP; i += blockDim.x) {
+    const int k = k0 + i / NP, n = i % NP;
+    sPA[i] = (k < K && n < N) ? pa[(size_t)k * N + n] : 0.0f;
   }
+}
+
+// Rows of PA an E-row block stages at once: all of them (padded to
+// kUnroll), or where they do not fit, chunks that leave room for two blocks
+// an SM (ops/stream_sweeps.py::erow_rows).
+inline int erow_rows(int K, int NP) {
+  if (((size_t)pad_rows(K) * NP + K) * sizeof(float) <= kSmemMax) {
+    return pad_rows(K);
+  }
+  return (int)((kSmemMax / 2 / sizeof(float) - K) / NP) / kUnroll * kUnroll;
 }
 
 // E[c, :, g] in registers, zero from N on and for a thread past G.
@@ -437,17 +459,53 @@ __device__ __forceinline__ void load_column(const float* e_c, int N, int G,
   }
 }
 
-template <int NP, int MODE>
+// The sums of one pass over the rows of PA staged at sPA, rows k0 .. k1 of
+// which sPA holds from row kbase on: stats (pass 1) or accept (pass 2)
+// terms, added in order into s0, s1 (and s2).
+template <int NP, bool kSecond>
+__device__ __forceinline__ void erow_pass(const float* sPA, const float* sP,
+                                          const float* data,
+                                          const float (&e)[NP], int K, int G,
+                                          int g, int kbase, int k1, float es,
+                                          float q, double* s0, double* s1,
+                                          double* s2) {
+  for (int k0 = kbase; k0 < k1; k0 += kUnroll) {
+    float mh[kUnroll];
+    const float* rows[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) rows[u] = sPA + (k0 - kbase + u) * NP;
+    dot_ordered<NP>(e, rows, mh);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u;
+      if (k < K) {
+        const float p = sP[k];
+        if (kSecond) {
+          accept_terms(data[(size_t)k * G + g], mh[u], p * es, p * q, p, s0,
+                       s1, s2);
+        } else {
+          stats_terms(data[(size_t)k * G + g], mh[u], p * es, p, s0, s1);
+        }
+      }
+    }
+  }
+}
+
+// kChunked: P*A does not fit the block's shared memory whole (K = 1536 at
+// N > 36); chunks of a.rows rows are staged in turn, before each pass, and
+// the rows are still added in order.
+template <int NP, int MODE, bool kChunked>
 __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
   extern __shared__ float4 smem4[];
   const int K = a.K, N = a.N, G = a.G;
-  float* sPA = reinterpret_cast<float*>(smem4);   // pad_rows(K) x NP
-  float* sP = sPA + pad_rows(K) * NP;             // K: the raw P column
+  const int KC = kChunked ? a.rows : pad_rows(K);  // rows staged at once
+  float* sPA = reinterpret_cast<float*>(smem4);   // KC x NP
+  float* sP = sPA + KC * NP;                      // K: the raw P column
   const int c = blockIdx.y, tid = threadIdx.x;
   const int g = blockIdx.x * kRowThreads + tid;
   const bool live = g < G;
 
-  stage_pa<NP>(a.PA, sPA, c, K, N);
+  if (!kChunked) stage_pa<NP>(a.PA, sPA, c, K, N, 0, KC);
   bool nz = false;  // some P_n[k]^2 != 0: the row is not inactive
   for (int k = tid; k < K; k += kRowThreads) {
     const float p = MODE == kUpdate ? a.P[((size_t)c * K + k) * N + a.n]
@@ -475,22 +533,22 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
   }
 
   double s0 = 0.0, s1 = 0.0, s2 = 0.0;
-  if (live && MODE != kAccept) {
-    for (int k0 = 0; k0 < K; k0 += kUnroll) {
-      float mh[kUnroll];
-      const float* rows[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) rows[u] = sPA + (k0 + u) * NP;
-      dot_ordered<NP>(e, rows, mh);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = k0 + u;
-        if (k < K) {
-          const float p = sP[k];
-          stats_terms(a.data[(size_t)k * G + g], mh[u], p * es, p, &s0, &s1);
+  if (kChunked) {
+    if (MODE != kAccept) {
+      for (int kc = 0; kc < K; kc += KC) {
+        __syncthreads();
+        stage_pa<NP>(a.PA, sPA, c, K, N, kc, KC);
+        __syncthreads();
+        if (live) {
+          erow_pass<NP, false>(sPA, sP, a.data, e, K, G, g, kc,
+                               kc + KC < K ? kc + KC : K, es, 0.0f, &s0,
+                               &s1, &s2);
         }
       }
     }
+  } else if (live && MODE != kAccept) {
+    erow_pass<NP, false>(sPA, sP, a.data, e, K, G, g, 0, K, es, 0.0f, &s0,
+                         &s1, &s2);
   }
   const size_t CG = (size_t)a.C * G;
   if (MODE == kStats) {
@@ -520,24 +578,23 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
       q = a.prop[cg_at];
     }
     s0 = s1 = 0.0;
-    // the Mhat column is rebuilt: keeping its K values in shared memory
-    // costs more in resident warps than the rebuild does in operations
-    for (int k0 = 0; k0 < K; k0 += kUnroll) {
-      float mh[kUnroll];
-      const float* rows[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) rows[u] = sPA + (k0 + u) * NP;
-      dot_ordered<NP>(e, rows, mh);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = k0 + u;
-        if (k < K) {
-          const float p = sP[k];
-          accept_terms(a.data[(size_t)k * G + g], mh[u], p * es, p * q, p,
-                       &s0, &s1, &s2);
-        }
+  }
+  // the Mhat column is rebuilt: keeping its K values in shared memory
+  // costs more in resident warps than the rebuild does in operations
+  if (kChunked) {
+    for (int kc = 0; kc < K; kc += KC) {
+      __syncthreads();
+      stage_pa<NP>(a.PA, sPA, c, K, N, kc, KC);
+      __syncthreads();
+      if (live) {
+        erow_pass<NP, true>(sPA, sP, a.data, e, K, G, g, kc,
+                            kc + KC < K ? kc + KC : K, es, q, &s0, &s1,
+                            &s2);
       }
     }
+  } else if (live) {
+    erow_pass<NP, true>(sPA, sP, a.data, e, K, G, g, 0, K, es, q, &s0, &s1,
+                        &s2);
   }
   if (MODE == kAccept) {
     if (live) {
@@ -572,7 +629,7 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
 // tile is staged with a padded stride. The sums of a row stay in its
 // thread's registers; the groups are added in order.
 constexpr int kColThreads = 384;
-constexpr int kColTile = 64;      // G width of a tile
+constexpr int kColTile = 64;      // G width of a tile where it fits
 constexpr int kFinishThreads = 1024;
 constexpr int kFinishLoads = 8;   // tile partials a lane has in flight
 
@@ -597,6 +654,7 @@ struct PcolArgs {
   float* work;
   int n, expo;
   int C, K, N, G;
+  int lg_gt;         // log2 of the tile's G width (col_tile)
 };
 
 __host__ __device__ inline int col_rows(int K) {
@@ -604,21 +662,23 @@ __host__ __device__ inline int col_rows(int K) {
   return r < kColThreads ? r : kColThreads;
 }
 
-// Shared memory of a tile block, in floats: the E tile transposed
-// (kColTile x NP), the group partials as doubles (groups x K x 3), the data
-// tile (K x (kColTile + 1)), en (kColTile), pn and the scaled proposal (K
-// each).
-__host__ __device__ inline size_t col_smem_floats(int K, int NP) {
+// Shared memory of a tile block of G width gt, in floats: the E tile
+// transposed (gt x NP), the group partials as doubles (groups x K x 3), the
+// data tile (K x (gt + 1)), en (gt), pn and the scaled proposal (K each).
+__host__ __device__ inline size_t col_smem_floats(int K, int NP, int gt) {
   const int groups = kColThreads / col_rows(K);
-  return (size_t)kColTile * NP + 2 * (size_t)groups * K * 3
-         + (size_t)K * (kColTile + 1) + kColTile + (size_t)2 * K;
+  return (size_t)gt * NP + 2 * (size_t)groups * K * 3
+         + (size_t)K * (gt + 1) + gt + (size_t)2 * K;
 }
 
-template <int NP, int MODE, bool kSecond>
+// kWide: the tile is kColTile wide, a compile-time width (kWideBuilt);
+// else 1 << a.lg_gt wide (col_tile: 64, or 32 or 16 at large K)
+template <int NP, int MODE, bool kSecond, bool kWide>
 __global__ void __launch_bounds__(kColThreads) pcol_tile_kernel(PcolArgs a) {
   extern __shared__ float4 smem4[];
   const int K = a.K, N = a.N, G = a.G;
-  constexpr int Gt = kColTile, ld = kColTile + 1;
+  const int lg = kWide ? 6 : a.lg_gt;
+  const int Gt = kWide ? kColTile : 1 << lg, ld = Gt + 1;
   constexpr int n_out = kSecond ? 3 : 2;
   const int rows = col_rows(K), groups = kColThreads / rows;
   float* sE = reinterpret_cast<float*>(smem4);
@@ -638,11 +698,13 @@ __global__ void __launch_bounds__(kColThreads) pcol_tile_kernel(PcolArgs a) {
   const float* e_c = a.E + (size_t)c * N * G;
   const float* pa_c = a.PA + (size_t)c * K * N;
   for (int i = tid; i < Gt * NP; i += kColThreads) {
-    const int n = i / Gt, gl = i % Gt, g = g0 + gl;
+    const int n = kWide ? i / kColTile : i >> lg;
+    const int gl = kWide ? i % kColTile : i & (Gt - 1), g = g0 + gl;
     sE[gl * NP + n] = (n < N && g < G) ? e_c[(size_t)n * G + g] : 0.0f;
   }
   for (int i = tid; i < K * Gt; i += kColThreads) {
-    const int k = i / Gt, gl = i % Gt, g = g0 + gl;
+    const int k = kWide ? i / kColTile : i >> lg;
+    const int gl = kWide ? i % kColTile : i & (Gt - 1), g = g0 + gl;
     sData[k * ld + gl] = g < G ? a.data[(size_t)k * G + g] : 0.0f;
   }
   for (int gl = tid; gl < Gt; gl += kColThreads) {
@@ -806,8 +868,8 @@ pcol_finish_kernel(PcolArgs a, int tiles, int n_out) {
 // max(Mh_off + contrib, floor), d = lam_on - lam_off: loglik(A_n = 1) -
 // loglik(A_n = 0). The tile kernel is the P column's (a thread owns a row
 // k, its P*A row in registers, a group of rows every `groups`-th g of a
-// 64-wide tile) with one sum instead of three; the block adds its rows'
-// partials in a fixed order into one double per tile.
+// G tile, 64 wide where it fits) with one sum instead of three; the block
+// adds its rows' partials in a fixed order into one double per tile.
 struct AcolArgs {
   const float* data;
   const float* E;
@@ -827,15 +889,16 @@ struct AcolArgs {
   double* scratch;   // (C, tiles) partials
   int n;
   int C, K, N, G;
+  int lg_gt;         // log2 of the tile's G width (col_tile)
 };
 
-// Shared memory of an A-column tile block, in floats: the E tile transposed
-// (kColTile x NP), the row partials as doubles (groups x K), the data tile
-// (K x (kColTile + 1)), en (kColTile), pn (K), A[c, :] (NP).
-__host__ __device__ inline size_t acol_smem_floats(int K, int NP) {
+// Shared memory of an A-column tile block of G width gt, in floats: the E
+// tile transposed (gt x NP), the row partials as doubles (groups x K), the
+// data tile (K x (gt + 1)), en (gt), pn (K), A[c, :] (NP).
+__host__ __device__ inline size_t acol_smem_floats(int K, int NP, int gt) {
   const int groups = kColThreads / col_rows(K);
-  return (size_t)kColTile * NP + 2 * (size_t)groups * K
-         + (size_t)K * (kColTile + 1) + kColTile + K + NP;
+  return (size_t)gt * NP + 2 * (size_t)groups * K
+         + (size_t)K * (gt + 1) + gt + K + NP;
 }
 
 __device__ __forceinline__ void acol_term(float m, float mh, float contrib,
@@ -869,11 +932,12 @@ __device__ void acol_decide(const AcolArgs& a, int c, double sum) {
   a.A[at] = a.u[at] < p ? 1.0f : 0.0f;
 }
 
-template <int NP, bool kUpdate>
+template <int NP, bool kUpdate, bool kWide>
 __global__ void __launch_bounds__(kColThreads) acol_tile_kernel(AcolArgs a) {
   extern __shared__ float4 smem4[];
   const int K = a.K, N = a.N, G = a.G;
-  constexpr int Gt = kColTile, ld = kColTile + 1;
+  const int lg = kWide ? 6 : a.lg_gt;
+  const int Gt = kWide ? kColTile : 1 << lg, ld = Gt + 1;
   const int rows = col_rows(K), groups = kColThreads / rows;
   float* sE = reinterpret_cast<float*>(smem4);
   double* part = reinterpret_cast<double*>(sE + Gt * NP);
@@ -890,11 +954,13 @@ __global__ void __launch_bounds__(kColThreads) acol_tile_kernel(AcolArgs a) {
   const float* en_c = kUpdate ? e_c + (size_t)a.n * G : a.en + (size_t)c * G;
   const float* x_c = (kUpdate ? a.P : a.PA) + (size_t)c * K * N;
   for (int i = tid; i < Gt * NP; i += kColThreads) {
-    const int n = i / Gt, gl = i % Gt, g = g0 + gl;
+    const int n = kWide ? i / kColTile : i >> lg;
+    const int gl = kWide ? i % kColTile : i & (Gt - 1), g = g0 + gl;
     sE[gl * NP + n] = (n < N && g < G) ? e_c[(size_t)n * G + g] : 0.0f;
   }
   for (int i = tid; i < K * Gt; i += kColThreads) {
-    const int k = i / Gt, gl = i % Gt, g = g0 + gl;
+    const int k = kWide ? i / kColTile : i >> lg;
+    const int gl = kWide ? i % kColTile : i & (Gt - 1), g = g0 + gl;
     sData[k * ld + gl] = g < G ? a.data[(size_t)k * G + g] : 0.0f;
   }
   for (int gl = tid; gl < Gt; gl += kColThreads) {
@@ -970,7 +1036,7 @@ __global__ void __launch_bounds__(32) acol_finish_kernel(AcolArgs a,
 // log-density of E and P and the A-weighted acceptance sums, then
 // loglik, KL, RMSE, logpost, n_params, BIC and the acceptance means. The
 // tile kernel is the A column's (a thread owns a row k, its P*A row in
-// registers, a group of rows every `groups`-th g of a 64-wide tile) with
+// registers, a group of rows every `groups`-th g of a G tile) with
 // the four data sums; the block's threads then take the tile's (n, g)
 // entries of E for the prior term and acc_E * A_n. Each tile writes one
 // double per sum. The finishing kernel, one block per chain, adds the tiles
@@ -1000,15 +1066,32 @@ struct MetricsArgs {
   int row_stride, expo;
   double* scratch;   // (C, sums, tiles) partials
   int C, K, N, G;
+  int lg_gt;         // log2 of the tile's G width (col_tile)
 };
 
-// Shared memory of a metrics tile block, in floats: the E tile transposed
-// (kColTile x NP), the row partials as doubles (groups x K x 4), the data
-// tile (K x (kColTile + 1)), A[c, :] (NP).
-__host__ __device__ inline size_t metrics_smem_floats(int K, int NP) {
+// Shared memory of a metrics tile block of G width gt, in floats: the E
+// tile transposed (gt x NP), the row partials as doubles (groups x K x 4),
+// the data tile (K x (gt + 1)), A[c, :] (NP).
+__host__ __device__ inline size_t metrics_smem_floats(int K, int NP, int gt) {
   const int groups = kColThreads / col_rows(K);
-  return (size_t)kColTile * NP + 2 * (size_t)groups * K * kDataSums
-         + (size_t)K * (kColTile + 1) + NP;
+  return (size_t)gt * NP + 2 * (size_t)groups * K * kDataSums
+         + (size_t)K * (gt + 1) + NP;
+}
+
+// log2 of the G width of the P-column, A-column and metrics tiles: 64, or
+// 32 or 16 where the widest of the three blocks would not fit
+// (ops/stream_sweeps.py::col_tile)
+inline int col_tile_lg(int K, int NP) {
+  for (int lg = 6; lg > 4; --lg) {
+    const int gt = 1 << lg;
+    size_t f = col_smem_floats(K, NP, gt);
+    const size_t fa = acol_smem_floats(K, NP, gt);
+    const size_t fm = metrics_smem_floats(K, NP, gt);
+    f = f > fa ? f : fa;
+    f = f > fm ? f : fm;
+    if (f * sizeof(float) <= kSmemMax) return lg;
+  }
+  return 4;
 }
 
 __device__ __forceinline__ void data_terms(float m, float mh, double* s) {
@@ -1067,13 +1150,14 @@ __device__ __forceinline__ void prior_sums(const float* x, const float* mu,
   }
 }
 
-template <int NP, bool kRow>
+template <int NP, bool kRow, bool kWide>
 __global__ void __launch_bounds__(kColThreads)
 metrics_tile_kernel(MetricsArgs a) {
   extern __shared__ float4 smem4[];
   __shared__ double sred[2][kColThreads / 32];
   const int K = a.K, N = a.N, G = a.G;
-  constexpr int Gt = kColTile, ld = kColTile + 1;
+  const int lg = kWide ? 6 : a.lg_gt;
+  const int Gt = kWide ? kColTile : 1 << lg, ld = Gt + 1;
   constexpr int sums = kRow ? kRowSums : kDataSums;
   const int rows = col_rows(K), groups = kColThreads / rows;
   float* sE = reinterpret_cast<float*>(smem4);
@@ -1090,11 +1174,13 @@ metrics_tile_kernel(MetricsArgs a) {
   const float* e_c = a.E + (size_t)c * N * G;
   const float* x_c = (kRow ? a.P : a.PA) + (size_t)c * K * N;
   for (int i = tid; i < Gt * NP; i += kColThreads) {
-    const int n = i / Gt, gl = i % Gt, g = g0 + gl;
+    const int n = kWide ? i / kColTile : i >> lg;
+    const int gl = kWide ? i % kColTile : i & (Gt - 1), g = g0 + gl;
     sE[gl * NP + n] = (n < N && g < G) ? e_c[(size_t)n * G + g] : 0.0f;
   }
   for (int i = tid; i < K * Gt; i += kColThreads) {
-    const int k = i / Gt, gl = i % Gt, g = g0 + gl;
+    const int k = kWide ? i / kColTile : i >> lg;
+    const int gl = kWide ? i % kColTile : i & (Gt - 1), g = g0 + gl;
     sData[k * ld + gl] = g < G ? a.data[(size_t)k * G + g] : 0.0f;
   }
   for (int n = tid; n < NP; n += kColThreads) {
@@ -1252,28 +1338,52 @@ int n_tiles(int G, int Gt) { return (G + Gt - 1) / Gt; }
 // ---- launching ---------------------------------------------------------------
 
 // The widths the register tile is built for: N rounded up to a multiple of
-// 4 up to 24, then 32 and 64.
-constexpr int kMaxN = 64;
+// 4 up to 24, then 32, 64 and 128 (ops.MAX_N).
+constexpr int kMaxN = 128;
 
-template <int NP, int MODE>
-cudaError_t launch_erow(const ErowArgs& a, cudaStream_t s) {
-  const size_t smem = ((size_t)pad_rows(a.K) * NP + a.K) * sizeof(float);
-  cudaError_t e = allow_smem(erow_kernel<NP, MODE>, smem);
+// The tile kernels come in a kColTile-wide form (the width a compile-time
+// constant, as every benchmark cell and earlier shape runs them) and a
+// runtime-width form (col_tile). NP >= 64 is built in the runtime form
+// only: those kernels take most of the library's build time.
+template <int NP>
+constexpr bool kWideBuilt = NP <= 32;
+
+template <int NP, int MODE, bool kChunked>
+cudaError_t launch_erow_as(const ErowArgs& a, cudaStream_t s) {
+  const size_t smem = ((size_t)a.rows * NP + a.K) * sizeof(float);
+  cudaError_t e = allow_smem(erow_kernel<NP, MODE, kChunked>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(n_tiles(a.G, kRowThreads), a.C);
-  erow_kernel<NP, MODE><<<grid, kRowThreads, smem, s>>>(a);
+  erow_kernel<NP, MODE, kChunked><<<grid, kRowThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+// P*A whole in shared memory, or in chunks of rows (only NP >= 64 needs
+// them within the envelope, K <= 1536)
+template <int NP, int MODE>
+cudaError_t launch_erow(ErowArgs a, cudaStream_t s) {
+  a.rows = erow_rows(a.K, NP);
+  if (a.rows >= a.K) return launch_erow_as<NP, MODE, false>(a, s);
+  if constexpr (NP >= 64) {
+    return launch_erow_as<NP, MODE, true>(a, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
 // One pass over the tiles and its finishing kernel.
 template <int NP, int MODE, bool kSecond>
-cudaError_t launch_pcol_pass(const PcolArgs& a, cudaStream_t s) {
-  const size_t smem = col_smem_floats(a.K, NP) * sizeof(float);
-  cudaError_t e = allow_smem(pcol_tile_kernel<NP, MODE, kSecond>, smem);
+cudaError_t launch_pcol_pass(PcolArgs a, cudaStream_t s) {
+  a.lg_gt = col_tile_lg(a.K, NP);
+  const size_t smem = col_smem_floats(a.K, NP, 1 << a.lg_gt) * sizeof(float);
+  void (*kernel)(PcolArgs) = pcol_tile_kernel<NP, MODE, kSecond, false>;
+  if constexpr (kWideBuilt<NP>) {
+    if (a.lg_gt == 6) kernel = pcol_tile_kernel<NP, MODE, kSecond, true>;
+  }
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = n_tiles(a.G, kColTile);
-  pcol_tile_kernel<NP, MODE, kSecond><<<dim3(tiles, a.C), kColThreads, smem,
-                                        s>>>(a);
+  const int tiles = n_tiles(a.G, 1 << a.lg_gt);
+  kernel<<<dim3(tiles, a.C), kColThreads, smem, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   constexpr int FINISH = MODE != kUpdate ? kWriteSums
                          : kSecond       ? kDecide
@@ -1298,13 +1408,17 @@ cudaError_t launch_pcol(const PcolArgs& a, cudaStream_t s) {
 
 // One A column: the tile kernel, then the finishing kernel.
 template <int NP, bool kUpdate>
-cudaError_t launch_acol(const AcolArgs& a, cudaStream_t s) {
-  const size_t smem = acol_smem_floats(a.K, NP) * sizeof(float);
-  cudaError_t e = allow_smem(acol_tile_kernel<NP, kUpdate>, smem);
+cudaError_t launch_acol(AcolArgs a, cudaStream_t s) {
+  a.lg_gt = col_tile_lg(a.K, NP);
+  const size_t smem = acol_smem_floats(a.K, NP, 1 << a.lg_gt) * sizeof(float);
+  void (*kernel)(AcolArgs) = acol_tile_kernel<NP, kUpdate, false>;
+  if constexpr (kWideBuilt<NP>) {
+    if (a.lg_gt == 6) kernel = acol_tile_kernel<NP, kUpdate, true>;
+  }
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = n_tiles(a.G, kColTile);
-  acol_tile_kernel<NP, kUpdate><<<dim3(tiles, a.C), kColThreads, smem, s>>>(
-      a);
+  const int tiles = n_tiles(a.G, 1 << a.lg_gt);
+  kernel<<<dim3(tiles, a.C), kColThreads, smem, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   acol_finish_kernel<kUpdate><<<a.C, 32, 0, s>>>(a, tiles);
   return cudaGetLastError();
@@ -1312,13 +1426,18 @@ cudaError_t launch_acol(const AcolArgs& a, cudaStream_t s) {
 
 // The metrics tile kernel, then the finishing kernel.
 template <int NP, bool kRow>
-cudaError_t launch_metrics(const MetricsArgs& a, cudaStream_t s) {
-  const size_t smem = metrics_smem_floats(a.K, NP) * sizeof(float);
-  cudaError_t e = allow_smem(metrics_tile_kernel<NP, kRow>, smem);
+cudaError_t launch_metrics(MetricsArgs a, cudaStream_t s) {
+  a.lg_gt = col_tile_lg(a.K, NP);
+  const size_t smem =
+      metrics_smem_floats(a.K, NP, 1 << a.lg_gt) * sizeof(float);
+  void (*kernel)(MetricsArgs) = metrics_tile_kernel<NP, kRow, false>;
+  if constexpr (kWideBuilt<NP>) {
+    if (a.lg_gt == 6) kernel = metrics_tile_kernel<NP, kRow, true>;
+  }
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = n_tiles(a.G, kColTile);
-  metrics_tile_kernel<NP, kRow><<<dim3(tiles, a.C), kColThreads, smem, s>>>(
-      a);
+  const int tiles = n_tiles(a.G, 1 << a.lg_gt);
+  kernel<<<dim3(tiles, a.C), kColThreads, smem, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   metrics_finish_kernel<kRow><<<a.C, kMetricsFinish, 0, s>>>(a, tiles);
   return cudaGetLastError();
@@ -1328,7 +1447,8 @@ cudaError_t launch_metrics(const MetricsArgs& a, cudaStream_t s) {
 #define DISPATCH_NP(N, CALL)                                              \
   ((N) <= 4 ? CALL(4) : (N) <= 8 ? CALL(8) : (N) <= 12 ? CALL(12)         \
    : (N) <= 16 ? CALL(16) : (N) <= 20 ? CALL(20) : (N) <= 24 ? CALL(24)   \
-   : (N) <= 32 ? CALL(32) : (N) <= kMaxN ? CALL(64) : cudaErrorInvalidValue)
+   : (N) <= 32 ? CALL(32) : (N) <= 64 ? CALL(64)                          \
+   : (N) <= kMaxN ? CALL(128) : cudaErrorInvalidValue)
 
 __global__ void special_kernel(const float* __restrict__ x,
                                float* __restrict__ out, int n, int which) {
@@ -1340,9 +1460,15 @@ __global__ void special_kernel(const float* __restrict__ x,
 }
 
 }  // namespace
+// The entry points come in two translation units, so that nvcc builds them
+// in parallel (ops/_build.py: one nvcc a source): the column updates and
+// the metrics row here, the sums-only forms and the special functions in
+// stream_sums.cu, which includes this file with STREAM_SUMS_ONLY defined.
+#ifdef STREAM_SUMS_ONLY
+
 
 // The four sums-only bodies. prop == nullptr: stats (2 outputs); else accept
-// (3). P column: out (n_out, C, K), scratch C * n_tiles(G, 64) * K * 3
+// (3). P column: out (n_out, C, K), scratch C * n_tiles(G, col_tile) * K * 3
 // doubles; E row: out (n_out, C, G).
 extern "C" int stream_pcol_launch(const float* data, const float* E,
                                   const float* PA, const float* en,
@@ -1380,10 +1506,56 @@ extern "C" int stream_erow_launch(const float* data, const float* E,
 #undef CALL_ACCEPT
 }
 
+// The epilogue's special functions on n floats, for checking them against
+// the PyTorch calls they reproduce: which = 0 torch.special.ndtri, 1
+// torch.special.log_ndtr, 2 ops/distributions.py::_ndtr, 3 torch.sigmoid.
+extern "C" int stream_special_launch(const float* x, float* out, int n,
+                                     int which, void* stream) {
+  special_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      x, out, n, which);
+  return (int)cudaGetLastError();
+}
+
+// The A column's delta, sums only: scratch C * n_tiles(G, col_tile)
+// doubles; out C floats.
+extern "C" int stream_acol_launch(const float* data, const float* E,
+                                  const float* PA, const float* en,
+                                  const float* pn, const float* an,
+                                  double* scratch, float* out, int C, int K,
+                                  int N, int G, void* stream) {
+  AcolArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.en = en; a.pn = pn; a.an = an;
+  a.out = out; a.scratch = scratch;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_SUMS(NP) launch_acol<NP, false>(a, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
+#undef CALL_SUMS
+  return (int)e;
+}
+
+// The four sums of the metrics row, sums only: scratch C * 4 *
+// n_tiles(G, col_tile) doubles; out (4, C) floats.
+extern "C" int stream_metrics_launch(const float* data, const float* E,
+                                     const float* PA, double* scratch,
+                                     float* out, int C, int K, int N, int G,
+                                     void* stream) {
+  MetricsArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.out = out; a.scratch = scratch;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_SUMS(NP) launch_metrics<NP, false>(a, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
+#undef CALL_SUMS
+  return (int)e;
+}
+
+#else
+
 // Columns n0 .. n1-1 of P, enqueued in order, each a pass over the tiles,
 // the proposal, a second pass and the decision: P, PA (= P*A on entry), the
 // acceptance record and the NaN-clamp counts are updated in place. scratch:
-// C * n_tiles(G, 64) * K * 3 doubles; work: C * 4 * K floats.
+// C * n_tiles(G, col_tile) * K * 3 doubles; work: C * 4 * K floats.
 extern "C" int stream_pcol_update_launch(
     const float* data, const float* E, float* P, float* PA, const float* A,
     float* acc, const float* mu0, const float* sq0, const float* prior_draw,
@@ -1432,38 +1604,10 @@ extern "C" int stream_erow_update_launch(
   return 0;
 }
 
-// The epilogue's special functions on n floats, for checking them against
-// the PyTorch calls they reproduce: which = 0 torch.special.ndtri, 1
-// torch.special.log_ndtr, 2 ops/distributions.py::_ndtr, 3 torch.sigmoid.
-extern "C" int stream_special_launch(const float* x, float* out, int n,
-                                     int which, void* stream) {
-  special_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      x, out, n, which);
-  return (int)cudaGetLastError();
-}
-
-// The A column's delta, sums only: scratch C * n_tiles(G, 64) doubles; out
-// C floats.
-extern "C" int stream_acol_launch(const float* data, const float* E,
-                                  const float* PA, const float* en,
-                                  const float* pn, const float* an,
-                                  double* scratch, float* out, int C, int K,
-                                  int N, int G, void* stream) {
-  AcolArgs a = {};
-  a.data = data; a.E = E; a.PA = PA; a.en = en; a.pn = pn; a.an = an;
-  a.out = out; a.scratch = scratch;
-  a.C = C; a.K = K; a.N = N; a.G = G;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL_SUMS(NP) launch_acol<NP, false>(a, s)
-  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
-#undef CALL_SUMS
-  return (int)e;
-}
-
 // Columns n0 .. n1-1 of A, enqueued in order, each a pass over the tiles
 // and the decision: A, n_nan and delta are updated in place. logit (C,),
 // temp (1,), u (C, N); penalty subtracted from every delta when sbfi.
-// scratch: C * n_tiles(G, 64) doubles.
+// scratch: C * n_tiles(G, col_tile) doubles.
 extern "C" int stream_acol_update_launch(
     const float* data, const float* E, const float* P, float* A,
     const float* logit, const float* temp, const float* u, float* n_nan,
@@ -1485,24 +1629,8 @@ extern "C" int stream_acol_update_launch(
   return 0;
 }
 
-// The four sums of the metrics row, sums only: scratch C * 4 *
-// n_tiles(G, 64) doubles; out (4, C) floats.
-extern "C" int stream_metrics_launch(const float* data, const float* E,
-                                     const float* PA, double* scratch,
-                                     float* out, int C, int K, int N, int G,
-                                     void* stream) {
-  MetricsArgs a = {};
-  a.data = data; a.E = E; a.PA = PA; a.out = out; a.scratch = scratch;
-  a.C = C; a.K = K; a.N = N; a.G = G;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL_SUMS(NP) launch_metrics<NP, false>(a, s)
-  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
-#undef CALL_SUMS
-  return (int)e;
-}
-
 // The metrics row of every chain, written to row + c * row_stride (12
-// floats): scratch C * 6 * n_tiles(G, 64) doubles; temp null for a
+// floats): scratch C * 6 * n_tiles(G, col_tile) doubles; temp null for a
 // temperature passed as temp_val.
 extern "C" int stream_metrics_row_launch(
     const float* data, const float* E, const float* P, const float* A,
@@ -1528,3 +1656,5 @@ extern "C" int stream_metrics_row_launch(
 #undef CALL_ROW
   return (int)e;
 }
+
+#endif  // STREAM_SUMS_ONLY

@@ -40,12 +40,12 @@ import math
 
 import torch
 
+from . import check_envelope
 from .math import const
 from .rng import philox4x32_10, uniform_of
 
 N_PLANES = 17        # 1 inversion plane + (u, v) for each of 8 BTRS rounds
 PHILOX_ROUNDS = 12   # BTRS rounds of the kernel's Philox mode (8 + 4)
-MAX_N = 64           # the kernel keeps a tree of at most 64 leaves per cell
 _INV_STEPS = 40
 _TINY = 1.2e-38
 _HALF_LOG_2PI = 0.9189385332046727
@@ -54,6 +54,14 @@ _HALF_LOG_2PI = 0.9189385332046727
 def n_leaves(N: int) -> int:
     """n2: the tree's leaves, the next power of two >= N."""
     return 1 << max(int(math.ceil(math.log2(max(N, 1)))), 0)
+
+
+def kernel_leaves(K: int, N: int) -> int:
+    """The tree the kernel is built for at N components: n2 = 1, 2, 4, ...,
+    128 leaves (up to 16 in registers, above in local memory); ValueError
+    beyond the envelope (ops.MAX_K, ops.MAX_N)."""
+    check_envelope("allocate_counts", K, N)
+    return n_leaves(N)
 
 
 def n_nodes(N: int) -> int:
@@ -309,9 +317,6 @@ def allocate_counts(M, P, A, E, u=None, key=None, uids=None, g0: int = 0,
     C, K, N = P.shape
     G = E.shape[2]
     dev = P.device
-    if N > MAX_N:
-        raise NotImplementedError(
-            f"allocate_counts: at most {MAX_N} components, got N = {N}")
     _check("M", M, (K, G), dev)
     _check("P", P, (C, K, N), dev)
     _check("A", A, (C, N), dev)
@@ -330,6 +335,7 @@ def allocate_counts(M, P, A, E, u=None, key=None, uids=None, g0: int = 0,
             u = philox_planes(key, uids, N, K, G, g0=g0, G_total=G_total)
         zg, zk = allocate_counts_reference(M, P, A, E, u)
     elif dev.type == "cuda":
+        kernel_leaves(K, N)
         zg, zk = _launch(M, P, A, E, u, None if u is not None else uids,
                          None if u is not None else key, g0, G_total)
     else:

@@ -42,6 +42,7 @@ import math
 import numpy as np
 import torch
 
+from . import check_envelope
 from . import special as ps
 from .distributions import _ndtr
 from .math import const
@@ -75,14 +76,35 @@ _G_PER_BLOCK = 32
 _RESIDENT_BLOCKS = 112
 
 
-def _fixed_smem_bytes(K: int, N: int, S: int) -> int:
+def _fixed_smem_bytes(K: int, N: int, S: int, in_smem: bool = True) -> int:
     """Shared memory of a block beside its slices (fixed_smem_bytes in
     csrc/fused_sweeps.cu): the pushed partials, the E-row partials and the
     block-sum scratch as doubles; P and its prior pair, the per-row and
-    per-column vectors, A, the NaN counts and the flags as floats."""
-    doubles = S * K * 5 + 2 * S + _WARPS + _THREADS * 3
-    floats = 3 * K * N + 4 * K + 3 * _THREADS + N + _THREADS + 2 * S
+    per-column vectors, A, the NaN counts and the flags as floats. With
+    ``in_smem`` False, P, its prior pair and the pushed partials sit in a
+    global scratch instead (``fixed_in_smem``)."""
+    doubles = (S * K * 5 if in_smem else 0) + 2 * S + _WARPS + _THREADS * 3
+    floats = ((3 * K * N if in_smem else 0) + 4 * K + 3 * _THREADS + N
+              + _THREADS + 2 * S)
     return 8 * doubles + 4 * floats
+
+
+def fixed_in_smem(K: int, N: int, S: int) -> bool:
+    """Whether a block of a cluster of S keeps P, its prior pair and the
+    pushed per-row partials in shared memory (the partials then reach every
+    block through distributed shared memory). Where they do not fit (K = 288
+    at N >= 8 on one block, K = 1536 at any N), the kernel keeps them in a
+    per-chain global scratch the wrapper sizes (``scratch_floats``): P and
+    its prior pair a copy per block, the partials one slot per block that
+    the others read after the cluster barrier."""
+    return _fixed_smem_bytes(K, N, S) <= _SMEM_MAX_BYTES
+
+
+def scratch_floats(K: int, N: int, S: int, C: int) -> int:
+    """Float32 words of the global scratch of C chains on clusters of S
+    when ``fixed_in_smem`` is False: the partials (C, S, K, 5) as doubles,
+    then P and its prior pair (C, S, 3, K, N)."""
+    return 2 * C * S * K * 5 + C * S * 3 * K * N
 
 
 def cluster_config(K: int, N: int, G: int, C: int = 1):
@@ -91,23 +113,30 @@ def cluster_config(K: int, N: int, G: int, C: int = 1):
     thread-block cluster whose blocks split G: the smallest of 1, 2, 4, 8,
     16 blocks that leaves a block at most 32 columns (16 beyond G = 512),
     halved while the C chains' blocks together exceed what the card keeps
-    resident. With Gq = ceil(G / S), a block's slice of E (N * Gq floats)
-    and then its slices of data and Mhat (2 * K * Gq floats) stay in shared
-    memory when they fit beside the rest in the 227 KB a block can have:
-    the latter up to about K * Gq = 17000 at N = 8 (96 x 2780 fits on 16
-    blocks, 96 x 4000 does not); what does not fit the kernel reads in
-    global memory."""
+    resident, and halved once more where the part of a block beside its
+    slices (``_fixed_smem_bytes``) fits only so; where it fits on neither
+    size, the first size stays and that part moves to global memory
+    (``fixed_in_smem``). With Gq = ceil(G / S), a block's slice of E
+    (N * Gq floats) and then its slices of data and Mhat (2 * K * Gq
+    floats) stay in shared memory when they fit beside the rest in the
+    227 KB a block can have: the latter up to about K * Gq = 17000 at N = 8
+    (96 x 2780 fits on 16 blocks, 96 x 4000 does not); what does not fit
+    the kernel reads in global memory. Beyond the envelope (ops.MAX_K,
+    ops.MAX_N) it raises ValueError."""
+    check_envelope("fused_gibbs_sweeps", K, N)
     S = 1
     while S < 16 and -(-G // S) > _G_PER_BLOCK:
         S *= 2
     while S > 1 and C * S > _RESIDENT_BLOCKS:
         S //= 2
+    # a cluster of half the size doubles a block's share of G; below that
+    # the exchange of the partials through L2 (a few microseconds a column)
+    # costs less than the blocks lost
+    if S > 1 and not fixed_in_smem(K, N, S) and fixed_in_smem(K, N, S // 2):
+        S //= 2
+    in_smem = fixed_in_smem(K, N, S)
     Gq = -(-G // S)
-    need = _fixed_smem_bytes(K, N, S)
-    if need > _SMEM_MAX_BYTES:
-        raise ValueError(
-            f"fused_gibbs_sweeps: K = {K}, N = {N} need {need} bytes of "
-            "shared memory a block, more than the SM has")
+    need = _fixed_smem_bytes(K, N, S, in_smem)
     e_resident = need + 4 * N * Gq <= _SMEM_MAX_BYTES
     if e_resident:
         need += 4 * N * Gq
@@ -383,10 +412,10 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # 22 input pointers; hyper-sweep, prior, exact, rank codes and the SBFI
-# penalty; 12 output pointers; C K N G, the cluster size and whether the
-# slices are resident; the stream
+# penalty; 12 output pointers; C K N G, the cluster size and what sits in
+# shared memory; the global scratch; the stream
 _ARGTYPES = ([_P] * 22 + [_I] * 4 + [ctypes.c_float] + [_P] * 12 + [_I] * 6
-             + [_P])
+             + [_P] * 2)
 
 
 def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
@@ -402,6 +431,10 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
     C, K, N = P.shape
     G = E.shape[2]
     cluster, e_resident, resident = cluster_config(K, N, G, C)
+    in_smem = fixed_in_smem(K, N, cluster)
+    scratch = None if in_smem else torch.empty(
+        scratch_floats(K, N, cluster, C), dtype=torch.float32,
+        device=P.device)
     outs = [torch.empty_like(t) for t in
             (P, E, Mhat, acc_P, acc_E, A)]
     R = torch.empty(C, dtype=torch.float32, device=P.device)
@@ -418,7 +451,9 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
                  *hu_ptrs, int(hyper), PRIORS[prior_kind], int(exact_mh),
                  RANK_METHODS[rank_method], sbfi_penalty(K, G),
                  *map(ptr, outs), ptr(R), ptr(nan), *map(ptr, hps),
-                 C, K, N, G, cluster, int(resident) + 2 * int(e_resident),
+                 C, K, N, G, cluster,
+                 int(resident) + 2 * int(e_resident) + 4 * int(not in_smem),
+                 ptr(scratch) if scratch is not None else None,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_gibbs_sweeps kernel launch failed: "

@@ -57,8 +57,12 @@ is 6e-5 (every checked column update was bit-identical on the card). The
 metrics row holds it, n_params, sum A and the temperature exactly and every
 other entry to the sums' tolerance.
 
-Limits of the kernels: N <= 64 (the register tile), and K small enough for
-the tiles to fit an SM's shared memory (K <= ~1000 at N <= 24).
+Limits of the kernels: the envelope (ops.MAX_K rows, ops.MAX_N
+components: the register tile is built for N up to 128). The column tiles'
+G width is a function of K and N (``col_tile``: 64, then 32 or 16 where a
+K x (width + 1) data tile would not fit an SM's shared memory), and the
+plain versions sum in tiles of the same width; an E-row block stages P*A
+whole, or in chunks of rows where it would not fit (``erow_rows``).
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ import math
 import numpy as np
 import torch
 
+from . import MAX_N, check_envelope
 from . import distributions as dist
 from . import math as m
 
@@ -80,9 +85,10 @@ _PLAIN_TILE = 4096
 _SMEM_MAX_BYTES = 227 * 1024
 # threads of a P- or A-column tile block
 _COL_THREADS = 384
-# G width of a P- or A-column tile
-_COL_TILE = 64
-_MAX_N = 64
+# G widths of a P-column, A-column or metrics tile, widest first
+_COL_TILES = (64, 32, 16)
+# rows the register tile takes at once (csrc/stream_sweeps.cu kUnroll)
+_UNROLL = 4
 
 KERNEL_RTOL = 1e-6
 KERNEL_ATOL = 1e-6
@@ -222,19 +228,20 @@ def _data_terms(data, E, PA, g0, g1):
     return d_t * L, lam, d_t.clamp_min(1e-6) * L, d * d
 
 
-def _tile_sums(x):
-    """Float64 sums of x (C, R, W) over R and each 64-wide G tile of W, as
-    the kernels' tile blocks sum: (C, ceil(W / 64))."""
+def _tile_sums(x, gt):
+    """Float64 sums of x (C, R, W) over R and each gt-wide G tile of W, as
+    the kernels' tile blocks sum: (C, ceil(W / gt))."""
     C, R, W = x.shape
-    pad = -W % _COL_TILE
+    pad = -W % gt
     if pad:
         x = torch.cat([x, x.new_zeros(C, R, pad)], -1)
-    return x.view(C, R, -1, _COL_TILE).sum((1, 3), dtype=torch.float64)
+    return x.view(C, R, -1, gt).sum((1, 3), dtype=torch.float64)
 
 
 def chain_metrics_reference(data, E, PA):
     """Plain version of ``chain_metrics``: four (C,) sums."""
-    parts = [torch.stack([_tile_sums(x) for x in
+    gt = _col_tile(*PA.shape[1:])
+    parts = [torch.stack([_tile_sums(x, gt) for x in
                           _data_terms(data, E, PA, g0, g1)], 1)
              for g0, g1 in _tiles(E.shape[2])]
     return tuple(torch.cat(parts, -1).sum(-1).to(torch.float32).unbind(1))
@@ -255,12 +262,14 @@ def stream_metrics_row_reference(data, P, E, A, acc_P, acc_E, Mu_p,
                                  expo: bool = False):
     """Plain version of ``stream_metrics_row``: the (C, 12) metrics rows.
     Every per-element term is the kernels' in their order; the sums run in
-    float64 over each 64-wide G tile, then over the tiles, and are rounded to
-    float32 once; the row's arithmetic rounds each operation as the
+    float64 over each G tile of the kernels' width (``col_tile``), then
+    over the tiles, and are rounded to float32 once; the row's arithmetic
+    rounds each operation as the
     finishing kernel does, dividing by 0-d tensors where a Python number
     would be taken as a reciprocal on the card."""
     C, K, N = P.shape
     G = E.shape[2]
+    gt = _col_tile(K, N)
     PA = P * A.unsqueeze(1)
     parts = []
     for g0, g1 in _tiles(G):
@@ -268,7 +277,7 @@ def stream_metrics_row_reference(data, P, E, A, acc_P, acc_E, Mu_p,
             _logprior(E[:, :, g0:g1], Mu_e[:, :, g0:g1],
                       None if expo else Sigmasq_e[:, :, g0:g1], expo),
             acc_E[:, :, g0:g1] * A.unsqueeze(-1))
-        parts.append(torch.stack([_tile_sums(x) for x in terms], 1))
+        parts.append(torch.stack([_tile_sums(x, gt) for x in terms], 1))
     (m_loglam, lam_sum, mp_loglam, sq_err, lp_e,
      acc_e) = torch.cat(parts, -1).sum(-1).to(torch.float32).unbind(1)
     lp_p = _sum64(_logprior(P, Mu_p, Sigmasq_p, expo), (1, 2))
@@ -411,59 +420,89 @@ _SIGNATURES = {
 }
 
 
+def _width(N: int) -> int:
+    return (-(-N // 4) * 4 if N <= 24 else 32 if N <= 32 else 64 if N <= 64
+            else 128)
+
+
 def tile_width(N: int) -> int:
     """Width of the register tile a column kernel is built with for N
-    components: N rounded up to a multiple of 4 up to 24, then 32 and 64."""
-    if N > _MAX_N:
+    components: N rounded up to a multiple of 4 up to 24, then 32, 64 and
+    128; ValueError beyond ops.MAX_N."""
+    if N > MAX_N:
         raise ValueError(f"stream_sweeps: the column kernels hold a column "
-                         f"of N components in registers, N <= {_MAX_N}; got "
+                         f"of N components in registers, N <= {MAX_N}; got "
                          f"N = {N}")
-    return -(-N // 4) * 4 if N <= 24 else 32 if N <= 32 else 64
+    return _width(N)
 
 
-def _check_col_fits(K: int, N: int, sums: int, vectors: int, what: str):
-    """Raise when a P- or A-column tile block's shared memory
-    (col_smem_floats / acol_smem_floats in csrc/stream_sweeps.cu: the E
-    tile, the groups' ``sums`` partials a row as doubles, the data tile with
-    a padded stride, ``vectors`` floats of per-row and per-column vectors)
-    does not fit the SM."""
-    groups = _COL_THREADS // min(-(-K // 32) * 32, _COL_THREADS)
-    gt = _COL_TILE
-    need = 4 * (gt * tile_width(N) + 2 * groups * K * sums + K * (gt + 1)
-                + gt + vectors)
-    if need > _SMEM_MAX_BYTES:
-        raise ValueError(f"stream_sweeps: K = {K} rows do not fit {what} "
-                         "block's shared memory")
+def _col_rows(K: int) -> int:
+    return min(-(-K // 32) * 32, _COL_THREADS)
+
+
+def col_smem_bytes(K: int, N: int, gt: int) -> dict:
+    """Shared memory of each column tile block at G width gt, in bytes
+    (col_smem_floats, acol_smem_floats and metrics_smem_floats in
+    csrc/stream_sweeps.cu): the E tile (gt x NP), the groups' partials a row
+    as doubles (3, 1 and 4 sums), the data tile with a padded stride
+    (K x (gt + 1)) and the per-row and per-column vectors."""
+    NP, groups = _width(N), _COL_THREADS // _col_rows(K)
+    common = gt * NP + K * (gt + 1)
+    return {"pcol": 4 * (common + 2 * groups * K * 3 + gt + 2 * K),
+            "acol": 4 * (common + 2 * groups * K + gt + K + NP),
+            "metrics": 4 * (common + 2 * groups * K * 4 + NP)}
+
+
+def _col_tile(K: int, N: int) -> int:
+    for gt in _COL_TILES:
+        if max(col_smem_bytes(K, N, gt).values()) <= _SMEM_MAX_BYTES:
+            return gt
+    return _COL_TILES[-1]
+
+
+def col_tile(K: int, N: int) -> int:
+    """G width of the P-column, A-column and metrics tiles (col_tile in
+    csrc/stream_sweeps.cu): 64, or 32 or 16 where the widest of the three
+    blocks would not fit an SM's shared memory (K = 1536 takes 16);
+    ValueError beyond the envelope (ops.MAX_K, ops.MAX_N)."""
+    check_envelope("stream_sweeps", K, N)
+    return _col_tile(K, N)
+
+
+def _pad_rows(K: int) -> int:
+    return -(-K // _UNROLL) * _UNROLL
+
+
+def erow_rows(K: int, N: int) -> int:
+    """Rows of P*A an E-row block stages in shared memory at once (erow_rows
+    in csrc/stream_sweeps.cu): all of them (padded to the register tile's
+    4), or where they do not fit, chunks of rows that leave room for two
+    blocks an SM (K = 1536 at N > 36); ValueError beyond the envelope."""
+    check_envelope("stream_sweeps", K, N)
+    NP = tile_width(N)
+    if 4 * (_pad_rows(K) * NP + K) <= _SMEM_MAX_BYTES:
+        return _pad_rows(K)
+    return (_SMEM_MAX_BYTES // 2 // 4 - K) // NP // _UNROLL * _UNROLL
 
 
 def _col_scratch(C: int, K: int, N: int, G: int, device):
     """The P-column tile kernel's partial sums, (C, K, 3, tiles) doubles
     that the finishing kernel adds in order."""
-    _check_col_fits(K, N, 3, 2 * K, "a P-column")
-    return torch.empty(C * _n_tiles(G, _COL_TILE) * K * 3,
+    return torch.empty(C * _n_tiles(G, col_tile(K, N)) * K * 3,
                        dtype=torch.float64, device=device)
 
 
 def _acol_scratch(C: int, K: int, N: int, G: int, device):
     """The A-column tile kernel's partials, one double per (chain, tile)."""
-    _check_col_fits(K, N, 1, K + tile_width(N), "an A-column")
-    return torch.empty(C * _n_tiles(G, _COL_TILE), dtype=torch.float64,
+    return torch.empty(C * _n_tiles(G, col_tile(K, N)), dtype=torch.float64,
                        device=device)
 
 
 def _metrics_scratch(C: int, K: int, N: int, G: int, sums: int, device):
     """The metrics tile kernel's partials, ``sums`` doubles per (chain,
     tile)."""
-    _check_col_fits(K, N, 4, tile_width(N), "a metrics")
-    return torch.empty(C * sums * _n_tiles(G, _COL_TILE),
+    return torch.empty(C * sums * _n_tiles(G, col_tile(K, N)),
                        dtype=torch.float64, device=device)
-
-
-def _check_row_fits(K: int, N: int):
-    need = 4 * ((K + 3) * tile_width(N) + K)
-    if need > _SMEM_MAX_BYTES:
-        raise ValueError(f"stream_sweeps: K = {K} rows do not fit an E-row "
-                         "block's shared memory")
 
 
 def _fn(name):
@@ -499,7 +538,7 @@ def _launch_run(data, E, PA, en, pn, prop, col):
         _call("stream_pcol_launch", data, E, PA, en, pn, prop,
               _col_scratch(C, K, N, G, dev), out, C, K, N, G)
     else:
-        _check_row_fits(K, N)
+        erow_rows(K, N)
         out = torch.empty(n_out, C, G, dtype=torch.float32, device=dev)
         _call("stream_erow_launch", data, E, PA, en, pn, prop, out, C, K, N,
               G)
@@ -523,7 +562,7 @@ def _launch_update(col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
               _col_scratch(C, K, N, G, P.device), work, C, K, N, G, n0, n1,
               int(expo))
     else:
-        _check_row_fits(K, N)
+        erow_rows(K, N)
         _call("stream_erow_update_launch", data, E, P, PA, A, acc, hp0,
               hp0 if hp1 is None else hp1, prior_draw, U, flags, nan, C, K,
               N, G, n0, n1, int(expo))

@@ -268,12 +268,13 @@ def acol_update_bound(K, N, G, C):
     return bound(4 * (n_in + n_out), ops)
 
 
-def synthetic(K, G, rank, seed=0):
-    """The synthetic recipe of phase 4: P ~ Dirichlet(0.3), E ~ Gamma(2, 500),
-    M ~ Poisson."""
+def synthetic(K, G, rank, seed=0, scale=500.0):
+    """The synthetic recipe of phase 4: P ~ Dirichlet(0.3), E ~ Gamma(2,
+    scale), M ~ Poisson. ``scale`` 500 at 96 rows; K / 96 times that keeps
+    the counts a cell near the 96-row recipe's (8000 at 1536 rows)."""
     rng = np.random.default_rng(seed)
     P_true = rng.dirichlet(np.ones(K) * 0.3, rank).T
-    E_true = rng.gamma(2.0, 500.0, (rank, G))
+    E_true = rng.gamma(2.0, scale, (rank, G))
     return rng.poisson(P_true @ E_true).astype(np.float32), P_true
 
 

@@ -106,7 +106,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    no kernel launched, fit and loop it/s, and the fused path's loop on the
    same data beside them (its kernel launched once per iteration); (c)
    Normal-TruncNormal SBFI over ranks 1..20 at 96x1000 (config 3's shape),
-   maxiters 1000: learned rank and cosines; (d) the Normal fit's final
+   maxiters 500: learned rank and cosines; (d) the Normal fit's final
    checkpoint resumes bit-exactly; (e) torch.profiler over 10 iterations
    of the Normal and the eager Poisson loops: busy share, device events
    and host waits per iteration;
@@ -195,7 +195,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    draws equal; the allocation's Philox planes drawn on the CPU equal the
    card's, the card kernel equal to its plain version on them); (d) phase
    11's 1x2 mesh: each rank's draws the one-process
-   draw's block, each rank computing only its block's elements.
+   draw's block, each rank computing only its block's elements;
+15. catalogue shapes (``run_catalogue``): (a) each kernel against its plain
+   version at shapes of the envelope (K <= 1536, N <= 128) that raised
+   before: the fused kernel at (192,40,2780), (288,20,1000) (a halved
+   cluster), (1536,8,500) and (1536,20,2780) with the rank branch (P and
+   the partials in the global scratch), as in phase 3; the allocation at
+   n2 = 128, Philox mode at (96,80,2780) and (1536,80,2780) (the plain
+   version on G chunks of 1024) and planes mode at (96,80,300), equal; the
+   stream kernels (the sums-only bodies, the metrics row, the P, E and A
+   column updates) at (1536,20,2780,8) (16-wide G tiles), (96,80,10000,2)
+   (the 128-wide register tile) and (1536,64,300,2) (P*A staged in chunks
+   of rows), as in phase 3b; each timed beside its bound and its plain
+   version; (b) on a 1536x2780 rank-8 catalogue (phase 4's recipe, E ~
+   Gamma(2, 8000)): ``fit`` over ranks 1..20 with default flags (the fused
+   kernel, SBFI; 600 iterations) and an 8-chain ``ChainEnsemble`` over
+   ranks 1..20 (the stream kernels by the auto policy; 300 iterations),
+   each with every launch count exact, no plain version called, metrics
+   finite and a matched min cosine of MAP P >= 0.9; a conjugate rank-80
+   ``fit`` at 96x2780 and two conjugate steps at (1536, 80, 2780) (the
+   allocation launched once a step, + 1 at the fit's start).
 
 Every phase that drives a path also counts the draw kernel's launches
 exactly: the path's draws a step (models/gibbs.draw_launches) times the
@@ -689,12 +708,13 @@ def stream_plain(S, name, args):
     return S.chain_metrics_reference(*args)
 
 
-def compare_stream_kernels(torch, S, card):
-    """Phase 3b. Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} at the timed shape."""
+def compare_stream_kernels(torch, S, card, cases=None, timed=STREAM_TIMED):
+    """Phase 3b (phase 15 at its own ``cases``, timed at ``timed``).
+    Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)} at
+    the timed shape."""
     dev = torch.device("cuda")
     res = {}
-    for (K, N, G, C, A) in STREAM_CASES:
+    for (K, N, G, C, A) in (STREAM_CASES if cases is None else cases):
         d = stream_inputs(K, N, G, C, seed=K + N + G + C, A=A)
         tt = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
               for k, v in d.items()}
@@ -732,13 +752,13 @@ def compare_stream_kernels(torch, S, card):
                   flush=True)
             r = res.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
-            if (K, N, G, C) == STREAM_TIMED:
+            if (K, N, G, C) == timed:
                 r["ms"], wrapped = kernel_ms(torch, kernel, 50)
                 r["plain_ms"] = time_ms(
                     torch, lambda name=name, args=args: stream_plain(
                         S, name, args), 3)
                 r["bound_ms"], r["bound_by"] = stream_bound(name, K, N, G, C)
-                print(f"time per call {name} at (K,N,G,C)={STREAM_TIMED}: "
+                print(f"time per call {name} at (K,N,G,C)={timed}: "
                       f"kernel {r['ms']:.4f} ms on the device "
                       f"({wrapped:.4f} ms per call through the wrapper), "
                       f"plain PyTorch "
@@ -831,7 +851,8 @@ def pr5_row(torch, S, t):
         t["na"]], dim=-1)
 
 
-def compare_metrics_rows(torch, S, card, prior="truncnormal", cases=None):
+def compare_metrics_rows(torch, S, card, prior="truncnormal", cases=None,
+                         timed=STREAM_TIMED):
     """Phase 3b, the metrics row: the row kernels against their plain
     version at every ROW_CASES case; it, n_params, sum A and the
     temperature exact, every other entry within the sums' tolerance, two
@@ -875,7 +896,7 @@ def compare_metrics_rows(torch, S, card, prior="truncnormal", cases=None):
         print(f"metrics row vs plain {case}: max abs {ab:.2e} rel "
               f"{rel:.2e}; it, n_params, sum A, temperature equal; two "
               "launches bit-identical", flush=True)
-        if (K, N, G, C) == STREAM_TIMED and A is None and opt is None:
+        if (K, N, G, C) == timed and A is None and opt is None:
             res["ms"], wrapped = kernel_ms(torch, kernel, 50)
             res["plain_ms"] = time_ms(
                 torch, lambda: S.stream_metrics_row_reference(*args, expo),
@@ -883,14 +904,14 @@ def compare_metrics_rows(torch, S, card, prior="truncnormal", cases=None):
             res["bound_ms"], res["bound_by"] = metrics_row_bound(K, N, G, C,
                                                                  expo)
             pr5 = ""
-            if not expo:
+            if not expo and timed == STREAM_TIMED:
                 res["pr5_ms"], pr5_wrapped = kernel_ms(
                     torch, lambda: pr5_row(torch, S, t), 50)
                 pr5 = (f", PR 5's composition (P * A, chain_metrics, the "
                        f"host row) {res['pr5_ms']:.4f} ms on the device "
                        f"({pr5_wrapped:.4f} ms per call)")
             print(f"time per call metrics row ({prior}) at (K,N,G,C)="
-                  f"{STREAM_TIMED}: kernels {res['ms']:.4f} ms on the device "
+                  f"{timed}: kernels {res['ms']:.4f} ms on the device "
                   f"({wrapped:.4f} ms per call through the wrapper){pr5}, "
                   f"plain PyTorch {res['plain_ms']:.4f} ms, bound "
                   f"{res['bound_ms']:.4f} ms ({res['bound_by']}), on {card}",
@@ -967,7 +988,7 @@ def tail_counts(torch, S, t, col, n, expo=False):
 
 
 def compare_stream_updates(torch, S, card, prior="truncnormal",
-                           cases=None):
+                           cases=None, timed=STREAM_TIMED):
     """Phase 3b, the column updates: ``stream_pcol_update`` and
     ``stream_erow_update`` against the host sequence on the card, column by
     column from the same state; with ``prior="exponential"`` (phase 9) the
@@ -1066,7 +1087,7 @@ def compare_stream_updates(torch, S, card, prior="truncnormal",
                       f"{name}: the deep-tail case has no deep tail: {tails}")
             r = res.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], worst)
-            if (K, N, G, C) == STREAM_TIMED:
+            if (K, N, G, C) == timed:
                 def sweep():
                     st, ac, nn = fresh()
                     kernel(*operands(st, ac, nn), prior=prior)
@@ -1083,7 +1104,7 @@ def compare_stream_updates(torch, S, card, prior="truncnormal",
                 r["plain_ms"] = time_ms(torch, plain_col, 3)
                 r["bound_ms"], r["bound_by"] = update_bound(col, K, N, G, C)
                 print(f"time per column {name} ({prior}) at (K,N,G,C)="
-                      f"{STREAM_TIMED}: "
+                      f"{timed}: "
                       f"kernel {r['ms']:.4f} ms (a sweep of {N} launches "
                       f"over {N}), host sequence {r['plain_ms']:.4f} ms, "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), on "
@@ -1111,7 +1132,7 @@ def acol_inputs(K, N, G, C, seed, A=None, opts=()):
     return d
 
 
-def compare_acol_updates(torch, S, U, card):
+def compare_acol_updates(torch, S, U, card, cases=None, timed=STREAM_TIMED):
     """Phase 3b, the A-column update: ``stream_acol_update`` against the
     host sequence on the card, column by column from the same state, SBFI
     at a temperature of 1e-4 (a number) and BFI at 1 (a device tensor), as
@@ -1120,7 +1141,7 @@ def compare_acol_updates(torch, S, U, card):
     from types import SimpleNamespace
 
     res = {"max_abs_err": 0.0}
-    for (K, N, G, C, A, opts) in ACOL_CASES:
+    for (K, N, G, C, A, opts) in (ACOL_CASES if cases is None else cases):
         t = to_card(torch, acol_inputs(K, N, G, C, K + N + G + C, A, opts))
         p1 = U.prior_prob_1(t["R"].to(torch.float32), N)
         logit = torch.log(p1) - torch.log1p(-p1)
@@ -1193,7 +1214,7 @@ def compare_acol_updates(torch, S, U, card):
                   "launches bit-identical; one call for the sweep equals "
                   "the columns one by one", flush=True)
             res["max_abs_err"] = max(res["max_abs_err"], worst)
-            if (K, N, G, C) == STREAM_TIMED and method == "SBFI":
+            if (K, N, G, C) == timed and method == "SBFI":
                 def sweep():
                     update(t["A"].clone(), zeros())
 
@@ -1205,15 +1226,17 @@ def compare_acol_updates(torch, S, U, card):
                                             t["A"].clone(), logit, temp,
                                             t["U_a"], zeros(), penalty, 0)
 
-                res["ms"] = (device_ms(torch, sweep, 10)
-                             - device_ms(torch, clones, 10)) / N
                 res["events_ms"] = (time_ms(torch, sweep, 20)
                                     - time_ms(torch, clones, 20)) / N
+                dev = [device_ms(torch, f, 10) for f in (sweep, clones)]
+                # CUDA events where the profiler read nothing
+                res["ms"] = (res["events_ms"] if None in dev
+                             else (dev[0] - dev[1]) / N)
                 res["plain_ms"] = time_ms(torch, plain_col, 3)
                 res["bound_ms"], res["bound_by"] = acol_update_bound(K, N, G,
                                                                      C)
                 print(f"time per column acol_update at (K,N,G,C)="
-                      f"{STREAM_TIMED}: kernels {res['ms']:.4f} ms on the "
+                      f"{timed}: kernels {res['ms']:.4f} ms on the "
                       f"device, {res['events_ms']:.4f} ms by CUDA events (a "
                       f"sweep of {N} columns enqueued by one call, over {N}),"
                       f" host sequence {res['plain_ms']:.4f} ms, bound "
@@ -1273,9 +1296,10 @@ ALLOC_CASES = [(96, 5, 100, 1, (), ()), (96, 20, 10000, 1, (), ()),
 ALLOC_TIMED = [(96, 5, 100), (96, 20, 10000), (96, 8, 2780)]
 
 
-def alloc_inputs(K, N, G, C, seed, excluded=(), zero_cells=()):
+def alloc_inputs(K, N, G, C, seed, excluded=(), zero_cells=(), planes=True):
     """Operands of one allocation as the conjugate step hands them over:
-    M (K, G) shared, per-chain P, A, E, and the uniform planes."""
+    M (K, G) shared, per-chain P, A, E, and with ``planes`` the uniform
+    planes."""
     rng = np.random.default_rng(seed)
     f = np.float32
     lead = (C,) if C > 1 else ()
@@ -1288,9 +1312,12 @@ def alloc_inputs(K, N, G, C, seed, excluded=(), zero_cells=()):
     M = rng.poisson(Mh if C == 1 else Mh[0]).astype(f)
     for k, g in zero_cells:
         M[k, g] = 0.0
-    n2 = n_leaves(N)
-    u = rng.uniform(1e-7, 1.0, lead + (17, max(n2 - 1, 1), K, G)).astype(f)
-    return dict(M=M, P=P.astype(f), A=A, E=E, u=u)
+    d = dict(M=M, P=P.astype(f), A=A, E=E)
+    if planes:
+        n2 = n_leaves(N)
+        d["u"] = rng.uniform(1e-7, 1.0, lead + (17, max(n2 - 1, 1), K, G)
+                             ).astype(f)
+    return d
 
 
 DIVERGENCE_SHAPE = (96, 20, 10000)
@@ -1851,8 +1878,12 @@ EAGER_RTOL, EAGER_ATOL = 1e-3, 1e-4
 EAGER_WARMUP = 30
 EAGER_CC = dict(MAP_over=500, MAP_every=100, miniters=500, maxiters=1500,
                 Ninarow_nochange=3, Ninarow_nobest=5)
-EAGER_SBFI_G, EAGER_SBFI_CC = 1000, dict(MAP_over=500, MAP_every=100,
-                                         miniters=500, maxiters=1000,
+# the eager fits' depth, cut to make room for phase 15 within the script's
+# time (the Normal SBFI fit ran 899 iterations of maxiters 1000, the three
+# fits at 96x500 a post-warmup of 500)
+EAGER_POST_WARMUP, EAGER_LOOP = 300, 100
+EAGER_SBFI_G, EAGER_SBFI_CC = 1000, dict(MAP_over=300, MAP_every=100,
+                                         miniters=300, maxiters=500,
                                          Ninarow_nochange=3,
                                          Ninarow_nobest=5)
 
@@ -1958,7 +1989,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
             s = bt.fit(M, EAGER_RANK, device="cuda",
                        output_dir=os.path.join(tmp, "fit"),
                        convergence_control=bt.ConvergenceControl(**EAGER_CC),
-                       post_warmup=500, seed=0, **kw)
+                       post_warmup=EAGER_POST_WARMUP, seed=0, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counters(FS, S, AL)
@@ -1976,7 +2007,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
         cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
         check(cos.min() >= 0.9, f"eager (b) {label}: matched cosine too "
               f"low: {cos}")
-        (loop,), state, _ = loop_rates(torch, gibbs, s, 200)
+        (loop,), state, _ = loop_rates(torch, gibbs, s, EAGER_LOOP)
         check(FS.fused_gibbs_sweeps.launches == 0,
               f"eager (b) {label}: the loop launched the fused kernel")
         fits[label] = (s, state)
@@ -1986,8 +2017,8 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
               f"draw kernel's {draws}; MAP "
               f"matched cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
               f"{steps / wall:.1f} it/s for the whole fit ({wall:.2f} s), "
-              f"{loop:.1f} it/s in the chunk loop alone (200 iterations) on "
-              f"{card}", flush=True)
+              f"{loop:.1f} it/s in the chunk loop alone ({EAGER_LOOP} "
+              f"iterations) on {card}", flush=True)
     # the fused path's loop on the same data in the same call
     reset_counts(FS, S, AL)
     fused = bt.GibbsSampler(M, EAGER_RANK, device="cuda", seed=0,
@@ -4003,6 +4034,393 @@ def run_rng(torch, bt, gibbs, card, mesh_ranks):
     return main_row | {"max_abs_err": max(r["err"] for r in rows.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: catalogue shapes
+# ---------------------------------------------------------------------------
+
+# (K, N, G, chains, options, temperature): the fused kernel at the strand,
+# SBS-288 and SBS-1536 shapes (a halved cluster with everything in shared
+# memory; P and the partials in the global scratch), the last with the rank
+# branch, as the SBS-1536 fit runs it
+CAT_FUSED = [(192, 40, 2780, 1, {}, None), (288, 20, 1000, 1, {}, None),
+             (1536, 8, 500, 1, {}, None),
+             (1536, 20, 2780, 1, dict(rank_method="SBFI"), 1.0)]
+# the stream kernels: the SBS-1536 ensemble's step (16-wide G tiles) and
+# N = 80 (the 128-wide register tile); the E-row block's staging in chunks
+# of rows (K = 1536 at N = 64)
+CAT_STREAM = [(1536, 20, 2780, 8, None), (96, 80, 10000, 2, None),
+              (1536, 64, 300, 2, None)]
+CAT_STREAM_TIMED = [(1536, 20, 2780, 8), (96, 80, 10000, 2)]
+CAT_ALLOC = [(96, 80, 2780), (1536, 80, 2780)]
+# the planes mode's check at n2 = 128 (the uniform operand of the main
+# path's shapes would take 2.3 GB and 37 GB)
+CAT_ALLOC_PLANES = (96, 80, 300)
+# the allocation's plain version runs on G chunks (the Philox planes of
+# the whole of (1536, 80, 2780) would take 54 GB)
+CAT_ALLOC_CHUNK = 1024
+CAT_K, CAT_G, CAT_TRUE, CAT_MAX, CAT_CHAINS = 1536, 2780, 8, 20, 8
+CAT_SCALE = 8000.0
+CAT_FIT_CC = dict(MAP_over=200, MAP_every=100, miniters=400, maxiters=600,
+                  Ninarow_nochange=3, Ninarow_nobest=5)
+CAT_ENS_CC = dict(MAP_over=100, MAP_every=50, miniters=200, maxiters=300,
+                  Ninarow_nochange=3, Ninarow_nobest=5)
+CAT_CONJ_CC = dict(MAP_over=100, MAP_every=50, miniters=150, maxiters=200,
+                   Ninarow_nochange=3, Ninarow_nobest=5)
+CAT_CONJ_RANK = 80
+
+
+def compare_catalogue_fused(torch, FS, card):
+    """Phase 15 (a): the fused kernel at CAT_FUSED against its plain
+    version as in phase 3, timed beside its bound. Returns {(K, N, G):
+    dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    res = {}
+    for (K, N, G, C, kw, temp) in CAT_FUSED:
+        d = (branch_inputs(K, N, G, C, K + N + G + C, kw, temp) if kw
+             else sweep_inputs(K, N, G, C, seed=K + N + G + C))
+        t = to_card(torch, d)
+        case = f"catalogue (K,N,G,C)={(K, N, G, C)}" + "".join(
+            f" {k}={v}" for k, v in kw.items())
+        worst = 0.0
+        for accept_all in (True, False):
+            w, kernel, plain = check_sweep_case(torch, FS, t, C, case,
+                                                accept_all, **kw)
+            worst = max(worst, w)
+        k_ms, w_ms = kernel_ms(torch, kernel, 10)
+        p_ms = time_ms(torch, plain, 2)
+        b_ms, b_by = fused_bound(K, N, G, C, rank=bool(kw))
+        S_ = FS.cluster_config(K, N, G, C)[0]
+        res[(K, N, G)] = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+        print(f"time per call fused at {case}: cluster of {S_}, P and the "
+              f"partials in "
+              f"{'shared' if FS.fixed_in_smem(K, N, S_) else 'global'} "
+              f"memory; kernel {k_ms:.4f} ms on the device ({w_ms:.4f} ms "
+              f"per call through the wrapper), plain PyTorch {p_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), on {card}", flush=True)
+    return res
+
+
+def catalogue_alloc_plain(torch, AL, M, P, A, E, key, uids, chunk):
+    """The allocation's plain version on the Philox planes of the whole,
+    drawn and allocated G chunk by G chunk (the planes' counters are the
+    whole matrix's cells): Zsum_g added over the chunks (integers, exact),
+    Zsum_k side by side."""
+    K, G = M.shape
+    N = P.shape[-1]
+    zgs, zks = [], []
+    for g0 in range(0, G, chunk):
+        g1 = min(g0 + chunk, G)
+        u = AL.philox_planes(key, uids, N, K, g1 - g0, g0=g0, G_total=G)
+        zg, zk = AL.allocate_counts_reference(
+            M[:, g0:g1].contiguous(), P, A, E[:, :, g0:g1].contiguous(), u)
+        zgs.append(zg.double())
+        zks.append(zk)
+        del u
+    return sum(zgs).float(), torch.cat(zks, -1)
+
+
+def compare_catalogue_alloc(torch, AL, card):
+    """Phase 15 (a): the allocation at n2 = 128 against its plain version:
+    in the planes mode at CAT_ALLOC_PLANES, and in the Philox mode (the
+    main path's) at CAT_ALLOC, where it is timed beside its bound. Returns
+    {(K, N, G): dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    res = {}
+    uids = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for (K, N, G) in [CAT_ALLOC_PLANES] + CAT_ALLOC:
+        t = to_card(torch, alloc_inputs(K, N, G, 1, K + N + G, (5,), (),
+                                        planes=False))
+        M = t["M"]
+        P, A, E = (x.unsqueeze(0) for x in (t["P"], t["A"], t["E"]))
+        key = (K * G + N, 0)
+        case = f"catalogue (K,N,G)={(K, N, G)} excluded=(5,)"
+        if (K, N, G) == CAT_ALLOC_PLANES:
+            u = uniform_planes(torch, AL, 1, N, K, G, K + N + G)
+            mode = "planes"
+            kernel = lambda: AL.allocate_counts(M, P, A, E, u=u)  # noqa
+            plain = lambda: AL.allocate_counts_reference(  # noqa: E731
+                M, P, A, E, u)
+        else:
+            mode = "Philox"
+            kernel = lambda: AL.allocate_counts(  # noqa: E731
+                M, P, A, E, key=key, uids=uids)
+            plain = lambda: catalogue_alloc_plain(  # noqa: E731
+                torch, AL, M, P, A, E, key, uids, CAT_ALLOC_CHUNK)
+        k1, k2 = kernel(), kernel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = plain()
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.equal(x, y) for x, y in zip(k1, k2)),
+              f"allocation ({mode}): two launches differ at {case}")
+        worst = 0.0
+        for name, x, y in zip(("Zsum_g", "Zsum_k"), k1, p):
+            err = float((x - y).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(x, y), f"allocation ({mode}) {name} "
+                  f"differs from the plain version at {case}: max abs {err}")
+        check(torch.equal(k1[1].sum(-2), M.sum(0).unsqueeze(0)),
+              f"allocation ({mode}) does not conserve the counts at {case}")
+        check(float(k1[1][:, 5].abs().sum()) == 0.0,
+              f"allocation ({mode}) gave counts to an excluded component "
+              f"at {case}")
+        print(f"allocation kernel vs plain ({mode}) {case}: Zsum_g and "
+              f"Zsum_k equal; two launches bit-identical; counts conserved; "
+              f"plain {p_ms:.1f} ms", flush=True)
+        if mode == "planes":
+            continue
+        ms, wrapped = kernel_ms(torch, kernel, 5)
+        splits = count_splits(AL, torch, plain)
+        b_ms, b_by = alloc_bound(K, N, G, 1, splits, False)
+        res[(K, N, G)] = dict(max_abs_err=worst, ms=ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+        print(f"time per call allocate_counts at {case} (n2 = "
+              f"{AL.kernel_leaves(K, N)}): kernels {ms:.4f} ms on the device "
+              f"(Philox; {wrapped:.4f} ms per call through the wrapper), "
+              f"plain PyTorch {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) "
+              f"for {splits[0]} inversion splits of {splits[1]} steps and "
+              f"{splits[2]} BTRS splits, on {card}", flush=True)
+    return res
+
+
+def compare_catalogue_stream(torch, S, U, card):
+    """Phase 15 (a): the stream kernels at CAT_STREAM against their plain
+    versions, as phase 3b holds them (the sums-only bodies, the column
+    updates, the A-column update and the metrics row), each timed at
+    CAT_STREAM_TIMED. Returns {timed shape: (sums, row, updates, acol)}."""
+    cases = [c + (None,) for c in CAT_STREAM]
+    ucases = [c + ((),) for c in CAT_STREAM]
+    for (K, N, G, C, _) in CAT_STREAM:
+        print(f"stream tiles at catalogue (K,N,G,C)={(K, N, G, C)}: G tile "
+              f"{S.col_tile(K, N)} wide, register tile {S.tile_width(N)}, "
+              f"E-row block stages {S.erow_rows(K, N)} of {K} rows at once",
+              flush=True)
+    out = {}
+    for i, timed in enumerate(CAT_STREAM_TIMED):
+        # every case is compared once; each timed shape is timed
+        sub = [c for c in cases if c[:4] == timed]
+        usub = [c for c in ucases if c[:4] == timed]
+        if i == len(CAT_STREAM_TIMED) - 1:
+            sub += [c for c in cases if c[:4] not in CAT_STREAM_TIMED]
+            usub += [c for c in ucases if c[:4] not in CAT_STREAM_TIMED]
+        out[timed] = (
+            compare_stream_kernels(torch, S, card, [c[:5] for c in sub],
+                                   timed),
+            compare_metrics_rows(torch, S, card, cases=sub, timed=timed),
+            compare_stream_updates(torch, S, card, cases=usub, timed=timed),
+            compare_acol_updates(torch, S, U, card, cases=usub, timed=timed))
+    return out
+
+
+def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
+    """Phase 15: catalogue shapes. (a) Each changed kernel against its plain
+    version at the new shapes, timed beside its bound. (b) The slice's three
+    runs through the entry points on synthetic catalogues (phase 4's recipe
+    at 1536 rows, E ~ Gamma(2, 8000)): SBFI ``fit`` over ranks 1..20 at
+    1536 x 2780 (the fused kernel, its rank branch, P and the partials in
+    global memory), an 8-chain ``ChainEnsemble`` over ranks 1..20 at
+    1536 x 2780 (the stream kernels, picked by the auto policy at
+    G >= 2000), a conjugate rank-80 ``fit`` at 96 x 2780 and two conjugate
+    steps at (1536, 80, 2780) (the allocation at n2 = 128): each kernel's
+    launches per iteration exact, no plain version called, metrics finite;
+    the SBS-1536 fit's and the ensemble's best chain's matched min cosine
+    >= 0.9. Returns (kernel results, launches of each run)."""
+    from bayesnmf_tpu_torch.parallel import chains as CH
+
+    t15 = time.perf_counter()
+    fused = compare_catalogue_fused(torch, FS, card)
+    t_f = time.perf_counter()
+    alloc = compare_catalogue_alloc(torch, AL, card)
+    t_a = time.perf_counter()
+    stream = compare_catalogue_stream(torch, S, U, card)
+    print(f"phase 15 (a): {time.perf_counter() - t15:.1f} s (fused "
+          f"{t_f - t15:.1f} s, allocation {t_a - t_f:.1f} s, stream "
+          f"{time.perf_counter() - t_a:.1f} s)", flush=True)
+
+    launches = {}
+    M, P_true = synthetic(CAT_K, CAT_G, CAT_TRUE, seed=0, scale=CAT_SCALE)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the SBS-1536 SBFI fit, default flags: the fused kernel
+        reset_counts(FS, S, AL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_calls(FS, S, AL) as calls:
+            s = bt.fit(M, range(1, CAT_MAX + 1), device="cuda",
+                       output_dir=os.path.join(tmp, "fit"),
+                       convergence_control=bt.ConvergenceControl(
+                           **CAT_FIT_CC), post_warmup=200, seed=0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counters(FS, S, AL)
+        steps = s.iter - 1
+        draws = check_draws("catalogue fit", counts, gibbs, s.spec, steps)
+        check(counts["fused"] == steps, f"catalogue fit: fused kernel "
+              f"launches {counts['fused']} != iterations run {steps}")
+        check(ported(counts) == counts["fused"],
+              "catalogue fit: another kernel ran")
+        check(sum(calls.values()) == 0,
+              f"catalogue fit: plain versions ran: {calls}")
+        rows = np.concatenate(s._metric_rows)
+        check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
+              "catalogue fit: metrics are not finite")
+        cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
+        check(cos.min() >= 0.9,
+              f"catalogue fit: matched cosine too low: {cos}")
+        launches["fit"] = counts["fused"]
+        print(f"catalogue fit: fit(1536x2780, ranks 1..20, SBFI) ran {steps} "
+              f"iterations ({s.tracker.why}); learned rank "
+              f"{int(np.asarray(s.MAP['A_full']).sum())} (true {CAT_TRUE}); "
+              f"fused kernel launches {counts['fused']} (= iterations), "
+              f"draw kernel {draws}, no other kernel, no plain version; "
+              f"matched cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
+              f"{steps / wall:.1f} it/s for the whole fit ({wall:.2f} s) on "
+              f"{card}", flush=True)
+        del s
+
+        # the SBS-1536 ensemble: the stream kernels by the auto policy
+        reset_counts(FS, S, AL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_calls(FS, S, AL) as calls:
+            ens = bt.ChainEnsemble(
+                M, range(1, CAT_MAX + 1), n_chains=CAT_CHAINS,
+                convergence_control=bt.ConvergenceControl(**CAT_ENS_CC),
+                post_warmup=100, seed=0, store_E=False,
+                periodic_save=False, output_dir=os.path.join(tmp, "ens"),
+                device="cuda")
+            check(ens.spec.stream_sweeps,
+                  "catalogue ensemble: the auto policy did not stream")
+            ens.run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(sum(calls.values()) == 0,
+              f"catalogue ensemble: plain versions ran: {calls}")
+        counts = launch_counters(FS, S, AL)
+        check(counts["fused"] == counts["allocation"] == 0,
+              "catalogue ensemble: another kernel ran")
+        N = CAT_MAX
+        ens_launches = {"_run": S._run.launches,
+                        "stream_acol_update": S.stream_acol_update.launches,
+                        "stream_metrics_row": S.stream_metrics_row.launches,
+                        "acol_delta": S.acol_delta.launches,
+                        "chain_metrics": S.chain_metrics.launches,
+                        "rng": counts["rng"]}
+        report_run(torch, CH, ens, "catalogue ensemble", wall, ens_launches,
+                   {"_run": (3 * N, 0), "stream_acol_update": (N, 0),
+                    "stream_metrics_row": (1, 0)}, P_true, card)
+        launches["ensemble"] = ens_launches
+        del ens
+
+        # the rank-80 conjugate fit at 96 x 2780: the allocation at n2 = 128
+        M96, _ = synthetic(96, CAT_G, CAT_TRUE, seed=1)
+        reset_counts(FS, S, AL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_calls(FS, S, AL) as calls:
+            s = bt.fit(M96, CAT_CONJ_RANK, prior="exponential", MH=False,
+                       device="cuda", output_dir=os.path.join(tmp, "conj"),
+                       convergence_control=bt.ConvergenceControl(
+                           **CAT_CONJ_CC), seed=0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counters(FS, S, AL)
+        steps = s.iter - 1
+        draws = check_draws("catalogue conjugate fit", counts, gibbs,
+                            s.spec, steps)
+        check(counts["allocation"] == steps + 1,
+              f"catalogue conjugate fit: allocation launches "
+              f"{counts['allocation']} != iterations + 1 ({steps + 1})")
+        check(ported(counts) == counts["allocation"],
+              "catalogue conjugate fit: another kernel ran")
+        check(sum(calls.values()) == 0,
+              f"catalogue conjugate fit: plain versions ran: {calls}")
+        rows = np.concatenate(s._metric_rows)
+        check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
+              "catalogue conjugate fit: metrics are not finite")
+        launches["conjugate"] = counts["allocation"]
+        print(f"catalogue conjugate fit: fit(96x2780, rank 80, exponential, "
+              f"MH=False) ran {steps} iterations; allocation launches "
+              f"{counts['allocation']} (= iterations + 1), draw kernel "
+              f"{draws}, no other kernel, no plain version; "
+              f"{steps / wall:.1f} it/s ({wall:.2f} s) on {card}", flush=True)
+
+    # two conjugate steps at (1536, 80, 2780)
+    s = bt.GibbsSampler(M, CAT_CONJ_RANK, prior="exponential", MH=False,
+                        device="cuda", seed=0, verbosity=0)
+    reset_counts(FS, S, AL)
+    with plain_calls(FS, S, AL) as calls:
+        state, _ = gibbs.run_chunk(s.spec, s.data, s.hyperprior_params,
+                                   s.state, np.ones(2, np.float32), False)[:2]
+        torch.cuda.synchronize()
+    counts = launch_counters(FS, S, AL)
+    check(counts["allocation"] == 2 and ported(counts) == 2,
+          f"catalogue conjugate steps: launches {counts}")
+    check_draws("catalogue conjugate steps", counts, gibbs, s.spec, 2,
+                init=False)
+    check(sum(calls.values()) == 0,
+          f"catalogue conjugate steps: plain versions ran: {calls}")
+    check(all(bool(torch.isfinite(v).all())
+              for v in state["params"].values()),
+          "catalogue conjugate steps: the state is not finite")
+    launches["conjugate"] += counts["allocation"]
+    print(f"catalogue conjugate steps at (1536, 80, 2780): allocation "
+          f"launches {counts['allocation']} (= 2 steps), state finite; "
+          f"phase 15 {time.perf_counter() - t15:.1f} s on {card}", flush=True)
+    return dict(fused=fused, alloc=alloc, stream=stream), launches
+
+
+def catalogue_kernels(cat, launches):
+    """The kernels line's entries of phase 15: one a kernel and new shape,
+    its launches those of the phase's run through it."""
+    src = "bayesnmf_tpu_torch/csrc/stream_sweeps.cu"
+    pss = "bayesnmf_tpu/ops/pallas_stream_sweeps.py"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    rows = []
+    for shape, r in cat["fused"].items():
+        rows.append({"name": f"fused_gibbs_sweeps at {shape}",
+                     "route": "cuda",
+                     "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
+                     "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
+                     "launches": launches["fit"],
+                     **{k: r[k] for k in keys}, "library_ms": None})
+    for shape, r in cat["alloc"].items():
+        rows.append({"name": f"allocate_counts_fused at {shape}",
+                     "route": "cuda",
+                     "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+                     "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+                     "launches": launches["conjugate"],
+                     **{k: r[k] for k in keys}, "library_ms": None})
+    ens = launches["ensemble"]
+    for shape, (sums, row, updates, acol) in cat["stream"].items():
+        mean = lambda key: float(np.mean(  # noqa: E731
+            [u[key] for u in updates.values()]))
+        rows.append({
+            "name": f"_run at {shape}", "route": "cuda", "source": src,
+            "replaces": f"{pss}:330", "launches": ens["_run"],
+            "max_abs_err": max([sums[b]["max_abs_err"] for b in (
+                "pcol_stats", "pcol_accept", "erow_stats", "erow_accept")]
+                + [u["max_abs_err"] for u in updates.values()]),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": updates["pcol_update"]["bound_by"],
+            "library_ms": None})
+        rows.append({
+            "name": f"acol_delta at {shape}", "route": "cuda",
+            "source": src, "replaces": f"{pss}:220",
+            "launches": ens["stream_acol_update"],
+            "max_abs_err": max(sums["acol_delta"]["max_abs_err"],
+                               acol["max_abs_err"]),
+            **{k: acol[k] for k in keys[1:]}, "library_ms": None})
+        rows.append({
+            "name": f"chain_metrics at {shape}", "route": "cuda",
+            "source": src, "replaces": f"{pss}:272",
+            "launches": ens["stream_metrics_row"],
+            "max_abs_err": max(sums["chain_metrics"]["max_abs_err"],
+                               row["max_abs_err"]),
+            **{k: row[k] for k in keys[1:]}, "library_ms": None})
+    return rows
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2:])
@@ -4118,6 +4536,9 @@ def main() -> int:
 
     # phase 14: the chains' counter-based streams
     rng_row = run_rng(torch, bt, gibbs, card, mesh_ranks)
+
+    # phase 15: catalogue shapes
+    cat, cat_launches = run_catalogue(torch, bt, FS, S, AL, U, gibbs, card)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
@@ -4260,6 +4681,7 @@ def main() -> int:
         "ms": rng_row["ms"], "plain_ms": rng_row["plain_ms"],
         "bound_ms": rng_row["bound_ms"], "bound_by": rng_row["bound_by"],
         "library_ms": rng_row["library_ms"]})
+    kernels += catalogue_kernels(cat, cat_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -977,14 +977,15 @@ def test_acol_update_nan_delta_takes_one_half():
 def test_column_kernel_limits():
     """The register tile's width by N, shapes the kernels refuse, and their
     scratch sizes."""
-    assert [S.tile_width(n) for n in (1, 4, 5, 20, 24, 25, 32, 33, 64)] == \
-        [4, 4, 8, 20, 24, 32, 32, 64, 64]
+    assert [S.tile_width(n) for n in (1, 4, 5, 20, 24, 25, 32, 33, 64, 65,
+                                      128)] == \
+        [4, 4, 8, 20, 24, 32, 32, 64, 64, 128, 128]
     with pytest.raises(ValueError):
-        S.tile_width(65)
+        S.tile_width(129)
     with pytest.raises(ValueError):
         S._col_scratch(2, 5000, 20, 100, torch.device("cpu"))
     with pytest.raises(ValueError):
-        S._check_row_fits(5000, 20)
+        S.erow_rows(5000, 20)
     assert S._col_scratch(2, 96, 20, 130, torch.device("cpu")).numel() == \
         2 * 3 * 96 * 3
     with pytest.raises(ValueError):
