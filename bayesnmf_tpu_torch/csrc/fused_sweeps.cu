@@ -22,15 +22,25 @@
 //     code reads them in global memory (row stride G instead of G/S).
 //     P, the P-side prior pair, A and the block's slice of E live in shared
 //     memory too; every block holds the same bits of P and A.
-//     Large K (288 rows at N >= 8 on one block, the SBS-1536 catalogue at
-//     any N): where P, its prior pair and the pushed per-row partials (3 K N
-//     floats and S K 5 doubles) do not fit beside the rest even on one
-//     block, the same code keeps them in a per-chain global scratch (bit 2
-//     of `resident`): each block its own copy of P and the pair, and the
-//     partials one slot per block, written with st.global.cg (to L2) and
-//     fenced before the cluster barrier, read by every block after it with
-//     ld.global.cg, in the same rank order as the distributed form, so the
-//     two forms add the same doubles in the same order.
+//     Large K (above 96 rows where a cluster's block cannot hold P, its
+//     prior pair and the pushed partials, 3 K N floats and S K 5 doubles:
+//     K = 192 at N >= 40, 288 at N >= 8, 1536 at any N; ops/fused_sweeps.py
+//     ::grid_form): the grid form (fused_grid_kernel, below). A cluster of
+//     at most 16 blocks left 116 of 132 SMs idle, and its blocks re-read
+//     their 1 MB data and Mhat slices and their own copies of P from L2 on
+//     every pass (29.4 ms at (1536,20,2780) with the rank branch). The grid
+//     form spreads a chain over up to one block per SM (127 blocks of 22
+//     columns there), so a block's Mhat slice fits its shared memory again;
+//     P and its pair live once, each row's decision made by one owner
+//     block, and the partials cross the blocks through L2 at a barrier of
+//     the chain's own on a device counter (four a P column, one an A
+//     column): 2.2 ms there. What bounds it: those ~100 barriers a sweep at
+//     N = 20, each a round trip through L2, and the exchange, then a
+//     block's passes over its K x 22 entries with the data slice read from
+//     L2. Several chains take the card in turns, as many a launch as keep
+//     their Mhat slices resident (grid_config): 8 chains at 1536 x 2780 run
+//     one after another, 18.3 ms, where 16 blocks each with its slices in
+//     global memory took 48 ms.
 //
 // Work split inside a block of 512 threads:
 //   hyper-sweep  (K,N): every block computes all of it for its own copy
@@ -60,7 +70,10 @@
 // the block idle); a cluster barrier costs about as much as a column's
 // arithmetic at the 32 columns of G a block owns; chains in a batch run as
 // separate clusters, of which the card keeps only a few resident at 16
-// blocks each.
+// blocks each. The grid form's P sweep needs its four barriers a column
+// only because a block owns columns of G: blocks owning rows of K, with
+// Mhat passed between the two ownerships once before the E sweep, would
+// need none (not built).
 //
 // Layout: every operand is float32 and contiguous. State and uniforms carry
 // a leading chain axis C; data (K,G) and the hyperprior planes are shared.
@@ -109,13 +122,17 @@ struct Args {
   float *P_o, *E_o, *Mh_o, *accP_o, *accE_o, *A_o, *R_o, *nan_o;
   float *hp0p_o, *hp1p_o, *hp0e_o, *hp1e_o;
   int K, N, G;
-  // what sits in shared memory: bit 0 the data and Mhat slices, bit 1 the E
-  // slice; bit 2 set: P, its prior pair and the pushed partials sit in the
-  // global scratch instead (xg: the partials (C, S, K, 5) doubles; pg: P and
-  // the pair (C, S, 3, K, N) floats)
+  // what sits in shared memory: bit 0 the data slice, bit 1 the E slice,
+  // bit 2 the Mhat slice (the cluster form keeps data and Mhat together)
   int resident;
+  // the grid form: its first chain, and its per-chain scratch
+  // (grid_scratch): the pushed partials, the columns' conditionals and
+  // proposals, the exponential prior's flags, the NaN counts, and the
+  // barrier counters
+  int c0;
   double* xg;
-  float* pg;
+  float* wg;
+  unsigned* bar;
 };
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
@@ -381,6 +398,35 @@ __device__ float mh_decide(int prior, int exact, bool inactive, float old,
   return (acc_on || u_acc < ratio) ? prop : old;
 }
 
+// The rank draw R by Gumbel-max over the ladder r = 0..N, the index by
+// sum-select, from A and the rank pack (its temperature and noise), and the
+// logit of R's inclusion probability (pallas_sweeps.py:316-340).
+__device__ void rank_draw(const float* rp, const float* sA, int N, float* R,
+                          float* logit_p1) {
+  const float temp = rp[0];
+  const float fN = (float)N;
+  const float lo = 0.4f / fN, hi = 1.0f - 0.4f / fN;
+  float sumA = 0.0f;
+  for (int n = 0; n < N; ++n) sumA += sA[n];
+  float mx = -INFINITY;
+  for (int r = 0; r <= N; ++r) {
+    const float p1r = jmin(jmax((float)r / fN, lo), hi);
+    const float s = temp * (sumA * logf(p1r) + (fN - sumA) * logf(1.0f - p1r))
+                    + rp[N + 1 + r];
+    mx = jmax(mx, s);
+  }
+  float r_sel = 0.0f;
+  for (int r = 0; r <= N; ++r) {
+    const float p1r = jmin(jmax((float)r / fN, lo), hi);
+    const float s = temp * (sumA * logf(p1r) + (fN - sumA) * logf(1.0f - p1r))
+                    + rp[N + 1 + r];
+    r_sel += s >= mx ? (float)r : 0.0f;
+  }
+  const float p1 = jmin(jmax(r_sel / fN, lo), hi);
+  *R = r_sel;
+  *logit_p1 = logf(p1) - log1pf(-p1);
+}
+
 // Threads per g of an E-row update: the largest power of two up to 8 that
 // keeps tpg * roundup32(Gq) within the block.
 __host__ __device__ inline int threads_per_g(int Gq) {
@@ -397,43 +443,26 @@ __host__ __device__ inline int threads_per_g(int Gq) {
 // slice (N x Gq, when resident), a column's mu, var, proposal and new value
 // (4 x K), an E row's proposal step, value step and flag (3 x kThreads), A
 // (N), the NaN counts (kThreads + S) and the inactive flags (S).
-// With `fixed_in_smem` false, P with its prior pair and the pushed
-// partials sit in the global scratch and take no shared memory.
 __host__ __device__ inline size_t fixed_smem_bytes(int K, int N, int Gq,
-                                                  int S, bool e_resident,
-                                                  bool fixed_in_smem) {
-  const size_t doubles = (fixed_in_smem ? (size_t)S * K * 5 : 0) + 2 * S
-                         + kWarps + kThreads * 3;
-  const size_t floats = (fixed_in_smem ? (size_t)3 * K * N : 0)
-                        + (e_resident ? (size_t)N * Gq : 0)
+                                                  int S, bool e_resident) {
+  const size_t doubles = (size_t)S * K * 5 + 2 * S + kWarps + kThreads * 3;
+  const size_t floats = (size_t)3 * K * N + (e_resident ? (size_t)N * Gq : 0)
                         + 4 * K + 3 * kThreads + N + kThreads + 2 * S;
   return doubles * sizeof(double) + floats * sizeof(float);
 }
 
 // A pushed partial: into every block's shared memory (lanes 0..S-1 of the
-// row's warp), or into this block's slot of the global scratch (lane 0),
-// through L2. xb: this block's array (shared) or the chain's (global).
+// row's warp). xb: this block's array.
 __device__ __forceinline__ void push_partials(
-    cg::cluster_group& cluster, double* xb, bool global, int S,
-    int lane, size_t at, const double* v, int nv) {
-  if (global) {
-    if (lane == 0) {
-      for (int j = 0; j < nv; ++j) __stcg(xb + at + j, v[j]);
-    }
-  } else if (lane < S) {
+    cg::cluster_group& cluster, double* xb, int S, int lane, size_t at,
+    const double* v, int nv) {
+  if (lane < S) {
     double* x = cluster.map_shared_rank(xb, lane) + at;
     for (int j = 0; j < nv; ++j) x[j] = v[j];
   }
 }
 
-// A partial another block pushed: shared memory, or L2 past this SM's L1
-__device__ __forceinline__ double pulled(const double* x, bool global) {
-  return global ? __ldcg(x) : *x;
-}
-
-// kXGlobal: P, its prior pair and the pushed partials in the global
-// scratch (bit 2 of a.resident), else in shared memory
-template <bool kXGlobal>
+// The cluster form: one thread-block cluster per chain.
 __global__ void __launch_bounds__(kThreads)
 fused_sweeps_kernel(Args a) {
   extern __shared__ double smem[];
@@ -451,34 +480,15 @@ fused_sweeps_kernel(Args a) {
   const int gb = rank * Gq < G ? rank * Gq : G;
   const int Gs = G - gb < Gq ? G - gb : Gq;
 
-  // P, its prior pair and the pushed partials: in shared memory, or in
-  // the global scratch (each block its copy of P; one partials array a
-  // chain, each block writing its own rank's rows)
-  constexpr bool xglobal = kXGlobal;
-  double* xb1;                                 // [S][K][2]
-  double* xb2;                                 // [S][K][3]
-  double* sd = smem;
-  if (xglobal) {
-    xb1 = a.xg + (size_t)c * S * K * 5;
-  } else {
-    xb1 = sd;
-    sd += (size_t)S * K * 5;
-  }
-  xb2 = xb1 + (size_t)S * K * 2;
-  double* xa = sd;                             // [2][S]
+  double* xb1 = smem;                          // [S][K][2]
+  double* xb2 = xb1 + (size_t)S * K * 2;       // [S][K][3]
+  double* xa = xb2 + (size_t)S * K * 3;        // [2][S]
   double* s_red = xa + 2 * S;                  // [kWarps]
   double* s_ep = s_red + kWarps;               // [kThreads][3]
-  float* sf = reinterpret_cast<float*>(s_ep + kThreads * 3);
-  float* sP;                                   // [K][N]
-  if (xglobal) {
-    sP = a.pg + ((size_t)c * S + rank) * 3 * KN;
-  } else {
-    sP = sf;
-    sf += 3 * (size_t)KN;
-  }
+  float* sP = reinterpret_cast<float*>(s_ep + kThreads * 3);  // [K][N]
   float* sHp0 = sP + KN;
   float* sHp1 = sHp0 + KN;
-  float* sE = sf;                              // [N][Gq] when resident
+  float* sE = sHp1 + KN;                       // [N][Gq] when resident
   const bool e_resident = (a.resident & 2) != 0;
   float* s_mu = sE + (e_resident ? (size_t)N * Gq : 0);  // [K] each
   float* s_var = s_mu + K;
@@ -599,14 +609,12 @@ fused_sweeps_kernel(Args a) {
         nz |= o * o != 0.0f;
       }
       const double v[2] = {warp_allsum(mu1), warp_allsum(den)};
-      push_partials(cluster, xb1, xglobal, S, lane,
-                    ((size_t)rank * K + k) * 2, v, 2);
+      push_partials(cluster, xb1, S, lane, ((size_t)rank * K + k) * 2, v, 2);
     }
     if (expo) {
       const int any = __syncthreads_or(nz);
       if (tid < S) cluster.map_shared_rank(x_flag, tid)[rank] = any;
     }
-    if (xglobal) __threadfence();
     cluster.sync();
     bool inactive = false;
     if (expo) {
@@ -617,8 +625,8 @@ fused_sweeps_kernel(Args a) {
       const int kn = k * N + n;
       double mu1 = 0.0, den = 0.0;
       for (int r = 0; r < S; ++r) {
-        mu1 += pulled(xb1 + ((size_t)r * K + k) * 2, xglobal);
-        den += pulled(xb1 + ((size_t)r * K + k) * 2 + 1, xglobal);
+        mu1 += xb1[((size_t)r * K + k) * 2];
+        den += xb1[((size_t)r * K + k) * 2 + 1];
       }
       const float hp0 = sHp0[kn], hp1 = sHp1[kn];
       float mu, var;
@@ -645,19 +653,17 @@ fused_sweeps_kernel(Args a) {
       }
       const double v[3] = {warp_allsum(lp), warp_allsum(mu1_r),
                            warp_allsum(den_r)};
-      push_partials(cluster, xb2, xglobal, S, lane,
-                    ((size_t)rank * K + k) * 3, v, 3);
+      push_partials(cluster, xb2, S, lane, ((size_t)rank * K + k) * 3, v, 3);
     }
-    if (xglobal) __threadfence();
     cluster.sync();
     for (int k = tid; k < K; k += kThreads) {
       const int kn = k * N + n;
       double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
       for (int r = 0; r < S; ++r) {
         const double* x = xb2 + ((size_t)r * K + k) * 3;
-        lp += pulled(x, xglobal);
-        mu1_r += pulled(x + 1, xglobal);
-        den_r += pulled(x + 2, xglobal);
+        lp += x[0];
+        mu1_r += x[1];
+        den_r += x[2];
       }
       float rec, nan_here = 0.0f;
       const float nv = mh_decide(prior, exact, inactive, sP[kn], s_prp[k],
@@ -789,28 +795,9 @@ fused_sweeps_kernel(Args a) {
   // ---- rank draw R and the inclusion sweep over A (pallas_sweeps.py:316-364)
   if (a.rank != kFixedRank) {
     const float temp = rp[0];
-    const float fN = (float)N;
-    const float lo = 0.4f / fN, hi = 1.0f - 0.4f / fN;
-    float sumA = 0.0f;
-    for (int n = 0; n < N; ++n) sumA += sA[n];
-    // Gumbel-max over the ladder r = 0..N; the index by sum-select
-    float mx = -INFINITY;
-    for (int r = 0; r <= N; ++r) {
-      const float p1r = jmin(jmax((float)r / fN, lo), hi);
-      const float s = temp * (sumA * logf(p1r) + (fN - sumA) * logf(1.0f - p1r))
-                      + rp[N + 1 + r];
-      mx = jmax(mx, s);
-    }
-    float R = 0.0f;
-    for (int r = 0; r <= N; ++r) {
-      const float p1r = jmin(jmax((float)r / fN, lo), hi);
-      const float s = temp * (sumA * logf(p1r) + (fN - sumA) * logf(1.0f - p1r))
-                      + rp[N + 1 + r];
-      R += s >= mx ? (float)r : 0.0f;
-    }
+    float R, logit_p1;
+    rank_draw(rp, sA, N, &R, &logit_p1);
     if (rank == 0 && tid == 0) a.R_o[c] = R;
-    const float p1 = jmin(jmax(R / fN, lo), hi);
-    const float logit_p1 = logf(p1) - log1pf(-p1);
 
     for (int n = 0; n < N; ++n) {
       const float A_n = sA[n];
@@ -889,13 +876,588 @@ fused_sweeps_kernel(Args a) {
   }
 }
 
+
+// ---- the grid form: one chain over up to one block per SM ------------------
+// For the shapes whose P, prior pair and pushed partials do not fit the
+// cluster form's blocks (K >= 192: ops/fused_sweeps.py::grid_form). A chain
+// is S blocks of one cooperative launch (S * chains <= the blocks the card
+// holds at once, so every block is resident and the barriers cannot
+// deadlock); they meet at a barrier of their own on a device counter
+// (chain_sync), and exchange through L2 (stores and loads past L1):
+//   P column n  every block stages the column, sums its g for every row k
+//               (a thread a row) and stores the double partials; block b
+//               owns rows [b Kq, (b + 1) Kq): after a barrier its warps add
+//               each owned row's S partials in a fixed order and make the
+//               proposal; after a second every block reads the K proposals
+//               and sums the second pass; after a third the owners decide
+//               and write P; after a fourth every block reads the new column
+//               and updates its Mhat slice. P and its prior pair live once,
+//               in the outputs: no block holds all of them.
+//   E row n     a block's own g; each g's K rows split over kThreads /
+//               min(Gq, 32) threads (23 at Gq = 22), partials met in shared
+//               memory in a fixed order.
+//   A column n  a block sum, stored per block; after a barrier every block
+//               adds the S sums in the same fixed order.
+// The Mhat slice (K x Gq, a padded odd row stride so that a thread a row and
+// a warp over g both read conflict-free) sits in shared memory where it fits,
+// then the data slice; the E slice too. Sums are in double, added in fixed
+// orders with no atomics: two launches give the same bits.
+
+// The E sweep's g per round of a grid block: its g, up to a warp's worth
+__host__ __device__ inline int grid_g_round(int Gq) {
+  return Gq < 32 ? Gq : 32;
+}
+
+// Row stride of a resident slice: Gq padded to an odd count
+__host__ __device__ inline int grid_ld(int Gq) { return Gq | 1; }
+
+// Shared memory of a grid block, in bytes: as doubles the block sums
+// (kWarps) and the E row's partials (kThreads x 3); as floats a column's
+// old value, proposal and new value (3 x K), an E row's proposal step, value
+// step and flag (3 x kThreads), A (N), the NaN counts (kThreads), then the
+// resident slices: E (N x Gq, bit 1), data (bit 0) and Mhat (bit 2), each
+// K x grid_ld(Gq).
+__host__ __device__ inline size_t grid_smem_bytes(int K, int N, int Gq,
+                                                 int resident) {
+  const size_t doubles = kWarps + (size_t)kThreads * 3;
+  const size_t slice = (size_t)K * grid_ld(Gq);
+  const size_t floats = (size_t)3 * K + 4 * kThreads + N
+                        + (resident & 2 ? (size_t)N * Gq : 0)
+                        + (resident & 1 ? slice : 0)
+                        + (resident & 4 ? slice : 0);
+  return doubles * sizeof(double) + floats * sizeof(float);
+}
+
+// Words of the grid form's scratch a chain: the partials of a P column's two
+// passes ([K][S][2], [K][S][3]) and of an A column ([2][S]) as doubles; the
+// owners' mu, var and proposal ([3][K]), the flags and the NaN counts ([S]
+// each) as floats; then, after every chain's, one barrier counter a chain.
+__host__ __device__ inline size_t grid_chain_doubles(int K, int S) {
+  return (size_t)5 * K * S + 2 * S;
+}
+__host__ __device__ inline size_t grid_chain_floats(int K, int S) {
+  return (size_t)3 * K + 2 * S;
+}
+
+// Cycles a block waits at a chain barrier before it traps (~40 s): the
+// launch rule keeps every block resident, so a wait this long is a fault,
+// reported as a launch failure rather than left to hang the card.
+constexpr long long kBarrierCycles = 1LL << 36;
+
+// The chain's barrier: every block's writes before it are seen by every
+// block after it. The counter only grows, `epoch` barriers a launch.
+__device__ __forceinline__ void chain_sync(unsigned* bar, unsigned* epoch,
+                                           int S) {
+  __syncthreads();
+  const unsigned target = ++*epoch * (unsigned)S;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long t0 = clock64();
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(bar) : "memory");
+      if (v < target && clock64() - t0 > kBarrierCycles) __trap();
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The same fixed order in every block: lanes over r, then the xor tree
+__device__ __forceinline__ double grid_sum(const double* x, int S,
+                                           size_t stride, int lane) {
+  double t = 0.0;
+  for (int r = lane; r < S; r += 32) t += __ldcg(x + r * stride);
+  return warp_allsum(t);
+}
+
+// The grid form's walk over a block's K x Gs slice: a thread a row where
+// the slice is narrow (Gq < 32, where a warp's lanes over g would idle), a
+// warp a row with its lanes over g where it is wide (a row's loads then
+// coalesce, which counts where the slices sit in global memory). f(k, gl)
+// for every entry; grid_rows adds NV terms an entry, term(k, gl, acc), into
+// each row's sums, handed once to done(k, acc): a row's g in order on its
+// thread, or lanes over g then the xor tree.
+template <class F>
+__device__ __forceinline__ void grid_walk(int K, int Gs, bool wide, F f) {
+  const int tid = threadIdx.x;
+  if (wide) {
+    for (int k = tid >> 5; k < K; k += kWarps) {
+      for (int gl = tid & 31; gl < Gs; gl += 32) f(k, gl);
+    }
+  } else {
+    for (int k = tid; k < K; k += kThreads) {
+      for (int gl = 0; gl < Gs; ++gl) f(k, gl);
+    }
+  }
+}
+
+template <int NV, class Term, class Done>
+__device__ __forceinline__ void grid_rows(int K, int Gs, bool wide,
+                                          Term term, Done done) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (wide) {
+    for (int k = tid >> 5; k < K; k += kWarps) {
+      double acc[NV] = {};
+      for (int gl = lane; gl < Gs; gl += 32) term(k, gl, acc);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) acc[j] = warp_allsum(acc[j]);
+      if (lane == 0) done(k, acc);
+    }
+  } else {
+    for (int k = tid; k < K; k += kThreads) {
+      double acc[NV] = {};
+      for (int gl = 0; gl < Gs; ++gl) term(k, gl, acc);
+      done(k, acc);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_grid_kernel(Args a) {
+  extern __shared__ double smem[];
+  const int S = gridDim.x, rank = blockIdx.x;
+  const int c = a.c0 + blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int K = a.K, N = a.N, G = a.G;
+  const int KN = K * N, NG = N * G, KG = K * G;
+  const int prior = a.prior, exact = a.exact;
+  const bool expo = prior == kExponential;
+  // this block's columns [gb, gb + Gs) of the chain's G, and the rows
+  // [kb0, kb1) whose decisions it owns
+  const int Gq = (G + S - 1) / S;
+  const int gb = rank * Gq < G ? rank * Gq : G;
+  const int Gs = G - gb < Gq ? G - gb : Gq;
+  const int Kq = (K + S - 1) / S;
+  const int kb0 = rank * Kq < K ? rank * Kq : K;
+  const int kb1 = K - kb0 < Kq ? K : kb0 + Kq;
+
+  unsigned* bar = a.bar + c;
+  unsigned epoch = 0;
+  double* x1 = a.xg + (size_t)c * grid_chain_doubles(K, S);  // [K][S][2]
+  double* x2 = x1 + (size_t)2 * K * S;                       // [K][S][3]
+  double* xa = x2 + (size_t)3 * K * S;                       // [2][S]
+  float* wk = a.wg + (size_t)c * grid_chain_floats(K, S);    // [3][K]
+  int* flags = reinterpret_cast<int*>(wk + 3 * K);           // [S]
+  float* nanb = wk + 3 * K + S;                              // [S]
+
+  double* s_red = smem;                        // [kWarps]
+  double* s_ep = s_red + kWarps;               // [kThreads][3]
+  float* s_col = reinterpret_cast<float*>(s_ep + kThreads * 3);  // [K] each
+  float* s_prp = s_col + K;
+  float* s_new = s_prp + K;
+  float* s_dp = s_new + K;                     // [kThreads] each
+  float* s_dv = s_dp + kThreads;
+  float* s_do = s_dv + kThreads;
+  float* s_nan = s_do + kThreads;
+  float* sA = s_nan + kThreads;                // [N]
+  float* slices = sA + N;
+
+  const float* A = a.A + (size_t)c * N;
+  const float* rp = a.rank_pack + (size_t)c * 3 * (N + 1);
+  const bool acc_on = rp[1] > 0.0f;
+  const size_t okn = (size_t)c * KN, ong = (size_t)c * NG;
+  float* P_o = a.P_o + okn;
+  float* accP = a.accP_o + okn;
+  float* hp0p = a.hp0p_o + okn;
+  float* hp1p = a.hp1p_o + okn;
+  float* E_o = a.E_o + ong;
+  float* accE = a.accE_o + ong;
+  float* hp0e = a.hp0e_o + ong;
+  float* hp1e = a.hp1e_o + ong;
+  float n_nan = 0.0f;
+
+  // the E, data and Mhat slices: in shared memory, or in global memory
+  // (row stride G)
+  const int ldq = grid_ld(Gq);
+  const bool wide = Gq >= 32;
+  float* sf = slices;
+  float* Ep = E_o + gb;
+  int lde = G;
+  if (a.resident & 2) {
+    Ep = sf;
+    lde = Gq;
+    sf += (size_t)N * Gq;
+  }
+  const float* Mp = a.data + gb;
+  int ldm = G;
+  if (a.resident & 1) {
+    float* sM = sf;
+    sf += (size_t)K * ldq;
+    for (int i = tid; i < K * Gs; i += kThreads) {
+      const int k = i / Gs, gl = i % Gs;
+      sM[k * ldq + gl] = a.data[(size_t)k * G + gb + gl];
+    }
+    Mp = sM;
+    ldm = ldq;
+  }
+  float* Hp = a.Mh_o + (size_t)c * KG + gb;
+  int ldh = G;
+  if (a.resident & 4) {
+    Hp = sf;
+    ldh = ldq;
+  }
+  for (int i = tid; i < K * Gs; i += kThreads) {
+    const int k = i / Gs, gl = i % Gs;
+    Hp[(size_t)k * ldh + gl] = a.Mh[(size_t)c * KG + (size_t)k * G + gb + gl];
+  }
+
+  // ---- copy state in; the hyper-sweep reads the pre-sweep P and E --------
+  // P side: the rows this block owns
+  for (int i = kb0 * N + tid; i < kb1 * N; i += kThreads) {
+    if (a.hyper) {
+      hyper_elem(a.P[okn + i], a.hp0p[okn + i], a.hp1p[okn + i], a.Hhpp + i,
+                 a.Hup + (size_t)c * 4 * KN + i, KN, &hp0p[i], &hp1p[i]);
+    } else {
+      hp0p[i] = a.hp0p[okn + i];
+      hp1p[i] = a.hp1p[okn + i];
+    }
+    accP[i] = a.accP[okn + i];
+  }
+  for (int i = tid; i < N * Gs; i += kThreads) {
+    const int n = i / Gs, gl = i % Gs;
+    const int ng = n * G + gb + gl;
+    Ep[(size_t)n * lde + gl] = a.E[ong + ng];
+    accE[ng] = a.accE[ong + ng];
+    if (a.hyper) {
+      hyper_elem(a.E[ong + ng], a.hp0e[ong + ng], a.hp1e[ong + ng],
+                 a.Hhpe + ng, a.Hue + (size_t)c * 4 * NG + ng, NG, &hp0e[ng],
+                 &hp1e[ng]);
+    } else {
+      hp0e[ng] = a.hp0e[ong + ng];
+      hp1e[ng] = a.hp1e[ong + ng];
+    }
+  }
+  for (int i = tid; i < N; i += kThreads) sA[i] = A[i];
+  __syncthreads();
+
+  // ---- P sweep: column n, a thread a row over the block's g; owners decide
+  const float* UprP = a.UprP + okn;
+  const float* UpP = a.UpP + okn;
+  const float* UaP = a.UaP + okn;
+  for (int n = 0; n < N; ++n) {
+    const float* En = Ep + (size_t)n * lde;
+    if (A[n] == 0.0f) {
+      for (int kn = kb0 * N + n + tid * N; kn < kb1 * N; kn += kThreads * N) {
+        P_o[kn] = prior_draw(prior, UprP[kn], __ldcg(hp0p + kn),
+                             __ldcg(hp1p + kn));
+      }
+      continue;
+    }
+    // the column before the update: no block has changed it yet
+    for (int k = tid; k < K; k += kThreads) s_col[k] = a.P[okn + k * N + n];
+    if (expo) {
+      bool nz = false;  // some E_n[g]^2 != 0 in this block
+      for (int gl = tid; gl < Gs; gl += kThreads) nz |= En[gl] * En[gl] != 0.0f;
+      const int any = __syncthreads_or(nz);
+      if (tid == 0) __stcg(flags + rank, any);
+    } else {
+      __syncthreads();
+    }
+    grid_rows<2>(
+        K, Gs, wide,
+        [&](int k, int gl, double* acc) {
+          const Terms t = pass1_terms(Mp[(size_t)k * ldm + gl],
+                                      Hp[(size_t)k * ldh + gl], s_col[k],
+                                      En[gl]);
+          acc[0] += t.mu1;
+          acc[1] += t.den;
+        },
+        [&](int k, const double* acc) {
+          double* x = x1 + ((size_t)k * S + rank) * 2;
+          __stcg(x, acc[0]);
+          __stcg(x + 1, acc[1]);
+        });
+    chain_sync(bar, &epoch, S);
+    // the exponential prior's inactive column: E_n zero on every block
+    bool inactive = false;
+    if (expo) {
+      int any = 0;
+      for (int r = lane; r < S; r += 32) any |= __ldcg(flags + r);
+      inactive = !__any_sync(0xffffffffu, any != 0);
+    }
+    for (int k = kb0 + warp; k < kb1; k += kWarps) {
+      const double mu1 = grid_sum(x1 + (size_t)k * S * 2, S, 2, lane);
+      const double den = grid_sum(x1 + (size_t)k * S * 2 + 1, S, 2, lane);
+      if (lane == 0) {
+        const int kn = k * N + n;
+        const float hp0 = __ldcg(hp0p + kn), hp1 = __ldcg(hp1p + kn);
+        float mu, var;
+        conditional(prior, (float)mu1, (float)den, hp0, hp1, &mu, &var);
+        float prop = truncnorm_icdf(UpP[kn], mu, sqrtf(var));
+        if (inactive) prop = prior_draw(prior, UprP[kn], hp0, hp1);
+        __stcg(wk + k, mu);
+        __stcg(wk + K + k, var);
+        __stcg(wk + 2 * K + k, prop);
+      }
+    }
+    chain_sync(bar, &epoch, S);
+    for (int k = tid; k < K; k += kThreads) s_prp[k] = __ldcg(wk + 2 * K + k);
+    __syncthreads();
+    grid_rows<3>(
+        K, Gs, wide,
+        [&](int k, int gl, double* acc) {
+          const float old = s_col[k];
+          const Terms t = pass2_terms(Mp[(size_t)k * ldm + gl],
+                                      Hp[(size_t)k * ldh + gl], old,
+                                      s_prp[k] - old, En[gl], exact);
+          acc[0] += t.lp;
+          acc[1] += t.mu1;
+          acc[2] += t.den;
+        },
+        [&](int k, const double* acc) {
+          double* x = x2 + ((size_t)k * S + rank) * 3;
+          __stcg(x, acc[0]);
+          __stcg(x + 1, acc[1]);
+          __stcg(x + 2, acc[2]);
+        });
+    chain_sync(bar, &epoch, S);
+    for (int k = kb0 + warp; k < kb1; k += kWarps) {
+      const double* x = x2 + (size_t)k * S * 3;
+      const double lp = grid_sum(x, S, 3, lane);
+      const double mu1_r = grid_sum(x + 1, S, 3, lane);
+      const double den_r = grid_sum(x + 2, S, 3, lane);
+      if (lane == 0) {
+        const int kn = k * N + n;
+        float rec;
+        const float nv = mh_decide(
+            prior, exact, inactive, s_col[k], s_prp[k], __ldcg(wk + k),
+            __ldcg(wk + K + k), (float)mu1_r, (float)den_r, (float)lp,
+            __ldcg(hp0p + kn), __ldcg(hp1p + kn), UaP[kn], acc_on, &rec,
+            &n_nan);
+        __stcg(P_o + kn, nv);
+        accP[kn] = rec;
+      }
+    }
+    chain_sync(bar, &epoch, S);
+    for (int k = tid; k < K; k += kThreads) s_new[k] = __ldcg(P_o + k * N + n);
+    __syncthreads();
+    grid_walk(K, Gs, wide, [&](int k, int gl) {
+      const float old = s_col[k], nv = s_new[k];
+      if (nv != old) Hp[(size_t)k * ldh + gl] += (nv - old) * En[gl];
+    });
+    __syncthreads();
+  }
+  // every column of P written, by whichever block owns its rows
+  chain_sync(bar, &epoch, S);
+
+  // ---- E sweep: row n, the block's own g; tpg threads share a g's K rows --
+  const float* UprE = a.UprE + ong;
+  const float* UpE = a.UpE + ong;
+  const float* UaE = a.UaE + ong;
+  const int GB = grid_g_round(Gq);     // g per round of the block
+  const int tpg = kThreads / GB;
+  const int gi = tid % GB, q = tid / GB;
+  const bool in_round = q < tpg;
+  for (int n = 0; n < N; ++n) {
+    const bool active = A[n] != 0.0f;
+    float* En = Ep + (size_t)n * lde;
+    if (active) {
+      for (int k = tid; k < K; k += kThreads) s_col[k] = __ldcg(P_o + k * N + n);
+      __syncthreads();
+    }
+    for (int g0 = 0; g0 < Gs; g0 += GB) {
+      const int gl = g0 + gi;
+      const bool live = in_round && gl < Gs;
+      const int ng = n * G + gb + gl;
+      if (!active) {
+        if (live && q == 0) {
+          const float v = prior_draw(prior, UprE[ng], hp0e[ng], hp1e[ng]);
+          En[gl] = v;
+          E_o[ng] = v;
+        }
+        continue;
+      }
+      const float old = live ? En[gl] : 0.0f;
+      double* part = s_ep + (size_t)(q * GB + gi) * 3;
+      double mu1 = 0.0, den = 0.0;
+      bool nz = false;
+      if (in_round) {
+        for (int k = q; k < K; k += tpg) {
+          const float o = s_col[k];
+          nz |= o * o != 0.0f;
+          if (live) {
+            const Terms t = pass1_terms(Mp[(size_t)k * ldm + gl],
+                                        Hp[(size_t)k * ldh + gl], old, o);
+            mu1 += t.mu1;
+            den += t.den;
+          }
+        }
+        part[0] = mu1;
+        part[1] = den;
+      }
+      const bool inactive = expo && !__syncthreads_or(nz);
+      if (!expo) __syncthreads();
+      float hp0 = 0.0f, hp1 = 0.0f, mu = 0.0f, var = 0.0f, prop = 0.0f;
+      if (live && q == 0) {
+        mu1 = den = 0.0;
+        for (int j = 0; j < tpg; ++j) {
+          mu1 += s_ep[(size_t)(j * GB + gi) * 3];
+          den += s_ep[(size_t)(j * GB + gi) * 3 + 1];
+        }
+        hp0 = hp0e[ng];
+        hp1 = hp1e[ng];
+        conditional(prior, (float)mu1, (float)den, hp0, hp1, &mu, &var);
+        prop = truncnorm_icdf(UpE[ng], mu, sqrtf(var));
+        if (inactive) prop = prior_draw(prior, UprE[ng], hp0, hp1);
+        s_dp[gi] = prop - old;
+      }
+      __syncthreads();
+      double lp = 0.0, mu1_r = 0.0, den_r = 0.0;
+      if (live) {
+        const float dp = s_dp[gi];
+        for (int k = q; k < K; k += tpg) {
+          const Terms t = pass2_terms(Mp[(size_t)k * ldm + gl],
+                                      Hp[(size_t)k * ldh + gl], old, dp,
+                                      s_col[k], exact);
+          lp += t.lp;
+          mu1_r += t.mu1;
+          den_r += t.den;
+        }
+      }
+      if (in_round) {
+        part[0] = lp;
+        part[1] = mu1_r;
+        part[2] = den_r;
+      }
+      __syncthreads();
+      if (live && q == 0) {
+        lp = mu1_r = den_r = 0.0;
+        for (int j = 0; j < tpg; ++j) {
+          const double* x = s_ep + (size_t)(j * GB + gi) * 3;
+          lp += x[0];
+          mu1_r += x[1];
+          den_r += x[2];
+        }
+        float rec;
+        const float nv = mh_decide(prior, exact, inactive, old, prop, mu, var,
+                                   (float)mu1_r, (float)den_r, (float)lp, hp0,
+                                   hp1, UaE[ng], acc_on, &rec, &n_nan);
+        En[gl] = nv;
+        E_o[ng] = nv;
+        accE[ng] = rec;
+        s_do[gi] = nv != old ? 1.0f : 0.0f;
+        s_dv[gi] = nv - old;
+      }
+      __syncthreads();
+      if (live && s_do[gi] != 0.0f) {
+        const float dv = s_dv[gi];
+        for (int k = q; k < K; k += tpg) {
+          Hp[(size_t)k * ldh + gl] += dv * s_col[k];
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+
+  // ---- rank draw R and the inclusion sweep over A (pallas_sweeps.py:316-364)
+  if (a.rank != kFixedRank) {
+    const float temp = rp[0];
+    float R, logit_p1;
+    rank_draw(rp, sA, N, &R, &logit_p1);
+    if (rank == 0 && tid == 0) a.R_o[c] = R;
+
+    for (int n = 0; n < N; ++n) {
+      const float A_n = sA[n];
+      const float* En = Ep + (size_t)n * lde;
+      for (int k = tid; k < K; k += kThreads) s_col[k] = __ldcg(P_o + k * N + n);
+      __syncthreads();
+      double part = 0.0;
+      grid_walk(K, Gs, wide, [&](int k, int gl) {
+        const float con = s_col[k] * En[gl];
+        const float off = Hp[(size_t)k * ldh + gl] - A_n * con;
+        const float lam_off = jmax(off, kFloor);
+        const float lam_on = jmax(off + con, kFloor);
+        const float d = lam_on - lam_off;
+        part += Mp[(size_t)k * ldm + gl] * log1pf(d / lam_off) - d;
+      });
+      part = block_allsum(part, s_red);
+      double* mine = xa + (n & 1) * S;
+      if (tid == 0) __stcg(mine + rank, part);
+      chain_sync(bar, &epoch, S);
+      const double total = grid_sum(mine, S, 1, lane);
+      float delta = (float)total;
+      if (a.rank == kSBFI) delta = delta - a.sbfi_pen;
+      const float log_odds = logit_p1 + temp * delta;
+      float p = 1.0f / (1.0f + expf(-log_odds));
+      if (isnan(p)) {
+        p = 0.5f;
+        if (rank == 0 && tid == 0) n_nan += 1.0f;
+      }
+      const float a_new = rp[2 * (N + 1) + n] < p ? 1.0f : 0.0f;
+      grid_walk(K, Gs, wide, [&](int k, int gl) {
+        float* h = Hp + (size_t)k * ldh + gl;
+        const float con = s_col[k] * En[gl];
+        const float off = *h - A_n * con;
+        *h = off + a_new * con;
+      });
+      __syncthreads();  // every thread has read sA[n] and s_col
+      if (tid == 0) sA[n] = a_new;
+    }
+    __syncthreads();
+  } else if (rank == 0 && tid == 0) {
+    a.R_o[c] = rp[0];
+  }
+  if (rank == 0) {
+    for (int i = tid; i < N; i += kThreads) a.A_o[(size_t)c * N + i] = sA[i];
+  }
+
+  // ---- Mhat back out, once ------------------------------------------------
+  if (a.resident & 4) {
+    float* out = a.Mh_o + (size_t)c * KG + gb;
+    for (int i = tid; i < K * Gs; i += kThreads) {
+      const int k = i / Gs, gl = i % Gs;
+      out[(size_t)k * G + gl] = Hp[k * ldh + gl];
+    }
+  }
+
+  // ---- NaN-clamp count: integer-valued, so the sum order is immaterial ---
+  s_nan[tid] = n_nan;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < kThreads; ++i) total += s_nan[i];
+    __stcg(nanb + rank, total);
+  }
+  chain_sync(bar, &epoch, S);
+  if (rank == 0 && tid == 0) {
+    float total = 0.0f;
+    for (int r = 0; r < S; ++r) total += __ldcg(nanb + r);
+    a.nan_o[c] = total;
+  }
+}
 }  // namespace
 
-// One cluster of `cluster` blocks per chain; `resident`: bit 0, the data and
-// Mhat slices go to shared memory, bit 1, the E slice does (the caller
-// checked that they fit); bit 2, P, its prior pair and the pushed partials
-// go to `scratch` (C * cluster * K * 5 doubles, then C * cluster * 3 * K * N
-// floats), else to shared memory.
+// Blocks a multiprocessor holds at once of the grid form's kernel with a
+// slice of Gq columns and the given residency (0 where it cannot run).
+extern "C" int fused_grid_blocks_per_sm(int K, int N, int Gq, int resident) {
+  const size_t smem = grid_smem_bytes(K, N, Gq, resident);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(fused_grid_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess) {
+    return 0;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fused_grid_kernel, kThreads, smem) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
+}
+
+// `form` 0: the cluster form, one cluster of `blocks` blocks per chain
+// (`resident`: bit 0 the data and Mhat slices, bit 1 the E slice; the
+// caller checked that they fit). `form` 1: the grid form, `blocks` blocks a
+// chain, chains launched `group` at a time (blocks * group must be
+// resident at once: the launch is cooperative, and refused otherwise);
+// `resident` bit 0 the data slice, bit 1 the E slice, bit 2 the Mhat slice;
+// `scratch` C * grid_chain_doubles doubles, C * grid_chain_floats floats,
+// then C barrier counters (zeroed here).
 extern "C" int fused_gibbs_sweeps_launch(
     const float* data, const float* P, const float* E, const float* A,
     const float* Mh, const float* accP, const float* accE,
@@ -907,9 +1469,9 @@ extern "C" int fused_gibbs_sweeps_launch(
     int hyper, int prior, int exact, int rank, float sbfi_pen,
     float* P_o, float* E_o, float* Mh_o, float* accP_o, float* accE_o,
     float* A_o, float* R_o, float* nan_o, float* hp0p_o, float* hp1p_o,
-    float* hp0e_o, float* hp1e_o, int C, int K, int N, int G, int cluster,
-    int resident, void* scratch, void* stream) {
-  Args a;
+    float* hp0e_o, float* hp1e_o, int C, int K, int N, int G, int form,
+    int blocks, int group, int resident, void* scratch, void* stream) {
+  Args a = {};
   a.data = data;
   a.P = P; a.E = E; a.A = A; a.Mh = Mh; a.accP = accP; a.accE = accE;
   a.UprP = UprP; a.UprE = UprE; a.UpP = UpP; a.UaP = UaP;
@@ -924,20 +1486,51 @@ extern "C" int fused_gibbs_sweeps_launch(
   a.hp0p_o = hp0p_o; a.hp1p_o = hp1p_o; a.hp0e_o = hp0e_o; a.hp1e_o = hp1e_o;
   a.K = K; a.N = N; a.G = G;
   a.resident = resident;
-  const bool xglobal = (resident & 4) != 0;
-  if (cluster < 1 || cluster > 16 || (xglobal && scratch == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  a.xg = static_cast<double*>(scratch);
-  a.pg = xglobal ? reinterpret_cast<float*>(a.xg + (size_t)C * cluster * K * 5)
-                 : nullptr;
-  const int Gq = (G + cluster - 1) / cluster;
-  const size_t smem = fixed_smem_bytes(K, N, Gq, cluster, (resident & 2) != 0,
-                                       !xglobal)
-                      + (resident & 1 ? (size_t)2 * K * Gq * sizeof(float) : 0);
-  void (*kernel)(Args) = xglobal ? fused_sweeps_kernel<true>
-                                 : fused_sweeps_kernel<false>;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int Gq = (G + blocks - 1) / blocks;
   cudaError_t e;
+  if (form == 1) {
+    if (blocks < 1 || group < 1 || scratch == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    a.xg = static_cast<double*>(scratch);
+    a.wg = reinterpret_cast<float*>(a.xg + (size_t)C * grid_chain_doubles(K, blocks));
+    a.bar = reinterpret_cast<unsigned*>(a.wg + (size_t)C * grid_chain_floats(K, blocks));
+    const size_t smem = grid_smem_bytes(K, N, Gq, resident);
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(fused_grid_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if ((e = cudaMemsetAsync(a.bar, 0, (size_t)C * sizeof(unsigned), s)) !=
+        cudaSuccess) {
+      return (int)e;
+    }
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    for (int c0 = 0; c0 < C; c0 += group) {
+      a.c0 = c0;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(blocks, C - c0 < group ? C - c0 : group);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = smem;
+      cfg.stream = s;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if ((e = cudaLaunchKernelEx(&cfg, fused_grid_kernel, a)) !=
+          cudaSuccess) {
+        return (int)e;
+      }
+    }
+    return 0;
+  }
+  const int cluster = blocks;
+  if (cluster < 1 || cluster > 16) return (int)cudaErrorInvalidValue;
+  const size_t smem = fixed_smem_bytes(K, N, Gq, cluster, (resident & 2) != 0)
+                      + (resident & 1 ? (size_t)2 * K * Gq * sizeof(float) : 0);
+  void (*kernel)(Args) = fused_sweeps_kernel;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -954,7 +1547,7 @@ extern "C" int fused_gibbs_sweeps_launch(
   cfg.gridDim = dim3(cluster, C);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;

@@ -35,10 +35,10 @@
 //     float4 broadcasts, and four products are built at once as independent
 //     chains, so a thread issues an add every cycle where one chain would
 //     wait four.
-//     E row (erow_kernel): no sum crosses g, so one thread owns one g and
-//     holds E[c, :, g] in registers; both passes, the conditional, the draw,
-//     the ratio and the decision run in that thread: one launch per row, a
-//     grid of (G / 128, C) blocks. The second pass rebuilds Mhat: keeping
+//     E row (erow_kernel, below 192 rows): no sum crosses g, so one thread
+//     owns one g and holds E[c, :, g] in registers; both passes, the
+//     conditional, the draw, the ratio and the decision run in that thread:
+//     one launch per row, a grid of (G / 128, C) blocks. The second pass rebuilds Mhat: keeping
 //     the K values of a column in shared memory cost more in resident warps
 //     than the rebuild costs in operations (0.101 against 0.087 ms a row at
 //     (96,20,10000,8)).
@@ -80,10 +80,24 @@
 //     Large K and N (the envelope, ops/__init__.py: K <= 1536, N <= 128):
 //     the register tile is built for N up to 128 (NP = 128); the column
 //     tiles' G width is 64, or 32 or 16 where a K x (width + 1) data tile
-//     would not fit (col_tile; K = 1536 takes 16); an E-row block stages
-//     P*A whole, or where it would not fit in chunks of rows, each chunk
-//     staged before both passes use it, the rows still added in order
-//     (erow_rows). These forms are first drafts: right, not yet fast.
+//     would not fit (col_tile; K = 1536 takes 16); these column tiles are
+//     first drafts: right, not yet fast.
+//     The E row from 192 rows on (erow_split_kernel): one thread walking
+//     all K rows twice, P*A staged whole (123 KB at K = 1536, N = 20, so
+//     one 4-warp block an SM), took 1.79 ms at (1536,20,2780,8). The split
+//     form gives 32 g to a cluster of 1, 2 or 4 blocks along K (at most
+//     384 rows a block), each with 8 warps on contiguous slices of its
+//     rows, so a thread walks 48 rows at K = 1536, not 1536; each warp
+//     streams its rows of P*A through its own 3-slot ring filled by
+//     cp.async (no block barrier in the passes) and keeps its rows' Mhat
+//     values in shared memory for the second pass, which then rebuilds
+//     nothing; the blocks' sums meet in block 0 through distributed shared
+//     memory. What bounds it: its instruction count, an estimated ~150 an
+//     entry over both passes (one Mhat rebuild as separate multiplies and
+//     adds, -fmad=false, two or three divisions, a log1p, and the
+//     conversions and adds of the double sums). One block of 32 g with
+//     its 8 warps over all K, Mhat rebuilt in the second pass, measured
+//     ~20% slower at K = 1536 (PERF.md section 6).
 //     What is left: the tile kernels run at a tenth of the float32 peak
 //     (staging and compute of a tile do not overlap; 2 blocks an SM);
 //     tensor cores for the Mhat rebuild are ruled out by the precision the
@@ -113,6 +127,7 @@
 // column (n_out, C, K), E row (n_out, C, G); A column (C,), metrics (4, C).
 // The metrics row: (C, 12) with a row stride (a slice of a chunk buffer).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -399,7 +414,11 @@ __device__ __forceinline__ void accept_terms(float m, float mh, float own,
 
 enum Mode { kStats = 0, kAccept = 1, kUpdate = 2 };
 
-// ---- E row: one thread per g ------------------------------------------------
+// ---- E row ------------------------------------------------------------------
+// Two forms, by K: below kSplitMinK one thread owns one g and walks all K
+// rows (erow_kernel, P*A staged whole); from it on a cluster of blocks owns
+// 32 g and their warps split the K rows (erow_split_kernel, P*A streamed
+// through the warps' rings, Mhat kept between the passes).
 constexpr int kRowThreads = 128;
 
 struct ErowArgs {
@@ -419,7 +438,6 @@ struct ErowArgs {
   int* nan;
   int n, expo;
   int C, K, N, G;
-  int rows;          // rows of PA staged at once (erow_rows)
 };
 
 __host__ __device__ inline int pad_rows(int K) {
@@ -436,16 +454,6 @@ __device__ void stage_pa(const float* PA, float* sPA, int c, int K, int N,
     const int k = k0 + i / NP, n = i % NP;
     sPA[i] = (k < K && n < N) ? pa[(size_t)k * N + n] : 0.0f;
   }
-}
-
-// Rows of PA an E-row block stages at once: all of them (padded to
-// kUnroll), or where they do not fit, chunks that leave room for two blocks
-// an SM (ops/stream_sweeps.py::erow_rows).
-inline int erow_rows(int K, int NP) {
-  if (((size_t)pad_rows(K) * NP + K) * sizeof(float) <= kSmemMax) {
-    return pad_rows(K);
-  }
-  return (int)((kSmemMax / 2 / sizeof(float) - K) / NP) / kUnroll * kUnroll;
 }
 
 // E[c, :, g] in registers, zero from N on and for a thread past G.
@@ -491,21 +499,19 @@ __device__ __forceinline__ void erow_pass(const float* sPA, const float* sP,
   }
 }
 
-// kChunked: P*A does not fit the block's shared memory whole (K = 1536 at
-// N > 36); chunks of a.rows rows are staged in turn, before each pass, and
-// the rows are still added in order.
-template <int NP, int MODE, bool kChunked>
+// Whole form: P*A staged whole (K < kSplitMinK), one thread a g.
+template <int NP, int MODE>
 __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
   extern __shared__ float4 smem4[];
   const int K = a.K, N = a.N, G = a.G;
-  const int KC = kChunked ? a.rows : pad_rows(K);  // rows staged at once
+  const int KC = pad_rows(K);                     // rows staged
   float* sPA = reinterpret_cast<float*>(smem4);   // KC x NP
   float* sP = sPA + KC * NP;                      // K: the raw P column
   const int c = blockIdx.y, tid = threadIdx.x;
   const int g = blockIdx.x * kRowThreads + tid;
   const bool live = g < G;
 
-  if (!kChunked) stage_pa<NP>(a.PA, sPA, c, K, N, 0, KC);
+  stage_pa<NP>(a.PA, sPA, c, K, N, 0, KC);
   bool nz = false;  // some P_n[k]^2 != 0: the row is not inactive
   for (int k = tid; k < K; k += kRowThreads) {
     const float p = MODE == kUpdate ? a.P[((size_t)c * K + k) * N + a.n]
@@ -533,20 +539,7 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
   }
 
   double s0 = 0.0, s1 = 0.0, s2 = 0.0;
-  if (kChunked) {
-    if (MODE != kAccept) {
-      for (int kc = 0; kc < K; kc += KC) {
-        __syncthreads();
-        stage_pa<NP>(a.PA, sPA, c, K, N, kc, KC);
-        __syncthreads();
-        if (live) {
-          erow_pass<NP, false>(sPA, sP, a.data, e, K, G, g, kc,
-                               kc + KC < K ? kc + KC : K, es, 0.0f, &s0,
-                               &s1, &s2);
-        }
-      }
-    }
-  } else if (live && MODE != kAccept) {
+  if (live && MODE != kAccept) {
     erow_pass<NP, false>(sPA, sP, a.data, e, K, G, g, 0, K, es, 0.0f, &s0,
                          &s1, &s2);
   }
@@ -581,18 +574,7 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
   }
   // the Mhat column is rebuilt: keeping its K values in shared memory
   // costs more in resident warps than the rebuild does in operations
-  if (kChunked) {
-    for (int kc = 0; kc < K; kc += KC) {
-      __syncthreads();
-      stage_pa<NP>(a.PA, sPA, c, K, N, kc, KC);
-      __syncthreads();
-      if (live) {
-        erow_pass<NP, true>(sPA, sP, a.data, e, K, G, g, kc,
-                            kc + KC < K ? kc + KC : K, es, q, &s0, &s1,
-                            &s2);
-      }
-    }
-  } else if (live) {
+  if (live) {
     erow_pass<NP, true>(sPA, sP, a.data, e, K, G, g, 0, K, es, q, &s0, &s1,
                         &s2);
   }
@@ -613,6 +595,324 @@ __global__ void __launch_bounds__(kRowThreads) erow_kernel(ErowArgs a) {
   }
   const int n_nan = __syncthreads_count(nan);
   if (tid == 0 && n_nan) atomicAdd(a.nan + c, n_nan);
+}
+
+// Split form (K >= kSplitMinK): 32 consecutive g, a lane one g, so that each
+// data row is one coalesced load of a warp, taken by a thread-block cluster
+// of kc blocks along K (split_blocks: kc = 1, 2 or 4, a block at most
+// kSplitMaxRows rows) whose kSplitWarps warps each take a contiguous slice
+// of the block's rows. Each warp streams its rows of P*A through its own
+// ring of kSplitStages slots of kSplitRows rows in shared memory, filled
+// by cp.async ahead of the slot in use and waited on by the warp alone (no
+// block barrier in the passes), and keeps the Mhat values of its rows
+// (first pass) in shared memory for the second pass, which then rebuilds
+// nothing. Each lane's double partials meet in shared memory in warp
+// order; the blocks' sums go to block 0 of the cluster through distributed
+// shared memory and are added there in block order; block 0's warp 0
+// makes the proposal for its 32 g (sent back to every block's shared
+// memory) and takes the decision.
+constexpr int kSplitMinK = 192;
+constexpr int kSplitMaxRows = 384;
+constexpr int kSplitWarps = 8;
+constexpr int kSplitThreads = 32 * kSplitWarps;
+constexpr int kSplitRows = 2 * kUnroll;
+constexpr int kSplitChunk = kSplitWarps * kSplitRows;
+constexpr int kSplitStages = 3;
+
+namespace cgr = cooperative_groups;
+
+// Blocks of a split-form cluster, and the rows of a block and of a warp
+__host__ __device__ inline int split_blocks(int K) {
+  int kc = 1;
+  while ((K + kc - 1) / kc > kSplitMaxRows) kc *= 2;
+  return kc;
+}
+__host__ __device__ inline int split_block_rows(int K) {
+  const int kc = split_blocks(K);
+  return (K + kc - 1) / kc;
+}
+__host__ __device__ inline int split_warp_rows(int K) {
+  return (split_block_rows(K) + kSplitWarps - 1) / kSplitWarps;
+}
+
+// Shared memory of a split-form block, in bytes: as doubles the warps'
+// partials (3 a thread) and block 0's partials of the cluster (kc x 3 x
+// 32); as floats the rings (kSplitStages x kSplitChunk rows of NP), the
+// block's rows of the P column, the warps' Mhat values (kSplitWarps x
+// split_warp_rows x 32), the 32 scaled proposals and block 0's flags (kc).
+__host__ __device__ inline size_t split_smem_bytes(int K, int NP) {
+  const int kc = split_blocks(K);
+  return ((size_t)3 * kSplitThreads + (size_t)kc * 3 * 32) * sizeof(double)
+         + ((size_t)kSplitStages * kSplitChunk * NP + split_block_rows(K)
+            + (size_t)kSplitWarps * split_warp_rows(K) * 32 + 32 + kc)
+               * sizeof(float);
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled where !in
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rows k0 .. k0 + kSplitRows of pa (K x N), up to k1, into dst as rows of
+// NP floats, zero from N on and from k1 on: by the lanes of one warp.
+template <int NP>
+__device__ __forceinline__ void stage_rows(const float* pa, float* dst,
+                                           int k1, int N, int k0) {
+  for (int i = threadIdx.x & 31; i < kSplitRows * NP; i += 32) {
+    const int k = k0 + i / NP, n = i % NP;
+    const bool in = k < k1 && n < N;
+    cp_async4(dst + i, in ? pa + (size_t)k * N + n : pa, in);
+  }
+}
+
+// One pass of the split form over this warp's rows [kw0, kw1), in order,
+// into the lane's s0, s1 (and s2); sP holds the block's rows from kb0.
+// kRebuild: Mhat rebuilt through the warp's ring (and kept in wcache where
+// it is not null), else read from wcache.
+template <int NP, bool kSecond, bool kRebuild>
+__device__ void split_pass(const float* pa, float* ring, const float* sP,
+                           int kb0, float* wcache, const float* data,
+                           const float (&e)[NP], int kw0, int kw1, int N,
+                           int G, int g, bool live, float es, float q,
+                           double* s0, double* s1, double* s2) {
+  const int lane = threadIdx.x & 31;
+  if (!kRebuild) {
+    if (!live) return;
+#pragma unroll 4
+    for (int k = kw0; k < kw1; ++k) {
+      const float p = sP[k - kb0];
+      accept_terms(data[(size_t)k * G + g], wcache[(k - kw0) * 32 + lane],
+                   p * es, p * q, p, s0, s1, s2);
+    }
+    return;
+  }
+  constexpr int kSlot = kSplitRows * NP;
+  const int chunks = (kw1 - kw0 + kSplitRows - 1) / kSplitRows;
+  for (int j = 0; j < kSplitStages - 1; ++j) {
+    if (j < chunks) {
+      stage_rows<NP>(pa, ring + j * kSlot, kw1, N, kw0 + j * kSplitRows);
+    }
+    cp_async_commit();
+  }
+  for (int j = 0; j < chunks; ++j) {
+    const int jn = j + kSplitStages - 1;
+    if (jn < chunks) {
+      stage_rows<NP>(pa, ring + (jn % kSplitStages) * kSlot, kw1, N,
+                     kw0 + jn * kSplitRows);
+    }
+    cp_async_commit();
+    cp_async_wait<kSplitStages - 1>();  // chunk j has landed
+    __syncwarp();
+    const float* slot = ring + (j % kSplitStages) * kSlot;
+    const int kb = kw0 + j * kSplitRows;
+    if (live) {
+#pragma unroll
+      for (int h = 0; h < kSplitRows; h += kUnroll) {
+        float m[kUnroll], mh[kUnroll];
+        const float* rows[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int k = kb + h + u;
+          m[u] = k < kw1 ? data[(size_t)k * G + g] : 0.0f;
+          rows[u] = slot + (h + u) * NP;
+        }
+        dot_ordered<NP>(e, rows, mh);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int k = kb + h + u;
+          if (k < kw1) {
+            const float p = sP[k - kb0];
+            if (wcache != nullptr) wcache[(k - kw0) * 32 + lane] = mh[u];
+            if (kSecond) {
+              accept_terms(m[u], mh[u], p * es, p * q, p, s0, s1, s2);
+            } else {
+              stats_terms(m[u], mh[u], p * es, p, s0, s1);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();  // the slot is free for the chunk after next
+  }
+}
+
+// The warps' partials of the block's 32 g in warp order, into warp 0's
+// s[0..nv), then into block 0's xpart (its row of the cluster's blocks).
+__device__ __forceinline__ void split_meet(cgr::cluster_group& cluster,
+                                           double* part, double* xpart,
+                                           double* s, int nv) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int j = 0; j < nv; ++j) part[j * kSplitThreads + tid] = s[j];
+  __syncthreads();
+  if (tid >= 32) return;
+  double* x = cluster.map_shared_rank(xpart, 0)
+              + cluster.block_rank() * 3 * 32 + lane;
+  for (int j = 0; j < nv; ++j) {
+    double t = 0.0;
+    for (int w = 0; w < kSplitWarps; ++w) {
+      t += part[j * kSplitThreads + w * 32 + lane];
+    }
+    x[j * 32] = t;
+  }
+}
+
+// Block 0's sums of the cluster's blocks, in block order
+__device__ __forceinline__ double split_total(const double* xpart, int kc,
+                                              int j) {
+  double t = 0.0;
+  for (int r = 0; r < kc; ++r) t += xpart[(r * 3 + j) * 32 + (threadIdx.x & 31)];
+  return t;
+}
+
+// Three blocks an SM up to a 32-wide register tile (at most 85 registers a
+// thread); the 64- and 128-wide tiles keep the registers they need (held to
+// 85, the 128-wide one spills and runs slower).
+template <int NP, int MODE>
+__global__ void __launch_bounds__(kSplitThreads, NP <= 32 ? 3 : 1)
+erow_split_kernel(ErowArgs a) {
+  extern __shared__ float4 smem4[];
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int kc = (int)cluster.num_blocks(), crank = (int)cluster.block_rank();
+  const int K = a.K, N = a.N, G = a.G;
+  const int Kb = split_block_rows(K), Kw = split_warp_rows(K);
+  double* part = reinterpret_cast<double*>(smem4);  // [3][kSplitThreads]
+  double* xpart = part + 3 * kSplitThreads;         // [kc][3][32], block 0's
+  float* ring = reinterpret_cast<float*>(xpart + kc * 3 * 32);
+  float* sP = ring + kSplitStages * kSplitChunk * NP;  // the block's rows
+  float* cache = sP + Kb;                              // [warps][Kw][32]
+  float* sQ = cache + kSplitWarps * Kw * 32;           // 32
+  int* flags = reinterpret_cast<int*>(sQ + 32);        // [kc], block 0's
+  const int c = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = blockIdx.x / kc * 32 + lane;
+  const bool live = g < G;
+  const float* pa = a.PA + (size_t)c * K * N;
+  // this block's rows and this warp's
+  const int kb0 = crank * Kb < K ? crank * Kb : K;
+  const int kb1 = K - kb0 < Kb ? K : kb0 + Kb;
+  const int kw0 = kb0 + warp * Kw < kb1 ? kb0 + warp * Kw : kb1;
+  const int kw1 = kb1 - kw0 < Kw ? kb1 : kw0 + Kw;
+  ring += warp * kSplitStages * kSplitRows * NP;
+  float* wcache = cache + warp * Kw * 32;
+
+  bool nz = false;  // some P_n[k]^2 != 0: the row is not inactive
+  for (int k = kb0 + tid; k < kb1; k += kSplitThreads) {
+    const float p = MODE == kUpdate ? a.P[((size_t)c * K + k) * N + a.n]
+                                    : a.pn[(size_t)c * K + k];
+    sP[k - kb0] = p;
+    nz |= p * p != 0.0f;
+  }
+  const int any = __syncthreads_or(nz);
+  if (tid == 0) *cluster.map_shared_rank(flags + crank, 0) = any;
+
+  const float* e_c = a.E + (size_t)c * N * G;
+  float e[NP];
+  load_column<NP>(e_c, N, G, g, live, e);
+  const size_t cg_at = (size_t)c * G + g;
+  const size_t row_at = ((size_t)c * N + a.n) * G + g;  // update only
+  Entry in;
+  float es = 0.0f;  // A_n * E_n[g]
+  if (live) {
+    if (MODE == kUpdate) {
+      in.a_n = a.A[(size_t)c * N + a.n];
+      in.old = e_c[(size_t)a.n * G + g];
+      es = in.a_n * in.old;
+    } else {
+      es = a.en[cg_at];
+    }
+  }
+
+  const size_t CG = (size_t)a.C * G;
+  const bool lead = crank == 0 && warp == 0;  // makes the decisions
+  double s[3] = {0.0, 0.0, 0.0};
+  if (MODE != kAccept) {
+    split_pass<NP, false, true>(pa, ring, sP, kb0,
+                                MODE == kUpdate ? wcache : nullptr, a.data,
+                                e, kw0, kw1, N, G, g, live, es, 0.0f, &s[0],
+                                &s[1], &s[2]);
+    split_meet(cluster, part, xpart, s, 2);
+  }
+  cluster.sync();  // the blocks' sums and flags are in block 0
+  if (MODE == kStats) {
+    if (lead && live) {
+      a.out[cg_at] = (float)split_total(xpart, kc, 0);
+      a.out[CG + cg_at] = (float)split_total(xpart, kc, 1);
+    }
+    return;
+  }
+
+  float mu = 0.0f, var = 0.0f, proposal = 0.0f;
+  if (MODE == kUpdate) {
+    if (lead) {
+      bool inactive = true;
+      for (int r = 0; r < kc; ++r) inactive &= flags[r] == 0;
+      float q = 0.0f;
+      if (live) {
+        in.mu0 = a.mu0[row_at];
+        in.sq0 = a.sq0[row_at];
+        in.prior_draw = a.prior_draw[row_at];
+        const float* u = a.U + ((size_t)c * 3 * N + a.n) * G + g;
+        in.u1 = u[0];
+        in.u2 = u[(size_t)N * G];
+        in.u3 = u[(size_t)2 * N * G];
+        in.inactive = inactive;
+        in.accept_all = a.accept_all[c] != 0.0f;
+        in.expo = a.expo != 0;
+        propose(in, (float)split_total(xpart, kc, 0),
+                (float)split_total(xpart, kc, 1), &mu, &var, &proposal);
+        q = in.a_n * proposal;
+      }
+      for (int r = 0; r < kc; ++r) *cluster.map_shared_rank(sQ + lane, r) = q;
+    }
+    cluster.sync();  // every block has the proposals
+  } else {
+    if (warp == 0) sQ[lane] = live ? a.prop[cg_at] : 0.0f;
+    __syncthreads();
+  }
+  s[0] = s[1] = s[2] = 0.0;
+  if (MODE == kUpdate) {
+    split_pass<NP, true, false>(pa, ring, sP, kb0, wcache, a.data, e, kw0,
+                                kw1, N, G, g, live, es, sQ[lane], &s[0],
+                                &s[1], &s[2]);
+  } else {
+    split_pass<NP, true, true>(pa, ring, sP, kb0, nullptr, a.data, e, kw0,
+                               kw1, N, G, g, live, es, sQ[lane], &s[0],
+                               &s[1], &s[2]);
+  }
+  split_meet(cluster, part, xpart, s, 3);
+  cluster.sync();
+  if (!lead) return;
+  const float lp = (float)split_total(xpart, kc, 0);
+  const float mu1_r = (float)split_total(xpart, kc, 1);
+  const float den_r = (float)split_total(xpart, kc, 2);
+  if (MODE == kAccept) {
+    if (live) {
+      a.out[cg_at] = lp;
+      a.out[CG + cg_at] = mu1_r;
+      a.out[2 * CG + cg_at] = den_r;
+    }
+    return;
+  }
+  bool nan = false;
+  if (live) {
+    float rec;
+    a.E[row_at] = decide(in, mu, var, proposal, lp, mu1_r, den_r,
+                         a.acc[row_at], &rec, &nan);
+    a.acc[row_at] = rec;
+  }
+  const int n_nan = __popc(__ballot_sync(0xffffffffu, nan));
+  if (lane == 0 && n_nan) atomicAdd(a.nan + c, n_nan);
 }
 
 // ---- P column: tiles of G, then an ordered sum and the epilogue --------------
@@ -1348,27 +1648,35 @@ constexpr int kMaxN = 128;
 template <int NP>
 constexpr bool kWideBuilt = NP <= 32;
 
-template <int NP, int MODE, bool kChunked>
-cudaError_t launch_erow_as(const ErowArgs& a, cudaStream_t s) {
-  const size_t smem = ((size_t)a.rows * NP + a.K) * sizeof(float);
-  cudaError_t e = allow_smem(erow_kernel<NP, MODE, kChunked>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(n_tiles(a.G, kRowThreads), a.C);
-  erow_kernel<NP, MODE, kChunked><<<grid, kRowThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-// P*A whole in shared memory, or in chunks of rows (only NP >= 64 needs
-// them within the envelope, K <= 1536)
+// The whole form below kSplitMinK rows, the split form from it on
 template <int NP, int MODE>
-cudaError_t launch_erow(ErowArgs a, cudaStream_t s) {
-  a.rows = erow_rows(a.K, NP);
-  if (a.rows >= a.K) return launch_erow_as<NP, MODE, false>(a, s);
-  if constexpr (NP >= 64) {
-    return launch_erow_as<NP, MODE, true>(a, s);
-  } else {
-    return cudaErrorInvalidValue;
+cudaError_t launch_erow(const ErowArgs& a, cudaStream_t s) {
+  cudaError_t e;
+  if (a.K >= kSplitMinK) {
+    const size_t smem = split_smem_bytes(a.K, NP);
+    if ((e = allow_smem(erow_split_kernel<NP, MODE>, smem)) != cudaSuccess) {
+      return e;
+    }
+    const int kc = split_blocks(a.K);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_tiles(a.G, 32) * kc, a.C);
+    cfg.blockDim = dim3(kSplitThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, erow_split_kernel<NP, MODE>, a);
   }
+  const size_t smem = ((size_t)pad_rows(a.K) * NP + a.K) * sizeof(float);
+  if ((e = allow_smem(erow_kernel<NP, MODE>, smem)) != cudaSuccess) return e;
+  const dim3 grid(n_tiles(a.G, kRowThreads), a.C);
+  erow_kernel<NP, MODE><<<grid, kRowThreads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 // One pass over the tiles and its finishing kernel.

@@ -7,7 +7,9 @@ Port of bayesnmf_tpu/ops/pallas_sweeps.py. ``fused_gibbs_sweeps`` keeps the
 JAX signature and return tuple (pallas_sweeps.py:370-446), and so does its
 fixed-rank form ``fused_pe_sweeps``. On CUDA tensors it
 launches the hand-written kernel csrc/fused_sweeps.cu (one thread-block
-cluster per chain, ``cluster_config``) or raises; on CPU tensors it runs
+cluster per chain, ``cluster_config``; above 96 rows, where a cluster's
+blocks cannot hold P and the partials, a chain over up to one block per SM,
+``grid_config``) or raises; on CPU tensors it runs
 ``fused_gibbs_sweeps_reference``,
 the same function in plain PyTorch, which consumes the same uniforms in the
 same order.
@@ -74,73 +76,126 @@ _SMEM_MAX_BYTES = 227 * 1024
 # of 16 (7 of them at this kernel's shared memory)
 _G_PER_BLOCK = 32
 _RESIDENT_BLOCKS = 112
+# the grid form: the rows up to which the cluster form takes every shape,
+# the fewest columns of G a block owns, and an H100 SXM's multiprocessors
+# (the wrapper reads the card's)
+GRID_MAX_CLUSTER_K = 96
+_GRID_MIN_G = 8
+H100_SMS = 132
 
 
-def _fixed_smem_bytes(K: int, N: int, S: int, in_smem: bool = True) -> int:
-    """Shared memory of a block beside its slices (fixed_smem_bytes in
-    csrc/fused_sweeps.cu): the pushed partials, the E-row partials and the
-    block-sum scratch as doubles; P and its prior pair, the per-row and
-    per-column vectors, A, the NaN counts and the flags as floats. With
-    ``in_smem`` False, P, its prior pair and the pushed partials sit in a
-    global scratch instead (``fixed_in_smem``)."""
-    doubles = (S * K * 5 if in_smem else 0) + 2 * S + _WARPS + _THREADS * 3
-    floats = ((3 * K * N if in_smem else 0) + 4 * K + 3 * _THREADS + N
-              + _THREADS + 2 * S)
+def _fixed_smem_bytes(K: int, N: int, S: int) -> int:
+    """Shared memory of a cluster-form block beside its slices
+    (fixed_smem_bytes in csrc/fused_sweeps.cu): the pushed partials, the
+    E-row partials and the block-sum scratch as doubles; P and its prior
+    pair, the per-row and per-column vectors, A, the NaN counts and the
+    flags as floats."""
+    doubles = S * K * 5 + 2 * S + _WARPS + _THREADS * 3
+    floats = 3 * K * N + 4 * K + 3 * _THREADS + N + _THREADS + 2 * S
     return 8 * doubles + 4 * floats
 
 
 def fixed_in_smem(K: int, N: int, S: int) -> bool:
-    """Whether a block of a cluster of S keeps P, its prior pair and the
-    pushed per-row partials in shared memory (the partials then reach every
-    block through distributed shared memory). Where they do not fit (K = 288
-    at N >= 8 on one block, K = 1536 at any N), the kernel keeps them in a
-    per-chain global scratch the wrapper sizes (``scratch_floats``): P and
-    its prior pair a copy per block, the partials one slot per block that
-    the others read after the cluster barrier."""
+    """Whether a block of a cluster of S holds P, its prior pair and the
+    pushed per-row partials in its shared memory (the partials then reach
+    every block through distributed shared memory)."""
     return _fixed_smem_bytes(K, N, S) <= _SMEM_MAX_BYTES
 
 
-def scratch_floats(K: int, N: int, S: int, C: int) -> int:
-    """Float32 words of the global scratch of C chains on clusters of S
-    when ``fixed_in_smem`` is False: the partials (C, S, K, 5) as doubles,
-    then P and its prior pair (C, S, 3, K, N)."""
-    return 2 * C * S * K * 5 + C * S * 3 * K * N
-
-
-def cluster_config(K: int, N: int, G: int, C: int = 1):
-    """(blocks per chain, E slice resident, data and Mhat slices resident)
-    of the kernel for C chains of a (K, N, G) problem. A chain is one
-    thread-block cluster whose blocks split G: the smallest of 1, 2, 4, 8,
-    16 blocks that leaves a block at most 32 columns (16 beyond G = 512),
-    halved while the C chains' blocks together exceed what the card keeps
-    resident, and halved once more where the part of a block beside its
-    slices (``_fixed_smem_bytes``) fits only so; where it fits on neither
-    size, the first size stays and that part moves to global memory
-    (``fixed_in_smem``). With Gq = ceil(G / S), a block's slice of E
-    (N * Gq floats) and then its slices of data and Mhat (2 * K * Gq
-    floats) stay in shared memory when they fit beside the rest in the
-    227 KB a block can have: the latter up to about K * Gq = 17000 at N = 8
-    (96 x 2780 fits on 16 blocks, 96 x 4000 does not); what does not fit
-    the kernel reads in global memory. Beyond the envelope (ops.MAX_K,
-    ops.MAX_N) it raises ValueError."""
-    check_envelope("fused_gibbs_sweeps", K, N)
+def _first_size(G: int, C: int) -> int:
     S = 1
     while S < 16 and -(-G // S) > _G_PER_BLOCK:
         S *= 2
     while S > 1 and C * S > _RESIDENT_BLOCKS:
         S //= 2
-    # a cluster of half the size doubles a block's share of G; below that
-    # the exchange of the partials through L2 (a few microseconds a column)
-    # costs less than the blocks lost
-    if S > 1 and not fixed_in_smem(K, N, S) and fixed_in_smem(K, N, S // 2):
-        S //= 2
-    in_smem = fixed_in_smem(K, N, S)
+    return S
+
+
+def grid_form(K: int, N: int, G: int, C: int = 1) -> bool:
+    """Whether the kernel runs C chains of a (K, N, G) problem in its grid
+    form (``grid_config``): above 96 rows, where a block of the cluster
+    form, at the size ``cluster_config`` picks first, would not hold P, its
+    prior pair and the pushed partials (K = 192 at N >= 40, K = 288 at
+    N >= 8, K = 1536 at any N). ValueError beyond the envelope."""
+    check_envelope("fused_gibbs_sweeps", K, N)
+    return K > GRID_MAX_CLUSTER_K and not fixed_in_smem(
+        K, N, _first_size(G, C))
+
+
+def cluster_config(K: int, N: int, G: int, C: int = 1):
+    """(blocks per chain, E slice resident, data and Mhat slices resident)
+    of the cluster form for C chains of a (K, N, G) problem. A chain is one
+    thread-block cluster whose blocks split G: the smallest of 1, 2, 4, 8,
+    16 blocks that leaves a block at most 32 columns (16 beyond G = 512),
+    halved while the C chains' blocks together exceed what the card keeps
+    resident; the part of a block beside its slices
+    (``_fixed_smem_bytes``) fits at every size up to 96 rows, and beyond
+    where it does not the grid form takes the shape (``grid_form``). With
+    Gq = ceil(G / S), a block's slice of E (N * Gq floats) and then its
+    slices of data and Mhat (2 * K * Gq floats) stay in shared memory when
+    they fit beside the rest in the 227 KB a block can have: the latter up
+    to about K * Gq = 17000 at N = 8 (96 x 2780 fits on 16 blocks, 96 x
+    4000 does not); what does not fit the kernel reads in global memory.
+    Beyond the envelope (ops.MAX_K, ops.MAX_N) it raises ValueError."""
+    check_envelope("fused_gibbs_sweeps", K, N)
+    S = _first_size(G, C)
     Gq = -(-G // S)
-    need = _fixed_smem_bytes(K, N, S, in_smem)
+    need = _fixed_smem_bytes(K, N, S)
     e_resident = need + 4 * N * Gq <= _SMEM_MAX_BYTES
     if e_resident:
         need += 4 * N * Gq
     return S, e_resident, e_resident and need + 8 * K * Gq <= _SMEM_MAX_BYTES
+
+
+def grid_smem_bytes(K: int, N: int, Gq: int, resident: int) -> int:
+    """Shared memory of a grid-form block (grid_smem_bytes in
+    csrc/fused_sweeps.cu): the block sums and the E row's partials as
+    doubles; a column's three K vectors, an E row's three and the NaN
+    counts' kThreads vectors and A as floats; then the resident slices,
+    ``resident`` bit 1 the E slice (N x Gq), bit 0 the data slice and bit 2
+    the Mhat slice (K x (Gq | 1) each)."""
+    floats = (3 * K + 4 * _THREADS + N + (N * Gq if resident & 2 else 0)
+              + K * (Gq | 1) * ((resident & 1) + (resident >> 2 & 1)))
+    return 8 * (_WARPS + 3 * _THREADS) + 4 * floats
+
+
+def _grid_size(G: int, chains: int, sms: int):
+    S = max(1, min(-(-G // _GRID_MIN_G), sms // chains))
+    Gq = -(-G // S)
+    return -(-G // Gq), Gq
+
+
+def grid_config(K: int, N: int, G: int, C: int = 1, sms: int = H100_SMS):
+    """(blocks a chain S, chains a launch, resident bits) of the grid form
+    on a card of ``sms`` multiprocessors, one block each. A launch takes as
+    many of the C chains as keep a block's E and Mhat slices in shared
+    memory (``grid_smem_bytes``), all C where none does (at most sms); its
+    chains' blocks split G, at least ``_GRID_MIN_G`` columns a block, as
+    many as the card holds for them (S = sms // chains a launch; 127 blocks
+    of 22 columns at G = 2780 on 132 SMs, one chain a launch at K = 1536).
+    A block's E slice, then its Mhat slice, then its data slice stay in
+    shared memory while they fit."""
+    check_envelope("fused_gibbs_sweeps", K, N)
+    group = min(C, sms)
+    for chains in range(group, 0, -1):
+        Gq = _grid_size(G, chains, sms)[1]
+        if grid_smem_bytes(K, N, Gq, 6) <= _SMEM_MAX_BYTES:
+            group = chains
+            break
+    S, Gq = _grid_size(G, group, sms)
+    resident = 0
+    for bit in (2, 4, 1):
+        if grid_smem_bytes(K, N, Gq, resident | bit) <= _SMEM_MAX_BYTES:
+            resident |= bit
+    return S, group, resident
+
+
+def grid_scratch_bytes(K: int, S: int, C: int) -> int:
+    """Bytes of the grid form's scratch for C chains of S blocks: the
+    partials of a P column's two passes (K S 2 and K S 3 doubles) and of an
+    A column (2 S doubles), the owners' mu, var and proposal (3 K floats),
+    the flags and NaN counts (S each), and a barrier counter a chain."""
+    return C * (8 * (5 * K * S + 2 * S) + 4 * (3 * K + 2 * S) + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +467,9 @@ def fused_gibbs_sweeps_reference(data, P, E, A, Mhat, acc_P, acc_E,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # 22 input pointers; hyper-sweep, prior, exact, rank codes and the SBFI
-# penalty; 12 output pointers; C K N G, the cluster size and what sits in
-# shared memory; the global scratch; the stream
-_ARGTYPES = ([_P] * 22 + [_I] * 4 + [ctypes.c_float] + [_P] * 12 + [_I] * 6
+# penalty; 12 output pointers; C K N G, the form, blocks a chain, chains a
+# launch and what sits in shared memory; the grid form's scratch; the stream
+_ARGTYPES = ([_P] * 22 + [_I] * 4 + [ctypes.c_float] + [_P] * 12 + [_I] * 8
              + [_P] * 2)
 
 
@@ -430,11 +485,22 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
         fn.restype = ctypes.c_int
     C, K, N = P.shape
     G = E.shape[2]
-    cluster, e_resident, resident = cluster_config(K, N, G, C)
-    in_smem = fixed_in_smem(K, N, cluster)
-    scratch = None if in_smem else torch.empty(
-        scratch_floats(K, N, cluster, C), dtype=torch.float32,
-        device=P.device)
+    scratch, launches = None, 1
+    if grid_form(K, N, G, C):
+        sms = torch.cuda.get_device_properties(P.device).multi_processor_count
+        blocks, group, resident = grid_config(K, N, G, C, sms)
+        per_sm = _grid_blocks_per_sm(lib, K, N, -(-G // blocks), resident)
+        if per_sm * sms < blocks * group:
+            raise ValueError(
+                f"fused_gibbs_sweeps: the grid form needs {blocks * group} "
+                f"blocks resident at once for (K, N, G) = {(K, N, G)}; the "
+                f"card holds {per_sm} a multiprocessor on {sms}")
+        scratch = torch.empty(grid_scratch_bytes(K, blocks, C),
+                              dtype=torch.uint8, device=P.device)
+        form, launches = 1, -(-C // group)
+    else:
+        blocks, e_res, res = cluster_config(K, N, G, C)
+        form, group, resident = 0, 1, int(res) + 2 * int(e_res)
     outs = [torch.empty_like(t) for t in
             (P, E, Mhat, acc_P, acc_E, A)]
     R = torch.empty(C, dtype=torch.float32, device=P.device)
@@ -451,15 +517,24 @@ def _launch(data, P, E, A, Mhat, acc_P, acc_E, Upr_P, Upr_E, Up_P, Ua_P,
                  *hu_ptrs, int(hyper), PRIORS[prior_kind], int(exact_mh),
                  RANK_METHODS[rank_method], sbfi_penalty(K, G),
                  *map(ptr, outs), ptr(R), ptr(nan), *map(ptr, hps),
-                 C, K, N, G, cluster,
-                 int(resident) + 2 * int(e_resident) + 4 * int(not in_smem),
+                 C, K, N, G, form, blocks, group, resident,
                  ptr(scratch) if scratch is not None else None,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_gibbs_sweeps kernel launch failed: "
                            f"cudaError {err}")
-    fused_gibbs_sweeps.launches += 1
+    fused_gibbs_sweeps.launches += launches
+    if form == 1:
+        fused_gibbs_sweeps.grid_launches += launches
     return (*outs, R, nan, *hps)
+
+
+def _grid_blocks_per_sm(lib, K, N, Gq, resident):
+    fn = lib.fused_grid_blocks_per_sm
+    if fn.argtypes is None:
+        fn.argtypes = [_I] * 4
+        fn.restype = ctypes.c_int
+    return fn(K, N, Gq, resident)
 
 
 # ---------------------------------------------------------------------------
@@ -577,6 +652,8 @@ def fused_gibbs_sweeps(data, P, E, A, Mhat, acc_P, acc_E,
 
 #: kernel launches since the count was last reset (CPU calls do not count)
 fused_gibbs_sweeps.launches = 0
+#: of those, the launches in the grid form (``grid_form``)
+fused_gibbs_sweeps.grid_launches = 0
 
 
 def fused_pe_sweeps(data, P, E, A, Mhat, acc_P, acc_E,

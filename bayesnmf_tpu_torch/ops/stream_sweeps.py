@@ -61,8 +61,12 @@ Limits of the kernels: the envelope (ops.MAX_K rows, ops.MAX_N
 components: the register tile is built for N up to 128). The column tiles'
 G width is a function of K and N (``col_tile``: 64, then 32 or 16 where a
 K x (width + 1) data tile would not fit an SM's shared memory), and the
-plain versions sum in tiles of the same width; an E-row block stages P*A
-whole, or in chunks of rows where it would not fit (``erow_rows``).
+plain versions sum in tiles of the same width; an E row below 192 rows
+stages P*A whole, one thread a g; from 192 rows on a cluster of 1-4
+blocks along K owns 32 g, their warps split the rows, P*A streams
+through each warp's ring and Mhat is kept between the two passes
+(``erow_split``, ``erow_split_blocks``, ``erow_rows``). The plain
+version sums a g's terms over all K in float64 whatever the form.
 """
 
 from __future__ import annotations
@@ -89,6 +93,14 @@ _COL_THREADS = 384
 _COL_TILES = (64, 32, 16)
 # rows the register tile takes at once (csrc/stream_sweeps.cu kUnroll)
 _UNROLL = 4
+# the E row's split form (kSplit* in csrc/stream_sweeps.cu): from this many
+# rows on; the most rows a block of its cluster takes; its block's warps,
+# the rows of a chunk of the warps' rings, chunks in a ring
+EROW_SPLIT_MIN_K = 192
+_SPLIT_MAX_ROWS = 384
+_SPLIT_WARPS = 8
+_SPLIT_CHUNK = 64
+_SPLIT_STAGES = 3
 
 KERNEL_RTOL = 1e-6
 KERNEL_ATOL = 1e-6
@@ -473,16 +485,52 @@ def _pad_rows(K: int) -> int:
     return -(-K // _UNROLL) * _UNROLL
 
 
+def erow_split(K: int) -> bool:
+    """Whether an E row of K rows takes the split form (erow_split_kernel in
+    csrc/stream_sweeps.cu): from ``EROW_SPLIT_MIN_K`` rows on a cluster of
+    ``erow_split_blocks`` blocks owns 32 g, the blocks and their 8 warps
+    splitting the rows, P*A streaming through the warps' rings; below it
+    one thread owns one g and walks all K rows over P*A staged whole
+    (erow_kernel)."""
+    return K >= EROW_SPLIT_MIN_K
+
+
+def erow_split_blocks(K: int) -> int:
+    """Blocks of a split-form cluster (split_blocks in
+    csrc/stream_sweeps.cu): 1, 2 or 4, a block at most 384 rows (4 at
+    K = 1536)."""
+    kc = 1
+    while -(-K // kc) > _SPLIT_MAX_ROWS:
+        kc *= 2
+    return kc
+
+
 def erow_rows(K: int, N: int) -> int:
-    """Rows of P*A an E-row block stages in shared memory at once (erow_rows
-    in csrc/stream_sweeps.cu): all of them (padded to the register tile's
-    4), or where they do not fit, chunks of rows that leave room for two
-    blocks an SM (K = 1536 at N > 36); ValueError beyond the envelope."""
+    """Rows of P*A an E-row block holds in shared memory at once: all of
+    them (padded to the register tile's 4) in the whole form, the ring's
+    chunks (3 x 64 rows) in the split form (``erow_split``); ValueError
+    beyond the envelope."""
     check_envelope("stream_sweeps", K, N)
-    NP = tile_width(N)
-    if 4 * (_pad_rows(K) * NP + K) <= _SMEM_MAX_BYTES:
-        return _pad_rows(K)
-    return (_SMEM_MAX_BYTES // 2 // 4 - K) // NP // _UNROLL * _UNROLL
+    if erow_split(K):
+        return _SPLIT_STAGES * _SPLIT_CHUNK
+    return _pad_rows(K)
+
+
+def erow_smem_bytes(K: int, N: int) -> int:
+    """Shared memory of an E-row block, in bytes: the whole form's P*A rows
+    and P column (floats); the split form's partials (3 doubles a thread,
+    and the cluster's 3 x 32 a block in block 0), the rings, the block's
+    rows of the P column, the warps' Mhat values (32 a row), the 32 scaled
+    proposals and the cluster's flags (split_smem_bytes in
+    csrc/stream_sweeps.cu)."""
+    NP, rows = tile_width(N), erow_rows(K, N)
+    if erow_split(K):
+        kc = erow_split_blocks(K)
+        Kb = -(-K // kc)
+        Kw = -(-Kb // _SPLIT_WARPS)
+        return (8 * (3 * 32 * _SPLIT_WARPS + kc * 3 * 32)
+                + 4 * (rows * NP + Kb + _SPLIT_WARPS * Kw * 32 + 32 + kc))
+    return 4 * (rows * NP + K)
 
 
 def _col_scratch(C: int, K: int, N: int, G: int, device):
@@ -695,11 +743,14 @@ def _run(data, E, PA, en, pn, prop, col: bool):
     else:
         out = _launch_run(data, E, PA, en, pn, prop, col)
         _run.launches += 1
+        _run.split_launches += int(not col and erow_split(K))
     return out if batched else tuple(o[0] for o in out)
 
 
 #: kernel launches since the count was last reset (CPU calls do not count)
 _run.launches = 0
+#: of those, the E-row launches in the split form (``erow_split``)
+_run.split_launches = 0
 
 
 def pcol_stats(data, E, PA, en, pn_scaled):
@@ -862,6 +913,8 @@ def _update(fn, col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
         _launch_update(col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
                        accept_all, n_nan, n0, n1, expo)
         _run.launches += (2 if col else 1) * (n1 - n0)
+        if not col and erow_split(K):
+            _run.split_launches += n1 - n0
     else:
         raise ValueError(f"{fn}: no path for device {dev}")
 
@@ -959,5 +1012,6 @@ def special_functions(x, which: str):
 
 def reset_launch_counts():
     """Set every stream kernel's launch count to 0."""
-    _run.launches = acol_delta.launches = chain_metrics.launches = 0
+    _run.launches = _run.split_launches = 0
+    acol_delta.launches = chain_metrics.launches = 0
     stream_acol_update.launches = stream_metrics_row.launches = 0

@@ -13,7 +13,11 @@ where the profiler reads nothing): the fused kernel at (96,8,500),
 (96,8,2780) and (96,20,1000) with and without the rank branch, the
 allocation (Philox mode) at (96,5,100), (96,8,2780) and (96,20,10000), and
 at (96,20,10000,8) the P-column, E-row and A-column updates a column and
-the metrics row. The operands are made with numpy from a fixed seed and
+the metrics row; and the large-K forms' shapes: the fused kernel at
+(192,40,2780), (288,20,1000), (1536,8,500) and (1536,20,2780) with the
+rank branch, one chain and 8, and the E-row update a row at
+(192,20,2780,8) and (1536,20,2780,8). The operands are made with numpy
+from a fixed seed and
 use only the wrappers' signatures, which are the same in every commit
 since the allocation took the chains' stream keys (``key``, ``uids``).
 """
@@ -53,7 +57,7 @@ def main(root: str, label: str) -> dict:
     def u(*s):
         return rng.uniform(1e-6, 1.0, s).astype(f32)
 
-    def fused_case(K, N, G, rank):
+    def fused_case(K, N, G, rank, C=1):
         Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
         Et = rng.gamma(2.0, 2.0, (N, G))
         data = rng.poisson(Pt @ Et).astype(f32)
@@ -78,6 +82,9 @@ def main(root: str, label: str) -> dict:
         hu = (T(u(4, K, N)), T(u(4, N, G)))
         hh = (T(np.stack([np.full((K, N), v, f32) for v in hp])),
               T(np.stack([np.full((N, G), v, f32) for v in hp])))
+        if C > 1:  # C copies of the chain (the data stays shared)
+            args[1:] = [x.expand(C, *x.shape).contiguous() for x in args[1:]]
+            hu = tuple(x.expand(C, *x.shape).contiguous() for x in hu)
         return lambda: FS.fused_gibbs_sweeps(
             *args, prior_kind="truncnormal", exact_mh=True, accept_all=False,
             rank_method="SBFI" if rank else None, hyper_u=hu, hyper_hp=hh)
@@ -86,6 +93,31 @@ def main(root: str, label: str) -> dict:
                             (96, 20, 1000, True), (96, 20, 1000, False)):
         out[f"fused {(K, N, G)}" + (" rank" if rank else "")] = ms(
             fused_case(K, N, G, rank))
+
+    def erow_time(K, N, G, C):
+        """An E-row update's time a row: a sweep's N launches over N, less
+        the clones each call makes."""
+        Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
+        Et = rng.gamma(2.0, 2.0, (N, G))
+        data = T(rng.poisson(Pt @ Et).astype(f32))
+        P = T((Pt * rng.uniform(0.5, 1.5, (C, K, N))).astype(f32))
+        E = T((Et * rng.uniform(0.5, 1.5, (C, N, G))).astype(f32))
+        A = T(np.ones((C, N), f32))
+        acc = T(np.full((C, N, G), 0.5, f32))
+        mu = T(rng.normal(0, 1, (C, N, G)).astype(f32))
+        sq = T(rng.gamma(2, 2, (C, N, G)).astype(f32))
+        pr = T(rng.gamma(2, 1, (C, N, G)).astype(f32))
+        U = T(rng.uniform(1e-6, 1, (C, 3, N, G)).astype(f32))
+        flags = torch.arange(C, device=dev) % 2 == 1
+        zero = torch.zeros(C, device=dev)
+
+        def sweep():
+            S.stream_erow_update(data, E.clone(), P, A, acc.clone(), mu, sq,
+                                 pr, U, flags, zero.clone())
+
+        return round((ms(sweep, 10) - ms(lambda: (E.clone(), acc.clone(),
+                                                   zero.clone()), 10)) / N,
+                     5)
 
     uids = torch.zeros(1, dtype=torch.int64, device=dev)
     for (K, N, G) in ((96, 5, 100), (96, 8, 2780), (96, 20, 10000)):
@@ -147,6 +179,16 @@ def main(root: str, label: str) -> dict:
     out["metrics row"] = ms(lambda: S.stream_metrics_row(
         data, P, E, A, acc_P, acc_E, Mu_p, Sq_p, Mu_e, Sq_e, lg, ml, na, 5,
         1.0))
+    # the large-K forms' shapes, after every draw of the shapes above
+    for (K, N, G, rank, C) in ((192, 40, 2780, False, 1),
+                               (288, 20, 1000, False, 1),
+                               (1536, 8, 500, False, 1),
+                               (1536, 20, 2780, True, 1),
+                               (1536, 20, 2780, True, 8)):
+        out[f"fused {(K, N, G, C)}" + (" rank" if rank else "")] = ms(
+            fused_case(K, N, G, rank, C), 10)
+    for (K, N, G, C) in ((192, 20, 2780, 8), (1536, 20, 2780, 8)):
+        out[f"erow_update per column {(K, N, G, C)}"] = erow_time(K, N, G, C)
     print("AB " + json.dumps(out), flush=True)
     return out
 

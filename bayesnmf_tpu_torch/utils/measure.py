@@ -344,7 +344,7 @@ def reset_counts(FS, S, AL):
     rejection rounds (each round one launch of the draw kernel)."""
     from ..ops import distributions, rng
 
-    FS.fused_gibbs_sweeps.launches = 0
+    FS.fused_gibbs_sweeps.launches = FS.fused_gibbs_sweeps.grid_launches = 0
     FS.fused_pe_sweeps.launches = 0
     S.reset_launch_counts()
     AL.allocate_counts.launches = 0

@@ -198,16 +198,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    draw's block, each rank computing only its block's elements;
 15. catalogue shapes (``run_catalogue``): (a) each kernel against its plain
    version at shapes of the envelope (K <= 1536, N <= 128) that raised
-   before: the fused kernel at (192,40,2780), (288,20,1000) (a halved
-   cluster), (1536,8,500) and (1536,20,2780) with the rank branch (P and
-   the partials in the global scratch), as in phase 3; the allocation at
+   before: the fused kernel in its cluster form at (192,20,2780) and in
+   its grid form (a chain over up to one block per SM, ``grid_config``)
+   at (192,40,2780), (288,20,1000) (also with the exponential prior and an
+   inactive column), (1536,8,500) and (1536,20,2780) with the rank branch,
+   one chain and 8 chains of their own A, as in phase 3; the allocation at
    n2 = 128, Philox mode at (96,80,2780) and (1536,80,2780) (the plain
    version on G chunks of 1024) and planes mode at (96,80,300), equal; the
    stream kernels (the sums-only bodies, the metrics row, the P, E and A
    column updates) at (1536,20,2780,8) (16-wide G tiles), (96,80,10000,2)
-   (the 128-wide register tile) and (1536,64,300,2) (P*A staged in chunks
-   of rows), as in phase 3b; each timed beside its bound and its plain
-   version; (b) on a 1536x2780 rank-8 catalogue (phase 4's recipe, E ~
+   (the 128-wide register tile), (192,20,2780,8) and (1536,64,300,2) (the
+   E row's split form at its first K and at a 64-wide register tile), as
+   in phase 3b; each timed beside its bound and its plain version, and the
+   E-row sweep timed in both forms either side of their line (CUDA
+   events); (b) on a 1536x2780 rank-8 catalogue (phase 4's recipe, E ~
    Gamma(2, 8000)): ``fit`` over ranks 1..20 with default flags (the fused
    kernel, SBFI; 600 iterations) and an 8-chain ``ChainEnsemble`` over
    ranks 1..20 (the stream kernels by the auto policy; 300 iterations),
@@ -400,16 +404,29 @@ def check_sweep_case(torch, FS, t, C, case, accept_all, hyper=True, **kw):
           f"A or R differ at {case}")
     worst = max(errs.values())
     K, N = t["P"].shape[-2:]
-    cluster, e_res, res = FS.cluster_config(K, N, t["E"].shape[-1], C)
-    where = ("data, Mhat and E slices in shared memory" if res else
-             "E slice in shared memory, data and Mhat in global memory"
-             if e_res else "slices in global memory")
-    print(f"kernel vs plain {case} accept_all={accept_all}: cluster of "
-          f"{cluster}, {where}; max abs diff "
+    print(f"kernel vs plain {case} accept_all={accept_all}: "
+          f"{fused_form(torch, FS, K, N, t['E'].shape[-1], C)}; max abs diff "
           f"{worst:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}"
           "); A, R and decisions equal; two launches bit-identical",
           flush=True)
     return worst, kernel, plain
+
+
+def fused_form(torch, FS, K, N, G, C):
+    """The fused kernel's form at a shape, as printed beside its checks."""
+    if FS.grid_form(K, N, G, C):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        S_, group, res = FS.grid_config(K, N, G, C, sms)
+        where = [name for bit, name in ((2, "E"), (4, "Mhat"), (1, "data"))
+                 if res & bit]
+        return (f"grid form of {S_} blocks a chain, {group} chains a "
+                f"launch, {', '.join(where) or 'no'} slices in shared "
+                "memory")
+    cluster, e_res, res = FS.cluster_config(K, N, G, C)
+    where = ("data, Mhat and E slices in shared memory" if res else
+             "E slice in shared memory, data and Mhat in global memory"
+             if e_res else "slices in global memory")
+    return f"cluster of {cluster}, {where}"
 
 
 def to_card(torch, d):
@@ -4039,17 +4056,26 @@ def run_rng(torch, bt, gibbs, card, mesh_ranks):
 # ---------------------------------------------------------------------------
 
 # (K, N, G, chains, options, temperature): the fused kernel at the strand,
-# SBS-288 and SBS-1536 shapes (a halved cluster with everything in shared
-# memory; P and the partials in the global scratch), the last with the rank
-# branch, as the SBS-1536 fit runs it
-CAT_FUSED = [(192, 40, 2780, 1, {}, None), (288, 20, 1000, 1, {}, None),
+# SBS-288 and SBS-1536 shapes: the cluster form at (192,20,2780), the grid
+# form beyond it (its first shape (192,40,2780); the exponential prior with
+# an inactive P column, whose flag crosses the blocks); the rank branch at
+# the SBS-1536 fit's shape, one chain and 8 (each its own A, so the chains
+# pass different numbers of barriers)
+CAT_FUSED = [(192, 20, 2780, 1, {}, None), (192, 40, 2780, 1, {}, None),
+             (288, 20, 1000, 1, {}, None),
+             (288, 20, 1000, 1, dict(prior_kind="exponential"), None),
              (1536, 8, 500, 1, {}, None),
-             (1536, 20, 2780, 1, dict(rank_method="SBFI"), 1.0)]
+             (1536, 20, 2780, 1, dict(rank_method="SBFI"), 1.0),
+             (1536, 20, 2780, 8, dict(rank_method="SBFI"), 1.0)]
 # the stream kernels: the SBS-1536 ensemble's step (16-wide G tiles) and
-# N = 80 (the 128-wide register tile); the E-row block's staging in chunks
-# of rows (K = 1536 at N = 64)
+# N = 80 (the 128-wide register tile); the E row's split form at its first
+# K and at a 64-wide register tile
 CAT_STREAM = [(1536, 20, 2780, 8, None), (96, 80, 10000, 2, None),
-              (1536, 64, 300, 2, None)]
+              (192, 20, 2780, 8, None), (1536, 64, 300, 2, None)]
+# the E-row sweep timed in both forms: the whole form's last K of the
+# catalogue, the split form's first and the SBS-1536 ensemble's
+EROW_FORMS_TIMED = [(96, 20, 2780, 8), (192, 20, 2780, 8),
+                    (1536, 20, 2780, 8)]
 CAT_STREAM_TIMED = [(1536, 20, 2780, 8), (96, 80, 10000, 2)]
 CAT_ALLOC = [(96, 80, 2780), (1536, 80, 2780)]
 # the planes mode's check at n2 = 128 (the uniform operand of the main
@@ -4071,32 +4097,70 @@ CAT_CONJ_RANK = 80
 
 def compare_catalogue_fused(torch, FS, card):
     """Phase 15 (a): the fused kernel at CAT_FUSED against its plain
-    version as in phase 3, timed beside its bound. Returns {(K, N, G):
-    dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    version as in phase 3, timed beside its bound. Returns {case: dict(
+    max_abs_err, ms, plain_ms, bound_ms, bound_by)}, case (K, N, G, C) and
+    the options."""
     res = {}
     for (K, N, G, C, kw, temp) in CAT_FUSED:
         d = (branch_inputs(K, N, G, C, K + N + G + C, kw, temp) if kw
              else sweep_inputs(K, N, G, C, seed=K + N + G + C))
+        if C > 1:
+            A = (np.random.default_rng(K + N + G).uniform(size=(C, N))
+                 < 0.6).astype(np.float32)
+            d["A"] = A
+            d["Mhat"] = np.einsum("ckn,cn,cng->ckg", d["P"], A,
+                                  d["E"]).astype(np.float32)
         t = to_card(torch, d)
+        hyper = kw.get("prior_kind") != "exponential"
+        key = f"{(K, N, G, C)}" + "".join(f" {v}" for v in kw.values())
         case = f"catalogue (K,N,G,C)={(K, N, G, C)}" + "".join(
             f" {k}={v}" for k, v in kw.items())
+        flags = torch.arange(C, device="cuda") % 2 == 0
         worst = 0.0
-        for accept_all in (True, False):
+        for accept_all in ((flags,) if C > 1 else (True, False)):
             w, kernel, plain = check_sweep_case(torch, FS, t, C, case,
-                                                accept_all, **kw)
+                                                accept_all, hyper, **kw)
             worst = max(worst, w)
-        k_ms, w_ms = kernel_ms(torch, kernel, 10)
+        k_ms = time_ms(torch, kernel, 10)
         p_ms = time_ms(torch, plain, 2)
-        b_ms, b_by = fused_bound(K, N, G, C, rank=bool(kw))
-        S_ = FS.cluster_config(K, N, G, C)[0]
-        res[(K, N, G)] = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by)
-        print(f"time per call fused at {case}: cluster of {S_}, P and the "
-              f"partials in "
-              f"{'shared' if FS.fixed_in_smem(K, N, S_) else 'global'} "
-              f"memory; kernel {k_ms:.4f} ms on the device ({w_ms:.4f} ms "
-              f"per call through the wrapper), plain PyTorch {p_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}), on {card}", flush=True)
+        b_ms, b_by = fused_bound(K, N, G, C, rank="rank_method" in kw)
+        res[key] = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+        print(f"time per call fused at {case}: "
+              f"{fused_form(torch, FS, K, N, G, C)}; kernel {k_ms:.4f} ms "
+              f"(CUDA events), plain PyTorch {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), on {card}", flush=True)
+    return res
+
+
+def time_erow_forms(torch, S, card):
+    """Phase 15 (a): the E-row sweep at EROW_FORMS_TIMED, a column's time
+    (CUDA events over a sweep of N launches, less its operands' clones),
+    beside its bound. Returns {(K, N, G, C): dict(form, ms, bound_ms,
+    bound_by)}."""
+    res = {}
+    for (K, N, G, C) in EROW_FORMS_TIMED:
+        t = to_card(torch, update_inputs(K, N, G, C, K + N + G + C))
+        zero = torch.zeros(C, device="cuda")
+
+        def sweep():
+            S.stream_erow_update(t["data"], t["E"].clone(), t["P"], t["A"],
+                                 t["acc_E"].clone(), t["Mu_e"], t["Sq_e"],
+                                 t["E_prior"], t["U_e"], t["accept_all"],
+                                 zero.clone())
+
+        def clones():
+            t["E"].clone(), t["acc_E"].clone(), zero.clone()
+
+        ms = (time_ms(torch, sweep, 10) - time_ms(torch, clones, 10)) / N
+        b_ms, b_by = update_bound(False, K, N, G, C)
+        form = "split" if S.erow_split(K) else "whole"
+        res[(K, N, G, C)] = dict(form=form, ms=ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+        print(f"time per row stream_erow_update at (K,N,G,C)="
+              f"{(K, N, G, C)}: the {form} form, {ms:.4f} ms (CUDA events, "
+              f"a sweep of {N} rows), bound {b_ms:.4f} ms ({b_by}), on "
+              f"{card}", flush=True)
     return res
 
 
@@ -4193,8 +4257,12 @@ def compare_catalogue_stream(torch, S, U, card):
     for (K, N, G, C, _) in CAT_STREAM:
         print(f"stream tiles at catalogue (K,N,G,C)={(K, N, G, C)}: G tile "
               f"{S.col_tile(K, N)} wide, register tile {S.tile_width(N)}, "
-              f"E-row block stages {S.erow_rows(K, N)} of {K} rows at once",
-              flush=True)
+              + (f"E row in the split form, a cluster of "
+                 f"{S.erow_split_blocks(K)} block(s) holding "
+                 f"{S.erow_rows(K, N)} rows of P*A each at once"
+                 if S.erow_split(K) else
+                 f"E row in the whole form, P*A's {S.erow_rows(K, N)} rows "
+                 "staged"), flush=True)
     out = {}
     for i, timed in enumerate(CAT_STREAM_TIMED):
         # every case is compared once; each timed shape is timed
@@ -4233,6 +4301,7 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
     alloc = compare_catalogue_alloc(torch, AL, card)
     t_a = time.perf_counter()
     stream = compare_catalogue_stream(torch, S, U, card)
+    erow = time_erow_forms(torch, S, card)
     print(f"phase 15 (a): {time.perf_counter() - t15:.1f} s (fused "
           f"{t_f - t15:.1f} s, allocation {t_a - t_f:.1f} s, stream "
           f"{time.perf_counter() - t_a:.1f} s)", flush=True)
@@ -4258,6 +4327,9 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
               f"launches {counts['fused']} != iterations run {steps}")
         check(ported(counts) == counts["fused"],
               "catalogue fit: another kernel ran")
+        check(FS.fused_gibbs_sweeps.grid_launches == counts["fused"],
+              f"catalogue fit: {FS.fused_gibbs_sweeps.grid_launches} of "
+              f"{counts['fused']} fused launches in the grid form")
         check(sum(calls.values()) == 0,
               f"catalogue fit: plain versions ran: {calls}")
         rows = np.concatenate(s._metric_rows)
@@ -4270,7 +4342,8 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
         print(f"catalogue fit: fit(1536x2780, ranks 1..20, SBFI) ran {steps} "
               f"iterations ({s.tracker.why}); learned rank "
               f"{int(np.asarray(s.MAP['A_full']).sum())} (true {CAT_TRUE}); "
-              f"fused kernel launches {counts['fused']} (= iterations), "
+              f"fused kernel launches {counts['fused']} (= iterations, "
+              f"{FS.fused_gibbs_sweeps.grid_launches} in the grid form), "
               f"draw kernel {draws}, no other kernel, no plain version; "
               f"matched cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
               f"{steps / wall:.1f} it/s for the whole fit ({wall:.2f} s) on "
@@ -4298,6 +4371,12 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
         counts = launch_counters(FS, S, AL)
         check(counts["fused"] == counts["allocation"] == 0,
               "catalogue ensemble: another kernel ran")
+        # a step's 2N P-column passes and N E rows: the rows a third
+        check(3 * S._run.split_launches == S._run.launches,
+              f"catalogue ensemble: {S._run.split_launches} E rows in the "
+              f"split form of {S._run.launches // 3}")
+        print(f"catalogue ensemble: {S._run.split_launches} E-row launches, "
+              f"all in the split form", flush=True)
         N = CAT_MAX
         ens_launches = {"_run": S._run.launches,
                         "stream_acol_update": S.stream_acol_update.launches,
@@ -4366,7 +4445,7 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
     print(f"catalogue conjugate steps at (1536, 80, 2780): allocation "
           f"launches {counts['allocation']} (= 2 steps), state finite; "
           f"phase 15 {time.perf_counter() - t15:.1f} s on {card}", flush=True)
-    return dict(fused=fused, alloc=alloc, stream=stream), launches
+    return dict(fused=fused, alloc=alloc, stream=stream, erow=erow), launches
 
 
 def catalogue_kernels(cat, launches):
@@ -4391,6 +4470,12 @@ def catalogue_kernels(cat, launches):
                      "launches": launches["conjugate"],
                      **{k: r[k] for k in keys}, "library_ms": None})
     ens = launches["ensemble"]
+    timed = CAT_STREAM_TIMED[0]
+    erow = cat["stream"][timed][2]["erow_update"]
+    rows.append({"name": f"stream_erow_update (split form) at {timed}",
+                 "route": "cuda", "source": src, "replaces": f"{pss}:370",
+                 "launches": ens["_run"] // 3,
+                 **{k: erow[k] for k in keys}, "library_ms": None})
     for shape, (sums, row, updates, acol) in cat["stream"].items():
         mean = lambda key: float(np.mean(  # noqa: E731
             [u[key] for u in updates.values()]))
@@ -4568,6 +4653,14 @@ def main() -> int:
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
         "bound_by": updates["pcol_update"]["bound_by"], "library_ms": None})
+    # the E row's whole form (K < 192) at the north star's shape, alone
+    erow = updates["erow_update"]
+    kernels.append({
+        "name": f"stream_erow_update (whole form) at {STREAM_TIMED}",
+        "route": "cuda", "source": src, "replaces": f"{pss}:370",
+        "launches": ens_launches["_run"] // 3,
+        **{k: erow[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by")}, "library_ms": None})
     # acol_delta reaches the main path as the A-column update: its entry is
     # a column update's (the sums-only form is timed in the lines above)
     kernels.append({

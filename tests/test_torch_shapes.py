@@ -60,20 +60,30 @@ RULES = ("fused", "stream", "allocation")
 # ---------------------------------------------------------------------------
 
 
-def fused_smem(K, N, G, S_, e_res, res, in_smem):
-    """Shared memory of a block of csrc/fused_sweeps.cu (512 threads, 16
-    warps): as doubles the A column's partials (2 S), the block sums (16),
-    the E row's partials (512 x 3) and, in shared memory, a P column's
-    pushed partials (S K 2 + S K 3); as floats a column's four K vectors,
-    an E row's three 512 vectors, A, the NaN counts (512 + S), the flags
-    (S), and in shared memory P with its prior pair (3 K N), the E slice
-    (N Gq) and the data and Mhat slices (2 K Gq)."""
+def fused_smem(K, N, G, S_, e_res, res):
+    """Shared memory of a cluster-form block of csrc/fused_sweeps.cu (512
+    threads, 16 warps): as doubles the A column's partials (2 S), the block
+    sums (16), the E row's partials (512 x 3) and a P column's pushed
+    partials (S K 2 + S K 3); as floats a column's four K vectors, an E
+    row's three 512 vectors, A, the NaN counts (512 + S), the flags (S), P
+    with its prior pair (3 K N), the E slice (N Gq) and the data and Mhat
+    slices (2 K Gq)."""
     Gq = -(-G // S_)
-    doubles = 2 * S_ + 16 + 512 * 3 + (5 * S_ * K if in_smem else 0)
-    floats = (4 * K + 3 * 512 + N + 512 + 2 * S_
-              + (3 * K * N if in_smem else 0) + (N * Gq if e_res else 0)
-              + (2 * K * Gq if res else 0))
+    doubles = 2 * S_ + 16 + 512 * 3 + 5 * S_ * K
+    floats = (4 * K + 3 * 512 + N + 512 + 2 * S_ + 3 * K * N
+              + (N * Gq if e_res else 0) + (2 * K * Gq if res else 0))
     return 8 * doubles + 4 * floats
+
+
+def grid_smem(K, N, Gq, res):
+    """Shared memory of a grid-form block (512 threads): as doubles the
+    block sums (16) and the E row's partials (512 x 3); as floats a
+    column's three K vectors, an E row's three 512 vectors, the NaN counts
+    (512) and A, then the slices: E (N Gq, bit 1), data (bit 0) and Mhat
+    (bit 2), K rows of an odd stride Gq | 1 each."""
+    floats = (3 * K + 4 * 512 + N + (N * Gq if res & 2 else 0)
+              + K * (Gq | 1) * ((res & 1) + (res >> 2 & 1)))
+    return 8 * (16 + 512 * 3) + 4 * floats
 
 
 def width(N):
@@ -96,17 +106,46 @@ def stream_smem(K, N, gt):
 
 
 def check_fused(K, N, G, C):
-    S_, e_res, res = FS.cluster_config(K, N, G, C)
-    in_smem = FS.fixed_in_smem(K, N, S_)
-    assert S_ in (1, 2, 4, 8, 16)
-    assert S_ == 1 or C * S_ <= 112
-    assert e_res or not res
-    assert fused_smem(K, N, G, S_, e_res, res, in_smem) <= SMEM
-    if not in_smem:
-        # the scratch holds the partials and a copy of P and its pair per
-        # block of every chain
-        assert FS.scratch_floats(K, N, S_, C) == \
-            C * S_ * (10 * K + 3 * K * N)
+    if not FS.grid_form(K, N, G, C):
+        # the cluster form: one cluster of at most 16 blocks a chain, the
+        # chains' clusters within the 112 blocks the card keeps resident,
+        # P, its prior pair and the partials in every block's shared memory
+        S_, e_res, res = FS.cluster_config(K, N, G, C)
+        assert S_ in (1, 2, 4, 8, 16)
+        assert S_ == 1 or C * S_ <= 112
+        assert e_res or not res
+        assert FS.fixed_in_smem(K, N, S_)
+        assert fused_smem(K, N, G, S_, e_res, res) <= SMEM
+        return
+    # the grid form, above 96 rows only: a launch's chains' blocks all
+    # resident at once, one block a multiprocessor of an H100's 132; S
+    # blocks a chain, every one with columns, at least 8 each where G
+    # allows
+    assert K > 96
+    S_, group, res = FS.grid_config(K, N, G, C)
+
+    def size(chains):
+        S0 = max(1, min(-(-G // 8), 132 // chains))
+        Gq = -(-G // S0)
+        return -(-G // Gq), Gq
+
+    S1, Gq = size(group)
+    assert S_ == S1 and S_ * group <= 132 and 1 <= group <= min(C, 132)
+    # as many chains a launch as keep the E and Mhat slices resident; all
+    # of them where even one chain's do not fit
+    if grid_smem(K, N, Gq, 6) <= SMEM:
+        assert group == min(C, 132) or grid_smem(
+            K, N, size(group + 1)[1], 6) > SMEM
+    else:
+        assert group == min(C, 132) and grid_smem(K, N, size(1)[1], 6) > SMEM
+    assert grid_smem(K, N, Gq, res) <= SMEM
+    # the slices in order, E, Mhat, data, each kept where it fits
+    for bit in (2, 4, 1):
+        assert res & bit or grid_smem(K, N, Gq, res | bit) > SMEM
+    # the partials of a P column's two passes and an A column, the owners'
+    # three K vectors, the flags and NaN counts, a barrier counter
+    assert FS.grid_scratch_bytes(K, S_, C) == C * (
+        8 * (5 * K * S_ + 2 * S_) + 4 * (3 * K + 2 * S_) + 4)
 
 
 def check_stream(K, N, G, C):
@@ -118,10 +157,24 @@ def check_stream(K, N, G, C):
     assert S.tile_width(N) == width(N) >= N
     rows = S.erow_rows(K, N)
     assert rows % 4 == 0 and rows >= 4
-    # the block's rows of P*A and the P column
-    assert 4 * (rows * width(N) + K) <= SMEM
-    if rows < K:  # chunks only where the whole does not fit
-        assert 4 * (-(-K // 4) * 4 * width(N) + K) > SMEM
+    if S.erow_split(K):
+        # the split form from 192 rows on: a cluster of 1, 2 or 4 blocks of
+        # at most 384 rows, their 8 warps' rings of 3 chunks of 8 rows, the
+        # partials (3 doubles a thread of 256, 3 x 32 a block of the
+        # cluster), the block's rows of the P column, each warp's Mhat
+        # values (32 a row), the 32 g's proposals and the flags
+        kc = S.erow_split_blocks(K)
+        assert K >= 192 and rows == 3 * 64 and kc in (1, 2, 4)
+        assert -(-K // kc) <= 384 and (kc == 1 or -(-K // (kc // 2)) > 384)
+        Kb = -(-K // kc)
+        smem = (8 * (3 * 256 + kc * 96)
+                + 4 * (rows * width(N) + Kb + 8 * -(-Kb // 8) * 32 + 32
+                       + kc))
+    else:
+        # the whole form: all rows of P*A (padded to 4) and the P column
+        assert K < 192 and rows == -(-K // 4) * 4
+        smem = 4 * (rows * width(N) + K)
+    assert S.erow_smem_bytes(K, N) == smem <= SMEM
 
 
 def check_allocation(K, N, G, C):
@@ -143,6 +196,34 @@ def test_launch_rules_cover_the_envelope(K, rule):
         for G in GS:
             for C in CS:
                 check(K, N, G, C)
+
+
+# (K, N, G, C) -> the fused kernel's grid form (blocks a chain, chains a
+# launch, resident slices) or None for the cluster form: the catalogue
+# shapes of the card's checks, either side of the forms' line
+GRID_CASES = {(192, 20, 2780, 1): None, (192, 40, 2780, 1): (127, 1, 7),
+              (288, 20, 1000, 1): (125, 1, 7), (1536, 8, 500, 1): (63, 1, 7),
+              (1536, 20, 2780, 1): (127, 1, 6),
+              (1536, 20, 2780, 8): (127, 1, 6),
+              (1536, 20, 1000, 20): (33, 4, 6),
+              (1536, 128, 10000, 64): (2, 64, 0)}
+
+
+@pytest.mark.parametrize("shape", list(GRID_CASES))
+def test_fused_form_by_shape(shape):
+    """Where a cluster's block cannot hold P, its prior pair and the
+    partials, the grid form takes the shape: as many blocks a chain as the
+    card holds for the chains of a launch (127 of 22 columns for the
+    SBS-1536 fit), a launch taking as many chains as keep the Mhat slice
+    resident beside the E slice (one at 1536 x 2780, four at 1536 x 1000),
+    all of them where none does."""
+    want = GRID_CASES[shape]
+    assert FS.grid_form(*shape) == (want is not None)
+    if want is not None:
+        assert FS.grid_config(*shape) == want
+    # on a card of fewer multiprocessors the chains' blocks still fit it
+    S_, group, _ = FS.grid_config(*shape, sms=20)
+    assert S_ * group <= 20 and group <= shape[3]
 
 
 @pytest.mark.parametrize("rule", RULES)
