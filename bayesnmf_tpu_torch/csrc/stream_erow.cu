@@ -1,0 +1,6 @@
+// The E row's updates, built as their own translation unit beside
+// stream_sweeps.cu, whose kernels and launchers they share; see
+// stream_sweeps.cu for the kernels, what they replace, what bounds them and
+// their design.
+#define STREAM_EROW_ONLY
+#include "stream_sweeps.cu"

@@ -42,7 +42,8 @@
 //     the K values of a column in shared memory cost more in resident warps
 //     than the rebuild costs in operations (0.101 against 0.087 ms a row at
 //     (96,20,10000,8)).
-//     P column: the sums run over all G of a chain. A tile kernel
+//     P column (below 192 rows; from 192 on, the row form below): the
+//     sums run over all G of a chain. A tile kernel
 //     (pcol_tile_kernel) on a grid of (G / 64, C) blocks gives a thread one
 //     row k (its P*A row in registers) and a group of such rows every
 //     `groups`-th g of the tile; a row's sums stay in its thread, the groups
@@ -57,7 +58,8 @@
 //     7 clusters resident at 640 threads a block, so 8 chains ran in two
 //     waves (or on half the SMs at 8 blocks): 0.22-0.25 ms a column at
 //     (96,20,10000,8) against 0.14 ms for the tiles.
-//     A column: one sum over all K and G of a chain. The same tile as a P
+//     A column (below 192 rows, as the P column): one sum over all K and
+//     G of a chain. The same tile as a P
 //     column (acol_tile_kernel), its P*A row formed in registers from P and
 //     the device A, so the column before it is already in; the tile's rows
 //     are added in a fixed order into one double partial. The decision
@@ -78,10 +80,30 @@
 //     column, it reads E's prior pair and acceptance record (four C*N*G
 //     planes) once, so at (96,20,10000,8) its bound is bytes (~29 MB).
 //     Large K and N (the envelope, ops/__init__.py: K <= 1536, N <= 128):
-//     the register tile is built for N up to 128 (NP = 128); the column
-//     tiles' G width is 64, or 32 or 16 where a K x (width + 1) data tile
-//     would not fit (col_tile; K = 1536 takes 16); these column tiles are
-//     first drafts: right, not yet fast.
+//     the register tile is built for N up to 128 (NP = 128); below 192
+//     rows the column tiles' G width is 64 (col_tile, which narrows it to
+//     32 or 16 where a K x (width + 1) data tile would not fit; the
+//     metrics row keeps those narrow tiles at large K).
+//     The P and A columns from 192 rows on (the row form, pcol_rows_kernel
+//     and acol_rows_kernel): the G-tile form narrowed to 16 g at K = 1536
+//     reloaded each row's P*A for 16 g, wrote 51 MB of partials a pass and
+//     summed them on 8 SMs (1.03 ms a P column, 0.33 an A column at
+//     (1536,20,2780,8)). In the row form a block owns 32 rows of a chain,
+//     a lane one row with its P*A row in registers for the whole column,
+//     and its 8 warps stream G tiles of 64 g (32 for NP >= 64) through a
+//     3-slot cp.async ring (E tile, data tile, E row), so a row's sums
+//     never leave the block; a cluster of 1-8 blocks along G fills the
+//     card at small K or C, its sums meeting in block order through
+//     distributed shared memory. A P column is one launch: the cluster
+//     proposes after the first pass and decides after the second (no
+//     scratch, no finishing kernel). An A column's blocks each write one
+//     double, which acol_finish_kernel adds in order. What bounds it: the
+//     instruction issue, ~120 an entry a pass for the A column and ~200
+//     over both passes for the P column (the Mhat rebuild, divisions, a
+//     log1p, the double sums' conversions and adds, all kept for kernel =
+//     plain); the ring's copies are unrolled from bases computed once (in
+//     a first version, address arithmetic recomputed for every copy took a
+//     large share of the loop's instructions; PERF.md section 6).
 //     The E row from 192 rows on (erow_split_kernel): one thread walking
 //     all K rows twice, P*A staged whole (123 KB at K = 1536, N = 20, so
 //     one 4-warp block an SM), took 1.79 ms at (1536,20,2780,8). The split
@@ -98,8 +120,10 @@
 //     conversions and adds of the double sums). One block of 32 g with
 //     its 8 warps over all K, Mhat rebuilt in the second pass, measured
 //     ~20% slower at K = 1536 (PERF.md section 6).
-//     What is left: the tile kernels run at a tenth of the float32 peak
-//     (staging and compute of a tile do not overlap; 2 blocks an SM);
+//     What is left: the G-tile kernels below 192 rows and the metrics
+//     row run at a tenth of the float32 peak (staging and compute of a
+//     tile do not overlap; 2 blocks an SM); a P column's second pass
+//     rebuilds Mhat (32 rows across all G do not fit shared memory);
 //     tensor cores for the Mhat rebuild are ruled out by the precision the
 //     acceptance ratio needs (TF32 does not do: ROADMAP).
 //
@@ -1329,6 +1353,414 @@ __global__ void __launch_bounds__(32) acol_finish_kernel(AcolArgs a,
   if (threadIdx.x == 0) acol_decide<kUpdate>(a, c, sum);
 }
 
+// ---- P and A columns from 192 rows on: a block's rows across G --------------
+// The row form (the entry points of stream_rows.cu and stream_rows_sums.cu;
+// ops/stream_sweeps.py picks it by K, col_rows_form). A block owns kRowsRows rows of one chain, a lane one
+// row with its P*A row in registers, and streams G tiles through a ring of
+// kRowsStages slots filled by cp.async (the E tile transposed, the data
+// tile of its rows with a padded stride, the column's E row); its 8 warps
+// take each an eighth of a tile's g, and a row's sums stay in its lanes'
+// registers across the block's whole stretch of G. A cluster of rows_parts
+// blocks along G (1, 2, 4 or 8, so that the grid fills the card's 132 SMs
+// twice where the shape allows) splits the stretch; the warps' sums of a
+// row meet in warp order, the blocks' in block order through distributed
+// shared memory. Rows are independent in a P-column update, so the
+// cluster takes the proposal after the first pass and the decision after
+// the second itself (propose and decide, as the finishing kernel takes
+// them): one launch a column. An A column sums over its rows too: each
+// block adds its rows in a fixed order into one double partial, and
+// acol_finish_kernel adds the blocks' partials in order and decides.
+constexpr int kRowsRows = 32;
+constexpr int kRowsWarps = 8;
+constexpr int kRowsThreads = 32 * kRowsWarps;
+constexpr int kRowsStages = 3;
+// blocks that fill an H100's 132 SMs twice (ops/stream_sweeps.py)
+constexpr int kRowsFill = 2 * 132;
+
+// G width of a ring slot: 64, or 32 for the 64- and 128-wide register tiles
+template <int NP>
+__host__ __device__ constexpr int rows_tile() {
+  return NP <= 32 ? 64 : 32;
+}
+// floats of a ring slot: the E tile (gt x NP), the data tile (kRowsRows x
+// (gt + 1)) and the column's E row (gt)
+template <int NP>
+__host__ __device__ constexpr int rows_slot() {
+  return rows_tile<NP>() * NP + kRowsRows * (rows_tile<NP>() + 1)
+         + rows_tile<NP>();
+}
+__host__ __device__ inline int rows_blocks(int K) {
+  return (K + kRowsRows - 1) / kRowsRows;
+}
+__host__ __device__ inline int rows_parts(int K, int C) {
+  int kc = 1;
+  while (kc < 8 && (long long)C * rows_blocks(K) * kc < kRowsFill) kc *= 2;
+  return kc;
+}
+// Shared memory of a row-form block, in bytes: as doubles the warps' sums
+// (3 a thread) and, P column only, the cluster's sums of each pass (kc x 2
+// x 32 in every block, kc x 3 x 32 in block 0); as floats the ring and, P
+// column only, the 32 scaled proposals and the cluster's flags (kc)
+template <int NP>
+__host__ __device__ constexpr size_t pcol_rows_smem_bytes(int kc) {
+  return ((size_t)3 * kRowsThreads + (size_t)kc * 5 * kRowsRows)
+             * sizeof(double)
+         + ((size_t)kRowsStages * rows_slot<NP>() + kRowsRows + kc)
+               * sizeof(float);
+}
+template <int NP>
+__host__ __device__ constexpr size_t acol_rows_smem_bytes() {
+  return (size_t)kRowsThreads * sizeof(double)
+         + (size_t)kRowsStages * rows_slot<NP>() * sizeof(float);
+}
+
+// A block's copies of G tile g0 .. g0 + gt into a ring slot, all
+// unrolled, each thread's sources found from bases it computes once: the
+// E tile (thread t copies n = t / gt + (threads / gt) j, g = t % gt,
+// transposed into the slot), the data tile (warp w copies rows w + 8 q,
+// its lanes consecutive g), the column's E row (t < gt). A copy past N, K
+// or G fills zeros and reads nothing.
+template <int NP>
+struct RowsStage {
+  static constexpr int gt = rows_tile<NP>();
+  static constexpr int kEJ = NP * gt / kRowsThreads;  // E copies a thread
+  static constexpr int kEStep = kRowsThreads / gt;    // n between them
+  static constexpr int kDQ = kRowsRows / kRowsWarps;  // data rows a warp
+  const float *e, *d, *en;
+  unsigned e_in, d_in;  // bit j: its n < N; bit q: its row < K
+  int G;
+
+  __device__ RowsStage(const float* data, const float* e_c,
+                       const float* en_c, int K, int N, int G_, int k0)
+      : G(G_) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    e = e_c + (size_t)(tid / gt) * G + tid % gt;
+    d = data + (size_t)(k0 + warp) * G + lane;
+    en = en_c + tid;
+    e_in = d_in = 0u;
+#pragma unroll
+    for (int j = 0; j < kEJ; ++j) {
+      e_in |= (unsigned)(tid / gt + kEStep * j < N) << j;
+    }
+#pragma unroll
+    for (int q = 0; q < kDQ; ++q) {
+      d_in |= (unsigned)(k0 + warp + kRowsWarps * q < K) << q;
+    }
+  }
+
+  __device__ __forceinline__ void operator()(float* slot, int g0) const {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float* sE = slot + (tid % gt) * NP + tid / gt;
+    float* sD = slot + gt * NP + warp * (gt + 1) + lane;
+    const bool ge = g0 + tid % gt < G;
+#pragma unroll
+    for (int j = 0; j < kEJ; ++j) {
+      cp_async4(sE + kEStep * j, e + (size_t)kEStep * j * G + g0,
+                ge && (e_in >> j & 1u));
+    }
+#pragma unroll
+    for (int h = 0; h < gt; h += 32) {
+      const bool gin = g0 + h + lane < G;
+#pragma unroll
+      for (int q = 0; q < kDQ; ++q) {
+        cp_async4(sD + kRowsWarps * q * (gt + 1) + h,
+                  d + (size_t)kRowsWarps * q * G + g0 + h,
+                  gin && (d_in >> q & 1u));
+      }
+    }
+    if (tid < gt) {
+      cp_async4(slot + gt * NP + kRowsRows * (gt + 1) + tid, en + g0,
+                g0 + tid < G);
+    }
+  }
+};
+
+// What a row-form pass adds a term: the P column's stats (s0, s1) or accept
+// (s0, s1, s2) terms, or the A column's (s0)
+enum RowsTerms { kStatsTerms = 0, kAcceptTerms = 1, kAcolTerms = 2 };
+
+// The terms of one ring slot: this warp's eighth of the tile, 4 g at a
+// time, added in g order into s. kFull: every g of the tile is below G;
+// else a g from gcount on is skipped (its zero entries would add zeros
+// only while pk, qk and an are finite).
+template <int NP, int TERMS, bool kFull>
+__device__ __forceinline__ void rows_terms(const float* sE,
+                                           const float (&pa)[NP], float pk,
+                                           float qk, float an, int gcount,
+                                           double* s, bool* nz) {
+  constexpr int gt = rows_tile<NP>(), gw = gt / kRowsWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* dk = sE + gt * NP + lane * (gt + 1);
+  const float* sEn = sE + gt * NP + kRowsRows * (gt + 1);
+#pragma unroll
+  for (int h = 0; h < gw; h += kUnroll) {
+    float mh[kUnroll];
+    const float* cols[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      cols[u] = sE + (warp * gw + h + u) * NP;
+    }
+    dot_ordered<NP>(pa, cols, mh);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int gl = warp * gw + h + u;
+      if (!kFull && gl >= gcount) continue;
+      const float e = sEn[gl];
+      if constexpr (TERMS == kStatsTerms) {
+        stats_terms(dk[gl], mh[u], pk * e, e, &s[0], &s[1]);
+        *nz |= e * e != 0.0f;
+      } else if constexpr (TERMS == kAcceptTerms) {
+        accept_terms(dk[gl], mh[u], pk * e, qk * e, e, &s[0], &s[1], &s[2]);
+      } else {
+        acol_term(dk[gl], mh[u], pk * e, an, &s[0]);
+      }
+    }
+  }
+}
+
+// One pass over G tiles t0 .. t1 of the ring: this lane's row (P*A in pa,
+// pk = its own factor, qk the scaled proposal, an the A column's A_n), the
+// terms added in g order into s; *nz gains whether some E-row entry of the
+// stretch has a nonzero square.
+template <int NP, int TERMS>
+__device__ void rows_pass(const float* data, const float* e_c,
+                          const float* en_c, float* ring, int K, int N,
+                          int G, int k0, int t0, int t1,
+                          const float (&pa)[NP], float pk, float qk,
+                          float an, double* s, bool* nz) {
+  constexpr int gt = rows_tile<NP>(), slot = rows_slot<NP>();
+  const int count = t1 - t0;
+  const RowsStage<NP> stage(data, e_c, en_c, K, N, G, k0);
+  for (int j = 0; j < kRowsStages - 1; ++j) {
+    if (j < count) stage(ring + j * slot, (t0 + j) * gt);
+    cp_async_commit();
+  }
+  for (int j = 0; j < count; ++j) {
+    const int jn = j + kRowsStages - 1;
+    if (jn < count) stage(ring + (jn % kRowsStages) * slot, (t0 + jn) * gt);
+    cp_async_commit();
+    cp_async_wait<kRowsStages - 1>();  // tile j has landed
+    __syncthreads();
+    const float* sE = ring + (j % kRowsStages) * slot;
+    const int gcount = G - (t0 + j) * gt;
+    if (gcount >= gt) {
+      rows_terms<NP, TERMS, true>(sE, pa, pk, qk, an, gcount, s, nz);
+    } else {
+      rows_terms<NP, TERMS, false>(sE, pa, pk, qk, an, gcount, s, nz);
+    }
+    __syncthreads();  // the slot is free for the tile after next
+  }
+}
+
+// The two halves of cluster.sync(): arrive early, wait where the cluster
+// must have started
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// G tiles of block part r of kc: an even split of the tiles, in order
+__device__ __forceinline__ void rows_stretch(int G, int gt, int r, int kc,
+                                             int* t0, int* t1) {
+  const int tiles = (G + gt - 1) / gt;
+  *t0 = tiles * r / kc;
+  *t1 = tiles * (r + 1) / kc;
+}
+
+// The warps' sums of each lane's row in warp order, into warp 0's tot;
+// returns whether any thread's nz is set (every thread must call it).
+__device__ __forceinline__ int rows_meet(double* part, const double* s,
+                                         int nv, bool nz, double* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = 0; j < nv; ++j) part[(j * kRowsWarps + warp) * 32 + lane] = s[j];
+  const int any = __syncthreads_or(nz);
+  if (warp == 0) {
+    for (int j = 0; j < nv; ++j) {
+      double t = part[j * kRowsWarps * 32 + lane];
+      for (int w = 1; w < kRowsWarps; ++w) {
+        t += part[(j * kRowsWarps + w) * 32 + lane];
+      }
+      tot[j] = t;
+    }
+  }
+  return any;
+}
+
+// The cluster's sums of lane's row from xp ([kc][nv][32]), in block order
+__device__ __forceinline__ double rows_total(const double* xp, int kc,
+                                             int nv, int j) {
+  const int lane = threadIdx.x & 31;
+  double t = xp[j * 32 + lane];
+  for (int r = 1; r < kc; ++r) t += xp[(r * nv + j) * 32 + lane];
+  return t;
+}
+
+// The P column's row form: MODE kStats / kAccept write the sums (out), an
+// update (kUpdate) takes the whole column. Three blocks an SM up to a
+// 32-wide register tile (at most 85 registers a thread).
+template <int NP, int MODE>
+__global__ void __launch_bounds__(kRowsThreads, NP <= 32 ? 3 : 1)
+pcol_rows_kernel(PcolArgs a) {
+  extern __shared__ float4 smem4[];
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int kc = (int)cluster.num_blocks(), crank = (int)cluster.block_rank();
+  const int K = a.K, N = a.N, G = a.G;
+  double* part = reinterpret_cast<double*>(smem4);  // [3][warps][32]
+  double* xp1 = part + 3 * kRowsThreads;            // [kc][2][32], each's
+  double* xp2 = xp1 + kc * 2 * kRowsRows;           // [kc][3][32], block 0's
+  float* ring = reinterpret_cast<float*>(xp2 + kc * 3 * kRowsRows);
+  float* sQ = ring + kRowsStages * rows_slot<NP>();  // 32
+  int* flags = reinterpret_cast<int*>(sQ + kRowsRows);  // [kc], each's
+  const int c = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x / kc * kRowsRows, k = k0 + lane;
+  const bool live = k < K;
+  // every block of the cluster has started before one writes into another
+  // (the wait comes before the first such write)
+  cluster_arrive();
+  int t0, t1;
+  rows_stretch(G, rows_tile<NP>(), crank, kc, &t0, &t1);
+  const float* e_c = a.E + (size_t)c * N * G;
+  const float* en_c = MODE == kUpdate ? e_c + (size_t)a.n * G
+                                      : a.en + (size_t)c * G;
+  const size_t at = ((size_t)c * K + k) * N + a.n;  // update only
+  const float a_n = MODE == kUpdate ? a.A[(size_t)c * N + a.n] : 0.0f;
+  float pa[NP];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    pa[n] = live && n < N ? a.PA[((size_t)c * K + k) * N + n] : 0.0f;
+  }
+  const float pk = !live ? 0.0f
+                   : MODE == kUpdate ? a_n * a.P[at]
+                                     : a.pn[(size_t)c * K + k];
+  const size_t CK = (size_t)a.C * K;
+  const bool lead = crank == 0 && warp == 0;  // writes the column
+  double s[3] = {0.0, 0.0, 0.0}, tot[3];
+  Entry in;
+  float mu = 0.0f, var = 0.0f, proposal = 0.0f;
+  if (MODE != kAccept) {
+    bool nz = false;
+    rows_pass<NP, kStatsTerms>(a.data, e_c, en_c, ring, K, N, G, k0, t0, t1,
+                               pa, pk, 0.0f, 0.0f, s, &nz);
+    const int any = rows_meet(part, s, 2, nz, tot);
+    cluster_wait();
+    if (warp == 0) {
+      // the block's sums to every block of the cluster (a kStats sum to
+      // block 0 alone, which writes it)
+      for (int r = 0; r < (MODE == kUpdate ? kc : 1); ++r) {
+        double* x = cluster.map_shared_rank(xp1, r) + crank * 2 * kRowsRows;
+        x[lane] = tot[0];
+        x[kRowsRows + lane] = tot[1];
+        if (lane == 0) *cluster.map_shared_rank(flags + crank, r) = any;
+      }
+    }
+    cluster.sync();  // the cluster's first-pass sums and flags are here
+    if (MODE == kStats) {
+      if (lead && live) {
+        a.out[(size_t)c * K + k] = (float)rows_total(xp1, kc, 2, 0);
+        a.out[CK + (size_t)c * K + k] = (float)rows_total(xp1, kc, 2, 1);
+      }
+      return;
+    }
+    // every block of the cluster makes the same proposals for its rows
+    if (warp == 0) {
+      bool inactive = true;
+      for (int r = 0; r < kc; ++r) inactive &= flags[r] == 0;
+      float q = 0.0f;
+      if (live) {
+        const float* u = a.U + ((size_t)c * 3 * N + a.n) * K + k;
+        in = {a.P[at], a.mu0[at], a.sq0[at], a.prior_draw[at], u[0],
+              u[(size_t)N * K], u[(size_t)2 * N * K], a_n, inactive,
+              a.accept_all[c] != 0.0f, a.expo != 0};
+        propose(in, (float)rows_total(xp1, kc, 2, 0),
+                (float)rows_total(xp1, kc, 2, 1), &mu, &var, &proposal);
+        q = a_n * proposal;
+      }
+      sQ[lane] = q;
+    }
+  } else {
+    cluster_wait();
+    if (warp == 0) sQ[lane] = live ? a.prop[(size_t)c * K + k] : 0.0f;
+  }
+  __syncthreads();  // the scaled proposals
+  s[0] = s[1] = s[2] = 0.0;
+  bool unused = false;
+  rows_pass<NP, kAcceptTerms>(a.data, e_c, en_c, ring, K, N, G, k0, t0, t1,
+                              pa, pk, sQ[lane], 0.0f, s, &unused);
+  rows_meet(part, s, 3, false, tot);
+  if (warp == 0) {
+    double* x = cluster.map_shared_rank(xp2, 0) + crank * 3 * kRowsRows;
+    for (int j = 0; j < 3; ++j) x[j * kRowsRows + lane] = tot[j];
+  }
+  cluster.sync();  // the cluster's second-pass sums are in block 0
+  if (!lead) return;
+  const float lp = (float)rows_total(xp2, kc, 3, 0);
+  const float mu1_r = (float)rows_total(xp2, kc, 3, 1);
+  const float den_r = (float)rows_total(xp2, kc, 3, 2);
+  if (MODE == kAccept) {
+    if (live) {
+      a.out[(size_t)c * K + k] = lp;
+      a.out[CK + (size_t)c * K + k] = mu1_r;
+      a.out[2 * CK + (size_t)c * K + k] = den_r;
+    }
+    return;
+  }
+  bool nan = false;
+  if (live) {
+    float rec;
+    const float nv = decide(in, mu, var, proposal, lp, mu1_r, den_r,
+                            a.acc[at], &rec, &nan);
+    a.P[at] = nv;
+    a.PA[at] = nv * a_n;
+    a.acc[at] = rec;
+  }
+  const int n_nan = __popc(__ballot_sync(0xffffffffu, nan));
+  if (lane == 0 && n_nan) atomicAdd(a.nan + c, n_nan);
+}
+
+// The A column's row form: each block's rows over its stretch of G, added
+// in a fixed order (a row's warps in order, then the rows by a butterfly)
+// into scratch[c][blockIdx.x], which acol_finish_kernel adds in order. No
+// cluster: the blocks of a chain's rows and parts are the grid's x.
+template <int NP, bool kUpdate>
+__global__ void __launch_bounds__(kRowsThreads, NP <= 32 ? 3 : 1)
+acol_rows_kernel(AcolArgs a, int kc) {
+  extern __shared__ float4 smem4[];
+  const int K = a.K, N = a.N, G = a.G;
+  double* part = reinterpret_cast<double*>(smem4);  // [warps][32]
+  float* ring = reinterpret_cast<float*>(part + kRowsThreads);
+  const int c = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x / kc * kRowsRows, k = k0 + lane;
+  const bool live = k < K;
+  int t0, t1;
+  rows_stretch(G, rows_tile<NP>(), blockIdx.x % kc, kc, &t0, &t1);
+  const float* e_c = a.E + (size_t)c * N * G;
+  const float* en_c = kUpdate ? e_c + (size_t)a.n * G : a.en + (size_t)c * G;
+  const float* x_c = (kUpdate ? a.P : a.PA) + ((size_t)c * K + k) * N;
+  // the P*A row: P * A as the plain version's P * A.unsqueeze(1)
+  float pa[NP];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    pa[n] = live && n < N
+                ? (kUpdate ? x_c[n] * a.A[(size_t)c * N + n] : x_c[n])
+                : 0.0f;
+  }
+  const float pk = !live ? 0.0f
+                   : kUpdate ? x_c[a.n] : a.pn[(size_t)c * K + k];
+  const float an = kUpdate ? a.A[(size_t)c * N + a.n] : a.an[c];
+  double s[3] = {0.0, 0.0, 0.0};
+  bool unused = false;
+  rows_pass<NP, kAcolTerms>(a.data, e_c, en_c, ring, K, N, G, k0, t0, t1, pa,
+                            pk, 0.0f, an, s, &unused);
+  double tot[1];
+  rows_meet(part, s, 1, false, tot);
+  if (warp == 0) {
+    const double v = warp_allsum(tot[0]);
+    if (lane == 0) a.scratch[(size_t)c * gridDim.x + blockIdx.x] = v;
+  }
+}
+
 // ---- the metrics row: tiles of G, then one block per chain ------------------
 // models/gibbs.py::METRIC_NAMES' row of every chain from the state: the four
 // data sums of a streamed Mhat (sum M log lam, sum lam, sum max(M, 1e-6) log
@@ -1751,6 +2183,62 @@ cudaError_t launch_metrics(MetricsArgs a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The row form (K >= 192, ops/stream_sweeps.py::col_rows_form): a P column
+// or a sums pass one launch on a grid of (rows_blocks * kc, C) blocks in
+// clusters of kc along G.
+template <int NP, int MODE>
+cudaError_t launch_pcol_rows(const PcolArgs& a, cudaStream_t s) {
+  const int kc = rows_parts(a.K, a.C);
+  const size_t smem = pcol_rows_smem_bytes<NP>(kc);
+  cudaError_t e = allow_smem(pcol_rows_kernel<NP, MODE>, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows_blocks(a.K) * kc, a.C);
+  cfg.blockDim = dim3(kRowsThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, pcol_rows_kernel<NP, MODE>, a);
+}
+
+template <int NP, int MODE>
+cudaError_t launch_pcol_rows_columns(PcolArgs a, int n0, int n1,
+                                     cudaStream_t s) {
+  for (int n = n0; n < n1; ++n) {
+    a.n = n;
+    const cudaError_t e = launch_pcol_rows<NP, MODE>(a, s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// An A column in the row form: the row blocks' partials, then the finishing
+// warp of each chain.
+template <int NP, bool kUpdate>
+cudaError_t launch_acol_rows(const AcolArgs& a, int n0, int n1,
+                             cudaStream_t s) {
+  const int kc = rows_parts(a.K, a.C), blocks = rows_blocks(a.K) * kc;
+  const size_t smem = acol_rows_smem_bytes<NP>();
+  void (*kernel)(AcolArgs, int) = acol_rows_kernel<NP, kUpdate>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  AcolArgs b = a;
+  for (int n = n0; n < n1; ++n) {
+    b.n = n;
+    kernel<<<dim3(blocks, a.C), kRowsThreads, smem, s>>>(b, kc);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    acol_finish_kernel<kUpdate><<<a.C, 32, 0, s>>>(b, blocks);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 // Pick the register tile's width for N and call launch_<which><NP, MODE>.
 #define DISPATCH_NP(N, CALL)                                              \
   ((N) <= 4 ? CALL(4) : (N) <= 8 ? CALL(8) : (N) <= 12 ? CALL(12)         \
@@ -1768,34 +2256,133 @@ __global__ void special_kernel(const float* __restrict__ x,
 }
 
 }  // namespace
-// The entry points come in two translation units, so that nvcc builds them
-// in parallel (ops/_build.py: one nvcc a source): the column updates and
-// the metrics row here, the sums-only forms and the special functions in
-// stream_sums.cu, which includes this file with STREAM_SUMS_ONLY defined.
-#ifdef STREAM_SUMS_ONLY
+// The entry points come in seven translation units, so that nvcc builds
+// them in parallel (ops/_build.py: one nvcc a source): the P-column and
+// A-column updates below 192 rows here, their sums-only forms and the
+// special functions in stream_sums.cu, which includes this file with
+// STREAM_SUMS_ONLY defined, the E row's updates in stream_erow.cu
+// (STREAM_EROW_ONLY) and its sums in stream_erow_sums.cu
+// (STREAM_EROW_SUMS_ONLY), the metrics row's in stream_metrics.cu
+// (STREAM_METRICS_ONLY), and the P and A columns' row form in
+// stream_rows.cu (updates, STREAM_ROWS_ONLY) and stream_rows_sums.cu (sums
+// only, STREAM_ROWS_SUMS_ONLY).
+#if defined(STREAM_ROWS_ONLY)
 
-
-// The four sums-only bodies. prop == nullptr: stats (2 outputs); else accept
-// (3). P column: out (n_out, C, K), scratch C * n_tiles(G, col_tile) * K * 3
-// doubles; E row: out (n_out, C, G).
-extern "C" int stream_pcol_launch(const float* data, const float* E,
-                                  const float* PA, const float* en,
-                                  const float* pn, const float* prop,
-                                  double* scratch, float* out, int C, int K,
-                                  int N, int G, void* stream) {
+// The row form's column updates (stream_rows.cu).
+// Columns n0 .. n1-1 of P, one launch each, enqueued in order: P, PA (=
+// P*A on entry), the acceptance record and the NaN-clamp counts are
+// updated in place.
+extern "C" int stream_pcol_rows_update_launch(
+    const float* data, const float* E, float* P, float* PA, const float* A,
+    float* acc, const float* mu0, const float* sq0, const float* prior_draw,
+    const float* U, const float* accept_all, int* nan, int C, int K, int N,
+    int G, int n0, int n1, int expo, void* stream) {
   PcolArgs a = {};
-  a.data = data; a.E = E; a.PA = const_cast<float*>(PA);
-  a.en = en; a.pn = pn; a.prop = prop; a.scratch = scratch; a.out = out;
+  a.expo = expo;
+  a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
+  a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
+  a.accept_all = accept_all; a.nan = nan;
   a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
-#define CALL_STATS(NP) launch_pcol<NP, kStats>(a, s)
-#define CALL_ACCEPT(NP) launch_pcol<NP, kAccept>(a, s)
+#define CALL_UPDATE(NP) launch_pcol_rows_columns<NP, kUpdate>(a, n0, n1, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
+#undef CALL_UPDATE
+  return (int)e;
+}
+
+// Columns n0 .. n1-1 of A, enqueued in order, as
+// stream_acol_update_launch; scratch C * rows_blocks(K) * rows_parts(K, C)
+// doubles.
+extern "C" int stream_acol_rows_update_launch(
+    const float* data, const float* E, const float* P, float* A,
+    const float* logit, const float* temp, const float* u, float* n_nan,
+    float* delta, float penalty, int sbfi, double* scratch, int C, int K,
+    int N, int G, int n0, int n1, void* stream) {
+  AcolArgs a = {};
+  a.data = data; a.E = E; a.P = P; a.A = A; a.logit = logit; a.temp = temp;
+  a.u = u; a.n_nan = n_nan; a.delta = delta;
+  a.penalty = penalty; a.sbfi = sbfi; a.scratch = scratch;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_UPDATE(NP) launch_acol_rows<NP, true>(a, n0, n1, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
+#undef CALL_UPDATE
+  return (int)e;
+}
+
+#elif defined(STREAM_ROWS_SUMS_ONLY)
+
+// The row form's sums-only entry points (stream_rows_sums.cu): prop ==
+// nullptr gives the stats (2 outputs), else the accept sums (3); out
+// (n_out, C, K).
+extern "C" int stream_pcol_rows_launch(const float* data, const float* E,
+                                       const float* PA, const float* en,
+                                       const float* pn, const float* prop,
+                                       float* out, int C, int K, int N,
+                                       int G, void* stream) {
+  PcolArgs a = {};
+  a.data = data; a.E = E; a.PA = const_cast<float*>(PA);
+  a.en = en; a.pn = pn; a.prop = prop; a.out = out;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_STATS(NP) launch_pcol_rows<NP, kStats>(a, s)
+#define CALL_ACCEPT(NP) launch_pcol_rows<NP, kAccept>(a, s)
   return (int)(prop == nullptr ? DISPATCH_NP(N, CALL_STATS)
                                : DISPATCH_NP(N, CALL_ACCEPT));
 #undef CALL_STATS
 #undef CALL_ACCEPT
 }
 
+// The A column's delta, sums only: scratch C * rows_blocks(K) *
+// rows_parts(K, C) doubles; out C floats.
+extern "C" int stream_acol_rows_launch(const float* data, const float* E,
+                                       const float* PA, const float* en,
+                                       const float* pn, const float* an,
+                                       double* scratch, float* out, int C,
+                                       int K, int N, int G, void* stream) {
+  AcolArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.en = en; a.pn = pn; a.an = an;
+  a.out = out; a.scratch = scratch;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_SUMS(NP) launch_acol_rows<NP, false>(a, 0, 1, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
+#undef CALL_SUMS
+  return (int)e;
+}
+
+#elif defined(STREAM_EROW_ONLY)
+
+// The E row's updates (stream_erow.cu).
+// Rows n0 .. n1-1 of E, one launch each, enqueued in order: E, the
+// acceptance record and the NaN-clamp counts are updated in place.
+extern "C" int stream_erow_update_launch(
+    const float* data, float* E, const float* P, const float* PA,
+    const float* A, float* acc, const float* mu0, const float* sq0,
+    const float* prior_draw, const float* U, const float* accept_all,
+    int* nan, int C, int K, int N, int G, int n0, int n1, int expo,
+    void* stream) {
+  ErowArgs a = {};
+  a.expo = expo;
+  a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
+  a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
+  a.accept_all = accept_all; a.nan = nan;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_UPDATE(NP) launch_erow<NP, kUpdate>(a, s)
+  for (int n = n0; n < n1; ++n) {
+    a.n = n;
+    const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
+    if (e != cudaSuccess) return (int)e;
+  }
+#undef CALL_UPDATE
+  return 0;
+}
+
+#elif defined(STREAM_EROW_SUMS_ONLY)
+
+// The E row's sums-only entry point (stream_erow_sums.cu): prop == nullptr
+// gives the stats (2 outputs), else the accept sums (3); out (n_out, C, G).
 extern "C" int stream_erow_launch(const float* data, const float* E,
                                   const float* PA, const float* en,
                                   const float* pn, const float* prop,
@@ -1808,6 +2395,76 @@ extern "C" int stream_erow_launch(const float* data, const float* E,
   const cudaStream_t s = (cudaStream_t)stream;
 #define CALL_STATS(NP) launch_erow<NP, kStats>(a, s)
 #define CALL_ACCEPT(NP) launch_erow<NP, kAccept>(a, s)
+  return (int)(prop == nullptr ? DISPATCH_NP(N, CALL_STATS)
+                               : DISPATCH_NP(N, CALL_ACCEPT));
+#undef CALL_STATS
+#undef CALL_ACCEPT
+}
+
+#elif defined(STREAM_METRICS_ONLY)
+
+// The metrics row's entry points (stream_metrics.cu).
+// The four sums of the metrics row, sums only: scratch C * 4 *
+// n_tiles(G, col_tile) doubles; out (4, C) floats.
+extern "C" int stream_metrics_launch(const float* data, const float* E,
+                                     const float* PA, double* scratch,
+                                     float* out, int C, int K, int N, int G,
+                                     void* stream) {
+  MetricsArgs a = {};
+  a.data = data; a.E = E; a.PA = PA; a.out = out; a.scratch = scratch;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_SUMS(NP) launch_metrics<NP, false>(a, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
+#undef CALL_SUMS
+  return (int)e;
+}
+
+// The metrics row of every chain, written to row + c * row_stride (12
+// floats): scratch C * 6 * n_tiles(G, col_tile) doubles; temp null for a
+// temperature passed as temp_val.
+extern "C" int stream_metrics_row_launch(
+    const float* data, const float* E, const float* P, const float* A,
+    const float* mu_e, const float* sq_e, const float* acc_e,
+    const float* mu_p, const float* sq_p, const float* acc_p,
+    const float* lgamma_sum, const float* mlogm_sum, const float* na,
+    const float* temp, float* row, double* scratch, float it,
+    float temp_val, float log_g, int row_stride, int C, int K, int N, int G,
+    int expo, void* stream) {
+  MetricsArgs a = {};
+  a.expo = expo;
+  a.data = data; a.E = E; a.P = P; a.A = A;
+  a.mu_e = mu_e; a.sq_e = sq_e; a.acc_e = acc_e;
+  a.mu_p = mu_p; a.sq_p = sq_p; a.acc_p = acc_p;
+  a.lgamma_sum = lgamma_sum; a.mlogm_sum = mlogm_sum; a.na = na;
+  a.temp = temp; a.row = row; a.scratch = scratch;
+  a.it = it; a.temp_val = temp_val; a.log_g = log_g;
+  a.row_stride = row_stride;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_ROW(NP) launch_metrics<NP, true>(a, s)
+  const cudaError_t e = DISPATCH_NP(N, CALL_ROW);
+#undef CALL_ROW
+  return (int)e;
+}
+
+#elif defined(STREAM_SUMS_ONLY)
+
+// The P column's sums-only bodies. prop == nullptr: stats (2 outputs);
+// else accept (3). out (n_out, C, K), scratch C * n_tiles(G, col_tile) * K
+// * 3 doubles.
+extern "C" int stream_pcol_launch(const float* data, const float* E,
+                                  const float* PA, const float* en,
+                                  const float* pn, const float* prop,
+                                  double* scratch, float* out, int C, int K,
+                                  int N, int G, void* stream) {
+  PcolArgs a = {};
+  a.data = data; a.E = E; a.PA = const_cast<float*>(PA);
+  a.en = en; a.pn = pn; a.prop = prop; a.scratch = scratch; a.out = out;
+  a.C = C; a.K = K; a.N = N; a.G = G;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL_STATS(NP) launch_pcol<NP, kStats>(a, s)
+#define CALL_ACCEPT(NP) launch_pcol<NP, kAccept>(a, s)
   return (int)(prop == nullptr ? DISPATCH_NP(N, CALL_STATS)
                                : DISPATCH_NP(N, CALL_ACCEPT));
 #undef CALL_STATS
@@ -1842,22 +2499,6 @@ extern "C" int stream_acol_launch(const float* data, const float* E,
   return (int)e;
 }
 
-// The four sums of the metrics row, sums only: scratch C * 4 *
-// n_tiles(G, col_tile) doubles; out (4, C) floats.
-extern "C" int stream_metrics_launch(const float* data, const float* E,
-                                     const float* PA, double* scratch,
-                                     float* out, int C, int K, int N, int G,
-                                     void* stream) {
-  MetricsArgs a = {};
-  a.data = data; a.E = E; a.PA = PA; a.out = out; a.scratch = scratch;
-  a.C = C; a.K = K; a.N = N; a.G = G;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL_SUMS(NP) launch_metrics<NP, false>(a, s)
-  const cudaError_t e = DISPATCH_NP(N, CALL_SUMS);
-#undef CALL_SUMS
-  return (int)e;
-}
-
 #else
 
 // Columns n0 .. n1-1 of P, enqueued in order, each a pass over the tiles,
@@ -1878,31 +2519,6 @@ extern "C" int stream_pcol_update_launch(
   a.C = C; a.K = K; a.N = N; a.G = G;
   const cudaStream_t s = (cudaStream_t)stream;
 #define CALL_UPDATE(NP) launch_pcol<NP, kUpdate>(a, s)
-  for (int n = n0; n < n1; ++n) {
-    a.n = n;
-    const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
-    if (e != cudaSuccess) return (int)e;
-  }
-#undef CALL_UPDATE
-  return 0;
-}
-
-// Rows n0 .. n1-1 of E, one launch each, enqueued in order: E, the
-// acceptance record and the NaN-clamp counts are updated in place.
-extern "C" int stream_erow_update_launch(
-    const float* data, float* E, const float* P, const float* PA,
-    const float* A, float* acc, const float* mu0, const float* sq0,
-    const float* prior_draw, const float* U, const float* accept_all,
-    int* nan, int C, int K, int N, int G, int n0, int n1, int expo,
-    void* stream) {
-  ErowArgs a = {};
-  a.expo = expo;
-  a.data = data; a.E = E; a.PA = PA; a.P = P; a.A = A; a.acc = acc;
-  a.mu0 = mu0; a.sq0 = sq0; a.prior_draw = prior_draw; a.U = U;
-  a.accept_all = accept_all; a.nan = nan;
-  a.C = C; a.K = K; a.N = N; a.G = G;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL_UPDATE(NP) launch_erow<NP, kUpdate>(a, s)
   for (int n = n0; n < n1; ++n) {
     a.n = n;
     const cudaError_t e = DISPATCH_NP(N, CALL_UPDATE);
@@ -1937,32 +2553,4 @@ extern "C" int stream_acol_update_launch(
   return 0;
 }
 
-// The metrics row of every chain, written to row + c * row_stride (12
-// floats): scratch C * 6 * n_tiles(G, col_tile) doubles; temp null for a
-// temperature passed as temp_val.
-extern "C" int stream_metrics_row_launch(
-    const float* data, const float* E, const float* P, const float* A,
-    const float* mu_e, const float* sq_e, const float* acc_e,
-    const float* mu_p, const float* sq_p, const float* acc_p,
-    const float* lgamma_sum, const float* mlogm_sum, const float* na,
-    const float* temp, float* row, double* scratch, float it,
-    float temp_val, float log_g, int row_stride, int C, int K, int N, int G,
-    int expo, void* stream) {
-  MetricsArgs a = {};
-  a.expo = expo;
-  a.data = data; a.E = E; a.P = P; a.A = A;
-  a.mu_e = mu_e; a.sq_e = sq_e; a.acc_e = acc_e;
-  a.mu_p = mu_p; a.sq_p = sq_p; a.acc_p = acc_p;
-  a.lgamma_sum = lgamma_sum; a.mlogm_sum = mlogm_sum; a.na = na;
-  a.temp = temp; a.row = row; a.scratch = scratch;
-  a.it = it; a.temp_val = temp_val; a.log_g = log_g;
-  a.row_stride = row_stride;
-  a.C = C; a.K = K; a.N = N; a.G = G;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL_ROW(NP) launch_metrics<NP, true>(a, s)
-  const cudaError_t e = DISPATCH_NP(N, CALL_ROW);
-#undef CALL_ROW
-  return (int)e;
-}
-
-#endif  // STREAM_SUMS_ONLY
+#endif

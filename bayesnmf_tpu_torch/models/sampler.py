@@ -63,9 +63,6 @@ from .map_estimate import compute_map, map_quality_metrics
 from .updates import lift
 from ..ops.rng import ChainStreams
 
-_ROADMAP = "not ported yet (see ROADMAP.md queue 1)"
-
-
 def _resolve_output_dir(output_dir: Optional[str], overwrite: bool,
                         mesh=None) -> Optional[str]:
     """Collision-suffixing `_1,_2,...` or wipe-on-overwrite
@@ -197,7 +194,6 @@ class GibbsSampler:
         fused_allocation: Optional[bool] = None,
         exact_mh: bool = True,
         exact_truncnorm_hypers: bool = True,
-        stream_sweeps: bool = False,
         seed: int = 0,
         device="cuda",
     ):
@@ -214,8 +210,6 @@ class GibbsSampler:
         learning_rank = len(ranks) > 1
         if learning_rank and min(ranks) != 0:
             ranks = list(range(0, max(ranks) + 1))  # bayesNMF_sampler.R:125
-        if stream_sweeps:
-            raise NotImplementedError(f"stream_sweeps is {_ROADMAP}")
         if mesh is not None and fused_sweeps:
             raise ValueError(gibbs.FUSED_MESH_ERROR)
         self.mesh = mesh

@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -39,6 +40,9 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _lock = threading.Lock()
 _lib = None
+#: seconds each source took to compile in this process's build (empty when
+#: the library was already built)
+compile_seconds: dict = {}
 
 
 def _nvcc() -> str:
@@ -87,13 +91,27 @@ def _compile(srcs: list[str], lib_path: str):
     tag = f"{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
             for src in srcs]
+    t0 = time.perf_counter()
+    # each compiler's messages go to a file, read once it has ended
+    logs = [open(obj + ".log", "w+") for obj in objs]
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(srcs, objs)]
+                              stdout=log, stderr=log, text=True)
+             for src, obj, log in zip(srcs, objs, logs)]
+    # each source's seconds, for finding the build's longest pole
+    done = {}
+    while len(done) < len(srcs):
+        for src, proc in zip(srcs, procs):
+            if src not in done and proc.poll() is not None:
+                done[src] = time.perf_counter() - t0
+        time.sleep(0.1)
+    compile_seconds.update({os.path.basename(k): v for k, v in done.items()})
     errors = []
-    for src, proc in zip(srcs, procs):
-        _, err = proc.communicate()
+    for src, proc, log in zip(srcs, procs, logs):
+        proc.wait()
+        log.seek(0)
+        err = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
             errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
                           f"{err}")

@@ -20,12 +20,14 @@ the Mhat tile from ``PA = P * A`` and an E tile and returns only reductions:
   models/updates.py::stream_sweep_P/E, :539-725, with the truncnormal or
   the exponential prior, a runtime argument) in kernels: one launch per
   E row; two passes over the G tiles per P column, each followed by a small
-  finishing kernel; the launches of a sweep enqueued by one C call;
+  finishing kernel, or from 192 rows on one launch a P column (the row
+  form); the launches of a sweep enqueued by one C call;
 - ``stream_acol_update``: whole inclusion-column updates (the delta, the
   SBFI penalty, the tempered sigmoid, the NaN fallback, the Bernoulli draw
   and the write of A[:, n] of models/updates.py::stream_sweep_A, :838-872)
-  in kernels: a pass over the G tiles and a finishing kernel per column,
-  the launches of a sweep enqueued by one C call.
+  in kernels: a pass over the G tiles (from 192 rows on, over blocks of
+  rows) and a finishing kernel per column, the launches of a sweep
+  enqueued by one C call.
 
 The signatures and the pre-scaling contract are the JAX package's
 (pallas_stream_sweeps.py:357-359): P-column functions take ``pn = A_n*P_n``
@@ -66,7 +68,12 @@ stages P*A whole, one thread a g; from 192 rows on a cluster of 1-4
 blocks along K owns 32 g, their warps split the rows, P*A streams
 through each warp's ring and Mhat is kept between the two passes
 (``erow_split``, ``erow_split_blocks``, ``erow_rows``). The plain
-version sums a g's terms over all K in float64 whatever the form.
+version sums a g's terms over all K in float64 whatever the form. From
+192 rows on the P and A columns take the row form (``col_rows_form``): a
+block owns 32 rows of a chain and streams G through a ring, a cluster of
+1, 2, 4 or 8 blocks along G (``rows_parts``, ``rows_grid``); a P column's
+update is then one launch that proposes and decides itself. The plain
+versions sum a row's terms over G in float64 whatever the form.
 """
 
 from __future__ import annotations
@@ -101,6 +108,14 @@ _SPLIT_MAX_ROWS = 384
 _SPLIT_WARPS = 8
 _SPLIT_CHUNK = 64
 _SPLIT_STAGES = 3
+# the P and A columns' row form (kRows* in csrc/stream_sweeps.cu): from this
+# many rows on; a block's rows (a lane one row) and warps; the ring's slots;
+# the blocks that fill an H100's 132 SMs twice
+COL_ROWS_MIN_K = 192
+_ROWS_ROWS = 32
+_ROWS_WARPS = 8
+_ROWS_STAGES = 3
+_ROWS_FILL = 2 * 132
 
 KERNEL_RTOL = 1e-6
 KERNEL_ATOL = 1e-6
@@ -429,6 +444,11 @@ _SIGNATURES = {
     "stream_metrics_launch": [_P] * 5 + [_I] * 4 + [_P],
     "stream_metrics_row_launch": [_P] * 16 + [ctypes.c_float] * 3
     + [_I] * 6 + [_P],
+    "stream_pcol_rows_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "stream_pcol_rows_update_launch": [_P] * 12 + [_I] * 7 + [_P],
+    "stream_acol_rows_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "stream_acol_rows_update_launch": [_P] * 9 + [ctypes.c_float, _I, _P]
+    + [_I] * 6 + [_P],
 }
 
 
@@ -533,6 +553,55 @@ def erow_smem_bytes(K: int, N: int) -> int:
     return 4 * (rows * NP + K)
 
 
+def col_rows_form(K: int) -> bool:
+    """Whether a P or A column of K rows takes the row form
+    (pcol_rows_kernel, acol_rows_kernel in csrc/stream_sweeps.cu): from
+    ``COL_ROWS_MIN_K`` rows on a block owns 32 rows of a chain, a lane a
+    row, and streams G tiles through a ring, a cluster of ``rows_parts``
+    blocks splitting G; below it the G-tile form (pcol_tile_kernel,
+    acol_tile_kernel: a block a G tile of all K rows, then a finishing
+    kernel)."""
+    return K >= COL_ROWS_MIN_K
+
+
+def rows_parts(K: int, C: int) -> int:
+    """Blocks along G of a row-form cluster (rows_parts in
+    csrc/stream_sweeps.cu): 1, 2, 4 or 8, the fewest that give the grid at
+    least twice an H100's 132 SMs in blocks, else 8."""
+    kc = 1
+    while kc < 8 and C * -(-K // _ROWS_ROWS) * kc < _ROWS_FILL:
+        kc *= 2
+    return kc
+
+
+def rows_grid(K: int, C: int) -> tuple:
+    """The row form's grid (blocks along x, chains): 32 rows a block
+    times ``rows_parts`` blocks along G, by C."""
+    return (-(-K // _ROWS_ROWS) * rows_parts(K, C), C)
+
+
+def rows_tile(N: int) -> int:
+    """G width of a row-form ring slot: 64, or 32 for the 64- and 128-wide
+    register tiles."""
+    return 64 if tile_width(N) <= 32 else 32
+
+
+def rows_smem_bytes(K: int, N: int, C: int) -> dict:
+    """Shared memory of a row-form block, in bytes (pcol_rows_smem_bytes
+    and acol_rows_smem_bytes in csrc/stream_sweeps.cu): the warps' sums (3
+    doubles a thread; 1 for the A column) and the ring of 3 slots (the E
+    tile gt x NP, the data tile 32 x (gt + 1), the column's E row gt); the
+    P column also the cluster's sums of both passes (5 x 32 doubles a
+    block of the cluster), 32 scaled proposals and the cluster's flags."""
+    check_envelope("stream_sweeps", K, N)
+    NP, gt, kc = tile_width(N), rows_tile(N), rows_parts(K, C)
+    ring = _ROWS_STAGES * (gt * NP + _ROWS_ROWS * (gt + 1) + gt)
+    threads = 32 * _ROWS_WARPS
+    return {"pcol": 8 * (3 * threads + kc * 5 * _ROWS_ROWS)
+            + 4 * (ring + _ROWS_ROWS + kc),
+            "acol": 8 * threads + 4 * ring}
+
+
 def _col_scratch(C: int, K: int, N: int, G: int, device):
     """The P-column tile kernel's partial sums, (C, K, 3, tiles) doubles
     that the finishing kernel adds in order."""
@@ -541,9 +610,13 @@ def _col_scratch(C: int, K: int, N: int, G: int, device):
 
 
 def _acol_scratch(C: int, K: int, N: int, G: int, device):
-    """The A-column tile kernel's partials, one double per (chain, tile)."""
-    return torch.empty(C * _n_tiles(G, col_tile(K, N)), dtype=torch.float64,
-                       device=device)
+    """The A-column partials that the finishing warp adds in order: one
+    double per (chain, tile), or per (chain, block) in the row form;
+    ValueError beyond the envelope."""
+    check_envelope("stream_sweeps", K, N)
+    n = (rows_grid(K, C)[0] if col_rows_form(K)
+         else _n_tiles(G, col_tile(K, N)))
+    return torch.empty(C * n, dtype=torch.float64, device=device)
 
 
 def _metrics_scratch(C: int, K: int, N: int, G: int, sums: int, device):
@@ -583,8 +656,13 @@ def _launch_run(data, E, PA, en, pn, prop, col):
     dev = PA.device
     if col:
         out = torch.empty(n_out, C, K, dtype=torch.float32, device=dev)
-        _call("stream_pcol_launch", data, E, PA, en, pn, prop,
-              _col_scratch(C, K, N, G, dev), out, C, K, N, G)
+        if col_rows_form(K):
+            check_envelope("stream_sweeps", K, N)
+            _call("stream_pcol_rows_launch", data, E, PA, en, pn, prop, out,
+                  C, K, N, G)
+        else:
+            _call("stream_pcol_launch", data, E, PA, en, pn, prop,
+                  _col_scratch(C, K, N, G, dev), out, C, K, N, G)
     else:
         erow_rows(K, N)
         out = torch.empty(n_out, C, G, dtype=torch.float32, device=dev)
@@ -603,7 +681,12 @@ def _launch_update(col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
     PA = P * A.unsqueeze(1)
     flags = accept_all.to(torch.float32)
     nan = torch.zeros(C, dtype=torch.int32, device=P.device)
-    if col:
+    if col and col_rows_form(K):
+        check_envelope("stream_sweeps", K, N)
+        _call("stream_pcol_rows_update_launch", data, E, P, PA, A, acc, hp0,
+              hp0 if hp1 is None else hp1, prior_draw, U, flags, nan, C, K,
+              N, G, n0, n1, int(expo))
+    elif col:
         work = torch.empty(C * 4 * K, dtype=torch.float32, device=P.device)
         _call("stream_pcol_update_launch", data, E, P, PA, A, acc, hp0,
               hp0 if hp1 is None else hp1, prior_draw, U, flags, nan,
@@ -621,7 +704,8 @@ def _launch_acol(data, E, PA, en, pn, an):
     C, K, N = PA.shape
     G = E.shape[2]
     out = torch.empty(C, dtype=torch.float32, device=PA.device)
-    _call("stream_acol_launch", data, E, PA, en, pn, an,
+    _call("stream_acol_rows_launch" if col_rows_form(K)
+          else "stream_acol_launch", data, E, PA, en, pn, an,
           _acol_scratch(C, K, N, G, PA.device), out, C, K, N, G)
     return out
 
@@ -638,7 +722,8 @@ def _launch_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,
         temp = torch.full((1,), float(temperature), dtype=torch.float32,
                           device=P.device)
     delta = torch.empty(C, N, dtype=torch.float32, device=P.device)
-    _call("stream_acol_update_launch", data, E, P, A, logit_p1, temp, u,
+    _call("stream_acol_rows_update_launch" if col_rows_form(K)
+          else "stream_acol_update_launch", data, E, P, A, logit_p1, temp, u,
           n_nan, delta, 0.0 if penalty is None else float(penalty),
           int(penalty is not None),
           _acol_scratch(C, K, N, G, P.device), C, K, N, G, n0, n1)
@@ -744,6 +829,7 @@ def _run(data, E, PA, en, pn, prop, col: bool):
         out = _launch_run(data, E, PA, en, pn, prop, col)
         _run.launches += 1
         _run.split_launches += int(not col and erow_split(K))
+        _run.row_launches += int(col and col_rows_form(K))
     return out if batched else tuple(o[0] for o in out)
 
 
@@ -751,6 +837,9 @@ def _run(data, E, PA, en, pn, prop, col: bool):
 _run.launches = 0
 #: of those, the E-row launches in the split form (``erow_split``)
 _run.split_launches = 0
+#: the P-column launches in the row form (``col_rows_form``): one a sums
+#: pass, one a column update (which ``launches`` counts as two passes)
+_run.row_launches = 0
 
 
 def pcol_stats(data, E, PA, en, pn_scaled):
@@ -915,6 +1004,8 @@ def _update(fn, col, data, E, P, A, acc, hp0, hp1, prior_draw, U,
         _run.launches += (2 if col else 1) * (n1 - n0)
         if not col and erow_split(K):
             _run.split_launches += n1 - n0
+        if col and col_rows_form(K):
+            _run.row_launches += n1 - n0
     else:
         raise ValueError(f"{fn}: no path for device {dev}")
 
@@ -932,7 +1023,9 @@ def stream_pcol_update(data, E, P, A, acc_P, Mu_p, Sigmasq_p, P_prior, U,
     proposal's two uniforms and the acceptance uniform of every column;
     accept_all (C,) bool. On the card: two passes over the G tiles per
     column (counted in ``_run.launches``), each with its finishing kernel,
-    all enqueued by one C call; the prior is an argument of the same
+    all enqueued by one C call; from 192 rows on one launch a column in the
+    row form (still counted as two passes in ``_run.launches``, and once
+    in ``_run.row_launches``); the prior is an argument of the same
     kernels."""
     _update("stream_pcol_update", True, data, E, P, A, acc_P, Mu_p,
             Sigmasq_p, P_prior, U, accept_all, n_nan, n0, n1, prior)
@@ -960,9 +1053,10 @@ def stream_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,
     prior log-odds, ``temperature`` a number or a one-element tensor,
     u (C, N). Returns the deltas (C, N) before the penalty, of columns
     n0..n1-1 (the other columns' entries are undefined). On the card: a pass
-    over the G tiles and a finishing kernel per column (counted one launch
-    per column in ``stream_acol_update.launches``), all enqueued by one C
-    call."""
+    over the G tiles (from 192 rows on over blocks of rows, the row form,
+    also counted in ``stream_acol_update.row_launches``) and a finishing
+    kernel per column (counted one launch per column in
+    ``stream_acol_update.launches``), all enqueued by one C call."""
     fn = "stream_acol_update"
     C, K, N = P.shape
     G = E.shape[2]
@@ -987,12 +1081,15 @@ def stream_acol_update(data, E, P, A, logit_p1, temperature, u, n_nan,
         delta = _launch_acol_update(data, E, P, A, logit_p1, temperature, u,
                                     n_nan, penalty, n0, n1)
         stream_acol_update.launches += n1 - n0
+        stream_acol_update.row_launches += (n1 - n0) * col_rows_form(K)
     else:
         raise ValueError(f"{fn}: no path for device {dev}")
     return delta
 
 
 stream_acol_update.launches = 0
+#: of those, the columns in the row form (``col_rows_form``)
+stream_acol_update.row_launches = 0
 
 
 def special_functions(x, which: str):
@@ -1012,6 +1109,7 @@ def special_functions(x, which: str):
 
 def reset_launch_counts():
     """Set every stream kernel's launch count to 0."""
-    _run.launches = _run.split_launches = 0
+    _run.launches = _run.split_launches = _run.row_launches = 0
     acol_delta.launches = chain_metrics.launches = 0
-    stream_acol_update.launches = stream_metrics_row.launches = 0
+    stream_metrics_row.launches = 0
+    stream_acol_update.launches = stream_acol_update.row_launches = 0

@@ -15,15 +15,19 @@ allocation (Philox mode) at (96,5,100), (96,8,2780) and (96,20,10000), and
 at (96,20,10000,8) the P-column, E-row and A-column updates a column and
 the metrics row; and the large-K forms' shapes: the fused kernel at
 (192,40,2780), (288,20,1000), (1536,8,500) and (1536,20,2780) with the
-rank branch, one chain and 8, and the E-row update a row at
-(192,20,2780,8) and (1536,20,2780,8). The operands are made with numpy
-from a fixed seed and
+rank branch, one chain and 8, the E-row update a row at
+(192,20,2780,8) and (1536,20,2780,8), and the P-column and A-column
+updates a column at (192,20,2780,8), (384,20,2780,8) and (1536,20,2780,8),
+each also split by kernel (the profiler's device time a column of each
+kernel a sweep launches, by name: the G-tile form's tile and finishing
+kernels apart). The operands are made with numpy from a fixed seed and
 use only the wrappers' signatures, which are the same in every commit
 since the allocation took the chains' stream keys (``key``, ``uids``).
 """
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -119,6 +123,69 @@ def main(root: str, label: str) -> dict:
                                                    zero.clone()), 10)) / N,
                      5)
 
+    def by_kernel(fn, per, reps=10):
+        """Each stream kernel's device ms over ``per`` (a sweep's columns)
+        a call of ``fn``, by kernel name (torch.profiler); the operands'
+        copies are left out."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        res = {}
+        for e in prof.key_averages():
+            name = re.search(r"(\w+_kernel)\b", e.key)
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if name and us > 0 and "elementwise" not in name.group(1):
+                key = name.group(1)
+                res[key] = round(res.get(key, 0.0) + us / 1e3 / reps / per,
+                                 5)
+        return res
+
+    def column_times(K, N, G, C):
+        """A P-column and an A-column update's ms a column: a sweep's N
+        columns less the clones each call makes (CUDA events or the
+        profiler, as ``ms``), and split by kernel."""
+        Pt = rng.dirichlet(np.ones(K) * 0.5, N).T * 50.0
+        Et = rng.gamma(2.0, 2.0, (N, G))
+        data = T(rng.poisson(Pt @ Et).astype(f32))
+        P = T((Pt * rng.uniform(0.5, 1.5, (C, K, N))).astype(f32))
+        E = T((Et * rng.uniform(0.5, 1.5, (C, N, G))).astype(f32))
+        A = T(np.ones((C, N), f32))
+        acc = T(np.full((C, K, N), 0.5, f32))
+        mu = T(rng.normal(0, 1, (C, K, N)).astype(f32))
+        sq = T(rng.gamma(2, 2, (C, K, N)).astype(f32))
+        pr = T(rng.gamma(2, 1, (C, K, N)).astype(f32))
+        U = T(rng.uniform(1e-6, 1, (C, 3, N, K)).astype(f32))
+        flags = torch.arange(C, device=dev) % 2 == 1
+        zero = torch.zeros(C, device=dev)
+        Aa = T((rng.uniform(size=(C, N)) < 0.6).astype(f32))
+        logit = torch.zeros(C, device=dev)
+        ua = T(rng.uniform(1e-6, 1, (C, N)).astype(f32))
+
+        def pcol():
+            S.stream_pcol_update(data, E, P.clone(), A, acc.clone(), mu, sq,
+                                 pr, U, flags, zero.clone())
+
+        def acol():
+            S.stream_acol_update(data, E, P, Aa.clone(), logit, 1e-4, ua,
+                                 zero.clone(), 100.0)
+
+        shape = (K, N, G, C)
+        out[f"pcol_update per column {shape}"] = round(
+            (ms(pcol, 10) - ms(lambda: (P.clone(), acc.clone(),
+                                        zero.clone()), 10)) / N, 5)
+        out[f"pcol kernels per column {shape}"] = by_kernel(pcol, N)
+        out[f"acol_update per column {shape}"] = round(
+            (ms(acol, 10) - ms(lambda: (Aa.clone(), zero.clone()), 10)) / N,
+            5)
+        out[f"acol kernels per column {shape}"] = by_kernel(acol, N)
+
     uids = torch.zeros(1, dtype=torch.int64, device=dev)
     for (K, N, G) in ((96, 5, 100), (96, 8, 2780), (96, 20, 10000)):
         P = T(rng.gamma(2.0, 1.0, (K, N)).astype(f32))
@@ -189,6 +256,9 @@ def main(root: str, label: str) -> dict:
             fused_case(K, N, G, rank, C), 10)
     for (K, N, G, C) in ((192, 20, 2780, 8), (1536, 20, 2780, 8)):
         out[f"erow_update per column {(K, N, G, C)}"] = erow_time(K, N, G, C)
+    for (K, N, G, C) in ((192, 20, 2780, 8), (384, 20, 2780, 8),
+                         (1536, 20, 2780, 8)):
+        column_times(K, N, G, C)
     print("AB " + json.dumps(out), flush=True)
     return out
 

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3b,15]
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero. With
+``--phases`` (a comma-separated subset of 3, 3b, 3c, 3d, 4, ..., 15)
+the card, the build and the chosen phases run, the kernels line holding
+the entries whose phases ran (phase 14 runs phase 11's 1x2 workers for
+their draws when 11 is not chosen); without it every phase runs:
 
 1. the card (nvidia-smi name and power limit), torch's CUDA and nvcc;
 2. build the kernels from bayesnmf_tpu_torch/csrc (one nvcc per source,
@@ -211,12 +215,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    E row's split form at its first K and at a 64-wide register tile), as
    in phase 3b; each timed beside its bound and its plain version, and the
    E-row sweep timed in both forms either side of their line (CUDA
-   events); (b) on a 1536x2780 rank-8 catalogue (phase 4's recipe, E ~
+   events); the P and A columns' row form (K >= 192) also at
+   (384,20,2780,8) with an inactive column, (1530,8,1001,4) (a cluster of
+   two blocks, a K no block's 32 rows and a G no tile width divides, an
+   excluded column; and with the exponential prior) and (192,80,300,2)
+   (the 128-wide register tile), as in phase 3b; (b) on a 1536x2780 rank-8 catalogue (phase 4's recipe, E ~
    Gamma(2, 8000)): ``fit`` over ranks 1..20 with default flags (the fused
    kernel, SBFI; 600 iterations) and an 8-chain ``ChainEnsemble`` over
-   ranks 1..20 (the stream kernels by the auto policy; 300 iterations),
-   each with every launch count exact, no plain version called, metrics
-   finite and a matched min cosine of MAP P >= 0.9; a conjugate rank-80
+   ranks 1..20 (the stream kernels by the auto policy; 300 iterations;
+   every P and A column of every step in the row form, every E row in the
+   split form), each with every launch count exact, no plain version
+   called, metrics finite and a matched min cosine of MAP P >= 0.9; a
+   conjugate rank-80
    ``fit`` at 96x2780 and two conjugate steps at (1536, 80, 2780) (the
    allocation launched once a step, + 1 at the fit's start).
 
@@ -1546,7 +1556,7 @@ def compare_allocation(torch, AL, card):
 # ---------------------------------------------------------------------------
 
 ENS_K, ENS_G, ENS_TRUE_RANK, ENS_MAX_RANK, ENS_CHAINS = 96, 10000, 8, 20, 8
-ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=800, maxiters=1200,
+ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=500, maxiters=800,
               Ninarow_nochange=3, Ninarow_nobest=5)
 ENS_POST_WARMUP = 200
 
@@ -1770,7 +1780,7 @@ def run_rank_learning(torch, bt, FS, S, AL, gibbs, card):
     return launches
 
 
-CONFIG1_CC = dict(MAP_over=500, MAP_every=100, miniters=500, maxiters=1500,
+CONFIG1_CC = dict(MAP_over=300, MAP_every=100, miniters=300, maxiters=1500,
                   Ninarow_nochange=3, Ninarow_nobest=5)
 
 
@@ -1790,7 +1800,7 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
             t0 = time.perf_counter()
             s = bt.fit(M, 5, prior="exponential", MH=MH, device="cuda",
                        output_dir=os.path.join(tmp, "fit"),
-                       convergence_control=cc, post_warmup=500, seed=0)
+                       convergence_control=cc, post_warmup=300, seed=0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counters(FS, S, AL)
@@ -1813,7 +1823,7 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
             alloc_launches = alloc
         cos = matched_cosines(np.asarray(s.MAP["P"]), P_true)
         check(cos.min() >= 0.9, f"{label}: matched cosine too low: {cos}")
-        (loop,), _, _ = loop_rates(torch, gibbs, s, 500)
+        (loop,), _, _ = loop_rates(torch, gibbs, s, 300)
         print(f"{label}: fit(96x100, rank 5) ran {steps} iterations "
               f"({s.tracker.why}); launches fused {fused}, allocation "
               f"{alloc}, draw kernel {draws}; MAP matched cosine min "
@@ -1827,10 +1837,10 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
     s = bt.GibbsSampler(M4, 8, prior="exponential", MH=False, device="cuda",
                         convergence_control=bt.ConvergenceControl(
                             maxiters=600, miniters=0), seed=0)
-    (rate,), state, _ = loop_rates(torch, gibbs, s, 500)
+    n_loop, n_prof = 200, 20
+    (rate,), state, _ = loop_rates(torch, gibbs, s, n_loop)
     from torch.profiler import ProfilerActivity, profile
 
-    n_prof = 50
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1846,7 +1856,7 @@ def run_exponential(torch, bt, FS, S, AL, gibbs, card):
     waits = [e for e in ka if e.key == "aten::_local_scalar_dense"]
     n_waits = sum(e.count for e in waits)
     wait_us = sum(e.cpu_time_total for e in waits)
-    print(f"conjugate loop at 96x2780, rank 8: {rate:.1f} it/s (500 "
+    print(f"conjugate loop at 96x2780, rank 8: {rate:.1f} it/s ({n_loop} "
           f"iterations) on {card}", flush=True)
     if dev_us > 0:
         print(f"conjugate loop: profiled {n_prof} iterations: device busy "
@@ -1893,14 +1903,13 @@ EAGER_CASES = {
 EAGER_K, EAGER_G, EAGER_RANK = 96, 500, 8
 EAGER_RTOL, EAGER_ATOL = 1e-3, 1e-4
 EAGER_WARMUP = 30
-EAGER_CC = dict(MAP_over=500, MAP_every=100, miniters=500, maxiters=1500,
+EAGER_CC = dict(MAP_over=200, MAP_every=100, miniters=200, maxiters=400,
                 Ninarow_nochange=3, Ninarow_nobest=5)
-# the eager fits' depth, cut to make room for phase 15 within the script's
-# time (the Normal SBFI fit ran 899 iterations of maxiters 1000, the three
-# fits at 96x500 a post-warmup of 500)
-EAGER_POST_WARMUP, EAGER_LOOP = 300, 100
-EAGER_SBFI_G, EAGER_SBFI_CC = 1000, dict(MAP_over=300, MAP_every=100,
-                                         miniters=300, maxiters=500,
+# the eager fits' depth, cut to keep the script within its time: each fit
+# at 96x500 recovers P to a matched cosine of 0.98 or more within it
+EAGER_POST_WARMUP, EAGER_LOOP = 100, 100
+EAGER_SBFI_G, EAGER_SBFI_CC = 1000, dict(MAP_over=100, MAP_every=100,
+                                         miniters=100, maxiters=200,
                                          Ninarow_nochange=3,
                                          Ninarow_nobest=5)
 
@@ -2123,10 +2132,10 @@ BIC_G, BIC_CC, BIC_POST = 1000, dict(MAP_over=300, MAP_every=100,
 EXP_ENS_CC, EXP_ENS_POST = dict(MAP_over=200, MAP_every=100, miniters=400,
                                 maxiters=800, Ninarow_nochange=3,
                                 Ninarow_nobest=5), 200
-CONJ_ENS_CC = dict(MAP_over=300, MAP_every=100, miniters=400, maxiters=800,
+CONJ_ENS_CC = dict(MAP_over=300, MAP_every=100, miniters=300, maxiters=500,
                    Ninarow_nochange=3, Ninarow_nobest=5)
-NORMAL_ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=300,
-                     maxiters=600, Ninarow_nochange=3, Ninarow_nobest=5)
+NORMAL_ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=200,
+                     maxiters=400, Ninarow_nochange=3, Ninarow_nobest=5)
 LOOP_CHAINS = (8, 64)
 
 
@@ -2467,14 +2476,14 @@ GAMMA_WARMUP = 30
 GAMMA_K, GAMMA_G, GAMMA_RANK = 96, 500, 8
 GAMMA_HYPER_RTOL = 1e-4
 # (c) fits
-GAMMA_EXAMPLE_CC = dict(MAP_over=300, MAP_every=100, miniters=600,
-                        maxiters=900)
+GAMMA_EXAMPLE_CC = dict(MAP_over=200, MAP_every=100, miniters=400,
+                        maxiters=600)
 GAMMA_FIT_G = 2780
-GAMMA_FIT_CC = dict(MAP_over=200, MAP_every=100, miniters=300, maxiters=500,
+GAMMA_FIT_CC = dict(MAP_over=200, MAP_every=100, miniters=200, maxiters=300,
                     Ninarow_nochange=3, Ninarow_nobest=5)
 GAMMA_SBFI_G = 1000
-GAMMA_SBFI_CC = dict(MAP_over=200, MAP_every=100, miniters=300,
-                     maxiters=500, Ninarow_nochange=3, Ninarow_nobest=5)
+GAMMA_SBFI_CC = dict(MAP_over=100, MAP_every=100, miniters=100,
+                     maxiters=200, Ninarow_nochange=3, Ninarow_nobest=5)
 GAMMA_ENS_CHAINS = 8
 GAMMA_ENS_CC = dict(MAP_over=200, MAP_every=100, miniters=200, maxiters=300,
                     Ninarow_nochange=3, Ninarow_nobest=5)
@@ -2811,8 +2820,10 @@ def run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate):
         resume_check(torch, bt, gibbs, s, "recorded fused fit")
     print(f"recorded fused fit(96x500, rank 8, record_history='full') ran "
           f"{steps} iterations: {steps / wall:.1f} it/s for the whole fit "
-          f"({wall:.2f} s) against phase 4's {slice_rate:.1f} (basic) in "
-          f"this call; archive {len(s._archive)} chunks, resumed with it "
+          f"({wall:.2f} s) against phase 4's "
+          + (f"{slice_rate:.1f} (basic) in this call"
+             if slice_rate is not None else "(not run in this call)")
+          + f"; archive {len(s._archive)} chunks, resumed with it "
           f"on {card}", flush=True)
 
 
@@ -2828,7 +2839,7 @@ MESH_SEEDS = {"exponential": 11, "gamma": 12, "eager": 13, "ensemble": 14,
               "resume": 15, "reject": 16, "draws": 17}
 # the conjugate Poisson-Exponential loop that runs through the gamma draws'
 # rejection loop on the 1x2 mesh
-MESH_LOOP_STEPS = 200
+MESH_LOOP_STEPS = 50
 
 
 def mesh_data(G, seed=0):
@@ -3512,12 +3523,17 @@ GEWEKE_PROD = dict(gate="fused-truncnormal", shape=(96, 8, 500), chains=16,
 GEWEKE_CHUNK = 8        # chains a worker task runs
 GEWEKE_WORKERS = 8
 GEWEKE_TIMEOUT = 600
-# host-paced gates that run fewer chains than the CPU tests' C = 64, at the
-# same bound, to hold the phase to ~3 min: the conjugate steps' gamma draws
-# and slice sampler and the stream step's 3N column launches take 11-27 ms
-# a chain-step (NVIDIA H100 80GB HBM3, 700 W)
-GEWEKE_CHAINS = {"conjugate-gamma": 32, "conjugate-exponential": 32,
-                 "stream": 32}
+# host-paced gates that run fewer chains than the CPU tests' C = 64 and
+# fewer steps than their T = 250, at the same bound, to hold the phase to
+# ~2 min: the conjugate steps' gamma draws and slice sampler, the stream
+# step's 3N column launches and the rank branch take 10-29 ms a chain-step
+# (NVIDIA H100 80GB HBM3, 700 W). The reference kernels' gates keep the
+# CPU tests' depth: their |z| must exceed the bound (7.3 for the hypers'
+# at that depth).
+GEWEKE_CHAINS = {"conjugate-gamma": 16, "conjugate-exponential": 16,
+                 "stream": 16, "bfi-fused": 32, "exponential-mh-fused": 32}
+GEWEKE_STEPS = {gate: 150 for gate in GEWEKE_GATES
+                if not gate.startswith("reference")}
 # host cost of a chain-step relative to the fused truncnormal one (chip
 # run, 64 chains x 250 steps of each), for spreading the tasks
 GEWEKE_COST = {"conjugate-gamma": 14.0, "conjugate-exponential": 7.0,
@@ -3534,7 +3550,8 @@ def geweke_tasks():
     for gate in GEWEKE_GATES:
         n = GEWEKE_CHAINS.get(gate, TG.C)
         for c0 in range(0, n, GEWEKE_CHUNK):
-            tasks.append((gate, c0, min(c0 + GEWEKE_CHUNK, n), TG.T, False))
+            tasks.append((gate, c0, min(c0 + GEWEKE_CHUNK, n),
+                          GEWEKE_STEPS.get(gate, TG.T), False))
     for c0 in range(0, GEWEKE_PROD["chains"], GEWEKE_CHUNK):
         tasks.append((GEWEKE_PROD["gate"], c0, min(
             c0 + GEWEKE_CHUNK, GEWEKE_PROD["chains"]), GEWEKE_PROD["steps"],
@@ -3609,8 +3626,9 @@ def spread(tasks, n):
 
 def run_geweke(torch, card, device="cuda"):
     """Phase 12: the Geweke gates of tests/test_torch_geweke.py with the
-    kernels on the card, C = 64 chains (GEWEKE_CHAINS for the slowest
-    host-paced ones) x T = 250 steps each against 4096 prior draws, |z| < 6 (the reference kernels' gates max |z| > 6 with the
+    kernels on the card, C = 64 chains x T = 250 steps each (GEWEKE_CHAINS
+    and GEWEKE_STEPS for the host-paced ones) against 4096 prior draws,
+    |z| < 6 (the reference kernels' gates max |z| > 6 with the
     JAX signs), and the production-scale fused gate at (96,8,500), 16
     chains x 100 steps against 1024 draws, |z| < 8. The chains run as
     tasks of GEWEKE_CHUNK over GEWEKE_WORKERS processes (each step is
@@ -3744,7 +3762,8 @@ BENCH_CELLS = {
                               loop_iters=100,
                               loop_reps=1, prof_iters=10, kernel_reps=50,
                               layer_reps=2, trace=True),
-    "cj_fit_96x2780_k8_expo": dict(fits=1, warmups=1,
+    "cj_fit_96x2780_k8_expo": dict(maxiters=300, MAP_over=100, MAP_every=50,
+                                   fits=1, warmups=1,
                                    loop_iters=50, loop_reps=1,
                                    loop_warmup=10, prof_iters=5,
                                    kernel_reps=20, layer_reps=2, trace=True),
@@ -3758,7 +3777,7 @@ BENCH_CONFIGS = {
     1: dict(iters=200, reps=1, baseline_iters=1),
     2: dict(iters=200, reps=1, baseline_iters=1),
     3: dict(iters=100, reps=1, baseline_iters=1),
-    4: dict(maxiters=600, miniters=300, post_warmup=200),
+    4: dict(maxiters=400, miniters=200, post_warmup=200),
     5: dict(iters=5, full_iters=2),
 }
 
@@ -4077,6 +4096,18 @@ CAT_STREAM = [(1536, 20, 2780, 8, None), (96, 80, 10000, 2, None),
 EROW_FORMS_TIMED = [(96, 20, 2780, 8), (192, 20, 2780, 8),
                     (1536, 20, 2780, 8)]
 CAT_STREAM_TIMED = [(1536, 20, 2780, 8), (96, 80, 10000, 2)]
+# (K, N, G, chains, A, options): the P and A columns' row form (K >= 192)
+# beyond the CAT_STREAM shapes, whose (1536,20,2780,8) takes a cluster of
+# one block, the others of 4 or 8: an inactive P column (an all-zero E row)
+# whose flag crosses a cluster of 4 blocks; a cluster of 2 at a K and a G
+# that no block's rows and no tile width divide, with an excluded column;
+# the 128-wide register tile; and (ROWS_EXP) the exponential prior in the
+# same kernels
+ROWS_CASES = [(384, 20, 2780, 8, None, ("inactive",)),
+              (1530, 8, 1001, 4, (1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0),
+               ()),
+              (192, 80, 300, 2, None, ())]
+ROWS_EXP = [(1530, 8, 1001, 4, None, ())]
 CAT_ALLOC = [(96, 80, 2780), (1536, 80, 2780)]
 # the planes mode's check at n2 = 128 (the uniform operand of the main
 # path's shapes would take 2.3 GB and 37 GB)
@@ -4254,7 +4285,7 @@ def compare_catalogue_stream(torch, S, U, card):
     CAT_STREAM_TIMED. Returns {timed shape: (sums, row, updates, acol)}."""
     cases = [c + (None,) for c in CAT_STREAM]
     ucases = [c + ((),) for c in CAT_STREAM]
-    for (K, N, G, C, _) in CAT_STREAM:
+    for (K, N, G, C, _) in CAT_STREAM + [c[:5] for c in ROWS_CASES]:
         print(f"stream tiles at catalogue (K,N,G,C)={(K, N, G, C)}: G tile "
               f"{S.col_tile(K, N)} wide, register tile {S.tile_width(N)}, "
               + (f"E row in the split form, a cluster of "
@@ -4262,7 +4293,12 @@ def compare_catalogue_stream(torch, S, U, card):
                  f"{S.erow_rows(K, N)} rows of P*A each at once"
                  if S.erow_split(K) else
                  f"E row in the whole form, P*A's {S.erow_rows(K, N)} rows "
-                 "staged"), flush=True)
+                 "staged") + "; P and A columns "
+              + (f"in the row form, a grid of {S.rows_grid(K, C)} blocks "
+                 f"in clusters of {S.rows_parts(K, C)} along G, "
+                 f"{S.rows_tile(N)}-wide ring slots"
+                 if S.col_rows_form(K) else "in the G-tile form"),
+              flush=True)
     out = {}
     for i, timed in enumerate(CAT_STREAM_TIMED):
         # every case is compared once; each timed shape is timed
@@ -4277,6 +4313,16 @@ def compare_catalogue_stream(torch, S, U, card):
             compare_metrics_rows(torch, S, card, cases=sub, timed=timed),
             compare_stream_updates(torch, S, card, cases=usub, timed=timed),
             compare_acol_updates(torch, S, U, card, cases=usub, timed=timed))
+    # the row form's own cases, and the calls of both row kernels counted
+    rows0 = S._run.row_launches, S.stream_acol_update.row_launches
+    compare_stream_kernels(torch, S, card, [c[:5] for c in ROWS_CASES],
+                           None)
+    compare_stream_updates(torch, S, card, cases=ROWS_CASES, timed=None)
+    compare_acol_updates(torch, S, U, card, cases=ROWS_CASES, timed=None)
+    compare_stream_updates(torch, S, card, "exponential", ROWS_EXP, None)
+    check(S._run.row_launches > rows0[0]
+          and S.stream_acol_update.row_launches > rows0[1],
+          "the row form's cases did not run the row kernels")
     return out
 
 
@@ -4376,17 +4422,23 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
               f"catalogue ensemble: {S._run.split_launches} E rows in the "
               f"split form of {S._run.launches // 3}")
         print(f"catalogue ensemble: {S._run.split_launches} E-row launches, "
-              f"all in the split form", flush=True)
+              f"all in the split form; {S._run.row_launches} P columns and "
+              f"{S.stream_acol_update.row_launches} A columns in the row "
+              "form", flush=True)
         N = CAT_MAX
         ens_launches = {"_run": S._run.launches,
                         "stream_acol_update": S.stream_acol_update.launches,
                         "stream_metrics_row": S.stream_metrics_row.launches,
                         "acol_delta": S.acol_delta.launches,
                         "chain_metrics": S.chain_metrics.launches,
-                        "rng": counts["rng"]}
+                        "rng": counts["rng"],
+                        "pcol rows": S._run.row_launches,
+                        "acol rows": S.stream_acol_update.row_launches}
+        # every P and A column of every step in the row form
         report_run(torch, CH, ens, "catalogue ensemble", wall, ens_launches,
                    {"_run": (3 * N, 0), "stream_acol_update": (N, 0),
-                    "stream_metrics_row": (1, 0)}, P_true, card)
+                    "stream_metrics_row": (1, 0), "pcol rows": (N, 0),
+                    "acol rows": (N, 0)}, P_true, card)
         launches["ensemble"] = ens_launches
         del ens
 
@@ -4476,6 +4528,18 @@ def catalogue_kernels(cat, launches):
                  "route": "cuda", "source": src, "replaces": f"{pss}:370",
                  "launches": ens["_run"] // 3,
                  **{k: erow[k] for k in keys}, "library_ms": None})
+    # the P and A columns' row form at the SBS-1536 ensemble's shape, its
+    # launches the ensemble's columns (all of them in the row form)
+    pcol = cat["stream"][timed][2]["pcol_update"]
+    rows.append({"name": f"stream_pcol_update (row form) at {timed}",
+                 "route": "cuda", "source": src, "replaces": f"{pss}:344",
+                 "launches": ens["pcol rows"],
+                 **{k: pcol[k] for k in keys}, "library_ms": None})
+    acol = cat["stream"][timed][3]
+    rows.append({"name": f"stream_acol_update (row form) at {timed}",
+                 "route": "cuda", "source": src, "replaces": f"{pss}:234",
+                 "launches": ens["acol rows"],
+                 **{k: acol[k] for k in keys}, "library_ms": None})
     for shape, (sums, row, updates, acol) in cat["stream"].items():
         mean = lambda key: float(np.mean(  # noqa: E731
             [u[key] for u in updates.values()]))
@@ -4506,11 +4570,34 @@ def catalogue_kernels(cat, launches):
     return rows
 
 
+#: the phases after the card and the build, in the order they run
+PHASES = ("3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10", "11",
+          "12", "13", "14", "15")
+
+
+def chosen_phases(argv) -> tuple:
+    """``--phases 3b,15`` (a comma-separated subset of PHASES; phases 1 and
+    2, the card and the build, always run): the phases to run, in order;
+    every phase without the option."""
+    if "--phases" not in argv:
+        return PHASES
+    i = argv.index("--phases")
+    names = argv[i + 1].split(",") if i + 1 < len(argv) else []
+    names = [n for n in names if n not in ("1", "2")]
+    bad = [n for n in names if n not in PHASES]
+    if bad or not names and i + 1 >= len(argv):
+        raise SystemExit(f"chip_smoke: --phases takes a comma-separated "
+                         f"subset of {', '.join(('1', '2') + PHASES)}; got "
+                         f"{argv[i + 1:i + 2]}")
+    return tuple(p for p in PHASES if p in names)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--geweke-worker"]:
         return geweke_worker(sys.argv[2:])
+    phases = chosen_phases(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -4528,6 +4615,7 @@ def main() -> int:
     from bayesnmf_tpu_torch.models import updates as U
     from bayesnmf_tpu_torch.ops import stream_sweeps as S
 
+    t_start = time.perf_counter()
     # phase 1: the card and the toolchain
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4536,251 +4624,321 @@ def main() -> int:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True)
     print("nvcc: " + nvcc.stdout.strip().splitlines()[-1], flush=True)
+    print(f"phases: 1, 2, {', '.join(phases)}", flush=True)
 
     # phase 2: build
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
-          f"{len(_build.sources())} source(s), one nvcc each, in parallel",
-          flush=True)
+          f"{len(_build.sources())} source(s), one nvcc each, in parallel ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(
+              _build.compile_seconds.items(), key=lambda kv: -kv[1]))
+          + ")", flush=True)
 
-    # phase 3: the fused kernel against its plain version, and its
-    # fixed-rank form
-    max_err, times = compare_kernel(torch, FS)
-    pe = compare_pe_sweeps(torch, FS, card)
-    for shape, (k_ms, w_ms, p_ms) in times.items():
-        print(f"time per call at (K,N,G)={shape}: kernel {k_ms:.4f} ms on "
-              f"the device ({w_ms:.4f} ms per call through the wrapper), "
-              f"plain PyTorch {p_ms:.4f} ms, bound "
-              f"{fused_bound(*shape)[0]:.4f} ms, on {card}", flush=True)
+    r = {}          # each phase's results, by name
+    walls = {}      # each phase's seconds
 
-    # phase 3b: the streaming kernels against their plain versions
-    stream = compare_stream_kernels(torch, S, card)
-    row = compare_metrics_rows(torch, S, card)
-    check(compare_special(torch, S) == (0, 0),
-          "the kernels' ndtri, log_ndtr, ndtr or sigmoid differ from the "
-          "PyTorch calls")
-    updates = compare_stream_updates(torch, S, card)
-    acol = compare_acol_updates(torch, S, U, card)
+    def phase(name, fn):
+        if name in phases:
+            t = time.perf_counter()
+            fn()
+            walls[name] = time.perf_counter() - t
+            print(f"phase {name}: {walls[name]:.1f} s", flush=True)
 
-    # phase 3c: the fused kernel's rank branch, exponential prior and
-    # reference-parity ratio against the plain version
-    branch_err, branch_times = compare_branches(torch, FS, card)
+    def p3():
+        # the fused kernel against its plain version, and its fixed-rank
+        # form
+        r["max_err"], times = compare_kernel(torch, FS)
+        r["pe"] = compare_pe_sweeps(torch, FS, card)
+        for shape, (k_ms, w_ms, p_ms) in times.items():
+            print(f"time per call at (K,N,G)={shape}: kernel {k_ms:.4f} ms "
+                  f"on the device ({w_ms:.4f} ms per call through the "
+                  f"wrapper), plain PyTorch {p_ms:.4f} ms, bound "
+                  f"{fused_bound(*shape)[0]:.4f} ms, on {card}", flush=True)
 
-    # phase 3d: the allocation kernel against its plain version
-    alloc = compare_allocation(torch, AL, card)
+    def p3b():
+        # the streaming kernels against their plain versions
+        r["stream"] = compare_stream_kernels(torch, S, card)
+        r["row"] = compare_metrics_rows(torch, S, card)
+        check(compare_special(torch, S) == (0, 0),
+              "the kernels' ndtri, log_ndtr, ndtr or sigmoid differ from the "
+              "PyTorch calls")
+        r["updates"] = compare_stream_updates(torch, S, card)
+        r["acol"] = compare_acol_updates(torch, S, U, card)
 
-    # phase 4: the fixed-rank slice
-    slice_rate = run_slice(torch, bt, FS, gibbs, card)
+    def p3c():
+        # the fused kernel's rank branch, exponential prior and
+        # reference-parity ratio against the plain version
+        r["branch_err"], r["branch_times"] = compare_branches(torch, FS, card)
 
-    # phase 5: the ensemble slice
-    ens_launches = run_ensemble(torch, bt, S, card)
+    def p3d():
+        r["alloc"] = compare_allocation(torch, AL, card)
 
-    # phase 6: rank learning through the fused kernel
-    rank_launches = run_rank_learning(torch, bt, FS, S, AL, gibbs, card)
+    def p4():
+        r["slice_rate"] = run_slice(torch, bt, FS, gibbs, card)
 
-    # phase 7: the exponential prior with MH and conjugate Gibbs
-    alloc_launches = run_exponential(torch, bt, FS, S, AL, gibbs, card)
+    def p5():
+        r["ens_launches"] = run_ensemble(torch, bt, S, card)
 
-    # phase 8: the eager sweeps and the Normal likelihood
-    run_eager(torch, bt, FS, S, AL, gibbs, card)
+    def p6():
+        r["rank_launches"] = run_rank_learning(torch, bt, FS, S, AL, gibbs,
+                                               card)
 
-    # phase 9: the ensemble slice
-    t9 = time.perf_counter()
-    ens_kernel = compare_ensemble_kernel(torch, FS, card)
-    exp_updates = compare_stream_updates(torch, S, card, "exponential",
-                                         EXP_UPDATE_CASES)
-    exp_row = compare_metrics_rows(torch, S, card, "exponential",
-                                   EXP_ROW_CASES)
-    ens_alloc = compare_ensemble_allocation(torch, bt, AL, card)
-    p9_launches = run_ensembles(torch, bt, FS, S, AL, card)
-    print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    def p7():
+        r["alloc_launches"] = run_exponential(torch, bt, FS, S, AL, gibbs,
+                                              card)
 
-    # phase 10: the Poisson-Gamma family and the recording surface
-    t10 = time.perf_counter()
-    gamma_alloc, gamma_launches = run_gamma(torch, bt, FS, S, AL, gibbs,
-                                            card)
-    run_recording(torch, bt, FS, S, AL, gibbs, card, slice_rate)
-    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+    def p8():
+        run_eager(torch, bt, FS, S, AL, gibbs, card)
 
-    # phase 11: distributed runs
-    t11 = time.perf_counter()
-    mesh_alloc, mesh_launches, mesh_ranks = run_mesh(torch, bt, AL, gibbs,
-                                                     card)
-    print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+    def p9():
+        r["ens_kernel"] = compare_ensemble_kernel(torch, FS, card)
+        r["exp_updates"] = compare_stream_updates(
+            torch, S, card, "exponential", EXP_UPDATE_CASES)
+        r["exp_row"] = compare_metrics_rows(torch, S, card, "exponential",
+                                            EXP_ROW_CASES)
+        r["ens_alloc"] = compare_ensemble_allocation(torch, bt, AL, card)
+        r["p9_launches"] = run_ensembles(torch, bt, FS, S, AL, card)
 
-    # phase 12: the Geweke gates with the kernels on the card
-    t12 = time.perf_counter()
-    geweke = run_geweke(torch, card)
-    print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    def p10():
+        r["gamma_alloc"], r["gamma_launches"] = run_gamma(
+            torch, bt, FS, S, AL, gibbs, card)
+        run_recording(torch, bt, FS, S, AL, gibbs, card,
+                      r.get("slice_rate"))
 
-    # phase 13: the benchmark at short windows
-    t13 = time.perf_counter()
-    run_bench(card)
-    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    def p11():
+        (r["mesh_alloc"], r["mesh_launches"],
+         r["mesh_ranks"]) = run_mesh(torch, bt, AL, gibbs, card)
 
-    # phase 14: the chains' counter-based streams
-    rng_row = run_rng(torch, bt, gibbs, card, mesh_ranks)
+    def p12():
+        r["geweke"] = run_geweke(torch, card)
 
-    # phase 15: catalogue shapes
-    cat, cat_launches = run_catalogue(torch, bt, FS, S, AL, U, gibbs, card)
+    def p13():
+        run_bench(card)
+
+    def p14():
+        # without phase 11, its 1x2 workers run here for their draws
+        ranks = r.get("mesh_ranks") or spawn_mesh(
+            1, 2, tempfile.mkdtemp(prefix="bayesnmf_mesh_"))
+        r["rng_row"] = run_rng(torch, bt, gibbs, card, ranks)
+
+    def p15():
+        r["cat"], r["cat_launches"] = run_catalogue(torch, bt, FS, S, AL, U,
+                                                    gibbs, card)
+
+    for name, fn in (("3", p3), ("3b", p3b), ("3c", p3c), ("3d", p3d),
+                     ("4", p4), ("5", p5), ("6", p6), ("7", p7), ("8", p8),
+                     ("9", p9), ("10", p10), ("11", p11), ("12", p12),
+                     ("13", p13), ("14", p14), ("15", p15)):
+        phase(name, fn)
 
     check("jax" not in sys.modules, "the port imported jax")
     check("bayesnmf_tpu" not in sys.modules,
           "the port imported the JAX package")
-    # the fused kernel at the rank-learning path's shape, rank branch on
-    k_ms, _, p_ms = branch_times["rank"]
-    b_ms, b_by = fused_bound(*RANK_TIMED, rank=True)
-    kernels = [{
-        "name": "fused_gibbs_sweeps", "route": "cuda",
-        "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
-        "launches": rank_launches, "max_abs_err": max(max_err, branch_err),
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]
-    src = "bayesnmf_tpu_torch/csrc/stream_sweeps.cu"
-    pss = "bayesnmf_tpu/ops/pallas_stream_sweeps.py"
-    # _run's kernels reach the main path through the column updates; its
-    # entry is the mean of a P-column and an E-row update (the four
-    # sums-only bodies are timed in the lines above)
-    bodies = ("pcol_stats", "pcol_accept", "erow_stats", "erow_accept")
-    mean = lambda key: float(np.mean([u[key] for u in updates.values()]))  # noqa
-    kernels.append({
-        "name": "_run", "route": "cuda", "source": src,
-        "replaces": f"{pss}:330", "launches": ens_launches["_run"],
-        "max_abs_err": max([stream[b]["max_abs_err"] for b in bodies]
-                           + [u["max_abs_err"] for u in updates.values()]),
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": updates["pcol_update"]["bound_by"], "library_ms": None})
-    # the E row's whole form (K < 192) at the north star's shape, alone
-    erow = updates["erow_update"]
-    kernels.append({
-        "name": f"stream_erow_update (whole form) at {STREAM_TIMED}",
-        "route": "cuda", "source": src, "replaces": f"{pss}:370",
-        "launches": ens_launches["_run"] // 3,
-        **{k: erow[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by")}, "library_ms": None})
-    # acol_delta reaches the main path as the A-column update: its entry is
-    # a column update's (the sums-only form is timed in the lines above)
-    kernels.append({
-        "name": "acol_delta", "route": "cuda", "source": src,
-        "replaces": f"{pss}:220",
-        "launches": ens_launches["stream_acol_update"],
-        "max_abs_err": max(stream["acol_delta"]["max_abs_err"],
-                           acol["max_abs_err"]),
-        "ms": acol["ms"], "plain_ms": acol["plain_ms"],
-        "bound_ms": acol["bound_ms"], "bound_by": acol["bound_by"],
-        "library_ms": None})
-    # chain_metrics reaches the main path as the metrics row: its entry is
-    # the row's (the sums-only form is timed in the lines above)
-    kernels.append({
-        "name": "chain_metrics", "route": "cuda", "source": src,
-        "replaces": f"{pss}:272",
-        "launches": ens_launches["stream_metrics_row"],
-        "max_abs_err": max(stream["chain_metrics"]["max_abs_err"],
-                           row["max_abs_err"]),
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None})
-    kernels.append({
-        "name": "allocate_counts_fused", "route": "cuda",
-        "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
-        "launches": alloc_launches, "max_abs_err": alloc["max_abs_err"],
-        "ms": alloc["ms"], "plain_ms": alloc["plain_ms"],
-        "bound_ms": alloc["bound_ms"], "bound_by": alloc["bound_by"],
-        "library_ms": None})
-    # phase 9's cases: the fused kernel over 20 masked chains (the BIC
-    # ensemble's launches), the exponential prior in the stream kernels (the
-    # 96x10k exponential ensemble's), the allocation on a conjugate
-    # ensemble's step (that ensemble's launches)
-    bic = ens_kernel[ENS_KERNEL_CASES[-1][:4]]
-    kernels.append({
-        "name": "fused_gibbs_sweeps (ensemble of 20 masked chains)",
-        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
-        "launches": p9_launches["bic"]["fused"],
-        "max_abs_err": max(v["max_abs_err"] for v in ens_kernel.values()),
-        "ms": bic["ms"], "plain_ms": bic["plain_ms"],
-        "bound_ms": bic["bound_ms"], "bound_by": bic["bound_by"],
-        "library_ms": None})
-    emean = lambda key: float(np.mean(  # noqa: E731
-        [u[key] for u in exp_updates.values()]))
-    kernels.append({
-        "name": "_run (exponential prior)", "route": "cuda", "source": src,
-        "replaces": f"{pss}:330",
-        "launches": p9_launches["exponential"]["_run"],
-        "max_abs_err": max(u["max_abs_err"] for u in exp_updates.values()),
-        "ms": emean("ms"), "plain_ms": emean("plain_ms"),
-        "bound_ms": emean("bound_ms"),
-        "bound_by": exp_updates["pcol_update"]["bound_by"],
-        "library_ms": None})
-    kernels.append({
-        "name": "chain_metrics (exponential prior)", "route": "cuda",
-        "source": src, "replaces": f"{pss}:272",
-        "launches": p9_launches["exponential"]["stream_metrics_row"],
-        "max_abs_err": exp_row["max_abs_err"], "ms": exp_row["ms"],
-        "plain_ms": exp_row["plain_ms"], "bound_ms": exp_row["bound_ms"],
-        "bound_by": exp_row["bound_by"], "library_ms": None})
-    kernels.append({
-        "name": "allocate_counts_fused (conjugate ensemble of 8 chains)",
-        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
-        "launches": p9_launches["conjugate"]["allocation"],
-        "max_abs_err": ens_alloc["max_abs_err"], "ms": ens_alloc["ms"],
-        "plain_ms": ens_alloc["plain_ms"], "bound_ms": ens_alloc["bound_ms"],
-        "bound_by": ens_alloc["bound_by"], "library_ms": None})
-    # phase 10: the allocation on the Poisson-Gamma states of 8 chains (the
-    # 8-chain Poisson-Gamma ensemble's launches)
-    kernels.append({
-        "name": "allocate_counts_fused (Poisson-Gamma, 8 chains)",
-        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
-        "launches": gamma_launches,
-        "max_abs_err": gamma_alloc["max_abs_err"], "ms": gamma_alloc["ms"],
-        "plain_ms": gamma_alloc["plain_ms"],
-        "bound_ms": gamma_alloc["bound_ms"],
-        "bound_by": gamma_alloc["bound_by"], "library_ms": None})
-    # phase 11: the allocation on each rank's G shard of a 1x2 mesh (the
-    # 1x2 Poisson-Exponential run's launches, both ranks)
-    kernels.append({
-        "name": "allocate_counts_fused (G shard (96,8,1390) of a 1x2 mesh)",
-        "route": "cuda", "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
-        "launches": mesh_launches,
-        "max_abs_err": mesh_alloc["max_abs_err"], "ms": mesh_alloc["ms"],
-        "plain_ms": mesh_alloc["plain_ms"],
-        "bound_ms": mesh_alloc["bound_ms"],
-        "bound_by": mesh_alloc["bound_by"], "library_ms": None})
-    # the fixed-rank form over kernel 1 (phase 3's case at (96,8,500); its
-    # launches are phase 12's fused_pe_sweeps gate's)
-    kernels.append({
-        "name": "fused_pe_sweeps", "route": "cuda",
-        "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
-        "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:449",
-        "launches": geweke["fused_pe_sweeps"]["fused_pe"],
-        "max_abs_err": pe["max_abs_err"], "ms": pe["ms"],
-        "plain_ms": pe["plain_ms"], "bound_ms": pe["bound_ms"],
-        "bound_by": pe["bound_by"], "library_ms": None})
-    # the chains' draw kernel at the north-star ensemble's stream step (its
-    # launches phase 5's run's)
-    kernels.append({
-        "name": "rng", "route": "cuda",
-        "source": "bayesnmf_tpu_torch/csrc/rng.cu",
-        "replaces": "bayesnmf_tpu/parallel/chains.py:19 (per-chain threefry "
-                    "keys; XLA's draws, no pallas_call)",
-        "launches": ens_launches["rng"], "max_abs_err": rng_row["max_abs_err"],
-        "ms": rng_row["ms"], "plain_ms": rng_row["plain_ms"],
-        "bound_ms": rng_row["bound_ms"], "bound_by": rng_row["bound_by"],
-        "library_ms": rng_row["library_ms"]})
-    kernels += catalogue_kernels(cat, cat_launches)
+    kernels = kernel_entries(r)
+    print(f"phases' seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; the whole script {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_entries(r):
+    """The kernels line's entries from the phases' results ``r``: each
+    entry whose phases ran (all of them in a run of every phase)."""
+    kernels = []
+
+    def have(*keys):
+        return all(k in r for k in keys)
+
+    src = "bayesnmf_tpu_torch/csrc/stream_sweeps.cu"
+    pss = "bayesnmf_tpu/ops/pallas_stream_sweeps.py"
+    if have("branch_times", "rank_launches", "max_err", "branch_err"):
+        # the fused kernel at the rank-learning path's shape, rank branch on
+        k_ms, _, p_ms = r["branch_times"]["rank"]
+        b_ms, b_by = fused_bound(*RANK_TIMED, rank=True)
+        kernels.append({
+            "name": "fused_gibbs_sweeps", "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
+            "launches": r["rank_launches"],
+            "max_abs_err": max(r["max_err"], r["branch_err"]),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    if have("stream", "row", "updates", "acol", "ens_launches"):
+        stream, updates, acol, row = (r["stream"], r["updates"], r["acol"],
+                                      r["row"])
+        ens_launches = r["ens_launches"]
+        # _run's kernels reach the main path through the column updates;
+        # its entry is the mean of a P-column and an E-row update (the four
+        # sums-only bodies are timed in the lines above)
+        bodies = ("pcol_stats", "pcol_accept", "erow_stats", "erow_accept")
+        mean = lambda key: float(np.mean(  # noqa: E731
+            [u[key] for u in updates.values()]))
+        kernels.append({
+            "name": "_run", "route": "cuda", "source": src,
+            "replaces": f"{pss}:330", "launches": ens_launches["_run"],
+            "max_abs_err": max([stream[b]["max_abs_err"] for b in bodies]
+                               + [u["max_abs_err"]
+                                  for u in updates.values()]),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": updates["pcol_update"]["bound_by"],
+            "library_ms": None})
+        # the E row's whole form (K < 192) at the north star's shape, alone
+        erow = updates["erow_update"]
+        kernels.append({
+            "name": f"stream_erow_update (whole form) at {STREAM_TIMED}",
+            "route": "cuda", "source": src, "replaces": f"{pss}:370",
+            "launches": ens_launches["_run"] // 3,
+            **{k: erow[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None})
+        # acol_delta reaches the main path as the A-column update: its entry
+        # is a column update's (the sums-only form is timed above)
+        kernels.append({
+            "name": "acol_delta", "route": "cuda", "source": src,
+            "replaces": f"{pss}:220",
+            "launches": ens_launches["stream_acol_update"],
+            "max_abs_err": max(stream["acol_delta"]["max_abs_err"],
+                               acol["max_abs_err"]),
+            "ms": acol["ms"], "plain_ms": acol["plain_ms"],
+            "bound_ms": acol["bound_ms"], "bound_by": acol["bound_by"],
+            "library_ms": None})
+        # chain_metrics reaches the main path as the metrics row: its entry
+        # is the row's (the sums-only form is timed above)
+        kernels.append({
+            "name": "chain_metrics", "route": "cuda", "source": src,
+            "replaces": f"{pss}:272",
+            "launches": ens_launches["stream_metrics_row"],
+            "max_abs_err": max(stream["chain_metrics"]["max_abs_err"],
+                               row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
+    if have("alloc", "alloc_launches"):
+        alloc = r["alloc"]
+        kernels.append({
+            "name": "allocate_counts_fused", "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+            "launches": r["alloc_launches"],
+            "max_abs_err": alloc["max_abs_err"], "ms": alloc["ms"],
+            "plain_ms": alloc["plain_ms"], "bound_ms": alloc["bound_ms"],
+            "bound_by": alloc["bound_by"], "library_ms": None})
+    if have("ens_kernel", "exp_updates", "exp_row", "ens_alloc",
+            "p9_launches"):
+        ens_kernel, exp_updates = r["ens_kernel"], r["exp_updates"]
+        exp_row, ens_alloc = r["exp_row"], r["ens_alloc"]
+        p9_launches = r["p9_launches"]
+        # phase 9's cases: the fused kernel over 20 masked chains (the BIC
+        # ensemble's launches), the exponential prior in the stream kernels
+        # (the 96x10k exponential ensemble's), the allocation on a conjugate
+        # ensemble's step (that ensemble's launches)
+        bic = ens_kernel[ENS_KERNEL_CASES[-1][:4]]
+        kernels.append({
+            "name": "fused_gibbs_sweeps (ensemble of 20 masked chains)",
+            "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:127",
+            "launches": p9_launches["bic"]["fused"],
+            "max_abs_err": max(v["max_abs_err"]
+                               for v in ens_kernel.values()),
+            "ms": bic["ms"], "plain_ms": bic["plain_ms"],
+            "bound_ms": bic["bound_ms"], "bound_by": bic["bound_by"],
+            "library_ms": None})
+        emean = lambda key: float(np.mean(  # noqa: E731
+            [u[key] for u in exp_updates.values()]))
+        kernels.append({
+            "name": "_run (exponential prior)", "route": "cuda",
+            "source": src, "replaces": f"{pss}:330",
+            "launches": p9_launches["exponential"]["_run"],
+            "max_abs_err": max(u["max_abs_err"]
+                               for u in exp_updates.values()),
+            "ms": emean("ms"), "plain_ms": emean("plain_ms"),
+            "bound_ms": emean("bound_ms"),
+            "bound_by": exp_updates["pcol_update"]["bound_by"],
+            "library_ms": None})
+        kernels.append({
+            "name": "chain_metrics (exponential prior)", "route": "cuda",
+            "source": src, "replaces": f"{pss}:272",
+            "launches": p9_launches["exponential"]["stream_metrics_row"],
+            "max_abs_err": exp_row["max_abs_err"], "ms": exp_row["ms"],
+            "plain_ms": exp_row["plain_ms"],
+            "bound_ms": exp_row["bound_ms"],
+            "bound_by": exp_row["bound_by"], "library_ms": None})
+        kernels.append({
+            "name": "allocate_counts_fused (conjugate ensemble of 8 chains)",
+            "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+            "launches": p9_launches["conjugate"]["allocation"],
+            "max_abs_err": ens_alloc["max_abs_err"], "ms": ens_alloc["ms"],
+            "plain_ms": ens_alloc["plain_ms"],
+            "bound_ms": ens_alloc["bound_ms"],
+            "bound_by": ens_alloc["bound_by"], "library_ms": None})
+    if have("gamma_alloc", "gamma_launches"):
+        # phase 10: the allocation on the Poisson-Gamma states of 8 chains
+        # (the 8-chain Poisson-Gamma ensemble's launches)
+        gamma_alloc = r["gamma_alloc"]
+        kernels.append({
+            "name": "allocate_counts_fused (Poisson-Gamma, 8 chains)",
+            "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+            "launches": r["gamma_launches"],
+            "max_abs_err": gamma_alloc["max_abs_err"],
+            "ms": gamma_alloc["ms"], "plain_ms": gamma_alloc["plain_ms"],
+            "bound_ms": gamma_alloc["bound_ms"],
+            "bound_by": gamma_alloc["bound_by"], "library_ms": None})
+    if have("mesh_alloc", "mesh_launches"):
+        # phase 11: the allocation on each rank's G shard of a 1x2 mesh
+        # (the 1x2 Poisson-Exponential run's launches, both ranks)
+        mesh_alloc = r["mesh_alloc"]
+        kernels.append({
+            "name": "allocate_counts_fused (G shard (96,8,1390) of a 1x2 "
+                    "mesh)", "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/allocation.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_allocation.py:140",
+            "launches": r["mesh_launches"],
+            "max_abs_err": mesh_alloc["max_abs_err"],
+            "ms": mesh_alloc["ms"], "plain_ms": mesh_alloc["plain_ms"],
+            "bound_ms": mesh_alloc["bound_ms"],
+            "bound_by": mesh_alloc["bound_by"], "library_ms": None})
+    if have("pe", "geweke"):
+        # the fixed-rank form over kernel 1 (phase 3's case at (96,8,500);
+        # its launches are phase 12's fused_pe_sweeps gate's)
+        pe = r["pe"]
+        kernels.append({
+            "name": "fused_pe_sweeps", "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/fused_sweeps.cu",
+            "replaces": "bayesnmf_tpu/ops/pallas_sweeps.py:449",
+            "launches": r["geweke"]["fused_pe_sweeps"]["fused_pe"],
+            "max_abs_err": pe["max_abs_err"], "ms": pe["ms"],
+            "plain_ms": pe["plain_ms"], "bound_ms": pe["bound_ms"],
+            "bound_by": pe["bound_by"], "library_ms": None})
+    if have("rng_row", "ens_launches"):
+        # the chains' draw kernel at the north-star ensemble's stream step
+        # (its launches phase 5's run's)
+        rng_row = r["rng_row"]
+        kernels.append({
+            "name": "rng", "route": "cuda",
+            "source": "bayesnmf_tpu_torch/csrc/rng.cu",
+            "replaces": "bayesnmf_tpu/parallel/chains.py:19 (per-chain "
+                        "threefry keys; XLA's draws, no pallas_call)",
+            "launches": r["ens_launches"]["rng"],
+            "max_abs_err": rng_row["max_abs_err"], "ms": rng_row["ms"],
+            "plain_ms": rng_row["plain_ms"], "bound_ms": rng_row["bound_ms"],
+            "bound_by": rng_row["bound_by"],
+            "library_ms": rng_row["library_ms"]})
+    if have("cat", "cat_launches"):
+        kernels += catalogue_kernels(r["cat"], r["cat_launches"])
+    return kernels
 
 
 if __name__ == "__main__":

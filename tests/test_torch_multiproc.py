@@ -313,22 +313,28 @@ def worker(rank, world, port, n_chain, n_g, tmp):
 
     MH.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
     out = {}
-    if (n_chain, n_g) == (1, 2):
-        mesh = M.make_mesh(1, 2, device="cpu")
-        for case in PATHS:
-            path_case(mesh, case, out)
-        fit_case(mesh, tmp, out)
-        gamma_case(mesh, out)
-    else:
-        mesh = M.make_mesh(n_chain, n_g, device="cpu")
-        ensemble_case(mesh, tmp, out)
-        if (n_chain, n_g) == (2, 1):
-            bic_case(mesh, out)
-            global_mesh_case(out)
-            out["refused/n_chains"] = np.bool_(refuses_odd_chains(mesh))
-    out["imports_jax"] = np.bool_("jax" in sys.modules
-                                  or "bayesnmf_tpu" in sys.modules)
-    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    try:
+        if (n_chain, n_g) == (1, 2):
+            mesh = M.make_mesh(1, 2, device="cpu")
+            for case in PATHS:
+                path_case(mesh, case, out)
+            fit_case(mesh, tmp, out)
+            gamma_case(mesh, out)
+        else:
+            mesh = M.make_mesh(n_chain, n_g, device="cpu")
+            ensemble_case(mesh, tmp, out)
+            if (n_chain, n_g) == (2, 1):
+                bic_case(mesh, out)
+                global_mesh_case(out)
+                out["refused/n_chains"] = np.bool_(refuses_odd_chains(mesh))
+        out["imports_jax"] = np.bool_("jax" in sys.modules
+                                      or "bayesnmf_tpu" in sys.modules)
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        # every rank is done with the group before any tears it down, so
+        # that no rank's gloo threads meet a peer that has gone
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

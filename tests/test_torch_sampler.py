@@ -2,9 +2,10 @@
 example data (fixed rank with MH, rank learning by SBFI, the exponential
 prior with MH, conjugate Poisson-Gibbs, the Normal likelihood, the eager
 sweeps), checkpoint resume, the model-math methods against the JAX
-sampler's, the jax-free import, and the guards around what is not ported
-yet (mesh-sharded fits, and ``stream_sweeps``, which the JAX sampler takes
-for one chain and the port runs in ensembles)."""
+sampler's, the jax-free import, and the guards around what the single
+sampler refuses (the fused kernel on a mesh, and ``stream_sweeps``, which
+neither the JAX sampler nor the port's takes: the streaming kernels run in
+ensembles)."""
 
 import os
 import subprocess
@@ -407,8 +408,9 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 ])
 def test_outside_the_slice_raises(kw):
     """What the single sampler refuses: the fused kernel on a mesh, as the
-    JAX package refuses it (ValueError), and the streaming kernels, which
-    it runs in ensembles only (NotImplementedError)."""
+    JAX package refuses it (ValueError), and a ``stream_sweeps`` argument,
+    which the JAX sampler does not take either (TypeError): the streaming
+    kernels run in ensembles only."""
     from bayesnmf_tpu_torch.parallel.mesh import make_mesh
 
     args = dict(rank=3, device="cpu") | kw
@@ -417,5 +419,5 @@ def test_outside_the_slice_raises(kw):
         with pytest.raises(ValueError, match="fused_sweeps"):
             GibbsSampler(sim_data(), **args)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="stream_sweeps"):
         GibbsSampler(sim_data(), **args)

@@ -9,8 +9,9 @@ Python, so the CPU checks them:
 
 (a) at every (K, N, G, C) of a grid over the envelope each rule returns a
     configuration whose shared memory, recomputed here from the kernels'
-    layouts, fits the 227 KB a block can have, and at N = 129 or K = 1537
-    each raises ValueError;
+    layouts, fits the 227 KB a block can have (and for the P and A
+    columns' row form, its grid and the blocks an SM it is built for), and
+    at N = 129 or K = 1537 each raises ValueError;
 (b) at the shapes the benchmark cells and the card's earlier phases run,
     each rule returns the configuration it returned before the envelope
     widened (cluster, residency, G tile, register tile, tree);
@@ -175,6 +176,38 @@ def check_stream(K, N, G, C):
         assert K < 192 and rows == -(-K // 4) * 4
         smem = 4 * (rows * width(N) + K)
     assert S.erow_smem_bytes(K, N) == smem <= SMEM
+    check_rows_form(K, N, C)
+
+
+def check_rows_form(K, N, C):
+    """The P and A columns' row form from 192 rows on: 32 rows a block (a
+    lane a row), a cluster of 1, 2, 4 or 8 blocks along G, the fewest that
+    give at least twice an H100's 132 SMs in blocks (else 8); a ring of 3
+    slots of G tiles 64 wide (32 for the 64- and 128-wide register tiles),
+    each the E tile, the data tile of the block's rows with a padded
+    stride and the column's E row; the warps' sums (3 doubles a thread of
+    256, 1 for the A column), and for the P column the cluster's sums of
+    both passes (5 x 32 doubles a block), the 32 proposals and the flags.
+    Three blocks an SM fit up to a 32-wide register tile, one above."""
+    if not S.col_rows_form(K):
+        assert K < 192
+        return
+    kc, blocks = S.rows_parts(K, C), -(-K // 32)
+    assert K >= 192 and kc in (1, 2, 4, 8)
+    assert S.rows_grid(K, C) == (blocks * kc, C)
+    assert C * blocks * kc >= 264 or kc == 8
+    assert kc == 1 or C * blocks * (kc // 2) < 264
+    NP = width(N)
+    gt = 64 if NP <= 32 else 32
+    assert S.rows_tile(N) == gt
+    ring = 3 * (gt * NP + 32 * (gt + 1) + gt)
+    want = {"pcol": 8 * (3 * 256 + kc * 5 * 32) + 4 * (ring + 32 + kc),
+            "acol": 8 * 256 + 4 * ring}
+    assert S.rows_smem_bytes(K, N, C) == want
+    assert max(want.values()) <= SMEM
+    # an SM's 228 KB, of which each block leaves 1 KB to the system
+    per_sm = 228 * 1024 // (max(want.values()) + 1024)
+    assert per_sm >= (3 if NP <= 32 else 1)
 
 
 def check_allocation(K, N, G, C):
@@ -259,6 +292,7 @@ def test_shapes_that_ran_keep_their_configuration(shape):
     assert FS.cluster_config(K, N, G, C) == KEPT[shape]
     assert FS.fixed_in_smem(K, N, KEPT[shape][0])
     assert S.col_tile(K, N) == 64
+    assert not S.col_rows_form(K)           # the G-tile P and A columns
     assert S.tile_width(N) == (8 if N == 8 else 20)
     assert S.erow_rows(K, N) == 96          # all of P*A staged at once
     assert AL.kernel_leaves(K, N) == (8 if N == 8 else 32)
@@ -292,12 +326,14 @@ def test_fused_plain_version_matches_jax_at_catalogue_rows(shape):
     assert not np.array_equal(got[0], d["P"])
 
 
-@pytest.mark.parametrize("shape", [(1536, 8, 200), (96, 80, 200)])
+@pytest.mark.parametrize("shape", [(1536, 8, 200), (96, 80, 200),
+                                   (384, 20, 200)])
 @pytest.mark.parametrize("name", list(STREAM_FUNCS))
 def test_stream_plain_versions_match_jax_at_catalogue_widths(name, shape):
     """K = 1536 (16-wide G tiles, an E-row block in chunks of rows at large
-    N) and N = 80 (the 128-wide register tile), at the G = 300 case's
-    tolerance of tests/test_torch_stream_sweeps.py."""
+    N), N = 80 (the 128-wide register tile) and K = 384 (past the row
+    form's threshold of the P and A columns, at the ensemble's rank 20),
+    at the G = 300 case's tolerance of tests/test_torch_stream_sweeps.py."""
     d = stream_inputs(*shape, seed=sum(shape))
     got, want = call_port(name, d), call_jax(name, d)
     rtol = 1e-5
