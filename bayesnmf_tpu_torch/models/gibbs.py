@@ -65,6 +65,7 @@ from ..ops import math as m
 from ..ops import stream_sweeps as S
 from ..ops.fused_sweeps import fused_gibbs_sweeps
 from ..parallel import mesh as Mesh
+from ..utils import tracing
 from . import updates as U
 
 # metrics-row layout (order matches the reference's sample_metrics columns,
@@ -334,39 +335,43 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         consts = step_constants(spec, hp, dev, C)
     in_kernel = hyper_in_kernel(spec)
     if not in_kernel:
-        prior = U.sample_prior_params(spec, hp, params, prior, gen,
-                                      noise=(noise or {}).get("prior"))
+        with tracing.span("step.prior_update"):
+            prior = U.sample_prior_params(spec, hp, params, prior, gen,
+                                          noise=(noise or {}).get("prior"))
 
     # fresh Mhat every iteration, so the sweeps' rank-1 updates cannot
     # accumulate float32 drift over thousands of iterations
-    Mh = m.mhat(params["P"], params["A"], params["E"])
+    with tracing.span("step.mhat"):
+        Mh = m.mhat(params["P"], params["A"], params["E"])
 
     n_p, n_e = K * N, N * G
-    if u is None:
-        u = gen.uniform("fused", (C, n_uniforms(spec))).clamp_min_(_TINY)
+    with tracing.span("step.draws"):
+        if u is None:
+            u = gen.uniform("fused", (C, n_uniforms(spec))).clamp_min_(_TINY)
 
-    def cut(off, shape):
-        # a view for one chain; the kernel takes each plane contiguous, so
-        # C > 1 chains' planes are gathered out of their rows
-        n = int(np.prod(shape))
-        return u[:, off:off + n].reshape((C,) + shape).contiguous()
+        def cut(off, shape):
+            # a view for one chain; the kernel takes each plane contiguous,
+            # so C > 1 chains' planes are gathered out of their rows
+            n = int(np.prod(shape))
+            return u[:, off:off + n].reshape((C,) + shape).contiguous()
 
-    Upr_P, Up_P, Ua_P = (cut(i * n_p, (K, N)) for i in range(3))
-    Upr_E, Up_E, Ua_E = (cut(3 * n_p + i * n_e, (N, G)) for i in range(3))
-    off = 3 * (n_p + n_e)
-    rank_pack = consts["rank_pack"]
-    if spec.learning_rank:
-        gumbel = -torch.log(-torch.log(u[:, off:off + N + 1]))
-        zero = torch.zeros(C, 1, dtype=torch.float32, device=dev)
-        u_A = torch.cat([u[:, off + N + 1:off + 2 * N + 1], zero], 1)
-        row0 = torch.cat([_temp_tensor(temperature, dev).view(1, 1)
-                          .expand(C, 1), zero.expand(C, N)], 1)
-        rank_pack = torch.stack([row0, gumbel, u_A], 1)
-        off += 2 * (N + 1)
-    hyper_u = hyper_hp = None
-    if in_kernel:
-        hyper_u = (cut(off, (4, K, N)), cut(off + 4 * n_p, (4, N, G)))
-        hyper_hp = consts["hyper_hp"]
+        Upr_P, Up_P, Ua_P = (cut(i * n_p, (K, N)) for i in range(3))
+        Upr_E, Up_E, Ua_E = (cut(3 * n_p + i * n_e, (N, G))
+                             for i in range(3))
+        off = 3 * (n_p + n_e)
+        rank_pack = consts["rank_pack"]
+        if spec.learning_rank:
+            gumbel = -torch.log(-torch.log(u[:, off:off + N + 1]))
+            zero = torch.zeros(C, 1, dtype=torch.float32, device=dev)
+            u_A = torch.cat([u[:, off + N + 1:off + 2 * N + 1], zero], 1)
+            row0 = torch.cat([_temp_tensor(temperature, dev).view(1, 1)
+                              .expand(C, 1), zero.expand(C, N)], 1)
+            rank_pack = torch.stack([row0, gumbel, u_A], 1)
+            off += 2 * (N + 1)
+        hyper_u = hyper_hp = None
+        if in_kernel:
+            hyper_u = (cut(off, (4, K, N)), cut(off + 4 * n_p, (4, N, G)))
+            hyper_hp = consts["hyper_hp"]
     if spec.prior == "exponential":
         hp_arrays = (prior["Lambda_p"], consts["ones"][0], prior["Lambda_e"],
                      consts["ones"][1])
@@ -374,13 +379,15 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
         hp_arrays = (prior["Mu_p"], prior["Sigmasq_p"], prior["Mu_e"],
                      prior["Sigmasq_e"])
 
-    (params["P"], params["E"], Mh, acc_P, acc_E, A_new, R_new, na_events,
-     hp0_p, hp1_p, hp0_e, hp1_e) = fused_gibbs_sweeps(
-        data, params["P"], params["E"], params["A"], Mh, state["acc_P"],
-        state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E, *hp_arrays,
-        rank_pack, prior_kind=spec.prior, exact_mh=spec.exact_mh,
-        accept_all=accept_all, rank_method=kernel_rank_method(spec),
-        hyper_u=hyper_u, hyper_hp=hyper_hp)
+    with tracing.span("step.fused_sweep"):
+        (params["P"], params["E"], Mh, acc_P, acc_E, A_new, R_new,
+         na_events, hp0_p, hp1_p, hp0_e, hp1_e) = fused_gibbs_sweeps(
+            data, params["P"], params["E"], params["A"], Mh,
+            state["acc_P"], state["acc_E"], Upr_P, Upr_E, Up_P, Ua_P, Up_E,
+            Ua_E, *hp_arrays, rank_pack, prior_kind=spec.prior,
+            exact_mh=spec.exact_mh, accept_all=accept_all,
+            rank_method=kernel_rank_method(spec), hyper_u=hyper_u,
+            hyper_hp=hyper_hp)
     if in_kernel:
         prior["Mu_p"], prior["Sigmasq_p"] = hp0_p, hp1_p
         prior["Mu_e"], prior["Sigmasq_e"] = hp0_e, hp1_e
@@ -392,9 +399,10 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     new_state = {"params": params, "prior": prior,
                  "gen": _advance(gen, new_iter), "iter": new_iter,
                  "acc_P": acc_P, "acc_E": acc_E}
-    metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
-                           temperature, acc_P, acc_E, na_events,
-                           metric_consts, metrics_out)
+    with tracing.span("step.metrics_row"):
+        metrics = _metrics_row(spec, data, params, prior, Mh, new_iter,
+                               temperature, acc_P, acc_E, na_events,
+                               metric_consts, metrics_out)
     return new_state, _sample_out(spec, new_state, metrics, record)
 
 
@@ -730,33 +738,40 @@ def stream_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     params = dict(state["params"])
     C = params["P"].shape[0]
     if noise is None:
-        noise = draw_stream_noise(spec, C, gen, data.device)
+        with tracing.span("step.draws"):
+            noise = draw_stream_noise(spec, C, gen, data.device)
     if metric_consts is None:
         metric_consts = m.metric_constants(spec.likelihood, data)
-    prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
-                                  noise=noise.get("prior"))
-    params["P"], acc_P, nan_P = U.stream_sweep_P(
-        spec, data, params, prior, state["acc_P"], accept_all,
-        noise=noise["P"])
-    params["E"], acc_E, nan_E = U.stream_sweep_E(
-        spec, data, params, prior, state["acc_E"], accept_all,
-        noise=noise["E"])
+    with tracing.span("step.prior_update"):
+        prior = U.sample_prior_params(spec, hp, params, state["prior"], gen,
+                                      noise=noise.get("prior"))
+    with tracing.span("step.sweep_P"):
+        params["P"], acc_P, nan_P = U.stream_sweep_P(
+            spec, data, params, prior, state["acc_P"], accept_all,
+            noise=noise["P"])
+    with tracing.span("step.sweep_E"):
+        params["E"], acc_E, nan_E = U.stream_sweep_E(
+            spec, data, params, prior, state["acc_E"], accept_all,
+            noise=noise["E"])
     na_events = nan_P + nan_E
     if spec.learning_rank:
-        params["R"] = U.sample_R(spec, params["A"], temperature,
-                                 gumbel=noise["R"])
-        params["A"], nan_A = U.stream_sweep_A(
-            spec, data, params, params["R"], temperature, u=noise["A"])
-        na_events = na_events + nan_A
+        with tracing.span("step.rank"):
+            params["R"] = U.sample_R(spec, params["A"], temperature,
+                                     gumbel=noise["R"])
+            params["A"], nan_A = U.stream_sweep_A(
+                spec, data, params, params["R"], temperature, u=noise["A"])
+            na_events = na_events + nan_A
     new_iter = state["iter"] + 1
     new_state = {"params": params, "prior": prior,
                  "gen": _advance(gen, new_iter), "iter": new_iter,
                  "acc_P": acc_P, "acc_E": acc_E}
-    hp_p, hp_e = (U._stream_prior(spec, prior, side) for side in "pe")
-    metrics = S.stream_metrics_row(
-        data, params["P"], params["E"], params["A"], acc_P, acc_E, *hp_p,
-        *hp_e, metric_consts["lgamma_sum"], metric_consts["mlogm_sum"],
-        na_events, new_iter, temperature, out=metrics_out, prior=spec.prior)
+    with tracing.span("step.metrics_row"):
+        hp_p, hp_e = (U._stream_prior(spec, prior, side) for side in "pe")
+        metrics = S.stream_metrics_row(
+            data, params["P"], params["E"], params["A"], acc_P, acc_E,
+            *hp_p, *hp_e, metric_consts["lgamma_sum"],
+            metric_consts["mlogm_sum"], na_events, new_iter, temperature,
+            out=metrics_out, prior=spec.prior)
     return new_state, _sample_out(spec, new_state, metrics, record)
 
 

@@ -55,6 +55,7 @@ from ..config import (
     default_MH,
 )
 from ..parallel import mesh as Mesh
+from ..utils import tracing
 from ..utils.logging import RunLogger, format_counts_table
 
 from . import gibbs
@@ -689,6 +690,7 @@ class GibbsSampler:
         return plot_sampler(self, **kw)
 
 
+@tracing.traced("fit")
 def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
         rank_method: str = "SBFI", MH: Optional[bool] = None,
         convergence_control: Optional[ConvergenceControl] = None,
@@ -751,7 +753,8 @@ def fit(data, rank, likelihood: str = "poisson", prior: str = "truncnormal",
                 prior=prior, MH=MH, convergence_control=convergence_control,
                 output_dir=output_dir, A_masks=masks, **kw)
             ens.run()
-            table = ens.bic_table()
+            with tracing.span("fit.bic_table"):
+                table = ens.bic_table()
             results = [{"rank": int(r["rank"]), "chain": int(r["chain"]),
                         "dir": ens.output_dir, "BIC": float(r["BIC"]),
                         "time": ens.time["total"]}

@@ -21,6 +21,7 @@ from ..config import ModelSpec
 from ..models import gibbs
 from ..ops import math as m
 from ..ops.rng import ChainStreams
+from ..utils import tracing
 from . import mesh as M
 
 
@@ -58,14 +59,18 @@ def run_chunk_chains(spec: ModelSpec, data, hp: dict, states: dict, temps,
     # the chunk's temperatures go to the device once; each step indexes them
     temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
     for i in range(steps):
-        states, sample = gibbs.gibbs_step(
-            spec, data, hp, states, temps[i], accept_all, consts,
-            consts=step_consts, metrics_out=metrics[:, i], record=record)
-        sample = {k: v for k, v in sample.items()
-                  if k != "metrics" and (store_E or k != "E")}
-        if out is None:
-            out = gibbs.record_buffers(sample, steps, 1)
-        gibbs.write_record(out, sample, i, 1)
+        # the span encloses the module attribute's call, so that a wrapper
+        # put around gibbs.gibbs_step runs inside it
+        with tracing.span("chains.step"):
+            states, sample = gibbs.gibbs_step(
+                spec, data, hp, states, temps[i], accept_all, consts,
+                consts=step_consts, metrics_out=metrics[:, i], record=record)
+        with tracing.span("chains.record"):
+            sample = {k: v for k, v in sample.items()
+                      if k != "metrics" and (store_E or k != "E")}
+            if out is None:
+                out = gibbs.record_buffers(sample, steps, 1)
+            gibbs.write_record(out, sample, i, 1)
     return states, out | {"metrics": metrics}
 
 

@@ -53,6 +53,7 @@ from ..models.sampler import _resolve_output_dir, check_counts
 from ..models.sampler import host_tree, resolve_device, stack_history
 from ..models.sampler import summarize_history
 from ..ops.rng import ChainStreams
+from ..utils import tracing
 from ..utils.logging import RunLogger
 from . import chains as chains_mod
 from . import mesh as Mesh
@@ -401,6 +402,7 @@ class ChainEnsemble:
     resolves it; False: the chain-batched eager sweeps); conjugate Gibbs
     for MH=False, the eager sweeps for the Normal likelihood."""
 
+    @tracing.traced("ensemble.construct")
     def __init__(
         self,
         data,
@@ -609,6 +611,7 @@ class ChainEnsemble:
             acc = acc[gen.c0:gen.c1]
         return torch.as_tensor(acc, device=self.device)
 
+    @tracing.traced("ensemble.chunk")
     def _run_chunk(self, steps: int):
         temps = self.temp_sched[self.iter + 1: self.iter + steps + 1]
         self.states, samples = chains_mod.run_chunk_chains(
@@ -630,7 +633,9 @@ class ChainEnsemble:
             self._window.pop(0)
         rows = np.full((self.n_chains, steps, gibbs.N_METRICS), np.nan,
                        np.float32)
-        rows[self._slots] = _host(samples["metrics"])
+        # the chunk's metrics rows: the loop's one blocking device read
+        with tracing.span("ensemble.to_host"):
+            rows[self._slots] = _host(samples["metrics"])
         self._metric_rows.append(rows)
         end = self._end_iter[self._slots]
         self._chain_iters += int(np.sum(np.where(
@@ -643,6 +648,7 @@ class ChainEnsemble:
     def _metrics_tail(self, n: int):
         return self._metrics_all()[:, -n:, :]
 
+    @tracing.traced("ensemble.map_check")
     def _check_convergence(self):
         win = self._metrics_tail(self.cc.MAP_over)
         # per-chain MAP metric: the window mean of the metric, as the
@@ -713,6 +719,7 @@ class ChainEnsemble:
         return self.tracker.converged & (self._end_iter > 0) & (
             self._end_iter <= self.iter)
 
+    @tracing.traced("ensemble.finalize")
     def _finalize_chain(self, c: int):
         """Take chain ``c``'s inference window (ending at its own
         ``_end_iter``, bayesNMF.R:95-97) to the host, every recorded name
@@ -748,6 +755,7 @@ class ChainEnsemble:
         self._final_windows[c] = fin
         self.MAP_per_chain[c] = res
 
+    @tracing.traced("ensemble.compact")
     def _maybe_compact(self):
         """Shrink the resident ensemble to the chains still running: one
         index-select on the chain axis of every state tensor."""
@@ -784,6 +792,7 @@ class ChainEnsemble:
         self.logger.log(
             f"compacted ensemble to {self._slots.size} resident chains", 1)
 
+    @tracing.traced("ensemble.run")
     def run(self):
         """Run all chains to completion (resumable: continues from the
         current iteration after ``ChainEnsemble.load``); returns self."""
@@ -831,7 +840,8 @@ class ChainEnsemble:
 
         path = path or (os.path.join(self.output_dir, "ensemble.ckpt")
                         if self.output_dir else "ensemble.ckpt")
-        save_ensemble(self, path)
+        with tracing.span("ensemble.checkpoint"):
+            save_ensemble(self, path)
         return path
 
     @classmethod

@@ -29,6 +29,7 @@ import pickle
 import numpy as np
 import torch
 
+from . import tracing
 from .logging import RunLogger
 
 from ..models.convergence import ConvergenceTracker
@@ -235,7 +236,7 @@ def save_ensemble(ens, path: str):
         "col_names": ens.col_names,
         "A_masks": ens.A_masks,
     }
-    with open(path, "wb") as fh:
+    with tracing.span("checkpoint.write"), open(path, "wb") as fh:
         pickle.dump(payload, fh, protocol=4)
 
 
