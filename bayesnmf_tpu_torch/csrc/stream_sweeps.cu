@@ -5,6 +5,8 @@
 // launches, and the same tile code in a sums-only form for the four
 // reduction functions, the inclusion-odds delta and the metrics row's four
 // data sums. Every kernel rebuilds its Mhat tile from P*A and an E tile.
+// Beside them, the exact truncated-normal Mu/Sigmasq update of a step in
+// one elementwise launch (hyper_kernel, with the sums-only entry points).
 //
 // (a) Replaces bayesnmf_tpu/ops/pallas_stream_sweeps.py: `_run` (its four
 //     bodies _pcol_stats_kernel, _pcol_accept_kernel, _erow_stats_kernel,
@@ -2258,9 +2260,10 @@ __global__ void special_kernel(const float* __restrict__ x,
 }  // namespace
 // The entry points come in seven translation units, so that nvcc builds
 // them in parallel (ops/_build.py: one nvcc a source): the P-column and
-// A-column updates below 192 rows here, their sums-only forms and the
-// special functions in stream_sums.cu, which includes this file with
-// STREAM_SUMS_ONLY defined, the E row's updates in stream_erow.cu
+// A-column updates below 192 rows here, their sums-only forms, the
+// special functions and the exact hyper-update in stream_sums.cu, which
+// includes this file with STREAM_SUMS_ONLY defined, the E row's updates in
+// stream_erow.cu
 // (STREAM_EROW_ONLY) and its sums in stream_erow_sums.cu
 // (STREAM_EROW_SUMS_ONLY), the metrics row's in stream_metrics.cu
 // (STREAM_METRICS_ONLY), and the P and A columns' row form in
@@ -2449,6 +2452,215 @@ extern "C" int stream_metrics_row_launch(
 }
 
 #elif defined(STREAM_SUMS_ONLY)
+
+namespace {
+
+// ---- the exact truncated-normal hyper-update --------------------------------
+//
+// (a) Replaces no TPU kernel: the JAX package leaves its exact Mu/Sigmasq
+//     update (bayesnmf_tpu/models/updates.py::sample_prior_params,
+//     :119-173) to XLA. In the port it ran as ~80 PyTorch ops on the
+//     (C, K, N) and (C, N, G) planes (ops/stream_sweeps.py::
+//     hyper_update_reference, models/updates.py before), whose eight 0-d
+//     hyperparameter tensors each made the host wait for the card.
+// (b) What bounds it: bytes. Per entry it reads x (P or E), Mu, Sigmasq,
+//     two normals and two uniforms and writes Mu and Sigmasq (36 bytes)
+//     against ~60 operations with three log_ndtr, a powf and four logs: at
+//     (96,20,10000,8) 58 MB, ~17 us at 3.35 TB/s.
+// (c) One launch for every chain and both sides, a block row per chain
+//     (grid (tiles, C)): a thread takes kHyperVec neighbouring entries of
+//     one side, loaded and stored 16 bytes at a time where K*N and N*G are
+//     multiples of 4 and the planes are 16-byte aligned (the noise rows
+//     too where their strides allow it), else one entry. The eight
+//     hyperparameters are launch arguments, so the update copies nothing
+//     to the card and reads nothing back.
+//
+// Numerics: every operation in the order and rounding of the PyTorch ops
+// on the card, so that the kernel equals them bit for bit: `1.0 / t` is
+// torch's reciprocal (1/t), a Python number times a tensor one multiply,
+// `t ** 2` and `t ** 3` products, `t ** (1/3)` powf at the exponent rounded
+// to float, clamp_min keeps a NaN, log_ndtr is at_log_ndtr.
+
+constexpr int kHyperThreads = 256;
+constexpr int kHyperVec = 4;
+constexpr float kHyperFloor = 1e-30f;
+// the exponent 1.0 / 3.0 as torch.pow rounds a Python number to float
+constexpr float kThird = (float)(1.0 / 3.0);
+
+struct HyperArgs {
+  // index 0 the P side (C, K, N), 1 the E side (C, N, G)
+  const float* x[2];
+  const float* mu[2];
+  const float* sq[2];
+  float* mu_out[2];
+  float* sq_out[2];
+  // (C, stride) rows of 2 (K*N + N*G): [Mu_p | Mu_e | Sigmasq_p |
+  // Sigmasq_e], the normals z and the uniforms u
+  const float* z;
+  const float* u;
+  long long z_stride, u_stride;
+  float m[2], s[2], a[2], b[2];
+  int n[2];  // K*N, N*G
+};
+
+// torch.clamp_min(v, 1e-30) on the card: NaN stays NaN
+__device__ __forceinline__ float clamp_floor(float v) {
+  return isnan(v) ? v : fmaxf(v, kHyperFloor);
+}
+
+// logw of models/updates.py's _sq_step (ops/stream_sweeps.py): the
+// Metropolis weight of g = b / sigma^2 under the Wilson-Hilferty proposal
+__device__ __forceinline__ float hyper_logw(float a, float mu, float g,
+                                           float t, float zz, float sq) {
+  float w = (a - 1.0f) * logf(g);
+  w = w - g;
+  w = w + (zz * 0.5f) * zz;
+  w = w + logf(clamp_floor(t)) * 2.0f;
+  return w - at_log_ndtr(mu / sqrtf(sq));
+}
+
+// One entry: _mu_step, then _sq_step at the new Mu
+// (ops/stream_sweeps.py).
+__device__ __forceinline__ void hyper_entry(float x, float mu_old,
+                                            float sq_old, float z, float zg,
+                                            float u1, float u2, float m0,
+                                            float s0, float a0, float b0,
+                                            float& mu_new, float& sq_new) {
+  const float den = 1.0f / s0 + 1.0f / sq_old;
+  const float prop = (m0 / s0 + x / sq_old) / den + sqrtf(1.0f / den) * z;
+  const float sd = sqrtf(sq_old);
+  const float la_mu = at_log_ndtr(mu_old / sd) - at_log_ndtr(prop / sd);
+  const float mu = logf(u1) < la_mu ? prop : mu_old;
+
+  const float a = a0 + 0.5f;
+  const float d = x - mu;
+  const float b = b0 + (d * d) * 0.5f;
+  const float c = 1.0f - 1.0f / (a * 9.0f);
+  const float sqa3 = sqrtf(a) * 3.0f;
+  const float t_new = c + zg / sqa3;
+  const float g_new = a * (t_new * t_new * t_new);
+  const float g_new_s = clamp_floor(g_new);
+  const float sq_prop = b / g_new_s;
+  const float g_old = b / clamp_floor(sq_old);
+  const float t_old = powf(g_old / a, kThird);
+  const float z_old = sqa3 * (t_old - c);
+  const float la_sq =
+      g_new > kHyperFloor
+          ? hyper_logw(a, mu, g_new_s, t_new, zg, sq_prop) -
+                hyper_logw(a, mu, g_old, t_old, z_old, sq_old)
+          : -INFINITY;
+  mu_new = mu;
+  sq_new = logf(u2) < la_sq ? sq_prop : sq_old;
+}
+
+template <int V, bool kVec>
+__device__ __forceinline__ void load_run(const float* p, float (&r)[V]) {
+  if constexpr (V == 4 && kVec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) r[i] = __ldg(p + i);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_run(float* p, const float (&r)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = r[i];
+  }
+}
+
+// V entries a thread (V = 4: 16-byte plane loads and stores, and noise
+// loads with kVecNoise); blockIdx.y the chain.
+template <int V, bool kVecNoise>
+__global__ void __launch_bounds__(kHyperThreads)
+    hyper_kernel(HyperArgs a) {
+  const long long c = blockIdx.y;
+  const long long j0 =
+      ((long long)blockIdx.x * kHyperThreads + threadIdx.x) * V;
+  const int side = j0 < a.n[0] ? 0 : 1;
+  const long long j = side == 0 ? j0 : j0 - a.n[0];
+  if (j >= a.n[side]) return;
+  // the entry's place in its plane and in the noise row's two halves
+  const long long at = c * a.n[side] + j;
+  const long long first = side == 0 ? j : a.n[0] + j;
+  const long long second = (long long)a.n[0] + a.n[1] + first;
+  const float* z = a.z + c * a.z_stride;
+  const float* u = a.u + c * a.u_stride;
+  float x[V], mu[V], sq[V], zm[V], zs[V], u1[V], u2[V];
+  load_run<V, true>(a.x[side] + at, x);
+  load_run<V, true>(a.mu[side] + at, mu);
+  load_run<V, true>(a.sq[side] + at, sq);
+  load_run<V, kVecNoise>(z + first, zm);
+  load_run<V, kVecNoise>(z + second, zs);
+  load_run<V, kVecNoise>(u + first, u1);
+  load_run<V, kVecNoise>(u + second, u2);
+  float mu_new[V], sq_new[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    hyper_entry(x[i], mu[i], sq[i], zm[i], zs[i], u1[i], u2[i], a.m[side],
+                a.s[side], a.a[side], a.b[side], mu_new[i], sq_new[i]);
+  }
+  store_run<V>(a.mu_out[side] + at, mu_new);
+  store_run<V>(a.sq_out[side] + at, sq_new);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+}  // namespace
+
+// The exact hyper-update of C chains (ops/stream_sweeps.py::hyper_update):
+// P (C, K, N), E (C, N, G) and their prior pairs in; the new pairs to the
+// four outputs; z and u rows of 2 (K*N + N*G) floats every z_stride and
+// u_stride floats; n_p = K*N, n_e = N*G.
+extern "C" int stream_hyper_launch(
+    const float* P, const float* E, const float* mu_p, const float* sq_p,
+    const float* mu_e, const float* sq_e, const float* z, const float* u,
+    float* mu_p_out, float* sq_p_out, float* mu_e_out, float* sq_e_out,
+    float m_p, float s_p, float a_p, float b_p, float m_e, float s_e,
+    float a_e, float b_e, int z_stride, int u_stride, int C, int n_p,
+    int n_e, void* stream) {
+  if (C < 1 || C > 65535 || n_p < 1 || n_e < 1) return cudaErrorInvalidValue;
+  HyperArgs a = {};
+  a.x[0] = P; a.x[1] = E;
+  a.mu[0] = mu_p; a.mu[1] = mu_e;
+  a.sq[0] = sq_p; a.sq[1] = sq_e;
+  a.mu_out[0] = mu_p_out; a.mu_out[1] = mu_e_out;
+  a.sq_out[0] = sq_p_out; a.sq_out[1] = sq_e_out;
+  a.z = z; a.u = u;
+  a.z_stride = z_stride; a.u_stride = u_stride;
+  a.m[0] = m_p; a.s[0] = s_p; a.a[0] = a_p; a.b[0] = b_p;
+  a.m[1] = m_e; a.s[1] = s_e; a.a[1] = a_e; a.b[1] = b_e;
+  a.n[0] = n_p; a.n[1] = n_e;
+  const void* planes[] = {P, E, mu_p, sq_p, mu_e, sq_e,
+                          mu_p_out, sq_p_out, mu_e_out, sq_e_out};
+  bool vec = n_p % kHyperVec == 0 && n_e % kHyperVec == 0;
+  for (const void* p : planes) vec = vec && aligned16(p);
+  const bool vec_noise = vec && z_stride % kHyperVec == 0 &&
+                         u_stride % kHyperVec == 0 && aligned16(z) &&
+                         aligned16(u);
+  const long long row = (long long)n_p + n_e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    const dim3 grid(
+        (unsigned)((row / kHyperVec + kHyperThreads - 1) / kHyperThreads), C);
+    if (vec_noise) {
+      hyper_kernel<kHyperVec, true><<<grid, kHyperThreads, 0, s>>>(a);
+    } else {
+      hyper_kernel<kHyperVec, false><<<grid, kHyperThreads, 0, s>>>(a);
+    }
+  } else {
+    const dim3 grid((unsigned)((row + kHyperThreads - 1) / kHyperThreads), C);
+    hyper_kernel<1, false><<<grid, kHyperThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
 
 // The P column's sums-only bodies. prop == nullptr: stats (2 outputs);
 // else accept (3). out (n_out, C, K), scratch C * n_tiles(G, col_tile) * K

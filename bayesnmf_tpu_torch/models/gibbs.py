@@ -19,15 +19,16 @@ here is a batch of one):
   P and E sweeps issued column by column as tensor ops over all chains
   (models/updates.sweep_P/sweep_E), with rank learning the R draw and the
   Mhat-based A sweep, and with the Normal likelihood sigmasq from the
-  final Mhat (gibbs.py:241-269); no kernel runs, as none does on the JAX
-  package's XLA path;
+  final Mhat (gibbs.py:241-269); no kernel runs but the exact
+  truncnormal hyper-update's one launch (ops/stream_sweeps.hyper_update);
 - conjugate (MH=False, the exponential or the gamma prior): the prior
   update (Lambda; or Beta, then Alpha by one slice transition), then all
   of P and all of E by conjugate gamma draws, the R draw and the
   Mhat-based A sweep when rank learning, and the latent counts' sums
   through the allocation kernel (ops/allocation.py, one grid over the
   chains; gibbs.py:159-162, 248-267);
-- streaming (large G, either prior): each step runs the prior update, the
+- streaming (large G, either prior): each step runs the prior update (the
+  exact truncnormal one a launch of ops/stream_sweeps.hyper_update), the
   streamed P, E and A sweeps (models/updates.py) and the metrics row (one
   kernel pair); no (C, K, G) tensor exists (gibbs.py:228-264).
 
@@ -251,6 +252,16 @@ def draw_launches(spec: ModelSpec, init: bool = False) -> int:
     if hyper_in_kernel(spec):
         return 1
     return 1 + (2 if spec.prior == "exponential" else 4)
+
+
+def hyper_launches(spec: ModelSpec) -> int:
+    """Launches of the exact hyper-update kernel
+    (ops/stream_sweeps.hyper_update) a step of ``spec``'s path makes: one
+    on the stream and eager paths of the truncnormal prior with
+    ``exact_truncnorm_hypers``; none where the fused kernel runs the
+    hyper-sweep, nor for the other priors or the conjugate update."""
+    return int(spec.prior == "truncnormal" and spec.exact_truncnorm_hypers
+               and not spec.fused_sweeps)
 
 
 def _one_chain(step, spec, data, hp, state, temperature, accept_all,

@@ -5,11 +5,12 @@ Port of bayesnmf_tpu/models/updates.py:
 - initial draws: ``init_prior_params`` (:62-88, with the Normal
   likelihood's fixed sigmasq prior), ``_prior_draw_P/E`` (:244-258);
 - ``sample_prior_params`` (:91-235): the exact TruncNormal hyper-update,
-  which on the streaming and eager paths runs as host-issued tensor ops
-  (the fused kernel carries its own copy), the reference's conjugate
-  update (``exact_truncnorm_hypers=False``), the exponential prior's
-  Lambda ~ Gamma(a + 1, b + x), and the gamma prior's Beta ~ Gamma(a +
-  Alpha, b + x) then Alpha by one slice transition of both sides at once;
+  which on the streaming and eager paths is the one-launch kernel of
+  ops/stream_sweeps.hyper_update (the fused kernel carries its own copy),
+  the reference's conjugate update (``exact_truncnorm_hypers=False``), the
+  exponential prior's Lambda ~ Gamma(a + 1, b + x), and the gamma prior's
+  Beta ~ Gamma(a + Alpha, b + x) then Alpha by one slice transition of
+  both sides at once;
 - the eager sequential sweeps ``sweep_P``/``sweep_E`` (:266-531): the
   Normal likelihood's conjugate column draws and Poisson MH
   with the exact or the reference Hastings ratio, issued column by column
@@ -45,8 +46,6 @@ rank of the group.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -200,45 +199,6 @@ def _prior_draw_E(spec: ModelSpec, prior: dict, gen, u=None):
 # ---------------------------------------------------------------------------
 
 
-def _mu_step(mu_old, m0, s0, x, sq, z, lu):
-    """Metropolised conjugate-proposal step of Mu (updates.py:124-129)."""
-    den = 1.0 / s0 + 1.0 / sq
-    prop = (m0 / s0 + x / sq) / den + torch.sqrt(1.0 / den) * z
-    sd = torch.sqrt(sq)
-    la = (torch.special.log_ndtr(mu_old / sd)
-          - torch.special.log_ndtr(prop / sd))
-    return torch.where(lu < la, prop, mu_old)
-
-
-def _sq_step(sq_old, a0, b0, x, mu, z, lu):
-    """Wilson-Hilferty InvGamma proposal, Metropolised in g = b/sigma^2
-    (updates.py:131-165)."""
-    a = a0 + 0.5
-    b = b0 + 0.5 * (x - mu) ** 2
-    c = 1.0 - 1.0 / (9.0 * a)
-    sqa3 = 3.0 * torch.sqrt(a)
-    t_new = c + z / sqa3
-    g_new = a * t_new ** 3
-    ok = g_new > 1e-30
-    g_new_s = g_new.clamp_min(1e-30)
-    sq_new = b / g_new_s
-    g_old = b / sq_old.clamp_min(1e-30)
-    # g_old / a > 0, where the real cube root is the float power
-    t_old = torch.pow(g_old / a, 1.0 / 3.0)
-    z_old = sqa3 * (t_old - c)
-
-    def logw(g, t, zz, sq):
-        return ((a - 1.0) * torch.log(g) - g + 0.5 * zz * zz
-                + 2.0 * torch.log(t.clamp_min(1e-30))
-                - torch.special.log_ndtr(mu / torch.sqrt(sq)))
-
-    la = torch.where(
-        ok, logw(g_new_s, t_new, z, sq_new) - logw(g_old, t_old, z_old,
-                                                    sq_old),
-        torch.full_like(g_new, -math.inf))
-    return torch.where(lu < la, sq_new, sq_old)
-
-
 def n_hyper_noise(spec: ModelSpec) -> int:
     """Length of one chain's normal (and uniform) draw for the hyper-update:
     two per element of (K, N) and of (N, G)."""
@@ -330,7 +290,7 @@ def _sample_gamma_prior(spec: ModelSpec, hp: dict, params: dict,
 
 
 def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
-                                noise, h) -> dict:
+                                noise) -> dict:
     """The reference's Mu/Sigmasq update, plain conjugates that drop the
     truncation normaliser (sample_priors.R:214-270, with sd = sqrt(var) and
     the B_e rate corrected; updates.py:182-195). ``noise``: {"mu_p",
@@ -340,6 +300,12 @@ def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
     operand has one ((C, 9) + shape for the planes)."""
     noise = noise or {}
     new = dict(prior)
+    dev = params["P"].device
+
+    def h(name):  # float32 operands, as the JAX package broadcasts them
+        return torch.full((), float(hp[name]), dtype=torch.float32,
+                          device=dev)
+
     for side, x in (("p", params["P"]), ("e", params["E"])):
         sq = prior[f"Sigmasq_{side}"]
         s0 = h(f"s_{side}")
@@ -358,62 +324,52 @@ def _sample_truncnorm_conjugate(hp: dict, params: dict, prior: dict, gen,
     return new
 
 
+def _exact_hypers(spec: ModelSpec, hp: dict, params: dict, prior: dict,
+                  gen, noise) -> dict:
+    """The exact sweep over Mu/Sigmasq of P and E of C chains (P (C, K, N),
+    E (C, N, G)) by ops/stream_sweeps.hyper_update: one kernel launch on
+    the card, its plain PyTorch version on the CPU. The noise is drawn at
+    sites hyper_z and hyper_u when None."""
+    P, E = params["P"], params["E"]
+    if noise is None:
+        N, G = spec.N, E.shape[-1]   # G: this rank's block on a mesh
+        parts = [(1, spec.K * N, False), (N, G, True)] * 2
+        noise = {"z": _flat(gen, "hyper_z", P.shape[:1], parts, True, True),
+                 "u": _flat(gen, "hyper_u", P.shape[:1], parts,
+                            True).clamp_min_(_U_MIN)}
+    names = ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e")
+    new = dict(prior)
+    new.update(zip(names, S.hyper_update(
+        P, E, *(prior[k] for k in names), noise["z"], noise["u"],
+        [hp[k] for k in S.HYPERS])))
+    return new
+
+
 def sample_prior_params(spec: ModelSpec, hp: dict, params: dict, prior: dict,
                         gen=None, noise=None) -> dict:
     """One Gibbs sweep over the prior parameters (updates.py:91-203).
 
     Exponential prior: Lambda ~ Gamma(a + 1, b + x) (``_sample_lambda``).
     Truncnormal prior with ``exact_truncnorm_hypers``: the exact sweep over
-    Mu/Sigmasq of P and E, for one chain or chain-batched (P (C, K, N),
-    E (C, N, G) and the prior dict alike); ``noise``: {"z": normals,
-    "u": uniforms}, each (n_hyper_noise(spec),) per chain, in the JAX
-    layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e] (updates.py:119-173).
-    Without it: the reference's conjugate update
+    Mu/Sigmasq of P and E (``_exact_hypers``), for one chain or
+    chain-batched (P (C, K, N), E (C, N, G) and the prior dict alike);
+    ``noise``: {"z": normals, "u": uniforms}, each (n_hyper_noise(spec),)
+    per chain, in the JAX layout [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e]
+    (updates.py:119-173). Without it: the reference's conjugate update
     (``_sample_truncnorm_conjugate``). Gamma prior: ``_sample_gamma_prior``.
+    No branch copies a number to the card or waits for it, except the gamma
+    draws' rejection loops (ops/distributions.gamma).
     """
     if spec.prior == "exponential":
         return _sample_lambda(spec, hp, params, prior, gen, noise)
     if spec.prior == "gamma":
         return _sample_gamma_prior(spec, hp, params, prior, gen, noise)
-    P, E = params["P"], params["E"]
-
-    def h(name):  # float32 operands, as the JAX package broadcasts them
-        return torch.tensor(float(hp[name]), dtype=torch.float32,
-                            device=P.device)
-
     if not spec.exact_truncnorm_hypers:
-        return _sample_truncnorm_conjugate(hp, params, prior, gen, noise, h)
-    lead = P.shape[:-2]
-    K, N, G = spec.K, spec.N, E.shape[-1]   # G: this rank's block on a mesh
-    n_p, n_e = K * N, N * G
-    n_t = n_p + n_e
-    if noise is None:
-        parts = [(1, n_p, False), (N, G, True)] * 2
-        chained = P.dim() == 3
-        noise = {"z": _flat(gen, "hyper_z", lead, parts, chained, True),
-                 "u": _flat(gen, "hyper_u", lead, parts, chained).clamp_min_(
-                     _U_MIN)}
-    z, lu = noise["z"], torch.log(noise["u"])
-
-    def parts(x):
-        return (x[..., :n_p].view(lead + (K, N)),
-                x[..., n_p:n_t].view(lead + (N, G)),
-                x[..., n_t:n_t + n_p].view(lead + (K, N)),
-                x[..., n_t + n_p:].view(lead + (N, G)))
-
-    z_p, z_e, zg_p, zg_e = parts(z)
-    lu_p1, lu_e1, lu_p2, lu_e2 = parts(lu)
-
-    new = dict(prior)
-    new["Mu_p"] = _mu_step(prior["Mu_p"], h("m_p"), h("s_p"), P,
-                           prior["Sigmasq_p"], z_p, lu_p1)
-    new["Mu_e"] = _mu_step(prior["Mu_e"], h("m_e"), h("s_e"), E,
-                           prior["Sigmasq_e"], z_e, lu_e1)
-    new["Sigmasq_p"] = _sq_step(prior["Sigmasq_p"], h("a_p"), h("b_p"), P,
-                                new["Mu_p"], zg_p, lu_p2)
-    new["Sigmasq_e"] = _sq_step(prior["Sigmasq_e"], h("a_e"), h("b_e"), E,
-                                new["Mu_e"], zg_e, lu_e2)
-    return new
+        return _sample_truncnorm_conjugate(hp, params, prior, gen, noise)
+    if params["P"].dim() == 2:  # one chain: a batch of one
+        return drop(_exact_hypers(spec, hp, lift(params), lift(prior), gen,
+                                  lift(noise)))
+    return _exact_hypers(spec, hp, params, prior, gen, noise)
 
 
 # ---------------------------------------------------------------------------

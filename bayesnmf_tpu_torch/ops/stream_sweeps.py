@@ -27,7 +27,13 @@ the Mhat tile from ``PA = P * A`` and an E tile and returns only reductions:
   and the write of A[:, n] of models/updates.py::stream_sweep_A, :838-872)
   in kernels: a pass over the G tiles (from 192 rows on, over blocks of
   rows) and a finishing kernel per column, the launches of a sweep
-  enqueued by one C call.
+  enqueued by one C call;
+- ``hyper_update``: the exact truncated-normal Mu/Sigmasq update of every
+  chain (models/updates.py::sample_prior_params of the JAX package,
+  :119-173, which XLA runs) in one elementwise launch, its eight
+  hyperparameters launch arguments, so the update neither copies to the
+  card nor waits for it; its plain version is the PyTorch ops the port
+  ran before (``hyper_update_reference``) and equals it bit for bit.
 
 The signatures and the pre-scaling contract are the JAX package's
 (pallas_stream_sweeps.py:357-359): P-column functions take ``pn = A_n*P_n``
@@ -426,6 +432,73 @@ def erow_update_reference(data, E, P, A, acc_E, hp0_e, hp1_e, E_prior, U,
     n_nan += nn
 
 
+def _mu_step(mu_old, m0, s0, x, sq, z, lu):
+    """Metropolised conjugate-proposal step of Mu (updates.py:124-129 of
+    the JAX package)."""
+    den = 1.0 / s0 + 1.0 / sq
+    prop = (m0 / s0 + x / sq) / den + torch.sqrt(1.0 / den) * z
+    sd = torch.sqrt(sq)
+    la = (torch.special.log_ndtr(mu_old / sd)
+          - torch.special.log_ndtr(prop / sd))
+    return torch.where(lu < la, prop, mu_old)
+
+
+def _sq_step(sq_old, a0, b0, x, mu, z, lu):
+    """Wilson-Hilferty InvGamma proposal, Metropolised in g = b/sigma^2
+    (updates.py:131-165 of the JAX package)."""
+    a = a0 + 0.5
+    b = b0 + 0.5 * (x - mu) ** 2
+    c = 1.0 - 1.0 / (9.0 * a)
+    sqa3 = 3.0 * torch.sqrt(a)
+    t_new = c + z / sqa3
+    g_new = a * t_new ** 3
+    ok = g_new > 1e-30
+    g_new_s = g_new.clamp_min(1e-30)
+    sq_new = b / g_new_s
+    g_old = b / sq_old.clamp_min(1e-30)
+    # g_old / a > 0, where the real cube root is the float power
+    t_old = torch.pow(g_old / a, 1.0 / 3.0)
+    z_old = sqa3 * (t_old - c)
+
+    def logw(g, t, zz, sq):
+        return ((a - 1.0) * torch.log(g) - g + 0.5 * zz * zz
+                + 2.0 * torch.log(t.clamp_min(1e-30))
+                - torch.special.log_ndtr(mu / torch.sqrt(sq)))
+
+    la = torch.where(
+        ok, logw(g_new_s, t_new, z, sq_new) - logw(g_old, t_old, z_old,
+                                                    sq_old),
+        torch.full_like(g_new, -math.inf))
+    return torch.where(lu < la, sq_new, sq_old)
+
+
+def hyper_update_reference(P, E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e, z, u,
+                           hypers):
+    """Plain version of ``hyper_update``: the PyTorch ops of the exact
+    Mu/Sigmasq update, ``_mu_step`` then ``_sq_step`` at the new Mu on each
+    side, the hyperparameters as 0-d float32 operands on the planes'
+    device (made by torch.full, which does not wait for the card)."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    n_p, n_t = K * N, K * N + N * G
+    m_p, s_p, a_p, b_p, m_e, s_e, a_e, b_e = (
+        torch.full((), float(v), dtype=torch.float32, device=P.device)
+        for v in hypers)
+    lu = torch.log(u)
+
+    def parts(x):
+        return (x[:, :n_p].view(C, K, N), x[:, n_p:n_t].view(C, N, G),
+                x[:, n_t:n_t + n_p].view(C, K, N),
+                x[:, n_t + n_p:].view(C, N, G))
+
+    z_p, z_e, zg_p, zg_e = parts(z)
+    lu_p1, lu_e1, lu_p2, lu_e2 = parts(lu)
+    mu_p = _mu_step(Mu_p, m_p, s_p, P, Sigmasq_p, z_p, lu_p1)
+    mu_e = _mu_step(Mu_e, m_e, s_e, E, Sigmasq_e, z_e, lu_e1)
+    return (mu_p, _sq_step(Sigmasq_p, a_p, b_p, P, mu_p, zg_p, lu_p2),
+            mu_e, _sq_step(Sigmasq_e, a_e, b_e, E, mu_e, zg_e, lu_e2))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -449,6 +522,8 @@ _SIGNATURES = {
     "stream_acol_rows_launch": [_P] * 8 + [_I] * 4 + [_P],
     "stream_acol_rows_update_launch": [_P] * 9 + [ctypes.c_float, _I, _P]
     + [_I] * 6 + [_P],
+    "stream_hyper_launch": [_P] * 12 + [ctypes.c_float] * 8 + [_I] * 5
+    + [_P],
 }
 
 
@@ -763,6 +838,20 @@ def _launch_metrics_row(data, P, E, A, acc_P, acc_E, Mu_p, Sigmasq_p, Mu_e,
     return out
 
 
+def _launch_hyper(P, E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e, z, u, hypers):
+    """Enqueue the hyper-update's one launch; returns the new (Mu_p,
+    Sigmasq_p, Mu_e, Sigmasq_e). ctypes rounds each hyperparameter to
+    float32 as torch.full does."""
+    C, K, N = P.shape
+    G = E.shape[2]
+    out = tuple(torch.empty_like(t) for t in (Mu_p, Sigmasq_p, Mu_e,
+                                              Sigmasq_e))
+    _call("stream_hyper_launch", P, E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e, z,
+          u, *out, *(float(v) for v in hypers), z.stride(0), u.stride(0), C,
+          K * N, N * G)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
@@ -782,13 +871,13 @@ def _check(fn, name, t, shape, device):
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _check_out(fn, out, shape, device):
-    """An output that may be a slice: float32 on ``device``, of ``shape``,
-    each row contiguous."""
+def _check_out(fn, out, shape, device, name="out"):
+    """An operand that may be a slice: float32 on ``device``, of
+    ``shape``, each row contiguous."""
     if not isinstance(out, torch.Tensor) or out.dtype != torch.float32 \
             or out.device != device or tuple(out.shape) != tuple(shape) \
             or out.stride(-1) != 1:
-        raise ValueError(f"{fn}: out must be a float32 tensor of shape "
+        raise ValueError(f"{fn}: {name} must be a float32 tensor of shape "
                          f"{tuple(shape)} on {device} with contiguous rows")
 
 
@@ -1092,6 +1181,50 @@ stream_acol_update.launches = 0
 stream_acol_update.row_launches = 0
 
 
+#: the hyperparameters ``hyper_update`` takes, in order
+HYPERS = ("m_p", "s_p", "a_p", "b_p", "m_e", "s_e", "a_e", "b_e")
+
+
+def hyper_update(P, E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e, z, u, hypers):
+    """The exact truncated-normal update of Mu and Sigmasq of C chains
+    (updates.py:119-173 of the JAX package): for every entry of P
+    (C, K, N) and E (C, N, G), a Metropolised conjugate proposal of Mu from
+    its prior pair, then a Wilson-Hilferty proposal of Sigmasq at the new
+    Mu. ``z`` and ``u``: (C, 2 (K*N + N*G)) normals and uniforms laid out
+    [Mu_p, Mu_e, Sigmasq_p, Sigmasq_e], each row contiguous (a slice of a
+    wider draw will do); ``hypers``: the numbers m, s, a, b of the P side
+    then of the E side (``HYPERS``). Returns new (Mu_p, Sigmasq_p, Mu_e,
+    Sigmasq_e); no operand is written. On the card: one launch (counted
+    in ``hyper_update.launches``) that takes the hyperparameters as
+    arguments, so nothing is copied to the card and nothing read back;
+    equal to its plain version bit for bit."""
+    fn = "hyper_update"
+    C, K, N = P.shape
+    G = E.shape[2]
+    dev = P.device
+    for name, t, shape in (
+            ("P", P, (C, K, N)), ("E", E, (C, N, G)),
+            ("Mu_p", Mu_p, (C, K, N)), ("Sigmasq_p", Sigmasq_p, (C, K, N)),
+            ("Mu_e", Mu_e, (C, N, G)), ("Sigmasq_e", Sigmasq_e, (C, N, G))):
+        _check(fn, name, t, shape, dev)
+    for name, t in (("z", z), ("u", u)):
+        _check_out(fn, t, (C, 2 * (K * N + N * G)), dev, name)
+    if len(hypers) != len(HYPERS):
+        raise ValueError(f"{fn}: {len(hypers)} hyperparameters, expected "
+                         f"{len(HYPERS)} ({', '.join(HYPERS)})")
+    if dev.type == "cpu":
+        return hyper_update_reference(P, E, Mu_p, Sigmasq_p, Mu_e,
+                                      Sigmasq_e, z, u, hypers)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no path for device {dev}")
+    out = _launch_hyper(P, E, Mu_p, Sigmasq_p, Mu_e, Sigmasq_e, z, u, hypers)
+    hyper_update.launches += 1
+    return out
+
+
+hyper_update.launches = 0
+
+
 def special_functions(x, which: str):
     """The kernels' own ``ndtri``, ``log_ndtr``, ``ndtr`` or ``sigmoid`` on
     a float32 CUDA tensor, for holding them against torch.special.ndtri,
@@ -1113,3 +1246,4 @@ def reset_launch_counts():
     acol_delta.launches = chain_metrics.launches = 0
     stream_metrics_row.launches = 0
     stream_acol_update.launches = stream_acol_update.row_launches = 0
+    hyper_update.launches = 0

@@ -268,6 +268,21 @@ def acol_update_bound(K, N, G, C):
     return bound(4 * (n_in + n_out), ops)
 
 
+# operations of the exact hyper-update per entry of P and E (two
+# proposals, three log_ndtr at ~20 a special function, the Wilson-Hilferty
+# terms), as fused_bound counts the hyper-sweep
+HYPER_OPS = 60
+
+
+def hyper_bound(K, N, G, C):
+    """The exact hyper-update (csrc/stream_sweeps.cu: hyper_kernel) at one
+    call: per entry of P and E, x, Mu, Sigmasq, two normals and two
+    uniforms read once and Mu and Sigmasq written once (36 bytes), and
+    HYPER_OPS operations."""
+    entries = C * (K * N + N * G)
+    return bound(36 * entries, HYPER_OPS * entries)
+
+
 def synthetic(K, G, rank, seed=0, scale=500.0):
     """The synthetic recipe of phase 4: P ~ Dirichlet(0.3), E ~ Gamma(2,
     scale), M ~ Poisson. ``scale`` 500 at 96 rows; K / 96 times that keeps
@@ -362,6 +377,7 @@ def launch_counters(FS, S, AL):
             "_run": S._run.launches,
             "stream_acol_update": S.stream_acol_update.launches,
             "stream_metrics_row": S.stream_metrics_row.launches,
+            "hyper_update": S.hyper_update.launches,
             "acol_delta": S.acol_delta.launches,
             "chain_metrics": S.chain_metrics.launches,
             "allocation": AL.allocate_counts.launches,
@@ -403,7 +419,8 @@ def plain_calls(FS, S, AL):
                             "acol_update_reference", "chain_metrics_reference",
                             "stream_metrics_row_reference",
                             "pcol_update_reference",
-                            "erow_update_reference"))):
+                            "erow_update_reference",
+                            "hyper_update_reference"))):
         for name in names:
             calls[name] = 0
             saved.append((mod, name, getattr(mod, name)))

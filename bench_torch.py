@@ -300,12 +300,14 @@ def launches_ok(cnt, per_iter, steps, spec, init=False) -> bool:
     """Every counter at its launches per iteration times ``steps``, the
     draw kernel's (csrc/rng.cu) at ``spec``'s path's draws a step times
     ``steps`` and one a rejection round (with ``init``: the initial
-    state's draws too, and its allocation on the conjugate path), every
-    other counter 0, and no plain version called; True on the CPU, where
+    state's draws too, and its allocation on the conjugate path), the
+    hyper-update's at ``spec``'s path's launches a step, every other
+    counter 0, and no plain version called; True on the CPU, where
     nothing is launched."""
     if not cnt["on_card"]:
         return True
     want = {k: per_iter.get(k, 0) * steps for k in cnt["launches"]}
+    want["hyper_update"] = steps * gibbs.hyper_launches(spec)
     want["rng"] = (steps * gibbs.draw_launches(spec) + cnt["rounds"]
                    + (gibbs.draw_launches(spec, init=True) if init else 0))
     if init and spec.needs_Z:

@@ -48,7 +48,11 @@ their draws when 11 is not chosen); without it every phase runs:
    BFI, and a chain whose deltas are all NaN: the same A, NaN counts equal,
    each delta within the sums' tolerance, two launches bit-identical, one
    call for a sweep equal to its columns one by one; each column update
-   timed per column at (96,20,10000,8);
+   timed per column at (96,20,10000,8); the exact hyper-update
+   ``hyper_update`` (one launch) against its PyTorch ops at
+   (96,20,10000,8), (1536,20,2780,8) and one chain at (96,8,500), with Mu
+   deep in log_ndtr's tail, Sigmasq at the 1e-30 floor and g_new <= 1e-30:
+   every entry bit for bit, timed by CUDA events beside its bound;
 4. the fixed-rank slice: ``bayesnmf_tpu_torch.fit`` on a 96x500 rank-8
    synthetic catalogue on the card, checking that the state stayed on the
    card, the metrics are finite, the kernel ran once per iteration, the MAP
@@ -83,7 +87,8 @@ their draws when 11 is not chosen); without it every phase runs:
    kernels: every metrics row finite, each stream kernel launched its
    launches per iteration times the iterations run (3N for the P and E
    sweeps' kernels, N A columns through ``stream_acol_update``, one
-   metrics-row call and no ``chain_metrics`` launch), the final checkpoint
+   metrics-row call, one ``hyper_update`` launch and no ``chain_metrics``
+   launch), the final checkpoint
    resumes bit-exactly for 20 iterations; it prints the iterations, the
    chain-it/s of the run and of the chunk loop alone, each chain's learned
    rank and matched cosine, and the loop's device busy share and device
@@ -258,10 +263,10 @@ import numpy as np
 from bayesnmf_tpu_torch.ops.rng import ChainStreams
 from bayesnmf_tpu_torch.utils.measure import (
     acol_update_bound, alloc_bound, card_line, count_ops, device_ms,
-    draw_launches, fused_bound, kernel_ms, launch_counters, loop_rates,
-    matched_cosines, metrics_row_bound, n_leaves, pe_bound, plain_calls,
-    profile_loop, profile_run, reset_counts, rng_bound, stream_bound,
-    synthetic, time_ms, update_bound)
+    draw_launches, fused_bound, hyper_bound, kernel_ms, launch_counters,
+    loop_rates, matched_cosines, metrics_row_bound, n_leaves, pe_bound,
+    plain_calls, profile_loop, profile_run, reset_counts, rng_bound,
+    stream_bound, synthetic, time_ms, update_bound)
 
 RTOL, ATOL = 1e-4, 1e-5
 # (K, N, G, chains, A, hyper-sweep)
@@ -1312,6 +1317,153 @@ def compare_special(torch, S):
             bad_by["log_ndtr"])
 
 
+# (K, N, G, chains): phase 3b, the exact hyper-update at the two stream
+# cells' shapes and one chain at a fit's
+HYPER_CASES = [(96, 20, 10000, 8), (1536, 20, 2780, 8), (96, 8, 500, 1)]
+# the entries of chain 0 on each side whose g_new hyper_inputs drives
+# below 1e-30
+HYPER_REJECTED = slice(6, 8)
+
+
+def hyper_inputs(torch, S, K, N, G, C, seed):
+    """The hyper-update's operands on the card: P and E at a fit's scale,
+    prior pairs about the hyperpriors of a catalogue of mean 50
+    (config.default_hyperprior_params), normals and uniforms in
+    draw_stream_noise's layout (u a slice of a wider draw), and in chain
+    0's first 10 entries of each side the update's edges: Mu deep in
+    log_ndtr's tail (Mu / sd from -4 to -40), Sigmasq at and below the
+    1e-30 floor, normals that drive g_new below 1e-30 (HYPER_REJECTED: the
+    Sigmasq move is rejected there) and uniforms at 1.2e-38. Returns the
+    wrapper's arguments."""
+    from types import SimpleNamespace
+
+    from bayesnmf_tpu_torch.config import default_hyperprior_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    f = dict(generator=gen, device="cuda")
+    hp = default_hyperprior_params(SimpleNamespace(prior="truncnormal", N=N),
+                                   50.0)
+    P = torch.rand(C, K, N, **f) * (2.0 / K)
+    E = torch.rand(C, N, G, **f) * 200.0
+    pairs = []
+    for side, shape in (("p", (C, K, N)), ("e", (C, N, G))):
+        mu = torch.randn(shape, **f) * hp[f"s_{side}"] + hp[f"m_{side}"]
+        sq = hp[f"b_{side}"] / (hp[f"a_{side}"]
+                                * (0.25 + torch.rand(shape, **f)))
+        pairs += [mu, sq]
+    n_p, n_e = K * N, N * G
+    n_t = n_p + n_e
+    z = torch.randn(C, 2 * n_t, **f)
+    u = torch.rand(C, 2 * n_t + 41, **f).clamp_min_(1.2e-38)[:, :2 * n_t]
+    for (mu, sq), off in (((pairs[0], pairs[1]), 0),
+                          ((pairs[2], pairs[3]), n_p)):
+        mu_f, sq_f = mu.view(C, -1), sq.view(C, -1)
+        mu_f[0, 0:4] = (torch.tensor([-4.0, -10.0, -25.0, -40.0],
+                                     device="cuda") * sq_f[0, 0:4].sqrt())
+        sq_f[0, 4:6] = torch.tensor([1e-30, 1e-33], device="cuda")
+        z[0, n_t + off:][HYPER_REJECTED] = torch.tensor([-40.0, -1e3],
+                                                        device="cuda")
+        u[0, off + 8] = u[0, n_t + off + 9] = 1.2e-38
+    return [P, E, *pairs, z, u, [hp[k] for k in S.HYPERS]]
+
+
+def events_ms(torch, fn, reps):
+    """ms per call of ``fn`` by CUDA events around ``reps`` calls enqueued
+    behind a 100 ms spin of the card, so that the events time the card's
+    work and not the host's pace of launching."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_hyper_update(torch, S, card):
+    """Phase 3b, the exact hyper-update: ``hyper_update`` (one launch)
+    against its plain version (the PyTorch ops of
+    ``hyper_update_reference``) on the same CUDA tensors at HYPER_CASES,
+    with the edges of ``hyper_inputs``: Mu and Sigmasq equal bit for bit
+    (any entry that differs is printed with its count), two launches
+    bit-identical, the edges' Sigmasq moves rejected; each case timed by
+    CUDA events and on the device beside its bound (``hyper_bound``, and
+    the benchmark's ``workcount.hyper``) and the plain version. Returns
+    dict(max_abs_err, ms, events_ms, plain_ms, bound_ms, bound_by) at the
+    first case."""
+    from benchmark import workcount
+
+    names = ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e")
+    res = {}
+    for i, (K, N, G, C) in enumerate(HYPER_CASES):
+        case = f"(K,N,G,C)={(K, N, G, C)}"
+        args = hyper_inputs(torch, S, K, N, G, C, 7 + i)
+        before = S.hyper_update.launches
+        got = S.hyper_update(*args)
+        again = S.hyper_update(*args)
+        want = S.hyper_update_reference(*args)
+        torch.cuda.synchronize()
+        check(S.hyper_update.launches == before + 2,
+              f"hyper_update: {S.hyper_update.launches - before} launches "
+              f"for two calls at {case}")
+        bad_total, moved = 0, []
+        for name, k, k2, p, old in zip(names, got, again, want, args[2:6]):
+            check(torch.equal(k.view(torch.int32), k2.view(torch.int32)),
+                  f"hyper_update: two launches differ in {name} at {case}")
+            bad = (k.view(torch.int32) != p.view(torch.int32)).flatten()
+            n_bad = int(bad.sum())
+            if n_bad:
+                idx = bad.nonzero()[:5, 0].tolist()
+                kf, pf = k.flatten(), p.flatten()
+                print(f"hyper_update {name} at {case}: {n_bad} entries "
+                      f"differ from the PyTorch ops, first at "
+                      + ", ".join(f"{j}: {kf[j].item()!r} against "
+                                  f"{pf[j].item()!r}" for j in idx),
+                      flush=True)
+            bad_total += n_bad
+            moved.append(int((k != old).sum()))
+        for sq_new, sq_old in ((got[1], args[3]), (got[3], args[5])):
+            check(torch.equal(sq_new[0].flatten()[HYPER_REJECTED],
+                              sq_old[0].flatten()[HYPER_REJECTED]),
+                  f"hyper_update: a Sigmasq move with g_new <= 1e-30 "
+                  f"accepted at {case}")
+        check(bad_total == 0, f"hyper_update: {bad_total} entries differ "
+              f"from the PyTorch ops at {case}")
+
+        def kernel():
+            S.hyper_update(*args)
+
+        def plain():
+            S.hyper_update_reference(*args)
+
+        ev = events_ms(torch, kernel, 200)
+        dev = device_ms(torch, kernel, 20)
+        plain_ms = time_ms(torch, plain, 10)
+        b_ms, b_by = hyper_bound(K, N, G, C)
+        wc_ms = workcount.bound_s(*workcount.hyper(K, N, G, C)) * 1e3
+        print(f"hyper_update vs the PyTorch ops {case}: 0 of "
+              f"{2 * C * (K * N + N * G)} entries differ (moves accepted: "
+              + ", ".join(f"{n} {m}" for n, m in zip(names, moved))
+              + f"; edges: Mu/sd to -40, Sigmasq 1e-30 and 1e-33, g_new "
+              f"<= 1e-30 rejected, u at 1.2e-38); two launches "
+              f"bit-identical; kernel {ev:.4f} ms by CUDA events, "
+              + (f"{dev:.4f}" if dev is not None else "not measured")
+              + f" ms on the device, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), workcount.hyper {wc_ms:.4f} ms, on "
+              f"{card}", flush=True)
+        if i == 0:
+            res = {"max_abs_err": 0.0, "ms": ev if dev is None else dev,
+                   "events_ms": ev, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3d: the allocation kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -1589,6 +1741,7 @@ def run_ensemble(torch, bt, S, card):
                     "stream_acol_update": S.stream_acol_update.launches,
                     "acol_delta": S.acol_delta.launches,
                     "stream_metrics_row": S.stream_metrics_row.launches,
+                    "hyper_update": S.hyper_update.launches,
                     "chain_metrics": S.chain_metrics.launches}
         steps = ens.iter - 1  # iteration 1 is the initial draw
         counts = launch_counters(FS, S, AL)
@@ -1597,10 +1750,12 @@ def run_ensemble(torch, bt, S, card):
         check(counts["fused"] == counts["allocation"] == 0,
               "ensemble: another kernel ran")
         # a P column is two passes over the G tiles, an E row one launch;
-        # an A column one update; the metrics row one call (the sums-only
-        # acol_delta and chain_metrics are off the path)
+        # an A column one update; the metrics row and the hyper-update one
+        # call each (the sums-only acol_delta and chain_metrics are off the
+        # path)
         per_iter = {"_run": 3 * N, "stream_acol_update": N, "acol_delta": 0,
-                    "stream_metrics_row": 1, "chain_metrics": 0}
+                    "stream_metrics_row": 1, "hyper_update": 1,
+                    "chain_metrics": 0}
         for k, n in per_iter.items():
             check(launches[k] == n * steps,
                   f"{k} launches {launches[k]} != {n} x {steps} iterations")
@@ -2019,7 +2174,9 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counters(FS, S, AL)
-            launches = ported(counts)
+            # the exact truncnormal hyper-update is one launch a step
+            hyper = counts["hyper_update"]
+            launches = ported(counts) - hyper
             steps = s.iter - 1
             draws = check_draws(f"eager (b) {label}", counts, gibbs, s.spec,
                                 steps)
@@ -2027,6 +2184,9 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
                 resume_check(torch, bt, gibbs, s, f"eager (d) {label}")
         check(launches == 0, f"eager (b) {label}: {launches} kernel "
               "launches on the eager path")
+        check(hyper == gibbs.hyper_launches(s.spec) * steps,
+              f"eager (b) {label}: hyper-update launches {hyper} != "
+              f"{gibbs.hyper_launches(s.spec)} x {steps} iterations")
         rows = np.concatenate(s._metric_rows)
         check(rows.shape[0] == s.iter and np.isfinite(rows).all(),
               f"eager (b) {label}: metrics are not finite")
@@ -2040,7 +2200,7 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
         print(f"eager (b) {label}: fit({EAGER_K}x{EAGER_G}, rank "
               f"{EAGER_RANK}) ran {steps} "
               f"iterations ({s.tracker.why}); kernel launches 0 but the "
-              f"draw kernel's {draws}; MAP "
+              f"hyper-update's {hyper} and the draw kernel's {draws}; MAP "
               f"matched cosine min {cos.min():.4f} mean {cos.mean():.4f}; "
               f"{steps / wall:.1f} it/s for the whole fit ({wall:.2f} s), "
               f"{loop:.1f} it/s in the chunk loop alone ({EAGER_LOOP} "
@@ -2071,8 +2231,11 @@ def run_eager(torch, bt, FS, S, AL, gibbs, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counters(FS, S, AL)
-    launches = ported(counts)
+    hyper = counts["hyper_update"]
+    launches = ported(counts) - hyper
     check(launches == 0, f"eager (c): {launches} kernel launches")
+    check(hyper == s.iter - 1, f"eager (c): hyper-update launches {hyper} "
+          f"!= {s.iter - 1} iterations")
     check_draws("eager (c)", counts, gibbs, s.spec, s.iter - 1)
     rows = np.concatenate(s._metric_rows)
     check(np.isfinite(rows).all(), "eager (c): metrics are not finite")
@@ -2302,6 +2465,8 @@ def report_run(torch, CH, ens, label, wall, launches, per_iter, P_true,
     per_iter = dict(per_iter)
     per_iter["rng"] = (gibbs.draw_launches(ens.spec),
                        draw_launches(gibbs, ens.spec, 0, init=True))
+    if gibbs.hyper_launches(ens.spec):
+        per_iter["hyper_update"] = (gibbs.hyper_launches(ens.spec), 0)
     rows = ens._metrics_all()
     rows = rows[~np.isnan(rows[..., 0])]
     check(rows.shape[0] > 0 and np.isfinite(rows).all(),
@@ -3706,6 +3871,9 @@ def run_geweke(torch, card, device="cuda"):
         if "_run" in want:
             want["_run"] *= 3 * N
         spec = geweke_spec(TG, gate, prod)
+        if gibbs.hyper_launches(spec):
+            want["hyper_update"] = (n_chain * steps
+                                    * gibbs.hyper_launches(spec))
         want["rng"] = (n_chain * (steps * gibbs.draw_launches(spec)
                                   + gibbs.draw_launches(spec, init=True))
                        + sum(done[i]["rounds"] for i in ids))
@@ -4429,6 +4597,7 @@ def run_catalogue(torch, bt, FS, S, AL, U, gibbs, card):
         ens_launches = {"_run": S._run.launches,
                         "stream_acol_update": S.stream_acol_update.launches,
                         "stream_metrics_row": S.stream_metrics_row.launches,
+                        "hyper_update": S.hyper_update.launches,
                         "acol_delta": S.acol_delta.launches,
                         "chain_metrics": S.chain_metrics.launches,
                         "rng": counts["rng"],
@@ -4665,6 +4834,7 @@ def main() -> int:
               "PyTorch calls")
         r["updates"] = compare_stream_updates(torch, S, card)
         r["acol"] = compare_acol_updates(torch, S, U, card)
+        r["hyper"] = compare_hyper_update(torch, S, card)
 
     def p3c():
         # the fused kernel's rank branch, exponential prior and
@@ -4820,6 +4990,17 @@ def kernel_entries(r):
                                row["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
+    if have("hyper", "ens_launches"):
+        # no TPU kernel: the JAX package's exact hyper-update runs in XLA
+        hyper = r["hyper"]
+        kernels.append({
+            "name": "hyper_update", "route": "cuda", "source": src,
+            "replaces": "none (bayesnmf_tpu/models/updates.py:119-173 in "
+                        "XLA)",
+            "launches": r["ens_launches"]["hyper_update"],
+            **{k: hyper[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
             "library_ms": None})
     if have("alloc", "alloc_launches"):
         alloc = r["alloc"]

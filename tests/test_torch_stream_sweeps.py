@@ -40,6 +40,7 @@ from bayesnmf_tpu_torch.models import updates as TU
 from bayesnmf_tpu_torch.ops import math as tm
 from bayesnmf_tpu_torch.ops import stream_sweeps as S
 from bayesnmf_tpu_torch.ops.rng import ChainStreams
+from bayesnmf_tpu_torch.utils.measure import count_ops
 
 torch.set_num_threads(1)
 
@@ -335,6 +336,185 @@ def test_sample_prior_params_matches_jax(ens_setup):
                                       np.asarray(want[k]) != old,
                                       err_msg=f"{k} decisions")
         close(got[k].numpy(), np.asarray(want[k]), 1e-5, 1e-6, msg=k)
+
+
+PRIOR_PAIRS = ("Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e")
+
+
+def hyper_operands(ens_setup, chains=True):
+    """sample_prior_params' operands at ens_setup's two-chain state (chain
+    0 alone without ``chains``), the noise laid out as draw_stream_noise
+    lays it: z a draw of its own, u a slice of a wider draw."""
+    jspec, tspec, hp, data, js = ens_setup
+    params, prior = port_tree(js["params"]), port_tree(js["prior"])
+    n2 = TU.n_hyper_noise(tspec)
+    rng = np.random.default_rng(12)
+    noise = {"z": t(rng.standard_normal((C, n2)).astype(np.float32)),
+             "u": t(rng.uniform(_U_MIN, 1.0, (C, n2 + 41)).astype(
+                 np.float32))[:, :n2]}
+    if not chains:
+        params, prior, noise = TU.drop(params), TU.drop(prior), TU.drop(noise)
+    return tspec, hp, params, prior, noise
+
+
+def hyper_args(params, prior, noise, hp):
+    return [params["P"], params["E"], *(prior[k] for k in PRIOR_PAIRS),
+            noise["z"], noise["u"], [hp[k] for k in S.HYPERS]]
+
+
+@pytest.mark.parametrize("chains", [True, False])
+def test_hyper_update_never_takes_the_plain_path_on_cuda(ens_setup, chains,
+                                                         monkeypatch):
+    """For CUDA tensors the exact hyper-update is one launch of the kernel
+    (one chain as a batch of one), with the hyperparameters as numbers: the
+    PyTorch ops are not reached and nothing is copied to the card; a CPU
+    call counts no launch. Checked with a stand-in launcher, whose
+    operands then give the CPU call's result."""
+    tspec, hp, params, prior, noise = hyper_operands(ens_setup, chains)
+    S.reset_launch_counts()
+    want = TU.sample_prior_params(tspec, hp, params, prior, noise=noise)
+    assert S.hyper_update.launches == 0
+    calls = []
+    tensor = torch.tensor
+
+    def stand_in(*a):
+        calls.append(a)
+        return tuple(torch.full(a[2 + i].shape, float(i)) for i in range(4))
+
+    def no_plain(*a, **k):
+        raise AssertionError("the PyTorch ops reached for CUDA tensors")
+
+    def no_copy(*a, **k):
+        if "device" in k:
+            raise AssertionError("a number copied to the card")
+        return tensor(*a, **k)
+
+    fake_cuda = torch.device("cuda", 0)
+    with monkeypatch.context() as mp:
+        mp.setattr(S, "_launch_hyper", stand_in)
+        for name in ("_mu_step", "_sq_step", "hyper_update_reference"):
+            mp.setattr(S, name, no_plain)
+        mp.setattr(torch, "tensor", no_copy)
+        mp.setattr(torch.Tensor, "device", property(lambda self: fake_cuda))
+        got = TU.sample_prior_params(tspec, hp, params, prior, noise=noise)
+    assert S.hyper_update.launches == 1 and len(calls) == 1
+    for i, k in enumerate(PRIOR_PAIRS):
+        assert (got[k] == float(i)).all()
+        assert got[k].shape == prior[k].shape
+    assert calls[0][8] == [hp[k] for k in S.HYPERS]
+    for k, v in zip(PRIOR_PAIRS, S.hyper_update_reference(*calls[0])):
+        assert torch.equal(v if chains else v[0], want[k]), k
+    S.reset_launch_counts()
+    assert S.hyper_update.launches == 0
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity",
+                                  "noise_rows", "noise_length", "device",
+                                  "hypers"])
+def test_hyper_update_checks_its_operands(ens_setup, case):
+    tspec, hp, params, prior, noise = hyper_operands(ens_setup)
+    args = hyper_args(params, prior, noise, hp)
+    err = ValueError
+    if case == "dtype":
+        args[3], err = args[3].double(), TypeError
+    elif case == "shape":
+        args[4] = args[4][:, :, :-1].contiguous()
+    elif case == "contiguity":
+        args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "noise_rows":
+        args[7] = args[7].t().contiguous().t()
+    elif case == "noise_length":
+        args[6] = args[6][:, :-1]
+    elif case == "device":
+        args[2] = torch.empty(args[2].shape, device="meta")
+    else:
+        args[8] = args[8][:-1]
+    with pytest.raises(err):
+        S.hyper_update(*args)
+
+
+def test_hyper_update_takes_noise_rows_of_any_stride(ens_setup):
+    """Noise rows that are slices of a wider draw give what their
+    contiguous copies give, and each chain what it gets alone."""
+    tspec, hp, params, prior, noise = hyper_operands(ens_setup)
+    args = hyper_args(params, prior, noise, hp)
+    assert not args[7].is_contiguous()
+    got = S.hyper_update(*args)
+    same = S.hyper_update(*args[:6], args[6].clone(), args[7].contiguous(),
+                          args[8])
+    one = S.hyper_update(*(a[1:] for a in args[:8]), args[8])
+    for a, b, c, k in zip(got, same, one, PRIOR_PAIRS):
+        assert torch.equal(a, b) and torch.equal(a[1:], c), k
+        assert (a != prior[k]).any(), f"{k}: no move accepted"
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_truncnormal_prior_update_copies_nothing_to_the_card(ens_setup,
+                                                             exact,
+                                                             monkeypatch):
+    """Neither truncnormal branch makes a number a device tensor with
+    torch.tensor (a blocking copy from the host on the card); the exact one
+    reads nothing back either."""
+    jspec, tspec, hp, data, js = ens_setup
+    tspec, hp, params, prior, noise = hyper_operands(ens_setup)
+    if not exact:
+        tspec = ModelSpec(K=K, N=N, G=G, likelihood="poisson",
+                          prior="truncnormal", MH=True,
+                          exact_truncnorm_hypers=False)
+        rng = np.random.default_rng(13)
+        noise = {"mu_p": t(rng.standard_normal((C, K, N)).astype(np.float32)),
+                 "mu_e": t(rng.standard_normal((C, N, G)).astype(np.float32)),
+                 "sq_p": t(rng.uniform(0.05, 1.0, (C, 9, K, N)).astype(
+                     np.float32)),
+                 "sq_e": t(rng.uniform(0.05, 1.0, (C, 9, N, G)).astype(
+                     np.float32))}
+    tensor = torch.tensor
+
+    def no_copy(*a, **k):
+        if "device" in k:
+            raise AssertionError("a number copied to the card")
+        return tensor(*a, **k)
+
+    monkeypatch.setattr(torch, "tensor", no_copy)
+    _, reads = count_ops(torch, lambda: TU.sample_prior_params(
+        tspec, hp, params, prior, noise=noise))
+    if exact:
+        assert reads == 0
+
+
+def test_stream_step_makes_one_hyper_update_call(ens_setup, monkeypatch):
+    """stream_step updates Mu and Sigmasq by one call of hyper_update (one
+    launch on the card, gibbs.hyper_launches)."""
+    jspec, tspec, hp, data, js = ens_setup
+    state = {"params": port_tree(js["params"]),
+             "prior": port_tree(js["prior"]),
+             "acc_P": t(np.asarray(js["acc_P"])),
+             "acc_E": t(np.asarray(js["acc_E"])), "iter": 4,
+             "gen": ChainStreams(0, np.arange(C))}
+    calls = []
+    update = S.hyper_update
+
+    def spy(*a, **k):
+        calls.append(update(*a, **k))
+        return calls[-1]
+
+    monkeypatch.setattr(S, "hyper_update", spy)
+    new, _ = tgibbs.stream_step(tspec, t(data), hp, state, 0.5,
+                                torch.tensor([False, True]))
+    assert len(calls) == 1 == tgibbs.hyper_launches(tspec)
+    for k, v in zip(PRIOR_PAIRS, calls[0]):
+        assert new["prior"][k] is v
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(stream_sweeps=True), 1), (dict(fused_sweeps=False), 1),
+    (dict(fused_sweeps=True), 0), (dict(likelihood="normal", MH=False), 1),
+    (dict(stream_sweeps=True, exact_truncnorm_hypers=False), 0),
+    (dict(stream_sweeps=True, prior="exponential"), 0)])
+def test_hyper_launches_by_path(kw, want):
+    spec = ModelSpec(**{**dict(K=K, N=N, G=G, likelihood="poisson",
+                               prior="truncnormal", MH=True), **kw})
+    assert tgibbs.hyper_launches(spec) == want
 
 
 ROW_ARGS = ("P", "E", "A", "acc_P", "acc_E", "Mu_p", "Sigmasq_p", "Mu_e",
