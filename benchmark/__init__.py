@@ -4,6 +4,7 @@
 runs one cell of ``BENCHMARK.json`` once and prints one JSON line. The
 harness finds everything by name: a configuration in ``configs/``, a
 traffic mix in ``traffic/``, a cell's correctness limits in
-``workloads/``, a metric's reader in ``metrics/`` and a configuration's
-plain reference in ``reference/``; a new cell, mix or metric is new files.
+``workloads/``, a metric's reader in ``metrics/``, a configuration's
+plain reference in ``reference/`` and its model's work count in
+``counts/``; a new cell, mix, model or metric is new files.
 """

@@ -11,14 +11,19 @@ temperature and the warm-up flags) and derives the step's output again,
 draws included (the reference's own Philox). The start, which this skips,
 is checked by itself: each fit's initial draws against the reference's.
 
+The reference declares what it checks: ``STATE``, the tensors a replayed
+step compares and where each sits in the program's state; ``START``, the
+tensors of a start; ``STEPS``, the program's path name -> the step that
+replays it. A path the reference does not declare is never replayed by
+another path's step: the run compares nothing and reads 1.0.
+
 The one number compared is ``mismatch_share``: over every replayed step and
-every start, the largest share of a tensor's entries (P, E, A, R, the prior
-parameters, the acceptance records, the metrics row) on which the two sides
-differ by more than ``RTOL`` of the entry's size plus the tensor's mean
-size (each metrics column its own). A decision within rounding of its
-threshold flips a few entries of millions; a wrong or skipped update, a
-chain left out or altered, or a state held in a lower precision moves a
-large share.
+every start, the largest share of a tensor's entries (each ``STATE``
+tensor and the metrics row) on which the two sides differ by more than
+``RTOL`` of the entry's size plus the tensor's mean size (each metrics
+column its own). A decision within rounding of its threshold flips a few
+entries of millions; a wrong or skipped update, a chain left out or
+altered, or a state held in a lower precision moves a large share.
 """
 
 from __future__ import annotations
@@ -30,8 +35,6 @@ import numpy as np
 import torch
 
 RTOL = 1e-4
-STATE = ("P", "E", "A", "R", "Mu_p", "Sigmasq_p", "Mu_e", "Sigmasq_e",
-         "acc_P", "acc_E")
 
 
 def load_reference(root: str, name: str):
@@ -63,18 +66,20 @@ def off_share(prog: torch.Tensor, ref: torch.Tensor,
     return float(off.float().mean())
 
 
-def step_shares(prog: dict, ref: dict) -> dict:
-    """name -> share for every tensor of a replayed step."""
-    out = {k: off_share(prog[k], ref[k]) for k in STATE}
+def step_shares(ref_mod, prog: dict, ref: dict) -> dict:
+    """name -> share for every tensor of a replayed step that ``ref_mod``
+    declares, and the metrics row."""
+    out = {k: off_share(prog[k], ref[k]) for k in ref_mod.STATE}
     out["row"] = off_share(prog["row"], ref["row"], by_column=True)
     return out
 
 
 def replay(ref_mod, data, hp, cap: dict, path: str, N: int, sbfi: bool,
            learning: bool, rounding=None) -> dict:
-    """The reference's output of a captured step's input."""
-    fn = ref_mod.stream_step if path == "stream" else ref_mod.fused_step
-    return fn(data, hp, cap["in"], N, sbfi, learning, rounding)
+    """The reference's output of a captured step's input, by the step it
+    declares for ``path`` (KeyError for a path it does not declare)."""
+    return ref_mod.STEPS[path](data, hp, cap["in"], N, sbfi, learning,
+                               rounding)
 
 
 def mismatch(ref_mod, data, hp, captures, starts, path, N, sbfi, learning,
@@ -82,7 +87,12 @@ def mismatch(ref_mod, data, hp, captures, starts, path, N, sbfi, learning,
     """{"mismatch_share": the largest share, "worst": where, "steps",
     "starts"}: the program's outputs (``use_reference_output``: the
     reference's own, computed in ``rounding`` against float32, for the
-    control) against the reference's."""
+    control) against the reference's; 1.0 and nothing compared where the
+    reference does not declare ``path``."""
+    if path not in ref_mod.STEPS:
+        return {"mismatch_share": 1.0,
+                "worst": f"path {path} (not declared by the reference)",
+                "steps": 0, "starts": 0, "by_tensor": {}}
     worst, where = -1.0, None
     G = data.shape[1]
     by_tensor = {}
@@ -102,7 +112,7 @@ def mismatch(ref_mod, data, hp, captures, starts, path, N, sbfi, learning,
                           rounding)
         else:
             prog = cap["out"]
-        shares = step_shares(prog, ref) if ok else {"identity": 1.0}
+        shares = step_shares(ref_mod, prog, ref) if ok else {"identity": 1.0}
         for k, v in shares.items():
             note(v, f"step {i} (iteration {cap['in']['it']}) {k}")
         del ref, prog
@@ -121,8 +131,12 @@ def sample_steps(seed: int, fit: int, n_steps: int, maxiters: int,
                  count: int) -> set:
     """The input iterations of fit ``fit`` whose steps are replayed: drawn
     from the seed, half in the warm-up (iterations 1..maxiters-1), half
-    after it; ``n_steps`` the fit's last input iteration + 1."""
+    after it; ``n_steps`` the fit's last input iteration + 1 (a fit with
+    no post-warm-up steps, ``n_steps`` = maxiters: all in the warm-up)."""
     rng = np.random.default_rng([int(seed) % 2 ** 63, fit])
+    if n_steps <= maxiters:
+        return set(int(x) for x in rng.integers(1, maxiters,
+                                                size=max(count, 1)))
     warm = rng.integers(1, maxiters, size=max(count // 2, 1))
     post = rng.integers(maxiters, n_steps, size=max(count - count // 2, 1))
     return set(int(x) for x in np.concatenate([warm, post]))

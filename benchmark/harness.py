@@ -3,13 +3,23 @@ check of what the window produced, and the result line.
 
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``:
 the model, the catalogue's width K and the data recipe, with its plain
-reference ``reference/<name>.py``) and a traffic mix
-(``traffic/<name>.json``: the entry, the cohort size G, the chains, the
-ranks, the iterations of a fit and what it saves), and has its own file of
-correctness limits (``workloads/<name>.json``). A metric is a reader
-``metrics/<name>.py`` whose ``read(run)`` returns a number or None. The
-harness finds all of them by name, so a new cell, mix or metric is new
-files.
+reference ``reference/<reference>.py`` and its work count
+``counts/<reference>.py``) and a traffic mix (``traffic/<name>.json``: the
+entry, the cohort size G, the chains, the ranks, the iterations of a fit
+and what it saves), and has its own file of correctness limits
+(``workloads/<name>.json``). A metric is a reader ``metrics/<name>.py``
+whose ``read(run)`` returns a number or None. The harness finds all of them
+by name, so a new cell, mix, model or metric is new files.
+
+The configuration's model reaches the program: its ``likelihood``,
+``prior`` and ``MH`` go to every entry, any other key to an entry whose
+class takes it, and after the warm fit every key is compared with the
+program's spec (``model_gaps``); a key the program did not take up makes
+the run not correct. The entries (``ENTRIES``): ``ensemble``, one
+``ChainEnsemble``; ``bic``, ``fit(rank_method="BIC")``, one masked
+ensemble; ``fit``, one ``GibbsSampler`` as a user's ``fit`` call builds it.
+The path a run takes is named from the spec (``path_of``: stream, fused,
+conjugate or eager), and the reference declares the paths it replays.
 
 The window runs whole fits back to back, each from the seed's data to the
 MAP: the program's construction, chunks, MAP and convergence checks,
@@ -21,9 +31,10 @@ chain-iterations of its fits over all its wall seconds.
 What the benchmark reads inside the program, it reads from wrappers that it
 puts around the program's functions (``Hooks``): the steps a fit ran and
 their inputs and outputs (``models.gibbs.gibbs_step``), the initial draws
-(``parallel.chains.init_chain_states``), and with ``trace`` the host-clock
-spans of the ensemble's phases, a profiled stretch of the window and the
-arguments of one call of each kernel.
+(``models.gibbs.init_state``), and with ``trace`` the host-clock spans of
+the entry's phases, a profiled stretch of the window and the arguments of
+one call of each kernel. A single chain's state, which has no chain axis,
+is kept as a batch of one (uid 0), as the reference replays a batch.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from __future__ import annotations
 import functools
 import gc
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -42,7 +54,6 @@ import numpy as np
 from . import check as CK
 from . import data as D
 from . import profiling as PR
-from . import workcount as W
 
 FOREIGN = ("jax", "jaxlib", "flax", "bayesnmf_tpu")
 NEVER = 10 ** 9
@@ -88,6 +99,20 @@ def load_cell(root: str, name: str) -> dict:
             "end_to_end": e2e, "per_layer": layer}
 
 
+def load_count(root: str, reference: str):
+    """The work count of the configurations whose reference is
+    ``reference`` (``benchmark/counts/<reference>.py``: ``step_bound_s`` and
+    ``kernel_bound_s``), or None where that model has none."""
+    path = os.path.join(root, "benchmark", "counts", f"{reference}.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location(f"bench_count_{reference}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def load_reader(root: str, metric: str):
     """``read`` of the metric's reader, ``benchmark/metrics/<metric>.py``."""
     path = os.path.join(root, "benchmark", "metrics", f"{metric}.py")
@@ -98,11 +123,13 @@ def load_reader(root: str, metric: str):
     return mod.read
 
 
-def _clone(x):
+def _clone(x, lift=False):
+    """A detached copy; ``lift``: a tensor gains a leading axis of one."""
     import torch
 
     if isinstance(x, torch.Tensor):
-        return x.detach().clone()
+        x = x.detach()
+        return x.unsqueeze(0).clone() if lift else x.clone()
     if isinstance(x, (tuple, list)):
         return type(x)(_clone(v) for v in x)
     if isinstance(x, dict):
@@ -132,12 +159,24 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# the ensemble's phases for the host-clock spans, as bench_torch.py's
-# phase_clock splits a run: label by method
-PHASES = (("__init__", "construct"), ("_run_chunk", "loop"),
-          ("_check_convergence", "map_check"),
-          ("_finalize_chain", "map_check"), ("_compute_maps", "map_check"),
-          ("save_object", "checkpoint"))
+# entry -> the program's class that it builds: its keywords are what the
+# entry takes, its methods the phases that are spanned
+ENTRIES = {"ensemble": "ChainEnsemble", "bic": "ChainEnsemble",
+           "fit": "GibbsSampler"}
+
+# each class's phases for the host-clock spans, as bench_torch.py's
+# phase_clock splits a run: label by method; the profiled stretch opens at
+# a ``loop`` span
+PHASES = {"ChainEnsemble": (("__init__", "construct"), ("_run_chunk", "loop"),
+                            ("_check_convergence", "map_check"),
+                            ("_finalize_chain", "map_check"),
+                            ("_compute_maps", "map_check"),
+                            ("save_object", "checkpoint")),
+          "GibbsSampler": (("__init__", "construct"), ("_run_chunk", "loop"),
+                           ("_map_check", "map_check"),
+                           ("save_object", "checkpoint"))}
+# the prefix of the benchmark's spans in the trace, by class
+SPAN_PREFIX = {"ChainEnsemble": "ensemble", "GibbsSampler": "sampler"}
 
 # per path: the kernel wrappers whose calls are timed, (module key, name)
 KERNELS = {"stream": (("S", "stream_pcol_update"),
@@ -150,13 +189,20 @@ KERNELS = {"stream": (("S", "stream_pcol_update"),
 class Hooks:
     """The wrappers the benchmark puts around the program's functions, and
     what they record. ``fit`` is the window's fit index (None outside the
-    window)."""
+    window). ``ref``: the configuration's reference, whose ``STATE`` and
+    ``START`` say what a captured step and start keep; ``capture`` False (a
+    path the reference does not declare) keeps none. ``mods["entry"]``:
+    the entry's class, whose ``PHASES`` are spanned."""
 
-    def __init__(self, torch, mods: dict, trace: bool, plan: dict):
+    def __init__(self, torch, mods: dict, trace: bool, plan: dict, ref,
+                 capture: bool = True):
         self.torch = torch
         self.mods = mods
         self.trace = trace
         self.plan = plan
+        self.ref = ref
+        self.capture = capture
+        self.in_step = False
         self.fit = None
         self.fit_seed = None
         self.sample = set()
@@ -164,7 +210,8 @@ class Hooks:
         self.chunks = 0
         self.steps = []
         self.captures, self.starts = [], []
-        self.spans = {label: [] for _, label in PHASES}
+        self.spans = {label: [] for phases in PHASES.values()
+                      for _, label in phases}
         self._inner = []
         self.prof = None
         self.prof_s = 0.0
@@ -182,15 +229,16 @@ class Hooks:
         setattr(owner, name, wrapper)
 
     def install(self):
-        gibbs, chains = self.mods["gibbs"], self.mods["chains"]
+        gibbs = self.mods["gibbs"]
         self._patch(gibbs, "gibbs_step", self._step(gibbs.gibbs_step))
-        self._patch(chains, "init_chain_states",
-                    self._init(chains.init_chain_states))
+        self._patch(gibbs, "init_state", self._init(gibbs.init_state))
         if self.trace:
-            ens = self.mods["ChainEnsemble"]
-            for name, label in PHASES:
-                self._patch(ens, name, self._span(getattr(ens, name), label,
-                                                  name == "_run_chunk"))
+            cls = self.mods["entry"]
+            prefix = SPAN_PREFIX[cls.__name__]
+            for name, label in PHASES[cls.__name__]:
+                self._patch(cls, name, self._span(
+                    getattr(cls, name), f"{prefix}/{label}", label,
+                    label == "loop"))
             for path_kernels in KERNELS.values():
                 for key, name in path_kernels:
                     mod = self.mods[key]
@@ -222,60 +270,66 @@ class Hooks:
         @functools.wraps(orig)
         def gibbs_step(spec, data, hp, state, temperature, accept_all, *a,
                        **k):
-            if self.fit is None:
+            # a single chain's fused step calls gibbs_step again on its
+            # state lifted to a batch of one: that inner call is not a step
+            if self.fit is None or self.in_step:
                 return orig(spec, data, hp, state, temperature, accept_all,
                             *a, **k)
+            one = _one_chain(state)
             it = state["iter"]
             cap = None
-            if it in self.sample:
+            if self.capture and it in self.sample:
                 gen = state["gen"]
-                C = state["params"]["P"].shape[0]
+                C = 1 if one else state["params"]["P"].shape[0]
                 ok = (it == self.fit_steps + 1 and gen.seed == self.fit_seed
                       and np.array_equal(gen.all_uids, np.arange(C)))
-                cap = {"in": self._snap(state) | {
+                acc = (self.torch.tensor([bool(accept_all)]) if one
+                       else _clone(accept_all))
+                cap = {"in": self._snap(state, self.ref.STATE) | {
                     "seed": self.fit_seed, "uids": np.arange(C), "it": it,
                     "temperature": _clone(temperature),
-                    "accept_all": _clone(accept_all)},
+                    "accept_all": acc},
                     "identity_ok": ok}
-            new_state, sample = orig(spec, data, hp, state, temperature,
-                                     accept_all, *a, **k)
-            C = new_state["params"]["P"].shape[0]
-            self.steps.append(C)
+            self.in_step = True
+            try:
+                new_state, sample = orig(spec, data, hp, state, temperature,
+                                         accept_all, *a, **k)
+            finally:
+                self.in_step = False
+            self.steps.append(1 if one else new_state["params"]["P"].shape[0])
             self.fit_steps += 1
             if self.prof is not None:
                 self.stretch_steps += 1
             if cap is not None:
-                cap["out"] = self._snap(new_state) | {
-                    "row": _clone(sample["metrics"])}
+                cap["out"] = self._snap(new_state, self.ref.STATE) | {
+                    "row": _clone(sample["metrics"], one)}
                 self.captures.append(cap)
             return new_state, sample
         return gibbs_step
 
-    @staticmethod
-    def _snap(state) -> dict:
-        p, pr = state["params"], state["prior"]
-        return {"P": _clone(p["P"]), "E": _clone(p["E"]), "A": _clone(p["A"]),
-                "R": _clone(p["R"]), "Mu_p": _clone(pr["Mu_p"]),
-                "Sigmasq_p": _clone(pr["Sigmasq_p"]),
-                "Mu_e": _clone(pr["Mu_e"]),
-                "Sigmasq_e": _clone(pr["Sigmasq_e"]),
-                "acc_P": _clone(state["acc_P"]),
-                "acc_E": _clone(state["acc_E"])}
+    def _snap(self, state, names) -> dict:
+        """Copies of the tensors ``names`` of ``state`` (where the
+        reference's ``STATE`` says each sits), a single chain's as a batch
+        of one."""
+        one = _one_chain(state)
+        out = {}
+        for name in names:
+            group = self.ref.STATE[name]
+            out[name] = _clone((state[group] if group else state)[name], one)
+        return out
 
     def _init(self, orig):
         @functools.wraps(orig)
-        def init_chain_states(spec, hp, data, gen, n_chains, *a, **k):
-            states = orig(spec, hp, data, gen, n_chains, *a, **k)
-            if self.fit is not None:
-                snap = self._snap(states)
-                self.starts.append({k_: snap[k_] for k_ in (
-                    "P", "E", "A", "R", "Mu_p", "Mu_e", "Sigmasq_p",
-                    "Sigmasq_e")} | {"seed": self.fit_seed,
-                                     "uids": np.arange(n_chains)})
-            return states
-        return init_chain_states
+        def init_state(*a, **k):
+            state = orig(*a, **k)
+            if self.fit is not None and self.capture:
+                C = 1 if _one_chain(state) else state["params"]["P"].shape[0]
+                self.starts.append(self._snap(state, self.ref.START) | {
+                    "seed": self.fit_seed, "uids": np.arange(C)})
+            return state
+        return init_state
 
-    def _span(self, orig, label, chunk):
+    def _span(self, orig, name, label, chunk):
         torch = self.torch
 
         @functools.wraps(orig)
@@ -287,7 +341,7 @@ class Hooks:
             self._inner.append(0.0)
             t0 = time.perf_counter()
             try:
-                with torch.profiler.record_function(f"ensemble/{label}"):
+                with torch.profiler.record_function(name):
                     return orig(*a, **k)
             finally:
                 dt = time.perf_counter() - t0
@@ -344,23 +398,57 @@ class Hooks:
         self.capture_kernels = True
 
 
+def _one_chain(state) -> bool:
+    """A GibbsSampler's state: one chain, no chain axis (P is (K, N))."""
+    return state["params"]["P"].dim() == 2
+
+
 class Run:
     """What a metric's reader reads: the cell, its shape, the window's
     counts and, with ``trace``, the spans, the profiled stretch and the
-    kernels' times."""
+    kernels' times. ``count``: the configuration's work count (load_count),
+    None where its model has none; the bounds are then None, and
+    ``missing_bound`` records that a reader asked for one."""
+
+    count = None
 
     def __init__(self, **kw):
+        self.missing_bound = False
         self.__dict__.update(kw)
 
-    def step_bound_s(self, C: int) -> float:
-        """The least seconds of one step of C chains at this cell's shape."""
-        return W.step_bound_s(self.K, self.N, self.G, C, self.learning)
+    def step_bound_s(self, C: int):
+        """The least seconds of one step of C chains at this cell's shape,
+        or None without a count."""
+        if self.count is None:
+            self.missing_bound = True
+            return None
+        return self.count.step_bound_s(self.K, self.N, self.G, C,
+                                       self.learning)
 
-    def bound_s(self, name: str, C=None) -> float:
-        """W.kernel_bound_s of a component or the fused call at this cell's
-        shape (C: the chains the window's steps ran, by default)."""
-        return W.kernel_bound_s(name, self.K, self.N, self.G,
-                                self.C if C is None else C, self.learning)
+    def bound_s(self, name: str, C=None):
+        """The count's kernel_bound_s of a component or the fused call at
+        this cell's shape (C: the chains the window's steps ran, by
+        default), or None without a count."""
+        if self.count is None:
+            self.missing_bound = True
+            return None
+        return self.count.kernel_bound_s(name, self.K, self.N, self.G,
+                                         self.C if C is None else C,
+                                         self.learning)
+
+
+def read_metric(reader, run: Run):
+    """``reader``'s number, or None where it rests on a bound that the
+    configuration's model has no count for (whatever the reader made of
+    the None, an error of arithmetic on it included)."""
+    run.missing_bound = False
+    try:
+        v = reader(run)
+    except TypeError:
+        if run.missing_bound:
+            return None
+        raise
+    return None if run.missing_bound else v
 
 
 def _control(cc_cls, traffic, warm: bool):
@@ -370,35 +458,94 @@ def _control(cc_cls, traffic, warm: bool):
                   Ninarow_nobest=NEVER), it["post_warmup"]
 
 
+def ranks_of(traffic):
+    """(the rank argument of the traffic's entry, its largest rank N): a
+    fixed ``rank``, or ``ranks`` [lo, hi] as range(lo, hi + 1)."""
+    if "rank" in traffic:
+        return int(traffic["rank"]), int(traffic["rank"])
+    lo, hi = traffic["ranks"]
+    return range(lo, hi + 1), hi
+
+
+def model_kw(model: dict, cls) -> dict:
+    """The configuration's model keys that ``cls`` takes as keywords
+    (likelihood, prior and MH every entry's class takes)."""
+    takes = inspect.signature(cls.__init__).parameters
+    return {k: v for k, v in model.items() if k in takes}
+
+
+def model_gaps(model: dict, spec) -> list:
+    """Where the program's spec differs from the configuration's model:
+    one line a key, with both values. Each key reads the spec's attribute
+    of its name, but ``max_rank``, which bounds the spec's N (the traffic
+    picks the ranks)."""
+    gaps = []
+    for key, want in model.items():
+        if key == "max_rank":
+            got, ok = spec.N, spec.N <= want
+        else:
+            got = getattr(spec, key, "(not taken up)")
+            ok = got == want
+        if not ok:
+            gaps.append(f"model {key}: configuration {want!r}, program "
+                        f"{got!r}")
+    return gaps
+
+
+def path_of(spec) -> str:
+    """The path a step of ``spec`` takes, in models/gibbs.py gibbs_step's
+    order: stream, conjugate (Poisson with MH off), eager or fused."""
+    if spec.stream_sweeps:
+        return "stream"
+    if spec.likelihood == "poisson" and not spec.MH:
+        return "conjugate"
+    return "fused" if spec.fused_sweeps else "eager"
+
+
 def _fit(bt, cell, M, seed, device, warm=False):
-    """One user fit of the cell's traffic; returns the ensemble."""
+    """One user fit of the cell's traffic through its entry; returns the
+    fitted ChainEnsemble or GibbsSampler."""
     tr = cell["traffic"]
+    if tr["entry"] not in ENTRIES:
+        raise ValueError(f"unknown entry {tr['entry']!r}")
     cc, post = _control(bt.ConvergenceControl, tr, warm)
-    ranks = range(tr["ranks"][0], tr["ranks"][1] + 1)
+    rank, _ = ranks_of(tr)
     save = tr["checkpoint"]
-    kw = dict(convergence_control=cc, post_warmup=post, seed=seed,
-              store_E=tr["store_E"], periodic_save=save == "periodic",
-              stream_sweeps=tr.get("stream_sweeps"), device=device)
+    kw = model_kw(cell["config"]["model"], getattr(bt, ENTRIES[tr["entry"]]))
+    kw.update(convergence_control=cc, post_warmup=post, seed=seed,
+              periodic_save=save == "periodic", device=device)
+    # the ensemble's own options, where the traffic sets them
+    kw.update({k: tr[k] for k in ("store_E", "stream_sweeps") if k in tr})
     with tempfile.TemporaryDirectory() as tmp:
         out = None if save == "none" else os.path.join(tmp, "fit")
         if tr["entry"] == "ensemble":
-            ens = bt.ChainEnsemble(M, ranks, n_chains=tr["n_chains"],
-                                   rank_method=tr["rank_method"],
-                                   output_dir=out, **kw)
-            ens.run()
+            fitted = bt.ChainEnsemble(M, rank, n_chains=tr["n_chains"],
+                                      rank_method=tr["rank_method"],
+                                      output_dir=out, **kw)
+            fitted.run()
         elif tr["entry"] == "bic":
-            ens = bt.fit(M, ranks, rank_method="BIC", output_dir=out,
-                         **kw)["ensemble"]
+            fitted = bt.fit(M, rank, rank_method="BIC", output_dir=out,
+                            **kw)["ensemble"]
         else:
-            raise ValueError(f"unknown entry {tr['entry']!r}")
-    return ens
+            fitted = bt.fit(M, rank, rank_method=tr.get("rank_method",
+                                                        "SBFI"),
+                            output_dir=out, **kw)
+    return fitted
 
 
-def _finite(ens) -> bool:
-    maps = [m for m in ens.MAP_per_chain if m is not None]
-    return (len(maps) == ens.n_chains
+def _finite(fitted) -> bool:
+    """Every chain's MAP P and metrics rows (RMSE to rank) finite: an
+    ensemble's, or a sampler's one chain."""
+    if hasattr(fitted, "MAP_per_chain"):
+        maps, n = fitted.MAP_per_chain, fitted.n_chains
+        rows = fitted._metrics_all()[..., 1:8]
+    else:
+        maps, n = [fitted.MAP], 1
+        rows = np.concatenate(fitted._metric_rows)[:, 1:8]
+    maps = [m for m in maps if m is not None]
+    return (len(maps) == n
             and all(np.all(np.isfinite(np.asarray(m["P"]))) for m in maps)
-            and bool(np.all(np.isfinite(ens._metrics_all()[:, 1:8]))))
+            and bool(np.all(np.isfinite(rows))))
 
 
 def _fit_seed(seed: int, i: int) -> int:
@@ -413,7 +560,8 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
     """One run of the cell ``name``: (result dict, the check's lines for
     standard error). ``cell``: the loaded cell (load_cell), to run one not
     in BENCHMARK.json (the tests' small cells); ``keep``: a dict that gets
-    what the check compared (control.py reads the control from it)."""
+    what the check compared (control.py reads the control from it, the
+    tests the program's spec and the Run)."""
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
 
@@ -421,34 +569,36 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
     from bayesnmf_tpu_torch.models import gibbs
     from bayesnmf_tpu_torch.models import updates as U
     from bayesnmf_tpu_torch.ops import stream_sweeps as S
-    from bayesnmf_tpu_torch.parallel import chains
 
     cell = cell or load_cell(root, name)
     cfg, tr, wl = cell["config"], cell["traffic"], cell["workload"]
     on_card = torch.device(device).type == "cuda"
     K, G = cfg["K"], tr["G"]
-    N = tr["ranks"][1]
+    _, N = ranks_of(tr)
     M, _ = D.synthetic(K, G, cfg["data"]["true_rank"], int(seed),
                        cfg["data"]["scale"])
     if on_card:
         from bayesnmf_tpu_torch.ops import _build
 
         _build.load_library()
-    ens = _fit(bt, cell, M, _fit_seed(seed, 0), device, warm=True)
-    path = ("stream" if ens.spec.stream_sweeps
-            else "fused" if ens.spec.fused_sweeps else "other")
-    learning = bool(ens.spec.learning_rank)
-    sbfi = ens.spec.rank_method == "SBFI"
-    del ens
+    fitted = _fit(bt, cell, M, _fit_seed(seed, 0), device, warm=True)
+    spec = fitted.spec
+    del fitted
     if on_card:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
+    path, learning = path_of(spec), bool(spec.learning_rank)
+    sbfi = spec.rank_method == "SBFI"
+    gaps = model_gaps(cfg["model"], spec)
+    ref = CK.load_reference(root, cfg["reference"])
+    declared = path in ref.STEPS
 
-    hooks = Hooks(torch, {"gibbs": gibbs, "chains": chains, "S": S, "U": U,
-                          "ChainEnsemble": bt.ChainEnsemble}, trace,
-                  wl["trace"])
+    hooks = Hooks(torch, {"gibbs": gibbs, "S": S, "U": U,
+                          "entry": getattr(bt, ENTRIES[tr["entry"]])},
+                  trace, wl["trace"], ref, capture=declared)
     hooks.install()
-    n_iter = tr["maxiters"] + tr["post_warmup"]
+    # the steps a fit runs: the post-warm-up ones only with MH
+    n_iter = tr["maxiters"] + (tr["post_warmup"] if spec.MH else 0)
     fits, walls, failed = [], [], 0
     t0 = time.perf_counter()
     try:
@@ -457,12 +607,12 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
             hooks.begin_fit(i, _fit_seed(seed, i + 1), CK.sample_steps(
                 seed, i, n_iter, tr["maxiters"], wl["replays_per_fit"]))
             n0, t1 = sum(hooks.steps), time.perf_counter()
-            ens = _fit(bt, cell, M, _fit_seed(seed, i + 1), device)
+            fitted = _fit(bt, cell, M, _fit_seed(seed, i + 1), device)
             hooks.end_fit()
-            failed += not _finite(ens)
+            failed += not _finite(fitted)
             fits.append(sum(hooks.steps) - n0)
             walls.append(time.perf_counter() - t1)
-            del ens
+            del fitted
             if time.perf_counter() - t0 >= seconds:
                 break
     finally:
@@ -472,9 +622,14 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
         hooks.uninstall()
     peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
 
+    # the count is the reference's model's: of no use where the program ran
+    # another model or a path that the reference does not declare
+    count = load_count(root, cfg["reference"]) if declared and not gaps \
+        else None
     # a traced run's readings leave out the profiler's own start and stop
-    run_rec = Run(cell=cell, K=K, N=N, G=G, C=tr["n_chains"],
-                  learning=learning, path=path, trace=trace, setup_s=setup_s,
+    run_rec = Run(cell=cell, K=K, N=N, G=G, C=tr.get("n_chains", 1),
+                  count=count, learning=learning, path=path, trace=trace,
+                  setup_s=setup_s,
                   window_s=window_s - hooks.prof_s, chain_iters=sum(fits),
                   fits=fits,
                   steps=hooks.steps, spans=hooks.spans, stretch=None,
@@ -488,7 +643,6 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
     # the check, once the window has closed and its state is freed
     t_check = time.perf_counter()
     data = torch.as_tensor(M, device=device)
-    ref = CK.load_reference(root, cfg["reference"])
     hp = ref.hyperpriors(N, float(np.asarray(M, np.float32).mean()))
     for cap in hooks.captures:
         cap["in"]["temperature"] = float(cap["in"]["temperature"])
@@ -497,18 +651,18 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
     got = CK.mismatch(*args)
     check_s = time.perf_counter() - t_check
     if keep is not None:
-        keep.update(args=args, got=got)
+        keep.update(args=args, got=got, spec=spec, run=run_rec)
     limits = wl["limits"]
     checks = {"mismatch_share": {"value": got["mismatch_share"],
                                  "limit": limits["mismatch_share"]}}
     correct = (got["mismatch_share"] <= limits["mismatch_share"]
                and got["steps"] >= len(fits) and got["starts"] == len(fits)
-               and failed == 0 and path == tr["path"])
+               and failed == 0 and path == tr["path"] and not gaps)
 
     metrics = {}
     wanted = cell["per_layer"] if trace else cell["end_to_end"]
     for m in wanted:
-        v = load_reader(root, m["name"])(run_rec)
+        v = read_metric(load_reader(root, m["name"]), run_rec)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     dev = {"platform": "gpu" if on_card else "cpu",
@@ -522,12 +676,15 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
         res["breakdown"] = {"device_ops": run_rec.stretch["device_ops"],
                             "idle_gaps": run_rec.stretch["idle_gaps"]}
     res["checks"] = checks
-    lines = [f"worst: {got['worst']}; steps compared {got['steps']}, starts "
-             f"{got['starts']}, fits {len(fits)}, failed {failed}; path "
-             f"{path} (the cell's: {tr['path']})",
-             "fit seconds: " + " ".join(f"{w:.3f}" for w in walls)
-             + f"; window {window_s:.3f} s, profiler {hooks.prof_s:.3f} s, "
-             f"check {check_s:.3f} s"]
+    lines = gaps + ([] if declared else [
+        f"path {path}: not declared by the reference {cfg['reference']} "
+        f"(it declares {', '.join(ref.STEPS)}); nothing replayed"])
+    lines += [f"worst: {got['worst']}; steps compared {got['steps']}, starts "
+              f"{got['starts']}, fits {len(fits)}, failed {failed}; path "
+              f"{path} (the cell's: {tr['path']})",
+              "fit seconds: " + " ".join(f"{w:.3f}" for w in walls)
+              + f"; window {window_s:.3f} s, profiler {hooks.prof_s:.3f} "
+              f"s, check {check_s:.3f} s"]
     if trace:
         lines.append("span seconds: " + ", ".join(
             f"{k} {sum(v):.3f} ({len(v)})" for k, v in hooks.spans.items())

@@ -810,3 +810,19 @@ def init_draws(hp, s, N, G, learning: bool, rounding=None):
         out["R"] = R
         out["A"] = (d("A", N) < p1.unsqueeze(-1)).to(F32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# What this reference checks (read by benchmark/harness.py and check.py)
+# ---------------------------------------------------------------------------
+
+#: the state tensors a replayed step compares, each with where it sits in
+#: the program's state: under "params", under "prior" or at the top ("")
+STATE = {"P": "params", "E": "params", "A": "params", "R": "params",
+         "Mu_p": "prior", "Sigmasq_p": "prior", "Mu_e": "prior",
+         "Sigmasq_e": "prior", "acc_P": "", "acc_E": ""}
+#: the tensors of a fit's start that the harness keeps (init_draws reads
+#: Sigmasq_p and Sigmasq_e and derives the others again)
+START = ("P", "E", "A", "R", "Mu_p", "Mu_e", "Sigmasq_p", "Sigmasq_e")
+#: the program's path name -> the step that replays it
+STEPS = {"stream": stream_step, "fused": fused_step}

@@ -14,7 +14,8 @@ SHAPES = [(96, 20, 10000, 8, True), (1536, 20, 2780, 8, True),
 def _run(path, shape):
     K, N, G, C, learning = shape
     return harness.Run(K=K, N=N, G=G, C=C, learning=learning, path=path,
-                       steps=[C] * 10, window_s=1.0)
+                       steps=[C] * 10, window_s=1.0,
+                       count=harness.load_count(ROOT, "poisson_tn_mh"))
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -23,6 +23,10 @@ and the streaming step read the same bound at one shape:
 A component's count (``hyper``, one ``pcol`` column, one ``erow`` row, one
 ``acol`` column, the ``rdraw``, the ``row``, the ``draws``) is the work of
 one update of every chain; ``step`` is their sum, with the step's own bytes.
+
+This is the count of the configurations whose reference is
+``poisson_tn_mh`` (``counts/poisson_tn_mh.py``); another model's count is a
+file of its own under ``counts/``.
 """
 
 from __future__ import annotations
