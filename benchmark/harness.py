@@ -33,14 +33,30 @@ puts around the program's functions (``Hooks``): the steps a fit ran and
 their inputs and outputs (``models.gibbs.gibbs_step``), the initial draws
 (``models.gibbs.init_state``), and with ``trace`` the host-clock spans of
 the entry's phases, a profiled stretch of the window and the arguments of
-one call of each kernel. A single chain's state, which has no chain axis,
-is kept as a batch of one (uid 0), as the reference replays a batch.
+the first call after it of each call that the reference times on the
+run's path. A single chain's state, which has no chain axis, is kept as a
+batch of one (uid 0), as the reference replays a batch.
+
+The reference declares what a traced run times: ``TIMED``, path ->
+{timing name: calls}, a call written ``"<module>:<attribute>"`` under
+``bayesnmf_tpu_torch`` where the program looks the attribute up (``ops.
+stream_sweeps:stream_pcol_update``). Each group is timed with CUDA events
+over ``kernel_reps`` calls of its calls together, once each is captured,
+into ``Run.kernel_ms[timing name]``. A declared call that does not exist
+stops the run (``MissingCall``).
+
+A traced run also records the program's own spans
+(``bayesnmf_tpu_torch.utils.tracing``) over the window, and keeps the
+profiled stretch's trace events, so that a reader puts the device's idle
+time down to them (``attribution.py``). An untraced run, which gives the
+end-to-end metrics, leaves the program's tracing off.
 """
 
 from __future__ import annotations
 
 import functools
 import gc
+import importlib
 import importlib.util
 import inspect
 import json
@@ -178,34 +194,65 @@ PHASES = {"ChainEnsemble": (("__init__", "construct"), ("_run_chunk", "loop"),
 # the prefix of the benchmark's spans in the trace, by class
 SPAN_PREFIX = {"ChainEnsemble": "ensemble", "GibbsSampler": "sampler"}
 
-# per path: the kernel wrappers whose calls are timed, (module key, name)
-KERNELS = {"stream": (("S", "stream_pcol_update"),
-                      ("S", "stream_erow_update"),
-                      ("S", "stream_acol_update"),
-                      ("U", "sample_prior_params"), ("U", "sample_R")),
-           "fused": (("gibbs", "fused_gibbs_sweeps"),)}
+PROGRAM = "bayesnmf_tpu_torch"
+
+
+class MissingCall(LookupError):
+    """A call that a reference's ``TIMED`` declares and the program does
+    not have."""
+
+
+def timed_calls(ref, path: str) -> dict:
+    """{"<module>:<attribute>": (the module, the attribute)} of every call
+    that the reference's ``TIMED[path]`` declares (none where it declares
+    no group for ``path``); MissingCall names the first that does not
+    exist."""
+    out = {}
+    for name, calls in ref.TIMED.get(path, {}).items():
+        for call in calls:
+            mod_name, _, attr = call.partition(":")
+            mod = None
+            if mod_name and attr:
+                try:
+                    mod = importlib.import_module(f"{PROGRAM}.{mod_name}")
+                except ModuleNotFoundError as e:
+                    if not (e.name or "").startswith(PROGRAM):
+                        raise
+            if mod is None or not hasattr(mod, attr):
+                raise MissingCall(
+                    f"TIMED[{path!r}][{name!r}]: {call} does not exist in "
+                    f"{PROGRAM}")
+            out[call] = (mod, attr)
+    return out
 
 
 class Hooks:
     """The wrappers the benchmark puts around the program's functions, and
     what they record. ``fit`` is the window's fit index (None outside the
     window). ``ref``: the configuration's reference, whose ``STATE`` and
-    ``START`` say what a captured step and start keep; ``capture`` False (a
-    path the reference does not declare) keeps none. ``mods["entry"]``:
-    the entry's class, whose ``PHASES`` are spanned."""
+    ``START`` say what a captured step and start keep and whose ``TIMED``
+    names the calls a traced run times on ``path``; ``capture`` False (a
+    path the reference does not declare) keeps no step or start.
+    ``mods["entry"]``: the entry's class, whose ``PHASES`` are spanned.
+
+    A step sampled for the check that falls inside the profiled stretch is
+    captured at the first step after the stretch instead, so that the
+    check's copies leave the stretch's device operations alone."""
 
     def __init__(self, torch, mods: dict, trace: bool, plan: dict, ref,
-                 capture: bool = True):
+                 path: str, capture: bool = True):
         self.torch = torch
         self.mods = mods
         self.trace = trace
         self.plan = plan
         self.ref = ref
+        self.path = path
         self.capture = capture
         self.in_step = False
         self.fit = None
         self.fit_seed = None
         self.sample = set()
+        self.deferred = False
         self.fit_steps = 0
         self.chunks = 0
         self.steps = []
@@ -218,6 +265,7 @@ class Hooks:
         self.stretch = None
         self.stretch_steps = 0
         self.capture_kernels = False
+        self.timed = {}
         self.kernel_calls = {}
         self.saved = []
 
@@ -229,6 +277,9 @@ class Hooks:
         setattr(owner, name, wrapper)
 
     def install(self):
+        # every declared call of the run's path is looked up, traced or not
+        calls = timed_calls(self.ref, self.path)
+        self.timed = self.ref.TIMED.get(self.path, {})
         gibbs = self.mods["gibbs"]
         self._patch(gibbs, "gibbs_step", self._step(gibbs.gibbs_step))
         self._patch(gibbs, "init_state", self._init(gibbs.init_state))
@@ -239,11 +290,9 @@ class Hooks:
                 self._patch(cls, name, self._span(
                     getattr(cls, name), f"{prefix}/{label}", label,
                     label == "loop"))
-            for path_kernels in KERNELS.values():
-                for key, name in path_kernels:
-                    mod = self.mods[key]
-                    self._patch(mod, name, self._kernel(getattr(mod, name),
-                                                         name))
+            for call, (mod, attr) in calls.items():
+                self._patch(mod, attr, self._kernel(getattr(mod, attr),
+                                                    call))
 
     def uninstall(self):
         for owner, name, f, own in reversed(self.saved):
@@ -258,6 +307,7 @@ class Hooks:
     def begin_fit(self, i: int, fit_seed: int, sample: set):
         self.fit, self.fit_seed, self.sample = i, fit_seed, sample
         self.fit_steps = self.chunks = 0
+        self.deferred = False
 
     def end_fit(self):
         if self.prof is not None:
@@ -278,7 +328,11 @@ class Hooks:
             one = _one_chain(state)
             it = state["iter"]
             cap = None
-            if self.capture and it in self.sample:
+            due = self.capture and (it in self.sample or self.deferred)
+            if due and self.prof is not None:
+                self.deferred, due = True, False
+            if due:
+                self.deferred = False
                 gen = state["gen"]
                 C = 1 if one else state["params"]["P"].shape[0]
                 ok = (it == self.fit_steps + 1 and gen.seed == self.fit_seed
@@ -350,12 +404,12 @@ class Hooks:
                     self._inner[-1] += dt
         return span
 
-    def _kernel(self, orig, name):
+    def _kernel(self, orig, call):
         @functools.wraps(orig)
         def kernel(*a, **k):
             if (self.capture_kernels and self.fit is not None
-                    and name not in self.kernel_calls):
-                self.kernel_calls[name] = (orig, _clone(a), _clone(k))
+                    and call not in self.kernel_calls):
+                self.kernel_calls[call] = (orig, _clone(a), _clone(k))
             return orig(*a, **k)
         return kernel
 
@@ -381,6 +435,7 @@ class Hooks:
         self.prof = profile(activities=acts)
         self.prof.__enter__()
         self.stretch_steps = 0
+        self._t_prof_ns = time.perf_counter_ns()
         self._t_prof = time.perf_counter()
         self.prof_s += self._t_prof - t0
 
@@ -388,12 +443,14 @@ class Hooks:
         torch = self.torch
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        t1_ns = time.perf_counter_ns()
         t1 = time.perf_counter()
         wall = t1 - self._t_prof
         self.prof.__exit__(None, None, None)
         self.prof_s += time.perf_counter() - t1
         self.stretch = {"prof": self.prof, "window_s": wall,
-                        "steps": self.stretch_steps}
+                        "steps": self.stretch_steps,
+                        "ns": (self._t_prof_ns, t1_ns)}
         self.prof = None
         self.capture_kernels = True
 
@@ -405,12 +462,20 @@ def _one_chain(state) -> bool:
 
 class Run:
     """What a metric's reader reads: the cell, its shape, the window's
-    counts and, with ``trace``, the spans, the profiled stretch and the
-    kernels' times. ``count``: the configuration's work count (load_count),
-    None where its model has none; the bounds are then None, and
-    ``missing_bound`` records that a reader asked for one."""
+    counts and, with ``trace``, the benchmark's spans, the profiled stretch
+    (``stretch``: its summary; ``events``: its chrome-trace events;
+    ``stretch_ns``: its bounds on ``time.perf_counter_ns``), the program's
+    spans over the window (``program_spans``, ``tracing.take()``'s records)
+    and the timed calls' times (``kernel_ms``). ``count``: the
+    configuration's work count (load_count), None where its model has none;
+    the bounds are then None, and ``missing_bound`` records that a reader
+    asked for one."""
 
     count = None
+    stretch = None
+    events = None
+    stretch_ns = None
+    program_spans = ()
 
     def __init__(self, **kw):
         self.missing_bound = False
@@ -567,8 +632,7 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
 
     import bayesnmf_tpu_torch as bt
     from bayesnmf_tpu_torch.models import gibbs
-    from bayesnmf_tpu_torch.models import updates as U
-    from bayesnmf_tpu_torch.ops import stream_sweeps as S
+    from bayesnmf_tpu_torch.utils import tracing
 
     cell = cell or load_cell(root, name)
     cfg, tr, wl = cell["config"], cell["traffic"], cell["workload"]
@@ -593,13 +657,16 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
     ref = CK.load_reference(root, cfg["reference"])
     declared = path in ref.STEPS
 
-    hooks = Hooks(torch, {"gibbs": gibbs, "S": S, "U": U,
+    hooks = Hooks(torch, {"gibbs": gibbs,
                           "entry": getattr(bt, ENTRIES[tr["entry"]])},
-                  trace, wl["trace"], ref, capture=declared)
+                  trace, wl["trace"], ref, path, capture=declared)
     hooks.install()
     # the steps a fit runs: the post-warm-up ones only with MH
     n_iter = tr["maxiters"] + (tr["post_warmup"] if spec.MH else 0)
     fits, walls, failed = [], [], 0
+    program_spans = []
+    if trace:
+        tracing.enable()
     t0 = time.perf_counter()
     try:
         while True:
@@ -619,6 +686,9 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
         if on_card:
             torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+        if trace:
+            tracing.disable()
+            program_spans = tracing.take()
         hooks.uninstall()
     peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
 
@@ -633,7 +703,7 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
                   window_s=window_s - hooks.prof_s, chain_iters=sum(fits),
                   fits=fits,
                   steps=hooks.steps, spans=hooks.spans, stretch=None,
-                  kernel_ms={})
+                  kernel_ms={}, program_spans=program_spans)
     if trace:
         _trace_readings(torch, hooks, run_rec)
     gc.collect()
@@ -696,20 +766,22 @@ def run(root: str, name: str, seed: int, seconds: float, trace: bool,
 
 
 def _trace_readings(torch, hooks: Hooks, run_rec: Run):
-    """The profiled stretch's summary and the captured kernels' times."""
+    """The times of the timed groups whose calls were all captured, then
+    the profiled stretch's events and summary (read after the timing, so
+    that host-issued calls are not timed beside a large trace in memory)."""
+    reps = run_rec.cell["workload"].get("kernel_reps", 20)
+    for name, calls in hooks.timed.items():
+        got = [hooks.kernel_calls.get(c) for c in calls]
+        if None in got:
+            continue
+
+        def group(got=got):
+            for fn, a, k in got:
+                fn(*a, **k)
+        run_rec.kernel_ms[name] = time_ms(torch, group, reps)
+    hooks.kernel_calls = {}
     if hooks.stretch is not None:
         st = hooks.stretch
-        summ = PR.summarize(PR.read_trace(st.pop("prof")))
-        run_rec.stretch = st | summ
-    calls = hooks.kernel_calls
-    reps = run_rec.cell["workload"].get("kernel_reps", 20)
-    for name, (fn, a, k) in calls.items():
-        if name in ("sample_prior_params", "sample_R"):
-            continue
-        run_rec.kernel_ms[name] = time_ms(torch, lambda: fn(*a, **k), reps)
-    if "sample_prior_params" in calls and "sample_R" in calls:
-        (f1, a1, k1), (f2, a2, k2) = (calls["sample_prior_params"],
-                                      calls["sample_R"])
-        run_rec.kernel_ms["prior_update"] = time_ms(
-            torch, lambda: (f1(*a1, **k1), f2(*a2, **k2)), reps)
-    hooks.kernel_calls = {}
+        run_rec.events = PR.read_trace(st.pop("prof"))
+        run_rec.stretch_ns = st.pop("ns")
+        run_rec.stretch = st | PR.summarize(run_rec.events)

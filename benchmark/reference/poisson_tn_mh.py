@@ -826,3 +826,14 @@ STATE = {"P": "params", "E": "params", "A": "params", "R": "params",
 START = ("P", "E", "A", "R", "Mu_p", "Mu_e", "Sigmasq_p", "Sigmasq_e")
 #: the program's path name -> the step that replays it
 STEPS = {"stream": stream_step, "fused": fused_step}
+#: the program's path name -> {timing name: the calls a traced run times
+#: together}, each "<module under bayesnmf_tpu_torch>:<attribute>" where
+#: the program looks the attribute up
+TIMED = {
+    "stream": {
+        "stream_pcol_update": ("ops.stream_sweeps:stream_pcol_update",),
+        "stream_erow_update": ("ops.stream_sweeps:stream_erow_update",),
+        "stream_acol_update": ("ops.stream_sweeps:stream_acol_update",),
+        "prior_update": ("models.updates:sample_prior_params",
+                         "models.updates:sample_R")},
+    "fused": {"fused_gibbs_sweeps": ("models.gibbs:fused_gibbs_sweeps",)}}

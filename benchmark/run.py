@@ -7,7 +7,8 @@ The last line of standard output is one JSON object (``correct``,
 ``breakdown``, and last ``checks``: each number compared with its limit);
 the last lines of standard error repeat the checks. Exits 2 without a card
 (or with fewer cards than the cell asks for), 3 when JAX or the JAX package
-was loaded, each without a result.
+was loaded, 4 when the reference times a call that the program does not
+have, each without a result.
 """
 
 import time
@@ -42,8 +43,13 @@ def main(argv=None) -> int:
               f"this machine has {torch.cuda.device_count()}",
               file=sys.stderr)
         return 2
-    res, lines = harness.run(ROOT, args.workload, args.seed, args.seconds,
-                             bool(args.trace), "cuda", T_START, cell)
+    try:
+        res, lines = harness.run(ROOT, args.workload, args.seed,
+                                 args.seconds, bool(args.trace), "cuda",
+                                 T_START, cell)
+    except harness.MissingCall as e:
+        print(f"no result: {e}", file=sys.stderr)
+        return 4
     bad = harness.foreign_modules()
     if bad:
         print(f"no result: the run loaded {', '.join(bad)}", file=sys.stderr)

@@ -1,15 +1,15 @@
 """The device's idle time put down to the program's spans
-(benchmark/attribution.py) on hand-made chrome-trace events, and
-benchmark/spans.py on the small cells: harness.py left as it was, the
-readings there on the CPU, the shares None without device operations."""
+(benchmark/attribution.py) on hand-made chrome-trace events, and the
+harness's traced runs of the small cells: the program's spans kept on the
+Run, the readings there on the CPU, the shares None without device
+operations."""
 
 import pytest
 
 from benchmark import attribution as A
 from benchmark import harness
 from benchmark import profiling as PR
-from benchmark import spans as SP
-from small import ROOT, small_cell
+from small import ROOT, run_small
 
 
 def _host(name, t0, t1):
@@ -89,20 +89,27 @@ def test_step_host_ms_leaves_out_the_stretch():
 
 @pytest.mark.parametrize("kind", ["stream", "fused"])
 def test_spans_run_on_the_small_cells(kind):
-    hooks, read = harness.Hooks, PR.read_trace
-    cell = small_cell(kind)
-    res, _ = SP.run(ROOT, cell["name"], 12345678901, 0.0, True, "cpu",
-                    cell=cell)
-    assert harness.Hooks is hooks and PR.read_trace is read
+    from bayesnmf_tpu_torch.utils import tracing
+
+    keep = {}
+    res, _ = run_small(kind, trace=True, keep=keep)
     assert res["correct"]
-    p = res["program"]
-    assert p["step_host_ms"] > 0
-    assert p["spans_per_step"] == (8 if kind == "stream" else 6)
+    run = keep["run"]
+    assert A.step_host_ms(run.program_spans, run.stretch_ns) > 0
+    assert res["metrics"]["step_host_ms"]["value"] == \
+        A.step_host_ms(run.program_spans, run.stretch_ns)
+    summ = tracing.summary(run.program_spans)
+    per_step = sum(d["count"] for k, d in summ.items()
+                   if k.startswith(("step.", "chains.")))
+    assert per_step / summ[A.STEP]["count"] == (8 if kind == "stream" else 6)
     # no device operation on the CPU: the idle shares read nothing
-    assert p["step_idle_share"] is None
-    assert p["prior_update_idle_share"] is None
-    assert "device_idle_share" not in res["metrics"]
-    off, _ = SP.run(ROOT, cell["name"], 12345678901, 0.0, False, "cpu",
-                    cell=cell, spans=False)
-    assert off["program"]["summary"] == {}
-    assert off["program"]["step_host_ms"] is None
+    assert A.step_idle_share(run.events, run.stretch["window_s"]) is None
+    assert A.prior_update_idle_share(run.events,
+                                     run.stretch["window_s"]) is None
+    for name in ("step_idle_share", "prior_update_idle_share",
+                 "device_idle_share"):
+        assert name not in res["metrics"]
+    off = {}
+    run_small(kind, keep=off)
+    assert tracing.summary(off["run"].program_spans) == {}
+    assert A.step_host_ms(off["run"].program_spans) is None
